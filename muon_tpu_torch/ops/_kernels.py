@@ -1,0 +1,158 @@
+"""Build, binding and launch counters of the hand-written CUDA kernels.
+
+``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a
+plain C interface, at first use, into ``muon_tpu_torch/_build/``. The file
+name carries a hash of the sources and flags, so an edited source rebuilds.
+Nothing here runs at import: the CPU tests import every module and never
+build. A missing ``nvcc`` or a failed build raises with the compiler's
+output; there is no fallback to the plain versions.
+
+Launch counters: every kernel wrapper adds one to its entry in
+``_LAUNCHES`` each time it launches its kernel, and nowhere else, so a run
+can show that it really went through the kernels
+(``reset_launch_counts()`` before, ``launch_counts()`` after).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+__all__ = [
+    "KERNELS",
+    "build",
+    "library",
+    "launch",
+    "launch_counts",
+    "library_path",
+    "reset_launch_counts",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry point -> argtypes (pointers and the stream as c_void_p, or ctypes
+# would pass them as 32-bit ints and cut them)
+_SIGNATURES = {
+    "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _I, _I, _I, _F, _P, _P),
+    "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
+}
+
+# counter name -> the C entry point it counts
+KERNELS = {
+    "tfidf_values": "mt_tfidf_values",
+    "csr_spmm_f32": "mt_csr_spmm",
+    "csr_spmm_bf16": "mt_csr_spmm",
+    "csr_spmm_t_f32": "mt_csr_spmm_t",
+    "csr_spmm_t_bf16": "mt_csr_spmm_t",
+    "csr_gram_matmul": "mt_csr_gram_matmul",
+}
+
+_LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked under CUDA_HOME and on PATH); the CUDA "
+            "kernels of muon_tpu_torch cannot be built"
+        )
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmuon_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: concurrent builds see whole files only
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.mt_error_string.argtypes = [ctypes.c_int]
+        lib.mt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call the C entry point of ``kernel`` on ``device``'s current stream,
+    count the launch, and raise if CUDA reports an error. The caller's
+    current device is restored afterwards."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, KERNELS[kernel])(*args, stream)
+    _LAUNCHES[kernel] += 1
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel}: CUDA error {err} "
+            f"({lib.mt_error_string(err).decode()})"
+        )
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
