@@ -1,30 +1,50 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; one CUDA device, nvcc
 
-The main path is the repository's headline workload: ``atac.pp.tfidf``
-then ``atac.tl.lsi(n_comps=50)`` on synthetic ATAC counts, 100,000 cells ×
-25,000 peaks, 250 draws per cell with Pareto(1.2) peak popularity (the
-recipe of ``bench.py::make_counts``, seed 0), through ``muon_tpu_torch``.
+Two paths of the user journey (README.md, bench_e2e.py), through
+``muon_tpu_torch``, at full width:
 
-Phases, one line each; any failure raises and the exit code is not 0:
+* ATAC: ``atac.pp.tfidf`` → ``atac.tl.lsi(n_comps=50)`` →
+  ``pp.neighbors(n_neighbors=20, use_rep="X_lsi")`` on synthetic ATAC
+  counts, 100,000 cells × 25,000 peaks, 250 draws per cell with Pareto(1.2)
+  peak popularity (the recipe of ``bench.py::make_counts``, seed 0);
+* RNA: library-size normalisation (row sums, 1e4 / max(rs, 1), row scaling,
+  log1p) → ``pp.pca(n_comps=50)`` → ``pp.neighbors(n_neighbors=20,
+  use_rep="X_pca")`` on the clustered RNA counts of ``bench_e2e.py::synth``
+  at its scale-10 size: 100,000 cells × 20,000 genes, 100 draws per cell,
+  20 planted clusters, seed 0 (labels drawn first, as there).
+
+Phases, one line each or more. A failed check is printed as ``[check
+failed]`` and recorded, and the run goes on, so that one run reads every
+number; at the end any recorded failure makes the exit code 1 and no result
+is printed. An exception stops the run at once, with a code other than 0:
 
 1. device: the card, the torch/CUDA/nvcc versions, which optional modules import;
 2. build: compile the CUDA kernels from ``muon_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, with its tolerance, and both times (median of 5, CUDA events);
-4. main path: tfidf + lsi with the launch counters reset just before and
-   read just after, then the gather rSVD on the same matrix with its own
-   counts; checks of shapes, finiteness,
-   z-scoring, the TF-IDF values against scipy, and the singular values
-   against the plain-PyTorch path with the same Ω;
-5. times: the warm tfidf + lsi wall over 3 reps with its stage split, and
-   the plain-PyTorch path once.
+3. kernels: T1-T4 against their plain PyTorch versions at the ATAC path's
+   shapes, with their tolerances, and both times (median of 5, CUDA events);
+4. ATAC path, with the launch counters reset just before and read just
+   after, then the gather rSVD on the same matrix with its own counts;
+   checks of shapes, finiteness, z-scoring, the TF-IDF values against
+   scipy, the singular values against the plain-PyTorch path with the same
+   Ω, and the neighbour graph;
+5. RNA path, counted the same way: the PCA branch, the graph, the planted
+   labels among the neighbours, and σ and the connectivities against the
+   plain-PyTorch path from the same representation;
+6. kernels: T7/T8 on the RNA counts, T5 on the RNA scores (float32 and
+   approx, euclidean and cosine, k+1 = 20 and 201) with the approx recall
+   against float32, and T6 on T5's output, against their plain versions;
+7. times: the warm wall of each path with its stage split, each path's
+   device busy share under the profiler, and the plain-PyTorch paths once.
 
-The last three lines are a JSON object of the kernels (``launches`` counts
-tfidf + lsi, ``gather_launches`` the gather rSVD), the card's name and
-power limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
-Without a CUDA device it prints no result and exits 1.
+The last three lines are a JSON object of the kernels (``launches`` adds
+up the two main paths' counts, each read from its own run with the counters
+set to 0 just before it, and ``launches_by_path`` gives each;
+``gather_launches`` counts the gather rSVD side run, which is no part of
+``launches``), the card's name and power limit as ``nvidia-smi`` gives
+them, and ``{"ok": true, "device": ...}``. Without a CUDA device it prints
+no result and exits 1.
 """
 
 from __future__ import annotations
@@ -39,20 +59,31 @@ import torch
 from scipy import sparse as sp
 
 N_CELLS, N_PEAKS, NNZ_PER_CELL = 100_000, 25_000, 250
+N_GENES, NNZ_PER_RNA_CELL, N_CLUSTERS = 20_000, 100, 20
 K, N_ITER, SEED = 50, 7, 0
 L = K + 10
-SOURCE = "muon_tpu_torch/csrc/sparse_kernels.cu"
-REPLACES = {
-    "tfidf_values": "muon_tpu/ops/sparse.py:790",      # _tfidf_fn
-    "csr_spmm_f32": "muon_tpu/ops/sparse.py:590",      # _spmm_fn, transpose=False
-    "csr_spmm_bf16": "muon_tpu/ops/sparse.py:590",
-    "csr_spmm_t_f32": "muon_tpu/ops/sparse.py:590",    # _spmm_fn, transpose=True
-    "csr_spmm_t_bf16": "muon_tpu/ops/sparse.py:590",
-    "csr_gram_matmul": "muon_tpu/ops/linalg.py:109",   # _rsvd_blocks_fn
+N_NEIGHBORS = 20
+SPARSE_SRC = "muon_tpu_torch/csrc/sparse_kernels.cu"
+KNN_SRC = "muon_tpu_torch/csrc/knn_kernels.cu"
+# kernel -> (source, the TPU program it replaces)
+KERNEL_INFO = {
+    "tfidf_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:790"),     # _tfidf_fn
+    "csr_spmm_f32": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),     # _spmm_fn
+    "csr_spmm_bf16": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),
+    "csr_spmm_t_f32": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),   # transpose=True
+    "csr_spmm_t_bf16": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),
+    "csr_gram_matmul": (SPARSE_SRC, "muon_tpu/ops/linalg.py:109"),  # _rsvd_blocks_fn
+    "csr_row_sums": (SPARSE_SRC, "muon_tpu/ops/sparse.py:546"),     # _row_sums_fn
+    "csr_scale_rows": (SPARSE_SRC, "muon_tpu/ops/sparse.py:830"),   # _scale_rows_fn
+    "knn_topk": (KNN_SRC, "muon_tpu/ops/knn.py:58"),                # _knn_fn + _topk2
+    "smooth_knn_membership": (KNN_SRC, "muon_tpu/ops/fuzzy.py:32"),  # + _membership_fn
 }
-# what tfidf + lsi launches at this size (auto takes the XtX path), and what
-# the gather rSVD launches on the same matrix
-MAIN_PATH = ("tfidf_values", "csr_spmm_f32", "csr_gram_matmul")
+# what each path launches: the ATAC path (auto takes the XtX path for lsi,
+# neighbors the approx kNN), the RNA path, and the gather rSVD side run
+ATAC_PATH = ("tfidf_values", "csr_spmm_f32", "csr_gram_matmul", "knn_topk",
+             "smooth_knn_membership")
+RNA_PATH = ("csr_row_sums", "csr_scale_rows", "csr_gram_matmul", "csr_spmm_f32",
+            "knn_topk", "smooth_knn_membership")
 GATHER_PATH = ("csr_spmm_bf16", "csr_spmm_t_bf16", "csr_spmm_t_f32")
 
 
@@ -60,7 +91,7 @@ class Holder:
     """The least AnnData-like object the port's tools take."""
 
     def __init__(self, X):
-        self.X, self.obsm, self.varm, self.uns, self.layers = X, {}, {}, {}, {}
+        self.X, self.obsm, self.varm, self.uns, self.obsp, self.layers = X, {}, {}, {}, {}, {}
 
 
 def make_counts(seed: int = 0) -> sp.csr_matrix:
@@ -77,9 +108,43 @@ def make_counts(seed: int = 0) -> sp.csr_matrix:
     return X.tocsr()
 
 
+def make_rna_counts(seed: int = 0):
+    """Clustered RNA counts and their planted labels, the recipe of
+    bench_e2e.py::synth (its first modality) at 100,000 cells: labels
+    first, then per-cluster tilted Pareto(1.2) gene popularity."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, N_CLUSTERS, N_CELLS)
+    pop = rng.pareto(1.2, N_GENES) + 1.0
+    boost = np.ones((N_CLUSTERS, N_GENES))
+    for c in range(N_CLUSTERS):
+        boost[c, rng.choice(N_GENES, size=N_GENES // 20, replace=False)] = 8.0
+    nnz = N_CELLS * NNZ_PER_RNA_CELL
+    cols = np.empty(nnz, np.int32)
+    order = np.argsort(labels, kind="stable")
+    sizes = np.bincount(labels, minlength=N_CLUSTERS)
+    start = 0
+    for c in range(N_CLUSTERS):
+        m = sizes[c] * NNZ_PER_RNA_CELL
+        p = pop * boost[c]
+        p /= p.sum()
+        cols[start:start + m] = rng.choice(N_GENES, size=m, p=p)
+        start += m
+    rows = np.repeat(order, NNZ_PER_RNA_CELL).astype(np.int32)
+    data = rng.integers(1, 5, size=nnz).astype(np.float32)
+    X = sp.coo_matrix((data, (rows, cols)), shape=(N_CELLS, N_GENES))
+    X.sum_duplicates()
+    return X.tocsr(), labels
+
+
+FAILED = []
+
+
 def check(ok, what: str) -> None:
+    """Record a failed check; the run goes on so that one run reads every
+    number, and exits non-zero at its end."""
     if not ok:
-        raise RuntimeError(f"check failed: {what}")
+        FAILED.append(what)
+        print(f"[check failed] {what}", flush=True)
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -194,25 +259,43 @@ def tfidf_reference(X: sp.csr_matrix) -> np.ndarray:
     return tf * np.log1p(X.shape[0] / cs[X.indices])
 
 
-def phase_main_path(tac, dsp, tla, kernels, X, cuda) -> dict:
+def check_graph(h, labels=None) -> float:
+    """Checks of a neighbors result; returns the share of neighbours that
+    carry the cell's own planted label (nan without labels)."""
+    D, C = h.obsp["distances"], h.obsp["connectivities"]
+    n = D.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(D.indptr))
+    check((np.diff(D.indptr) == N_NEIGHBORS - 1).all(), "19 distances per row")
+    check(not (D.indices == rows).any(), "self not among the neighbours")
+    check(np.isfinite(D.data).all() and (D.data >= 0).all(), "distances finite, >= 0")
+    check((C != C.T).nnz == 0, "connectivities symmetric")
+    check(C.data.min() > 0 and C.data.max() <= 1, "connectivities in (0, 1]")
+    check(h.uns["neighbors"]["params"]["n_neighbors"] == N_NEIGHBORS, "uns params")
+    if labels is None:
+        return float("nan")
+    return float((labels[rows] == labels[D.indices]).mean())
+
+
+def phase_atac_path(tac, tpp, dsp, tla, kernels, X, cuda):
     h = Holder(X.copy())
     kernels.reset_launch_counts()
     tac.pp.tfidf(h, device=cuda)
     tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+    tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_lsi", device=cuda)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     # the side run: the gather rSVD, which lsi takes below 2M nonzeros, on
-    # the same matrix; its launches are counted apart from the main path's
+    # the same matrix; its launches are counted apart from the path's
     kernels.reset_launch_counts()
     _, s_gather, _ = tla.randomized_svd(h.X, k=K, n_iter=N_ITER, seed=SEED,
                                         method="gather", device=cuda)
     torch.cuda.synchronize()
     gather_launches = kernels.launch_counts()
-    print(f"[main] container=Holder launches by tfidf+lsi {launches}; "
+    print(f"[atac] container=Holder launches by tfidf+lsi+neighbors {launches}; "
           f"by the gather rSVD {gather_launches}", flush=True)
     check(tla._blocks_profitable(N_CELLS, N_PEAKS, X.nnz, L), "XtX path chosen by auto")
-    for name in MAIN_PATH:
-        check(launches[name] > 0, f"tfidf+lsi launched {name}")
+    for name in ATAC_PATH:
+        check(launches[name] > 0, f"the ATAC path launched {name}")
     for name in GATHER_PATH:
         check(gather_launches[name] > 0, f"the gather rSVD launched {name}")
 
@@ -226,7 +309,7 @@ def phase_main_path(tac, dsp, tla, kernels, X, cuda) -> dict:
     std_err = float(np.abs(emb.std(axis=0, dtype=np.float64) - 1).max())
     ref = tfidf_reference(X)
     tfidf_err = float(np.max(np.abs(h.X.data - ref) / np.abs(ref)))
-    print(f"[main] X_lsi {emb.shape} |mean|<={mean_err:.2e} |std-1|<={std_err:.2e}; "
+    print(f"[atac] X_lsi {emb.shape} |mean|<={mean_err:.2e} |std-1|<={std_err:.2e}; "
           f"TF-IDF vs scipy max rel {tfidf_err:.2e}", flush=True)
     check(mean_err <= 1e-3 and std_err <= 1e-3, "X_lsi z-scored to 1e-3")
     check(bool(np.all(np.diff(stdev) <= 0)), "stdev non-increasing")
@@ -249,40 +332,215 @@ def phase_main_path(tac, dsp, tla, kernels, X, cuda) -> dict:
     s_b30 = tla._rsvd_blocks(dT, K, om, 30)[1].cpu()
     rel_algos = rel(s_g30, s_b30)
     rel_algos_7 = rel(s_gather.cpu(), torch.from_numpy(s).float())
-    print(f"[main] s[0]={s[0]:.4f} s[-1]={s[-1]:.4f}; "
+    print(f"[atac] s[0]={s[0]:.4f} s[-1]={s[-1]:.4f}; "
           f"s vs plain, same omega: XtX {rel_xtx:.2e} gather {rel_gather:.2e}; "
           f"gather vs XtX: {rel_algos_7:.2e} at {N_ITER} iterations, "
           f"{rel_algos:.2e} at 30", flush=True)
     check(rel_xtx <= 1e-4, "XtX singular values vs the plain path, rtol 1e-4")
     check(rel_gather <= 1e-4, "gather singular values vs the plain path, rtol 1e-4")
     check(rel_algos <= 1e-3, "gather vs XtX singular values at 30 iterations, rtol 1e-3")
-    return launches, gather_launches
+    check_graph(h)
+    print(f"[atac] neighbors: distances nnz {h.obsp['distances'].nnz}, "
+          f"connectivities nnz {h.obsp['connectivities'].nnz}", flush=True)
+    return launches, gather_launches, h
 
 
-def phase_times(tac, dsp, tla, profiling, X, cuda) -> None:
-    walls, splits = [], []
-    for _ in range(3):
-        h = Holder(X.copy())
+def normalise(dsp, X, cuda, plain=False):
+    """The e2e's RNA library-size normalisation (bench_e2e.py:270-278) on
+    the device: T7 row sums, inv = 1e4 / max(rs, 1), T8 row scaling,
+    log1p; or the same through the kernels' plain versions."""
+    from muon_tpu_torch.utils.profiling import stage
+
+    with stage("rna/normalise"):
+        dX = dsp.from_scipy(X, cuda)
+        rs = (dsp.row_sums_plain if plain else dsp.row_sums)(dX)
+        inv = 1e4 / torch.clamp(rs, min=1.0)
+        vals = torch.log1p((dsp.scale_rows_data_plain if plain else dsp.scale_rows_data)(dX, inv))
+        return dsp.to_scipy_data(X, vals)
+
+
+def rna_path(dsp, tpp, X, cuda):
+    h = Holder(normalise(dsp, X, cuda))
+    tpp.pca(h, n_comps=K, random_state=SEED, device=cuda)
+    tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_pca", device=cuda)
+    return h
+
+
+def neighbors_plain(tk, tf, rep, cuda):
+    """kNN, σ/ρ/membership, union and distances CSR through the plain
+    versions, as single_neighbors runs them at this size (approx kNN)."""
+    X = torch.from_numpy(np.ascontiguousarray(rep, dtype=np.float32)).to(cuda)
+    op, sq = tk._operand(X, "euclidean", approx=N_CELLS > 20_000)
+    idx, dists = tk.knn_topk_plain(op, sq, N_NEIGHBORS - 1, False, True)
+    sig, _, vals = tf.smooth_knn_plain(dists)
+    idx_np = idx.cpu().numpy()
+    conn = tf._fuzzy_union(idx_np, vals.cpu().numpy(), X.shape[0], 1.0)
+    d_np = dists.cpu().numpy().astype(np.float64)
+    n = X.shape[0]
+    dmat = sp.csr_matrix((d_np[:, 1:].reshape(-1), (np.repeat(np.arange(n), N_NEIGHBORS - 1),
+                                                    idx_np[:, 1:].reshape(-1))), shape=(n, n))
+    return sig, conn, dmat
+
+
+def rna_plain(dsp, tla, tk, tf, X, cuda):
+    """The whole RNA path through the plain versions (the XtX PCA branch
+    with the same Ω as pp.pca)."""
+    Xn = normalise(dsp, X, cuda, plain=True)
+    dN = dsp.from_scipy(Xn, cuda)
+    cs = torch.from_numpy(np.asarray(Xn.mean(axis=0)).ravel().astype(np.float32)).to(cuda) * N_CELLS
+    U, s, _ = tla._pca_blocks(dN, cs, K, tla.draw_omega(N_GENES, L, SEED, cuda), N_ITER,
+                              ops=tla.PLAIN_OPS)
+    scores = (U * s).cpu().numpy()
+    return scores, s, neighbors_plain(tk, tf, scores, cuda)
+
+
+def phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X, labels, cuda):
+    kernels.reset_launch_counts()
+    h = rna_path(dsp, tpp, X, cuda)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    xtx = tla._blocks_profitable(N_CELLS, N_GENES, h.X.nnz, L)
+    print(f"[rna] {N_CELLS}x{N_GENES} nnz={X.nnz}; PCA branch "
+          f"{'XtX (T4 + T2)' if xtx else 'gather'}; launches by "
+          f"normalise+pca+neighbors {launches}", flush=True)
+    check(xtx, "the XtX PCA branch chosen at this size")
+    for name in RNA_PATH:
+        check(launches[name] > 0, f"the RNA path launched {name}")
+    check(launches["csr_gram_matmul"] == N_ITER and launches["csr_spmm_f32"] == 1,
+          "PCA ran 7 XtX products (T4) and one f32 X.V (T2)")
+    check(h.obsm["X_pca"].shape == (N_CELLS, K) and np.isfinite(h.obsm["X_pca"]).all(),
+          "X_pca shape, finite")
+    purity = check_graph(h, labels)
+
+    # against the plain path from the same representation: σ rtol 1e-4 and
+    # the connectivities atol 1e-5 (values in (0, 1]) on the edges both
+    # graphs hold. At this size T5 and its plain version give the same
+    # indices and distances, so the values differ only by σ's f32 bisection
+    # in T6 against torch: an H100 reads σ 1.8e-6 to 2.7e-6 relative and the
+    # connectivities 6.6e-7 to 7.8e-7, so 1e-5 leaves 10x room and still
+    # catches a graph assembled wrongly (a swapped or dropped edge moves a
+    # shared edge's union value by its partner's membership, ~1e-1)
+    t0 = time.perf_counter()
+    sig_p, conn_p, dmat_p = neighbors_plain(tk, tf, h.obsm["X_pca"], cuda)
+    rep = torch.from_numpy(h.obsm["X_pca"]).to(cuda)
+    op, sq = tk._operand(rep, "euclidean", approx=N_CELLS > 20_000)
+    _, dists = tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True)
+    sig = tf.smooth_knn(dists)[0]
+    sig_rel = float(((sig - sig_p).abs() / sig_p).max())
+    C, Cp = h.obsp["connectivities"], conn_p
+    both = C.multiply(Cp.astype(bool)).tocsr()
+    both_p = Cp.multiply(C.astype(bool)).tocsr()
+    conn_err = float(np.max(np.abs(both.data - both_p.data)))
+    edge_jac = both.nnz / (C.nnz + Cp.nnz - both.nnz)
+    D = h.obsp["distances"]
+    knn_jac = float(np.mean([
+        len(set(D.indices[D.indptr[i]:D.indptr[i + 1]])
+            & set(dmat_p.indices[dmat_p.indptr[i]:dmat_p.indptr[i + 1]])) / (N_NEIGHBORS - 1)
+        for i in range(0, N_CELLS, 50)]))
+    purity_p = float((labels[np.repeat(np.arange(N_CELLS), N_NEIGHBORS - 1)]
+                      == labels[dmat_p.indices]).mean())
+    print(f"[rna] vs the plain path from the same X_pca ({time.perf_counter() - t0:.1f}s): "
+          f"sigma max rel {sig_rel:.2e} (<= 1e-4); connectivities max abs err "
+          f"{conn_err:.2e} on shared edges (<= 1e-5), edge Jaccard {edge_jac:.5f}; "
+          f"kNN overlap on every 50th cell {knn_jac:.5f}; planted-label share of "
+          f"neighbours {purity:.4f} (plain path {purity_p:.4f}; chance 0.05)", flush=True)
+    check(sig_rel <= 1e-4, "sigma vs plain rtol 1e-4")
+    check(conn_err <= 1e-5, "connectivities vs plain atol 1e-5")
+    check(edge_jac >= 0.99 and knn_jac >= 0.99, "graphs vs plain overlap >= 0.99")
+    # the bar: 0.55 (11x chance; the plain path reads 0.6147 on an H100 at
+    # this seed), and within 0.01 of the plain path's share in this run
+    check(purity >= 0.55 and abs(purity - purity_p) <= 0.01, "planted-label share")
+    return launches, h
+
+
+def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
+    """T7/T8 on the RNA counts, T5 on the RNA scores, T6 on T5's output,
+    each against its plain version."""
+    results = {}
+
+    def record(name, err, tol_ok, tol, k_fn, p_fn, extra=""):
+        ms, plain_ms = median_ms(k_fn), median_ms(p_fn)
+        results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        print(f"[kernel] {name}{extra}: max_abs_err={err:.3e} ({tol}) "
+              f"ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+        check(tol_ok, f"{name}{extra} within {tol}")
+
+    dX = dsp.from_scipy(X, cuda)
+    rs = dsp.row_sums(dX)
+    torch.cuda.synchronize()
+    ref = dsp.row_sums_plain(dX)
+    diff = (rs - ref).abs()
+    record("csr_row_sums", diff.max().item(), bool((diff <= 1e-5 * ref.abs()).all()),
+           "rtol 1e-5", lambda: dsp.row_sums(dX), lambda: dsp.row_sums_plain(dX))
+    inv = 1e4 / torch.clamp(rs, min=1.0)
+    out = dsp.scale_rows_data(dX, inv)
+    torch.cuda.synchronize()
+    err = (out - dsp.scale_rows_data_plain(dX, inv)).abs().max().item()
+    record("csr_scale_rows", err, err == 0, "exact", lambda: dsp.scale_rows_data(dX, inv),
+           lambda: dsp.scale_rows_data_plain(dX, inv))
+
+    Xr = torch.from_numpy(rep).to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    sample = torch.randperm(N_CELLS, generator=gen)[:2000].to(cuda)
+    exact = {}
+    # the path's variant (approx euclidean, k+1 = 20) first: it is the
+    # JSON line's record
+    for metric, approx, k in (("euclidean", True, N_NEIGHBORS - 1),
+                              ("euclidean", False, N_NEIGHBORS - 1),
+                              ("cosine", True, N_NEIGHBORS - 1),
+                              ("cosine", False, N_NEIGHBORS - 1),
+                              ("euclidean", True, 200)):
+        one_minus, take_sqrt = metric == "cosine", metric == "euclidean"
+        op, sq = tk._operand(Xr, metric, approx)
+        args = (op, sq, k, one_minus, take_sqrt)
+        gi, gd = tk.knn_topk(*args)
         torch.cuda.synchronize()
-        with profiling.collect() as t:
-            t0 = time.perf_counter()
-            tac.pp.tfidf(h, device=cuda)
-            tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
-            walls.append(time.perf_counter() - t0)
-        splits.append({k: round(sum(v), 4) for k, v in t.items()})
-    print(f"[times] tfidf+lsi warm wall s {[round(w, 4) for w in walls]} "
-          f"median {float(np.median(walls)):.4f}; stages {splits}", flush=True)
+        ri, rd = tk.knn_topk_plain(*args)
+        # |Δd²| <= 1e-5·(|q|² + |c|²): the expanded form's cancellation
+        # error (normalised rows for cosine: 2e-5)
+        scale = 2.0 if one_minus else sq[:, None] + sq[ri.long()]
+        sqr = (lambda t: t.double() ** 2) if take_sqrt else (lambda t: t.double())  # noqa: E731
+        ok = bool(((sqr(gd) - sqr(rd)).abs() <= 1e-5 * scale).all())
+        equal = (gi == ri).float().mean().item()
+        extra = f"[{metric} {'approx' if approx else 'f32'} k+1={k + 1}]"
+        line = f" equal indices {equal:.5f}"
+        if approx and k == N_NEIGHBORS - 1:
+            exact_i = tk.knn_topk(*tk._operand(Xr, metric, False), k, one_minus, take_sqrt)[0]
+            a, e = gi[sample].cpu().numpy(), exact_i[sample].cpu().numpy()
+            recall = np.mean([len(set(x[1:]) & set(y[1:])) / k for x, y in zip(a, e)])
+            exact[metric] = recall
+            line += f"; recall vs f32 on 2000 queries {recall:.5f}"
+        record("knn_topk", (gd - rd).abs().max().item(), ok and equal >= 0.99,
+               "|dd2| <= 1e-5(|q|^2+|c|^2), equal indices >= 0.99",
+               lambda: tk.knn_topk(*args), lambda: tk.knn_topk_plain(*args), extra + line)
+        if metric == "euclidean" and approx and k == N_NEIGHBORS - 1:
+            path_dists = gd
+    for metric, recall in exact.items():
+        check(recall >= 0.99, f"approx {metric} recall {recall:.4f} >= 0.99")
 
-    # one more warm rep under the profiler: device busy share of the wall
+    sig, rho, vals = tf.smooth_knn(path_dists)
+    torch.cuda.synchronize()
+    sp_, rp, vp = tf.smooth_knn_plain(path_dists)
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()  # noqa: E731
+    s_rel, r_rel, v_err = rel(sig, sp_), rel(rho, rp), (vals - vp).abs().max().item()
+    record("smooth_knn_membership", v_err,
+           s_rel <= 1e-5 and r_rel <= 1e-5 and v_err <= 1e-6,
+           f"sigma rel {s_rel:.1e}, rho rel {r_rel:.1e} <= 1e-5; vals atol 1e-6",
+           lambda: tf.smooth_knn(path_dists), lambda: tf.smooth_knn_plain(path_dists))
+    return results
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler; returns (wall s, device busy s,
+    copies s, top kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    h = Holder(X.copy())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tac.pp.tfidf(h, device=cuda)
-        tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a host op (aten::copy_) also carries the
     # device time of what it launched, and CUPTI adds its own buffer events
@@ -292,9 +550,52 @@ def phase_times(tac, dsp, tla, profiling, X, cuda) -> None:
     copies = sum(v for k, v in dev.items() if k.startswith(("Memcpy", "Memset")))
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[profile] profiled wall {wall:.4f}s; device busy {busy:.4f}s "
+    return wall, busy, copies, top
+
+
+def print_profile(label, prof):
+    wall, busy, copies, top = prof
+    print(f"[profile] {label}: profiled wall {wall:.4f}s; device busy {busy:.4f}s "
           f"({busy / wall:.1%} of the wall; copies/memsets {copies:.4f}s); top "
           + "; ".join(f"{k[:60]} {v * 1e3:.3f}ms" for k, v in top), flush=True)
+
+
+def timed_reps(label, make, run, profiling, reps=3):
+    walls, splits = [], []
+    for _ in range(reps):
+        h = make()
+        torch.cuda.synchronize()
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            run(h)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        splits.append({k: round(sum(v), 4) for k, v in t.items()})
+    print(f"[times] {label} warm wall s {[round(w, 4) for w in walls]} "
+          f"median {float(np.median(walls)):.4f}; stages {splits}", flush=True)
+
+
+def phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, cuda) -> None:
+    def tfidf_lsi(h):
+        tac.pp.tfidf(h, device=cuda)
+        tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+
+    def atac_neighbors(h):
+        tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_lsi", device=cuda)
+
+    def lsi_holder():
+        h = Holder(atac_h.X)
+        h.obsm["X_lsi"] = atac_h.obsm["X_lsi"]
+        return h
+
+    timed_reps("tfidf+lsi", lambda: Holder(X.copy()), tfidf_lsi, profiling)
+    print_profile("tfidf+lsi", profiled(lambda: tfidf_lsi(Holder(X.copy()))))
+    timed_reps("ATAC neighbors", lsi_holder, atac_neighbors, profiling)
+    print_profile("ATAC neighbors", profiled(lambda: atac_neighbors(lsi_holder())))
+    timed_reps("RNA normalise+pca+neighbors", lambda: X_rna,
+               lambda X_: rna_path(dsp, tpp, X_, cuda), profiling)
+    print_profile("RNA normalise+pca+neighbors",
+                  profiled(lambda: rna_path(dsp, tpp, X_rna, cuda)))
 
     h = Holder(X.copy())
     torch.cuda.synchronize()
@@ -307,8 +608,17 @@ def phase_times(tac, dsp, tla, profiling, X, cuda) -> None:
     U, s, Vt = U.cpu().numpy(), s.cpu().numpy(), Vt.cpu().numpy()
     emb = (U - U.mean(axis=0)) / U.std(axis=0)
     check(np.isfinite(emb).all() and np.isfinite(s).all(), "plain path finite")
-    print(f"[times] plain-torch tfidf+lsi on the card, one warm run: "
-          f"{time.perf_counter() - t0:.4f}s; peak device memory "
+    t1 = time.perf_counter()
+    neighbors_plain(tk, tf, emb, cuda)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[times] plain-torch on the card, one warm run: tfidf+lsi {t1 - t0:.4f}s, "
+          f"ATAC neighbors {t2 - t1:.4f}s", flush=True)
+    t0 = time.perf_counter()
+    rna_plain(dsp, tla, tk, tf, X_rna, cuda)
+    torch.cuda.synchronize()
+    print(f"[times] plain-torch RNA normalise+pca+neighbors on the card, one warm "
+          f"run: {time.perf_counter() - t0:.4f}s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
@@ -318,7 +628,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import pp as tpp
     from muon_tpu_torch.ops import _kernels as kernels
+    from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.utils import profiling
@@ -330,17 +643,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     X = make_counts(SEED)
-    print(f"[data] {X.shape[0]}x{X.shape[1]} nnz={X.nnz} made in "
+    print(f"[data] ATAC {X.shape[0]}x{X.shape[1]} nnz={X.nnz} made in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    X_rna, labels = make_rna_counts(SEED)
+    print(f"[data] RNA {X_rna.shape[0]}x{X_rna.shape[1]} nnz={X_rna.nnz} "
+          f"{N_CLUSTERS} planted clusters, made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     results = phase_kernels(dsp, dsp.from_scipy(X, cuda), cuda)
-    launches, gather_launches = phase_main_path(tac, dsp, tla, kernels, X, cuda)
-    phase_times(tac, dsp, tla, profiling, X, cuda)
+    atac_launches, gather_launches, atac_h = phase_atac_path(
+        tac, tpp, dsp, tla, kernels, X, cuda)
+    rna_launches, rna_h = phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X_rna, labels, cuda)
+    results.update(phase_neighbors_kernels(dsp, tk, tf, X_rna, rna_h.obsm["X_pca"], cuda))
+    phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, cuda)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
+    if FAILED:
+        print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}", file=sys.stderr)
+        return 1
 
+    by_path = {"atac": atac_launches, "rna": rna_launches}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "gather_launches": gather_launches[name],
+        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+         "replaces": KERNEL_INFO[name][1],
+         "launches": sum(c[name] for c in by_path.values()),
+         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         "gather_launches": gather_launches[name],
          **results[name]}
         for name in kernels.KERNELS
     ]}))

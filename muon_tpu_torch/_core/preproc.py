@@ -1,0 +1,107 @@
+"""Preprocessing (``mu.pp``): PCA and neighbors (counterpart of
+muon_tpu/_core/preproc.py ``pca`` and ``neighbors``).
+
+The tools take any AnnData-like object (``.X``, ``.obsm``, ``.varm``,
+``.uns``, ``.obsp``, ``.layers``; ``.var`` is read only when present). A
+MuData-like object (anything with ``.mod``) is refused where the reference
+refuses it, and by ``neighbors``, whose WNN branch is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..ops.device import DeviceLike
+from ..ops.linalg import pca as _pca_op
+from ..ops.wnn import _n_vars, single_neighbors
+
+__all__ = ["pca", "neighbors"]
+
+
+def _is_mudata(data) -> bool:
+    return getattr(data, "mod", None) is not None
+
+
+def pca(
+    data,
+    n_comps: int = 50,
+    use_highly_variable: bool = False,
+    layer=None,
+    zero_center: bool = True,
+    random_state: int = 0,
+    device: DeviceLike = None,
+):
+    """PCA on the device (ops/linalg.pca: randomized subspace iteration,
+    implicit centring for sparse input). Writes ``obsm["X_pca"]``,
+    ``varm["PCs"]`` (zeros outside the highly-variable mask) and
+    ``uns["pca"]["variance"/"variance_ratio"/"params"]`` (scanpy layout)."""
+    if _is_mudata(data):
+        raise TypeError(
+            "Run pca per modality (e.g. mu.pp.pca(mdata.mod['rna']))"
+        )
+    adata = data
+    X = adata.X if layer is None else adata.layers[layer]
+    mask = None
+    var = getattr(adata, "var", None)
+    if use_highly_variable and "highly_variable" in getattr(var, "columns", ()):
+        mask = np.asarray(var["highly_variable"]).astype(bool)
+        X = X[:, mask]
+
+    n_comps = min(n_comps, min(X.shape) - (1 if zero_center else 0))
+    scores, loadings, ev, evr = _pca_op(
+        X, n_comps=n_comps, center=zero_center, seed=random_state, device=device
+    )
+    adata.obsm["X_pca"] = scores.cpu().numpy()
+    PCs = np.zeros((_n_vars(adata), n_comps))
+    if mask is not None:
+        PCs[mask] = loadings.cpu().numpy()
+    else:
+        PCs[:] = loadings.cpu().numpy()
+    adata.varm["PCs"] = PCs
+    adata.uns["pca"] = {
+        "variance": ev.cpu().numpy(),
+        "variance_ratio": evr.cpu().numpy(),
+        "params": {
+            "n_comps": int(n_comps),
+            "zero_center": bool(zero_center),
+            "use_highly_variable": bool(use_highly_variable),
+        },
+    }
+    return None
+
+
+def neighbors(
+    mdata,
+    n_neighbors: Optional[int] = None,
+    n_bandwidth_neighbors: int = 20,
+    n_multineighbors: int = 200,
+    neighbor_keys: Optional[dict] = None,
+    metric: str = "euclidean",
+    low_memory: Optional[bool] = None,
+    key_added: Optional[str] = None,
+    weight_key: Optional[str] = "mod_weight",
+    add_weights_to_modalities: bool = False,
+    eps: float = 1e-4,
+    copy: bool = False,
+    random_state: Optional[int] = 42,
+    use_rep: Optional[str] = None,
+    n_pcs: Optional[int] = None,
+    mesh=None,
+    device: DeviceLike = None,
+):
+    """Neighbors of one modality (the reference's AnnData branch): kNN on
+    the device, UMAP connectivities, ``obsp``/``uns`` in scanpy's layout;
+    returns the object. The WNN parameters belong to the multimodal
+    branch, which is not ported yet: a MuData-like object raises."""
+    if _is_mudata(mdata):
+        raise NotImplementedError(
+            "WNN neighbors of a MuData is not ported yet (ROADMAP item 6); "
+            "run neighbors per modality"
+        )
+    return single_neighbors(
+        mdata, n_neighbors=n_neighbors or 15, metric=metric,
+        use_rep=use_rep, n_pcs=n_pcs, key_added=key_added,
+        random_state=random_state or 0, mesh=mesh, device=device,
+    )

@@ -1,6 +1,7 @@
-// Sparse kernels of the TF-IDF -> LSI path, for Hopper (sm_90a).
+// Sparse kernels of the TF-IDF -> LSI path and of the RNA normalisation,
+// for Hopper (sm_90a).
 //
-// Four kernels over a CSR matrix X (n_rows x n_cols; values f32, indptr and
+// Six kernels over a CSR matrix X (n_rows x n_cols; values f32, indptr and
 // indices int32, column indices need not be sorted within a row):
 //
 //   T1 tfidf_values      <- muon_tpu/ops/sparse.py _tfidf_fn
@@ -9,6 +10,8 @@
 //   T3 csr_spmm_t        <- muon_tpu/ops/sparse.py _spmm_fn (transpose=True)
 //   T4 csr_gram_matmul   <- the XtX.V product of muon_tpu/ops/linalg.py
 //                           _rsvd_blocks_fn
+//   T7 csr_row_sums      <- muon_tpu/ops/sparse.py _row_sums_fn
+//   T8 csr_scale_rows    <- muon_tpu/ops/sparse.py _scale_rows_fn
 //
 // All of them give one warp to one row of X. The TF-IDF path's dense
 // operands are skinny (l = k + 10 = 60 columns), so every product is bound by
@@ -236,6 +239,39 @@ __global__ void csr_gram_matmul_kernel(const float* __restrict__ data,
   }
 }
 
+// ---------------------------------------------------------------------------
+// T7: out[i] = sum of row i's values (0 for an empty row); T8: out[e] =
+// data[e] * s[row(e)]. The RNA library-size normalisation of the e2e
+// (inv = 1e4 / max(rs, 1), then log1p of the scaled values). The reference
+// segment-sums over the padded COO's row ids and gathers s by row id; on CSR
+// one warp per row needs neither. Both are bound by bytes: T7 reads 4 B per
+// stored entry, T8 reads 4 and writes 4, with coalesced lanes within a row.
+// ---------------------------------------------------------------------------
+
+__global__ void csr_row_sums_kernel(const float* __restrict__ data,
+                                    const int* __restrict__ indptr,
+                                    int n_rows, float* __restrict__ out) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= n_rows) return;
+  float s = 0.f;
+  for (int j = indptr[row] + lane; j < indptr[row + 1]; j += kWarp) s += data[j];
+  s = warp_sum(s);
+  if (lane == 0) out[row] = s;
+}
+
+__global__ void csr_scale_rows_kernel(const float* __restrict__ data,
+                                      const int* __restrict__ indptr,
+                                      const float* __restrict__ scale,
+                                      int n_rows, float* __restrict__ out) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= n_rows) return;
+  const float s = scale[row];
+  for (int j = indptr[row] + lane; j < indptr[row + 1]; j += kWarp)
+    out[j] = data[j] * s;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -306,6 +342,25 @@ int mt_csr_gram_matmul(const float* data, const int* indptr,
     csr_gram_matmul_kernel<<<row_blocks(n_rows), kThreads, 0, s>>>(
         data, indptr, indices, (const __nv_bfloat16*)V, n_rows, l, acc);
   }
+  return (int)cudaGetLastError();
+}
+
+int mt_csr_row_sums(const float* data, const int* indptr, int n_rows,
+                    float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_rows > 0)
+    csr_row_sums_kernel<<<row_blocks(n_rows), kThreads, 0, s>>>(data, indptr,
+                                                               n_rows, out);
+  return (int)cudaGetLastError();
+}
+
+int mt_csr_scale_rows(const float* data, const int* indptr,
+                      const float* scale, int n_rows, float* out,
+                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_rows > 0)
+    csr_scale_rows_kernel<<<row_blocks(n_rows), kThreads, 0, s>>>(
+        data, indptr, scale, n_rows, out);
   return (int)cudaGetLastError();
 }
 

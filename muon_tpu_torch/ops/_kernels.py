@@ -52,6 +52,10 @@ _SIGNATURES = {
     "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "mt_csr_row_sums": (_P, _P, _I, _P, _P),
+    "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
+    "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -62,6 +66,10 @@ KERNELS = {
     "csr_spmm_t_f32": "mt_csr_spmm_t",
     "csr_spmm_t_bf16": "mt_csr_spmm_t",
     "csr_gram_matmul": "mt_csr_gram_matmul",
+    "csr_row_sums": "mt_csr_row_sums",
+    "csr_scale_rows": "mt_csr_scale_rows",
+    "knn_topk": "mt_knn_topk",
+    "smooth_knn_membership": "mt_smooth_knn",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -18,9 +18,10 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_matmul_precision"]
+__all__ = ["resolve_device", "check_matmul_precision", "dense_to_tensor"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -54,3 +55,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def dense_to_tensor(arr, device: DeviceLike = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A dense array (numpy, anything ``np.asarray`` takes, or a tensor) as a
+    contiguous ``dtype`` tensor on ``device`` (counterpart of the
+    reference's ``dense_to_device``). It keeps no registry of uploaded
+    arrays and pins nothing: each call copies."""
+    device = resolve_device(device)
+    if not torch.is_tensor(arr):
+        arr = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+    return arr.to(device=device, dtype=dtype).contiguous()

@@ -17,6 +17,8 @@ the kernel or raises.
     spmm          T2  <- _spmm_fn, transpose=False
     spmm_t        T3  <- _spmm_fn, transpose=True
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
+    row_sums      T7  <- _row_sums_fn
+    scale_rows_data  T8  <- _scale_rows_fn
 """
 
 from __future__ import annotations
@@ -40,10 +42,14 @@ __all__ = [
     "spmm",
     "spmm_t",
     "gram_matmul",
+    "row_sums",
+    "scale_rows_data",
     "tfidf_data_plain",
     "spmm_plain",
     "spmm_t_plain",
     "gram_matmul_plain",
+    "row_sums_plain",
+    "scale_rows_data_plain",
 ]
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -261,6 +267,42 @@ def gram_matmul(X: DeviceCSR, V: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def row_sums(X: DeviceCSR) -> torch.Tensor:
+    """T7: the ``(n_rows,)`` float32 sums of each row's values (0 for an
+    empty row)."""
+    if _on(X) == "cpu":
+        return row_sums_plain(X)
+    _check_csr(X)
+    out = torch.empty(X.n_rows, dtype=torch.float32, device=X.device)
+    _kernels.launch(
+        "csr_row_sums", X.device,
+        X.data.data_ptr(), X.indptr.data_ptr(), X.n_rows, out.data_ptr(),
+    )
+    return out
+
+
+def scale_rows_data(X: DeviceCSR, row_scale: torch.Tensor) -> torch.Tensor:
+    """T8: the ``(nnz,)`` float32 values of diag(row_scale)·X, each value
+    times its row's factor."""
+    if _on(X, row_scale) == "cpu":
+        return scale_rows_data_plain(X, row_scale)
+    _check_csr(X)
+    if row_scale.dtype != torch.float32:
+        raise TypeError(f"row_scale must be torch.float32, got {row_scale.dtype}")
+    if tuple(row_scale.shape) != (X.n_rows,) or not row_scale.is_contiguous():
+        raise ValueError(
+            f"row_scale must be contiguous with shape ({X.n_rows},), "
+            f"got {tuple(row_scale.shape)}"
+        )
+    out = torch.empty_like(X.data)
+    _kernels.launch(
+        "csr_scale_rows", X.device,
+        X.data.data_ptr(), X.indptr.data_ptr(), row_scale.data_ptr(), X.n_rows,
+        out.data_ptr(),
+    )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path; the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
@@ -323,3 +365,12 @@ def gram_matmul_plain(X: DeviceCSR, V: torch.Tensor) -> torch.Tensor:
     Xh = X._replace(data=X.data.to(torch.bfloat16).float())
     z = spmm_plain(Xh, V.to(torch.bfloat16))
     return spmm_t_plain(Xh, z.to(torch.bfloat16))
+
+
+def row_sums_plain(X: DeviceCSR) -> torch.Tensor:
+    out = torch.zeros(X.n_rows, dtype=torch.float32, device=X.device)
+    return out.index_add_(0, _row_ids(X), X.data)
+
+
+def scale_rows_data_plain(X: DeviceCSR, row_scale: torch.Tensor) -> torch.Tensor:
+    return X.data * row_scale.float()[_row_ids(X)]

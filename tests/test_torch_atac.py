@@ -63,6 +63,29 @@ def test_tfidf_lsi_slice_matches_jax():
                                rtol=1e-4)
 
 
+def test_lsi_of_a_dense_matrix_matches_jax(monkeypatch):
+    # the dense branch of randomized_svd, with the reference's Ω drawn in
+    # place of the port's own: stdev rtol 1e-4, per-column |cos| >= 1 - 1e-4
+    import jax
+    import jax.numpy as jnp
+
+    from muon_tpu_torch.ops import linalg as tla
+
+    def jax_omega(d, l, seed, device):
+        om = jax.random.normal(jax.random.PRNGKey(seed), (d, l), jnp.float32)
+        return torch.tensor(np.asarray(om), device=device)
+
+    monkeypatch.setattr(tla, "draw_omega", jax_omega)
+    X = _planted_clusters().toarray()
+    ad_j, ad_t = mu.AnnData(X.copy()), mu.AnnData(X.copy())
+    jac.tl.lsi(ad_j, n_comps=5)
+    tac.tl.lsi(ad_t, n_comps=5, device=CPU)
+    np.testing.assert_allclose(ad_t.uns["lsi"]["stdev"], ad_j.uns["lsi"]["stdev"],
+                               rtol=1e-4)
+    assert (_col_cos(ad_t.obsm["X_lsi"], ad_j.obsm["X_lsi"]) >= 1 - 1e-4).all()
+    assert (_col_cos(ad_t.varm["LSI"], ad_j.varm["LSI"]) >= 1 - 1e-4).all()
+
+
 def test_lsi_embeddings_are_z_scored():
     np.random.seed(11)
     ad = mu.AnnData(sp.random(60, 40, density=0.3, format="csr").astype(np.float32))

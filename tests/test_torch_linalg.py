@@ -144,12 +144,92 @@ def test_randomized_svd_takes_device_csr_and_draws_from_seed():
 
 def test_randomized_svd_refuses_what_it_does_not_take():
     X = _low_rank()
-    with pytest.raises(NotImplementedError):
-        tla.randomized_svd(X.toarray(), k=3, device=CPU)
     with pytest.raises(ValueError):
         tla.randomized_svd(X, k=3, method="dense", device=CPU)
     with pytest.raises(ValueError):
         tla.randomized_svd(X, k=3, omega=np.zeros((41, 3)), device=CPU)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_randomized_svd_dense_matches_jax(as_tensor):
+    # the dense branch (matmuls and Householder QR), same Ω: s rtol 1e-4,
+    # per-column |cos| of U and Vᵀ >= 1 - 1e-4
+    X = _low_rank().toarray()
+    ref = jla.randomized_svd(X, k=5, n_iter=7, seed=0)
+    Xin = torch.from_numpy(X) if as_tensor else X
+    got = tla.randomized_svd(Xin, k=5, n_iter=7, omega=_jax_omega(41, 15), device=CPU)
+    assert all(t.dtype == torch.float32 for t in got)
+    _assert_same_svd(got, ref, 5)
+
+
+# ---------------------------------------------------------------------------
+# PCA: the three branches, each with the reference's Ω
+# ---------------------------------------------------------------------------
+
+
+def _clustered(seed=11, n=120, d=70, g=5):
+    """Counts with g planted blocks over Poisson noise (full rank)."""
+    rng = np.random.default_rng(seed)
+    dense = rng.poisson(0.3, size=(n, d)).astype(np.float32)
+    for i in range(g):
+        r, c = n // g, d // g
+        dense[i * r:(i + 1) * r, i * c:(i + 1) * c] += rng.poisson(2.0 + i, size=(r, c))
+    return sp.csr_matrix(dense)
+
+
+def _assert_same_pca(got, ref, k):
+    # scores and loadings per column |cos| >= 1 - 1e-4; ev, evr rtol 1e-4
+    scores, loadings, ev, evr = (np.asarray(a, np.float64) for a in got)
+    rs, rl, rev, revr = (np.asarray(a, np.float64) for a in ref)
+    assert scores.shape == rs.shape and loadings.shape == rl.shape and ev.shape == (k,)
+    for a, b in ((scores, rs), (loadings, rl)):
+        cos = np.abs((a * b).sum(0)) / (np.linalg.norm(a, axis=0) * np.linalg.norm(b, axis=0))
+        assert (cos >= 1 - 1e-4).all(), cos
+    np.testing.assert_allclose(ev, rev, rtol=1e-4)
+    np.testing.assert_allclose(evr, revr, rtol=1e-4)
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("dense", [False, True])
+def test_pca_matches_jax(dense, center):
+    # test-sized sparse input takes the gather branch (< 2M nonzeros)
+    X = _clustered()
+    X = X.toarray() if dense else X
+    k = 4
+    ref = jla.pca(X, n_comps=k, center=center, seed=2)
+    got = tla.pca(X, n_comps=k, center=center, omega=_jax_omega(70, k + 10, seed=2),
+                  device=CPU)
+    assert all(t.dtype == torch.float32 for t in got)
+    _assert_same_pca(got, ref, k)
+
+
+@pytest.mark.parametrize("center", [True, False])
+def test_pca_blocks_matches_jax(center):
+    # the implicitly centred XᵀX branch against the reference's program on
+    # its block layout, with the same Ω; spiked full-rank data (see _low_rank)
+    from muon_tpu.ops.sparse import block_layout, from_scipy, pick_block_rows
+
+    X = _low_rank(seed=9, n=90, d=50)
+    n, d, k, l = 90, 50, 5, 15
+    mu = np.asarray(X.mean(axis=0)).ravel().astype(np.float32)
+    cs = mu * n if center else np.zeros_like(mu)
+    R = pick_block_rows(n, d)
+    flat, vals = block_layout(from_scipy(X), R)
+    ref = jla._pca_blocks_fn()(flat, vals, jnp.asarray(cs), n=n, k=k, l=l,
+                               n_iter=7, seed=0, R=R, d=d)
+    got = tla._pca_blocks(tsp.from_scipy(X, CPU), torch.from_numpy(cs), k,
+                          torch.tensor(_jax_omega(d, l)), 7)
+    _assert_same_svd(got, ref, k)
+
+
+def test_pca_caps_components_and_refuses_device_csr():
+    X = _clustered(n=30, d=8)
+    scores, loadings, ev, evr = tla.pca(X, n_comps=50, device=CPU)
+    assert scores.shape == (30, 7) and loadings.shape == (8, 7)  # min(n, d) - 1
+    assert tla.pca(X, n_comps=50, center=False, device=CPU)[0].shape == (30, 8)
+    assert float(evr.sum()) <= 1 + 1e-5
+    with pytest.raises(TypeError):
+        tla.pca(tsp.from_scipy(X, CPU), device=CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -175,3 +255,33 @@ def test_gpu_randomized_svd_kernels_match_plain(cuda, method):
     _, s, _ = run(X, 5, om, 12, ops=tla.KERNEL_OPS)
     _, sp_, _ = run(X, 5, om, 12, ops=tla.PLAIN_OPS)
     torch.testing.assert_close(s, sp_, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["blocks", "gather"])
+def test_gpu_pca_kernels_match_plain(cuda, branch):
+    # ev rtol 1e-4 and scores per-column |cos| >= 1 - 1e-4: the same
+    # algorithm over the kernels and over their plain versions
+    X = _low_rank(seed=9, n=90, d=50)
+    dX = tsp.from_scipy(X, cuda)
+    mu = torch.from_numpy(np.asarray(X.mean(axis=0)).ravel().astype(np.float32)).to(cuda)
+    om = tla.draw_omega(50, 15, 0, cuda)
+    if branch == "blocks":
+        run = lambda ops: tla._pca_blocks(dX, mu * 90, 5, om, 7, ops=ops)  # noqa: E731
+    else:
+        run = lambda ops: tla._pca_gather(dX, mu, 5, om, 7, ops=ops)  # noqa: E731
+    U, s, _ = run(tla.KERNEL_OPS)
+    Up, sp_, _ = run(tla.PLAIN_OPS)
+    torch.testing.assert_close(s, sp_, rtol=1e-4, atol=0)
+    cos = (U * Up).sum(0).abs() / (U.norm(dim=0) * Up.norm(dim=0))
+    assert (cos >= 1 - 1e-4).all()
+
+
+@pytest.mark.gpu
+def test_gpu_dense_randomized_svd_matches_cpu(cuda):
+    X = _low_rank().toarray()
+    om = _jax_omega(41, 15) if jax is not None else np.random.default_rng(0).normal(
+        size=(41, 15)).astype(np.float32)
+    got = tla.randomized_svd(X, k=5, omega=om, device=cuda)
+    ref = tla.randomized_svd(X, k=5, omega=om, device=CPU)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-4, atol=0)

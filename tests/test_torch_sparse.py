@@ -192,6 +192,43 @@ def test_gram_matmul_is_spmm_t_of_spmm_in_f32():
 
 
 # ---------------------------------------------------------------------------
+# T7 row_sums / T8 scale_rows_data (the RNA library-size normalisation)
+# ---------------------------------------------------------------------------
+
+
+def test_row_sums_matches_jax():
+    # rtol 1e-6: the same float32 values summed in another order; the
+    # empty row and the row of stored zeros sum to 0
+    X = _edge_counts()
+    ref = np.asarray(jsp.row_sums(jsp.from_scipy(X)))
+    out = tsp.row_sums(tsp.from_scipy(X, CPU)).numpy()
+    assert out.dtype == np.float32 and out.shape == (X.shape[0],)
+    np.testing.assert_allclose(out, ref, rtol=1e-6)
+    assert out[3] == 0 and out[4] == 0
+
+
+def test_scale_rows_data_matches_jax():
+    # one float32 product per value: exact
+    X = _edge_counts()
+    s = np.random.default_rng(2).random(X.shape[0]).astype(np.float32)
+    ref = np.asarray(jsp.scale_rows_data(jsp.from_scipy(X), jnp.asarray(s)))[: X.nnz]
+    out = tsp.scale_rows_data(tsp.from_scipy(X, CPU), torch.from_numpy(s)).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_library_size_normalisation_matches_jax():
+    # the e2e's RNA step: inv = 1e4 / max(rs, 1), log1p(scale_rows_data)
+    X = _counts(seed=14, n=50, d=30)
+    dj = jsp.from_scipy(X)
+    inv_j = 1e4 / jnp.maximum(jsp.row_sums(dj), 1.0)
+    ref = np.asarray(jnp.log1p(jsp.scale_rows_data(dj, inv_j)))[: X.nnz]
+    dX = tsp.from_scipy(X, CPU)
+    inv = 1e4 / torch.clamp(tsp.row_sums(dX), min=1.0)
+    out = torch.log1p(tsp.scale_rows_data(dX, inv)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # DeviceCSR construction
 # ---------------------------------------------------------------------------
 
@@ -305,6 +342,7 @@ def test_cpu_wrappers_count_no_launch():
     tsp.spmm(dX, V)
     tsp.spmm_t(dX, torch.ones((dX.n_rows, 3)))
     tsp.gram_matmul(dX, V)
+    tsp.scale_rows_data(dX, tsp.row_sums(dX))
     counts = _kernels.launch_counts()
     assert set(counts) == set(_kernels.KERNELS)
     assert not any(counts.values())
@@ -313,9 +351,8 @@ def test_cpu_wrappers_count_no_launch():
 def _source_copy(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
-    (src / "sparse_kernels.cu").write_bytes(
-        (_kernels.CSRC / "sparse_kernels.cu").read_bytes()
-    )
+    for cu in _kernels.CSRC.glob("*.cu"):
+        (src / cu.name).write_bytes(cu.read_bytes())
     monkeypatch.setattr(_kernels, "CSRC", src)
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "_build")
     return src / "sparse_kernels.cu"
@@ -410,6 +447,26 @@ def test_gpu_csr_gram_matmul(cuda, l):
     torch.cuda.synchronize()
     ref = tsp.gram_matmul_plain(dX, V)
     assert torch.linalg.norm(out - ref) <= 1e-4 * torch.linalg.norm(ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_skewed_counts, _edge_counts])
+def test_gpu_csr_row_sums_and_scale_rows(cuda, make):
+    # row sums rtol 1e-6 (another order); the scaling is one exact product
+    dX = tsp.from_scipy(make(), cuda)
+    _kernels.reset_launch_counts()
+    rs = tsp.row_sums(dX)
+    out = tsp.scale_rows_data(dX, 1e4 / torch.clamp(rs, min=1.0))
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts["csr_row_sums"] == 1 and counts["csr_scale_rows"] == 1
+    torch.testing.assert_close(rs, tsp.row_sums_plain(dX), rtol=1e-6, atol=0)
+    inv = 1e4 / torch.clamp(rs, min=1.0)
+    torch.testing.assert_close(out, tsp.scale_rows_data_plain(dX, inv), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tsp.scale_rows_data(dX, inv[:-1])
+    with pytest.raises(TypeError):
+        tsp.scale_rows_data(dX, inv.double())
 
 
 @pytest.mark.gpu
