@@ -4,7 +4,7 @@ muon_tpu/_core/preproc.py ``pca`` and ``neighbors``).
 The tools take any AnnData-like object (``.X``, ``.obsm``, ``.varm``,
 ``.uns``, ``.obsp``, ``.layers``; ``.var`` is read only when present). A
 MuData-like object (anything with ``.mod``) is refused where the reference
-refuses it, and by ``neighbors``, whose WNN branch is not ported yet.
+refuses it; ``neighbors`` of one runs WNN (ops/wnn.wnn_neighbors).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 
 from ..ops.device import DeviceLike
 from ..ops.linalg import pca as _pca_op
-from ..ops.wnn import _n_vars, single_neighbors
+from ..ops.wnn import _n_vars, single_neighbors, wnn_neighbors
 
 __all__ = ["pca", "neighbors"]
 
@@ -91,14 +91,23 @@ def neighbors(
     mesh=None,
     device: DeviceLike = None,
 ):
-    """Neighbors of one modality (the reference's AnnData branch): kNN on
-    the device, UMAP connectivities, ``obsp``/``uns`` in scanpy's layout;
-    returns the object. The WNN parameters belong to the multimodal
-    branch, which is not ported yet: a MuData-like object raises."""
+    """Neighbors. Of a MuData-like object (``.mod``, ``.obsmap``, ``.n_obs``,
+    ``.obs``, ``.obsp``, ``.uns``): the WNN fusion of its modalities' own
+    neighbor graphs (ops/wnn.wnn_neighbors), with the reference's
+    parameters and keys; returns the copy under ``copy``, else None. Of
+    one modality (the reference's AnnData branch): kNN on the device, UMAP
+    connectivities, ``obsp``/``uns`` in scanpy's layout; returns the
+    object."""
     if _is_mudata(mdata):
-        raise NotImplementedError(
-            "WNN neighbors of a MuData is not ported yet (ROADMAP item 6); "
-            "run neighbors per modality"
+        return wnn_neighbors(
+            mdata, n_neighbors=n_neighbors,
+            n_bandwidth_neighbors=n_bandwidth_neighbors,
+            n_multineighbors=n_multineighbors, neighbor_keys=neighbor_keys,
+            metric=metric, low_memory=low_memory, key_added=key_added,
+            weight_key=weight_key,
+            add_weights_to_modalities=add_weights_to_modalities, eps=eps,
+            copy=copy, random_state=random_state, use_rep=use_rep,
+            n_pcs=n_pcs, mesh=mesh, device=device,
         )
     return single_neighbors(
         mdata, n_neighbors=n_neighbors or 15, metric=metric,

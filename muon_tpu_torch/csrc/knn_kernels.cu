@@ -206,6 +206,13 @@ __device__ float nth_positive(const float* r, int k, bool sorted, int nnz,
   return 0.f;  // unreachable for 0 <= m < nnz
 }
 
+// max(x, 0) that keeps a NaN, as jnp.maximum and torch.clamp do (fmaxf
+// would return 0): a NaN distance (a WNN score rounded above 1) then gives
+// the NaN membership of the reference
+__device__ __forceinline__ float max0_keep_nan(float x) {
+  return (x > 0.f || x != x) ? x : 0.f;
+}
+
 __global__ void smooth_knn_kernel(const float* __restrict__ dists, int n,
                                   int k, float local_connectivity,
                                   float target,
@@ -251,7 +258,7 @@ __global__ void smooth_knn_kernel(const float* __restrict__ dists, int n,
   float lo = 0.f, hi = INFINITY, mid = 1.f;
   for (int it = 0; it < n_iter; ++it) {
     float val = 0.f;
-    for (int j = 0; j < k; ++j) val += expf(-fmaxf(r[j] - rh, 0.f) / mid);
+    for (int j = 0; j < k; ++j) val += expf(-max0_keep_nan(r[j] - rh) / mid);
     if (val > target) {
       hi = mid;
       mid = (lo + hi) / 2.f;
@@ -261,11 +268,12 @@ __global__ void smooth_knn_kernel(const float* __restrict__ dists, int n,
     }
   }
   const float mean_d = nnz > 0 ? sum_nz / (float)max(nnz, 1) : 0.f;
-  const float sg = fmaxf(mid, min_k_dist_scale * (rh > 0.f ? mean_d : *mean_all));
+  const float floor_ = min_k_dist_scale * (rh > 0.f ? mean_d : *mean_all);
+  const float sg = floor_ != floor_ ? floor_ : fmaxf(mid, floor_);  // torch.maximum
   sigma[i] = sg;
   rho[i] = rh;
   float* v = vals + (int64_t)i * k;
-  for (int j = 0; j < k; ++j) v[j] = expf(-fmaxf(r[j] - rh, 0.f) / sg);
+  for (int j = 0; j < k; ++j) v[j] = expf(-max0_keep_nan(r[j] - rh) / sg);
 }
 
 }  // namespace

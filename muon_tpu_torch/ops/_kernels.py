@@ -1,7 +1,8 @@
 """Build, binding and launch counters of the hand-written CUDA kernels.
 
 ``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a
-plain C interface, at first use, into ``muon_tpu_torch/_build/``. The file
+plain C interface, at first use, into ``muon_tpu_torch/_build/``: one
+``nvcc -c`` per source, all started together, then one link. The file
 name carries a hash of the sources and flags, so an edited source rebuilds.
 Nothing here runs at import: the CPU tests import every module and never
 build. A missing ``nvcc`` or a failed build raises with the compiler's
@@ -40,7 +41,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -56,6 +57,9 @@ _SIGNATURES = {
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
     "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
+    "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -70,6 +74,9 @@ KERNELS = {
     "csr_scale_rows": "mt_csr_scale_rows",
     "knn_topk": "mt_knn_topk",
     "smooth_knn_membership": "mt_smooth_knn",
+    "wnn_bandwidth": "mt_wnn_bandwidth",
+    "wnn_theta": "mt_wnn_theta",
+    "wnn_fusion_scores": "mt_wnn_fusion_scores",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -105,23 +112,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists: the
+    sources in parallel, one ``nvcc -c`` each, then one ``nvcc -shared``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o") for src in _sources()]
+    jobs = []
+    for src, obj in zip(_sources(), objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    log, failure = [], None
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0 and failure is None:
+            failure = (proc.returncode, out + err)
+    if failure is None:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failure = (proc.returncode, proc.stdout + proc.stderr)
+    so.with_suffix(".log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failure is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed with exit code {failure[0]}:\n{failure[1]}")
     os.replace(tmp, so)  # atomic: concurrent builds see whole files only
     return so
 

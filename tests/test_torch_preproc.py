@@ -204,12 +204,16 @@ def test_slice_runs_on_a_plain_holder():
 def test_unported_branches_raise():
     X, _ = _rna(seed=6, n=100)
     mdata = MuHolder(rna=Holder(X))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        mt.pp.neighbors(mdata)
+    # WNN is ported: without per-modality neighbors it raises the
+    # reference's error (tests/test_torch_wnn.py drives it)
+    with pytest.raises(ValueError, match="Run neighbors on all modalities first"):
+        mt.pp.neighbors(mdata, device=CPU)
     with pytest.raises(TypeError):
         mt.pp.pca(mdata)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         mt.pp.neighbors(Holder(X), mesh=object(), device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        mt.pp.neighbors(mdata, mesh=object(), device=CPU)
 
 
 def test_large_inputs_take_the_approx_knn(monkeypatch):
