@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU, and check them.
 
-    python3 chip_smoke.py        # from the repository root; one CUDA device, nvcc
+    python3 chip_smoke.py        # from the repository root; one CUDA device, nvcc, g++
 
-Three paths of the user journey (README.md, bench_e2e.py), through
-``muon_tpu_torch``, at full width:
+The user journey of ``bench_e2e.py`` through ``muon_tpu_torch``, at full
+width, 100,000 cells:
 
 * ATAC: ``atac.pp.tfidf`` → ``atac.tl.lsi(n_comps=50)`` →
   ``pp.neighbors(n_neighbors=20, use_rep="X_lsi")`` on synthetic ATAC
@@ -14,12 +14,19 @@ Three paths of the user journey (README.md, bench_e2e.py), through
   use_rep="X_pca")`` on the clustered RNA counts of ``bench_e2e.py::synth``
   at its scale-10 size: 100,000 cells × 20,000 genes, 100 draws per cell,
   20 planted clusters, seed 0 (labels drawn first, as there);
-* WNN: the ATAC modality of the same ``synth`` (drawn next from the same
-  generator: 100,000 × 25,000, 150 draws per cell, the same labels) through
-  ``atac.pp.tfidf`` → ``atac.tl.lsi(n_comps=50)`` →
-  ``pp.neighbors(n_neighbors=20, use_rep="X_lsi")``, then
-  ``pp.neighbors(mdata)`` over {rna, atac} with the default parameters
-  (n_multineighbors 200, n_bandwidth_neighbors 20).
+* prot: the protein modality of the same ``synth`` (drawn after the ATAC
+  one from the same generator: 100,000 × 120 dense, planted centres plus
+  Poisson(3)) through ``prot.pp.clr`` → ``pp.pca(n_comps=30)`` →
+  ``pp.neighbors(n_neighbors=20, use_rep="X_pca")``;
+* WNN: the ATAC modality of the same ``synth`` (100,000 × 25,000, 150
+  draws per cell, the same labels) through ``atac.pp.tfidf`` →
+  ``atac.tl.lsi(n_comps=50)`` → ``pp.neighbors(n_neighbors=20,
+  use_rep="X_lsi")``, then ``pp.neighbors(mdata)`` over {rna, atac, prot}
+  with the default parameters (n_multineighbors 200, n_bandwidth_neighbors
+  20);
+* Leiden: ``tl.leiden(mdata, resolution=1.0)`` over the three modality
+  graphs (on the host, the native engine);
+* UMAP: ``tl.umap(mdata)`` on the WNN graph, 200 epochs.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -27,7 +34,8 @@ number; at the end any recorded failure makes the exit code 1 and no result
 is printed. An exception stops the run at once, with a code other than 0:
 
 1. device: the card, the torch/CUDA/nvcc versions, which optional modules import;
-2. build: compile the CUDA kernels from ``muon_tpu_torch/csrc``;
+2. build: compile the CUDA kernels from ``muon_tpu_torch/csrc`` and the
+   Leiden engine from ``muon_tpu_torch/native``;
 3. kernels: T1-T4 against their plain PyTorch versions at the ATAC path's
    shapes, with their tolerances, and both times (median of 5, CUDA events);
 4. ATAC path, with the launch counters reset just before and read just
@@ -41,22 +49,36 @@ is printed. An exception stops the run at once, with a code other than 0:
 6. kernels: T7/T8 on the RNA counts, T5 on the RNA scores (float32 and
    approx, euclidean and cosine, k+1 = 20 and 201) with the approx recall
    against float32, and T6 on T5's output, against their plain versions;
-7. WNN path, counted from ``pp.neighbors(mdata)`` alone: the launches of
-   T5, T6 and T9-T11, the fused graph and the modality weights; σ, θ, the
-   weights and the graph against the plain-PyTorch WNN from the same
-   per-modality graphs; the planted labels among the fused neighbours;
-8. kernels: T9-T11 against their plain versions on the arguments the WNN
+7. prot path, counted the same way: T12 in ``clr``, the PCA against the
+   same iteration in float64 and the exact spectrum, the graph; then T12
+   against its plain version on the protein counts;
+8. WNN path over {rna, atac, prot}, counted from ``pp.neighbors(mdata)``
+   alone: the launches of T5, T6 and T9-T11, the fused graph and the
+   modality weights; σ, θ, the weights and the graph against the
+   plain-PyTorch WNN from the same per-modality graphs; the planted labels
+   among the fused neighbours;
+9. kernels: T9-T11 against their plain versions on the arguments the WNN
    path gave them;
-9. times: the warm wall of each path with its stage split, each path's
-   device busy share under the profiler, and the plain-PyTorch paths once.
+10. Leiden: the ARI of the clusters against the planted labels;
+11. UMAP path, counted from ``tl.umap(mdata)`` alone: T13 every epoch and
+    T2 in the spectral init; one T13 epoch against its plain version from
+    the spectral layout with shared negatives; the 200-epoch layouts of the
+    kernel and of the plain version from the same start, held by the
+    planted-label share of each cell's 15 nearest 2-D neighbours (T5 at
+    d = 2), and that share's spread over 10 seeds on the same graph and
+    over 5 starts jittered by 1e-4 at the checked seed;
+12. times: the warm wall of each path with its stage split, each path's
+    device busy share under the profiler, and the plain-PyTorch paths once.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
-up the three main paths' counts, each read from its own run with the
-counters set to 0 just before it, and ``launches_by_path`` gives each;
+up the main paths' counts, each read from its own run with the counters
+set to 0 just before it, and ``launches_by_path`` gives each;
 ``gather_launches`` counts the gather rSVD side run, which is no part of
-``launches``), the card's name and power limit as ``nvidia-smi`` gives
-them, and ``{"ok": true, "device": ...}``. Without a CUDA device it prints
-no result and exits 1.
+``launches``; ``bound_ms`` is the least time the card could take for the
+kernel's measured call, ``library_ms`` the time of one PyTorch call that
+computes the same function, where there is one), the card's name and power
+limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
+Without a CUDA device it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -74,13 +96,17 @@ from scipy import sparse as sp
 N_CELLS, N_PEAKS, NNZ_PER_CELL = 100_000, 25_000, 250
 N_GENES, NNZ_PER_RNA_CELL, N_CLUSTERS = 20_000, 100, 20
 NNZ_PER_ATAC_CELL = 150  # bench_e2e.py's ATAC modality, N_PEAKS wide
+N_PROT, PROT_COMPS = 120, 30  # bench_e2e.py's D_PROT and its prot pca(30)
 N_MULTI = 200  # WNN's n_multineighbors (its default)
+N_EPOCHS = 200  # tl.umap's epochs above 10,000 cells
 K, N_ITER, SEED = 50, 7, 0
 L = K + 10
 N_NEIGHBORS = 20
 SPARSE_SRC = "muon_tpu_torch/csrc/sparse_kernels.cu"
 KNN_SRC = "muon_tpu_torch/csrc/knn_kernels.cu"
 WNN_SRC = "muon_tpu_torch/csrc/wnn_kernels.cu"
+DENSE_SRC = "muon_tpu_torch/csrc/dense_kernels.cu"
+UMAP_SRC = "muon_tpu_torch/csrc/umap_kernels.cu"
 # kernel -> (source, the TPU program it replaces)
 KERNEL_INFO = {
     "tfidf_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:790"),     # _tfidf_fn
@@ -96,6 +122,8 @@ KERNEL_INFO = {
     "wnn_bandwidth": (WNN_SRC, "muon_tpu/ops/wnn.py:339"),          # _bandwidth_fn
     "wnn_theta": (WNN_SRC, "muon_tpu/ops/wnn.py:394"),              # _theta_fn
     "wnn_fusion_scores": (WNN_SRC, "muon_tpu/ops/wnn.py:470"),      # _fusion_all_fn
+    "clr_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:64"),           # _clr_dense_fn
+    "umap_epoch": (UMAP_SRC, "muon_tpu/ops/umap.py:289"),           # _optimize_layout_bucketed_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -104,10 +132,22 @@ ATAC_PATH = ("tfidf_values", "csr_spmm_f32", "csr_gram_matmul", "knn_topk",
 RNA_PATH = ("csr_row_sums", "csr_scale_rows", "csr_gram_matmul", "csr_spmm_f32",
             "knn_topk", "smooth_knn_membership")
 GATHER_PATH = ("csr_spmm_bf16", "csr_spmm_t_bf16", "csr_spmm_t_f32")
-# WNN of {rna, atac}: T9 per modality, T10 per ordered pair, T11 once, T5 per
-# modality for the 200-wide candidate pool, T6 once for the fused graph
-WNN_PATH = {"wnn_bandwidth": 2, "wnn_theta": 4, "wnn_fusion_scores": 1, "knn_topk": 2,
+PROT_PATH = {"clr_dense": 1, "knn_topk": 1, "smooth_knn_membership": 1}
+# WNN of {rna, atac, prot}: T9 per modality, T10 per ordered pair (self
+# pairs included), T11 once, T5 per modality for the 200-wide candidate
+# pool, T6 once for the fused graph
+WNN_PATH = {"wnn_bandwidth": 3, "wnn_theta": 9, "wnn_fusion_scores": 1, "knn_topk": 3,
             "smooth_knn_membership": 1}
+# tl.umap: T13 per epoch; the spectral init's symmetric gather rSVD (k = 3,
+# 4 iterations): T2 in bf16 once and twice per iteration, then once in f32
+UMAP_PATH = {"umap_epoch": N_EPOCHS, "csr_spmm_bf16": 9, "csr_spmm_f32": 1}
+# the card's published peaks (H100 SXM: NVIDIA's data sheet, dense, at
+# 700 W): device memory, float32 outside the tensor cores, and bfloat16 in
+# them. A kernel's bound is the larger of its bytes (each input read once,
+# each output written once) over the memory rate and its operations over
+# the peak of their type: products of bfloat16 operands at the bfloat16
+# rate, everything else at the float32 rate
+HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
 
 class Holder:
@@ -124,7 +164,7 @@ class MuHolder:
     def __init__(self, mods):
         self.mod, self.n_obs = mods, N_CELLS
         self.obsmap = {k: np.arange(1, N_CELLS + 1) for k in mods}
-        self.obs, self.obsp, self.uns = {}, {}, {}
+        self.obs, self.obsm, self.obsp, self.uns = {}, {}, {}, {}
 
 
 def make_counts(seed: int = 0) -> sp.csr_matrix:
@@ -142,10 +182,11 @@ def make_counts(seed: int = 0) -> sp.csr_matrix:
 
 
 def make_e2e_counts(seed: int = 0):
-    """Clustered RNA and ATAC counts and their planted labels, the recipe of
-    bench_e2e.py::synth (its first two modalities) at 100,000 cells: labels
+    """Clustered RNA and ATAC counts, dense protein counts and their planted
+    labels, the recipe of bench_e2e.py::synth at 100,000 cells: labels
     first, then per modality, from the same generator, per-cluster tilted
-    Pareto(1.2) feature popularity."""
+    Pareto(1.2) feature popularity for the counts, and for the proteins
+    planted centres clipped at 0 plus Poisson(3) background."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, N_CLUSTERS, N_CELLS)
     order = np.argsort(labels, kind="stable")
@@ -172,7 +213,12 @@ def make_e2e_counts(seed: int = 0):
         return X.tocsr()
 
     rna = counts(N_GENES, NNZ_PER_RNA_CELL)
-    return rna, counts(N_PEAKS, NNZ_PER_ATAC_CELL), labels
+    atac = counts(N_PEAKS, NNZ_PER_ATAC_CELL)
+    cent = rng.normal(size=(N_CLUSTERS, N_PROT)) * 2.0
+    prot = np.maximum(
+        cent[labels] + rng.normal(size=(N_CELLS, N_PROT)), 0.0
+    ).astype(np.float32) + rng.poisson(3.0, size=(N_CELLS, N_PROT)).astype(np.float32)
+    return rna, atac, prot, labels
 
 
 FAILED = []
@@ -187,18 +233,53 @@ def check(ok, what: str) -> None:
 
 
 def median_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up. A
+    spin of about a millisecond is queued before each start event, so the
+    device is still busy while the host enqueues ``fn``'s launches, and the
+    time is that of the launches, not of the host's gap before them."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate, and which it is."""
+    by_bytes, by_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def library_ms(fn):
+    """The time of one PyTorch call computing the kernel's function, or None
+    when that call fails on this installation (printed)."""
+    try:
+        return median_ms(fn)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"[library] {str(e).splitlines()[0][:160]}", flush=True)
+        return None
+
+
+def csr_bytes(X) -> int:
+    return nbytes(X.data, X.indptr, X.indices)
+
+
+def torch_csr(X):
+    """A DeviceCSR as a torch sparse CSR tensor, for the library calls."""
+    return torch.sparse_csr_tensor(X.indptr, X.indices, X.data, size=X.shape)
 
 
 def importable(name: str) -> bool:
@@ -226,14 +307,17 @@ def phase_device(kernels) -> str:
     return smi
 
 
-def phase_build(kernels) -> None:
+def phase_build(kernels, native) -> None:
     t0 = time.perf_counter()
     so = kernels.build()
     kernels.library()
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").exists() else ""
     regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines() if "registers" in ln]
-    print(f"[build] {time.perf_counter() - t0:.1f}s {so.name} | " + "; ".join(regs),
-          flush=True)
+    t1 = time.perf_counter()
+    native.load_leiden_lib()
+    print(f"[build] {t1 - t0:.1f}s {so.name} | " + "; ".join(regs), flush=True)
+    print(f"[build] Leiden engine {time.perf_counter() - t1:.1f}s "
+          f"{native.leiden_library_path().name}", flush=True)
 
 
 def phase_kernels(dsp, dX, cuda) -> dict:
@@ -241,40 +325,54 @@ def phase_kernels(dsp, dX, cuda) -> dict:
     gen = torch.Generator(device=cuda).manual_seed(1)
     results = {}
 
-    def record(name, err, tol_ok, tol, k_fn, p_fn):
+    def record(name, err, tol_ok, tol, k_fn, p_fn, bnd, lib_fn=None):
         ms, plain_ms = median_ms(k_fn), median_ms(p_fn)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        print(f"[kernel] {name}: max_abs_err={err:.3e} ({tol}) "
-              f"ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+        lib = library_ms(lib_fn) if lib_fn is not None else None
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                         "library_ms": lib}
+        print(f"[kernel] {name}: max_abs_err={err:.3e} ({tol}) ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+              f"library_ms={lib if lib is None else round(lib, 3)}", flush=True)
         check(tol_ok, f"{name} within {tol}")
 
     out = dsp.tfidf_data(dX)
     torch.cuda.synchronize()
     ref = dsp.tfidf_data_plain(dX)
     diff = (out - ref).abs()
+    # per value: tf = x / rs · scale, log1p, · log1p(n / cs), finiteness
     record("tfidf_values", diff.max().item(),
            bool((diff <= 1e-6 + 1e-5 * ref.abs()).all()), "rtol 1e-5 atol 1e-6",
-           lambda: dsp.tfidf_data(dX), lambda: dsp.tfidf_data_plain(dX))
+           lambda: dsp.tfidf_data(dX), lambda: dsp.tfidf_data_plain(dX),
+           bound(csr_bytes(dX) + nbytes(out), 8 * dX.nnz, F32_OPS_PER_S))
 
     dT = dX._replace(data=out)  # the TF-IDF matrix the products see on the path
     dA = dT._replace(data=out.abs())
+    sT = torch_csr(dT)
+    sTt = torch_csr(dsp.from_scipy(sp.csr_matrix(
+        (out.cpu().numpy(), dX.indices.cpu().numpy(), dX.indptr.cpu().numpy()),
+        shape=dX.shape).T.tocsr(), cuda))
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         V = torch.randn((N_PEAKS, L), generator=gen, device=cuda).to(dtype)
         out = dsp.spmm(dT, V)
         torch.cuda.synchronize()
         diff = (out - dsp.spmm_plain(dT, V)).abs()
-        bound = 1e-5 * dsp.spmm_plain(dA, V.float().abs())
-        record(f"csr_spmm_{tag}", diff.max().item(), bool((diff <= bound).all()),
-               "1e-5 x |X|.|B|", lambda: dsp.spmm(dT, V), lambda: dsp.spmm_plain(dT, V))
+        tol_ = 1e-5 * dsp.spmm_plain(dA, V.float().abs())
+        # the library call only where it computes the same function: an f32 B
+        record(f"csr_spmm_{tag}", diff.max().item(), bool((diff <= tol_).all()),
+               "1e-5 x |X|.|B|", lambda: dsp.spmm(dT, V), lambda: dsp.spmm_plain(dT, V),
+               bound(csr_bytes(dT) + nbytes(V, out), 2 * dT.nnz * L, F32_OPS_PER_S),
+               (lambda: torch.sparse.mm(sT, V)) if tag == "f32" else None)
 
         Y = torch.randn((N_CELLS, L), generator=gen, device=cuda).to(dtype)
         out = dsp.spmm_t(dT, Y)
         torch.cuda.synchronize()
         diff = (out - dsp.spmm_t_plain(dT, Y)).abs()
-        bound = 1e-5 * dsp.spmm_t_plain(dA, Y.float().abs())
-        record(f"csr_spmm_t_{tag}", diff.max().item(), bool((diff <= bound).all()),
+        tol_ = 1e-5 * dsp.spmm_t_plain(dA, Y.float().abs())
+        record(f"csr_spmm_t_{tag}", diff.max().item(), bool((diff <= tol_).all()),
                "1e-5 x |X|^T.|B|", lambda: dsp.spmm_t(dT, Y),
-               lambda: dsp.spmm_t_plain(dT, Y))
+               lambda: dsp.spmm_t_plain(dT, Y),
+               bound(csr_bytes(dT) + nbytes(Y, out), 2 * dT.nnz * L, F32_OPS_PER_S),
+               (lambda: torch.sparse.mm(sTt, Y)) if tag == "f32" else None)
 
     V = torch.randn((N_PEAKS, L), generator=gen, device=cuda)
     out = dsp.gram_matmul(dT, V)
@@ -282,9 +380,12 @@ def phase_kernels(dsp, dX, cuda) -> dict:
     ref = dsp.gram_matmul_plain(dT, V)
     rel = (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item()
     # 1e-4: dropping the bf16 rounding of z or of x_ij reads about 1e-3
+    # X·V then Xᵀ·z, both of bfloat16 operands; V read as bfloat16
     record("csr_gram_matmul", (out - ref).abs().max().item(), rel <= 1e-4,
            f"relative Frobenius {rel:.2e} <= 1e-4",
-           lambda: dsp.gram_matmul(dT, V), lambda: dsp.gram_matmul_plain(dT, V))
+           lambda: dsp.gram_matmul(dT, V), lambda: dsp.gram_matmul_plain(dT, V),
+           bound(csr_bytes(dT) + V.numel() * 2 + nbytes(out), 4 * dT.nnz * L,
+                 BF16_OPS_PER_S))
     return results
 
 
@@ -497,11 +598,14 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
     each against its plain version."""
     results = {}
 
-    def record(name, err, tol_ok, tol, k_fn, p_fn, extra=""):
+    def record(name, err, tol_ok, tol, k_fn, p_fn, bnd, extra="", lib_fn=None):
         ms, plain_ms = median_ms(k_fn), median_ms(p_fn)
-        results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        print(f"[kernel] {name}{extra}: max_abs_err={err:.3e} ({tol}) "
-              f"ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+        lib = library_ms(lib_fn) if lib_fn is not None else None
+        results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                  **bnd, "library_ms": lib})
+        print(f"[kernel] {name}{extra}: max_abs_err={err:.3e} ({tol}) ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+              f"library_ms={lib if lib is None else round(lib, 3)}", flush=True)
         check(tol_ok, f"{name}{extra} within {tol}")
 
     dX = dsp.from_scipy(X, cuda)
@@ -509,14 +613,18 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
     torch.cuda.synchronize()
     ref = dsp.row_sums_plain(dX)
     diff = (rs - ref).abs()
+    offsets = dX.indptr.long()
     record("csr_row_sums", diff.max().item(), bool((diff <= 1e-5 * ref.abs()).all()),
-           "rtol 1e-5", lambda: dsp.row_sums(dX), lambda: dsp.row_sums_plain(dX))
+           "rtol 1e-5", lambda: dsp.row_sums(dX), lambda: dsp.row_sums_plain(dX),
+           bound(nbytes(dX.data, dX.indptr, rs), dX.nnz, F32_OPS_PER_S),
+           lib_fn=lambda: torch.segment_reduce(dX.data, "sum", offsets=offsets))
     inv = 1e4 / torch.clamp(rs, min=1.0)
     out = dsp.scale_rows_data(dX, inv)
     torch.cuda.synchronize()
     err = (out - dsp.scale_rows_data_plain(dX, inv)).abs().max().item()
     record("csr_scale_rows", err, err == 0, "exact", lambda: dsp.scale_rows_data(dX, inv),
-           lambda: dsp.scale_rows_data_plain(dX, inv))
+           lambda: dsp.scale_rows_data_plain(dX, inv),
+           bound(nbytes(dX.data, dX.indptr, inv, out), dX.nnz, F32_OPS_PER_S))
 
     Xr = torch.from_numpy(rep).to(cuda)
     gen = torch.Generator().manual_seed(2)
@@ -549,9 +657,13 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
             recall = np.mean([len(set(x[1:]) & set(y[1:])) / k for x, y in zip(a, e)])
             exact[metric] = recall
             line += f"; recall vs f32 on 2000 queries {recall:.5f}"
+        # the n² cross terms of d products each; approx: bfloat16 operands
+        n_, d_ = op.shape
         record("knn_topk", (gd - rd).abs().max().item(), ok and equal >= 0.99,
                "|dd2| <= 1e-5(|q|^2+|c|^2), equal indices >= 0.99",
-               lambda: tk.knn_topk(*args), lambda: tk.knn_topk_plain(*args), extra + line)
+               lambda: tk.knn_topk(*args), lambda: tk.knn_topk_plain(*args),
+               bound(nbytes(op, gi, gd) + (0 if sq is None else nbytes(sq)), 2 * n_ * n_ * d_,
+                     BF16_OPS_PER_S if approx else F32_OPS_PER_S), extra + line)
         if metric == "euclidean" and approx and k == N_NEIGHBORS - 1:
             path_dists = gd
     for metric, recall in exact.items():
@@ -562,11 +674,95 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
     sp_, rp, vp = tf.smooth_knn_plain(path_dists)
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()  # noqa: E731
     s_rel, r_rel, v_err = rel(sig, sp_), rel(rho, rp), (vals - vp).abs().max().item()
+    # the membership pass alone: exp(−max(d − ρ, 0)/σ) of the kernel's own σ, ρ
+    own = torch.exp(-torch.clamp(path_dists - rho[:, None], min=0.0) / sig[:, None])
+    m_err = (vals - own).abs().max().item()
+    # against the plain chain, the bisection's σ difference carries into
+    # v = exp(−x) as |Δv| <= x·e^(−x)·|Δσ|/σ <= s_rel/e, beside 1e-6 of rounding
+    v_tol = 1e-6 + s_rel / np.e
+    # 64 bisection steps of k terms (subtract, divide, exp, add), then the k values
     record("smooth_knn_membership", v_err,
-           s_rel <= 1e-5 and r_rel <= 1e-5 and v_err <= 1e-6,
-           f"sigma rel {s_rel:.1e}, rho rel {r_rel:.1e} <= 1e-5; vals atol 1e-6",
-           lambda: tf.smooth_knn(path_dists), lambda: tf.smooth_knn_plain(path_dists))
+           s_rel <= 1e-5 and r_rel <= 1e-5 and m_err <= 1e-6 and v_err <= v_tol,
+           f"sigma rel {s_rel:.1e}, rho rel {r_rel:.1e} <= 1e-5; vals of its own sigma, rho "
+           f"{m_err:.1e} <= 1e-6; vals {v_err:.1e} <= 1e-6 + sigma rel/e = {v_tol:.1e}",
+           lambda: tf.smooth_knn(path_dists), lambda: tf.smooth_knn_plain(path_dists),
+           bound(nbytes(path_dists, sig, rho, vals), path_dists.numel() * (64 * 4 + 3),
+                 F32_OPS_PER_S))
     return results
+
+
+def prot_path(tpt, tpp, P, cuda):
+    """The e2e's protein modality up to its own graph: clr (seurat, axis 0,
+    T12) → pca(30) of the dense result → neighbors(20)."""
+    h = Holder(P.copy())
+    tpt.pp.clr(h, device=cuda)
+    tpp.pca(h, n_comps=PROT_COMPS, random_state=SEED, device=cuda)
+    tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_pca", device=cuda)
+    return h
+
+
+def phase_prot_path(tpt, tpp, tla, td, kernels, P, labels, cuda):
+    kernels.reset_launch_counts()
+    h = prot_path(tpt, tpp, P, cuda)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"[prot] {N_CELLS}x{N_PROT} dense; launches by clr+pca+neighbors {launches}",
+          flush=True)
+    for name, count in PROT_PATH.items():
+        check(launches[name] == count, f"the prot path launched {name} {count} times")
+    # the CLR against T12's plain version on the same counts (float32 both)
+    ref = td.clr_values_plain(torch.from_numpy(P).to(cuda), 0, seurat=True)[0].cpu().numpy()
+    clr_err = float(np.max(np.abs(h.X - ref) / (1e-6 + np.abs(ref))))
+    check(h.X.dtype == np.float32 and h.X.shape == P.shape, "clr keeps the dtype and shape")
+    check(np.allclose(h.X, ref, rtol=1e-5, atol=1e-6), "clr vs the plain version rtol 1e-5")
+    # PCA of the dense 100k x 120: the same iteration with the same omega in
+    # float64 (float32 rounding only), and the exact spectrum of the centred
+    # matrix for the 19 planted directions (20 clusters)
+    X64 = torch.from_numpy(h.X).to(cuda, torch.float64)
+    om = tla.draw_omega(N_PROT, PROT_COMPS + 10, SEED, cuda).double()
+    s64 = tla._pca_dense(X64, PROT_COMPS, om, N_ITER, True)[1].cpu().numpy()
+    exact = torch.linalg.svdvals(X64 - X64.mean(dim=0)).cpu().numpy()[:PROT_COMPS]
+    s = np.sqrt(h.uns["pca"]["variance"] * (N_CELLS - 1))
+    rel_same = float(np.max(np.abs(s - s64) / s64))
+    rel_exact = np.abs(s - exact) / exact
+    check(h.obsm["X_pca"].shape == (N_CELLS, PROT_COMPS) and np.isfinite(h.obsm["X_pca"]).all(),
+          "prot X_pca shape, finite")
+    check(rel_same <= 1e-4, "prot PCA vs the float64 iteration, rtol 1e-4")
+    # 7 iterations of a 40-wide subspace: the weakest planted directions sit
+    # near the noise bulk and converge slowly, so this bound only asks for a PCA
+    check(rel_exact[:N_CLUSTERS - 1].max() <= 1e-2,
+          "prot PCA's planted directions vs the exact spectrum, rtol 1e-2")
+    share = check_graph(h, labels)
+    print(f"[prot] clr vs plain max rel {clr_err:.2e}; PCA singular values vs float64 "
+          f"same omega {rel_same:.2e}, vs exact: first {N_CLUSTERS - 1} "
+          f"{rel_exact[:N_CLUSTERS - 1].max():.2e}, rest {rel_exact[N_CLUSTERS - 1:].max():.2e}; "
+          f"planted-label share of neighbours {share:.4f} (chance 0.05)", flush=True)
+    check(share >= 0.55, "prot planted-label share >= 0.55")
+    return launches, h
+
+
+def phase_dense_kernels(td, P, cuda) -> dict:
+    """T12 against its plain version on the protein counts, the path's call
+    (the seurat form along axis 0)."""
+    X = torch.from_numpy(P).to(cuda)
+    out, gm = td.clr_values(X, 0, seurat=True)
+    torch.cuda.synchronize()
+    ref, gm_ref = td.clr_values_plain(X, 0, seurat=True)
+    gm_rel = ((gm - gm_ref).abs() / gm_ref.abs()).max().item()
+    diff = (out - ref).abs()
+    ok = gm_rel <= 1e-6 and bool((diff <= 1e-6 + 1e-5 * ref.abs()).all())
+    ms = median_ms(lambda: td.clr_values(X, 0, seurat=True))
+    plain_ms = median_ms(lambda: td.clr_values_plain(X, 0, seurat=True))
+    # per value log1p, add, then exp, divide, log1p
+    bnd = bound(nbytes(X, out, gm), 5 * X.numel(), F32_OPS_PER_S)
+    print(f"[kernel] clr_dense {tuple(X.shape)}: max_abs_err={diff.max().item():.3e} "
+          f"(mean rtol 1e-6: {gm_rel:.2e}; values rtol 1e-5 atol 1e-6) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+          f"library_ms=None", flush=True)
+    check(ok, "clr_dense within its tolerance")
+    return {"clr_dense": {"max_abs_err": diff.max().item(), "ms": ms, "plain_ms": plain_ms,
+                          **bnd, "library_ms": None}}
+
 
 
 @contextmanager
@@ -630,7 +826,7 @@ def phase_wnn_path(tpp, tw, tk, tf, kernels, mods, labels, cuda):
           f"kNN k = {rec['knn_k']}", flush=True)
     for name, count in WNN_PATH.items():
         check(launches[name] == count, f"the WNN path launched {name} {count} times")
-    check(rec["knn_k"] == [N_MULTI, N_MULTI], "T5 ran at k+1 = 201 per modality")
+    check(rec["knn_k"] == [N_MULTI] * len(mods), "T5 ran at k+1 = 201 per modality")
 
     D, C = md.obsp["distances"], md.obsp["connectivities"]
     rows = np.repeat(np.arange(N_CELLS), np.diff(D.indptr))
@@ -711,7 +907,30 @@ def phase_wnn_path(tpp, tw, tk, tf, kernels, mods, labels, cuda):
     check((conn_d <= 1e-3).mean() >= 0.999,
           "fused connectivities vs plain within 1e-3 on >= 99.9% of shared edges")
     check(abs(share - share_p) <= 0.01, "fused planted-label share within 0.01 of the plain WNN's")
-    return launches, rec
+    return launches, rec, md
+
+
+def wnn_bound(name, args, out) -> dict:
+    """The bound of T9-T11 on the arguments of their measured call."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    bytes_ = nbytes(*tensors, out)
+    if name == "wnn_bandwidth":
+        # per cell, C candidates: a Jaccard count of kk binary searches over
+        # the cell's sorted set, a d-wide distance, a rank among C
+        NI, rep16 = args[0], args[2]
+        n, kk = NI.shape
+        stride = args[7]
+        C = kk + kk * (-(-kk // stride))
+        ops = n * C * (kk * max(1, int(np.ceil(np.log2(kk)))) + 2 * rep16.shape[1]
+                       + int(np.ceil(np.log2(C))))
+        return bound(bytes_, ops, F32_OPS_PER_S)
+    if name == "wnn_theta":
+        # per row: the mean of kk neighbour rows of d, then a distance
+        rep, rows1, NI2 = args[0], args[1], args[3]
+        return bound(bytes_, rows1.numel() * (NI2.shape[1] + 3) * rep.shape[1], F32_OPS_PER_S)
+    # fusion: per candidate a bfloat16 cross term over the table's D columns
+    cand, cat16 = args[0], args[1]
+    return bound(bytes_, 2 * cand.numel() * cat16.shape[1], BF16_OPS_PER_S)
 
 
 def phase_wnn_kernels(tw, rec) -> dict:
@@ -739,12 +958,171 @@ def phase_wnn_kernels(tw, rec) -> dict:
             err, kind = diff / ref.abs().clamp(min=1e-30), "rel"
         ok = (err <= tight).float().mean().item() >= 0.999 and err.max().item() <= 100 * tight
         ms, plain_ms = median_ms(lambda: fn(*args)), median_ms(lambda: plain(*args), reps=3)
-        results[name] = {"max_abs_err": diff.max().item(), "ms": ms, "plain_ms": plain_ms}
+        bnd = wnn_bound(name, args, out)
+        results[name] = {"max_abs_err": diff.max().item(), "ms": ms, "plain_ms": plain_ms,
+                         **bnd, "library_ms": None}
         shape = tuple(args[0].shape)
         print(f"[kernel] {name} {shape}: max_abs_err={diff.max().item():.3e} ({tol}; "
-              f"largest {kind} err {err.max().item():.2e}) ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+              f"largest {kind} err {err.max().item():.2e}) ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})", flush=True)
         check(ok, f"{name} within {tol}")
     return results
+
+
+def ari(a, b) -> float:
+    """Adjusted Rand index of two labelings."""
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    C = np.zeros((ia.max() + 1, ib.max() + 1))
+    np.add.at(C, (ia, ib), 1)
+    comb = lambda x: x * (x - 1) / 2  # noqa: E731
+    sum_a, sum_b = comb(C.sum(1)).sum(), comb(C.sum(0)).sum()
+    expected = sum_a * sum_b / comb(len(ia))
+    return float((comb(C).sum() - expected) / ((sum_a + sum_b) / 2 - expected))
+
+
+def phase_leiden(ttl, kernels, profiling, mods, labels):
+    """Multiplex Leiden over the three modality graphs, on the host."""
+    md = MuHolder(mods)
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        ttl.leiden(md, resolution=1.0)
+        wall = time.perf_counter() - t0
+    got = md.obs["leiden"]
+    a = ari(labels, got)
+    stages = {k: round(sum(v), 4) for k, v in t.items()}
+    print(f"[leiden] tl.leiden over {list(mods)}: {len(np.unique(got))} clusters, ARI "
+          f"against the planted labels {a:.4f}; wall {wall:.4f}s; stages {stages}", flush=True)
+    check(not any(kernels.launch_counts().values()), "Leiden launched no kernel (host)")
+    check(a >= 0.9, "Leiden ARI against the planted labels >= 0.9")
+    return wall
+
+
+def knn_share(tk, emb, labels, cuda, k=15) -> float:
+    """The planted-label share of each cell's k nearest cells in ``emb``
+    (T5, exact)."""
+    idx, _ = tk.knn(np.ascontiguousarray(emb), k, device=cuda)
+    idx = idx[:, 1:].long().cpu().numpy()
+    return float((labels[idx] == labels[:, None]).mean())
+
+
+def graph_holder(mods, wnn_md):
+    """A MuData-like holder carrying the WNN graph of ``wnn_md``."""
+    md = MuHolder(mods)
+    md.obsp, md.uns = dict(wnn_md.obsp), dict(wnn_md.uns)
+    return md
+
+
+def phase_umap_path(ttl, tu, tk, kernels, mods, wnn_md, labels, cuda):
+    md = graph_holder(mods, wnn_md)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ttl.umap(md, device=cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    G = md.obsp["connectivities"].tocsr()
+    print(f"[umap] tl.umap(mdata) on the WNN graph ({G.nnz} edges) in {wall:.4f}s "
+          f"launched {launches}", flush=True)
+    for name, count in UMAP_PATH.items():
+        check(launches[name] == count, f"the UMAP path launched {name} {count} times")
+    emb = md.obsm["X_umap"]
+    check(emb.shape == (N_CELLS, 2) and emb.dtype == np.float32 and np.isfinite(emb).all(),
+          "X_umap shape, float32, finite")
+
+    # one epoch, kernel against plain, from the spectral layout with the
+    # same negatives and eons
+    a, b = tu.find_ab_params()
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    shift = tu.bucket_shifts(eps, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, shift, N_CELLS, cuda)
+    start = tu.spectral_init(G, 2, seed=42, device=cuda)
+    emb0 = torch.from_numpy(start).to(cuda)
+    dct = torch.from_numpy(dc).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    negs = torch.randint(0, N_CELLS, (N_CELLS, 5), generator=gen, dtype=torch.int32, device=cuda)
+    alpha0 = tu.epoch_alpha(1.0, 0, N_EPOCHS)
+    args = (dct, negs, 0, alpha0, a, b, 1.0)
+    eons_k, eons_p = edges.eps.clone(), edges.eps.clone()
+    out_k = tu.umap_epoch(emb0, torch.empty_like(emb0), edges, eons_k, *args)
+    torch.cuda.synchronize()
+    out_p = tu.umap_epoch_plain(emb0, torch.empty_like(emb0), edges, eons_p, *args)
+    err = (out_k - out_p).abs().max().item()
+    same_eons = bool(torch.equal(eons_k, eons_p))
+    # timed from the same state: each call takes fresh eons
+    pools = {k: [edges.eps.clone() for _ in range(6)] for k in ("k", "p")}
+    buf = torch.empty_like(emb0)
+    ms = median_ms(lambda: tu.umap_epoch(emb0, buf, edges, pools["k"].pop(), *args))
+    plain_ms = median_ms(lambda: tu.umap_epoch_plain(emb0, buf, edges, pools["p"].pop(), *args))
+    # at epoch 0 every stride runs: each edge's shift and eons are read,
+    # and a due edge's tail and eps read and its eons written; per due edge
+    # and per negative about 30 operations (two powf among them)
+    E = len(eps)
+    due = int((eps <= 1.0).sum())
+    bnd = bound(5 * E + 12 * due + nbytes(edges.indptr, dct, negs, emb0, out_k),
+                30 * (due + negs.numel()), F32_OPS_PER_S)
+    strides = sorted(set((1 << shift.astype(np.int64)).tolist()))
+    print(f"[kernel] umap_epoch (n={N_CELLS}, E={E}, strides {strides}, due at epoch 0 "
+          f"{due}): max_abs_err={err:.3e} (<= 1e-3; eons equal {same_eons}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+          f"library_ms=None", flush=True)
+    check(err <= 1e-3 and same_eons, "umap_epoch vs plain from the spectral layout, max 1e-3")
+    results = {"umap_epoch": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                              "library_ms": None}}
+
+    # the 200 epochs of the kernel and of the plain version from the same
+    # start and seed (the same negatives): held by the planted-label share
+    # of each cell's 15 nearest cells in the layout
+    md_k = graph_holder(mods, wnn_md)
+    ttl.umap(md_k, init_pos=start, device=cuda)
+    md_p = graph_holder(mods, wnn_md)
+    saved = tu.umap_epoch
+    tu.umap_epoch = tu.umap_epoch_plain
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ttl.umap(md_p, init_pos=start, device=cuda)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        tu.umap_epoch = saved
+    check(kernels.launch_counts()["umap_epoch"] == 0, "the plain UMAP launched no T13")
+    s_main = knn_share(tk, emb, labels, cuda)
+    s_k = knn_share(tk, md_k.obsm["X_umap"], labels, cuda)
+    s_p = knn_share(tk, md_p.obsm["X_umap"], labels, cuda)
+    fused = label_share(wnn_md.obsp["distances"], labels)
+    print(f"[umap] planted-label share of the 15 nearest cells in 2-D: main run {s_main:.4f}, "
+          f"kernel {s_k:.4f} and plain {s_p:.4f} from the same start; the fused graph's own "
+          f"{fused:.4f} (chance 0.05)", flush=True)
+    print(f"[times] plain-torch UMAP (200 epochs, the same start) on the card, one warm run: "
+          f"{t_plain:.4f}s", flush=True)
+    check(abs(s_k - s_p) <= 0.02, "UMAP kernel vs plain share within 0.02")
+    check(min(s_main, s_k) >= 0.8 * fused, "UMAP share >= 0.8 x the fused graph's")
+    # the same share over other seeds (negatives, init jitter and the spectral
+    # init's test matrix), on the same graph: the spread a single run is drawn from
+    spread = []
+    for seed in range(10):
+        h = graph_holder(mods, wnn_md)
+        ttl.umap(h, random_state=seed, device=cuda)
+        spread.append(knn_share(tk, h.obsm["X_umap"], labels, cuda))
+    print(f"[umap] the same share over random_state 0-9: min {min(spread):.4f}, median "
+          f"{float(np.median(spread)):.4f}, max {max(spread):.4f} "
+          f"({', '.join(f'{v:.4f}' for v in spread)})", flush=True)
+    # and at this run's seed from starts jittered by 1e-4: how far the checked
+    # share moves under a small change of its start (the graph itself differs
+    # between runs by a few hundred edges, which moves it further)
+    jitter = []
+    for j in range(5):
+        rng = np.random.default_rng(100 + j)
+        h = graph_holder(mods, wnn_md)
+        ttl.umap(h, init_pos=(start + rng.normal(scale=1e-4, size=start.shape)).astype(np.float32),
+                 device=cuda)
+        jitter.append(knn_share(tk, h.obsm["X_umap"], labels, cuda))
+    print(f"[umap] the same share from the seed-42 start jittered by 1e-4 (5 draws): "
+          f"{', '.join(f'{v:.4f}' for v in jitter)}", flush=True)
+    return launches, results
+
 
 
 def profiled(fn):
@@ -792,8 +1170,8 @@ def timed_reps(label, make, run, profiling, reps=3):
           f"median {float(np.median(walls)):.4f}; stages {splits}", flush=True)
 
 
-def phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, wnn_mods,
-                cuda) -> None:
+def phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, X_rna,
+                P, wnn_mods, wnn_md, cuda) -> None:
     def tfidf_lsi(h):
         tac.pp.tfidf(h, device=cuda)
         tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
@@ -818,6 +1196,13 @@ def phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, wnn_mod
                lambda md: tpp.neighbors(md, device=cuda), profiling)
     print_profile("WNN pp.neighbors(mdata)",
                   profiled(lambda: tpp.neighbors(MuHolder(wnn_mods), device=cuda)))
+    timed_reps("prot clr+pca+neighbors", lambda: P,
+               lambda P_: prot_path(tpt, tpp, P_, cuda), profiling)
+    print_profile("prot clr+pca+neighbors", profiled(lambda: prot_path(tpt, tpp, P, cuda)))
+    timed_reps("UMAP tl.umap(mdata)", lambda: graph_holder(wnn_mods, wnn_md),
+               lambda md: ttl.umap(md, device=cuda), profiling)
+    print_profile("UMAP tl.umap(mdata)",
+                  profiled(lambda: ttl.umap(graph_holder(wnn_mods, wnn_md), device=cuda)))
 
     h = Holder(X.copy())
     torch.cuda.synchronize()
@@ -839,9 +1224,21 @@ def phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, wnn_mod
     t0 = time.perf_counter()
     rna_plain(dsp, tla, tk, tf, X_rna, cuda)
     torch.cuda.synchronize()
-    print(f"[times] plain-torch RNA normalise+pca+neighbors on the card, one warm "
-          f"run: {time.perf_counter() - t0:.4f}s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t1 = time.perf_counter()
+    prot_plain(tla, tk, tf, td, P, cuda)
+    torch.cuda.synchronize()
+    print(f"[times] plain-torch on the card, one warm run: RNA normalise+pca+neighbors "
+          f"{t1 - t0:.4f}s, prot clr+pca+neighbors {time.perf_counter() - t1:.4f}s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def prot_plain(tla, tk, tf, td, P, cuda):
+    """The prot path through the plain versions: T12's, the same dense PCA
+    (torch only) and the plain neighbors."""
+    Xc = td.clr_values_plain(torch.from_numpy(P).to(cuda), 0, seurat=True)[0]
+    U, s, _, _ = tla._pca_dense(Xc, PROT_COMPS, tla.draw_omega(N_PROT, PROT_COMPS + 10,
+                                                               SEED, cuda), N_ITER, True)
+    return neighbors_plain(tk, tf, (U * s).cpu().numpy(), cuda)
 
 
 def main() -> int:
@@ -850,50 +1247,69 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import native
     from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch import prot as tpt
+    from muon_tpu_torch import tl as ttl
     from muon_tpu_torch.ops import _kernels as kernels
+    from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import sparse as dsp
+    from muon_tpu_torch.ops import umap as tu
     from muon_tpu_torch.ops import wnn as tw
     from muon_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
     cuda = torch.device("cuda", 0)
     smi = phase_device(kernels)
-    phase_build(kernels)
+    phase_build(kernels, native)
 
     t0 = time.perf_counter()
     X = make_counts(SEED)
     print(f"[data] ATAC {X.shape[0]}x{X.shape[1]} nnz={X.nnz} made in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    X_rna, X_atac_e2e, labels = make_e2e_counts(SEED)
+    X_rna, X_atac_e2e, P, labels = make_e2e_counts(SEED)
     print(f"[data] e2e RNA {X_rna.shape[0]}x{X_rna.shape[1]} nnz={X_rna.nnz}, ATAC "
-          f"{X_atac_e2e.shape[0]}x{X_atac_e2e.shape[1]} nnz={X_atac_e2e.nnz}, "
-          f"{N_CLUSTERS} planted clusters, made in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+          f"{X_atac_e2e.shape[0]}x{X_atac_e2e.shape[1]} nnz={X_atac_e2e.nnz}, prot "
+          f"{P.shape[0]}x{P.shape[1]} dense, {N_CLUSTERS} planted clusters, made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     results = phase_kernels(dsp, dsp.from_scipy(X, cuda), cuda)
     atac_launches, gather_launches, atac_h = phase_atac_path(
         tac, tpp, dsp, tla, kernels, X, cuda)
     rna_launches, rna_h = phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X_rna, labels, cuda)
     results.update(phase_neighbors_kernels(dsp, tk, tf, X_rna, rna_h.obsm["X_pca"], cuda))
+    prot_launches, prot_h = phase_prot_path(tpt, tpp, tla, td, kernels, P, labels, cuda)
+    results.update(phase_dense_kernels(td, P, cuda))
     t0 = time.perf_counter()
-    wnn_mods = {"rna": rna_h, "atac": atac_e2e_path(tac, tpp, X_atac_e2e, cuda)}
+    wnn_mods = {"rna": rna_h, "atac": atac_e2e_path(tac, tpp, X_atac_e2e, cuda),
+                "prot": prot_h}
     print(f"[wnn] e2e ATAC tfidf -> lsi -> neighbors in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    wnn_launches, wnn_rec = phase_wnn_path(tpp, tw, tk, tf, kernels, wnn_mods, labels, cuda)
+    wnn_launches, wnn_rec, wnn_md = phase_wnn_path(tpp, tw, tk, tf, kernels, wnn_mods,
+                                                   labels, cuda)
     results.update(phase_wnn_kernels(tw, wnn_rec))
     del wnn_rec
-    phase_times(tac, tpp, dsp, tla, tk, tf, profiling, X, atac_h, X_rna, wnn_mods, cuda)
+    phase_leiden(ttl, kernels, profiling, wnn_mods, labels)
+    umap_launches, umap_results = phase_umap_path(ttl, tu, tk, kernels, wnn_mods, wnn_md,
+                                                  labels, cuda)
+    results.update(umap_results)
+    phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, X_rna, P,
+                wnn_mods, wnn_md, cuda)
+    by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
+               "wnn": wnn_launches, "umap": umap_launches}
+    print("[launches] by path (each from 0 just before it): " + "; ".join(
+        f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
+        + f"; gather rSVD side run " + ", ".join(
+        f"{k} {v}" for k, v in gather_launches.items() if v), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}", file=sys.stderr)
         return 1
 
-    by_path = {"atac": atac_launches, "rna": rna_launches, "wnn": wnn_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],

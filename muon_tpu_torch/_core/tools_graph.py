@@ -1,0 +1,241 @@
+"""Multiplex Leiden/Louvain and multimodal UMAP (``mu.tl``; counterpart of
+muon_tpu/_core/tools_graph.py).
+
+The tools take MuData-like objects (``.mod``, ``.obsmap`` 1-based,
+``.n_obs``, ``.obs``, ``.obsp``, ``.uns``) or AnnData-like ones (``.obs``,
+``.obsp``, ``.uns``, ``.obsm``). Cluster labels go into ``obs[key_added]``
+as a ``pd.Categorical`` when ``obs`` is a pandas DataFrame, and as an array
+of label strings otherwise. ``snf`` is not ported yet (ROADMAP item 10).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping, Sequence
+from typing import Optional
+
+import numpy as np
+from scipy import sparse as sp
+
+from ..ops.device import DeviceLike
+from .preproc import _is_mudata
+
+__all__ = ["leiden", "louvain", "umap"]
+
+
+def _choose_graph(obj, obsp=None, neighbors_key=None):
+    if obsp is not None:
+        return obj.obsp[obsp]
+    nkey = neighbors_key or "neighbors"
+    if nkey in obj.uns:
+        return obj.obsp[obj.uns[nkey]["connectivities_key"]]
+    if "connectivities" in obj.obsp:
+        return obj.obsp["connectivities"]
+    raise ValueError("No neighbors found; run neighbors first.")
+
+
+def _write_labels(obj, key_added: str, labels: np.ndarray) -> None:
+    """``obs[key_added]``: a ``pd.Categorical`` of the label strings, ordered
+    by label, when ``obs`` is a pandas DataFrame; the strings otherwise."""
+    strings = labels.astype(str)
+    if type(obj.obs).__module__.startswith("pandas"):
+        import pandas as pd
+
+        obj.obs[key_added] = pd.Categorical(
+            strings, categories=[str(i) for i in sorted(set(labels))]
+        )
+    else:
+        obj.obs[key_added] = strings
+
+
+def _cluster(
+    mdata,
+    resolution=None,
+    mod_weights=None,
+    random_state: int = 0,
+    key_added: str = "leiden",
+    neighbors_key: Optional[str] = None,
+    directed: bool = True,
+    algorithm: str = "leiden",
+    **kwargs,
+):
+    """Multiplex clustering: one partition optimised jointly over the
+    per-modality connectivity graphs (reference muon/_core/tools.py:928-1054,
+    leidenalg optimise_partition_multiplex semantics), on the host by the
+    native engine (ops/leiden.py)."""
+    from ..ops.leiden import multiplex_leiden
+
+    if not _is_mudata(mdata):
+        adj = _choose_graph(mdata, neighbors_key=neighbors_key)
+        labels = multiplex_leiden(
+            [adj],
+            [resolution if resolution is not None else 1.0],
+            [1.0],
+            seed=random_state or 0,
+            refine=(algorithm == "leiden"),
+            n_iterations=kwargs.get("n_iterations"),
+        )
+        _write_labels(mdata, key_added, labels)
+        mdata.uns[algorithm] = {
+            "params": {"resolution": resolution, "random_state": random_state}
+        }
+        return
+
+    mods = list(mdata.mod.keys())
+    if isinstance(neighbors_key, Mapping):
+        nkeys = {m: neighbors_key.get(m) for m in mods}
+    else:
+        nkeys = {m: neighbors_key for m in mods}
+    adjs = [_choose_graph(mdata.mod[m], neighbors_key=nkeys[m]) for m in mods]
+
+    if resolution is None:
+        resolutions = [1.0] * len(mods)
+    elif isinstance(resolution, Mapping):
+        resolutions = [resolution[m] for m in mods]
+    elif isinstance(resolution, (Sequence, np.ndarray)) and not isinstance(
+        resolution, str
+    ):
+        assert len(resolution) == len(mods)
+        resolutions = list(resolution)
+    else:
+        resolutions = [float(resolution)] * len(mods)
+
+    if mod_weights is None:
+        weights = [1.0] * len(mods)
+    elif isinstance(mod_weights, Mapping):
+        weights = [mod_weights.get(m, 1) for m in mods]
+    elif isinstance(mod_weights, (Sequence, np.ndarray)) and not isinstance(
+        mod_weights, str
+    ):
+        assert len(mod_weights) == len(mods)
+        weights = list(mod_weights)
+    else:
+        weights = [float(mod_weights)] * len(mods)
+
+    # ragged obs: expand each modality graph onto the global obs axis
+    n = mdata.n_obs
+    expanded = []
+    for m, A in zip(mods, adjs):
+        if A.shape[0] == n and bool(np.all(mdata.obsmap[m] == np.arange(1, n + 1))):
+            expanded.append(A.tocsr())
+        else:
+            gmap = np.flatnonzero(np.asarray(mdata.obsmap[m]) > 0)
+            A = A.tocoo()
+            expanded.append(
+                sp.csr_matrix(
+                    (A.data, (gmap[A.row], gmap[A.col])), shape=(n, n)
+                )
+            )
+
+    labels = multiplex_leiden(
+        expanded, resolutions, weights, seed=random_state or 0,
+        refine=(algorithm == "leiden"),
+        n_iterations=kwargs.get("n_iterations"),
+    )
+    _write_labels(mdata, key_added, labels)
+    mdata.uns[algorithm] = {
+        "params": {
+            "resolution": resolution,
+            "random_state": random_state,
+        }
+    }
+
+
+def leiden(
+    data,
+    resolution=None,
+    mod_weights=None,
+    random_state: int = 0,
+    key_added: str = "leiden",
+    neighbors_key=None,
+    directed: bool = True,
+    **kwargs,
+):
+    """Multiplex Leiden clustering (reference muon/_core/tools.py:1057-1130)."""
+    return _cluster(
+        data, resolution=resolution, mod_weights=mod_weights,
+        random_state=random_state, key_added=key_added,
+        neighbors_key=neighbors_key, directed=directed, algorithm="leiden",
+        **kwargs,
+    )
+
+
+def louvain(
+    data,
+    resolution=None,
+    mod_weights=None,
+    random_state: int = 0,
+    key_added: str = "louvain",
+    neighbors_key=None,
+    directed: bool = True,
+    **kwargs,
+):
+    """Multiplex Louvain clustering (reference muon/_core/tools.py:1133-1206)."""
+    return _cluster(
+        data, resolution=resolution, mod_weights=mod_weights,
+        random_state=random_state, key_added=key_added,
+        neighbors_key=neighbors_key, directed=directed, algorithm="louvain",
+        **kwargs,
+    )
+
+
+def umap(
+    mdata,
+    min_dist: float = 0.5,
+    spread: float = 1.0,
+    n_components: int = 2,
+    maxiter: Optional[int] = None,
+    alpha: float = 1.0,
+    gamma: float = 1.0,
+    negative_sample_rate: int = 5,
+    init_pos="spectral",
+    random_state: int = 42,
+    a: Optional[float] = None,
+    b: Optional[float] = None,
+    copy: bool = False,
+    method: str = "umap",
+    neighbors_key: Optional[str] = None,
+    mesh=None,
+    device: DeviceLike = None,
+):
+    """Embed the (multimodal) neighbourhood graph with UMAP (reference
+    muon/_core/tools.py:1209-1362); the SGD epochs run on the device
+    (ops/umap.py, T13). Writes ``obsm["X_umap"]`` and ``uns["umap"]``.
+    ``mesh`` (multi-device) is not ported yet and raises."""
+    from ..ops.umap import find_ab_params, umap_embed
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "UMAP over a device mesh is not ported yet (ROADMAP item 12)"
+        )
+    data = mdata.copy() if copy else mdata
+    nkey = neighbors_key or "neighbors"
+    if nkey not in data.uns:
+        raise ValueError(
+            f'Did not find .uns["{nkey}"]. Run `muon_tpu_torch.pp.neighbors` first.'
+        )
+    neighbors = data.uns[nkey]
+    conn = data.obsp[neighbors["connectivities_key"]]
+
+    if a is None or b is None:
+        a, b = find_ab_params(spread, min_dist)
+
+    emb = umap_embed(
+        conn.tocsr(),
+        n_components=n_components,
+        n_epochs=maxiter,
+        init=init_pos if init_pos is not None else "spectral",
+        # connectivities from ops/fuzzy are symmetric by construction
+        assume_symmetric=True,
+        min_dist=min_dist,
+        spread=spread,
+        alpha=alpha,
+        gamma=gamma,
+        negative_sample_rate=negative_sample_rate,
+        a=a,
+        b=b,
+        random_state=random_state if isinstance(random_state, int) else 42,
+        device=device,
+    )
+    data.obsm["X_umap"] = emb
+    data.uns["umap"] = {"params": {"a": a, "b": b, "random_state": random_state}}
+    return data if copy else None

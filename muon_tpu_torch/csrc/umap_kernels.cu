@@ -1,0 +1,182 @@
+// UMAP layout optimisation, one SGD epoch per launch, for Hopper (sm_90a).
+//
+//   T13 umap_epoch  <- muon_tpu/ops/umap.py _optimize_layout_bucketed_fn
+//                      (with its reduction _segsum_sorted)
+//
+// One epoch of the reference's symmetric-graph SGD, in one launch: the
+// attraction of every due edge, summed per head vertex; the vertex-pooled
+// negatives, scaled by the vertex's expected due rate dc_exp; the
+// symmetric fold (the tail update equals the head update, so it is 2x the
+// head sum); and the step emb_out = emb + alpha (2 upd_h + upd_neg). The
+// epoch reads emb and writes emb_out (the caller swaps the two), so every
+// update of the epoch is summed from the same layout before any is applied,
+// as in the reference (it is not Hogwild).
+//
+// Edges arrive sorted by head as one CSR over vertices (indptr), with the
+// tail, eps (epochs per sample), eons (epoch of next sample, updated here)
+// and shift = log2 of the edge's stride: the reference processes bucket
+// b = floor(log2 eps) (clipped) only on epochs divisible by 2^b, so an edge
+// is due when epoch % 2^shift == 0 and eons <= epoch + 1. Each edge belongs
+// to one head, so its eons write has no race.
+//
+// Layout: a warp per vertex. Its lanes walk the vertex's edges, each
+// summing the clipped gradients of its due edges in registers, then a
+// butterfly sums the lanes; lanes 0..neg_rate-1 take one negative each.
+// The per-vertex sum is direct (the reference reduces a whole bucket by a
+// float32 prefix sum and a boundary difference, whose rounding grows with
+// the bucket's size), so the two differ by that rounding.
+//
+// Bound: per epoch, each edge's tail, eps, eons and shift are read and
+// the eons of due edges written (about 17 bytes an edge); emb (n x dim f32,
+// 0.8 MB at 100k x 2) stays in L2, so at 3M edges an epoch needs about
+// 51 MB, 15 us at 3.35 TB/s. The simple design here idles lanes on short
+// rows of a skewed degree distribution; balancing them is later work.
+// powf of d2 runs only on d2 > 0 (its exponent b - 1 is negative).
+//
+// Interface: plain C functions (loaded with ctypes), as in
+// sparse_kernels.cu. Each launches on the stream it is given, allocates
+// nothing, and returns cudaGetLastError(). Outputs are allocated by the
+// caller.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxDim = 8;
+
+__device__ __forceinline__ float clip4(float x) { return fminf(fmaxf(x, -4.f), 4.f); }
+
+template <int DIM>
+__device__ __forceinline__ float sq_dist(const float* d) {
+  float s = __fmul_rn(d[0], d[0]);
+#pragma unroll
+  for (int k = 1; k < DIM; ++k) s = __fadd_rn(s, __fmul_rn(d[k], d[k]));
+  return s;
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
+                  const int* __restrict__ indptr, const int* __restrict__ tails,
+                  const float* __restrict__ eps, float* __restrict__ eons,
+                  const signed char* __restrict__ shift,
+                  const float* __restrict__ dc_exp, const int* __restrict__ negs,
+                  int n, int neg_rate, int epoch, float alpha, float a, float b,
+                  float gamma) {
+  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (i >= n) return;
+  float ei[DIM], up[DIM], un[DIM], diff[DIM];
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) {
+    ei[k] = emb[(int64_t)i * DIM + k];
+    up[k] = 0.f;
+    un[k] = 0.f;
+  }
+  const float due_by = (float)epoch + 1.0f;
+  const float c_att = -2.0f * a * b;
+  const int e1 = indptr[i + 1];
+  for (int e = indptr[i] + lane; e < e1; e += kWarp) {
+    if (epoch & ((1 << shift[e]) - 1)) continue;  // the bucket skips this epoch
+    const float eo = eons[e];
+    if (!(eo <= due_by)) continue;
+    const int t = tails[e];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) diff[k] = __fsub_rn(ei[k], emb[(int64_t)t * DIM + k]);
+    const float d2 = sq_dist<DIM>(diff);
+    float coeff = 0.f;
+    if (d2 > 0.f)
+      coeff = __fdiv_rn(__fmul_rn(c_att, powf(d2, b - 1.0f)),
+                        __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f));
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) up[k] = __fadd_rn(up[k], clip4(__fmul_rn(coeff, diff[k])));
+    eons[e] = __fadd_rn(eo, eps[e]);
+  }
+  if (lane < neg_rate) {
+    const int j = negs[(int64_t)i * neg_rate + lane];
+    if (j != i) {
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) diff[k] = __fsub_rn(ei[k], emb[(int64_t)j * DIM + k]);
+      const float d2 = sq_dist<DIM>(diff);
+      if (d2 > 0.f) {
+        const float coeff = __fdiv_rn(
+            2.0f * gamma * b,
+            __fmul_rn(__fadd_rn(0.001f, d2),
+                      __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f)));
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) un[k] = clip4(__fmul_rn(coeff, diff[k]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) un[k] = 4.0f;  // the reference's d2 == 0 branch
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) {
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
+      up[k] = __fadd_rn(up[k], __shfl_xor_sync(0xffffffffu, up[k], o));
+      un[k] = __fadd_rn(un[k], __shfl_xor_sync(0xffffffffu, un[k], o));
+    }
+  }
+  if (lane == 0) {
+    const float dc = dc_exp[i];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k)
+      emb_out[(int64_t)i * DIM + k] = __fadd_rn(
+          ei[k], __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up[k]), __fmul_rn(un[k], dc))));
+  }
+}
+
+template <int DIM>
+void launch_epoch(const float* emb, float* emb_out, const int* indptr,
+                  const int* tails, const float* eps, float* eons,
+                  const signed char* shift, const float* dc_exp, const int* negs,
+                  int n, int neg_rate, int epoch, float alpha, float a, float b,
+                  float gamma, cudaStream_t s) {
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  umap_epoch_kernel<DIM><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+      emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, n, neg_rate,
+      epoch, alpha, a, b, gamma);
+}
+
+}  // namespace
+
+extern "C" {
+
+// T13. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32
+// over the head-sorted edges; tails (E) int32; eps (E) f32; eons (E) f32,
+// updated in place; shift (E) int8, 0 <= shift < 31; dc_exp (n) f32; negs
+// (n x neg_rate) int32, 0 <= neg_rate <= 32; 2 <= dim <= 8.
+int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
+                  const int* tails, const float* eps, float* eons,
+                  const signed char* shift, const float* dc_exp, const int* negs,
+                  int n, int dim, int neg_rate, int epoch, float alpha, float a,
+                  float b, float gamma, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (dim < 2 || dim > kMaxDim || neg_rate < 0 || neg_rate > kWarp)
+    return (int)cudaErrorInvalidValue;
+#define MT_UMAP_DIM(D)                                                        \
+  case D:                                                                     \
+    launch_epoch<D>(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp,    \
+                    negs, n, neg_rate, epoch, alpha, a, b, gamma, s);         \
+    break;
+  switch (dim) {
+    MT_UMAP_DIM(2)
+    MT_UMAP_DIM(3)
+    MT_UMAP_DIM(4)
+    MT_UMAP_DIM(5)
+    MT_UMAP_DIM(6)
+    MT_UMAP_DIM(7)
+    MT_UMAP_DIM(8)
+  }
+#undef MT_UMAP_DIM
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

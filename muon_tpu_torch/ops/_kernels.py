@@ -60,6 +60,9 @@ _SIGNATURES = {
     "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                      _F, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -77,6 +80,8 @@ KERNELS = {
     "wnn_bandwidth": "mt_wnn_bandwidth",
     "wnn_theta": "mt_wnn_theta",
     "wnn_fusion_scores": "mt_wnn_fusion_scores",
+    "clr_dense": "mt_clr_dense",
+    "umap_epoch": "mt_umap_epoch",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

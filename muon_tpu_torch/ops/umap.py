@@ -1,0 +1,317 @@
+"""UMAP embedding on the device (counterpart of muon_tpu/ops/umap.py).
+
+    umap_epoch   T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
+                         (csrc/umap_kernels.cu)
+
+The fuzzy graph's edges live on the device as one head-sorted edge list
+(a CSR over the vertices) with a per-edge stride; each epoch is one launch
+of T13, which sums the attraction of the due edges per vertex, adds the
+vertex-pooled negatives scaled by the vertex's expected due rate, folds the
+symmetric tail update into the head update, and writes the new layout
+beside the old one (the two buffers swap), as the reference's epoch sums
+every update before applying any.
+
+Kept from the reference because they are results: the pruning and
+``epochs_per_sample`` of umap-learn, the vertex-pooled negatives, the
+symmetric fold, and the stride schedule (``bucket_shifts``). Dropped
+because they only served the TPU: the padding of the edge axis to a
+power-of-two size class, the per-bucket padded edge lists, and the 25-epoch
+chunks. The negatives of each epoch are drawn as an (n, neg_rate) int32
+table by ``torch.randint`` from a ``torch.Generator`` seeded with
+``random_state`` and handed to T13, so a test can hand it the reference's
+draws instead. Only the symmetric path (``tl.umap`` always asserts it) is
+ported; the membership-table spectral seed (K13) is not.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from scipy import sparse as sp
+
+from ..utils.profiling import stage
+from . import _kernels
+from .device import DeviceLike, resolve_device
+
+__all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
+           "bucket_shifts", "UmapEdges", "umap_edges", "umap_epoch",
+           "umap_epoch_plain"]
+
+# the reference buckets edges by stride only from this many edges on
+BUCKET_MIN_EDGES = 2_000_000
+MAX_DIM = 8  # T13 is instantiated for 2..8 components
+MAX_NEG_RATE = 32  # one warp lane per negative
+
+
+def find_ab_params(spread: float = 1.0, min_dist: float = 0.5):
+    """Fit the differentiable curve 1/(1+a x^{2b}) (umap-learn parity)."""
+    from scipy.optimize import curve_fit
+
+    def curve(x, a, b):
+        return 1.0 / (1.0 + a * x ** (2 * b))
+
+    xv = np.linspace(0, spread * 3, 300)
+    yv = np.zeros(xv.shape)
+    yv[xv < min_dist] = 1.0
+    yv[xv >= min_dist] = np.exp(-(xv[xv >= min_dist] - min_dist) / spread)
+    params, _ = curve_fit(curve, xv, yv)
+    return float(params[0]), float(params[1])
+
+
+def edge_schedule(graph, n_epochs: int):
+    """Host-side edge preparation, as the reference's: prune the edges
+    umap-learn would never sample, derive ``epochs_per_sample``, sort by
+    head, and the expected per-epoch due rate per vertex (``dc_exp``, the
+    repulsion scale). Returns (heads, tails, epochs_per_sample, weights,
+    dc_exp)."""
+    n = graph.shape[0]
+    graph = sp.coo_matrix(graph)
+    w = graph.data.astype(np.float64)
+    w[w < w.max() / float(n_epochs)] = 0.0
+    keep = w > 0
+    heads = graph.row[keep].astype(np.int32)
+    tails = graph.col[keep].astype(np.int32)
+    w = w[keep]
+    eps = (w.max() / w).astype(np.float32)
+    if np.any(np.diff(heads) < 0):  # CSR→COO rows arrive pre-sorted
+        order = np.argsort(heads, kind="stable")
+        heads, tails, eps, w = heads[order], tails[order], eps[order], w[order]
+    dc_exp = np.zeros(n, np.float32)
+    np.add.at(dc_exp, heads, (1.0 / eps).astype(np.float32))
+    return heads, tails, eps, w, dc_exp
+
+
+def bucket_shifts(epochs_per_sample: np.ndarray, n_epochs: int) -> np.ndarray:
+    """log2 of each edge's stride: the reference's bucket ⌊log2 eps⌋,
+    clipped to [0, max_exp], where max_exp = clip(⌊log2(n_epochs/12)⌋, 0, 5)
+    from ``BUCKET_MIN_EDGES`` edges on and 0 below (one stride-1 bucket).
+    An edge is processed only on epochs divisible by its stride."""
+    eps = np.asarray(epochs_per_sample)
+    max_exp = (
+        0 if len(eps) < BUCKET_MIN_EDGES
+        else int(np.clip(np.floor(np.log2(max(1.0, n_epochs / 12.0))), 0, 5))
+    )
+    finite = np.isfinite(eps)
+    bid = np.full(len(eps), max_exp, np.int64)
+    bid[finite] = np.clip(
+        np.floor(np.log2(np.maximum(eps[finite], 1.0))), 0, max_exp
+    ).astype(np.int64)
+    return bid.astype(np.int8)
+
+
+def _spectral_postprocess(emb, n_components, seed):
+    """Drop the trivial top eigenvector, expand to the SGD's working scale,
+    add jitter."""
+    emb = np.asarray(emb)[:, 1 : n_components + 1]
+    expansion = 10.0 / max(np.abs(emb).max(), 1e-12)
+    emb = emb * expansion
+    rng = np.random.default_rng(seed)
+    emb = emb + rng.normal(scale=1e-4, size=emb.shape)
+    return emb.astype(np.float32)
+
+
+def spectral_init(graph: sp.csr_matrix, n_components: int, seed: int = 0,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Spectral layout from the normalised graph adjacency Dm12·G·Dm12
+    (scaled on the host), through the port's symmetric randomized SVD
+    (T2 on the device) with 4 subspace iterations: the reference's exact
+    path."""
+    from .linalg import randomized_svd
+
+    n = graph.shape[0]
+    deg = np.asarray(graph.sum(axis=1)).ravel()
+    deg[deg == 0] = 1.0
+    Dm12 = sp.dia_matrix((1.0 / np.sqrt(deg), 0), shape=(n, n))
+    A = (Dm12 @ graph @ Dm12).tocsr()
+    U, _, _ = randomized_svd(A.astype(np.float32), k=n_components + 1, n_iter=4,
+                             seed=seed, symmetric=True, device=device)
+    return _spectral_postprocess(U.cpu().numpy(), n_components, seed)
+
+
+class UmapEdges(NamedTuple):
+    """The head-sorted edge list on the device."""
+
+    indptr: torch.Tensor  # (n+1,) int32, each vertex's edges [indptr[i], indptr[i+1])
+    heads: torch.Tensor   # (E,) int32 (the plain version's segment ids)
+    tails: torch.Tensor   # (E,) int32
+    eps: torch.Tensor     # (E,) float32 epochs per sample
+    shift: torch.Tensor   # (E,) int8, log2 of the stride
+
+
+def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None) -> UmapEdges:
+    """Upload a head-sorted edge list (numpy) as ``UmapEdges``."""
+    device = resolve_device(device)
+    heads = np.asarray(heads)
+    if len(heads) and np.any(np.diff(heads) < 0):
+        raise ValueError("edges must be sorted by head")
+    if len(heads) > 2**31 - 1:
+        raise ValueError(f"{len(heads)} edges exceed the int32 index range")
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(heads, minlength=n), out=indptr[1:])
+    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)  # noqa: E731
+    return UmapEdges(to(indptr, np.int32), to(heads, np.int32), to(tails, np.int32),
+                     to(eps, np.float32), to(shift, np.int8))
+
+
+def _check_epoch_args(emb, out, edges, eons, dc_exp, negs) -> None:
+    n, dim = emb.shape
+    E = edges.tails.shape[0]
+    for name, t, dt, shape in (
+        ("emb", emb, torch.float32, (n, dim)),
+        ("out", out, torch.float32, (n, dim)),
+        ("edges.indptr", edges.indptr, torch.int32, (n + 1,)),
+        ("edges.tails", edges.tails, torch.int32, (E,)),
+        ("edges.eps", edges.eps, torch.float32, (E,)),
+        ("edges.shift", edges.shift, torch.int8, (E,)),
+        ("eons", eons, torch.float32, (E,)),
+        ("dc_exp", dc_exp, torch.float32, (n,)),
+        ("negs", negs, torch.int32, (n, negs.shape[1] if negs.dim() == 2 else -1)),
+    ):
+        if t.device != emb.device:
+            raise ValueError(f"{name} is on {t.device}, emb on {emb.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous with shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    if not 2 <= dim <= MAX_DIM:
+        raise ValueError(f"T13 takes 2..{MAX_DIM} components, got {dim}")
+    if not 0 <= negs.shape[1] <= MAX_NEG_RATE:
+        raise ValueError(f"T13 takes at most {MAX_NEG_RATE} negatives per vertex, "
+                         f"got {negs.shape[1]}")
+    if out.data_ptr() == emb.data_ptr():
+        raise ValueError("out must not alias emb: the epoch reads emb whole")
+
+
+def umap_epoch(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
+               eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
+               epoch: int, alpha: float, a: float, b: float, gamma: float) -> torch.Tensor:
+    """T13: one SGD epoch. Reads ``emb (n, dim)``, writes the new layout
+    into ``out`` and returns it; advances ``eons`` of the due edges in
+    place. ``negs (n, neg_rate)`` int32 are the epoch's negative samples;
+    ``alpha`` is the epoch's learning rate."""
+    if emb.device.type == "cpu":
+        return umap_epoch_plain(emb, out, edges, eons, dc_exp, negs, epoch, alpha, a, b, gamma)
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_epoch_args(emb, out, edges, eons, dc_exp, negs)
+    n, dim = emb.shape
+    _kernels.launch(
+        "umap_epoch", emb.device,
+        emb.data_ptr(), out.data_ptr(), edges.indptr.data_ptr(), edges.tails.data_ptr(),
+        edges.eps.data_ptr(), eons.data_ptr(), edges.shift.data_ptr(), dc_exp.data_ptr(),
+        negs.data_ptr(), n, dim, negs.shape[1], int(epoch), float(alpha), float(a),
+        float(b), float(gamma),
+    )
+    return out
+
+
+def umap_epoch_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
+                     eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
+                     epoch: int, alpha: float, a: float, b: float,
+                     gamma: float) -> torch.Tensor:
+    heads, tails = edges.heads.long(), edges.tails.long()
+    stride = torch.ones_like(edges.shift, dtype=torch.int64) << edges.shift.long()
+    due = (int(epoch) % stride == 0) & (eons <= float(epoch) + 1.0)
+    diff = emb[heads] - emb[tails]
+    d2 = (diff * diff).sum(-1)
+    coeff = (-2.0 * a * b * d2 ** (b - 1.0)) / (a * d2**b + 1.0)
+    coeff = torch.where(d2 > 0, coeff, 0.0)
+    g = torch.clamp(coeff[:, None] * diff, -4.0, 4.0)
+    g = torch.where(due[:, None], g, 0.0)
+    upd_h = torch.zeros_like(emb).index_add_(0, heads, g)
+    eons.copy_(torch.where(due, eons + edges.eps, eons))
+
+    n, R = negs.shape
+    vneg = emb[negs.reshape(-1).long()].reshape(n, R, -1)
+    diffn = emb[:, None, :] - vneg
+    d2n = (diffn * diffn).sum(-1)
+    cn = (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n**b + 1.0))
+    gn = torch.where(d2n[..., None] > 0, torch.clamp(cn[..., None] * diffn, -4.0, 4.0), 4.0)
+    self_hit = negs.long() == torch.arange(n, device=emb.device)[:, None]
+    gn = torch.where(self_hit[..., None], 0.0, gn)
+    upd_neg = gn.sum(dim=1) * dc_exp[:, None]
+    return out.copy_(emb + alpha * (2.0 * upd_h + upd_neg))
+
+
+def epoch_alpha(init_alpha: float, epoch: int, n_epochs: int) -> float:
+    """The epoch's learning rate init_alpha·(1 − epoch/n_epochs), in
+    float32 as the reference computes it."""
+    f = np.float32
+    return float(f(init_alpha) * (f(1.0) - f(epoch) / f(n_epochs)))
+
+
+def umap_embed(
+    graph: sp.csr_matrix,
+    n_components: int = 2,
+    n_epochs=None,
+    init="spectral",
+    min_dist: float = 0.5,
+    spread: float = 1.0,
+    alpha: float = 1.0,
+    gamma: float = 1.0,
+    negative_sample_rate: int = 5,
+    a=None,
+    b=None,
+    random_state: int = 42,
+    assume_symmetric=None,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Optimise a low-dimensional embedding of a fuzzy simplicial graph;
+    returns the (n, n_components) float32 layout on the host.
+
+    ``assume_symmetric=True`` skips the O(nnz·log) scipy ``G − Gᵀ`` probe.
+    An asymmetric graph raises: the reference's tail-sorted fallback
+    (``_optimize_fn``) is not ported yet."""
+    device = resolve_device(device)
+    n = graph.shape[0]
+    graph = graph.tocoo()
+    if a is None or b is None:
+        a, b = find_ab_params(spread, min_dist)
+    if n_epochs is None:
+        n_epochs = 500 if n <= 10000 else 200
+    n_epochs = int(n_epochs)
+    seed = random_state if isinstance(random_state, int) else 0
+
+    with stage("umap/edge_schedule(host)"):
+        heads, tails, eps, w, dc_exp = edge_schedule(graph, n_epochs)
+        if assume_symmetric is None:
+            Gk = sp.csr_matrix((w, (heads, tails)), shape=(n, n))
+            symmetric = bool(np.abs((Gk - Gk.T).data).max(initial=0.0) < 1e-12)
+        else:
+            symmetric = bool(assume_symmetric)
+        if not symmetric:
+            raise NotImplementedError(
+                "UMAP of an asymmetric graph (the reference's _optimize_fn) is "
+                "not ported yet (ROADMAP, kernels to port: K12 asymmetric)"
+            )
+        shift = bucket_shifts(eps, n_epochs)
+
+    if isinstance(init, np.ndarray):
+        emb = np.asarray(init, dtype=np.float32)
+    elif init == "random":
+        rng = np.random.default_rng(random_state)
+        emb = rng.uniform(-10, 10, size=(n, n_components)).astype(np.float32)
+    else:
+        with stage("umap/spectral_init"):
+            emb = spectral_init(sp.csr_matrix(graph), n_components, seed=seed,
+                                device=device)
+
+    with stage("umap/upload"):
+        edges = umap_edges(heads, tails, eps, shift, n, device)
+        eons = edges.eps.clone()  # first due at t = eps
+        dc = torch.from_numpy(dc_exp).to(device)
+        cur = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(device)
+        nxt = torch.empty_like(cur)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    with stage(f"umap/sgd_{n_epochs}epochs"):
+        for epoch in range(n_epochs):
+            negs = torch.randint(0, n, (n, int(negative_sample_rate)), generator=gen,
+                                 dtype=torch.int32, device=device)
+            umap_epoch(cur, nxt, edges, eons, dc, negs, epoch,
+                       epoch_alpha(alpha, epoch, n_epochs), a, b, gamma)
+            cur, nxt = nxt, cur
+    with stage("umap/download"):
+        return cur.cpu().numpy()

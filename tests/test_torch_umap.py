@@ -1,0 +1,528 @@
+"""The port's UMAP (muon_tpu_torch.ops.umap, T13's plain version on the
+CPU, and tl.umap) held to the JAX package's (muon_tpu.ops.umap,
+mu.tl.umap), and the whole slice clr → pca → neighbors ×3 → WNN → leiden →
+umap against the reference's.
+
+The edge schedule, the curve fit and the stride of every edge are exact.
+One epoch of T13's plain version is held to the reference's jitted epoch
+program (``_optimize_layout_bucketed_fn``), fed the reference's own
+``jax.random`` negatives and the same layout and eons, at atol 1e-4 on a
+layout of scale 10; both run in float32 (x64 off, as in production). The
+two differ per epoch by a few ulps: the reference sums a bucket by a
+float32 prefix sum and a boundary difference, the port directly, and pow
+and the sums round differently. Early in the schedule (α near 1) the SGD
+amplifies such differences from epoch to epoch, so runs of several epochs
+are held epoch by epoch from the reference's own state,
+and free-running only late in the schedule, where α is small; the eons,
+which do not depend on the layout, are held exactly. Whole runs draw other
+random numbers (``torch.Generator`` against ``jax.random``) and are held
+by invariants: cluster separation and the planted-label share of each
+cell's nearest neighbours in the embedding.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy import sparse as sp
+from scipy.spatial.distance import cdist
+
+# The JAX reference. A machine with only the card may lack jax and the
+# container libraries; there only the ``gpu`` tests run (-m gpu --noconftest).
+try:
+    import jax
+    import jax.numpy as jnp
+    import muon_tpu as mu
+    from muon_tpu.ops import umap as ju
+    from tests import test_tools_graph as ttg
+    from tests.test_torch_wnn import clustered_data
+except ImportError:
+    jax = jnp = mu = ju = ttg = clustered_data = None
+
+import muon_tpu_torch as mt
+from muon_tpu_torch.ops import _kernels
+from muon_tpu_torch.ops import umap as tu
+
+CPU = torch.device("cpu")
+N_EPOCHS = 200
+NEG_RATE = 5
+
+
+def _graph(n_per=50, n_clusters=4, d=10, seed=0, n_neighbors=10):
+    """The fuzzy connectivities of planted clusters (the JAX package's)."""
+    X, labels = clustered_data(n_per=n_per, n_clusters=n_clusters, d=d, seed=seed)
+    a = mu.AnnData(X)
+    mu.pp.neighbors(a, n_neighbors=n_neighbors)
+    return a.obsp["connectivities"].tocsr(), labels
+
+
+def _separation(emb, labels):
+    D = cdist(emb, emb)
+    same = labels[:, None] == labels[None, :]
+    np.fill_diagonal(same, False)
+    return D[same].mean() / D[~same].mean()
+
+
+def _knn_share(emb, labels, k=15):
+    D = cdist(emb, emb)
+    np.fill_diagonal(D, np.inf)
+    nn = np.argsort(D, axis=1)[:, :k]
+    return float((labels[nn] == labels[:, None]).mean())
+
+
+# ---------------------------------------------------------------------------
+# host preparation: exact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("spread, min_dist", [(1.0, 0.5), (1.0, 0.1), (2.0, 0.3)])
+def test_find_ab_params_matches_jax(spread, min_dist):
+    assert tu.find_ab_params(spread, min_dist) == ju.find_ab_params(spread, min_dist)
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("n_epochs", [50, 200, 500])
+def test_edge_schedule_matches_jax(shuffled, n_epochs):
+    G, _ = _graph()
+    G = G.tocoo()
+    if shuffled:  # COO rows out of order take the stable head sort
+        order = np.random.default_rng(1).permutation(G.nnz)
+        G = sp.coo_matrix((G.data[order], (G.row[order], G.col[order])), shape=G.shape)
+    for got, ref in zip(tu.edge_schedule(G, n_epochs), ju.edge_schedule(G, n_epochs)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+
+
+def _bucket_case(E, seed=0):
+    """E head-sorted edges with the eps spread of a fuzzy graph (weights
+    from (0, 1], pruned below max/n_epochs)."""
+    rng = np.random.default_rng(seed)
+    n = max(E // 20, 10)
+    heads = np.sort(rng.integers(0, n, E)).astype(np.int32)
+    tails = rng.integers(0, n, E).astype(np.int32)
+    w = rng.random(E) ** 3 + 1e-3
+    eps = (w.max() / w).astype(np.float32)
+    return heads, tails, eps, n
+
+
+@pytest.mark.parametrize("E, n_epochs", [(5_000, 200), (2_100_000, 200), (2_100_000, 500),
+                                         (2_100_000, 30), (2_000_000, 200)])
+def test_bucket_strides_match_jax(E, n_epochs):
+    # the stride of every edge is the reference's bucket: 2M edges and more
+    # are bucketed by floor(log2 eps), fewer share one stride-1 bucket. The
+    # reference's buckets keep the head-sorted order, as the port's mask does
+    heads, tails, eps, n = _bucket_case(E)
+    shift = tu.bucket_shifts(eps, n_epochs)
+    strides, heads_bs, tails_bs, eps_bs, *_ = ju._build_buckets(heads, tails, eps, n, n_epochs)
+    assert (E >= 2_000_000) == (len(strides) > 1)
+    assert sorted(set((1 << shift.astype(np.int64)).tolist())) == list(strides)
+    for s, hb, tb, eb in zip(strides, heads_bs, tails_bs, eps_bs):
+        sel = (1 << shift.astype(np.int64)) == s
+        m = int(sel.sum())
+        np.testing.assert_array_equal(np.asarray(hb)[:m], heads[sel])
+        np.testing.assert_array_equal(np.asarray(tb)[:m], tails[sel])
+        np.testing.assert_array_equal(np.asarray(eb)[:m], eps[sel])
+        assert np.isinf(np.asarray(eb)[m:]).all()  # the reference's pads, never due
+
+
+# ---------------------------------------------------------------------------
+# T13's plain version against the reference's epoch program
+# ---------------------------------------------------------------------------
+
+
+def _epoch_case(max_exp, seed=0):
+    """The fuzzy graph's edge schedule, its buckets split by floor(log2 eps)
+    clipped to max_exp (the test builds them, since the reference's
+    _build_buckets buckets only from 2M edges), a spectral layout of scale
+    10, and the curve parameters."""
+    G, labels = _graph(seed=seed)
+    n = G.shape[0]
+    heads, tails, eps, _, dc = ju.edge_schedule(G, N_EPOCHS)
+    shift = np.clip(np.floor(np.log2(np.maximum(eps, 1.0))), 0, max_exp).astype(np.int8)
+    emb = ju.spectral_init(G, 2, seed=3)
+    a, b = ju.find_ab_params(1.0, 0.5)
+    return dict(n=n, heads=heads, tails=tails, eps=eps, dc=dc, shift=shift, emb=emb, a=a, b=b)
+
+
+def _ref_epochs(c, emb, eons, epoch0, n_run, key):
+    """The reference's bucketed epochs from (emb, eons): the new layout, the
+    new eons (flat, in edge order), and the negatives it drew."""
+    f = ju._optimize_layout_bucketed_fn()
+    strides = sorted(set((1 << c["shift"].astype(np.int64)).tolist()))
+    sels = [(1 << c["shift"].astype(np.int64)) == s for s in strides]
+    lists = {k: [] for k in ("h", "t", "e", "o", "s", "x")}
+    for sel in sels:
+        starts, ends = ju._row_bounds(c["heads"][sel], c["n"])
+        for k, v in (("h", c["heads"][sel]), ("t", c["tails"][sel]), ("e", c["eps"][sel]),
+                     ("o", eons[sel]), ("s", starts), ("x", ends)):
+            lists[k].append(jnp.asarray(v))
+    emb_o, eons_o, _ = f(
+        jnp.asarray(emb), tuple(lists["o"]), tuple(lists["t"]), tuple(lists["h"]),
+        tuple(lists["e"]), tuple(lists["s"]), tuple(lists["x"]), jnp.asarray(c["dc"]),
+        float(epoch0), n_run, N_EPOCHS, c["a"], c["b"], 1.0, 1.0, NEG_RATE, key,
+        tuple(strides))
+    eons_new = np.empty_like(eons)
+    for sel, eo in zip(sels, eons_o):
+        eons_new[sel] = np.asarray(eo)
+    draws, k = [], key
+    for _ in range(n_run):
+        k, sub = jax.random.split(k)
+        draws.append(np.asarray(jax.random.randint(sub, (c["n"], NEG_RATE), 0, c["n"]),
+                                dtype=np.int32))
+    return np.asarray(emb_o), eons_new, draws
+
+
+def _port_epochs(c, emb, eons, epoch0, draws):
+    edges = tu.umap_edges(c["heads"], c["tails"], c["eps"], c["shift"], c["n"], CPU)
+    cur, nxt = torch.from_numpy(emb.copy()), torch.empty(emb.shape)
+    eons_t = torch.from_numpy(eons.copy())
+    for i, negs in enumerate(draws):
+        ep = epoch0 + i
+        tu.umap_epoch(cur, nxt, edges, eons_t, torch.from_numpy(c["dc"]),
+                      torch.from_numpy(negs), ep, tu.epoch_alpha(1.0, ep, N_EPOCHS),
+                      c["a"], c["b"], 1.0)
+        cur, nxt = nxt, cur
+    return cur.numpy(), eons_t.numpy()
+
+
+@pytest.mark.parametrize("max_exp, epoch0", [(0, 0), (0, 7), (3, 0), (3, 8), (3, 12)])
+def test_epoch_matches_jax(max_exp, epoch0):
+    # one epoch from the same layout, eons and negatives; with strides 1-8
+    # epoch 8 runs every bucket, 12 the strides 1, 2 and 4, 0 all of them
+    c = _epoch_case(max_exp)
+    with jax.enable_x64(False):
+        eons = c["eps"] + np.float32(epoch0 // 2)  # some edges due, some not
+        ref, ref_eons, draws = _ref_epochs(c, c["emb"], eons, epoch0, 1, jax.random.PRNGKey(7))
+    got, got_eons = _port_epochs(c, c["emb"], eons, epoch0, draws)
+    assert np.abs(c["emb"]).max() == pytest.approx(10.0, rel=1e-3)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_eons, ref_eons)
+
+
+@pytest.mark.parametrize("max_exp", [0, 3])
+def test_five_epochs_match_jax_epoch_by_epoch(max_exp):
+    # five epochs, each from the reference's own state of the epoch before
+    c = _epoch_case(max_exp, seed=1)
+    emb, eons, key = c["emb"], c["eps"].copy(), jax.random.PRNGKey(11)
+    for epoch in range(5):
+        with jax.enable_x64(False):
+            key, sub = jax.random.split(key)
+            ref, ref_eons, draws = _ref_epochs(c, emb, eons, epoch, 1, key)
+        got, got_eons = _port_epochs(c, emb, eons, epoch, draws)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got_eons, ref_eons)
+        emb, eons, key = ref, ref_eons, sub
+
+
+@pytest.mark.parametrize("max_exp", [0, 3])
+def test_five_epochs_match_jax_free_running(max_exp):
+    # five epochs run by each package on its own, late in the schedule
+    # (alpha 0.025 to 0.005), where the SGD no longer amplifies the ulps;
+    # the eons after five epochs are exact
+    c = _epoch_case(max_exp, seed=2)
+    with jax.enable_x64(False):
+        ref, ref_eons, draws = _ref_epochs(c, c["emb"], c["eps"], 195, 5, jax.random.PRNGKey(3))
+    got, got_eons = _port_epochs(c, c["emb"], c["eps"], 195, draws)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_eons, ref_eons)
+
+
+def test_epoch_negative_quirks_match_jax():
+    # a negative that is the vertex itself adds 0; one that sits on the
+    # vertex's own position (d2 == 0, another vertex) adds +4.0 to every
+    # component (ops/umap.py:386-390); both kept. The reference draws its
+    # negatives inside its program, so the layout is edited to put some of
+    # its draws on their vertex's position
+    c = _epoch_case(0)
+    key = jax.random.PRNGKey(0)
+    with jax.enable_x64(False):
+        negs = np.asarray(jax.random.randint(jax.random.split(key)[1], (c["n"], NEG_RATE),
+                                             0, c["n"]))
+    emb = c["emb"].copy()
+    coincident = [i for i in range(0, c["n"], 9) if negs[i, 0] != i]
+    for i in coincident:
+        emb[negs[i, 0]] = emb[i]
+    assert (negs == np.arange(c["n"])[:, None]).any(), "no self draw at this seed"
+    with jax.enable_x64(False):
+        ref, ref_eons, draws = _ref_epochs(c, emb, c["eps"], 0, 1, key)
+    np.testing.assert_array_equal(draws[0], negs)
+    got, got_eons = _port_epochs(c, emb, c["eps"], 0, draws)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    # the +4 is there: without it the coincident vertices move otherwise
+    moved = _port_epochs(c, emb, c["eps"], 0, [np.where(negs == negs[:, :1], -1, negs)
+                                                 .clip(0)])[0]
+    assert np.abs(moved[coincident] - got[coincident]).max() > 1e-3
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_epoch_dimensions(dim):
+    # 3 components: the same program, one more coordinate
+    c = _epoch_case(3)
+    emb = np.random.default_rng(dim).uniform(-10, 10, (c["n"], dim)).astype(np.float32)
+    with jax.enable_x64(False):
+        ref, ref_eons, draws = _ref_epochs(c, emb, c["eps"], 8, 1, jax.random.PRNGKey(dim))
+    got, got_eons = _port_epochs(c, emb, c["eps"], 8, draws)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_eons, ref_eons)
+
+
+# ---------------------------------------------------------------------------
+# spectral init and the whole embedding
+# ---------------------------------------------------------------------------
+
+
+def test_spectral_init_separates_like_jax():
+    # the exact path (Dm12·G·Dm12, symmetric rSVD, 4 iterations): its own
+    # random test matrix, so the seed is held by separation, and scale 10
+    G, labels = _graph()
+    got = tu.spectral_init(G, 2, seed=3, device=CPU)
+    ref = ju.spectral_init(G, 2, seed=3)
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.abs(got).max() == pytest.approx(10.0, rel=1e-3)
+    r_got, r_ref = _separation(got, labels), _separation(ref, labels)
+    assert r_ref < 0.8 and r_got < max(0.8, 1.3 * r_ref), (r_got, r_ref)
+
+
+def _mdata():
+    X1, labels = clustered_data(n_per=40, n_clusters=4, d=12, seed=0)
+    X2, _ = clustered_data(n_per=40, n_clusters=4, d=9, seed=1)
+    m1, m2 = mu.AnnData(X1), mu.AnnData(X2)
+    md = mu.MuData({"m1": m1, "m2": m2})
+    mu.pp.neighbors(m1, n_neighbors=12)
+    mu.pp.neighbors(m2, n_neighbors=12)
+    return md, labels
+
+
+class TestUMAP:
+    """tests/test_tools_graph.py::TestUMAP on the port."""
+
+    def test_umap_mudata(self):
+        md, labels = _mdata()
+        mu.pp.neighbors(md)
+        mt.tl.umap(md, maxiter=100, device=CPU)
+        emb = md.obsm["X_umap"]
+        assert emb.shape == (md.n_obs, 2) and emb.dtype == np.float32
+        assert np.isfinite(emb).all()
+        assert _separation(emb, labels) < 0.5
+        assert md.uns["umap"]["params"]["random_state"] == 42
+
+    def test_umap_requires_neighbors(self):
+        md, _ = _mdata()
+        with pytest.raises(ValueError, match="neighbors"):
+            mt.tl.umap(md, device=CPU)
+
+    def test_umap_anndata(self):
+        md, _ = _mdata()
+        ad = md.mod["m1"]
+        mt.tl.umap(ad, maxiter=50, device=CPU)
+        assert ad.obsm["X_umap"].shape == (ad.n_obs, 2)
+
+
+@pytest.mark.parametrize("seed", [42, 1])
+def test_umap_label_share_matches_jax(seed):
+    # the default schedule (500 epochs below 10k cells): the planted-label
+    # share of each cell's 15 nearest neighbours in the embedding within
+    # 0.05 of the reference's, and the clusters as well separated
+    md, labels = _mdata()
+    mu.pp.neighbors(md)
+    md_t = md.copy()
+    mu.tl.umap(md, random_state=seed)
+    mt.tl.umap(md_t, random_state=seed, device=CPU)
+    s_ref, s_got = _knn_share(md.obsm["X_umap"], labels), _knn_share(md_t.obsm["X_umap"], labels)
+    assert abs(s_got - s_ref) <= 0.05, (s_got, s_ref)
+    assert _separation(md_t.obsm["X_umap"], labels) < 0.2
+    assert md_t.uns["umap"]["params"].keys() == md.uns["umap"]["params"].keys()
+
+
+def test_umap_refuses_what_is_not_ported():
+    G, _ = _graph()
+    A = sp.triu(G).tocsr()  # asymmetric
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tu.umap_embed(A, n_epochs=5, device=CPU)
+    md, _ = _mdata()
+    mu.pp.neighbors(md)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        mt.tl.umap(md, mesh=object(), device=CPU)
+
+
+def test_umap_negatives_from_a_seeded_generator():
+    # the same random_state gives the same layout; another one another
+    G, _ = _graph()
+    e1 = tu.umap_embed(G, n_epochs=20, random_state=5, device=CPU)
+    e2 = tu.umap_embed(G, n_epochs=20, random_state=5, device=CPU)
+    e3 = tu.umap_embed(G, n_epochs=20, random_state=6, device=CPU)
+    np.testing.assert_array_equal(e1, e2)
+    assert not np.array_equal(e1, e3)
+
+
+def test_cpu_umap_counts_no_launch():
+    G, _ = _graph()
+    _kernels.reset_launch_counts()
+    tu.umap_embed(G, n_epochs=5, device=CPU)
+    assert not any(_kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the whole slice against the reference's
+# ---------------------------------------------------------------------------
+
+
+def _three_modalities(n=300, n_clusters=5, seed=0):
+    """Clustered RNA and ATAC counts and protein counts (bench_e2e.py's
+    recipe at a small size), and the planted labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_clusters, n)
+
+    def counts(d, per):
+        boost = np.ones((n_clusters, d))
+        for c in range(n_clusters):
+            boost[c, rng.choice(d, size=d // 10, replace=False)] = 8.0
+        pop = rng.pareto(1.2, d) + 1.0
+        X = np.zeros((n, d), np.float32)
+        for i in range(n):
+            p = pop * boost[labels[i]]
+            np.add.at(X[i], rng.choice(d, size=per, p=p / p.sum()), 1.0)
+        return sp.csr_matrix(X)
+
+    rna, atac = counts(400, 80), counts(600, 60)
+    cent = rng.normal(size=(n_clusters, 30)) * 2.0
+    prot = (np.maximum(cent[labels] + rng.normal(size=(n, 30)), 0.0)
+            + rng.poisson(3.0, size=(n, 30))).astype(np.float32)
+    return rna, atac, prot, labels
+
+
+def _slice(pkg, rna, atac, prot, **dev):
+    """clr → pca → neighbors ×3 → WNN → leiden → umap through one package's
+    public entry points, on fresh containers."""
+    ac = pkg.atac
+    md = mu.MuData({"rna": mu.AnnData(rna.copy()), "atac": mu.AnnData(atac.copy()),
+                    "prot": mu.AnnData(prot.copy())})
+    r, a, p = md.mod["rna"], md.mod["atac"], md.mod["prot"]
+    r.X = r.X.multiply(1e4 / np.maximum(r.X.sum(axis=1), 1)).tocsr().log1p()
+    pkg.pp.pca(r, n_comps=20, **dev)
+    ac.pp.tfidf(a, **dev)
+    ac.tl.lsi(a, n_comps=20, **dev)
+    pkg.prot.pp.clr(p, **dev)
+    pkg.pp.pca(p, n_comps=10, **dev)
+    pkg.pp.neighbors(r, n_neighbors=15, use_rep="X_pca", **dev)
+    pkg.pp.neighbors(a, n_neighbors=15, use_rep="X_lsi", **dev)
+    pkg.pp.neighbors(p, n_neighbors=15, use_rep="X_pca", **dev)
+    pkg.pp.neighbors(md, **dev)
+    pkg.tl.leiden(md, resolution=1.0)
+    pkg.tl.umap(md, **dev)
+    return md
+
+
+def test_whole_slice_matches_jax():
+    rna, atac, prot, labels = _three_modalities()
+    md_j = _slice(mu, rna, atac, prot)
+    md_t = _slice(mt, rna, atac, prot, device=CPU)
+    lab_j = md_j.obs["leiden"].cat.codes.to_numpy()
+    lab_t = md_t.obs["leiden"].cat.codes.to_numpy()
+    assert ttg.ari(lab_j, lab_t) >= 0.95, ttg.ari(lab_j, lab_t)
+    assert ttg.ari(labels, lab_t) >= 0.9
+    # each package draws its own rSVD test matrices, so the modality graphs
+    # (and each cell's weights) differ; the mean weights agree
+    for m in ("rna", "atac", "prot"):
+        assert abs(md_t.obs[f"{m}:mod_weight"].mean() - md_j.obs[f"{m}:mod_weight"].mean()) <= 0.01
+    emb_t, emb_j = md_t.obsm["X_umap"], md_j.obsm["X_umap"]
+    assert emb_t.shape == (len(labels), 2) and np.isfinite(emb_t).all()
+    assert abs(_knn_share(emb_t, labels) - _knn_share(emb_j, labels)) <= 0.05
+    assert _separation(emb_t, labels) < 0.5
+
+
+# ---------------------------------------------------------------------------
+# on the card: T13 against its plain version (skips without one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _random_graph(n, k, seed):
+    """A symmetric kNN-like graph with skewed degrees."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, n, n * k)
+    w = rng.random(n * k).astype(np.float32)
+    G = sp.csr_matrix((w, (rows, cols)), shape=(n, n))
+    G = G.maximum(G.T).tocsr()
+    G.setdiag(0)
+    G.eliminate_zeros()
+    return G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("epoch", [0, 8, 13])
+def test_gpu_umap_epoch_matches_plain(cuda, dim, epoch):
+    # one epoch, the same layout, eons and negatives: direct sums in other
+    # orders and powf against torch's pow, a few ulps of a layout of scale
+    # 10 (atol 1e-4); the eons exactly
+    G = _random_graph(20000, 15, seed=dim)
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    shift = np.clip(np.floor(np.log2(np.maximum(eps, 1.0))), 0, 3).astype(np.int8)
+    edges = tu.umap_edges(heads, tails, eps, shift, G.shape[0], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    emb = (torch.rand((G.shape[0], dim), generator=gen, device=cuda) * 20 - 10).contiguous()
+    negs = torch.randint(0, G.shape[0], (G.shape[0], NEG_RATE), generator=gen,
+                         dtype=torch.int32, device=cuda)
+    negs[:50, 0] = torch.arange(50, device=cuda, dtype=torch.int32)  # self hits
+    dct = torch.from_numpy(dc).to(cuda)
+    eons_k, eons_p = edges.eps.clone(), edges.eps.clone()
+    a, b = tu.find_ab_params()
+    alpha = tu.epoch_alpha(1.0, epoch, N_EPOCHS)
+    _kernels.reset_launch_counts()
+    got = tu.umap_epoch(emb, torch.empty_like(emb), edges, eons_k, dct, negs, epoch,
+                        alpha, a, b, 1.0)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["umap_epoch"] == 1
+    ref = tu.umap_epoch_plain(emb, torch.empty_like(emb), edges, eons_p, dct, negs, epoch,
+                              alpha, a, b, 1.0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    assert torch.equal(eons_k, eons_p)
+
+
+@pytest.mark.gpu
+def test_gpu_umap_epoch_refuses_bad_input(cuda):
+    G = _random_graph(100, 5, seed=0)
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, np.zeros(len(eps), np.int8), 100, cuda)
+    emb = torch.zeros((100, 2), device=cuda)
+    dct = torch.from_numpy(dc).to(cuda)
+    negs = torch.zeros((100, 5), dtype=torch.int32, device=cuda)
+    args = (edges, edges.eps.clone(), dct, negs, 0, 1.0, 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="alias"):
+        tu.umap_epoch(emb, emb, *args)
+    with pytest.raises(ValueError, match="components"):
+        tu.umap_epoch(torch.zeros((100, 9), device=cuda), torch.zeros((100, 9), device=cuda),
+                      *args)
+    with pytest.raises(TypeError):
+        tu.umap_epoch(emb, torch.empty_like(emb), edges, edges.eps.clone(), dct, negs.long(),
+                      0, 1.0, 1.0, 1.0, 1.0)
+
+
+@pytest.mark.gpu
+def test_gpu_umap_matches_cpu_invariants(cuda):
+    # the whole tl.umap on the card: T13 every epoch, T2 in the spectral
+    # init; its own random draws, so held by separation
+    X, labels = np.random.default_rng(0).normal(size=(2000, 10)), np.repeat(np.arange(4), 500)
+    X = (X + np.repeat(np.random.default_rng(1).normal(size=(4, 10)) * 4, 500, axis=0)
+         ).astype(np.float32)
+
+    class Holder:
+        def __init__(self, X):
+            self.X, self.obsm, self.varm, self.uns, self.obsp, self.layers = X, {}, {}, {}, {}, {}
+
+    h = Holder(X)
+    mt.pp.neighbors(h, n_neighbors=15, use_rep="X", device=cuda)
+    _kernels.reset_launch_counts()
+    mt.tl.umap(h, maxiter=100, device=cuda)
+    counts = _kernels.launch_counts()
+    assert counts["umap_epoch"] == 100 and counts["csr_spmm_f32"] >= 1
+    emb = h.obsm["X_umap"]
+    assert emb.shape == (2000, 2) and np.isfinite(emb).all()
+    assert _separation(emb, labels) < 0.5
