@@ -26,7 +26,15 @@ width, 100,000 cells:
   20);
 * Leiden: ``tl.leiden(mdata, resolution=1.0)`` over the three modality
   graphs (on the host, the native engine);
-* UMAP: ``tl.umap(mdata)`` on the WNN graph, 200 epochs.
+* UMAP: ``tl.umap(mdata)`` on the WNN graph, 200 epochs;
+
+and the path above 200,000 rows at 1,000,000 cells: a 1,000,000 × 50
+float32 representation of 40 planted clusters whose neighbours overlap
+(drawn from seed 0; no count matrix at this size) through
+``pp.neighbors(n_neighbors=20)``, which takes the IVF index (k-means, the
+host layout, the search, the scatter back), T6 and the native fuzzy union,
+then ``tl.umap`` on its graph of about 30M edges, seeded from the membership
+table.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -68,7 +76,23 @@ is printed. An exception stops the run at once, with a code other than 0:
     d = 2), and that share's spread over 10 seeds on the same graph and
     over 5 starts jittered by 1e-4 at the checked seed;
 12. times: the warm wall of each path with its stage split, each path's
-    device busy share under the profiler, and the plain-PyTorch paths once.
+    device busy share under the profiler, and the plain-PyTorch paths once;
+13. ``[ivf]``, counted from ``pp.neighbors`` at 1M alone: T15 nine times,
+    T14, T6, no T5; the table (self first, no −1, ascending), its recall
+    over all rows against exact T5 at the same size with both times, and
+    against the plain search of the same probe lists on the first 64 work
+    items (what the data allows against what the port loses); the graph and
+    its tag; the native union against the scipy formula with both times
+    (also at 100k, after phase 5); ``ivf_knn`` again at k = 200 on the
+    cached partition; the stage split;
+14. ``[umap1m]``, counted from ``tl.umap`` alone: T16 thirteen times, T13
+    per epoch, no T2; the layout's planted-label share against the graph's
+    own; the membership seed against the exact seed by their Rayleigh
+    quotients under the graph's normalised operator (a seed of noise
+    fails), with both times; the stage split;
+15. kernels: T14 (k+1 = 20 and 201, the first 64 work items of the 1M
+    layout), T15 (all rows) and T16 (one application) against their plain
+    versions.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -107,6 +131,10 @@ KNN_SRC = "muon_tpu_torch/csrc/knn_kernels.cu"
 WNN_SRC = "muon_tpu_torch/csrc/wnn_kernels.cu"
 DENSE_SRC = "muon_tpu_torch/csrc/dense_kernels.cu"
 UMAP_SRC = "muon_tpu_torch/csrc/umap_kernels.cu"
+IVF_SRC = "muon_tpu_torch/csrc/ivf_kernels.cu"
+# the 1M-cell path: rows, columns and planted clusters of its representation,
+# the work items T14 is held to its plain version on, the seed check's sample
+N_BIG, D_BIG, BIG_CLUSTERS, IVF_ITEMS, SEED_SAMPLE = 1_000_000, 50, 40, 64, 20_000
 # kernel -> (source, the TPU program it replaces)
 KERNEL_INFO = {
     "tfidf_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:790"),     # _tfidf_fn
@@ -124,6 +152,9 @@ KERNEL_INFO = {
     "wnn_fusion_scores": (WNN_SRC, "muon_tpu/ops/wnn.py:470"),      # _fusion_all_fn
     "clr_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:64"),           # _clr_dense_fn
     "umap_epoch": (UMAP_SRC, "muon_tpu/ops/umap.py:289"),           # _optimize_layout_bucketed_fn
+    "ivf_search": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),             # _search_fn
+    "kmeans_assign": (IVF_SRC, "muon_tpu/ops/ivf.py:83"),           # _kmeans_fn's assign
+    "membership_matvec": (UMAP_SRC, "muon_tpu/ops/umap.py:75"),     # _spectral_membership_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -141,6 +172,13 @@ WNN_PATH = {"wnn_bandwidth": 3, "wnn_theta": 9, "wnn_fusion_scores": 1, "knn_top
 # tl.umap: T13 per epoch; the spectral init's symmetric gather rSVD (k = 3,
 # 4 iterations): T2 in bf16 once and twice per iteration, then once in f32
 UMAP_PATH = {"umap_epoch": N_EPOCHS, "csr_spmm_bf16": 9, "csr_spmm_f32": 1}
+# pp.neighbors above 200,000 rows: 8 Lloyd steps and a last assignment (T15),
+# the search (T14, at least once), T6, and no brute force (T5)
+IVF_PATH = {"kmeans_assign": 9, "smooth_knn_membership": 1, "knn_topk": 0}
+# tl.umap above 8M edges: six S² steps and the Rayleigh-Ritz product (T16),
+# T13 per epoch, and nothing of the exact seed's rSVD (T2)
+UMAP_BIG_PATH = {"membership_matvec": 13, "umap_epoch": N_EPOCHS, "csr_spmm_bf16": 0,
+                 "csr_spmm_f32": 0}
 # the card's published peaks (H100 SXM: NVIDIA's data sheet, dense, at
 # 700 W): device memory, float32 outside the tensor cores, and bfloat16 in
 # them. A kernel's bound is the larger of its bytes (each input read once,
@@ -991,7 +1029,7 @@ def phase_leiden(ttl, kernels, profiling, mods, labels):
         wall = time.perf_counter() - t0
     got = md.obs["leiden"]
     a = ari(labels, got)
-    stages = {k: round(sum(v), 4) for k, v in t.items()}
+    stages = stage_seconds(t)
     print(f"[leiden] tl.leiden over {list(mods)}: {len(np.unique(got))} clusters, ARI "
           f"against the planted labels {a:.4f}; wall {wall:.4f}s; stages {stages}", flush=True)
     check(not any(kernels.launch_counts().values()), "Leiden launched no kernel (host)")
@@ -1165,7 +1203,7 @@ def timed_reps(label, make, run, profiling, reps=3):
             run(h)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        splits.append({k: round(sum(v), 4) for k, v in t.items()})
+        splits.append(stage_seconds(t))
     print(f"[times] {label} warm wall s {[round(w, 4) for w in walls]} "
           f"median {float(np.median(walls)):.4f}; stages {splits}", flush=True)
 
@@ -1241,6 +1279,395 @@ def prot_plain(tla, tk, tf, td, P, cuda):
     return neighbors_plain(tk, tf, (U * s).cpu().numpy(), cuda)
 
 
+# the noise of the 1M representation along its five leading axes; further
+# axes fall as j^-2 (the decaying spectrum of a PCA)
+BIG_LEADING_SCALES = (1.0, 1.0, 1.0, 1.0, 0.7)
+
+
+def make_big_rep(seed: int = 0, n: int = N_BIG):
+    """The 1M-cell representation and its planted labels: 40 Gaussian
+    clusters whose centres are drawn N(0, 6²) along the five leading axes,
+    unit noise on four of them, 0.7 on the fifth and j^-2 on the rest, so
+    that some neighbouring clusters overlap (the exact 19-NN planted-label
+    share is a little below 1). The shape is a compromise: the IVF index
+    recalls more the fewer dimensions the clusters fill, and the 200-epoch
+    UMAP layout keeps its clusters apart only from about five dimensions
+    on."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, BIG_CLUSTERS, n)
+    dims = len(BIG_LEADING_SCALES)
+    cent = np.zeros((BIG_CLUSTERS, D_BIG), np.float32)
+    cent[:, :dims] = rng.normal(size=(BIG_CLUSTERS, dims)) * 6.0
+    scale = np.concatenate([BIG_LEADING_SCALES, np.arange(2, D_BIG + 2 - dims) ** -2.0])
+    rep = cent[labels] + rng.standard_normal((n, D_BIG), dtype=np.float32) * scale.astype(np.float32)
+    return rep, labels
+
+
+def big_holder(rep):
+    h = Holder(rep)
+    h.obsm["X_rep"] = rep
+    return h
+
+
+def stage_seconds(t) -> dict:
+    return {k: round(sum(v), 4) for k, v in t.items()}
+
+
+def rows_recall(a: torch.Tensor, b: torch.Tensor, block: int = 100_000) -> float:
+    """The mean share of each row of ``a`` found in the same row of ``b``."""
+    hits = 0
+    for s in range(0, a.shape[0], block):
+        hits += int((a[s:s + block, :, None] == b[s:s + block, None, :]).any(-1).sum())
+    return hits / a.numel()
+
+
+def plain_ivf_rows(ti, X, partition, k, cuda):
+    """The port's plain search over the first IVF_ITEMS work items of the
+    layout that ``ivf_knn`` builds from ``partition``: the items' rows and
+    each row's k neighbours (−1 where none), in the original numbering."""
+    cent_np, assign_np = partition
+    order, qids, ppos, pcnt, L = ti.build_ivf_layout(assign_np, cent_np, cent_np.shape[0],
+                                                     8, 1024)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    order_t = to(order)
+    Xs = X[order_t.long()].contiguous()
+    q, pp_, pc = (to(a[:IVF_ITEMS]) for a in (qids, ppos, pcnt))
+    rp, rd = ti.ivf_search_plain(Xs, q, pp_, pc, ti.item_means(Xs, q), k, L, False)
+    ok = q >= 0
+    nb = torch.where(torch.isinf(rd[ok]), -1, order_t[rp[ok].long()])
+    return order_t[q[ok].long()].long(), nb[:, 1:].int()
+
+
+def union_times(tf, C, label: str, rounds: int = 3) -> None:
+    """The host fuzzy union of a tagged graph's membership table through
+    the native engine and through the scipy formula, taking turns (the
+    host's cores are shared, so its clock drifts within a run): the times,
+    and the two graphs against each other."""
+    tag = getattr(C, tf.MEMBERSHIP_TAG)
+    n = tag["n"]
+    t_nat, t_ref = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        nat = tf._fuzzy_union_native(tag["idx"], tag["vals"], n, 1.0)
+        t1 = time.perf_counter()
+        ref = tf._fuzzy_union(tag["idx"], tag["vals"], n, 1.0)
+        t_nat.append(round(t1 - t0, 4))
+        t_ref.append(round(time.perf_counter() - t1, 4))
+    same = nat.nnz == ref.nnz and np.array_equal(nat.indices, ref.indices) \
+        and np.array_equal(nat.indptr, ref.indptr)
+    err = float(np.abs(nat.data - ref.data).max()) if same else float("inf")
+    print(f"[union] {label}: {n} rows, {nat.nnz} edges; native {t_nat}s, scipy {t_ref}s, "
+          f"medians {np.median(t_nat):.4f} and {np.median(t_ref):.4f} (scipy over native "
+          f"{np.median(t_ref) / np.median(t_nat):.2f}x); same edges {same}, largest "
+          f"difference {err:.2e} (<= 1e-6)", flush=True)
+    check(same and err <= 1e-6, f"{label}: the native union is the scipy formula's graph")
+    check((nat != C).nnz == 0, f"{label}: the path's graph is the native union")
+
+
+def phase_ivf(tpp, ti, tk, tf, kernels, profiling, rep, labels, cuda):
+    """pp.neighbors of 1M rows: the IVF index, T6, the native union."""
+    n, k = N_BIG, N_NEIGHBORS - 1
+    h = big_holder(rep)
+    ti._PARTITION_CACHE.clear()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_rep", device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"[ivf] pp.neighbors of {n}x{D_BIG} in {wall:.4f}s launched "
+          f"{ {k_: v for k_, v in launches.items() if v} }; stages {stage_seconds(t)}",
+          flush=True)
+    for name, count in IVF_PATH.items():
+        check(launches[name] == count, f"the IVF path launched {name} {count} times")
+    check(launches["ivf_search"] >= 1, "the IVF path launched ivf_search")
+    partition = list(ti._PARTITION_CACHE.values())[-1]
+
+    # a second, warm run from an empty partition cache, for the times
+    ti._PARTITION_CACHE.clear()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        tpp.neighbors(big_holder(rep), n_neighbors=N_NEIGHBORS, use_rep="X_rep", device=cuda)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    split = stage_seconds(t)
+    print(f"[times] pp.neighbors at 1M, second run: {wall2:.4f}s; stages {split}", flush=True)
+
+    # the table itself: the same search again (the partition is cached)
+    X = torch.from_numpy(rep).to(cuda)
+    kernels.reset_launch_counts()
+    idx, dists = ti.ivf_knn(X, k)
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["kmeans_assign"] == 0, "the partition cache hit at k = 19")
+    check(bool((idx[:, 0] == torch.arange(n, device=cuda)).all()) and bool((dists[:, 0] == 0).all()),
+          "IVF: self in column 0 at distance 0")
+    check(bool((idx >= 0).all()), "IVF: no -1 in the table")
+    check(bool((dists[:, 2:] >= dists[:, 1:-1]).all()) and bool(torch.isfinite(dists).all()),
+          "IVF: distances finite and ascending from column 1")
+    D, C = h.obsp["distances"], h.obsp["connectivities"]
+    check((np.diff(D.indptr) == k).all(), "IVF graph: 19 distances per row")
+    path_idx = torch.from_numpy(D.indices.reshape(n, k).astype(np.int32)).to(cuda)
+    check(rows_recall(idx[:, 1:], path_idx) == 1.0, "the graph holds the table's neighbours")
+
+    # exact kNN at the same size: T5, one launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact, _ = tk.knn(X, k, method="brute", approx=False)
+    torch.cuda.synchronize()
+    t_brute = time.perf_counter() - t0
+    recall = rows_recall(exact[:, 1:], idx[:, 1:])
+    lab = torch.from_numpy(labels).to(cuda)
+    share_exact = float((lab[exact[:, 1:].long()] == lab[:, None]).float().mean())
+    share = float((lab[idx[:, 1:].long()] == lab[:, None]).float().mean())
+    t_ivf = sum(v for k_, v in split.items() if k_.startswith("ivf/"))
+    print(f"[ivf] recall over all {n} rows against exact T5 {recall:.4f} (>= 0.9); "
+          f"planted-label share of the 19 neighbours: exact {share_exact:.4f}, IVF {share:.4f} "
+          f"(chance {1 / BIG_CLUSTERS:.3f}); IVF stages {t_ivf:.4f}s against brute force "
+          f"(T5, float32, one launch) {t_brute:.4f}s at the same size", flush=True)
+    check(recall >= 0.9, "IVF recall against exact kNN >= 0.9")
+    check(0.5 < share_exact < 0.999, "the planted clusters overlap: exact share below 1")
+
+    # what the data allows and what the port loses: on the first work items,
+    # the plain search of the same probe lists against ivf_knn and against exact
+    rows, plain_nb = plain_ivf_rows(ti, X, partition, k, cuda)
+    held = rows_recall(plain_nb, idx[rows, 1:])
+    r_plain = rows_recall(exact[rows, 1:], plain_nb)
+    r_ivf = rows_recall(exact[rows, 1:], idx[rows, 1:])
+    print(f"[ivf] on the {len(rows)} rows of the first {IVF_ITEMS} work items: ivf_knn holds "
+          f"{held:.5f} of the plain search's neighbours (>= 0.999); recall against exact: "
+          f"plain search of the same probe lists {r_plain:.4f}, ivf_knn {r_ivf:.4f} "
+          f"(within 0.001)", flush=True)
+    check(held >= 0.999, "ivf_knn returns the plain search's neighbours")
+    check(abs(r_plain - r_ivf) <= 1e-3, "ivf_knn recalls what its probe lists allow")
+
+    t0 = time.perf_counter()
+    sym = (C != C.T).nnz == 0
+    check(sym, "IVF connectivities symmetric")
+    check(C.data.min() > 0 and C.data.max() <= 1, "IVF connectivities in (0, 1]")
+    tag = getattr(C, tf.MEMBERSHIP_TAG, None)
+    check(tag is not None and tag["n"] == n and tag["nnz"] == C.nnz
+          and tag["idx"].shape == (n, N_NEIGHBORS), "the membership tag on the graph")
+    print(f"[ivf] graph: {C.nnz} edges, symmetric {sym}, tagged {tag is not None} "
+          f"(checked in {time.perf_counter() - t0:.1f}s)", flush=True)
+    union_times(tf, C, "1M graph")
+
+    # WNN's candidate pool on the same tensor: k = 200 from the cached partition
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx200, _ = ti.ivf_knn(X, N_MULTI)
+    torch.cuda.synchronize()
+    t200 = time.perf_counter() - t0
+    agree = float((idx200[:, :N_NEIGHBORS] == idx).float().mean())
+    print(f"[ivf] ivf_knn at k = {N_MULTI} on the same tensor in {t200:.4f}s launched "
+          f"{ {k_: v for k_, v in kernels.launch_counts().items() if v} }; its first "
+          f"{N_NEIGHBORS} columns agree with the k = 19 run on {agree:.5f} of entries", flush=True)
+    check(kernels.launch_counts()["kmeans_assign"] == 0, "the partition cache hit at k = 200")
+    check(agree >= 0.99, "k = 200 and k = 19 agree on >= 99% of the first 20 columns")
+    return launches, h, partition
+
+
+def separation(emb: torch.Tensor, lab: torch.Tensor) -> float:
+    """Mean distance between rows of one label over that between rows of
+    two (the reference test's seed criterion)."""
+    D = torch.cdist(emb, emb)
+    same = lab[:, None] == lab[None, :]
+    same.fill_diagonal_(False)
+    other = ~(lab[:, None] == lab[None, :])
+    return float(D[same].mean() / D[other].mean())
+
+
+def rayleigh(A, emb: np.ndarray) -> np.ndarray:
+    """u'Au / u'u of each column u of ``emb``, in float64."""
+    U = emb.astype(np.float64)
+    return (U * (A @ U)).sum(axis=0) / (U * U).sum(axis=0)
+
+
+def phase_umap_big(ttl, tu, tk, tf, kernels, profiling, h, labels, cuda):
+    """tl.umap on the 1M graph: the membership seed (T16) and T13."""
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        ttl.umap(h, device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    G = h.obsp["connectivities"]
+    print(f"[umap1m] tl.umap on {G.nnz} edges in {wall:.4f}s launched "
+          f"{ {k_: v for k_, v in launches.items() if v} }; stages {stage_seconds(t)}",
+          flush=True)
+    for name, count in UMAP_BIG_PATH.items():
+        check(launches[name] == count, f"the 1M UMAP path launched {name} {count} times")
+    emb = h.obsm["X_umap"]
+    check(emb.shape == (N_BIG, 2) and emb.dtype == np.float32 and np.isfinite(emb).all(),
+          "1M X_umap shape, float32, finite")
+    # the 15 nearest cells in 2-D through the IVF index (brute force at 1M x 2
+    # costs what it costs at 50 columns)
+    idx, _ = tk.knn(emb, 15, method="ivf", device=cuda)
+    lab = torch.from_numpy(labels).to(cuda)
+    nb = idx[:, 1:].long()
+    s_umap = float(((lab[nb.clamp(min=0)] == lab[:, None]) & (nb >= 0)).float().mean())
+    s_graph = label_share(h.obsp["distances"], labels)
+    print(f"[umap1m] planted-label share of the 15 nearest cells in 2-D {s_umap:.4f}; the "
+          f"graph's own {s_graph:.4f} (chance {1 / BIG_CLUSTERS:.3f})", flush=True)
+    check(s_umap >= 0.8 * s_graph, "1M UMAP share >= 0.8 x the graph's")
+
+    # the two seeds, each held to the exact operator A = D^-1/2 G D^-1/2 of
+    # the graph: a column u of a seed is as good as its Rayleigh quotient
+    # u'Au/u'u is near the top of A's spectrum (1); a column of noise reads 0
+    tag = getattr(G, tf.MEMBERSHIP_TAG)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = tu.spectral_init(G, 2, seed=42, membership=tag, device=cuda)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = tu.spectral_init(G, 2, seed=42, membership=None, device=cuda)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dm12 = 1.0 / np.sqrt(np.maximum(np.asarray(G.sum(axis=1)).ravel(), 1e-30))
+    A = sp.diags(dm12) @ G @ sp.diags(dm12)
+    rq_fast, rq_ref = rayleigh(A, fast), rayleigh(A, ref)
+    noise = np.random.default_rng(7).standard_normal(fast.shape)
+    rq_noise = rayleigh(A, noise)
+    # how far the two 2-D subspaces lie apart, and the reference test's own
+    # criterion on a fixed sample of rows, both for the record
+    qf, qr = np.linalg.qr(fast.astype(np.float64))[0], np.linalg.qr(ref.astype(np.float64))[0]
+    cosines = np.linalg.svd(qf.T @ qr, compute_uv=False)
+    sample = np.random.default_rng(7).choice(N_BIG, SEED_SAMPLE, replace=False)
+    ls = lab[torch.from_numpy(sample).to(cuda)]
+    r_fast = separation(torch.from_numpy(fast[sample]).to(cuda), ls)
+    r_ref = separation(torch.from_numpy(ref[sample]).to(cuda), ls)
+    print(f"[umap1m] spectral seeds: membership in {t1 - t0:.4f}s, exact in {t2 - t1:.4f}s; "
+          f"Rayleigh quotients under the graph's operator: membership "
+          f"{[round(float(x), 5) for x in rq_fast]}, exact {[round(float(x), 5) for x in rq_ref]}, "
+          f"noise {[round(float(x), 5) for x in rq_noise]} (needs 1 - membership < max(0.1, "
+          f"1.3 x (1 - exact))); cosines of the principal angles between the two seeds "
+          f"{[round(float(x), 4) for x in cosines]}; same-label over other-label distance on "
+          f"{SEED_SAMPLE} rows: membership {r_fast:.4f}, exact {r_ref:.4f} (the reference "
+          f"test's criterion needs exact < 0.8 to say anything)", flush=True)
+    check(np.isfinite(fast).all()
+          and 1.0 - rq_fast.min() < max(0.1, 1.3 * (1.0 - rq_ref.min())),
+          "the membership seed lies as near the top of the graph's spectrum as the exact seed")
+    check(1.0 - np.abs(rq_noise).max() > 0.5, "a seed of noise would fail that check")
+
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        ttl.umap(h, device=cuda)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    print(f"[times] tl.umap at 1M, second run: {wall2:.4f}s; stages {stage_seconds(t)}",
+          flush=True)
+    return launches
+
+
+def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
+    """T14-T16 against their plain versions at the 1M path's shapes."""
+    results = {}
+    X = torch.from_numpy(rep).to(cuda)
+    n, d = X.shape
+    cent_np, assign_np = partition
+    C = cent_np.shape[0]
+
+    def report(name, shape, err, tol, ok, ms, plain_ms, bnd, lib=None, record=True):
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                             "library_ms": lib}
+        print(f"[kernel] {name} {shape}: max_abs_err={err:.3e} ({tol}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+              f"library_ms={lib if lib is None else round(lib, 3)}", flush=True)
+        check(ok, f"{name} {shape} within {tol}")
+
+    # T15 on all rows with the partition's centroids
+    cent = torch.from_numpy(cent_np).to(cuda)
+    got = ti.kmeans_assign(X, cent)
+    torch.cuda.synchronize()
+    ref = ti.kmeans_assign_plain(X, cent)
+    equal = float((got == ref).float().mean())
+    rows = torch.nonzero(got != ref)[:, 0]
+    x16, c16 = X[rows].bfloat16().double(), cent.bfloat16().double()
+    csq = (cent.double() ** 2).sum(1)
+    score = csq[None, :] - 2.0 * x16 @ c16.T
+    gap = (score.gather(1, got[rows].long()[:, None]) - score.gather(1, ref[rows].long()[:, None]))
+    scale = csq[got[rows].long()] + csq[ref[rows].long()] + (X[rows].double() ** 2).sum(1)
+    near = bool((gap[:, 0].abs() <= 1e-5 * scale).all())
+    worst = float((gap[:, 0].abs() / scale).max()) if len(rows) else 0.0
+    report("kmeans_assign", (n, d, C), worst,
+           f"equal on {equal:.6f} >= 0.999 of rows, the {len(rows)} others near-ties within "
+           f"1e-5 of their scale", equal >= 0.999 and near,
+           median_ms(lambda: ti.kmeans_assign(X, cent)),
+           median_ms(lambda: ti.kmeans_assign_plain(X, cent)),
+           bound(nbytes(X, cent, got), 2 * n * C * d, BF16_OPS_PER_S))
+
+    # T14 on the first work items of the 1M layout, at the path's k and WNN's
+    order, qids, ppos, pcnt, L = ti.build_ivf_layout(assign_np, cent_np, C, 8, 1024)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    Xs = X[to(order).long()].contiguous()
+    q_all, pp_all, pc_all = to(qids), to(ppos), to(pcnt)
+    mu_all = ti.item_means(Xs, q_all)
+    q, pp_, pc, mu_ = (a[:IVF_ITEMS].contiguous() for a in (q_all, pp_all, pc_all, mu_all))
+    ok_q = q >= 0
+    item = torch.arange(q.shape[0], device=cuda)[:, None].expand_as(q)[ok_q]
+    qsq = ((Xs[q[ok_q].long()] - mu_[item]) ** 2).sum(-1)
+    pairs = float((ok_q.sum(1) * pc.sum(1)).sum())  # (query, candidate) pairs scored
+    for k in (N_NEIGHBORS - 1, N_MULTI):
+        args = (Xs, q, pp_, pc, mu_, k, L, False)
+        gp, gd = ti.ivf_search(*args)
+        torch.cuda.synchronize()
+        rp, rd = ti.ivf_search_plain(*args)
+        same_inf = bool(torch.equal(torch.isinf(gd), torch.isinf(rd)))
+        fin = torch.isfinite(rd[ok_q])
+        csq_ = ((Xs[rp[ok_q].long()] - mu_[item][:, None, :]) ** 2).sum(-1)
+        diff = (gd[ok_q] - rd[ok_q]).abs()
+        within = bool((diff[fin] <= 1e-5 * (qsq[:, None] + csq_)[fin]).all())
+        equal = float((gp[ok_q] == rp[ok_q]).float().mean())
+        # each item reads its queries and its probed rows once and writes its results
+        bytes_ = 4 * d * float(ok_q.sum() + pc.sum()) + nbytes(q, pp_, pc, mu_, gp, gd)
+        report("ivf_search", f"(k+1={k + 1}, {q.shape[0]} items of {qids.shape[0]}, L={L}, "
+               f"P={ppos.shape[1]})", float(diff[fin].max()),
+               f"|dd2| <= 1e-5(|q-mu|^2+|c-mu|^2), equal positions {equal:.5f} >= 0.99",
+               same_inf and within and equal >= 0.99,
+               median_ms(lambda: ti.ivf_search(*args)),
+               median_ms(lambda: ti.ivf_search_plain(*args), reps=3),
+               bound(bytes_, 2 * pairs * d, F32_OPS_PER_S), record=k == N_NEIGHBORS - 1)
+        whole = median_ms(lambda: ti.ivf_search(Xs, q_all, pp_all, pc_all, mu_all, k, L, False),
+                          reps=3)
+        all_pairs = float(((q_all >= 0).sum(1) * pc_all.sum(1)).sum())
+        print(f"[kernel] ivf_search over the whole 1M layout ({qids.shape[0]} items, "
+              f"{all_pairs:.4g} pairs) at k+1={k + 1}: ms={whole:.3f}; by its operations "
+              f"{2 * all_pairs * d / F32_OPS_PER_S * 1e3:.3f}", flush=True)
+
+    # T16: one application over the graph's membership table
+    tag = getattr(h.obsp["connectivities"], tf.MEMBERSHIP_TAG)
+    op = tu.membership_operator(tag["idx"], tag["vals"], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    Q = torch.randn((n, 10), generator=gen, device=cuda)
+    Y = tu.membership_matvec(op, Q)
+    torch.cuda.synchronize()
+    Yp = tu.membership_matvec_plain(op, Q)
+    rel = ((Y - Yp).abs().amax(0) / torch.linalg.norm(Yp, dim=0)).max().item()
+    # the library call: a CSR of S = diag(s)(W + W^T)diag(s), one product
+    k_ = op.idx.shape[1]
+    src = torch.arange(n, device=cuda).repeat_interleave(k_)
+    dst = op.idx.reshape(-1).clamp(min=0).long()
+    w = op.vals.reshape(-1) * op.s[src] * op.s[dst]
+    try:
+        S = torch.sparse_coo_tensor(torch.stack([torch.cat([src, dst]), torch.cat([dst, src])]),
+                                    torch.cat([w, w]), (n, n)).coalesce().to_sparse_csr()
+        lib = library_ms(lambda: torch.sparse.mm(S, Q))
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[library] {str(e).splitlines()[0][:160]}", flush=True)
+        lib = None
+    report("membership_matvec", (n, k_, 10), (Y - Yp).abs().max().item(),
+           f"largest column error {rel:.2e} <= 1e-5 of the column's norm", rel <= 1e-5,
+           median_ms(lambda: tu.membership_matvec(op, Q)),
+           median_ms(lambda: tu.membership_matvec_plain(op, Q), reps=3),
+           # the function reads the table, s and Q and writes Y; the transposed
+           # table is the kernel's own choice and no part of the bound
+           bound(nbytes(op.idx, op.vals, op.s, Q, Y), 4 * op.vals.numel() * 10,
+                 F32_OPS_PER_S), lib)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -1254,6 +1681,7 @@ def main() -> int:
     from muon_tpu_torch.ops import _kernels as kernels
     from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import ivf as ti
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import sparse as dsp
@@ -1281,6 +1709,7 @@ def main() -> int:
     atac_launches, gather_launches, atac_h = phase_atac_path(
         tac, tpp, dsp, tla, kernels, X, cuda)
     rna_launches, rna_h = phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X_rna, labels, cuda)
+    union_times(tf, rna_h.obsp["connectivities"], "RNA graph at 100k")
     results.update(phase_neighbors_kernels(dsp, tk, tf, X_rna, rna_h.obsm["X_pca"], cuda))
     prot_launches, prot_h = phase_prot_path(tpt, tpp, tla, td, kernels, P, labels, cuda)
     results.update(phase_dense_kernels(td, P, cuda))
@@ -1299,8 +1728,23 @@ def main() -> int:
     results.update(umap_results)
     phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, X_rna, P,
                 wnn_mods, wnn_md, cuda)
+    del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rep, big_labels = make_big_rep(SEED)
+    print(f"[data] 1M path: representation {rep.shape[0]}x{rep.shape[1]} float32, "
+          f"{BIG_CLUSTERS} planted clusters, made in {time.perf_counter() - t0:.1f}s", flush=True)
+    ivf_launches, big_h, partition = phase_ivf(tpp, ti, tk, tf, kernels, profiling, rep,
+                                               big_labels, cuda)
+    umap_big_launches = phase_umap_big(ttl, tu, tk, tf, kernels, profiling, big_h,
+                                       big_labels, cuda)
+    results.update(phase_big_kernels(ti, tu, tf, rep, partition, big_h, cuda))
+    print(f"[times] peak device memory with the 1M path "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
-               "wnn": wnn_launches, "umap": umap_launches}
+               "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
+               "umap1m": umap_big_launches}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(

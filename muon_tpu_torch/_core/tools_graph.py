@@ -200,7 +200,11 @@ def umap(
     """Embed the (multimodal) neighbourhood graph with UMAP (reference
     muon/_core/tools.py:1209-1362); the SGD epochs run on the device
     (ops/umap.py, T13). Writes ``obsm["X_umap"]`` and ``uns["umap"]``.
-    ``mesh`` (multi-device) is not ported yet and raises."""
+    The connectivities go to ``umap_embed`` as the CSR that ``obsp`` holds,
+    not as a copy, so the membership tag ``pp.neighbors`` hung on it arrives
+    and the spectral seed of a graph above 8M edges comes from the
+    membership table (T16). ``mesh`` (multi-device) is not ported yet and
+    raises."""
     from ..ops.umap import find_ab_params, umap_embed
 
     if mesh is not None:

@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_heap.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -55,26 +57,6 @@ namespace {
 constexpr int kQ = 128;  // queries per block, one per thread
 constexpr int kC = 32;   // candidates per shared-memory tile
 constexpr int kD = 64;   // dimensions per chunk
-
-// (d, i) before (e, j): the order of the result
-__device__ __forceinline__ bool before(float d, int i, float e, int j) {
-  return d < e || (d == e && i < j);
-}
-
-// restore the max-heap hd/hi[0, m) below position p
-__device__ __forceinline__ void sift_down(float* hd, int* hi, int m, int p) {
-  const float d = hd[p];
-  const int i = hi[p];
-  for (int c = 2 * p + 1; c < m; c = 2 * p + 1) {
-    if (c + 1 < m && before(hd[c], hi[c], hd[c + 1], hi[c + 1])) ++c;
-    if (!before(d, i, hd[c], hi[c])) break;
-    hd[p] = hd[c];
-    hi[p] = hi[c];
-    p = c;
-  }
-  hd[p] = d;
-  hi[p] = i;
-}
 
 template <int KMAX>
 __global__ void __launch_bounds__(kQ)
@@ -138,16 +120,7 @@ __global__ void __launch_bounds__(kQ)
                              ? 1.f - acc[c]
                              : fmaxf((qsq + tile_sq[c]) - 2.f * acc[c], 0.f);
       if (cnt < k) {  // filling: append and sift up
-        int p = cnt++;
-        while (p > 0) {
-          const int par = (p - 1) / 2;
-          if (!before(heap_d[par], heap_i[par], dist, j)) break;
-          heap_d[p] = heap_d[par];
-          heap_i[p] = heap_i[par];
-          p = par;
-        }
-        heap_d[p] = dist;
-        heap_i[p] = j;
+        cnt = heap_push(heap_d, heap_i, cnt, dist, j);
       } else if (dist < heap_d[0]) {  // j is the largest index so far
         heap_d[0] = dist;
         heap_i[0] = j;
@@ -156,15 +129,7 @@ __global__ void __launch_bounds__(kQ)
     }
   }
   if (!active) return;
-  for (int m = k - 1; m > 0; --m) {  // heap sort: ascending (d, i)
-    const float td = heap_d[0];
-    const int ti = heap_i[0];
-    heap_d[0] = heap_d[m];
-    heap_i[0] = heap_i[m];
-    heap_d[m] = td;
-    heap_i[m] = ti;
-    sift_down(heap_d, heap_i, m, 0);
-  }
+  heap_sort(heap_d, heap_i, k);
   const int64_t o = (int64_t)i * (k + 1);
   out_idx[o] = i;
   out_dist[o] = 0.f;

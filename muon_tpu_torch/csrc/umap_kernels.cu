@@ -1,8 +1,12 @@
-// UMAP layout optimisation, one SGD epoch per launch, for Hopper (sm_90a).
+// UMAP on the device, for Hopper (sm_90a): one SGD epoch of the layout
+// optimisation per launch, and the operator of the spectral seed.
 //
-//   T13 umap_epoch  <- muon_tpu/ops/umap.py _optimize_layout_bucketed_fn
-//                      (with its reduction _segsum_sorted)
+//   T13 umap_epoch         <- muon_tpu/ops/umap.py _optimize_layout_bucketed_fn
+//                             (with its reduction _segsum_sorted)
+//   T16 membership_matvec  <- muon_tpu/ops/umap.py _spectral_membership_fn
+//                             (its matvec)
 //
+// T13:
 // One epoch of the reference's symmetric-graph SGD, in one launch: the
 // attraction of every due edge, summed per head vertex; the vertex-pooled
 // negatives, scaled by the vertex's expected due rate dc_exp; the
@@ -144,6 +148,55 @@ void launch_epoch(const float* emb, float* emb_out, const int* indptr,
       epoch, alpha, a, b, gamma);
 }
 
+// ---------------------------------------------------------------------------
+// T16: Y = s . ((W + W^T)(s . Q)), one application of the normalised
+// operator D^-1/2 (W + W^T) D^-1/2 of the spectral seed, for m <= 16
+// columns. W is the directed (n, k) membership table: row i holds vals[i, p]
+// at column idx[i, p], already zeroed where idx < 0 or idx == i. W X is a
+// fixed-width gather along the row. For W^T X the reference scatters with a
+// segment sum; here the table comes a second time, transposed (its entries
+// sorted by target once per seed, a CSR over the targets: t_indptr, t_src,
+// t_val), so W^T X is a second gather and every row's sum is taken in a
+// fixed order: no atomics, the same seed in every run.
+//
+// Layout: kLanes = 16 lanes per row, lane c owning column c (lanes >= m
+// idle), 16 rows per block. The lanes of a row read idx/vals as broadcasts
+// and a source row of Q (m floats, 40 bytes at m = 10) side by side. The
+// function is bound by its bytes: idx, vals, s, Q and Y once, about 0.25 GB
+// at 1M x 20, m = 10. This design moves more, about 0.4 GB: the second
+// table (t_src, t_val, another 8 bytes per entry) is its own choice and no
+// part of the bound; the gathered rows of Q (40 MB) mostly hit L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kLanes = 16;
+constexpr int kRowsPerBlock = 16;
+
+__global__ void __launch_bounds__(kLanes * kRowsPerBlock)
+membership_matvec_kernel(const int* __restrict__ idx, const float* __restrict__ vals,
+                         const int* __restrict__ t_indptr,
+                         const int* __restrict__ t_src,
+                         const float* __restrict__ t_val, const float* __restrict__ s,
+                         const float* __restrict__ Q, int n, int k, int m,
+                         float* __restrict__ Y) {
+  const int i = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  if (i >= n || c >= m) return;
+  float y1 = 0.f, y2 = 0.f;
+  const int64_t base = (int64_t)i * k;
+  for (int p = 0; p < k; ++p) {
+    const float v = vals[base + p];
+    if (v == 0.f) continue;  // also every masked slot
+    const int j = idx[base + p];
+    y1 = fmaf(v, __fmul_rn(Q[(int64_t)j * m + c], s[j]), y1);
+  }
+  const int e1 = t_indptr[i + 1];
+  for (int e = t_indptr[i]; e < e1; ++e) {
+    const int j = t_src[e];
+    y2 = fmaf(t_val[e], __fmul_rn(Q[(int64_t)j * m + c], s[j]), y2);
+  }
+  Y[(int64_t)i * m + c] = __fmul_rn(__fadd_rn(y1, y2), s[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -176,6 +229,23 @@ int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
     MT_UMAP_DIM(8)
   }
 #undef MT_UMAP_DIM
+  return (int)cudaGetLastError();
+}
+
+// T16. idx (n x k) int32 and vals (n x k) f32, vals zero wherever idx < 0 or
+// idx == row; t_indptr (n+1) int32 over the entries sorted by target, t_src
+// (nnz) int32 their source rows, t_val (nnz) f32; s (n) f32; Q (n x m) f32
+// in, Y (n x m) f32 out, 1 <= m <= 16.
+int mt_membership_matvec(const int* idx, const float* vals, const int* t_indptr,
+                         const int* t_src, const float* t_val, const float* s,
+                         const float* Q, int n, int k, int m, float* Y,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (m < 1 || m > kLanes || k < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  membership_matvec_kernel<<<blocks, kLanes * kRowsPerBlock, 0, st>>>(
+      idx, vals, t_indptr, t_src, t_val, s, Q, n, k, m, Y);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 """Native (C++) host engines of the port, loaded with ctypes.
 
 ``leiden.cpp`` is the multiplex Leiden/Louvain engine (local moving,
-symmetrisation, aggregation): the port's own copy of the JAX package's.
+symmetrisation, aggregation) and the one-pass fuzzy union of a kNN
+membership table (``knn_fuzzy_union``): the port's own copy of the JAX
+package's.
 It is compiled with ``g++ -O3 -shared -fPIC -std=c++17`` at first use into
 ``muon_tpu_torch/_build/``, under a name that carries a hash of the source
 and flags, so an edited source rebuilds and nothing is written beside the
@@ -92,6 +94,13 @@ def load_leiden_lib() -> ctypes.CDLL:
         c.c_int64,
         c.POINTER(c.c_int64), c.POINTER(c.c_int32), c.POINTER(c.c_double),
         c.c_int32,
+    ]
+    lib.knn_fuzzy_union.restype = c.c_void_p
+    lib.knn_fuzzy_union.argtypes = [
+        c.c_int64, c.c_int64,          # n, k
+        c.POINTER(c.c_int32),          # idx (n, k)
+        c.POINTER(c.c_float),          # vals (n, k)
+        c.c_double,                    # set_op_mix_ratio
     ]
     lib.agg_nnz.restype = c.c_int64
     lib.agg_nnz.argtypes = [c.c_void_p]

@@ -162,6 +162,84 @@ void* csr_symmetrize(
   return out;
 }
 
+// Fuzzy-union connectivities straight from a dense kNN membership table
+// (umap-learn's fuzzy simplicial set union):
+//   out[i,j] = mix·(a + b − a·b) + (1−mix)·(a·b)
+// over the directed memberships a = v(i→j), b = v(j→i). One counting-sort
+// scatter and one slot-merge pass, O(n·k); the scipy chain it stands in for
+// (coo→csr, transpose, multiply, add, eliminate_zeros) sorts several times.
+// idx: (n,k) int32 neighbour ids (−1, the row itself and zero memberships
+// are skipped), vals: (n,k) float32. A row's columns come out in insertion
+// order, so the caller sorts them. Same handle protocol as csr_aggregate;
+// the port's own copy of the JAX package's knn_fuzzy_union, arithmetic
+// unchanged.
+void* knn_fuzzy_union(
+    int64_t n, int64_t k,
+    const int32_t* idx, const float* vals, double mix) {
+  std::vector<int64_t> cursor(n + 1, 0);
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t base = i * k;
+    for (int64_t p = 0; p < k; p++) {
+      const int32_t j = idx[base + p];
+      if (j < 0 || j == i || vals[base + p] == 0.0f) continue;
+      cursor[i + 1]++;
+      cursor[j + 1]++;
+    }
+  }
+  for (int64_t r = 0; r < n; r++) cursor[r + 1] += cursor[r];
+  std::vector<int64_t> bstart(cursor);
+  const int64_t total = cursor[n];
+
+  std::vector<int32_t> bcol(total);
+  std::vector<double> bval(total);
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t base = i * k;
+    for (int64_t p = 0; p < k; p++) {
+      const int32_t j = idx[base + p];
+      const double v = (double)vals[base + p];
+      if (j < 0 || j == i || v == 0.0) continue;
+      bcol[cursor[i]] = j;
+      bval[cursor[i]++] = v;
+      bcol[cursor[j]] = (int32_t)i;
+      bval[cursor[j]++] = v;
+    }
+  }
+
+  auto* out = new AggResult();
+  out->indptr.resize(n + 1);
+  out->indices.reserve(total);
+  out->data.reserve(total);
+  std::vector<int64_t> slot(n, -1);
+  std::vector<uint8_t> seen;
+  seen.reserve(total);
+  out->indptr[0] = 0;
+  for (int64_t r = 0; r < n; r++) {
+    const int64_t row_base = (int64_t)out->indices.size();
+    for (int64_t p = bstart[r]; p < bstart[r + 1]; p++) {
+      const int32_t cc = bcol[p];
+      const double v = bval[p];
+      int64_t s = slot[cc];
+      if (s < 0) {
+        s = (int64_t)out->indices.size();
+        slot[cc] = s;
+        out->indices.push_back(cc);
+        out->data.push_back(v);  // raw a, finalised below
+        seen.push_back(1);
+      } else {
+        const double a = out->data[s];
+        out->data[s] = mix * (a + v - a * v) + (1.0 - mix) * (a * v);
+        seen[s] = 2;
+      }
+    }
+    for (int64_t q = row_base; q < (int64_t)out->indices.size(); q++) {
+      slot[out->indices[q]] = -1;
+      if (seen[q] == 1) out->data[q] *= mix;  // b = 0, so mix·a
+    }
+    out->indptr[r + 1] = (int64_t)out->indices.size();
+  }
+  return out;
+}
+
 int64_t agg_nnz(void* h) { return ((AggResult*)h)->indptr.back(); }
 const int64_t* agg_indptr(void* h) { return ((AggResult*)h)->indptr.data(); }
 const int32_t* agg_indices(void* h) { return ((AggResult*)h)->indices.data(); }

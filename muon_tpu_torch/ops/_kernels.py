@@ -3,7 +3,8 @@
 ``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a
 plain C interface, at first use, into ``muon_tpu_torch/_build/``: one
 ``nvcc -c`` per source, all started together, then one link. The file
-name carries a hash of the sources and flags, so an edited source rebuilds.
+name carries a hash of the sources, their shared headers (``*.cuh``) and
+the flags, so an edited source rebuilds.
 Nothing here runs at import: the CPU tests import every module and never
 build. A missing ``nvcc`` or a failed build raises with the compiler's
 output; there is no fallback to the plain versions.
@@ -63,6 +64,9 @@ _SIGNATURES = {
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P),
+    "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -82,6 +86,9 @@ KERNELS = {
     "wnn_fusion_scores": "mt_wnn_fusion_scores",
     "clr_dense": "mt_clr_dense",
     "umap_epoch": "mt_umap_epoch",
+    "ivf_search": "mt_ivf_search",
+    "kmeans_assign": "mt_kmeans_assign",
+    "membership_matvec": "mt_membership_matvec",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -90,6 +97,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -110,7 +121,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmuon_torch_kernels_{h.hexdigest()[:16]}.so"

@@ -5,9 +5,18 @@
 Per kNN row: ρ (distance to the ``local_connectivity``-th nearest nonzero
 neighbour), σ by a fixed 64-step bisection on Σ exp(−max(d−ρ, 0)/σ) =
 log2(k)·bandwidth with umap-learn's lower bounds, and the membership
-values, all on the device. The fuzzy union W + Wᵀ − W∘Wᵀ runs on the host
-with scipy, the reference's own fallback construction (the reference's
-native one-pass union equals it; the port does not import ``muon_tpu``).
+values, all on the device. The fuzzy union W + Wᵀ − W∘Wᵀ runs on the host:
+through the native one-pass ``knn_fuzzy_union`` (native/leiden.cpp) when the
+table has a row per observation, else through scipy (``_fuzzy_union``, the
+reference's fallback construction, which the tests hold the native union
+to). A native build or load that fails raises; nothing gives way to scipy.
+
+The result of the native union at ``set_op_mix_ratio == 1`` carries the
+membership tag ``_muon_tpu_torch_membership``: the directed (n, k) table as
+numpy ``idx`` int32 and ``vals`` float32 (self edges not zeroed), ``n``,
+the result's ``nnz`` and the mix ratio. ``ops/umap.spectral_init`` seeds
+from it above 8M edges. Only at mix ratio 1 is W + Wᵀ the union graph up
+to the −W∘Wᵀ term, so no other result is tagged.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ from . import _kernels
 from .device import DeviceLike, dense_to_tensor
 
 __all__ = ["smooth_knn", "smooth_knn_plain", "membership_strengths",
-           "compute_connectivities_umap"]
+           "compute_connectivities_umap", "MEMBERSHIP_TAG"]
+
+MEMBERSHIP_TAG = "_muon_tpu_torch_membership"
 
 MIN_K_DIST_SCALE = 1e-3
 
@@ -149,6 +160,29 @@ def _fuzzy_union(knn_indices, vals, n_obs: int, set_op_mix_ratio: float) -> sp.c
     return conn
 
 
+def _fuzzy_union_native(idx: np.ndarray, vals: np.ndarray, n_obs: int,
+                        set_op_mix_ratio: float) -> sp.csr_matrix:
+    """The same union in one counting-sort pass of the native engine, over
+    the dense (n, k) table: float32 data, columns sorted."""
+    import ctypes as C
+
+    from ..native import load_leiden_lib
+    from .leiden import _read_agg_handle
+
+    lib = load_leiden_lib()
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    n, k = idx.shape
+    h = lib.knn_fuzzy_union(
+        n, k, idx.ctypes.data_as(C.POINTER(C.c_int32)),
+        vals.ctypes.data_as(C.POINTER(C.c_float)), float(set_op_mix_ratio),
+    )
+    conn = _read_agg_handle(lib, h, n, (n_obs, n_obs))
+    conn.data = conn.data.astype(np.float32)
+    conn.sort_indices()  # the slot merge emits a row in insertion order
+    return conn
+
+
 def compute_connectivities_umap(
     knn_indices,
     knn_dists,
@@ -163,7 +197,8 @@ def compute_connectivities_umap(
 
     ``knn_dists``: numpy (uploaded to ``device``) or a tensor (used where it
     lies); σ, ρ and the membership values run there (T6), the union on the
-    host."""
+    host: native when ``knn_indices`` has ``n_obs`` rows, and then, at
+    ``set_op_mix_ratio == 1``, tagged with the membership table."""
     if torch.is_tensor(knn_dists):
         dists = knn_dists.float().contiguous()
     else:
@@ -171,5 +206,16 @@ def compute_connectivities_umap(
     with stage("fuzzy/smooth_knn"):
         _, _, vals = smooth_knn(dists, float(local_connectivity), 1.0)
         vals = vals.cpu().numpy()
+    idx = _to_numpy(knn_indices)
     with stage("fuzzy/union"):
-        return _fuzzy_union(knn_indices, vals, n_obs, set_op_mix_ratio)
+        if idx.shape[0] != n_obs:
+            return _fuzzy_union(idx, vals, n_obs, set_op_mix_ratio)
+        conn = _fuzzy_union_native(idx, vals, n_obs, set_op_mix_ratio)
+    if set_op_mix_ratio == 1.0:
+        setattr(conn, MEMBERSHIP_TAG, {
+            "idx": idx.astype(np.int32, copy=False),
+            "vals": vals.astype(np.float32, copy=False),
+            "n": int(n_obs), "nnz": int(conn.nnz),
+            "set_op_mix_ratio": float(set_op_mix_ratio),
+        })
+    return conn

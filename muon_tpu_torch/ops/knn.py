@@ -11,9 +11,8 @@ term is summed and kept in float32. (A bfloat16 matmul in JAX returns
 bfloat16 when run eagerly, but the reference runs it under jit, where XLA
 folds the float32 convert into the dot and the cross term is never rounded;
 the compiled HLO is a float32 dot of the two rounded operands.) Above
-``IVF_THRESHOLD`` rows the reference's approximate path switches to an IVF
-index, which the port does not have yet: it raises there instead of running
-brute force.
+``IVF_THRESHOLD`` rows the approximate path switches to the IVF index
+(ops/ivf.py), as the reference's does.
 """
 
 from __future__ import annotations
@@ -154,23 +153,25 @@ def knn(
     method: str = "auto",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN. Returns (indices (n, k+1) int32, dists (n, k+1) float32)
-    as tensors on the device, with self in column 0 (the pynndescent
-    convention the reference keeps); without ``include_self``, columns
-    1..k. ``k`` is cut to n − 1.
+    """kNN. Returns (indices (n, k+1) int32, dists (n, k+1) float32) as
+    tensors on the device, with self in column 0 (the pynndescent convention
+    the reference keeps); without ``include_self``, columns 1..k. ``k`` is
+    cut to n − 1.
 
     ``approx``: bfloat16 operands, float32 cross term, selected exactly.
-    ``method``: ``"auto"`` | ``"brute"`` | ``"ivf"``. The IVF index (taken
-    by ``"ivf"``, and by ``"auto"`` with ``approx`` above ``IVF_THRESHOLD``
-    rows) is not ported yet and raises."""
+    ``method``: ``"auto"`` | ``"brute"`` | ``"ivf"``. ``"ivf"``, and
+    ``"auto"`` with ``approx`` above ``IVF_THRESHOLD`` rows, take the IVF
+    index (ops/ivf.ivf_knn), whose pruning leaves the n² pairs unscored."""
     X = dense_to_tensor(X, device)
     n = X.shape[0]
     k = min(k, n - 1)
     if method == "ivf" or (method == "auto" and approx and n > IVF_THRESHOLD):
-        raise NotImplementedError(
-            "the IVF kNN index (ops/ivf.py, K6) is not ported yet "
-            "(ROADMAP item 5); use method='brute' or approx=False"
-        )
+        from .ivf import ivf_knn
+
+        idx, dists = ivf_knn(X, k, metric=metric, device=X.device)
+        if include_self:
+            return idx, dists
+        return idx[:, 1:], dists[:, 1:]
     m = _metric(metric)
     with stage("knn/topk"):
         op, sq = _operand(X, m, approx)

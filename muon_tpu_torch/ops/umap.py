@@ -1,7 +1,8 @@
 """UMAP embedding on the device (counterpart of muon_tpu/ops/umap.py).
 
-    umap_epoch   T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
-                         (csrc/umap_kernels.cu)
+    umap_epoch         T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
+    membership_matvec  T16  <- _spectral_membership_fn's matvec
+                               (both in csrc/umap_kernels.cu)
 
 The fuzzy graph's edges live on the device as one head-sorted edge list
 (a CSR over the vertices) with a per-edge stride; each epoch is one launch
@@ -20,7 +21,16 @@ chunks. The negatives of each epoch are drawn as an (n, neg_rate) int32
 table by ``torch.randint`` from a ``torch.Generator`` seeded with
 ``random_state`` and handed to T13, so a test can hand it the reference's
 draws instead. Only the symmetric path (``tl.umap`` always asserts it) is
-ported; the membership-table spectral seed (K13) is not.
+ported.
+
+The spectral seed has the reference's two paths. Below 8M edges, or
+without a membership tag on the graph, the exact one: the port's symmetric
+randomized SVD of Dm12·G·Dm12 (T2). From 8M edges on, with the tag that
+``ops/fuzzy.compute_connectivities_umap`` hangs on its result: subspace
+iteration on D^-1/2 (W + Wᵀ) D^-1/2 over the directed (n, k) membership
+table, each application one launch of T16, with CholeskyQR² between and a
+Rayleigh-Ritz step at the end. No union CSR is scaled on the host or
+uploaded. The two operators differ by the −W∘Wᵀ term of the union.
 """
 
 from __future__ import annotations
@@ -34,15 +44,20 @@ from scipy import sparse as sp
 from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, resolve_device
+from .fuzzy import MEMBERSHIP_TAG
 
 __all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
            "bucket_shifts", "UmapEdges", "umap_edges", "umap_epoch",
-           "umap_epoch_plain"]
+           "umap_epoch_plain", "MembershipOperator", "membership_operator",
+           "membership_matvec", "membership_matvec_plain", "spectral_membership"]
 
 # the reference buckets edges by stride only from this many edges on
 BUCKET_MIN_EDGES = 2_000_000
 MAX_DIM = 8  # T13 is instantiated for 2..8 components
 MAX_NEG_RATE = 32  # one warp lane per negative
+MAX_SEED_COLS = 16  # T16 gives a row 16 lanes, one per column
+# from this many edges on, spectral_init seeds from the membership table
+MEMBERSHIP_MIN_NNZ = 8_000_000
 
 
 def find_ab_params(spread: float = 1.0, min_dist: float = 0.5):
@@ -83,14 +98,23 @@ def edge_schedule(graph, n_epochs: int):
     return heads, tails, eps, w, dc_exp
 
 
+def _padded_edge_count(E: int) -> int:
+    """The length the reference pads its edge list to before it buckets: up
+    to a multiple of 1/16 of the next power of two, at least 8192."""
+    grain = max(8192, 1 << max(E.bit_length() - 4, 3))
+    return -(-max(E, 1) // grain) * grain
+
+
 def bucket_shifts(epochs_per_sample: np.ndarray, n_epochs: int) -> np.ndarray:
     """log2 of each edge's stride: the reference's bucket ⌊log2 eps⌋,
     clipped to [0, max_exp], where max_exp = clip(⌊log2(n_epochs/12)⌋, 0, 5)
     from ``BUCKET_MIN_EDGES`` edges on and 0 below (one stride-1 bucket).
-    An edge is processed only on epochs divisible by its stride."""
+    The reference counts the edges of its padded list, so the port decides
+    from that length too (and pads nothing). An edge is processed only on
+    epochs divisible by its stride."""
     eps = np.asarray(epochs_per_sample)
     max_exp = (
-        0 if len(eps) < BUCKET_MIN_EDGES
+        0 if _padded_edge_count(len(eps)) < BUCKET_MIN_EDGES
         else int(np.clip(np.floor(np.log2(max(1.0, n_epochs / 12.0))), 0, 5))
     )
     finite = np.isfinite(eps)
@@ -112,15 +136,164 @@ def _spectral_postprocess(emb, n_components, seed):
     return emb.astype(np.float32)
 
 
+class MembershipOperator(NamedTuple):
+    """What T16 reads: the directed (n, k) membership table W, the same
+    entries sorted by target (a CSR of Wᵀ), and s = deg^-1/2 of W + Wᵀ."""
+
+    idx: torch.Tensor       # (n, k) int32 targets (−1 padding kept)
+    vals: torch.Tensor      # (n, k) float32, 0 where idx < 0 or idx == row
+    t_indptr: torch.Tensor  # (n+1,) int32 over the entries sorted by target
+    t_src: torch.Tensor     # (nnz,) int32 source rows, ascending per target
+    t_val: torch.Tensor     # (nnz,) float32
+    s: torch.Tensor         # (n,) float32, 0 on rows of degree 0
+
+
+def membership_operator(idx, vals, device: DeviceLike = None) -> MembershipOperator:
+    """Build the operator of the spectral seed from the membership table
+    (numpy or tensors): padding (−1) and self slots count 0; the transposed
+    table comes from one stable sort of the flat targets, so every row of
+    Wᵀ·X is summed in the same order in every run; the degrees are the row
+    sums of W plus the segment sums of the sorted values."""
+    device = resolve_device(device)
+    idx = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx)
+    vals = torch.as_tensor(np.asarray(vals) if not torch.is_tensor(vals) else vals)
+    idx = idx.to(device=device, dtype=torch.int32).contiguous()
+    vals = vals.to(device=device, dtype=torch.float32)
+    if idx.dim() != 2 or idx.shape != vals.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and vals {tuple(vals.shape)} must be "
+                         f"one (n, k) table")
+    n, k = idx.shape
+    if n * k > 2**31 - 1:
+        raise ValueError(f"a table of shape {(n, k)} exceeds the int32 range")
+    rows = torch.arange(n, dtype=torch.int32, device=device)[:, None]
+    masked = (idx < 0) | (idx == rows)
+    v = torch.where(masked, 0.0, vals).contiguous()
+    key = torch.where(masked, n, idx).reshape(-1)
+    order = torch.sort(key, stable=True).indices  # masked entries last
+    counts = torch.bincount(key.long(), minlength=n + 1)[:n]
+    nnz = int(counts.sum())
+    t_indptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    torch.cumsum(counts, dim=0, out=t_indptr[1:])
+    t_src = (order[:nnz] // k).int().contiguous()
+    t_val = v.reshape(-1)[order[:nnz]].contiguous()
+    deg = v.sum(dim=1) + torch.segment_reduce(t_val, "sum", lengths=counts, unsafe=True)
+    s = torch.where(deg > 0, 1.0 / torch.sqrt(deg.clamp(min=1e-30)), 0.0)
+    return MembershipOperator(idx, v, t_indptr.int(), t_src, t_val, s.contiguous())
+
+
+def membership_matvec(op: MembershipOperator, Q: torch.Tensor) -> torch.Tensor:
+    """T16: ``s ⊙ ((W + Wᵀ)(s ⊙ Q))`` for ``Q (n, m)`` float32, m ≤ 16:
+    one application of D^-1/2 (W + Wᵀ) D^-1/2."""
+    if Q.device.type == "cpu":
+        return membership_matvec_plain(op, Q)
+    if Q.device.type != "cuda":
+        raise ValueError(f"unsupported device {Q.device}")
+    n, k = op.idx.shape
+    if Q.dtype != torch.float32 or Q.dim() != 2 or Q.shape[0] != n \
+            or not Q.is_contiguous():
+        raise ValueError(f"Q must be a contiguous ({n}, m) float32 tensor, got "
+                         f"{Q.dtype} {tuple(Q.shape)}")
+    m = Q.shape[1]
+    if not 1 <= m <= MAX_SEED_COLS:
+        raise ValueError(f"T16 takes 1..{MAX_SEED_COLS} columns, got {m}")
+    nnz = op.t_src.shape[0]
+    for name, t, dt, shape in (
+        ("idx", op.idx, torch.int32, (n, k)), ("vals", op.vals, torch.float32, (n, k)),
+        ("t_indptr", op.t_indptr, torch.int32, (n + 1,)),
+        ("t_src", op.t_src, torch.int32, (nnz,)),
+        ("t_val", op.t_val, torch.float32, (nnz,)), ("s", op.s, torch.float32, (n,)),
+    ):
+        if t.device != Q.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"op.{name} must be a contiguous {dt} tensor of shape "
+                             f"{shape} on {Q.device}")
+    Y = torch.empty_like(Q)
+    _kernels.launch(
+        "membership_matvec", Q.device,
+        op.idx.data_ptr(), op.vals.data_ptr(), op.t_indptr.data_ptr(),
+        op.t_src.data_ptr(), op.t_val.data_ptr(), op.s.data_ptr(), Q.data_ptr(),
+        n, k, m, Y.data_ptr(),
+    )
+    return Y
+
+
+def membership_matvec_plain(op: MembershipOperator, Q: torch.Tensor) -> torch.Tensor:
+    n, k = op.idx.shape
+    safe = op.idx.clamp(min=0).long()
+    X = Q * op.s[:, None]
+    y1 = (op.vals[..., None] * X[safe]).sum(dim=1)
+    y2 = torch.zeros_like(X).index_add_(
+        0, safe.reshape(-1), (op.vals[..., None] * X[:, None, :]).reshape(n * k, -1))
+    return (y1 + y2) * op.s[:, None]
+
+
+def spectral_membership(op: MembershipOperator, q0: torch.Tensor,
+                        n_iter: int = 6) -> torch.Tensor:
+    """The leading eigenvectors of S = D^-1/2 (W + Wᵀ) D^-1/2 by subspace
+    iteration from ``q0 (n, m)``: S² and a CholeskyQR² per step (the
+    symmetric rSVD it stands in for also applies the operator twice per
+    step), then a Rayleigh-Ritz step; columns by |λ| descending."""
+    from .linalg import _cholqr
+
+    # the triangular solve may hand back column-major: T16 takes row-major
+    Q = _cholqr(q0).contiguous()
+    for _ in range(n_iter):
+        Q = _cholqr(membership_matvec(op, membership_matvec(op, Q))).contiguous()
+    AQ = membership_matvec(op, Q)
+    lam, V = torch.linalg.eigh(Q.T @ AQ)  # ascending
+    order = torch.argsort(-lam.abs(), stable=True)
+    return Q @ V[:, order]
+
+
+def _membership_usable(membership, graph, min_nnz: int) -> bool:
+    """The reference's gate (a tag for this many rows, a graph of at least
+    ``min_nnz`` edges), and the port's own: the tag was made with mix ratio
+    1, where W + Wᵀ is the union graph up to −W∘Wᵀ, and the graph still has
+    the edge count it was tagged with."""
+    return (
+        membership is not None
+        and membership.get("n") == graph.shape[0]
+        and membership["idx"].shape == membership["vals"].shape
+        and graph.nnz >= min_nnz
+        and membership.get("nnz") == graph.nnz
+        and membership.get("set_op_mix_ratio") == 1.0
+    )
+
+
 def spectral_init(graph: sp.csr_matrix, n_components: int, seed: int = 0,
-                  device: DeviceLike = None) -> np.ndarray:
-    """Spectral layout from the normalised graph adjacency Dm12·G·Dm12
-    (scaled on the host), through the port's symmetric randomized SVD
-    (T2 on the device) with 4 subspace iterations: the reference's exact
-    path."""
+                  membership=None, membership_min_nnz: int = MEMBERSHIP_MIN_NNZ,
+                  q0=None, device: DeviceLike = None) -> np.ndarray:
+    """Spectral layout from the normalised graph adjacency.
+
+    With a ``membership`` tag (``ops/fuzzy.MEMBERSHIP_TAG``) that fits the
+    graph and at least ``membership_min_nnz`` edges: the seed of
+    D^-1/2 (W + Wᵀ) D^-1/2 over the membership table, on the device (T16),
+    m = n_components + 8 columns, 6 S² steps. ``q0 (n, m)`` is the start of
+    the iteration, drawn from a ``torch.Generator`` seeded with ``seed``
+    when None. Otherwise the exact path: Dm12·G·Dm12 (scaled on the host)
+    through the port's symmetric randomized SVD (T2) with 4 subspace
+    iterations."""
+    n = graph.shape[0]
+    if _membership_usable(membership, graph, membership_min_nnz):
+        device = resolve_device(device)
+        m = min(n_components + 8, n)
+        if q0 is None:
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            q0 = torch.randn((n, m), generator=gen, dtype=torch.float32, device=device)
+        else:
+            if not torch.is_tensor(q0):
+                q0 = torch.from_numpy(np.array(q0, dtype=np.float32))
+            q0 = q0.to(device=device, dtype=torch.float32).contiguous()
+            if tuple(q0.shape) != (n, m):
+                raise ValueError(f"q0 must have shape {(n, m)}, got {tuple(q0.shape)}")
+        with stage("umap/membership_operator"):
+            op = membership_operator(membership["idx"], membership["vals"], device)
+        with stage("umap/membership_iteration"):
+            U = spectral_membership(op, q0)[:, : n_components + 1].cpu().numpy()
+        return _spectral_postprocess(U, n_components, seed)
+
     from .linalg import randomized_svd
 
-    n = graph.shape[0]
     deg = np.asarray(graph.sum(axis=1)).ravel()
     deg[deg == 0] = 1.0
     Dm12 = sp.dia_matrix((1.0 / np.sqrt(deg), 0), shape=(n, n))
@@ -267,6 +440,8 @@ def umap_embed(
     (``_optimize_fn``) is not ported yet."""
     device = resolve_device(device)
     n = graph.shape[0]
+    # read the tag before tocoo(): the COO copy does not carry it
+    membership = getattr(graph, MEMBERSHIP_TAG, None)
     graph = graph.tocoo()
     if a is None or b is None:
         a, b = find_ab_params(spread, min_dist)
@@ -297,7 +472,7 @@ def umap_embed(
     else:
         with stage("umap/spectral_init"):
             emb = spectral_init(sp.csr_matrix(graph), n_components, seed=seed,
-                                device=device)
+                                membership=membership, device=device)
 
     with stage("umap/upload"):
         edges = umap_edges(heads, tails, eps, shift, n, device)

@@ -106,10 +106,14 @@ def single_neighbors(
     distances), ``obsp["connectivities"]`` and ``uns["neighbors"]`` with the
     reference's params layout, and returns ``adata``.
 
-    Above 20,000 rows the kNN takes the ``approx`` (bfloat16) path, as in
-    the reference. ``mesh`` (multi-device) is not ported yet. The matrices
-    carry no tag: WNN rebuilds its neighbour matrix from the CSR, so a graph
-    edited in place is never read stale."""
+    Above 20,000 rows the kNN takes the ``approx`` (bfloat16) path, and
+    above ``ops/knn.IVF_THRESHOLD`` rows the IVF index, as in the reference.
+    ``mesh`` (multi-device) is not ported yet. The distances carry no tag:
+    WNN rebuilds its neighbour matrix from the CSR, so a graph edited in
+    place is never read stale. The connectivities carry the membership
+    table as numpy (``ops/fuzzy.MEMBERSHIP_TAG``), which ``tl.umap`` seeds
+    from above 8M edges while the graph still has the edge count it was
+    tagged with."""
     if mesh is not None:
         raise NotImplementedError(
             "neighbors over a device mesh is not ported yet (ROADMAP item 12)"

@@ -6,6 +6,10 @@ reference's bisection runs in float64 whatever its input (its zeros, ones
 and log2(k) become float64), while in production it runs in float32, as
 the port does. So σ differs by float32 resolution: rtol 1e-5 on σ and ρ,
 atol 1e-6 on the membership values (which lie in (0, 1]).
+
+The native one-pass union is held to the scipy formula W + Wᵀ − W∘Wᵀ at
+1e-6 (it merges in float64 and stores float32), and to the reference's
+native union exactly: the same arithmetic on the same table.
 """
 
 import numpy as np
@@ -99,7 +103,86 @@ def test_membership_strengths_matches_jax():
     assert (got[2][got[0] == got[1]] == 0).all()  # self edges get 0
 
 
-@pytest.mark.parametrize("mix", [1.0, 0.6])
+def _ragged_table(n=300, k=9, seed=7):
+    """tests/test_neighbors.py's table: unique neighbours per row, self in
+    column 0, a tenth of the slots padding (−1)."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((n, n)), axis=1)[:, :k].astype(np.int32)
+    idx[:, 0] = np.arange(n)
+    idx[rng.random((n, k)) < 0.1] = -1
+    return idx, rng.random((n, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mix", [1.0, 0.5, 0.0])
+def test_fuzzy_union_native_matches_scipy(mix):
+    idx, vals = _ragged_table()
+    n = len(idx)
+    native = tf._fuzzy_union_native(idx, vals, n, mix)
+    ref = tf._fuzzy_union(idx, vals, n, mix)  # the scipy formula
+    assert sp.isspmatrix_csr(native) and native.dtype == np.float32
+    assert native.has_sorted_indices and native.shape == (n, n)
+    assert abs(native - ref).max() < 1e-6
+    assert abs(native - native.T).max() == 0
+    if mix > 0:  # at 0 the one-way edges stay as explicit zeros, as in the reference
+        np.testing.assert_array_equal(native.indices, ref.indices)
+        np.testing.assert_array_equal(native.indptr, ref.indptr)
+
+
+@pytest.mark.parametrize("mix", [1.0, 0.5, 0.0])
+def test_fuzzy_union_native_matches_jax_native(mix):
+    idx, vals = _ragged_table(seed=8)
+    got = tf._fuzzy_union_native(idx, vals, len(idx), mix)
+    ref = jf._fuzzy_union_native(idx, vals, len(idx), mix)
+    for a in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(got, a), getattr(ref, a))
+
+
+def test_membership_tag_fields():
+    idx, D = _knn_table(seed=5)
+    conn = tf.compute_connectivities_umap(idx, D, 400, 15, device=CPU)
+    tag = getattr(conn, tf.MEMBERSHIP_TAG)
+    assert tf.MEMBERSHIP_TAG == "_muon_tpu_torch_membership"
+    assert set(tag) == {"idx", "vals", "n", "nnz", "set_op_mix_ratio"}
+    assert isinstance(tag["idx"], np.ndarray) and tag["idx"].dtype == np.int32
+    assert isinstance(tag["vals"], np.ndarray) and tag["vals"].dtype == np.float32
+    np.testing.assert_array_equal(tag["idx"], idx)
+    assert tag["vals"].shape == idx.shape
+    assert tag["n"] == 400 and tag["nnz"] == conn.nnz and tag["set_op_mix_ratio"] == 1.0
+    # the values are T6's, the reference's tag to float32 (self not zeroed)
+    ref = jf.compute_connectivities_umap(idx, D, 400, 15)._muon_tpu_membership
+    np.testing.assert_allclose(tag["vals"], ref["vals"], rtol=0, atol=1e-6)
+    assert not hasattr(conn, "_muon_tpu_membership")  # the port's own name only
+    assert conn.tocsr() is conn  # tl.umap hands umap_embed this very matrix
+
+
+def test_membership_tag_only_at_mix_ratio_one_and_on_a_dense_table():
+    idx, D = _knn_table(seed=5)
+    for mix in (0.6, 0.0):
+        conn = tf.compute_connectivities_umap(idx, D, 400, 15, set_op_mix_ratio=mix,
+                                              device=CPU)
+        assert not hasattr(conn, tf.MEMBERSHIP_TAG)
+    # fewer rows than observations: the scipy formula, untagged
+    conn = tf.compute_connectivities_umap(idx[:300], D[:300], 400, 15, device=CPU)
+    assert conn.shape == (400, 400) and not hasattr(conn, tf.MEMBERSHIP_TAG)
+    ref = tf._fuzzy_union(idx[:300], tf.smooth_knn(torch.from_numpy(D[:300]))[2].numpy(),
+                          400, 1.0)
+    assert (conn != ref).nnz == 0
+
+
+def test_native_union_failure_raises(monkeypatch):
+    # the reference swallows a failed native call and takes scipy; the port raises
+    from muon_tpu_torch import native
+
+    def broken():
+        raise RuntimeError("g++ failed")
+
+    monkeypatch.setattr(native, "load_leiden_lib", broken)
+    idx, D = _knn_table(n=60, k=6, seed=6)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tf.compute_connectivities_umap(idx, D, 60, 6, device=CPU)
+
+
+@pytest.mark.parametrize("mix", [1.0, 0.6, 0.0])
 def test_compute_connectivities_umap_matches_jax(mix):
     # identical structure, values rtol 1e-5 (σ at float32 resolution, above)
     idx, D = _knn_table(seed=5)
@@ -112,7 +195,8 @@ def test_compute_connectivities_umap_matches_jax(mix):
     np.testing.assert_array_equal(got.indices, ref.indices)
     np.testing.assert_allclose(got.data, ref.data, rtol=1e-5)
     assert abs(got - got.T).max() <= 1e-7
-    assert got.diagonal().max() == 0 and got.data.min() > 0 and got.data.max() <= 1
+    assert got.diagonal().max() == 0 and got.data.max() <= 1
+    assert got.data.min() > 0 or mix == 0  # at 0 one-way edges are explicit zeros
 
 
 def test_connectivities_take_a_device_tensor():

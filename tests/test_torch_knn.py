@@ -151,15 +151,24 @@ def test_unknown_metric_error_matches_jax():
 
 
 def test_ivf_is_not_run_as_brute_force(monkeypatch):
+    # method="ivf", and approx above the threshold, go to the IVF index
+    # (ops/ivf.py, held in tests/test_torch_ivf.py), never to brute force
+    from muon_tpu_torch.ops import ivf as ti
+
     X = _gaussian(60, 4, seed=7)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        tk.knn(X, 3, method="ivf", device=CPU)
+    calls = []
+    real = ti.ivf_knn
+    monkeypatch.setattr(ti, "ivf_knn", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    idx, _ = tk.knn(X, 3, method="ivf", device=CPU)
+    assert len(calls) == 1 and idx.shape == (60, 4)
+    np.testing.assert_array_equal(idx[:, 0].numpy(), np.arange(60))
     monkeypatch.setattr(tk, "IVF_THRESHOLD", 50)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tk.knn(X, 3, approx=True, device=CPU)
+    assert tk.knn(X, 3, approx=True, device=CPU)[0].shape == (60, 4)
+    assert len(calls) == 2
     # exact kNN and forced brute force stay brute force above the threshold
     assert tk.knn(X, 3, device=CPU)[0].shape == (60, 4)
     assert tk.knn(X, 3, approx=True, method="brute", device=CPU)[0].shape == (60, 4)
+    assert len(calls) == 2
 
 
 def test_pairwise_sq_dists_matches_jax():

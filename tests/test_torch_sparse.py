@@ -351,7 +351,7 @@ def test_cpu_wrappers_count_no_launch():
 def _source_copy(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
-    for cu in _kernels.CSRC.glob("*.cu"):
+    for cu in _kernels.CSRC.glob("*.cu*"):  # the sources and their shared headers
         (src / cu.name).write_bytes(cu.read_bytes())
     monkeypatch.setattr(_kernels, "CSRC", src)
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "_build")
@@ -363,7 +363,11 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     cu = _source_copy(tmp_path, monkeypatch)
     assert _kernels.library_path().name == first.name
     cu.write_text(cu.read_text() + "\n// edited\n")
-    assert _kernels.library_path().name != first.name
+    edited = _kernels.library_path().name
+    assert edited != first.name
+    header = cu.with_name("topk_heap.cuh")  # a shared header counts as a source
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _kernels.library_path().name not in (first.name, edited)
 
 
 def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):

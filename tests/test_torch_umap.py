@@ -18,6 +18,14 @@ which do not depend on the layout, are held exactly. Whole runs draw other
 random numbers (``torch.Generator`` against ``jax.random``) and are held
 by invariants: cluster separation and the planted-label share of each
 cell's nearest neighbours in the embedding.
+
+The membership-table spectral seed: one application of the operator (T16's
+plain version) against the reference's ``matvec``, rebuilt here from its
+``jnp`` ops, at rtol 1e-5 of the column norms (float32 sums in another
+order); the whole seed from the reference's own start ``q0`` (the draw is
+an argument of the port's ``spectral_init``) to 1e-3 in the sine of the
+spanned subspace and |cos| ≥ 0.999 per column (``eigh`` fixes no sign), on
+planted clusters, both in float32.
 """
 
 import numpy as np
@@ -32,14 +40,16 @@ try:
     import jax
     import jax.numpy as jnp
     import muon_tpu as mu
+    from muon_tpu.ops import fuzzy as jf
     from muon_tpu.ops import umap as ju
     from tests import test_tools_graph as ttg
     from tests.test_torch_wnn import clustered_data
 except ImportError:
-    jax = jnp = mu = ju = ttg = clustered_data = None
+    jax = jnp = mu = jf = ju = ttg = clustered_data = None
 
 import muon_tpu_torch as mt
 from muon_tpu_torch.ops import _kernels
+from muon_tpu_torch.ops import fuzzy as tf
 from muon_tpu_torch.ops import umap as tu
 
 CPU = torch.device("cpu")
@@ -122,6 +132,28 @@ def test_bucket_strides_match_jax(E, n_epochs):
         np.testing.assert_array_equal(np.asarray(tb)[:m], tails[sel])
         np.testing.assert_array_equal(np.asarray(eb)[:m], eps[sel])
         assert np.isinf(np.asarray(eb)[m:]).all()  # the reference's pads, never due
+
+
+@pytest.mark.parametrize("E", [1_966_080, 1_966_081, 1_999_999, 2_000_000])
+def test_bucket_shifts_count_the_padded_edges(E):
+    # the reference pads its edge list to a 1/16 size class before it
+    # buckets, and compares the padded length with 2M: 1,966,080 edges pad to
+    # themselves (one bucket), one more pads to 2,097,152 (bucketed)
+    heads, tails, eps, n = _bucket_case(E)
+    grain = max(8192, 1 << max(E.bit_length() - 4, 3))  # as its umap_embed pads
+    E_pad = -(-E // grain) * grain
+    hp = np.pad(heads, (0, E_pad - E), constant_values=n - 1)
+    tp = np.pad(tails, (0, E_pad - E))
+    ep = np.pad(eps, (0, E_pad - E), constant_values=np.inf)
+    strides, heads_bs, _, eps_bs, *_ = ju._build_buckets(hp, tp, ep, n, N_EPOCHS)
+    assert (E > 1_966_080) == (len(strides) > 1)
+    stride = 1 << tu.bucket_shifts(eps, N_EPOCHS).astype(np.int64)
+    assert sorted(set(stride.tolist())) == list(strides)
+    for s_, hb, eb in zip(strides, heads_bs, eps_bs):
+        m = int((stride == s_).sum())
+        np.testing.assert_array_equal(np.asarray(hb)[:m], heads[stride == s_])
+        np.testing.assert_array_equal(np.asarray(eb)[:m], eps[stride == s_])
+        assert np.isinf(np.asarray(eb)[m:]).all()  # only its pads are left
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +394,219 @@ def test_cpu_umap_counts_no_launch():
 
 
 # ---------------------------------------------------------------------------
+# the membership-table spectral seed (T16's plain version)
+# ---------------------------------------------------------------------------
+
+
+def port_tag(jax_tag, conn):
+    """The reference's membership tag as the port's (on ``conn``)."""
+    return {"idx": np.asarray(jax_tag["idx"], np.int32),
+            "vals": np.asarray(jax_tag["vals"], np.float32), "n": int(jax_tag["n"]),
+            "nnz": int(conn.nnz), "set_op_mix_ratio": 1.0}
+
+
+def jax_tag(tag):
+    """The port's membership tag as the reference's."""
+    return {"idx": tag["idx"], "vals": tag["vals"], "n": tag["n"]}
+
+
+def _planted(n_per=300, n_clusters=5, d=10, k=15, seed=0):
+    """Overlapping planted clusters and the port's graph of them, tagged."""
+    rng = np.random.default_rng(seed)
+    cent = rng.normal(size=(n_clusters, d)) * 4
+    X = np.concatenate([cent[i] + rng.normal(size=(n_per, d))
+                        for i in range(n_clusters)]).astype(np.float32)
+    a = mu.AnnData(X)
+    mt.pp.neighbors(a, n_neighbors=k, device=CPU)
+    return a, np.repeat(np.arange(n_clusters), n_per)
+
+
+def _table(n=400, k=9, seed=7):
+    """A membership table with padding (−1), self slots and an isolated row."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((n, n)), axis=1)[:, :k].astype(np.int32)
+    idx[:, 0] = np.arange(n)
+    idx[rng.random((n, k)) < 0.1] = -1
+    idx[idx == 5] = -1  # nothing points at row 5,
+    idx[5] = -1         # and it points nowhere: degree 0
+    return idx, rng.random((n, k)).astype(np.float32)
+
+
+def _jax_matvec(idx, vals, Q):
+    """One ``matvec`` of the reference's ``_spectral_membership_fn``, from
+    its own ``jnp`` ops (it is a closure there)."""
+    idx, vals, Q = jnp.asarray(idx), jnp.asarray(vals), jnp.asarray(Q)
+    n, k = idx.shape
+    rows = jnp.arange(n, dtype=jnp.int32)[:, None]
+    v = jnp.where((idx < 0) | (idx == rows), 0.0, vals)
+    safe = jnp.where(idx < 0, 0, idx)
+    deg = v.sum(1) + jax.ops.segment_sum(v.reshape(-1), safe.reshape(-1), num_segments=n)
+    s = jnp.where(deg > 0, 1.0 / jnp.sqrt(jnp.maximum(deg, 1e-30)), 0.0)
+    X = Q * s[:, None]
+    y1 = (v[..., None] * X[safe]).sum(1)
+    y2 = jax.ops.segment_sum((v[..., None] * X[:, None, :]).reshape(n * k, -1),
+                             safe.reshape(-1), num_segments=n)
+    return np.asarray((y1 + y2) * s[:, None]), np.asarray(s)
+
+
+@pytest.mark.parametrize("m", [1, 10, 16])
+def test_membership_matvec_matches_jax(m):
+    idx, vals = _table()
+    Q = np.random.default_rng(m).normal(size=(len(idx), m)).astype(np.float32)
+    with jax.enable_x64(False):
+        ref, s_ref = _jax_matvec(idx, vals, Q)
+    op = tu.membership_operator(idx, vals, CPU)
+    got = tu.membership_matvec(op, torch.from_numpy(Q)).numpy()
+    np.testing.assert_allclose(op.s.numpy(), s_ref, rtol=1e-6)
+    assert op.s[5] == 0 and (got[5] == 0).all()  # a row of degree 0
+    assert got.dtype == np.float32
+    assert (np.abs(got - ref).max(axis=0) <= 1e-5 * np.linalg.norm(ref, axis=0)).all()
+
+
+def test_membership_operator_holds_the_transposed_table():
+    idx, vals = _table()
+    n, k = idx.shape
+    op = tu.membership_operator(idx, vals, CPU)
+    rows = np.repeat(np.arange(n), k)
+    keep = (idx.reshape(-1) >= 0) & (idx.reshape(-1) != rows)
+    W = sp.csr_matrix((vals.reshape(-1)[keep], (rows[keep], idx.reshape(-1)[keep])), shape=(n, n))
+    Wt = W.T.tocsr()
+    Wt.sort_indices()  # sources ascending per target: the stable sort's order
+    np.testing.assert_array_equal(op.t_indptr.numpy(), Wt.indptr)
+    np.testing.assert_array_equal(op.t_src.numpy(), Wt.indices)
+    np.testing.assert_array_equal(op.t_val.numpy(), Wt.data)
+    assert (op.vals.numpy()[~keep.reshape(n, k)] == 0).all()
+    deg = np.asarray((W + Wt).sum(axis=1)).ravel()
+    np.testing.assert_allclose(op.s.numpy()[deg > 0], deg[deg > 0] ** -0.5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        tu.membership_operator(idx, vals[:, :-1], CPU)
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_spectral_membership_seed_matches_jax(seed):
+    a, _ = _planted()
+    conn = a.obsp["connectivities"]
+    tag = getattr(conn, tf.MEMBERSHIP_TAG)
+    n, m = conn.shape[0], 2 + 8
+    with jax.enable_x64(False):
+        key = jax.random.PRNGKey(seed)
+        q0 = np.asarray(jax.random.normal(key, (n, m), dtype=jnp.float32))
+        U_ref = np.asarray(ju._spectral_membership_fn()(
+            jnp.asarray(tag["idx"]), jnp.asarray(tag["vals"]), key, m, 6))
+        ref = ju.spectral_init(conn, 2, seed=seed, membership=jax_tag(tag),
+                               membership_min_nnz=0)
+    op = tu.membership_operator(tag["idx"], tag["vals"], CPU)
+    U = tu.spectral_membership(op, torch.from_numpy(q0.copy())).numpy()
+
+    def cosines(A, B):
+        return np.abs((A * B).sum(0)) / np.linalg.norm(A, axis=0) / np.linalg.norm(B, axis=0)
+
+    def sine(A, B):
+        Qa, _ = np.linalg.qr(A.astype(np.float64))
+        Qb, _ = np.linalg.qr(B.astype(np.float64))
+        c = np.linalg.svd(Qa.T @ Qb, compute_uv=False).min()
+        return np.sqrt(max(0.0, 1.0 - c * c))
+
+    assert (cosines(U, U_ref) >= 0.999).all()
+    assert sine(U, U_ref) <= 1e-3 and sine(U[:, :3], U_ref[:, :3]) <= 1e-3
+    got = tu.spectral_init(conn, 2, seed=seed, membership=tag, membership_min_nnz=0,
+                           q0=q0, device=CPU)
+    assert got.shape == ref.shape == (n, 2) and got.dtype == np.float32
+    assert np.abs(got).max() == pytest.approx(10.0, rel=1e-3)
+    assert (cosines(got, ref) >= 0.999).all()
+    # without q0 the start comes from a seeded torch.Generator: repeatable
+    g1 = tu.spectral_init(conn, 2, seed=seed, membership=tag, membership_min_nnz=0, device=CPU)
+    g2 = tu.spectral_init(conn, 2, seed=seed, membership=tag, membership_min_nnz=0, device=CPU)
+    np.testing.assert_array_equal(g1, g2)
+    with pytest.raises(ValueError, match="q0"):
+        tu.spectral_init(conn, 2, membership=tag, membership_min_nnz=0, q0=q0[:, :4],
+                         device=CPU)
+
+
+def test_spectral_seeds_run_on_the_other_packages_table():
+    # the tag is the carrier: each package's seed takes the other's table
+    a, labels = _planted()
+    conn = a.obsp["connectivities"]
+    aj = mu.AnnData(np.asarray(a.X))
+    mu.pp.neighbors(aj, n_neighbors=15)
+    conn_j = aj.obsp["connectivities"].tocsr()
+    from_jax = tu.spectral_init(conn_j, 2, seed=3, membership_min_nnz=0, device=CPU,
+                                membership=port_tag(conn_j._muon_tpu_membership, conn_j))
+    with jax.enable_x64(False):
+        from_port = ju.spectral_init(conn, 2, seed=3, membership_min_nnz=0,
+                                     membership=jax_tag(getattr(conn, tf.MEMBERSHIP_TAG)))
+    assert _separation(from_jax, labels) < 0.8 and _separation(from_port, labels) < 0.8
+
+
+class TestMembershipSeed:
+    """tests/test_tools_graph.py::TestUMAP's two membership tests on the port."""
+
+    def test_spectral_membership_seed_matches_union_seed(self):
+        md, labels = _mdata()
+        ad = md.mod["m1"]
+        mt.pp.neighbors(ad, n_neighbors=12, device=CPU)
+        conn = ad.obsp["connectivities"]
+        tag = getattr(conn, tf.MEMBERSHIP_TAG, None)
+        assert tag is not None, "compute_connectivities_umap must tag"
+        fast = tu.spectral_init(conn.tocsr(), 2, seed=3, membership=tag,
+                                membership_min_nnz=0, device=CPU)
+        ref = tu.spectral_init(conn.tocsr(), 2, seed=3, device=CPU)
+        assert fast.shape == ref.shape == (ad.n_obs, 2)
+        assert np.isfinite(fast).all()
+        r_fast, r_ref = _separation(fast, labels), _separation(ref, labels)
+        assert r_ref < 0.8
+        assert r_fast < max(0.8, 1.3 * r_ref), (r_fast, r_ref)
+
+    def test_membership_tag_reaches_spectral_init(self, monkeypatch):
+        # umap_embed rebinds the graph to a COO copy, which does not carry
+        # the tag: it must be read from the matrix tl.umap was given
+        md, _ = _mdata()
+        ad = md.mod["m1"]
+        mt.pp.neighbors(ad, n_neighbors=12, device=CPU)
+        assert hasattr(ad.obsp["connectivities"], tf.MEMBERSHIP_TAG)
+        seen = {}
+        real = tu.spectral_init
+
+        def spy(graph, n_components, seed=0, membership=None, **kw):
+            seen["membership"] = membership
+            return real(graph, n_components, seed=seed, **kw)
+
+        monkeypatch.setattr(tu, "spectral_init", spy)
+        mt.tl.umap(ad, maxiter=5, device=CPU)
+        assert seen["membership"] is not None
+        assert seen["membership"]["n"] == ad.n_obs
+
+
+def test_membership_seed_gate(monkeypatch):
+    # honoured only from membership_min_nnz edges on (8M by default), for a
+    # tag made at mix ratio 1 whose nnz and n are the graph's
+    a, _ = _planted(n_per=60)
+    conn = a.obsp["connectivities"]
+    tag = getattr(conn, tf.MEMBERSHIP_TAG)
+    calls = []
+    real = tu.spectral_membership
+    monkeypatch.setattr(tu, "spectral_membership",
+                        lambda *a_, **kw: calls.append(1) or real(*a_, **kw))
+
+    def run(membership, graph=conn, **kw):
+        calls.clear()
+        tu.spectral_init(graph, 2, seed=0, membership=membership, device=CPU, **kw)
+        return len(calls)
+
+    assert tu.MEMBERSHIP_MIN_NNZ == 8_000_000
+    assert run(tag) == 0                                   # below the default gate
+    assert run(tag, membership_min_nnz=0) == 1
+    assert run(tag, membership_min_nnz=conn.nnz + 1) == 0
+    assert run(None, membership_min_nnz=0) == 0
+    assert run({**tag, "set_op_mix_ratio": 0.5}, membership_min_nnz=0) == 0
+    assert run({**tag, "n": tag["n"] + 1}, membership_min_nnz=0) == 0
+    edited = conn.copy()                                   # an edge dropped since tagging
+    edited.data[0] = 0.0
+    edited.eliminate_zeros()
+    assert run(tag, graph=edited, membership_min_nnz=0) == 0
+
+
+# ---------------------------------------------------------------------------
 # the whole slice against the reference's
 # ---------------------------------------------------------------------------
 
@@ -526,3 +771,58 @@ def test_gpu_umap_matches_cpu_invariants(cuda):
     emb = h.obsm["X_umap"]
     assert emb.shape == (2000, 2) and np.isfinite(emb).all()
     assert _separation(emb, labels) < 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 10, 16])
+def test_gpu_membership_matvec_matches_plain(cuda, m):
+    # float32 sums in another order: rtol 1e-5 of the column norms; no
+    # atomics, so a second launch repeats the first bit for bit
+    idx, vals = _table(n=5000, k=20)
+    op = tu.membership_operator(idx, vals, cuda)
+    Q = torch.from_numpy(np.random.default_rng(m).normal(size=(5000, m)).astype(np.float32))
+    Q = Q.to(cuda)
+    _kernels.reset_launch_counts()
+    got = tu.membership_matvec(op, Q)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["membership_matvec"] == 1
+    ref = tu.membership_matvec_plain(op, Q)
+    assert ((got - ref).abs().amax(dim=0) <= 1e-5 * torch.linalg.norm(ref, dim=0)).all()
+    assert torch.equal(got, tu.membership_matvec(op, Q))
+    assert (got[5] == 0).all()
+    cpu = tu.membership_operator(idx, vals, CPU)
+    for a_, b_ in zip(op, cpu):  # the operator itself is the CPU's, s to rounding
+        if a_.dtype == torch.float32:
+            torch.testing.assert_close(a_.cpu(), b_, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a_.cpu(), b_)
+
+
+@pytest.mark.gpu
+def test_gpu_spectral_membership_launches_t16_and_matches_cpu(cuda):
+    idx, vals = _table(n=3000, k=15)
+    gen = torch.Generator().manual_seed(0)
+    q0 = torch.randn((3000, 10), generator=gen)
+    _kernels.reset_launch_counts()
+    U = tu.spectral_membership(tu.membership_operator(idx, vals, cuda), q0.to(cuda))
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["membership_matvec"] == 13
+    U_cpu = tu.spectral_membership(tu.membership_operator(idx, vals, CPU), q0)
+    cos = (U.cpu() * U_cpu).sum(0).abs() / torch.linalg.norm(U.cpu(), dim=0) \
+        / torch.linalg.norm(U_cpu, dim=0)
+    assert (cos[:3] >= 0.999).all()
+
+
+@pytest.mark.gpu
+def test_gpu_membership_matvec_refuses_bad_input(cuda):
+    idx, vals = _table(n=200, k=6)
+    op = tu.membership_operator(idx, vals, cuda)
+    Q = torch.rand((200, 4), device=cuda)
+    with pytest.raises(ValueError):
+        tu.membership_matvec(op, Q.double())
+    with pytest.raises(ValueError):
+        tu.membership_matvec(op, torch.rand((200, 17), device=cuda))
+    with pytest.raises(ValueError):
+        tu.membership_matvec(op, Q[:100])
+    with pytest.raises(ValueError):
+        tu.membership_matvec(op._replace(s=op.s.cpu()), Q)
