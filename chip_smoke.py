@@ -34,7 +34,16 @@ float32 representation of 40 planted clusters whose neighbours overlap
 ``pp.neighbors(n_neighbors=20)``, which takes the IVF index (k-means, the
 host layout, the search, the scatter back), T6 and the native fuzzy union,
 then ``tl.umap`` on its graph of about 30M edges, seeded from the membership
-table.
+table;
+
+and MOFA+ through ``models.mofa.fit_mofa`` at three sizes: the recipe of
+``bench.py``'s mode ``mofa`` (10,000 cells, gaussian views of 2000 and 3000
+features from 15 planted factors, seed 0, 2 warm-up sweeps and then 50
+full-batch sweeps); the MOFA stage of ``bench_e2e.py`` at 100,000 cells (the
+256 most variable columns of the normalised RNA and of the TF-IDF ATAC
+matrix, selected on the device through ``ops.sparse.col_sums``, K = 15,
+stochastic VI, 100 iterations of 50,000 cells); and the same stochastic fit
+on two 1,000,000 × 256 views made on the device from 15 planted factors.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -92,7 +101,27 @@ is printed. An exception stops the run at once, with a code other than 0:
     fails), with both times; the stage split;
 15. kernels: T14 (k+1 = 20 and 201, the first 64 work items of the 1M
     layout), T15 (all rows) and T16 (one application) against their plain
-    versions.
+    versions;
+16. repairs (after phase 12): T13 at 12 components (the kernel that takes
+    the number at run time) against plain on the WNN graph; ``[wnn-wide]``,
+    ``pp.neighbors(mdata)`` over neighbour lists 250 wide on the first 2,000
+    cells, counted alone: T9's variant that keeps a cell's candidates in
+    global memory, twice; that variant against plain at kk = 256, d = 50;
+17. ``[mofa-e2e]``, counted from ``fit_mofa`` alone: the launches of T17-T20
+    by the formula (per sweep T17 K·M + M, T18 and T19 K·M, T20 2·K·M), the
+    wall and the stage split, and the e2e's gate: the label-probe R² of Z
+    above max(0.2, 0.8 × that of the first 15 PCA components);
+18. kernels: T17-T20 against their plain versions at 10,000 × 3000 (unmasked
+    and masked) and 50,000 × 256, each with its bound and, where one PyTorch
+    call computes the same, that call's time;
+19. ``[mofa]``, counted the same way: sweeps per second, the stage split, peak
+    memory; the canonical correlations of Z with the planted factors (> 0.9);
+    two fits bit for bit; one sweep through the kernels against the plain
+    versions from the same state (every leaf within 1e-4 of its largest
+    entry); the ELBO of every sweep (never falling by more than 1e-5); the
+    plain path's time;
+20. ``[mofa-1m]`` (last), counted the same way: the wall, the time per
+    iteration, peak memory, and the canonical correlations (> 0.9).
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -132,6 +161,15 @@ WNN_SRC = "muon_tpu_torch/csrc/wnn_kernels.cu"
 DENSE_SRC = "muon_tpu_torch/csrc/dense_kernels.cu"
 UMAP_SRC = "muon_tpu_torch/csrc/umap_kernels.cu"
 IVF_SRC = "muon_tpu_torch/csrc/ivf_kernels.cu"
+MOFA_SRC = "muon_tpu_torch/csrc/mofa_kernels.cu"
+# MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
+# 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
+# 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
+MOFA_K, MOFA_N, MOFA_DS, MOFA_SWEEPS, MOFA_WARM = 15, 10_000, (2000, 3000), 50, 2
+MOFA_COLS, MOFA_ITERS, MOFA_BATCH = 256, 100, 50_000
+# the width of the neighbour lists that drive T9's global-memory variant: 250
+# through pp.neighbors (T5 takes k + 1 <= 255), 256 for the kernel against plain
+WIDE_KK, WIDE_KK_KERNEL, WIDE_CELLS = 250, 256, 2_000
 # the 1M-cell path: rows, columns and planted clusters of its representation,
 # the work items T14 is held to its plain version on, the seed check's sample
 N_BIG, D_BIG, BIG_CLUSTERS, IVF_ITEMS, SEED_SAMPLE = 1_000_000, 50, 40, 64, 20_000
@@ -155,6 +193,12 @@ KERNEL_INFO = {
     "ivf_search": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),             # _search_fn
     "kmeans_assign": (IVF_SRC, "muon_tpu/ops/ivf.py:83"),           # _kmeans_fn's assign
     "membership_matvec": (UMAP_SRC, "muon_tpu/ops/umap.py:75"),     # _spectral_membership_fn
+    "wnn_bandwidth_global": (WNN_SRC, "muon_tpu/ops/wnn.py:339"),   # _bandwidth_fn, wide lists
+    # the loop bodies of _make_step (:94) and _make_svi_step (:811)
+    "mofa_col_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),       # zk @ E, (E*E).sum(0)
+    "mofa_w_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),   # w_body's posterior
+    "mofa_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),       # Es[m] @ tsw, B @ tSWW
+    "mofa_rank1_update": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),  # E + zk (x) delta
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -179,6 +223,20 @@ IVF_PATH = {"kmeans_assign": 9, "smooth_knn_membership": 1, "knn_topk": 0}
 # T13 per epoch, and nothing of the exact seed's rSVD (T2)
 UMAP_BIG_PATH = {"membership_matvec": 13, "umap_epoch": N_EPOCHS, "csr_spmm_bf16": 0,
                  "csr_spmm_f32": 0}
+# WNN over neighbour lists 256 wide: T9's global-memory variant per modality
+WNN_WIDE_PATH = {"wnn_bandwidth_global": 2, "wnn_bandwidth": 0, "wnn_theta": 4,
+                 "wnn_fusion_scores": 1}
+
+
+def mofa_launches(sweeps: int, n_views: int = 2) -> dict:
+    """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep T17
+    K·M + M (one per factor and view, and Σ E² per view for τ), T18 and T19
+    K·M, T20 2·K·M."""
+    km = MOFA_K * n_views
+    return {"mofa_col_dot": sweeps * (km + n_views), "mofa_w_posterior": sweeps * km,
+            "mofa_row_dot": sweeps * km, "mofa_rank1_update": sweeps * 2 * km}
+
+
 # the card's published peaks (H100 SXM: NVIDIA's data sheet, dense, at
 # 700 W): device memory, float32 outside the tensor cores, and bfloat16 in
 # them. A kernel's bound is the larger of its bytes (each input read once,
@@ -199,9 +257,9 @@ class MuHolder:
     """The least MuData-like object WNN takes: modalities over the same
     cells, in the same order (obsmap is 1-based)."""
 
-    def __init__(self, mods):
-        self.mod, self.n_obs = mods, N_CELLS
-        self.obsmap = {k: np.arange(1, N_CELLS + 1) for k in mods}
+    def __init__(self, mods, n: int = N_CELLS):
+        self.mod, self.n_obs = mods, n
+        self.obsmap = {k: np.arange(1, n + 1) for k in mods}
         self.obs, self.obsm, self.obsp, self.uns = {}, {}, {}, {}
 
 
@@ -952,7 +1010,7 @@ def wnn_bound(name, args, out) -> dict:
     """The bound of T9-T11 on the arguments of their measured call."""
     tensors = [a for a in args if torch.is_tensor(a)]
     bytes_ = nbytes(*tensors, out)
-    if name == "wnn_bandwidth":
+    if name.startswith("wnn_bandwidth"):
         # per cell, C candidates: a Jaccard count of kk binary searches over
         # the cell's sorted set, a d-wide distance, a rank among C
         NI, rep16 = args[0], args[2]
@@ -1668,6 +1726,468 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# repairs of earlier kernels: T13 above 8 components, T9 above kk = 194
+# ---------------------------------------------------------------------------
+
+
+def phase_repairs(tpp, tw, tk, tf, tu, kernels, mods, wnn_md, cuda) -> dict:
+    """T13's run-time-dim kernel at 12 components against its plain version
+    on the WNN graph, and ``pp.neighbors(mdata)`` over neighbour lists 250
+    wide on the first 2,000 cells, which takes T9's global-memory variant
+    (counted from that call alone), then that variant against plain at
+    kk = 256, d = 50 on the exact neighbours of the same cells' RNA scores."""
+    G = wnn_md.obsp["connectivities"].tocsr()
+    a, b = tu.find_ab_params()
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, tu.bucket_shifts(eps, N_EPOCHS), N_CELLS, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    emb0 = torch.rand((N_CELLS, 12), generator=gen, device=cuda) * 20 - 10
+    negs = torch.randint(0, N_CELLS, (N_CELLS, 5), generator=gen, dtype=torch.int32, device=cuda)
+    args = (torch.from_numpy(dc).to(cuda), negs, 0, tu.epoch_alpha(1.0, 0, N_EPOCHS), a, b, 1.0)
+    eons_k, eons_p = edges.eps.clone(), edges.eps.clone()
+    kernels.reset_launch_counts()
+    out_k = tu.umap_epoch(emb0, torch.empty_like(emb0), edges, eons_k, *args)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["umap_epoch"]
+    out_p = tu.umap_epoch_plain(emb0, torch.empty_like(emb0), edges, eons_p, *args)
+    err = (out_k - out_p).abs().max().item()
+    pools = [edges.eps.clone() for _ in range(6)]
+    buf = torch.empty_like(emb0)
+    ms = median_ms(lambda: tu.umap_epoch(emb0, buf, edges, pools.pop(), *args))
+    print(f"[kernel] umap_epoch at 12 components (n={N_CELLS}, E={len(eps)}; the kernel that "
+          f"takes dim at run time): max_abs_err={err:.3e} (<= 1e-3; eons equal "
+          f"{bool(torch.equal(eons_k, eons_p))}) ms={ms:.4f}", flush=True)
+    check(err <= 1e-3 and torch.equal(eons_k, eons_p) and launched == 1,
+          "umap_epoch at 12 components vs plain, max 1e-3")
+    del edges, emb0, negs, out_k, out_p, pools, buf
+
+    sub = {}
+    for name, key in (("rna", "X_pca"), ("atac", "X_lsi")):
+        h = Holder(None)
+        h.obsm[key] = np.ascontiguousarray(mods[name].obsm[key][:WIDE_CELLS])
+        h.n_obs = WIDE_CELLS
+        tpp.neighbors(h, n_neighbors=WIDE_KK + 1, use_rep=key, device=cuda)
+        sub[name] = h
+    md = MuHolder(sub, WIDE_CELLS)
+    with wnn_probe(tw, tk, tf, plain=False) as rec:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tpp.neighbors(md, device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    kk = rec["bandwidth"][0][0][0].shape[1]
+    print(f"[wnn-wide] pp.neighbors(mdata) over {list(sub)} on {WIDE_CELLS} cells with "
+          f"neighbour lists {kk} wide in {wall:.2f}s launched "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(kk == WIDE_KK, f"the modality graphs hold {WIDE_KK} neighbours per cell")
+    for name, count in WNN_WIDE_PATH.items():
+        check(launches[name] == count, f"the wide WNN path launched {name} {count} times")
+    D = md.obsp["distances"]
+    per_row = np.diff(D.indptr)
+    check(md.uns["neighbors"]["params"]["n_neighbors"] == WIDE_KK + 1
+          and per_row.min() >= 1 and per_row.max() <= WIDE_KK + 2 and np.isfinite(D.data).all(),
+          f"the wide WNN graph: at most {WIDE_KK + 2} fused neighbours per row, finite")
+
+    rep = torch.from_numpy(sub["rna"].obsm["X_pca"]).to(cuda)
+    d2 = torch.cdist(rep.double(), rep.double())
+    d2.fill_diagonal_(float("inf"))
+    NI = torch.sort(torch.topk(d2, WIDE_KK_KERNEL, dim=1, largest=False).indices,
+                    dim=1).values.int().contiguous()
+    bbox = float(torch.linalg.norm(rep.max(dim=0).values - rep.min(dim=0).values))
+    args = (NI, *tw._bandwidth_tables(NI, rep), float(WIDE_CELLS), bbox, 20,
+            tw._auto_nn_stride(WIDE_KK_KERNEL))
+    kernels.reset_launch_counts()
+    out = tw.wnn_bandwidth(*args)
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["wnn_bandwidth_global"] == 1
+          and kernels.launch_counts()["wnn_bandwidth"] == 0,
+          "kk = 256 takes the global-memory variant of T9")
+    ref = tw.wnn_bandwidth_plain(*args)
+    rel = (out - ref).abs() / ref.abs().clamp(min=1e-30)
+    ms = median_ms(lambda: tw.wnn_bandwidth(*args), reps=3)
+    plain_ms = median_ms(lambda: tw.wnn_bandwidth_plain(*args), reps=1)
+    bnd = wnn_bound("wnn_bandwidth_global", args, out)
+    print(f"[kernel] wnn_bandwidth_global {tuple(args[0].shape)} d={args[2].shape[1]}: "
+          f"max_abs_err={(out - ref).abs().max().item():.3e} (rtol 1e-5 on >= 99.9% of cells, "
+          f"1e-3 on all; largest rel err {rel.max().item():.2e}) ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})",
+          flush=True)
+    check((rel <= 1e-5).float().mean().item() >= 0.999 and rel.max().item() <= 1e-3,
+          "wnn_bandwidth_global within rtol 1e-5 on >= 99.9% of cells, 1e-3 on all")
+    return launches, {"wnn_bandwidth_global": {
+        "max_abs_err": (out - ref).abs().max().item(), "ms": ms, "plain_ms": plain_ms, **bnd,
+        "library_ms": None}}
+
+
+# ---------------------------------------------------------------------------
+# MOFA: T17-T20, the full-batch fit of bench.py's mode `mofa`, the e2e's SVI
+# stage at 100,000 cells, and SVI at 1,000,000 cells
+# ---------------------------------------------------------------------------
+
+
+def mofa_bench_views(seed: int = 0):
+    """bench.py::_mofa_iters_per_sec's data: planted Z (N, K), two gaussian
+    views Z·W + 0.5·noise."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(MOFA_N, MOFA_K)).astype(np.float32)
+    Ys = [(Z @ rng.normal(size=(MOFA_K, d)) + 0.5 * rng.normal(size=(MOFA_N, d))
+           ).astype(np.float32) for d in MOFA_DS]
+    return Z, Ys
+
+
+def canonical_correlations(A: torch.Tensor, B: torch.Tensor) -> np.ndarray:
+    """Canonical correlations of the column spaces of A and B (centred),
+    in float64 on A's device."""
+    A, B = A.double(), B.double().to(A.device)
+    Qa = torch.linalg.qr(A - A.mean(dim=0)).Q
+    Qb = torch.linalg.qr(B - B.mean(dim=0)).Q
+    return torch.linalg.svdvals(Qa.T @ Qb).cpu().numpy()
+
+
+def phase_mofa_kernels(tmo, Ys, cuda) -> dict:
+    """T17-T20 against their plain versions at the bench's 10,000 x 3000
+    (unmasked, which the JSON line records, and masked) and at the SVI
+    batch's 50,000 x 256."""
+    results = {}
+    gen = torch.Generator(device=cuda).manual_seed(17)
+
+    def report(name, shape, err, tol, ok, k_fn, p_fn, bnd, lib_fn=None, record=False):
+        ms, plain_ms = median_ms(k_fn), median_ms(p_fn)
+        lib = library_ms(lib_fn) if lib_fn is not None else None
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                             "library_ms": lib}
+        print(f"[kernel] {name} {shape}: max_abs_err={err:.3e} ({tol}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+              f"library_ms={lib if lib is None else round(lib, 4)}", flush=True)
+        check(ok, f"{name} {shape} within {tol}")
+
+    def within(got, ref, scale):
+        return bool(((got - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+    cases = [(torch.from_numpy(Ys[1]).to(cuda), True),
+             (torch.randn((MOFA_BATCH, MOFA_COLS), generator=gen, device=cuda), False)]
+    for E, main in cases:
+        n, d = E.shape
+        shape = f"{n}x{d}"
+        Z = torch.randn((n, MOFA_K), generator=gen, device=cuda)
+        SW = 0.1 * torch.randn((d, MOFA_K), generator=gen, device=cuda)
+        B = (torch.rand((n, d), generator=gen, device=cuda) > 0.1).float()
+        zk, swk = Z[:, 3], SW[:, 3]  # strided columns, as the sweeps hand them
+
+        # T17: u = zk @ E, and the column sums of E^2
+        u = tmo.col_dot(E, zk)
+        torch.cuda.synchronize()
+        ref = tmo.col_dot_plain(E, zk)
+        report("mofa_col_dot", shape, (u - ref).abs().max().item(), "1e-5 x |z|.|E|",
+               within(u, ref, zk.abs() @ E.abs()), lambda: tmo.col_dot(E, zk),
+               lambda: tmo.col_dot_plain(E, zk),
+               bound(nbytes(E, u) + 4 * n, 2 * n * d, F32_OPS_PER_S),
+               lambda: torch.mv(E.T, zk), record=main)
+        ss = tmo.col_dot(E)
+        ref = tmo.col_dot_plain(E)
+        report("mofa_col_dot", f"{shape} squares", (ss - ref).abs().max().item(),
+               "rtol 1e-5", within(ss, ref, ref), lambda: tmo.col_dot(E),
+               lambda: tmo.col_dot_plain(E), bound(nbytes(E, ss), 2 * n * d, F32_OPS_PER_S),
+               lambda: (E * E).sum(dim=0))
+        check(torch.equal(ss, tmo.col_dot(E)) and torch.equal(u, tmo.col_dot(E, zk)),
+              f"mofa_col_dot {shape} gives the same bits twice")
+
+        # T18: the posterior of factor 3 of view 1, full-batch and scaled,
+        # with a scalar (unmasked) and a per-feature (masked) z2
+        tau = 1.0 / E.var(dim=0)
+        zz = Z * Z
+        z2 = 1.0 + zz
+        hyper = [torch.full((2, MOFA_K), v, device=cuda)
+                 for v in (1.0, 0.0, float(np.log(0.99)), float(np.log(0.01)))]
+        Ws = [torch.zeros((d, MOFA_K), device=cuda), torch.ones((d, MOFA_K), device=cuda),
+              torch.full((d, MOFA_K), 0.5, device=cuda), SW.clone()]
+        for tag, z2_k, zz_k, scale in (
+            ("unmasked", z2.sum(dim=0)[3], zz.sum(dim=0)[3], None),
+            ("masked, scaled", (z2.T @ B)[3] * 20.0, (zz.T @ B)[3] * 20.0, 20.0),
+        ):
+            Wk, Wp = [w.clone() for w in Ws], [w.clone() for w in Ws]
+            dk = tmo.w_posterior(u, tau, z2_k, zz_k, *hyper, 1, 3, *Wk, scale=scale)
+            torch.cuda.synchronize()
+            dp = tmo.w_posterior_plain(u, tau, z2_k, zz_k, *hyper, 1, 3, *Wp, scale=scale)
+            errs = [(g - r).abs() for g, r in zip([dk, *Wk], [dp, *Wp])]
+            ok = all(bool((e <= 1e-6 + 1e-5 * r.abs()).all())
+                     for e, r in zip(errs, [dp, *Wp]))
+            # per feature: u, tau, the old sw and (masked) z2, zz in; 4 columns and delta out
+            bytes_ = 4 * d * (8 + (2 if z2_k.dim() else 0))
+            report("mofa_w_posterior", f"D={d} {tag}", max(e.max().item() for e in errs),
+                   "rtol 1e-5 atol 1e-6, every output", ok,
+                   lambda: tmo.w_posterior(u, tau, z2_k, zz_k, *hyper, 1, 3, *Wk, scale=scale),
+                   lambda: tmo.w_posterior_plain(u, tau, z2_k, zz_k, *hyper, 1, 3, *Wp,
+                                                 scale=scale),
+                   bound(bytes_, 40 * d, F32_OPS_PER_S), record=main and scale is None)
+
+        # T19: r = E @ t, and with the mask B @ t1, B @ t2 from the same pass
+        r = tmo.row_dot(E, swk)
+        torch.cuda.synchronize()
+        ref = tmo.row_dot_plain(E, swk)
+        report("mofa_row_dot", shape, (r - ref).abs().max().item(), "1e-5 x |E|.|t|",
+               within(r, ref, E.abs() @ swk.abs()), lambda: tmo.row_dot(E, swk),
+               lambda: tmo.row_dot_plain(E, swk),
+               bound(nbytes(E, r) + 4 * d, 2 * n * d, F32_OPS_PER_S),
+               lambda: torch.mv(E, swk), record=main)
+        t1, t2 = SW[:, 1], SW[:, 2]
+        got = tmo.row_dot(E, swk, B, t1, t2)
+        torch.cuda.synchronize()
+        refs = tmo.row_dot_plain(E, swk, B, t1, t2)
+        scales = (E.abs() @ swk.abs(), B @ t1.abs(), B @ t2.abs())
+        report("mofa_row_dot", f"{shape} masked",
+               max((g - q).abs().max().item() for g, q in zip(got, refs)),
+               "1e-5 x |E|.|t|, |B|.|t1|, |B|.|t2|",
+               all(within(g, q, s_) for g, q, s_ in zip(got, refs, scales)),
+               lambda: tmo.row_dot(E, swk, B, t1, t2),
+               lambda: tmo.row_dot_plain(E, swk, B, t1, t2),
+               bound(nbytes(E, B, *got) + 12 * d, 6 * n * d, F32_OPS_PER_S))
+
+        # T20: E += x (x) y in place (times B where masked); timed on a copy
+        for tag, Bm in (("", None), (" masked", B)):
+            Ek, Ep = E.clone(), E.clone()
+            tmo.rank1_update(Ek, zk, swk, Bm)
+            torch.cuda.synchronize()
+            tmo.rank1_update_plain(Ep, zk, swk, Bm)
+            err = (Ek - Ep).abs().max().item()
+            report("mofa_rank1_update", shape + tag, err, "1e-6 x (|E| + |x y|)",
+                   bool(((Ek - Ep).abs() <= 1e-6 * (Ep.abs() + (zk[:, None] * swk[None, :]).abs())
+                         ).all()),
+                   lambda: tmo.rank1_update(Ek, zk, swk, Bm),
+                   lambda: tmo.rank1_update_plain(Ep, zk, swk, Bm),
+                   bound(2 * nbytes(E) + (nbytes(B) if Bm is not None else 0) + 4 * (n + d),
+                         (3 if Bm is not None else 2) * n * d, F32_OPS_PER_S),
+                   (lambda: Ek.addr_(zk, swk)) if Bm is None else None,
+                   record=main and Bm is None)
+            del Ek, Ep
+        del E, Z, SW, B
+    torch.cuda.empty_cache()
+    return results
+
+
+@contextmanager
+def mofa_plain(tmo):
+    """Route T17-T20 to their plain versions for the block (only this script
+    swaps the module attributes; they are restored after)."""
+    names = ("col_dot", "w_posterior", "row_dot", "rank1_update")
+    saved = {n: getattr(tmo, n) for n in names}
+    try:
+        for n in names:
+            setattr(tmo, n, getattr(tmo, f"{n}_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(tmo, n, fn)
+
+
+def check_mofa_launches(launches, sweeps: int, what: str) -> None:
+    want = mofa_launches(sweeps)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what} launched {want} (K·M + M, K·M, K·M, 2·K·M per sweep), "
+                       f"read {got}")
+
+
+def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
+    """bench.py's mode `mofa`: 2 warm-up sweeps, then 50, counted and timed
+    from ``fit_mofa`` alone."""
+    cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "gaussian"))
+    kw = dict(convergence_mode="slow", elbo_every=1000, device=cuda)
+    t0 = time.perf_counter()
+    tm.fit_mofa(Ys, cfg, n_iterations=MOFA_WARM, min_iterations=MOFA_WARM, **kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        again = tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, **kw)
+        wall_staged = time.perf_counter() - t0
+    cc = canonical_correlations(torch.from_numpy(res.Z).to(cuda), torch.from_numpy(Zp))
+    print(f"[mofa] fit_mofa {MOFA_N} x {MOFA_DS}, K={MOFA_K}: warm-up {MOFA_WARM} sweeps "
+          f"{t_warm:.3f}s; {MOFA_SWEEPS} sweeps in {wall:.4f}s = {MOFA_SWEEPS / wall:.2f} "
+          f"sweeps/s (upload, init and the R2 statistics included, as the bench times them); "
+          f"peak device memory {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[mofa] stage split of a second fit under the stage timers ({wall_staged:.4f}s): "
+          f"{stage_seconds(t)}", flush=True)
+    print(f"[mofa] canonical correlations of Z with the planted Z: min {cc.min():.4f}, "
+          f"median {float(np.median(cc)):.4f}; ELBO after sweep 1 {res.elbo_history[0]:.6g}, "
+          f"after {MOFA_SWEEPS} {res.elbo_history[-1]:.6g}; r2_total "
+          f"{[round(float(v), 4) for v in res.r2_total[0]]}", flush=True)
+    check_mofa_launches(launches, MOFA_SWEEPS, f"{MOFA_SWEEPS} full-batch sweeps")
+    check(res.Z.shape == (MOFA_N, MOFA_K) and np.isfinite(res.Z).all()
+          and all(np.isfinite(w).all() for w in res.W), "MOFA Z and W shapes, finite")
+    check(res.n_iterations == MOFA_SWEEPS, f"fit_mofa ran {MOFA_SWEEPS} sweeps")
+    check(cc.min() > 0.9, "smallest canonical correlation of Z with the planted Z > 0.9")
+    same = np.array_equal(res.Z, again.Z) and all(
+        np.array_equal(a, b) for a, b in zip(res.W + res.tau, again.W + again.tau)) \
+        and np.array_equal(res.elbo_history, again.elbo_history)
+    check(same, "two fits give identical bits (Z, W, tau, ELBO)")
+
+    # one sweep through the kernels against the plain path, from the state
+    # after two sweeps: every leaf within 1e-4 of the leaf's largest entry
+    onehot = np.ones((MOFA_N, 1), np.float32)
+    cfg1 = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "gaussian"), n_groups=1)
+    step = tm.make_step(cfg1, list(MOFA_DS), MOFA_N, [False, False])
+    state = tm._init_state(Ys, [None, None], onehot, cfg1, device=cuda)
+    for _ in range(2):
+        state, _ = step(state)
+    got, elbo_k = step(state)
+    with mofa_plain(tmo):
+        kernels.reset_launch_counts()
+        ref, elbo_p = step(state)
+        check(not any(kernels.launch_counts().values()), "the plain sweep launched no kernel")
+    worst, worst_leaf = 0.0, ""
+    for key, val in ref.items():
+        for i, r in enumerate(val if isinstance(val, list) else [val]):
+            if r is None:
+                continue
+            g = got[key][i] if isinstance(val, list) else got[key]
+            rel = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+            if rel > worst:
+                worst, worst_leaf = rel, f"{key}[{i}]"
+    elbo_rel = abs(float(elbo_k) - float(elbo_p)) / abs(float(elbo_p))
+    print(f"[mofa] one sweep, kernels against the plain path from the same state: largest "
+          f"leaf error {worst:.2e} of the leaf's largest entry ({worst_leaf}), ELBO rel "
+          f"{elbo_rel:.2e} (<= 1e-4)", flush=True)
+    check(worst <= 1e-4 and elbo_rel <= 1e-4, "one MOFA sweep vs the plain path within 1e-4")
+    del state, got, ref
+
+    # the ELBO of every sweep: coordinate ascent never lets it fall
+    e = tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS,
+                    convergence_mode="slow", elbo_every=1, device=cuda).elbo_history
+    drop = float((-(np.diff(e)) / np.abs(e[:-1])).max())
+    print(f"[mofa] ELBO of each of {len(e)} sweeps: largest relative fall {max(drop, 0):.2e} "
+          f"(<= 1e-5)", flush=True)
+    check(len(e) == MOFA_SWEEPS and drop <= 1e-5, "the ELBO never falls by more than 1e-5")
+
+    # the plain path's 50 sweeps, for the time only
+    with mofa_plain(tmo):
+        t0 = time.perf_counter()
+        tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, **kw)
+        torch.cuda.synchronize()
+        print(f"[times] plain-torch MOFA ({MOFA_SWEEPS} sweeps) on the card, one warm run: "
+              f"{time.perf_counter() - t0:.4f}s", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def topvar_dense(dsp, X, cuda, dn: int) -> torch.Tensor:
+    """bench_e2e.py's ``topvar_dense``: the ``dn`` columns of a CSR matrix of
+    largest variance (from the device column sums of X and X²), as a dense
+    (n, dn) tensor that stays on the device."""
+    dX = dsp.from_scipy(X, cuda)
+    n = dX.n_rows
+    cs = dsp.col_sums(dX)
+    c2 = dsp.col_sums(dX._replace(data=dX.data ** 2))
+    var = c2 / n - (cs / n) ** 2
+    sel = torch.argsort(-var, stable=True)[:dn]
+    lut = torch.zeros(dX.n_cols, dtype=torch.int64, device=cuda)
+    lut[sel] = torch.arange(1, dn + 1, device=cuda)
+    # scatter-add into an (n, dn + 1) grid; column 0 collects the unselected
+    dest = dsp._row_ids(dX) * (dn + 1) + lut[dX.indices.long()]
+    out = torch.zeros(n * (dn + 1), dtype=torch.float32, device=cuda)
+    out.index_add_(0, dest, dX.data)
+    return out.reshape(n, dn + 1)[:, 1:]
+
+
+def label_probe_r2(rep, labels) -> float:
+    """bench_e2e.py's gate: R² of regressing one-hot(labels) on [rep, 1]."""
+    R = np.asarray(rep, dtype=np.float64)
+    n = len(R)
+    sub = np.random.default_rng(1).choice(n, size=min(n, 100_000), replace=False)
+    Rs = np.column_stack([R[sub], np.ones(len(sub))])
+    Yoh = np.eye(N_CLUSTERS)[labels[sub]]
+    resid = Yoh - Rs @ np.linalg.lstsq(Rs, Yoh, rcond=None)[0]
+    return float(1.0 - (resid ** 2).sum() / ((Yoh - Yoh.mean(0)) ** 2).sum())
+
+
+def phase_mofa_e2e(tm, dsp, kernels, profiling, X_rna_norm, X_atac_tfidf, rna_pca, labels, cuda):
+    """The e2e's MOFA stage at 100,000 cells: the 256 most variable columns
+    of the normalised RNA and the TF-IDF ATAC matrices, selected and kept on
+    the device, then stochastic VI."""
+    t0 = time.perf_counter()
+    views = [topvar_dense(dsp, X, cuda, MOFA_COLS) for X in (X_rna_norm, X_atac_tfidf)]
+    torch.cuda.synchronize()
+    t_sel = time.perf_counter() - t0
+    cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "gaussian"))
+    kw = dict(n_iterations=MOFA_ITERS, min_iterations=20, svi_mode=True,
+              svi_batch_fraction=min(MOFA_BATCH / N_CELLS, 1.0), elbo_every=5, device=cuda)
+    tm.fit_mofa(views, cfg, **{**kw, "n_iterations": 2})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tm.fit_mofa(views, cfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profiling.collect() as t:
+        tm.fit_mofa(views, cfg, **kw)
+    mofa_r2, pca_r2 = label_probe_r2(res.Z, labels), label_probe_r2(rna_pca[:, :MOFA_K], labels)
+    print(f"[mofa-e2e] hvg.select {t_sel:.3f}s (two {N_CELLS} x {MOFA_COLS} views on the "
+          f"device); fit_mofa SVI {MOFA_ITERS} iterations of {MOFA_BATCH} cells in {wall:.4f}s "
+          f"({wall / MOFA_ITERS * 1e3:.2f} ms/iteration); peak device memory {peak:.2f} GiB; "
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[mofa-e2e] stage split of a second fit: {stage_seconds(t)}", flush=True)
+    print(f"[mofa-e2e] label-probe R2 of Z {mofa_r2:.4f} (first {MOFA_K} PCA components "
+          f"{pca_r2:.4f}; the gate: above max(0.2, 0.8 x that)); objective first "
+          f"{res.elbo_history[0]:.6g}, last {res.elbo_history[-1]:.6g}", flush=True)
+    check_mofa_launches(launches, MOFA_ITERS, f"{MOFA_ITERS} SVI iterations at 100k")
+    check(res.Z.shape == (N_CELLS, MOFA_K) and np.isfinite(res.Z).all(), "e2e MOFA Z finite")
+    check(res.n_iterations == MOFA_ITERS, f"the e2e's SVI ran {MOFA_ITERS} iterations")
+    check(mofa_r2 > max(0.2, 0.8 * pca_r2), "MOFA label-probe R2 above max(0.2, 0.8 x PCA's)")
+    return launches
+
+
+def phase_mofa_big(tm, kernels, profiling, cuda):
+    """SVI at 1,000,000 cells: two (1M, 256) gaussian views from a planted Z,
+    made on the device from a seed."""
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    Zp = torch.randn((N_BIG, MOFA_K), generator=gen, device=cuda)
+    views = []
+    for _ in range(2):
+        W = torch.randn((MOFA_K, MOFA_COLS), generator=gen, device=cuda)
+        views.append(Zp @ W + 0.5 * torch.randn((N_BIG, MOFA_COLS), generator=gen, device=cuda))
+    cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "gaussian"))
+    kw = dict(n_iterations=MOFA_ITERS, min_iterations=20, svi_mode=True,
+              svi_batch_fraction=MOFA_BATCH / N_BIG, elbo_every=5, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        res = tm.fit_mofa(views, cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = stage_seconds(t)
+    sweep_s = sum(v for k, v in stages.items() if k not in ("mofa/init", "mofa/r2_stats"))
+    cc = canonical_correlations(torch.from_numpy(res.Z).to(cuda), Zp)
+    print(f"[mofa-1m] fit_mofa SVI on two {N_BIG} x {MOFA_COLS} views, {MOFA_ITERS} iterations "
+          f"of {MOFA_BATCH} cells: wall {wall:.3f}s under the stage timers, "
+          f"{sweep_s / MOFA_ITERS * 1e3:.2f} ms/iteration in the sweeps; peak device memory "
+          f"{peak:.2f} GiB (the views included); stages {stages}", flush=True)
+    print(f"[mofa-1m] canonical correlations of Z with the planted Z: min {cc.min():.4f}, "
+          f"median {float(np.median(cc)):.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check_mofa_launches(launches, MOFA_ITERS, f"{MOFA_ITERS} SVI iterations at 1M")
+    check(res.Z.shape == (N_BIG, MOFA_K) and np.isfinite(res.Z).all(), "1M MOFA Z finite")
+    check(cc.min() > 0.9, "1M SVI: smallest canonical correlation with the planted Z > 0.9")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -1678,12 +2198,14 @@ def main() -> int:
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch import prot as tpt
     from muon_tpu_torch import tl as ttl
+    from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels as kernels
     from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import ivf as ti
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
+    from muon_tpu_torch.ops import mofa as tmo
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.ops import umap as tu
     from muon_tpu_torch.ops import wnn as tw
@@ -1728,8 +2250,22 @@ def main() -> int:
     results.update(umap_results)
     phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, X_rna, P,
                 wnn_mods, wnn_md, cuda)
+    wide_launches, wide_results = phase_repairs(tpp, tw, tk, tf, tu, kernels, wnn_mods, wnn_md,
+                                                cuda)
+    results.update(wide_results)
+    mofa_e2e_launches = phase_mofa_e2e(tm, dsp, kernels, profiling, rna_h.X,
+                                       wnn_mods["atac"].X, rna_h.obsm["X_pca"], labels, cuda)
     del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    Z_planted, mofa_views = mofa_bench_views(SEED)
+    print(f"[data] MOFA bench views {MOFA_N} x {MOFA_DS}, K={MOFA_K} planted factors, made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    results.update(phase_mofa_kernels(tmo, mofa_views, cuda))
+    mofa_launches_full = phase_mofa_full(tm, tmo, kernels, profiling, Z_planted, mofa_views,
+                                         cuda)
+    del Z_planted, mofa_views
 
     t0 = time.perf_counter()
     rep, big_labels = make_big_rep(SEED)
@@ -1742,9 +2278,14 @@ def main() -> int:
     results.update(phase_big_kernels(ti, tu, tf, rep, partition, big_h, cuda))
     print(f"[times] peak device memory with the 1M path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del rep, big_labels, big_h, partition
+    torch.cuda.empty_cache()
+    mofa_big_launches = phase_mofa_big(tm, kernels, profiling, cuda)
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
                "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
-               "umap1m": umap_big_launches}
+               "umap1m": umap_big_launches, "wnn_wide": wide_launches,
+               "mofa": mofa_launches_full, "mofa_e2e": mofa_e2e_launches,
+               "mofa_1m": mofa_big_launches}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(

@@ -3,14 +3,15 @@
 It keeps the JAX package's public API and writes the same keys, with
 PyTorch for the device work and hand-written CUDA kernels (``csrc/``) for
 the sparse products, the kNN, the fuzzy connectivities, the WNN fusion, the
-dense CLR and the UMAP epoch.
+dense CLR, the UMAP epoch and the per-factor passes of MOFA+.
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
 ``pp.neighbors`` of one modality), WNN (``pp.neighbors`` of a MuData), the
 protein CLR (``prot.pp.clr``), multiplex Leiden/Louvain (``tl.leiden``,
-``tl.louvain``, on the host through the port's own native engine) and
-UMAP (``tl.umap``); see ROADMAP.md for the rest.
+``tl.louvain``, on the host through the port's own native engine), UMAP
+(``tl.umap``) and MOFA+ for gaussian views, full-batch and stochastic
+(``tl.mofa``, ``models.mofa.fit_mofa``); see ROADMAP.md for the rest.
 
 The port needs no container classes of its own: its tools take any
 AnnData-like object (``.X``, ``.obsm``, ``.varm``, ``.uns``, ``.obsp``,

@@ -37,6 +37,16 @@
 // rows of a skewed degree distribution; balancing them is later work.
 // powf of d2 runs only on d2 > 0 (its exponent b - 1 is negative).
 //
+// Components: the kernel is instantiated for 2..8 components, a vertex's
+// coordinates and sums in registers. From 9 components on a second kernel
+// takes the number of components at run time: it walks the coordinates in
+// chunks of 8, and for each chunk walks the vertex's edges again, reading
+// every coordinate from global memory for the distance. That is dim / 8
+// times the work of the first kernel and is meant to be right, not fast.
+// Every sum is taken in the same order as in the first kernel, and eons
+// advances in the last chunk's walk only, so every walk sees the same due
+// edges.
+//
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError(). Outputs are allocated by the
@@ -148,6 +158,99 @@ void launch_epoch(const float* emb, float* emb_out, const int* indptr,
       epoch, alpha, a, b, gamma);
 }
 
+// squared distance of rows i and j of emb, coordinates in index order
+__device__ __forceinline__ float sq_dist_rows(const float* __restrict__ emb, int64_t i,
+                                              int64_t j, int dim) {
+  const float* x = emb + i * dim;
+  const float* y = emb + j * dim;
+  float d0 = __fsub_rn(x[0], y[0]);
+  float s = __fmul_rn(d0, d0);
+  for (int k = 1; k < dim; ++k) {
+    const float dk = __fsub_rn(x[k], y[k]);
+    s = __fadd_rn(s, __fmul_rn(dk, dk));
+  }
+  return s;
+}
+
+// T13 for any number of components (the wrapper takes it from 9 on): the
+// coordinates in chunks of kMaxDim, the edges walked once per chunk
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
+                          const int* __restrict__ indptr, const int* __restrict__ tails,
+                          const float* __restrict__ eps, float* __restrict__ eons,
+                          const signed char* __restrict__ shift,
+                          const float* __restrict__ dc_exp, const int* __restrict__ negs,
+                          int n, int dim, int neg_rate, int epoch, float alpha, float a,
+                          float b, float gamma) {
+  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (i >= n) return;
+  const float due_by = (float)epoch + 1.0f;
+  const float c_att = -2.0f * a * b;
+  const int e0 = indptr[i], e1 = indptr[i + 1];
+  const float* xi = emb + (int64_t)i * dim;
+  for (int k0 = 0; k0 < dim; k0 += kMaxDim) {
+    const int kc = min(kMaxDim, dim - k0);
+    const bool last = k0 + kMaxDim >= dim;
+    float up[kMaxDim], un[kMaxDim];
+#pragma unroll
+    for (int k = 0; k < kMaxDim; ++k) up[k] = un[k] = 0.f;
+    for (int e = e0 + lane; e < e1; e += kWarp) {
+      if (epoch & ((1 << shift[e]) - 1)) continue;
+      const float eo = eons[e];
+      if (!(eo <= due_by)) continue;
+      const int t = tails[e];
+      const float d2 = sq_dist_rows(emb, i, t, dim);
+      float coeff = 0.f;
+      if (d2 > 0.f)
+        coeff = __fdiv_rn(__fmul_rn(c_att, powf(d2, b - 1.0f)),
+                          __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f));
+      const float* xt = emb + (int64_t)t * dim;
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < kc)
+          up[k] = __fadd_rn(up[k], clip4(__fmul_rn(coeff, __fsub_rn(xi[k0 + k], xt[k0 + k]))));
+      if (last) eons[e] = __fadd_rn(eo, eps[e]);
+    }
+    if (lane < neg_rate) {
+      const int j = negs[(int64_t)i * neg_rate + lane];
+      if (j != i) {
+        const float d2 = sq_dist_rows(emb, i, j, dim);
+        if (d2 > 0.f) {
+          const float coeff = __fdiv_rn(
+              2.0f * gamma * b,
+              __fmul_rn(__fadd_rn(0.001f, d2),
+                        __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f)));
+          const float* xj = emb + (int64_t)j * dim;
+#pragma unroll
+          for (int k = 0; k < kMaxDim; ++k)
+            if (k < kc) un[k] = clip4(__fmul_rn(coeff, __fsub_rn(xi[k0 + k], xj[k0 + k])));
+        } else {
+#pragma unroll
+          for (int k = 0; k < kMaxDim; ++k) un[k] = 4.0f;  // the reference's d2 == 0 branch
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxDim; ++k) {
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        up[k] = __fadd_rn(up[k], __shfl_xor_sync(0xffffffffu, up[k], o));
+        un[k] = __fadd_rn(un[k], __shfl_xor_sync(0xffffffffu, un[k], o));
+      }
+    }
+    if (lane == 0) {
+      const float dc = dc_exp[i];
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < kc)
+          emb_out[(int64_t)i * dim + k0 + k] = __fadd_rn(
+              xi[k0 + k],
+              __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up[k]), __fmul_rn(un[k], dc))));
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // T16: Y = s . ((W + W^T)(s . Q)), one application of the normalised
 // operator D^-1/2 (W + W^T) D^-1/2 of the spectral seed, for m <= 16
@@ -204,7 +307,8 @@ extern "C" {
 // T13. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32
 // over the head-sorted edges; tails (E) int32; eps (E) f32; eons (E) f32,
 // updated in place; shift (E) int8, 0 <= shift < 31; dc_exp (n) f32; negs
-// (n x neg_rate) int32, 0 <= neg_rate <= 32; 2 <= dim <= 8.
+// (n x neg_rate) int32, 0 <= neg_rate <= 32; dim >= 2 (2..8 in registers,
+// from 9 on the kernel that takes dim at run time).
 int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
                   const int* tails, const float* eps, float* eons,
                   const signed char* shift, const float* dc_exp, const int* negs,
@@ -212,8 +316,14 @@ int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
                   float b, float gamma, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  if (dim < 2 || dim > kMaxDim || neg_rate < 0 || neg_rate > kWarp)
-    return (int)cudaErrorInvalidValue;
+  if (dim < 2 || neg_rate < 0 || neg_rate > kWarp) return (int)cudaErrorInvalidValue;
+  if (dim > kMaxDim) {
+    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    umap_epoch_any_dim_kernel<<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, n, dim, neg_rate,
+        epoch, alpha, a, b, gamma);
+    return (int)cudaGetLastError();
+  }
 #define MT_UMAP_DIM(D)                                                        \
   case D:                                                                     \
     launch_epoch<D>(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp,    \

@@ -72,109 +72,122 @@ __device__ __forceinline__ int count_equal(const int* sx, int kk, int y) {
   return lo2 - lo;
 }
 
+// The candidates' tables (ids, scores, distances, the top-osz order) live in
+// the block's shared memory, or, when `scratch` is given, in global memory:
+// 3 C + 2 osz words per block. C grows as kk^2, so from kk of about 195 (at
+// stride 2) the tables pass the 227 KB a block may take; the global variant
+// then runs a fixed grid whose blocks walk the cells in turn, each block
+// with its own slice of the scratch. The arithmetic and every order are the
+// same in both variants. The sorted set and the cell's rep stay in shared
+// memory in both (the set is searched kk times per candidate).
 __global__ void __launch_bounds__(kBwThreads)
     wnn_bandwidth_kernel(const int* __restrict__ NI,
                          const int* __restrict__ set_sizes,
                          const __nv_bfloat16* __restrict__ rep16,
-                         const float* __restrict__ sq, int kk, int d,
+                         const float* __restrict__ sq, int n, int kk, int d,
                          int stride, int n_bw, float n_total, float bbox,
-                         float* __restrict__ sigma) {
+                         int* __restrict__ scratch, float* __restrict__ sigma) {
   extern __shared__ int smem[];
   const int s = (kk + stride - 1) / stride;
   const int C = kk + kk * s;
   const int osz = min(C, 4 * n_bw);
-  int* sx = smem;                     // kk: the cell's set, sorted
-  int* cand = sx + kk;                // C
+  int* sx = smem;                                   // kk: the cell's set, sorted
+  float* q = reinterpret_cast<float*>(sx + kk);     // d: the cell's bf16 rep, as f32
+  int* tables = scratch != nullptr
+      ? scratch + (int64_t)blockIdx.x * (3 * (int64_t)C + 2 * osz)
+      : reinterpret_cast<int*>(q + d);
+  int* cand = tables;                 // C
   int* top = cand + C;                // osz: positions, in (score, pos) order
   int* drop = top + osz;              // osz: bad or duplicate
   float* score = reinterpret_cast<float*>(drop + osz);  // C
   float* eucl = score + C;            // C
-  float* q = eucl + C;                // d: the cell's bf16 rep, as f32
   __shared__ float fallback_sum;
 
-  const int i = blockIdx.x;
   const int t = threadIdx.x;
-  const int* nrow = NI + (int64_t)i * kk;
-  for (int p = t; p < kk; p += blockDim.x) cand[p] = nrow[p];
-  for (int u = t; u < d; u += blockDim.x)
-    q[u] = __bfloat162float(rep16[(int64_t)i * d + u]);
-  __syncthreads();
-  // sx: the set with pads as -2 (they match no neighbour id), rank-sorted
-  for (int p = t; p < kk; p += blockDim.x) {
-    const int v = cand[p] < 0 ? -2 : cand[p];
-    int rank = 0;
-    for (int j = 0; j < kk; ++j) {
-      const int w = cand[j] < 0 ? -2 : cand[j];
-      rank += (w < v) || (w == v && j < p);
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+    const int* nrow = NI + (int64_t)i * kk;
+    for (int p = t; p < kk; p += blockDim.x) cand[p] = nrow[p];
+    for (int u = t; u < d; u += blockDim.x)
+      q[u] = __bfloat162float(rep16[(int64_t)i * d + u]);
+    __syncthreads();
+    // sx: the set with pads as -2 (they match no neighbour id), rank-sorted
+    for (int p = t; p < kk; p += blockDim.x) {
+      const int v = cand[p] < 0 ? -2 : cand[p];
+      int rank = 0;
+      for (int j = 0; j < kk; ++j) {
+        const int w = cand[j] < 0 ? -2 : cand[j];
+        rank += (w < v) || (w == v && j < p);
+      }
+      sx[rank] = v;
     }
-    sx[rank] = v;
-  }
-  // the 2-hop candidates: NI[j, ::stride] of each neighbour j, -1 under a pad
-  for (int p = kk + t; p < C; p += blockDim.x) {
-    const int j = cand[(p - kk) / s];
-    cand[p] = j < 0 ? -1 : NI[(int64_t)j * kk + ((p - kk) % s) * stride];
-  }
-  __syncthreads();
+    // the 2-hop candidates: NI[j, ::stride] of each neighbour j, -1 under a pad
+    for (int p = kk + t; p < C; p += blockDim.x) {
+      const int j = cand[(p - kk) / s];
+      cand[p] = j < 0 ? -1 : NI[(int64_t)j * kk + ((p - kk) % s) * stride];
+    }
+    __syncthreads();
 
-  const int sx_size = set_sizes[i];
-  const float bad_score = __fadd_rn(n_total, 1.f);
-  for (int p = t; p < C; p += blockDim.x) {
-    const int c = cand[p];
-    const int cs = c < 0 ? 0 : c;
-    const int* yrow = NI + (int64_t)cs * kk;
-    int inter = 0;
-    for (int b = 0; b < kk; ++b) {
-      const int y = yrow[b];
-      if (y >= 0) inter += count_equal(sx, kk, y);
+    const int sx_size = set_sizes[i];
+    const float bad_score = __fadd_rn(n_total, 1.f);
+    for (int p = t; p < C; p += blockDim.x) {
+      const int c = cand[p];
+      const int cs = c < 0 ? 0 : c;
+      const int* yrow = NI + (int64_t)cs * kk;
+      int inter = 0;
+      for (int b = 0; b < kk; ++b) {
+        const int y = yrow[b];
+        if (y >= 0) inter += count_equal(sx, kk, y);
+      }
+      const int uni = max(sx_size + set_sizes[cs] - inter, 1);
+      const float jac = __fsub_rn(1.f, __fdiv_rn((float)inter, (float)uni));
+      const __nv_bfloat16* crow = rep16 + (int64_t)cs * d;
+      float cross = 0.f;
+      for (int u = 0; u < d; ++u) cross = fmaf(q[u], __bfloat162float(crow[u]), cross);
+      const float e = sqrtf(fmaxf(
+          __fsub_rn(__fadd_rn(sq[i], sq[cs]), __fmul_rn(2.f, cross)), 0.f));
+      float sc = __fadd_rn(__fsub_rn(n_total, __fmul_rn(jac, n_total)),
+                           __fdiv_rn(__fsub_rn(bbox, e), bbox));
+      if (c < 0 || c == i || jac >= 1.f) sc = bad_score;
+      score[p] = sc;
+      eucl[p] = e;
     }
-    const int uni = max(sx_size + set_sizes[cs] - inter, 1);
-    const float jac = __fsub_rn(1.f, __fdiv_rn((float)inter, (float)uni));
-    const __nv_bfloat16* crow = rep16 + (int64_t)cs * d;
-    float cross = 0.f;
-    for (int u = 0; u < d; ++u) cross = fmaf(q[u], __bfloat162float(crow[u]), cross);
-    const float e = sqrtf(fmaxf(
-        __fsub_rn(__fadd_rn(sq[i], sq[cs]), __fmul_rn(2.f, cross)), 0.f));
-    float sc = __fadd_rn(__fsub_rn(n_total, __fmul_rn(jac, n_total)),
-                         __fdiv_rn(__fsub_rn(bbox, e), bbox));
-    if (c < 0 || c == i || jac >= 1.f) sc = bad_score;
-    score[p] = sc;
-    eucl[p] = e;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // the first osz by (score, position): rank count, every rank distinct
-  for (int p = t; p < C; p += blockDim.x) {
-    const int key = ordered(score[p]);
-    int rank = 0;
-    for (int j = 0; j < C; ++j) {
-      const int kj = ordered(score[j]);
-      rank += (kj < key) || (kj == key && j < p);
+    // the first osz by (score, position): rank count, every rank distinct
+    for (int p = t; p < C; p += blockDim.x) {
+      const int key = ordered(score[p]);
+      int rank = 0;
+      for (int j = 0; j < C; ++j) {
+        const int kj = ordered(score[j]);
+        rank += (kj < key) || (kj == key && j < p);
+      }
+      if (rank < osz) top[rank] = p;
     }
-    if (rank < osz) top[rank] = p;
-  }
-  __syncthreads();
-  for (int r = t; r < osz; r += blockDim.x) {
-    const int c = cand[top[r]];
-    bool bad = score[top[r]] >= bad_score;
-    for (int j = 0; j < r && !bad; ++j) bad = cand[top[j]] == c;
-    drop[r] = bad;
-  }
-  if (t == 0) {
-    float f = 0.f;
-    for (int p = 0; p < kk; ++p) f += eucl[p];
-    fallback_sum = f;
-  }
-  __syncthreads();
-  if (t == 0) {
-    float sum = 0.f;
-    int cnt = 0;
-    for (int r = 0; r < osz && cnt < n_bw; ++r) {
-      if (drop[r]) continue;
-      sum += eucl[top[r]];
-      ++cnt;
+    __syncthreads();
+    for (int r = t; r < osz; r += blockDim.x) {
+      const int c = cand[top[r]];
+      bool bad = score[top[r]] >= bad_score;
+      for (int j = 0; j < r && !bad; ++j) bad = cand[top[j]] == c;
+      drop[r] = bad;
     }
-    sigma[i] = cnt > 0 ? __fdiv_rn(sum, (float)cnt)
-                       : __fdiv_rn(fallback_sum, (float)kk);
+    if (t == 0) {
+      float f = 0.f;
+      for (int p = 0; p < kk; ++p) f += eucl[p];
+      fallback_sum = f;
+    }
+    __syncthreads();
+    if (t == 0) {
+      float sum = 0.f;
+      int cnt = 0;
+      for (int r = 0; r < osz && cnt < n_bw; ++r) {
+        if (drop[r]) continue;
+        sum += eucl[top[r]];
+        ++cnt;
+      }
+      sigma[i] = cnt > 0 ? __fdiv_rn(sum, (float)cnt)
+                         : __fdiv_rn(fallback_sum, (float)kk);
+    }
+    __syncthreads();  // the tables are reused by the block's next cell
   }
 }
 
@@ -306,23 +319,32 @@ extern "C" {
 
 // T9. NI (n x kk) int32, pad -1; set_sizes (n,) int32 = valid entries per
 // row; rep16 (n x d) bf16; sq (n,) f32 squared norms of the unrounded rep;
-// sigma (n,) f32 out.
+// scratch null (the candidates' tables in shared memory, a block per cell) or
+// (scratch_blocks x (3 C + 2 osz)) int32 in global memory, for a grid of
+// scratch_blocks blocks; sigma (n,) f32 out.
 int mt_wnn_bandwidth(const int* NI, const int* set_sizes, const void* rep16,
                      const float* sq, int n, int kk, int d, int stride,
-                     int n_bw, float n_total, float bbox, float* sigma,
-                     void* stream) {
+                     int n_bw, float n_total, float bbox, int* scratch,
+                     int scratch_blocks, float* sigma, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n > 0 && kk > 0) {
     const int s = (kk + stride - 1) / stride;
-    const int C = kk + kk * s;
-    const int osz = C < 4 * n_bw ? C : 4 * n_bw;
-    const size_t bytes = sizeof(int) * (kk + C + 2 * osz) + sizeof(float) * (2 * C + d);
+    const int64_t C = kk + (int64_t)kk * s;
+    const int64_t osz = C < 4 * (int64_t)n_bw ? C : 4 * (int64_t)n_bw;
+    size_t bytes = sizeof(int) * kk + sizeof(float) * d;
+    int blocks = n;
+    if (scratch == nullptr) {
+      bytes += sizeof(int) * (C + 2 * osz) + sizeof(float) * 2 * C;
+    } else {
+      if (scratch_blocks < 1) return (int)cudaErrorInvalidValue;
+      blocks = n < scratch_blocks ? n : scratch_blocks;
+    }
     cudaError_t e = cudaFuncSetAttribute(
         wnn_bandwidth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    wnn_bandwidth_kernel<<<n, kBwThreads, bytes, st>>>(
-        NI, set_sizes, reinterpret_cast<const __nv_bfloat16*>(rep16), sq, kk, d,
-        stride, n_bw, n_total, bbox, sigma);
+    wnn_bandwidth_kernel<<<blocks, kBwThreads, bytes, st>>>(
+        NI, set_sizes, reinterpret_cast<const __nv_bfloat16*>(rep16), sq, n, kk, d,
+        stride, n_bw, n_total, bbox, scratch, sigma);
   }
   return (int)cudaGetLastError();
 }

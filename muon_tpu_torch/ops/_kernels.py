@@ -58,7 +58,7 @@ _SIGNATURES = {
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
     "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
-    "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -67,6 +67,11 @@ _SIGNATURES = {
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_mofa_col_dot": (_P, _P, _LL, _I, _I, _P, _P, _P),
+    "mt_mofa_w_posterior": (_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _P, _P, _P),
+    "mt_mofa_row_dot": (_P, _P, _LL, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
+    "mt_mofa_rank1_update": (_P, _P, _LL, _P, _LL, _P, _I, _I, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -82,6 +87,7 @@ KERNELS = {
     "knn_topk": "mt_knn_topk",
     "smooth_knn_membership": "mt_smooth_knn",
     "wnn_bandwidth": "mt_wnn_bandwidth",
+    "wnn_bandwidth_global": "mt_wnn_bandwidth",  # the candidates in global memory
     "wnn_theta": "mt_wnn_theta",
     "wnn_fusion_scores": "mt_wnn_fusion_scores",
     "clr_dense": "mt_clr_dense",
@@ -89,6 +95,10 @@ KERNELS = {
     "ivf_search": "mt_ivf_search",
     "kmeans_assign": "mt_kmeans_assign",
     "membership_matvec": "mt_membership_matvec",
+    "mofa_col_dot": "mt_mofa_col_dot",
+    "mofa_w_posterior": "mt_mofa_w_posterior",
+    "mofa_row_dot": "mt_mofa_row_dot",
+    "mofa_rank1_update": "mt_mofa_rank1_update",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

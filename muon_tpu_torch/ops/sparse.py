@@ -19,6 +19,10 @@ the kernel or raises.
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
     row_sums      T7  <- _row_sums_fn
     scale_rows_data  T8  <- _scale_rows_fn
+    col_sums      torch (``index_add_``) <- _col_sums_fn
+
+``_binarize_fn``, ``_decode_wire_fn`` and ``_ingest_block_fn`` are not
+ported yet (ROADMAP, kernels to port: K19).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ __all__ = [
     "gram_matmul",
     "row_sums",
     "scale_rows_data",
+    "col_sums",
     "tfidf_data_plain",
     "spmm_plain",
     "spmm_t_plain",
@@ -301,6 +306,16 @@ def scale_rows_data(X: DeviceCSR, row_scale: torch.Tensor) -> torch.Tensor:
         out.data_ptr(),
     )
     return out
+
+
+def col_sums(X: DeviceCSR) -> torch.Tensor:
+    """The ``(n_cols,)`` float32 sums of each column's values, by
+    ``index_add_`` on X's device (the reference's segment sum over the
+    column ids). On a CUDA device the adds are atomic, so the last bits can
+    differ from run to run."""
+    _check_csr(X)
+    out = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
+    return out.index_add_(0, X.indices.long(), X.data)
 
 
 # ---------------------------------------------------------------------------

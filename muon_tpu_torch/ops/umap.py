@@ -53,7 +53,6 @@ __all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
 
 # the reference buckets edges by stride only from this many edges on
 BUCKET_MIN_EDGES = 2_000_000
-MAX_DIM = 8  # T13 is instantiated for 2..8 components
 MAX_NEG_RATE = 32  # one warp lane per negative
 MAX_SEED_COLS = 16  # T16 gives a row 16 lanes, one per column
 # from this many edges on, spectral_init seeds from the membership table
@@ -349,8 +348,9 @@ def _check_epoch_args(emb, out, edges, eons, dc_exp, negs) -> None:
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous with shape {shape}, "
                              f"got {tuple(t.shape)}")
-    if not 2 <= dim <= MAX_DIM:
-        raise ValueError(f"T13 takes 2..{MAX_DIM} components, got {dim}")
+    if dim < 2 or n * dim > 2**31 - 1:
+        raise ValueError(f"T13 takes at least 2 components and n * dim below 2^31, "
+                         f"got n={n} dim={dim}")
     if not 0 <= negs.shape[1] <= MAX_NEG_RATE:
         raise ValueError(f"T13 takes at most {MAX_NEG_RATE} negatives per vertex, "
                          f"got {negs.shape[1]}")
@@ -364,7 +364,9 @@ def umap_epoch(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
     """T13: one SGD epoch. Reads ``emb (n, dim)``, writes the new layout
     into ``out`` and returns it; advances ``eons`` of the due edges in
     place. ``negs (n, neg_rate)`` int32 are the epoch's negative samples;
-    ``alpha`` is the epoch's learning rate."""
+    ``alpha`` is the epoch's learning rate. Any ``dim`` ≥ 2: up to 8
+    components a vertex stays in registers, from 9 on a second kernel of
+    the same source takes the number at run time (slower, the same sums)."""
     if emb.device.type == "cpu":
         return umap_epoch_plain(emb, out, edges, eons, dc_exp, negs, epoch, alpha, a, b, gamma)
     if emb.device.type != "cuda":

@@ -38,6 +38,9 @@ __all__ = [
 APPROX_ROWS = 20_000
 # the largest dynamic shared memory a block may opt into on sm_90 (bytes)
 MAX_SMEM = 227 * 1024
+# blocks of T9's global-memory variant (4 per SM of an H100), each with its
+# own slice of the scratch
+BANDWIDTH_SCRATCH_BLOCKS = 528
 
 
 def _n_obs(adata) -> int:
@@ -215,10 +218,11 @@ def _check(t: torch.Tensor, dtype, shape, name: str, device) -> None:
 
 
 def _bandwidth_smem(kk: int, d: int, n_bw: int, nn_stride: int) -> int:
-    """T9's dynamic shared memory in bytes: one block per cell holds its
+    """T9's dynamic shared memory in bytes when one block per cell holds its
     C = kk + kk·⌈kk/stride⌉ candidates (ids, scores, distances), the sorted
     set, the top-osz order and the cell's rep. C grows as kk², and the rank
-    count over the candidates as kk⁴."""
+    count over the candidates as kk⁴. Above ``MAX_SMEM`` the wrapper takes
+    the variant that keeps the candidates' tables in global memory."""
     C = kk + kk * (-(-kk // nn_stride))
     return 4 * (kk + 3 * C + 2 * min(C, 4 * n_bw) + d)
 
@@ -231,7 +235,14 @@ def wnn_bandwidth(
     int32 (pad −1) and the tables of :func:`_bandwidth_tables`: the mean
     euclidean distance to the ``n_bw`` candidates of largest Jaccard
     distance between neighbour sets (ties: largest distance), among the
-    cell's neighbours and every ``nn_stride``-th neighbour of each."""
+    cell's neighbours and every ``nn_stride``-th neighbour of each.
+
+    Two variants of one kernel, chosen by shape: while a cell's candidate
+    tables fit a block's shared memory (``_bandwidth_smem`` ≤ ``MAX_SMEM``;
+    kk ≤ 194 at stride 2 and d = 50) a block per cell keeps them there
+    (counted as ``wnn_bandwidth``); above that they live in a scratch tensor
+    in global memory, 528 blocks walking the cells (counted as
+    ``wnn_bandwidth_global``). Same arithmetic, same orders."""
     if NI.device.type == "cpu":
         return wnn_bandwidth_plain(NI, set_sizes, rep16, sq, n_total, bbox, n_bw, nn_stride)
     if NI.device.type != "cuda":
@@ -246,19 +257,21 @@ def wnn_bandwidth(
         raise ValueError(f"T9 takes kk, d, n_bw, nn_stride >= 1 and n*max(kk, d) "
                          f"< 2^31; got n={n} kk={kk} d={d} n_bw={n_bw} "
                          f"nn_stride={nn_stride}")
-    smem = _bandwidth_smem(kk, d, n_bw, nn_stride)
-    if smem > MAX_SMEM:
-        raise ValueError(f"T9 holds a cell's candidates in {smem} bytes of shared "
-                         f"memory, above the {MAX_SMEM} a block may take: kk={kk} "
-                         f"neighbours at stride {nn_stride} are too many (at stride 2 "
-                         f"and d = 50, kk <= 194 fits)")
     sigma = torch.empty(n, dtype=torch.float32, device=NI.device)
-    _kernels.launch(
-        "wnn_bandwidth", NI.device,
-        NI.data_ptr(), set_sizes.data_ptr(), rep16.data_ptr(), sq.data_ptr(),
-        n, kk, d, int(nn_stride), int(n_bw), float(n_total), float(bbox),
-        sigma.data_ptr(),
-    )
+    args = (NI.data_ptr(), set_sizes.data_ptr(), rep16.data_ptr(), sq.data_ptr(),
+            n, kk, d, int(nn_stride), int(n_bw), float(n_total), float(bbox))
+    if _bandwidth_smem(kk, d, n_bw, nn_stride) <= MAX_SMEM:
+        _kernels.launch("wnn_bandwidth", NI.device, *args, 0, 0, sigma.data_ptr())
+        return sigma
+    if 4 * (kk + d) > MAX_SMEM:
+        raise ValueError(f"T9 keeps a cell's sorted set and rep in {4 * (kk + d)} bytes "
+                         f"of shared memory, above the {MAX_SMEM} a block may take")
+    C = kk + kk * (-(-kk // nn_stride))
+    blocks = min(n, BANDWIDTH_SCRATCH_BLOCKS)
+    scratch = torch.empty((blocks, 3 * C + 2 * min(C, 4 * n_bw)), dtype=torch.int32,
+                          device=NI.device)
+    _kernels.launch("wnn_bandwidth_global", NI.device, *args, scratch.data_ptr(), blocks,
+                    sigma.data_ptr())
     return sigma
 
 
@@ -277,7 +290,7 @@ def wnn_bandwidth_plain(
     rep_f = rep16.float()
     pos = torch.arange(C, device=dev)
     tri = torch.tril(torch.ones((osz, osz), dtype=torch.bool, device=dev), diagonal=-1)
-    block = max(1, (1 << 26) // (C * max(kk * kk, rep16.shape[1])))
+    block = max(1, (1 << 25) // (C * max(kk, rep16.shape[1])))
     out = torch.empty(n, dtype=torch.float32, device=dev)
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
@@ -291,7 +304,13 @@ def wnn_bandwidth_plain(
         Sx = torch.where(NI_b < 0, -2, NI_b)
         Sy = NI[cs]
         Sy = torch.where(Sy >= 0, Sy, -3)
-        inter = (Sx[:, None, :, None] == Sy[:, :, None, :]).sum(dim=(-1, -2))
+        # |Sx ∩ Sy| per candidate: each entry of Sy counted in the sorted Sx
+        # (the reference compares all kk × kk pairs; the counts are the same)
+        Sx_sorted = torch.sort(Sx, dim=1).values
+        Sy_flat = Sy.reshape(b, C * kk)
+        inter = (torch.searchsorted(Sx_sorted, Sy_flat, right=True)
+                 - torch.searchsorted(Sx_sorted, Sy_flat, right=False)
+                 ).reshape(b, C, kk).sum(dim=-1)
         union = (set_sizes[r0:r1, None] + set_sizes[cs] - inter).clamp(min=1)
         jac = 1.0 - inter.float() / union.float()
         cross = (rep_f[r0:r1, None, :] * rep_f[cs]).sum(dim=-1)

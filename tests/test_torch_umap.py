@@ -285,9 +285,10 @@ def test_epoch_negative_quirks_match_jax():
     assert np.abs(moved[coincident] - got[coincident]).max() > 1e-3
 
 
-@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dim", [2, 3, 12])
 def test_epoch_dimensions(dim):
-    # 3 components: the same program, one more coordinate
+    # 3 components: the same program, one more coordinate; 12: above the 8
+    # that T13 keeps in registers (on the card its run-time-dim kernel)
     c = _epoch_case(3)
     emb = np.random.default_rng(dim).uniform(-10, 10, (c["n"], dim)).astype(np.float32)
     with jax.enable_x64(False):
@@ -701,12 +702,13 @@ def _random_graph(n, k, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dim", [2, 3, 8, 9, 12])
 @pytest.mark.parametrize("epoch", [0, 8, 13])
 def test_gpu_umap_epoch_matches_plain(cuda, dim, epoch):
     # one epoch, the same layout, eons and negatives: direct sums in other
     # orders and powf against torch's pow, a few ulps of a layout of scale
-    # 10 (atol 1e-4); the eons exactly
+    # 10 (atol 1e-4); the eons exactly. Up to 8 components the kernel keeps a
+    # vertex in registers; 9 and 12 take the kernel with dim at run time
     G = _random_graph(20000, 15, seed=dim)
     heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
     shift = np.clip(np.floor(np.log2(np.maximum(eps, 1.0))), 0, 3).astype(np.int8)
@@ -743,7 +745,7 @@ def test_gpu_umap_epoch_refuses_bad_input(cuda):
     with pytest.raises(ValueError, match="alias"):
         tu.umap_epoch(emb, emb, *args)
     with pytest.raises(ValueError, match="components"):
-        tu.umap_epoch(torch.zeros((100, 9), device=cuda), torch.zeros((100, 9), device=cuda),
+        tu.umap_epoch(torch.zeros((100, 1), device=cuda), torch.zeros((100, 1), device=cuda),
                       *args)
     with pytest.raises(TypeError):
         tu.umap_epoch(emb, torch.empty_like(emb), edges, edges.eps.clone(), dct, negs.long(),

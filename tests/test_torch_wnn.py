@@ -114,6 +114,23 @@ def test_bandwidth_matches_jax_in_float64(kk):
     np.testing.assert_allclose(got, ref, rtol=5e-2)
 
 
+def test_bandwidth_above_the_shared_memory_limit_matches_jax():
+    # kk = 139 at stride 1: C = 19,460 candidates, whose tables pass the 227 KB
+    # of one block's shared memory, so on the card T9 keeps them in global
+    # memory; on the CPU the same function agrees with the reference as below
+    # the limit (float32, the same winners). The reference's Jaccard compare is
+    # C·kk² per cell, which sets this test's 40 s
+    n, kk, n_bw = 141, 139, 20
+    assert tw._bandwidth_smem(kk, 6, n_bw, 1) > tw.MAX_SMEM
+    rep = _quarter(n, 6, seed=3)
+    NI, _ = _neighbor_matrix(rep, kk, seed=3)
+    with jax.enable_x64(False):
+        ref = np.asarray(jw._bandwidth_fn()(
+            jnp.asarray(NI), jnp.asarray(rep), float(n), _bbox(rep), n_bw, 8, 1))
+    got = _port_sigma(NI, rep, n_bw, 1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+
+
 def test_bandwidth_fallback_and_duplicates():
     # cell 10's candidates all share no neighbour with it (jac = 1) or are
     # pads, so sigma falls back to the mean distance over its kk slots, the
@@ -624,6 +641,26 @@ def test_gpu_wnn_bandwidth_matches_plain(cuda, kk, d):
     got = _launched("wnn_bandwidth", lambda: tw.wnn_bandwidth(*args))
     ref = tw.wnn_bandwidth_plain(*args)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_wnn_bandwidth_above_the_shared_memory_limit(cuda):
+    # kk = 256, d = 50: 33,024 candidates per cell, 396 KB of tables, which no
+    # block's shared memory holds: the variant with the tables in global
+    # memory runs (its own counter) and agrees with the plain version as the
+    # shared-memory variant does; kk = 194 still takes the shared-memory one
+    n, kk, d = 400, 256, 50
+    rep = np.random.default_rng(5).normal(size=(n, d)).astype(np.float32)
+    NI, _ = _neighbor_matrix(rep, kk, seed=5)
+    NI_t, rep_t = _t(NI).to(cuda), _t(rep).to(cuda)
+    args = (NI_t, *tw._bandwidth_tables(NI_t, rep_t), float(n), _bbox(rep), 20, 2)
+    got = _launched("wnn_bandwidth_global", lambda: tw.wnn_bandwidth(*args))
+    assert _kernels.launch_counts()["wnn_bandwidth"] == 0
+    torch.testing.assert_close(got, tw.wnn_bandwidth_plain(*args), rtol=1e-5, atol=0)
+    args = (NI_t[:, :194].contiguous(), *tw._bandwidth_tables(NI_t[:, :194], rep_t), float(n),
+            _bbox(rep), 20, 2)
+    _launched("wnn_bandwidth", lambda: tw.wnn_bandwidth(*args))
+    assert _kernels.launch_counts()["wnn_bandwidth_global"] == 0
 
 
 @pytest.mark.gpu
