@@ -43,7 +43,12 @@ full-batch sweeps); the MOFA stage of ``bench_e2e.py`` at 100,000 cells (the
 256 most variable columns of the normalised RNA and of the TF-IDF ATAC
 matrix, selected on the device through ``ops.sparse.col_sums``, K = 15,
 stochastic VI, 100 iterations of 50,000 cells); and the same stochastic fit
-on two 1,000,000 × 256 views made on the device from 15 planted factors.
+on two 1,000,000 × 256 views made on the device from 15 planted factors;
+
+and the recipe of ``bench.py``'s mode ``dsb`` (``prot.pp.clr``, then
+``prot.pp.dsb`` of the unfiltered droplets, split by their RNA counts, 140
+proteins) at its own 10,000 cells + 50,000 empty droplets and at 100,000 +
+500,000.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -104,9 +109,11 @@ is printed. An exception stops the run at once, with a code other than 0:
     versions;
 16. repairs (after phase 12): T13 at 12 components (the kernel that takes
     the number at run time) against plain on the WNN graph; ``[wnn-wide]``,
-    ``pp.neighbors(mdata)`` over neighbour lists 250 wide on the first 2,000
-    cells, counted alone: T9's variant that keeps a cell's candidates in
-    global memory, twice; that variant against plain at kk = 256, d = 50;
+    ``pp.neighbors(mdata, n_multineighbors=300)`` over neighbour lists 300
+    wide on the first 2,000 cells, counted alone: T9's variant that keeps a
+    cell's candidates in global memory, twice, and T5's long-list variant
+    for the candidates, twice; T9's variant against plain at kk = 256,
+    d = 50; then phases 23 (its 100k half) and 24;
 17. ``[mofa-e2e]``, counted from ``fit_mofa`` alone: the launches of T17-T20
     by the formula (per sweep T17 K·M + M, T18 and T19 K·M, T20 2·K·M), the
     wall and the stage split, and the e2e's gate: the label-probe R² of Z
@@ -120,8 +127,34 @@ is printed. An exception stops the run at once, with a code other than 0:
     versions from the same state (every leaf within 1e-4 of its largest
     entry); the ELBO of every sweep (never falling by more than 1e-5); the
     plain path's time;
-20. ``[mofa-1m]`` (last), counted the same way: the wall, the time per
-    iteration, peak memory, and the canonical correlations (> 0.9).
+20. ``[mofa-1m]``, counted the same way: the wall, the time per
+    iteration, peak memory, and the canonical correlations (> 0.9);
+21. ``[dsb]`` at 10,000 + 50,000 and at 100,000 + 500,000 droplets (last),
+    each counted alone from ``clr`` and ``dsb``: T12, T7 and T21 once each;
+    every cell kept; the warm walls with the stage split (``dsb/droplets``,
+    ``dsb/standardize``, ``dsb/gmm``, ``dsb/ols``, ``dsb/clip``,
+    ``dsb/download``), the busy share and peak memory; the whole output
+    against the plain path (T7 and T21 plain) from the same uniforms; the
+    planted signal columns above the ambient ones; the per-cell median
+    offset smaller than without denoising; at 10,000 the isotype-control
+    and clipping branches once (the warning, np.clip at np.quantile);
+22. ``[kernel] gmm_background_means``: T21 against its plain version on the
+    standardised cells of phase 21 (10,000 and 100,000 × 140) and at
+    10,000 × 300: the same fit and iterations on ≥ 99.9% of cells, the
+    means within 1e-4 there, both times, the bound from the iterations run
+    (operations at the float32 and special-function rates, bytes);
+23. ``[knn-wide]``: ``pp.neighbors(n_neighbors=301)`` on the 100k RNA scores
+    (after phase 16) and ``ivf_knn(k=300)`` on the cached 1M partition
+    (after phase 15), each counted alone: the long-list variants of T5 and
+    T14 (the heap in the outputs), each against plain (phase 15 holds T14
+    at k+1 = 301 on the first 64 work items);
+24. ``[umap-asym]`` (after phase 23's first half): ``ops.umap.umap_embed`` of
+    the 100k RNA path's directed membership graph (T6's table before the
+    union), 200 epochs, counted alone: T22 every epoch and no T13; one T22
+    epoch against plain from the spectral layout with shared negatives; the
+    layout's planted-label share within 0.02 of the same run through T22's
+    plain version and ≥ 0.8 × that of ``tl.umap``'s layout (T13) of the
+    graph's union at the same seed, and its ratio to the graph's own share.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -162,14 +195,22 @@ DENSE_SRC = "muon_tpu_torch/csrc/dense_kernels.cu"
 UMAP_SRC = "muon_tpu_torch/csrc/umap_kernels.cu"
 IVF_SRC = "muon_tpu_torch/csrc/ivf_kernels.cu"
 MOFA_SRC = "muon_tpu_torch/csrc/mofa_kernels.cu"
+GMM_SRC = "muon_tpu_torch/csrc/gmm_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
 MOFA_K, MOFA_N, MOFA_DS, MOFA_SWEEPS, MOFA_WARM = 15, 10_000, (2000, 3000), 50, 2
 MOFA_COLS, MOFA_ITERS, MOFA_BATCH = 256, 100, 50_000
-# the width of the neighbour lists that drive T9's global-memory variant: 250
-# through pp.neighbors (T5 takes k + 1 <= 255), 256 for the kernel against plain
-WIDE_KK, WIDE_KK_KERNEL, WIDE_CELLS = 250, 256, 2_000
+# the width of the neighbour lists that drive T9's global-memory variant: 300
+# through pp.neighbors (and WNN's candidates), 256 for the kernel against plain
+WIDE_KK, WIDE_KK_KERNEL, WIDE_CELLS = 300, 256, 2_000
+# [knn-wide]: k of pp.neighbors at 100k and of ivf_knn at 1M, lists of 301
+WIDE_K = 300
+# DSB: bench.py's mode `dsb` (10,000 cells, 50,000 empty droplets, 140
+# proteins) and a pooled 10x run at the e2e's cell count; the bench's call
+CITE_PROT = 140
+DSB_SIZES = ((10_000, 50_000), (100_000, 500_000))
+DSB_KW = dict(empty_counts_range=(0.3, 2.5), cell_counts_range=(2.8, 4.5), random_state=1)
 # the 1M-cell path: rows, columns and planted clusters of its representation,
 # the work items T14 is held to its plain version on, the seed check's sample
 N_BIG, D_BIG, BIG_CLUSTERS, IVF_ITEMS, SEED_SAMPLE = 1_000_000, 50, 40, 64, 20_000
@@ -199,6 +240,10 @@ KERNEL_INFO = {
     "mofa_w_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),   # w_body's posterior
     "mofa_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),       # Es[m] @ tsw, B @ tSWW
     "mofa_rank1_update": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),  # E + zk (x) delta
+    "knn_topk_global": (KNN_SRC, "muon_tpu/ops/knn.py:58"),         # lists longer than 256
+    "ivf_search_global": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),      # lists longer than 256
+    "gmm_background_means": (GMM_SRC, "muon_tpu/ops/gmm.py:101"),   # + _em_1d (:32)
+    "umap_epoch_asym": (UMAP_SRC, "muon_tpu/ops/umap.py:407"),      # _optimize_fn, asymmetric
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -223,9 +268,19 @@ IVF_PATH = {"kmeans_assign": 9, "smooth_knn_membership": 1, "knn_topk": 0}
 # T13 per epoch, and nothing of the exact seed's rSVD (T2)
 UMAP_BIG_PATH = {"membership_matvec": 13, "umap_epoch": N_EPOCHS, "csr_spmm_bf16": 0,
                  "csr_spmm_f32": 0}
-# WNN over neighbour lists 256 wide: T9's global-memory variant per modality
+# WNN over neighbour lists 300 wide with 300 candidates per modality: T9's
+# global-memory variant and T5's long-list variant per modality
 WNN_WIDE_PATH = {"wnn_bandwidth_global": 2, "wnn_bandwidth": 0, "wnn_theta": 4,
-                 "wnn_fusion_scores": 1}
+                 "wnn_fusion_scores": 1, "knn_topk_global": 2, "knn_topk": 0}
+# pp.neighbors(n_neighbors=301) at 100k, then ivf_knn(k=300) at 1M on the
+# cached partition: the long-list variants of T5 and T14, once each
+KNN_WIDE_PATH = {"knn_topk_global": 1, "knn_topk": 0, "smooth_knn_membership": 1,
+                 "ivf_search_global": 1, "ivf_search": 0, "kmeans_assign": 0}
+# umap_embed of the directed RNA membership graph: T22 per epoch, no T13
+UMAP_ASYM_PATH = {"umap_epoch_asym": N_EPOCHS, "umap_epoch": 0}
+# bench.py's dsb path: clr of the proteins (T12), then dsb: the RNA row sums
+# of the droplet split (T7) and the background fit (T21), once each
+DSB_PATH = {"clr_dense": 1, "csr_row_sums": 1, "gmm_background_means": 1}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2) -> dict:
@@ -244,6 +299,10 @@ def mofa_launches(sweeps: int, n_views: int = 2) -> dict:
 # the peak of their type: products of bfloat16 operands at the bfloat16
 # rate, everything else at the float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
+# the special-function unit (exp, log): 16 results per clock per SM (the CUDA
+# programming guide's throughput table, compute capability 9.0), 132 SMs at
+# the 1.98 GHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 class Holder:
@@ -255,12 +314,48 @@ class Holder:
 
 class MuHolder:
     """The least MuData-like object WNN takes: modalities over the same
-    cells, in the same order (obsmap is 1-based)."""
+    cells, in the same order (obsmap is 1-based); for dsb also slicing by
+    the obs names of its modalities (each an ``ObsHolder``) and a copy."""
 
     def __init__(self, mods, n: int = N_CELLS):
         self.mod, self.n_obs = mods, n
         self.obsmap = {k: np.arange(1, n + 1) for k in mods}
         self.obs, self.obsm, self.obsp, self.uns = {}, {}, {}, {}
+
+    def __getitem__(self, idx):
+        """The cells named in ``idx[0]``, in that order, in every modality."""
+        names = idx[0] if isinstance(idx, tuple) else idx
+        pos = {b: i for i, b in enumerate(next(iter(self.mod.values())).obs_names)}
+        rows = np.fromiter((pos[b] for b in names), np.int64, len(names))
+        return MuHolder({k: m[rows] for k, m in self.mod.items()}, len(rows))
+
+    def copy(self):
+        return MuHolder({k: m.copy() for k, m in self.mod.items()}, self.n_obs)
+
+
+class ObsHolder:
+    """The least AnnData-like object dsb takes: X, obs and var names,
+    layers, positional row slicing and a copy."""
+
+    def __init__(self, X, obs_names, var_names=None):
+        self.X, self.obs_names, self.layers = X, obs_names, {}
+        self.var_names = (np.array([f"p{i}" for i in range(X.shape[1])])
+                          if var_names is None else var_names)
+
+    @property
+    def shape(self):
+        return self.X.shape
+
+    @property
+    def n_obs(self):
+        return self.X.shape[0]
+
+    def __getitem__(self, idx):
+        rows = idx[0] if isinstance(idx, tuple) else idx
+        return ObsHolder(self.X[rows], self.obs_names[rows], self.var_names)
+
+    def copy(self):
+        return ObsHolder(self.X.copy(), self.obs_names.copy(), self.var_names)
 
 
 def make_counts(seed: int = 0) -> sp.csr_matrix:
@@ -1667,7 +1762,8 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
     item = torch.arange(q.shape[0], device=cuda)[:, None].expand_as(q)[ok_q]
     qsq = ((Xs[q[ok_q].long()] - mu_[item]) ** 2).sum(-1)
     pairs = float((ok_q.sum(1) * pc.sum(1)).sum())  # (query, candidate) pairs scored
-    for k in (N_NEIGHBORS - 1, N_MULTI):
+    for k in (N_NEIGHBORS - 1, N_MULTI, WIDE_K):
+        name = "ivf_search" if k + 1 <= 256 else "ivf_search_global"
         args = (Xs, q, pp_, pc, mu_, k, L, False)
         gp, gd = ti.ivf_search(*args)
         torch.cuda.synchronize()
@@ -1680,17 +1776,17 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
         equal = float((gp[ok_q] == rp[ok_q]).float().mean())
         # each item reads its queries and its probed rows once and writes its results
         bytes_ = 4 * d * float(ok_q.sum() + pc.sum()) + nbytes(q, pp_, pc, mu_, gp, gd)
-        report("ivf_search", f"(k+1={k + 1}, {q.shape[0]} items of {qids.shape[0]}, L={L}, "
+        report(name, f"(k+1={k + 1}, {q.shape[0]} items of {qids.shape[0]}, L={L}, "
                f"P={ppos.shape[1]})", float(diff[fin].max()),
                f"|dd2| <= 1e-5(|q-mu|^2+|c-mu|^2), equal positions {equal:.5f} >= 0.99",
                same_inf and within and equal >= 0.99,
                median_ms(lambda: ti.ivf_search(*args)),
                median_ms(lambda: ti.ivf_search_plain(*args), reps=3),
-               bound(bytes_, 2 * pairs * d, F32_OPS_PER_S), record=k == N_NEIGHBORS - 1)
+               bound(bytes_, 2 * pairs * d, F32_OPS_PER_S), record=k != N_MULTI)
         whole = median_ms(lambda: ti.ivf_search(Xs, q_all, pp_all, pc_all, mu_all, k, L, False),
                           reps=3)
         all_pairs = float(((q_all >= 0).sum(1) * pc_all.sum(1)).sum())
-        print(f"[kernel] ivf_search over the whole 1M layout ({qids.shape[0]} items, "
+        print(f"[kernel] {name} over the whole 1M layout ({qids.shape[0]} items, "
               f"{all_pairs:.4g} pairs) at k+1={k + 1}: ms={whole:.3f}; by its operations "
               f"{2 * all_pairs * d / F32_OPS_PER_S * 1e3:.3f}", flush=True)
 
@@ -1733,10 +1829,11 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
 
 def phase_repairs(tpp, tw, tk, tf, tu, kernels, mods, wnn_md, cuda) -> dict:
     """T13's run-time-dim kernel at 12 components against its plain version
-    on the WNN graph, and ``pp.neighbors(mdata)`` over neighbour lists 250
-    wide on the first 2,000 cells, which takes T9's global-memory variant
-    (counted from that call alone), then that variant against plain at
-    kk = 256, d = 50 on the exact neighbours of the same cells' RNA scores."""
+    on the WNN graph, and ``pp.neighbors(mdata, n_multineighbors=300)`` over
+    neighbour lists 300 wide on the first 2,000 cells, which takes T9's
+    global-memory variant and T5's long-list variant (counted from that call
+    alone), then T9's variant against plain at kk = 256, d = 50 on the exact
+    neighbours of the same cells' RNA scores."""
     G = wnn_md.obsp["connectivities"].tocsr()
     a, b = tu.find_ab_params()
     heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
@@ -1773,13 +1870,14 @@ def phase_repairs(tpp, tw, tk, tf, tu, kernels, mods, wnn_md, cuda) -> dict:
     with wnn_probe(tw, tk, tf, plain=False) as rec:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        tpp.neighbors(md, device=cuda)
+        tpp.neighbors(md, n_multineighbors=WIDE_KK, device=cuda)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
     kk = rec["bandwidth"][0][0][0].shape[1]
-    print(f"[wnn-wide] pp.neighbors(mdata) over {list(sub)} on {WIDE_CELLS} cells with "
-          f"neighbour lists {kk} wide in {wall:.2f}s launched "
+    check(rec["knn_k"] == [WIDE_KK] * 2, f"WNN's candidates at k = {WIDE_KK} per modality")
+    print(f"[wnn-wide] pp.neighbors(mdata, n_multineighbors={WIDE_KK}) over {list(sub)} on "
+          f"{WIDE_CELLS} cells with neighbour lists {kk} wide in {wall:.2f}s launched "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     check(kk == WIDE_KK, f"the modality graphs hold {WIDE_KK} neighbours per cell")
     for name, count in WNN_WIDE_PATH.items():
@@ -1819,6 +1917,370 @@ def phase_repairs(tpp, tw, tk, tf, tu, kernels, mods, wnn_md, cuda) -> dict:
     return launches, {"wnn_bandwidth_global": {
         "max_abs_err": (out - ref).abs().max().item(), "ms": ms, "plain_ms": plain_ms, **bnd,
         "library_ms": None}}
+
+
+# ---------------------------------------------------------------------------
+# repairs of this slice: lists longer than 256 (T5, T14), the asymmetric
+# UMAP epoch (T22)
+# ---------------------------------------------------------------------------
+
+
+def phase_knn_wide(tpp, tk, kernels, rep, labels, cuda):
+    """``pp.neighbors(n_neighbors=301)`` on the 100k RNA scores, counted
+    alone (T5's long-list variant at k + 1 = 301), then that variant against
+    plain at the path's arguments (approx, euclidean)."""
+    h = Holder(None)
+    h.obsm["X_pca"], h.n_obs = rep, rep.shape[0]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tpp.neighbors(h, n_neighbors=WIDE_K + 1, use_rep="X_pca", device=cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    D = h.obsp["distances"]
+    share = label_share(D, labels)
+    print(f"[knn-wide] pp.neighbors(n_neighbors={WIDE_K + 1}) of the RNA scores "
+          f"{rep.shape} in {wall:.4f}s launched { {k: v for k, v in launches.items() if v} }; "
+          f"{D.nnz} distances, planted-label share {share:.4f}", flush=True)
+    for name in ("knn_topk_global", "knn_topk", "smooth_knn_membership"):
+        check(launches[name] == KNN_WIDE_PATH[name],
+              f"pp.neighbors({WIDE_K + 1}) launched {name} {KNN_WIDE_PATH[name]} times")
+    check((np.diff(D.indptr) == WIDE_K).all() and np.isfinite(D.data).all(),
+          f"{WIDE_K} finite distances per row")
+
+    op, sq = tk._operand(torch.from_numpy(rep).to(cuda), "euclidean", True)
+    args = (op, sq, WIDE_K, False, True)
+    gi, gd = tk.knn_topk(*args)
+    torch.cuda.synchronize()
+    ri, rd = tk.knn_topk_plain(*args)
+    scale = sq[:, None] + sq[ri.long()]
+    ok = bool(((gd.double() ** 2 - rd.double() ** 2).abs() <= 1e-5 * scale).all())
+    equal = (gi == ri).float().mean().item()
+    head = (gi[:, :N_NEIGHBORS] == tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True)[0]
+            ).float().mean().item()
+    ms = median_ms(lambda: tk.knn_topk(*args), reps=3)
+    plain_ms = median_ms(lambda: tk.knn_topk_plain(*args), reps=1)
+    n_, d_ = op.shape
+    bnd = bound(nbytes(op, sq, gi, gd), 2 * n_ * n_ * d_, BF16_OPS_PER_S)
+    err = (gd - rd).abs().max().item()
+    print(f"[kernel] knn_topk_global (n={n_}, d={d_}, approx, k+1={WIDE_K + 1}): "
+          f"max_abs_err={err:.3e} (|dd2| <= 1e-5(|q|^2+|c|^2), equal indices {equal:.5f} >= 0.99; "
+          f"its first {N_NEIGHBORS} columns equal T5's at k+1={N_NEIGHBORS} on {head:.5f}) "
+          f"ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bnd['bound_ms']:.4f} "
+          f"({bnd['bound_by']}) library_ms=None", flush=True)
+    check(ok and equal >= 0.99 and head >= 0.99, "knn_topk_global vs plain")
+    return launches, {"knn_topk_global": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                          **bnd, "library_ms": None}}
+
+
+def phase_ivf_wide(ti, kernels, X, cuda):
+    """``ivf_knn(k=300)`` on the 1M representation from the cached partition
+    (no union: ``pp.neighbors`` would add the host union of 300M entries),
+    counted alone: T14's long-list variant once, no k-means."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx, dists = ti.ivf_knn(X, WIDE_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    idx19 = ti.ivf_knn(X, N_NEIGHBORS - 1)[0]
+    agree = float((idx[:, :N_NEIGHBORS] == idx19).float().mean())
+    n = X.shape[0]
+    print(f"[knn-wide] ivf_knn(k={WIDE_K}) of {tuple(X.shape)} in {wall:.4f}s launched "
+          f"{ {k: v for k, v in launches.items() if v} }; its first {N_NEIGHBORS} columns "
+          f"agree with the k = 19 run on {agree:.5f} of entries; -1 in "
+          f"{float((idx < 0).float().mean()):.2e} of places", flush=True)
+    for name in ("ivf_search_global", "ivf_search", "kmeans_assign"):
+        check(launches[name] == KNN_WIDE_PATH[name],
+              f"ivf_knn({WIDE_K}) launched {name} {KNN_WIDE_PATH[name]} times")
+    check(bool((idx[:, 0] == torch.arange(n, device=cuda)).all())
+          and bool((dists[:, 0] == 0).all()), "ivf_knn(300): self in column 0")
+    fin = torch.isfinite(dists[:, 1:]) & (idx[:, 1:] >= 0)
+    check(bool((dists[:, 2:] >= dists[:, 1:-1])[fin[:, 1:]].all()), "ivf_knn(300) ascending")
+    check(agree >= 0.99, "k = 300 and k = 19 agree on >= 99% of the first 20 columns")
+    del idx, dists, idx19
+    return launches
+
+
+def phase_umap_asym(tu, tk, tf, kernels, rna_h, labels, cuda):
+    """``ops.umap.umap_embed`` of the directed membership graph of the 100k
+    RNA path (T6's table before the union: each edge one way), 200 epochs,
+    counted alone: T22 every epoch, no T13; one epoch of T22 against plain
+    from the spectral layout with shared negatives; the layout's planted-label
+    share against the same run through T22's plain version, against the
+    layout ``tl.umap`` makes of the same graph's union (T13) at the same
+    seed, and against the graph's own share."""
+    tag = getattr(rna_h.obsp["connectivities"], tf.MEMBERSHIP_TAG)
+    idx, vals = tag["idx"], tag["vals"]
+    n, k = idx.shape
+    rows = np.repeat(np.arange(n), k)
+    keep = (idx.reshape(-1) >= 0) & (idx.reshape(-1) != rows) & (vals.reshape(-1) > 0)
+    W = sp.csr_matrix((vals.reshape(-1)[keep], (rows[keep], idx.reshape(-1)[keep])),
+                      shape=(n, n))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb = tu.umap_embed(W, n_epochs=N_EPOCHS, random_state=42, device=cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    saved = tu.umap_epoch_asym
+    tu.umap_epoch_asym = tu.umap_epoch_asym_plain
+    try:
+        emb_p = tu.umap_embed(W, n_epochs=N_EPOCHS, random_state=42, device=cuda)
+    finally:
+        tu.umap_epoch_asym = saved
+    union = tu.umap_embed(rna_h.obsp["connectivities"], n_epochs=N_EPOCHS, random_state=42,
+                          assume_symmetric=True, device=cuda)
+    share, own = knn_share(tk, emb, labels, cuda), label_share(W, labels)
+    share_p, share_u = knn_share(tk, emb_p, labels, cuda), knn_share(tk, union, labels, cuda)
+    print(f"[umap-asym] umap_embed of the directed RNA membership graph ({W.nnz} edges, "
+          f"{int((W != W.T).nnz)} entries differ from the transpose) in {wall:.4f}s launched "
+          f"{ {k_: v for k_, v in launches.items() if v} }; planted-label share of the 15 "
+          f"nearest cells in 2-D {share:.4f} (the plain T22 run {share_p:.4f}; tl.umap's T13 "
+          f"layout of the union graph {share_u:.4f}); the graph's own {own:.4f} (the layout "
+          f"reads {share / own:.3f} of it)", flush=True)
+    for name, count in UMAP_ASYM_PATH.items():
+        check(launches[name] == count, f"the asymmetric UMAP launched {name} {count} times")
+    check(emb.shape == (n, 2) and np.isfinite(emb).all(), "asymmetric X_umap shape, finite")
+    check(abs(share - share_p) <= 0.02, "asymmetric UMAP kernel vs plain share within 0.02")
+    # at 200 epochs this graph's layouts reach 0.70-0.80 of its own share, the
+    # union's through T13 too (0.73-0.80 on an H100), so the layout is held to
+    # T13's layout of the same graph, not to the graph itself
+    check(share >= 0.8 * share_u, "asymmetric UMAP share >= 0.8 x tl.umap's of the union")
+
+    a, b = tu.find_ab_params()
+    heads, tails, eps, _, _ = tu.edge_schedule(W, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, np.zeros(len(eps), np.int8), n, cuda)
+    by_tail = tu.umap_tails(edges)
+    emb0 = torch.from_numpy(tu.spectral_init(W, 2, seed=42, device=cuda)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    negs = torch.randint(0, n, (n, 5), generator=gen, dtype=torch.int32, device=cuda)
+    args = (negs, 0, tu.epoch_alpha(1.0, 0, N_EPOCHS), a, b, 1.0)
+    eons = edges.eps.clone()
+    eo_k, eo_p = torch.empty_like(eons), torch.empty_like(eons)
+    out_k = tu.umap_epoch_asym(emb0, torch.empty_like(emb0), edges, by_tail, eons, eo_k, *args)
+    torch.cuda.synchronize()
+    out_p = tu.umap_epoch_asym_plain(emb0, torch.empty_like(emb0), edges, by_tail, eons, eo_p,
+                                     *args)
+    err = (out_k - out_p).abs().max().item()
+    same_eons = bool(torch.equal(eo_k, eo_p))
+    buf = torch.empty_like(emb0)
+    ms = median_ms(lambda: tu.umap_epoch_asym(emb0, buf, edges, by_tail, eons, eo_k, *args))
+    plain_ms = median_ms(lambda: tu.umap_epoch_asym_plain(emb0, buf, edges, by_tail, eons,
+                                                          eo_p, *args))
+    # the function reads each edge (head, tail, eps, eons) and the layout and
+    # writes the layout and the eons; the tail order is the kernel's own. Per
+    # due edge and per negative about 30 operations (two powf among them)
+    E, due = len(eps), int((eps <= 1.0).sum())
+    bnd = bound(nbytes(edges.indptr, edges.heads, edges.tails, edges.eps, eons, negs, emb0,
+                       out_k, eo_k), 30 * (due + negs.numel()), F32_OPS_PER_S)
+    print(f"[kernel] umap_epoch_asym (n={n}, E={E}, due at epoch 0 {due}): max_abs_err="
+          f"{err:.3e} (<= 1e-3; eons equal {same_eons}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms=None", flush=True)
+    check(err <= 1e-3 and same_eons, "umap_epoch_asym vs plain, max 1e-3")
+    return launches, {"umap_epoch_asym": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                          **bnd, "library_ms": None}}
+
+
+# ---------------------------------------------------------------------------
+# DSB: bench.py's mode `dsb` (CLR, then DSB of the unfiltered droplets) at the
+# bench's size and at 100,000 cells; T21 against plain
+# ---------------------------------------------------------------------------
+
+
+def make_citeseq(n_cells, n_empty, n_prot=CITE_PROT, seed=0):
+    """bench.py::_make_citeseq: an unfiltered CITE-seq droplet pool, real
+    cells (high RNA UMI, protein signal over ambient) and empty droplets
+    (low UMI, ambient only); also the signal's columns."""
+    rng = np.random.default_rng(seed)
+    n = n_cells + n_empty
+    is_cell = np.zeros(n, bool)
+    is_cell[:n_cells] = True
+    rna_umi = np.where(is_cell, rng.poisson(3000, n), rng.poisson(40, n))
+    # one gene is enough for the log10-UMI droplet classifier
+    rna = sp.csr_matrix(rna_umi.astype(np.float32)[:, None])
+    ambient = rng.gamma(2.0, 2.0, n_prot)
+    prot = rng.poisson(ambient[None, :], (n, n_prot)).astype(np.float32)
+    signal = rng.poisson(30.0, (n_cells, n_prot // 3)).astype(np.float32)
+    cols = rng.choice(n_prot, n_prot // 3, replace=False)
+    prot[:n_cells, cols] += signal
+    return rna, prot, cols
+
+
+@contextmanager
+def dsb_plain(tg, dsp):
+    """Route T21 and T7 to their plain versions for the block (only this
+    script swaps the module attributes; they are restored after)."""
+    saved = tg.gmm_background_means, dsp.row_sums
+    try:
+        tg.gmm_background_means, dsp.row_sums = tg.background_means_plain, dsp.row_sums_plain
+        yield
+    finally:
+        tg.gmm_background_means, dsp.row_sums = saved
+
+
+def rows_close(got, ref):
+    """The largest row error, and whether it is within 1e-4 on >= 99.9% of the
+    rows and 1e-2 on all: the same float32 steps summed in another order,
+    where a fit that stops one iteration apart moves its cell a little."""
+    row = np.abs(np.asarray(got, np.float64) - ref).max(axis=1)
+    return float(row.max()), bool((row <= 1e-4).mean() >= 0.999 and row.max() <= 1e-2)
+
+
+def phase_dsb(tpt, tg, dsp, kernels, profiling, cuda, n_cells, n_empty, branches: bool):
+    """bench.py::_run_dsb's path on the device, counted alone: clr of the
+    proteins (on a copy), then dsb of the unfiltered holder with the bench's
+    ranges. Then the warm walls with the stage split, the busy share, the
+    whole output against the plain path from the same uniforms, the planted
+    signal, the per-cell offset with and without denoising; with
+    ``branches`` also the isotype-control and clipping branches. Returns the
+    launches and the standardised cells (T21's input)."""
+    t0 = time.perf_counter()
+    rna, prot, cols = make_citeseq(n_cells, n_empty, seed=SEED)
+    names = np.arange(n_cells + n_empty).astype(str)
+    md = MuHolder({"rna": ObsHolder(rna, names), "prot": ObsHolder(prot, names)}, len(names))
+    tag = f"{n_cells}+{n_empty}"
+    print(f"[data] CITE-seq {tag} droplets x {CITE_PROT} proteins "
+          f"({prot.nbytes / 2**20:.0f} MiB of counts) made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    def run(md_, **kw):
+        return tpt.pp.dsb(md_, device=cuda, **{**DSB_KW, **kw})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tpt.pp.clr(ObsHolder(prot.copy(), names), device=cuda)
+    t1 = time.perf_counter()
+    out = run(md)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    X = out.mod["prot"].X
+    print(f"[dsb] {tag}: clr {t1 - t0:.4f}s, dsb {t2 - t1:.4f}s (first call); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {out.n_obs} cells kept; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    for name, count in DSB_PATH.items():
+        check(launches[name] == count, f"dsb {tag} launched {name} {count} times")
+    check(out.n_obs == n_cells and X.shape == (n_cells, CITE_PROT) and X.dtype == np.float32
+          and np.isfinite(X).all(), f"dsb {tag}: every cell kept, float32, finite")
+
+    walls, splits = [], []
+    for _ in range(2):
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            run(md)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        splits.append(stage_seconds(t))
+    print(f"[times] dsb {tag} warm wall s {[round(w, 4) for w in walls]}; stages {splits}",
+          flush=True)
+    print_profile(f"dsb {tag}", profiled(lambda: run(md)))
+
+    with dsb_plain(tg, dsp):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ref = run(md).mod["prot"].X
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        check(not any(kernels.launch_counts().values()), "the plain dsb launched no kernel")
+    err, ok = rows_close(X, ref)
+    amb = np.setdiff1d(np.arange(CITE_PROT), cols)
+    sig_min, amb_max = float(X[:, cols].mean(0).min()), float(X[:, amb].mean(0).max())
+    raw = run(md, denoise_counts=False).mod["prot"].X
+    off0, off1 = float(np.median(raw, axis=1).std()), float(np.median(X, axis=1).std())
+    print(f"[dsb] {tag}: against the plain path from the same uniforms (one warm run "
+          f"{t_plain:.4f}s) largest row error {err:.2e} (1e-4 on >= 99.9% of rows, 1e-2 on "
+          f"all); column means: planted signal >= {sig_min:.4f}, ambient <= {amb_max:.4f}; "
+          f"per-cell median offset std {off0:.4f} without denoising, {off1:.4f} with", flush=True)
+    check(ok, f"dsb {tag} vs the plain path")
+    check(sig_min > amb_max + 1.0, f"dsb {tag}: the planted signal stands above the ambient")
+    check(off1 < off0, f"dsb {tag}: denoising shrinks the per-cell offset")
+
+    if branches:
+        import warnings
+
+        iso = ["p0", "p1", "p2", "absent"]
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            kernels.reset_launch_counts()
+            unclipped = run(md, isotype_controls=iso).mod["prot"].X
+            clipped = run(md, isotype_controls=iso, quantile_clipping=True).mod["prot"].X
+        q = np.quantile(unclipped, (0.001, 0.9995))
+        clip_err = float(np.abs(clipped - np.clip(unclipped, q.min(), q.max())).max())
+        warned = any("isotype controls are not present" in str(x.message) for x in w)
+        print(f"[dsb] {tag} isotype controls {iso} (one absent: warned {warned}) and quantile "
+              f"clipping (0.001, 0.9995): {clipped.dtype}, against np.clip at np.quantile of "
+              f"the unclipped run {clip_err:.2e}; T21 launched "
+              f"{kernels.launch_counts()['gmm_background_means']} times", flush=True)
+        # 1e-5: the two runs' least squares may round apart (a float32 solver)
+        check(warned and clipped.dtype == np.float64 and clip_err <= 1e-5
+              and np.isfinite(unclipped).all()
+              and kernels.launch_counts()["gmm_background_means"] == 2,
+              "dsb's isotype-control and clipping branches")
+    del md, out, ref
+    torch.cuda.empty_cache()
+    return launches, raw
+
+
+def scaled_counts(n, d, seed):
+    """T21's input at another panel width: log(counts + 10) of cells
+    standardised by 20,000 empty droplets (bench.py's ambient and signal)."""
+    rng = np.random.default_rng(seed)
+    ambient = rng.gamma(2.0, 2.0, d)
+    es = np.log(rng.poisson(ambient, (20_000, d)) + 10.0)
+    cells = rng.poisson(ambient, (n, d)).astype(np.float64)
+    cols = rng.choice(d, d // 3, replace=False)
+    cells[:, cols] += rng.poisson(30.0, (n, len(cols)))
+    return ((np.log(cells + 10) - es.mean(0)) / es.std(0, ddof=1)).astype(np.float32)
+
+
+def phase_gmm_kernel(tg, inputs, cuda) -> dict:
+    """T21 against its plain version on the standardised cells of the dsb
+    path (10,000 and 100,000 x 140) and at 10,000 x 300: the largest error
+    where both ran the same iterations and picked the same fit, the shares
+    that did, both times, and the bound from the iterations actually run."""
+    results = {}
+    for label, X in inputs:
+        Xt = torch.from_numpy(np.ascontiguousarray(X)).to(cuda)
+        n, d = Xt.shape
+        u = tg.draw_init_noise(n, d, seed=1, device=cuda)
+        got = tg.gmm_background_means(Xt, u)
+        torch.cuda.synchronize()
+        ref = tg.background_means_plain(Xt, u)
+        same_fit = (got[1] == ref[1]).float().mean().item()
+        same_it = (got[2] == ref[2]).all(0).float().mean().item()
+        alike = (got[1] == ref[1]) & (got[2] == ref[2]).all(0)
+        err = (got[0] - ref[0])[alike].abs().max().item()
+        ms = median_ms(lambda: tg.gmm_background_means(Xt, u))
+        plain_ms = median_ms(lambda: tg.background_means_plain(Xt, u), reps=3)
+        # per value and iteration of a fit: about 30 float32 operations and 5
+        # of the special-function unit (4 exp, 1 log); X and the uniforms read
+        # once, the three outputs written once
+        value_iters = float(got[2].double().sum()) * d
+        by_f32 = 30 * value_iters / F32_OPS_PER_S * 1e3
+        by_sfu = 5 * value_iters / SFU_OPS_PER_S * 1e3
+        by_bytes = nbytes(Xt, u, *got) / HBM_BYTES_PER_S * 1e3
+        bnd = {"bound_ms": max(by_f32, by_sfu, by_bytes),
+               "bound_by": "bytes" if by_bytes >= max(by_f32, by_sfu) else "operations"}
+        its = got[2].float()
+        print(f"[kernel] gmm_background_means {label} ({n}x{d}): max_abs_err={err:.3e} (<= 1e-4 "
+              f"where the fit and the iterations agree; the same fit on {same_fit:.5f}, equal "
+              f"iterations on {same_it:.5f}, both >= 0.999) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}: f32 {by_f32:.4f}, special "
+              f"functions {by_sfu:.4f}, bytes {by_bytes:.4f}) library_ms=None; iterations tied "
+              f"mean {its[0].mean().item():.2f} max {int(its[0].max())}, full mean "
+              f"{its[1].mean().item():.2f} max {int(its[1].max())}; tied wins on "
+              f"{got[1].float().mean().item():.4f}", flush=True)
+        check(same_fit >= 0.999 and same_it >= 0.999 and err <= 1e-4,
+              f"gmm_background_means {label} vs plain")
+        if "gmm_background_means" not in results:
+            results["gmm_background_means"] = {"max_abs_err": err, "ms": ms,
+                                               "plain_ms": plain_ms, **bnd, "library_ms": None}
+        del Xt, u, got, ref
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2202,6 +2664,7 @@ def main() -> int:
     from muon_tpu_torch.ops import _kernels as kernels
     from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import gmm as tg
     from muon_tpu_torch.ops import ivf as ti
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
@@ -2253,6 +2716,11 @@ def main() -> int:
     wide_launches, wide_results = phase_repairs(tpp, tw, tk, tf, tu, kernels, wnn_mods, wnn_md,
                                                 cuda)
     results.update(wide_results)
+    knn_wide_launches, knn_wide_results = phase_knn_wide(tpp, tk, kernels, rna_h.obsm["X_pca"],
+                                                         labels, cuda)
+    results.update(knn_wide_results)
+    asym_launches, asym_results = phase_umap_asym(tu, tk, tf, kernels, rna_h, labels, cuda)
+    results.update(asym_results)
     mofa_e2e_launches = phase_mofa_e2e(tm, dsp, kernels, profiling, rna_h.X,
                                        wnn_mods["atac"].X, rna_h.obsm["X_pca"], labels, cuda)
     del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
@@ -2276,16 +2744,31 @@ def main() -> int:
     umap_big_launches = phase_umap_big(ttl, tu, tk, tf, kernels, profiling, big_h,
                                        big_labels, cuda)
     results.update(phase_big_kernels(ti, tu, tf, rep, partition, big_h, cuda))
+    ivf_wide_launches = phase_ivf_wide(ti, kernels, torch.from_numpy(rep).to(cuda), cuda)
     print(f"[times] peak device memory with the 1M path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del rep, big_labels, big_h, partition
     torch.cuda.empty_cache()
     mofa_big_launches = phase_mofa_big(tm, kernels, profiling, cuda)
+    torch.cuda.empty_cache()
+    dsb_launches, gmm_inputs = [], []
+    for (n_cells, n_empty), branches in zip(DSB_SIZES, (True, False)):
+        launches, std_cells = phase_dsb(tpt, tg, dsp, kernels, profiling, cuda, n_cells, n_empty,
+                                        branches)
+        dsb_launches.append(launches)
+        gmm_inputs.append((f"dsb {n_cells}+{n_empty}", std_cells))
+    gmm_inputs.append(("D=300", scaled_counts(DSB_SIZES[0][0], 300, SEED)))
+    results.update(phase_gmm_kernel(tg, gmm_inputs, cuda))
+    del gmm_inputs
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
                "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
                "umap1m": umap_big_launches, "wnn_wide": wide_launches,
                "mofa": mofa_launches_full, "mofa_e2e": mofa_e2e_launches,
-               "mofa_1m": mofa_big_launches}
+               "mofa_1m": mofa_big_launches,
+               "knn_wide": {k: knn_wide_launches[k] + ivf_wide_launches[k]
+                            for k in knn_wide_launches},
+               "umap_asym": asym_launches,
+               "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(

@@ -5,7 +5,7 @@ The tools take MuData-like objects (``.mod``, ``.obsmap`` 1-based,
 ``.n_obs``, ``.obs``, ``.obsp``, ``.uns``) or AnnData-like ones (``.obs``,
 ``.obsp``, ``.uns``, ``.obsm``). Cluster labels go into ``obs[key_added]``
 as a ``pd.Categorical`` when ``obs`` is a pandas DataFrame, and as an array
-of label strings otherwise. ``snf`` is not ported yet (ROADMAP item 10).
+of label strings otherwise. ``snf`` is not ported yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def umap(
 
     if mesh is not None:
         raise NotImplementedError(
-            "UMAP over a device mesh is not ported yet (ROADMAP item 12)"
+            "UMAP over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
         )
     data = mdata.copy() if copy else mdata
     nkey = neighbors_key or "neighbors"

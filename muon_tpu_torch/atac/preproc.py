@@ -60,7 +60,7 @@ def tfidf(
     adata = _get_atac(data)
     if mesh is not None:
         raise NotImplementedError(
-            "tfidf over a device mesh is not ported yet (ROADMAP item 12)"
+            "tfidf over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
         )
     if log_tfidf and (log_tf or log_idf):
         raise AttributeError(
@@ -84,7 +84,7 @@ def tfidf(
 
     if getattr(counts, "_sparse", False) and hasattr(counts, "_h5"):
         raise NotImplementedError(
-            "tfidf of a backed matrix is not ported yet (ROADMAP item 11)"
+            "tfidf of a backed matrix is not ported yet (ROADMAP queue 1 item 8)"
         )
     if issparse(counts):
         X = counts.tocsr()

@@ -36,7 +36,7 @@ def lsi(
     adata = _get_atac(data)
     if mesh is not None:
         raise NotImplementedError(
-            "lsi over a device mesh is not ported yet (ROADMAP item 12)"
+            "lsi over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
         )
     n_comps = min(n_comps, adata.X.shape[1])
     U, s, Vt = randomized_svd(

@@ -21,6 +21,9 @@ constexpr int kQ = 128;  // queries per block, one per thread
 constexpr int kC = 32;   // candidates per shared-memory tile
 constexpr int kD = 64;   // dimensions per chunk
 constexpr int kWarp = 32;
+// lists up to this long keep the heap in a per-thread array; ops/knn.py
+// LOCAL_LIST
+constexpr int kLocalList = 256;
 
 // ---------------------------------------------------------------------------
 // T14: for every work item (QB queries of one chunk of the cluster-sorted
@@ -45,7 +48,9 @@ constexpr int kWarp = 32;
 // add; no atomics, so a run repeats bit for bit.
 //
 // Selection: T5's max-heap of k+1 entries on (distance, slot), where slot =
-// p L + l is the candidate's place in the item's probe list. Candidates
+// p L + l is the candidate's place in the item's probe list; in a
+// per-thread array up to k+1 = 256, beyond that (KMAX = 0) in the query's
+// own row of the outputs, the slots turned into positions in place. Candidates
 // arrive in slot order, so an equal distance never displaces an entry: ties
 // go to the earlier slot, as lax.top_k over the reference's grid. The query
 // itself (found by position) enters at -inf and so comes out first. A query
@@ -103,8 +108,11 @@ __global__ void __launch_bounds__(kQ)
   }
   // qv now holds the last chunk; with one chunk that is the whole query
 
-  float heap_d[KMAX];
-  int heap_i[KMAX];
+  float local_d[KMAX > 0 ? KMAX : 1];
+  int local_i[KMAX > 0 ? KMAX : 1];
+  const int64_t o = ((int64_t)item * QB + (slot_q < QB ? slot_q : 0)) * k1;
+  float* heap_d = KMAX > 0 ? local_d : out_dist + o;
+  int* heap_i = KMAX > 0 ? local_i : out_pos + o;
   int cnt = 0;
 
   for (int p = 0; p < P; ++p) {
@@ -169,13 +177,12 @@ __global__ void __launch_bounds__(kQ)
     }
   }
   if (slot_q >= QB) return;
-  const int64_t o = ((int64_t)item * QB + slot_q) * k1;
   if (active) heap_sort(heap_d, heap_i, cnt);
   for (int r = 0; r < k1; ++r) {
     if (active && r < cnt) {
       const int slot = heap_i[r];
       out_pos[o + r] = probe_pos[(int64_t)item * P + slot / L] + slot % L;
-      out_dist[o + r] = heap_d[r];
+      if (KMAX > 0) out_dist[o + r] = heap_d[r];
     } else {
       out_pos[o + r] = 0;
       out_dist[o + r] = INFINITY;
@@ -274,8 +281,9 @@ extern "C" {
 
 // T14. Xs (n x d) f32, sorted by cluster; qids (I x QB) int32 positions into
 // Xs, -1 padded; probe_pos, probe_cnt (I x P) int32 chunk starts (-1 padded)
-// and lengths, every length <= L; mu (I x d) f32; k1 = k + 1 <= 256 places
-// per query; pos (I x QB x k1) int32 and dist (I x QB x k1) f32 out.
+// and lengths, every length <= L; mu (I x d) f32; k1 = k + 1 >= 1 places per
+// query (from 257 on the heap lives in the outputs); pos (I x QB x k1) int32
+// and dist (I x QB x k1) f32 out.
 int mt_ivf_search(const float* Xs, const int* qids, const int* probe_pos,
                   const int* probe_cnt, const float* mu, int n, int d, int I,
                   int QB, int P, int L, int k1, int half, int* pos, float* dist,
@@ -283,14 +291,18 @@ int mt_ivf_search(const float* Xs, const int* qids, const int* probe_pos,
   cudaStream_t s = (cudaStream_t)stream;
   if (I <= 0 || QB <= 0) return (int)cudaGetLastError();
   const int64_t blocks = (int64_t)((QB + kQ - 1) / kQ) * I;
-  if (k1 < 1 || k1 > 256 || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (k1 < 1 || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
   if (k1 <= 32)
     ivf_search_kernel<32><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt, mu,
                                               n, d, QB, P, L, k1, half, pos, dist);
+  else if (k1 <= kLocalList)
+    ivf_search_kernel<kLocalList><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt,
+                                                      mu, n, d, QB, P, L, k1, half,
+                                                      pos, dist);
   else
-    ivf_search_kernel<256><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt, mu,
-                                               n, d, QB, P, L, k1, half, pos, dist);
+    ivf_search_kernel<0><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt, mu,
+                                             n, d, QB, P, L, k1, half, pos, dist);
   return (int)cudaGetLastError();
 }
 

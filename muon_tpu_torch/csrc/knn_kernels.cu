@@ -34,7 +34,10 @@ namespace {
 // terms (n^2 d; 5e11 at n = 1e5, d = 50, padded to 64) and the shared-memory
 // loads feeding them (one 16-byte broadcast load per 4 FMAs). The heap lives
 // in a per-thread array (local memory, cached in L1), touched only on an
-// insertion; it is sorted once at the end.
+// insertion; it is sorted once at the end. Lists longer than 256 (k >= 256)
+// keep the heap in the query's own row of the outputs instead (KMAX = 0):
+// global memory, read and written only on an insertion, sorted in place, so
+// any k up to n - 1 runs with no array sized at compile time.
 //
 // Distance, with the reference's rounding points:
 //   one_minus = 0: d2 = max((|q|^2 + |c|^2) - 2 cross, 0), norms given in f32
@@ -57,6 +60,9 @@ namespace {
 constexpr int kQ = 128;  // queries per block, one per thread
 constexpr int kC = 32;   // candidates per shared-memory tile
 constexpr int kD = 64;   // dimensions per chunk
+// lists (k + 1 places, self included) up to this long keep the heap in a
+// per-thread array; ops/knn.py LOCAL_LIST
+constexpr int kLocalList = 256;
 
 template <int KMAX>
 __global__ void __launch_bounds__(kQ)
@@ -75,8 +81,11 @@ __global__ void __launch_bounds__(kQ)
 #pragma unroll
   for (int u = 0; u < kD; ++u) qv[u] = (active && u < d) ? q[u] : 0.f;
 
-  float heap_d[KMAX];
-  int heap_i[KMAX];
+  float local_d[KMAX > 0 ? KMAX : 1];
+  int local_i[KMAX > 0 ? KMAX : 1];
+  const int64_t o = (int64_t)(active ? i : 0) * (k + 1);
+  float* heap_d = KMAX > 0 ? local_d : out_dist + o + 1;
+  int* heap_i = KMAX > 0 ? local_i : out_idx + o + 1;
   int cnt = 0;
 
   for (int c0 = 0; c0 < n; c0 += kC) {
@@ -130,11 +139,10 @@ __global__ void __launch_bounds__(kQ)
   }
   if (!active) return;
   heap_sort(heap_d, heap_i, k);
-  const int64_t o = (int64_t)i * (k + 1);
   out_idx[o] = i;
   out_dist[o] = 0.f;
   for (int r = 0; r < k; ++r) {
-    out_idx[o + 1 + r] = heap_i[r];
+    if (KMAX > 0) out_idx[o + 1 + r] = heap_i[r];
     out_dist[o + 1 + r] = take_sqrt ? sqrtf(fmaxf(heap_d[r], 0.f)) : heap_d[r];
   }
 }
@@ -246,8 +254,9 @@ __global__ void smooth_knn_kernel(const float* __restrict__ dists, int n,
 extern "C" {
 
 // T5. X (n x d) f32; sq (n,) f32 squared row norms (unused when
-// one_minus); k <= 255 neighbours besides self; idx (n x (k+1)) int32 and
-// dist (n x (k+1)) f32 out.
+// one_minus); 0 <= k <= n - 1 neighbours besides self (from k = 256 on the
+// heap lives in the outputs); idx (n x (k+1)) int32 and dist (n x (k+1)) f32
+// out.
 int mt_knn_topk(const float* X, const float* sq, int n, int d, int k,
                 int one_minus, int take_sqrt, int* idx, float* dist,
                 void* stream) {
@@ -257,9 +266,12 @@ int mt_knn_topk(const float* X, const float* sq, int n, int d, int k,
     if (k <= 32)
       knn_topk_kernel<32><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
                                                 take_sqrt, idx, dist);
+    else if (k < kLocalList)
+      knn_topk_kernel<kLocalList><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
+                                                        take_sqrt, idx, dist);
     else
-      knn_topk_kernel<256><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
-                                                 take_sqrt, idx, dist);
+      knn_topk_kernel<0><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
+                                               take_sqrt, idx, dist);
   }
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,8 @@
 //                             (with its reduction _segsum_sorted)
 //   T16 membership_matvec  <- muon_tpu/ops/umap.py _spectral_membership_fn
 //                             (its matvec)
+//   T22 umap_epoch_asym    <- muon_tpu/ops/umap.py _optimize_fn (:407), with
+//                             move_other and an asymmetric graph
 //
 // T13:
 // One epoch of the reference's symmetric-graph SGD, in one launch: the
@@ -252,6 +254,129 @@ umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb
 }
 
 // ---------------------------------------------------------------------------
+// T22: one epoch of the reference's SGD on an asymmetric graph. The tail of
+// an edge no longer mirrors a head edge, so the tail update is a pass of its
+// own: emb_out = emb + alpha (upd_h + upd_neg) - alpha upd_t, where upd_h
+// sums the clipped attraction g(e) of the due edges by head, upd_t the same
+// g(e) by tail, and upd_neg the vertex-pooled negatives times the vertex's
+// count of due head edges this epoch (an integer, not T13's expected rate).
+// No stride buckets: an edge is due when eons <= epoch + 1.
+//
+// A warp per vertex, as T13, with the coordinates walked in chunks of 8 (any
+// dim; one chunk up to 8). The head pass walks the vertex's head-sorted
+// edges; the tail pass walks the edges whose tail it is, in the tail-sorted
+// order t_order (a CSR over tails, t_indptr), and recomputes g(e) from the
+// unchanged emb with the head's coordinates, so no E x dim buffer of g is
+// kept. The due decision of both passes reads eons; the advanced eons go to
+// eons_out (the caller swaps the two, as it swaps emb): a tail pass reading
+// an eons that another warp's head pass had already advanced would see the
+// edge not due. Every edge belongs to one head, so eons_out is written once
+// per edge, due or not.
+//
+// Bound: per epoch each edge's eons is read twice and written once, its
+// tail, head and order index read, eps read when due: about 24 bytes an
+// edge; the layout stays in L2. Tail rows are gathered in another order than
+// head rows, which the direct sums pay for in scattered reads of emb.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float attraction(float d2, float c_att, float b, float a) {
+  return d2 > 0.f ? __fdiv_rn(__fmul_rn(c_att, powf(d2, b - 1.0f)),
+                              __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f))
+                  : 0.f;
+}
+
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+umap_epoch_asym_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
+                       const int* __restrict__ indptr, const int* __restrict__ heads,
+                       const int* __restrict__ tails, const float* __restrict__ eps,
+                       const float* __restrict__ eons, float* __restrict__ eons_out,
+                       const int* __restrict__ t_indptr, const int* __restrict__ t_order,
+                       const int* __restrict__ negs, int n, int dim, int neg_rate,
+                       int epoch, float alpha, float a, float b, float gamma) {
+  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (i >= n) return;
+  const float due_by = (float)epoch + 1.0f;
+  const float c_att = -2.0f * a * b;
+  const int e0 = indptr[i], e1 = indptr[i + 1];
+  const int p0 = t_indptr[i], p1 = t_indptr[i + 1];
+  const float* xi = emb + (int64_t)i * dim;
+  int due_cnt = 0;
+  for (int e = e0 + lane; e < e1; e += kWarp) {
+    const float eo = eons[e];
+    const bool due = eo <= due_by;
+    due_cnt += due;
+    eons_out[e] = due ? __fadd_rn(eo, eps[e]) : eo;
+  }
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) due_cnt += __shfl_xor_sync(0xffffffffu, due_cnt, o);
+  const float dc = (float)due_cnt;
+  for (int k0 = 0; k0 < dim; k0 += kMaxDim) {
+    const int kc = min(kMaxDim, dim - k0);
+    float up[kMaxDim], ut[kMaxDim], un[kMaxDim];
+#pragma unroll
+    for (int k = 0; k < kMaxDim; ++k) up[k] = ut[k] = un[k] = 0.f;
+    for (int e = e0 + lane; e < e1; e += kWarp) {
+      if (!(eons[e] <= due_by)) continue;
+      const int t = tails[e];
+      const float coeff = attraction(sq_dist_rows(emb, i, t, dim), c_att, b, a);
+      const float* xt = emb + (int64_t)t * dim;
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < kc)
+          up[k] = __fadd_rn(up[k], clip4(__fmul_rn(coeff, __fsub_rn(xi[k0 + k], xt[k0 + k]))));
+    }
+    for (int p = p0 + lane; p < p1; p += kWarp) {
+      const int e = t_order[p];
+      if (!(eons[e] <= due_by)) continue;
+      const int h = heads[e];
+      const float coeff = attraction(sq_dist_rows(emb, h, i, dim), c_att, b, a);
+      const float* xh = emb + (int64_t)h * dim;
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < kc)
+          ut[k] = __fadd_rn(ut[k], clip4(__fmul_rn(coeff, __fsub_rn(xh[k0 + k], xi[k0 + k]))));
+    }
+    if (lane < neg_rate) {
+      const int j = negs[(int64_t)i * neg_rate + lane];
+      if (j != i) {
+        const float d2 = sq_dist_rows(emb, i, j, dim);
+        if (d2 > 0.f) {
+          const float coeff = __fdiv_rn(
+              2.0f * gamma * b,
+              __fmul_rn(__fadd_rn(0.001f, d2),
+                        __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f)));
+          const float* xj = emb + (int64_t)j * dim;
+#pragma unroll
+          for (int k = 0; k < kMaxDim; ++k)
+            if (k < kc) un[k] = clip4(__fmul_rn(coeff, __fsub_rn(xi[k0 + k], xj[k0 + k])));
+        } else {
+#pragma unroll
+          for (int k = 0; k < kMaxDim; ++k) un[k] = 4.0f;  // the reference's d2 == 0 branch
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxDim; ++k) {
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        up[k] = __fadd_rn(up[k], __shfl_xor_sync(0xffffffffu, up[k], o));
+        ut[k] = __fadd_rn(ut[k], __shfl_xor_sync(0xffffffffu, ut[k], o));
+        un[k] = __fadd_rn(un[k], __shfl_xor_sync(0xffffffffu, un[k], o));
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < kc)
+          emb_out[(int64_t)i * dim + k0 + k] = __fsub_rn(
+              __fadd_rn(xi[k0 + k], __fmul_rn(alpha, __fadd_rn(up[k], __fmul_rn(un[k], dc)))),
+              __fmul_rn(alpha, ut[k]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // T16: Y = s . ((W + W^T)(s . Q)), one application of the normalised
 // operator D^-1/2 (W + W^T) D^-1/2 of the spectral seed, for m <= 16
 // columns. W is the directed (n, k) membership table: row i holds vals[i, p]
@@ -339,6 +464,27 @@ int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
     MT_UMAP_DIM(8)
   }
 #undef MT_UMAP_DIM
+  return (int)cudaGetLastError();
+}
+
+// T22. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32
+// over the head-sorted edges; heads, tails (E) int32; eps (E) f32; eons (E)
+// f32 in, eons_out (E) f32 out; t_indptr (n+1) int32 over the edges sorted
+// by tail, t_order (E) int32 their indices; negs (n x neg_rate) int32,
+// 0 <= neg_rate <= 32; dim >= 2.
+int mt_umap_epoch_asym(const float* emb, float* emb_out, const int* indptr,
+                       const int* heads, const int* tails, const float* eps,
+                       const float* eons, float* eons_out, const int* t_indptr,
+                       const int* t_order, const int* negs, int n, int dim, int neg_rate,
+                       int epoch, float alpha, float a, float b, float gamma,
+                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (dim < 2 || neg_rate < 0 || neg_rate > kWarp) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  umap_epoch_asym_kernel<<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+      emb, emb_out, indptr, heads, tails, eps, eons, eons_out, t_indptr, t_order, negs, n,
+      dim, neg_rate, epoch, alpha, a, b, gamma);
   return (int)cudaGetLastError();
 }
 

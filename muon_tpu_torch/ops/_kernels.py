@@ -72,6 +72,9 @@ _SIGNATURES = {
                             _I, _P, _P, _P, _P, _P, _P),
     "mt_mofa_row_dot": (_P, _P, _LL, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_rank1_update": (_P, _P, _LL, _P, _LL, _P, _I, _I, _P),
+    "mt_gmm_background_means": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
+    "mt_umap_epoch_asym": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -85,6 +88,7 @@ KERNELS = {
     "csr_row_sums": "mt_csr_row_sums",
     "csr_scale_rows": "mt_csr_scale_rows",
     "knn_topk": "mt_knn_topk",
+    "knn_topk_global": "mt_knn_topk",  # lists longer than 256: the heap in the outputs
     "smooth_knn_membership": "mt_smooth_knn",
     "wnn_bandwidth": "mt_wnn_bandwidth",
     "wnn_bandwidth_global": "mt_wnn_bandwidth",  # the candidates in global memory
@@ -93,12 +97,15 @@ KERNELS = {
     "clr_dense": "mt_clr_dense",
     "umap_epoch": "mt_umap_epoch",
     "ivf_search": "mt_ivf_search",
+    "ivf_search_global": "mt_ivf_search",  # lists longer than 256: the heap in the outputs
     "kmeans_assign": "mt_kmeans_assign",
     "membership_matvec": "mt_membership_matvec",
     "mofa_col_dot": "mt_mofa_col_dot",
     "mofa_w_posterior": "mt_mofa_w_posterior",
     "mofa_row_dot": "mt_mofa_row_dot",
     "mofa_rank1_update": "mt_mofa_rank1_update",
+    "gmm_background_means": "mt_gmm_background_means",
+    "umap_epoch_asym": "mt_umap_epoch_asym",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

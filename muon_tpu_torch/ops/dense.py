@@ -9,7 +9,7 @@ returns one of the two forms the reference computes: ``logx − gm``
 on a dense X). The wrapper runs the plain version for a tensor on the CPU;
 for a CUDA tensor it launches T12 or raises.
 
-``tfidf_dense`` and ``l2norm_dense`` are not ported yet (ROADMAP item 10).
+``tfidf_dense`` and ``l2norm_dense`` are not ported yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ import torch
 from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, dense_to_tensor
-from .knn import MAX_K, _order_keys
+from .knn import LOCAL_LIST, _order_keys
 
 __all__ = ["ivf_knn", "build_ivf_layout", "kmeans", "kmeans_assign",
            "kmeans_assign_plain", "item_means", "ivf_search", "ivf_search_plain"]
@@ -259,8 +259,8 @@ def _check_search_args(Xs, qids, probe_pos, probe_cnt, mu, k, L) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
     if probe_pos.shape != probe_cnt.shape or mu.shape[0] != I:
         raise ValueError("probe_pos, probe_cnt and mu must have a row per work item")
-    if not 0 <= k <= MAX_K:
-        raise ValueError(f"k={k} must lie in [0, {MAX_K}]")
+    if k < 0:
+        raise ValueError(f"k={k} must be >= 0")
     QB, P = qids.shape[1], probe_pos.shape[1]
     if max(n, d, I * QB * (k + 1), P * L) > _INT32_MAX:
         raise ValueError("the search's shapes exceed the int32 range")
@@ -293,7 +293,7 @@ def ivf_search(Xs: torch.Tensor, qids: torch.Tensor, probe_pos: torch.Tensor,
     pos = torch.empty((I, QB, k + 1), dtype=torch.int32, device=Xs.device)
     dvals = torch.empty((I, QB, k + 1), dtype=torch.float32, device=Xs.device)
     _kernels.launch(
-        "ivf_search", Xs.device,
+        "ivf_search" if k + 1 <= LOCAL_LIST else "ivf_search_global", Xs.device,
         Xs.data_ptr(), qids.data_ptr(), probe_pos.data_ptr(), probe_cnt.data_ptr(),
         mu.data_ptr(), n, d, I, QB, P, int(L), k + 1, int(bool(half)),
         pos.data_ptr(), dvals.data_ptr(),

@@ -26,12 +26,14 @@ from . import _kernels
 from .device import DeviceLike, dense_to_tensor
 
 __all__ = ["knn", "knn_topk", "knn_topk_plain", "pairwise_sq_dists",
-           "IVF_THRESHOLD", "MAX_K"]
+           "IVF_THRESHOLD", "LOCAL_LIST"]
 
 # above this row count the reference's approximate path takes the IVF index
 IVF_THRESHOLD = 200_000
-# neighbours besides self that T5 keeps per query (its list is 256 long)
-MAX_K = 255
+# T5 and T14 keep a query's list (k + 1 places, self included) in a
+# per-thread array up to this length, and in the query's row of the outputs
+# beyond it (counted apart: knn_topk_global, ivf_search_global)
+LOCAL_LIST = 256
 _INT32_MAX = 2**31 - 1
 
 
@@ -80,7 +82,8 @@ def knn_topk(
     distance 0, then the k others with the smallest distance, ties to the
     lower index. The distance is ``max(sq_i + sq_j − 2·cross, 0)``, or
     ``1 − cross`` when ``one_minus``, with the cross term summed in
-    float32; ``take_sqrt`` returns the square roots of columns 1..k."""
+    float32; ``take_sqrt`` returns the square roots of columns 1..k. Any
+    k up to n − 1."""
     if X.device.type == "cpu" and (sq is None or sq.device.type == "cpu"):
         return knn_topk_plain(X, sq, k, one_minus, take_sqrt)
     if X.device.type != "cuda":
@@ -91,8 +94,8 @@ def knn_topk(
     n, d = X.shape
     if not (1 <= d and n <= _INT32_MAX and d <= _INT32_MAX):
         raise ValueError(f"X of shape {(n, d)} is outside what T5 takes")
-    if not 0 <= k <= min(MAX_K, n - 1):
-        raise ValueError(f"k={k} must lie in [0, min({MAX_K}, n-1={n - 1})]")
+    if not 0 <= k <= n - 1:
+        raise ValueError(f"k={k} must lie in [0, n-1={n - 1}]")
     if not one_minus:
         if sq is None or sq.device != X.device or sq.dtype != torch.float32 \
                 or tuple(sq.shape) != (n,) or not sq.is_contiguous():
@@ -100,7 +103,7 @@ def knn_topk(
     idx = torch.empty((n, k + 1), dtype=torch.int32, device=X.device)
     dists = torch.empty((n, k + 1), dtype=torch.float32, device=X.device)
     _kernels.launch(
-        "knn_topk", X.device,
+        "knn_topk" if k + 1 <= LOCAL_LIST else "knn_topk_global", X.device,
         X.data_ptr(), 0 if one_minus else sq.data_ptr(), n, d, k, int(one_minus),
         int(take_sqrt), idx.data_ptr(), dists.data_ptr(),
     )

@@ -2,7 +2,8 @@
 
     umap_epoch         T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
     membership_matvec  T16  <- _spectral_membership_fn's matvec
-                               (both in csrc/umap_kernels.cu)
+    umap_epoch_asym    T22  <- _optimize_fn (move_other, asymmetric)
+                               (all three in csrc/umap_kernels.cu)
 
 The fuzzy graph's edges live on the device as one head-sorted edge list
 (a CSR over the vertices) with a per-edge stride; each epoch is one launch
@@ -20,8 +21,16 @@ power-of-two size class, the per-bucket padded edge lists, and the 25-epoch
 chunks. The negatives of each epoch are drawn as an (n, neg_rate) int32
 table by ``torch.randint`` from a ``torch.Generator`` seeded with
 ``random_state`` and handed to T13, so a test can hand it the reference's
-draws instead. Only the symmetric path (``tl.umap`` always asserts it) is
-ported.
+draws instead.
+
+An asymmetric graph (found by the reference's ``G − Gᵀ`` probe, or any graph
+under ``assume_symmetric=False``) takes the reference's other program: no
+stride buckets, the repulsion scaled by the vertex's actual count of due
+edges, and an explicit tail pass over the edges sorted by tail, one launch
+of T22 an epoch. T22 reads ``eons`` and writes the advanced values to a
+second buffer, so its tail pass decides which edges are due from the same
+values as its head pass. ``tl.umap`` asserts symmetry, as the reference's
+does, and so runs T13.
 
 The spectral seed has the reference's two paths. Below 8M edges, or
 without a membership tag on the graph, the exact one: the port's symmetric
@@ -48,7 +57,8 @@ from .fuzzy import MEMBERSHIP_TAG
 
 __all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
            "bucket_shifts", "UmapEdges", "umap_edges", "umap_epoch",
-           "umap_epoch_plain", "MembershipOperator", "membership_operator",
+           "umap_epoch_plain", "UmapTails", "umap_tails", "umap_epoch_asym",
+           "umap_epoch_asym_plain", "MembershipOperator", "membership_operator",
            "membership_matvec", "membership_matvec_plain", "spectral_membership"]
 
 # the reference buckets edges by stride only from this many edges on
@@ -341,6 +351,8 @@ def _check_epoch_args(emb, out, edges, eons, dc_exp, negs) -> None:
         ("dc_exp", dc_exp, torch.float32, (n,)),
         ("negs", negs, torch.int32, (n, negs.shape[1] if negs.dim() == 2 else -1)),
     ):
+        if t is None:  # T22 takes no expected due rate
+            continue
         if t.device != emb.device:
             raise ValueError(f"{name} is on {t.device}, emb on {emb.device}")
         if t.dtype != dt:
@@ -349,10 +361,10 @@ def _check_epoch_args(emb, out, edges, eons, dc_exp, negs) -> None:
             raise ValueError(f"{name} must be contiguous with shape {shape}, "
                              f"got {tuple(t.shape)}")
     if dim < 2 or n * dim > 2**31 - 1:
-        raise ValueError(f"T13 takes at least 2 components and n * dim below 2^31, "
+        raise ValueError(f"T13 and T22 take at least 2 components and n * dim below 2^31, "
                          f"got n={n} dim={dim}")
     if not 0 <= negs.shape[1] <= MAX_NEG_RATE:
-        raise ValueError(f"T13 takes at most {MAX_NEG_RATE} negatives per vertex, "
+        raise ValueError(f"T13 and T22 take at most {MAX_NEG_RATE} negatives per vertex, "
                          f"got {negs.shape[1]}")
     if out.data_ptr() == emb.data_ptr():
         raise ValueError("out must not alias emb: the epoch reads emb whole")
@@ -383,22 +395,21 @@ def umap_epoch(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
     return out
 
 
-def umap_epoch_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
-                     eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
-                     epoch: int, alpha: float, a: float, b: float,
-                     gamma: float) -> torch.Tensor:
-    heads, tails = edges.heads.long(), edges.tails.long()
-    stride = torch.ones_like(edges.shift, dtype=torch.int64) << edges.shift.long()
-    due = (int(epoch) % stride == 0) & (eons <= float(epoch) + 1.0)
-    diff = emb[heads] - emb[tails]
+def _clipped_attraction(emb: torch.Tensor, edges: UmapEdges, due: torch.Tensor,
+                        a: float, b: float) -> torch.Tensor:
+    """g(e) of every edge, clipped to ±4, zero where not ``due`` (E, dim)."""
+    diff = emb[edges.heads.long()] - emb[edges.tails.long()]
     d2 = (diff * diff).sum(-1)
     coeff = (-2.0 * a * b * d2 ** (b - 1.0)) / (a * d2**b + 1.0)
     coeff = torch.where(d2 > 0, coeff, 0.0)
     g = torch.clamp(coeff[:, None] * diff, -4.0, 4.0)
-    g = torch.where(due[:, None], g, 0.0)
-    upd_h = torch.zeros_like(emb).index_add_(0, heads, g)
-    eons.copy_(torch.where(due, eons + edges.eps, eons))
+    return torch.where(due[:, None], g, 0.0)
 
+
+def _negative_sums(emb: torch.Tensor, negs: torch.Tensor, a: float, b: float,
+                   gamma: float) -> torch.Tensor:
+    """The vertex-pooled repulsion, summed over each vertex's negatives: a
+    self hit adds 0, a negative at the vertex's own position 4 (n, dim)."""
     n, R = negs.shape
     vneg = emb[negs.reshape(-1).long()].reshape(n, R, -1)
     diffn = emb[:, None, :] - vneg
@@ -406,9 +417,99 @@ def umap_epoch_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
     cn = (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n**b + 1.0))
     gn = torch.where(d2n[..., None] > 0, torch.clamp(cn[..., None] * diffn, -4.0, 4.0), 4.0)
     self_hit = negs.long() == torch.arange(n, device=emb.device)[:, None]
-    gn = torch.where(self_hit[..., None], 0.0, gn)
-    upd_neg = gn.sum(dim=1) * dc_exp[:, None]
+    return torch.where(self_hit[..., None], 0.0, gn).sum(dim=1)
+
+
+def umap_epoch_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
+                     eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
+                     epoch: int, alpha: float, a: float, b: float,
+                     gamma: float) -> torch.Tensor:
+    stride = torch.ones_like(edges.shift, dtype=torch.int64) << edges.shift.long()
+    due = (int(epoch) % stride == 0) & (eons <= float(epoch) + 1.0)
+    g = _clipped_attraction(emb, edges, due, a, b)
+    upd_h = torch.zeros_like(emb).index_add_(0, edges.heads.long(), g)
+    eons.copy_(torch.where(due, eons + edges.eps, eons))
+    upd_neg = _negative_sums(emb, negs, a, b, gamma) * dc_exp[:, None]
     return out.copy_(emb + alpha * (2.0 * upd_h + upd_neg))
+
+
+class UmapTails(NamedTuple):
+    """The edges again, sorted by tail: a CSR over the tail vertices."""
+
+    indptr: torch.Tensor  # (n+1,) int32, vertex i is the tail of order[indptr[i]:indptr[i+1]]
+    order: torch.Tensor   # (E,) int32 edge indices, ascending within a tail (stable)
+
+
+def umap_tails(edges: UmapEdges) -> UmapTails:
+    """The tail-sorted order of ``edges`` on their device (the reference's
+    stable ``argsort(tails)``)."""
+    n = edges.indptr.shape[0] - 1
+    order = torch.sort(edges.tails, stable=True).indices
+    counts = torch.bincount(edges.tails.long(), minlength=n)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=edges.tails.device)
+    torch.cumsum(counts, dim=0, out=indptr[1:])
+    return UmapTails(indptr.int(), order.int())
+
+
+def _check_asym_args(emb, out, edges, tails, eons, eons_out, negs) -> None:
+    E = edges.tails.shape[0]
+    _check_epoch_args(emb, out, edges, eons, None, negs)
+    for name, t, dt, shape in (
+        ("edges.heads", edges.heads, torch.int32, (E,)),
+        ("tails.indptr", tails.indptr, torch.int32, (emb.shape[0] + 1,)),
+        ("tails.order", tails.order, torch.int32, (E,)),
+        ("eons_out", eons_out, torch.float32, (E,)),
+    ):
+        if t.device != emb.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of shape {shape} "
+                             f"on {emb.device}")
+    if eons_out.data_ptr() == eons.data_ptr():
+        raise ValueError("eons_out must not alias eons: the tail pass reads eons whole")
+
+
+def umap_epoch_asym(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
+                    tails: UmapTails, eons: torch.Tensor, eons_out: torch.Tensor,
+                    negs: torch.Tensor, epoch: int, alpha: float, a: float, b: float,
+                    gamma: float) -> torch.Tensor:
+    """T22: one SGD epoch of an asymmetric graph. Reads ``emb (n, dim)`` and
+    ``eons``, writes the new layout into ``out`` and the advanced eons into
+    ``eons_out``; returns ``out``. An edge is due when eons ≤ epoch + 1 (no
+    stride); the repulsion of ``negs (n, neg_rate)`` is scaled by the
+    vertex's count of due head edges; the tail update is subtracted:
+    out = emb + α(upd_h + upd_neg) − α·upd_t. ``edges.shift`` is not read."""
+    if emb.device.type == "cpu":
+        return umap_epoch_asym_plain(emb, out, edges, tails, eons, eons_out, negs, epoch,
+                                     alpha, a, b, gamma)
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_asym_args(emb, out, edges, tails, eons, eons_out, negs)
+    n, dim = emb.shape
+    _kernels.launch(
+        "umap_epoch_asym", emb.device,
+        emb.data_ptr(), out.data_ptr(), edges.indptr.data_ptr(), edges.heads.data_ptr(),
+        edges.tails.data_ptr(), edges.eps.data_ptr(), eons.data_ptr(), eons_out.data_ptr(),
+        tails.indptr.data_ptr(), tails.order.data_ptr(), negs.data_ptr(), n, dim,
+        negs.shape[1], int(epoch), float(alpha), float(a), float(b), float(gamma),
+    )
+    return out
+
+
+def umap_epoch_asym_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
+                          tails: UmapTails, eons: torch.Tensor, eons_out: torch.Tensor,
+                          negs: torch.Tensor, epoch: int, alpha: float, a: float, b: float,
+                          gamma: float) -> torch.Tensor:
+    due = eons <= float(epoch) + 1.0
+    g = _clipped_attraction(emb, edges, due, a, b)
+    heads = edges.heads.long()
+    upd_h = torch.zeros_like(emb).index_add_(0, heads, g)
+    order = tails.order.long()
+    upd_t = torch.zeros_like(emb).index_add_(0, edges.tails.long()[order], g[order])
+    dc = torch.zeros(emb.shape[0], dtype=emb.dtype, device=emb.device).index_add_(
+        0, heads, due.to(emb.dtype))
+    eons_out.copy_(torch.where(due, eons + edges.eps, eons))
+    upd_neg = _negative_sums(emb, negs, a, b, gamma) * dc[:, None]
+    return out.copy_(emb + alpha * (upd_h + upd_neg) - alpha * upd_t)
 
 
 def epoch_alpha(init_alpha: float, epoch: int, n_epochs: int) -> float:
@@ -438,8 +539,9 @@ def umap_embed(
     returns the (n, n_components) float32 layout on the host.
 
     ``assume_symmetric=True`` skips the O(nnz·log) scipy ``G − Gᵀ`` probe.
-    An asymmetric graph raises: the reference's tail-sorted fallback
-    (``_optimize_fn``) is not ported yet."""
+    An asymmetric graph, or ``assume_symmetric=False``, runs the
+    reference's tail-pass program (T22) instead of the symmetric fold
+    (T13)."""
     device = resolve_device(device)
     n = graph.shape[0]
     # read the tag before tocoo(): the COO copy does not carry it
@@ -459,12 +561,8 @@ def umap_embed(
             symmetric = bool(np.abs((Gk - Gk.T).data).max(initial=0.0) < 1e-12)
         else:
             symmetric = bool(assume_symmetric)
-        if not symmetric:
-            raise NotImplementedError(
-                "UMAP of an asymmetric graph (the reference's _optimize_fn) is "
-                "not ported yet (ROADMAP, kernels to port: K12 asymmetric)"
-            )
-        shift = bucket_shifts(eps, n_epochs)
+        # the asymmetric program has no stride buckets
+        shift = bucket_shifts(eps, n_epochs) if symmetric else np.zeros(len(eps), np.int8)
 
     if isinstance(init, np.ndarray):
         emb = np.asarray(init, dtype=np.float32)
@@ -482,13 +580,20 @@ def umap_embed(
         dc = torch.from_numpy(dc_exp).to(device)
         cur = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(device)
         nxt = torch.empty_like(cur)
+        if not symmetric:
+            by_tail, eons_nxt = umap_tails(edges), torch.empty_like(eons)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     with stage(f"umap/sgd_{n_epochs}epochs"):
         for epoch in range(n_epochs):
             negs = torch.randint(0, n, (n, int(negative_sample_rate)), generator=gen,
                                  dtype=torch.int32, device=device)
-            umap_epoch(cur, nxt, edges, eons, dc, negs, epoch,
-                       epoch_alpha(alpha, epoch, n_epochs), a, b, gamma)
+            alpha_e = epoch_alpha(alpha, epoch, n_epochs)
+            if symmetric:
+                umap_epoch(cur, nxt, edges, eons, dc, negs, epoch, alpha_e, a, b, gamma)
+            else:
+                umap_epoch_asym(cur, nxt, edges, by_tail, eons, eons_nxt, negs, epoch,
+                                alpha_e, a, b, gamma)
+                eons, eons_nxt = eons_nxt, eons
             cur, nxt = nxt, cur
     with stage("umap/download"):
         return cur.cpu().numpy()

@@ -1,6 +1,6 @@
 """Protein modality module (``from muon_tpu_torch import prot as pt``).
 
-Ported so far: ``pp.clr``.
+``pp.dsb`` and ``pp.clr``.
 """
 
 from . import preproc as pp

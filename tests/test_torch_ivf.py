@@ -374,6 +374,20 @@ def test_ivf_knn_matches_jax():
     np.testing.assert_allclose(sd.numpy()[same], rd[same], rtol=2e-3)
 
 
+def test_ivf_knn_long_lists_match_jax():
+    # k = 300: lists of 301 places, past the 256 a thread keeps in an array
+    # on the card; on one partition the two packages agree as at k = 15
+    X, _ = clustered_data(n_per=1000, n_clusters=5, d=10, seed=8)
+    ji._PARTITION_CACHE.clear()
+    ri, rd = ji.ivf_knn(X, 300, n_clusters=32)
+    _share_partition(X, 32)
+    gi, gd = ti.ivf_knn(X, 300, n_clusters=32, device=CPU)
+    assert gi.shape == (5000, 301)
+    same = gi.numpy() == ri
+    assert _recall(gi.numpy(), ri) >= 0.99 and same.mean() >= 0.99
+    np.testing.assert_allclose(gd.numpy()[same], rd[same], rtol=2e-3)
+
+
 class TestIvfKnn:
     """tests/test_neighbors.py::TestIvfKnn on the port."""
 
@@ -519,9 +533,10 @@ def test_gpu_kmeans_assign_matches_plain(cuda, n, d, C):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [15, 200])
+@pytest.mark.parametrize("k", [15, 200, 300])
 @pytest.mark.parametrize("metric,d", [("euclidean", 16), ("cosine", 16), ("euclidean", 130)])
 def test_gpu_ivf_search_matches_plain(cuda, metric, d, k):
+    # k = 300: lists longer than 256, the heap in the outputs
     X, _ = clustered_data(n_per=1500, n_clusters=8, d=d, seed=4)
     Xt = ti._ivf_metric(torch.from_numpy(X).to(cuda), metric)[0]
     init = np.random.default_rng(0).choice(len(X), 32, replace=False)
@@ -536,7 +551,7 @@ def test_gpu_ivf_search_matches_plain(cuda, metric, d, k):
     _kernels.reset_launch_counts()
     gp, gd = ti.ivf_search(*args)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts()["ivf_search"] == 1
+    assert _kernels.launch_counts()["ivf_search" if k < 256 else "ivf_search_global"] == 1
     rp, rd = ti.ivf_search_plain(*args)
     ok = qt >= 0
     assert torch.equal(torch.isinf(gd), torch.isinf(rd))
@@ -624,7 +639,7 @@ def test_gpu_ivf_wrappers_refuse_bad_input(cuda):
     pc = torch.full((1, 1), 100, dtype=torch.int32, device=cuda)
     mu_ = X.mean(0, keepdim=True)
     with pytest.raises(ValueError):
-        ti.ivf_search(X, q, pp_, pc, mu_, 300, 128, False)  # k + 1 > 256
+        ti.ivf_search(X, q, pp_, pc, mu_, -1, 128, False)  # no place per query
     with pytest.raises(ValueError):
         ti.ivf_search(X, q, pp_, pc, mu_, 5, 64, False)  # a chunk longer than L
     with pytest.raises(ValueError):

@@ -128,6 +128,18 @@ def test_knn_k_at_least_n_minus_1():
     assert gi.tolist() == [[0]] and gd.tolist() == [[0.0]]
 
 
+@pytest.mark.parametrize("metric, approx", [("euclidean", False), ("cosine", True)])
+def test_knn_long_lists_match_jax(metric, approx):
+    # k = 300: a list of 301 places, past the 256 that T5 keeps in a
+    # per-thread array (on the card its variant that keeps the heap in the
+    # outputs); the reference's top-k takes any k
+    X = _gaussian(1000, 12, seed=13)
+    ref = jk.knn(X, 300, metric=metric, approx=approx)
+    got = tk.knn(X, 300, metric=metric, approx=approx, device=CPU)
+    assert got[0].shape == (1000, 301)
+    _assert_same_knn(got, ref, X, metric, approx)
+
+
 def test_knn_without_self():
     X = _gaussian(80, 5, seed=5)
     full = tk.knn(X, 6, device=CPU)
@@ -238,11 +250,27 @@ def test_gpu_knn_duplicates_and_small_n(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("k", [256, 300, 1024])
+def test_gpu_knn_topk_long_lists_match_plain(cuda, k, approx):
+    # k + 1 = 257, 301, 1025: the variant that keeps the heap in the outputs
+    X = _gaussian(3000, 50, seed=k)
+    op, sq = tk._operand(torch.from_numpy(X).to(cuda), "euclidean", approx)
+    _kernels.reset_launch_counts()
+    got = tk.knn_topk(op, sq, k, False, True)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts["knn_topk_global"] == 1 and counts["knn_topk"] == 0
+    ref = tk.knn_topk_plain(op, sq, k, False, True)
+    _assert_same_knn([t.cpu() for t in got], [t.cpu() for t in ref], X, "euclidean", approx)
+
+
+@pytest.mark.gpu
 def test_gpu_knn_topk_refuses_bad_input(cuda):
     X = torch.randn((300, 4), device=cuda)
     sq = (X * X).sum(1)
     with pytest.raises(ValueError):
-        tk.knn_topk(X, sq, 256, False, False)  # list longer than 256
+        tk.knn_topk(X, sq, 300, False, False)  # more neighbours than n - 1
     with pytest.raises(ValueError):
         tk.knn_topk(X.double(), sq, 5, False, False)
     with pytest.raises(ValueError):

@@ -299,6 +299,117 @@ def test_epoch_dimensions(dim):
 
 
 # ---------------------------------------------------------------------------
+# T22's plain version against the reference's asymmetric program
+# ---------------------------------------------------------------------------
+
+
+def _asym_case(seed=0, directed=True):
+    """The upper triangle of the fuzzy graph (each edge once, one way), or
+    the whole graph, its edge schedule, the tail order and a spectral layout
+    of scale 10."""
+    G, labels = _graph(seed=seed)
+    if directed:
+        G = sp.triu(G).tocsr()
+    n = G.shape[0]
+    heads, tails, eps, _, _ = ju.edge_schedule(G, N_EPOCHS)
+    hs, he = ju._row_bounds(heads, n)
+    tsort = np.argsort(tails, kind="stable")
+    ts, te = ju._row_bounds(tails[tsort], n)
+    emb = ju.spectral_init(sp.csr_matrix(_graph(seed=seed)[0]), 2, seed=3)
+    a, b = ju.find_ab_params(1.0, 0.5)
+    return dict(n=n, heads=heads, tails=tails, eps=eps, hs=hs, he=he, ts=ts, te=te,
+                tsort=tsort.astype(np.int32), emb=emb, a=a, b=b, G=G, labels=labels)
+
+
+def _ref_asym_epochs(c, emb, eons, epoch0, n_run, key):
+    """The reference's _optimize_fn (move_other, asymmetric) from (emb,
+    eons): the new layout and eons, and the negatives it drew."""
+    f = ju._optimize_fn()
+    emb_o, eons_o, _ = f(
+        jnp.asarray(emb), jnp.asarray(eons), jnp.asarray(c["heads"]), jnp.asarray(c["tails"]),
+        jnp.asarray(c["eps"]), jnp.asarray(c["hs"]), jnp.asarray(c["he"]),
+        jnp.asarray(c["ts"]), jnp.asarray(c["te"]), float(epoch0), n_run, N_EPOCHS,
+        c["a"], c["b"], 1.0, 1.0, NEG_RATE, key, True, False, jnp.asarray(c["tsort"]))
+    draws, k = [], key
+    for _ in range(n_run):
+        k, sub = jax.random.split(k)
+        draws.append(np.asarray(jax.random.randint(sub, (c["n"], NEG_RATE), 0, c["n"]),
+                                dtype=np.int32))
+    return np.asarray(emb_o), np.asarray(eons_o), draws
+
+
+def _port_asym_epochs(c, emb, eons, epoch0, draws):
+    edges = tu.umap_edges(c["heads"], c["tails"], c["eps"], np.zeros(len(c["eps"]), np.int8),
+                          c["n"], CPU)
+    by_tail = tu.umap_tails(edges)
+    np.testing.assert_array_equal(by_tail.order.numpy(), c["tsort"])
+    cur, nxt = torch.from_numpy(emb.copy()), torch.empty(emb.shape)
+    eo, eo_next = torch.from_numpy(eons.copy()), torch.empty(len(eons))
+    for i, negs in enumerate(draws):
+        ep = epoch0 + i
+        tu.umap_epoch_asym(cur, nxt, edges, by_tail, eo, eo_next, torch.from_numpy(negs), ep,
+                           tu.epoch_alpha(1.0, ep, N_EPOCHS), c["a"], c["b"], 1.0)
+        cur, nxt, eo, eo_next = nxt, cur, eo_next, eo
+    return cur.numpy(), eo.numpy()
+
+
+@pytest.mark.parametrize("directed", [True, False])
+@pytest.mark.parametrize("epoch0", [0, 7, 150])
+def test_asym_epoch_matches_jax(directed, epoch0):
+    # one epoch from the same layout, eons and negatives; the whole graph
+    # (symmetric) runs the same program under assume_symmetric=False
+    c = _asym_case(directed=directed)
+    with jax.enable_x64(False):
+        eons = c["eps"] + np.float32(epoch0 // 2)  # some edges due, some not
+        ref, ref_eons, draws = _ref_asym_epochs(c, c["emb"], eons, epoch0, 1,
+                                                jax.random.PRNGKey(5))
+    got, got_eons = _port_asym_epochs(c, c["emb"], eons, epoch0, draws)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_eons, ref_eons)
+    assert np.abs(got - c["emb"]).max() > 1e-2  # the epoch moved the layout
+
+
+def test_asym_five_epochs_match_jax_epoch_by_epoch():
+    # five epochs, each from the reference's own state of the epoch before
+    c = _asym_case(seed=1)
+    emb, eons, key = c["emb"], c["eps"].copy(), jax.random.PRNGKey(13)
+    for epoch in range(5):
+        with jax.enable_x64(False):
+            key, sub = jax.random.split(key)
+            ref, ref_eons, draws = _ref_asym_epochs(c, emb, eons, epoch, 1, key)
+        got, got_eons = _port_asym_epochs(c, emb, eons, epoch, draws)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got_eons, ref_eons)
+        emb, eons, key = ref, ref_eons, sub
+
+
+def test_asym_five_epochs_match_jax_free_running():
+    # late in the schedule each package runs on its own
+    c = _asym_case(seed=2)
+    with jax.enable_x64(False):
+        ref, ref_eons, draws = _ref_asym_epochs(c, c["emb"], c["eps"], 195, 5,
+                                                jax.random.PRNGKey(3))
+    got, got_eons = _port_asym_epochs(c, c["emb"], c["eps"], 195, draws)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_eons, ref_eons)
+
+
+@pytest.mark.parametrize("graph", ["directed", "assume_symmetric=False"])
+def test_umap_embed_asymmetric_matches_jax_invariants(graph):
+    # the whole asymmetric run in both packages (their own random draws):
+    # the planted-label share of the layout within 0.05, and no kernel launched
+    c = _asym_case(seed=4, directed=graph == "directed")
+    kw = {} if graph == "directed" else {"assume_symmetric": False}
+    ref = ju.umap_embed(c["G"], n_epochs=200, random_state=4, **kw)
+    _kernels.reset_launch_counts()
+    got = tu.umap_embed(c["G"], n_epochs=200, random_state=4, device=CPU, **kw)
+    assert not any(_kernels.launch_counts().values())
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    s_ref, s_got = _knn_share(ref, c["labels"]), _knn_share(got, c["labels"])
+    assert abs(s_got - s_ref) <= 0.05 and s_got >= 0.9, (s_got, s_ref)
+
+
+# ---------------------------------------------------------------------------
 # spectral init and the whole embedding
 # ---------------------------------------------------------------------------
 
@@ -367,10 +478,6 @@ def test_umap_label_share_matches_jax(seed):
 
 
 def test_umap_refuses_what_is_not_ported():
-    G, _ = _graph()
-    A = sp.triu(G).tocsr()  # asymmetric
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tu.umap_embed(A, n_epochs=5, device=CPU)
     md, _ = _mdata()
     mu.pp.neighbors(md)
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -731,6 +838,54 @@ def test_gpu_umap_epoch_matches_plain(cuda, dim, epoch):
                               alpha, a, b, 1.0)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
     assert torch.equal(eons_k, eons_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 12])
+@pytest.mark.parametrize("epoch", [0, 13])
+def test_gpu_umap_epoch_asym_matches_plain(cuda, dim, epoch):
+    # T22 on a directed graph (each edge one way): the same layout, eons and
+    # negatives; direct sums in other orders (atol 1e-4 at scale 10), the
+    # eons exactly, and the input eons untouched
+    G = sp.triu(_random_graph(20000, 15, seed=dim)).tocsr()
+    heads, tails, eps, _, _ = tu.edge_schedule(G, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, np.zeros(len(eps), np.int8), G.shape[0], cuda)
+    by_tail = tu.umap_tails(edges)
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    emb = (torch.rand((G.shape[0], dim), generator=gen, device=cuda) * 20 - 10).contiguous()
+    negs = torch.randint(0, G.shape[0], (G.shape[0], NEG_RATE), generator=gen,
+                         dtype=torch.int32, device=cuda)
+    negs[:50, 0] = torch.arange(50, device=cuda, dtype=torch.int32)  # self hits
+    eons = edges.eps + float(epoch // 2)
+    eons_in = eons.clone()
+    a, b = tu.find_ab_params()
+    args = (negs, epoch, tu.epoch_alpha(1.0, epoch, N_EPOCHS), a, b, 1.0)
+    _kernels.reset_launch_counts()
+    eo_k, eo_p = torch.empty_like(eons), torch.empty_like(eons)
+    got = tu.umap_epoch_asym(emb, torch.empty_like(emb), edges, by_tail, eons, eo_k, *args)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts["umap_epoch_asym"] == 1 and counts["umap_epoch"] == 0
+    ref = tu.umap_epoch_asym_plain(emb, torch.empty_like(emb), edges, by_tail, eons, eo_p, *args)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    assert torch.equal(eo_k, eo_p) and torch.equal(eons, eons_in)
+
+
+@pytest.mark.gpu
+def test_gpu_umap_embed_asymmetric_runs_t22(cuda):
+    G = sp.triu(_random_graph(3000, 10, seed=1)).tocsr()
+    _kernels.reset_launch_counts()
+    emb = tu.umap_embed(G, n_epochs=50, init="random", device=cuda)
+    counts = _kernels.launch_counts()
+    assert counts["umap_epoch_asym"] == 50 and counts["umap_epoch"] == 0
+    assert emb.shape == (3000, 2) and np.isfinite(emb).all()
+    heads, tails, eps, _, _ = tu.edge_schedule(G, 50)
+    edges = tu.umap_edges(heads, tails, eps, np.zeros(len(eps), np.int8), 3000, cuda)
+    e = torch.zeros((3000, 2), device=cuda)
+    negs = torch.zeros((3000, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="alias"):
+        tu.umap_epoch_asym(e, torch.zeros_like(e), edges, tu.umap_tails(edges), edges.eps,
+                           edges.eps, negs, 0, 1.0, 1.0, 1.0, 1.0)
 
 
 @pytest.mark.gpu

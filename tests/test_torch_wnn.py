@@ -365,7 +365,7 @@ def test_wnn_matches_jax_on_jax_graphs():
 def test_wnn_overlapping_clusters_match_jax():
     # neither modality alone separates the labels: m1 merges clusters 0/1,
     # m2 merges 1/2, both noisy, so the planted-label share of the fused
-    # graph is below 1 (ROADMAP item 6). Port and JAX: the same share within
+    # graph is below 1. Port and JAX: the same share within
     # 0.01, weights atol 1e-4, edge Jaccard >= 0.97
     rng = np.random.default_rng(31)
     labels = np.repeat(np.arange(3), 60)
@@ -593,7 +593,7 @@ def test_wnn_on_duck_typed_holders():
     assert mt.pp.neighbors(mdh, device=CPU) is None
     assert np.allclose(mdh.obs["a:mod_weight"] + mdh.obs["b:mod_weight"], 1.0)
     assert _label_share(mdh.obsp["distances"], labels) > 0.95
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         mt.pp.neighbors(mdh, mesh=object(), device=CPU)
 
 
