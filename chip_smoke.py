@@ -45,6 +45,14 @@ matrix, selected on the device through ``ops.sparse.col_sums``, K = 15,
 stochastic VI, 100 iterations of 50,000 cells); and the same stochastic fit
 on two 1,000,000 × 256 views made on the device from 15 planted factors;
 
+and MOFA+'s other likelihoods and priors at the same sizes: a bernoulli
+(then a poisson) view of 3000 columns drawn from the bench's planted factors
+beside its 2000-column gaussian view, the e2e's SVI stage with its ATAC
+columns binarised as a bernoulli view, and spike-slab factors; and
+MEFISTO's smooth factors: GP priors over time for 3,000 cells in two groups
+(views of 500 and 800, K = 10; with learned group correlations and with
+DTW warping), and the sparse GP at 100,000 cells with 1,000 inducing cells;
+
 and the recipe of ``bench.py``'s mode ``dsb`` (``prot.pp.clr``, then
 ``prot.pp.dsb`` of the unfiltered droplets, split by their RNA counts, 140
 proteins) at its own 10,000 cells + 50,000 empty droplets and at 100,000 +
@@ -154,7 +162,32 @@ is printed. An exception stops the run at once, with a code other than 0:
     epoch against plain from the spectral layout with shared negatives; the
     layout's planted-label share within 0.02 of the same run through T22's
     plain version and ≥ 0.8 × that of ``tl.umap``'s layout (T13) of the
-    graph's union at the same seed, and its ratio to the graph's own share.
+    graph's union at the same seed, and its ratio to the graph's own share;
+25. ``[mofa-lik-svi]`` (after phase 17), counted alone: the e2e's SVI with the
+    ATAC view binarised and fitted as bernoulli: T17-T20 by the formula and
+    T23 once an iteration, the wall, the label-probe gate of phase 17;
+26. ``[kernel] mofa_bound_refresh`` (after phase 19): T23 against its plain
+    version at 10,000 x 3000 (bernoulli, poisson) and 50,000 x 256, within
+    1e-5 of 1 + F² + z2·SWWᵀ, the same bits twice;
+27. ``[mofa-lik]``, bernoulli and then poisson, each counted alone: 2 + 50
+    sweeps, sweeps per second, the stage split, T23 once a sweep, the ELBO
+    finite, two fits bit for bit, canonical correlations > 0.9, one sweep
+    against the plain path within 1e-4;
+28. ``[mofa-ssz]``, counted alone: spike-slab factors at the same size on a
+    planted Z with half its entries zero, the cells in 50 groups; Z_S < 0.5
+    on a nonzero share after ``ssz_on``, canonical correlations > 0.9;
+29. ``[kernel] gp_rbf_kernel / gp_kg_grad``: T24 at the dense gp_K (10 x
+    3000²) and the sparse K_nm (100,000 x 1,000), T25 at dK 10 x 3000², each
+    against its plain version;
+30. ``[mefisto]``, three fits each counted alone (T24/T25 by ``gp_launches``):
+    the dense GP, 100 sweeps with the hyperparameters refreshed every 25
+    (the planted trajectories' canonical correlations > 0.9), then
+    ``model_groups`` on groups of planted correlation −0.8 (the learned Kg's
+    sign on every active factor), then warping of a clock shifted by 0.1
+    (the median error of the warped covariate within a grid step);
+31. ``[mefisto-sparse]``, counted alone: the sparse GP at 100,000 cells, 50
+    sweeps under the stage timers, the wall, peak memory, the split of T24
+    against the Cholesky factors and solves, canonical correlations > 0.9.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -196,11 +229,31 @@ UMAP_SRC = "muon_tpu_torch/csrc/umap_kernels.cu"
 IVF_SRC = "muon_tpu_torch/csrc/ivf_kernels.cu"
 MOFA_SRC = "muon_tpu_torch/csrc/mofa_kernels.cu"
 GMM_SRC = "muon_tpu_torch/csrc/gmm_kernels.cu"
+GP_SRC = "muon_tpu_torch/csrc/gp_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
 MOFA_K, MOFA_N, MOFA_DS, MOFA_SWEEPS, MOFA_WARM = 15, 10_000, (2000, 3000), 50, 2
 MOFA_COLS, MOFA_ITERS, MOFA_BATCH = 256, 100, 50_000
+# MOFA's bound-based views: the scales of the planted logits and log-rates
+# (bernoulli and poisson views of [mofa-lik]); the share of a planted Z set
+# to zero for [mofa-ssz]
+LIK_LOGIT_SCALE, LIK_RATE_SCALE, SSZ_ZERO_SHARE = 0.5, 0.3, 0.5
+# [mofa-ssz]'s cells in 50 groups (samples) of 200: θ_z is learned per group
+# and reaches about 1 − 1/N_g in the dense sweeps before ssz_on, and a slab
+# probability falls below ½ only where ½ ln(p/α) passes about ln N_g; in one
+# group of 10,000 cells no cell's does
+SSZ_GROUPS = 50
+# MEFISTO: 3,000 cells (about a Visium section's spots) in 2 groups on a
+# time grid of 150 points, views of 500 and 800, K = 10, 6 planted smooth
+# trajectories, 100 sweeps, the hyperparameters refreshed every 25 sweeps
+# from sweep 20 (the reference's defaults); the model_groups fit's planted
+# group correlation, the warping fit's clock shift and warping cadence; the
+# sparse GP at 100,000 cells, 50 sweeps
+MEF_N, MEF_TIMES, MEF_DS, MEF_K, MEF_PLANTED = 3_000, 150, (500, 800), 10, 6
+MEF_SWEEPS, MEF_OPT, MEF_START = 100, 25, 20
+MEF_RHO, MEF_SHIFT, MEF_WARP_FREQ = -0.8, 0.1, 20
+SGP_N, SGP_TIMES, SGP_SWEEPS = 100_000, 1000, 50
 # the width of the neighbour lists that drive T9's global-memory variant: 300
 # through pp.neighbors (and WNN's candidates), 256 for the kernel against plain
 WIDE_KK, WIDE_KK_KERNEL, WIDE_CELLS = 300, 256, 2_000
@@ -244,6 +297,10 @@ KERNEL_INFO = {
     "ivf_search_global": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),      # lists longer than 256
     "gmm_background_means": (GMM_SRC, "muon_tpu/ops/gmm.py:101"),   # + _em_1d (:32)
     "umap_epoch_asym": (UMAP_SRC, "muon_tpu/ops/umap.py:407"),      # _optimize_fn, asymmetric
+    # the bound refresh of _make_step (:136-170) and _make_svi_step (:860-893)
+    "mofa_bound_refresh": (MOFA_SRC, "muon_tpu/models/mofa.py:136"),
+    "gp_rbf_kernel": (GP_SRC, "muon_tpu/models/mofa.py:604"),       # _rbf_kernel, _gp_kmat_fn
+    "gp_kg_grad": (GP_SRC, "muon_tpu/models/mofa.py:636"),          # grad of _gp_group_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -283,11 +340,11 @@ UMAP_ASYM_PATH = {"umap_epoch_asym": N_EPOCHS, "umap_epoch": 0}
 DSB_PATH = {"clr_dense": 1, "csr_row_sums": 1, "gmm_background_means": 1}
 
 
-def mofa_launches(sweeps: int, n_views: int = 2) -> dict:
+def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
     """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep T17
     K·M + M (one per factor and view, and Σ E² per view for τ), T18 and T19
     K·M, T20 2·K·M."""
-    km = MOFA_K * n_views
+    km = K * n_views
     return {"mofa_col_dot": sweeps * (km + n_views), "mofa_w_posterior": sweeps * km,
             "mofa_row_dot": sweeps * km, "mofa_rank1_update": sweeps * 2 * km}
 
@@ -2431,25 +2488,40 @@ def phase_mofa_kernels(tmo, Ys, cuda) -> dict:
 
 
 @contextmanager
-def mofa_plain(tmo):
-    """Route T17-T20 to their plain versions for the block (only this script
-    swaps the module attributes; they are restored after)."""
-    names = ("col_dot", "w_posterior", "row_dot", "rank1_update")
-    saved = {n: getattr(tmo, n) for n in names}
+def plain_kernels(module, names):
+    """Route ``module``'s kernel wrappers to their plain versions for the
+    block (only this script swaps the module attributes; they are restored
+    after)."""
+    saved = {n: getattr(module, n) for n in names}
     try:
         for n in names:
-            setattr(tmo, n, getattr(tmo, f"{n}_plain"))
+            setattr(module, n, getattr(module, f"{n}_plain"))
         yield
     finally:
         for n, fn in saved.items():
-            setattr(tmo, n, fn)
+            setattr(module, n, fn)
 
 
-def check_mofa_launches(launches, sweeps: int, what: str) -> None:
-    want = mofa_launches(sweeps)
+MOFA_WRAPPERS = ("col_dot", "w_posterior", "row_dot", "rank1_update", "bound_refresh")
+
+
+def check_launches(launches, want: dict, what: str) -> None:
     got = {k: launches[k] for k in want}
-    check(got == want, f"{what} launched {want} (K·M + M, K·M, K·M, 2·K·M per sweep), "
-                       f"read {got}")
+    check(got == want, f"{what} launched {want}, read {got}")
+
+
+def leaf_error(got: dict, ref: dict):
+    """The largest error of any leaf of a state relative to the leaf's largest entry."""
+    worst, worst_leaf = 0.0, ""
+    for key, val in ref.items():
+        for i, r in enumerate(val if isinstance(val, list) else [val]):
+            if r is None:
+                continue
+            g = got[key][i] if isinstance(val, list) else got[key]
+            rel = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+            if rel > worst:
+                worst, worst_leaf = rel, f"{key}[{i}]"
+    return worst, worst_leaf
 
 
 def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
@@ -2485,7 +2557,7 @@ def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
           f"median {float(np.median(cc)):.4f}; ELBO after sweep 1 {res.elbo_history[0]:.6g}, "
           f"after {MOFA_SWEEPS} {res.elbo_history[-1]:.6g}; r2_total "
           f"{[round(float(v), 4) for v in res.r2_total[0]]}", flush=True)
-    check_mofa_launches(launches, MOFA_SWEEPS, f"{MOFA_SWEEPS} full-batch sweeps")
+    check_launches(launches, mofa_launches(MOFA_SWEEPS), f"{MOFA_SWEEPS} full-batch sweeps")
     check(res.Z.shape == (MOFA_N, MOFA_K) and np.isfinite(res.Z).all()
           and all(np.isfinite(w).all() for w in res.W), "MOFA Z and W shapes, finite")
     check(res.n_iterations == MOFA_SWEEPS, f"fit_mofa ran {MOFA_SWEEPS} sweeps")
@@ -2504,19 +2576,11 @@ def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
     for _ in range(2):
         state, _ = step(state)
     got, elbo_k = step(state)
-    with mofa_plain(tmo):
+    with plain_kernels(tmo, MOFA_WRAPPERS):
         kernels.reset_launch_counts()
         ref, elbo_p = step(state)
         check(not any(kernels.launch_counts().values()), "the plain sweep launched no kernel")
-    worst, worst_leaf = 0.0, ""
-    for key, val in ref.items():
-        for i, r in enumerate(val if isinstance(val, list) else [val]):
-            if r is None:
-                continue
-            g = got[key][i] if isinstance(val, list) else got[key]
-            rel = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
-            if rel > worst:
-                worst, worst_leaf = rel, f"{key}[{i}]"
+    worst, worst_leaf = leaf_error(got, ref)
     elbo_rel = abs(float(elbo_k) - float(elbo_p)) / abs(float(elbo_p))
     print(f"[mofa] one sweep, kernels against the plain path from the same state: largest "
           f"leaf error {worst:.2e} of the leaf's largest entry ({worst_leaf}), ELBO rel "
@@ -2533,7 +2597,7 @@ def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
     check(len(e) == MOFA_SWEEPS and drop <= 1e-5, "the ELBO never falls by more than 1e-5")
 
     # the plain path's 50 sweeps, for the time only
-    with mofa_plain(tmo):
+    with plain_kernels(tmo, MOFA_WRAPPERS):
         t0 = time.perf_counter()
         tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, **kw)
         torch.cuda.synchronize()
@@ -2605,11 +2669,11 @@ def phase_mofa_e2e(tm, dsp, kernels, profiling, X_rna_norm, X_atac_tfidf, rna_pc
     print(f"[mofa-e2e] label-probe R2 of Z {mofa_r2:.4f} (first {MOFA_K} PCA components "
           f"{pca_r2:.4f}; the gate: above max(0.2, 0.8 x that)); objective first "
           f"{res.elbo_history[0]:.6g}, last {res.elbo_history[-1]:.6g}", flush=True)
-    check_mofa_launches(launches, MOFA_ITERS, f"{MOFA_ITERS} SVI iterations at 100k")
+    check_launches(launches, mofa_launches(MOFA_ITERS), f"{MOFA_ITERS} SVI iterations at 100k")
     check(res.Z.shape == (N_CELLS, MOFA_K) and np.isfinite(res.Z).all(), "e2e MOFA Z finite")
     check(res.n_iterations == MOFA_ITERS, f"the e2e's SVI ran {MOFA_ITERS} iterations")
     check(mofa_r2 > max(0.2, 0.8 * pca_r2), "MOFA label-probe R2 above max(0.2, 0.8 x PCA's)")
-    return launches
+    return launches, views
 
 
 def phase_mofa_big(tm, kernels, profiling, cuda):
@@ -2644,10 +2708,459 @@ def phase_mofa_big(tm, kernels, profiling, cuda):
     print(f"[mofa-1m] canonical correlations of Z with the planted Z: min {cc.min():.4f}, "
           f"median {float(np.median(cc)):.4f}; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    check_mofa_launches(launches, MOFA_ITERS, f"{MOFA_ITERS} SVI iterations at 1M")
+    check_launches(launches, mofa_launches(MOFA_ITERS), f"{MOFA_ITERS} SVI iterations at 1M")
     check(res.Z.shape == (N_BIG, MOFA_K) and np.isfinite(res.Z).all(), "1M MOFA Z finite")
     check(cc.min() > 0.9, "1M SVI: smallest canonical correlation with the planted Z > 0.9")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# MOFA's bound-based views (T23), spike-slab factors, and MEFISTO's smooth
+# factors (T24, T25)
+# ---------------------------------------------------------------------------
+
+
+def mofa_lik_views(Z: np.ndarray, seed: int = 1, d: int = MOFA_DS[1]):
+    """The bound-based views of ``[mofa-lik]`` from the bench's planted Z:
+    ``d`` bernoulli features drawn from the planted logits Z·W (W entries
+    N(0, 0.5²), so the logits' variance is 3.75 at K = 15, not saturated) and
+    ``d`` poisson counts of rate softplus(Z·W) (W entries N(0, 0.3²))."""
+    rng = np.random.default_rng(seed)
+    K = Z.shape[1]
+    logits = Z @ (LIK_LOGIT_SCALE * rng.normal(size=(K, d)))
+    Yb = (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    rate = np.logaddexp(0.0, Z @ (LIK_RATE_SCALE * rng.normal(size=(K, d))))
+    return Yb, rng.poisson(rate).astype(np.float32)
+
+
+def sparse_planted(Z: np.ndarray, seed: int = 2) -> np.ndarray:
+    """Z with SSZ_ZERO_SHARE of its entries set to zero: a factor active on
+    part of the cells only, what spike-slab factors are for."""
+    rng = np.random.default_rng(seed)
+    return (Z * (rng.random(Z.shape) >= SSZ_ZERO_SHARE)).astype(np.float32)
+
+
+def mefisto_data(seed: int = 0, n: int = MEF_N, n_times: int = MEF_TIMES, ds=MEF_DS,
+                 rho=None, shift: float = 0.0):
+    """A time course in two groups of n/2 cells on a grid of ``n_times``
+    timepoints in [0, 1] (n / 2 / n_times cells each): MEF_PLANTED smooth
+    trajectories sin(2π f t + φ), f from 0.5 to 3 cycles; with ``rho`` group
+    1 follows rho·(group 0's trajectory) + √(1 − rho²)·(its quarter-period
+    shift); views Z·W + 0.5 noise. Group 1 reads its clock as t + ``shift``.
+    Returns (t, covariate, groups, Z, views)."""
+    rng = np.random.default_rng(seed)
+    per = n // 2
+    t_g = np.repeat(np.linspace(0.0, 1.0, n_times), per // n_times)
+    t = np.concatenate([t_g, t_g])
+    groups = np.repeat([0, 1], len(t_g))
+    freqs = np.linspace(0.5, 3.0, MEF_PLANTED)
+    phases = rng.uniform(0.0, 2 * np.pi, MEF_PLANTED)
+    Z = np.sin(2 * np.pi * freqs * t[:, None] + phases)
+    if rho is not None:
+        other = np.sin(2 * np.pi * freqs * t[:, None] + phases + np.pi / 2)
+        g1 = groups == 1
+        Z[g1] = rho * Z[g1] + np.sqrt(1.0 - rho * rho) * other[g1]
+    Ys = [(Z @ rng.normal(size=(MEF_PLANTED, d)) + 0.5 * rng.normal(size=(len(t), d))
+           ).astype(np.float32) for d in ds]
+    cov = (t + shift * (groups == 1)).astype(np.float32)
+    return t, cov, groups, Z.astype(np.float32), Ys
+
+
+def refreshes(sweeps: int, start: int, every: int) -> int:
+    """How many hyperparameter refreshes (or warps) ``sweeps`` sweeps run."""
+    return sum(1 for it in range(1, sweeps + 1) if it >= start and it % every == 0)
+
+
+def gp_launches(sweeps, n_ell, kg_steps=0, warps=0, sparse=False, K=MEF_K) -> dict:
+    """T24 and T25 of a MEFISTO fit: the dense path builds gp_K once, then at
+    each refresh one T24 per ℓ of the grid and one for gp_K, one T24 and one
+    T25 per step on Kg, and one T24 per warp; the sparse path builds K_mm and
+    K_nm per factor in every sweep and never gp_K."""
+    r = refreshes(sweeps, MEF_START, MEF_OPT)
+    if sparse:
+        t24 = 2 * K * sweeps + r * (n_ell + kg_steps)
+    else:
+        t24 = 1 + r * (n_ell + 1 + kg_steps) + warps
+    return {"gp_rbf_kernel": t24, "gp_kg_grad": r * kg_steps, **mofa_launches(sweeps, 2, K)}
+
+
+def phase_lik_kernels(tmo, Zp, Yb, Yp, cuda) -> dict:
+    """T23 against its plain version at the bench's 10,000 x 3000 (bernoulli,
+    which the JSON line records, and poisson) and at the SVI batch's
+    50,000 x 256, from weights after a few sweeps' worth of shrinkage."""
+    results = {}
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    cases = [("bernoulli", torch.from_numpy(Yb).to(cuda), Zp, True),
+             ("poisson", torch.from_numpy(Yp).to(cuda), Zp, False),
+             ("bernoulli", (torch.rand((MOFA_BATCH, MOFA_COLS), generator=gen, device=cuda)
+                            > 0.7).float(), None, False)]
+    for lik, Y, Z, main in cases:
+        n, d = Y.shape
+        Zm = (torch.from_numpy(Z).to(cuda) if Z is not None
+              else torch.randn((n, MOFA_K), generator=gen, device=cuda)).contiguous()
+        SW = 0.3 * torch.randn((d, MOFA_K), generator=gen, device=cuda)
+        z2 = Zm * Zm + 0.05
+        SWW = SW * SW + 0.01
+        M01 = torch.ones_like(Y)  # a bound-based view always carries its mask
+        kappa = 0.25 + 0.17 * Y.max(dim=0).values
+        kw = dict(z2=z2, SWW=SWW) if lik == "bernoulli" else dict(kappa=kappa)
+        got = tmo.bound_refresh(lik, Zm, SW, Y, M01, **kw)
+        torch.cuda.synchronize()
+        ref = tmo.bound_refresh_plain(lik, Zm, SW, Y, M01, **kw)
+        F = Zm @ SW.T
+        scale = 1.0 + ((F * F + z2 @ SWW.T) if lik == "bernoulli" else F.abs())
+        errs = [(g - r).abs() for g, r in zip(got[:2], ref[:2])]
+        ok = all(bool((e <= 1e-5 * scale).all()) for e in errs)
+        again = tmo.bound_refresh(lik, Zm, SW, Y, M01, **kw)
+        ok = ok and all(torch.equal(a, b) for a, b in zip(again[:2], got[:2]))
+        ms = median_ms(lambda: tmo.bound_refresh(lik, Zm, SW, Y, M01, **kw))
+        plain_ms = median_ms(lambda: tmo.bound_refresh_plain(lik, Zm, SW, Y, M01, **kw))
+        # reads Y0, M01 and the factor-sized inputs; writes E (and T)
+        outs = 2 if lik == "bernoulli" else 1
+        bytes_ = nbytes(Y, M01, Zm, SW) + outs * nbytes(Y) + (
+            nbytes(z2, SWW) if lik == "bernoulli" else nbytes(kappa))
+        per_k = 7 if lik == "bernoulli" else 2  # F's FMA; bernoulli: the variance term
+        bnd = bound(bytes_, per_k * n * d * MOFA_K, F32_OPS_PER_S)
+        err = max(e.max().item() for e in errs)
+        print(f"[kernel] mofa_bound_refresh {lik} {n}x{d}: max_abs_err={err:.3e} "
+              f"(1e-5 x (1 + F^2 + z2.SWW), bit-equal twice) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms=None", flush=True)
+        check(ok, f"mofa_bound_refresh {lik} {n}x{d} within 1e-5 of plain, same bits twice")
+        if main:
+            results["mofa_bound_refresh"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                             **bnd, "library_ms": None}
+        del Y, Zm, SW, z2, SWW, M01, F, got, ref, again
+    torch.cuda.empty_cache()
+    return results
+
+
+
+
+def phase_mofa_lik(tm, tmo, kernels, profiling, Zp, Yg, Yb, Yp, cuda):
+    """``[mofa-lik]``: bench.py's MOFA size with a bernoulli view (then a
+    poisson one) beside the 2000-column gaussian view, 2 + 50 full-batch
+    sweeps, counted and timed from ``fit_mofa`` alone."""
+    sweeps = MOFA_SWEEPS
+    want = {**mofa_launches(sweeps), "mofa_bound_refresh": sweeps}
+    kw = dict(n_iterations=sweeps, min_iterations=sweeps, convergence_mode="slow",
+              elbo_every=1, device=cuda)
+    by_path = {}
+    for lik, Y in (("bernoulli", Yb), ("poisson", Yp)):
+        cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", lik))
+        tm.fit_mofa([Yg, Y], cfg, **{**kw, "n_iterations": MOFA_WARM})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = tm.fit_mofa([Yg, Y], cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        by_path[lik] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            again = tm.fit_mofa([Yg, Y], cfg, **kw)
+            wall_staged = time.perf_counter() - t0
+        cc = canonical_correlations(torch.from_numpy(res.Z).to(cuda), torch.from_numpy(Zp))
+        e = res.elbo_history
+        print(f"[mofa-lik] {lik}: fit_mofa {MOFA_N} x ({MOFA_DS[0]} gaussian, {MOFA_DS[1]} {lik}), "
+              f"K={MOFA_K}, "
+              f"{sweeps} sweeps in {wall:.4f}s = {sweeps / wall:.2f} sweeps/s; peak device memory "
+              f"{peak:.2f} GiB; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        print(f"[mofa-lik] {lik}: stage split of a second fit under the stage timers "
+              f"({wall_staged:.4f}s): {stage_seconds(t)}", flush=True)
+        print(f"[mofa-lik] {lik}: canonical correlations of Z with the planted Z: min "
+              f"{cc.min():.4f}, median {float(np.median(cc)):.4f}; ELBO after sweep 1 {e[0]:.6g}, "
+              f"after {sweeps} {e[-1]:.6g}; r2_total {[round(float(v), 4) for v in res.r2_total[0]]}",
+              flush=True)
+        check_launches(launches, want, f"[mofa-lik] {lik}, {sweeps} sweeps")
+        check(np.isfinite(e).all() and len(e) == sweeps, f"[mofa-lik] {lik}: the ELBO finite")
+        check(np.isfinite(res.Z).all(), f"[mofa-lik] {lik}: Z finite")
+        check(cc.min() > 0.9, f"[mofa-lik] {lik}: smallest canonical correlation > 0.9")
+        same = np.array_equal(res.Z, again.Z) and np.array_equal(e, again.elbo_history) and all(
+            np.array_equal(a, b) for a, b in zip(res.W, again.W))
+        check(same, f"[mofa-lik] {lik}: two fits give identical bits (Z, W, ELBO)")
+
+        # one sweep through the kernels against the plain path, from the
+        # state after two sweeps
+        liks = ["gaussian", lik]
+        cfg1 = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=tuple(liks), n_groups=1)
+        step = tm.make_step(cfg1, [Yg.shape[1], Y.shape[1]], MOFA_N, [False, True], liks)
+        state = tm._init_state([Yg, Y], [None, None], np.ones((MOFA_N, 1), np.float32), cfg1,
+                               liks, device=cuda)
+        for _ in range(2):
+            state, _ = step(state)
+        got, elbo_k = step(state)
+        with plain_kernels(tmo, MOFA_WRAPPERS):
+            kernels.reset_launch_counts()
+            ref, elbo_p = step(state)
+            check(not any(kernels.launch_counts().values()), "the plain sweep launched no kernel")
+        worst, worst_leaf = leaf_error(got, ref)
+        elbo_rel = abs(float(elbo_k) - float(elbo_p)) / abs(float(elbo_p))
+        print(f"[mofa-lik] {lik}: one sweep, kernels against the plain path from the same state: "
+              f"largest leaf error {worst:.2e} of the leaf's largest entry ({worst_leaf}), ELBO "
+              f"rel {elbo_rel:.2e} (<= 1e-4)", flush=True)
+        check(worst <= 1e-4 and elbo_rel <= 1e-4, f"[mofa-lik] {lik}: one sweep within 1e-4")
+        del state, got, ref
+        if lik == "bernoulli":
+            with plain_kernels(tmo, MOFA_WRAPPERS):
+                t0 = time.perf_counter()
+                tm.fit_mofa([Yg, Y], cfg, **kw)
+                torch.cuda.synchronize()
+                print(f"[times] plain-torch MOFA with a bernoulli view ({sweeps} sweeps) on the "
+                      f"card, one warm run: {time.perf_counter() - t0:.4f}s", flush=True)
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_mofa_lik_svi(tm, kernels, profiling, views, rna_pca, labels, cuda):
+    """``[mofa-lik-svi]``: the e2e's SVI stage (100 iterations of 50,000 of
+    the 100,000 cells) with its 256 ATAC columns binarised and fitted as
+    ``bernoulli``."""
+    Ys = [views[0], (views[1] > 0).float()]
+    cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "bernoulli"))
+    kw = dict(n_iterations=MOFA_ITERS, min_iterations=20, svi_mode=True,
+              svi_batch_fraction=min(MOFA_BATCH / N_CELLS, 1.0), elbo_every=5, device=cuda)
+    tm.fit_mofa(Ys, cfg, **{**kw, "n_iterations": 2})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tm.fit_mofa(Ys, cfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profiling.collect() as t:
+        tm.fit_mofa(Ys, cfg, **kw)
+    mofa_r2, pca_r2 = label_probe_r2(res.Z, labels), label_probe_r2(rna_pca[:, :MOFA_K], labels)
+    print(f"[mofa-lik-svi] fit_mofa SVI, RNA gaussian + binarised ATAC bernoulli, {MOFA_ITERS} "
+          f"iterations of {MOFA_BATCH} cells in {wall:.4f}s ({wall / MOFA_ITERS * 1e3:.2f} "
+          f"ms/iteration); peak device memory {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[mofa-lik-svi] stage split of a second fit: {stage_seconds(t)}", flush=True)
+    print(f"[mofa-lik-svi] label-probe R2 of Z {mofa_r2:.4f} (first {MOFA_K} PCA components "
+          f"{pca_r2:.4f}; the gate: above max(0.2, 0.8 x that))", flush=True)
+    check_launches(launches, {**mofa_launches(MOFA_ITERS), "mofa_bound_refresh": MOFA_ITERS},
+                   f"[mofa-lik-svi] {MOFA_ITERS} SVI iterations")
+    check(res.Z.shape == (N_CELLS, MOFA_K) and np.isfinite(res.Z).all()
+          and np.isfinite(res.elbo_history).all(), "[mofa-lik-svi] Z and the objective finite")
+    check(mofa_r2 > max(0.2, 0.8 * pca_r2), "[mofa-lik-svi] label-probe R2 above max(0.2, 0.8 x PCA's)")
+    return launches
+
+
+def phase_mofa_ssz(tm, kernels, profiling, Zp, cuda):
+    """``[mofa-ssz]``: ``spikeslab_factors=True`` at the ``[mofa-lik]`` size
+    (2000 gaussian and 3000 bernoulli columns, K = 15, 50 sweeps) on a
+    planted Z with half its entries zero, the cells in SSZ_GROUPS groups;
+    ``ssz_on`` turns at sweep 15."""
+    Zs = sparse_planted(Zp)
+    rng = np.random.default_rng(3)
+    Yg = (Zs @ rng.normal(size=(MOFA_K, MOFA_DS[0]))
+          + 0.5 * rng.normal(size=(MOFA_N, MOFA_DS[0]))).astype(np.float32)
+    Yb, _ = mofa_lik_views(Zs, seed=4)
+    cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "bernoulli"),
+                        spikeslab_factors=True)
+    seen = {}
+
+    def grab(it, state, elbo):
+        seen["Z_S"] = state["Z_S"]
+
+    sweeps = MOFA_SWEEPS
+    kw = dict(groups=np.arange(MOFA_N) % SSZ_GROUPS, n_iterations=sweeps,
+              min_iterations=sweeps, convergence_mode="slow", elbo_every=sweeps, callback=grab,
+              device=cuda)
+    tm.fit_mofa([Yg, Yb], cfg, **{**kw, "n_iterations": MOFA_WARM})
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        res = tm.fit_mofa([Yg, Yb], cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    zs = seen["Z_S"]
+    share = float((zs < 0.5).float().mean())
+    cc = canonical_correlations(torch.from_numpy(res.Z).to(cuda), torch.from_numpy(Zs))
+    print(f"[mofa-ssz] fit_mofa spikeslab_factors, {MOFA_N} x ({MOFA_DS[0]} gaussian, {MOFA_DS[1]} bernoulli), "
+          f"K={MOFA_K}, {SSZ_GROUPS} groups, {sweeps} sweeps in {wall:.4f}s under the stage "
+          f"timers; Z_S < 0.5 on "
+          f"{share:.4f} of the entries after sweep {sweeps} ({SSZ_ZERO_SHARE} planted at zero); "
+          f"canonical correlations with the planted Z: min {cc.min():.4f}, median "
+          f"{float(np.median(cc)):.4f}; stages {stage_seconds(t)}", flush=True)
+    check_launches(launches, {**mofa_launches(sweeps), "mofa_bound_refresh": sweeps},
+                   f"[mofa-ssz] {sweeps} sweeps")
+    check(np.isfinite(res.elbo_history).all() and np.isfinite(res.Z).all(),
+          "[mofa-ssz] the ELBO and Z finite")
+    check(share > 0.0, "[mofa-ssz] Z_S < 0.5 on a nonzero share of the cells after the toggle")
+    check(cc.min() > 0.9, "[mofa-ssz] smallest canonical correlation > 0.9")
+    return launches
+
+
+def phase_gp_kernels(tgp, cuda) -> dict:
+    """T24 at the dense path's (K, N, N) gp_K and the sparse path's K_nm
+    (100,000 x 1,000, one factor: the JSON line), T25 at the dense
+    model_groups shape, each against its plain version."""
+    results = {}
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    ells = torch.linspace(0.05, 0.8, MEF_K, device=cuda)
+    scales = torch.linspace(0.1, 0.9, MEF_K, device=cuda)
+    Kg = tgp.normalize_kg(torch.randn((MEF_K, 2, 2), generator=gen, device=cuda))
+
+    def report(name, shape, err, tol, ok, k_fn, p_fn, bnd, record):
+        ms, plain_ms = median_ms(k_fn), median_ms(p_fn, reps=3)
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                             "library_ms": None}
+        print(f"[kernel] {name} {shape}: max_abs_err={err:.3e} ({tol}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+              f"library_ms=None", flush=True)
+        check(ok, f"{name} {shape} within {tol}")
+
+    c = torch.rand((MEF_N, 1), generator=gen, device=cuda)
+    g = (torch.arange(MEF_N, device=cuda) >= MEF_N // 2).float()
+    cn = torch.rand((SGP_N, 1), generator=gen, device=cuda)
+    gn = (torch.arange(SGP_N, device=cuda) % 2).float()
+    cu, gu = cn[::SGP_N // 1000].contiguous(), gn[::SGP_N // 1000].contiguous()
+    for shape, args, F_, rec in (
+        (f"gp_K {MEF_K}x{MEF_N}x{MEF_N}, learned Kg", (c, c, ells, scales, g, g, Kg, True),
+         MEF_K, False),
+        (f"K_nm {SGP_N}x{cu.shape[0]}, one factor",
+         (cn, cu, ells[:1], scales[:1], gn, gu, None, False), 1, True),
+    ):
+        out = tgp.rbf_kernel(*args)
+        torch.cuda.synchronize()
+        ref = tgp.rbf_kernel_plain(*args)
+        err = (out - ref).abs().max().item()
+        # writes F na nb floats; an exp per entry at the special-function rate
+        bnd = bound(nbytes(out) + nbytes(args[0], args[1]), out.numel(), SFU_OPS_PER_S)
+        report("gp_rbf_kernel", shape, err, "rtol 1e-6 atol 2.5e-7",
+               bool(((out - ref).abs() <= 2.5e-7 + 1e-6 * ref.abs()).all()),
+               lambda: tgp.rbf_kernel(*args), lambda: tgp.rbf_kernel_plain(*args), bnd, rec)
+        del out, ref
+    dK = torch.randn((MEF_K, MEF_N, MEF_N), generator=gen, device=cuda)
+    got = tgp.kg_grad(dK, c, c, ells, scales, g, g, 2)
+    torch.cuda.synchronize()
+    ref = tgp.kg_grad_plain(dK, c, c, ells, scales, g, g, 2)
+    tol_ = 1e-5 * tgp.kg_grad_plain(dK.abs(), c, c, ells, scales, g, g, 2) + 1e-6
+    same = torch.equal(got, tgp.kg_grad(dK, c, c, ells, scales, g, g, 2))
+    # reads dK once; an exp per entry
+    report("gp_kg_grad", f"dK {MEF_K}x{MEF_N}x{MEF_N}, G=2", (got - ref).abs().max().item(),
+           "1e-5 x the sums of |dK| exp, bit-equal twice", bool(((got - ref).abs() <= tol_).all())
+           and same, lambda: tgp.kg_grad(dK, c, c, ells, scales, g, g, 2),
+           lambda: tgp.kg_grad_plain(dK, c, c, ells, scales, g, g, 2),
+           bound(nbytes(dK, got, c), dK.numel(), SFU_OPS_PER_S), True)
+    del dK
+    torch.cuda.empty_cache()
+    return results
+
+
+def planted_cc(Z: np.ndarray, planted: np.ndarray, cuda) -> np.ndarray:
+    return canonical_correlations(torch.from_numpy(planted).to(cuda), torch.from_numpy(Z).to(cuda))
+
+
+def phase_mefisto(tm, tgp, kernels, profiling, cuda):
+    """``[mefisto]``: dense GP priors over time, 3,000 cells in 2 groups,
+    views of 500 and 800, K = 10, 100 sweeps with the hyperparameters
+    refreshed every 25 from sweep 20; then one fit with ``model_groups`` on
+    anti-correlated groups and one with ``warping`` on a shifted clock."""
+    n_ell = 10
+    by_path = {}
+    kw = dict(n_iterations=MEF_SWEEPS, min_iterations=MEF_SWEEPS, convergence_mode="slow",
+              elbo_every=MEF_SWEEPS, smooth_opt_every=MEF_OPT, smooth_start_opt=MEF_START,
+              device=cuda)
+    cfg = tm.MOFAConfig(n_factors=MEF_K, likelihoods=("gaussian", "gaussian"))
+    for case, data_kw, fit_kw in (
+        ("mefisto", dict(), dict()),
+        ("mefisto_groups", dict(rho=MEF_RHO), dict(model_groups=True)),
+        ("mefisto_warp", dict(shift=MEF_SHIFT), dict(warping=True, warping_freq=MEF_WARP_FREQ)),
+    ):
+        t, cov, groups, Zp, Ys = mefisto_data(seed=5, **data_kw)
+        kernels.reset_launch_counts()
+        with profiling.collect() as st:
+            t0 = time.perf_counter()
+            res = tm.fit_mofa(Ys, cfg, groups=groups, smooth_covariate=cov, **kw, **fit_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        by_path[case] = launches
+        cc = planted_cc(res.Z, Zp, cuda)
+        steps = 10 if fit_kw.get("model_groups") else 0
+        warps = refreshes(MEF_SWEEPS, MEF_START, MEF_WARP_FREQ) if fit_kw.get("warping") else 0
+        print(f"[mefisto] {case}: fit_mofa {MEF_N} x {MEF_DS}, 2 groups, K={MEF_K}, "
+              f"{MEF_SWEEPS} sweeps in {wall:.3f}s under the stage timers; canonical correlations "
+              f"of the {MEF_PLANTED} planted trajectories with Z: min {cc.min():.4f}; "
+              f"gp_lengthscales {np.round(res.gp_lengthscales, 4).tolist()}, gp_scales "
+              f"{np.round(res.gp_scales, 3).tolist()}; stages {stage_seconds(st)}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        check_launches(launches, gp_launches(MEF_SWEEPS, n_ell, steps, warps),
+                       f"[mefisto] {case}")
+        check(np.isfinite(res.elbo_history).all() and np.isfinite(res.Z).all(),
+              f"[mefisto] {case}: the ELBO and Z finite")
+        if case == "mefisto":
+            check(cc.min() > 0.9, "[mefisto] the planted trajectories' canonical correlations "
+                                  "with the smooth factors > 0.9")
+        if case == "mefisto_groups":
+            keep = res.Z.std(axis=0) > 0.05 * res.Z.std(axis=0).max()
+            kg01 = res.gp_group_corr[:, 0, 1]
+            print(f"[mefisto] {case}: learned Kg[0, 1] of the factors {np.round(kg01, 4).tolist()} "
+                  f"(planted group correlation {MEF_RHO}; active {keep.tolist()})", flush=True)
+            check(bool((kg01[keep] < 0).all()), "[mefisto] the learned Kg has the planted "
+                                                 "group correlation's sign on every active factor")
+        if case == "mefisto_warp":
+            g1 = groups == 1
+            step_t = 1.0 / (MEF_TIMES - 1)
+            err = np.abs(res.warped_covariates[g1] - t[g1])
+            print(f"[mefisto] {case}: |warped - latent time| of the shifted group: median "
+                  f"{np.median(err):.5f}, mean {err.mean():.5f} (the shift {MEF_SHIFT}, a grid "
+                  f"step {step_t:.5f})", flush=True)
+            check(np.median(err) <= step_t + 1e-6, "[mefisto] the warped covariate undoes the "
+                                                  "shift within a grid step")
+        del Ys
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_mefisto_sparse(tm, kernels, profiling, cuda):
+    """``[mefisto-sparse]``: the sparse GP at 100,000 cells (``mefisto_data``
+    on a grid of 1000 timepoints) with the reference's default Mu =
+    min(1000, N) inducing cells, K = 10, 50 sweeps, under the stage timers
+    (T24 against the Cholesky factors and solves)."""
+    n_ell = 10
+    t, cov, groups, Zp, Ys = mefisto_data(seed=6, n=SGP_N, n_times=SGP_TIMES)
+    cfg = tm.MOFAConfig(n_factors=MEF_K, likelihoods=("gaussian", "gaussian"))
+    kw = dict(groups=groups, smooth_covariate=cov, sparse_gp=True, n_iterations=SGP_SWEEPS,
+              min_iterations=SGP_SWEEPS, convergence_mode="slow", elbo_every=SGP_SWEEPS,
+              smooth_opt_every=MEF_OPT, smooth_start_opt=MEF_START, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with profiling.collect() as st:
+        t0 = time.perf_counter()
+        res = tm.fit_mofa(Ys, cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = stage_seconds(st)
+    cc = planted_cc(res.Z, Zp, cuda)
+    print(f"[mefisto-sparse] fit_mofa sparse GP, {SGP_N} x {MEF_DS}, Mu=1000, K={MEF_K}, "
+          f"{SGP_SWEEPS} sweeps: wall {wall:.3f}s under the stage timers; peak device memory "
+          f"{peak:.2f} GiB (the views included); the sweeps' T24 {stages.get('mofa/gp_kernel')}s "
+          f"against the Cholesky factors and solves {stages.get('mofa/gp_solve')}s; stages "
+          f"{stages}", flush=True)
+    print(f"[mefisto-sparse] canonical correlations of the {MEF_PLANTED} planted trajectories "
+          f"with Z: min {cc.min():.4f}; gp_lengthscales {np.round(res.gp_lengthscales, 4).tolist()}; "
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    check_launches(launches, gp_launches(SGP_SWEEPS, n_ell, sparse=True), "[mefisto-sparse]")
+    check(np.isfinite(res.elbo_history).all() and np.isfinite(res.Z).all(),
+          "[mefisto-sparse] the ELBO and Z finite")
+    check(cc.min() > 0.9, "[mefisto-sparse] the planted trajectories' canonical correlations > 0.9")
+    del Ys
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 def main() -> int:
@@ -2665,6 +3178,7 @@ def main() -> int:
     from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import gmm as tg
+    from muon_tpu_torch.ops import gp as tgp
     from muon_tpu_torch.ops import ivf as ti
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
@@ -2721,9 +3235,12 @@ def main() -> int:
     results.update(knn_wide_results)
     asym_launches, asym_results = phase_umap_asym(tu, tk, tf, kernels, rna_h, labels, cuda)
     results.update(asym_results)
-    mofa_e2e_launches = phase_mofa_e2e(tm, dsp, kernels, profiling, rna_h.X,
-                                       wnn_mods["atac"].X, rna_h.obsm["X_pca"], labels, cuda)
-    del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
+    mofa_e2e_launches, e2e_views = phase_mofa_e2e(tm, dsp, kernels, profiling, rna_h.X,
+                                                  wnn_mods["atac"].X, rna_h.obsm["X_pca"],
+                                                  labels, cuda)
+    lik_svi_launches = phase_mofa_lik_svi(tm, kernels, profiling, e2e_views,
+                                          rna_h.obsm["X_pca"], labels, cuda)
+    del X, X_rna, e2e_views, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2733,7 +3250,19 @@ def main() -> int:
     results.update(phase_mofa_kernels(tmo, mofa_views, cuda))
     mofa_launches_full = phase_mofa_full(tm, tmo, kernels, profiling, Z_planted, mofa_views,
                                          cuda)
-    del Z_planted, mofa_views
+    t0 = time.perf_counter()
+    Yb, Yp = mofa_lik_views(Z_planted)
+    print(f"[data] MOFA bound-based views {MOFA_N} x {MOFA_DS[1]} bernoulli and poisson from the "
+          f"planted logits, made in {time.perf_counter() - t0:.1f}s", flush=True)
+    results.update(phase_lik_kernels(tmo, Z_planted, Yb, Yp, cuda))
+    lik_launches = phase_mofa_lik(tm, tmo, kernels, profiling, Z_planted, mofa_views[0], Yb, Yp,
+                                  cuda)
+    del Yb, Yp, mofa_views
+    ssz_launches = phase_mofa_ssz(tm, kernels, profiling, Z_planted, cuda)
+    del Z_planted
+    results.update(phase_gp_kernels(tgp, cuda))
+    mefisto_launches = phase_mefisto(tm, tgp, kernels, profiling, cuda)
+    sgp_launches = phase_mefisto_sparse(tm, kernels, profiling, cuda)
 
     t0 = time.perf_counter()
     rep, big_labels = make_big_rep(SEED)
@@ -2765,6 +3294,9 @@ def main() -> int:
                "umap1m": umap_big_launches, "wnn_wide": wide_launches,
                "mofa": mofa_launches_full, "mofa_e2e": mofa_e2e_launches,
                "mofa_1m": mofa_big_launches,
+               "mofa_bernoulli": lik_launches["bernoulli"], "mofa_poisson": lik_launches["poisson"],
+               "mofa_lik_svi": lik_svi_launches, "mofa_ssz": ssz_launches,
+               **mefisto_launches, "mefisto_sparse": sgp_launches,
                "knn_wide": {k: knn_wide_launches[k] + ivf_wide_launches[k]
                             for k in knn_wide_launches},
                "umap_asym": asym_launches,

@@ -3,8 +3,8 @@
 It keeps the JAX package's public API and writes the same keys, with
 PyTorch for the device work and hand-written CUDA kernels (``csrc/``) for
 the sparse products, the kNN, the fuzzy connectivities, the WNN fusion, the
-dense CLR, the UMAP epochs, the per-factor passes of MOFA+ and DSB's
-per-cell background fit.
+dense CLR, the UMAP epochs, the per-factor passes and bound refresh of
+MOFA+, MEFISTO's GP kernel matrices and DSB's per-cell background fit.
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
@@ -12,9 +12,10 @@ tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 protein CLR and DSB (``prot.pp.clr``, ``prot.pp.dsb``), multiplex
 Leiden/Louvain (``tl.leiden``, ``tl.louvain``, on the host through the
 port's own native engine), UMAP (``tl.umap``, and ``ops.umap.umap_embed``
-of an asymmetric graph) and MOFA+ for gaussian views, full-batch and
-stochastic (``tl.mofa``, ``models.mofa.fit_mofa``); see ROADMAP.md for the
-rest.
+of an asymmetric graph) and MOFA+ with gaussian, bernoulli and poisson
+views, spike-slab factors and MEFISTO's smooth factors, full-batch and
+stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``); see
+ROADMAP.md for the rest.
 
 The port needs no container classes of its own: its tools take any
 AnnData-like object (``.X``, ``.obsm``, ``.varm``, ``.uns``, ``.obsp``,

@@ -2,10 +2,11 @@
 muon_tpu/_core/tools_mofa.py).
 
 MuData → per-view matrices (union/intersection obs expansion, group
-splitting, likelihood guessing, centering/scaling), training by
+splitting, likelihood guessing, centering/scaling of gaussian views), the
+smooth covariate of MEFISTO and its options, training by
 ``muon_tpu_torch.models.mofa.fit_mofa``, HDF5 model save in the mofapy2
 file layout, and write-back of ``obsm["X_mofa"]`` / ``varm["LFs"]`` /
-``uns["mofa"]``.
+``uns["mofa"]`` (and ``obs[f"{covariate}_warped"]`` with warping).
 
 It takes the reference's containers or anything shaped like them: a
 MuData-like object (``.mod``, ``.obs`` and ``.var`` as pandas frames,
@@ -14,9 +15,7 @@ MuData-like object (``.mod``, ``.obs`` and ``.var`` as pandas frames,
 as the single view ``"data"``. h5py is imported inside the function that
 writes the model file.
 
-Not ported yet, and refused by name (no silent downgrade): bernoulli and
-poisson likelihoods, ``spikeslab_factors``, ``smooth_covariate`` (MEFISTO,
-with ``smooth_warping`` and ``smooth_kwargs``) and ``mesh``.
+Not ported yet, and refused by name in ``fit_mofa``: ``mesh``.
 """
 
 from __future__ import annotations
@@ -113,16 +112,9 @@ def mofa(
 
     ``gpu_mode`` is accepted for API parity and ignored: compute runs on
     ``device``, the CUDA device when None. ``mesh`` (several devices) is
-    not ported yet and raises in ``fit_mofa``."""
-    from ..models.mofa import MOFAConfig, _check_likelihoods, fit_mofa
-
-    # fit_mofa refuses the rest of what is not ported (likelihoods,
-    # spikeslab_factors, mesh); the covariate is a column's name here
-    if smooth_covariate is not None or smooth_warping:
-        raise NotImplementedError(
-            "smooth_covariate (MEFISTO smooth factors, with smooth_warping and "
-            "smooth_kwargs) is not ported yet (ROADMAP.md)"
-        )
+    not ported yet and raises in ``fit_mofa``. ``smooth_covariate`` names
+    a column of ``obs`` (or of a modality's ``obs``)."""
+    from ..models.mofa import MOFAConfig, fit_mofa
 
     mdata = _as_mudata(data)
 
@@ -221,11 +213,11 @@ def mofa(
                 f"Unknown likelihood {lk!r}; expected gaussian, bernoulli, "
                 "or poisson"
             )
-    # refuse before the views are centred: no silent fit as gaussian
-    _check_likelihoods(liks)
-
-    # -- center / scale (mofapy2 process_data semantics) ---------------------
+    # -- center / scale (mofapy2 process_data semantics; only gaussian views
+    # are centred and scaled — bound-based likelihoods keep raw counts) ------
     for i, Y in enumerate(Ys):
+        if liks[i] != "gaussian":
+            continue
         if center_groups:
             for g in range(G):
                 rows = groups == g
@@ -270,6 +262,68 @@ def mofa(
         mesh=mesh,
         device=device,
     )
+    if smooth_covariate is not None:
+        # MEFISTO smooth factors: GP priors over the covariate
+        if smooth_covariate in mdata.obs.columns:
+            cov = mdata.obs.loc[obs_index, smooth_covariate].to_numpy()
+        else:
+            # fall back to per-modality obs columns (any modality carrying
+            # the column; values reindexed onto the chosen obs axis)
+            cov = None
+            for ad in mdata.mod.values():
+                if smooth_covariate in ad.obs.columns:
+                    cov = ad.obs[smooth_covariate].reindex(obs_index).to_numpy()
+                    break
+            if cov is None:
+                raise ValueError(
+                    f"smooth_covariate {smooth_covariate!r} is not a column "
+                    "in mdata.obs or any modality's .obs"
+                )
+        cov = np.asarray(cov, dtype=np.float32)
+        if np.isnan(cov).any():
+            raise ValueError(
+                "smooth_covariate contains missing values after aligning to "
+                "the chosen obs axis"
+            )
+        sk = dict(smooth_kwargs or {})
+        fit_kwargs["smooth_covariate"] = cov
+        if "n_grid" in sk:
+            fit_kwargs["smooth_n_grid"] = int(sk["n_grid"])
+        if "opt_freq" in sk:
+            fit_kwargs["smooth_opt_every"] = int(sk["opt_freq"])
+        if "start_opt" in sk:
+            fit_kwargs["smooth_start_opt"] = int(sk["start_opt"])
+        if sk.get("sparseGP"):
+            # inducing-point GPs
+            fit_kwargs["sparse_gp"] = True
+            if sk.get("frac_inducing") is not None:
+                fit_kwargs["frac_inducing"] = float(sk["frac_inducing"])
+        if sk.get("model_groups"):
+            # the learned group-correlation matrix Kg
+            fit_kwargs["model_groups"] = True
+        if smooth_warping:
+            # DTW alignment of each group's covariate to the reference group
+            if groups_label is None:
+                raise ValueError(
+                    "smooth_warping requires groups_label with >= 2 groups"
+                )
+            ref = sk.get("warping_ref", 0)
+            if not isinstance(ref, (int, np.integer)):
+                if str(ref) not in group_names:
+                    raise ValueError(
+                        f"Expected 'warping_ref' to be a group name but "
+                        f"there is no group {ref!r}"
+                    )
+                ref = group_names.index(str(ref))
+            fit_kwargs["warping"] = True
+            fit_kwargs["warping_ref"] = int(ref)
+            fit_kwargs["warping_freq"] = int(sk.get("warping_freq", 20))
+            fit_kwargs["warping_open_begin"] = bool(
+                sk.get("warping_open_begin", True)
+            )
+            fit_kwargs["warping_open_end"] = bool(
+                sk.get("warping_open_end", True)
+            )
     if save_interrupted:
         # persist the full VB state alongside the model on Ctrl-C so a
         # partially trained model survives
@@ -312,6 +366,13 @@ def mofa(
     else:
         X_mofa = Z
     target.obsm["X_mofa"] = X_mofa
+    if res.warped_covariates is not None:
+        wc = np.full(target.n_obs, np.nan)
+        if use_obs in ("union", "intersection"):
+            wc[target.obs.index.isin(obs_index)] = res.warped_covariates
+        else:
+            wc[:] = res.warped_covariates
+        target.obs[f"{smooth_covariate}_warped"] = wc
     W = np.concatenate(res.W, axis=0)  # (ΣD, K)
     if use_var:
         LFs = np.zeros((target.n_vars, W.shape[1]))
@@ -368,6 +429,21 @@ def mofa(
         for m_i, m in enumerate(views):
             variance[m] = res.r2_per_factor[0][m_i]
     target.uns["mofa"]["variance"] = variance
+    # MEFISTO's smooth-factor outputs (the reference's mofapy2 keeps them in
+    # the model file; here they are also in .uns)
+    if res.gp_lengthscales is not None:
+        target.uns["mofa"]["smooth"] = {
+            "lengthscales": np.asarray(res.gp_lengthscales),
+            "scales": np.asarray(res.gp_scales),
+        }
+        if res.warped_covariates is not None:
+            target.uns["mofa"]["smooth"]["warped_covariates"] = np.asarray(
+                res.warped_covariates
+            )
+        if res.gp_group_corr is not None:
+            target.uns["mofa"]["smooth"]["group_corr"] = np.asarray(
+                res.gp_group_corr
+            )
     if not quiet:
         print(
             "Saved MOFA embeddings in .obsm['X_mofa'] slot and their "
@@ -425,6 +501,14 @@ def _save_model_hdf5(
         ts = f.create_group("training_stats")
         ts.create_dataset("elbo", data=res.elbo_history)
         ts.create_dataset("number_factors", data=np.asarray([n_factors]))
+        if res.gp_lengthscales is not None:
+            sm = f.create_group("smooth")
+            sm.create_dataset("lengthscales", data=res.gp_lengthscales)
+            sm.create_dataset("scales", data=res.gp_scales)
+            if res.warped_covariates is not None:
+                sm.create_dataset(
+                    "warped_covariates", data=res.warped_covariates
+                )
         if Ys is not None:
             dg = f.create_group("data")
             for m_i, m in enumerate(views):

@@ -11,24 +11,29 @@ coordinate ascent; one sweep is W → Z → τ → α → θ → ELBO. The resid
 E = Y − Z·SWᵀ lives on the device once per view and is corrected by rank-1
 updates inside the sweep.
 
-Ported: gaussian views, masked (NaN or an explicit mask) and unmasked, any
-number of groups, ``ard_weights``/``ard_factors``/``spikeslab_weights`` on
-and off, full-batch and stochastic (SVI) training, checkpoint and resume,
-the R² statistics and the factor order. The state is the reference's: the
-same keys with the same meaning, as tensors (``state_from_reference`` and
+Ported: gaussian, bernoulli and poisson views, masked (NaN or an explicit
+mask) and unmasked, any number of groups, ``ard_weights``/``ard_factors``/
+``spikeslab_weights``/``spikeslab_factors`` on and off, full-batch and
+stochastic (SVI) training, MEFISTO's smooth factors (GP priors over a
+covariate, dense or with inducing points, with learned group correlations
+and DTW warping of the groups' covariates), checkpoint and resume, the R²
+statistics and the factor order. The state is the reference's: the same
+keys with the same meaning, as tensors (``state_from_reference`` and
 ``state_to_reference`` carry one across).
 
 Where the reference loops over the factors inside one compiled program,
 the sweeps here call four kernels per factor and view (ops/mofa.py): T17
 (zk @ E, and Σ E² for τ), T18 (the posterior of one factor's weights), T19
 (E @ tsw, with the mask's two sums) and T20 (the rank-1 correction of E, in
-place). The products that stand outside the loop are ``torch.matmul``. A
+place). A bernoulli or poisson view refreshes its local bound at the start
+of each sweep with T23 and then runs the masked path with B = the bound's
+per-entry precisions. Smooth factors take their prior covariances from T24
+(ops/gp.py) and their posteriors from torch Cholesky factors and triangular
+solves. The products that stand outside the loop are ``torch.matmul``. A
 sweep copies what it updates, so a state handed to a callback or a
 checkpoint is never written again.
 
-Not ported yet, and refused by name: bernoulli and poisson views,
-``spikeslab_factors``, smooth (MEFISTO) factors with ``sparse_gp``,
-``warping`` and ``model_groups``, and ``mesh``.
+Not ported yet, and refused by name: ``mesh``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import gp
 from ..ops import mofa as ops
 from ..ops.device import DeviceLike, resolve_device
 from ..utils.profiling import stage
@@ -54,6 +60,12 @@ THETA_A0 = 1.0
 THETA_B0 = 1.0
 
 CONVERGENCE_THRESHOLDS = {"fast": 5e-4, "medium": 5e-5, "slow": 5e-6}
+
+# views trained through a local quadratic bound, whose τ the bound fixes
+BOUND_LIKELIHOODS = ("bernoulli", "poisson")
+# the sweep before which spike-slab factors stay dense (mofapy2's
+# start_sparsity): the host loop sets the state's ``ssz_on`` there
+SSZ_START = 15
 
 F32 = torch.float32
 
@@ -100,7 +112,8 @@ def _leaf_to_tensor(v, device):
     a = np.asarray(v)
     if a.dtype.kind == "f":
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # np.require keeps a 0-dim array 0-dim (ascontiguousarray makes it 1-D)
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
 
 
 def state_from_reference(state: dict, device: DeviceLike = None) -> dict:
@@ -151,9 +164,11 @@ def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_
         ops.rank1_update(E, zk, delta, B)
 
 
-def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec):
+def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None):
     """The K coordinate updates of the factors (the reference's ``z_body``
-    loop): Zm, Zv and every E are updated in place."""
+    loop): Zm, Zv and every E are updated in place. ``posterior(k, p, b)``
+    gives factor k's new (mean, variance) from its precision p and its
+    linear term b; without one, (b/p, 1/p)."""
     M = len(Es)
     tSW = [taus[m][:, None] * SWs[m] for m in range(M)]            # (D, K)
     tSWW = [taus[m][:, None] * SWW[m] for m in range(M)]
@@ -175,12 +190,94 @@ def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec):
                                         tSW2[m][:, k])
                 p = p + pb
                 b = b + r + zk * qb
-        z_new = b / p
+        if posterior is None:
+            z_new, v_new = b / p, 1.0 / p
+        else:
+            z_new, v_new = posterior(k, p, b)
         delta = zk - z_new
         for m in range(M):
             ops.rank1_update(Es[m], delta, SWs[m][:, k], Bs[m])
         Zm[:, k] = z_new
-        Zv[:, k] = 1.0 / p
+        Zv[:, k] = v_new
+
+
+def _ssz_posterior(ssz_on, thz_gap, ln_az_cell, Zhat, Zvhat, ZS):
+    """Spike-slab factors (z = s·ẑ, s ~ Bern(θ_z of the cell's group)): the
+    weights' spike-slab update transposed to cells. Z_mean/Z_var keep the
+    E[z]/Var[z] convention; ẑ, its variance and s go to column k of
+    ``Zhat``, ``Zvhat``, ``ZS`` in place. Until ``ssz_on`` (a 0-dim tensor)
+    turns positive the update is dense (s = 1)."""
+
+    def posterior(k, p, b):
+        z_hat = b / p
+        v_hat = 1.0 / p
+        lam = thz_gap[:, k] + 0.5 * ln_az_cell[:, k] - 0.5 * torch.log(p) + 0.5 * b * b / p
+        s_z = torch.where(ssz_on > 0, torch.sigmoid(lam), torch.ones_like(lam))
+        z_new = s_z * z_hat
+        ez2 = s_z * (v_hat + z_hat * z_hat)
+        Zhat[:, k] = z_hat
+        Zvhat[:, k] = v_hat
+        ZS[:, k] = s_z
+        return z_new, torch.clamp(ez2 - z_new * z_new, min=1e-12)
+
+    return posterior
+
+
+def _dense_gp_posterior(gp_K):
+    """MEFISTO's smooth factor: q(z_k) = N(Σb, Σ) with Σ = (K_k⁻¹ + diag p)⁻¹,
+    by the Woodbury form Σ = K − KS(I + SKS)⁻¹SK (S = diag √p): one (N, N)
+    Cholesky factor and one triangular solve, no K⁻¹."""
+    eye = torch.eye(gp_K.shape[-1], dtype=gp_K.dtype, device=gp_K.device)
+
+    def posterior(k, p, b):
+        Kk = gp_K[k]
+        sq = torch.sqrt(p)
+        with stage("mofa/gp_solve"):
+            L = torch.linalg.cholesky(eye + (sq[:, None] * Kk) * sq[None, :])
+            V = torch.linalg.solve_triangular(L, sq[:, None] * Kk, upper=False)  # L⁻¹SK
+            z_new = Kk @ b - V.T @ (V @ b)
+            v_new = torch.clamp(torch.diagonal(Kk) - (V * V).sum(dim=0), min=1e-8)
+        return z_new, v_new
+
+    return posterior
+
+
+def _sparse_gp_posterior(state):
+    """The sparse (inducing-point) GP in its SGPR form: with
+    Σ = K_mm + K_mn diag(p) K_nm, E[z] = K_nm Σ⁻¹ K_mn b and
+    Var[z] = k_ii − diag(Nyström) + diag(K_nm Σ⁻¹ K_mm Σ⁻¹ K_mn). K_mm and
+    K_nm come from T24 in every sweep, so the state never holds an (N, N)
+    matrix; with a learned group correlation (``gp_Kg``) its entry of the
+    factor's groups multiplies the RBF term.
+
+    The reference factors Σ itself, whose condition grows with N·p: in
+    float32 its Cholesky factor breaks down at 10⁵ cells. Here Σ is
+    factored as L_m B L_mᵀ with L_m = chol(K_mm), C = L_m⁻¹ K_mn and
+    B = I + C diag(p) Cᵀ, whose eigenvalues are all ≥ 1 (GPflow's SGPR):
+    E[z] = Cᵀ B⁻¹ C b, diag(Nyström) = ‖cᵢ‖², and the last term
+    ‖B⁻¹ cᵢ‖². The same algebra, another order of roundings."""
+    cn, cu = state["gp_cov"], state["gp_cov_u"]
+    gn, gu = state["gp_g"], state["gp_g_u"]
+    Kg = state.get("gp_Kg")
+
+    def posterior(k, p, b):
+        ell, sc = state["gp_ell"][k:k + 1], state["gp_scale"][k:k + 1]
+        Kg_k = None if Kg is None else Kg[k:k + 1]
+        with stage("mofa/gp_kernel"):
+            Kmm = gp.rbf_kernel(cu, cu, ell, sc, gu, gu, Kg_k, same=True)[0]
+            Knm = gp.rbf_kernel(cn, cu, ell, sc, gn, gu, Kg_k)[0]
+        with stage("mofa/gp_solve"):
+            C = torch.linalg.solve_triangular(torch.linalg.cholesky(Kmm), Knm.T, upper=False)
+            B = (C * p[None, :]) @ C.T
+            B.diagonal().add_(1.0)
+            LB = torch.linalg.cholesky(B)
+            z_new = C.T @ torch.cholesky_solve((C @ b)[:, None], LB)[:, 0]
+            D = torch.cholesky_solve(C, LB)                          # B⁻¹ C
+            v_new = torch.clamp(1.0 + gp.JITTER - (C * C).sum(dim=0) + (D * D).sum(dim=0),
+                                min=1e-8)
+        return z_new, v_new
+
+    return posterior
 
 
 def _residual_ss(E, B, z2, zz, SWW, SW):
@@ -210,32 +307,62 @@ def _theta_moments(S, D):
     return torch.digamma(sa) - dg, torch.digamma(sb) - dg, sa / (sa + sb)
 
 
-def _check_likelihoods(liks) -> None:
-    for lk in liks:
-        if lk != "gaussian":
-            raise NotImplementedError(
-                f"likelihood {lk!r} is not ported yet: muon_tpu_torch fits gaussian "
-                "views only (bernoulli and poisson views are queued in ROADMAP.md)"
-            )
+def _ssz_moments(Gh, ZS, scale=1.0):
+    """θ_z of the spike-slab factors per group from the slab counts (scaled
+    by N/S in SVI): E[ln θ], E[ln(1 − θ)], E[θ]."""
+    s_pg = (Gh.T @ ZS) * scale                                       # (G, K)
+    sa = THETA_A0 + s_pg
+    sb = THETA_B0 + (Gh.sum(dim=0) * scale)[:, None] - s_pg
+    dg = torch.digamma(sa + sb)
+    return torch.digamma(sa) - dg, torch.digamma(sb) - dg, sa / (sa + sb)
 
 
-def _check_config(config: MOFAConfig) -> None:
-    if config.spikeslab_factors:
-        raise NotImplementedError(
-            "spikeslab_factors=True is not ported yet (ROADMAP.md); "
-            "muon_tpu_torch fits dense factors only"
-        )
+def _slab_z2(Gh, alpha_z, ZS, Zvhat, Zhat):
+    """E[ẑ²] = S(v̂ + ẑ²) + (1 − S)/α_z (the slab-conditional moment)."""
+    return ZS * (Zvhat + Zhat * Zhat) + (1.0 - ZS) / (Gh @ alpha_z)
+
+
+def _refresh_bounds(liks, Zm, Zv, state, Y0s, M01s, target=False):
+    """T23 for every bernoulli or poisson view: ``{m: (E, B, target)}``,
+    B the per-entry precisions (bernoulli) or the mask (poisson)."""
+    out = {}
+    z2 = None
+    for m, lik in enumerate(liks):
+        if lik not in BOUND_LIKELIHOODS:
+            continue
+        if lik == "bernoulli":
+            if z2 is None:
+                z2 = Zv + Zm * Zm
+            SWW = state["S"][m] * (state["W_var"][m] + state["W_hat"][m] ** 2)
+            out[m] = ops.bound_refresh(lik, Zm, state["SW"][m], Y0s[m], M01s[m], z2=z2,
+                                       SWW=SWW, target=target)
+        else:
+            out[m] = ops.bound_refresh(lik, Zm, state["SW"][m], Y0s[m], M01s[m],
+                                       kappa=state["tau"][m], target=target)
+    return out
 
 
 def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bool],
-              liks: Optional[Sequence[str]] = None):
-    """The full-batch coordinate-ascent sweep for gaussian views:
-    ``step(state) -> (new_state, elbo)`` with ``elbo`` a 0-dim tensor on the
-    device. The state it is given is left as it was."""
-    _check_config(config)
-    _check_likelihoods(liks or ())
+              liks: Optional[Sequence[str]] = None, smooth: bool = False,
+              sparse_gp: bool = False):
+    """The full-batch coordinate-ascent sweep: ``step(state) -> (new_state,
+    elbo)`` with ``elbo`` a 0-dim tensor on the device. The state it is
+    given is left as it was.
+
+    A bernoulli or poisson view trains through a local quadratic bound
+    refreshed at the start of every sweep (T23): bernoulli (Jaakkola) with
+    the per-entry precision T = 2λ(ζ)·mask, poisson (Seeger) with the
+    per-feature precision κ_d held in τ; the view then runs the masked path
+    with B = T (bernoulli) or the mask (poisson), and its τ is never
+    updated. With ``smooth`` the factors carry GP priors (``gp_K`` in the
+    state, or the sparse GP's covariates with ``sparse_gp``) instead of the
+    diagonal prior; with ``config.spikeslab_factors`` (and not ``smooth``)
+    each cell's factor value has a spike-slab prior."""
     K = config.n_factors
     M = len(Ds)
+    liks = list(liks) if liks is not None else ["gaussian"] * M
+    nongauss = [lk in BOUND_LIKELIHOODS for lk in liks]
+    ssz = config.spikeslab_factors and not smooth
 
     def step(state):
         Zm, Zv = state["Z_mean"].clone(), state["Z_var"].clone()
@@ -243,9 +370,14 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
         alpha, ln_alpha = state["alpha"], state["ln_alpha"]    # (M, K)
         alpha_z = state["alpha_z"]           # (G, K)
         theta_ln, theta_ln1m = state["theta_ln"], state["theta_ln1m"]
-        Es = [E.clone() for E in state["E"]]
-        Bs = [state["mask"][m] if masked[m] else None for m in range(M)]
         taus = state["tau"]
+        masks_eff = list(state["mask"])
+        Es = [None if nongauss[m] else E.clone() for m, E in enumerate(state["E"])]
+        with stage("mofa/bound_refresh"):
+            for m, (E, B, _) in _refresh_bounds(liks, Zm, Zv, state, state["Y0"],
+                                                state["M01"]).items():
+                Es[m], masks_eff[m] = E, B
+        Bs = [masks_eff[m] if masked[m] else None for m in range(M)]
         Whats = [w.clone() for w in state["W_hat"]]
         Wvs = [w.clone() for w in state["W_var"]]
         Svs = [w.clone() for w in state["S"]]
@@ -260,11 +392,24 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
 
         with stage("mofa/z_sweep"):
             SWW = [Svs[m] * (Wvs[m] + Whats[m] * Whats[m]) for m in range(M)]  # E[(sŵ)²]
-            if config.ard_factors:
+            if smooth:
+                # the GP prior enters through the posterior; no diagonal prior
+                prior_prec = torch.zeros((N, K), dtype=Zm.dtype, device=Zm.device)
+            elif config.ard_factors:
                 prior_prec = Gh @ alpha_z
             else:
                 prior_prec = torch.ones((N, K), dtype=Zm.dtype, device=Zm.device)
-            _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec)
+            posterior = None
+            if ssz:
+                Zhat, Zvhat, ZS = (state[key].clone() for key in ("Z_hat", "Z_vhat", "Z_S"))
+                posterior = _ssz_posterior(
+                    state["ssz_on"], Gh @ (state["theta_z_ln"] - state["theta_z_ln1m"]),
+                    Gh @ state["ln_alpha_z"], Zhat, Zvhat, ZS)
+            elif smooth and sparse_gp:
+                posterior = _sparse_gp_posterior(state)
+            elif smooth:
+                posterior = _dense_gp_posterior(state["gp_K"])
+            _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior)
 
         with stage("mofa/moments"):
             zz = Zm * Zm
@@ -274,6 +419,11 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 _, ss, n_d = _residual_ss(Es[m], Bs[m], z2, zz, SWW[m], SWs[m])
                 ss_views.append(ss)
                 n_d_views.append(n_d)
+                if nongauss[m]:
+                    # τ is fixed by the quadratic bound, never inferred
+                    new_tau.append(taus[m])
+                    new_ln_tau.append(state["ln_tau"][m])
+                    continue
                 t, lt = _gamma_moments(A0 + 0.5 * n_d, B0 + 0.5 * ss)
                 new_tau.append(t)
                 new_ln_tau.append(lt)
@@ -289,9 +439,16 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 alpha = torch.stack(alpha_new)
                 ln_alpha = torch.stack(ln_alpha_new)
 
+            ln_alpha_z = state.get("ln_alpha_z")
             if config.ard_factors:
                 Ng = Gh.sum(dim=0)  # (G,)
-                alpha_z = (A0 + 0.5 * Ng[:, None]) / (B0 + 0.5 * (Gh.T @ z2))
+                zg = _slab_z2(Gh, alpha_z, ZS, Zvhat, Zhat) if ssz else z2
+                alpha_z, la_z = _gamma_moments(A0 + 0.5 * Ng[:, None], B0 + 0.5 * (Gh.T @ zg))
+                if ssz:
+                    ln_alpha_z = la_z
+
+            if ssz:
+                theta_z = _ssz_moments(Gh, ZS)
 
             if config.spikeslab_weights:
                 th = [_theta_moments(Svs[m], Ds[m]) for m in range(M)]
@@ -309,9 +466,11 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                     0.5 * n_d_views[m] * (new_ln_tau[m] - math.log(2 * math.pi))
                     - 0.5 * new_tau[m] * ss_views[m]
                 )
-            elbo = elbo - 0.5 * torch.sum(
-                prior_prec * z2 - 1.0 - torch.log(prior_prec * Zv)
-            )
+            # KL(Z) under the prior precision; a unit-prior surrogate under the
+            # GP prior (its exact KL costs K more Cholesky factors, and only the
+            # changes from sweep to sweep matter)
+            kl_prec = torch.ones_like(prior_prec) if smooth else prior_prec
+            elbo = elbo - 0.5 * torch.sum(kl_prec * z2 - 1.0 - torch.log(kl_prec * Zv))
             for m in range(M):
                 w2 = Wvs[m] + Whats[m] ** 2
                 kl_w = 0.5 * (
@@ -327,14 +486,20 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 else:
                     elbo = elbo - torch.sum(kl_w)
 
-        new_state = {
-            "Z_mean": Zm,
-            "Z_var": Zv,
-            "G": Gh,
-            "E": Es,
-            "mask": list(state["mask"]),
-            "M01": state["M01"],
-            "Y0": state["Y0"],
+        new_state = {"Z_mean": Zm, "Z_var": Zv}
+        if ssz:
+            new_state.update({
+                "ssz_on": state["ssz_on"], "Z_hat": Zhat, "Z_vhat": Zvhat, "Z_S": ZS,
+                "theta_z_ln": theta_z[0], "theta_z_ln1m": theta_z[1],
+                "theta_z_mean": theta_z[2], "ln_alpha_z": ln_alpha_z,
+            })
+        new_state.update({"G": Gh, "E": Es, "mask": masks_eff, "M01": state["M01"],
+                          "Y0": state["Y0"]})
+        if smooth:
+            keys = (("gp_cov", "gp_cov_u", "gp_ell", "gp_scale", "gp_g", "gp_g_u", "gp_Kg")
+                    if sparse_gp else ("gp_K",))
+            new_state.update({key: state[key] for key in keys if key in state})
+        new_state.update({
             "W_hat": Whats,
             "W_var": Wvs,
             "S": Svs,
@@ -347,7 +512,7 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
             "theta_ln": theta_ln,
             "theta_ln1m": theta_ln1m,
             "theta_mean": theta_mean,
-        }
+        })
         return new_state, elbo
 
     return step
@@ -361,12 +526,16 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
     batch statistics scaled by N/S and blended into the running values with
     step size ``rho``. ``batch`` is an int64 tensor of distinct rows; the
     state keeps the raw data (``Y0``, ``M01``) and τ's natural parameters
-    (``tau_a``, ``tau_b``)."""
-    _check_config(config)
-    _check_likelihoods(liks or ())
+    (``tau_a``, ``tau_b``). Bernoulli and poisson views refresh their bound
+    on the batch (T23), with the target that rebuilds their residuals after
+    the W blend; spike-slab factors update on the batch as in
+    :func:`make_step`."""
     K = config.n_factors
     M = len(Ds)
     scale = N / float(S)
+    liks = list(liks) if liks is not None else ["gaussian"] * M
+    nongauss = [lk in BOUND_LIKELIHOODS for lk in liks]
+    ssz = config.spikeslab_factors
 
     def step(state, batch, rho):
         # the reference blends in float32: 1 − ρ is rounded there
@@ -385,21 +554,34 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
             alpha_z = state["alpha_z"]
             theta_ln, theta_ln1m = state["theta_ln"], state["theta_ln1m"]
             taus = state["tau"]
+            if ssz:
+                Zhat_b, Zvhat_b, ZS_b = (state[key].index_select(0, batch)
+                                         for key in ("Z_hat", "Z_vhat", "Z_S"))
+            Ybs, Mbs = [], []
+            for m in range(M):
+                M01 = state["M01"][m]
+                Ybs.append(state["Y0"][m].index_select(0, batch))
+                Mb = M01.index_select(0, batch) if M01 is not None else None
+                if Mb is None and nongauss[m]:
+                    Mb = torch.ones_like(Ybs[m])
+                Mbs.append(Mb)
+
+        with stage("mofa/bound_refresh"):
             # the target per view, so that residuals can be rebuilt after the
             # W blend: E = Tgt − B·F (no mask: E = Tgt − F)
+            bounds = _refresh_bounds(liks, Zb, Zvb, state, Ybs, Mbs, target=True)
             Es, Bs, Tgts = [], [], []
             for m in range(M):
-                Yb = state["Y0"][m].index_select(0, batch)
-                M01 = state["M01"][m]
-                Mb = M01.index_select(0, batch) if M01 is not None else None
-                F = Zb @ state["SW"][m].T
-                if Mb is None:
-                    Tgts.append(Yb)
-                    Es.append(Yb - F)
+                if nongauss[m]:
+                    E, B, tgt = bounds[m]
                 else:
-                    Tgts.append(Yb * Mb)
-                    Es.append(Yb * Mb - F * Mb)
-                Bs.append(Mb)
+                    Yb, Mb = Ybs[m], Mbs[m]
+                    F = Zb @ state["SW"][m].T
+                    tgt = Yb if Mb is None else Yb * Mb
+                    E, B = (Yb - F, None) if Mb is None else (Yb * Mb - F * Mb, Mb)
+                Es.append(E)
+                Bs.append(B)
+                Tgts.append(tgt)
 
         with stage("mofa/w_sweep"):
             zz = Zb * Zb
@@ -425,24 +607,33 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
             else:
                 prior_prec = torch.ones((S, K), dtype=Zb.dtype, device=Zb.device)
             SWW = [new_S[m] * (new_Wv[m] + new_W[m] ** 2) for m in range(M)]
-            _z_sweep(config, Zb, Zvb, Es, Bs, new_SW, SWW, taus, prior_prec)
+            posterior = None
+            if ssz:
+                posterior = _ssz_posterior(
+                    state["ssz_on"], Gb @ (state["theta_z_ln"] - state["theta_z_ln1m"]),
+                    Gb @ state["ln_alpha_z"], Zhat_b, Zvhat_b, ZS_b)
+            _z_sweep(config, Zb, Zvb, Es, Bs, new_SW, SWW, taus, prior_prec, posterior)
 
         with stage("mofa/moments"):
             zz = Zb * Zb
             z2b = Zvb + zz
-            new_tau, new_ln_tau, new_tau_a, new_tau_b, ss_e_views = [], [], [], [], []
+            new_tau, new_ln_tau = [], []
+            new_tau_a, new_tau_b = list(state["tau_a"]), list(state["tau_b"])
+            ss_e_views = []
             for m in range(M):
                 ss_e, ss, n_d = _residual_ss(Es[m], Bs[m], z2b, zz, SWW[m], new_SW[m])
                 ss_e_views.append(ss_e)
+                if nongauss[m]:
+                    new_tau.append(taus[m])
+                    new_ln_tau.append(state["ln_tau"][m])
+                    continue
                 # a step on q(τ)'s natural parameters: blending the ratio lets
                 # one underdispersed batch blow τ up
                 a_hat = A0 + 0.5 * scale * n_d
                 b_hat = B0 + 0.5 * scale * torch.clamp(ss, min=1e-10)
-                a_new = blend(state["tau_a"][m], a_hat)
-                b_new = blend(state["tau_b"][m], b_hat)
-                new_tau_a.append(a_new)
-                new_tau_b.append(b_new)
-                t, lt = _gamma_moments(a_new, b_new)
+                new_tau_a[m] = blend(state["tau_a"][m], a_hat)
+                new_tau_b[m] = blend(state["tau_b"][m], b_hat)
+                t, lt = _gamma_moments(new_tau_a[m], new_tau_b[m])
                 new_tau.append(t)
                 new_ln_tau.append(lt)
 
@@ -458,11 +649,29 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
                 alpha = torch.stack(alpha_new)
                 ln_alpha = torch.stack(ln_alpha_new)
 
+            ln_alpha_z = state.get("ln_alpha_z")
             if config.ard_factors:
                 Ng = Gb.sum(dim=0) * scale
-                a = A0 + 0.5 * Ng[:, None]
-                b = B0 + 0.5 * ((Gb.T @ z2b) * scale)
-                alpha_z = blend(alpha_z, a / b)
+                zg = _slab_z2(Gb, alpha_z, ZS_b, Zvhat_b, Zhat_b) if ssz else z2b
+                a_z, la_z = _gamma_moments(A0 + 0.5 * Ng[:, None],
+                                           B0 + 0.5 * ((Gb.T @ zg) * scale))
+                alpha_z = blend(alpha_z, a_z)
+                if ssz:
+                    ln_alpha_z = blend(ln_alpha_z, la_z)
+            ssz_state = {}
+            if ssz:
+                # θ_z from the scaled batch slab counts, expectations blended
+                th_z = _ssz_moments(Gb, ZS_b, scale)
+                ssz_state = {
+                    "ssz_on": state["ssz_on"],
+                    "Z_hat": state["Z_hat"].index_copy(0, batch, Zhat_b),
+                    "Z_vhat": state["Z_vhat"].index_copy(0, batch, Zvhat_b),
+                    "Z_S": state["Z_S"].index_copy(0, batch, ZS_b),
+                    "theta_z_ln": blend(state["theta_z_ln"], th_z[0]),
+                    "theta_z_ln1m": blend(state["theta_z_ln1m"], th_z[1]),
+                    "theta_z_mean": blend(state["theta_z_mean"], th_z[2]),
+                    "ln_alpha_z": ln_alpha_z,
+                }
 
             if config.spikeslab_weights:
                 th = [_theta_moments(new_S[m], Ds[m]) for m in range(M)]
@@ -484,6 +693,7 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
 
         new_state = {
             **state,
+            **ssz_state,
             "Z_mean": Zm_full,
             "Z_var": Zv_full,
             "W_hat": new_W,
@@ -554,6 +764,15 @@ def _draw_z0(N: int, K: int, seed: int, device: torch.device) -> torch.Tensor:
     return torch.randn((N, K), generator=gen, dtype=F32, device=device)
 
 
+def _draw_w0(D: int, K: int, seed: int, m: int, device: torch.device) -> torch.Tensor:
+    """View ``m``'s standard normal draws for a random W start, from a
+    generator of its own, seeded from (seed, 7, m): a stream apart from Z's,
+    as the reference folds 7 into its key (not the reference's draws)."""
+    sub = int(np.random.SeedSequence([int(seed), 7, int(m)]).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(sub)
+    return torch.randn((D, K), generator=gen, dtype=F32, device=device)
+
+
 def _view_tensor(Y, device) -> torch.Tensor:
     if not torch.is_tensor(Y):
         # from_numpy refuses a read-only array (a JAX export, a memmap)
@@ -569,20 +788,28 @@ def _clean_view(Y, B, device):
 
 
 def _init_state(Ys, masks, groups_onehot, config: MOFAConfig, liks=None,
-                keep_data: bool = False, Z0=None, device: DeviceLike = None):
-    """The reference's initial state for gaussian views (masked where
-    ``masks[m]`` is given): W at zero, so E starts as the (masked) data; τ
-    from the per-feature variance over the observed entries, taken on the
-    device. ``keep_data`` keeps what SVI needs: ``Y0``, ``M01`` and τ's
-    natural parameters. ``Z0 (N, K)`` is the initial ``Z_mean``; when absent
-    it is drawn from a ``torch.Generator`` seeded with ``config.seed``."""
-    _check_config(config)
+                keep_data: bool = False, Z0=None, W0=None, device: DeviceLike = None):
+    """The reference's initial state. A gaussian view (masked where
+    ``masks[m]`` is given) starts with W at zero, so E is the (masked) data,
+    and τ from the per-feature variance over the observed entries, taken on
+    the device. A bernoulli or poisson view keeps its raw data and a 0/1
+    mask (``Y0``, ``M01``), holds its bound's precision in τ (1, or
+    κ_d = ¼ + 0.17·maxₙ y for poisson) and starts from a random W with
+    q(s) = 1, which breaks the W↔Z symmetry the bound cannot. With
+    ``spikeslab_factors`` a gaussian view starts from 0.1 × a random W too,
+    and the state carries the factors' spike-slab moments. ``keep_data``
+    keeps what SVI needs: ``Y0``, ``M01`` and τ's natural parameters.
+
+    ``Z0 (N, K)`` is the initial ``Z_mean``; ``W0`` a list of per-view
+    (D_m, K) standard normal draws for the random W starts (an entry may be
+    None where a view needs none). Each is drawn from a ``torch.Generator``
+    seeded from ``config.seed`` where absent."""
     device = resolve_device(device)
     N = Ys[0].shape[0]
     K = config.n_factors
     M = len(Ys)
     G = config.n_groups
-    _check_likelihoods(liks or ())
+    liks = list(liks) if liks is not None else ["gaussian"] * M
 
     if Z0 is None:
         Zm = _draw_z0(N, K, config.seed, device)
@@ -593,6 +820,15 @@ def _init_state(Ys, masks, groups_onehot, config: MOFAConfig, liks=None,
 
     def full(shape, value):
         return torch.full(shape, value, dtype=F32, device=device)
+
+    def w_start(m, D):
+        w = None if W0 is None else W0[m]
+        if w is None:
+            return _draw_w0(D, K, config.seed, m, device)
+        w = _view_tensor(w, device).clone().contiguous()
+        if tuple(w.shape) != (D, K):
+            raise ValueError(f"W0[{m}] must have shape {(D, K)}, got {tuple(w.shape)}")
+        return w
 
     state = {
         "Z_mean": Zm,
@@ -618,8 +854,49 @@ def _init_state(Ys, masks, groups_onehot, config: MOFAConfig, liks=None,
         "theta_ln1m": full((M, K), math.log(0.01)),
         "theta_mean": full((M, K), 0.99),
     }
+    if config.spikeslab_factors:
+        # the same optimistic start for θ_z: at θ = 0.5 the double gate (W
+        # and Z both at s ≈ ½) stalls all but one factor
+        th0 = 0.99
+        state.update({
+            "ssz_on": torch.zeros((), dtype=F32, device=device),
+            "Z_hat": Zm,
+            "Z_vhat": full((N, K), 1.0),
+            "Z_S": full((N, K), 1.0),
+            "theta_z_ln": full((G, K), math.log(th0)),
+            "theta_z_ln1m": full((G, K), math.log(1.0 - th0)),
+            "theta_z_mean": full((G, K), th0),
+            "ln_alpha_z": full((G, K), 0.0),
+        })
     for m, Y in enumerate(Ys):
         D = Y.shape[1]
+        if liks[m] in BOUND_LIKELIHOODS:
+            Yj = torch.nan_to_num(_view_tensor(Y, device), nan=0.0).contiguous()
+            M01 = (full((N, D), 1.0) if masks[m] is None
+                   else _view_tensor(masks[m], device).contiguous())
+            state["M01"].append(M01)
+            state["Y0"].append(Yj * M01)
+            state["mask"].append(M01)
+            state["E"].append(torch.zeros((N, D), dtype=F32, device=device))
+            if liks[m] == "poisson":
+                # Seeger's bound precision κ_d = ¼ + 0.17 maxₙ y_nd
+                kappa = 0.25 + 0.17 * Yj.max(dim=0).values
+                state["tau"].append(kappa)
+                state["ln_tau"].append(torch.log(kappa))
+            else:
+                state["tau"].append(full((D,), 1.0))
+                state["ln_tau"].append(full((D,), 0.0))
+            if keep_data:
+                # placeholders keep the per-view lists aligned; SVI never
+                # updates τ of a bound-based view
+                state.setdefault("tau_a", []).append(full((D,), 1.0))
+                state.setdefault("tau_b", []).append(full((D,), 1.0))
+            W = w_start(m, D)
+            state["W_hat"].append(W)
+            state["W_var"].append(full((D, K), 1.0))
+            state["S"].append(full((D, K), 1.0))
+            state["SW"].append(W.clone())
+            continue
         Ym, Bj = _clean_view(Y, masks[m], device)
         # per-column variance over observed entries, on the device
         cnt = float(N) if Bj is None else torch.clamp(Bj.sum(dim=0), min=1.0)
@@ -640,15 +917,127 @@ def _init_state(Ys, masks, groups_onehot, config: MOFAConfig, liks=None,
             state["M01"].append(None)
             state["Y0"].append(None)
         state["mask"].append(Bj)
-        # W starts at zero → E starts as (masked) Y
-        state["E"].append(Ym)
         state["tau"].append(_leaf_to_tensor(1.0 / var, device))
         state["ln_tau"].append(_leaf_to_tensor(-np.log(var), device))
-        state["W_hat"].append(full((D, K), 0.0))
         state["W_var"].append(full((D, K), 1.0))
-        state["S"].append(full((D, K), 0.5 if config.spikeslab_weights else 1.0))
-        state["SW"].append(full((D, K), 0.0))
+        if config.spikeslab_factors:
+            # the double spike-slab (W and Z) stalls from a zero-W start
+            W = 0.1 * w_start(m, D)
+            E0 = Ym - Zm @ W.T
+            state["E"].append(E0 if Bj is None else E0 * Bj)
+            state["W_hat"].append(W)
+            state["S"].append(full((D, K), 1.0))
+            state["SW"].append(W.clone())
+        else:
+            # W starts at zero → E starts as (masked) Y
+            state["E"].append(Ym)
+            state["W_hat"].append(full((D, K), 0.0))
+            state["S"].append(full((D, K), 0.5 if config.spikeslab_weights else 1.0))
+            state["SW"].append(full((D, K), 0.0))
     return state
+
+
+# ---------------------------------------------------------------------------
+# MEFISTO's warping: host numpy, as in the reference
+# ---------------------------------------------------------------------------
+
+
+def _dtw_align(ref_t, ref_z, g_t, g_z, open_begin=True, open_end=True):
+    """Warp a group's trajectory onto the reference time base by DTW.
+
+    Inputs are per-unique-timepoint group-mean factor values; alignment cost
+    is squared Euclidean distance between factor vectors. Returns the warped
+    time for each of g's timepoints (mean of matched reference times).
+    Host-side numpy: the DP runs over unique covariate values, not cells,
+    and is sequential.
+    """
+    C = ((g_z[:, None, :] - ref_z[None, :, :]) ** 2).sum(-1)
+    Tg, Tr = C.shape
+    D = np.empty((Tg, Tr))
+    if open_begin:
+        D[0] = C[0]
+    else:
+        D[0] = np.cumsum(C[0])
+    for i in range(1, Tg):
+        prev = D[i - 1]
+        # min(D[i-1,j], D[i-1,j-1]) is vectorizable; D[i,j-1] is a scan
+        diag = np.concatenate(([np.inf], prev[:-1]))
+        best_up = np.minimum(prev, diag)
+        row = D[i]
+        left = np.inf
+        ci = C[i]
+        for j in range(Tr):
+            left = ci[j] + min(best_up[j], left)
+            row[j] = left
+    j = int(np.argmin(D[-1])) if open_end else Tr - 1
+    matched = [[] for _ in range(Tg)]
+    i = Tg - 1
+    while True:
+        matched[i].append(ref_t[j])
+        if i == 0 and (open_begin or j == 0):
+            break
+        cands = []
+        if i > 0:
+            cands.append((D[i - 1, j], i - 1, j))
+            if j > 0:
+                cands.append((D[i - 1, j - 1], i - 1, j - 1))
+        if j > 0:
+            cands.append((D[i, j - 1], i, j - 1))
+        _, i, j = min(cands)
+    return np.array([np.mean(m) for m in matched])
+
+
+def _warp_groups(cov_norm, groups, Zm, ref, open_begin=True, open_end=True):
+    """Apply DTW warping to every non-reference group's covariate.
+
+    cov_norm: (N,) normalized covariate; groups: (N,) int labels;
+    Zm: (N, K) current E[z]. Returns the new (N,) covariate with each
+    non-reference group's values replaced by their DTW-matched positions
+    on the reference group's time base.
+    """
+    out = cov_norm.copy()
+    rsel = groups == ref
+    rt, rinv = np.unique(cov_norm[rsel], return_inverse=True)
+    rz = np.zeros((len(rt), Zm.shape[1]))
+    np.add.at(rz, rinv, Zm[rsel])
+    rz /= np.bincount(rinv)[:, None]
+    for g in np.unique(groups):
+        if g == ref:
+            continue
+        gsel = groups == g
+        gt, ginv = np.unique(cov_norm[gsel], return_inverse=True)
+        gz = np.zeros((len(gt), Zm.shape[1]))
+        np.add.at(gz, ginv, Zm[gsel])
+        gz /= np.bincount(ginv)[:, None]
+        warped = _dtw_align(rt, rz, gt, gz, open_begin, open_end)
+        out[gsel] = warped[ginv]
+    return out
+
+
+def _inducing_points(cov_flat, groups, N: int, frac_inducing) -> np.ndarray:
+    """The sparse GP's inducing cells: about Mu = frac_inducing·N (1000 at
+    most by default) spaced by covariate quantiles within each group, every
+    group covering its time range (the kernel is block-diagonal across
+    groups)."""
+    Mu = min(
+        N,
+        max(10, int(round(frac_inducing * N)))
+        if frac_inducing
+        else min(1000, N),
+    )
+    parts = []
+    for g in np.unique(groups):
+        rows = np.flatnonzero(groups == g)
+        m_g = max(2, int(round(Mu * len(rows) / N)))
+        order_c = rows[np.argsort(cov_flat[rows], kind="stable")]
+        parts.append(
+            order_c[
+                np.linspace(0, len(rows) - 1, min(m_g, len(rows)))
+                .round()
+                .astype(int)
+            ]
+        )
+    return np.unique(np.concatenate(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -700,6 +1089,7 @@ def fit_mofa(
     sparse_gp: bool = False,
     frac_inducing: Optional[float] = None,
     Z0=None,
+    W0=None,
     device: DeviceLike = None,
 ) -> MOFAResult:
     """Train MOFA+ by VB coordinate ascent.
@@ -707,8 +1097,11 @@ def fit_mofa(
     Ys: per-view (N, D_m) arrays (numpy, or tensors already on the device),
     NaN = missing. groups: (N,) int labels. At most ``n_iterations`` sweeps,
     with the ELBO-change convergence rule and its fast/medium/slow
-    thresholds. ``device=None`` runs on the CUDA device; ``Z0`` is the
-    initial ``Z_mean`` (drawn from ``config.seed`` when absent)."""
+    thresholds. ``smooth_covariate`` (N,) or (N, p) gives the factors GP
+    priors (MEFISTO), with its options as the reference's. ``device=None``
+    runs on the CUDA device; ``Z0`` is the initial ``Z_mean`` and ``W0`` the
+    per-view draws of the random W starts (see ``_init_state``), each drawn
+    from ``config.seed`` when absent."""
     device = resolve_device(device)
     N = Ys[0].shape[0]
     M = len(Ys)
@@ -735,7 +1128,9 @@ def fit_mofa(
     liks = list(config.likelihoods)
     if len(liks) < M:
         liks = liks + ["gaussian"] * (M - len(liks))
-    masked = [m is not None for m in masks]
+    # bound-based views always run through the masked (per-entry precision)
+    # path
+    masked = [m is not None or lk in BOUND_LIKELIHOODS for m, lk in zip(masks, liks)]
     smooth = smooth_covariate is not None
     if smooth and svi_mode:
         raise NotImplementedError(
@@ -762,17 +1157,10 @@ def fit_mofa(
                 "warping is only supported for 1-D covariates"
             )
     # what this port leaves out, by name
-    if smooth:
-        raise NotImplementedError(
-            "smooth_covariate (MEFISTO smooth factors, with sparse_gp, warping and "
-            "model_groups) is not ported yet (ROADMAP.md)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "mesh (training over several devices) is not ported yet (ROADMAP.md)"
         )
-    _check_config(config)
-    _check_likelihoods(liks)
 
     Ds_all = [Y.shape[1] for Y in Ys]
     if svi_mode:
@@ -780,7 +1168,7 @@ def fit_mofa(
         svi_step = make_svi_step(config, Ds_all, N, S, liks)
         rng_batch = np.random.default_rng(config.seed)
     else:
-        step = make_step(config, Ds_all, N, masked, liks)
+        step = make_step(config, Ds_all, N, masked, liks, smooth=smooth, sparse_gp=sparse_gp)
 
     it0 = 0
     resumed_elbos: list = []
@@ -793,7 +1181,48 @@ def fit_mofa(
             resumed_elbos = list(np.asarray(prev_elbos))
         else:
             state = _init_state(Ys, masks, onehot, config, liks, keep_data=svi_mode,
-                                Z0=Z0, device=device)
+                                Z0=Z0, W0=W0, device=device)
+
+    gp_ell = gp_scale = gp_cov = None
+    if smooth:
+        with stage("mofa/gp_init"):
+            c = np.asarray(smooth_covariate, np.float32)
+            if c.ndim == 1:
+                c = c[:, None]
+            # the covariate on [0, 1], so that the lengthscale grid is unitless
+            span = max(float(c.max() - c.min()), 1e-9)
+            cov_span, cov_min = span, float(c.min())
+            gp_cov = _leaf_to_tensor((c - c.min()) / span, device)
+            ell_grid = _leaf_to_tensor(
+                np.geomspace(0.05, 1.0, smooth_n_grid).astype(np.float32), device)
+            scale_grid = _leaf_to_tensor(
+                np.linspace(0.05, 0.95, max(3, smooth_n_grid // 2)).astype(np.float32), device)
+            gp_ell = torch.full((config.n_factors,), 0.2, dtype=F32, device=device)
+            gp_scale = torch.full((config.n_factors,), 0.5, dtype=F32, device=device)
+            gvec = _leaf_to_tensor(groups.astype(np.float32), device)
+            if sparse_gp:
+                idx_u = torch.from_numpy(_inducing_points(
+                    gp_cov[:, 0].cpu().numpy(), groups, N, frac_inducing)).to(device)
+                if "gp_cov_u" not in state:
+                    state["gp_cov"] = gp_cov
+                    state["gp_cov_u"] = gp_cov[idx_u]
+                    state["gp_ell"] = gp_ell
+                    state["gp_scale"] = gp_scale
+                    state["gp_g"] = gvec
+                    state["gp_g_u"] = gvec[idx_u]
+            elif "gp_K" not in state:
+                state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec)
+    # the learned group correlation Kg (mofapy2's model_groups) starts at I
+    # (independent groups) and is refreshed with (ℓ, s); the dense path
+    # takes it into gp_K, the sparse path into the in-step kernels through
+    # the state's gp_Kg, learned on the inducing cells
+    learn_kg = bool(model_groups and smooth and G > 1)
+    gp_Xg = gp_Kg = None
+    if learn_kg:
+        gp_Xg = torch.eye(G, dtype=F32, device=device)[None].repeat(config.n_factors, 1, 1)
+        gp_Kg = gp.normalize_kg(gp_Xg)
+        if sparse_gp:
+            state["gp_Kg"] = gp_Kg
 
     def save(it):
         from .checkpoint import save_state
@@ -811,10 +1240,14 @@ def fit_mofa(
     converged = False
     it = it0
     while it < n_iterations:
+        if config.spikeslab_factors and it == SSZ_START:
+            state = {**state, "ssz_on": torch.ones((), dtype=F32, device=device)}
         if svi_mode:
             # steps until the next host-side event; the objectives of the
             # steps in between stay on the device and are read once
             horizon = n_iterations - it
+            if config.spikeslab_factors and it < SSZ_START:
+                horizon = min(horizon, SSZ_START - it)  # the ssz toggle edits state
             if callback is not None and elbo_every:
                 horizon = min(horizon, elbo_every - it % elbo_every)
             if checkpoint_path and checkpoint_every:
@@ -880,6 +1313,41 @@ def fit_mofa(
             continue
         state, elbo = step(state)
         it += 1
+        if warping and it >= smooth_start_opt and it % warping_freq == 0:
+            with stage("mofa/warp(host)"):
+                cov_np = _warp_groups(
+                    gp_cov[:, 0].cpu().numpy(), groups,
+                    state["Z_mean"].double().cpu().numpy(), int(warping_ref),
+                    warping_open_begin, warping_open_end,
+                )
+                gp_cov = _leaf_to_tensor(cov_np.astype(np.float32)[:, None], device)
+                if sparse_gp:
+                    state["gp_cov"] = gp_cov
+                    state["gp_cov_u"] = gp_cov[idx_u]
+                else:
+                    state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec, gp_Kg)
+        if smooth and it >= smooth_start_opt and it % smooth_opt_every == 0:
+            with stage("mofa/gp_hyper"):
+                if sparse_gp:
+                    # the grid and Kg on the inducing cells (every group is
+                    # represented there by construction)
+                    cu, gu = state["gp_cov_u"], state["gp_g_u"]
+                    Zu, Zvu = state["Z_mean"][idx_u], state["Z_var"][idx_u]
+                    gp_ell, gp_scale = gp.gp_hyper(cu, Zu, Zvu, ell_grid, scale_grid, gu)
+                    state["gp_ell"] = gp_ell
+                    state["gp_scale"] = gp_scale
+                    if learn_kg:
+                        gp_Xg, gp_Kg = gp.gp_group(cu, Zu, Zvu, gp_ell, gp_scale, gu, gp_Xg)
+                        state["gp_Kg"] = gp_Kg
+                else:
+                    # (ℓ, s) by the grid under the independent-groups kernel,
+                    # then Kg's steps with (ℓ, s) fixed
+                    gp_ell, gp_scale = gp.gp_hyper(gp_cov, state["Z_mean"], state["Z_var"],
+                                                   ell_grid, scale_grid, gvec)
+                    if learn_kg:
+                        gp_Xg, gp_Kg = gp.gp_group(gp_cov, state["Z_mean"], state["Z_var"],
+                                                   gp_ell, gp_scale, gvec, gp_Xg)
+                    state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec, gp_Kg)
         if callback is not None and it % elbo_every == 0:
             callback(it, state, float(elbo))
         if checkpoint_path and checkpoint_every and it % checkpoint_every == 0:
@@ -944,6 +1412,11 @@ def fit_mofa(
         elbo_history=np.asarray(elbos),
         n_iterations=it,
         converged=converged,
+        gp_lengthscales=gp_ell.cpu().numpy()[order] if smooth else None,
+        gp_scales=gp_scale.cpu().numpy()[order] if smooth else None,
+        warped_covariates=(gp_cov[:, 0].cpu().numpy() * cov_span + cov_min
+                           if warping else None),
+        gp_group_corr=gp_Kg.cpu().numpy()[order] if gp_Kg is not None else None,
     )
 
     # variance explained per factor (MOFA convention: 1 − SS_res(k)/SS_tot,

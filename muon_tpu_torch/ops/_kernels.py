@@ -75,6 +75,9 @@ _SIGNATURES = {
     "mt_gmm_background_means": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     "mt_umap_epoch_asym": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
+    "mt_mofa_bound_refresh": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "mt_gp_rbf_kernel": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P),
+    "mt_gp_kg_grad": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -106,6 +109,9 @@ KERNELS = {
     "mofa_rank1_update": "mt_mofa_rank1_update",
     "gmm_background_means": "mt_gmm_background_means",
     "umap_epoch_asym": "mt_umap_epoch_asym",
+    "mofa_bound_refresh": "mt_mofa_bound_refresh",
+    "gp_rbf_kernel": "mt_gp_rbf_kernel",
+    "gp_kg_grad": "mt_gp_kg_grad",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

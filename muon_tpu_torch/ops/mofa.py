@@ -6,6 +6,8 @@ and ``_make_svi_step``).
     w_posterior   T18  <- w_body's posterior of one factor's weights
     row_dot       T19  <- Es[m] @ tsw (z_body; masked: B @ tSWW[:, k], B @ tSW2[:, k])
     rank1_update  T20  <- E + zk ⊗ δ and E + δ ⊗ swk (times B where masked)
+    bound_refresh T23  <- the bernoulli / poisson bound refresh at the start of
+                          a sweep: precisions T, residual E, SVI target
                           (csrc/mofa_kernels.cu)
 
 E is (N, D) float32, contiguous, one per view; a masked view's B has E's
@@ -31,6 +33,7 @@ from . import _kernels
 __all__ = [
     "col_dot", "col_dot_plain", "w_posterior", "w_posterior_plain",
     "row_dot", "row_dot_plain", "rank1_update", "rank1_update_plain",
+    "bound_refresh", "bound_refresh_plain",
 ]
 
 # rows per partial column sum of T17 (kTileRows in the source)
@@ -249,3 +252,81 @@ def rank1_update_plain(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                        B: Optional[torch.Tensor] = None) -> torch.Tensor:
     corr = x[:, None] * y[None, :]
     return E.add_(corr if B is None else corr * B)
+
+
+# ---------------------------------------------------------------------------
+# T23
+# ---------------------------------------------------------------------------
+
+
+def bound_refresh(lik: str, Zm: torch.Tensor, SW: torch.Tensor, Y0: torch.Tensor,
+                  M01: Optional[torch.Tensor] = None, z2: Optional[torch.Tensor] = None,
+                  SWW: Optional[torch.Tensor] = None, kappa: Optional[torch.Tensor] = None,
+                  target: bool = False):
+    """T23: the local bound of a bernoulli or poisson view, refreshed from
+    the factors ``Zm`` (N, K) and the weights ``SW`` (D, K), with F = Zm SWᵀ:
+
+    - bernoulli (Jaakkola; needs ``z2 = Zv + Zm²`` and ``SWW = E[(sŵ)²]``):
+      ζ = √max(F² + Σₖ (z2·sww − zm²·sw²), 1e-10), λ = tanh(ζ/2)/(4ζ) (⅛
+      where ζ ≤ 1e-4), T = 2λ·M01, E = (Y0 − ½M01) − T·F, target Y0 − ½M01;
+    - poisson (Seeger; needs ``kappa`` (D,)): pseudo = F − σ(F)(1 − Y0 /
+      max(softplus F, 1e-6))/κ, E = (pseudo − F)·M01, target pseudo·M01,
+      and T is M01 itself.
+
+    ``M01`` (N, D) is the 0/1 mask, None for all observed. Returns
+    ``(E, T, target)``, the target None unless asked for (the stochastic
+    sweep rebuilds its residuals from it)."""
+    if lik not in ("bernoulli", "poisson"):
+        raise ValueError(f"bound_refresh takes a bernoulli or poisson view, not {lik!r}")
+    poisson = lik == "poisson"
+    if (kappa is None) != (not poisson) or (not poisson and (z2 is None or SWW is None)):
+        raise ValueError("bernoulli needs z2 and SWW, poisson needs kappa")
+    if not _on_card(Y0):
+        return bound_refresh_plain(lik, Zm, SW, Y0, M01, z2, SWW, kappa, target)
+    dev = Y0.device
+    n, d = _matrix(Y0, "Y0", dev)
+    n_z, K = _matrix(Zm, "Zm", dev)
+    if n_z != n:
+        raise ValueError(f"Zm has {n_z} rows where Y0 has {n}")
+    _matrix(SW, "SW", dev, (d, K))
+    if M01 is not None:
+        _matrix(M01, "M01", dev, (n, d))
+    if poisson:
+        _vector(kappa, d, "kappa", dev)
+        if d > 1 and kappa.stride(0) != 1:
+            raise ValueError("kappa must be contiguous")
+    else:
+        _matrix(z2, "z2", dev, (n, K))
+        _matrix(SWW, "SWW", dev, (d, K))
+    E = torch.empty_like(Y0)
+    T = M01 if poisson else torch.empty_like(Y0)
+    tgt = torch.empty_like(Y0) if target else None
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    _kernels.launch("mofa_bound_refresh", dev, Zm.data_ptr(), ptr(z2), SW.data_ptr(),
+                    ptr(SWW), Y0.data_ptr(), ptr(M01), ptr(kappa), int(poisson), n, d, K,
+                    E.data_ptr(), 0 if poisson else T.data_ptr(), ptr(tgt))
+    return E, T, tgt
+
+
+def bound_refresh_plain(lik: str, Zm: torch.Tensor, SW: torch.Tensor, Y0: torch.Tensor,
+                        M01: Optional[torch.Tensor] = None, z2: Optional[torch.Tensor] = None,
+                        SWW: Optional[torch.Tensor] = None,
+                        kappa: Optional[torch.Tensor] = None, target: bool = False):
+    """The reference's formulas, as three products and elementwise passes."""
+    M = torch.ones_like(Y0) if M01 is None else M01
+    F = Zm @ SW.T
+    if lik == "bernoulli":
+        e2 = F * F + z2 @ SWW.T - (Zm * Zm) @ (SW * SW).T
+        zeta = torch.sqrt(torch.clamp(e2, min=1e-10))
+        lam = torch.where(zeta > 1e-4, torch.tanh(zeta / 2.0) / (4.0 * zeta),
+                          torch.full_like(zeta, 0.125))
+        T = 2.0 * lam * M
+        tgt = Y0 - 0.5 * M
+        return tgt - T * F, T, (tgt if target else None)
+    # softplus as jax writes it: max(x, 0) + log1p(exp(−|x|)), no threshold
+    rate = torch.clamp(F, min=0.0) + torch.log1p(torch.exp(-F.abs()))
+    pseudo = F - torch.sigmoid(F) * (1.0 - Y0 / torch.clamp(rate, min=1e-6)) / kappa[None, :]
+    return (pseudo - F) * M, M01, (pseudo * M if target else None)

@@ -400,12 +400,6 @@ _COV = np.linspace(0, 1, 20)
 
 
 @pytest.mark.parametrize("kwargs, cfg, exc, match", [
-    (dict(), dict(likelihoods=("bernoulli",)), NotImplementedError, "'bernoulli' is not ported"),
-    (dict(), dict(likelihoods=("gaussian", "poisson")), NotImplementedError,
-     "'poisson' is not ported"),
-    (dict(), dict(spikeslab_factors=True), NotImplementedError, "spikeslab_factors"),
-    (dict(smooth_covariate=_COV), dict(), NotImplementedError, "smooth_covariate"),
-    (dict(smooth_covariate=_COV, sparse_gp=True), dict(), NotImplementedError, "sparse_gp"),
     (dict(mesh=object()), dict(), NotImplementedError, "mesh"),
     # the reference's own refusals, with its messages
     (dict(smooth_covariate=_COV, svi_mode=True), dict(), NotImplementedError,
@@ -416,8 +410,7 @@ _COV = np.linspace(0, 1, 20)
     (dict(warping=True), dict(), ValueError, "warping requires smooth_covariate"),
     (dict(warping=True, smooth_covariate=_COV), dict(), ValueError,
      "warping requires at least two groups"),
-], ids=["bernoulli", "poisson", "spikeslab_factors", "smooth", "sparse_gp", "mesh",
-        "smooth_svi", "smooth_spikeslab_factors", "sparse_gp_alone", "warping_alone",
+], ids=["mesh", "smooth_svi", "smooth_spikeslab_factors", "sparse_gp_alone", "warping_alone",
         "warping_one_group"])
 def test_fit_mofa_refuses(kwargs, cfg, exc, match):
     with pytest.raises(exc, match=match):
@@ -575,23 +568,20 @@ def test_tl_mofa_takes_one_anndata_and_copies():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(likelihoods="bernoulli"), "'bernoulli' is not ported"),
-    (dict(likelihoods=["gaussian", "poisson"]), "'poisson' is not ported"),
-    (dict(spikeslab_factors=True), "spikeslab_factors"),
-    (dict(smooth_covariate="time"), "smooth_covariate"),
     (dict(mesh=object()), "mesh"),
-], ids=["bernoulli", "poisson", "spikeslab_factors", "smooth", "mesh"])
+], ids=["mesh"])
 def test_tl_mofa_refuses(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         mt.tl.mofa(_mudata(), n_factors=2, device="cpu", **kwargs)
 
 
 def test_tl_mofa_refuses_a_guessed_count_likelihood():
-    # counts are guessed as poisson, which is not ported: no silent gaussian fit
+    # counts are guessed as poisson and fitted through its bound, never as
+    # gaussian; an unknown likelihood is refused
     md = _mudata()
     md.mod["prot"].X = np.random.default_rng(0).poisson(3.0, size=(80, 18)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="'poisson' is not ported"):
-        mt.tl.mofa(md, n_factors=2, device="cpu")
+    mt.tl.mofa(md, n_factors=2, n_iterations=3, device="cpu")
+    assert list(md.uns["mofa"]["params"]["data"]["likelihoods"]) == ["gaussian", "poisson"]
     with pytest.raises(ValueError, match="Unknown likelihood"):
         mt.tl.mofa(md, n_factors=2, likelihoods="gamma", device="cpu")
 
