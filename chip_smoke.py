@@ -56,7 +56,13 @@ DTW warping), and the sparse GP at 100,000 cells with 1,000 inducing cells;
 and the recipe of ``bench.py``'s mode ``dsb`` (``prot.pp.clr``, then
 ``prot.pp.dsb`` of the unfiltered droplets, split by their RNA counts, 140
 proteins) at its own 10,000 cells + 50,000 empty droplets and at 100,000 +
-500,000.
+500,000;
+
+and the marker genes of the 20 planted clusters (``tl.rank_genes_groups``:
+t-test, wilcoxon and logreg on the e2e's normalised RNA, wilcoxon on its
+TF-IDF ATAC, the ranking ``atac.tl.rank_peaks_groups`` runs), and ``tl.snf``
+of the first 10,000 cells' three modality graphs (about the 10x PBMC 10k
+multiome's size: SNF is dense n × n by design) followed by ``tl.leiden``.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -187,7 +193,27 @@ is printed. An exception stops the run at once, with a code other than 0:
     (the median error of the warped covariate within a grid step);
 31. ``[mefisto-sparse]``, counted alone: the sparse GP at 100,000 cells, 50
     sweeps under the stage timers, the wall, peak memory, the split of T24
-    against the Cholesky factors and solves, canonical correlations > 0.9.
+    against the Cholesky factors and solves, canonical correlations > 0.9;
+32. ``[de]`` (after phase 25): ``tl.rank_genes_groups`` over the 20 planted
+    labels on the normalised RNA, 100,000 × 20,000: t-test (T3 on the CSR),
+    wilcoxon (X dense on the card, sorted in blocks of 2684 columns, T26)
+    and logreg (200 Adam steps: T27, T28 and the products), then wilcoxon on
+    the TF-IDF ATAC, 100,000 × 25,000, each counted alone; the walls, the
+    stage split, peak memory, and every group's 50 best-ranked features
+    holding at least 80% of the features planted in it;
+33. ``[kernel] wilcoxon_rank_sums / logreg_softmax_grad / adam_update``: T26
+    on one sorted column block (the sort's time beside it), T27 and T28 on
+    one logreg step, against their plain versions (T28 also against
+    torch's fused Adam);
+34. ``[snf]``: the first 10,000 cells of the e2e's three modalities through
+    their own paths to neighbors(20), then ``tl.snf`` (20 neighbours, 20
+    iterations) counted alone: T29 and T31 per modality, T30 per modality
+    and iteration and once more; the split of the kernels against the
+    products, peak memory; the fused graph against the same call through
+    the plain versions, its planted-label share (≥ 0.87; the JAX package's
+    tl.snf reads the same on these graphs: exp_snf_witness.py), Leiden on
+    it (ARI ≥ 0.85); T29-T31 and one diffusion iteration against their
+    plain versions.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -230,6 +256,8 @@ IVF_SRC = "muon_tpu_torch/csrc/ivf_kernels.cu"
 MOFA_SRC = "muon_tpu_torch/csrc/mofa_kernels.cu"
 GMM_SRC = "muon_tpu_torch/csrc/gmm_kernels.cu"
 GP_SRC = "muon_tpu_torch/csrc/gp_kernels.cu"
+DE_SRC = "muon_tpu_torch/csrc/de_kernels.cu"
+SNF_SRC = "muon_tpu_torch/csrc/snf_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
@@ -301,6 +329,12 @@ KERNEL_INFO = {
     "mofa_bound_refresh": (MOFA_SRC, "muon_tpu/models/mofa.py:136"),
     "gp_rbf_kernel": (GP_SRC, "muon_tpu/models/mofa.py:604"),       # _rbf_kernel, _gp_kmat_fn
     "gp_kg_grad": (GP_SRC, "muon_tpu/models/mofa.py:636"),          # grad of _gp_group_fn
+    "wilcoxon_rank_sums": (DE_SRC, "muon_tpu/_core/tools_de.py:175"),   # ranksum
+    "logreg_softmax_grad": (DE_SRC, "muon_tpu/_core/tools_de.py:248"),  # fit: dlogits
+    "adam_update": (DE_SRC, "muon_tpu/_core/tools_de.py:248"),          # fit: optax.adam
+    "snf_affinity": (SNF_SRC, "muon_tpu/_core/tools_graph.py:78"),      # _affinity_matrix
+    "snf_normalize": (SNF_SRC, "muon_tpu/_core/tools_graph.py:35"),     # normalize
+    "snf_dominate_set": (SNF_SRC, "muon_tpu/_core/tools_graph.py:35"),  # dominateset
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -338,6 +372,27 @@ UMAP_ASYM_PATH = {"umap_epoch_asym": N_EPOCHS, "umap_epoch": 0}
 # bench.py's dsb path: clr of the proteins (T12), then dsb: the RNA row sums
 # of the droplet split (T7) and the background fit (T21), once each
 DSB_PATH = {"clr_dense": 1, "csr_row_sums": 1, "gmm_background_means": 1}
+# [de]: tl.rank_genes_groups on the e2e's normalised RNA (and its TF-IDF ATAC
+# for wilcoxon): the moments through T3 twice; wilcoxon T26 once per column
+# block of 2684 (RANK_BLOCK_BYTES / 16 bytes a cell at 100,000 cells); logreg
+# T27 and T28 once per Adam step. Each group's 50 best-ranked features must
+# hold at least 80% of the features planted (boosted) in that group
+DE_TOP, DE_PLANTED, LOGREG_STEPS, DE_BLOCK = 50, 0.8, 200, 2684
+DE_MOMENTS = {"csr_spmm_t_f32": 2}
+DE_PATHS = {
+    "t-test": {**DE_MOMENTS, "wilcoxon_rank_sums": 0, "logreg_softmax_grad": 0},
+    "wilcoxon": {**DE_MOMENTS, "wilcoxon_rank_sums": -(-N_GENES // DE_BLOCK)},
+    "logreg": {**DE_MOMENTS, "logreg_softmax_grad": LOGREG_STEPS, "adam_update": LOGREG_STEPS},
+    "wilcoxon ATAC": {**DE_MOMENTS, "wilcoxon_rank_sums": -(-N_PEAKS // DE_BLOCK)},
+}
+# [snf]: the first 10,000 cells of the e2e's three modalities (the size of the
+# 10x PBMC 10k multiome), tl.snf's defaults: T29 and T31 once per modality,
+# T30 once per modality, then once per modality and iteration, then once
+SNF_CELLS, SNF_K, SNF_ITERS, SNF_MODS = 10_000, 20, 20, 3
+# the fused graph's planted-label share reads 0.884 at SNF_CELLS
+SNF_SHARE = 0.87
+SNF_PATH = {"snf_affinity": SNF_MODS, "snf_dominate_set": SNF_MODS,
+            "snf_normalize": SNF_MODS * (SNF_ITERS + 1) + 1}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -434,17 +489,20 @@ def make_e2e_counts(seed: int = 0):
     labels, the recipe of bench_e2e.py::synth at 100,000 cells: labels
     first, then per modality, from the same generator, per-cluster tilted
     Pareto(1.2) feature popularity for the counts, and for the proteins
-    planted centres clipped at 0 plus Poisson(3) background."""
+    planted centres clipped at 0 plus Poisson(3) background; last the masks
+    of the features boosted in each cluster (RNA, ATAC)."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, N_CLUSTERS, N_CELLS)
     order = np.argsort(labels, kind="stable")
     sizes = np.bincount(labels, minlength=N_CLUSTERS)
+    boosts = []  # each modality's (clusters, features) mask of boosted features
 
     def counts(d, nnz_per):
         pop = rng.pareto(1.2, d) + 1.0
         boost = np.ones((N_CLUSTERS, d))
         for c in range(N_CLUSTERS):
             boost[c, rng.choice(d, size=d // 20, replace=False)] = 8.0
+        boosts.append(boost > 1)
         nnz = N_CELLS * nnz_per
         cols = np.empty(nnz, np.int32)
         start = 0
@@ -466,7 +524,7 @@ def make_e2e_counts(seed: int = 0):
     prot = np.maximum(
         cent[labels] + rng.normal(size=(N_CELLS, N_PROT)), 0.0
     ).astype(np.float32) + rng.poisson(3.0, size=(N_CELLS, N_PROT)).astype(np.float32)
-    return rna, atac, prot, labels
+    return rna, atac, prot, labels, {"rna": boosts[0], "atac": boosts[1]}
 
 
 FAILED = []
@@ -3163,6 +3221,299 @@ def phase_mefisto_sparse(tm, kernels, profiling, cuda):
 
 
 
+class DEHolder:
+    """The least AnnData-like object rank_genes_groups takes: X, layers, the
+    group labels in ``obs``, feature names and uns."""
+
+    def __init__(self, X, labels):
+        self.X, self.layers, self.uns, self.obs = X, {}, {}, {"planted": labels}
+        self.var_names = np.array([f"f{j}" for j in range(X.shape[1])])
+
+
+def kernel_report(results, name, shape, err, tol, ok, k_fn, p_fn, bnd, lib_fn=None,
+                  plain_reps=3):
+    """Time a kernel and its plain version (and the library call, if any),
+    print the ``[kernel]`` line, record it under ``name`` and check it."""
+    ms, plain_ms = median_ms(k_fn), median_ms(p_fn, reps=plain_reps)
+    lib = library_ms(lib_fn) if lib_fn is not None else None
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                     "library_ms": lib}
+    print(f"[kernel] {name} {shape}: max_abs_err={err:.3e} ({tol}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+          f"library_ms={lib if lib is None else round(lib, 4)}", flush=True)
+    check(ok, f"{name} {shape} within {tol}")
+
+
+def planted_shares(res, boost) -> np.ndarray:
+    """Each group's share of its DE_TOP best-ranked features that were
+    boosted in it."""
+    return np.array([boost[int(g), [int(f[1:]) for f in res["names"][g][:DE_TOP]]].mean()
+                     for g in res["names"].dtype.names])
+
+
+def phase_de(ttl, tde, kernels, profiling, X_rna_norm, X_atac, labels, boosts, cuda):
+    """``[de]``: tl.rank_genes_groups over the 20 planted labels, each call
+    counted alone: t-test (the moments through T3 on the sparse X), wilcoxon
+    and logreg (X densified on the card, 8 GB) on the normalised RNA, then
+    wilcoxon on the TF-IDF ATAC (the ranking ``atac.tl.rank_peaks_groups``
+    runs, 10 GB dense)."""
+    check(tde.RANK_BLOCK_BYTES // (16 * N_CELLS) == DE_BLOCK, "T26's column block is 2684")
+    by_path = {}
+    for method, X, boost, tag in (
+        ("t-test", X_rna_norm, boosts["rna"], "de_ttest"),
+        ("wilcoxon", X_rna_norm, boosts["rna"], "de_wilcoxon"),
+        ("logreg", X_rna_norm, boosts["rna"], "de_logreg"),
+        ("wilcoxon ATAC", X_atac, boosts["atac"], "de_atac"),
+    ):
+        h = DEHolder(X, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            ttl.rank_genes_groups(h, "planted", method=method.split()[0], device=cuda)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        by_path[tag] = launches
+        res = h.uns["rank_genes_groups"]
+        shares = planted_shares(res, boost)
+        finite = all(np.isfinite(res["scores"][g]).all() for g in res["scores"].dtype.names)
+        print(f"[de] {method} {X.shape[0]}x{X.shape[1]}: wall {wall:.4f}s; peak device memory "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} held; stages {stage_seconds(t)}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; planted share of each group's "
+              f"top {DE_TOP}: min {shares.min():.3f} mean {shares.mean():.3f}", flush=True)
+        check_launches(launches, DE_PATHS[method], f"[de] {method}")
+        check(len(res["names"].dtype.names) == N_CLUSTERS and finite, f"[de] {method}: "
+              "a field per group, finite scores")
+        check(shares.min() >= DE_PLANTED, f"[de] {method}: every group's top {DE_TOP} hold "
+              f">= {DE_PLANTED} planted features")
+        del h, res
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_de_kernels(tde, dsp, X_rna_norm, labels, cuda) -> dict:
+    """T26 on the first column block of the dense normalised RNA (sorted
+    once), T27 and T28 on one logreg step at the path's shapes, each against
+    its plain version on the same inputs."""
+    results = {}
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    X = tde.dense_from_csr(dsp.from_scipy(X_rna_norm, cuda))
+    codes = torch.from_numpy(labels.astype(np.int32)).to(cuda)
+    t0 = time.perf_counter()
+    vals, perm = torch.sort(X[:, :DE_BLOCK].T, dim=1, stable=True)
+    vals, perm = vals.contiguous(), perm.contiguous()
+    torch.cuda.synchronize()
+    sort_ms = median_ms(lambda: torch.sort(X[:, :DE_BLOCK].T, dim=1, stable=True), reps=3)
+    rs, tie = tde.sorted_rank_sums(vals, perm, codes, N_CLUSTERS)
+    torch.cuda.synchronize()
+    rs_p, tie_p = tde.sorted_rank_sums_plain(vals, perm, codes, N_CLUSTERS)
+    print(f"[de] one column block {DE_BLOCK} x {N_CELLS}: torch.sort {sort_ms:.3f} ms "
+          f"(first call {1e3 * (time.perf_counter() - t0):.1f} ms with T26 and its check)",
+          flush=True)
+    # reads the sorted block (12 bytes a cell) and the codes, writes (g + 1) x b
+    kernel_report(results, "wilcoxon_rank_sums", f"{DE_BLOCK}x{N_CELLS}, g={N_CLUSTERS}",
+                  (rs - rs_p).abs().max().item(), "rank sums and tie terms equal",
+                  torch.equal(rs, rs_p) and torch.equal(tie, tie_p),
+                  lambda: tde.sorted_rank_sums(vals, perm, codes, N_CLUSTERS),
+                  lambda: tde.sorted_rank_sums_plain(vals, perm, codes, N_CLUSTERS),
+                  bound(nbytes(vals, perm, codes, rs, tie), 0, F32_OPS_PER_S))
+    del vals, perm, rs_p, tie_p
+
+    W = 0.01 * torch.randn((N_GENES, N_CLUSTERS), generator=gen, device=cuda)
+    b = 0.1 * torch.randn(N_CLUSTERS, generator=gen, device=cuda)
+    y = codes
+    wv = torch.ones(N_CELLS, device=cuda)
+    Z = torch.matmul(X, W)
+    dZ, db = tde.logreg_softmax_grad(Z, b, y, wv)
+    torch.cuda.synchronize()
+    dZ_p, db_p = tde.logreg_softmax_grad_plain(Z, b, y, wv)
+    ok = bool(((dZ - dZ_p).abs() <= 1e-5 * dZ_p.abs() + 1e-7).all()) and bool(
+        ((db - db_p).abs() <= 1e-5 * dZ_p.abs().sum(0) + 1e-6).all())
+    # reads Z, writes dZ (the bias, labels and weights besides); two exps an entry
+    kernel_report(results, "logreg_softmax_grad", f"{N_CELLS}x{N_CLUSTERS}",
+                  (dZ - dZ_p).abs().max().item(), "dZ rtol 1e-5 atol 1e-7, db 1e-5 x sum|dZ|",
+                  ok, lambda: tde.logreg_softmax_grad(Z, b, y, wv),
+                  lambda: tde.logreg_softmax_grad_plain(Z, b, y, wv),
+                  bound(nbytes(Z, b, y, wv, dZ, db), 2 * Z.numel(), SFU_OPS_PER_S))
+    gW = torch.matmul(X.T, dZ)
+    del X, Z, dZ_p
+    state = [W, 0.1 * torch.randn(W.shape, generator=gen, device=cuda),
+             torch.rand(W.shape, generator=gen, device=cuda), b,
+             0.1 * torch.randn(b.shape, generator=gen, device=cuda),
+             torch.rand(b.shape, generator=gen, device=cuda)]
+    got, want = [t.clone() for t in state], [t.clone() for t in state]
+    step = 3
+    tde.adam_update(got[0], gW, got[1], got[2], got[3], db, got[4], got[5], step)
+    torch.cuda.synchronize()
+    tde.adam_update_plain(want[0], gW, want[1], want[2], want[3], db, want[4], want[5], step)
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    ok = all(bool(((a - w).abs() <= 1e-5 * w.abs() + 1e-7).all()) for a, w in zip(got, want))
+    run = [t.clone() for t in state]
+    PW, Pb = state[0].clone().requires_grad_(), state[3].clone().requires_grad_()
+    PW.grad, Pb.grad = gW.clone(), db.clone()
+    # torch's fused Adam, L2 as weight_decay 1 / C (its grad + wd p is (0.5 / C)(2p) + grad)
+    opt = torch.optim.Adam([PW, Pb], lr=tde.LOGREG_LR, betas=(tde.ADAM_B1, tde.ADAM_B2),
+                           eps=tde.ADAM_EPS, weight_decay=1.0, fused=True)
+    # reads W, gW, m, v and writes W, m, v (and b's); about 15 operations an entry
+    kernel_report(results, "adam_update", f"W {N_GENES}x{N_CLUSTERS}, b {N_CLUSTERS}", err,
+                  "W, m, v rtol 1e-5 atol 1e-7", ok,
+                  lambda: tde.adam_update(run[0], gW, run[1], run[2], run[3], db, run[4],
+                                          run[5], step),
+                  lambda: tde.adam_update_plain(run[0], gW, run[1], run[2], run[3], db,
+                                                run[4], run[5], step),
+                  bound(7 * nbytes(W, b), 15 * (W.numel() + b.numel()), F32_OPS_PER_S),
+                  lambda: opt.step())
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels, profiling, X_rna, X_atac, P,
+              labels, cuda):
+    """``[snf]``: the first 10,000 cells of the e2e's three modalities, each
+    through its own path to neighbors(20), then tl.snf with its defaults
+    (counted alone), the same call through the plain versions, and
+    tl.leiden on the fused graph; then T29-T31 and one diffusion iteration
+    against their plain versions on the path's matrices."""
+    n = SNF_CELLS
+    lab = labels[:n]
+    t0 = time.perf_counter()
+    mods = {"rna": rna_path(dsp, tpp, X_rna[:n], cuda),
+            "atac": atac_e2e_path(tac, tpp, X_atac[:n], cuda),
+            "prot": prot_path(tpt, tpp, P[:n], cuda)}
+    print(f"[snf] per-modality paths at {n} cells in {time.perf_counter() - t0:.1f}s; "
+          "planted-label share of each graph's neighbours " + ", ".join(
+              f"{m} {label_share(h.obsp['distances'], lab):.4f}" for m, h in mods.items()),
+          flush=True)
+    mod_shares = [label_share(h.obsp["distances"], lab) for h in mods.values()]
+    md = MuHolder(mods, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        ttl.snf(md, n_neighbors=SNF_K, n_iterations=SNF_ITERS, device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    conn = md.obsp["connectivities"].tocsr()
+    share = label_share(conn, lab)
+    products = 2 * SNF_MODS * SNF_ITERS * 2 * float(n) ** 3
+    stages = stage_seconds(t)
+    print(f"[snf] tl.snf(n_neighbors={SNF_K}, n_iterations={SNF_ITERS}) on {SNF_MODS} x "
+          f"{n}^2: wall {wall:.4f}s; stages {stages} (products {products:.3e} flop, "
+          f"{products / max(sum(t.get('snf/products', [0])), 1e-9) / 1e12:.1f} TFLOP/s); "
+          f"peak device memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB; "
+          f"launches { {k: v for k, v in launches.items() if v} }; planted-label share of "
+          f"the fused neighbours {share:.4f}", flush=True)
+    check_launches(launches, SNF_PATH, "[snf]")
+    check(conn.nnz == n * SNF_K and np.isfinite(conn.data).all(), "[snf] k entries a row")
+    check(md.uns["neighbors"]["params"]["method"] == "snf", "[snf] uns params")
+
+    # the same tl.snf through the kernels' plain versions (held to the JAX
+    # reference's _affinity_matrix, _snf_diffusion_fn and tl.snf by
+    # tests/test_torch_snf.py): the fused graph is the algorithm's. On these
+    # data its planted-label share is 0.884 (the RNA graph's neighbours are
+    # 54% planted), below the reference test's 0.9 on its own small fixture;
+    # the JAX package's tl.snf reads the same on the same graphs
+    # (exp_snf_witness.py). So the gates are the plain path's graph and share,
+    # and a share of at least 0.87
+    mdp = MuHolder(mods, n)
+    t0 = time.perf_counter()
+    with plain_kernels(tsn, ("affinity_matrix", "snf_normalize", "snf_dominate_set")):
+        ttl.snf(mdp, n_neighbors=SNF_K, n_iterations=SNF_ITERS, device=cuda)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    connp = mdp.obsp["connectivities"].tocsr()
+    share_p = label_share(connp, lab)
+    both = conn.multiply(connp.astype(bool)).tocsr()
+    both_p = connp.multiply(conn.astype(bool)).tocsr()
+    edge_jac = both.nnz / (conn.nnz + connp.nnz - both.nnz)
+    rel = float(np.max(np.abs(both.data - both_p.data) / np.abs(both_p.data)))
+    print(f"[snf] the plain path ({plain_wall:.2f}s): planted-label share {share_p:.4f}; edge "
+          f"Jaccard {edge_jac:.5f}, shared edges' values max rel err {rel:.2e}; the mean of the "
+          f"modality graphs' shares {np.mean(mod_shares):.4f}", flush=True)
+    check(edge_jac >= 0.99 and rel <= 1e-4 and abs(share - share_p) <= 0.002,
+          "[snf] the fused graph against the plain path: edges >= 0.99, values rtol 1e-4")
+    check(share >= SNF_SHARE, f"[snf] planted-label share of the fused neighbours >= "
+          f"{SNF_SHARE}")
+    del mdp, connp, both, both_p
+
+    class Graph:
+        def __init__(self):
+            self.obs, self.obsp, self.uns = {}, md.obsp, md.uns
+
+    gh = Graph()
+    t0 = time.perf_counter()
+    ttl.leiden(gh, resolution=1.0)
+    a = ari(lab, gh.obs["leiden"])
+    print(f"[snf] tl.leiden on the fused graph: {len(np.unique(gh.obs['leiden']))} clusters, "
+          f"ARI {a:.4f}, {time.perf_counter() - t0:.2f}s", flush=True)
+    check(a >= 0.85, "[snf] Leiden ARI on the fused graph >= 0.85")
+
+    results = {}
+    eps = float(np.finfo(np.float64).eps)
+    Ws = []
+    for mod, h in mods.items():
+        dist, known = tgr._dense_distances(h.obsp["distances"], cuda)
+        W = tsn.affinity_matrix(dist, known, SNF_K, 0.5, eps)
+        Ws.append(W)
+        if mod != "rna":
+            continue
+        torch.cuda.synchronize()
+        ref = tsn.affinity_matrix_plain(dist, known, SNF_K, 0.5, eps)
+        # reads dist and the mask twice (rows, then tiles), writes W; an exp an entry
+        kernel_report(results, "snf_affinity", f"{n}x{n}, k={SNF_K}",
+                      (W - ref).abs().max().item(), "rtol 1e-5",
+                      bool(((W - ref).abs() <= 1e-5 * ref.abs()).all()),
+                      lambda: tsn.affinity_matrix(dist, known, SNF_K, 0.5, eps),
+                      lambda: tsn.affinity_matrix_plain(dist, known, SNF_K, 0.5, eps),
+                      bound(nbytes(dist, known, W), W.numel(), SFU_OPS_PER_S))
+        del ref
+    del dist, known
+    W = Ws[0]
+    N = tsn.snf_normalize(W)
+    torch.cuda.synchronize()
+    ref = tsn.snf_normalize_plain(W)
+    kernel_report(results, "snf_normalize", f"{n}x{n}", (N - ref).abs().max().item(),
+                  "rtol 1e-5", bool(((N - ref).abs() <= 1e-5 * ref.abs()).all()),
+                  lambda: tsn.snf_normalize(W), lambda: tsn.snf_normalize_plain(W),
+                  bound(nbytes(W, N), 4 * W.numel(), F32_OPS_PER_S))
+    S = tsn.snf_dominate_set(N, SNF_K)
+    torch.cuda.synchronize()
+    ref = tsn.snf_dominate_set_plain(N, SNF_K)
+    kernel_report(results, "snf_dominate_set", f"{n}x{n}, k={SNF_K}",
+                  (S - ref).abs().max().item(), "the same kept entries, rtol 1e-5",
+                  torch.equal(S != 0, ref != 0)
+                  and bool(((S - ref).abs() <= 1e-5 * ref.abs()).all()),
+                  lambda: tsn.snf_dominate_set(N, SNF_K),
+                  lambda: tsn.snf_dominate_set_plain(N, SNF_K),
+                  bound(nbytes(N, S), 2 * N.numel(), F32_OPS_PER_S))
+    del N, S, ref, W
+    Wn = [tsn.snf_normalize(w) for w in Ws]
+    Ss = [tsn.snf_dominate_set(w, SNF_K) for w in Wn]
+    del Ws
+    t0 = time.perf_counter()
+    got = tsn.diffusion_step(Wn, Ss)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with plain_kernels(tsn, ("snf_normalize",)):
+        want = tsn.diffusion_step(Wn, Ss)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = max(((g - w).abs() / w.abs().clamp(min=1e-30)).max().item() for g, w in zip(got, want))
+    print(f"[snf] one diffusion iteration against the plain iteration from the same state: "
+          f"max rel err {err:.3e} (<= 1e-5); {t1 - t0:.4f}s and {t2 - t1:.4f}s", flush=True)
+    check(err <= 1e-5, "[snf] one diffusion iteration against plain rtol 1e-5")
+    del got, want, Wn, Ss
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -3175,6 +3526,8 @@ def main() -> int:
     from muon_tpu_torch import tl as ttl
     from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels as kernels
+    from muon_tpu_torch._core import tools_graph as tgr
+    from muon_tpu_torch.ops import de as tde
     from muon_tpu_torch.ops import dense as td
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import gmm as tg
@@ -3183,6 +3536,7 @@ def main() -> int:
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import mofa as tmo
+    from muon_tpu_torch.ops import snf as tsn
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.ops import umap as tu
     from muon_tpu_torch.ops import wnn as tw
@@ -3198,7 +3552,7 @@ def main() -> int:
     print(f"[data] ATAC {X.shape[0]}x{X.shape[1]} nnz={X.nnz} made in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    X_rna, X_atac_e2e, P, labels = make_e2e_counts(SEED)
+    X_rna, X_atac_e2e, P, labels, boosts = make_e2e_counts(SEED)
     print(f"[data] e2e RNA {X_rna.shape[0]}x{X_rna.shape[1]} nnz={X_rna.nnz}, ATAC "
           f"{X_atac_e2e.shape[0]}x{X_atac_e2e.shape[1]} nnz={X_atac_e2e.nnz}, prot "
           f"{P.shape[0]}x{P.shape[1]} dense, {N_CLUSTERS} planted clusters, made in "
@@ -3240,7 +3594,15 @@ def main() -> int:
                                                   labels, cuda)
     lik_svi_launches = phase_mofa_lik_svi(tm, kernels, profiling, e2e_views,
                                           rna_h.obsm["X_pca"], labels, cuda)
-    del X, X_rna, e2e_views, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md
+    del e2e_views
+    torch.cuda.empty_cache()
+    de_launches = phase_de(ttl, tde, kernels, profiling, rna_h.X, wnn_mods["atac"].X, labels,
+                           boosts, cuda)
+    results.update(phase_de_kernels(tde, dsp, rna_h.X, labels, cuda))
+    snf_launches, snf_results = phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels,
+                                          profiling, X_rna, X_atac_e2e, P, labels, cuda)
+    results.update(snf_results)
+    del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md, boosts
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3299,7 +3661,7 @@ def main() -> int:
                **mefisto_launches, "mefisto_sparse": sgp_launches,
                "knn_wide": {k: knn_wide_launches[k] + ivf_wide_launches[k]
                             for k in knn_wide_launches},
-               "umap_asym": asym_launches,
+               "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
                "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())

@@ -4,7 +4,9 @@ It keeps the JAX package's public API and writes the same keys, with
 PyTorch for the device work and hand-written CUDA kernels (``csrc/``) for
 the sparse products, the kNN, the fuzzy connectivities, the WNN fusion, the
 dense CLR, the UMAP epochs, the per-factor passes and bound refresh of
-MOFA+, MEFISTO's GP kernel matrices and DSB's per-cell background fit.
+MOFA+, MEFISTO's GP kernel matrices, DSB's per-cell background fit, the
+marker tests' rank sums and logreg step, and SNF's affinity, normalisation
+and dominant-set passes.
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
@@ -14,8 +16,14 @@ Leiden/Louvain (``tl.leiden``, ``tl.louvain``, on the host through the
 port's own native engine), UMAP (``tl.umap``, and ``ops.umap.umap_embed``
 of an asymmetric graph) and MOFA+ with gaussian, bernoulli and poisson
 views, spike-slab factors and MEFISTO's smooth factors, full-batch and
-stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``); see
-ROADMAP.md for the rest.
+stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``), marker
+ranking (``tl.rank_genes_groups``: t-test, t-test_overestim_var, wilcoxon,
+logreg; ``atac.tl.rank_peaks_groups``) and similarity network fusion
+(``tl.snf``); see ROADMAP.md for the rest.
+
+Every entry point runs on the card unless the caller passes
+``device="cpu"``: the default (``device=None``) is the current CUDA device,
+and without one it raises rather than run on the CPU.
 
 The port needs no container classes of its own: its tools take any
 AnnData-like object (``.X``, ``.obsm``, ``.varm``, ``.uns``, ``.obsp``,

@@ -1,11 +1,13 @@
-"""Multiplex Leiden/Louvain and multimodal UMAP (``mu.tl``; counterpart of
-muon_tpu/_core/tools_graph.py).
+"""SNF, multiplex Leiden/Louvain and multimodal UMAP (``mu.tl``; counterpart
+of muon_tpu/_core/tools_graph.py).
 
 The tools take MuData-like objects (``.mod``, ``.obsmap`` 1-based,
 ``.n_obs``, ``.obs``, ``.obsp``, ``.uns``) or AnnData-like ones (``.obs``,
 ``.obsp``, ``.uns``, ``.obsm``). Cluster labels go into ``obs[key_added]``
 as a ``pd.Categorical`` when ``obs`` is a pandas DataFrame, and as an array
-of label strings otherwise. ``snf`` is not ported yet (ROADMAP queue 1 item 5).
+of label strings otherwise. ``snf`` builds each modality's affinity (T29)
+and runs the cross-diffusion (T30, T31 and dense products) on the device
+(ops/snf.py); like the reference's it is dense n × n by design.
 """
 
 from __future__ import annotations
@@ -16,10 +18,126 @@ from typing import Optional
 import numpy as np
 from scipy import sparse as sp
 
-from ..ops.device import DeviceLike
+from ..ops.device import DeviceLike, resolve_device
+from ..utils.profiling import stage
 from .preproc import _is_mudata
 
-__all__ = ["leiden", "louvain", "umap"]
+__all__ = ["snf", "leiden", "louvain", "umap"]
+
+
+# ---------------------------------------------------------------------------
+# SNF — similarity network fusion (Wang et al. 2014)
+# ---------------------------------------------------------------------------
+
+
+def _dense_distances(dmat, device):
+    """A modality's distance matrix as a dense float32 tensor on ``device``
+    and its known-mask: a sparse matrix densified on the device (its stored
+    entries summed where repeated, as ``todense`` sums them) and known where
+    that sum is not 0, as the reference's ``dmat != 0``; every entry of a
+    dense one."""
+    import torch
+
+    from ..ops import de
+    from ..ops import sparse as dsp
+
+    if not sp.issparse(dmat):
+        dist = torch.from_numpy(np.asarray(dmat, dtype=np.float32)).to(device)
+        return dist, torch.ones(dist.shape, dtype=torch.bool, device=device)
+    dist = de.dense_from_csr(dsp.from_scipy(dmat, device))
+    return dist, dist != 0
+
+
+def snf(
+    mdata,
+    n_neighbors: int = 20,
+    neighbor_keys=None,
+    key_added: Optional[str] = None,
+    n_iterations: int = 20,
+    sigma: float = 0.5,
+    eps: float = None,
+    copy: bool = False,
+    device: DeviceLike = None,
+):
+    """Similarity network fusion (reference muon/_core/tools.py:716-920, as
+    muon_tpu/_core/tools_graph.py:109-200 computes it): per-modality
+    local-scale affinities (T29), normalised cross-diffusion (T30, T31 and
+    float32 products), then the fused graph's kNN as ``obsp`` distances
+    (0.5 − similarity) and connectivities and ``uns[key_added]``. The final
+    choice keeps each row's k *largest* fused similarities, as the
+    reference's; here ``torch.topk`` on the device takes it."""
+    import torch
+
+    from ..ops import snf as tsnf
+
+    device = resolve_device(device)
+    if eps is None:
+        eps = float(np.finfo(np.float64).eps)
+    mdata = mdata.copy() if copy else mdata
+
+    if neighbor_keys is None:
+        modalities = list(mdata.mod.keys())
+        neighbor_keys = {}
+    elif isinstance(neighbor_keys, str):
+        modalities = list(mdata.mod.keys())
+        neighbor_keys = {m: neighbor_keys for m in modalities}
+    else:
+        modalities = list(neighbor_keys.keys())
+
+    neighbors_params, mod_reps, mod_n_pcs = {}, {}, {}
+    for mod in modalities:
+        nkey = neighbor_keys.get(mod, "neighbors")
+        if nkey not in mdata.mod[mod].uns:
+            raise ValueError(
+                f'Did not find .uns["{nkey}"] for modality "{mod}". '
+                "Run neighbors on all modalities first."
+            )
+        nparams = mdata.mod[mod].uns[nkey]
+        neighbors_params[mod] = nparams
+        mod_reps[mod] = nparams["params"].get("use_rep", -1)
+        mod_n_pcs[mod] = nparams["params"].get("n_pcs", -1)
+
+    Ws = []
+    for mod in modalities:
+        with stage("snf/upload"):
+            dist, known = _dense_distances(
+                mdata.mod[mod].obsp[neighbors_params[mod]["distances_key"]], device)
+        with stage("snf/kernels"):
+            Ws.append(tsnf.affinity_matrix(dist, known, int(n_neighbors), float(sigma),
+                                           float(eps)))
+        del dist, known
+    fused = tsnf.snf_diffusion(Ws, int(n_iterations), int(n_neighbors))
+    del Ws
+
+    n = fused.shape[0]
+    with stage("snf/topk"):
+        simvals, idx = torch.topk(fused, int(n_neighbors), dim=1)
+        simvals = simvals.cpu().numpy().reshape(-1)
+        cols = idx.cpu().numpy().reshape(-1)
+    del fused
+    rows = np.repeat(np.arange(n), n_neighbors)
+    conn = sp.csr_matrix((simvals, (rows, cols)), shape=(n, n))
+    dvals = 0.5 - simvals
+    dmat = sp.csr_matrix((dvals, (rows, cols)), shape=(n, n))
+
+    if key_added is None:
+        key_added, conns_key, dists_key = "neighbors", "connectivities", "distances"
+    else:
+        conns_key, dists_key = f"{key_added}_connectivities", f"{key_added}_distances"
+    mdata.obsp[conns_key] = conn
+    mdata.obsp[dists_key] = dmat
+    mdata.uns[key_added] = {
+        "connectivities_key": conns_key,
+        "distances_key": dists_key,
+        "params": {
+            "n_neighbors": n_neighbors,
+            "eps": eps,
+            "use_rep": mod_reps,
+            "n_pcs": mod_n_pcs,
+            "method": "snf",
+        },
+    }
+    return mdata if copy else None
 
 
 def _choose_graph(obj, obsp=None, neighbors_key=None):

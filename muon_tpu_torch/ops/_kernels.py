@@ -78,6 +78,13 @@ _SIGNATURES = {
     "mt_mofa_bound_refresh": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_gp_rbf_kernel": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P),
     "mt_gp_kg_grad": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P),
+    "mt_wilcoxon_rank_sums": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "mt_logreg_softmax_grad": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "mt_adam_update": (_P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F,
+                       _F, _F, _F, _P),
+    "mt_snf_affinity": (_P, _P, _I, _I, _F, _F, _P, _P, _P),
+    "mt_snf_normalize": (_P, _I, _P, _P, _P),
+    "mt_snf_dominate_set": (_P, _I, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -112,6 +119,12 @@ KERNELS = {
     "mofa_bound_refresh": "mt_mofa_bound_refresh",
     "gp_rbf_kernel": "mt_gp_rbf_kernel",
     "gp_kg_grad": "mt_gp_kg_grad",
+    "wilcoxon_rank_sums": "mt_wilcoxon_rank_sums",
+    "logreg_softmax_grad": "mt_logreg_softmax_grad",
+    "adam_update": "mt_adam_update",
+    "snf_affinity": "mt_snf_affinity",
+    "snf_normalize": "mt_snf_normalize",
+    "snf_dominate_set": "mt_snf_dominate_set",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -1,9 +1,9 @@
 """Device resolution for the compute layer (counterpart of muon_tpu/ops/device.py).
 
 The port runs every device op on an explicit ``torch.device``. ``"auto"``
-(or None) takes the first CUDA device when one is present and the CPU
-otherwise; asking for ``"cuda"`` without a card raises instead of carrying
-on silently on the CPU.
+(or None) means the card: the current CUDA device, and an error when there
+is none. The port runs on the CPU only when the caller asks for it with
+``device="cpu"`` (the tests do); it never carries on there silently.
 
 Matmul precision: the port's float32 products (the CholeskyQR Grams, the
 Rayleigh-Ritz Gram, Q·Ub) are held to the JAX reference at float32
@@ -21,7 +21,7 @@ from typing import Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_matmul_precision", "dense_to_tensor"]
+__all__ = ["resolve_device", "check_matmul_precision", "dense_to_tensor", "on_card"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -40,10 +40,16 @@ def check_matmul_precision() -> None:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None``/``"auto"`` → cuda if available else cpu; ``"cuda"``/``"cpu"``
-    (or a ``torch.device``) as given. A CUDA request without a card raises."""
+    """``None``/``"auto"`` → cuda; ``"cuda"``/``"cpu"`` (or a
+    ``torch.device``) as given. A CUDA request without a card raises, and
+    so does the default: the CPU is taken only when asked for."""
     if device is None or device == "auto":
-        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device (torch.cuda.is_available() is False); pass "
+                'device="cpu" to run on the CPU'
+            )
+        dev = torch.device("cuda")
     else:
         dev = torch.device(device)
     if dev.type == "cuda":
@@ -55,6 +61,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """How a kernel wrapper routes: False for a CPU tensor (its plain version
+    runs), True for a CUDA tensor (it launches its kernel); raises for any
+    other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
 
 
 def dense_to_tensor(arr, device: DeviceLike = None,

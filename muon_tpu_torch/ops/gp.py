@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _kernels
+from .device import on_card
 
 __all__ = ["JITTER", "RBFKg", "gp_group", "gp_hyper", "kernel_matrices", "kg_grad",
            "kg_grad_plain", "normalize_kg", "rbf_kernel", "rbf_kernel_plain"]
@@ -36,14 +37,6 @@ JITTER = 1e-4
 MAX_GROUPS = 32
 _KG_CHUNK = 128
 _INT_MAX = 2**31 - 1
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
 
 
 def _check(t: torch.Tensor, name: str, device, dim: int, shape=None) -> torch.Tensor:
@@ -91,7 +84,7 @@ def rbf_kernel(a: torch.Tensor, b: torch.Tensor, ells: torch.Tensor, scales: tor
     group labels ``ga``, ``gb``, else 1."""
     if Kg is not None and ga is None:
         raise ValueError("Kg needs the group labels")
-    if not _on_card(a):
+    if not on_card(a):
         return rbf_kernel_plain(a, b, ells, scales, ga, gb, Kg, same)
     dev, na, nb, p, F = _checked_args(a, b, ells, scales, ga, gb)
     G = 0
@@ -146,7 +139,7 @@ def kg_grad(dK: torch.Tensor, a: torch.Tensor, b: torch.Tensor, ells: torch.Tens
     of dK[f, i, j]·exp(−‖aᵢ − bⱼ‖²/2ℓ_f²). Summed in a fixed order (row
     chunks, then the columns by a tree), so the same input gives the same
     bits."""
-    if not _on_card(dK):
+    if not on_card(dK):
         return kg_grad_plain(dK, a, b, ells, scales, ga, gb, G)
     dev, na, nb, p, F = _checked_args(a, b, ells, scales, ga, gb)
     if ga is None:

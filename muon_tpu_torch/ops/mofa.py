@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _kernels
+from .device import on_card
 
 __all__ = [
     "col_dot", "col_dot_plain", "w_posterior", "w_posterior_plain",
@@ -39,15 +40,6 @@ __all__ = [
 # rows per partial column sum of T17 (kTileRows in the source)
 _TILE_ROWS = 256
 _INT_MAX = 2**31 - 1
-
-
-def _on_card(E: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain version runs), True for CUDA."""
-    if E.device.type == "cpu":
-        return False
-    if E.device.type != "cuda":
-        raise ValueError(f"unsupported device {E.device}")
-    return True
 
 
 def _matrix(t: torch.Tensor, name: str, device, shape=None) -> Tuple[int, int]:
@@ -85,7 +77,7 @@ def col_dot(E: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T17: ``u (D,)`` with u[d] = Σ_n z[n]·E[n, d]; without ``z``,
     Σ_n E[n, d]². Summed in a fixed order (tiles of 256 rows, then the
     tiles in index order), so the same inputs give the same bits."""
-    if not _on_card(E):
+    if not on_card(E):
         return col_dot_plain(E, z)
     n, d = _matrix(E, "E", E.device)
     z_ptr, z_stride = (0, 0) if z is None else _vector(z, n, "z", E.device)
@@ -121,7 +113,7 @@ def w_posterior(
     ((D, K), in place) and returns δ = sw − sw' (D,). ``z2`` and ``zz`` are
     0-dim (an unmasked view) or (D,); the hyperparameters are the (M, K)
     tensors, read on the device."""
-    if not _on_card(SW):
+    if not on_card(SW):
         return w_posterior_plain(u, tau, z2, zz, alpha, ln_alpha, theta_ln, theta_ln1m,
                                  m, k, W_hat, W_var, S, SW, spikeslab, scale)
     dev = SW.device
@@ -197,7 +189,7 @@ def row_dot(E: torch.Tensor, t: torch.Tensor, B: Optional[torch.Tensor] = None,
     order and a butterfly: the same bits in every run."""
     if (B is None) != (t1 is None) or (B is None) != (t2 is None):
         raise ValueError("B, t1 and t2 come together")
-    if not _on_card(E):
+    if not on_card(E):
         return row_dot_plain(E, t, B, t1, t2)
     dev = E.device
     n, d = _matrix(E, "E", dev)
@@ -235,7 +227,7 @@ def rank1_update(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  B: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T20: E[n, d] += x[n]·y[d], times B[n, d] where masked, in place;
     returns E. ``x`` (N,) and ``y`` (D,) may be strided."""
-    if not _on_card(E):
+    if not on_card(E):
         return rank1_update_plain(E, x, y, B)
     dev = E.device
     n, d = _matrix(E, "E", dev)
@@ -281,7 +273,7 @@ def bound_refresh(lik: str, Zm: torch.Tensor, SW: torch.Tensor, Y0: torch.Tensor
     poisson = lik == "poisson"
     if (kappa is None) != (not poisson) or (not poisson and (z2 is None or SWW is None)):
         raise ValueError("bernoulli needs z2 and SWW, poisson needs kappa")
-    if not _on_card(Y0):
+    if not on_card(Y0):
         return bound_refresh_plain(lik, Zm, SW, Y0, M01, z2, SWW, kappa, target)
     dev = Y0.device
     n, d = _matrix(Y0, "Y0", dev)

@@ -21,7 +21,7 @@ except ImportError:
 
 from muon_tpu_torch.ops import _kernels
 from muon_tpu_torch.ops import sparse as tsp
-from muon_tpu_torch.ops.device import check_matmul_precision, resolve_device
+from muon_tpu_torch.ops.device import check_matmul_precision, dense_to_tensor, resolve_device
 
 CPU = torch.device("cpu")
 
@@ -302,17 +302,29 @@ def test_to_scipy_data_copies_structure():
 
 
 def test_resolve_device():
+    # None and "auto" mean the card; the CPU only when asked for by name
     assert resolve_device("cpu") == CPU
-    auto = resolve_device("auto")
-    assert auto.type == ("cuda" if torch.cuda.is_available() else "cpu")
-    assert resolve_device(None) == auto
     if torch.cuda.is_available():
+        assert resolve_device("auto").type == "cuda"
+        assert resolve_device(None) == resolve_device("auto")
         assert resolve_device("cuda").type == "cuda"
     else:
-        with pytest.raises(RuntimeError):
-            resolve_device("cuda")
+        for dev in ("auto", None, "cuda"):
+            with pytest.raises(RuntimeError):
+                resolve_device(dev)
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_default_device_without_a_card_raises_and_names_the_cpu(monkeypatch):
+    # the default never falls back to the CPU: without a card it raises and
+    # says how to ask for the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dense_to_tensor(np.zeros((2, 2)))
+    assert dense_to_tensor(np.zeros((2, 2)), "cpu").device == CPU
 
 
 def test_tf32_is_refused():
