@@ -62,7 +62,14 @@ and the marker genes of the 20 planted clusters (``tl.rank_genes_groups``:
 t-test, wilcoxon and logreg on the e2e's normalised RNA, wilcoxon on its
 TF-IDF ATAC, the ranking ``atac.tl.rank_peaks_groups`` runs), and ``tl.snf``
 of the first 10,000 cells' three modality graphs (about the 10x PBMC 10k
-multiome's size: SNF is dense n × n by design) followed by ``tl.leiden``.
+multiome's size: SNF is dense n × n by design) followed by ``tl.leiden``;
+
+and the decompositions and dense normalisations: ``tl.ica`` on the e2e RNA's
+``X_pca`` (100,000 × 50) and on 50 planted Laplace sources mixed into
+100,000 × 50, ``atac.pp.scopen`` (30 factors, 500 iterations) on the e2e's
+ATAC counts, 100,000 cells × 25,000 peaks as CSR on the card, and
+``ops.dense.tfidf_dense``/``l2norm_dense`` on the same counts dense and on
+the RNA's ``X_pca``.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -213,7 +220,33 @@ is printed. An exception stops the run at once, with a code other than 0:
     the plain versions, its planted-label share (≥ 0.87; the JAX package's
     tl.snf reads the same on these graphs: exp_snf_witness.py), Leiden on
     it (ARI ≥ 0.85); T29-T31 and one diffusion iteration against their
-    plain versions.
+    plain versions;
+35. ``[ica]`` (after phase 34): ``tl.ica`` on the e2e RNA's ``X_pca``
+    (100,000 × 50, ``n_components=None``) counted alone: T32 once per sweep,
+    200; the wall, the stage split, cov(S) within 1e-3 of I; then on 50
+    planted Laplace sources mixed by a 50 × 50 Gaussian matrix: every source
+    matched by a recovered one with |corr| ≥ 0.95, and the whole run against
+    the same call through T32's plain version from the same W0;
+36. ``[scopen]``: ``atac.pp.scopen`` on the e2e's ATAC counts (100,000 ×
+    25,000, 30 factors, 500 iterations) counted alone: T2's split variant
+    and T33 twice per iteration, 1000 each, T7 and T8 once; the wall, the stage split, peak
+    memory; ``X_scopen``'s label-probe R² at least 0.33, beside that of the
+    same ATAC's ``X_lsi`` (the algorithm reads about half of X_lsi's:
+    exp_scopen_witness.py); the imputed X in [0, 1]. Then the same
+    fit driven again in chunks of 100 iterations from the same operands and
+    starts: the objective at the start and after each chunk never up by more
+    than 1e-5 relative, and the chunks end on ``atac.pp.scopen``'s factors bit
+    for bit; the same fit through the plain versions, its R² within 0.01;
+    one iteration through T33 against the plain update from the fitted state
+    (rtol 1e-5); T2's split variant at the loop's two shapes
+    against its plain version (the sums in float64);
+37. ``[dense]``: ``ops.dense.tfidf_dense`` on the e2e's ATAC counts dense on
+    the card (100,000 × 25,000, default flags) and ``l2norm_dense`` of the
+    RNA's ``X_pca`` and of that TF-IDF, counted alone (T34 1, T35 2); then
+    ``[kernel] ica_contrast / nmf_update / tfidf_dense / l2norm_dense``: each
+    against its plain version at those shapes (T34 also at 1,000 × 25,000
+    with zero rows and columns under every combination of the three log
+    flags and ``scale_factor`` ∈ {None, 1, 1e4}).
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -258,6 +291,7 @@ GMM_SRC = "muon_tpu_torch/csrc/gmm_kernels.cu"
 GP_SRC = "muon_tpu_torch/csrc/gp_kernels.cu"
 DE_SRC = "muon_tpu_torch/csrc/de_kernels.cu"
 SNF_SRC = "muon_tpu_torch/csrc/snf_kernels.cu"
+DECOMP_SRC = "muon_tpu_torch/csrc/decomp_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
@@ -299,6 +333,7 @@ N_BIG, D_BIG, BIG_CLUSTERS, IVF_ITEMS, SEED_SAMPLE = 1_000_000, 50, 40, 64, 20_0
 KERNEL_INFO = {
     "tfidf_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:790"),     # _tfidf_fn
     "csr_spmm_f32": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),     # _spmm_fn
+    "csr_spmm_split": (SPARSE_SRC, "muon_tpu/ops/nmf.py:27"),       # _nmf_fn's products
     "csr_spmm_bf16": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),
     "csr_spmm_t_f32": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),   # transpose=True
     "csr_spmm_t_bf16": (SPARSE_SRC, "muon_tpu/ops/sparse.py:590"),
@@ -335,6 +370,10 @@ KERNEL_INFO = {
     "snf_affinity": (SNF_SRC, "muon_tpu/_core/tools_graph.py:78"),      # _affinity_matrix
     "snf_normalize": (SNF_SRC, "muon_tpu/_core/tools_graph.py:35"),     # normalize
     "snf_dominate_set": (SNF_SRC, "muon_tpu/_core/tools_graph.py:35"),  # dominateset
+    "ica_contrast": (DECOMP_SRC, "muon_tpu/ops/ica.py:24"),         # _fastica_fn's body
+    "nmf_update": (DECOMP_SRC, "muon_tpu/ops/nmf.py:27"),           # _nmf_fn's updates, Grams
+    "tfidf_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:19"),         # _tfidf_dense_fn
+    "l2norm_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:48"),        # _l2norm_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -393,6 +432,27 @@ SNF_CELLS, SNF_K, SNF_ITERS, SNF_MODS = 10_000, 20, 20, 3
 SNF_SHARE = 0.87
 SNF_PATH = {"snf_affinity": SNF_MODS, "snf_dominate_set": SNF_MODS,
             "snf_normalize": SNF_MODS * (SNF_ITERS + 1) + 1}
+# [ica]: fastica's 200 sweeps, run in full, T32 once each; 50 planted sources
+ICA_ITERS, ICA_SOURCES = 200, 50
+ICA_PATH = {"ica_contrast": ICA_ITERS}
+# [scopen]: 30 factors, 500 iterations, the objective every 100; each
+# iteration forms X^T W and X H^T by T2's split variant and updates H and
+# then W by T33;
+# scopen_operands scales the binarised cells by T7's counts through T8.
+# X_scopen's label-probe R2 is the algorithm's, about half of X_lsi's
+# (0.8147), and moves with the start: the port from its own starts of seeds
+# 0, 1, 2 reads 0.3705, 0.3971, 0.3475 at 100,000 cells, each run twice
+# alike (exp_scopen_witness.py port). On the first 10,000 cells the JAX
+# package and the port from the same starts read the same R2 to 1e-4 though
+# their factors part after about 200 iterations (exp_scopen_witness.py
+# reference). So the gate is R2 >= 0.33, the lowest start's reading less 5%,
+# and R2 within SCOPEN_R2_PLAIN of the same fit through the plain versions
+# (a fault costing a tenth of R2 moves it by 0.037)
+SCOPEN_K, SCOPEN_ITERS, SCOPEN_EVERY, SCOPEN_R2, SCOPEN_R2_PLAIN = 30, 500, 100, 0.33, 0.01
+SCOPEN_PATH = {"nmf_update": 2 * SCOPEN_ITERS, "csr_spmm_split": 2 * SCOPEN_ITERS,
+               "csr_row_sums": 1, "csr_scale_rows": 1}
+# [dense]: tfidf_dense of the dense ATAC, l2norm_dense of X_pca and of that TF-IDF
+DENSE_PATH = {"tfidf_dense": 1, "l2norm_dense": 2}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -3514,6 +3574,309 @@ def phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels, profiling, X_rna, X_at
     return launches, results
 
 
+def planted_sources(seed: int = SEED, n: int = N_CELLS, k: int = ICA_SOURCES):
+    """k Laplace sources of n samples mixed by a k × k Gaussian matrix."""
+    rng = np.random.default_rng(seed)
+    S = rng.laplace(size=(n, k))
+    return S, (S @ rng.normal(size=(k, k))).astype(np.float32)
+
+
+def matched_corr(S: np.ndarray, R: np.ndarray) -> np.ndarray:
+    """For each column of S, the largest |corr| with a column of R."""
+    zs = (S - S.mean(0)) / S.std(0)
+    zr = (R - R.mean(0)) / R.std(0)
+    return np.abs(zs.T @ zr / len(S)).max(axis=1)
+
+
+def phase_ica(ttl, tica, kernels, profiling, rna_pca, cuda):
+    """``[ica]``: tl.ica on the e2e RNA's X_pca (counted alone), then on
+    planted Laplace sources, through T32 and through its plain version."""
+    h = Holder(None)
+    h.obsm["X_pca"] = rna_pca
+    ttl.ica(h, random_state=SEED, max_iter=2, device=cuda)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        ttl.ica(h, random_state=SEED, device=cuda)
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    S = h.obsm["X_ica"]
+    cov_err = float(np.abs(np.cov(S.astype(np.float64), rowvar=False)
+                           - np.eye(S.shape[1])).max())
+    print(f"[ica] tl.ica on X_pca {rna_pca.shape[0]}x{rna_pca.shape[1]}, {ICA_ITERS} sweeps: "
+          f"wall {wall:.4f}s; stages {stage_seconds(t)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; |cov(S) - I| max {cov_err:.3e}",
+          flush=True)
+    check_launches(launches, ICA_PATH, "[ica]")
+    check(S.shape == rna_pca.shape and S.dtype == np.float32 and np.isfinite(S).all(),
+          "[ica] X_ica finite float32 of X_pca's shape")
+    check(cov_err <= 1e-3, "[ica] cov(S) within 1e-3 of I")
+
+    S_true, Xp = planted_sources()
+    hp, hq = Holder(None), Holder(None)
+    hp.obsm["X_pca"], hq.obsm["X_pca"] = Xp, Xp
+    t0 = time.perf_counter()
+    ttl.ica(hp, random_state=SEED, device=cuda)
+    t1 = time.perf_counter()
+    with plain_kernels(tica, ("ica_contrast",)):
+        ttl.ica(hq, random_state=SEED, device=cuda)
+    t2 = time.perf_counter()
+    corr = matched_corr(S_true, hp.obsm["X_ica"])
+    dS = float(np.abs(hp.obsm["X_ica"] - hq.obsm["X_ica"]).max())
+    print(f"[ica] {ICA_SOURCES} planted Laplace sources x {N_CELLS}: worst matched |corr| "
+          f"{corr.min():.5f} (>= 0.95), median {np.median(corr):.5f}; {t1 - t0:.3f}s; the "
+          f"same call through T32's plain version {t2 - t1:.3f}s, max |dS| {dS:.3e} "
+          f"(<= 1e-3)", flush=True)
+    check(corr.min() >= 0.95, "[ica] every planted source matched with |corr| >= 0.95")
+    check(dS <= 1e-3, "[ica] the run through T32 within 1e-3 of the plain run")
+    Xw, W0 = tica.pca_whiten(Xp, None, SEED)
+    return launches, (torch.from_numpy(Xw).to(cuda), torch.from_numpy(W0).to(cuda))
+
+
+def phase_scopen(tac, tnmf, dsp, kernels, profiling, X_atac, lsi, labels, cuda):
+    """``[scopen]``: atac.pp.scopen on the e2e's ATAC counts, counted alone;
+    then its NMF driven again in chunks of SCOPEN_EVERY iterations from the
+    same operands and starts, the objective read between chunks; then one
+    iteration through T33 against the plain update from the fitted state,
+    and T2's split variant at the loop's two shapes against its plain
+    version. Returns the launches, that state's inputs of T33 and the split
+    variant's ``[kernel]`` record."""
+    h = Holder(X_atac)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        tac.pp.scopen(h, n_components=SCOPEN_K, max_iter=SCOPEN_ITERS, device=cuda)
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    M, H, W = h.X, h.obsm["X_scopen"], h.varm["scopen"]
+    lo, hi = float(M.min()), float(M.max())
+    r2, r2_lsi = label_probe_r2(H, labels), label_probe_r2(lsi, labels)
+    print(f"[scopen] atac.pp.scopen {X_atac.shape[0]}x{X_atac.shape[1]}, k={SCOPEN_K}, "
+          f"{SCOPEN_ITERS} iterations: wall {wall:.4f}s; stages {stage_seconds(t)}; peak device "
+          f"memory {peak:.2f} GiB above the {base / 2**30:.2f} held; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[scopen] imputed X in [{lo}, {hi}]; label-probe R2 of X_scopen {r2:.4f} "
+          f"(>= {SCOPEN_R2}), of X_lsi {r2_lsi:.4f} (ratio {r2 / r2_lsi:.3f})", flush=True)
+    check_launches(launches, SCOPEN_PATH, "[scopen]")
+    check(H.shape == (N_CELLS, SCOPEN_K) and W.shape == (X_atac.shape[1], SCOPEN_K)
+          and np.isfinite(H).all() and np.isfinite(W).all(), "[scopen] factors finite")
+    check(M.shape == X_atac.shape and M.dtype == np.float32 and lo >= 0.0 and hi <= 1.0,
+          "[scopen] the imputed X float32 in [0, 1]")
+    check(r2 >= SCOPEN_R2, f"[scopen] X_scopen's label-probe R2 >= {SCOPEN_R2}")
+    del h, M
+
+    # the same fit in chunks; between them ½‖X − WH‖² + ½(‖W‖² + ‖H‖²) =
+    # ½‖X‖² − tr(Wᵀ·X·Hᵀ) + ½tr(WᵀW·HHᵀ) + ½(‖W‖² + ‖H‖²), in float64
+    X, XT = tnmf.scopen_operands(X_atac, device=cuda)
+    x2 = torch.sum(X.data.double() ** 2).item()
+
+    def objective(W, Ht):
+        W64, H64 = W.double(), Ht.double()
+        cross = torch.sum(W64 * dsp.spmm_split(X, Ht).double()).item()
+        gram = torch.sum((W64.T @ W64) * (H64.T @ H64)).item()
+        reg = torch.sum(W64 ** 2).item() + torch.sum(H64 ** 2).item()
+        return 0.5 * x2 - cross + 0.5 * gram + 0.5 * reg
+
+    Wc, Htc = tnmf._starts(X, SCOPEN_K, 0, None, None)
+    obj = [objective(Wc, Htc)]
+    t0 = time.perf_counter()
+    for _ in range(SCOPEN_ITERS // SCOPEN_EVERY):
+        Wc, Htc = tnmf.nmf_factors(X, XT, Wc, Htc, 1.0, SCOPEN_EVERY)
+        obj.append(objective(Wc, Htc))
+    t_chunks = time.perf_counter() - t0
+    rise = max((b - a) / abs(a) for a, b in zip(obj, obj[1:]))
+    same = bool(np.array_equal(Wc.cpu().numpy(), W) and np.array_equal(Htc.cpu().numpy(), H))
+    print(f"[scopen] the fit again in chunks of {SCOPEN_EVERY} ({t_chunks:.3f}s with the "
+          f"objective): objective {[float(f'{o:.7g}') for o in obj]} (largest relative rise "
+          f"{rise:.2e}, <= 1e-5); ends on atac.pp.scopen's factors bit for bit: {same}",
+          flush=True)
+    check(rise <= 1e-5, "[scopen] the objective never rises by more than 1e-5 relative")
+    check(same, "[scopen] the chunked fit ends on atac.pp.scopen's factors bit for bit")
+    del Wc, Htc
+
+    # one iteration from the fitted state
+    Wt = torch.from_numpy(W).to(cuda)
+    Ht = torch.from_numpy(H).to(cuda)
+    got = tnmf.nmf_factors(X, XT, Wt, Ht, 1.0, 1)
+    torch.cuda.synchronize()
+    with plain_kernels(tnmf, ("nmf_update",)):
+        want = tnmf.nmf_factors(X, XT, Wt, Ht, 1.0, 1)
+    err = max(((g - w).abs() / w.abs().clamp(min=1e-30)).max().item()
+              for g, w in zip(got, want))
+    # the whole fit through the plain versions from the same starts
+    Wp, Htp = tnmf._starts(X, SCOPEN_K, 0, None, None)
+    t0 = time.perf_counter()
+    with plain_kernels(tnmf, ("nmf_update",)), plain_kernels(dsp, ("spmm_split",)):
+        Wp, Htp = tnmf.nmf_factors(X, XT, Wp, Htp, 1.0, SCOPEN_ITERS)
+    r2_plain = label_probe_r2(Htp.cpu().numpy(), labels)
+    print(f"[scopen] the same fit through the plain versions ({time.perf_counter() - t0:.3f}s): "
+          f"label-probe R2 {r2_plain:.4f}, the kernels' {r2:.4f} (within {SCOPEN_R2_PLAIN})",
+          flush=True)
+    check(abs(r2 - r2_plain) <= SCOPEN_R2_PLAIN,
+          f"[scopen] X_scopen's R2 within {SCOPEN_R2_PLAIN} of the plain fit's")
+    del Wp, Htp
+
+    print(f"[scopen] one iteration through T33 against the plain update from the fitted "
+          f"state: max rel err {err:.3e} (<= 1e-5)", flush=True)
+    check(err <= 1e-5, "[scopen] one iteration against plain rtol 1e-5")
+    del got, want
+
+    # T2's split variant at the loop's shapes: the record is X·Hᵀ's, whose
+    # rows (peaks) run from a few cells to tens of thousands
+    XtW = dsp.spmm_split(XT, Wt)
+    Hn = tnmf.nmf_update(Ht, XtW, Wt, 1.0)
+    results = {}
+    for label, A, B in (("csr_spmm_split X^T.W", XT, Wt), ("csr_spmm_split", X, Hn)):
+        out = dsp.spmm_split(A, B)
+        torch.cuda.synchronize()
+        diff = (out - dsp.spmm_split_plain(A, B)).abs()
+        lens = A.indptr[1:] - A.indptr[:-1]
+        ok = bool((diff <= 1e-5 * dsp.spmm_split_plain(A, B.abs())).all())
+        kernel_report(results, label, f"{A.n_rows}x{A.n_cols} nnz {A.nnz} (rows of "
+                      f"{int(lens.min())}-{int(lens.max())}), k = {SCOPEN_K}",
+                      diff.max().item(), "1e-5 x |X|.|B|", ok, lambda: dsp.spmm_split(A, B),
+                      lambda: dsp.spmm_split_plain(A, B),
+                      bound(csr_bytes(A) + nbytes(B, out), 2 * A.nnz * SCOPEN_K, F32_OPS_PER_S),
+                      lambda: torch.sparse.mm(torch_csr(A), B))
+        del out, diff
+    del results["csr_spmm_split X^T.W"]
+    XHt = dsp.spmm_split(X, Hn)
+    del X, XT
+    torch.cuda.empty_cache()
+    return launches, (Ht, XtW, Wt, Wt, XHt, Hn), results
+
+
+def phase_dense(td, tde, dsp, kernels, X_atac, rna_pca, cuda):
+    """``[dense]``: tfidf_dense of the e2e's ATAC counts dense on the card and
+    l2norm_dense of X_pca and of that TF-IDF, counted alone."""
+    Xd = tde.dense_from_csr(dsp.from_scipy(X_atac, cuda))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    T = td.tfidf_dense(Xd, device=cuda)
+    P = td.l2norm_dense(rna_pca, device=cuda)
+    L = td.l2norm_dense(T, device=cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    norms = torch.linalg.vector_norm(L, dim=1)
+    nz = torch.linalg.vector_norm(T, dim=1) > 0
+    print(f"[dense] tfidf_dense {tuple(Xd.shape)}, l2norm_dense {tuple(P.shape)} and "
+          f"{tuple(L.shape)}: {wall:.4f}s with the upload of X_pca; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; rows of unit norm: max |norm - 1| "
+          f"{(norms[nz] - 1).abs().max().item():.2e}, {int((~nz).sum())} zero rows", flush=True)
+    check_launches(launches, DENSE_PATH, "[dense]")
+    check(bool(torch.isfinite(T).all()) and bool(((norms[nz] - 1).abs() <= 1e-5).all()),
+          "[dense] finite TF-IDF, unit rows")
+    del T, L, norms, nz
+    return launches, Xd, P
+
+
+TINY = torch.finfo(torch.float32).tiny  # the smallest normal float32
+
+
+def rel_ok(got, want, rtol, atol=0.0):
+    return bool(((got - want).abs() <= rtol * want.abs() + atol).all())
+
+
+def phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd, rna_pca, cuda) -> dict:
+    """T32-T35 against their plain versions at the paths' shapes."""
+    results = {}
+    Xw, W0 = ica_inputs
+    k, n = Xw.shape
+    W = tica.sym_decorrelate(W0)
+    got = tica.ica_contrast(Xw, W)
+    torch.cuda.synchronize()
+    want = tica.ica_contrast_plain(Xw, W)
+    err = (got - want).abs().max().item()
+    # reads Xw, W and writes W_new; two k x k x n products. W_new is the
+    # difference of two terms each at most 1 in size (W's rows unit norm, Xw
+    # white, |g| <= 1) that cancel: held within 1e-6 absolute
+    kernel_report(results, "ica_contrast", f"Xw {k}x{n}", err, "atol 1e-6",
+                  err <= 1e-6, lambda: tica.ica_contrast(Xw, W),
+                  lambda: tica.ica_contrast_plain(Xw, W),
+                  bound(nbytes(Xw, W, got), 4.0 * k * k * n, F32_OPS_PER_S))
+
+    H, XtW, Wo, Wf, XHt, Ho = nmf_inputs
+    for name, F, N, O in (("nmf_update", H, XtW, Wo), ("nmf_update W", Wf, XHt, Ho)):
+        got = tnmf.nmf_update(F, N, O, 1.0)
+        torch.cuda.synchronize()
+        want = tnmf.nmf_update_plain(F, N, O, 1.0)
+        rows, kk = F.shape
+        # reads F, N and the other factor O, writes the update; OᵀO (2 k² flop a
+        # row of O), the k-term product and 5 operations an entry of F
+        # relative where the result is a normal float32; the fitted factors
+        # hold subnormal entries, whose spacing is no relative precision
+        kernel_report(results, name, f"{'Ht' if name == 'nmf_update' else 'W'} "
+                      f"{tuple(F.shape)}, other {tuple(O.shape)}, "
+                      f"{int((want.abs() < TINY).sum())} subnormal",
+                      (got - want).abs().max().item(), "rtol 1e-5 atol 1.2e-38",
+                      rel_ok(got, want, 1e-5, TINY),
+                      lambda: tnmf.nmf_update(F, N, O, 1.0),
+                      lambda: tnmf.nmf_update_plain(F, N, O, 1.0),
+                      bound(nbytes(F, N, O, got),
+                            2.0 * kk * kk * O.shape[0] + (2.0 * kk + 5) * kk * rows,
+                            F32_OPS_PER_S))
+    del results["nmf_update W"], got, want
+
+    # T34 under every flag combination at 1,000 x 25,000, zero rows and columns planted
+    small = Xd[:1000].clone()
+    small[::97] = 0.0
+    small[:, ::89] = 0.0
+    worst = 0.0
+    for log_tf in (False, True):
+        for log_idf in (False, True):
+            for log_tfidf in (False, True):
+                for sf in (None, 1, 1e4):
+                    flags = (log_tf, log_idf, log_tfidf, sf)
+                    got = td.tfidf_dense(small, *flags, device=cuda)
+                    want = td.tfidf_dense_plain(small, *flags)
+                    atol = 1e-6 * want.abs().max().item()
+                    worst = max(worst, ((got - want).abs() - atol).div(want.abs().clamp(
+                        min=1e-30)).max().item())
+                    check(rel_ok(got, want, 1e-5, atol), f"[kernel] tfidf_dense {flags} "
+                          "rtol 1e-5")
+    print(f"[kernel] tfidf_dense 1000x{Xd.shape[1]}, zero rows and columns, 24 flag "
+          f"combinations: max rel err beyond atol 1e-6 x max {worst:.3e} (<= 1e-5)", flush=True)
+    del small, got, want
+    got = td.tfidf_dense(Xd, device=cuda)
+    torch.cuda.synchronize()
+    want = td.tfidf_dense_plain(Xd)
+    ok = rel_ok(got, want, 1e-5, 1e-6 * want.abs().max().item())
+    err = (got - want).abs().max().item()
+    del want
+    # reads X once, writes the values; the bound counts no second read
+    kernel_report(results, "tfidf_dense", f"{tuple(Xd.shape)} default flags", err,
+                  "rtol 1e-5", ok, lambda: td.tfidf_dense(Xd, device=cuda),
+                  lambda: td.tfidf_dense_plain(Xd),
+                  bound(nbytes(Xd, got), 6.0 * Xd.numel(), F32_OPS_PER_S))
+    T = got
+    del got
+    torch.cuda.empty_cache()
+
+    P = torch.from_numpy(rna_pca).to(cuda)
+    for label, X in (("l2norm_dense X_pca", P), ("l2norm_dense", T)):
+        got = td.l2norm_dense(X, device=cuda)
+        torch.cuda.synchronize()
+        want = td.l2norm_dense_plain(X)
+        kernel_report(results, label, f"{tuple(X.shape)}", (got - want).abs().max().item(),
+                      "rtol 1e-5 atol 1e-7", rel_ok(got, want, 1e-5, 1e-7),
+                      lambda: td.l2norm_dense(X, device=cuda),
+                      lambda: td.l2norm_dense_plain(X),
+                      bound(nbytes(X, got), 3.0 * X.numel(), F32_OPS_PER_S),
+                      lambda: torch.nn.functional.normalize(X, dim=1))
+        del got, want
+        torch.cuda.empty_cache()
+    del results["l2norm_dense X_pca"], T, P
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -3532,10 +3895,12 @@ def main() -> int:
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import gmm as tg
     from muon_tpu_torch.ops import gp as tgp
+    from muon_tpu_torch.ops import ica as tica
     from muon_tpu_torch.ops import ivf as ti
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import mofa as tmo
+    from muon_tpu_torch.ops import nmf as tnmf
     from muon_tpu_torch.ops import snf as tsn
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.ops import umap as tu
@@ -3602,6 +3967,18 @@ def main() -> int:
     snf_launches, snf_results = phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels,
                                           profiling, X_rna, X_atac_e2e, P, labels, cuda)
     results.update(snf_results)
+    ica_launches, ica_inputs = phase_ica(ttl, tica, kernels, profiling, rna_h.obsm["X_pca"],
+                                         cuda)
+    scopen_launches, nmf_inputs, split_results = phase_scopen(
+        tac, tnmf, dsp, kernels, profiling, X_atac_e2e, wnn_mods["atac"].obsm["X_lsi"], labels,
+        cuda)
+    results.update(split_results)
+    dense_launches, Xd, _ = phase_dense(td, tde, dsp, kernels, X_atac_e2e,
+                                        rna_h.obsm["X_pca"], cuda)
+    results.update(phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd,
+                                        rna_h.obsm["X_pca"], cuda))
+    del ica_inputs, nmf_inputs, Xd
+    torch.cuda.empty_cache()
     del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md, boosts
     torch.cuda.empty_cache()
 
@@ -3662,11 +4039,15 @@ def main() -> int:
                "knn_wide": {k: knn_wide_launches[k] + ivf_wide_launches[k]
                             for k in knn_wide_launches},
                "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
+               "ica": ica_launches, "scopen": scopen_launches, "dense": dense_launches,
                "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(
         f"{k} {v}" for k, v in gather_launches.items() if v), flush=True)
+    never = [n for n in kernels.KERNELS
+             if not sum(c[n] for c in by_path.values()) + gather_launches[n]]
+    check(not never, f"every kernel launched on a main path or the gather run, not {never}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed: {FAILED}", file=sys.stderr)

@@ -3,10 +3,11 @@
 It keeps the JAX package's public API and writes the same keys, with
 PyTorch for the device work and hand-written CUDA kernels (``csrc/``) for
 the sparse products, the kNN, the fuzzy connectivities, the WNN fusion, the
-dense CLR, the UMAP epochs, the per-factor passes and bound refresh of
-MOFA+, MEFISTO's GP kernel matrices, DSB's per-cell background fit, the
-marker tests' rank sums and logreg step, and SNF's affinity, normalisation
-and dominant-set passes.
+dense CLR, TF-IDF and L2 norm, the UMAP epochs, the per-factor passes and
+bound refresh of MOFA+, MEFISTO's GP kernel matrices, DSB's per-cell
+background fit, the marker tests' rank sums and logreg step, SNF's
+affinity, normalisation and dominant-set passes, FastICA's fixed-point step
+and NMF's multiplicative updates.
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
@@ -18,8 +19,10 @@ of an asymmetric graph) and MOFA+ with gaussian, bernoulli and poisson
 views, spike-slab factors and MEFISTO's smooth factors, full-batch and
 stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``), marker
 ranking (``tl.rank_genes_groups``: t-test, t-test_overestim_var, wilcoxon,
-logreg; ``atac.tl.rank_peaks_groups``) and similarity network fusion
-(``tl.snf``); see ROADMAP.md for the rest.
+logreg; ``atac.tl.rank_peaks_groups``), similarity network fusion
+(``tl.snf``), ICA (``tl.ica``), scOpen's imputation (``atac.pp.scopen``), the
+L2 norm (``pp.l2norm``) and the dense TF-IDF and L2 norm
+(``ops.dense.tfidf_dense``, ``l2norm_dense``); see ROADMAP.md for the rest.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``: the default (``device=None``) is the current CUDA device,

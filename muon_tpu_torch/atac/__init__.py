@@ -1,7 +1,7 @@
 """ATAC modality module (``from muon_tpu_torch import atac as ac``).
 
-Ported so far: ``pp.tfidf``, ``pp.binarize``, ``tl.lsi``, ``tl.rank_peaks_groups``
-and ``tl.add_genes_peaks_groups``.
+Ported so far: ``pp.tfidf``, ``pp.binarize``, ``pp.scopen``, ``tl.lsi``,
+``tl.rank_peaks_groups`` and ``tl.add_genes_peaks_groups``.
 """
 
 from . import preproc as pp

@@ -1,10 +1,12 @@
-"""ATAC preprocessing (``ac.pp``): TF-IDF and binarize
+"""ATAC preprocessing (``ac.pp``): TF-IDF, binarize and scOpen
 (counterpart of muon_tpu/atac/preproc.py).
 
 The sparse path runs the fused TF-IDF kernel (T1, ops/sparse.tfidf_data)
 over the CSR value vector and keeps the sparsity structure as it is. Dense
 input is computed on the host in float64, as in the reference, so the
-golden values of its tests hold.
+golden values of its tests hold. ``scopen`` uploads the binarised peaks as
+CSR and factorises them on the device (ops/nmf.scopen_impute: T2's products,
+T33's updates).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..ops import sparse as dsp
 from ..ops.device import DeviceLike
 from ..utils.profiling import stage
 
-__all__ = ["tfidf", "binarize"]
+__all__ = ["tfidf", "binarize", "scopen"]
 
 
 def _get_atac(data):
@@ -149,3 +151,13 @@ def binarize(data, inplace: bool = True, copy: bool = False):
     if copy:
         return adata
     return None
+
+
+def scopen(data, *args, **kwargs):
+    """Bounded-NMF imputation of binarised peaks (reference
+    muon/_atac/preproc.py:155-236) on the ATAC modality of ``data``; the
+    arguments are those of ``ops.nmf.scopen_impute`` (``device`` among
+    them)."""
+    from ..ops.nmf import scopen_impute
+
+    return scopen_impute(_get_atac(data), *args, **kwargs)

@@ -7,6 +7,9 @@
 //   T1 tfidf_values      <- muon_tpu/ops/sparse.py _tfidf_fn
 //   T2 csr_spmm          <- muon_tpu/ops/sparse.py _spmm_fn (transpose=False)
 //                           and the final f32 X.V of _rsvd_blocks_fn
+//      csr_spmm_split    <- T2 for rows of very different lengths: the
+//                           products W^T X and X H^T of muon_tpu/ops/nmf.py
+//                           _nmf_fn
 //   T3 csr_spmm_t        <- muon_tpu/ops/sparse.py _spmm_fn (transpose=True)
 //   T4 csr_gram_matmul   <- the XtX.V product of muon_tpu/ops/linalg.py
 //                           _rsvd_blocks_fn
@@ -149,6 +152,74 @@ __global__ void csr_spmm_kernel(const float* __restrict__ data,
       const int c = c0 + q * kWarp + lane;
       if (c < l) o[c] = acc[q];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T2, split: out = X . B, B (n_cols x l) f32, for rows of very different
+// lengths (scOpen's peaks: Pareto-popular, up to tens of thousands of cells
+// a peak, where one warp a row leaves the longest rows to a few warps).
+// Each row's stored entries are cut into pieces of at most `piece`;
+// row_first[r] is the index of row r's first piece (an exclusive prefix sum
+// of max(1, ceil(len / piece)), so an empty row has one empty piece). A warp
+// sums one piece as T2 sums a row, into part (pieces x l); a second kernel
+// adds a row's pieces in order. No atomics: the product repeats bit for
+// bit, and a row of one piece sums as T2 sums it. Bound as T2's, plus part's
+// write and read (l floats a piece).
+// ---------------------------------------------------------------------------
+
+__global__ void csr_spmm_pieces_kernel(const float* __restrict__ data,
+                                       const int* __restrict__ indptr,
+                                       const int* __restrict__ indices,
+                                       const float* __restrict__ B,
+                                       const int* __restrict__ row_first,
+                                       int n_rows, int max_pieces, int l,
+                                       int piece, float* __restrict__ part) {
+  const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (p >= max_pieces || p >= row_first[n_rows]) return;  // uniform across the warp
+  int lo = 0, hi = n_rows - 1;  // the last row r with row_first[r] <= p
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (row_first[mid] <= p) lo = mid; else hi = mid - 1;
+  }
+  const int start = indptr[lo] + (p - row_first[lo]) * piece;
+  const int end = min(start + piece, indptr[lo + 1]);
+  float* o = part + (int64_t)p * l;
+  for (int c0 = 0; c0 < l; c0 += kCols) {
+    float acc[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) acc[q] = 0.f;
+    for (int j = start; j < end; ++j) {
+      const float x = data[j];
+      const float* b = B + (int64_t)indices[j] * l;
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        const int c = c0 + q * kWarp + lane;
+        if (c < l) acc[q] += x * b[c];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int c = c0 + q * kWarp + lane;
+      if (c < l) o[c] = acc[q];
+    }
+  }
+}
+
+__global__ void csr_spmm_add_pieces_kernel(const float* __restrict__ part,
+                                           const int* __restrict__ row_first,
+                                           int n_rows, int l,
+                                           float* __restrict__ out) {
+  const int64_t total = (int64_t)n_rows * l;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / l);
+    const int c = (int)(e - (int64_t)r * l);
+    const int a = row_first[r], b = row_first[r + 1];
+    float acc = part[(int64_t)a * l + c];
+    for (int q = a + 1; q < b; ++q) acc += part[(int64_t)q * l + c];
+    out[e] = acc;
   }
 }
 
@@ -316,6 +387,26 @@ int mt_csr_spmm(const float* data, const int* indptr, const int* indices,
       csr_spmm_kernel<float><<<row_blocks(n_rows), kThreads, 0, s>>>(
           data, indptr, indices, (const float*)B, n_rows, l, out);
   }
+  return (int)cudaGetLastError();
+}
+
+// T2, split. B (n_cols x l) f32; row_first (n_rows + 1) int32; part
+// (max_pieces x l) f32 scratch, max_pieces >= row_first[n_rows]; out
+// (n_rows x l) f32.
+int mt_csr_spmm_split(const float* data, const int* indptr, const int* indices,
+                      const float* B, const int* row_first, int n_rows,
+                      int max_pieces, int l, int piece, float* part, float* out,
+                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_rows <= 0 || l <= 0) return (int)cudaGetLastError();
+  csr_spmm_pieces_kernel<<<row_blocks(max_pieces), kThreads, 0, s>>>(
+      data, indptr, indices, B, row_first, n_rows, max_pieces, l, piece, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int64_t blocks = ((int64_t)n_rows * l + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
+  csr_spmm_add_pieces_kernel<<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
+                                                              l, out);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _I, _I, _I, _F, _P, _P),
     "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_csr_spmm_split": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
     "mt_csr_row_sums": (_P, _P, _I, _P, _P),
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
@@ -85,6 +86,10 @@ _SIGNATURES = {
     "mt_snf_affinity": (_P, _P, _I, _I, _F, _F, _P, _P, _P),
     "mt_snf_normalize": (_P, _I, _P, _P, _P),
     "mt_snf_dominate_set": (_P, _I, _I, _P, _P),
+    "mt_ica_contrast": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "mt_nmf_update": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P),
+    "mt_tfidf_dense": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "mt_l2norm_dense": (_P, _I, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -92,6 +97,7 @@ KERNELS = {
     "tfidf_values": "mt_tfidf_values",
     "csr_spmm_f32": "mt_csr_spmm",
     "csr_spmm_bf16": "mt_csr_spmm",
+    "csr_spmm_split": "mt_csr_spmm_split",  # rows cut into pieces, added in order
     "csr_spmm_t_f32": "mt_csr_spmm_t",
     "csr_spmm_t_bf16": "mt_csr_spmm_t",
     "csr_gram_matmul": "mt_csr_gram_matmul",
@@ -125,6 +131,10 @@ KERNELS = {
     "snf_affinity": "mt_snf_affinity",
     "snf_normalize": "mt_snf_normalize",
     "snf_dominate_set": "mt_snf_dominate_set",
+    "ica_contrast": "mt_ica_contrast",
+    "nmf_update": "mt_nmf_update",
+    "tfidf_dense": "mt_tfidf_dense",
+    "l2norm_dense": "mt_l2norm_dense",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

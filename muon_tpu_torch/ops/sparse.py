@@ -15,6 +15,7 @@ the kernel or raises.
 
     tfidf_data    T1  <- _tfidf_fn
     spmm          T2  <- _spmm_fn, transpose=False
+    spmm_split    T2, its rows cut into pieces <- the products of nmf._nmf_fn
     spmm_t        T3  <- _spmm_fn, transpose=True
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
     row_sums      T7  <- _row_sums_fn
@@ -45,6 +46,7 @@ __all__ = [
     "tfidf_data",
     "spmm",
     "spmm_t",
+    "spmm_split",
     "gram_matmul",
     "row_sums",
     "scale_rows_data",
@@ -52,6 +54,7 @@ __all__ = [
     "tfidf_data_plain",
     "spmm_plain",
     "spmm_t_plain",
+    "spmm_split_plain",
     "gram_matmul_plain",
     "row_sums_plain",
     "scale_rows_data_plain",
@@ -60,6 +63,7 @@ __all__ = [
 _INT32_MAX = np.iinfo(np.int32).max
 # entries per step of the plain products: bounds the (chunk, l) gather
 _PLAIN_CHUNK = 1 << 22
+_PIECE = 256  # stored entries a warp of spmm_split sums at most
 
 
 class DeviceCSR(NamedTuple):
@@ -235,6 +239,30 @@ def spmm(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def spmm_split(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
+    """T2's split variant: X @ B for a float32 B ``(n_cols, l)``, each row's
+    stored entries cut into pieces of at most 256, a warp a piece, and a
+    row's pieces added in order, so rows of very different lengths share the
+    card evenly. Float32 ``(n_rows, l)`` result; no atomics."""
+    if _on(X, B) == "cpu":
+        return spmm_split_plain(X, B)
+    _check_csr(X)
+    _check_dense("B", B, X.n_cols, (torch.float32,))
+    pieces = torch.clamp((X.indptr[1:] - X.indptr[:-1] + _PIECE - 1) // _PIECE, min=1)
+    row_first = torch.zeros(X.n_rows + 1, dtype=torch.int32, device=X.device)
+    torch.cumsum(pieces, 0, dtype=torch.int32, out=row_first[1:])
+    max_pieces = X.n_rows + -(-X.nnz // _PIECE)
+    part = torch.empty((max_pieces, B.shape[1]), dtype=torch.float32, device=X.device)
+    out = torch.empty((X.n_rows, B.shape[1]), dtype=torch.float32, device=X.device)
+    _kernels.launch(
+        "csr_spmm_split", X.device,
+        X.data.data_ptr(), X.indptr.data_ptr(), X.indices.data_ptr(), B.data_ptr(),
+        row_first.data_ptr(), X.n_rows, max_pieces, B.shape[1], _PIECE, part.data_ptr(),
+        out.data_ptr(),
+    )
+    return out
+
+
 def spmm_t(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     """T3: Xᵀ @ B for B ``(n_rows, l)`` float32 or bfloat16; float32
     ``(n_cols, l)`` result. The kernel adds with atomics, so the order of
@@ -369,6 +397,13 @@ def _scatter_products(out, seg, gat, data, B) -> torch.Tensor:
 def spmm_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((X.n_rows, B.shape[1]), dtype=torch.float32, device=X.device)
     return _scatter_products(out, _row_ids(X), X.indices.long(), X.data, B.float())
+
+
+def spmm_split_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
+    """X @ B summed in float64, then rounded to float32."""
+    out = torch.zeros((X.n_rows, B.shape[1]), dtype=torch.float64, device=X.device)
+    return _scatter_products(out, _row_ids(X), X.indices.long(), X.data.double(),
+                             B.double()).float()
 
 
 def spmm_t_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:

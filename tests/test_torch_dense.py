@@ -1,13 +1,15 @@
-"""The port's dense CLR (muon_tpu_torch.ops.dense, T12's plain version on
-the CPU) held to the JAX package's (muon_tpu.ops.dense.clr_dense and the
-seurat CLR of muon_tpu.prot.pp.clr) on the same inputs, and T12 against its
-plain version on the card.
+"""The port's dense CLR, TF-IDF and L2 norm (muon_tpu_torch.ops.dense, the
+plain versions of T12, T34 and T35 on the CPU) held to the JAX package's
+(muon_tpu.ops.dense.clr_dense, tfidf_dense, l2norm_dense and the seurat CLR
+of muon_tpu.prot.pp.clr) on the same inputs, and T12, T34 and T35 against
+their plain versions on the card.
 
 The reference as it runs in production (x64 off) computes in float32, as
 the port does: the two are compared in float32 (``jax.enable_x64(False)``),
 where they differ by the order of the float32 mean's sum and an ulp of
 log1p/exp: rtol 1e-6 on the mean, rtol 1e-5 (atol 1e-6 near zero) on the
-values.
+values. The TF-IDF and the L2 norm differ by the sums' order and an ulp of
+log1p or sqrt: rtol 1e-5 with an atol of 1e-6 of the largest value.
 """
 
 import numpy as np
@@ -97,6 +99,51 @@ def test_cpu_clr_counts_no_launch():
     assert not any(_kernels.launch_counts().values())
 
 
+def _peaks(n=60, d=40, seed=0):
+    """Counts with an all-zero row and an all-zero column planted (0/0 and
+    n/0 in the TF-IDF)."""
+    rng = np.random.default_rng(seed)
+    X = rng.poisson(0.7, size=(n, d)).astype(np.float32)
+    X[3] = 0.0
+    X[:, 5] = 0.0
+    return X
+
+
+FLAGS = [(tf, idf, tfidf) for tf in (False, True) for idf in (False, True)
+         for tfidf in (False, True)]
+
+
+@pytest.mark.parametrize("scale_factor", [None, 1, 1e4])
+@pytest.mark.parametrize("log_tf,log_idf,log_tfidf", FLAGS)
+def test_tfidf_dense_matches_jax(log_tf, log_idf, log_tfidf, scale_factor):
+    X = _peaks(seed=int(log_tf) + 2 * int(log_idf))
+    with jax.enable_x64(False):
+        ref = np.asarray(jd.tfidf_dense(jnp.asarray(X), log_tf, log_idf, log_tfidf,
+                                        scale_factor))
+    got = td.tfidf_dense(X, log_tf, log_idf, log_tfidf, scale_factor, device=CPU)
+    assert got.dtype == torch.float32 and tuple(got.shape) == X.shape
+    assert np.isfinite(got.numpy()).all() and not got[3].any() and not got[:, 5].any()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape", [(60, 40), (7, 1300)])
+def test_l2norm_dense_matches_jax(shape):
+    X = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+    X[2] = 0.0  # a zero norm is taken as 1
+    with jax.enable_x64(False):
+        ref = np.asarray(jd.l2norm_dense(jnp.asarray(X)))
+    got = td.l2norm_dense(X, device=CPU)
+    assert got.dtype == torch.float32 and not got[2].any()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_tfidf_l2norm_count_no_launch():
+    _kernels.reset_launch_counts()
+    td.tfidf_dense(_peaks(n=20, d=8), device=CPU)
+    td.l2norm_dense(_peaks(n=20, d=8), device=CPU)
+    assert not any(_kernels.launch_counts().values())
+
+
 # ---------------------------------------------------------------------------
 # on the card: T12 against its plain version (skips without one)
 # ---------------------------------------------------------------------------
@@ -135,6 +182,37 @@ def test_gpu_clr_values_refuse_bad_input(cuda):
         td.clr_values(X.T, 0)
     with pytest.raises(ValueError):
         td.clr_values(X[None], 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale_factor", [None, 1, 1e4])
+@pytest.mark.parametrize("log_tf,log_idf,log_tfidf", FLAGS)
+def test_gpu_tfidf_dense_matches_plain(cuda, log_tf, log_idf, log_tfidf, scale_factor):
+    # two tiles of rows and of columns, zero rows and columns planted: the
+    # sums in another order, rtol 1e-5
+    X = torch.from_numpy(_peaks(n=700, d=600, seed=1)).to(cuda)
+    X[400:410] = 0.0
+    X[:, 300] = 0.0
+    _kernels.reset_launch_counts()
+    got = td.tfidf_dense(X, log_tf, log_idf, log_tfidf, scale_factor)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["tfidf_dense"] == 1
+    ref = td.tfidf_dense_plain(X, log_tf, log_idf, log_tfidf, scale_factor)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5000, 50), (300, 1024), (300, 1025), (64, 25_000), (1, 1)])
+def test_gpu_l2norm_dense_matches_plain(cuda, shape):
+    # a warp per row up to 1024 columns, a block per row beyond
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    X = torch.randn(shape, generator=gen, device=cuda)
+    X[0] = 0.0
+    _kernels.reset_launch_counts()
+    got = td.l2norm_dense(X)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["l2norm_dense"] == 1
+    torch.testing.assert_close(got, td.l2norm_dense_plain(X), rtol=1e-5, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

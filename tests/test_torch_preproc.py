@@ -231,6 +231,81 @@ def test_large_inputs_take_the_approx_knn(monkeypatch):
     assert seen == [False, True]
 
 
+def _adata(n=30, d=12, seed=0, sparse=False, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(dtype)
+    X[4] = 0.0  # a zero norm is taken as 1
+    if sparse:
+        X = sp.random(n, d, density=0.3, random_state=seed, format="csr", dtype=dtype)
+        X = sp.csr_matrix(X.toarray() * (np.arange(n) != 4)[:, None])
+    ad = mu.AnnData(X=X, obs=pd.DataFrame(index=[f"c{i}" for i in range(n)]),
+                    var=pd.DataFrame(index=[f"g{j}" for j in range(d)]))
+    ad.obsm["X_pca"] = rng.normal(size=(n, 6))
+    ad.obsm["X_lsi"] = rng.normal(size=(n, 5)).astype(np.float32)
+    return ad
+
+
+def _same(a, b):
+    if sp.issparse(a):
+        assert sp.issparse(b) and a.format == b.format and a.dtype == b.dtype
+        a, b = a.toarray(), b.toarray()
+    assert np.asarray(a).dtype == np.asarray(b).dtype and np.shape(a) == np.shape(b)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(sparse=True), dict(dtype=np.float64), dict(rep="pca", n_pcs=3),
+    dict(rep="X_pca", n_pcs=0), dict(rep="lsi", n_pcs=2), dict(rep=["pca"], n_pcs=[4]),
+])
+def test_l2norm_matches_jax(case):
+    # the same host code on copies of one AnnData: the same keys, the same
+    # values and dtype, bit for bit
+    make = {k: v for k, v in case.items() if k in ("sparse", "dtype")}
+    kw = {k: v for k, v in case.items() if k in ("rep", "n_pcs")}
+    ref, got = _adata(**make), _adata(**make)
+    mu.pp.l2norm(ref, **kw)
+    assert mt.pp.l2norm(got, **kw) is None
+    _same(got.X, ref.X)
+    for key in ("X_pca", "X_lsi"):
+        _same(got.obsm[key], ref.obsm[key])
+
+
+def test_l2norm_mudata_matches_jax():
+    def mdata():
+        return mu.MuData({"rna": _adata(seed=1), "atac": _adata(seed=2, sparse=True)})
+
+    ref, got = mdata(), mdata()
+    mu.pp.l2norm(ref)
+    mt.pp.l2norm(got)
+    for m in ("rna", "atac"):
+        _same(got.mod[m].X, ref.mod[m].X)
+    # per-modality reps and n_pcs, on a subset of the modalities
+    ref, got = mdata(), mdata()
+    kw = dict(mod=["rna", "atac"], rep=["pca", None], n_pcs=[2, 0])
+    mu.pp.l2norm(ref, **kw)
+    mt.pp.l2norm(got, **kw)
+    _same(got.mod["rna"].obsm["X_pca"], ref.mod["rna"].obsm["X_pca"])
+    _same(got.mod["atac"].X, ref.mod["atac"].X)
+    # copy=True leaves the input as it was
+    orig = mdata()
+    out = mt.pp.l2norm(orig, mod="rna", copy=True)
+    _same(orig.mod["rna"].X, mdata().mod["rna"].X)
+    ref = mdata()
+    mu.pp.l2norm(ref, mod="rna")
+    _same(out.mod["rna"].X, ref.mod["rna"].X)
+
+
+def test_l2norm_on_plain_holders():
+    X = np.random.default_rng(3).normal(size=(20, 7)).astype(np.float32)
+    h = Holder(X.copy())
+    h.obsm["X_pca"] = X[:, :5].copy()
+    mt.pp.l2norm(MuHolder(rna=h), rep="X_pca", n_pcs=3)
+    np.testing.assert_allclose(np.linalg.norm(h.obsm["X_pca"], axis=1), 1.0, rtol=1e-6)
+    assert h.obsm["X_pca"].shape == (20, 3)
+    with pytest.raises(KeyError, match="umap"):
+        mt.pp.l2norm(h, rep="umap")
+
+
 # ---------------------------------------------------------------------------
 # on the card (skips without one)
 # ---------------------------------------------------------------------------

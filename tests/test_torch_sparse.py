@@ -438,6 +438,48 @@ def test_gpu_csr_spmm(cuda, dtype, l):
     assert ((out - tsp.spmm_plain(dX, B)).abs() <= bound).all()
 
 
+def _long_rows(seed=0):
+    """Rows of 0, 1, 255, 256, 257, 513, 5,000 and 40,000 stored entries over
+    50,000 columns, and the Pareto-popular columns of _skewed_counts as rows."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 255, 256, 257, 513, 5000, 40000]
+    rows = np.repeat(np.arange(len(lens)), lens)
+    cols = np.concatenate([rng.choice(50_000, n, replace=False) for n in lens])
+    data = rng.random(rows.size).astype(np.float32) + 0.5
+    A = sp.csr_matrix((data, (rows, cols)), shape=(len(lens), 50_000))
+    B = _skewed_counts(n=50_000, d=700).T.tocsr()
+    return sp.vstack([A, B[:, :50_000]]).tocsr()
+
+
+def test_spmm_split_plain_is_the_float64_product():
+    X = _long_rows()
+    B = np.random.default_rng(1).normal(size=(X.shape[1], 7)).astype(np.float32)
+    got = tsp.spmm_split(tsp.from_scipy(X, "cpu"), torch.from_numpy(B))
+    want = X.astype(np.float64) @ B.astype(np.float64)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 30, 150])
+def test_gpu_csr_spmm_split(cuda, l):
+    # against the float64 product within 1e-5 x |X|.|B|; bit for bit from
+    # run to run, and on rows of at most 256 entries bit for bit T2's sum
+    X = _long_rows()
+    dX = tsp.from_scipy(X, cuda)
+    B = torch.randn((dX.n_cols, l), device=cuda)
+    _kernels.reset_launch_counts()
+    out = tsp.spmm_split(dX, B)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["csr_spmm_split"] == 1
+    bound = 1e-5 * tsp.spmm_split_plain(dX._replace(data=dX.data.abs()), B.abs())
+    assert ((out - tsp.spmm_split_plain(dX, B)).abs() <= bound).all()
+    assert torch.equal(tsp.spmm_split(dX, B), out)
+    short = torch.from_numpy(np.diff(X.indptr) <= 256).to(cuda)
+    assert torch.equal(out[short], tsp.spmm(dX, B)[short])
+    assert bool((out[0] == 0).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l", [60, 150])
