@@ -247,6 +247,22 @@ is printed. An exception stops the run at once, with a code other than 0:
     against its plain version at those shapes (T34 also at 1,000 × 25,000
     with zero rows and columns under every combination of the three log
     flags and ``scale_factor`` ∈ {None, 1, 1e4}).
+38. ``[motifs]`` (after phase 37): a 60 Mb genome written from the seed
+    (three chromosomes, runs of N, soft-masked stretches) as a FASTA, 100,000
+    non-overlapping peaks of 500 bp named ``chrN:start-end`` in a holder's
+    ``var_names``, the consensus of 20 JASPAR motifs of width ≥ 8 (each
+    clearing its p = 1e-4 threshold) planted in 50 peaks each; then
+    ``atac.tl.get_sequences`` → ``atac.tl.scan_sequences`` over all 746
+    motifs at p = 1e-4, counted alone (T36 twice: count, write): the wall,
+    the stages, peak memory, the hits against 1e-4 × windows, every plant
+    found at its offset, every hit at or above its threshold. Then
+    ``[kernel] pwm_scan`` on all 100,000 peaks: the path's frame equal row
+    for row to one call of T36; that call's hits against its plain version's
+    (run 10,000 peaks at a time), the same in the same order once the
+    windows within 1e-3 of a threshold on either side are set aside (and
+    counted); its scores mode against ``F.conv1d`` (TF32 off) width by width
+    within 1e-4, -inf in the same places; its time at full size, and on
+    10,000 peaks beside its plain version and ``F.conv1d``'s scores alone.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -264,6 +280,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -292,6 +309,7 @@ GP_SRC = "muon_tpu_torch/csrc/gp_kernels.cu"
 DE_SRC = "muon_tpu_torch/csrc/de_kernels.cu"
 SNF_SRC = "muon_tpu_torch/csrc/snf_kernels.cu"
 DECOMP_SRC = "muon_tpu_torch/csrc/decomp_kernels.cu"
+MOTIF_SRC = "muon_tpu_torch/csrc/motif_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
@@ -374,6 +392,7 @@ KERNEL_INFO = {
     "nmf_update": (DECOMP_SRC, "muon_tpu/ops/nmf.py:27"),           # _nmf_fn's updates, Grams
     "tfidf_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:19"),         # _tfidf_dense_fn
     "l2norm_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:48"),        # _l2norm_fn
+    "pwm_scan": (MOTIF_SRC, "muon_tpu/ops/pwm.py:114"),             # _conv_fn + find_hits
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -453,6 +472,18 @@ SCOPEN_PATH = {"nmf_update": 2 * SCOPEN_ITERS, "csr_spmm_split": 2 * SCOPEN_ITER
                "csr_row_sums": 1, "csr_scale_rows": 1}
 # [dense]: tfidf_dense of the dense ATAC, l2norm_dense of X_pca and of that TF-IDF
 DENSE_PATH = {"tfidf_dense": 1, "l2norm_dense": 2}
+# [motifs]: 100,000 peaks of 500 bp from a 60 Mb genome written from the seed
+# (three chromosomes, runs of N, soft-masked stretches), all 746 JASPAR
+# motifs at p = 1e-4; the consensus of MOTIF_PLANTED motifs of width >= 8
+# planted in MOTIF_PLANT_EACH peaks each; T36 counts, then writes (one chunk
+# of motifs: 8,983 log-odds rows fit one block's shared memory)
+MOTIF_PEAKS, PEAK_BP, MOTIF_P = 100_000, 500, 1e-4
+MOTIF_CHROMS = (("chr1", 25_000_000), ("chr2", 20_000_000), ("chr3", 15_000_000))
+MOTIF_PLANTED, MOTIF_PLANT_EACH = 20, 50
+MOTIF_CHUNK = 10_000  # peaks a piece when all of them are held to plain
+MOTIF_TIMED = 10_000  # peaks timed against plain and F.conv1d
+MOTIF_NEAR = 1e-3  # windows this close to their threshold are set aside and counted
+MOTIF_PATH = {"pwm_scan": 2}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -3877,6 +3908,279 @@ def phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd, rna_pca, cu
     return results
 
 
+# ---------------------------------------------------------------------------
+# the motif scan: peak sequences from a genome FASTA, all 746 JASPAR motifs
+# ---------------------------------------------------------------------------
+
+
+class PeakHolder:
+    """The least AnnData-like object get_sequences takes: X, uns and the
+    peak names (``var_names``, ``chrN:start-end``)."""
+
+    def __init__(self, var_names):
+        self.X, self.uns, self.var_names = None, {}, np.asarray(var_names)
+
+
+def write_fasta(path, chroms) -> None:
+    """Each (name, uint8 bases) as a FASTA record of 60 bases a line."""
+    with open(path, "wb") as f:
+        for name, b in chroms:
+            full = len(b) // 60 * 60
+            lines = np.full((full // 60, 61), ord("\n"), np.uint8)
+            lines[:, :60] = b[:full].reshape(-1, 60)
+            f.write(f">{name}\n".encode())
+            f.write(lines.tobytes())
+            if full < len(b):
+                f.write(b[full:].tobytes() + b"\n")
+
+
+def strong_motifs(tpw, names, matrices, rng, k, min_width=8, margin=0.01):
+    """``k`` motifs of width >= ``min_width`` (in a seeded order) whose
+    consensus scores at least ``margin`` above their p = MOTIF_P threshold
+    in float32: a width-6 consensus can stay below it."""
+    out = []
+    for m in rng.permutation(len(matrices)):
+        lo = matrices[m]
+        if lo.shape[1] < min_width:
+            continue
+        cons = lo.argmax(axis=0)
+        score = np.float32(0)
+        for j, b in enumerate(cons):
+            score = np.float32(score + np.float32(lo[b, j]))
+        thr = tpw.threshold_from_p(lo, pvalue=MOTIF_P)
+        if float(score) >= thr + margin:
+            out.append((int(m), names[m], "".join("ACGT"[b] for b in cons)))
+        if len(out) == k:
+            return out
+    raise RuntimeError(f"only {len(out)} JASPAR motifs of width >= {min_width} clear p")
+
+
+def make_motif_data(tmf, tpw, path, seed=SEED, chroms=MOTIF_CHROMS, n_peaks=MOTIF_PEAKS,
+                    n_planted=MOTIF_PLANTED, each=MOTIF_PLANT_EACH):
+    """A genome (uniform bases, runs of N, soft-masked stretches) written to
+    ``path``, ``n_peaks`` non-overlapping peaks of PEAK_BP on it, and the
+    consensus of ``n_planted`` JASPAR motifs planted in ``each`` peaks each
+    at recorded offsets: (peak names, plants as (peak, motif id, offset))."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = []
+    for name, n in chroms:
+        b = acgt[rng.integers(0, 4, n)]
+        for _ in range(n // 200_000):  # runs of N
+            at = int(rng.integers(0, n - 5000))
+            b[at:at + int(rng.integers(100, 5000))] = ord("N")
+        soft = np.zeros(n, bool)
+        for _ in range(n // 20_000):  # soft-masked repeats, about a quarter
+            at = int(rng.integers(0, n - 12_000))
+            soft[at:at + int(rng.integers(500, 12_000))] = True
+        b[soft] |= 0x20
+        genome.append((name, b))
+    slots = [(c, s) for c, b in genome for s in range(0, len(b) - PEAK_BP + 1, PEAK_BP)]
+    pick = np.sort(rng.choice(len(slots), n_peaks, replace=False))
+    peaks = [slots[i] for i in pick]
+    names = [f"{c}:{s}-{s + PEAK_BP}" for c, s in peaks]
+    by_name = dict(genome)
+    parsed = tmf._parse_motif_matrices()
+    motifs = strong_motifs(tpw, parsed["motifs"], parsed["matrices"], rng, n_planted)
+    targets = rng.permutation(n_peaks)[:n_planted * each]
+    plants = []
+    for k, (m, mid, cons) in enumerate(motifs):
+        for i in targets[k * each:(k + 1) * each].tolist():
+            off = int(rng.integers(0, PEAK_BP - len(cons) + 1))
+            c, s = peaks[i]
+            by_name[c][s + off:s + off + len(cons)] = np.frombuffer(cons.encode(), np.uint8)
+            plants.append((i, mid, off))
+    write_fasta(path, genome)
+    return names, plants, parsed
+
+
+def valid_windows(codes: torch.Tensor, w: int) -> int:
+    """Windows of width w that touch no code of 4 (the ones T36 sums)."""
+    bad = torch.nn.functional.pad((codes >= 4).int().cumsum(1), (1, 0))
+    return int(((bad[:, w:] - bad[:, :codes.shape[1] - w + 1]) == 0).sum())
+
+
+def motif_work(codes, width) -> float:
+    """The adds and comparisons of a scan: per motif, each valid window's w
+    adds and its comparison."""
+    ws, counts = np.unique(width.cpu().numpy(), return_counts=True)
+    return float(sum(int(c) * valid_windows(codes, int(w)) * (int(w) + 1)
+                     for w, c in zip(ws, counts) if w <= codes.shape[1]))
+
+
+def phase_motifs(tac, tmf, tpw, kernels, profiling, cuda, tmpdir):
+    """``[motifs]``: get_sequences of 100,000 peaks from a 60 Mb FASTA, then
+    scan_sequences over all 746 JASPAR motifs, counted alone; the planted
+    consensus recalled; T36 against its plain version and F.conv1d."""
+    t0 = time.perf_counter()
+    fasta = f"{tmpdir}/genome.fa"
+    names, plants, parsed = make_motif_data(tmf, tpw, fasta)
+    print(f"[data] motifs: genome {sum(n for _, n in MOTIF_CHROMS)} bp in "
+          f"{len(MOTIF_CHROMS)} chromosomes, {len(names)} peaks of {PEAK_BP} bp, "
+          f"{len(plants)} planted consensus of {MOTIF_PLANTED} motifs, written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    h = PeakHolder(names)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        seqs = tac.tl.get_sequences(h, None, fasta_file=fasta)
+        t1 = time.perf_counter()
+        hits = tac.tl.scan_sequences(seqs, device=cuda)
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    matrices = parsed["matrices"]
+    widths = np.array([m.shape[1] for m in matrices])
+    windows = int(sum(len(seqs) * (PEAK_BP - w + 1) for w in widths))
+    print(f"[motifs] get_sequences {len(seqs)} peaks {t1 - t0:.3f}s, then scan_sequences "
+          f"{len(matrices)} motifs, p = {MOTIF_P}: wall of both {wall:.3f}s, peak {peak:.3f} "
+          f"GiB above the held; {len(hits)} hits against {MOTIF_P} x {windows} windows = "
+          f"{MOTIF_P * windows:.0f} ({len(hits) / (MOTIF_P * windows):.4f} of it); stages "
+          f"{stage_seconds(t)}; launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    check_launches(launches, MOTIF_PATH, "[motifs]")
+    check(list(hits.columns) == ["motif_id", "sequence", "position", "score", "tf_gene_name"]
+          and str(hits["position"].dtype) == "int64" and str(hits["score"].dtype) == "float32",
+          f"[motifs] the reference's columns and dtypes, read {dict(hits.dtypes)}")
+
+    # every planted consensus found at its offset
+    planted_ids = {mid for _, mid, _ in plants}
+    sub = hits[hits["motif_id"].isin(planted_ids)]
+    found = set(zip(sub["sequence"], sub["motif_id"], sub["position"].tolist()))
+    recall = np.mean([(seqs[i], mid, off) in found for i, mid, off in plants])
+    print(f"[motifs] planted consensus recall {recall:.4f} ({len(plants)} plants)", flush=True)
+    check(recall == 1.0, "[motifs] every planted consensus found at its offset")
+
+    # every hit clears its motif's threshold (float64, as the reference compares)
+    thresholds = np.array([tpw.threshold_from_p(m, pvalue=MOTIF_P) for m in matrices])
+    index = {mid: m for m, mid in enumerate(parsed["motifs"])}
+    mot = hits["motif_id"].map(index).to_numpy()
+    pos_ok = ((hits["position"].to_numpy() >= 0)
+              & (hits["position"].to_numpy() <= PEAK_BP - widths[mot])).all()
+    check(bool((hits["score"].to_numpy().astype(np.float64) >= thresholds[mot]).all())
+          and bool(pos_ok) and bool(np.isfinite(hits["score"].to_numpy()).all()),
+          "[motifs] every hit finite, inside its peak, at or above its threshold")
+    del sub, found
+    return launches, seqs, matrices, thresholds, parsed["motifs"], hits
+
+
+def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) -> dict:
+    """T36 against its plain version at the path's full size: the path's
+    frame row for row one call of T36 on all peaks, that call's hits the
+    plain version's run on MOTIF_CHUNK peaks at a time, and T36's scores
+    mode against F.conv1d on each piece; its time at full size and, with
+    plain and F.conv1d, on MOTIF_TIMED peaks."""
+    lo, off, width = (torch.from_numpy(a).to(cuda) for a in tpw.pack_motifs(matrices))
+    thr = torch.from_numpy(tpw.threshold_f32(thresholds)).to(cuda)
+    codes_all = torch.from_numpy(tpw.encode_sequences(seqs)).to(cuda)
+    N, L = codes_all.shape
+    M = len(matrices)
+    got = tpw.pwm_scan_hits(codes_all, lo, off, width, thr)
+    torch.cuda.synchronize()
+
+    # the path's own frame is this call's result, row for row
+    g = [t.cpu().numpy() for t in got]
+    seq_arr, id_arr = np.empty(len(seqs), object), np.empty(M, object)
+    seq_arr[:], id_arr[:] = seqs, list(motif_ids)
+    frame_same = (len(frame) == len(g[0])
+                  and np.array_equal(frame["position"].to_numpy(), g[2])
+                  and np.array_equal(frame["score"].to_numpy(), g[3])
+                  and np.array_equal(frame["motif_id"].to_numpy(), id_arr[g[1]])
+                  and np.array_equal(frame["sequence"].to_numpy(), seq_arr[g[0]]))
+    del g, seq_arr
+
+    # the plain version and F.conv1d (TF32 off) a piece of peaks at a time,
+    # width by width; windows near their threshold on either side are set
+    # aside from the hit lists
+    groups = {}
+    for m, w in enumerate(width.tolist()):
+        groups.setdefault(w, []).append(m)
+    packs = {w: [torch.from_numpy(a).to(cuda) for a in tpw.pack_motifs([matrices[m] for m in midx])]
+             for w, midx in groups.items()}
+    near, want, score_err, inf_same = [], [], 0.0, True
+    for s0 in range(0, N, MOTIF_CHUNK):
+        codes = codes_all[s0:s0 + MOTIF_CHUNK].contiguous()
+        h = tpw.pwm_scan_hits_plain(codes, lo, off, width, thr)
+        want.append((h[0] + s0, *h[1:]))
+        for w, midx in groups.items():
+            S = tpw.pwm_scores(codes, *packs[w])
+            torch.cuda.synchronize()
+            R = tpw.pwm_scores_plain(codes, *packs[w])
+            fin = torch.isfinite(R)
+            inf_same &= bool(torch.equal(fin, torch.isfinite(S)))
+            inf_same &= bool((torch.where(fin, -np.inf, S) == -np.inf).all())
+            score_err = max(score_err, torch.where(fin, S - R, 0.0).abs().max().item())
+            t_w = thr[midx]
+            close = ((S - t_w).abs() < MOTIF_NEAR) | ((R - t_w).abs() < MOTIF_NEAR)
+            si, pi, mi = close.nonzero(as_tuple=True)
+            near.append(((si + s0) * M + torch.as_tensor(midx, device=cuda)[mi]) * L + pi)
+            del S, R, fin, close
+    near = torch.cat(near)
+    want = [torch.cat(c) for c in zip(*want)]
+    del packs, codes
+
+    def kept(h):
+        key = (h[0].long() * M + h[1].long()) * L + h[2].long()
+        keep = ~torch.isin(key, near)
+        return [a[keep] for a in h]
+
+    gk, wk = kept(got), kept(want)
+    same = len(gk[0]) == len(wk[0]) and all(bool(torch.equal(a, b)) for a, b in zip(gk[:3], wk[:3]))
+    hit_err = (gk[3] - wk[3]).abs().max().item() if same and len(gk[3]) else 0.0
+    err = max(score_err, hit_err)
+    full_hits = len(got[0])
+    print(f"[kernel] pwm_scan {N} peaks x {M} motifs (plain in pieces of {MOTIF_CHUNK}): the "
+          f"path's frame this call's hits row for row: {frame_same}; hits {full_hits} (plain "
+          f"{len(want[0])}), {len(near)} windows within {MOTIF_NEAR} of a threshold set aside "
+          f"({full_hits - len(gk[0])} of the kernel's hits, {len(want[0]) - len(wk[0])} of "
+          f"plain's); the rest the same in the same order: {same}, max |dscore| "
+          f"{hit_err:.3e}; scores mode against F.conv1d max abs err {score_err:.3e} (1e-4), "
+          f"-inf in the same places: {inf_same}", flush=True)
+    check(frame_same, "[kernel] pwm_scan: the path's frame is T36's full-size hits row for row")
+    check(same and hit_err <= 1e-4, "[kernel] pwm_scan hits equal plain's, scores within 1e-4")
+    check(score_err <= 1e-4 and inf_same,
+          "[kernel] pwm_scan scores within 1e-4 of F.conv1d, -inf in the same places")
+    del got, want, gk, wk, near
+
+    def bnd(c, n_hits):
+        # codes, log-odds and thresholds read once, the hits (16 bytes) written
+        return bound(nbytes(c, lo, thr) + 16.0 * n_hits, motif_work(c, width), F32_OPS_PER_S)
+
+    ms_full = median_ms(lambda: tpw.pwm_scan_hits(codes_all, lo, off, width, thr))
+    b_full = bnd(codes_all, full_hits)
+    print(f"[kernel] pwm_scan {tuple(codes_all.shape)} x {M} motifs (count + write): "
+          f"ms={ms_full:.4f} bound_ms={b_full['bound_ms']:.4f} ({b_full['bound_by']}, "
+          f"{motif_work(codes_all, width):.4e} adds and comparisons), {full_hits} hits",
+          flush=True)
+    ct = codes_all[:MOTIF_TIMED].contiguous()
+    n_hits = len(tpw.pwm_scan_hits(ct, lo, off, width, thr)[0])
+    onehot = torch.zeros((*ct.shape, 4), device=cuda)
+    onehot.scatter_(2, ct.clamp(max=3).long().unsqueeze(2), (ct < 4).float().unsqueeze(2))
+    onehot = onehot.permute(0, 2, 1).contiguous()
+    weights = [lo[off[midx].long().unsqueeze(1) + torch.arange(w, device=cuda)]
+               .permute(0, 2, 1).contiguous() for w, midx in groups.items()]
+
+    def conv_scores():
+        # the scores alone (14.6 GB over the 18 widths), each dropped at once
+        with tpw._no_tf32():
+            for W in weights:
+                torch.nn.functional.conv1d(onehot, W)
+
+    results = {}
+    kernel_report(results, "pwm_scan", f"{tuple(ct.shape)} x {M} motifs (count + write, "
+                  f"{n_hits} hits; library: F.conv1d's scores, TF32 off)", err, "scores 1e-4",
+                  True, lambda: tpw.pwm_scan_hits(ct, lo, off, width, thr),
+                  lambda: tpw.pwm_scan_hits_plain(ct, lo, off, width, thr),
+                  bnd(ct, n_hits), conv_scores)
+    results["pwm_scan"].update(ms_full=ms_full, bound_ms_full=b_full["bound_ms"])
+    del codes_all, ct, onehot, weights
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -3887,6 +4191,7 @@ def main() -> int:
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch import prot as tpt
     from muon_tpu_torch import tl as ttl
+    from muon_tpu_torch.atac import motifs as tmf
     from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels as kernels
     from muon_tpu_torch._core import tools_graph as tgr
@@ -3901,6 +4206,7 @@ def main() -> int:
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import mofa as tmo
     from muon_tpu_torch.ops import nmf as tnmf
+    from muon_tpu_torch.ops import pwm as tpw
     from muon_tpu_torch.ops import snf as tsn
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.ops import umap as tu
@@ -3981,6 +4287,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     del X, X_rna, X_atac_e2e, P, atac_h, rna_h, prot_h, wnn_mods, wnn_md, boosts
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        motif_launches, seqs, matrices, thresholds, motif_ids, frame = phase_motifs(
+            tac, tmf, tpw, kernels, profiling, cuda, tmpdir)
+    results.update(phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda))
+    del seqs, matrices, thresholds, motif_ids, frame
 
     t0 = time.perf_counter()
     Z_planted, mofa_views = mofa_bench_views(SEED)
@@ -4040,6 +4351,7 @@ def main() -> int:
                             for k in knn_wide_launches},
                "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
                "ica": ica_launches, "scopen": scopen_launches, "dense": dense_launches,
+               "motifs": motif_launches,
                "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())

@@ -6,8 +6,10 @@ the sparse products, the kNN, the fuzzy connectivities, the WNN fusion, the
 dense CLR, TF-IDF and L2 norm, the UMAP epochs, the per-factor passes and
 bound refresh of MOFA+, MEFISTO's GP kernel matrices, DSB's per-cell
 background fit, the marker tests' rank sums and logreg step, SNF's
-affinity, normalisation and dominant-set passes, FastICA's fixed-point step
-and NMF's multiplicative updates.
+affinity, normalisation and dominant-set passes, FastICA's fixed-point step,
+NMF's multiplicative updates and the motif scan (every window of every
+peak compared with each JASPAR motif's threshold on the card, only the hits
+moved).
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
@@ -21,8 +23,11 @@ stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``), marker
 ranking (``tl.rank_genes_groups``: t-test, t-test_overestim_var, wilcoxon,
 logreg; ``atac.tl.rank_peaks_groups``), similarity network fusion
 (``tl.snf``), ICA (``tl.ica``), scOpen's imputation (``atac.pp.scopen``), the
-L2 norm (``pp.l2norm``) and the dense TF-IDF and L2 norm
-(``ops.dense.tfidf_dense``, ``l2norm_dense``); see ROADMAP.md for the rest.
+L2 norm (``pp.l2norm``), the dense TF-IDF and L2 norm
+(``ops.dense.tfidf_dense``, ``l2norm_dense``), the peak annotation
+(``atac.tl.add_peak_annotation``, ``add_peak_annotation_gene_names``) and
+the motif scan (``atac.tl.get_sequences`` → ``atac.tl.scan_sequences``); see
+ROADMAP.md for the rest.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``: the default (``device=None``) is the current CUDA device,

@@ -327,7 +327,7 @@ def umap(
 
     if mesh is not None:
         raise NotImplementedError(
-            "UMAP over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
+            "UMAP over a device mesh is not ported yet (the multi-device work, K20)"
         )
     data = mdata.copy() if copy else mdata
     nkey = neighbors_key or "neighbors"

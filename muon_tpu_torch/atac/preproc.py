@@ -62,7 +62,7 @@ def tfidf(
     adata = _get_atac(data)
     if mesh is not None:
         raise NotImplementedError(
-            "tfidf over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
+            "tfidf over a device mesh is not ported yet (the multi-device work, K20)"
         )
     if log_tfidf and (log_tf or log_idf):
         raise AttributeError(
@@ -86,7 +86,7 @@ def tfidf(
 
     if getattr(counts, "_sparse", False) and hasattr(counts, "_h5"):
         raise NotImplementedError(
-            "tfidf of a backed matrix is not ported yet (ROADMAP queue 1 item 8)"
+            "tfidf of a backed matrix is not ported yet (the out-of-core ingest, K19)"
         )
     if issparse(counts):
         X = counts.tocsr()

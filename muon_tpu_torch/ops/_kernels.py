@@ -90,6 +90,8 @@ _SIGNATURES = {
     "mt_nmf_update": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P),
     "mt_tfidf_dense": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     "mt_l2norm_dense": (_P, _I, _I, _P, _P),
+    "mt_pwm_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                    _P, _P, _I, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -135,6 +137,7 @@ KERNELS = {
     "nmf_update": "mt_nmf_update",
     "tfidf_dense": "mt_tfidf_dense",
     "l2norm_dense": "mt_l2norm_dense",
+    "pwm_scan": "mt_pwm_scan",  # each mode's launch (count, write, scores) counts one
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -119,7 +119,7 @@ def single_neighbors(
     tagged with."""
     if mesh is not None:
         raise NotImplementedError(
-            "neighbors over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
+            "neighbors over a device mesh is not ported yet (the multi-device work, K20)"
         )
     rep = choose_representation(adata, use_rep=use_rep, n_pcs=n_pcs, device=device)
     idx_t, dists_t = knn(rep, n_neighbors - 1, metric=metric,
@@ -542,7 +542,7 @@ def wnn_neighbors(
     used. ``mesh`` (multi-device) is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
-            "WNN over a device mesh is not ported yet (ROADMAP queue 1 item 9)"
+            "WNN over a device mesh is not ported yet (the multi-device work, K20)"
         )
     device = resolve_device(device)
     mdata = mdata.copy() if copy else mdata

@@ -193,16 +193,16 @@ def test_tfidf_argument_errors(pkg, adata_dense):
 
 
 def test_unported_branches_raise(adata_sparse):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
         tac.pp.tfidf(adata_sparse, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
         tac.tl.lsi(adata_sparse, mesh=object())
 
     class Backed:  # the shape of muon_tpu's BackedMatrix
         _sparse, _h5, shape = True, None, (3, 2)
 
     holder = type("Holder", (), {"X": Backed(), "layers": {}})()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="the out-of-core ingest, K19"):
         tac.pp.tfidf(holder)
 
 

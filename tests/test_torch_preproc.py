@@ -210,9 +210,9 @@ def test_unported_branches_raise():
         mt.pp.neighbors(mdata, device=CPU)
     with pytest.raises(TypeError):
         mt.pp.pca(mdata)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
         mt.pp.neighbors(Holder(X), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
         mt.pp.neighbors(mdata, mesh=object(), device=CPU)
 
 
