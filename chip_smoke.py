@@ -71,6 +71,15 @@ ATAC counts, 100,000 cells × 25,000 peaks as CSR on the card, and
 ``ops.dense.tfidf_dense``/``l2norm_dense`` on the same counts dense and on
 the RNA's ``X_pca``.
 
+and the fragment QC path at 100,000 cells: a tabix-indexed fragments file of
+about 2.25·10⁷ records (10x barcodes, 2,200 genes on three chromosomes, a TSS
+profile planted in nine cells of ten, a nucleosome ladder of lengths, 5% of
+the records from barcodes of no cell) written from the seed by the port's
+``write_fragments``, in a port ``MuData`` of ``rna`` (the genes' intervals)
+and ``atac``, through ``atac.tl.locate_fragments`` → ``nucleosome_signal`` →
+``tss_enrichment(n_tss=2000)`` → ``pp.filter_obs`` on the TSS scores and
+``update()`` → ``count_fragments_features``.
+
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
 number; at the end any recorded failure makes the exit code 1 and no result
@@ -217,7 +226,9 @@ is printed. An exception stops the run at once, with a code other than 0:
     iterations) counted alone: T29 and T31 per modality, T30 per modality
     and iteration and once more; the split of the kernels against the
     products, peak memory; the fused graph against the same call through
-    the plain versions, its planted-label share (≥ 0.87; the JAX package's
+    the plain versions, which take the kernels' dominant set in the rows
+    where theirs differs, each differing entry within 1e-5 of its row's
+    threshold (exp_snf_ties.py), its planted-label share (≥ 0.87; the JAX package's
     tl.snf reads the same on these graphs: exp_snf_witness.py), Leiden on
     it (ARI ≥ 0.85); T29-T31 and one diffusion iteration against their
     plain versions;
@@ -263,6 +274,20 @@ is printed. An exception stops the run at once, with a code other than 0:
     counted); its scores mode against ``F.conv1d`` (TF32 off) width by width
     within 1e-4, -inf in the same places; its time at full size, and on
     10,000 peaks beside its plain version and ``F.conv1d``'s scores alone.
+39. ``[fragments]`` (after phase 38): the fragment QC path above, counted
+    alone (T37 once, in ``tss_enrichment``): each call's wall, the stages
+    (``fragments/write(host)`` apart, as set-up), peak memory; T37's
+    matrix equal to its plain version's at the full 100,000 × 2001, element
+    for element; ``obs["tss_score"]`` and the returned matrix equal bit for
+    bit to the reference's numpy score of that plain matrix; a numpy brute
+    force (coverage added fragment by fragment) over 500 sampled cells and
+    all 2,000 sampled TSS equal to both; the good cells' median score within
+    [0.8, 1.25] of the planted enrichment (the score of the expected pileup);
+    ``nucleosome_signal`` equal to a numpy bincount over the records written;
+    ``count_fragments_features`` equal to a brute-force count on 50 genes;
+    the ``atac`` modality and the MuData's masks after ``filter_obs`` and
+    ``update()`` equal to the mask; then ``[kernel] interval_pileup``: T37
+    at the path's call beside its plain version, with its bound.
 
 The last three lines are a JSON object of the kernels (``launches`` adds
 up the main paths' counts, each read from its own run with the counters
@@ -277,7 +302,9 @@ Without a CUDA device it prints no result and exits 1.
 
 from __future__ import annotations
 
+import ctypes.util
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -310,6 +337,7 @@ DE_SRC = "muon_tpu_torch/csrc/de_kernels.cu"
 SNF_SRC = "muon_tpu_torch/csrc/snf_kernels.cu"
 DECOMP_SRC = "muon_tpu_torch/csrc/decomp_kernels.cu"
 MOTIF_SRC = "muon_tpu_torch/csrc/motif_kernels.cu"
+PILEUP_SRC = "muon_tpu_torch/csrc/pileup_kernels.cu"
 # MOFA: bench.py's mode `mofa` (10,000 cells, views of 2000 and 3000 features,
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
@@ -393,6 +421,7 @@ KERNEL_INFO = {
     "tfidf_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:19"),         # _tfidf_dense_fn
     "l2norm_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:48"),        # _l2norm_fn
     "pwm_scan": (MOTIF_SRC, "muon_tpu/ops/pwm.py:114"),             # _conv_fn + find_hits
+    "interval_pileup": (PILEUP_SRC, "muon_tpu/ops/pileup.py:29"),   # _pileup_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -449,6 +478,9 @@ DE_PATHS = {
 SNF_CELLS, SNF_K, SNF_ITERS, SNF_MODS = 10_000, 20, 20, 3
 # the fused graph's planted-label share reads 0.884 at SNF_CELLS
 SNF_SHARE = 0.87
+# the kernels' and the plain versions' dominant sets may differ only this close
+# (relative) to a row's threshold: T29's and T30's tolerance
+SNF_NEAR = 1e-5
 SNF_PATH = {"snf_affinity": SNF_MODS, "snf_dominate_set": SNF_MODS,
             "snf_normalize": SNF_MODS * (SNF_ITERS + 1) + 1}
 # [ica]: fastica's 200 sweeps, run in full, T32 once each; 50 planted sources
@@ -484,6 +516,28 @@ MOTIF_CHUNK = 10_000  # peaks a piece when all of them are held to plain
 MOTIF_TIMED = 10_000  # peaks timed against plain and F.conv1d
 MOTIF_NEAR = 1e-3  # windows this close to their threshold are set aside and counted
 MOTIF_PATH = {"pwm_scan": 2}
+# [fragments]: 100,000 cells, 2,200 genes on three chromosomes (gene bodies
+# of 5-30 kb, gaps of 3-20 kb: no TSS window reaches another gene), per cell
+# Poisson(200) fragments around TSS (in good cells FRAG_CENTRED of them
+# inside the centre, the rest over the whole window; in FRAG_BAD of the
+# cells none in the centre) and Poisson(25) over gene bodies past their TSS
+# window (cut from 100: the host engine reads about a microsecond a record on
+# the card's host, and 3e7 records grew the smoke by about 160 s; the TSS
+# windows are not cut); FRAG_UNKNOWN of the records carry a barcode of no
+# cell. The path: nucleosome_signal, tss_enrichment of 2,000 sampled TSS (T37
+# once), filter_obs at tss_score >= 2, count_fragments_features
+FRAG_GENES, FRAG_TSS, FRAG_UP, FRAG_DOWN = 2_200, 2_000, 1_000, 1_000
+FRAG_CHROMS = ("chr1", "chr2", "chr3")
+FRAG_TSS_PER_CELL, FRAG_BODY_PER_CELL = 200, 25
+FRAG_CENTRED, FRAG_CENTRE_HALF, FRAG_BAD, FRAG_UNKNOWN = 0.7, 500, 0.1, 0.05
+# the nucleosome ladder: [lo, hi) lengths and weights (free, mono-, di-)
+FRAG_LADDER = ((40, 147, 0.5), (147, 294, 0.35), (294, 500, 0.15))
+FRAG_MIN_SCORE = 2.0
+FRAG_BRUTE_CELLS, FRAG_BRUTE_GENES = 500, 50
+# the good cells' median score over the planted enrichment: a good cell has
+# about 10 fragments in its flanks, so its score scatters by about a third
+FRAG_BAND = (0.8, 1.25)
+FRAG_PATH = {"interval_pileup": 1}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -699,8 +753,9 @@ def phase_device(kernels) -> str:
     print(f"[device] {torch.cuda.get_device_name(0)} | {smi} | "
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda} nvcc='{nvcc}' | "
-          + " ".join(f"{m}={importable(m)}" for m in ("triton", "pandas", "h5py")),
-          flush=True)
+          + " ".join(f"{m}={importable(m)}" for m in ("triton", "pandas", "h5py"))
+          + f" | zlib.h={os.path.exists('/usr/include/zlib.h')} "
+          f"libz={ctypes.util.find_library('z')}", flush=True)
     return smi
 
 
@@ -712,9 +767,13 @@ def phase_build(kernels, native) -> None:
     regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines() if "registers" in ln]
     t1 = time.perf_counter()
     native.load_leiden_lib()
+    t2 = time.perf_counter()
+    native.load_fragments_lib()
     print(f"[build] {t1 - t0:.1f}s {so.name} | " + "; ".join(regs), flush=True)
-    print(f"[build] Leiden engine {time.perf_counter() - t1:.1f}s "
+    print(f"[build] Leiden engine {t2 - t1:.1f}s "
           f"{native.leiden_library_path().name}", flush=True)
+    print(f"[build] fragments engine {time.perf_counter() - t2:.1f}s "
+          f"{native.fragments_library_path().name}", flush=True)
 
 
 def phase_kernels(dsp, dX, cuda) -> dict:
@@ -3512,13 +3571,53 @@ def phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels, profiling, X_rna, X_at
     # 54% planted), below the reference test's 0.9 on its own small fixture;
     # the JAX package's tl.snf reads the same on the same graphs
     # (exp_snf_witness.py). So the gates are the plain path's graph and share,
-    # and a share of at least 0.87
+    # and a share of at least 0.87.
+    # T31's choice is discontinuous: where a row's k-th and (k+1)-th entries
+    # lie within rounding of each other, the kernels (within 2.4e-6 of their
+    # plain versions) and the plain versions may keep different ones, and one
+    # such decision turned moves the fused edges around it by 1e-3 and more
+    # (exp_snf_ties.py). So the plain path takes the kernel path's dominant
+    # set in the rows where its own differs, and every differing entry must
+    # lie within SNF_NEAR of the plain row's threshold (a gate, counted).
+    # T29-T31 repeat bit for bit, so the kernel path's sets are recomputed
+    # here, outside its count
+    kept_k = []
+    for h in mods.values():
+        dist, known = tgr._dense_distances(h.obsp["distances"], cuda)
+        kept_k.append(tsn.snf_dominate_set(tsn.snf_normalize(
+            tsn.affinity_matrix(dist, known, SNF_K, 0.5, float(np.finfo(np.float64).eps))),
+            SNF_K) != 0)
+        del dist, known
+    turned, far = [], []
+
+    def dominate_aligned(x, k):
+        m = len(turned)
+        thr = torch.topk(x, k, dim=1).values[:, -1:]
+        mine = (x >= thr) & (x != 0)  # as kept_k, the entries kept and not 0
+        diff = mine != kept_k[m]
+        rows = diff.any(dim=1, keepdim=True)
+        turned.append(int(rows.sum()))
+        far.append(float(((x - thr).abs() / thr)[diff].max()) if turned[-1] else 0.0)
+        kept = torch.where(torch.where(rows, kept_k[m], mine), x, 0.0)
+        return kept / kept.sum(dim=1, keepdim=True)
+
     mdp = MuHolder(mods, n)
     t0 = time.perf_counter()
-    with plain_kernels(tsn, ("affinity_matrix", "snf_normalize", "snf_dominate_set")):
-        ttl.snf(mdp, n_neighbors=SNF_K, n_iterations=SNF_ITERS, device=cuda)
+    with plain_kernels(tsn, ("affinity_matrix", "snf_normalize")):
+        saved, tsn.snf_dominate_set = tsn.snf_dominate_set, dominate_aligned
+        try:
+            ttl.snf(mdp, n_neighbors=SNF_K, n_iterations=SNF_ITERS, device=cuda)
+        finally:
+            tsn.snf_dominate_set = saved
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    del kept_k
+    print(f"[snf] dominant-set rows where the plain versions chose otherwise, taken from the "
+          f"kernels: {dict(zip(mods, turned))}; the farthest such entry from its row's "
+          f"threshold {max(far, default=0.0):.2e} (<= {SNF_NEAR})", flush=True)
+    check(len(turned) == SNF_MODS and max(far, default=0.0) <= SNF_NEAR,
+          f"[snf] the kernels' and the plain dominant sets differ only within {SNF_NEAR} "
+          "of a row's threshold")
     connp = mdp.obsp["connectivities"].tocsr()
     share_p = label_share(connp, lab)
     both = conn.multiply(connp.astype(bool)).tocsr()
@@ -4181,17 +4280,374 @@ def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) 
     return results
 
 
+def ladder_lengths(rng, n: int) -> np.ndarray:
+    """Fragment lengths from the nucleosome ladder FRAG_LADDER."""
+    bands = rng.choice(len(FRAG_LADDER), n, p=[w for _, _, w in FRAG_LADDER])
+    lo = np.array([b[0] for b in FRAG_LADDER])[bands]
+    hi = np.array([b[1] for b in FRAG_LADDER])[bands]
+    return rng.integers(lo, hi)
+
+
+def planted_tss_enrichment() -> float:
+    """The ENCODE score of a good cell's expected pileup: its TSS fragments'
+    starts uniform over the centre (FRAG_CENTRED of them) or over the window,
+    their lengths over the ladder; the coverage of each relative position
+    counted exactly, as the path piles it up (columns -up..down)."""
+    x = np.arange(-FRAG_UP, FRAG_DOWN + 1)
+    cov = np.zeros(len(x))
+    for lo_len, hi_len, w in FRAG_LADDER:
+        for L in range(lo_len, hi_len):
+            p = w / (hi_len - lo_len)
+            for share, a, b in ((FRAG_CENTRED, -FRAG_CENTRE_HALF, FRAG_CENTRE_HALF - L),
+                                (1 - FRAG_CENTRED, -FRAG_UP - L + 1, FRAG_DOWN - 1)):
+                # starts s in [a, b] covering x: x - L < s <= x
+                n_cover = np.clip(np.minimum(b, x) - np.maximum(a, x - L + 1) + 1, 0, None)
+                cov += p * share * n_cover / (b - a + 1)
+    centre = (len(x) - 1001) // 2
+    flanks = np.r_[cov[:100], cov[-100:]]
+    return float(cov[centre:-centre].mean() / flanks.mean())
+
+
+def make_fragment_data(seed: int, n_cells: int):
+    """The [fragments] data: barcodes, genes, and the records sorted by
+    (chromosome, start) as columns (cells -1 for an unknown barcode)."""
+    rng = np.random.default_rng(seed)
+    # 10x barcodes: 16 bases and "-1", unique, the first n_cells of them the
+    # cells', the rest unknown
+    n_unknown = n_cells // 20
+    draws = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n_cells * 6 // 5, 16))]
+    raw = np.ascontiguousarray(draws).view("S16").ravel()
+    _, first = np.unique(raw, return_index=True)
+    raw = raw[np.sort(first)][:n_cells + n_unknown]
+    barcodes = np.array([b.decode() + "-1" for b in raw], dtype=object)
+
+    # genes: bodies of 5-30 kb after gaps of 3-20 kb, in order on each chromosome
+    n_chr = len(FRAG_CHROMS)
+    g_chr = np.repeat(np.arange(n_chr), -(-FRAG_GENES // n_chr))[:FRAG_GENES]
+    gaps = rng.integers(3_000, 20_000, FRAG_GENES)
+    lens = rng.integers(5_000, 30_000, FRAG_GENES)
+    g_start = np.empty(FRAG_GENES, np.int64)
+    for c in range(n_chr):
+        m = np.flatnonzero(g_chr == c)
+        ends = np.cumsum(gaps[m] + lens[m])
+        g_start[m] = ends - lens[m]
+    g_end = g_start + lens
+    strand = rng.choice(np.array(["+", "-"]), FRAG_GENES)
+
+    # fragments around the TSS (each gene's Start, the coordinate the path
+    # reads as its TSS whatever the strand), then over gene bodies
+    bad = rng.random(n_cells) < FRAG_BAD
+    n_tss = rng.poisson(FRAG_TSS_PER_CELL, n_cells)
+    cell_t = np.repeat(np.arange(n_cells), n_tss)
+    gene_t = rng.integers(0, FRAG_GENES, len(cell_t))
+    len_t = ladder_lengths(rng, len(cell_t))
+    centred = ~bad[cell_t] & (rng.random(len(cell_t)) < FRAG_CENTRED)
+    off = np.where(centred,
+                   rng.integers(-FRAG_CENTRE_HALF, FRAG_CENTRE_HALF - len_t + 1),
+                   rng.integers(-FRAG_UP - len_t + 1, FRAG_DOWN))
+    n_body = rng.poisson(FRAG_BODY_PER_CELL, n_cells)
+    cell_b = np.repeat(np.arange(n_cells), n_body)
+    gene_b = rng.integers(0, FRAG_GENES, len(cell_b))
+    len_b = ladder_lengths(rng, len(cell_b))
+    start_b = rng.integers(g_start[gene_b] + FRAG_DOWN, g_end[gene_b] - len_b + 1)
+
+    cells = np.concatenate([cell_t, cell_b])
+    gene = np.concatenate([gene_t, gene_b])
+    starts = np.concatenate([g_start[gene_t] + off, start_b])
+    ends = starts + np.concatenate([len_t, len_b])
+    chrom = g_chr[gene]
+    scores = rng.integers(1, 5, len(cells))
+    code = cells.copy()  # the barcode of each record
+    unknown = rng.random(len(cells)) < FRAG_UNKNOWN
+    code[unknown] = n_cells + rng.integers(0, n_unknown, int(unknown.sum()))
+    cells[unknown] = -1
+    order = np.argsort((chrom.astype(np.int64) << 40) | starts, kind="stable")
+    rec = {"chrom": chrom[order], "start": starts[order], "end": ends[order],
+           "cell": cells[order], "code": code[order], "score": scores[order]}
+    genes = {"chrom": g_chr, "start": g_start, "end": g_end, "strand": strand}
+    return barcodes, genes, rec, bad
+
+
+def fragments_mudata(mt, barcodes, genes, n_cells):
+    """A port MuData: ``rna`` (the genes, ``var["interval"]``) and ``atac``
+    (a peak at each TSS), no counts (the QC path reads only the file)."""
+    import pandas as pd
+
+    names = [f"G{i}" for i in range(FRAG_GENES)]
+    chrom = np.array(FRAG_CHROMS)[genes["chrom"]]
+    obs = pd.DataFrame(index=pd.Index(barcodes[:n_cells].astype(str)))
+    var_rna = pd.DataFrame({
+        "gene_ids": [f"ENSG{i:011d}" for i in range(FRAG_GENES)],
+        "interval": [f"{c}:{s}-{e}" for c, s, e in zip(chrom, genes["start"], genes["end"])],
+        "strand": genes["strand"]}, index=names)
+    var_atac = pd.DataFrame(index=[f"{c}:{s - FRAG_UP}-{s + FRAG_DOWN}"
+                                   for c, s in zip(chrom, genes["start"])])
+    empty = sp.csr_matrix((n_cells, FRAG_GENES), dtype=np.float32)
+    return mt.MuData({"rna": mt.AnnData(X=empty, obs=obs, var=var_rna),
+                      "atac": mt.AnnData(X=empty.copy(), obs=obs.copy(), var=var_atac)})
+
+
+def write_fragment_file(tfr, path, barcodes, rec) -> None:
+    import pandas as pd
+
+    frame = pd.DataFrame({
+        "chrom": pd.Categorical.from_codes(rec["chrom"], list(FRAG_CHROMS)),
+        "start": rec["start"], "end": rec["end"],
+        "barcode": pd.Categorical.from_codes(rec["code"], barcodes.astype(str)),
+        "score": rec["score"]})
+    tfr.write_fragments(path, frame)
+
+
+def reference_tss_score(pile: np.ndarray):
+    """The reference's _calculate_tss_score and division, numpy float64
+    (muon_tpu/atac/tools.py:706-728, :650-653)."""
+    X = np.asarray(pile, dtype=np.float64)
+    flank_means = np.hstack((X[:, :100], X[:, -100:])).mean(axis=1)
+    flank_means[flank_means == 0] = flank_means.mean()
+    centre = (X.shape[1] - 1001) // 2
+    center_means = X[:, centre:-centre].mean(axis=1)
+    return X / flank_means[:, None], center_means / flank_means
+
+
+def by_chrom(rec):
+    """Per chromosome: the records' (starts, rows of rec), sorted by start."""
+    out = {}
+    for c in range(len(FRAG_CHROMS)):
+        rows = np.flatnonzero(rec["chrom"] == c)
+        out[c] = (rec["start"][rows], rows)
+    return out
+
+
+def overlapping(index, rec, c, beg, end, max_len):
+    """Rows of the records on chromosome c with start < end and end > beg."""
+    starts, rows = index[c]
+    lo, hi = np.searchsorted(starts, [beg - max_len, end])
+    r = rows[lo:hi]
+    return r[rec["end"][r] > beg]
+
+
+def brute_pileup(rec, index, cell_rows, tss, n_pos, max_len):
+    """Coverage added fragment by fragment for the cells ``cell_rows`` over
+    the TSS ``tss`` ((chrom index, position) pairs): each fragment fetched
+    from [tss - up, tss + down) adds its score over its clipped span."""
+    out = np.zeros((len(cell_rows), n_pos), np.int64)
+    slot = np.full(int(rec["cell"].max()) + 1, -1)
+    slot[cell_rows] = np.arange(len(cell_rows))
+    for c, t in tss:
+        beg = t - FRAG_UP
+        r = overlapping(index, rec, c, beg, t + FRAG_DOWN, max_len)
+        r = r[rec["cell"][r] >= 0]
+        r = r[slot[rec["cell"][r]] >= 0]
+        for i in r.tolist():
+            lo = max(int(rec["start"][i]) - beg, 0)
+            hi = min(int(rec["end"][i]) - beg, n_pos)
+            out[slot[rec["cell"][i]], lo:hi] += int(rec["score"][i])
+    return out
+
+
+class PileupRecorder:
+    """Stands in for ops.pileup.interval_pileup during the path: calls it,
+    and keeps its arguments and result."""
+
+    def __init__(self, tpl):
+        self.tpl, self.wrapped, self.calls = tpl, tpl.interval_pileup, []
+
+    def __call__(self, *args, **kwargs):
+        out = self.wrapped(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+
+def phase_fragments(mt, tac, tpl, tfr, kernels, profiling, cuda, tmpdir):
+    """``[fragments]``: the fragment QC path on 100,000 cells, counted alone,
+    with its gates; returns the launches and T37's recorded call."""
+    from muon_tpu_torch.rna.utils import get_gene_annotation_from_rna
+
+    t0 = time.perf_counter()
+    barcodes, genes, rec, bad = make_fragment_data(SEED, N_CELLS)
+    n_rec = len(rec["start"])
+    max_len = int((rec["end"] - rec["start"]).max()) + 1
+    t1 = time.perf_counter()
+    path = f"{tmpdir}/atac_fragments.tsv.gz"
+    with profiling.collect() as tw, profiling.stage("fragments/write(host)"):
+        write_fragment_file(tfr, path, barcodes, rec)
+    md = fragments_mudata(mt, barcodes, genes, N_CELLS)
+    print(f"[data] fragments: {n_rec} records ({np.mean(rec['cell'] < 0):.4f} of them from "
+          f"{len(barcodes) - N_CELLS} barcodes of no cell), {N_CELLS} cells ({bad.sum()} without "
+          f"a TSS profile), {FRAG_GENES} genes on {len(FRAG_CHROMS)} chromosomes; made in "
+          f"{t1 - t0:.1f}s, written and indexed in {stage_seconds(tw)} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
+
+    rec_pileup = PileupRecorder(tpl)
+    tpl.interval_pileup = rec_pileup
+    walls = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        kernels.reset_launch_counts()
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            tac.tl.locate_fragments(md, path)
+            walls["locate_fragments"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tac.tl.nucleosome_signal(md)
+            walls["nucleosome_signal"] = time.perf_counter() - t0
+            nucleosome = md.mod["atac"].obs["nucleosome_signal"].to_numpy().copy()
+            t0 = time.perf_counter()
+            tss = tac.tl.tss_enrichment(md, n_tss=FRAG_TSS, random_state=0, device=cuda)
+            walls["tss_enrichment"] = time.perf_counter() - t0
+            scores = md.mod["atac"].obs["tss_score"].to_numpy().copy()
+            t0 = time.perf_counter()
+            mt.pp.filter_obs(md.mod["atac"], "tss_score", lambda x: x >= FRAG_MIN_SCORE)
+            md.update()
+            walls["filter_obs+update"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            counts = tac.tl.count_fragments_features(md)
+            walls["count_fragments_features"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        tpl.interval_pileup = rec_pileup.wrapped
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"[fragments] walls (s) {({k: round(v, 4) for k, v in walls.items()})}, path "
+          f"{sum(walls.values()):.3f}s; peak {peak:.3f} GiB above the held; stages "
+          f"{stage_seconds(t)}; launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    check_launches(launches, FRAG_PATH, "[fragments]")
+    check(len(rec_pileup.calls) == 1, f"[fragments] one pileup call, read {len(rec_pileup.calls)}")
+
+    # T37's matrix against its plain version, element for element, at full size
+    (cells, starts, ends, wts), kw, pile = rec_pileup.calls[0]
+    n_pos = FRAG_UP + FRAG_DOWN + 1
+    args = [tpl._as_int32(a, cuda) for a in (cells, starts, ends, wts)]
+    plain = tpl.interval_pileup_plain(*args, N_CELLS, n_pos)
+    same = bool(torch.equal(pile, plain))
+    err = int((pile.long() - plain.long()).abs().max().item())
+    print(f"[fragments] T37 pileup {tuple(pile.shape)} {pile.dtype} of {len(args[0])} fetched "
+          f"fragments against its plain version: equal {same} (max |diff| {err})", flush=True)
+    check(same and pile.shape == (N_CELLS, n_pos) and pile.dtype == torch.int32,
+          "[fragments] T37's matrix equals interval_pileup_plain's at full size")
+
+    # obs["tss_score"] and X against the reference's numpy score of the plain matrix
+    plain_np = plain.cpu().numpy()
+    X_ref, score_ref = reference_tss_score(plain_np)
+    x_same = tss.X.dtype == np.float64 and np.array_equal(tss.X, X_ref)
+    s_same = np.array_equal(scores, score_ref)
+    print(f"[fragments] X {tss.X.shape} {tss.X.dtype} and tss_score equal to the numpy score of "
+          f"the plain matrix bit for bit: {x_same}, {s_same}", flush=True)
+    check(x_same and s_same, "[fragments] tss_score and X equal the plain path's bit for bit")
+    del X_ref
+
+    # brute force over sampled cells and all sampled TSS
+    feats = get_gene_annotation_from_rna(md).sample(n=FRAG_TSS, random_state=0)
+    chrom_ix = {c: i for i, c in enumerate(FRAG_CHROMS)}
+    tss_list = [(chrom_ix[c], int(s)) for c, s in zip(feats["Chromosome"], feats["Start"])]
+    index = by_chrom(rec)
+    sample = np.sort(np.random.default_rng(SEED).choice(N_CELLS, FRAG_BRUTE_CELLS,
+                                                        replace=False))
+    t0 = time.perf_counter()
+    brute = brute_pileup(rec, index, sample, tss_list, n_pos, max_len)
+    rows = torch.from_numpy(sample).to(cuda)
+    b_kernel = np.array_equal(brute, pile[rows].long().cpu().numpy())
+    b_plain = np.array_equal(brute, plain_np[sample])
+    print(f"[fragments] brute force over {FRAG_BRUTE_CELLS} cells x {len(tss_list)} TSS "
+          f"({int((brute != 0).sum())} nonzero, {time.perf_counter() - t0:.1f}s): equal to T37's "
+          f"rows {b_kernel}, to plain's {b_plain}", flush=True)
+    check(b_kernel and b_plain, "[fragments] the brute-force pileup equals T37's and plain's rows")
+    del plain, plain_np, args
+
+    # the planted enrichment
+    planted = planted_tss_enrichment()
+    med_good, med_bad = float(np.median(scores[~bad])), float(np.median(scores[bad]))
+    ratio = med_good / planted
+    print(f"[fragments] median tss_score {med_good:.4f} (good cells), {med_bad:.4f} (no profile); "
+          f"planted enrichment {planted:.4f}; ratio {ratio:.4f} (band {FRAG_BAND})", flush=True)
+    check(FRAG_BAND[0] <= ratio <= FRAG_BAND[1],
+          f"[fragments] good cells' median score within {FRAG_BAND} of the planted {planted:.3f}")
+
+    # nucleosome_signal against a bincount over the records written
+    known = rec["cell"] >= 0
+    lengths = (rec["end"] - rec["start"])[known]
+    kc = rec["cell"][known]
+    mat = np.stack([np.bincount(kc[lengths < 147], minlength=N_CELLS),
+                    np.bincount(kc[(lengths >= 147) & (lengths < 294)], minlength=N_CELLS)], 1)
+    mat[mat[:, 0] == 0, :] += 1
+    nuc_same = np.array_equal(nucleosome, mat[:, 1] / mat[:, 0])
+    print(f"[fragments] nucleosome_signal equal to the bincount over {n_rec} records: {nuc_same} "
+          f"(median {np.median(nucleosome):.4f})", flush=True)
+    check(nuc_same, "[fragments] nucleosome_signal equals the bincount over the records written")
+
+    # filter_obs and update against the mask
+    mask = scores >= FRAG_MIN_SCORE
+    atac = md.mod["atac"]
+    f_ok = (atac.n_obs == int(mask.sum())
+            and np.array_equal(atac.obs_names.to_numpy(), barcodes[:N_CELLS][mask])
+            and md.n_obs == N_CELLS and np.array_equal(md.obsm["atac"], mask)
+            and np.array_equal(md.obsmap["atac"][mask], np.arange(1, mask.sum() + 1))
+            and not md.obsmap["atac"][~mask].any())
+    print(f"[fragments] filter_obs kept {int(mask.sum())} of {N_CELLS} cells ({int(mask[bad].sum())} "
+          f"of the {int(bad.sum())} without a profile); atac {atac.n_obs} cells, MuData {md.n_obs}, "
+          f"masks and maps as the mask: {f_ok}", flush=True)
+    check(f_ok, "[fragments] after filter_obs and update the atac cells and masks follow the mask")
+
+    # count_fragments_features against a brute-force count on sampled genes
+    new_row = np.full(N_CELLS, -1)
+    new_row[mask] = np.arange(int(mask.sum()))
+    picks = np.sort(np.random.default_rng(SEED + 1).choice(FRAG_GENES, FRAG_BRUTE_GENES,
+                                                           replace=False))
+    got = counts.X.tocsc()[:, picks].toarray()
+    want = np.zeros_like(got)
+    for j, g in enumerate(picks):
+        r = overlapping(index, rec, int(genes["chrom"][g]), int(genes["start"][g]) - 2000,
+                        int(genes["end"][g]), max_len)
+        r = r[rec["cell"][r] >= 0]
+        rr = new_row[rec["cell"][r]]
+        np.add.at(want[:, j], rr[rr >= 0], rec["score"][r][rr >= 0])
+    c_ok = (counts.shape == (int(mask.sum()), FRAG_GENES) and counts.X.dtype == np.int64
+            and np.array_equal(got, want))
+    print(f"[fragments] count_fragments_features {counts.shape} nnz {counts.X.nnz}: {FRAG_BRUTE_GENES} "
+          f"genes equal to the brute-force count ({int(want.sum())} reads): {c_ok}", flush=True)
+    check(c_ok, "[fragments] count_fragments_features equals a brute-force count on 50 genes")
+    del tss, counts, md, got, want
+    return launches, (cells, starts, ends, wts)
+
+
+def phase_pileup_kernel(tpl, inputs, cuda) -> dict:
+    """T37 against its plain version at the path's call: the same matrix,
+    both times, the bound (the fragments read once, the matrix written once)."""
+    n_pos = FRAG_UP + FRAG_DOWN + 1
+    args = [tpl._as_int32(a, cuda) for a in inputs]
+    nnz = len(args[0])
+    got = tpl.interval_pileup(*args, N_CELLS, n_pos, device=cuda)
+    want = tpl.interval_pileup_plain(*args, N_CELLS, n_pos)
+    err = int((got.long() - want.long()).abs().max().item())
+    del got, want
+    results = {}
+    # integer adds: two a fragment and one a matrix entry, at the float32 rate
+    bnd = bound(nbytes(*args) + 4.0 * N_CELLS * n_pos, 2.0 * nnz + N_CELLS * n_pos,
+                F32_OPS_PER_S)
+    kernel_report(results, "interval_pileup",
+                  f"{N_CELLS} x {n_pos} int32 from {nnz} fragments (library: none)", err, "exact",
+                  err == 0, lambda: tpl.interval_pileup(*args, N_CELLS, n_pos, device=cuda),
+                  lambda: tpl.interval_pileup_plain(*args, N_CELLS, n_pos), bnd)
+    del args
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 1
+    import muon_tpu_torch as mt
     from muon_tpu_torch import atac as tac
     from muon_tpu_torch import native
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch import prot as tpt
     from muon_tpu_torch import tl as ttl
     from muon_tpu_torch.atac import motifs as tmf
+    from muon_tpu_torch.atac import fragments as tfr
     from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels as kernels
     from muon_tpu_torch._core import tools_graph as tgr
@@ -4206,6 +4662,7 @@ def main() -> int:
     from muon_tpu_torch.ops import linalg as tla
     from muon_tpu_torch.ops import mofa as tmo
     from muon_tpu_torch.ops import nmf as tnmf
+    from muon_tpu_torch.ops import pileup as tpl
     from muon_tpu_torch.ops import pwm as tpw
     from muon_tpu_torch.ops import snf as tsn
     from muon_tpu_torch.ops import sparse as dsp
@@ -4292,6 +4749,11 @@ def main() -> int:
             tac, tmf, tpw, kernels, profiling, cuda, tmpdir)
     results.update(phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda))
     del seqs, matrices, thresholds, motif_ids, frame
+    with tempfile.TemporaryDirectory() as tmpdir:
+        frag_launches, pileup_inputs = phase_fragments(mt, tac, tpl, tfr, kernels, profiling,
+                                                       cuda, tmpdir)
+    results.update(phase_pileup_kernel(tpl, pileup_inputs, cuda))
+    del pileup_inputs
 
     t0 = time.perf_counter()
     Z_planted, mofa_views = mofa_bench_views(SEED)
@@ -4351,7 +4813,7 @@ def main() -> int:
                             for k in knn_wide_launches},
                "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
                "ica": ica_launches, "scopen": scopen_launches, "dense": dense_launches,
-               "motifs": motif_launches,
+               "motifs": motif_launches, "fragments": frag_launches,
                "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())

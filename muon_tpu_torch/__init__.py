@@ -7,9 +7,9 @@ dense CLR, TF-IDF and L2 norm, the UMAP epochs, the per-factor passes and
 bound refresh of MOFA+, MEFISTO's GP kernel matrices, DSB's per-cell
 background fit, the marker tests' rank sums and logreg step, SNF's
 affinity, normalisation and dominant-set passes, FastICA's fixed-point step,
-NMF's multiplicative updates and the motif scan (every window of every
+NMF's multiplicative updates, the motif scan (every window of every
 peak compared with each JASPAR motif's threshold on the card, only the hits
-moved).
+moved) and the TSS pileup of the fragment QC.
 The JAX package ``muon_tpu`` stays beside it as the reference the port is
 tested against. Ported so far: the TF-IDF → LSI path (``atac.pp.tfidf``,
 ``atac.tl.lsi``), per-modality PCA and neighbors (``pp.pca``,
@@ -26,23 +26,32 @@ logreg; ``atac.tl.rank_peaks_groups``), similarity network fusion
 L2 norm (``pp.l2norm``), the dense TF-IDF and L2 norm
 (``ops.dense.tfidf_dense``, ``l2norm_dense``), the peak annotation
 (``atac.tl.add_peak_annotation``, ``add_peak_annotation_gene_names``) and
-the motif scan (``atac.tl.get_sequences`` → ``atac.tl.scan_sequences``); see
+the motif scan (``atac.tl.get_sequences`` → ``atac.tl.scan_sequences``), the
+in-memory containers (``AnnData``, ``MuData``, with ``pp.filter_obs``,
+``filter_var``, ``intersect_obs``, ``sample_obs``) and the fragment QC path
+(``atac.tl.locate_fragments`` → ``nucleosome_signal`` → ``tss_enrichment``
+→ ``count_fragments_features``, over the port's own fragments engine); see
 ROADMAP.md for the rest.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``: the default (``device=None``) is the current CUDA device,
 and without one it raises rather than run on the CPU.
 
-The port needs no container classes of its own: its tools take any
+The port's containers, ``AnnData`` and ``MuData``, are the JAX package's in
+memory (host numpy/scipy arrays, pandas frames; the h5ad/h5mu I/O and
+backed mode come with K19). The tools also take any duck-typed
 AnnData-like object (``.X``, ``.obsm``, ``.varm``, ``.uns``, ``.obsp``,
 ``.layers``) or MuData-like object (``.mod``, ``.obsmap``, ``.n_obs``,
-``.obs``, ``.obsp``, ``.uns``).
+``.obs``, ``.obsp``, ``.uns``). pandas is imported only inside the
+functions that need it, so importing the port does not need it.
 """
 
 __version__ = "0.1.0"
 
-from . import atac, prot
+from . import atac, prot, rna
 from ._core import preproc as pp
 from ._core import tools as tl
+from ._core.anndata import AnnData, Raw
+from ._core.mudata import MuData
 
-__all__ = ["atac", "prot", "pp", "tl"]
+__all__ = ["AnnData", "MuData", "Raw", "atac", "prot", "rna", "pp", "tl"]

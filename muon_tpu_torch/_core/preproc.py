@@ -1,5 +1,7 @@
-"""Preprocessing (``mu.pp``): PCA, neighbors and the L2 norm (counterpart of
-muon_tpu/_core/preproc.py ``pca``, ``neighbors`` and ``l2norm``).
+"""Preprocessing (``mu.pp``): PCA, neighbors, the L2 norm and the in-place
+filters (counterpart of muon_tpu/_core/preproc.py ``pca``, ``neighbors``,
+``l2norm``, ``filter_obs``, ``filter_var``, ``intersect_obs`` and
+``sample_obs``).
 
 The tools take any AnnData-like object (``.X``, ``.obsm``, ``.varm``,
 ``.uns``, ``.obsp``, ``.layers``; ``.var`` is read only when present). A
@@ -8,10 +10,13 @@ refuses it; ``neighbors`` of one runs WNN (ops/wnn.wnn_neighbors).
 ``l2norm`` runs on the host, as the reference's does (scipy for a sparse X,
 numpy for a dense one); the device's row normalisation is
 ``ops.dense.l2norm_dense`` (T35), which neither package's ``l2norm`` calls.
+The filters are host bookkeeping on the port's containers (``AnnData``,
+``MuData``); a backed object is refused, as the containers refuse it.
 """
 
 from __future__ import annotations
 
+from functools import reduce
 from typing import Optional
 
 import numpy as np
@@ -19,8 +24,18 @@ import numpy as np
 from ..ops.device import DeviceLike
 from ..ops.linalg import pca as _pca_op
 from ..ops.wnn import _n_vars, single_neighbors, wnn_neighbors
+from .aligned import _is_frame
+from .anndata import not_ported
 
-__all__ = ["pca", "neighbors", "l2norm"]
+__all__ = [
+    "pca",
+    "neighbors",
+    "l2norm",
+    "intersect_obs",
+    "filter_obs",
+    "filter_var",
+    "sample_obs",
+]
 
 
 def _is_mudata(data) -> bool:
@@ -175,3 +190,182 @@ def l2norm(mdata, mod=None, rep=None, n_pcs=0, copy: bool = False):
     for m in mods:
         l2norm(mdata.mod[m], rep=reps.get(m), n_pcs=npcs.get(m), copy=False)
     return mdata if copy else None
+
+
+# ---------------------------------------------------------------------------
+# in-place filtering (muon_tpu/_core/preproc.py:39-236)
+# ---------------------------------------------------------------------------
+
+
+def _resolve_filter_mask(data, attr, key, func):
+    """Resolve (key, func) into a boolean keep-mask along `attr`."""
+    from scipy import sparse as sp
+
+    df = getattr(data, attr)
+    names = getattr(data, f"{attr}_names")
+    other = "obs" if attr == "var" else "var"
+    other_names = getattr(data, f"{other}_names")
+
+    if isinstance(key, str):
+        if key in df.columns:
+            if func is None:
+                if df[key].dtype == bool:
+                    func = lambda x: x  # noqa: E731
+                else:
+                    raise ValueError(
+                        f"Function has to be provided since {key} is not boolean"
+                    )
+            subset = func(df[key].to_numpy())
+        elif key in other_names:
+            j = np.flatnonzero(other_names == key)
+            X = data.X
+            col = X[:, j] if attr == "obs" else X[j, :]
+            if sp.issparse(col):
+                col = np.asarray(col.todense())
+            subset = func(np.asarray(col).reshape(-1))
+        else:
+            raise ValueError(
+                f"Column name from .{attr} or one of the {other}_names was "
+                f"expected but got {key}."
+            )
+    else:
+        if func is not None:
+            raise ValueError(
+                f"When providing {attr}_names directly, func has to be None."
+            )
+        key = np.asarray(key)
+        if key.ndim != 1:
+            raise ValueError(
+                f"filter key must be a column name, a sequence of names, or a "
+                f"1-D boolean mask; got {key!r}"
+            )
+        if key.dtype == bool:
+            subset = key
+        else:
+            subset = np.asarray(names.isin(key))
+    subset = np.asarray(subset)
+    if subset.dtype != bool:
+        raise ValueError("filter predicate must produce a boolean mask")
+    return subset
+
+
+def _filter_attr(data, attr, key, func=None):
+    if data.is_view:
+        raise ValueError(
+            "The provided object is a view. In-place filtering does not "
+            "operate on views."
+        )
+    if data.isbacked:
+        raise not_ported(f"filter_{attr} of a backed object")
+
+    mask = _resolve_filter_mask(data, attr, key, func)
+
+    if not _is_mudata(data):
+        if attr == "obs":
+            data._inplace_subset_obs(mask)
+        else:
+            data._inplace_subset_var(mask)
+        return
+
+    # ---- MuData branch ----------------------------------------------------
+    idx = np.flatnonzero(mask)
+    df = getattr(data, attr)
+    setattr(data, f"_{attr}", df.iloc[idx].copy())
+
+    attrm = getattr(data, f"{attr}m")
+    attrp = getattr(data, f"{attr}p")
+    new_m = {k: (v.iloc[idx] if _is_frame(v) else np.asarray(v)[idx])
+             for k, v in attrm.items() if k not in data.mod}
+    new_p = {k: v[idx][:, idx] for k, v in attrp.items()}
+
+    attrmap = getattr(data, f"{attr}map")
+    new_maps = {}
+    new_masks = {}
+    for mname, ad in data.mod.items():
+        sub_map = attrmap[mname][idx].astype(np.int64)
+        present = sub_map > 0
+        local_keep = sub_map[present] - 1  # positions in mod, global order
+        keep_sorted = np.sort(local_keep)  # modality keeps its own order
+        if attr == "obs":
+            ad._inplace_subset_obs(keep_sorted)
+        else:
+            ad._inplace_subset_var(keep_sorted)
+        # re-rank: new 1-based local position for every kept global row
+        rank = np.empty(local_keep.size, dtype=np.int64)
+        rank[np.argsort(local_keep, kind="stable")] = np.arange(1, local_keep.size + 1)
+        out_map = np.zeros(sub_map.size, dtype=np.uint32)
+        out_map[present] = rank
+        new_maps[mname] = out_map
+        new_masks[mname] = present
+    attrmap.clear()
+    attrmap.update(new_maps)
+
+    # rebuild aligned dicts against the new axis length
+    am = getattr(data, f"_{attr}m_dict")
+    am._data.clear()
+    for k, v in new_masks.items():
+        am[k] = v
+    for k, v in new_m.items():
+        try:
+            am[k] = v
+        except ValueError:
+            pass
+    ap = getattr(data, f"_{attr}p_dict")
+    ap._data.clear()
+    for k, v in new_p.items():
+        try:
+            ap[k] = v
+        except ValueError:
+            pass
+
+
+def filter_obs(data, var, func=None) -> None:
+    """Filter observations in place using any column in .obs, a var_name's
+    values in .X, obs_names, or a boolean mask (reference
+    muon/_core/preproc.py:834-856)."""
+    _filter_attr(data, "obs", var, func)
+
+
+def filter_var(data, var, func=None) -> None:
+    """Filter variables in place (reference muon/_core/preproc.py:859-881)."""
+    _filter_attr(data, "var", var, func)
+
+
+def intersect_obs(mdata) -> None:
+    """Subset observations in place to those present in all modalities
+    (reference muon/_core/preproc.py:646-669)."""
+    if mdata.isbacked:
+        raise not_ported("intersect_obs of a backed MuData")
+    common_obs = reduce(np.intersect1d, [m.obs_names for m in mdata.mod.values()])
+    for mod in mdata.mod:
+        filter_obs(mdata.mod[mod], common_obs)
+    mdata.update_obs()
+
+
+def sample_obs(data, frac: float = 0.1, groupby: Optional[str] = None,
+               min_n: Optional[int] = None, random_state=None):
+    """Subsample observations, optionally stratified by a categorical .obs
+    column; returns a view (reference muon/_core/preproc.py:887-931).
+    ``random_state`` seeds the draw (``np.random.default_rng``), as in the
+    JAX package."""
+    import pandas as pd
+
+    rng = np.random.default_rng(random_state)
+    if groupby is None:
+        new_n = int(np.ceil(data.n_obs * frac))
+        if min_n is not None and new_n < min_n:
+            new_n = min_n
+        obs_indices = rng.choice(data.n_obs, size=new_n, replace=False)
+        return data[obs_indices]
+    if groupby not in data.obs:
+        raise ValueError(f"{groupby} is not in .obs")
+    if not isinstance(data.obs[groupby].dtype, pd.CategoricalDtype):
+        raise TypeError(f".obs['{groupby}'] is not categorical")
+    obs_names = []
+    for cat in data.obs[groupby].cat.categories:
+        view = data[(data.obs[groupby] == cat).to_numpy()]
+        new_n = int(np.ceil(view.n_obs * frac))
+        if min_n is not None and new_n < min_n:
+            new_n = min_n
+        obs_names.append(rng.choice(view.obs_names.to_numpy(), size=new_n, replace=False))
+    return data[np.concatenate(obs_names)]

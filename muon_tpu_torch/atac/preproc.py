@@ -27,7 +27,7 @@ __all__ = ["tfidf", "binarize", "scopen"]
 def _get_atac(data):
     """The ATAC AnnData of ``data``: ``data.mod["atac"]`` for a MuData-like
     object (anything with ``.mod``), else ``data`` itself, which needs
-    ``.X``. Duck-typed, so the port needs no container classes."""
+    ``.X``. Duck-typed: the port's containers or any holder will do."""
     mod = getattr(data, "mod", None)
     if mod is not None:
         if "atac" in mod:

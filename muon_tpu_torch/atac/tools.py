@@ -1,8 +1,11 @@
 """ATAC tools (``ac.tl``): LSI, marker peaks, peak annotation, the file
-registry and motifs (counterpart of muon_tpu/atac/tools.py ``lsi``,
-``rank_peaks_groups``, ``add_genes_peaks_groups``, ``add_peak_annotation``,
+registry, motifs and the fragment QC tools (counterpart of
+muon_tpu/atac/tools.py ``lsi``, ``rank_peaks_groups``,
+``add_genes_peaks_groups``, ``add_peak_annotation``,
 ``add_peak_annotation_gene_names``, ``locate_file``, ``locate_genome``,
-``scan_sequences`` and ``get_sequences``).
+``scan_sequences``, ``get_sequences``, ``locate_fragments``,
+``initialise_default_files``, ``count_fragments_features``,
+``tss_enrichment``, ``nucleosome_signal`` and ``fetch_regions_to_df``).
 
 LSI is a randomized truncated SVD of the TF-IDF matrix on the device
 (ops/linalg.randomized_svd), in place of the reference's ARPACK ``svds``
@@ -13,18 +16,33 @@ LSI is a randomized truncated SVD of the TF-IDF matrix on the device
 The peak annotation and the file registry are host code, copies of the
 reference's. ``scan_sequences`` and ``get_sequences`` are atac/motifs.py's:
 peak sequences from a genome FASTA, scanned on the card by T36.
+
+The fragment tools read a tabix-indexed fragments file through the port's
+native engine (atac/fragments.py). ``tss_enrichment`` piles the fragments
+around each sampled TSS up on the card (ops/pileup.interval_pileup, T37)
+and computes the ENCODE score there in float64 (exact integer sums, one
+IEEE division), downloading the scores and the normalised matrix once;
+``count_fragments_features`` (a COO → CSR on the host, scipy) and
+``nucleosome_signal`` (a bincount) are host code, as in the reference, and
+take no device. They return and fill the port's own containers.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
+from warnings import warn
 
 import numpy as np
+import torch
 
-from ..ops.device import DeviceLike
+from .._core.anndata import AnnData
+from ..ops import pileup as _pileup
+from ..ops.device import DeviceLike, resolve_device
 from ..ops.linalg import randomized_svd
 from ..utils.profiling import stage
+from . import utils
+from .fragments import TabixFragments
 from .motifs import get_sequences, scan_sequences
 from .preproc import _get_atac
 
@@ -38,6 +56,12 @@ __all__ = [
     "locate_genome",
     "scan_sequences",
     "get_sequences",
+    "locate_fragments",
+    "initialise_default_files",
+    "count_fragments_features",
+    "tss_enrichment",
+    "nucleosome_signal",
+    "fetch_regions_to_df",
 ]
 
 
@@ -380,3 +404,353 @@ def locate_genome(data, fasta_file: str):
     """Register the genome FASTA under ``uns["files"]["genome"]``
     (reference muon/_atac/tools.py:599-618)."""
     locate_file(data, "genome", fasta_file)
+
+
+def locate_fragments(data, fragments: str, return_fragments: bool = False):
+    """Validate a tabix-indexed fragments file and register it under
+    ``uns["files"]["fragments"]`` (reference muon/_atac/tools.py:640-690,
+    the connection opened with the native engine instead of pysam). As the
+    reference, a failure is printed, not raised."""
+    frag = None
+    try:
+        adata = _get_atac(data)
+        frag = TabixFragments(fragments)
+        if "files" not in adata.uns:
+            adata.uns["files"] = dict()
+        adata.uns["files"]["fragments"] = fragments
+        if return_fragments:
+            return frag
+    except Exception as e:
+        print(e)
+    finally:
+        if frag is not None and not return_fragments:
+            frag.close()
+
+
+def initialise_default_files(data, path):
+    """Auto-locate CellRanger sidecar files next to the count matrix
+    (reference muon/_atac/tools.py:693-743): ``atac_peak_annotation.tsv``
+    and ``atac_fragments.tsv.gz`` in ``path``'s directory."""
+    adata = _get_atac(data)
+
+    default_annotation = os.path.join(os.path.dirname(str(path)), "atac_peak_annotation.tsv")
+    if os.path.exists(default_annotation):
+        try:
+            add_peak_annotation(adata, default_annotation)
+            print(
+                f"Added peak annotation from {default_annotation} to "
+                ".uns['atac']['peak_annotation']"
+            )
+            if getattr(data, "mod", None) is not None:
+                try:
+                    add_peak_annotation_gene_names(data)
+                    print(
+                        "Added gene names to peak annotation in "
+                        ".uns['atac']['peak_annotation']"
+                    )
+                except Exception:
+                    pass
+        except AttributeError:
+            warn(
+                f"Peak annotation from {default_annotation} could not be "
+                "added. Please check the annotation file is formatted "
+                "correctly."
+            )
+
+    default_fragments = os.path.join(os.path.dirname(str(path)), "atac_fragments.tsv.gz")
+    if os.path.exists(default_fragments):
+        print(f"Located fragments file: {default_fragments}")
+        locate_fragments(adata, default_fragments)
+
+
+# ---------------------------------------------------------------------------
+# Fragment aggregation and QC (reference muon/_atac/tools.py:746-1263)
+# ---------------------------------------------------------------------------
+
+
+def _open_fragments(adata, barcodes: Optional[str] = None) -> TabixFragments:
+    if "files" not in adata.uns or "fragments" not in adata.uns["files"]:
+        raise KeyError(
+            "There is no fragments file located yet. Run "
+            "muon_tpu_torch.atac.tl.locate_fragments first."
+        )
+    if barcodes and barcodes in adata.obs.columns:
+        bcs = adata.obs[barcodes].astype(str).tolist()
+    else:
+        bcs = adata.obs.index.astype(str).tolist()
+    return TabixFragments(adata.uns["files"]["fragments"], barcodes=bcs)
+
+
+def _resolve_features(data, features):
+    if features is not None:
+        return features
+    mod = getattr(data, "mod", None)
+    if mod is not None and "rna" in mod and "interval" in mod["rna"].var.columns:
+        from ..rna.utils import get_gene_annotation_from_rna
+
+        return get_gene_annotation_from_rna(data)
+    raise ValueError(
+        "Argument `features` is required. It should be a BED-like DataFrame "
+        "with gene coordinates and names."
+    )
+
+
+def count_fragments_features(
+    data,
+    features=None,
+    stranded: bool = False,
+    extend_upstream: int = 2000,
+    extend_downstream: int = 0,
+    count_reads: bool = True,
+) -> AnnData:
+    """Count fragments overlapping features → a cells × features AnnData of
+    int64 CSR counts (reference muon/_atac/tools.py:746-891). Promoter
+    extension is strand-aware when ``stranded=True``; ``count_reads``
+    accumulates the per-fragment read support (score column) instead of 1.
+    ``features`` defaults to the rna modality's ``var["interval"]``."""
+    from scipy import sparse as sp
+
+    adata = _get_atac(data)
+    features = _resolve_features(data, features)
+
+    f_cols = np.array([c.lower() for c in features.columns.values])
+    for col in ("start", "end"):
+        if col not in f_cols:
+            raise ValueError(f"No column with feature {col}s could be found")
+    chrom_col = None
+    for col in ("chromosome", "chrom", "chr"):
+        if col in f_cols:
+            chrom_col = col
+            break
+    if chrom_col is None:
+        raise ValueError("No column with chromosome for features could be found")
+
+    start_col = features.columns.values[np.where(f_cols == "start")[0][0]]
+    end_col = features.columns.values[np.where(f_cols == "end")[0][0]]
+    chr_col = features.columns.values[np.where(f_cols == chrom_col)[0][0]]
+    strand_col = None
+    if stranded:
+        if "strand" not in f_cols:
+            raise ValueError("No column with strand for features could be found")
+        strand_col = features.columns.values[np.where(f_cols == "strand")[0][0]]
+
+    if count_reads:
+        warn(
+            "From v0.2, by default, unique fragments will be counted instead "
+            "of reads.",
+            FutureWarning,
+            stacklevel=2,
+        )
+
+    n = adata.n_obs
+    n_features = features.shape[0]
+
+    with stage("count/fetch(host)"), _open_fragments(adata) as frags:
+        starts = features[start_col].to_numpy().astype(np.int64)
+        ends = features[end_col].to_numpy().astype(np.int64)
+        chroms = features[chr_col].astype(str).to_numpy()
+        if stranded:
+            minus = (features[strand_col].astype(str) == "-").to_numpy()
+            f_from = np.where(minus, starts - extend_downstream, starts - extend_upstream)
+            f_to = np.where(minus, ends + extend_upstream, ends + extend_downstream)
+        else:
+            f_from = starts - extend_upstream
+            f_to = ends + extend_downstream
+        res = frags.fetch_many(chroms, f_from, f_to)
+
+    with stage("count/csr(host)"):
+        offs = res["region_offsets"]
+        rows = np.repeat(np.arange(n_features, dtype=np.int64), np.diff(offs))
+        cells = res["cells"]
+        keep = cells >= 0
+        vals = res["scores"][keep] if count_reads else np.ones(int(keep.sum()), np.int64)
+        mx = sp.coo_matrix(
+            (vals, (rows[keep], cells[keep])), shape=(n_features, n), dtype=np.int64
+        ).tocsr()
+        X = mx.transpose().tocsr()
+
+    return AnnData(X=X, obs=adata.obs.copy(), var=features)
+
+
+def tss_enrichment(
+    data,
+    features=None,
+    extend_upstream: int = 1000,
+    extend_downstream: int = 1000,
+    n_tss: int = 2000,
+    return_tss: bool = True,
+    random_state=None,
+    barcodes: Optional[str] = None,
+    device: DeviceLike = None,
+):
+    """ENCODE TSS enrichment: pile fragment coverage up around at most
+    ``n_tss`` sampled TSS (``features.sample(n=n_tss,
+    random_state=random_state)``; the TSS is each feature's ``Start``),
+    score = centre mean / flank mean; writes ``obs["tss_score"]``
+    (reference muon/_atac/tools.py:894-984). Returns, under ``return_tss``,
+    a cells × positions AnnData of the coverage over the flank means
+    (float64). The pileup runs on ``device`` (T37 on the card), and the
+    score there too."""
+    import pandas as pd
+
+    adata = _get_atac(data)
+    features = _resolve_features(data, features)
+    dev = resolve_device(device)
+
+    if features.shape[0] > n_tss:
+        features = features.sample(n=n_tss, random_state=random_state)
+
+    X = _tss_pileup(adata, features, extend_upstream=extend_upstream,
+                    extend_downstream=extend_downstream, barcodes=barcodes, device=dev)
+    flank_means, center_means = _calculate_tss_score(X)
+    with stage("pileup/score"):
+        Xs = X.double()
+        Xs /= torch.from_numpy(flank_means).to(dev)[:, None]
+    with stage("pileup/download"):
+        Xs = Xs.cpu().numpy()
+    tss_scores = center_means / flank_means
+
+    anno = pd.DataFrame({"TSS_position": range(-extend_upstream, extend_downstream + 1)})
+    anno.index = anno.index.astype(str)
+    tss_pileup = AnnData(X=Xs, obs=adata.obs.copy(), var=anno)
+
+    adata.obs["tss_score"] = tss_scores
+    tss_pileup.obs["tss_score"] = tss_scores
+
+    if return_tss:
+        return tss_pileup
+
+
+def _tss_pileup(adata, features, extend_upstream: int = 1000, extend_downstream: int = 1000,
+                barcodes: Optional[str] = None, device: DeviceLike = None) -> torch.Tensor:
+    """Fragments around each feature's ``Start`` piled up per cell: an
+    (n_obs, extend_upstream + extend_downstream + 1) int32 tensor on
+    ``device`` (reference muon/_atac/tools.py:987-1068). The fetch is
+    half-open, [Start − up, Start + down), so no fragment starting at the
+    last position is read, as in the reference."""
+    n = adata.n_obs
+    n_pos = extend_downstream + extend_upstream + 1
+
+    with stage("fragments/fetch(host)"), _open_fragments(adata, barcodes=barcodes) as frags:
+        chromosomes = set(frags.contigs)
+        features = features[features["Chromosome"].isin(chromosomes)]
+        f_chr = features["Chromosome"].astype(str).to_numpy()
+        f_start = features["Start"].to_numpy().astype(np.int64)
+        res = frags.fetch_many(f_chr, f_start - extend_upstream, f_start + extend_downstream)
+        tss_start = np.repeat(f_start - extend_upstream, np.diff(res["region_offsets"]))
+        rel_starts = res["starts"] - tss_start
+        rel_ends = res["ends"] - tss_start
+
+    return _pileup.interval_pileup(res["cells"], rel_starts, rel_ends, res["scores"],
+                                   n_cells=n, n_pos=n_pos, device=device)
+
+
+def _calculate_tss_score(X: torch.Tensor, flank_size: int = 100, center_size: int = 1001):
+    """ENCODE TSS score parts of a pileup (reference muon/_atac/tools.py:
+    1071-1106): each cell's flank mean (the first and last ``flank_size``
+    positions; a zero flank takes the mean of all flanks) and centre mean
+    (the middle ``center_size`` positions), as float64 host arrays. The sums
+    are int64 on X's device, exact; they are divided on the host, in numpy,
+    as the reference's float64 means divide them (PyTorch on CUDA divides by
+    a Python number as a product with its reciprocal, an ulp off)."""
+    region_size = X.shape[1]
+    if center_size > region_size:
+        raise ValueError(
+            f"`center_size` ({center_size}) must smaller than the piled up "
+            f"region ({region_size})."
+        )
+    if center_size % 2 == 0:
+        raise ValueError(f"`center_size` must be an uneven number, but is {center_size}.")
+
+    def means(*blocks):
+        total = sum(b.sum(dim=1, dtype=torch.int64) for b in blocks)
+        return total.cpu().numpy() / sum(b.shape[1] for b in blocks)
+
+    with stage("pileup/score"):
+        flank_means = means(X[:, :flank_size], X[:, -flank_size:])
+        flank_means[flank_means == 0] = flank_means.mean()
+        center_dist = (region_size - center_size) // 2
+        center_means = means(X[:, center_dist:-center_dist] if center_dist else X)
+    return flank_means, center_means
+
+
+def nucleosome_signal(
+    data,
+    n=None,
+    nucleosome_free_upper_bound: int = 147,
+    mononuleosomal_upper_bound: int = 294,
+    barcodes: Optional[str] = None,
+):
+    """Per-cell ratio of mono-nucleosomal (147–294 bp) to nucleosome-free
+    (< 147 bp) fragments over the first n records (default n_obs × 1e4) →
+    ``obs["nucleosome_signal"]`` (reference muon/_atac/tools.py:1109-1201).
+    The record scan runs in the native engine, the binning on the host."""
+    adata = _get_atac(data)
+
+    with stage("nucleosome/stream(host)"):
+        with _open_fragments(adata, barcodes=barcodes) as frags:
+            if n is None:
+                n = int(adata.n_obs * 1e4)
+            res = frags.stream(int(n))
+
+        cells = res["cells"]
+        lengths = res["ends"] - res["starts"]
+        keep = cells >= 0
+        cells, lengths = cells[keep], lengths[keep]
+
+        nf = np.bincount(cells[lengths < nucleosome_free_upper_bound], minlength=adata.n_obs)
+        mono = np.bincount(
+            cells[(lengths >= nucleosome_free_upper_bound)
+                  & (lengths < mononuleosomal_upper_bound)],
+            minlength=adata.n_obs,
+        )
+        mat = np.stack([nf, mono], axis=1)
+        mat[mat[:, 0] == 0, :] += 1  # prevent division by 0 (reference :1185)
+        adata.obs["nucleosome_signal"] = mat[:, 1] / mat[:, 0]
+    return None
+
+
+def fetch_regions_to_df(
+    fragment_path: str,
+    features,
+    extend_upstream: int = 0,
+    extend_downstream: int = 0,
+    relative_coordinates: bool = False,
+):
+    """Fetch fragments over regions (a BED-like DataFrame, or a region string
+    ``chr:start-end``) into a tidy DataFrame (reference
+    muon/_atac/tools.py:1204-1263)."""
+    import pandas as pd
+
+    if isinstance(features, str):
+        features = utils.parse_region_string(features)
+
+    dfs = []
+    with TabixFragments(fragment_path) as frags:
+        for i in range(features.shape[0]):
+            f = features.iloc[i]
+            res = frags.fetch(
+                str(f.Chromosome),
+                int(f.Start) - extend_upstream,
+                int(f.End) + extend_downstream,
+                names=True,
+            )
+            if len(res["starts"]) == 0:
+                continue
+            df = pd.DataFrame(
+                {
+                    "Chromosome": str(f.Chromosome),
+                    "Start": res["starts"],
+                    "End": res["ends"],
+                    "Cell": res["names"],
+                    "Score": res["scores"],
+                }
+            )
+            df["Feature"] = f"{f.Chromosome}_{f.Start}_{f.End}"
+            if relative_coordinates:
+                middle = int(f.Start + (f.End - f.Start) / 2)
+                df["Start"] = df["Start"] - middle
+                df["End"] = df["End"] - middle
+            dfs.append(df)
+
+    return pd.concat(dfs, axis=0, ignore_index=True)

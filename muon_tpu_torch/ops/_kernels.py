@@ -92,6 +92,7 @@ _SIGNATURES = {
     "mt_l2norm_dense": (_P, _I, _I, _P, _P),
     "mt_pwm_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                     _P, _P, _I, _P),
+    "mt_interval_pileup": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -138,6 +139,7 @@ KERNELS = {
     "tfidf_dense": "mt_tfidf_dense",
     "l2norm_dense": "mt_l2norm_dense",
     "pwm_scan": "mt_pwm_scan",  # each mode's launch (count, write, scores) counts one
+    "interval_pileup": "mt_interval_pileup",  # scatter and row scan count as one
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
