@@ -80,6 +80,15 @@ and ``atac``, through ``atac.tl.locate_fragments`` → ``nucleosome_signal`` →
 ``tss_enrichment(n_tss=2000)`` → ``pp.filter_obs`` on the TSS scores and
 ``update()`` → ``count_fragments_features``.
 
+and the out-of-core ingest at 1,000,000 cells: the ATAC modality of the
+README's 1M north star (``bench_e2e.py``'s recipe at 1M cells: 25,000 peaks,
+150 draws a cell from Pareto(1.2) popularity tilted per planted cluster,
+counts 1-4), written from the seed 100,000 rows at a time as ``.npy`` files
+and opened behind the h5py group interface (the card's machine has no h5py)
+as a ``BackedMatrix`` in a port ``AnnData``, through ``atac.pp.tfidf`` (the
+matrix streamed to the card block by block, T38 a block, then T1) →
+``atac.tl.lsi(n_comps=50)``.
+
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
 number; at the end any recorded failure makes the exit code 1 and no result
@@ -288,8 +297,37 @@ is printed. An exception stops the run at once, with a code other than 0:
     the ``atac`` modality and the MuData's masks after ``filter_obs`` and
     ``update()`` equal to the mask; then ``[kernel] interval_pileup``: T37
     at the path's call beside its plain version, with its bound.
+40. ``[backed]`` (after phase 39): the 1M ATAC matrix written as ``.npy``
+    (the set-up time printed), then tfidf → lsi of it counted alone under
+    the stage timers (``backed/indptr(host)``, ``backed/read(host)``,
+    ``backed/narrow(host)``, ``backed/copy``, ``backed/decode``,
+    ``sparse/tfidf``, ``linalg/rsvd``, ``lsi/host``; T38 once a block, T1
+    once, T4 seven times, T2 once), its walls without the timers (the
+    reading overlapping the copies and decodes), the device's busy share,
+    and during tfidf the peak Python/numpy allocation (tracemalloc), the
+    pinned staging and the largest single read of the file, beside one
+    block and the matrix. Gates: the ingested CSR equals ``from_scipy`` of
+    the matrix loaded whole (``torch.equal`` on the three tensors); T1's
+    values within rtol 1e-5 atol 1e-6 of the plain TF-IDF and equal to the
+    in-memory path's bit for bit; the singular values within 1e-4 of the
+    plain path's (plain TF-IDF, plain rSVD, the same Ω); ``X_lsi``'s
+    parts, by groups of the L Ritz pairs of the port's rSVD of the
+    in-memory matrix and of the plain rSVD (neighbours within a relative
+    gap of 1e-2), each in its group's span (principal-angle cosines ≥
+    1 − 1e-4); 1,000 random rows
+    through ``DeviceBackedCSR._subset`` equal to the in-memory rows; no read
+    of the values or column ids longer than one block, and the tracemalloc
+    peak plus the pinned staging below half the matrix's bytes. Then
+    ``[kernel] wire_decode`` (T38 on one 16M-entry block at an offset for
+    each of the six wire type pairs, and the whole matrix as one block,
+    ``decode_wire`` equal to ``from_scipy``) and ``[kernel]
+    binarize_values`` (T39 on the TF-IDF values, every seventh made 0), each
+    bit for bit against its plain version. T39 is on no path (no tool of
+    either package binarises on the device): its launches read 0.
 
-The last three lines are a JSON object of the kernels (``launches`` adds
+The last three lines are a JSON object of the kernels (``wire_decode``'s
+entry holds the path's block, uint8/int16, and lists every case under
+``variants``; ``launches`` adds
 up the main paths' counts, each read from its own run with the counters
 set to 0 just before it, and ``launches_by_path`` gives each;
 ``gather_launches`` counts the gather rSVD side run, which is no part of
@@ -422,6 +460,8 @@ KERNEL_INFO = {
     "l2norm_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:48"),        # _l2norm_fn
     "pwm_scan": (MOTIF_SRC, "muon_tpu/ops/pwm.py:114"),             # _conv_fn + find_hits
     "interval_pileup": (PILEUP_SRC, "muon_tpu/ops/pileup.py:29"),   # _pileup_fn
+    "wire_decode": (SPARSE_SRC, "muon_tpu/ops/sparse.py:228"),      # _ingest_block_fn (+ :482)
+    "binarize_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:846"),  # _binarize_fn
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -538,6 +578,17 @@ FRAG_BRUTE_CELLS, FRAG_BRUTE_GENES = 500, 50
 # about 10 fragments in its flanks, so its score scatters by about a third
 FRAG_BAND = (0.8, 1.25)
 FRAG_PATH = {"interval_pileup": 1}
+# [backed]: the ATAC modality of the README's 1M north star (bench_e2e.py at
+# 1,000,000 cells: N_PEAKS peaks, 150 draws a cell from Pareto(1.2)
+# popularity tilted 8x on 5% of the peaks per planted cluster, counts 1-4),
+# written BACKED_CHUNK rows at a time as .npy files; from_backed's blocks of
+# BACKED_BLOCK entries; 1,000 rows read back through DeviceBackedCSR._subset
+BACKED_CELLS, BACKED_CHUNK, BACKED_BLOCK, BACKED_ROWS = 1_000_000, 100_000, 16 << 20, 1_000
+BACKED_PATH = {"tfidf_values": 1, "csr_gram_matmul": N_ITER, "csr_spmm_f32": 1}  # + T38 a block
+WIRE_PAIRS = ((np.uint8, np.int16), (np.uint8, np.int32), (np.uint16, np.int16),
+              (np.uint16, np.int32), (np.float32, np.int16), (np.float32, np.int32))
+# kernels no tool of either package calls: launched by their [kernel] phase only
+OFF_PATH = {"binarize_values": "_binarize_fn has no caller in muon_tpu either"}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -4635,6 +4686,349 @@ def phase_pileup_kernel(tpl, inputs, cuda) -> dict:
     return results
 
 
+class LoggedArray:
+    """One array of a group, recording the most entries any one read of it
+    returned (an ``[...]`` or ``np.asarray`` of the whole counts it all)."""
+
+    def __init__(self, array, key, largest):
+        self._a, self._key, self._largest = array, key, largest
+
+    def _log(self, out):
+        self._largest[self._key] = max(self._largest[self._key], int(np.size(out)))
+        return out
+
+    def __getitem__(self, k):
+        return self._log(self._a[k])
+
+    def __array__(self, dtype=None, copy=None):
+        return self._log(np.asarray(self._a, dtype=dtype))
+
+    def __len__(self):
+        return len(self._a)
+
+    def __getattr__(self, name):
+        return getattr(self._a, name)
+
+
+def logged_group(path):
+    """The .npy group at ``path`` whose arrays record their largest read
+    (``group.largest``, entries by key): the gate that the host never reads
+    more than one block of the matrix at a time."""
+    from muon_tpu_torch._core.anndata import NpyGroup
+
+    grp = NpyGroup(path)
+    grp.largest = dict.fromkeys(grp.keys(), 0)
+    grp._arrays = {k: LoggedArray(a, k, grp.largest) for k, a in grp._arrays.items()}
+    return grp
+
+
+def write_backed_atac(path, seed: int = SEED, n: int = BACKED_CELLS, d: int = N_PEAKS,
+                      per: int = NNZ_PER_ATAC_CELL, chunk: int = BACKED_CHUNK) -> int:
+    """Write the 1M ATAC counts as a CSR of .npy files in ``path``, ``chunk``
+    rows at a time: the host never holds more than one chunk of entries and
+    the (n+1) indptr. Each row's draws are summed per peak, column ids sorted.
+    Returns nnz."""
+    rng = np.random.default_rng(seed)
+    pop = rng.pareto(1.2, d) + 1.0
+    cdf = np.empty((N_CLUSTERS, d))
+    for c in range(N_CLUSTERS):
+        boost = np.ones(d)
+        boost[rng.choice(d, size=d // 20, replace=False)] = 8.0
+        cdf[c] = np.cumsum(pop * boost)
+    cdf /= cdf[:, -1:]
+    labels = rng.integers(0, N_CLUSTERS, n)
+    indptr = np.zeros(n + 1, np.int64)
+    raw = {k: open(os.path.join(path, f"{k}.raw"), "wb") for k in ("data", "indices")}
+    for r0 in range(0, n, chunk):
+        lab = labels[r0:r0 + chunk]
+        m = len(lab)
+        u = rng.random((m, per))
+        cols = np.empty((m, per), np.int32)
+        for c in range(N_CLUSTERS):
+            rows = lab == c
+            cols[rows] = np.searchsorted(cdf[c], u[rows], side="right")
+        vals = rng.integers(1, 5, size=(m, per), dtype=np.int32)
+        order = np.argsort(cols, axis=1, kind="stable")
+        cols = np.take_along_axis(cols, order, 1)
+        vals = np.take_along_axis(vals, order, 1)
+        first = np.ones((m, per), bool)
+        first[:, 1:] = cols[:, 1:] != cols[:, :-1]
+        starts = np.flatnonzero(first.ravel())
+        raw["data"].write(np.add.reduceat(vals.ravel(), starts).astype(np.float32).tobytes())
+        raw["indices"].write(cols.ravel()[starts].tobytes())
+        indptr[r0 + 1:r0 + m + 1] = indptr[r0] + np.cumsum(first.sum(1))
+    for f in raw.values():
+        f.close()
+    nnz = int(indptr[-1])
+    for key, dt in (("data", np.float32), ("indices", np.int32)):
+        src = np.memmap(os.path.join(path, f"{key}.raw"), dtype=dt, mode="r", shape=(nnz,))
+        dst = np.lib.format.open_memmap(os.path.join(path, f"{key}.npy"), mode="w+", dtype=dt,
+                                        shape=(nnz,))
+        for s0 in range(0, nnz, BACKED_BLOCK):
+            dst[s0:s0 + BACKED_BLOCK] = src[s0:s0 + BACKED_BLOCK]
+        dst.flush()
+        del src, dst
+        os.remove(os.path.join(path, f"{key}.raw"))
+    np.save(os.path.join(path, "indptr.npy"), indptr)
+    np.save(os.path.join(path, "shape.npy"), np.array([n, d], np.int64))
+    return nnz
+
+
+def backed_adata(mt, tmpdir, grp=None):
+    """A port AnnData whose X is a fresh BackedMatrix over the .npy group
+    (``grp``, else the group opened anew)."""
+    from muon_tpu_torch._core.anndata import BackedMatrix, NpyGroup
+
+    return mt.AnnData(X=BackedMatrix(NpyGroup(tmpdir) if grp is None else grp))
+
+
+def backed_path(tac, ad, cuda):
+    tac.pp.tfidf(ad, device=cuda)
+    tac.tl.lsi(ad, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+    torch.cuda.synchronize()
+
+
+def phase_backed(mt, tac, dsp, tla, kernels, profiling, cuda, tmpdir):
+    """``[backed]``: the out-of-core ingest at 1,000,000 cells, counted alone,
+    with its gates; returns the launches and the in-memory CSR and TF-IDF for
+    the [kernel] phases."""
+    import tracemalloc
+
+    t0 = time.perf_counter()
+    nnz = write_backed_atac(tmpdir)
+    grp = logged_group(tmpdir)
+    indptr = np.asarray(grp["indptr"])
+    blocks = [(a, b) for a, b in dsp._row_blocks(indptr, BACKED_BLOCK)
+              if indptr[b] > indptr[a]]
+    file_bytes = sum(os.path.getsize(os.path.join(tmpdir, f"{k}.npy"))
+                     for k in ("data", "indices", "indptr"))
+    cap = max(int(indptr[b] - indptr[a]) for a, b in blocks)  # entries of the largest block
+    block_bytes = cap * 8
+    # the two pinned staging buffers of from_backed (_Staging): each holds a
+    # block's float32-wide values and its column ids at their wire width
+    pinned_bytes = 2 * cap * (4 + dsp._col_type(N_PEAKS).itemsize)
+    print(f"[data] backed ATAC {BACKED_CELLS}x{N_PEAKS} nnz={nnz} ({nnz / BACKED_CELLS:.1f} a "
+          f"cell) written as .npy in {time.perf_counter() - t0:.1f}s: {file_bytes / 2**30:.3f} "
+          f"GiB on disk, {len(blocks)} blocks of <= {block_bytes / 2**20:.1f} MiB (float32 values, "
+          f"int32 ids)", flush=True)
+
+    # the path, counted alone, under the stage timers (each stage ends in a
+    # synchronise, so here the reading does not overlap the card)
+    ad = backed_adata(mt, tmpdir)
+    bm = ad.X
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        tac.pp.tfidf(ad, device=cuda)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tac.tl.lsi(ad, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"[backed] staged: tfidf {t1 - t0:.3f}s, lsi {t2 - t1:.3f}s; peak {peak:.3f} GiB "
+          f"above the held; stages {stage_seconds(t)}; launches "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    check_launches(launches, {"wire_decode": len(blocks), **BACKED_PATH}, "[backed]")
+    check(type(ad.X) is dsp.DeviceBackedCSR, "[backed] tfidf leaves X a DeviceBackedCSR")
+
+    # the same path unstaged (the reading overlaps the copies and decodes),
+    # twice, the second under the profiler for the busy share
+    walls = []
+    for _ in range(2):
+        ad2 = backed_adata(mt, tmpdir)
+        t0 = time.perf_counter()
+        backed_path(tac, ad2, cuda)
+        walls.append(time.perf_counter() - t0)
+    print_profile("[backed] tfidf+lsi", profiled(lambda: backed_path(tac, backed_adata(mt, tmpdir),
+                                                                      cuda)))
+    # what the host holds during tfidf: tracemalloc sees Python/numpy
+    # allocations only (not the memory-mapped reads, not the pinned staging);
+    # the gate is on the reads themselves, each at most one block
+    logged = logged_group(tmpdir)
+    ad3 = backed_adata(mt, tmpdir, logged)
+    tracemalloc.start()
+    tac.pp.tfidf(ad3, device=cuda)
+    torch.cuda.synchronize()
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    largest = dict(logged.largest)
+    del ad2, ad3, logged
+    print(f"[backed] tfidf+lsi walls {[round(w, 4) for w in walls]} s; during tfidf: peak of "
+          f"Python/numpy allocations (tracemalloc) {host_peak / 2**20:.1f} MiB, pinned staging "
+          f"{pinned_bytes / 2**20:.1f} MiB (2 buffers of the largest block), largest single read "
+          f"in entries {largest} (one block {cap} entries, {block_bytes / 2**20:.1f} MiB; the "
+          f"matrix {nnz} entries, {file_bytes / 2**20:.1f} MiB)", flush=True)
+    check(largest["data"] <= cap and largest["indices"] <= cap,
+          "[backed] tfidf reads the values and column ids at most one block at a time")
+    check(host_peak + pinned_bytes < 0.5 * file_bytes, "[backed] the host's Python/numpy peak "
+          "and the pinned staging during tfidf below half the matrix's bytes")
+
+    # the ingest against from_scipy of the matrix loaded whole
+    Xw = sp.csr_matrix((np.array(grp["data"]), np.array(grp["indices"]), indptr),
+                       shape=(BACKED_CELLS, N_PEAKS))
+    dW = dsp.from_scipy(Xw, cuda)
+    dB = getattr(bm, dsp.DEVICE_TAG)
+    same = [bool(torch.equal(a, b)) for a, b in
+            zip((dB.data, dB.indptr, dB.indices), (dW.data, dW.indptr, dW.indices))]
+    print(f"[backed] from_backed's CSR equal to from_scipy's (data, indptr, indices): {same}",
+          flush=True)
+    check(all(same), "[backed] the ingested CSR equals from_scipy's bit for bit")
+    del dB, bm
+
+    # T1's values against its plain version and bit for bit against the
+    # in-memory path; lsi against the plain path (plain TF-IDF, plain rSVD,
+    # the same omega) and against the port's rSVD of the in-memory matrix
+    h = Holder(Xw)
+    tac.pp.tfidf(h, device=cuda)
+    tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, device=cuda)
+    vals = getattr(ad.X, dsp.DEVICE_TAG).data
+    mem_vals = torch.from_numpy(h.X.data).to(cuda)
+    tf_same = bool(torch.equal(vals, mem_vals))
+    plain_vals = dsp.tfidf_data_plain(dW)
+    tf_diff = (vals - plain_vals).abs()
+    tf_ok = bool((tf_diff <= 1e-6 + 1e-5 * plain_vals.abs()).all())
+    tf_err = float(tf_diff.max())
+    del tf_diff
+    cs_max = float(Xw.sum(axis=0).max())
+    s = ad.uns["lsi"]["stdev"] * np.sqrt(BACKED_CELLS - 1)
+    om = tla.draw_omega(N_PEAKS, L, SEED, cuda)
+    rsvd = tla._rsvd_blocks if tla._blocks_profitable(BACKED_CELLS, N_PEAKS, nnz, L) \
+        else tla._rsvd_gather  # the algorithm lsi took
+    # all L Ritz pairs of the same subspace iteration (lsi keeps the first K)
+    targets = {"in-memory": rsvd(dW._replace(data=mem_vals), L, om, N_ITER)[:2],
+               "plain": rsvd(dW._replace(data=plain_vals), L, om, N_ITER, ops=tla.PLAIN_OPS)[:2]}
+    del plain_vals, mem_vals
+    s_plain = targets["plain"][1][:K].cpu().numpy()
+    rel_s = float(np.max(np.abs(s - s_plain) / s_plain))
+    # two runs apart only by rounding (the order of atomic sums): a singular
+    # vector moves by about that perturbation over its gap to the others, so
+    # the target's L components are grouped where the relative gap between
+    # neighbours is below 1e-2, and each group's part of X_lsi is held to lie
+    # in the group's span (the cosines of the principal angles); a group of
+    # one is the |cos| of its column, and the group of the K-th component
+    # reaches past K when its neighbours beyond K lie that close
+    emb = torch.from_numpy(ad.obsm["X_lsi"]).to(cuda)
+    span_cos, sizes = {}, {}
+    for name, (U_t, s_t) in targets.items():
+        s_t = s_t.cpu().numpy()
+        groups = np.split(np.arange(L), np.flatnonzero((s_t[:-1] - s_t[1:]) / s_t[:-1] >= 1e-2) + 1)
+        groups = [g for g in groups if g[0] < K]
+        sizes[name] = [(int((g < K).sum()), len(g)) for g in groups]
+        span_cos[name] = [float(canonical_correlations(emb[:, g[g < K]], U_t[:, g]).min())
+                          for g in groups]
+    del emb, targets, U_t
+    rows = np.random.default_rng(SEED).choice(BACKED_CELLS, BACKED_ROWS, replace=False)
+    got, want = ad.X[rows], h.X[rows]
+    rows_same = (np.array_equal(got.indptr, want.indptr)
+                 and np.array_equal(got.indices, want.indices)
+                 and np.array_equal(got.data, want.data))
+    print(f"[backed] TF-IDF values (T1) vs plain max abs err {tf_err:.3e}, within rtol 1e-5 "
+          f"atol 1e-6: {tf_ok}; equal to the in-memory path's: {tf_same} (largest column sum "
+          f"{cs_max:.0f}, exact in float32 below 2^24); s[0]={s[0]:.4f} s[-1]={s[-1]:.4f}, vs "
+          f"plain from the same omega max rel {rel_s:.2e}; X_lsi by groups of the target's {L} "
+          f"components (relative gap < 1e-2 within; (columns of X_lsi, of the target)), least "
+          f"cosine of a principal angle by group: vs the port's rSVD of the in-memory matrix "
+          f"{sizes['in-memory']} {[round(c, 8) for c in span_cos['in-memory']]}, vs the plain "
+          f"path {sizes['plain']} {[round(c, 8) for c in span_cos['plain']]}; stdev max rel "
+          f"{np.max(np.abs(ad.uns['lsi']['stdev'] / h.uns['lsi']['stdev'] - 1)):.2e}; "
+          f"{BACKED_ROWS} rows through _subset equal: {rows_same}", flush=True)
+    check(tf_ok, "[backed] T1's TF-IDF values vs plain, rtol 1e-5 atol 1e-6")
+    check(tf_same, "[backed] the TF-IDF values equal the in-memory path's bit for bit")
+    check(rel_s <= 1e-4, "[backed] singular values vs the plain path, same omega, rtol 1e-4")
+    for name, cs_ in span_cos.items():
+        check(min(cs_) >= 1 - 1e-4, f"[backed] X_lsi vs the {name} rSVD: every group in its "
+              "span, principal-angle cosines >= 1 - 1e-4")
+    check(rows_same, f"[backed] {BACKED_ROWS} rows of the DeviceBackedCSR equal the in-memory rows")
+    check(ad.obsm["X_lsi"].shape == (BACKED_CELLS, K)
+          and bool(np.isfinite(ad.obsm["X_lsi"]).all()), "[backed] X_lsi finite, its shape")
+    del ad, h, vals
+    torch.cuda.empty_cache()
+    return launches, Xw, dW
+
+
+def wire_report(results, name, val, col, data, indices, offset, dsp, extra=""):
+    """T38 on one block against its plain version: the same tensors bit for
+    bit, both times, the bound (the wire read once, the CSR slice written
+    once) and ``Tensor.copy_`` of the casts (two calls)."""
+    bn = val.numel()
+    ref_d, ref_i = data.clone(), indices.clone()
+    dsp.wire_decode_plain(val, col, ref_d, ref_i, offset)
+    dsp.wire_decode(val, col, data, indices, offset)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(data, ref_d)) and bool(torch.equal(indices, ref_i))
+    err = float((data - ref_d).abs().max().item())
+    del ref_d, ref_i
+    d_sl, i_sl = data[offset:offset + bn], indices[offset:offset + bn]
+    entry = {"max_abs_err": err,
+             "ms": median_ms(lambda: dsp.wire_decode(val, col, data, indices, offset)),
+             "plain_ms": median_ms(lambda: dsp.wire_decode_plain(val, col, data, indices, offset),
+                                   reps=3),
+             **bound(nbytes(val, col) + 8.0 * bn, 0.0, F32_OPS_PER_S),
+             "library_ms": library_ms(lambda: (d_sl.copy_(val), i_sl.copy_(col)))}
+    print(f"[kernel] wire_decode {name}: {bn} entries {val.dtype}/{col.dtype} at offset {offset}"
+          f"{extra}: equal to plain {ok} ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+          f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}) "
+          f"library_ms={entry['library_ms'] if entry['library_ms'] is None else round(entry['library_ms'], 4)}",
+          flush=True)
+    check(ok, f"wire_decode {name} equals its plain version bit for bit")
+    results.setdefault("wire_decode", {"variants": []})["variants"].append({"case": name, **entry})
+    return entry
+
+
+def phase_wire_kernels(dsp, Xw, dW, cuda) -> dict:
+    """T38 at the path's block (16M entries at an offset) for each of the six
+    wire type pairs, and the whole matrix as one block at offset 0 (the
+    reference's _decode_wire_fn); T39 on the TF-IDF value vector."""
+    results = {}
+    bn, offset = BACKED_BLOCK, int(Xw.indptr[len(Xw.indptr) // 2])
+    rng = np.random.default_rng(SEED)
+    data = torch.zeros(offset + bn + 4096, dtype=torch.float32, device=cuda)
+    indices = torch.zeros_like(data, dtype=torch.int32)
+    for vt, ct in WIRE_PAIRS:
+        top = 254 if vt == np.uint8 else 65534
+        v = rng.integers(0, top + 1, bn).astype(vt) if vt != np.float32 else \
+            rng.standard_normal(bn).astype(vt)
+        c = rng.integers(0, N_PEAKS if ct == np.int16 else 40_000, bn).astype(ct)
+        entry = wire_report(results, f"{np.dtype(vt).name}/{np.dtype(ct).name}",
+                            torch.from_numpy(v).to(cuda), torch.from_numpy(c).to(cuda),
+                            data, indices, offset, dsp)
+        if (vt, ct) == (np.uint8, np.int16):  # the path's own pair
+            results["wire_decode"].update(entry)
+    del data, indices
+    torch.cuda.empty_cache()
+    # the whole matrix at once: decode_wire against from_scipy
+    vt, ct = dsp.wire_types(Xw.data, N_PEAKS)
+    val = torch.from_numpy(Xw.data.astype(vt)).to(cuda)
+    col = torch.from_numpy(Xw.indices.astype(ct)).to(cuda)
+    whole = dsp.decode_wire(val, col, torch.from_numpy(Xw.indptr).to(cuda), N_PEAKS)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(whole[:3], dW[:3]))
+    print(f"[kernel] wire_decode whole matrix: decode_wire equal to from_scipy {same}", flush=True)
+    check(same, "decode_wire of the whole matrix equals from_scipy's CSR")
+    wire_report(results, "whole matrix", val, col, whole.data, whole.indices, 0, dsp,
+                extra=" (the _decode_wire_fn case)")
+    del val, col, whole
+    torch.cuda.empty_cache()
+
+    # T39 on the TF-IDF values of the same matrix
+    X = dW._replace(data=dsp.tfidf_data(dW))
+    X.data[::7] = 0.0  # stored zeros, as a binarised matrix may hold
+    got, want = dsp.binarize_data(X), dsp.binarize_data_plain(X)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, want))
+    del got, want
+    kernel_report(results, "binarize_values", f"{X.nnz} float32 values (library: none)",
+                  0.0 if ok else 1.0, "exact", ok, lambda: dsp.binarize_data(X),
+                  lambda: dsp.binarize_data_plain(X), bound(8.0 * X.nnz, 0.0, F32_OPS_PER_S))
+    del X
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -4754,6 +5148,12 @@ def main() -> int:
                                                        cuda, tmpdir)
     results.update(phase_pileup_kernel(tpl, pileup_inputs, cuda))
     del pileup_inputs
+    with tempfile.TemporaryDirectory() as tmpdir:
+        backed_launches, Xw, dW = phase_backed(mt, tac, dsp, tla, kernels, profiling, cuda,
+                                               tmpdir)
+    results.update(phase_wire_kernels(dsp, Xw, dW, cuda))
+    del Xw, dW
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     Z_planted, mofa_views = mofa_bench_views(SEED)
@@ -4813,14 +5213,14 @@ def main() -> int:
                             for k in knn_wide_launches},
                "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
                "ica": ica_launches, "scopen": scopen_launches, "dense": dense_launches,
-               "motifs": motif_launches, "fragments": frag_launches,
+               "motifs": motif_launches, "fragments": frag_launches, "backed": backed_launches,
                "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(
         f"{k} {v}" for k, v in gather_launches.items() if v), flush=True)
-    never = [n for n in kernels.KERNELS
-             if not sum(c[n] for c in by_path.values()) + gather_launches[n]]
+    never = [n for n in kernels.KERNELS if n not in OFF_PATH
+             and not sum(c[n] for c in by_path.values()) + gather_launches[n]]
     check(not never, f"every kernel launched on a main path or the gather run, not {never}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     if FAILED:

@@ -2,30 +2,32 @@
 muon_tpu/_core/anndata.py; host-side: X, layers and obsm are numpy or
 scipy.sparse, and the tools upload what they compute on).
 
-In memory only. A backed AnnData (``filename=``) and ``write``/
-``write_h5ad`` raise NotImplementedError: the h5ad/h5mu I/O and the
-out-of-core ingest come with K19. pandas is imported inside the functions
-that need it: importing the port must not need it.
+Backed mode: ``read_h5ad(path, backed=True)`` leaves X on disk as a
+:class:`BackedMatrix`, which reads only the rows asked for. A
+``BackedMatrix`` takes any group with the h5py interface it uses (``keys``,
+``"indptr" in g``, ``g.attrs["shape"]``, ``g["data"].dtype`` and slicing of
+``g["data"]``, ``g["indices"]``, ``g["indptr"]``), so a directory of
+``.npy`` files opened with ``np.load(mmap_mode="r")`` behind that interface
+(:class:`NpyGroup`) backs it as well as an h5 group, where h5py is absent.
+pandas and h5py are imported inside the functions that need them: importing
+the port must not need either.
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 import numpy as np
 from scipy import sparse as sp
 
 from .aligned import AlignedDict, _is_frame
 
-__all__ = ["AnnData", "Raw", "concat_names"]
+__all__ = ["AnnData", "Raw", "BackedMatrix", "FileManager", "NpyGroup", "concat_names"]
 
 # sentinel for lazily-materialized view slots ("not materialized yet",
 # distinct from None which is a legal X value)
 _UNSET = object()
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (the h5ad/h5mu I/O and the out-of-core ingest, K19)"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +218,188 @@ class Raw:
 
 
 # ---------------------------------------------------------------------------
+# file manager (backed mode)
+# ---------------------------------------------------------------------------
+
+
+class FileManager:
+    """Handle to the HDF5 file backing an AnnData (``.file`` attribute)."""
+
+    def __init__(self, filename=None, h5file=None, shared=False):
+        self.filename = str(filename) if filename is not None else None
+        self._h5file = h5file
+        # shared=True: the handle is co-owned (an h5mu's modalities share
+        # their MuData's file), so close() only drops this reference and the
+        # sibling modalities keep reading
+        self._shared = shared
+
+    @property
+    def is_open(self):
+        try:
+            return self._h5file is not None and bool(self._h5file.id.valid)
+        except Exception:
+            return False
+
+    def close(self):
+        if self._h5file is not None and not self._shared:
+            try:
+                self._h5file.close()
+            except Exception:
+                pass
+        self._h5file = None
+
+    def _to_memory_mode(self):
+        self.close()
+        self.filename = None
+
+
+def _row_runs(oidx: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+    """The ``(s, e)`` entry spans of the rows ``oidx`` in their order, runs of
+    consecutive on-disk rows coalesced into one span each."""
+    m, i = len(oidx), 0
+    while i < m:
+        j = i
+        while j + 1 < m and oidx[j + 1] == oidx[j] + 1 and starts[j + 1] == ends[j]:
+            j += 1
+        yield int(starts[i]), int(ends[j])
+        i = j + 1
+
+
+def _read_runs(ds, oidx, starts, ends, total: int, dtype) -> np.ndarray:
+    """The stored entries of rows ``oidx`` of dataset ``ds``, one read per
+    run of consecutive rows."""
+    out = np.empty(total, dtype=dtype)
+    off = 0
+    for s, e in _row_runs(oidx, starts, ends):
+        if e > s:
+            out[off:off + e - s] = ds[s:e]
+            off += e - s
+    return out
+
+
+def _full_columns(vidx, n_vars: int) -> bool:
+    return vidx is None or (
+        len(vidx) == n_vars and np.array_equal(vidx, np.arange(n_vars))
+    )
+
+
+class NpyGroup:
+    """A directory of ``data.npy``, ``indices.npy``, ``indptr.npy`` and
+    ``shape.npy`` (a CSR) behind the part of the h5py group interface a
+    :class:`BackedMatrix` reads (``keys``, ``in``, ``attrs["shape"]``,
+    slicing of each array), the arrays memory-mapped by ``np.load``."""
+
+    def __init__(self, path):
+        self.attrs = {"shape": np.load(os.path.join(path, "shape.npy"))}
+        self._arrays = {k: np.load(os.path.join(path, f"{k}.npy"), mmap_mode="r")
+                        for k in ("data", "indices", "indptr")}
+
+    def keys(self):
+        return self._arrays.keys()
+
+    def __contains__(self, key):
+        return key in self._arrays
+
+    def __getitem__(self, key):
+        return self._arrays[key]
+
+
+class BackedMatrix:
+    """Lazy view of an on-disk X (dense dataset or CSR group).
+
+    Row subsets are read selectively from disk (consecutive CSR rows are
+    coalesced into single reads) so out-of-core workflows never materialize
+    the full matrix."""
+
+    def __init__(self, h5obj):
+        self._h5 = h5obj
+        if hasattr(h5obj, "keys") and "indptr" in h5obj:
+            self._sparse = True
+            self.shape = tuple(int(x) for x in h5obj.attrs["shape"])
+            self.dtype = h5obj["data"].dtype
+            self._indptr = None  # cached on first row read (n+1 int64)
+        else:
+            self._sparse = False
+            self.shape = tuple(h5obj.shape)
+            self.dtype = h5obj.dtype
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def to_memory(self):
+        if self._sparse:
+            return sp.csr_matrix(
+                (self._h5["data"][...], self._h5["indices"][...], self._h5["indptr"][...]),
+                shape=self.shape,
+            )
+        return self._h5[...]
+
+    def _row_spans(self, oidx):
+        """Where rows ``oidx`` start and end in the entry arrays."""
+        if self._indptr is None:
+            self._indptr = np.asarray(self._h5["indptr"][...]).astype(np.int64)
+        return self._indptr[oidx], self._indptr[oidx + 1]
+
+    def _row_values(self, oidx, starts, ends, total: int) -> np.ndarray:
+        """The stored values of rows ``oidx``, read from disk run by run."""
+        return _read_runs(self._h5["data"], oidx, starts, ends, total, self._h5["data"].dtype)
+
+    def _subset(self, oidx, vidx=None):
+        """Read only the requested rows from disk; columns subset in memory
+        afterwards (rows are the long axis: cells)."""
+        oidx = np.asarray(oidx, dtype=np.int64)
+        # negative rows normalised first: indptr[-1] = nnz would corrupt a
+        # sparse read, and h5py refuses them in a fancy read
+        oidx = np.where(oidx < 0, oidx + self.shape[0], oidx)
+        if vidx is not None:
+            vidx = np.asarray(vidx)
+            if vidx.dtype.kind != "b":
+                vidx = np.where(vidx < 0, vidx + self.shape[1], vidx)
+        full_v = _full_columns(vidx, self.shape[1])
+        if len(oidx) >= 0.5 * self.shape[0]:
+            M = self.to_memory()[oidx]
+            return M if full_v else M[:, vidx]
+        if not self._sparse:
+            uniq, inv = np.unique(oidx, return_inverse=True)
+            out = np.asarray(self._h5[uniq.tolist(), :])[inv]
+            return out if full_v else out[:, vidx]
+        starts, ends = self._row_spans(oidx)
+        counts = ends - starts
+        total = int(counts.sum())
+        data = self._row_values(oidx, starts, ends, total)
+        indices = _read_runs(self._h5["indices"], oidx, starts, ends, total, np.int64)
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        M = sp.csr_matrix((data, indices, indptr), shape=(len(oidx), self.shape[1]))
+        return M if full_v else M[:, vidx]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, tuple) and len(idx) == 2:
+            ridx, cidx = idx
+        else:
+            ridx, cidx = idx, None
+        if isinstance(ridx, slice):
+            rows = np.arange(self.shape[0])[ridx]
+        elif isinstance(ridx, (int, np.integer)):
+            rows = np.asarray([int(ridx)])
+        else:
+            rows = np.asarray(ridx)
+            if rows.dtype == bool:
+                rows = np.flatnonzero(rows)
+        if cidx is None or (isinstance(cidx, slice) and cidx == slice(None)):
+            cols = None
+        elif isinstance(cidx, slice):
+            cols = np.arange(self.shape[1])[cidx]
+        elif isinstance(cidx, (int, np.integer)):
+            cols = np.asarray([int(cidx)])
+        else:
+            cols = np.asarray(cidx)
+            if cols.dtype == bool:
+                cols = np.flatnonzero(cols)
+        return self._subset(rows, cols)
+
+
+# ---------------------------------------------------------------------------
 # AnnData
 # ---------------------------------------------------------------------------
 
@@ -240,8 +424,6 @@ class AnnData:
         dtype=None,
         filename=None,
     ):
-        if filename is not None:
-            raise not_ported("a backed AnnData")
         if isinstance(X, AnnData):
             other = X
             X = other.X
@@ -265,7 +447,7 @@ class AnnData:
             if var is None:
                 var = pd.DataFrame(index=X.columns.astype(str))
             X = X.to_numpy()
-        if dtype is not None and X is not None:
+        if dtype is not None and X is not None and not isinstance(X, BackedMatrix):
             X = X.astype(dtype)
 
         if X is not None:
@@ -299,11 +481,16 @@ class AnnData:
         self._raw = raw
         self._is_view = False
         self._view_of = None
+        self.file = FileManager(filename)
 
     # -- view machinery ------------------------------------------------------
     def _materialize_X(self):
         parent, oidx, vidx = self._view_of
-        self._X = _subset_matrix(parent.X, oidx, vidx)
+        pX = parent.X
+        if isinstance(pX, BackedMatrix):
+            self._X = pX._subset(oidx, vidx)
+        else:
+            self._X = _subset_matrix(pX, oidx, vidx)
         return self._X
 
     def _materialize_aligned(self, slot):
@@ -486,11 +673,11 @@ class AnnData:
 
     @property
     def isbacked(self):
-        return False
+        return self.file.filename is not None
 
     @property
     def filename(self):
-        return None
+        return self.file.filename
 
     # -- indexing --------------------------------------------------------
     def _resolve_idx(self, index):
@@ -523,11 +710,14 @@ class AnnData:
         new._varp = None
         new._layers = None
         new._raw = _UNSET
+        new.file = FileManager(None)
         return new
 
     def copy(self):
         X = self.X  # materializes the subset if self is a lazy view
-        if X is not None:
+        if isinstance(X, BackedMatrix):
+            X = X.to_memory()
+        elif X is not None:
             X = X.copy()
         new = AnnData(
             X=X,
@@ -547,13 +737,28 @@ class AnnData:
 
     # -- mutation ------------------------------------------------------------
     def _inplace_subset_obs(self, idx):
-        """Subset observations in place (anndata parity)."""
+        """Subset observations in place (anndata parity). On a backed object
+        this warns, then reads only the kept rows from disk
+        (``BackedMatrix._subset``), never the whole matrix, and drops the
+        file reference."""
         oidx = _normalize_index(idx, self.obs_names, self.n_obs)
-        self._assign_from(self._view(oidx, np.arange(self.n_vars)))
+        self._subset_backed(lambda: self._view(oidx, np.arange(self.n_vars)))
 
     def _inplace_subset_var(self, idx):
         vidx = _normalize_index(idx, self.var_names, self.n_vars)
-        self._assign_from(self._view(np.arange(self.n_obs), vidx))
+        self._subset_backed(lambda: self._view(np.arange(self.n_obs), vidx))
+
+    def _subset_backed(self, make_view):
+        backed = self.isbacked
+        if backed:
+            warnings.warn(
+                "AnnData object is backed. The requested subset of the matrix "
+                "X will be read into memory, and the file reference dropped.",
+                UserWarning,
+            )
+        self._assign_from(make_view())
+        if backed:
+            self.file._to_memory_mode()
 
     def _assign_from(self, other: "AnnData"):
         other_X = other.X  # materialize first if `other` is a lazy view
@@ -608,6 +813,8 @@ class AnnData:
 
     def transpose(self):
         X = self.X
+        if isinstance(X, BackedMatrix):
+            X = X.to_memory()
         if X is not None:
             X = X.T
             if sp.issparse(X):
@@ -627,7 +834,9 @@ class AnnData:
 
     # -- io ----------------------------------------------------------------
     def write_h5ad(self, filename, compression=None):
-        raise not_ported("write_h5ad")
+        from .h5io import write_h5ad
+
+        write_h5ad(filename, self, compression=compression)
 
     write = write_h5ad
 

@@ -2,11 +2,10 @@
 muon_tpu/_core/mudata.py): the ``.mod`` dict, global obs/var, per-modality
 membership masks in ``.obsm[mod]``/``.varm[mod]``, 1-based index maps
 ``.obsmap``/``.varmap``, ``update()``, ``pull_*``/``push_*``,
-cross-modality views and ``axis=1`` containers.
-
-In memory only: ``write``/``write_h5mu`` raise NotImplementedError (the
-h5ad/h5mu I/O comes with K19). pandas is imported inside the functions that
-need it.
+cross-modality views and ``axis=1`` containers, ``write``/``write_h5mu``
+(``_core/h5io.py``) and backed mode (``read_h5mu(path, backed=True)``: each
+modality's X stays on disk, the modalities sharing the MuData's open file).
+pandas and h5py are imported inside the functions that need them.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from collections import OrderedDict
 import numpy as np
 
 from .aligned import AlignedDict
-from .anndata import AnnData, _deepcopy_uns, _normalize_index, concat_names, not_ported
+from .anndata import AnnData, FileManager, _deepcopy_uns, _normalize_index, concat_names
 
 __all__ = ["MuData"]
 
@@ -62,6 +61,7 @@ class MuData:
         self._obsp_extra = dict(kwargs.pop("obsp", None) or {})
         self._varp_extra = dict(kwargs.pop("varp", None) or {})
         self._is_view = False
+        self.file = FileManager(None)
         # filled by update()
         self.obsmap: dict = {}
         self.varmap: dict = {}
@@ -152,11 +152,11 @@ class MuData:
 
     @property
     def isbacked(self):
-        return False
+        return self.file.filename is not None
 
     @property
     def filename(self):
-        return None
+        return self.file.filename
 
     def mod_names(self):
         return list(self.mod.keys())
@@ -443,7 +443,9 @@ class MuData:
 
     # -- io ----------------------------------------------------------------
     def write_h5mu(self, filename, compression=None):
-        raise not_ported("write_h5mu")
+        from .h5io import write_h5mu
+
+        write_h5mu(filename, self, compression=compression)
 
     write = write_h5mu
 

@@ -11,11 +11,13 @@ refuses it; ``neighbors`` of one runs WNN (ops/wnn.wnn_neighbors).
 numpy for a dense one); the device's row normalisation is
 ``ops.dense.l2norm_dense`` (T35), which neither package's ``l2norm`` calls.
 The filters are host bookkeeping on the port's containers (``AnnData``,
-``MuData``); a backed object is refused, as the containers refuse it.
+``MuData``). On a backed object they warn as the reference does and read
+only the kept rows from disk.
 """
 
 from __future__ import annotations
 
+import warnings
 from functools import reduce
 from typing import Optional
 
@@ -25,7 +27,6 @@ from ..ops.device import DeviceLike
 from ..ops.linalg import pca as _pca_op
 from ..ops.wnn import _n_vars, single_neighbors, wnn_neighbors
 from .aligned import _is_frame
-from .anndata import not_ported
 
 __all__ = [
     "pca",
@@ -255,8 +256,12 @@ def _filter_attr(data, attr, key, func=None):
             "The provided object is a view. In-place filtering does not "
             "operate on views."
         )
-    if data.isbacked:
-        raise not_ported(f"filter_{attr} of a backed object")
+    if data.isbacked and _is_mudata(data):
+        warnings.warn(
+            "MuData object is backed. The requested subset of the .X matrices "
+            "of its modalities will be read into memory.",
+            UserWarning,
+        )
 
     mask = _resolve_filter_mask(data, attr, key, func)
 
@@ -335,7 +340,10 @@ def intersect_obs(mdata) -> None:
     """Subset observations in place to those present in all modalities
     (reference muon/_core/preproc.py:646-669)."""
     if mdata.isbacked:
-        raise not_ported("intersect_obs of a backed MuData")
+        warnings.warn(
+            "MuData object is backed. It might be required to re-read the "
+            "object with `backed=False` to make the intersection work."
+        )
     common_obs = reduce(np.intersect1d, [m.obs_names for m in mdata.mod.values()])
     for mod in mdata.mod:
         filter_obs(mdata.mod[mod], common_obs)

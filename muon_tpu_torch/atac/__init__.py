@@ -10,10 +10,14 @@ JASPAR motifs, thresholded on the card by T36) and the fragment QC tools
 ``tl.nucleosome_signal``, ``tl.tss_enrichment`` with its pileup on the card
 by T37, ``tl.count_fragments_features``, ``tl.fetch_regions_to_df``) over
 the port's fragments engine (``fragments.TabixFragments``,
-``fragments.write_fragments``).
+``fragments.write_fragments``); the readers ``read_10x_h5``,
+``read_10x_mtx`` (the Peaks features) and ``read_snap``. ``pp.tfidf`` and
+``tl.lsi`` take a backed X.
 """
 
+from . import io
 from . import preproc as pp
 from . import tools as tl
+from .io import read_10x_h5, read_10x_mtx, read_snap
 
-__all__ = ["pp", "tl"]
+__all__ = ["pp", "tl", "io", "read_10x_h5", "read_10x_mtx", "read_snap"]

@@ -2,7 +2,10 @@
 (counterpart of muon_tpu/atac/preproc.py).
 
 The sparse path runs the fused TF-IDF kernel (T1, ops/sparse.tfidf_data)
-over the CSR value vector and keeps the sparsity structure as it is. Dense
+over the CSR value vector and keeps the sparsity structure as it is. A
+backed X (``read_h5mu(path, backed=True)``) is streamed to the device block
+by block (ops/sparse.from_backed, T38) and its TF-IDF stays there, the
+structure on disk (``DeviceBackedCSR``), for ``lsi`` to take. Dense
 input is computed on the host in float64, as in the reference, so the
 golden values of its tests hold. ``scopen`` uploads the binarised peaks as
 CSR and factorises them on the device (ops/nmf.scopen_impute: T2's products,
@@ -56,8 +59,10 @@ def tfidf(
     IDF: n_cells / per-peak counts (log1p optional); returns TF·IDF.
     A sparse result is float32 CSR with the input's structure.
 
-    ``device``: where the sparse transform runs (see ops/device.py).
-    ``mesh`` (multi-device) and backed matrices are not ported yet.
+    ``device``: where the sparse transform runs (see ops/device.py). A
+    backed sparse X becomes a ``DeviceBackedCSR``: its values on the device,
+    its structure on disk; the host never holds the whole matrix.
+    ``mesh`` (multi-device) is not ported yet.
     """
     adata = _get_atac(data)
     if mesh is not None:
@@ -85,10 +90,14 @@ def tfidf(
         warn(f"Existing layer '{to_layer}' will be overwritten")
 
     if getattr(counts, "_sparse", False) and hasattr(counts, "_h5"):
-        raise NotImplementedError(
-            "tfidf of a backed matrix is not ported yet (the out-of-core ingest, K19)"
-        )
-    if issparse(counts):
+        dX = dsp.from_backed(counts, device=device)
+        with stage("sparse/tfidf"):
+            new_data = dsp.tfidf_data(
+                dX, log_tf=log_tf, log_idf=log_idf, log_tfidf=log_tfidf,
+                scale_factor=scale_factor,
+            )
+        res = dsp.DeviceBackedCSR(counts._h5, dX._replace(data=new_data))
+    elif issparse(counts):
         X = counts.tocsr()
         dX = dsp.from_scipy(X, device)
         with stage("sparse/tfidf"):

@@ -78,7 +78,9 @@ def lsi(
     muon/_atac/tools.py:29-71: components in descending order, embeddings
     optionally z-scored, stdev = s/√(n−1)).
 
-    Writes ``obsm["X_lsi"]``, ``varm["LSI"]``, ``uns["lsi"]["stdev"]``.
+    Writes ``obsm["X_lsi"]``, ``varm["LSI"]``, ``uns["lsi"]["stdev"]``. A
+    backed X (the ``DeviceBackedCSR`` of ``pp.tfidf``, or a ``BackedMatrix``)
+    is read through its residency tag; only its shape is read on the host.
     ``mesh`` (multi-device) is not ported yet.
     """
     adata = _get_atac(data)

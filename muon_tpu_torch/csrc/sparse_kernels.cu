@@ -16,6 +16,13 @@
 //   T7 csr_row_sums      <- muon_tpu/ops/sparse.py _row_sums_fn
 //   T8 csr_scale_rows    <- muon_tpu/ops/sparse.py _scale_rows_fn
 //
+// and two elementwise passes over a value vector, with no CSR structure:
+//
+//   T38 wire_decode      <- muon_tpu/ops/sparse.py _ingest_block_fn (one
+//                           streamed block, spliced in at an offset) and
+//                           _decode_wire_fn (one block at offset 0)
+//   T39 binarize_values  <- muon_tpu/ops/sparse.py _binarize_fn
+//
 // All of them give one warp to one row of X. The TF-IDF path's dense
 // operands are skinny (l = k + 10 = 60 columns), so every product is bound by
 // memory, not by arithmetic: each stored x_ij touches one row of l values of
@@ -343,6 +350,66 @@ __global__ void csr_scale_rows_kernel(const float* __restrict__ data,
     out[j] = data[j] * s;
 }
 
+// ---------------------------------------------------------------------------
+// T38: decode one block of the out-of-core ingest's wire format into the
+// device CSR at an offset: data[i] = float(val[i]), indices[i] = int(col[i]).
+// The reference also derives row ids and pads the tail (_ingest_block_fn);
+// the port's CSR takes its indptr from the file as it is and has no pad, so
+// a block is the cast of bn values and bn column ids and nothing else.
+// Bound by bytes: 1, 2 or 4 B of value and 2 or 4 B of column read, 8 B
+// written per entry. One thread per 4 entries, the 4 a block-stride apart so
+// that each of the 4 loads and stores of a warp is coalesced. 32-bit
+// indexing within the block (bn < 2^31); the caller offsets the outputs.
+// ---------------------------------------------------------------------------
+
+constexpr int kPer = 4;  // entries a thread
+
+template <typename V, typename C>
+__global__ void wire_decode_kernel(const V* __restrict__ val,
+                                   const C* __restrict__ col, unsigned bn,
+                                   float* __restrict__ data,
+                                   int* __restrict__ indices) {
+  const unsigned base = blockIdx.x * (kThreads * kPer) + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const unsigned i = base + k * kThreads;
+    if (i < bn) {
+      data[i] = (float)val[i];
+      indices[i] = (int)col[i];
+    }
+  }
+}
+
+template <typename V>
+cudaError_t launch_wire_decode(const V* val, const void* col, int col16,
+                               unsigned bn, float* data, int* indices,
+                               cudaStream_t s) {
+  const unsigned blocks = (bn + kThreads * kPer - 1) / (kThreads * kPer);
+  if (col16)
+    wire_decode_kernel<V, int16_t><<<blocks, kThreads, 0, s>>>(
+        val, (const int16_t*)col, bn, data, indices);
+  else
+    wire_decode_kernel<V, int><<<blocks, kThreads, 0, s>>>(
+        val, (const int*)col, bn, data, indices);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// T39: out[i] = x[i] != 0 ? 1 : 0 over a float32 value vector (NaN != 0, so
+// NaN gives 1, as jnp.where does). Bound by bytes: 4 B read and 4 B written
+// per entry; the same thread layout as T38.
+// ---------------------------------------------------------------------------
+
+__global__ void binarize_values_kernel(const float* __restrict__ x, unsigned n,
+                                       float* __restrict__ out) {
+  const unsigned base = blockIdx.x * (kThreads * kPer) + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const unsigned i = base + k * kThreads;
+    if (i < n) out[i] = x[i] != 0.f ? 1.f : 0.f;
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -452,6 +519,38 @@ int mt_csr_scale_rows(const float* data, const int* indptr,
   if (n_rows > 0)
     csr_scale_rows_kernel<<<row_blocks(n_rows), kThreads, 0, s>>>(
         data, indptr, scale, n_rows, out);
+  return (int)cudaGetLastError();
+}
+
+// T38. val (bn) of val_kind 0 uint8, 1 uint16, 2 float32; col (bn) int16
+// when col16 else int32; data (f32) and indices (int32) are the whole CSR
+// tensors, written at [offset, offset + bn). Nothing is launched for bn 0.
+int mt_wire_decode(const void* val, int val_kind, const void* col, int col16,
+                   int bn, long long offset, float* data, int* indices,
+                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bn <= 0) return (int)cudaGetLastError();
+  float* d = data + offset;
+  int* ix = indices + offset;
+  switch (val_kind) {
+    case 0:
+      return (int)launch_wire_decode((const uint8_t*)val, col, col16, (unsigned)bn, d, ix, s);
+    case 1:
+      return (int)launch_wire_decode((const uint16_t*)val, col, col16, (unsigned)bn, d, ix, s);
+    case 2:
+      return (int)launch_wire_decode((const float*)val, col, col16, (unsigned)bn, d, ix, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// T39. x and out (n) float32.
+int mt_binarize_values(const float* x, int n, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    const unsigned blocks = ((unsigned)n + kThreads * kPer - 1) / (kThreads * kPer);
+    binarize_values_kernel<<<blocks, kThreads, 0, s>>>(x, (unsigned)n, out);
+  }
   return (int)cudaGetLastError();
 }
 

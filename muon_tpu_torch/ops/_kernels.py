@@ -93,6 +93,8 @@ _SIGNATURES = {
     "mt_pwm_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                     _P, _P, _I, _P),
     "mt_interval_pileup": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
+    "mt_wire_decode": (_P, _I, _P, _I, _I, _LL, _P, _P, _P),
+    "mt_binarize_values": (_P, _I, _P, _P),
 }
 
 # counter name -> the C entry point it counts
@@ -140,6 +142,8 @@ KERNELS = {
     "l2norm_dense": "mt_l2norm_dense",
     "pwm_scan": "mt_pwm_scan",  # each mode's launch (count, write, scores) counts one
     "interval_pileup": "mt_interval_pileup",  # scatter and row scan count as one
+    "wire_decode": "mt_wire_decode",
+    "binarize_values": "mt_binarize_values",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -169,9 +169,11 @@ def randomized_svd(
     device, singular values in descending order.
 
     ``X``: a :class:`~muon_tpu_torch.ops.sparse.DeviceCSR` (its device is
-    used), a scipy sparse matrix (uploaded to ``device``), or a dense array
-    or tensor (float32 on ``device``; ``method`` and ``symmetric`` do not
-    apply to it, as in the reference).
+    used), a backed CSR (a ``DeviceBackedCSR``'s device values, or a
+    ``BackedMatrix`` streamed in by ``from_backed``, both through the
+    residency tag), a scipy sparse matrix (uploaded to ``device``), or a
+    dense array or tensor (float32 on ``device``; ``method`` and
+    ``symmetric`` do not apply to it, as in the reference).
 
     ``method``: ``"auto"`` takes the XᵀX path when ``_blocks_profitable``,
     the gather path otherwise; ``"blocks"``/``"gather"`` force a path. The
@@ -183,6 +185,10 @@ def randomized_svd(
     """
     if method not in ("auto", "blocks", "gather"):
         raise ValueError(f"method must be 'auto', 'blocks' or 'gather', got {method!r}")
+    if isinstance(X, dsp.DeviceBackedCSR):
+        X = getattr(X, dsp.DEVICE_TAG)
+    elif hasattr(X, "_h5") and getattr(X, "_sparse", False):
+        X = dsp.from_backed(X, device=device)
     if isinstance(X, dsp.DeviceCSR):
         if device is not None and resolve_device(device).type != X.device.type:
             raise ValueError(f"X is on {X.device}, device={device} was asked")

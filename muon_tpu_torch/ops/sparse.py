@@ -20,29 +20,46 @@ the kernel or raises.
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
     row_sums      T7  <- _row_sums_fn
     scale_rows_data  T8  <- _scale_rows_fn
+    wire_decode   T38 <- _ingest_block_fn (a block at an offset), _decode_wire_fn
+    binarize_data T39 <- _binarize_fn
     col_sums      torch (``index_add_``) <- _col_sums_fn
 
-``_binarize_fn``, ``_decode_wire_fn`` and ``_ingest_block_fn`` are not
-ported yet (ROADMAP, kernels to port: K19).
+The out-of-core ingest (``from_backed``) streams an on-disk CSR
+(``BackedMatrix``) to the device block by block, each block narrowed on the
+host to the reference's wire types and decoded by T38; the result hangs on
+the ``BackedMatrix`` under the residency tag ``_muon_tpu_torch_device``, as
+the reference hangs ``_muon_tpu_device``. A ``DeviceBackedCSR`` keeps the
+structure on disk and new values on the device (TF-IDF of a backed X). The
+in-memory ``from_scipy`` uploads float32/int32 CSR as it is and tags nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from scipy import sparse as sp
 
+from .._core.anndata import BackedMatrix
 from ..utils.profiling import stage
 from . import _kernels
-from .device import DeviceLike, resolve_device
+from .device import DeviceLike, on_card, resolve_device
 
 __all__ = [
     "DeviceCSR",
+    "DeviceBackedCSR",
+    "DEVICE_TAG",
     "from_scipy",
+    "from_backed",
     "from_device_coo",
     "to_scipy_data",
+    "wire_types",
+    "wire_decode",
+    "decode_wire",
+    "binarize_data",
+    "with_col_perm",
     "tfidf_data",
     "spmm",
     "spmm_t",
@@ -58,6 +75,8 @@ __all__ = [
     "gram_matmul_plain",
     "row_sums_plain",
     "scale_rows_data_plain",
+    "wire_decode_plain",
+    "binarize_data_plain",
 ]
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -146,6 +165,215 @@ def to_scipy_data(X_csr, new_data: torch.Tensor) -> sp.csr_matrix:
         out = X_csr.copy()
         out.data = new_data.detach().cpu().numpy()[: X_csr.nnz]
         return out
+
+
+# ---------------------------------------------------------------------------
+# the out-of-core ingest (counterpart of from_backed, DeviceBackedCSR)
+# ---------------------------------------------------------------------------
+
+DEVICE_TAG = "_muon_tpu_torch_device"
+_INT16_MAX = int(np.iinfo(np.int16).max)
+# wire value type -> the kind T38 takes; column ids come as int16 or int32
+_WIRE_VALUES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+_WIRE_COLS = (torch.int16, torch.int32)
+_TORCH_WIRE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16,
+               np.dtype(np.float32): torch.float32, np.dtype(np.int16): torch.int16,
+               np.dtype(np.int32): torch.int32}
+
+
+def _col_type(n_cols: int) -> np.dtype:
+    return np.dtype(np.int16 if n_cols < _INT16_MAX else np.int32)
+
+
+def wire_types(values: np.ndarray, n_cols: int) -> Tuple[np.dtype, np.dtype]:
+    """The reference's wire types of one block: values as uint8 when they
+    are integral, >= 0 and below 255, as uint16 below 65535, else float32;
+    column ids as int16 when ``n_cols`` < 32767, else int32."""
+    col = _col_type(n_cols)
+    if values.size == 0:
+        return np.dtype(np.uint8 if values.dtype.kind in "iu" else np.float32), col
+    lo, hi = values.min(), values.max()
+    if not lo >= 0 or not hi < 65535:  # negative, NaN or too large
+        return np.dtype(np.float32), col
+    wt = np.dtype(np.uint8 if hi < 255 else np.uint16)
+    if values.dtype.kind in "iu" or np.array_equal(values.astype(wt), values):
+        return wt, col
+    return np.dtype(np.float32), col
+
+
+def _row_blocks(indptr: np.ndarray, block_nnz: int):
+    """Row blocks of about ``block_nnz`` entries each, cut as the reference
+    cuts them: a block ends at the first row boundary at or past its start
+    plus ``block_nnz``, and holds at least one row."""
+    n = len(indptr) - 1
+    blocks, r0 = [], 0
+    while r0 < n:
+        r1 = int(np.searchsorted(indptr, indptr[r0] + block_nnz, side="left"))
+        r1 = min(max(r1, r0 + 1), n)
+        blocks.append((r0, r1))
+        r0 = r1
+    return blocks
+
+
+class _Staging:
+    """One pinned host buffer for a block's wire values and column ids, its
+    device twin, and the event after the last decode that read the twin."""
+
+    def __init__(self, cap: int, col: np.dtype, device: torch.device):
+        self.host_val = torch.empty(cap * 4, dtype=torch.uint8, pin_memory=True)
+        self.host_col = torch.empty(cap * col.itemsize, dtype=torch.uint8, pin_memory=True)
+        self.dev_val = torch.empty_like(self.host_val, device=device)
+        self.dev_col = torch.empty_like(self.host_col, device=device)
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def fill(self, values, cols, n_cols: int):
+        """Narrow the block into the pinned buffer, copy it to the twin
+        (asynchronous) and return the twin's typed views."""
+        with stage("backed/narrow(host)"):
+            vt, ct = wire_types(values, n_cols)
+            nv, nc = len(values) * vt.itemsize, len(cols) * ct.itemsize
+            self.host_val[:nv].numpy().view(vt)[:] = values
+            self.host_col[:nc].numpy().view(ct)[:] = cols
+        with stage("backed/copy"):
+            self.dev_val[:nv].copy_(self.host_val[:nv], non_blocking=True)
+            self.dev_col[:nc].copy_(self.host_col[:nc], non_blocking=True)
+        return self.dev_val[:nv].view(_TORCH_WIRE[vt]), self.dev_col[:nc].view(_TORCH_WIRE[ct])
+
+
+def from_backed(bm, block_nnz: int = 16 << 20, device: DeviceLike = None) -> DeviceCSR:
+    """Stream an on-disk CSR (a sparse :class:`BackedMatrix`) to ``device`` as
+    a :class:`DeviceCSR`, block by block: the host holds about one block
+    (``block_nnz`` entries) of the file at a time, never the matrix.
+
+    ``indptr`` goes up once, as the file has it. Each block's values and
+    column ids are read, narrowed to their wire types (``wire_types``) and
+    decoded into the preallocated ``data``/``indices`` at the block's offset
+    by T38 (``wire_decode``); an empty block launches nothing. On a CUDA
+    device the narrowed block goes through one of two pinned staging
+    buffers, copied without blocking; a buffer is refilled only after the
+    decode that read its device twin has finished, so reading block i+1
+    overlaps the copy and decode of block i. Column ids keep the file's
+    order within a row (the kernels do not need them sorted).
+
+    The result is cached on ``bm`` under ``DEVICE_TAG`` and returned again
+    for the same device type. A :class:`DeviceBackedCSR` returns its device
+    values (its file holds other values)."""
+    device = resolve_device(device)
+    tag = getattr(bm, DEVICE_TAG, None)
+    if isinstance(tag, DeviceCSR) and tag.shape == tuple(bm.shape):
+        if tag.device.type == device.type:
+            return tag
+        if isinstance(bm, DeviceBackedCSR):
+            raise ValueError(f"the values of X are on {tag.device}, device={device} was asked")
+    if not getattr(bm, "_sparse", False):
+        raise TypeError("from_backed expects a sparse (CSR group) BackedMatrix")
+    h5 = bm._h5
+    n, d = (int(x) for x in bm.shape)
+    with stage("backed/indptr(host)"):
+        indptr = np.asarray(h5["indptr"][...]).astype(np.int64)
+    if indptr.shape != (n + 1,):
+        raise ValueError(f"indptr has shape {indptr.shape}, expected ({n + 1},)")
+    nnz = int(indptr[-1])
+    _check_size(n, d, nnz)
+    out = DeviceCSR(
+        torch.empty(nnz, dtype=torch.float32, device=device),
+        torch.from_numpy(indptr.astype(np.int32)).to(device),
+        torch.empty(nnz, dtype=torch.int32, device=device),
+        n, d, nnz,
+    )
+    blocks = [(int(indptr[r0]), int(indptr[r1])) for r0, r1 in _row_blocks(indptr, block_nnz)]
+    blocks = [(s, e) for s, e in blocks if e > s]
+    if blocks:
+        _ingest(h5["data"], h5["indices"], blocks, out)
+    try:
+        setattr(bm, DEVICE_TAG, out)
+    except AttributeError:
+        pass
+    return out
+
+
+def _ingest(d_ds, i_ds, blocks, out: DeviceCSR) -> None:
+    """Read, narrow and decode the entry spans ``blocks`` into ``out``."""
+    cuda = out.device.type == "cuda"
+    with torch.cuda.device(out.device) if cuda else contextlib.nullcontext():
+        staging = None
+        if cuda:
+            cap = max(e - s for s, e in blocks)
+            with stage("backed/pin(host)"):
+                staging = [_Staging(cap, _col_type(out.n_cols), out.device) for _ in range(2)]
+        for b, (s, e) in enumerate(blocks):
+            st = staging[b % 2] if cuda else None
+            if cuda:
+                st.done.synchronize()  # its last copy and decode are over
+            with stage("backed/read(host)"):
+                values, cols = np.asarray(d_ds[s:e]), np.asarray(i_ds[s:e])
+            if cuda:
+                val, col = st.fill(values, cols, out.n_cols)
+            else:
+                with stage("backed/narrow(host)"):
+                    vt, ct = wire_types(values, out.n_cols)
+                    val, col = torch.from_numpy(values.astype(vt)), torch.from_numpy(cols.astype(ct))
+            with stage("backed/decode"):
+                wire_decode(val, col, out.data, out.indices, s)
+            if cuda:
+                st.done.record()
+        for st in staging or ():
+            st.done.synchronize()  # no copy outlives its pinned buffer
+
+
+def decode_wire(val: torch.Tensor, col: torch.Tensor, indptr: torch.Tensor,
+                n_cols: int) -> DeviceCSR:
+    """A whole matrix's wire at once as a :class:`DeviceCSR` on ``val``'s
+    device (the counterpart of ``_decode_wire_fn``): T38 over all of it at
+    offset 0, ``indptr`` (n+1) as the rows."""
+    nnz, n = val.numel(), indptr.numel() - 1
+    _check_size(n, n_cols, nnz)
+    data = torch.empty(nnz, dtype=torch.float32, device=val.device)
+    indices = torch.empty(nnz, dtype=torch.int32, device=val.device)
+    wire_decode(val, col, data, indices, 0)
+    return DeviceCSR(data, indptr.to(device=val.device, dtype=torch.int32).contiguous(),
+                     indices, n, int(n_cols), nnz)
+
+
+class DeviceBackedCSR(BackedMatrix):
+    """A sparse matrix whose STRUCTURE lives on disk (the CSR group of a
+    :class:`BackedMatrix`) and whose VALUES live on the device: what a
+    structure-preserving transform (TF-IDF) of a backed X gives. Device ops
+    re-enter through ``DEVICE_TAG`` with nothing on the host; ``to_memory``
+    and row reads take the structure from disk and download only the values
+    they need. The device values keep the file's entry order, so they pair
+    with the file's ``indices`` as they are."""
+
+    def __init__(self, h5group, dX: DeviceCSR):
+        self._h5 = h5group
+        self.shape = tuple(dX.shape)
+        self.nnz = int(dX.nnz)
+        self.dtype = np.dtype(np.float32)
+        self._sparse = True
+        self._indptr = None
+        setattr(self, DEVICE_TAG, dX)
+
+    def to_memory(self) -> sp.csr_matrix:
+        vals = getattr(self, DEVICE_TAG).data.cpu().numpy()
+        return sp.csr_matrix(
+            (vals, self._h5["indices"][...], self._h5["indptr"][...]), shape=self.shape
+        )
+
+    def _row_values(self, oidx, starts, ends, total: int) -> np.ndarray:
+        """The values of rows ``oidx`` by one device gather of their positions
+        (their column ids are read from disk as a ``BackedMatrix`` reads them)."""
+        counts = ends - starts
+        pos = np.repeat(starts - (np.cumsum(counts) - counts), counts) + np.arange(total)
+        data = getattr(self, DEVICE_TAG).data
+        return data[torch.from_numpy(pos).to(data.device)].cpu().numpy()
+
+
+def with_col_perm(X: DeviceCSR) -> torch.Tensor:
+    """The ``(nnz,)`` int32 permutation that sorts X's stored entries by
+    column id, stably (the reference's ``perm_bycol``, for transposed
+    products in entry order)."""
+    return torch.argsort(X.indices, stable=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +574,51 @@ def col_sums(X: DeviceCSR) -> torch.Tensor:
     return out.index_add_(0, X.indices.long(), X.data)
 
 
+def wire_decode(val: torch.Tensor, col: torch.Tensor, data: torch.Tensor,
+                indices: torch.Tensor, offset: int) -> None:
+    """T38, in place: ``data[offset:offset+bn] = float32(val)`` and
+    ``indices[offset:offset+bn] = int32(col)`` for the ``bn`` entries of one
+    block of the wire format (``val`` uint8, uint16 or float32; ``col``
+    int16 or int32). Nothing is launched for an empty block."""
+    kinds = {t.device for t in (val, col, data, indices)}
+    if len(kinds) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, kinds))}")
+    bn = val.numel()
+    if not on_card(data):
+        return wire_decode_plain(val, col, data, indices, offset)
+    vk = _WIRE_VALUES.get(val.dtype)
+    if vk is None or col.dtype not in _WIRE_COLS:
+        raise TypeError(f"wire types must be uint8/uint16/float32 values and int16/int32 "
+                        f"columns, got {val.dtype} and {col.dtype}")
+    if data.dtype != torch.float32 or indices.dtype != torch.int32:
+        raise TypeError(f"data must be float32 and indices int32, got {data.dtype}, "
+                        f"{indices.dtype}")
+    if val.dim() != 1 or col.shape != val.shape or data.shape != indices.shape:
+        raise ValueError("val and col must be (bn,) and data and indices of one shape")
+    if not all(t.is_contiguous() for t in (val, col, data, indices)):
+        raise ValueError("wire_decode needs contiguous tensors")
+    if offset < 0 or offset + bn > data.numel() or bn > _INT32_MAX:
+        raise ValueError(f"a block of {bn} at {offset} does not fit {data.numel()} entries")
+    if bn:
+        _kernels.launch(
+            "wire_decode", data.device,
+            val.data_ptr(), vk, col.data_ptr(), int(col.dtype == torch.int16), bn, int(offset),
+            data.data_ptr(), indices.data_ptr(),
+        )
+
+
+def binarize_data(X: DeviceCSR) -> torch.Tensor:
+    """T39: the ``(nnz,)`` float32 values of X with every nonzero made 1 and
+    every zero 0 (NaN counts as nonzero, as in the reference)."""
+    if _on(X) == "cpu":
+        return binarize_data_plain(X)
+    _check_csr(X)
+    out = torch.empty_like(X.data)
+    if X.nnz:
+        _kernels.launch("binarize_values", X.device, X.data.data_ptr(), X.nnz, out.data_ptr())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path; the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
@@ -424,3 +697,14 @@ def row_sums_plain(X: DeviceCSR) -> torch.Tensor:
 
 def scale_rows_data_plain(X: DeviceCSR, row_scale: torch.Tensor) -> torch.Tensor:
     return X.data * row_scale.float()[_row_ids(X)]
+
+
+def wire_decode_plain(val: torch.Tensor, col: torch.Tensor, data: torch.Tensor,
+                      indices: torch.Tensor, offset: int) -> None:
+    bn = val.numel()
+    data[offset:offset + bn] = val.to(torch.float32)
+    indices[offset:offset + bn] = col.to(torch.int32)
+
+
+def binarize_data_plain(X: DeviceCSR) -> torch.Tensor:
+    return (X.data != 0).to(X.data.dtype)

@@ -198,13 +198,6 @@ def test_unported_branches_raise(adata_sparse):
     with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
         tac.tl.lsi(adata_sparse, mesh=object())
 
-    class Backed:  # the shape of muon_tpu's BackedMatrix
-        _sparse, _h5, shape = True, None, (3, 2)
-
-    holder = type("Holder", (), {"X": Backed(), "layers": {}})()
-    with pytest.raises(NotImplementedError, match="the out-of-core ingest, K19"):
-        tac.pp.tfidf(holder)
-
 
 @pytest.mark.parametrize("sparse", [True, False])
 def test_binarize_matches_jax(sparse):

@@ -8,8 +8,8 @@ tests/test_containers.py and tests/test_preproc_filter.py look at: shapes,
 frames, matrices, the aligned mappings, views, ``update()``'s maps and
 masks, filter results and the exceptions raised. The two must be equal: the
 frames by ``pd.testing.assert_frame_equal``, the arrays element for element
-with their dtypes. The backed and I/O cases stay out: the port refuses
-them with the name of the slice that brings them (K19).
+with their dtypes. The I/O and backed cases are in tests/test_torch_io.py and
+tests/test_torch_backed.py.
 """
 
 import subprocess
@@ -446,38 +446,20 @@ def test_port_containers_are_the_ports():
 
 
 # ---------------------------------------------------------------------------
-# what the port refuses until K19 (the h5ad/h5mu I/O, backed mode)
+# importing the port needs neither pandas nor h5py
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("call", [
-    lambda tmp: mt.AnnData(X=np.zeros((2, 2)), filename=str(tmp / "x.h5ad")),
-    lambda tmp: _adata(mt, 3, 2).write(str(tmp / "x.h5ad")),
-    lambda tmp: _adata(mt, 3, 2).write_h5ad(str(tmp / "x.h5ad")),
-    lambda tmp: _mdata(mt).write(str(tmp / "x.h5mu")),
-    lambda tmp: _mdata(mt).write_h5mu(str(tmp / "x.h5mu")),
-], ids=["backed", "write", "write_h5ad", "mudata_write", "write_h5mu"])
-def test_io_and_backed_are_refused_naming_k19(call, tmp_path):
-    with pytest.raises(NotImplementedError, match="h5ad/h5mu I/O and the out-of-core ingest, K19"):
-        call(tmp_path)
-    assert not list(tmp_path.iterdir())
-
-
-def test_filters_refuse_a_backed_object():
-    class Backed:
-        is_view, isbacked = False, True
-
-    with pytest.raises(NotImplementedError, match="K19"):
-        mt.pp.filter_obs(Backed(), np.ones(3, dtype=bool))
-
-
 def test_port_imports_without_pandas():
-    # the containers import pandas inside their functions: the port, its
-    # device paths and its containers import where pandas is missing
-    code = ("import sys; sys.modules['pandas'] = None\n"
+    # the containers, the I/O and the readers import pandas and h5py inside
+    # their functions: the port, its device paths, its containers and its
+    # readers import where both are missing (the card's machine has no h5py)
+    code = ("import sys; sys.modules['pandas'] = None; sys.modules['h5py'] = None\n"
             "import muon_tpu_torch, muon_tpu_torch.atac, muon_tpu_torch.prot\n"
             "import muon_tpu_torch.ops.pileup, muon_tpu_torch.atac.fragments\n"
-            "from muon_tpu_torch import AnnData, MuData\n"
+            "import muon_tpu_torch.atac.io, muon_tpu_torch.prot.io, muon_tpu_torch._core.h5io\n"
+            "from muon_tpu_torch import AnnData, MuData, read_h5mu, write_h5ad\n"
+            "from muon_tpu_torch.ops.sparse import from_backed, DeviceBackedCSR\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
