@@ -89,6 +89,12 @@ as a ``BackedMatrix`` in a port ``AnnData``, through ``atac.pp.tfidf`` (the
 matrix streamed to the card block by block, T38 a block, then T1) →
 ``atac.tl.lsi(n_comps=50)``.
 
+and the multi-device pipeline over ``torch.distributed`` (``parallel``): the
+same ATAC counts through the sharded programs at one rank under NCCL, then
+through the public tools with ``mesh=`` at two and four ranks under gloo,
+every rank on the one card, with the 1M representation's sharded IVF and
+UMAP at two.
+
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
 number; at the end any recorded failure makes the exit code 1 and no result
@@ -324,6 +330,39 @@ is printed. An exception stops the run at once, with a code other than 0:
     binarize_values`` (T39 on the TF-IDF values, every seventh made 0), each
     bit for bit against its plain version. T39 is on no path (no tool of
     either package binarises on the device): its launches read 0.
+41. ``[mesh1]`` (after phase 22): the multi-device pipeline at one rank under
+    NCCL, spawned with ``torch.multiprocessing`` (the kernels built before,
+    TF32 off in every rank, a ``file://`` store): ``parallel.shard_rows`` →
+    ``sharded_tfidf_data`` → ``sharded_rsvd(50)`` → X_lsi → ``sharded_knn``
+    (k = 20) of ``make_counts``, counted alone (T1's two modes once, T2 and T3
+    in float32 eight times each, T40 once); gates: the TF-IDF values within
+    rtol 1e-5 atol 1e-6 of ``tfidf_data_plain``, s within 1e-4 of the same
+    rSVD through the plain products from the same Ω, X_lsi by phase 40's span
+    rule against the L Ritz pairs of the kernels' and the plain rSVD, the
+    distances within 1e-5 of max(d, |q|²) of T40's plain twin (one place
+    longer) and the ids equal but where that list holds a near-tie (1e-6).
+42. ``[mesh2]``: two ranks under gloo, both on the one card (NCCL refuses two
+    ranks on one device; gloo stages through pinned host memory), through the
+    public tools with ``mesh=``: ``atac.pp.tfidf`` → ``atac.tl.lsi`` →
+    ``pp.neighbors(use_rep="X_lsi")`` → ``tl.umap`` (200 epochs, T41) at the
+    same 100k, then ``pp.neighbors(20)`` of ``make_big_rep`` (1M × 50, the
+    sharded IVF) and ``tl.umap`` of its graph, each counted alone; gates
+    against [mesh1]: the values within 1e-6, s within 1e-4, the ring kNN of
+    [mesh1]'s X_lsi (its distances within 1e-6, its ids equal but at
+    near-ties) and the connectivities from it within 1e-5; the layout twice
+    from one seed bit for bit; the IVF's recall over 10,000 sampled rows
+    against exact ≥ 0.9; one sharded Lloyd step from the path's start
+    within 1e-5 × max|X| of one device's; the 1M layout's 15-NN
+    planted-label share ≥ 0.8 × the graph's. ``[mesh4]``: four ranks, tfidf →
+    lsi → neighbors at 100k, the gates of [mesh2] against [mesh1]. Each rank
+    prints its ``mesh/*`` and ``comm/*`` stages (``comm/stage(host)``: the
+    copies through host memory); the launches are every rank's added up.
+    These phases show the sharded arithmetic and the collectives' wiring on
+    the card; with every rank on one card their times are no scaling.
+43. ``[kernel] knn_ring_merge`` (a [mesh4] round, 25,000 × 25,000, and
+    [mesh1]'s one round at 100,000), ``umap_epoch_block`` (a [mesh2] rank's
+    window), ``tfidf_col_sums`` and ``tfidf_values_global`` (T1's modes),
+    each against its plain twin with its bound and library call.
 
 The last three lines are a JSON object of the kernels (``wire_decode``'s
 entry holds the path's block, uint8/int16, and lists every case under
@@ -335,7 +374,8 @@ set to 0 just before it, and ``launches_by_path`` gives each;
 kernel's measured call, ``library_ms`` the time of one PyTorch call that
 computes the same function, where there is one), the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
-Without a CUDA device it prints no result and exits 1.
+Without a CUDA device it prints no result and exits 1. ``python3 chip_smoke.py
+--mesh-only`` runs phases 1, 2 and 41-43 alone and prints no result.
 """
 
 from __future__ import annotations
@@ -462,6 +502,12 @@ KERNEL_INFO = {
     "interval_pileup": (PILEUP_SRC, "muon_tpu/ops/pileup.py:29"),   # _pileup_fn
     "wire_decode": (SPARSE_SRC, "muon_tpu/ops/sparse.py:228"),      # _ingest_block_fn (+ :482)
     "binarize_values": (SPARSE_SRC, "muon_tpu/ops/sparse.py:846"),  # _binarize_fn
+    # the multi-device pipeline: T1's modes are the bodies of _colsums_fn and
+    # _tfidf_fn; T40 one round of _knn_ring_fn; T41 one epoch of _umap_epochs_fn
+    "tfidf_col_sums": (SPARSE_SRC, "muon_tpu/parallel/pipeline.py:155"),
+    "tfidf_values_global": (SPARSE_SRC, "muon_tpu/parallel/pipeline.py:209"),
+    "knn_ring_merge": (KNN_SRC, "muon_tpu/parallel/pipeline.py:374"),
+    "umap_epoch_block": (UMAP_SRC, "muon_tpu/parallel/pipeline.py:691"),
 }
 # what each path launches: the ATAC path (auto takes the XtX path for lsi,
 # neighbors the approx kNN), the RNA path, and the gather rSVD side run
@@ -589,6 +635,28 @@ WIRE_PAIRS = ((np.uint8, np.int16), (np.uint8, np.int32), (np.uint16, np.int16),
               (np.uint16, np.int32), (np.float32, np.int16), (np.float32, np.int32))
 # kernels no tool of either package calls: launched by their [kernel] phase only
 OFF_PATH = {"binarize_values": "_binarize_fn has no caller in muon_tpu either"}
+# [mesh*]: the launches of all ranks together. A rank: T1's two modes once
+# each; the sharded rSVD T2 1 + N_ITER and T3 N_ITER + 1 times (float32);
+# the ring P rounds of T40; T6 once; tl.umap T41 once an epoch and the exact
+# spectral seed's T2 (bf16 9, float32 1); the 1M IVF T15 9 times and T14 once
+MESH_PATHS = {
+    "mesh1": {"tfidf_col_sums": 1, "tfidf_values_global": 1, "tfidf_values": 0,
+              "csr_spmm_f32": N_ITER + 1, "csr_spmm_t_f32": N_ITER + 1,
+              "csr_gram_matmul": 0, "knn_ring_merge": 1, "knn_topk": 0},
+    "mesh2": {"tfidf_col_sums": 2, "tfidf_values_global": 2, "csr_spmm_f32": 2 * (N_ITER + 2),
+              "csr_spmm_t_f32": 2 * (N_ITER + 1), "csr_spmm_bf16": 18, "knn_ring_merge": 4,
+              "smooth_knn_membership": 2, "umap_epoch_block": 2 * N_EPOCHS, "umap_epoch": 0},
+    "mesh2_1m": {"kmeans_assign": 18, "ivf_search": 2, "smooth_knn_membership": 2,
+                 "umap_epoch_block": 2 * N_EPOCHS, "csr_spmm_bf16": 18, "csr_spmm_f32": 2,
+                 "knn_topk": 0},
+    "mesh4": {"tfidf_col_sums": 4, "tfidf_values_global": 4, "csr_spmm_f32": 4 * (N_ITER + 1),
+              "csr_spmm_t_f32": 4 * (N_ITER + 1), "knn_ring_merge": 16,
+              "smooth_knn_membership": 4},
+}
+# a kNN id may differ from the reference list's only where two neighbouring
+# distances of that list lie this close (relative); the sampled rows of the
+# sharded IVF's recall against exact neighbours
+MESH_TIE, MESH_RECALL_ROWS = 1e-6, 10_000
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
@@ -5029,6 +5097,510 @@ def phase_wire_kernels(dsp, Xw, dW, cuda) -> dict:
     return results
 
 
+
+# ---------------------------------------------------------------------------
+# [mesh1], [mesh2], [mesh4]: the multi-device pipeline over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def save_csr(path, X) -> None:
+    for part in ("data", "indices", "indptr"):
+        np.save(f"{path}_{part}.npy", getattr(X, part))
+    np.save(f"{path}_shape.npy", np.array(X.shape))
+
+
+def load_csr(path) -> sp.csr_matrix:
+    parts = [np.load(f"{path}_{p}.npy") for p in ("data", "indices", "indptr")]
+    return sp.csr_matrix(tuple(parts), shape=tuple(np.load(f"{path}_shape.npy")))
+
+
+def zscore(U: np.ndarray) -> np.ndarray:
+    """X_lsi as atac.tl.lsi writes it: the columns z-scored in float32."""
+    return (U - U.mean(axis=0)) / U.std(axis=0)
+
+
+def knn_near_ties(got_i, want_i, want_d) -> tuple:
+    """Rows whose ids differ, and of them those without a near-tie: two
+    neighbouring distances of ``want_d`` (a list one place longer) within
+    MESH_TIE relative."""
+    differ = (got_i != want_i[:, : got_i.shape[1]]).any(axis=1)
+    d = want_d[differ]
+    tie = (np.abs(np.diff(d, axis=1)) <= MESH_TIE * np.abs(d[:, 1:])).any(axis=1)
+    return int(differ.sum()), int((~tie).sum())
+
+
+def span_cosines(emb: torch.Tensor, U_t: torch.Tensor, s_t: np.ndarray):
+    """Phase 40's span rule: the target's L components grouped where the
+    relative gap between neighbours is below 1e-2, each group's part of
+    ``emb`` held to the group's span (least principal-angle cosine)."""
+    L_ = len(s_t)
+    groups = np.split(np.arange(L_), np.flatnonzero((s_t[:-1] - s_t[1:]) / s_t[:-1] >= 1e-2) + 1)
+    groups = [g for g in groups if g[0] < K]
+    return ([(int((g < K).sum()), len(g)) for g in groups],
+            [float(canonical_correlations(emb[:, g[g < K]], U_t[:, g]).min()) for g in groups])
+
+
+def mesh_job1(mesh, work, kernels, profiling):
+    """[mesh1]: the sharded_* functions at one rank, under NCCL, full width:
+    make_counts through tfidf → rsvd(50) → X_lsi → the ring kNN (k = 20),
+    held against the plain versions on the card."""
+    from muon_tpu_torch import parallel as par
+    from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import knn as tk
+    from muon_tpu_torch.ops import linalg as tla
+    from muon_tpu_torch.ops import sparse as dsp
+
+    X = load_csr(f"{work}/counts")
+    cuda = mesh.device
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        Ys = par.sharded_tfidf_data(par.shard_rows(X, mesh))
+        U, s, _ = par.sharded_rsvd(Ys, K, n_iter=N_ITER, seed=SEED)
+        emb = zscore(U.cpu().numpy())
+        D, I = par.sharded_knn(emb, mesh, k=N_NEIGHBORS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    info, checks = {"wall": wall}, {}
+
+    dX = dsp.from_scipy(X, cuda)
+    vals, plain = Ys.local.data, dsp.tfidf_data_plain(dX)
+    diff = (vals - plain).abs()
+    info["tfidf_err"] = float(diff.max())
+    checks["[mesh1] TF-IDF values vs tfidf_data_plain, rtol 1e-5 atol 1e-6"] = bool(
+        (diff <= 1e-6 + 1e-5 * plain.abs()).all())
+    del diff, plain
+    targets = {"kernels": par.sharded_rsvd(Ys, L, n_oversample=0, seed=SEED)[:2],
+               "plain": par.sharded_rsvd(Ys, L, n_oversample=0, seed=SEED,
+                                         ops=tla.PLAIN_OPS)[:2]}
+    s_plain = targets["plain"][1][:K]
+    info["s_rel"] = float(((s - s_plain).abs() / s_plain).max())
+    checks["[mesh1] s vs the plain rSVD from the same omega, rtol 1e-4"] = info["s_rel"] <= 1e-4
+    emb_t = torch.from_numpy(emb).to(cuda)
+    for name, (U_t, s_t) in targets.items():
+        sizes, cos = span_cosines(emb_t, U_t, s_t.cpu().numpy())
+        info[f"span_{name}"] = [sizes, [round(c, 8) for c in cos]]
+        checks[f"[mesh1] X_lsi vs the {name} rSVD: every group in its span, cosines >= "
+               "1 - 1e-4"] = min(cos) >= 1 - 1e-4
+    sq = (emb_t * emb_t).sum(dim=1)
+    k2 = N_NEIGHBORS + 2  # one place more than the path's, for the near-tie rule
+    pd, pi = tk.knn_ring_merge_plain(
+        emb_t, sq, emb_t, sq, 0, emb_t.shape[0],
+        torch.full((emb_t.shape[0], k2), float("inf"), device=cuda),
+        torch.full((emb_t.shape[0], k2), -1, dtype=torch.int32, device=cuda))
+    k1 = N_NEIGHBORS + 1
+    derr = ((D - pd[:, :k1]).abs() / torch.maximum(pd[:, :k1].abs(), sq[:, None])).max()
+    info["knn_err"] = float(derr)
+    checks["[mesh1] ring kNN distances vs T40's plain twin, rtol 1e-5 of max(d, |q|^2)"] = \
+        info["knn_err"] <= 1e-5
+    differ, untied = knn_near_ties(I.cpu().numpy(), pi.cpu().numpy(), pd.cpu().numpy())
+    info["knn_ids_differ"], info["knn_ids_untied"] = differ, untied
+    checks["[mesh1] ring kNN ids vs plain equal but at near-ties"] = untied == 0
+    conn = tf.compute_connectivities_umap(I.cpu().numpy(),
+                                          torch.sqrt(torch.clamp(D, min=0.0)),
+                                          emb.shape[0], k1)
+    np.savez(f"{work}/mesh1.npz", vals=vals.cpu().numpy(), s=s.cpu().numpy(), emb=emb,
+             U_t=targets["kernels"][0].cpu().numpy(), s_t=targets["kernels"][1].cpu().numpy(),
+             D=D.cpu().numpy(), I=I.cpu().numpy(), conn_data=conn.data,
+             conn_indices=conn.indices, conn_indptr=conn.indptr)
+    return launches, t, info, checks
+
+
+def mesh_against_mesh1(par, tf, mesh, work, h, info, checks, tag):
+    """The gates of [mesh2] and [mesh4]: what the public tools wrote against
+    [mesh1] (the TF-IDF values, s, X_lsi by [mesh1]'s span rule) and against
+    a ring kNN of h's own X_lsi (obsp's distances and connectivities), and a
+    ring kNN of [mesh1]'s X_lsi against [mesh1]'s (the ring at P ranks
+    against one)."""
+    ref = np.load(f"{work}/mesh1.npz")
+    info["tfidf_rel"] = float(np.max(np.abs(h.X.data - ref["vals"]) / np.abs(ref["vals"])))
+    checks[f"{tag} TF-IDF values vs [mesh1], rtol 1e-6"] = info["tfidf_rel"] <= 1e-6
+    s = h.uns["lsi"]["stdev"] * np.sqrt(N_CELLS - 1)
+    info["s_rel"] = float(np.max(np.abs(s - ref["s"]) / ref["s"]))
+    checks[f"{tag} s vs [mesh1], rtol 1e-4"] = info["s_rel"] <= 1e-4
+    lsi = torch.from_numpy(np.ascontiguousarray(h.obsm["X_lsi"])).to(mesh.device)
+    sizes, cos = span_cosines(lsi, torch.from_numpy(ref["U_t"]).to(mesh.device), ref["s_t"])
+    info["span"] = [sizes, [round(c, 8) for c in cos]]
+    checks[f"{tag} X_lsi vs [mesh1]'s rSVD target: every group in its span, cosines >= "
+           "1 - 1e-4"] = min(cos) >= 1 - 1e-4
+    del lsi
+
+    # the graph the path wrote, against a ring kNN of the same X_lsi
+    k = N_NEIGHBORS  # pp.neighbors(n_neighbors=20): 19 neighbours and self
+    d2, ids = par.sharded_knn(h.obsm["X_lsi"], mesh, k=k)  # one place more for ties
+    d2, ids = d2.cpu().numpy(), ids.cpu().numpy()
+    dist = np.sqrt(np.maximum(d2, 0.0))
+    Dm = h.obsp["distances"]
+    counts = np.diff(Dm.indptr)
+    checks[f"{tag} obsp distances: {k - 1} entries a row"] = bool((counts == k - 1).all())
+    if (counts == k - 1).all():
+        got_i = Dm.indices.reshape(N_CELLS, k - 1)
+        got_d = Dm.data.reshape(N_CELLS, k - 1)
+        order = np.argsort(ids[:, 1:k], axis=1, kind="stable")
+        want_i = np.take_along_axis(ids[:, 1:k], order, axis=1)
+        want_d = np.take_along_axis(dist[:, 1:k], order, axis=1)
+        # rows apart only where the side run's k-th and (k+1)-th distances tie
+        row_tie = np.abs(d2[:, k] - d2[:, k - 1]) <= MESH_TIE * np.abs(d2[:, k])
+        rows_apart = (got_i != want_i).any(axis=1)
+        info["obsp_ids_differ"] = int(rows_apart.sum())
+        info["obsp_ids_untied"] = int((rows_apart & ~row_tie).sum())
+        checks[f"{tag} obsp distances' ids vs a ring kNN of X_lsi equal but at near-ties"] = \
+            info["obsp_ids_untied"] == 0
+        same = ~rows_apart
+        info["obsp_d_err"] = float(np.max(np.abs(got_d[same] - want_d[same])
+                                          / np.maximum(want_d[same], 1e-30), initial=0.0))
+        checks[f"{tag} obsp distances vs sqrt of that kNN's, rtol 1e-6"] = \
+            info["obsp_d_err"] <= 1e-6
+    conn = tf.compute_connectivities_umap(ids[:, :k], dist[:, :k], N_CELLS, k,
+                                          device=mesh.device)
+    diff = (h.obsp["connectivities"] - conn).tocoo()
+    apart = np.flatnonzero(rows_apart) if (counts == k - 1).all() else np.arange(N_CELLS)
+    keep = ~np.isin(diff.row, apart) & ~np.isin(diff.col, apart)
+    info["obsp_conn_err"] = float(np.abs(diff.data[keep]).max(initial=0.0))
+    checks[f"{tag} obsp connectivities vs that kNN's, atol 1e-5, but for rows apart at a "
+           "tie"] = info["obsp_conn_err"] <= 1e-5
+    del d2, ids, dist, diff
+
+    D, I = par.sharded_knn(ref["emb"], mesh, k=N_NEIGHBORS)
+    D, I = D.cpu().numpy(), I.cpu().numpy()
+    info["knn_d_err"] = float(np.max(np.abs(D - ref["D"]) / np.maximum(np.abs(ref["D"]), 1.0)))
+    checks[f"{tag} ring kNN of [mesh1]'s X_lsi: distances equal [mesh1]'s within 1e-6"] = \
+        info["knn_d_err"] <= 1e-6
+    pad = np.concatenate([ref["D"], np.full((len(D), 1), np.inf, np.float32)], axis=1)
+    differ, untied = knn_near_ties(I, ref["I"], pad)
+    info["knn_ids_differ"], info["knn_ids_untied"] = differ, untied
+    checks[f"{tag} ring kNN ids vs [mesh1] equal but at near-ties"] = untied == 0
+    conn = tf.compute_connectivities_umap(I, np.sqrt(np.maximum(D, 0.0)), len(D),
+                                          N_NEIGHBORS + 1, device=mesh.device)
+    want = sp.csr_matrix((ref["conn_data"], ref["conn_indices"], ref["conn_indptr"]),
+                         shape=conn.shape)
+    # an entry (i, j) of the union reads rows i and j of the kNN table: held
+    # where both rows hold [mesh1]'s ids (a row apart at a tie has another edge)
+    diff = (conn - want).tocoo()
+    apart = np.flatnonzero((I != ref["I"]).any(axis=1))
+    keep = ~np.isin(diff.row, apart) & ~np.isin(diff.col, apart)
+    info["conn_err"] = float(np.abs(diff.data[keep]).max(initial=0.0))
+    info["conn_entries_apart"] = int((~keep).sum())
+    checks[f"{tag} connectivities of that kNN vs [mesh1]'s, atol 1e-5, but for rows apart at "
+           "a tie"] = info["conn_err"] <= 1e-5
+
+
+def mesh_public_path(mesh, work, kernels, profiling, tac, tpp, umap: bool):
+    X = load_csr(f"{work}/counts")
+    h = Holder(X)
+    kernels.reset_launch_counts()
+    with profiling.collect() as t:
+        t0 = time.perf_counter()
+        tac.pp.tfidf(h, mesh=mesh)
+        tac.tl.lsi(h, n_comps=K, n_iter=N_ITER, random_state=SEED, mesh=mesh)
+        tpp.neighbors(h, n_neighbors=N_NEIGHBORS, use_rep="X_lsi", mesh=mesh)
+        if umap:
+            from muon_tpu_torch import tl as ttl
+
+            ttl.umap(h, mesh=mesh, maxiter=N_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return h, kernels.launch_counts(), t, wall
+
+
+def mesh_job2(mesh, work, kernels, profiling):
+    """[mesh2]: two ranks under gloo on one card, the public tools with
+    mesh=: tfidf → lsi → neighbors → umap at 100k, then neighbors of the 1M
+    representation (the sharded IVF) and umap of its graph."""
+    from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import parallel as par
+    from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch import tl as ttl
+    from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import ivf as ti
+    from muon_tpu_torch.ops import knn as tk
+    from muon_tpu_torch.parallel.pipeline import row_block, sharded_kmeans
+
+    cuda = mesh.device
+    h, launches, t, wall = mesh_public_path(mesh, work, kernels, profiling, tac, tpp, True)
+    info, checks = {"wall": wall}, {}
+    emb = h.obsm["X_umap"]
+    again = par.sharded_umap_embed(h.obsp["connectivities"], mesh, n_epochs=N_EPOCHS,
+                                   random_state=42)
+    checks["[mesh2] X_umap finite, (n, 2)"] = emb.shape == (N_CELLS, 2) and \
+        bool(np.isfinite(emb).all())
+    checks["[mesh2] two UMAP runs of one seed bit for bit"] = bool(np.array_equal(emb, again))
+    mesh_against_mesh1(par, tf, mesh, work, h, info, checks, "[mesh2]")
+    del h, again
+
+    rep = np.load(f"{work}/big_rep.npy")
+    labels = np.load(f"{work}/big_labels.npy")
+    hb = big_holder(rep)
+    kernels.reset_launch_counts()
+    with profiling.collect() as tb:
+        t0 = time.perf_counter()
+        tpp.neighbors(hb, n_neighbors=N_NEIGHBORS, use_rep="X_rep", mesh=mesh)
+        torch.cuda.synchronize()
+        info["ivf_wall"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ttl.umap(hb, mesh=mesh, maxiter=N_EPOCHS)
+        torch.cuda.synchronize()
+        info["umap1m_wall"] = time.perf_counter() - t0
+    ivf_launches = kernels.launch_counts()
+    D = hb.obsp["distances"]
+    n = rep.shape[0]
+    X = torch.from_numpy(rep).to(cuda)
+    # one Lloyd step from the path's own start, sharded (every rank) against
+    # one device (rank 0)
+    C = min(int(2 ** round(np.log2(max(np.sqrt(n), 16)))), max(16, n // 64))
+    cent0 = X[torch.from_numpy(np.random.default_rng(SEED).choice(n, C, replace=False))
+              .to(cuda)].contiguous()
+    _, lo, hi = row_block(n, mesh)
+    step = sharded_kmeans(X[lo:hi].contiguous(), cent0, 1, mesh)[0]
+    for k_, v in tb.items():
+        t.setdefault(f"1M {k_}", []).extend(v)
+    if mesh.rank != 0:
+        return (launches, ivf_launches), t, info, checks
+    single = ti._update_centroids(X, ti.kmeans_assign(X, cent0), cent0)
+    info["lloyd_err"] = float((step - single).abs().max())
+    checks["[mesh2] one sharded Lloyd step vs one device, within 1e-5 x max|X|"] = \
+        info["lloyd_err"] <= 1e-5 * float(X.abs().max())
+    # recall over sampled rows against exact neighbours (the rows' distances
+    # to all 1M points on the card, a chunk of rows at a time)
+    rows = np.random.default_rng(SEED).choice(n, MESH_RECALL_ROWS, replace=False)
+    sq = (X * X).sum(dim=1)
+    hits = 0
+    for c in range(0, len(rows), 1000):
+        r = torch.from_numpy(rows[c:c + 1000]).to(cuda)
+        d2 = sq[r, None] + sq[None, :] - 2.0 * (X[r] @ X.T)
+        d2[torch.arange(len(r), device=cuda), r] = float("inf")
+        exact = torch.topk(d2, N_NEIGHBORS - 1, dim=1, largest=False).indices.cpu().numpy()
+        for j, row in enumerate(rows[c:c + 1000]):
+            hits += len(set(D.indices[D.indptr[row]:D.indptr[row + 1]]) & set(exact[j]))
+    info["ivf_recall"] = hits / (len(rows) * (N_NEIGHBORS - 1))
+    checks["[mesh2] sharded IVF recall >= 0.9 against exact (sampled rows)"] = \
+        info["ivf_recall"] >= 0.9
+    idx, _ = tk.knn(hb.obsm["X_umap"], 15, method="ivf", device=cuda)
+    lab = torch.from_numpy(labels).to(cuda)
+    nb = idx[:, 1:].long()
+    info["umap1m_share"] = float(((lab[nb.clamp(min=0)] == lab[:, None]) & (nb >= 0))
+                                 .float().mean())
+    info["graph_share"] = label_share(D, labels)
+    checks["[mesh2] 1M UMAP planted-label share >= 0.8 x the graph's"] = \
+        info["umap1m_share"] >= 0.8 * info["graph_share"]
+    return (launches, ivf_launches), t, info, checks
+
+
+def mesh_job4(mesh, work, kernels, profiling):
+    """[mesh4]: four ranks under gloo on one card: tfidf → lsi → neighbors
+    (the ring kNN) at 100k through the public tools."""
+    from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import parallel as par
+    from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch.ops import fuzzy as tf
+
+    h, launches, t, wall = mesh_public_path(mesh, work, kernels, profiling, tac, tpp, False)
+    info, checks = {"wall": wall}, {}
+    mesh_against_mesh1(par, tf, mesh, work, h, info, checks, "[mesh4]")
+    return launches, t, info, checks
+
+
+MESH_JOBS = {"mesh1": mesh_job1, "mesh2": mesh_job2, "mesh4": mesh_job4}
+
+
+def mesh_rank(rank, P, backend, store, work, job):
+    """One rank of a [mesh*] phase: TF32 off, the process group through a
+    file store, the job, its launch counts, stage times and checks to
+    ``work`` as JSON (every rank), its numbers from rank 0."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=P)
+    try:
+        from muon_tpu_torch import parallel as par
+        from muon_tpu_torch.ops import _kernels as kernels
+        from muon_tpu_torch.utils import profiling
+
+        mesh = par.make_mesh(P, feat=1, device="cuda:0")
+        launches, t, info, checks = MESH_JOBS[job](mesh, work, kernels, profiling)
+        if isinstance(launches, dict):
+            launches = (launches,)
+        with open(f"{work}/{job}_rank{rank}.json", "w") as f:
+            json.dump({"launches": launches, "stages": stage_seconds(t), "info": info,
+                       "checks": checks}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(job, P, backend, work):
+    """Spawn the P ranks of ``job`` (all on cuda:0) and read their reports;
+    a rank that fails fails the phase."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(mesh_rank, args=(P, backend, f"{work}/{job}.store", work, job), nprocs=P)
+    except Exception as e:  # a rank raised or died: the phase fails, the run goes on
+        check(False, f"[{job}] every rank ran to its end: {str(e).strip()[-2000:]}")
+        return None
+    reports = []
+    for r in range(P):
+        with open(f"{work}/{job}_rank{r}.json") as f:
+            reports.append(json.load(f))
+    print(f"[{job}] {P} rank(s) under {backend} on {torch.cuda.get_device_name(0)}, spawned and "
+          f"joined in {time.perf_counter() - t0:.1f}s", flush=True)
+    for r, rep in enumerate(reports):
+        print(f"[{job}] rank {r} stages " + ", ".join(
+            f"{k} {v}" for k, v in sorted(rep["stages"].items())
+            if k.split(" ")[-1].startswith(("mesh/", "comm/"))), flush=True)
+    for what, ok in reports[0]["checks"].items():
+        check(ok, what)
+    print(f"[{job}] rank 0: " + "; ".join(f"{k} {v}" for k, v in reports[0]["info"].items()),
+          flush=True)
+    # launches of every rank, added up (one card runs them all)
+    totals = []
+    for i in range(len(reports[0]["launches"])):
+        totals.append({k: sum(rep["launches"][i][k] for rep in reports)
+                       for k in reports[0]["launches"][i]})
+    return totals
+
+
+def phase_mesh(kernels, cuda, work):
+    """[mesh1], [mesh2], [mesh4]: the multi-device pipeline, every rank on the
+    one card (NCCL refuses two ranks on one device, so P > 1 runs under
+    gloo, staged through host memory): its arithmetic and its collectives'
+    wiring, not its scaling."""
+    t0 = time.perf_counter()
+    X = make_counts(SEED)
+    save_csr(f"{work}/counts", X)
+    rep, labels = make_big_rep(SEED)
+    np.save(f"{work}/big_rep.npy", rep)
+    np.save(f"{work}/big_labels.npy", labels)
+    del X, rep, labels
+    print(f"[mesh] inputs made and written in {time.perf_counter() - t0:.1f}s", flush=True)
+    by_path = {}
+    res = run_mesh("mesh1", 1, "nccl", work)
+    if res is None:
+        return by_path
+    by_path["mesh1"] = res[0]
+    res = run_mesh("mesh2", 2, "gloo", work)
+    if res is not None:
+        by_path["mesh2"], by_path["mesh2_1m"] = res
+    res = run_mesh("mesh4", 4, "gloo", work)
+    if res is not None:
+        by_path["mesh4"] = res[0]
+    for path, want in MESH_PATHS.items():
+        for name, count in want.items():
+            got = by_path.get(path, {}).get(name, 0)
+            check(got == count, f"[{path}] launched {name} {count} times (all ranks), not {got}")
+    print("[mesh] launches by path (all ranks): " + "; ".join(
+        f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items()),
+        flush=True)
+    return by_path
+
+
+def phase_mesh_kernels(cuda, work) -> dict:
+    """T40, T41 and T1's two modes against their plain twins at the mesh
+    paths' shapes, each with its bound and the library call where one
+    computes the same."""
+    from muon_tpu_torch.ops import knn as tk
+    from muon_tpu_torch.ops import sparse as dsp
+    from muon_tpu_torch.ops import umap as tu
+
+    results = {}
+    ref = np.load(f"{work}/mesh1.npz")
+    emb = torch.from_numpy(ref["emb"]).to(cuda)
+    n = emb.shape[0]
+    R = -(-n // 4)  # a round of [mesh4]: rank 0's queries against one block
+    Q, B = emb[:R].contiguous(), emb[R:2 * R].contiguous()
+    sq_q, sq_b = (Q * Q).sum(1), (B * B).sum(1)
+    k1 = N_NEIGHBORS + 1
+    cd = torch.full((R, k1), float("inf"), device=cuda)
+    ci = torch.full((R, k1), -1, dtype=torch.int32, device=cuda)
+    got = tk.knn_ring_merge(Q, sq_q, B, sq_b, R, n, cd, ci)
+    want = tk.knn_ring_merge_plain(Q, sq_q, B, sq_b, R, n, cd, ci)
+    err = ((got[0] - want[0]).abs() / torch.maximum(want[0].abs(), sq_q[:, None])).max().item()
+    same = (got[1] == want[1]).float().mean().item()
+    kernel_report(results, "knn_ring_merge", f"{R} x {R} x {K}, k+1 = {k1} (a [mesh4] round)",
+                  err, f"rtol 1e-5 of max(d, |q|^2); ids equal {same:.6f}", err <= 1e-5,
+                  lambda: tk.knn_ring_merge(Q, sq_q, B, sq_b, R, n, cd, ci),
+                  lambda: tk.knn_ring_merge_plain(Q, sq_q, B, sq_b, R, n, cd, ci),
+                  bound(nbytes(Q, B, sq_q, sq_b, cd, ci) + nbytes(cd, ci),
+                        2.0 * R * R * K, F32_OPS_PER_S),
+                  lambda: torch.topk(torch.addmm(sq_b[None, :], Q, B.T, alpha=-2.0), k1,
+                                     dim=1, largest=False))
+    Qf, sqf = emb.contiguous(), (emb * emb).sum(1)
+    cdf = torch.full((n, k1), float("inf"), device=cuda)
+    cif = torch.full((n, k1), -1, dtype=torch.int32, device=cuda)
+    ms_full = median_ms(lambda: tk.knn_ring_merge(Qf, sqf, Qf, sqf, 0, n, cdf, cif), reps=3)
+    print(f"[kernel] knn_ring_merge at [mesh1]'s one round, {n} x {n} x {K}: ms={ms_full:.3f} "
+          f"bound_ms={bound(nbytes(Qf, sqf) + 2 * nbytes(cdf, cif), 2.0 * n * n * K, F32_OPS_PER_S)['bound_ms']:.3f}",
+          flush=True)
+    del cdf, cif
+
+    G = sp.csr_matrix((ref["conn_data"], ref["conn_indices"], ref["conn_indptr"]), shape=(n, n))
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    v0, v1 = 0, -(-n // 2)  # rank 0's window of [mesh2]
+    s_, e_ = np.searchsorted(heads, [v0, v1])
+    lay = torch.from_numpy(np.random.default_rng(SEED).uniform(-10, 10, (n, 2))
+                           .astype(np.float32)).to(cuda)
+    negs = torch.randint(0, n, (v1 - v0, 5), dtype=torch.int32, device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(SEED))
+    dcb = torch.from_numpy(dc[v0:v1]).to(cuda)
+    edges = tu.umap_edges(heads[s_:e_], tails[s_:e_], eps[s_:e_], np.zeros(e_ - s_, np.int8),
+                          v1 - v0, cuda, v0=v0)
+    outs = []
+    for fn in (tu.umap_epoch_block, tu.umap_epoch_block_plain):
+        eons, out = edges.eps.clone(), torch.empty((v1 - v0, 2), device=cuda)
+        fn(lay, out, edges, eons, dcb, negs, v0, 0, 1.0, 1.58, 0.9, 1.0)
+        outs.append((out, eons))
+    err = (outs[0][0] - outs[1][0]).abs().max().item()
+    eons_same = bool(torch.equal(outs[0][1], outs[1][1]))
+    # timed from the same state: each call (warm-up included) takes fresh
+    # eons, or the warm-up moves every due edge past epoch 0
+    pools = {k: [edges.eps.clone() for _ in range(6)] for k in ("k", "p")}
+    out = torch.empty((v1 - v0, 2), device=cuda)
+    E_w = e_ - s_
+    # no strides in T41: each edge's eons is read, and a due edge's tail and
+    # eps read and its eons written; per due edge and per negative about 30
+    # operations (two powf among them), as T13's
+    due = int((eps[s_:e_] <= 1.0).sum())
+    kernel_report(results, "umap_epoch_block",
+                  f"window {v1 - v0} of {n} vertices, {E_w} edges, {due} due at epoch 0 "
+                  "(a [mesh2] rank)",
+                  err, f"atol 1e-4, eons equal {eons_same}", err <= 1e-4 and eons_same,
+                  lambda: tu.umap_epoch_block(lay, out, edges, pools["k"].pop(), dcb, negs, v0,
+                                              0, 1.0, 1.58, 0.9, 1.0),
+                  lambda: tu.umap_epoch_block_plain(lay, out, edges, pools["p"].pop(), dcb,
+                                                    negs, v0, 0, 1.0, 1.58, 0.9, 1.0),
+                  bound(4 * E_w + 12 * due + nbytes(edges.indptr, dcb, negs, out)
+                        + lay.numel() * 4, 30 * (due + negs.numel()), F32_OPS_PER_S))
+
+    X = load_csr(f"{work}/counts")
+    dX = dsp.from_scipy(X, cuda)
+    cs = dsp.tfidf_col_sums(dX)
+    want_cs = dsp.tfidf_col_sums_plain(dX)
+    err = (cs - want_cs).abs().max().item()
+    kernel_report(results, "tfidf_col_sums", f"{N_CELLS} x {N_PEAKS}, {dX.nnz} entries "
+                  "([mesh1]'s block)", err, "equal (integer counts)", err == 0.0,
+                  lambda: dsp.tfidf_col_sums(dX), lambda: dsp.tfidf_col_sums_plain(dX),
+                  bound(nbytes(dX.data, dX.indices, cs), dX.nnz, F32_OPS_PER_S),
+                  lambda: torch.zeros(N_PEAKS, device=cuda).index_add_(0, dX.indices, dX.data))
+    half = dsp.DeviceCSR(dX.data[: int(X.indptr[N_CELLS // 2])],
+                         dX.indptr[: N_CELLS // 2 + 1].contiguous(),
+                         dX.indices[: int(X.indptr[N_CELLS // 2])], N_CELLS // 2, N_PEAKS,
+                         int(X.indptr[N_CELLS // 2]))
+    got = dsp.tfidf_data(half, col_sums=cs, n_total=N_CELLS)
+    want = dsp.tfidf_data_plain(half, col_sums=cs, n_total=N_CELLS)
+    diff = (got - want).abs()
+    kernel_report(results, "tfidf_values_global", f"rows 0-{N_CELLS // 2} of {N_CELLS} "
+                  "([mesh2]'s rank 0), the IDF of the whole", diff.max().item(),
+                  "rtol 1e-5 atol 1e-6", bool((diff <= 1e-6 + 1e-5 * want.abs()).all()),
+                  lambda: dsp.tfidf_data(half, col_sums=cs, n_total=N_CELLS),
+                  lambda: dsp.tfidf_data_plain(half, col_sums=cs, n_total=N_CELLS),
+                  bound(csr_bytes(half) + nbytes(cs, got), 8 * half.nnz, F32_OPS_PER_S))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -5068,6 +5640,12 @@ def main() -> int:
     cuda = torch.device("cuda", 0)
     smi = phase_device(kernels)
     phase_build(kernels, native)
+    if sys.argv[1:] == ["--mesh-only"]:  # phases 41-43 alone
+        with tempfile.TemporaryDirectory() as work:
+            if "mesh1" in phase_mesh(kernels, cuda, work):
+                phase_mesh_kernels(cuda, work)
+        print(f"[done] {time.perf_counter() - t_start:.1f}s; failed: {FAILED}", flush=True)
+        return 1 if FAILED else 0
 
     t0 = time.perf_counter()
     X = make_counts(SEED)
@@ -5201,6 +5779,11 @@ def main() -> int:
     gmm_inputs.append(("D=300", scaled_counts(DSB_SIZES[0][0], 300, SEED)))
     results.update(phase_gmm_kernel(tg, gmm_inputs, cuda))
     del gmm_inputs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        mesh_launches = phase_mesh(kernels, cuda, work)
+        if "mesh1" in mesh_launches:
+            results.update(phase_mesh_kernels(cuda, work))
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
                "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
                "umap1m": umap_big_launches, "wnn_wide": wide_launches,
@@ -5214,7 +5797,8 @@ def main() -> int:
                "umap_asym": asym_launches, **de_launches, "snf": snf_launches,
                "ica": ica_launches, "scopen": scopen_launches, "dense": dense_launches,
                "motifs": motif_launches, "fragments": frag_launches, "backed": backed_launches,
-               "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]}}
+               "dsb": {k: sum(c[k] for c in dsb_launches) for k in dsb_launches[0]},
+               **mesh_launches}
     print("[launches] by path (each from 0 just before it): " + "; ".join(
         f"{p} " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for p, c in by_path.items())
         + f"; gather rSVD side run " + ", ".join(

@@ -37,7 +37,10 @@ backed=True)`` → ``atac.pp.tfidf`` → ``atac.tl.lsi``, the matrix streamed
 to the card block by block through ``ops.sparse.from_backed``), the key
 grammar (``utils.get_values``) and the fragment QC path
 (``atac.tl.locate_fragments`` → ``nucleosome_signal`` → ``tss_enrichment``
-→ ``count_fragments_features``, over the port's own fragments engine); see
+→ ``count_fragments_features``, over the port's own fragments engine), and
+the multi-device data pipeline over ``torch.distributed`` (``parallel``:
+``atac.pp.tfidf``, ``atac.tl.lsi``, ``pp.neighbors`` of one modality and
+``tl.umap`` with ``mesh=`` or under ``set_options(mesh=...)``); see
 ROADMAP.md for the rest.
 
 Every entry point runs on the card unless the caller passes
@@ -56,8 +59,9 @@ importing the port needs neither.
 
 __version__ = "0.1.0"
 
-from . import atac, prot, rna, utils
+from . import atac, parallel, prot, rna, utils
 from ._core import preproc as pp
+from ._core.config import set_options
 from ._core import tools as tl
 from ._core.anndata import AnnData, Raw
 from ._core.io import (
@@ -84,7 +88,9 @@ __all__ = [
     "write_h5ad",
     "read_10x_h5",
     "read_10x_mtx",
+    "set_options",
     "atac",
+    "parallel",
     "prot",
     "rna",
     "pp",

@@ -321,14 +321,16 @@ def umap(
     The connectivities go to ``umap_embed`` as the CSR that ``obsp`` holds,
     not as a copy, so the membership tag ``pp.neighbors`` hung on it arrives
     and the spectral seed of a graph above 8M edges comes from the
-    membership table (T16). ``mesh`` (multi-device) is not ported yet and
-    raises."""
-    from ..ops.umap import find_ab_params, umap_embed
+    membership table (T16).
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "UMAP over a device mesh is not ported yet (the multi-device work, K20)"
-        )
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more than
+    one rank runs ``parallel.sharded_umap_embed`` (``maxiter`` epochs, 200
+    when None, as the reference's), from the exact spectral seed or
+    ``init_pos`` given as an array; every rank writes the same layout."""
+    from ..ops.umap import find_ab_params, umap_embed
+    from .config import resolve_mesh
+
+    mesh, device = resolve_mesh(mesh, device)
     data = mdata.copy() if copy else mdata
     nkey = neighbors_key or "neighbors"
     if nkey not in data.uns:
@@ -340,6 +342,26 @@ def umap(
 
     if a is None or b is None:
         a, b = find_ab_params(spread, min_dist)
+
+    if mesh is not None:
+        from ..parallel.pipeline import sharded_umap_embed
+
+        if init_pos is not None and not isinstance(init_pos, np.ndarray) \
+                and init_pos != "spectral":
+            raise NotImplementedError(
+                f"init_pos={init_pos!r} over a device mesh: the sharded UMAP starts from "
+                "the spectral seed or an array"
+            )
+        emb = sharded_umap_embed(
+            conn.tocsr(), mesh, n_components=n_components,
+            n_epochs=maxiter if maxiter else 200, min_dist=min_dist, spread=spread,
+            alpha=alpha, gamma=gamma, negative_sample_rate=negative_sample_rate,
+            random_state=random_state if isinstance(random_state, int) else 42, a=a, b=b,
+            init=init_pos if isinstance(init_pos, np.ndarray) else None,
+        )
+        data.obsm["X_umap"] = emb
+        data.uns["umap"] = {"params": {"a": a, "b": b, "random_state": random_state}}
+        return data if copy else None
 
     emb = umap_embed(
         conn.tocsr(),

@@ -111,8 +111,8 @@ def mofa(
     VB training loop is ``muon_tpu_torch.models.mofa.fit_mofa``).
 
     ``gpu_mode`` is accepted for API parity and ignored: compute runs on
-    ``device``, the CUDA device when None. ``mesh`` (several devices) is
-    not ported yet and raises in ``fit_mofa``. ``smooth_covariate`` names
+    ``device``, the CUDA device when None. ``mesh`` (several devices, given
+    or through ``set_options``) is not ported yet and raises in ``fit_mofa``. ``smooth_covariate`` names
     a column of ``obs`` (or of a modality's ``obs``)."""
     from ..models.mofa import MOFAConfig, fit_mofa
 

@@ -20,6 +20,7 @@ from warnings import warn
 import numpy as np
 from scipy.sparse import issparse
 
+from .._core.config import resolve_mesh
 from ..ops import sparse as dsp
 from ..ops.device import DeviceLike
 from ..utils.profiling import stage
@@ -62,13 +63,15 @@ def tfidf(
     ``device``: where the sparse transform runs (see ops/device.py). A
     backed sparse X becomes a ``DeviceBackedCSR``: its values on the device,
     its structure on disk; the host never holds the whole matrix.
-    ``mesh`` (multi-device) is not ported yet.
+
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more
+    than one rank shards an in-memory sparse X by rows over the ranks
+    (every rank passes the same X) and runs ``parallel.sharded_tfidf_data``
+    on the mesh's devices (the IDF column sums all-reduced); every rank's
+    result is the whole matrix, carrying its blocks for ``atac.tl.lsi``.
     """
     adata = _get_atac(data)
-    if mesh is not None:
-        raise NotImplementedError(
-            "tfidf over a device mesh is not ported yet (the multi-device work, K20)"
-        )
+    mesh, device = resolve_mesh(mesh, device)
     if log_tfidf and (log_tf or log_idf):
         raise AttributeError(
             "When returning log(TF*IDF), applying neither log(TF) nor "
@@ -97,6 +100,16 @@ def tfidf(
                 scale_factor=scale_factor,
             )
         res = dsp.DeviceBackedCSR(counts._h5, dX._replace(data=new_data))
+    elif issparse(counts) and mesh is not None:
+        from ..parallel.pipeline import (shard_rows, sharded_tfidf_data,
+                                         sharded_values_to_scipy)
+
+        X = counts.tocsr()
+        Xs = sharded_tfidf_data(
+            shard_rows(X, mesh), log_tf=log_tf, log_idf=log_idf, log_tfidf=log_tfidf,
+            scale_factor=scale_factor,
+        )
+        res = sharded_values_to_scipy(Xs, X)
     elif issparse(counts):
         X = counts.tocsr()
         dX = dsp.from_scipy(X, device)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._core.anndata import AnnData
+from .._core.config import resolve_mesh
 from ..ops import pileup as _pileup
 from ..ops.device import DeviceLike, resolve_device
 from ..ops.linalg import randomized_svd
@@ -81,17 +82,29 @@ def lsi(
     Writes ``obsm["X_lsi"]``, ``varm["LSI"]``, ``uns["lsi"]["stdev"]``. A
     backed X (the ``DeviceBackedCSR`` of ``pp.tfidf``, or a ``BackedMatrix``)
     is read through its residency tag; only its shape is read on the host.
-    ``mesh`` (multi-device) is not ported yet.
+
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more
+    than one rank runs ``parallel.sharded_rsvd`` over the X's row blocks
+    (those a sharded ``pp.tfidf`` on the same mesh left on X, else X cut
+    anew); every rank writes the same results.
     """
     adata = _get_atac(data)
-    if mesh is not None:
-        raise NotImplementedError(
-            "lsi over a device mesh is not ported yet (the multi-device work, K20)"
-        )
+    mesh, device = resolve_mesh(mesh, device)
     n_comps = min(n_comps, adata.X.shape[1])
-    U, s, Vt = randomized_svd(
-        adata.X, k=n_comps, n_iter=n_iter, seed=random_state, device=device
-    )
+    if mesh is not None:
+        from scipy.sparse import csr_matrix, issparse
+
+        from ..parallel.pipeline import SHARDED_TAG, shard_rows, sharded_rsvd
+
+        X = adata.X
+        Xs = getattr(X, SHARDED_TAG, None)
+        if Xs is None or Xs.shape != tuple(X.shape) or Xs.mesh is not mesh:
+            Xs = shard_rows(X.tocsr() if issparse(X) else csr_matrix(np.asarray(X)), mesh)
+        U, s, Vt = sharded_rsvd(Xs, k=n_comps, n_iter=n_iter, seed=random_state)
+    else:
+        U, s, Vt = randomized_svd(
+            adata.X, k=n_comps, n_iter=n_iter, seed=random_state, device=device
+        )
     with stage("lsi/host"):
         U = U.cpu().numpy()
         s = s.cpu().numpy()

@@ -3,6 +3,8 @@
 //   T5 knn_topk               <- muon_tpu/ops/knn.py _knn_fn + _topk2
 //   T6 smooth_knn_membership  <- muon_tpu/ops/fuzzy.py _smooth_knn_fn +
 //                                _membership_fn
+//   T40 knn_ring_merge        <- muon_tpu/parallel/pipeline.py _knn_ring_fn
+//                                (:374), one round of its ring
 //
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
@@ -148,6 +150,120 @@ __global__ void __launch_bounds__(kQ)
 }
 
 // ---------------------------------------------------------------------------
+// T40: one round of the sharded exact kNN's ring. A rank holds its query
+// rows Q (nq x d) and, this round, one database block B (nb x d) that came
+// round the ring from the rank at offset `off`; B's row j is the point
+// off + j, and rows with off + j >= n are padding. Each query merges the
+// block's candidates into its carried (k+1)-list (cd, ci: ascending, from
+// the last round) and writes the new list to (od, oi).
+//
+// The reference forms the (R, R) distance tile of every round in device
+// memory, takes the block's top-kk with lax.top_k and then the top-(k+1) of
+// concat([carried, block's kk]). Here no distance leaves the SM: as in T5, a
+// block of kQ threads owns kQ queries and streams B through shared memory in
+// tiles of kC rows x kD dimensions, a query of d <= kD held in registers.
+// The distance is the reference's, (|q|^2 - 2 cross) + |b|^2 in float32,
+// unclamped, the cross term an fma chain in float32. Each thread keeps a
+// max-heap of k+1 entries on (distance, tag) (topk_heap.cuh), filled from
+// the carried list with tags 0..k in its order, then offered every valid
+// block row j with tag k+1+j. That key is the reference's tie rule: its
+// second top_k ranks equal distances by position in the concatenation,
+// the carried list first, then the block's top-kk, which lax.top_k
+// ordered by (distance, block row); and one merged selection equals the
+// reference's two, because the block's top-kk holds every row that can
+// enter. A heap that starts full takes a row only when it beats the root,
+// so padding rows (the reference's +inf) never enter and are skipped.
+// Bound: like T5, by the FMAs of the cross terms, nq * nb * d a round. Lists
+// longer than 256 keep the heap in the query's row of the outputs (KMAX = 0)
+// as T5 and T14 do. The tags become point ids when the list is written.
+// ---------------------------------------------------------------------------
+
+template <int KMAX>
+__global__ void __launch_bounds__(kQ)
+    knn_ring_merge_kernel(const float* __restrict__ Q, const float* __restrict__ sq_q,
+                          int nq, int d, const float* __restrict__ B,
+                          const float* __restrict__ sq_b, int nb, int off, int n,
+                          int k1, const float* __restrict__ cd,
+                          const int* __restrict__ ci, float* __restrict__ od,
+                          int* __restrict__ oi) {
+  __shared__ __align__(16) float tile[kC][kD];
+  __shared__ float tile_sq[kC];
+  const int i = blockIdx.x * kQ + threadIdx.x;
+  const bool active = i < nq;
+  const float* q = Q + (int64_t)(active ? i : 0) * d;
+  const float qsq = active ? sq_q[i] : 0.f;
+  const bool one_chunk = d <= kD;
+
+  float qv[kD];
+#pragma unroll
+  for (int u = 0; u < kD; ++u) qv[u] = (active && u < d) ? q[u] : 0.f;
+
+  float local_d[KMAX > 0 ? KMAX : 1];
+  int local_i[KMAX > 0 ? KMAX : 1];
+  const int64_t o = (int64_t)(active ? i : 0) * k1;
+  float* heap_d = KMAX > 0 ? local_d : od + o;
+  int* heap_i = KMAX > 0 ? local_i : oi + o;
+  if (active)
+    for (int r = 0; r < k1; ++r) heap_push(heap_d, heap_i, r, cd[o + r], r);
+  const int valid = min(nb, n - off);  // rows of B that are points
+
+  for (int c0 = 0; c0 < valid; c0 += kC) {
+    float acc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+    for (int u0 = 0; u0 < d; u0 += kD) {
+      __syncthreads();  // the previous chunk's readers are done
+      for (int t = threadIdx.x; t < kC * kD; t += kQ) {
+        const int c = t / kD, u = t % kD, j = c0 + c, col = u0 + u;
+        tile[c][u] = (j < valid && col < d) ? B[(int64_t)j * d + col] : 0.f;
+      }
+      if (u0 == 0 && threadIdx.x < kC) {
+        const int j = c0 + threadIdx.x;
+        tile_sq[threadIdx.x] = j < valid ? sq_b[j] : 0.f;
+      }
+      if (!one_chunk) {
+#pragma unroll
+        for (int u = 0; u < kD; ++u)
+          qv[u] = (active && u0 + u < d) ? q[u0 + u] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+#pragma unroll
+        for (int u = 0; u < kD; u += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(&tile[c][u]);
+          acc[c] = fmaf(qv[u], v.x, acc[c]);
+          acc[c] = fmaf(qv[u + 1], v.y, acc[c]);
+          acc[c] = fmaf(qv[u + 2], v.z, acc[c]);
+          acc[c] = fmaf(qv[u + 3], v.w, acc[c]);
+        }
+      }
+    }
+    if (!active) continue;  // no __syncthreads below this point
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int j = c0 + c;
+      if (j >= valid) continue;
+      const float dist = __fadd_rn(__fsub_rn(qsq, __fmul_rn(2.f, acc[c])), tile_sq[c]);
+      const int tag = k1 + j;
+      if (before(dist, tag, heap_d[0], heap_i[0])) {
+        heap_d[0] = dist;
+        heap_i[0] = tag;
+        sift_down(heap_d, heap_i, k1, 0);
+      }
+    }
+  }
+  if (!active) return;
+  heap_sort(heap_d, heap_i, k1);
+  for (int r = 0; r < k1; ++r) {
+    const int tag = heap_i[r];
+    const int id = tag < k1 ? ci[o + tag] : off + (tag - k1);
+    if (KMAX > 0) od[o + r] = heap_d[r];
+    oi[o + r] = id;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // T6: per row of the kNN distances (n x k, f32), rho (local connectivity),
 // sigma (64-step bisection with umap-learn's lower bounds) and the
 // membership values exp(-max(d - rho, 0) / sigma), in one pass.
@@ -288,6 +404,31 @@ int mt_smooth_knn(const float* dists, int n, int k, float local_connectivity,
     smooth_knn_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
         dists, n, k, local_connectivity, target, mean_all, n_iter,
         min_k_dist_scale, sigma, rho, vals);
+  }
+  return (int)cudaGetLastError();
+}
+
+
+// T40. Q (nq x d) f32 with sq_q (nq,) its squared row norms; B (nb x d) f32
+// with sq_b (nb,), its row j the point off + j, rows with off + j >= n
+// skipped; cd (nq x k1) f32 and ci (nq x k1) int32 the carried lists
+// (ascending); od, oi (nq x k1) the merged lists out, not aliasing cd, ci.
+int mt_knn_ring_merge(const float* Q, const float* sq_q, int nq, int d,
+                      const float* B, const float* sq_b, int nb, int off, int n,
+                      int k1, const float* cd, const int* ci, float* od, int* oi,
+                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nq > 0 && k1 > 0) {
+    const int blocks = (nq + kQ - 1) / kQ;
+    if (k1 <= 32)
+      knn_ring_merge_kernel<32><<<blocks, kQ, 0, s>>>(Q, sq_q, nq, d, B, sq_b, nb, off,
+                                                      n, k1, cd, ci, od, oi);
+    else if (k1 <= kLocalList)
+      knn_ring_merge_kernel<kLocalList><<<blocks, kQ, 0, s>>>(
+          Q, sq_q, nq, d, B, sq_b, nb, off, n, k1, cd, ci, od, oi);
+    else
+      knn_ring_merge_kernel<0><<<blocks, kQ, 0, s>>>(Q, sq_q, nq, d, B, sq_b, nb, off, n,
+                                                     k1, cd, ci, od, oi);
   }
   return (int)cudaGetLastError();
 }

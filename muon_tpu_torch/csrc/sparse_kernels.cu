@@ -4,7 +4,10 @@
 // Six kernels over a CSR matrix X (n_rows x n_cols; values f32, indptr and
 // indices int32, column indices need not be sorted within a row):
 //
-//   T1 tfidf_values      <- muon_tpu/ops/sparse.py _tfidf_fn
+//   T1 tfidf_values      <- muon_tpu/ops/sparse.py _tfidf_fn; its two modes
+//                           tfidf_col_sums and tfidf_values_global <- the
+//                           bodies of muon_tpu/parallel/pipeline.py
+//                           _colsums_fn (:155) and _tfidf_fn (:209)
 //   T2 csr_spmm          <- muon_tpu/ops/sparse.py _spmm_fn (transpose=False)
 //                           and the final f32 X.V of _rsvd_blocks_fn
 //      csr_spmm_split    <- T2 for rows of very different lengths: the
@@ -80,6 +83,11 @@ __host__ __device__ __forceinline__ int row_blocks(int n_rows) {
 // T1: TF-IDF over the value vector.
 // Launch 1 sums every column with atomics; launch 2 gives each row a warp,
 // which reduces the row sum in registers and rewrites the row's values.
+// Modes: 0 runs both launches, the IDF from this matrix's column sums and
+// row count; 1 runs launch 1 alone (a row block's column sums, which the
+// sharded pipeline all-reduces: parallel/pipeline.py _colsums_fn); 2 runs
+// launch 2 alone from column sums and a row count given for the whole
+// matrix (_tfidf_fn's body on a row block).
 // Bound by bytes: it reads the values twice and the indices twice and
 // writes the values once (about 20 B per stored entry).
 // Non-finite handling matches _tfidf_fn: tf of an empty or all-zero row
@@ -100,7 +108,7 @@ __global__ void tfidf_rows_kernel(const float* __restrict__ data,
                                   const int* __restrict__ indptr,
                                   const int* __restrict__ indices,
                                   const float* __restrict__ cs, int n_rows,
-                                  int log_tf, int log_idf, int log_tfidf,
+                                  float n, int log_tf, int log_idf, int log_tfidf,
                                   int apply_scale, float scale,
                                   float* __restrict__ out) {
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
@@ -110,7 +118,6 @@ __global__ void tfidf_rows_kernel(const float* __restrict__ data,
   float rs = 0.f;
   for (int j = start + lane; j < end; j += kWarp) rs += data[j];
   rs = warp_sum(rs);
-  const float n = (float)n_rows;
   for (int j = start + lane; j < end; j += kWarp) {
     float tf = data[j] / rs;
     if (!isfinite(tf)) tf = 0.f;
@@ -421,12 +428,16 @@ __global__ void binarize_values_kernel(const float* __restrict__ x, unsigned n,
 
 extern "C" {
 
+// mode 0: col_sums (zeroed by the caller) gets this matrix's column sums,
+// then out the values with n = n_total (its row count); mode 1: the column
+// sums only; mode 2: the values only, from the col_sums and n_total given.
 int mt_tfidf_values(const float* data, const int* indptr, const int* indices,
-                    int n_rows, long long nnz, float* col_sums, int log_tf,
-                    int log_idf, int log_tfidf, int apply_scale, float scale,
-                    float* out, void* stream) {
+                    int n_rows, long long nnz, float* col_sums, int mode,
+                    float n_total, int log_tf, int log_idf, int log_tfidf,
+                    int apply_scale, float scale, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nnz > 0) {
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (mode != 2 && nnz > 0) {
     long long blocks = (nnz + kThreads - 1) / kThreads;
     if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
     col_sums_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(data, indices, nnz,
@@ -434,9 +445,9 @@ int mt_tfidf_values(const float* data, const int* indptr, const int* indices,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (n_rows > 0) {
+  if (mode != 1 && n_rows > 0) {
     tfidf_rows_kernel<<<row_blocks(n_rows), kThreads, 0, s>>>(
-        data, indptr, indices, col_sums, n_rows, log_tf, log_idf, log_tfidf,
+        data, indptr, indices, col_sums, n_rows, n_total, log_tf, log_idf, log_tfidf,
         apply_scale, scale, out);
   }
   return (int)cudaGetLastError();

@@ -7,6 +7,8 @@
 //                             (its matvec)
 //   T22 umap_epoch_asym    <- muon_tpu/ops/umap.py _optimize_fn (:407), with
 //                             move_other and an asymmetric graph
+//   T41 umap_epoch_block   <- muon_tpu/parallel/pipeline.py _umap_epochs_fn
+//                             (:691), one epoch on a rank's vertex window
 //
 // T13:
 // One epoch of the reference's symmetric-graph SGD, in one launch: the
@@ -49,6 +51,18 @@
 // advances in the last chunk's walk only, so every walk sees the same due
 // edges.
 //
+// T41:
+// T13's kernels run on a window of the vertices: [v0, v0 + nv), a rank's
+// block of the sharded layout. The window's edges (heads in the window,
+// sorted by head) arrive as a CSR over the window, with their tails, eps and
+// eons; dc_exp and the negatives are the window's; emb is the whole layout
+// (the tails and negatives lie anywhere) and emb_out receives the window's
+// new rows. The sharded reference has no stride buckets: T41 passes no
+// shift, and an edge is due when eons <= epoch + 1. The sums are T13's, in
+// T13's order; T13 itself is the window [0, n). Every update of the epoch is
+// summed from emb before any is applied (the reference's sum-first order),
+// and the caller gathers the windows into the next layout.
+//
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError(). Outputs are allocated by the
@@ -74,6 +88,9 @@ __device__ __forceinline__ float sq_dist(const float* d) {
   return s;
 }
 
+// The vertex window [v0, v0 + nv): a warp per vertex i = v0 + w; indptr,
+// dc_exp, negs and emb_out are the window's (indexed by w), emb the whole
+// layout. shift == nullptr: every edge has stride 1 (T41).
 template <int DIM>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
@@ -81,11 +98,12 @@ umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
                   const float* __restrict__ eps, float* __restrict__ eons,
                   const signed char* __restrict__ shift,
                   const float* __restrict__ dc_exp, const int* __restrict__ negs,
-                  int n, int neg_rate, int epoch, float alpha, float a, float b,
-                  float gamma) {
-  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+                  int v0, int nv, int neg_rate, int epoch, float alpha, float a,
+                  float b, float gamma) {
+  const int w = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (i >= n) return;
+  if (w >= nv) return;
+  const int i = v0 + w;
   float ei[DIM], up[DIM], un[DIM], diff[DIM];
 #pragma unroll
   for (int k = 0; k < DIM; ++k) {
@@ -95,9 +113,9 @@ umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
   }
   const float due_by = (float)epoch + 1.0f;
   const float c_att = -2.0f * a * b;
-  const int e1 = indptr[i + 1];
-  for (int e = indptr[i] + lane; e < e1; e += kWarp) {
-    if (epoch & ((1 << shift[e]) - 1)) continue;  // the bucket skips this epoch
+  const int e1 = indptr[w + 1];
+  for (int e = indptr[w] + lane; e < e1; e += kWarp) {
+    if (shift && (epoch & ((1 << shift[e]) - 1))) continue;  // the bucket skips this epoch
     const float eo = eons[e];
     if (!(eo <= due_by)) continue;
     const int t = tails[e];
@@ -113,7 +131,7 @@ umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
     eons[e] = __fadd_rn(eo, eps[e]);
   }
   if (lane < neg_rate) {
-    const int j = negs[(int64_t)i * neg_rate + lane];
+    const int j = negs[(int64_t)w * neg_rate + lane];
     if (j != i) {
 #pragma unroll
       for (int k = 0; k < DIM; ++k) diff[k] = __fsub_rn(ei[k], emb[(int64_t)j * DIM + k]);
@@ -140,10 +158,10 @@ umap_epoch_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
     }
   }
   if (lane == 0) {
-    const float dc = dc_exp[i];
+    const float dc = dc_exp[w];
 #pragma unroll
     for (int k = 0; k < DIM; ++k)
-      emb_out[(int64_t)i * DIM + k] = __fadd_rn(
+      emb_out[(int64_t)w * DIM + k] = __fadd_rn(
           ei[k], __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up[k]), __fmul_rn(un[k], dc))));
   }
 }
@@ -152,11 +170,11 @@ template <int DIM>
 void launch_epoch(const float* emb, float* emb_out, const int* indptr,
                   const int* tails, const float* eps, float* eons,
                   const signed char* shift, const float* dc_exp, const int* negs,
-                  int n, int neg_rate, int epoch, float alpha, float a, float b,
-                  float gamma, cudaStream_t s) {
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                  int v0, int nv, int neg_rate, int epoch, float alpha, float a,
+                  float b, float gamma, cudaStream_t s) {
+  const int blocks = (nv + kWarpsPerBlock - 1) / kWarpsPerBlock;
   umap_epoch_kernel<DIM><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
-      emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, n, neg_rate,
+      emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, v0, nv, neg_rate,
       epoch, alpha, a, b, gamma);
 }
 
@@ -182,14 +200,15 @@ umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb
                           const float* __restrict__ eps, float* __restrict__ eons,
                           const signed char* __restrict__ shift,
                           const float* __restrict__ dc_exp, const int* __restrict__ negs,
-                          int n, int dim, int neg_rate, int epoch, float alpha, float a,
-                          float b, float gamma) {
-  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+                          int v0, int nv, int dim, int neg_rate, int epoch, float alpha,
+                          float a, float b, float gamma) {
+  const int w = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (i >= n) return;
+  if (w >= nv) return;
+  const int i = v0 + w;
   const float due_by = (float)epoch + 1.0f;
   const float c_att = -2.0f * a * b;
-  const int e0 = indptr[i], e1 = indptr[i + 1];
+  const int e0 = indptr[w], e1 = indptr[w + 1];
   const float* xi = emb + (int64_t)i * dim;
   for (int k0 = 0; k0 < dim; k0 += kMaxDim) {
     const int kc = min(kMaxDim, dim - k0);
@@ -198,7 +217,7 @@ umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) up[k] = un[k] = 0.f;
     for (int e = e0 + lane; e < e1; e += kWarp) {
-      if (epoch & ((1 << shift[e]) - 1)) continue;
+      if (shift && (epoch & ((1 << shift[e]) - 1))) continue;
       const float eo = eons[e];
       if (!(eo <= due_by)) continue;
       const int t = tails[e];
@@ -215,7 +234,7 @@ umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb
       if (last) eons[e] = __fadd_rn(eo, eps[e]);
     }
     if (lane < neg_rate) {
-      const int j = negs[(int64_t)i * neg_rate + lane];
+      const int j = negs[(int64_t)w * neg_rate + lane];
       if (j != i) {
         const float d2 = sq_dist_rows(emb, i, j, dim);
         if (d2 > 0.f) {
@@ -242,11 +261,11 @@ umap_epoch_any_dim_kernel(const float* __restrict__ emb, float* __restrict__ emb
       }
     }
     if (lane == 0) {
-      const float dc = dc_exp[i];
+      const float dc = dc_exp[w];
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
         if (k < kc)
-          emb_out[(int64_t)i * dim + k0 + k] = __fadd_rn(
+          emb_out[(int64_t)w * dim + k0 + k] = __fadd_rn(
               xi[k0 + k],
               __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up[k]), __fmul_rn(un[k], dc))));
     }
@@ -425,6 +444,40 @@ membership_matvec_kernel(const int* __restrict__ idx, const float* __restrict__ 
   Y[(int64_t)i * m + c] = __fmul_rn(__fadd_rn(y1, y2), s[i]);
 }
 
+// One epoch of T13's SGD on the vertex window [v0, v0 + nv) (T13: the window
+// [0, n); T41: a rank's block, no shift).
+int epoch_window(const float* emb, float* emb_out, const int* indptr, const int* tails,
+                 const float* eps, float* eons, const signed char* shift,
+                 const float* dc_exp, const int* negs, int v0, int nv, int dim,
+                 int neg_rate, int epoch, float alpha, float a, float b, float gamma,
+                 cudaStream_t s) {
+  if (nv <= 0) return (int)cudaGetLastError();
+  if (dim < 2 || neg_rate < 0 || neg_rate > kWarp || v0 < 0) return (int)cudaErrorInvalidValue;
+  if (dim > kMaxDim) {
+    const int blocks = (nv + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    umap_epoch_any_dim_kernel<<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, v0, nv, dim, neg_rate,
+        epoch, alpha, a, b, gamma);
+    return (int)cudaGetLastError();
+  }
+#define MT_UMAP_DIM(D)                                                        \
+  case D:                                                                     \
+    launch_epoch<D>(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp,    \
+                    negs, v0, nv, neg_rate, epoch, alpha, a, b, gamma, s);    \
+    break;
+  switch (dim) {
+    MT_UMAP_DIM(2)
+    MT_UMAP_DIM(3)
+    MT_UMAP_DIM(4)
+    MT_UMAP_DIM(5)
+    MT_UMAP_DIM(6)
+    MT_UMAP_DIM(7)
+    MT_UMAP_DIM(8)
+  }
+#undef MT_UMAP_DIM
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -439,32 +492,21 @@ int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
                   const signed char* shift, const float* dc_exp, const int* negs,
                   int n, int dim, int neg_rate, int epoch, float alpha, float a,
                   float b, float gamma, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 0) return (int)cudaGetLastError();
-  if (dim < 2 || neg_rate < 0 || neg_rate > kWarp) return (int)cudaErrorInvalidValue;
-  if (dim > kMaxDim) {
-    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    umap_epoch_any_dim_kernel<<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
-        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, n, dim, neg_rate,
-        epoch, alpha, a, b, gamma);
-    return (int)cudaGetLastError();
-  }
-#define MT_UMAP_DIM(D)                                                        \
-  case D:                                                                     \
-    launch_epoch<D>(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp,    \
-                    negs, n, neg_rate, epoch, alpha, a, b, gamma, s);         \
-    break;
-  switch (dim) {
-    MT_UMAP_DIM(2)
-    MT_UMAP_DIM(3)
-    MT_UMAP_DIM(4)
-    MT_UMAP_DIM(5)
-    MT_UMAP_DIM(6)
-    MT_UMAP_DIM(7)
-    MT_UMAP_DIM(8)
-  }
-#undef MT_UMAP_DIM
-  return (int)cudaGetLastError();
+  return epoch_window(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, 0, n,
+                      dim, neg_rate, epoch, alpha, a, b, gamma, (cudaStream_t)stream);
+}
+
+// T41. emb (n x dim) f32, the whole layout; the window [v0, v0 + nv) of it:
+// indptr (nv+1) int32 over its edges, tails (global ids), eps and eons (E_w,)
+// f32, dc_exp (nv,) f32, negs (nv x neg_rate) int32; out_blk (nv x dim) f32
+// out, not aliasing emb.
+int mt_umap_epoch_block(const float* emb, float* out_blk, const int* indptr,
+                        const int* tails, const float* eps, float* eons,
+                        const float* dc_exp, const int* negs, int v0, int nv, int dim,
+                        int neg_rate, int epoch, float alpha, float a, float b,
+                        float gamma, void* stream) {
+  return epoch_window(emb, out_blk, indptr, tails, eps, eons, nullptr, dc_exp, negs, v0,
+                      nv, dim, neg_rate, epoch, alpha, a, b, gamma, (cudaStream_t)stream);
 }
 
 // T22. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32

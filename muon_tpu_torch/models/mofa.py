@@ -1157,9 +1157,12 @@ def fit_mofa(
                 "warping is only supported for 1-D covariates"
             )
     # what this port leaves out, by name
-    if mesh is not None:
+    from .._core.config import current_mesh
+
+    if mesh is not None or current_mesh() is not None:
         raise NotImplementedError(
-            "mesh (training over several devices) is not ported yet (ROADMAP.md)"
+            "mesh (training over several devices) is not ported yet: the multi-device "
+            "WNN and MOFA, the rest of K20 (ROADMAP.md)"
         )
 
     Ds_all = [Y.shape[1] for Y in Ys]

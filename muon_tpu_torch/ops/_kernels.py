@@ -50,7 +50,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry point -> argtypes (pointers and the stream as c_void_p, or ctypes
 # would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
-    "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _I, _I, _I, _F, _P, _P),
+    "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _F, _I, _I, _I, _I, _F, _P, _P),
     "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_spmm_split": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
@@ -59,12 +59,15 @@ _SIGNATURES = {
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
     "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
+    "mt_knn_ring_merge": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P),
+    "mt_umap_epoch_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _F, _P),
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
@@ -100,6 +103,8 @@ _SIGNATURES = {
 # counter name -> the C entry point it counts
 KERNELS = {
     "tfidf_values": "mt_tfidf_values",
+    "tfidf_col_sums": "mt_tfidf_values",  # T1's sums-only mode (a row block's)
+    "tfidf_values_global": "mt_tfidf_values",  # T1's values from given sums and n
     "csr_spmm_f32": "mt_csr_spmm",
     "csr_spmm_bf16": "mt_csr_spmm",
     "csr_spmm_split": "mt_csr_spmm_split",  # rows cut into pieces, added in order
@@ -144,6 +149,8 @@ KERNELS = {
     "interval_pileup": "mt_interval_pileup",  # scatter and row scan count as one
     "wire_decode": "mt_wire_decode",
     "binarize_values": "mt_binarize_values",
+    "knn_ring_merge": "mt_knn_ring_merge",
+    "umap_epoch_block": "mt_umap_epoch_block",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -1,7 +1,9 @@
 """Exact brute-force k-nearest neighbours on a CUDA device
 (counterpart of muon_tpu/ops/knn.py).
 
-    knn_topk   T5  <- _knn_fn + _topk2 (csrc/knn_kernels.cu)
+    knn_topk        T5   <- _knn_fn + _topk2 (csrc/knn_kernels.cu)
+    knn_ring_merge  T40  <- one round of parallel/pipeline.py _knn_ring_fn
+                            (csrc/knn_kernels.cu)
 
 The reference forms (block, n) distance tiles and selects with a chunked
 top-k, or the TPU's approximate top-k under ``approx``. The port selects
@@ -25,8 +27,8 @@ from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, dense_to_tensor
 
-__all__ = ["knn", "knn_topk", "knn_topk_plain", "pairwise_sq_dists",
-           "IVF_THRESHOLD", "LOCAL_LIST"]
+__all__ = ["knn", "knn_topk", "knn_topk_plain", "knn_ring_merge", "knn_ring_merge_plain",
+           "pairwise_sq_dists", "IVF_THRESHOLD", "LOCAL_LIST"]
 
 # above this row count the reference's approximate path takes the IVF index
 IVF_THRESHOLD = 200_000
@@ -145,6 +147,81 @@ def knn_topk_plain(
     if take_sqrt:
         dists[:, 1:] = torch.sqrt(torch.clamp(dists[:, 1:], min=0.0))
     return idx, dists
+
+
+def _check_ring_args(Q, sq_q, B, sq_b, carried_d, carried_i) -> None:
+    dev = Q.device
+    nq, d = Q.shape
+    nb = B.shape[0]
+    k1 = carried_d.shape[1] if carried_d.dim() == 2 else -1
+    for name, t, dt, shape in (
+        ("Q", Q, torch.float32, (nq, d)), ("sq_q", sq_q, torch.float32, (nq,)),
+        ("B", B, torch.float32, (nb, d)), ("sq_b", sq_b, torch.float32, (nb,)),
+        ("carried_d", carried_d, torch.float32, (nq, k1)),
+        ("carried_i", carried_i, torch.int32, (nq, k1)),
+    ):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of shape {shape} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if k1 < 1 or d < 1 or max(nq * k1, nb + k1, d) > _INT32_MAX:
+        raise ValueError(f"Q {(nq, d)}, B {(nb, d)} with lists of {k1} are outside "
+                         "what T40 takes")
+
+
+def knn_ring_merge(
+    Q: torch.Tensor, sq_q: torch.Tensor, B: torch.Tensor, sq_b: torch.Tensor,
+    off: int, n: int, carried_d: torch.Tensor, carried_i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T40: one round of the sharded exact kNN. ``Q (nq, d)`` float32 are
+    this rank's queries with ``sq_q`` their squared norms; ``B (nb, d)`` the
+    database block of this round with ``sq_b``, its row j the point
+    ``off + j`` (rows with ``off + j >= n`` are padding and never enter);
+    ``carried_d``/``carried_i (nq, k+1)`` the ascending lists so far (+inf
+    and −1 before the first round). Returns the merged lists: squared
+    distances ``(‖q‖² − 2⟨q, b⟩) + ‖b‖²`` in float32, unclamped, and int32
+    ids, ascending by (distance, carried before new, then block row)."""
+    if Q.device.type == "cpu":
+        return knn_ring_merge_plain(Q, sq_q, B, sq_b, off, n, carried_d, carried_i)
+    if Q.device.type != "cuda":
+        raise ValueError(f"unsupported device {Q.device}")
+    _check_ring_args(Q, sq_q, B, sq_b, carried_d, carried_i)
+    nq, d = Q.shape
+    k1 = carried_d.shape[1]
+    if not 0 <= off <= _INT32_MAX - B.shape[0] or n > _INT32_MAX:
+        raise ValueError(f"off={off}, n={n} are outside what T40 takes")
+    od = torch.empty_like(carried_d)
+    oi = torch.empty_like(carried_i)
+    _kernels.launch(
+        "knn_ring_merge", Q.device,
+        Q.data_ptr(), sq_q.data_ptr(), nq, d, B.data_ptr(), sq_b.data_ptr(), B.shape[0],
+        int(off), int(n), k1, carried_d.data_ptr(), carried_i.data_ptr(), od.data_ptr(),
+        oi.data_ptr(),
+    )
+    return od, oi
+
+
+def knn_ring_merge_plain(
+    Q: torch.Tensor, sq_q: torch.Tensor, B: torch.Tensor, sq_b: torch.Tensor,
+    off: int, n: int, carried_d: torch.Tensor, carried_i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    nq, k1 = carried_d.shape
+    nb = B.shape[0]
+    ids = off + torch.arange(nb, dtype=torch.int32, device=Q.device)
+    masked = ids >= n
+    od = torch.empty_like(carried_d)
+    oi = torch.empty_like(carried_i)
+    block = _block_rows(nb + k1)
+    for s in range(0, nq, block):
+        e = min(s + block, nq)
+        d2 = (sq_q[s:e, None] - 2.0 * (Q[s:e] @ B.T)) + sq_b[None, :]
+        d2 = torch.where(masked[None, :], torch.inf, d2)
+        all_d = torch.cat([carried_d[s:e], d2], dim=1)
+        all_i = torch.cat([carried_i[s:e], ids.expand(e - s, nb)], dim=1)
+        order = torch.sort(all_d, dim=1, stable=True).indices[:, :k1]
+        od[s:e] = all_d.gather(1, order)
+        oi[s:e] = all_i.gather(1, order)
+    return od, oi
 
 
 def knn(

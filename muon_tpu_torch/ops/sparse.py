@@ -13,7 +13,10 @@ and a plain PyTorch version of the same arithmetic beside it. A wrapper runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises.
 
-    tfidf_data    T1  <- _tfidf_fn
+    tfidf_data    T1  <- _tfidf_fn; with given column sums (its values mode)
+                      <- the body of parallel/pipeline.py _tfidf_fn
+    tfidf_col_sums  T1's sums-only mode <- the body of parallel/pipeline.py
+                      _colsums_fn
     spmm          T2  <- _spmm_fn, transpose=False
     spmm_split    T2, its rows cut into pieces <- the products of nmf._nmf_fn
     spmm_t        T3  <- _spmm_fn, transpose=True
@@ -61,6 +64,7 @@ __all__ = [
     "binarize_data",
     "with_col_perm",
     "tfidf_data",
+    "tfidf_col_sums",
     "spmm",
     "spmm_t",
     "spmm_split",
@@ -69,6 +73,7 @@ __all__ = [
     "scale_rows_data",
     "col_sums",
     "tfidf_data_plain",
+    "tfidf_col_sums_plain",
     "spmm_plain",
     "spmm_t_plain",
     "spmm_split_plain",
@@ -424,23 +429,54 @@ def tfidf_data(
     log_idf: bool = True,
     log_tfidf: bool = False,
     scale_factor: Optional[float] = 1e4,
+    col_sums: Optional[torch.Tensor] = None,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     """T1: fused TF-IDF of the value vector (semantics of muon_tpu
     ``tfidf_data`` and of reference muon/_atac/preproc.py:85-119).
-    Returns the new ``(nnz,)`` float32 values."""
-    if _on(X) == "cpu":
-        return tfidf_data_plain(X, log_tf, log_idf, log_tfidf, scale_factor)
+    Returns the new ``(nnz,)`` float32 values.
+
+    ``col_sums`` ``(n_cols,)`` float32 and ``n_total``: T1's values mode,
+    the IDF from the column sums and row count of a whole matrix of which
+    X is a row block (the sharded pipeline's); None sums X's own columns and
+    counts its rows."""
+    if _on(X, *(() if col_sums is None else (col_sums,))) == "cpu":
+        return tfidf_data_plain(X, log_tf, log_idf, log_tfidf, scale_factor, col_sums,
+                                n_total)
     _check_csr(X)
     out = torch.empty_like(X.data)
-    cs = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
     apply, scale = _scale(scale_factor)
+    if col_sums is None:
+        name, mode, n = "tfidf_values", 0, X.n_rows
+        cs = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
+    else:
+        name, mode, n = "tfidf_values_global", 2, X.n_rows if n_total is None else n_total
+        _check_dense("col_sums", col_sums[:, None], X.n_cols, (torch.float32,))
+        cs = col_sums
     _kernels.launch(
-        "tfidf_values", X.device,
+        name, X.device,
         X.data.data_ptr(), X.indptr.data_ptr(), X.indices.data_ptr(), X.n_rows, X.nnz,
-        cs.data_ptr(), int(log_tf), int(log_idf), int(log_tfidf), int(apply),
-        scale, out.data_ptr(),
+        cs.data_ptr(), mode, float(n), int(log_tf), int(log_idf), int(log_tfidf),
+        int(apply), scale, out.data_ptr(),
     )
     return out
+
+
+def tfidf_col_sums(X: DeviceCSR) -> torch.Tensor:
+    """T1's sums-only mode: the ``(n_cols,)`` float32 column sums of X (a
+    row block's, which the sharded pipeline all-reduces). The kernel adds
+    with atomics: integer counts below 2^24 sum exactly, other values in an
+    order that changes from run to run."""
+    if _on(X) == "cpu":
+        return tfidf_col_sums_plain(X)
+    _check_csr(X)
+    cs = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
+    _kernels.launch(
+        "tfidf_col_sums", X.device,
+        X.data.data_ptr(), X.indptr.data_ptr(), X.indices.data_ptr(), X.n_rows, X.nnz,
+        cs.data_ptr(), 1, float(X.n_rows), 0, 0, 0, 0, 1.0, 0,
+    )
+    return cs
 
 
 def _scale(scale_factor) -> Tuple[bool, float]:
@@ -631,18 +667,25 @@ def _row_ids(X: DeviceCSR) -> torch.Tensor:
     )
 
 
+def tfidf_col_sums_plain(X: DeviceCSR) -> torch.Tensor:
+    cs = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
+    return cs.index_add_(0, X.indices.long(), X.data)
+
+
 def tfidf_data_plain(
     X: DeviceCSR,
     log_tf: bool = True,
     log_idf: bool = True,
     log_tfidf: bool = False,
     scale_factor: Optional[float] = 1e4,
+    col_sums: Optional[torch.Tensor] = None,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     row, col = _row_ids(X), X.indices.long()
     rs = torch.zeros(X.n_rows, dtype=torch.float32, device=X.device)
     rs.index_add_(0, row, X.data)
-    cs = torch.zeros(X.n_cols, dtype=torch.float32, device=X.device)
-    cs.index_add_(0, col, X.data)
+    cs = tfidf_col_sums_plain(X) if col_sums is None else col_sums
+    n = X.n_rows if col_sums is None or n_total is None else n_total
     tf = X.data / rs[row]
     tf = torch.where(torch.isfinite(tf), tf, 0.0)
     apply, scale = _scale(scale_factor)
@@ -650,7 +693,7 @@ def tfidf_data_plain(
         tf = tf * scale
     if log_tf:
         tf = torch.log1p(tf)
-    idf = X.n_rows / cs
+    idf = n / cs
     if log_idf:
         idf = torch.log1p(idf)
     out = tf * idf[col]

@@ -3,7 +3,9 @@
     umap_epoch         T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
     membership_matvec  T16  <- _spectral_membership_fn's matvec
     umap_epoch_asym    T22  <- _optimize_fn (move_other, asymmetric)
-                               (all three in csrc/umap_kernels.cu)
+    umap_epoch_block   T41  <- parallel/pipeline.py _umap_epochs_fn: T13 on a
+                               rank's vertex window, no stride buckets
+                               (all four in csrc/umap_kernels.cu)
 
 The fuzzy graph's edges live on the device as one head-sorted edge list
 (a CSR over the vertices) with a per-edge stride; each epoch is one launch
@@ -58,7 +60,8 @@ from .fuzzy import MEMBERSHIP_TAG
 __all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
            "bucket_shifts", "UmapEdges", "umap_edges", "umap_epoch",
            "umap_epoch_plain", "UmapTails", "umap_tails", "umap_epoch_asym",
-           "umap_epoch_asym_plain", "MembershipOperator", "membership_operator",
+           "umap_epoch_asym_plain", "umap_epoch_block", "umap_epoch_block_plain",
+           "epoch_alpha", "MembershipOperator", "membership_operator",
            "membership_matvec", "membership_matvec_plain", "spectral_membership"]
 
 # the reference buckets edges by stride only from this many edges on
@@ -322,16 +325,21 @@ class UmapEdges(NamedTuple):
     shift: torch.Tensor   # (E,) int8, log2 of the stride
 
 
-def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None) -> UmapEdges:
-    """Upload a head-sorted edge list (numpy) as ``UmapEdges``."""
+def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None,
+               v0: int = 0) -> UmapEdges:
+    """Upload a head-sorted edge list (numpy) as ``UmapEdges``: the CSR over
+    the ``n`` vertices ``[v0, v0 + n)`` that hold its heads (the whole
+    layout, or a rank's window for T41)."""
     device = resolve_device(device)
     heads = np.asarray(heads)
     if len(heads) and np.any(np.diff(heads) < 0):
         raise ValueError("edges must be sorted by head")
     if len(heads) > 2**31 - 1:
         raise ValueError(f"{len(heads)} edges exceed the int32 index range")
+    if len(heads) and (heads[0] < v0 or heads[-1] >= v0 + n):
+        raise ValueError(f"a head lies outside the vertices [{v0}, {v0 + n})")
     indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(heads, minlength=n), out=indptr[1:])
+    np.cumsum(np.bincount(heads - v0, minlength=n), out=indptr[1:])
     to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)  # noqa: E731
     return UmapEdges(to(indptr, np.int32), to(heads, np.int32), to(tails, np.int32),
                      to(eps, np.float32), to(shift, np.int8))
@@ -397,7 +405,8 @@ def umap_epoch(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
 
 def _clipped_attraction(emb: torch.Tensor, edges: UmapEdges, due: torch.Tensor,
                         a: float, b: float) -> torch.Tensor:
-    """g(e) of every edge, clipped to ±4, zero where not ``due`` (E, dim)."""
+    """g(e) of every edge, clipped to ±4, zero where not ``due`` (E, dim);
+    ``edges.heads`` and ``edges.tails`` are rows of ``emb``."""
     diff = emb[edges.heads.long()] - emb[edges.tails.long()]
     d2 = (diff * diff).sum(-1)
     coeff = (-2.0 * a * b * d2 ** (b - 1.0)) / (a * d2**b + 1.0)
@@ -407,16 +416,17 @@ def _clipped_attraction(emb: torch.Tensor, edges: UmapEdges, due: torch.Tensor,
 
 
 def _negative_sums(emb: torch.Tensor, negs: torch.Tensor, a: float, b: float,
-                   gamma: float) -> torch.Tensor:
-    """The vertex-pooled repulsion, summed over each vertex's negatives: a
-    self hit adds 0, a negative at the vertex's own position 4 (n, dim)."""
-    n, R = negs.shape
-    vneg = emb[negs.reshape(-1).long()].reshape(n, R, -1)
-    diffn = emb[:, None, :] - vneg
+                   gamma: float, v0: int = 0) -> torch.Tensor:
+    """The vertex-pooled repulsion of the vertices ``[v0, v0 + nv)``, each
+    row of ``negs (nv, R)`` one's, summed over its negatives: a self hit
+    adds 0, a negative at the vertex's own position 4 (nv, dim)."""
+    nv, R = negs.shape
+    vneg = emb[negs.reshape(-1).long()].reshape(nv, R, -1)
+    diffn = emb[v0:v0 + nv, None, :] - vneg
     d2n = (diffn * diffn).sum(-1)
     cn = (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n**b + 1.0))
     gn = torch.where(d2n[..., None] > 0, torch.clamp(cn[..., None] * diffn, -4.0, 4.0), 4.0)
-    self_hit = negs.long() == torch.arange(n, device=emb.device)[:, None]
+    self_hit = negs.long() == v0 + torch.arange(nv, device=emb.device)[:, None]
     return torch.where(self_hit[..., None], 0.0, gn).sum(dim=1)
 
 
@@ -431,6 +441,75 @@ def umap_epoch_plain(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
     eons.copy_(torch.where(due, eons + edges.eps, eons))
     upd_neg = _negative_sums(emb, negs, a, b, gamma) * dc_exp[:, None]
     return out.copy_(emb + alpha * (2.0 * upd_h + upd_neg))
+
+
+def _check_block_args(emb, out_blk, edges, eons, dc_exp, negs, v0) -> None:
+    n, dim = emb.shape
+    nv = edges.indptr.shape[0] - 1
+    E = edges.tails.shape[0]
+    R = negs.shape[1] if negs.dim() == 2 else -1
+    for name, t, dt, shape in (
+        ("emb", emb, torch.float32, (n, dim)),
+        ("out_blk", out_blk, torch.float32, (nv, dim)),
+        ("edges.indptr", edges.indptr, torch.int32, (nv + 1,)),
+        ("edges.tails", edges.tails, torch.int32, (E,)),
+        ("edges.eps", edges.eps, torch.float32, (E,)),
+        ("eons", eons, torch.float32, (E,)),
+        ("dc_exp", dc_exp, torch.float32, (nv,)),
+        ("negs", negs, torch.int32, (nv, R)),
+    ):
+        if t.device != emb.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of shape {shape} "
+                             f"on {emb.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dim < 2 or n * dim > 2**31 - 1 or not 0 <= v0 <= n - nv:
+        raise ValueError(f"T41 takes at least 2 components, n * dim below 2^31 and a "
+                         f"window inside the layout, got n={n} dim={dim} [{v0}, {v0 + nv})")
+    if not 0 <= R <= MAX_NEG_RATE:
+        raise ValueError(f"T41 takes at most {MAX_NEG_RATE} negatives per vertex, got {R}")
+    if out_blk.data_ptr() == emb.data_ptr():
+        raise ValueError("out_blk must not alias emb: the epoch reads emb whole")
+
+
+def umap_epoch_block(emb: torch.Tensor, out_blk: torch.Tensor, edges: UmapEdges,
+                     eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
+                     v0: int, epoch: int, alpha: float, a: float, b: float,
+                     gamma: float) -> torch.Tensor:
+    """T41: one epoch of the sharded SGD on the vertex window ``[v0, v0 +
+    nv)``. Reads the whole layout ``emb (n, dim)``; ``edges`` are the
+    window's (a CSR over it from ``umap_edges(..., v0=v0)``, tails global,
+    ``shift`` not read: every edge has stride 1), ``eons`` theirs, advanced
+    in place where due (eons ≤ epoch + 1); ``dc_exp (nv,)`` and ``negs (nv,
+    neg_rate)`` the window's. Writes the window's new rows into ``out_blk
+    (nv, dim)`` and returns it: emb + α(2·upd_h + dc·upd_neg), every update
+    summed from ``emb``."""
+    if emb.device.type == "cpu":
+        return umap_epoch_block_plain(emb, out_blk, edges, eons, dc_exp, negs, v0, epoch,
+                                      alpha, a, b, gamma)
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_block_args(emb, out_blk, edges, eons, dc_exp, negs, v0)
+    nv, dim = out_blk.shape
+    _kernels.launch(
+        "umap_epoch_block", emb.device,
+        emb.data_ptr(), out_blk.data_ptr(), edges.indptr.data_ptr(), edges.tails.data_ptr(),
+        edges.eps.data_ptr(), eons.data_ptr(), dc_exp.data_ptr(), negs.data_ptr(), int(v0),
+        nv, dim, negs.shape[1], int(epoch), float(alpha), float(a), float(b), float(gamma),
+    )
+    return out_blk
+
+
+def umap_epoch_block_plain(emb: torch.Tensor, out_blk: torch.Tensor, edges: UmapEdges,
+                           eons: torch.Tensor, dc_exp: torch.Tensor, negs: torch.Tensor,
+                           v0: int, epoch: int, alpha: float, a: float, b: float,
+                           gamma: float) -> torch.Tensor:
+    nv = out_blk.shape[0]
+    due = eons <= float(epoch) + 1.0
+    g = _clipped_attraction(emb, edges, due, a, b)
+    upd_h = torch.zeros_like(out_blk).index_add_(0, edges.heads.long() - v0, g)
+    eons.copy_(torch.where(due, eons + edges.eps, eons))
+    upd_neg = _negative_sums(emb, negs, a, b, gamma, v0) * dc_exp[:, None]
+    return out_blk.copy_(emb[v0:v0 + nv] + alpha * (2.0 * upd_h + upd_neg))
 
 
 class UmapTails(NamedTuple):

@@ -26,7 +26,7 @@ from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, dense_to_tensor, resolve_device
 from .fuzzy import compute_connectivities_umap
-from .knn import _order_keys, knn
+from .knn import IVF_THRESHOLD, _order_keys, knn
 
 __all__ = [
     "choose_representation", "single_neighbors", "wnn_neighbors",
@@ -111,19 +111,36 @@ def single_neighbors(
 
     Above 20,000 rows the kNN takes the ``approx`` (bfloat16) path, and
     above ``ops/knn.IVF_THRESHOLD`` rows the IVF index, as in the reference.
-    ``mesh`` (multi-device) is not ported yet. The distances carry no tag:
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more than
+    one rank runs the exact ring kNN (``parallel.sharded_knn``, float32),
+    or above ``IVF_THRESHOLD`` rows the sharded IVF index, euclidean only,
+    as the reference; every rank writes the same graph. The distances carry no tag:
     WNN rebuilds its neighbour matrix from the CSR, so a graph edited in
     place is never read stale. The connectivities carry the membership
     table as numpy (``ops/fuzzy.MEMBERSHIP_TAG``), which ``tl.umap`` seeds
     from above 8M edges while the graph still has the edge count it was
     tagged with."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "neighbors over a device mesh is not ported yet (the multi-device work, K20)"
-        )
+    from .._core.config import resolve_mesh
+
+    mesh, device = resolve_mesh(mesh, device)
     rep = choose_representation(adata, use_rep=use_rep, n_pcs=n_pcs, device=device)
-    idx_t, dists_t = knn(rep, n_neighbors - 1, metric=metric,
-                         approx=rep.shape[0] > APPROX_ROWS, device=device)
+    if mesh is None:
+        idx_t, dists_t = knn(rep, n_neighbors - 1, metric=metric,
+                             approx=rep.shape[0] > APPROX_ROWS, device=device)
+    elif metric not in ("euclidean", "l2"):
+        raise NotImplementedError(
+            f"metric {metric!r} over a device mesh: the sharded kNN is euclidean, as the "
+            "reference's"
+        )
+    elif rep.shape[0] > IVF_THRESHOLD:
+        from ..parallel.pipeline import sharded_ivf_knn
+
+        idx_t, dists_t = sharded_ivf_knn(rep, mesh, k=n_neighbors - 1)
+    else:
+        from ..parallel.pipeline import sharded_knn
+
+        d2, idx_t = sharded_knn(rep, mesh, k=n_neighbors - 1)
+        dists_t = torch.sqrt(torch.clamp(d2, min=0.0))
     n = _n_obs(adata)
     k = idx_t.shape[1]  # n_neighbors incl. self
     with stage("neighbors/download"):
@@ -539,10 +556,14 @@ def wnn_neighbors(
     ``obs[weight_key]`` under ``add_weights_to_modalities``). ``low_memory``
     and ``use_rep``/``n_pcs`` are accepted and unused, as in the
     reference; the representations are the ones each modality's neighbors
-    used. ``mesh`` (multi-device) is not ported yet."""
-    if mesh is not None:
+    used. ``mesh`` (multi-device, also through ``set_options``) is not ported
+    yet and raises."""
+    from .._core.config import current_mesh
+
+    if mesh is not None or current_mesh() is not None:
         raise NotImplementedError(
-            "WNN over a device mesh is not ported yet (the multi-device work, K20)"
+            "WNN over a device mesh is not ported yet: the multi-device WNN and MOFA, "
+            "the rest of K20 (ROADMAP.md)"
         )
     device = resolve_device(device)
     mdata = mdata.copy() if copy else mdata

@@ -193,9 +193,10 @@ def test_tfidf_argument_errors(pkg, adata_dense):
 
 
 def test_unported_branches_raise(adata_sparse):
-    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
+    # mesh= is ported (tests/test_torch_parallel.py): what is not a Mesh raises
+    with pytest.raises(ValueError, match="parallel Mesh"):
         tac.pp.tfidf(adata_sparse, mesh=object())
-    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
+    with pytest.raises(ValueError, match="parallel Mesh"):
         tac.tl.lsi(adata_sparse, mesh=object())
 
 

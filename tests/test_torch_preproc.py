@@ -210,9 +210,11 @@ def test_unported_branches_raise():
         mt.pp.neighbors(mdata, device=CPU)
     with pytest.raises(TypeError):
         mt.pp.pca(mdata)
-    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
+    # one modality's mesh= is ported (tests/test_torch_parallel.py): what is
+    # not a Mesh raises; WNN under a mesh is the rest of K20
+    with pytest.raises(ValueError, match="parallel Mesh"):
         mt.pp.neighbors(Holder(X), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
+    with pytest.raises(NotImplementedError, match="the rest of K20"):
         mt.pp.neighbors(mdata, mesh=object(), device=CPU)
 
 

@@ -480,7 +480,8 @@ def test_umap_label_share_matches_jax(seed):
 def test_umap_refuses_what_is_not_ported():
     md, _ = _mdata()
     mu.pp.neighbors(md)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported (tests/test_torch_parallel.py): what is not a Mesh raises
+    with pytest.raises(ValueError, match="parallel Mesh"):
         mt.tl.umap(md, mesh=object(), device=CPU)
 
 

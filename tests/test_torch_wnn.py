@@ -593,7 +593,7 @@ def test_wnn_on_duck_typed_holders():
     assert mt.pp.neighbors(mdh, device=CPU) is None
     assert np.allclose(mdh.obs["a:mod_weight"] + mdh.obs["b:mod_weight"], 1.0)
     assert _label_share(mdh.obsp["distances"], labels) > 0.95
-    with pytest.raises(NotImplementedError, match="the multi-device work, K20"):
+    with pytest.raises(NotImplementedError, match="the multi-device WNN and MOFA, the rest of K20"):
         mt.pp.neighbors(mdh, mesh=object(), device=CPU)
 
 
