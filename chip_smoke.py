@@ -89,11 +89,14 @@ as a ``BackedMatrix`` in a port ``AnnData``, through ``atac.pp.tfidf`` (the
 matrix streamed to the card block by block, T38 a block, then T1) →
 ``atac.tl.lsi(n_comps=50)``.
 
-and the multi-device pipeline over ``torch.distributed`` (``parallel``): the
+and the multi-device paths over ``torch.distributed`` (``parallel``): the
 same ATAC counts through the sharded programs at one rank under NCCL, then
 through the public tools with ``mesh=`` at two and four ranks under gloo,
 every rank on the one card, with the 1M representation's sharded IVF and
-UMAP at two.
+UMAP at two; WNN of the e2e's three modalities (the sharded functions at
+one rank, ``pp.neighbors(mdata)`` under ``set_options(mesh=...)`` at two and
+four) and ``fit_mofa(mesh=)`` at the bench's MOFA size on (2, 1) and (2, 2)
+meshes.
 
 Phases, one line each or more. A failed check is printed as ``[check
 failed]`` and recorded, and the run goes on, so that one run reads every
@@ -341,6 +344,11 @@ is printed. An exception stops the run at once, with a code other than 0:
     rule against the L Ritz pairs of the kernels' and the plain rSVD, the
     distances within 1e-5 of max(d, |q|²) of T40's plain twin (one place
     longer) and the ids equal but where that list holds a near-tie (1e-6).
+    Then WNN's sharded functions on phase [wnn]'s modalities (written by the
+    parent, loaded by the rank), counted alone (T9 three times, T10 nine,
+    T11 once): ``sharded_wnn_bandwidth`` and ``sharded_wnn_theta`` bit for bit
+    equal to [wnn]'s T9 and T10 outputs, ``sharded_wnn_scores`` on [wnn]'s T11
+    arguments bit for bit equal to T11 + ``final_topk``.
 42. ``[mesh2]``: two ranks under gloo, both on the one card (NCCL refuses two
     ranks on one device; gloo stages through pinned host memory), through the
     public tools with ``mesh=``: ``atac.pp.tfidf`` → ``atac.tl.lsi`` →
@@ -354,15 +362,30 @@ is printed. An exception stops the run at once, with a code other than 0:
     against exact ≥ 0.9; one sharded Lloyd step from the path's start
     within 1e-5 × max|X| of one device's; the 1M layout's 15-NN
     planted-label share ≥ 0.8 × the graph's. ``[mesh4]``: four ranks, tfidf →
-    lsi → neighbors at 100k, the gates of [mesh2] against [mesh1]. Each rank
-    prints its ``mesh/*`` and ``comm/*`` stages (``comm/stage(host)``: the
-    copies through host memory); the launches are every rank's added up.
+    lsi → neighbors at 100k on (4, 1), the gates of [mesh2] against [mesh1].
+    Then, on ``make_mesh(2)`` (2, 1) and ``make_mesh(4)`` (2, 2): WNN of
+    [wnn]'s modalities through ``pp.neighbors(mdata)`` under
+    ``set_options(mesh=...)`` (each modality's candidates by the exact ring
+    kNN at k+1 = 201), σ, θ and the weights bit for bit equal to [wnn]'s,
+    the fused 21-NN ids' mean overlap with [wnn]'s ≥ 0.9, [mesh4]'s fused
+    graph against [mesh2]'s (distances within 1e-6, ids apart only at
+    near-ties); and ``fit_mofa(mesh=)`` at 10,000 × (2000, 3000), K = 15,
+    from phase 17's draws: one sweep's every leaf within 1e-5 of its largest
+    entry of the single-device sweep, then 50 sweeps (and at (2, 1) 50 SVI
+    iterations, at (2, 2) 50 sweeps beside [mofa-lik]'s bernoulli view) each
+    held to the single-device fit (every ELBO within 1e-4, Z within rtol
+    1e-2 atol 1e-3, the planted factors' R² within 0.02). Each rank prints
+    its ``mesh/*``, ``wnn/*``, ``mofa/*`` and ``comm/*`` stages
+    (``comm/stage(host)``: the copies through host memory); the launches are
+    every rank's added up.
     These phases show the sharded arithmetic and the collectives' wiring on
     the card; with every rank on one card their times are no scaling.
 43. ``[kernel] knn_ring_merge`` (a [mesh4] round, 25,000 × 25,000, and
     [mesh1]'s one round at 100,000), ``umap_epoch_block`` (a [mesh2] rank's
     window), ``tfidf_col_sums`` and ``tfidf_values_global`` (T1's modes),
-    each against its plain twin with its bound and library call.
+    ``wnn_bandwidth`` and ``wnn_fusion_scores`` on [mesh2] rank 1's window
+    (rows 50,000-100,000; recorded under the kernel's ``mesh2_window``), each
+    against its plain twin with its bound and library call.
 
 The last three lines are a JSON object of the kernels (``wire_decode``'s
 entry holds the path's block, uint8/int16, and lists every case under
@@ -375,7 +398,8 @@ kernel's measured call, ``library_ms`` the time of one PyTorch call that
 computes the same function, where there is one), the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
 Without a CUDA device it prints no result and exits 1. ``python3 chip_smoke.py
---mesh-only`` runs phases 1, 2 and 41-43 alone and prints no result.
+--mesh-only`` runs phases 1, 2 and 41-43 alone (after the e2e's three
+modalities and phase [wnn], which they read) and prints no result.
 """
 
 from __future__ import annotations
@@ -466,26 +490,37 @@ KERNEL_INFO = {
     "csr_scale_rows": (SPARSE_SRC, "muon_tpu/ops/sparse.py:830"),   # _scale_rows_fn
     "knn_topk": (KNN_SRC, "muon_tpu/ops/knn.py:58"),                # _knn_fn + _topk2
     "smooth_knn_membership": (KNN_SRC, "muon_tpu/ops/fuzzy.py:32"),  # + _membership_fn
-    "wnn_bandwidth": (WNN_SRC, "muon_tpu/ops/wnn.py:339"),          # _bandwidth_fn
-    "wnn_theta": (WNN_SRC, "muon_tpu/ops/wnn.py:394"),              # _theta_fn
-    "wnn_fusion_scores": (WNN_SRC, "muon_tpu/ops/wnn.py:470"),      # _fusion_all_fn
+    # T9-T11 also run per rank, on row windows, for the sharded WNN (K20)
+    "wnn_bandwidth": (WNN_SRC, "muon_tpu/ops/wnn.py:339; "          # _bandwidth_fn
+                      "muon_tpu/parallel/pipeline.py:907"),         # _wnn_bandwidth_fn
+    "wnn_theta": (WNN_SRC, "muon_tpu/ops/wnn.py:394; "              # _theta_fn
+                  "muon_tpu/parallel/pipeline.py:1006"),            # _wnn_theta_fn
+    "wnn_fusion_scores": (WNN_SRC, "muon_tpu/ops/wnn.py:470; "      # _fusion_all_fn
+                          "muon_tpu/parallel/pipeline.py:1085"),    # _wnn_score_fn
     "clr_dense": (DENSE_SRC, "muon_tpu/ops/dense.py:64"),           # _clr_dense_fn
     "umap_epoch": (UMAP_SRC, "muon_tpu/ops/umap.py:289"),           # _optimize_layout_bucketed_fn
     "ivf_search": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),             # _search_fn
     "kmeans_assign": (IVF_SRC, "muon_tpu/ops/ivf.py:83"),           # _kmeans_fn's assign
     "membership_matvec": (UMAP_SRC, "muon_tpu/ops/umap.py:75"),     # _spectral_membership_fn
-    "wnn_bandwidth_global": (WNN_SRC, "muon_tpu/ops/wnn.py:339"),   # _bandwidth_fn, wide lists
-    # the loop bodies of _make_step (:94) and _make_svi_step (:811)
-    "mofa_col_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),       # zk @ E, (E*E).sum(0)
-    "mofa_w_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),   # w_body's posterior
-    "mofa_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),       # Es[m] @ tsw, B @ tSWW
-    "mofa_rank1_update": (MOFA_SRC, "muon_tpu/models/mofa.py:94"),  # E + zk (x) delta
+    "wnn_bandwidth_global": (WNN_SRC, "muon_tpu/ops/wnn.py:339; "   # _bandwidth_fn, wide lists
+                             "muon_tpu/parallel/pipeline.py:907"),
+    # the loop bodies of _make_step (:94) and _make_svi_step (:811), and per
+    # rank of the GSPMD sweep over the state shard_mofa_state cuts (K20)
+    "mofa_col_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "       # zk @ E, (E*E).sum(0)
+                     "muon_tpu/parallel/mesh.py:121"),
+    "mofa_w_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "   # w_body's posterior
+                         "muon_tpu/parallel/mesh.py:121"),
+    "mofa_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "       # Es[m] @ tsw, B @ tSWW
+                     "muon_tpu/parallel/mesh.py:121"),
+    "mofa_rank1_update": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "  # E + zk (x) delta
+                          "muon_tpu/parallel/mesh.py:121"),
     "knn_topk_global": (KNN_SRC, "muon_tpu/ops/knn.py:58"),         # lists longer than 256
     "ivf_search_global": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),      # lists longer than 256
     "gmm_background_means": (GMM_SRC, "muon_tpu/ops/gmm.py:101"),   # + _em_1d (:32)
     "umap_epoch_asym": (UMAP_SRC, "muon_tpu/ops/umap.py:407"),      # _optimize_fn, asymmetric
     # the bound refresh of _make_step (:136-170) and _make_svi_step (:860-893)
-    "mofa_bound_refresh": (MOFA_SRC, "muon_tpu/models/mofa.py:136"),
+    "mofa_bound_refresh": (MOFA_SRC, "muon_tpu/models/mofa.py:136; "
+                           "muon_tpu/parallel/mesh.py:121"),
     "gp_rbf_kernel": (GP_SRC, "muon_tpu/models/mofa.py:604"),       # _rbf_kernel, _gp_kmat_fn
     "gp_kg_grad": (GP_SRC, "muon_tpu/models/mofa.py:636"),          # grad of _gp_group_fn
     "wilcoxon_rank_sums": (DE_SRC, "muon_tpu/_core/tools_de.py:175"),   # ranksum
@@ -635,6 +670,17 @@ WIRE_PAIRS = ((np.uint8, np.int16), (np.uint8, np.int32), (np.uint16, np.int16),
               (np.uint16, np.int32), (np.float32, np.int16), (np.float32, np.int32))
 # kernels no tool of either package calls: launched by their [kernel] phase only
 OFF_PATH = {"binarize_values": "_binarize_fn has no caller in muon_tpu either"}
+
+
+def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
+    """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep T17
+    K·M + M (one per factor and view, and Σ E² per view for τ), T18 and T19
+    K·M, T20 2·K·M."""
+    km = K * n_views
+    return {"mofa_col_dot": sweeps * (km + n_views), "mofa_w_posterior": sweeps * km,
+            "mofa_row_dot": sweeps * km, "mofa_rank1_update": sweeps * 2 * km}
+
+
 # [mesh*]: the launches of all ranks together. A rank: T1's two modes once
 # each; the sharded rSVD T2 1 + N_ITER and T3 N_ITER + 1 times (float32);
 # the ring P rounds of T40; T6 once; tl.umap T41 once an epoch and the exact
@@ -652,20 +698,32 @@ MESH_PATHS = {
     "mesh4": {"tfidf_col_sums": 4, "tfidf_values_global": 4, "csr_spmm_f32": 4 * (N_ITER + 1),
               "csr_spmm_t_f32": 4 * (N_ITER + 1), "knn_ring_merge": 16,
               "smooth_knn_membership": 4},
+    # WNN of phase [wnn]'s three modalities. [mesh1]: the sharded functions,
+    # T9 once a modality, T10 once an ordered pair, T11 once. Under
+    # set_options(mesh=...) a rank adds the ring kNN of each modality at
+    # k+1 = 201 (T40 once a round, one round a cells coordinate) and T6 for
+    # the fused graph; (2, 2) has two cells coordinates, as (2, 1)
+    "mesh1_wnn": {"wnn_bandwidth": 3, "wnn_theta": 9, "wnn_fusion_scores": 1,
+                  "knn_ring_merge": 0, "knn_topk": 0},
+    "mesh2_wnn": {"wnn_bandwidth": 6, "wnn_theta": 18, "wnn_fusion_scores": 2,
+                  "knn_ring_merge": 12, "smooth_knn_membership": 2, "knn_topk": 0,
+                  "wnn_bandwidth_global": 0},
+    "mesh4_wnn": {"wnn_bandwidth": 12, "wnn_theta": 36, "wnn_fusion_scores": 4,
+                  "knn_ring_merge": 24, "smooth_knn_membership": 4, "knn_topk": 0,
+                  "wnn_bandwidth_global": 0},
+    # MOFA: every rank the launches of one device's fit (its blocks, the same
+    # loops), 50 full-batch sweeps or 50 SVI iterations; with the bernoulli
+    # view T23 once a sweep
+    "mesh2_mofa": {k: 2 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
+    "mesh2_svi": {k: 2 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
+    "mesh4_mofa": {k: 4 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
+    "mesh4_lik": {**{k: 4 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
+                  "mofa_bound_refresh": 4 * MOFA_SWEEPS},
 }
 # a kNN id may differ from the reference list's only where two neighbouring
 # distances of that list lie this close (relative); the sampled rows of the
 # sharded IVF's recall against exact neighbours
 MESH_TIE, MESH_RECALL_ROWS = 1e-6, 10_000
-
-
-def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
-    """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep T17
-    K·M + M (one per factor and view, and Σ E² per view for τ), T18 and T19
-    K·M, T20 2·K·M."""
-    km = K * n_views
-    return {"mofa_col_dot": sweeps * (km + n_views), "mofa_w_posterior": sweeps * km,
-            "mofa_row_dot": sweeps * km, "mofa_rank1_update": sweeps * 2 * km}
 
 
 # the card's published peaks (H100 SXM: NVIDIA's data sheet, dense, at
@@ -5140,10 +5198,290 @@ def span_cosines(emb: torch.Tensor, U_t: torch.Tensor, s_t: np.ndarray):
             [float(canonical_correlations(emb[:, g[g < K]], U_t[:, g]).min()) for g in groups])
 
 
+def save_wnn_inputs(tw, work, mods, rec, md) -> None:
+    """What the [mesh*] WNN reads (the parent writes it, the ranks load it):
+    each modality's representation as WNN chose it and its own graph, and
+    phase [wnn]'s single-device results: sigma per modality, theta per ordered
+    pair, the weights, the fused graph, and the arguments of its T11 call."""
+    for mod, h in mods.items():
+        params = h.uns["neighbors"]["params"]
+        rk, rp = params.get("use_rep", None), params.get("n_pcs", None)
+        rep = tw.choose_representation(h, None if rk == -1 else rk, None if rp == -1 else rp)
+        np.save(f"{work}/wnn_{mod}_rep.npy", rep)
+        save_csr(f"{work}/wnn_{mod}_dist", h.obsp["distances"])
+        np.save(f"{work}/wnn_{mod}_k.npy", np.array(params["n_neighbors"]))
+    cand, cat16, aux, sigw, dims, metric = rec["fusion"][0][0]
+    D = md.obsp["distances"]
+    np.savez(f"{work}/wnn_single.npz", mods=np.array(list(mods)),
+             sigma=np.stack([out.cpu().numpy() for _, out in rec["bandwidth"]]),
+             theta=np.stack([out.cpu().numpy() for _, out in rec["theta"]]),
+             w=np.stack([md.obs[f"{m}:mod_weight"] for m in mods]), D_data=D.data,
+             D_indices=D.indices, D_indptr=D.indptr, cand=cand.cpu().numpy(),
+             cat16=cat16.view(torch.int16).cpu().numpy(), aux=aux.cpu().numpy(),
+             sigw=sigw.cpu().numpy(), dims=np.array(dims), metric=np.array(metric))
+
+
+def wnn_mods(work, names):
+    """The modalities of phase [wnn] as the ranks rebuild them: each
+    representation under obsm["X_wnn"] and its own graph."""
+    mods = {}
+    for mod in names:
+        rep = np.load(f"{work}/wnn_{mod}_rep.npy")
+        h = Holder(rep)
+        h.obsm["X_wnn"] = rep
+        h.obsp["distances"] = load_csr(f"{work}/wnn_{mod}_dist")
+        h.uns["neighbors"] = {"distances_key": "distances", "connectivities_key": "connectivities",
+                              "params": {"n_neighbors": int(np.load(f"{work}/wnn_{mod}_k.npy")),
+                                         "use_rep": "X_wnn", "n_pcs": -1,
+                                         "metric": "euclidean"}}
+        mods[mod] = h
+    return mods
+
+
+def fused_ids(D, k: int) -> np.ndarray:
+    """The (n, k) column-sorted ids of a fused graph of k entries a row."""
+    return D.indices.reshape(D.shape[0], k)
+
+
+def mesh1_wnn(mesh, work, kernels, info, checks):
+    """[mesh1]'s WNN: sharded_wnn_bandwidth and sharded_wnn_theta at one rank
+    on phase [wnn]'s modalities against its single-device T9 and T10 outputs,
+    and sharded_wnn_scores on its T11 arguments against T11 + final_topk,
+    each bit for bit."""
+    from muon_tpu_torch import parallel as par
+    from muon_tpu_torch.ops import wnn as tw
+
+    single = np.load(f"{work}/wnn_single.npz")
+    names = [str(m) for m in single["mods"]]
+    mods = wnn_mods(work, names)
+    cuda = mesh.device
+    tables = {}
+    for mod, h in mods.items():
+        NI, nnd = tw._neighbor_index_matrix(h.obsp["distances"])
+        tables[mod] = (torch.from_numpy(NI).to(cuda), torch.from_numpy(nnd).to(cuda),
+                       torch.from_numpy(h.obsm["X_wnn"]).to(cuda))
+    n = N_CELLS
+    rows = torch.arange(n, dtype=torch.int32, device=cuda)
+    cand = torch.from_numpy(single["cand"]).to(cuda)
+    cat16 = torch.from_numpy(single["cat16"]).to(cuda).view(torch.bfloat16)
+    aux, sigw = (torch.from_numpy(single[k]).to(cuda) for k in ("aux", "sigw"))
+    dims, metric = [tuple(int(v) for v in d) for d in single["dims"]], str(single["metric"])
+    kernels.reset_launch_counts()
+    sig, th = [], []
+    for mod in names:
+        NI, _, rep = tables[mod]
+        kk = NI.shape[1]
+        sig.append(par.sharded_wnn_bandwidth(NI, rep, mesh, n_bw=min(20, kk),
+                                             nn_stride=tw._auto_nn_stride(kk)))
+    for i1, mod1 in enumerate(names):
+        for mod2 in names:
+            th.append(par.sharded_wnn_theta(tables[mod1][2], rows, rows, tables[mod2][0], rows,
+                                            tables[mod1][1], sig[i1], mesh))
+    idx, dist = par.sharded_wnn_scores(cand, cat16, aux, sigw, dims, mesh, metric=metric,
+                                       k=N_NEIGHBORS + 1)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    sig_same = all(np.array_equal(s.cpu().numpy(), r) for s, r in zip(sig, single["sigma"]))
+    th_same = all(np.array_equal(t.cpu().numpy(), r) for t, r in zip(th, single["theta"]))
+    w_idx, w_dist = tw.final_topk(tw.wnn_fusion_scores(cand, cat16, aux, sigw, dims, metric),
+                                  cand, N_NEIGHBORS + 1)
+    sc_same = bool(torch.equal(idx, w_idx)) and bool(torch.equal(dist.isnan(), w_dist.isnan())) \
+        and bool(torch.equal(torch.nan_to_num(dist), torch.nan_to_num(w_dist)))
+    info["wnn_sigma_theta_scores_bitwise"] = [sig_same, th_same, sc_same]
+    checks["[mesh1] sharded_wnn_bandwidth equals phase [wnn]'s T9 bit for bit"] = sig_same
+    checks["[mesh1] sharded_wnn_theta equals phase [wnn]'s T10 bit for bit"] = th_same
+    checks["[mesh1] sharded_wnn_scores equals T11 + final_topk bit for bit"] = sc_same
+    return launches
+
+
+def mesh_wnn(mesh, work, kernels, profiling, tag):
+    """``pp.neighbors(mdata)`` of phase [wnn]'s modalities under
+    set_options(mesh=...), counted alone; sigma, theta (recorded from the
+    sharded functions) and the weights against phase [wnn]'s bit for bit,
+    the fused graph's overlap with the single-device one, and [mesh4]'s
+    fused graph against [mesh2]'s."""
+    from muon_tpu_torch import pp, set_options
+    from muon_tpu_torch.parallel import pipeline as pl
+
+    single = np.load(f"{work}/wnn_single.npz")
+    names = [str(m) for m in single["mods"]]
+    md = MuHolder(wnn_mods(work, names))
+    rec = {"sigma": [], "theta": []}
+    saved = {k: getattr(pl, k) for k in ("sharded_wnn_bandwidth", "sharded_wnn_theta")}
+
+    def recorder(fn, key):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            rec[key].append(out.cpu().numpy())
+            return out
+        return run
+
+    kernels.reset_launch_counts()
+    try:
+        pl.sharded_wnn_bandwidth = recorder(saved["sharded_wnn_bandwidth"], "sigma")
+        pl.sharded_wnn_theta = recorder(saved["sharded_wnn_theta"], "theta")
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            with set_options(mesh=mesh):
+                pp.neighbors(md)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(pl, k, fn)
+    launches = kernels.launch_counts()
+    info, checks = {"wnn_wall": wall}, {}
+    checks[f"{tag} WNN sigma equals phase [wnn]'s bit for bit"] = len(rec["sigma"]) == 3 and all(
+        np.array_equal(a, b) for a, b in zip(rec["sigma"], single["sigma"]))
+    checks[f"{tag} WNN theta equals phase [wnn]'s bit for bit"] = len(rec["theta"]) == 9 and all(
+        np.array_equal(a, b) for a, b in zip(rec["theta"], single["theta"]))
+    w = np.stack([md.obs[f"{m}:mod_weight"] for m in names])
+    checks[f"{tag} WNN weights equal phase [wnn]'s bit for bit"] = bool(
+        np.array_equal(w, single["w"]))
+    D, k = md.obsp["distances"], N_NEIGHBORS + 1
+    checks[f"{tag} fused graph: {k} neighbours a row"] = bool((np.diff(D.indptr) == k).all())
+    if (np.diff(D.indptr) == k).all():
+        mine = fused_ids(D, k)
+        one = fused_ids(sp.csr_matrix((single["D_data"], single["D_indices"], single["D_indptr"]),
+                                      shape=D.shape), k)
+        overlap = float(sum((mine[r0:r0 + 10_000, :, None] == one[r0:r0 + 10_000, None, :])
+                            .any(axis=2).sum() for r0 in range(0, D.shape[0], 10_000))
+                        / mine.size)
+        info["wnn_overlap_single"] = overlap
+        checks[f"{tag} fused 21-NN ids' mean overlap with the single-device WNN >= 0.9"] = \
+            overlap >= 0.9
+        if tag == "[mesh2]":
+            np.savez(f"{work}/mesh2_wnn.npz", data=D.data, indices=D.indices, indptr=D.indptr)
+        else:
+            m2 = np.load(f"{work}/mesh2_wnn.npz")
+            ids2 = m2["indices"].reshape(-1, k)
+            d2, d4 = m2["data"].reshape(-1, k), D.data.reshape(-1, k)
+            apart = (ids2 != mine).any(axis=1)
+            # rows apart only where the two lists' distances tie (MESH_TIE)
+            s2, s4 = np.sort(d2[apart], axis=1), np.sort(d4[apart], axis=1)
+            untied = int((np.abs(s2 - s4) > MESH_TIE * np.maximum(np.abs(s2), 1e-30))
+                         .any(axis=1).sum())
+            info["wnn_rows_apart_mesh2"], info["wnn_rows_untied"] = int(apart.sum()), untied
+            info["wnn_d_err_mesh2"] = float(np.abs(d2[~apart] - d4[~apart]).max(initial=0.0))
+            checks["[mesh4] fused ids equal [mesh2]'s but at near-ties"] = untied == 0
+            checks["[mesh4] fused distances within 1e-6 of [mesh2]'s"] = \
+                info["wnn_d_err_mesh2"] <= 1e-6
+    return launches, t, info, checks
+
+
+def planted_r2(Zx, Z) -> np.ndarray:
+    """The R² of each planted factor regressed on the fitted ones (the
+    reference's rule in tests/test_multichip.py)."""
+    Zi = (Zx - Zx.mean(0)).astype(np.float64)
+    out = []
+    for j in range(Z.shape[1]):
+        zt = (Z[:, j] - Z[:, j].mean()).astype(np.float64)
+        beta, *_ = np.linalg.lstsq(Zi, zt, rcond=None)
+        out.append(1 - ((zt - Zi @ beta) ** 2).sum() / (zt ** 2).sum())
+    return np.array(out)
+
+
+# the [mesh*] MOFA fits: name -> (the views' likelihoods, fit_mofa's options)
+MESH_MOFA = {"full": (("gaussian", "gaussian"), {}),
+             "svi": (("gaussian", "gaussian"), dict(svi_mode=True, svi_batch_fraction=0.5)),
+             "lik": (("gaussian", "bernoulli"), {})}
+
+
+def mesh_mofa_views(work, name):
+    """The bench's views (``lik``: its gaussian view and [mofa-lik]'s bernoulli one)."""
+    return [np.load(f"{work}/mofa_Y{m}.npy") for m in (0, 1)] if name != "lik" else \
+        [np.load(f"{work}/mofa_Y0.npy"), np.load(f"{work}/mofa_Yb.npy")]
+
+
+def mofa_mesh_reference(tm, Zp, Ys, cuda, work) -> None:
+    """What [mesh2]/[mesh4]'s MOFA is held to: the bench's views, the planted
+    Z, and the single-device fits from config.seed's draws (phase 17's) of
+    every ``MESH_MOFA`` case: 50 full-batch sweeps, 50 SVI iterations
+    (batch fraction 0.5), 50 sweeps beside [mofa-lik]'s bernoulli view,
+    every ELBO recorded."""
+    for m, Y in enumerate(Ys):
+        np.save(f"{work}/mofa_Y{m}.npy", Y)
+    np.save(f"{work}/mofa_Yb.npy", mofa_lik_views(Zp)[0])
+    np.save(f"{work}/mofa_Zp.npy", Zp)
+    kw = dict(n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, convergence_mode="slow",
+              elbo_every=1, device=cuda)
+    out = {}
+    for name, (liks, extra) in MESH_MOFA.items():
+        cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=liks)
+        res = tm.fit_mofa(mesh_mofa_views(work, name), cfg, **kw, **extra)
+        out.update({f"{name}_elbo": res.elbo_history, f"{name}_Z": res.Z})
+    np.savez(f"{work}/mofa_single.npz", **out)
+
+
+def mesh_mofa(mesh, work, kernels, profiling, tag, cases):
+    """``fit_mofa(mesh=)`` at the bench's full width (10,000 × (2000, 3000),
+    K = 15), each ``MESH_MOFA`` case of ``cases`` counted alone; gates
+    against the single-device fits: one sweep's every leaf within 1e-5 of its
+    largest entry, every ELBO within 1e-4, Z by the reference's rule (rtol
+    1e-2, atol 1e-3), the planted factors' R² within 0.02."""
+    from muon_tpu_torch.models import mofa as tm
+    from muon_tpu_torch.parallel import gather_mofa_state, shard_mofa_state
+
+    cuda = mesh.device
+    Ys = mesh_mofa_views(work, "full")
+    Zp = np.load(f"{work}/mofa_Zp.npy")
+    ref = np.load(f"{work}/mofa_single.npz")
+    info, checks, launches, stages = {}, {}, [], {}
+    # one sweep from the whole initial state: sharded (every rank) and on
+    # one device (rank 0)
+    cfg1 = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=("gaussian", "gaussian"), n_groups=1)
+    state = tm._init_state(Ys, [None, None], np.ones((MOFA_N, 1), np.float32), cfg1,
+                           device=cuda)
+    got, elbo_m = tm.make_step(cfg1, list(MOFA_DS), MOFA_N, [False, False],
+                               red=tm.Reducer(mesh))(shard_mofa_state(state, mesh))
+    got = gather_mofa_state(got, mesh, MOFA_N, list(MOFA_DS))
+    if mesh.rank == 0:
+        one, elbo_1 = tm.make_step(cfg1, list(MOFA_DS), MOFA_N, [False, False])(state)
+        worst, leaf = leaf_error(got, one)
+        info["sweep_leaf_err"] = [worst, leaf]
+        info["sweep_elbo_rel"] = abs(float(elbo_m) - float(elbo_1)) / abs(float(elbo_1))
+        checks[f"{tag} one sharded sweep: every leaf within 1e-5 of its largest entry of the "
+               "single-device sweep, the ELBO within 1e-4"] = \
+            worst <= 1e-5 and info["sweep_elbo_rel"] <= 1e-4
+        del one
+    del state, got
+    torch.cuda.empty_cache()
+    kw = dict(n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, convergence_mode="slow",
+              elbo_every=1, mesh=mesh)
+    for name in cases:
+        liks, extra = MESH_MOFA[name]
+        cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=liks)
+        Ys = mesh_mofa_views(work, name)
+        kernels.reset_launch_counts()
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            res = tm.fit_mofa(Ys, cfg, **kw, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches.append(kernels.launch_counts())
+        stages.update({f"MOFA {name} {k}": v for k, v in t.items()})
+        e, e1 = res.elbo_history, ref[f"{name}_elbo"]
+        info[f"{name}_sweeps_per_s"] = MOFA_SWEEPS / wall
+        info[f"{name}_elbo_rel"] = float(np.max(np.abs(e - e1) / np.abs(e1))) \
+            if e.shape == e1.shape else None
+        checks[f"{tag} MOFA {name}: every ELBO within 1e-4 of the single-device fit's"] = \
+            e.shape == e1.shape and info[f"{name}_elbo_rel"] <= 1e-4
+        Z1 = ref[f"{name}_Z"]
+        info[f"{name}_Z_err"] = float(np.max(np.abs(res.Z - Z1) / (1e-3 + 1e-2 * np.abs(Z1))))
+        checks[f"{tag} MOFA {name}: Z within rtol 1e-2 atol 1e-3 of the single-device fit's"] = \
+            bool(np.allclose(res.Z, Z1, rtol=1e-2, atol=1e-3))
+        r2, r2_1 = planted_r2(res.Z, Zp), planted_r2(Z1, Zp)
+        info[f"{name}_r2_diff"] = float(np.abs(r2 - r2_1).max())
+        checks[f"{tag} MOFA {name}: planted R² within 0.02 of the single-device fit's"] = \
+            info[f"{name}_r2_diff"] <= 0.02
+    return launches, stages, info, checks
+
+
 def mesh_job1(mesh, work, kernels, profiling):
     """[mesh1]: the sharded_* functions at one rank, under NCCL, full width:
     make_counts through tfidf → rsvd(50) → X_lsi → the ring kNN (k = 20),
-    held against the plain versions on the card."""
+    held against the plain versions on the card; then WNN's three sharded
+    functions on phase [wnn]'s modalities (``mesh1_wnn``)."""
     from muon_tpu_torch import parallel as par
     from muon_tpu_torch.ops import fuzzy as tf
     from muon_tpu_torch.ops import knn as tk
@@ -5204,7 +5542,10 @@ def mesh_job1(mesh, work, kernels, profiling):
              U_t=targets["kernels"][0].cpu().numpy(), s_t=targets["kernels"][1].cpu().numpy(),
              D=D.cpu().numpy(), I=I.cpu().numpy(), conn_data=conn.data,
              conn_indices=conn.indices, conn_indptr=conn.indptr)
-    return launches, t, info, checks
+    del dX, Ys, vals, targets, emb_t, sq, pd, pi, D, I
+    torch.cuda.empty_cache()
+    wnn_launches = mesh1_wnn(mesh, work, kernels, info, checks)
+    return (launches, wnn_launches), t, info, checks
 
 
 def mesh_against_mesh1(par, tf, mesh, work, h, info, checks, tag):
@@ -5307,7 +5648,8 @@ def mesh_public_path(mesh, work, kernels, profiling, tac, tpp, umap: bool):
 def mesh_job2(mesh, work, kernels, profiling):
     """[mesh2]: two ranks under gloo on one card, the public tools with
     mesh=: tfidf → lsi → neighbors → umap at 100k, then neighbors of the 1M
-    representation (the sharded IVF) and umap of its graph."""
+    representation (the sharded IVF) and umap of its graph, then WNN of
+    phase [wnn]'s modalities and MOFA (full batch and SVI) on make_mesh(2)."""
     from muon_tpu_torch import atac as tac
     from muon_tpu_torch import parallel as par
     from muon_tpu_torch import pp as tpp
@@ -5355,8 +5697,18 @@ def mesh_job2(mesh, work, kernels, profiling):
     step = sharded_kmeans(X[lo:hi].contiguous(), cent0, 1, mesh)[0]
     for k_, v in tb.items():
         t.setdefault(f"1M {k_}", []).extend(v)
+    wnn_launches, tw_, winfo, wchecks = mesh_wnn(mesh, work, kernels, profiling, "[mesh2]")
+    mofa_launches, mstages, minfo, mchecks = mesh_mofa(mesh, work, kernels, profiling,
+                                                       "[mesh2]", ("full", "svi"))
+    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages):
+        t.update(part)
+    for part in (winfo, minfo):
+        info.update(part)
+    for part in (wchecks, mchecks):
+        checks.update(part)
+    launches = (launches, ivf_launches, wnn_launches, *mofa_launches)
     if mesh.rank != 0:
-        return (launches, ivf_launches), t, info, checks
+        return launches, t, info, checks
     single = ti._update_centroids(X, ti.kmeans_assign(X, cent0), cent0)
     info["lloyd_err"] = float((step - single).abs().max())
     checks["[mesh2] one sharded Lloyd step vs one device, within 1e-5 x max|X|"] = \
@@ -5384,12 +5736,13 @@ def mesh_job2(mesh, work, kernels, profiling):
     info["graph_share"] = label_share(D, labels)
     checks["[mesh2] 1M UMAP planted-label share >= 0.8 x the graph's"] = \
         info["umap1m_share"] >= 0.8 * info["graph_share"]
-    return (launches, ivf_launches), t, info, checks
+    return launches, t, info, checks
 
 
 def mesh_job4(mesh, work, kernels, profiling):
     """[mesh4]: four ranks under gloo on one card: tfidf → lsi → neighbors
-    (the ring kNN) at 100k through the public tools."""
+    (the ring kNN) at 100k through the public tools on the (4, 1) mesh, then
+    WNN of phase [wnn]'s modalities and MOFA on make_mesh(4), (2, 2)."""
     from muon_tpu_torch import atac as tac
     from muon_tpu_torch import parallel as par
     from muon_tpu_torch import pp as tpp
@@ -5398,7 +5751,19 @@ def mesh_job4(mesh, work, kernels, profiling):
     h, launches, t, wall = mesh_public_path(mesh, work, kernels, profiling, tac, tpp, False)
     info, checks = {"wall": wall}, {}
     mesh_against_mesh1(par, tf, mesh, work, h, info, checks, "[mesh4]")
-    return launches, t, info, checks
+    del h
+    grid = par.make_mesh(4, device=mesh.device)
+    info["grid"] = dict(grid.shape)
+    wnn_launches, tw_, winfo, wchecks = mesh_wnn(grid, work, kernels, profiling, "[mesh4]")
+    mofa_launches, mstages, minfo, mchecks = mesh_mofa(grid, work, kernels, profiling,
+                                                       "[mesh4]", ("full", "lik"))
+    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages):
+        t.update(part)
+    for part in (winfo, minfo):
+        info.update(part)
+    for part in (wchecks, mchecks):
+        checks.update(part)
+    return (launches, wnn_launches, *mofa_launches), t, info, checks
 
 
 MESH_JOBS = {"mesh1": mesh_job1, "mesh2": mesh_job2, "mesh4": mesh_job4}
@@ -5451,7 +5816,7 @@ def run_mesh(job, P, backend, work):
     for r, rep in enumerate(reports):
         print(f"[{job}] rank {r} stages " + ", ".join(
             f"{k} {v}" for k, v in sorted(rep["stages"].items())
-            if k.split(" ")[-1].startswith(("mesh/", "comm/"))), flush=True)
+            if k.split(" ")[-1].startswith(("mesh/", "comm/", "wnn/", "mofa/"))), flush=True)
     for what, ok in reports[0]["checks"].items():
         check(ok, what)
     print(f"[{job}] rank 0: " + "; ".join(f"{k} {v}" for k, v in reports[0]["info"].items()),
@@ -5481,13 +5846,14 @@ def phase_mesh(kernels, cuda, work):
     res = run_mesh("mesh1", 1, "nccl", work)
     if res is None:
         return by_path
-    by_path["mesh1"] = res[0]
+    by_path["mesh1"], by_path["mesh1_wnn"] = res
     res = run_mesh("mesh2", 2, "gloo", work)
     if res is not None:
-        by_path["mesh2"], by_path["mesh2_1m"] = res
+        (by_path["mesh2"], by_path["mesh2_1m"], by_path["mesh2_wnn"], by_path["mesh2_mofa"],
+         by_path["mesh2_svi"]) = res
     res = run_mesh("mesh4", 4, "gloo", work)
     if res is not None:
-        by_path["mesh4"] = res[0]
+        by_path["mesh4"], by_path["mesh4_wnn"], by_path["mesh4_mofa"], by_path["mesh4_lik"] = res
     for path, want in MESH_PATHS.items():
         for name, count in want.items():
             got = by_path.get(path, {}).get(name, 0)
@@ -5501,7 +5867,8 @@ def phase_mesh(kernels, cuda, work):
 def phase_mesh_kernels(cuda, work) -> dict:
     """T40, T41 and T1's two modes against their plain twins at the mesh
     paths' shapes, each with its bound and the library call where one
-    computes the same."""
+    computes the same; T9 and T11 on a [mesh2] rank's window (recorded under
+    ``{name}@mesh2_window``)."""
     from muon_tpu_torch.ops import knn as tk
     from muon_tpu_torch.ops import sparse as dsp
     from muon_tpu_torch.ops import umap as tu
@@ -5598,6 +5965,51 @@ def phase_mesh_kernels(cuda, work) -> dict:
                   lambda: dsp.tfidf_data(half, col_sums=cs, n_total=N_CELLS),
                   lambda: dsp.tfidf_data_plain(half, col_sums=cs, n_total=N_CELLS),
                   bound(csr_bytes(half) + nbytes(cs, got), 8 * half.nnz, F32_OPS_PER_S))
+
+    # T9 and T11 on [mesh2] rank 1's window, rows 50,000-100,000, over the
+    # whole tables: T9 on the e2e's RNA graph, T11 on phase [wnn]'s fused table
+    from muon_tpu_torch.ops import wnn as tw
+
+    row0, rows = N_CELLS // 2, N_CELLS - N_CELLS // 2
+    rep = torch.from_numpy(np.load(f"{work}/wnn_rna_rep.npy")).to(cuda)
+    NI = torch.from_numpy(tw._neighbor_index_matrix(load_csr(f"{work}/wnn_rna_dist"))[0]).to(cuda)
+    kk, d = NI.shape[1], rep.shape[1]
+    stride, n_bw = tw._auto_nn_stride(kk), min(20, kk)
+    tables = tw._bandwidth_tables(NI, rep)
+    bbox = float(np.linalg.norm(np.ptp(rep.cpu().numpy(), axis=0), ord=2))
+    args = (NI, *tables, float(N_CELLS), bbox, n_bw, stride)
+    got = tw.wnn_bandwidth(*args, row0=row0, rows=rows)
+    want = tw.wnn_bandwidth_plain(*args, row0=row0, rows=rows)
+    rel = (got - want).abs() / want.abs().clamp(min=1e-30)
+    C = kk + kk * (-(-kk // stride))
+    win = {}
+    kernel_report(win, "wnn_bandwidth", f"window {row0}-{N_CELLS} of {NI.shape} ([mesh2] rank 1)",
+                  (got - want).abs().max().item(), "rtol 1e-5 on >= 99.9% of cells, 1e-3 on all",
+                  (rel <= 1e-5).float().mean().item() >= 0.999 and rel.max().item() <= 1e-3,
+                  lambda: tw.wnn_bandwidth(*args, row0=row0, rows=rows),
+                  lambda: tw.wnn_bandwidth_plain(*args, row0=row0, rows=rows),
+                  bound(nbytes(NI, *tables, got),
+                        rows * C * (kk * max(1, int(np.ceil(np.log2(kk)))) + 2 * d
+                                    + int(np.ceil(np.log2(C)))), F32_OPS_PER_S))
+    single = np.load(f"{work}/wnn_single.npz")
+    cand = torch.from_numpy(single["cand"][row0:]).to(cuda).contiguous()
+    cat16 = torch.from_numpy(single["cat16"]).to(cuda).view(torch.bfloat16)
+    aux, sigw = (torch.from_numpy(single[k]).to(cuda) for k in ("aux", "sigw"))
+    dims, metric = [tuple(int(v) for v in dd) for dd in single["dims"]], str(single["metric"])
+    got = tw.wnn_fusion_scores(cand, cat16, aux, sigw, dims, metric, row0=row0)
+    want = tw.wnn_fusion_scores_plain(cand, cat16, aux, sigw, dims, metric, row0=row0)
+    row_err = (got - want).abs().max(dim=1).values
+    kernel_report(win, "wnn_fusion_scores", f"window {row0}-{N_CELLS}, {tuple(cand.shape)} of "
+                  f"{tuple(cat16.shape)} ([mesh2] rank 1)", row_err.max().item(),
+                  "atol 1e-5 on >= 99.9% of rows, 1e-3 on all",
+                  (row_err <= 1e-5).float().mean().item() >= 0.999
+                  and row_err.max().item() <= 1e-3,
+                  lambda: tw.wnn_fusion_scores(cand, cat16, aux, sigw, dims, metric, row0=row0),
+                  lambda: tw.wnn_fusion_scores_plain(cand, cat16, aux, sigw, dims, metric,
+                                                     row0=row0),
+                  bound(nbytes(cand, cat16, aux, sigw, got), 2 * cand.numel() * cat16.shape[1],
+                        BF16_OPS_PER_S))
+    results.update({f"{k}@mesh2_window": v for k, v in win.items()})
     return results
 
 
@@ -5606,6 +6018,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 1
+    # the [mesh*] phases' inputs and the ranks' reports, written as the run
+    # goes (phase [wnn]'s modalities, the MOFA references) and removed at its end
+    with tempfile.TemporaryDirectory() as work:
+        return run_all(work)
+
+
+def run_all(work) -> int:
     import muon_tpu_torch as mt
     from muon_tpu_torch import atac as tac
     from muon_tpu_torch import native
@@ -5640,10 +6059,19 @@ def main() -> int:
     cuda = torch.device("cuda", 0)
     smi = phase_device(kernels)
     phase_build(kernels, native)
-    if sys.argv[1:] == ["--mesh-only"]:  # phases 41-43 alone
-        with tempfile.TemporaryDirectory() as work:
-            if "mesh1" in phase_mesh(kernels, cuda, work):
-                phase_mesh_kernels(cuda, work)
+    if sys.argv[1:] == ["--mesh-only"]:  # phases 41-43 alone, with what they read
+        X_rna, X_atac_e2e, P, labels, _ = make_e2e_counts(SEED)
+        wnn_mods = {"rna": rna_path(dsp, tpp, X_rna, cuda),
+                    "atac": atac_e2e_path(tac, tpp, X_atac_e2e, cuda),
+                    "prot": prot_path(tpt, tpp, P, cuda)}
+        del X_rna, X_atac_e2e, P
+        _, wnn_rec, wnn_md = phase_wnn_path(tpp, tw, tk, tf, kernels, wnn_mods, labels, cuda)
+        save_wnn_inputs(tw, work, wnn_mods, wnn_rec, wnn_md)
+        del wnn_mods, wnn_rec, wnn_md
+        mofa_mesh_reference(tm, *mofa_bench_views(SEED), cuda, work)
+        torch.cuda.empty_cache()
+        if "mesh1" in phase_mesh(kernels, cuda, work):
+            phase_mesh_kernels(cuda, work)
         print(f"[done] {time.perf_counter() - t_start:.1f}s; failed: {FAILED}", flush=True)
         return 1 if FAILED else 0
 
@@ -5673,6 +6101,7 @@ def main() -> int:
           flush=True)
     wnn_launches, wnn_rec, wnn_md = phase_wnn_path(tpp, tw, tk, tf, kernels, wnn_mods,
                                                    labels, cuda)
+    save_wnn_inputs(tw, work, wnn_mods, wnn_rec, wnn_md)
     results.update(phase_wnn_kernels(tw, wnn_rec))
     del wnn_rec
     phase_leiden(ttl, kernels, profiling, wnn_mods, labels)
@@ -5740,6 +6169,7 @@ def main() -> int:
     results.update(phase_mofa_kernels(tmo, mofa_views, cuda))
     mofa_launches_full = phase_mofa_full(tm, tmo, kernels, profiling, Z_planted, mofa_views,
                                          cuda)
+    mofa_mesh_reference(tm, Z_planted, mofa_views, cuda, work)
     t0 = time.perf_counter()
     Yb, Yp = mofa_lik_views(Z_planted)
     print(f"[data] MOFA bound-based views {MOFA_N} x {MOFA_DS[1]} bernoulli and poisson from the "
@@ -5780,10 +6210,11 @@ def main() -> int:
     results.update(phase_gmm_kernel(tg, gmm_inputs, cuda))
     del gmm_inputs
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        mesh_launches = phase_mesh(kernels, cuda, work)
-        if "mesh1" in mesh_launches:
-            results.update(phase_mesh_kernels(cuda, work))
+    mesh_launches = phase_mesh(kernels, cuda, work)
+    if "mesh1" in mesh_launches:
+        results.update(phase_mesh_kernels(cuda, work))
+        for name in ("wnn_bandwidth", "wnn_fusion_scores"):
+            results[name]["mesh2_window"] = results.pop(f"{name}@mesh2_window")
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
                "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
                "umap1m": umap_big_launches, "wnn_wide": wide_launches,

@@ -15,7 +15,11 @@ MuData-like object (``.mod``, ``.obs`` and ``.var`` as pandas frames,
 as the single view ``"data"``. h5py is imported inside the function that
 writes the model file.
 
-Not ported yet, and refused by name in ``fit_mofa``: ``mesh``.
+``mesh`` (given or through ``set_options``) trains over a device mesh
+(``fit_mofa(mesh=)``). The reference pads obs to a multiple of the mesh's
+cells axis with NaN rows, a fixed-shape need of the TPU; the port's blocks
+may differ in length, so it pads nothing. MEFISTO's smooth factors over a
+mesh are not ported yet and raise in ``fit_mofa``.
 """
 
 from __future__ import annotations
@@ -112,8 +116,10 @@ def mofa(
 
     ``gpu_mode`` is accepted for API parity and ignored: compute runs on
     ``device``, the CUDA device when None. ``mesh`` (several devices, given
-    or through ``set_options``) is not ported yet and raises in ``fit_mofa``. ``smooth_covariate`` names
-    a column of ``obs`` (or of a modality's ``obs``)."""
+    or through ``set_options``) trains over the mesh, every rank calling
+    with the same data, without the reference's padding of obs (see the
+    module's docstring). ``smooth_covariate`` names a column of ``obs`` (or
+    of a modality's ``obs``)."""
     from ..models.mofa import MOFAConfig, fit_mofa
 
     mdata = _as_mudata(data)

@@ -6,6 +6,11 @@
 //   T11 wnn_fusion_scores  <- muon_tpu/ops/wnn.py _fusion_all_fn +
 //                             _fusion_block_math
 //
+// Over a device mesh (muon_tpu/parallel/pipeline.py _wnn_bandwidth_fn,
+// _wnn_theta_fn, _wnn_score_fn) each rank runs T9 and T11 on a window of
+// query rows over the whole, replicated tables, and T10 on its share of the
+// work items.
+//
 // Interface: plain C functions (loaded with ctypes), as in knn_kernels.cu.
 // Each launches on the stream it is given, allocates nothing, and returns
 // cudaGetLastError(). Outputs are allocated by the caller.
@@ -84,8 +89,8 @@ __global__ void __launch_bounds__(kBwThreads)
     wnn_bandwidth_kernel(const int* __restrict__ NI,
                          const int* __restrict__ set_sizes,
                          const __nv_bfloat16* __restrict__ rep16,
-                         const float* __restrict__ sq, int n, int kk, int d,
-                         int stride, int n_bw, float n_total, float bbox,
+                         const float* __restrict__ sq, int row0, int rows, int kk,
+                         int d, int stride, int n_bw, float n_total, float bbox,
                          int* __restrict__ scratch, float* __restrict__ sigma) {
   extern __shared__ int smem[];
   const int s = (kk + stride - 1) / stride;
@@ -104,7 +109,8 @@ __global__ void __launch_bounds__(kBwThreads)
   __shared__ float fallback_sum;
 
   const int t = threadIdx.x;
-  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+  for (int w = blockIdx.x; w < rows; w += gridDim.x) {
+    const int i = row0 + w;  // the cell: a row of the whole tables
     const int* nrow = NI + (int64_t)i * kk;
     for (int p = t; p < kk; p += blockDim.x) cand[p] = nrow[p];
     for (int u = t; u < d; u += blockDim.x)
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(kBwThreads)
         sum += eucl[top[r]];
         ++cnt;
       }
-      sigma[i] = cnt > 0 ? __fdiv_rn(sum, (float)cnt)
+      sigma[w] = cnt > 0 ? __fdiv_rn(sum, (float)cnt)
                          : __fdiv_rn(fallback_sum, (float)kk);
     }
     __syncthreads();  // the tables are reused by the block's next cell
@@ -276,13 +282,14 @@ __global__ void __launch_bounds__(kFusionWarps * 32)
                       const __nv_bfloat16* __restrict__ cat16,
                       const float* __restrict__ aux,
                       const float* __restrict__ sigw,
-                      const int* __restrict__ offs, int n, int C, int D, int M,
-                      int cosine, float* __restrict__ out) {
+                      const int* __restrict__ offs, int row0, int rows, int C,
+                      int D, int M, int cosine, float* __restrict__ out) {
   extern __shared__ float qs[];  // kFusionWarps rows of D
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kFusionWarps + warp;
-  if (i >= n) return;  // no block-wide barrier below
+  const int w = blockIdx.x * kFusionWarps + warp;  // the window's row
+  if (w >= rows) return;  // no block-wide barrier below
+  const int i = row0 + w;  // the cell: a row of the whole tables
   float* q = qs + (int64_t)warp * D;
   for (int u = lane; u < D; u += 32)
     q[u] = __bfloat162float(cat16[(int64_t)i * D + u]);
@@ -290,7 +297,7 @@ __global__ void __launch_bounds__(kFusionWarps * 32)
   const float* aq = aux + (int64_t)i * 2 * M;
   const float* sw = sigw + (int64_t)i * 2 * M;
   for (int p = lane; p < C; p += 32) {
-    const int c = cand[(int64_t)i * C + p];
+    const int c = cand[(int64_t)w * C + p];
     float total = 0.f;
     if (c >= 0) {
       const __nv_bfloat16* crow = cat16 + (int64_t)c * D;
@@ -309,7 +316,7 @@ __global__ void __launch_bounds__(kFusionWarps * 32)
         total = __fadd_rn(total, __fmul_rn(contrib, pres));
       }
     }
-    out[(int64_t)i * C + p] = total;
+    out[(int64_t)w * C + p] = total;
   }
 }
 
@@ -319,32 +326,36 @@ extern "C" {
 
 // T9. NI (n x kk) int32, pad -1; set_sizes (n,) int32 = valid entries per
 // row; rep16 (n x d) bf16; sq (n,) f32 squared norms of the unrounded rep;
-// scratch null (the candidates' tables in shared memory, a block per cell) or
+// the cells are the window [row0, row0 + rows) of those whole tables (a
+// rank's rows; the single-device path passes 0, n); scratch null (the
+// candidates' tables in shared memory, a block per cell) or
 // (scratch_blocks x (3 C + 2 osz)) int32 in global memory, for a grid of
-// scratch_blocks blocks; sigma (n,) f32 out.
+// min(rows, scratch_blocks) blocks; sigma (rows,) f32 out, the window's.
 int mt_wnn_bandwidth(const int* NI, const int* set_sizes, const void* rep16,
-                     const float* sq, int n, int kk, int d, int stride,
-                     int n_bw, float n_total, float bbox, int* scratch,
-                     int scratch_blocks, float* sigma, void* stream) {
+                     const float* sq, int n, int row0, int rows, int kk, int d,
+                     int stride, int n_bw, float n_total, float bbox,
+                     int* scratch, int scratch_blocks, float* sigma,
+                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0 && kk > 0) {
+  if (row0 < 0 || rows < 0 || row0 > n - rows) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && kk > 0) {
     const int s = (kk + stride - 1) / stride;
     const int64_t C = kk + (int64_t)kk * s;
     const int64_t osz = C < 4 * (int64_t)n_bw ? C : 4 * (int64_t)n_bw;
     size_t bytes = sizeof(int) * kk + sizeof(float) * d;
-    int blocks = n;
+    int blocks = rows;
     if (scratch == nullptr) {
       bytes += sizeof(int) * (C + 2 * osz) + sizeof(float) * 2 * C;
     } else {
       if (scratch_blocks < 1) return (int)cudaErrorInvalidValue;
-      blocks = n < scratch_blocks ? n : scratch_blocks;
+      blocks = rows < scratch_blocks ? rows : scratch_blocks;
     }
     cudaError_t e = cudaFuncSetAttribute(
         wnn_bandwidth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
     wnn_bandwidth_kernel<<<blocks, kBwThreads, bytes, st>>>(
-        NI, set_sizes, reinterpret_cast<const __nv_bfloat16*>(rep16), sq, n, kk, d,
-        stride, n_bw, n_total, bbox, scratch, sigma);
+        NI, set_sizes, reinterpret_cast<const __nv_bfloat16*>(rep16), sq, row0, rows,
+        kk, d, stride, n_bw, n_total, bbox, scratch, sigma);
   }
   return (int)cudaGetLastError();
 }
@@ -366,21 +377,25 @@ int mt_wnn_theta(const float* rep, const int* rows1, const int* rows2,
   return (int)cudaGetLastError();
 }
 
-// T11. cand (n x C) int32, -1 absent; cat16 (n x D) bf16; aux, sigw
-// (n x 2M) f32; offs (M+1,) int32 slice bounds; out (n x C) f32.
+// T11. cat16 (n x D) bf16; aux, sigw (n x 2M) f32: the whole tables; the
+// cells are the window [row0, row0 + rows) of them, cand (rows x C) int32
+// their candidates (global ids, -1 absent); offs (M+1,) int32 slice bounds;
+// out (rows x C) f32. The single-device path passes 0, n.
 int mt_wnn_fusion_scores(const int* cand, const void* cat16, const float* aux,
-                         const float* sigw, const int* offs, int n, int C,
-                         int D, int M, int cosine, float* out, void* stream) {
+                         const float* sigw, const int* offs, int n, int row0,
+                         int rows, int C, int D, int M, int cosine, float* out,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0 && C > 0) {
+  if (row0 < 0 || rows < 0 || row0 > n - rows) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && C > 0) {
     const size_t bytes = sizeof(float) * kFusionWarps * (size_t)D;
     cudaError_t e = cudaFuncSetAttribute(
         wnn_fusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    wnn_fusion_kernel<<<(n + kFusionWarps - 1) / kFusionWarps, kFusionWarps * 32,
+    wnn_fusion_kernel<<<(rows + kFusionWarps - 1) / kFusionWarps, kFusionWarps * 32,
                         bytes, st>>>(
-        cand, reinterpret_cast<const __nv_bfloat16*>(cat16), aux, sigw, offs, n,
-        C, D, M, cosine, out);
+        cand, reinterpret_cast<const __nv_bfloat16*>(cat16), aux, sigw, offs, row0,
+        rows, C, D, M, cosine, out);
   }
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,13 @@ solves. The products that stand outside the loop are ``torch.matmul``. A
 sweep copies what it updates, so a state handed to a callback or a
 checkpoint is never written again.
 
-Not ported yet, and refused by name: ``mesh``.
+Over a device mesh (``fit_mofa(mesh=)``, the reference's GSPMD sweep) each
+rank holds its block of the state (``parallel.shard_mofa_state``: Z over
+"cells", W and τ over "feat", E on both) and runs the same kernels on it;
+the sums the reference's XLA made across devices are the all-reduces of a
+:class:`Reducer`: over cells for every sum over the cells, over feat for
+every sum over the features. MEFISTO's smooth factors over a mesh are not
+ported yet, and refused by name.
 """
 
 from __future__ import annotations
@@ -68,6 +74,38 @@ BOUND_LIKELIHOODS = ("bernoulli", "poisson")
 SSZ_START = 15
 
 F32 = torch.float32
+
+
+class Reducer:
+    """The sums across the ranks of a sharded sweep: ``cells(t)`` sums a
+    partial sum over this rank's cells over the cells axis, ``feat(t)`` one
+    over its features over the feat axis, ``all(t)`` over both. Without a
+    mesh (and along an axis of one rank) each gives ``t`` itself, so the
+    single-device sweep is the same code. ``feat_split`` says whether the
+    features are cut at all."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.feat_split = mesh is not None and int(mesh.shape["feat"]) > 1
+
+    def _sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        from ..parallel.comm import all_reduce_sum
+
+        return all_reduce_sum(t, self.mesh, group=axis)
+
+    def cells(self, t: torch.Tensor) -> torch.Tensor:
+        return self._sum(t, "cells")
+
+    def feat(self, t: torch.Tensor) -> torch.Tensor:
+        return self._sum(t, "feat")
+
+    def all(self, t: torch.Tensor) -> torch.Tensor:
+        return self._sum(self._sum(t, "cells"), "feat")
+
+
+NO_MESH = Reducer()
 
 
 @dataclass(frozen=True)
@@ -145,30 +183,34 @@ def state_to_reference(state: dict) -> dict:
 
 
 def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_ln1m,
-             W_hat, W_var, S, SW, scale=None):
+             W_hat, W_var, S, SW, scale=None, red=NO_MESH):
     """The K coordinate updates of one view's weights (the reference's
-    ``w_body`` loop): E and the four weight tensors are updated in place."""
+    ``w_body`` loop): E and the four weight tensors are updated in place.
+    The sums over the cells go through ``red.cells``."""
     K = config.n_factors
     if B is None:
-        z2s, zzs = z2.sum(dim=0), zz.sum(dim=0)      # (K,)
+        z2s, zzs = red.cells(torch.stack([z2.sum(dim=0), zz.sum(dim=0)]))  # (K,) each
     else:
-        z2s, zzs = z2.T @ B, zz.T @ B                # (K, D)
+        z2s, zzs = red.cells(torch.stack([z2.T @ B, zz.T @ B]))            # (K, D) each
     if scale is not None:
         z2s, zzs = z2s * scale, zzs * scale
     for k in range(K):
         zk = Zm[:, k]
-        u = ops.col_dot(E, zk)
+        u = red.cells(ops.col_dot(E, zk))
         delta = ops.w_posterior(u, tau, z2s[k], zzs[k], alpha, ln_alpha, theta_ln,
                                 theta_ln1m, m, k, W_hat, W_var, S, SW,
                                 spikeslab=config.spikeslab_weights, scale=scale)
         ops.rank1_update(E, zk, delta, B)
 
 
-def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None):
+def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
+             red=NO_MESH):
     """The K coordinate updates of the factors (the reference's ``z_body``
     loop): Zm, Zv and every E are updated in place. ``posterior(k, p, b)``
     gives factor k's new (mean, variance) from its precision p and its
-    linear term b; without one, (b/p, 1/p)."""
+    linear term b; without one, (b/p, 1/p). Where the features are cut
+    (``red.feat_split``) the views' partial p and b of a factor are summed
+    first and then over the feat axis, one all-reduce a factor."""
     M = len(Es)
     tSW = [taus[m][:, None] * SWs[m] for m in range(M)]            # (D, K)
     tSWW = [taus[m][:, None] * SWW[m] for m in range(M)]
@@ -178,7 +220,7 @@ def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None)
     q_all = [None if Bs[m] is not None else tSW2[m].sum(dim=0) for m in range(M)]
     for k in range(config.n_factors):
         zk = Zm[:, k]
-        p = prior_prec[:, k]
+        p = torch.zeros_like(prior_prec[:, k]) if red.feat_split else prior_prec[:, k]
         b = torch.zeros_like(p)
         for m in range(M):
             if Bs[m] is None:
@@ -190,6 +232,9 @@ def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None)
                                         tSW2[m][:, k])
                 p = p + pb
                 b = b + r + zk * qb
+        if red.feat_split:
+            p, b = red.feat(torch.stack([p, b]))
+            p = prior_prec[:, k] + p
         if posterior is None:
             z_new, v_new = b / p, 1.0 / p
         else:
@@ -280,16 +325,19 @@ def _sparse_gp_posterior(state):
     return posterior
 
 
-def _residual_ss(E, B, z2, zz, SWW, SW):
+def _residual_ss(E, B, z2, zz, SWW, SW, N: int, red=NO_MESH):
     """Per feature, Σ_n E[(y − z·sw)²] over the observed entries, and their
-    number: ``(E*E).sum(0)`` (T17) plus the variance terms. Returns
-    (ss_e, ss, n_d) with ss_e the plain Σ E²."""
+    number: ``(E*E).sum(0)`` (T17) plus the variance terms, summed over the
+    cells by ``red.cells``; ``N`` is the number of cells of an unmasked
+    view. Returns (ss_e, ss, n_d) with ss_e the plain Σ E²."""
     ss_e = ops.col_dot(E)
     if B is None:
         ss = ss_e + z2.sum(dim=0) @ SWW.T - zz.sum(dim=0) @ (SW * SW).T
-        return ss_e, ss, float(E.shape[0])
+        ss_e, ss = red.cells(torch.stack([ss_e, ss]))
+        return ss_e, ss, float(N)
     corr = z2 @ SWW.T - zz @ (SW * SW).T                             # (N, D)
-    return ss_e, ss_e + (corr * B).sum(dim=0), B.sum(dim=0)
+    ss_e, ss, n_d = red.cells(torch.stack([ss_e, ss_e + (corr * B).sum(dim=0), B.sum(dim=0)]))
+    return ss_e, ss, n_d
 
 
 def _gamma_moments(a, b):
@@ -299,20 +347,28 @@ def _gamma_moments(a, b):
     return a / b, torch.digamma(a) - torch.log(b)
 
 
-def _theta_moments(S, D):
-    ssum = S.sum(dim=0)
+def _theta_moments(S, D, red=NO_MESH):
+    ssum = red.feat(S.sum(dim=0))
     sa = THETA_A0 + ssum
     sb = THETA_B0 + D - ssum
     dg = torch.digamma(sa + sb)
     return torch.digamma(sa) - dg, torch.digamma(sb) - dg, sa / (sa + sb)
 
 
-def _ssz_moments(Gh, ZS, scale=1.0):
+def _group_sums(Gh, X, red=NO_MESH):
+    """(Gh.T @ X (G, K), the cells of each group (G,)), summed over the
+    cells axis in one all-reduce."""
+    s = red.cells(torch.cat([Gh.T @ X, Gh.sum(dim=0)[:, None]], dim=1))
+    return s[:, :-1], s[:, -1]
+
+
+def _ssz_moments(Gh, ZS, scale=1.0, red=NO_MESH):
     """θ_z of the spike-slab factors per group from the slab counts (scaled
     by N/S in SVI): E[ln θ], E[ln(1 − θ)], E[θ]."""
-    s_pg = (Gh.T @ ZS) * scale                                       # (G, K)
+    s_pg, n_g = _group_sums(Gh, ZS, red)
+    s_pg = s_pg * scale                                              # (G, K)
     sa = THETA_A0 + s_pg
-    sb = THETA_B0 + (Gh.sum(dim=0) * scale)[:, None] - s_pg
+    sb = THETA_B0 + (n_g * scale)[:, None] - s_pg
     dg = torch.digamma(sa + sb)
     return torch.digamma(sa) - dg, torch.digamma(sb) - dg, sa / (sa + sb)
 
@@ -344,10 +400,13 @@ def _refresh_bounds(liks, Zm, Zv, state, Y0s, M01s, target=False):
 
 def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bool],
               liks: Optional[Sequence[str]] = None, smooth: bool = False,
-              sparse_gp: bool = False):
+              sparse_gp: bool = False, red: Reducer = NO_MESH):
     """The full-batch coordinate-ascent sweep: ``step(state) -> (new_state,
     elbo)`` with ``elbo`` a 0-dim tensor on the device. The state it is
-    given is left as it was.
+    given is left as it was. ``N`` and ``Ds`` are the whole model's sizes;
+    with a mesh's ``red`` the state is this rank's block
+    (``parallel.shard_mofa_state``) and the sweep sums across the ranks
+    through it.
 
     A bernoulli or poisson view trains through a local quadratic bound
     refreshed at the start of every sweep (T23): bernoulli (Jaakkola) with
@@ -358,7 +417,6 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
     state, or the sparse GP's covariates with ``sparse_gp``) instead of the
     diagonal prior; with ``config.spikeslab_factors`` (and not ``smooth``)
     each cell's factor value has a spike-slab prior."""
-    K = config.n_factors
     M = len(Ds)
     liks = list(liks) if liks is not None else ["gaussian"] * M
     nongauss = [lk in BOUND_LIKELIHOODS for lk in liks]
@@ -388,17 +446,17 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
             z2 = Zv + zz
             for m in range(M):
                 _w_sweep(config, m, Es[m], Bs[m], Zm, z2, zz, taus[m], alpha, ln_alpha,
-                         theta_ln, theta_ln1m, Whats[m], Wvs[m], Svs[m], SWs[m])
+                         theta_ln, theta_ln1m, Whats[m], Wvs[m], Svs[m], SWs[m], red=red)
 
         with stage("mofa/z_sweep"):
             SWW = [Svs[m] * (Wvs[m] + Whats[m] * Whats[m]) for m in range(M)]  # E[(sŵ)²]
             if smooth:
                 # the GP prior enters through the posterior; no diagonal prior
-                prior_prec = torch.zeros((N, K), dtype=Zm.dtype, device=Zm.device)
+                prior_prec = torch.zeros_like(Zm)
             elif config.ard_factors:
                 prior_prec = Gh @ alpha_z
             else:
-                prior_prec = torch.ones((N, K), dtype=Zm.dtype, device=Zm.device)
+                prior_prec = torch.ones_like(Zm)
             posterior = None
             if ssz:
                 Zhat, Zvhat, ZS = (state[key].clone() for key in ("Z_hat", "Z_vhat", "Z_S"))
@@ -409,14 +467,14 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 posterior = _sparse_gp_posterior(state)
             elif smooth:
                 posterior = _dense_gp_posterior(state["gp_K"])
-            _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior)
+            _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior, red)
 
         with stage("mofa/moments"):
             zz = Zm * Zm
             z2 = Zv + zz
             ss_views, n_d_views, new_tau, new_ln_tau = [], [], [], []
             for m in range(M):
-                _, ss, n_d = _residual_ss(Es[m], Bs[m], z2, zz, SWW[m], SWs[m])
+                _, ss, n_d = _residual_ss(Es[m], Bs[m], z2, zz, SWW[m], SWs[m], N, red)
                 ss_views.append(ss)
                 n_d_views.append(n_d)
                 if nongauss[m]:
@@ -433,7 +491,7 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 for m in range(M):
                     # E[ŵ²] = S(v+ŵ²) + (1−S)/α_prev
                     w2 = Svs[m] * (Wvs[m] + Whats[m] ** 2) + (1.0 - Svs[m]) / alpha[m][None, :]
-                    a_, la_ = _gamma_moments(A0 + 0.5 * Ds[m], B0 + 0.5 * w2.sum(dim=0))
+                    a_, la_ = _gamma_moments(A0 + 0.5 * Ds[m], B0 + 0.5 * red.feat(w2.sum(dim=0)))
                     alpha_new.append(a_)
                     ln_alpha_new.append(la_)
                 alpha = torch.stack(alpha_new)
@@ -441,17 +499,17 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
 
             ln_alpha_z = state.get("ln_alpha_z")
             if config.ard_factors:
-                Ng = Gh.sum(dim=0)  # (G,)
                 zg = _slab_z2(Gh, alpha_z, ZS, Zvhat, Zhat) if ssz else z2
-                alpha_z, la_z = _gamma_moments(A0 + 0.5 * Ng[:, None], B0 + 0.5 * (Gh.T @ zg))
+                gz, Ng = _group_sums(Gh, zg, red)  # (G, K), (G,)
+                alpha_z, la_z = _gamma_moments(A0 + 0.5 * Ng[:, None], B0 + 0.5 * gz)
                 if ssz:
                     ln_alpha_z = la_z
 
             if ssz:
-                theta_z = _ssz_moments(Gh, ZS)
+                theta_z = _ssz_moments(Gh, ZS, red=red)
 
             if config.spikeslab_weights:
-                th = [_theta_moments(Svs[m], Ds[m]) for m in range(M)]
+                th = [_theta_moments(Svs[m], Ds[m], red) for m in range(M)]
                 theta_ln = torch.stack([t[0] for t in th])
                 theta_ln1m = torch.stack([t[1] for t in th])
                 theta_mean = torch.stack([t[2] for t in th])
@@ -459,7 +517,10 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                 theta_mean = state["theta_mean"]
 
         with stage("mofa/elbo"):
-            # up to constants; reuses the per-view ss of the τ update
+            # up to constants; reuses the per-view ss of the τ update. Each
+            # term is summed over the axes it is cut on and no other: the
+            # likelihood and W's KL over feat (replicated across cells), Z's
+            # KL over cells (replicated across feat)
             elbo = torch.zeros((), dtype=F32, device=Zm.device)
             for m in range(M):
                 elbo = elbo + torch.sum(
@@ -470,7 +531,7 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
             # GP prior (its exact KL costs K more Cholesky factors, and only the
             # changes from sweep to sweep matter)
             kl_prec = torch.ones_like(prior_prec) if smooth else prior_prec
-            elbo = elbo - 0.5 * torch.sum(kl_prec * z2 - 1.0 - torch.log(kl_prec * Zv))
+            kl_z = red.cells(0.5 * torch.sum(kl_prec * z2 - 1.0 - torch.log(kl_prec * Zv)))
             for m in range(M):
                 w2 = Wvs[m] + Whats[m] ** 2
                 kl_w = 0.5 * (
@@ -485,6 +546,7 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                     elbo = elbo - torch.sum(s * kl_w) - torch.sum(kl_s)
                 else:
                     elbo = elbo - torch.sum(kl_w)
+            elbo = red.feat(elbo) - kl_z
 
         new_state = {"Z_mean": Zm, "Z_var": Zv}
         if ssz:
@@ -519,7 +581,7 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
 
 
 def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
-                  liks: Optional[Sequence[str]] = None):
+                  liks: Optional[Sequence[str]] = None, red: Reducer = NO_MESH):
     """The stochastic-VI sweep over a minibatch of ``S`` cells:
     ``step(state, batch, rho) -> (new_state, objective)``. The batch's rows
     of Z get exact coordinate updates; W, τ, α and θ are re-estimated from
@@ -529,8 +591,10 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
     (``tau_a``, ``tau_b``). Bernoulli and poisson views refresh their bound
     on the batch (T23), with the target that rebuilds their residuals after
     the W blend; spike-slab factors update on the batch as in
-    :func:`make_step`."""
-    K = config.n_factors
+    :func:`make_step`. With a mesh's ``red`` the state is this rank's block,
+    ``batch`` the rows of the minibatch in this rank's cells (local ids), and
+    the batch statistics are summed across the ranks through ``red``, still
+    scaled by the whole N/S."""
     M = len(Ds)
     scale = N / float(S)
     liks = list(liks) if liks is not None else ["gaussian"] * M
@@ -591,7 +655,7 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
                 What, Wv, Sm, SW = (state[key][m] for key in ("W_hat", "W_var", "S", "SW"))
                 What_b, Wv_b, S_b, SW_b = What.clone(), Wv.clone(), Sm.clone(), SW.clone()
                 _w_sweep(config, m, Es[m], Bs[m], Zb, z2b, zz, taus[m], alpha, ln_alpha,
-                         theta_ln, theta_ln1m, What_b, Wv_b, S_b, SW_b, scale=scale)
+                         theta_ln, theta_ln1m, What_b, Wv_b, S_b, SW_b, scale=scale, red=red)
                 new_W.append(blend(What, What_b))
                 new_Wv.append(blend(Wv, Wv_b))
                 new_S.append(blend(Sm, S_b))
@@ -605,14 +669,14 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
             if config.ard_factors:
                 prior_prec = Gb @ alpha_z
             else:
-                prior_prec = torch.ones((S, K), dtype=Zb.dtype, device=Zb.device)
+                prior_prec = torch.ones_like(Zb)
             SWW = [new_S[m] * (new_Wv[m] + new_W[m] ** 2) for m in range(M)]
             posterior = None
             if ssz:
                 posterior = _ssz_posterior(
                     state["ssz_on"], Gb @ (state["theta_z_ln"] - state["theta_z_ln1m"]),
                     Gb @ state["ln_alpha_z"], Zhat_b, Zvhat_b, ZS_b)
-            _z_sweep(config, Zb, Zvb, Es, Bs, new_SW, SWW, taus, prior_prec, posterior)
+            _z_sweep(config, Zb, Zvb, Es, Bs, new_SW, SWW, taus, prior_prec, posterior, red)
 
         with stage("mofa/moments"):
             zz = Zb * Zb
@@ -621,7 +685,7 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
             new_tau_a, new_tau_b = list(state["tau_a"]), list(state["tau_b"])
             ss_e_views = []
             for m in range(M):
-                ss_e, ss, n_d = _residual_ss(Es[m], Bs[m], z2b, zz, SWW[m], new_SW[m])
+                ss_e, ss, n_d = _residual_ss(Es[m], Bs[m], z2b, zz, SWW[m], new_SW[m], S, red)
                 ss_e_views.append(ss_e)
                 if nongauss[m]:
                     new_tau.append(taus[m])
@@ -643,7 +707,8 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
                     w2 = new_S[m] * (new_Wv[m] + new_W[m] ** 2) + (
                         1.0 - new_S[m]
                     ) / alpha[m][None, :]
-                    a_, la_ = _gamma_moments(A0 + 0.5 * Ds[m], B0 + 0.5 * w2.sum(dim=0))
+                    a_, la_ = _gamma_moments(A0 + 0.5 * Ds[m],
+                                             B0 + 0.5 * red.feat(w2.sum(dim=0)))
                     alpha_new.append(blend(alpha[m], a_))
                     ln_alpha_new.append(blend(ln_alpha[m], la_))
                 alpha = torch.stack(alpha_new)
@@ -651,17 +716,17 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
 
             ln_alpha_z = state.get("ln_alpha_z")
             if config.ard_factors:
-                Ng = Gb.sum(dim=0) * scale
                 zg = _slab_z2(Gb, alpha_z, ZS_b, Zvhat_b, Zhat_b) if ssz else z2b
-                a_z, la_z = _gamma_moments(A0 + 0.5 * Ng[:, None],
-                                           B0 + 0.5 * ((Gb.T @ zg) * scale))
+                gz, Ng = _group_sums(Gb, zg, red)
+                a_z, la_z = _gamma_moments(A0 + 0.5 * (Ng * scale)[:, None],
+                                           B0 + 0.5 * (gz * scale))
                 alpha_z = blend(alpha_z, a_z)
                 if ssz:
                     ln_alpha_z = blend(ln_alpha_z, la_z)
             ssz_state = {}
             if ssz:
                 # θ_z from the scaled batch slab counts, expectations blended
-                th_z = _ssz_moments(Gb, ZS_b, scale)
+                th_z = _ssz_moments(Gb, ZS_b, scale, red)
                 ssz_state = {
                     "ssz_on": state["ssz_on"],
                     "Z_hat": state["Z_hat"].index_copy(0, batch, Zhat_b),
@@ -674,7 +739,7 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
                 }
 
             if config.spikeslab_weights:
-                th = [_theta_moments(new_S[m], Ds[m]) for m in range(M)]
+                th = [_theta_moments(new_S[m], Ds[m], red) for m in range(M)]
                 theta_ln = torch.stack([t[0] for t in th])
                 theta_ln1m = torch.stack([t[1] for t in th])
                 theta_mean = torch.stack([t[2] for t in th])
@@ -690,6 +755,7 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
             elbo = torch.zeros((), dtype=F32, device=Zb.device)
             for m in range(M):
                 elbo = elbo - 0.5 * scale * torch.sum(new_tau[m] * ss_e_views[m])
+            elbo = red.feat(elbo)
 
         new_state = {
             **state,
@@ -716,9 +782,11 @@ def make_svi_step(config: MOFAConfig, Ds: Sequence[int], N: int, S: int,
     return step
 
 
-def r2_stats(Ym, Bm, Z, W, G, block: int):
+def r2_stats(Ym, Bm, Z, W, G, block: int, red: Reducer = NO_MESH):
     """Per-(group, factor) R² statistics of one view, in blocks of ``block``
     rows (the reference's ``_r2_stats_fn``). ``Bm`` is the mask or None.
+    With a mesh's ``red`` the arguments are this rank's blocks and the sums
+    are taken over both axes.
     Returns float64 tensors, per group:
       ssY_g  (G,)   = Σ (Y·B)²
       t1_gk  (G,K)  = Σ_n z_nk ((Y·B) W)_nk
@@ -748,6 +816,9 @@ def r2_stats(Ym, Bm, Z, W, G, block: int):
         t2 += (Gb.T @ (Zb * Zb * G2)).double()
         ssY_g += (Gb.T @ (Yb * Yb).sum(dim=1)).double()
         ssf += (Gb.T @ ((Yb - P) ** 2).sum(dim=1)).double()
+    if red.mesh is not None:
+        s = red.all(torch.cat([ssY_g[:, None], t1, t2, ssf[:, None]], dim=1))
+        ssY_g, t1, t2, ssf = s[:, 0], s[:, 1:K + 1], s[:, K + 1:2 * K + 1], s[:, -1]
     return ssY_g, t1, t2, ssf
 
 
@@ -1101,8 +1172,23 @@ def fit_mofa(
     priors (MEFISTO), with its options as the reference's. ``device=None``
     runs on the CUDA device; ``Z0`` is the initial ``Z_mean`` and ``W0`` the
     per-view draws of the random W starts (see ``_init_state``), each drawn
-    from ``config.seed`` when absent."""
+    from ``config.seed`` when absent.
+
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more than
+    one rank, every rank calling with the same inputs. The starts are drawn
+    at the whole shapes on every rank, the state cut by
+    ``parallel.shard_mofa_state``, each rank sweeps its blocks on the mesh's
+    device, and the result is gathered on every rank: a fit at any number of
+    ranks starts where the single-device fit starts. The SVI batches are
+    drawn on every rank from one generator, each rank taking the batch's
+    rows in its cells. A callback and a checkpoint see the gathered state
+    (rank 0 writes the file). MEFISTO's smooth factors over a mesh are
+    refused by name."""
+    from .._core.config import resolve_mesh
+
+    mesh, device = resolve_mesh(mesh, device)
     device = resolve_device(device)
+    red = Reducer(mesh)
     N = Ys[0].shape[0]
     M = len(Ys)
     if groups is None:
@@ -1157,21 +1243,20 @@ def fit_mofa(
                 "warping is only supported for 1-D covariates"
             )
     # what this port leaves out, by name
-    from .._core.config import current_mesh
-
-    if mesh is not None or current_mesh() is not None:
+    if smooth and mesh is not None:
         raise NotImplementedError(
-            "mesh (training over several devices) is not ported yet: the multi-device "
-            "WNN and MOFA, the rest of K20 (ROADMAP.md)"
+            "smooth_covariate with a mesh: MEFISTO's smooth factors over a device mesh, the "
+            "GP part of K20's MOFA step, are not ported yet (ROADMAP.md)"
         )
 
     Ds_all = [Y.shape[1] for Y in Ys]
     if svi_mode:
         S = max(1, min(N, int(round(svi_batch_fraction * N))))
-        svi_step = make_svi_step(config, Ds_all, N, S, liks)
+        svi_step = make_svi_step(config, Ds_all, N, S, liks, red)
         rng_batch = np.random.default_rng(config.seed)
     else:
-        step = make_step(config, Ds_all, N, masked, liks, smooth=smooth, sparse_gp=sparse_gp)
+        step = make_step(config, Ds_all, N, masked, liks, smooth=smooth, sparse_gp=sparse_gp,
+                         red=red)
 
     it0 = 0
     resumed_elbos: list = []
@@ -1185,6 +1270,16 @@ def fit_mofa(
         else:
             state = _init_state(Ys, masks, onehot, config, liks, keep_data=svi_mode,
                                 Z0=Z0, W0=W0, device=device)
+    if mesh is not None:
+        from ..parallel.mesh import gather_mofa_state, grid_sharding, shard_mofa_state
+
+        with stage("mofa/shard"):
+            state = shard_mofa_state(state, mesh)
+        lo, hi = mesh.block(N, "cells")
+
+    def whole(st):
+        """The state a callback or a checkpoint sees: the whole one."""
+        return st if mesh is None else gather_mofa_state(st, mesh, N, Ds_all)
 
     gp_ell = gp_scale = gp_cov = None
     if smooth:
@@ -1230,7 +1325,9 @@ def fit_mofa(
     def save(it):
         from .checkpoint import save_state
 
-        save_state(checkpoint_path, state, np.asarray(elbos), it)
+        st = whole(state)
+        if mesh is None or mesh.rank == 0:
+            save_state(checkpoint_path, st, np.asarray(elbos), it)
 
     threshold = CONVERGENCE_THRESHOLDS.get(convergence_mode, 5e-4)
     # As in the reference, ``elbos`` and ``resumed_elbos`` are one list, so
@@ -1273,7 +1370,9 @@ def fit_mofa(
             batches = np.stack(
                 [rng_batch.choice(N, size=S, replace=False) for _ in range(chunk)]
             )
-            batches_dev = torch.from_numpy(batches.astype(np.int64)).to(device)
+            if mesh is not None:  # each batch's rows in this rank's cells, local ids
+                batches = [b[(b >= lo) & (b < hi)] - lo for b in batches]
+            batches_dev = [torch.from_numpy(b.astype(np.int64)).to(device) for b in batches]
             seq = []
             for j in range(chunk):
                 state, e = svi_step(state, batches_dev[j], rhos[j])
@@ -1310,7 +1409,7 @@ def fit_mofa(
             if converged:
                 break
             if callback is not None and it % elbo_every == 0:
-                callback(it, state, float(elbo))
+                callback(it, whole(state), float(elbo))
             if checkpoint_path and checkpoint_every and it % checkpoint_every == 0:
                 save(it)
             continue
@@ -1352,7 +1451,7 @@ def fit_mofa(
                                                    gp_ell, gp_scale, gvec, gp_Xg)
                     state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec, gp_Kg)
         if callback is not None and it % elbo_every == 0:
-            callback(it, state, float(elbo))
+            callback(it, whole(state), float(elbo))
         if checkpoint_path and checkpoint_every and it % checkpoint_every == 0:
             save(it)
         if it % elbo_every == 0 or it == 1 or it == n_iterations:
@@ -1383,13 +1482,21 @@ def fit_mofa(
             Ym_dev = state["Y0"][m]
             Bm_dev = state["mask"][m]
             if Ym_dev is None:
-                Ym_dev, _ = _clean_view(Ys[m], Bm_dev, device)
+                if mesh is None:
+                    Ym_dev, _ = _clean_view(Ys[m], Bm_dev, device)
+                else:
+                    Ym_dev = grid_sharding(mesh).take(_clean_view(Ys[m], None, device)[0])
+                    Ym_dev = Ym_dev if Bm_dev is None else Ym_dev * Bm_dev
             blk = max(1024, min(65536, N))
             stats.append(tuple(
                 t.cpu().numpy() for t in
-                r2_stats(Ym_dev, Bm_dev, state["Z_mean"], state["SW"][m], onehot_t, blk)
+                r2_stats(Ym_dev, Bm_dev, state["Z_mean"], state["SW"][m], onehot_t, blk, red)
             ))
             del Ym_dev
+    if mesh is not None:
+        with stage("mofa/gather"):
+            state = gather_mofa_state(state, mesh, N, Ds_all,
+                                      keys=("Z_mean", "SW", "S", "tau"))
 
     Zm = state["Z_mean"].cpu().numpy()
     SWs = [sw.cpu().numpy() for sw in state["SW"]]

@@ -60,9 +60,10 @@ _SIGNATURES = {
     "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
     "mt_knn_ring_merge": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P),
+    "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
+                         _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P),

@@ -244,27 +244,40 @@ def _bandwidth_smem(kk: int, d: int, n_bw: int, nn_stride: int) -> int:
     return 4 * (kk + 3 * C + 2 * min(C, 4 * n_bw) + d)
 
 
+def _window(n: int, row0: int, rows, what: str) -> int:
+    rows = n - int(row0) if rows is None else int(rows)
+    if not (0 <= int(row0) and 0 <= rows and int(row0) + rows <= n):
+        raise ValueError(f"{what}: the window of {rows} rows from row {row0} lies outside "
+                         f"the tables' {n} rows")
+    return rows
+
+
 def wnn_bandwidth(
     NI: torch.Tensor, set_sizes: torch.Tensor, rep16: torch.Tensor,
     sq: torch.Tensor, n_total: float, bbox: float, n_bw: int, nn_stride: int,
+    row0: int = 0, rows=None,
 ) -> torch.Tensor:
-    """T9: σ (n,) float32 per cell from the neighbour matrix ``NI (n, kk)``
-    int32 (pad −1) and the tables of :func:`_bandwidth_tables`: the mean
-    euclidean distance to the ``n_bw`` candidates of largest Jaccard
-    distance between neighbour sets (ties: largest distance), among the
-    cell's neighbours and every ``nn_stride``-th neighbour of each.
+    """T9: σ (rows,) float32 per cell of the window [row0, row0 + rows)
+    (default: every row) from the neighbour matrix ``NI (n, kk)`` int32
+    (pad −1) and the tables of :func:`_bandwidth_tables`, all of n rows:
+    the mean euclidean distance to the ``n_bw`` candidates of largest
+    Jaccard distance between neighbour sets (ties: largest distance), among
+    the cell's neighbours and every ``nn_stride``-th neighbour of each. A
+    rank of a mesh passes its rows' window over the whole tables.
 
     Two variants of one kernel, chosen by shape: while a cell's candidate
     tables fit a block's shared memory (``_bandwidth_smem`` ≤ ``MAX_SMEM``;
     kk ≤ 194 at stride 2 and d = 50) a block per cell keeps them there
     (counted as ``wnn_bandwidth``); above that they live in a scratch tensor
-    in global memory, 528 blocks walking the cells (counted as
+    in global memory, min(rows, 528) blocks walking the cells (counted as
     ``wnn_bandwidth_global``). Same arithmetic, same orders."""
     if NI.device.type == "cpu":
-        return wnn_bandwidth_plain(NI, set_sizes, rep16, sq, n_total, bbox, n_bw, nn_stride)
+        return wnn_bandwidth_plain(NI, set_sizes, rep16, sq, n_total, bbox, n_bw, nn_stride,
+                                   row0, rows)
     if NI.device.type != "cuda":
         raise ValueError(f"unsupported device {NI.device}")
     n, kk = NI.shape
+    rows = _window(n, row0, rows, "T9")
     d = rep16.shape[1] if rep16.dim() == 2 else -1
     _check(NI, torch.int32, (n, kk), "NI", NI.device)
     _check(set_sizes, torch.int32, (n,), "set_sizes", NI.device)
@@ -274,9 +287,9 @@ def wnn_bandwidth(
         raise ValueError(f"T9 takes kk, d, n_bw, nn_stride >= 1 and n*max(kk, d) "
                          f"< 2^31; got n={n} kk={kk} d={d} n_bw={n_bw} "
                          f"nn_stride={nn_stride}")
-    sigma = torch.empty(n, dtype=torch.float32, device=NI.device)
+    sigma = torch.empty(rows, dtype=torch.float32, device=NI.device)
     args = (NI.data_ptr(), set_sizes.data_ptr(), rep16.data_ptr(), sq.data_ptr(),
-            n, kk, d, int(nn_stride), int(n_bw), float(n_total), float(bbox))
+            n, int(row0), rows, kk, d, int(nn_stride), int(n_bw), float(n_total), float(bbox))
     if _bandwidth_smem(kk, d, n_bw, nn_stride) <= MAX_SMEM:
         _kernels.launch("wnn_bandwidth", NI.device, *args, 0, 0, sigma.data_ptr())
         return sigma
@@ -284,7 +297,7 @@ def wnn_bandwidth(
         raise ValueError(f"T9 keeps a cell's sorted set and rep in {4 * (kk + d)} bytes "
                          f"of shared memory, above the {MAX_SMEM} a block may take")
     C = kk + kk * (-(-kk // nn_stride))
-    blocks = min(n, BANDWIDTH_SCRATCH_BLOCKS)
+    blocks = max(1, min(rows, BANDWIDTH_SCRATCH_BLOCKS))
     scratch = torch.empty((blocks, 3 * C + 2 * min(C, 4 * n_bw)), dtype=torch.int32,
                           device=NI.device)
     _kernels.launch("wnn_bandwidth_global", NI.device, *args, scratch.data_ptr(), blocks,
@@ -295,8 +308,11 @@ def wnn_bandwidth(
 def wnn_bandwidth_plain(
     NI: torch.Tensor, set_sizes: torch.Tensor, rep16: torch.Tensor,
     sq: torch.Tensor, n_total: float, bbox: float, n_bw: int, nn_stride: int,
+    row0: int = 0, rows=None,
 ) -> torch.Tensor:
     n, kk = NI.shape
+    row0 = int(row0)
+    end = row0 + _window(n, row0, rows, "wnn_bandwidth_plain")
     s = NI[:, ::nn_stride].shape[1]
     C = kk + kk * s
     osz = min(C, 4 * n_bw)
@@ -308,9 +324,9 @@ def wnn_bandwidth_plain(
     pos = torch.arange(C, device=dev)
     tri = torch.tril(torch.ones((osz, osz), dtype=torch.bool, device=dev), diagonal=-1)
     block = max(1, (1 << 25) // (C * max(kk, rep16.shape[1])))
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    for r0 in range(0, n, block):
-        r1 = min(r0 + block, n)
+    out = torch.empty(end - row0, dtype=torch.float32, device=dev)
+    for r0 in range(row0, end, block):
+        r1 = min(r0 + block, end)
         NI_b = NI[r0:r1]
         b = r1 - r0
         rows = torch.arange(r0, r1, device=dev)
@@ -344,7 +360,7 @@ def wnn_bandwidth_plain(
         ok = ~(top_bad | dup)
         keep = ok & (torch.cumsum(ok, dim=1) <= n_bw)
         cnt = keep.sum(dim=1)
-        out[r0:r1] = torch.where(
+        out[r0 - row0:r1 - row0] = torch.where(
             cnt > 0, (top_e * keep).sum(dim=1) / cnt.clamp(min=1), eucl[:, :kk].mean(dim=1)
         )
     return out
@@ -426,25 +442,29 @@ def _dims_offsets(dims: Sequence[Tuple[int, int]], D: int) -> list:
 
 def wnn_fusion_scores(
     cand: torch.Tensor, cat16: torch.Tensor, aux: torch.Tensor, sigw: torch.Tensor,
-    dims: Sequence[Tuple[int, int]], metric: str,
+    dims: Sequence[Tuple[int, int]], metric: str, row0: int = 0,
 ) -> torch.Tensor:
-    """T11: the fused score (n, C) float32 of every candidate ``cand``
-    (n, C) int32 (global ids, −1 absent, scoring 0):
+    """T11: the fused score (rows, C) float32 of every candidate ``cand``
+    (rows, C) int32 (global ids, −1 absent, scoring 0) of the cells
+    [row0, row0 + rows) of the tables (default: every row; a rank of a
+    mesh passes its rows' window over the whole tables):
     Σ_m w_m · exp(−dist_m/max(σ_m, 1e-12)) · present_m(cell) ·
     present_m(cand) over the modality column slices ``dims`` of the bf16
     table ``cat16`` (n, ΣD). ``aux`` (n, 2M) = [|x|²_m | present_m],
     ``sigw`` (n, 2M) = [σ_m | w_m]. ``metric``: ``"cosine"`` scores
     1 − cross on unit rows, anything else the euclidean distance."""
     if cand.device.type == "cpu":
-        return wnn_fusion_scores_plain(cand, cat16, aux, sigw, dims, metric)
+        return wnn_fusion_scores_plain(cand, cat16, aux, sigw, dims, metric, row0)
     if cand.device.type != "cuda":
         raise ValueError(f"unsupported device {cand.device}")
-    n, C = cand.shape
+    rows, C = cand.shape
+    n = cat16.shape[0]
+    _window(n, row0, rows, "T11")
     D = cat16.shape[1] if cat16.dim() == 2 else -1
     M = len(dims)
     dev = cand.device
     offs = _dims_offsets(dims, D)
-    _check(cand, torch.int32, (n, C), "cand", dev)
+    _check(cand, torch.int32, (rows, C), "cand", dev)
     _check(cat16, torch.bfloat16, (n, D), "cat16", dev)
     _check(aux, torch.float32, (n, 2 * M), "aux", dev)
     _check(sigw, torch.float32, (n, 2 * M), "sigw", dev)
@@ -452,30 +472,33 @@ def wnn_fusion_scores(
         raise ValueError(f"T11 takes M >= 1, n*max(C, D) < 2^31 and D <= 7264; "
                          f"got n={n} C={C} D={D} M={M}")
     offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
-    out = torch.empty((n, C), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, C), dtype=torch.float32, device=dev)
     _kernels.launch(
         "wnn_fusion_scores", dev,
         cand.data_ptr(), cat16.data_ptr(), aux.data_ptr(), sigw.data_ptr(),
-        offs_t.data_ptr(), n, C, D, M, int(metric == "cosine"), out.data_ptr(),
+        offs_t.data_ptr(), n, int(row0), rows, C, D, M, int(metric == "cosine"),
+        out.data_ptr(),
     )
     return out
 
 
 def wnn_fusion_scores_plain(
     cand: torch.Tensor, cat16: torch.Tensor, aux: torch.Tensor, sigw: torch.Tensor,
-    dims: Sequence[Tuple[int, int]], metric: str,
+    dims: Sequence[Tuple[int, int]], metric: str, row0: int = 0,
 ) -> torch.Tensor:
-    n, C = cand.shape
+    rows, C = cand.shape
+    row0 = int(row0)
+    _window(cat16.shape[0], row0, rows, "wnn_fusion_scores_plain")
     M = len(dims)
-    out = torch.empty((n, C), dtype=torch.float32, device=cand.device)
+    out = torch.empty((rows, C), dtype=torch.float32, device=cand.device)
     block = max(1, (1 << 26) // max(1, C * cat16.shape[1]))
-    for r0 in range(0, n, block):
-        r1 = min(r0 + block, n)
+    for r0 in range(0, rows, block):
+        r1 = min(r0 + block, rows)
         ok = cand[r0:r1] >= 0
         cs = torch.where(ok, cand[r0:r1], 0).long()
         cc = cat16[cs].float()
-        q = cat16[r0:r1].float()
-        aux_q, aux_c, sw = aux[r0:r1], aux[cs], sigw[r0:r1]
+        q = cat16[row0 + r0:row0 + r1].float()
+        aux_q, aux_c, sw = aux[row0 + r0:row0 + r1], aux[cs], sigw[row0 + r0:row0 + r1]
         total = torch.zeros((r1 - r0, C), dtype=torch.float32, device=cand.device)
         for m, (lo, hi) in enumerate(dims):
             cross = (q[:, None, lo:hi] * cc[:, :, lo:hi]).sum(dim=-1)
@@ -556,15 +579,21 @@ def wnn_neighbors(
     ``obs[weight_key]`` under ``add_weights_to_modalities``). ``low_memory``
     and ``use_rep``/``n_pcs`` are accepted and unused, as in the
     reference; the representations are the ones each modality's neighbors
-    used. ``mesh`` (multi-device, also through ``set_options``) is not ported
-    yet and raises."""
-    from .._core.config import current_mesh
+    used.
 
-    if mesh is not None or current_mesh() is not None:
-        raise NotImplementedError(
-            "WNN over a device mesh is not ported yet: the multi-device WNN and MOFA, "
-            "the rest of K20 (ROADMAP.md)"
-        )
+    ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more than
+    one rank takes the reference's mesh branch, every rank with the same
+    inputs and writing the same result: σ by ``parallel.sharded_wnn_bandwidth``
+    (T9 on the rank's rows), θ by ``sharded_wnn_theta`` (T10), each euclidean
+    modality's candidates by the exact ring kNN ``sharded_knn`` (T40; another
+    metric takes the single-device kNN), the fusion and its top-k by
+    ``sharded_wnn_scores`` (T11). σ, θ and the weights equal the
+    single-device WNN's bit for bit; the fused graph does not row for row,
+    since the single-device path takes T5's approximate candidates above
+    20,000 rows, as the reference's does."""
+    from .._core.config import resolve_mesh
+
+    mesh, device = resolve_mesh(mesh, device)
     device = resolve_device(device)
     mdata = mdata.copy() if copy else mdata
     if neighbor_keys is None:
@@ -639,12 +668,18 @@ def wnn_neighbors(
         kk = NI_dev[mod1].shape[1]
         bbox = float(np.linalg.norm(np.ptp(rep, axis=0), ord=2))
         n_loc = rep.shape[0]
+        n_bw = min(n_bandwidth_neighbors, max(kk, 1))
         with stage(f"wnn/bandwidth[{mod1}]"):
-            sig_dev[mod1] = wnn_bandwidth(
-                NI_dev[mod1], *_bandwidth_tables(NI_dev[mod1], rep_dev[mod1]),
-                float(n_loc), bbox, min(n_bandwidth_neighbors, max(kk, 1)),
-                _auto_nn_stride(kk),
-            )
+            if mesh is not None:
+                from ..parallel.pipeline import sharded_wnn_bandwidth
+
+                sig_dev[mod1] = sharded_wnn_bandwidth(NI_dev[mod1], rep_dev[mod1], mesh,
+                                                      n_bw=n_bw, nn_stride=_auto_nn_stride(kk))
+            else:
+                sig_dev[mod1] = wnn_bandwidth(
+                    NI_dev[mod1], *_bandwidth_tables(NI_dev[mod1], rep_dev[mod1]),
+                    float(n_loc), bbox, n_bw, _auto_nn_stride(kk),
+                )
 
         # thetas/currtheta are indexed by mod1-LOCAL row (an explicit rows1
         # scatter), so partially overlapping or permuted modalities stay
@@ -659,7 +694,13 @@ def wnn_neighbors(
             load_mod(mod2)
             conv = g2l[mod1][l2g[mod2]].astype(np.int32)  # mod2-local → mod1-local
             with stage(f"wnn/theta[{mod1}|{mod2}]"):
-                th = wnn_theta(
+                theta = wnn_theta
+                if mesh is not None:
+                    from ..parallel.pipeline import sharded_wnn_theta
+
+                    def theta(*args):
+                        return sharded_wnn_theta(*args, mesh)
+                th = theta(
                     rep_dev[mod1], upload(rows1.astype(np.int32)),
                     upload(rows2.astype(np.int32)), NI_dev[mod2], upload(conv),
                     nnd_dev[mod1], sig_dev[mod1],
@@ -704,8 +745,14 @@ def wnn_neighbors(
             else:
                 rep16_dev[mod] = rdev.to(torch.bfloat16)
                 sq_dev[mod] = (rdev * rdev).sum(dim=1)
-            idx, _ = knn(rdev, k_cand, metric=cmetric, approx=n_loc_m > APPROX_ROWS,
-                         device=device)
+            if mesh is not None and cmetric in ("euclidean", "l2"):
+                # over a mesh: the exact ring kNN, query rows sharded over cells
+                from ..parallel.pipeline import sharded_knn
+
+                _, idx = sharded_knn(reps[mod], mesh, k=k_cand)
+            else:
+                idx, _ = knn(rdev, k_cand, metric=cmetric, approx=n_loc_m > APPROX_ROWS,
+                             device=device)
             del rdev
             NI_dev.pop(mod, None)
             idx = idx[:, 1:]  # drop self
@@ -741,12 +788,21 @@ def wnn_neighbors(
             aux[rows_d, n_mods + i] = 1.0
             sigw[rows_d, i] = sig_dev[mod]
         sigw[:, n_mods:] = upload(weights.astype(np.float32))
-        scores = wnn_fusion_scores(cand, cat16, aux, sigw, dims, fusion_metric)
+        if mesh is not None:
+            # candidate rows sharded over cells, the tables replicated: T11
+            # and the top-k on each rank's rows
+            from ..parallel.pipeline import sharded_wnn_scores
+
+            idx_t, dist_t = sharded_wnn_scores(cand, cat16, aux, sigw, dims, mesh,
+                                               metric=fusion_metric, k=kfin)
+        else:
+            scores = wnn_fusion_scores(cand, cat16, aux, sigw, dims, fusion_metric)
         del cat16
 
     # -- final kNN, connectivities and the distances CSR ------------------------
     with stage("wnn/finalize"):
-        idx_t, dist_t = final_topk(scores, cand, kfin)
+        if mesh is None:
+            idx_t, dist_t = final_topk(scores, cand, kfin)
         idx_f = idx_t.cpu().numpy()
         dist_f = dist_t.cpu().numpy().astype(np.float64)
         conn = compute_connectivities_umap(idx_f, dist_t, n_global, kfin)

@@ -10,11 +10,15 @@ process per rank, so the port's calling convention is:
   ``mesh = make_mesh()`` in each;
 * every rank calls the same public function with the same host inputs
   (``atac.pp.tfidf(adata, mesh=mesh)``, ``atac.tl.lsi``, ``pp.neighbors``
-  of one modality, ``tl.umap``, or the ``sharded_*`` functions, or any of
-  them under ``set_options(mesh=mesh)``);
-* each rank computes on its contiguous row block, R = ceil(n / P) rows,
-  as ``shard_rows`` cuts it, with the single-device kernels, and the
-  reductions across rows are the collectives of ``parallel/comm.py``;
+  of one modality or of a MuData (WNN), ``tl.umap``, ``tl.mofa`` and
+  ``models.mofa.fit_mofa``, or the ``sharded_*`` functions, or any of them
+  under ``set_options(mesh=mesh)``);
+* each rank computes on its contiguous row block, R = ceil(n / P) rows for
+  the P coordinates of the mesh's cells axis, as ``shard_rows`` cuts it,
+  with the single-device kernels, and the reductions across rows are the
+  collectives of ``parallel/comm.py`` over the cells group; MOFA also cuts
+  the features over the feat axis (``shard_mofa_state``) and sums over the
+  feat group;
 * every rank returns the same full result as the reference does.
 
 At world size 1 the ``sharded_*`` functions still run (as ``shard_map``
@@ -24,12 +28,15 @@ are; a gloo group stages them through pinned host memory
 (``comm/stage(host)``), so every rank can share one card, as the tests and
 ``chip_smoke.py`` run it. No multi-GPU measurement has been taken.
 
-Not ported yet (ROADMAP.md): the multi-device WNN (``sharded_wnn_*``), the
-sharded MOFA (``shard_mofa_state``, ``fit_mofa(mesh=)``) and meshes with a
-``feat`` axis.
+Not ported yet (ROADMAP.md): MEFISTO's smooth factors over a mesh
+(``fit_mofa(smooth_covariate=..., mesh=...)`` raises). ``dryrun_multichip``
+(``parallel/dryrun.py``) runs the sharded MOFA sweep, the pipeline and the
+public tools with WNN on a mesh.
 """
 
-from .mesh import Mesh, make_mesh, mesh_split
+from .dryrun import dryrun_multichip, dryrun_on_mesh
+from .mesh import (Mesh, Placement, cells_sharding, feat_sharding, gather_mofa_state,
+                   grid_sharding, make_mesh, mesh_split, replicated, shard_mofa_state)
 from .pipeline import (
     ShardedCSR,
     shard_rows,
@@ -41,12 +48,24 @@ from .pipeline import (
     sharded_tfidf_data,
     sharded_umap_embed,
     sharded_values_to_scipy,
+    sharded_wnn_bandwidth,
+    sharded_wnn_scores,
+    sharded_wnn_theta,
 )
 
 __all__ = [
     "Mesh",
     "make_mesh",
     "mesh_split",
+    "Placement",
+    "cells_sharding",
+    "feat_sharding",
+    "grid_sharding",
+    "replicated",
+    "shard_mofa_state",
+    "gather_mofa_state",
+    "dryrun_multichip",
+    "dryrun_on_mesh",
     "ShardedCSR",
     "shard_rows",
     "sharded_col_sums",
@@ -57,4 +76,7 @@ __all__ = [
     "sharded_knn",
     "sharded_ivf_knn",
     "sharded_umap_embed",
+    "sharded_wnn_bandwidth",
+    "sharded_wnn_theta",
+    "sharded_wnn_scores",
 ]

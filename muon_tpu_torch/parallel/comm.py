@@ -7,7 +7,13 @@
                         cells-sharded outputs (blocks of unequal length)
     ring_shift       <- lax.ppermute to rank + 1
 
-Every rank calls each of them in the same order. On a NCCL group CUDA
+Each takes ``group``, the mesh axis it runs along: ``"cells"`` (the
+default: the ranks that share this rank's feat coordinate, the whole mesh
+when feat = 1) or ``"feat"``; point-to-point peers are global ranks, and
+an axis of one rank exchanges nothing. Each is timed under its
+own stage with the axis in its name (``comm/all_reduce[cells]``).
+
+Every rank of a group calls each of them in the same order. On a NCCL group CUDA
 tensors go as they are. A gloo group carries CPU tensors, so a CUDA tensor
 is copied to pinned host memory, sent, and copied back: the copies are
 timed under their own stage, ``comm/stage(host)``, and the compute stays on
@@ -51,60 +57,68 @@ def _to_device(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return h.to(like.device, non_blocking=False)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, on every rank (``t`` itself, summed
-    in place, unless it went through the host)."""
+def all_reduce_sum(t: torch.Tensor, mesh, group: str = "cells") -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group``, on each of them (``t``
+    itself, summed in place, unless it went through the host)."""
     import torch.distributed as dist
 
+    size, _, _, pg = mesh.axis(group)
     t = t.contiguous()
     staged = _staged(mesh, t)
+    if size == 1:
+        return t
     buf = _to_host(t) if staged else t
-    with stage("comm/all_reduce"):
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    with stage(f"comm/all_reduce[{group}]"):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=pg)
     return _to_device(buf, t) if staged else buf
 
 
-def all_gather_rows(t: torch.Tensor, mesh, lengths: Sequence[int]) -> torch.Tensor:
-    """The ranks' row blocks stacked in rank order. The blocks may differ in
-    length (``lengths``, one per rank): each is padded to the longest,
-    gathered, and cut back."""
+def all_gather_rows(t: torch.Tensor, mesh, lengths: Sequence[int],
+                    group: str = "cells") -> torch.Tensor:
+    """The row blocks of the ranks of ``group`` stacked in the order of
+    their coordinates. The blocks may differ in length (``lengths``, one per
+    coordinate): each is padded to the longest, gathered, and cut back."""
     import torch.distributed as dist
 
-    t = t.contiguous()
-    staged = _staged(mesh, t)
+    size, me, _, pg = mesh.axis(group)
     lengths = [int(x) for x in lengths]
-    if len(lengths) != mesh.size or lengths[mesh.rank] != t.shape[0]:
+    if len(lengths) != size or lengths[me] != t.shape[0]:
         raise ValueError(f"lengths {lengths} do not match this rank's block "
                          f"of {t.shape[0]} rows")
+    t = t.contiguous()
+    staged = _staged(mesh, t)
+    if size == 1:
+        return t.clone()  # a new tensor, as a gather gives: callers write t after
     width = max(lengths)
     src = t
     if t.shape[0] < width:
         src = torch.zeros((width,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
         src[: t.shape[0]] = t
     buf = _to_host(src) if staged else src
-    parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(mesh.size)]
-    with stage("comm/all_gather"):
-        dist.all_gather(parts, buf)
+    parts: List[torch.Tensor] = [torch.empty_like(buf) for _ in range(size)]
+    with stage(f"comm/all_gather[{group}]"):
+        dist.all_gather(parts, buf, group=pg)
     out = torch.cat([p[:m] for p, m in zip(parts, lengths)])
     return _to_device(out, t) if staged else out
 
 
-def ring_shift(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` sent to rank + 1 and the block of rank − 1 received, as one
-    batch of a non-blocking send and receive (no ordering of blocking sends
-    can deadlock). Every rank's block has the same shape. One rank keeps
-    its own."""
+def ring_shift(t: torch.Tensor, mesh, group: str = "cells") -> torch.Tensor:
+    """``t`` sent to the next coordinate of ``group`` and the block of the
+    one before received, as one batch of a non-blocking send and receive (no
+    ordering of blocking sends can deadlock). Every rank's block has the
+    same shape. A group of one rank keeps its own."""
     import torch.distributed as dist
 
-    if mesh.size == 1:
-        return t
+    size, me, ranks, _ = mesh.axis(group)
     t = t.contiguous()
     staged = _staged(mesh, t)
+    if size == 1:
+        return t
     send = _to_host(t) if staged else t
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, (mesh.rank + 1) % mesh.size),
-           dist.P2POp(dist.irecv, recv, (mesh.rank - 1) % mesh.size)]
-    with stage("comm/ring"):
+    ops = [dist.P2POp(dist.isend, send, ranks[(me + 1) % size]),
+           dist.P2POp(dist.irecv, recv, ranks[(me - 1) % size])]
+    with stage(f"comm/ring[{group}]"):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return _to_device(recv, t) if staged else recv

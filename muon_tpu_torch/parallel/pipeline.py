@@ -1,6 +1,6 @@
 """Cells-axis sharding of the data pipeline over ``torch.distributed``:
-TF-IDF → LSI → kNN (ring, or IVF) → UMAP (counterpart of
-muon_tpu/parallel/pipeline.py).
+TF-IDF → LSI → kNN (ring, or IVF) → UMAP, and WNN's three kernels
+(counterpart of muon_tpu/parallel/pipeline.py).
 
 The reference runs each stage as one ``shard_map`` program over the mesh's
 ``"cells"`` axis, every device holding a contiguous row block, and every
@@ -18,19 +18,27 @@ reductions are the collectives of ``parallel/comm.py``:
     sharded_ivf_knn     <- _ivf_kmeans_fn   T15 + all-reduced Lloyd sums
                            _ivf_search_fn   T14 on the rank's work items
     sharded_umap_embed  <- _umap_epochs_fn  T41 each epoch, all_gather_rows
+    sharded_wnn_bandwidth <- _wnn_bandwidth_fn  T9 on the rank's row window
+    sharded_wnn_theta   <- _wnn_theta_fn    T10 on the rank's work items
+    sharded_wnn_scores  <- _wnn_score_fn    T11 on the rank's row window,
+                                            then the final top-k
 
 The calling convention: every rank calls the same function with the same
-host inputs, computes on its row block (R = ceil(n / P) rows, rank r the
-rows [r·R, min((r+1)·R, n))), and returns the same full result as the
-reference does, on every rank. At P = 1 these functions run as the
-reference's programs run on one device: the collectives have nothing to
-exchange.
+host inputs, computes on its row block (P = the mesh's cells size, R =
+ceil(n / P) rows, cells coordinate c the rows [c·R, min((c+1)·R, n))), and
+returns the same full result as the reference does, on every rank. The
+collectives run over the cells group; on a mesh with a feat axis the ranks
+of one cells coordinate repeat one another's work, as the reference's
+``shard_map`` over "cells" does on a (c, f) mesh. At P = 1 these functions
+run as the reference's programs run on one device: the collectives have
+nothing to exchange.
 
 Dropped because they served only the TPU's fixed shapes, and change no
 result: the padding of each block's entries to a common ``pad_multiple``
 (taken and ignored, for API parity), the query rows padded with +inf, the
 padded vertex and edge axes of UMAP and its 25-epoch chunks against the
-TPU's watchdog.
+TPU's watchdog, the WNN functions' rows padded to a multiple of their
+``block`` (taken and ignored) and their scan over blocks.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from ..ops.knn import knn_ring_merge
 from ..ops.linalg import KERNEL_OPS, Products, _cholqr, _omega
 from ..ops.umap import (edge_schedule, epoch_alpha, find_ab_params, spectral_init,
                         umap_edges, umap_epoch_block)
+from ..ops import wnn as _wnn
 from ..utils.profiling import stage
 from .comm import all_gather_rows, all_reduce_sum, ring_shift
 
@@ -63,6 +72,9 @@ __all__ = [
     "sharded_kmeans",
     "sharded_ivf_knn",
     "sharded_umap_embed",
+    "sharded_wnn_bandwidth",
+    "sharded_wnn_theta",
+    "sharded_wnn_scores",
     "row_block",
 ]
 
@@ -71,23 +83,13 @@ SHARDED_TAG = "_muon_tpu_torch_sharded"
 
 
 def _cells(mesh) -> int:
-    if mesh.shape.get("feat", 1) != 1:
-        raise NotImplementedError(
-            f"the sharded pipeline takes meshes with feat == 1 (make_mesh(n)), "
-            f"got {mesh.shape}: the feat axis comes with the multi-device MOFA"
-        )
     return int(mesh.shape["cells"])
 
 
 def row_block(n: int, mesh) -> Tuple[int, int, int]:
-    """(R, lo, hi): the rows per rank and this rank's rows [lo, hi)."""
-    P = _cells(mesh)
-    R = -(-n // P)
-    return R, min(mesh.rank * R, n), min((mesh.rank + 1) * R, n)
-
-
-def _lengths(n: int, R: int, P: int):
-    return [max(0, min((r + 1) * R, n) - min(r * R, n)) for r in range(P)]
+    """(R, lo, hi): the rows per cells coordinate and this rank's rows
+    [lo, hi)."""
+    return (-(-n // _cells(mesh)), *mesh.block(n, "cells"))
 
 
 class ShardedCSR(NamedTuple):
@@ -218,7 +220,7 @@ def sharded_rsvd(
         Bt = rmv(Q).T  # (l, d), full float32 final pass
         Ub, s, Vt = torch.linalg.svd(Bt, full_matrices=False)
         U = (Q @ Ub)[:, :k]
-        U = all_gather_rows(U, mesh, _lengths(n, Xs.rows_per_shard, Xs.n_shards))
+        U = all_gather_rows(U, mesh, mesh.lengths(n, "cells"))
     return U, s[:k], Vt[:k]
 
 
@@ -258,12 +260,12 @@ def sharded_knn(Z, mesh, k: int = 20, chunk: int = 1024):
         best_d = torch.full((hi - lo, k1), float("inf"), dtype=torch.float32, device=dev)
         best_i = torch.full((hi - lo, k1), -1, dtype=torch.int32, device=dev)
         for r in range(P):
-            off = ((mesh.rank - r) % P) * R  # the block's origin rank's first row
+            off = ((mesh.cells_rank - r) % P) * R  # the block's origin rank's first row
             best_d, best_i = knn_ring_merge(Q, sq_q, blk, (blk * blk).sum(dim=1), off, n,
                                             best_d, best_i)
             if r < P - 1:
                 blk = ring_shift(blk, mesh)
-        lengths = _lengths(n, R, P)
+        lengths = mesh.lengths(n, "cells")
         D = all_gather_rows(best_d, mesh, lengths)
         I = all_gather_rows(best_i, mesh, lengths)
     return D, I
@@ -325,23 +327,21 @@ def sharded_ivf_knn(
         metric = "euclidean" if metric != "sqeuclidean" else "sqeuclidean"
     else:
         raise NotImplementedError(f"metric {metric!r} not supported by IVF")
-    P = _cells(mesh)
     dev = mesh.device
     C = n_clusters or int(2 ** round(np.log2(max(np.sqrt(n), 16))))
     C = min(C, max(16, n // 64))
     C = max(1, min(C, n))
-    R, lo, hi = row_block(n, mesh)
+    lo, hi = mesh.block(n, "cells")
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     with stage("mesh/ivf_kmeans"):
         init_idx = np.random.default_rng(seed).choice(n, size=C, replace=False)
         cent, a_local = sharded_kmeans(to(Z[lo:hi]), to(Z[init_idx]), kmeans_iters, mesh)
-        a_np = all_gather_rows(a_local, mesh, _lengths(n, R, P)).cpu().numpy()
+        a_np = all_gather_rows(a_local, mesh, mesh.lengths(n, "cells")).cpu().numpy()
     with stage("mesh/ivf_layout(host)"):
         order, qids, probe_pos, probe_cnt, L = _ivf.build_ivf_layout(
             a_np, cent.cpu().numpy(), C, n_probe, block_queries)
     I = qids.shape[0]
-    I_loc = -(-I // P)
-    i0, i1 = min(mesh.rank * I_loc, I), min((mesh.rank + 1) * I_loc, I)
+    i0, i1 = mesh.block(I, "cells")
     with stage("mesh/ivf_search"):
         order_t = to(order)
         Xs = to(Z[order])
@@ -350,7 +350,7 @@ def sharded_ivf_knn(
                                      _ivf.item_means(Xs, q_l), int(k), int(L),
                                      metric == "cosine")
         QB, k1 = qids.shape[1], int(k) + 1
-        items = _lengths(I, I_loc, P)
+        items = mesh.lengths(I, "cells")
         pos = all_gather_rows(pos.reshape(i1 - i0, QB * k1), mesh, items)
         dvals = all_gather_rows(dvals.reshape(i1 - i0, QB * k1), mesh, items)
     with stage("mesh/ivf_scatter_back"):
@@ -392,8 +392,8 @@ def sharded_umap_embed(
 
     The start is ``spectral_init`` of the graph (the exact seed, as the
     reference's), or ``init (n, n_components)``. Negatives are drawn for
-    each rank and epoch from a ``torch.Generator`` seeded from
-    (random_state, rank, epoch), or taken from ``draw_negatives(epoch) →
+    each cells coordinate and epoch from a ``torch.Generator`` seeded from
+    (random_state, coordinate, epoch), or taken from ``draw_negatives(epoch) →
     (rows of the window, negative_sample_rate)``. So the layout is the same
     bit for bit for a fixed world size and seed; the draws are not the
     reference's, whose quality, not its bits, is the cross-check, as the
@@ -404,9 +404,8 @@ def sharded_umap_embed(
     graph = sp.coo_matrix(graph)
     if a is None or b is None:
         a, b = find_ab_params(spread, min_dist)
-    P = _cells(mesh)
     dev = mesh.device
-    Vb, v0, v1 = row_block(n, mesh)
+    v0, v1 = mesh.block(n, "cells")
     with stage("mesh/umap_schedule(host)"):
         heads, tails, eps, _w, dc_exp = edge_schedule(graph, n_epochs)
         s, e = np.searchsorted(heads, [v0, v1])
@@ -425,13 +424,13 @@ def sharded_umap_embed(
         dc = torch.from_numpy(dc_exp[v0:v1]).to(dev)
         emb = torch.from_numpy(np.ascontiguousarray(emb0)).to(dev)
         blk = torch.empty((v1 - v0, n_components), dtype=torch.float32, device=dev)
-    lengths = _lengths(n, Vb, P)
+    lengths = mesh.lengths(n, "cells")
     rate = int(negative_sample_rate)
     with stage(f"mesh/umap_sgd_{int(n_epochs)}epochs"):
         for epoch in range(int(n_epochs if n_run is None else min(n_run, n_epochs))):
             if draw_negatives is None:
                 gen = torch.Generator(device=dev).manual_seed(
-                    _negative_seed(random_state, mesh.rank, epoch))
+                    _negative_seed(random_state, mesh.cells_rank, epoch))
                 negs = torch.randint(0, n, (v1 - v0, rate), generator=gen,
                                      dtype=torch.int32, device=dev)
             else:
@@ -440,3 +439,97 @@ def sharded_umap_embed(
                              epoch_alpha(alpha, epoch, n_epochs), a, b, gamma)
             emb = all_gather_rows(blk, mesh, lengths)
     return emb.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# WNN: each rank its rows over the whole, replicated tables
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    """``a`` (a tensor, or a host array; an ml_dtypes bfloat16 array by its
+    bits) as a contiguous ``dtype`` tensor on ``device``."""
+    if not torch.is_tensor(a):
+        a = np.ascontiguousarray(a)
+        if dtype == torch.bfloat16 and a.dtype.itemsize == 2 and a.dtype.kind not in "iuf":
+            a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            a = torch.from_numpy(a)
+    return a.to(device=device, dtype=dtype).contiguous()
+
+
+def sharded_wnn_bandwidth(NI, rep, mesh, n_bw: int = 20, block: int = 512,
+                          nn_stride: int = 1) -> torch.Tensor:
+    """WNN's kernel bandwidth σ with the query rows sharded over cells
+    (reference ``sharded_wnn_bandwidth``): the neighbour matrix ``NI (n,
+    kk)`` int32 (pad −1) and the representation ``rep (n, d)`` float32 are
+    replicated, since a 2-hop candidate may be any row; each rank runs T9
+    on its row window of the whole tables, and the windows are gathered.
+    ``block`` (the reference's rows per scan step) is taken for API parity
+    and changes nothing.
+
+    Returns σ (n,) float32 on the mesh's device, on every rank: the
+    single-device ``ops.wnn.wnn_bandwidth`` bit for bit."""
+    dev = mesh.device
+    NI_t = _tensor(NI, torch.int32, dev)
+    rep_t = _tensor(rep, torch.float32, dev)
+    n = NI_t.shape[0]
+    rep_h = np.asarray(rep if not torch.is_tensor(rep) else rep_t.cpu().numpy(), np.float32)
+    bbox = float(np.linalg.norm(np.ptp(rep_h, axis=0), ord=2))
+    lo, hi = mesh.block(n, "cells")
+    with stage("mesh/wnn_bandwidth"):
+        sig = _wnn.wnn_bandwidth(NI_t, *_wnn._bandwidth_tables(NI_t, rep_t), float(n), bbox,
+                                 int(n_bw), int(nn_stride), row0=lo, rows=hi - lo)
+        return all_gather_rows(sig, mesh, mesh.lengths(n, "cells"))
+
+
+def sharded_wnn_theta(rep_full, rows1, rows2, NI2_full, conv, nnd_full, sigma_full, mesh,
+                      block: int = 8192) -> torch.Tensor:
+    """WNN's affinity θ with the (rows1, rows2) work items sharded over
+    cells (reference ``sharded_wnn_theta``): the mod1 ``rep_full``, the mod2
+    neighbour matrix ``NI2_full``, the remap ``conv`` and the mod1
+    ``nnd_full`` and ``sigma_full`` are replicated (a neighbour mean
+    gathers arbitrary rows); each rank runs T10 on its items, and the items
+    are gathered. ``block`` is taken and ignored.
+
+    Returns θ (m,) float32 on the mesh's device, m = len(rows1), on every
+    rank."""
+    dev = mesh.device
+    r1 = _tensor(rows1, torch.int32, dev)
+    r2 = _tensor(rows2, torch.int32, dev)
+    m = r1.shape[0]
+    lo, hi = mesh.block(m, "cells")
+    with stage("mesh/wnn_theta"):
+        th = _wnn.wnn_theta(_tensor(rep_full, torch.float32, dev), r1[lo:hi].contiguous(),
+                            r2[lo:hi].contiguous(), _tensor(NI2_full, torch.int32, dev),
+                            _tensor(conv, torch.int32, dev),
+                            _tensor(nnd_full, torch.float32, dev),
+                            _tensor(sigma_full, torch.float32, dev))
+        return all_gather_rows(th, mesh, mesh.lengths(m, "cells"))
+
+
+def sharded_wnn_scores(cand, cat16, aux, sigw, dims, mesh, metric: str = "euclidean",
+                       k: int = 20, block: int = 512):
+    """WNN's fused candidate scores and the per-row top-k with the
+    candidate rows sharded over cells (reference ``sharded_wnn_scores``):
+    the bfloat16 table ``cat16 (n, ΣD)`` and ``aux``/``sigw (n, 2M)`` are
+    replicated; each rank runs T11 on its row window and the final top-k
+    (``ops.wnn.final_topk``) on its rows, and the rows are gathered.
+    ``cand (n, C)`` int32 holds global candidate ids (pad −1). ``block`` is
+    taken and ignored.
+
+    Returns (idx (n, k) int32, dist (n, k) float32) on the mesh's device, on
+    every rank: the single-device T11 and ``final_topk`` row for row."""
+    dev = mesh.device
+    cand_t = _tensor(cand, torch.int32, dev)
+    n = cand_t.shape[0]
+    lo, hi = mesh.block(n, "cells")
+    with stage("mesh/wnn_scores"):
+        c_loc = cand_t[lo:hi].contiguous()
+        scores = _wnn.wnn_fusion_scores(c_loc, _tensor(cat16, torch.bfloat16, dev),
+                                        _tensor(aux, torch.float32, dev),
+                                        _tensor(sigw, torch.float32, dev), tuple(dims),
+                                        str(metric), row0=lo)
+        idx, dist = _wnn.final_topk(scores, c_loc, int(k))
+        lengths = mesh.lengths(n, "cells")
+        return all_gather_rows(idx, mesh, lengths), all_gather_rows(dist, mesh, lengths)

@@ -400,7 +400,8 @@ _COV = np.linspace(0, 1, 20)
 
 
 @pytest.mark.parametrize("kwargs, cfg, exc, match", [
-    (dict(mesh=object()), dict(), NotImplementedError, "mesh"),
+    # mesh= is ported (tests/test_torch_parallel_mofa.py): what is not a Mesh raises
+    (dict(mesh=object()), dict(), ValueError, "parallel Mesh"),
     # the reference's own refusals, with its messages
     (dict(smooth_covariate=_COV, svi_mode=True), dict(), NotImplementedError,
      "smooth factors \\(MEFISTO\\) with svi_mode are not supported yet"),
@@ -568,10 +569,11 @@ def test_tl_mofa_takes_one_anndata_and_copies():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(mesh=object()), "mesh"),
+    # mesh= is ported (tests/test_torch_parallel_mofa.py): what is not a Mesh raises
+    (dict(mesh=object()), "parallel Mesh"),
 ], ids=["mesh"])
 def test_tl_mofa_refuses(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         mt.tl.mofa(_mudata(), n_factors=2, device="cpu", **kwargs)
 
 

@@ -344,12 +344,6 @@ def test_make_mesh_needs_a_group_and_the_whole_world():
         tpar.make_mesh(2, feat=1, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"feat": 2}, {"total_feat": 2048}])
-def test_make_mesh_refuses_a_feat_axis(kw):
-    with pytest.raises(NotImplementedError, match="feat == 1"):
-        tpar.make_mesh(4, device="cpu", **kw)
-
-
 @pytest.mark.parametrize(
     "key, value",
     [("device", "cpu"), ("spmm_blocks", False), ("compute_dtype", "bfloat16"),
@@ -496,32 +490,6 @@ def test_public_umap_under_set_options(run):
     assert _same_over_other(emb, umap_points()[1]) < 0.6
     if run["P"] > 1:  # a mesh of one rank takes the single-device path
         np.testing.assert_array_equal(emb, port["public_umap_direct"])
-
-
-def test_wnn_and_mofa_refuse_a_mesh():
-    from muon_tpu_torch import set_options
-    from muon_tpu_torch.models.mofa import MOFAConfig, fit_mofa
-    from muon_tpu_torch.ops.wnn import wnn_neighbors
-
-    class FakeMesh:  # two ranks: current_mesh passes it through
-        axis_names, shape, size, device = ("cells", "feat"), {"cells": 2, "feat": 1}, 2, \
-            torch.device("cpu")
-
-    with set_options(mesh=FakeMesh()):
-        with pytest.raises(NotImplementedError, match="rest of K20"):
-            wnn_neighbors(object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="rest of K20"):
-            fit_mofa([np.zeros((4, 3), np.float32)], MOFAConfig(n_factors=2), device="cpu")
-
-
-def test_feat_axis_refused_by_name():
-    from muon_tpu_torch.parallel.pipeline import row_block
-
-    class FeatMesh:
-        shape, rank = {"cells": 2, "feat": 2}, 0
-
-    with pytest.raises(NotImplementedError, match="feat == 1"):
-        row_block(10, FeatMesh())
 
 
 # ---------------------------------------------------------------------------
