@@ -228,6 +228,12 @@ is printed. An exception stops the run at once, with a code other than 0:
 31. ``[mefisto-sparse]``, counted alone: the sparse GP at 100,000 cells, 50
     sweeps under the stage timers, the wall, peak memory, the split of T24
     against the Cholesky factors and solves, canonical correlations > 0.9;
+    then ``[mefisto-refs]``, uncounted: the single-device fits that
+    [mesh2]/[mesh4]'s MEFISTO fits are held to, at their 30 sweeps (the
+    ``model_groups`` and warping fits of phase 30, the sparse GP of phase
+    31), saved to the work directory; beside each dense one its
+    float32-order floor, the gaps of the same fit on the views with their
+    features permuted (the same model, its feature sums in another order);
 32. ``[de]`` (after phase 25): ``tl.rank_genes_groups`` over the 20 planted
     labels on the normalised RNA, 100,000 × 20,000: t-test (T3 on the CSR),
     wilcoxon (X dense on the card, sorted in blocks of 2684 columns, T26)
@@ -371,11 +377,22 @@ is printed. An exception stops the run at once, with a code other than 0:
     graph against [mesh2]'s (distances within 1e-6, ids apart only at
     near-ties); and ``fit_mofa(mesh=)`` at 10,000 × (2000, 3000), K = 15,
     from phase 17's draws: one sweep's every leaf within 1e-5 of its largest
-    entry of the single-device sweep, then 50 sweeps (and at (2, 1) 50 SVI
-    iterations, at (2, 2) 50 sweeps beside [mofa-lik]'s bernoulli view) each
+    entry of the single-device sweep, then 25 sweeps (and at (2, 1) 25 SVI
+    iterations, at (2, 2) 25 sweeps beside [mofa-lik]'s bernoulli view) each
     held to the single-device fit (every ELBO within 1e-4, Z within rtol
-    1e-2 atol 1e-3, the planted factors' R² within 0.02). Each rank prints
-    its ``mesh/*``, ``wnn/*``, ``mofa/*`` and ``comm/*`` stages
+    1e-2 atol 1e-3, the planted factors' R² within 0.02). Then MEFISTO's
+    smooth factors through ``fit_mofa(smooth_covariate=..., mesh=)``: at
+    (2, 1) the sparse GP of [mefisto-sparse] (100,000 cells, Mu = 1000), at
+    (2, 2) the dense GP of [mefisto]'s ``model_groups`` and warping fits
+    (3,000 cells), 30 sweeps each, each counted alone (T24 and T25) and held
+    to its single-device fit of [mefisto-refs]: one sweep from the whole
+    initial state (every leaf within 1e-5 of its largest entry, the dense
+    GP's within 5e-4), every ELBO within 1e-4 (the dense GP's within the
+    larger of 1e-4 and 3 times its float32-order floor), ℓ and s equal, Kg
+    of the active factors within 1e-4, the warped covariate within 1e-6,
+    the planted trajectories' canonical correlations (> 0.9 for the sparse
+    GP, as [mefisto-sparse] gates them).
+    Each rank prints its ``mesh/*``, ``wnn/*``, ``mofa/*`` and ``comm/*`` stages
     (``comm/stage(host)``: the copies through host memory); the launches are
     every rank's added up.
     These phases show the sharded arithmetic and the collectives' wiring on
@@ -399,7 +416,8 @@ computes the same function, where there is one), the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
 Without a CUDA device it prints no result and exits 1. ``python3 chip_smoke.py
 --mesh-only`` runs phases 1, 2 and 41-43 alone (after the e2e's three
-modalities and phase [wnn], which they read) and prints no result.
+modalities, phase [wnn], the MOFA references and [mefisto-refs], which they
+read) and prints no result.
 """
 
 from __future__ import annotations
@@ -444,6 +462,9 @@ PILEUP_SRC = "muon_tpu_torch/csrc/pileup_kernels.cu"
 # 50 full-batch sweeps after 2), the e2e's stage (two 256-column views, SVI,
 # 100 iterations of 50,000 cells) at 100,000 and at 1,000,000 cells; K = 15
 MOFA_K, MOFA_N, MOFA_DS, MOFA_SWEEPS, MOFA_WARM = 15, 10_000, (2000, 3000), 50, 2
+# [mesh2]/[mesh4]'s MOFA fits and their single-device references: 25 sweeps
+# (cut from 50 to make room for the MEFISTO fits over the mesh)
+MESH_MOFA_SWEEPS = 25
 MOFA_COLS, MOFA_ITERS, MOFA_BATCH = 256, 100, 50_000
 # MOFA's bound-based views: the scales of the planted logits and log-rates
 # (bernoulli and poisson views of [mofa-lik]); the share of a planted Z set
@@ -464,6 +485,14 @@ MEF_N, MEF_TIMES, MEF_DS, MEF_K, MEF_PLANTED = 3_000, 150, (500, 800), 10, 6
 MEF_SWEEPS, MEF_OPT, MEF_START = 100, 25, 20
 MEF_RHO, MEF_SHIFT, MEF_WARP_FREQ = -0.8, 0.1, 20
 SGP_N, SGP_TIMES, SGP_SWEEPS = 100_000, 1000, 50
+# [mesh2]/[mesh4]'s MEFISTO fits and their single-device references: 30
+# sweeps, so the refresh (after sweep 25) and the warp (after sweep 20) each
+# run once (cut from 100 dense and 50 sparse for the smoke's time limit)
+MESH_MEF_SWEEPS = 30
+# the dense mesh fits' ELBOs may lie this many times as far from one
+# device's as one device's own refit in another float32 order of its
+# feature sums (and always 1e-4)
+MEF_FLOOR_TIMES = 3
 # the width of the neighbour lists that drive T9's global-memory variant: 300
 # through pp.neighbors (and WNN's candidates), 256 for the kernel against plain
 WIDE_KK, WIDE_KK_KERNEL, WIDE_CELLS = 300, 256, 2_000
@@ -712,13 +741,16 @@ MESH_PATHS = {
                   "knn_ring_merge": 24, "smooth_knn_membership": 4, "knn_topk": 0,
                   "wnn_bandwidth_global": 0},
     # MOFA: every rank the launches of one device's fit (its blocks, the same
-    # loops), 50 full-batch sweeps or 50 SVI iterations; with the bernoulli
+    # loops), 25 full-batch sweeps or 25 SVI iterations; with the bernoulli
     # view T23 once a sweep
-    "mesh2_mofa": {k: 2 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
-    "mesh2_svi": {k: 2 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
-    "mesh4_mofa": {k: 4 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
-    "mesh4_lik": {**{k: 4 * v for k, v in mofa_launches(MOFA_SWEEPS).items()},
-                  "mofa_bound_refresh": 4 * MOFA_SWEEPS},
+    "mesh2_mofa": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
+    "mesh2_svi": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
+    "mesh4_mofa": {k: 4 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
+    "mesh4_lik": {**{k: 4 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
+                  "mofa_bound_refresh": 4 * MESH_MOFA_SWEEPS},
+    # MEFISTO: every rank the launches of one device's fit (the sparse path's
+    # K_mm and K_nm on its rows each sweep; the dense gp_K and the refresh's
+    # grid, gp_K and Kg steps replicated); filled in below gp_launches
 }
 # a kNN id may differ from the reference list's only where two neighbouring
 # distances of that list lie this close (relative); the sampled rows of the
@@ -3151,6 +3183,77 @@ def mefisto_data(seed: int = 0, n: int = MEF_N, n_times: int = MEF_TIMES, ds=MEF
     return t, cov, groups, Z.astype(np.float32), Ys
 
 
+# the MEFISTO fits of [mefisto], [mefisto-sparse] and the [mesh*] phases:
+# name -> (mefisto_data's options, fit_mofa's options)
+MEF_CASES = {
+    "mefisto": (dict(seed=5), {}),
+    "mefisto_groups": (dict(seed=5, rho=MEF_RHO), dict(model_groups=True)),
+    "mefisto_warp": (dict(seed=5, shift=MEF_SHIFT), dict(warping=True, warping_freq=MEF_WARP_FREQ)),
+    "mefisto_sparse": (dict(seed=6, n=SGP_N, n_times=SGP_TIMES), dict(sparse_gp=True)),
+}
+
+
+def mefisto_fit(tm, case, data, sweeps, elbo_every=1, **kw):
+    """``fit_mofa`` of a ``MEF_CASES`` fit on ``data`` (mefisto_data's
+    output), ``sweeps`` sweeps: K = MEF_K, the hyperparameters refreshed
+    every MEF_OPT sweeps from MEF_START, the ELBO recorded every
+    ``elbo_every``; ``kw`` adds the device or the mesh (and a callback)."""
+    _, cov, groups, _, Ys = data
+    cfg = tm.MOFAConfig(n_factors=MEF_K, likelihoods=("gaussian", "gaussian"))
+    return tm.fit_mofa(Ys, cfg, groups=groups, smooth_covariate=cov, n_iterations=sweeps,
+                       min_iterations=sweeps, convergence_mode="slow", elbo_every=elbo_every,
+                       smooth_opt_every=MEF_OPT, smooth_start_opt=MEF_START,
+                       **MEF_CASES[case][1], **kw)
+
+
+def mefisto_floor(res, ref) -> dict:
+    """How far the fit ``res`` lies from ``ref``: the largest relative gap
+    of their ELBOs, and of Kg of ``ref``'s active factors where they learn
+    one."""
+    out = {"elbo": float(np.max(np.abs(res.elbo_history - ref.elbo_history)
+                                / np.abs(ref.elbo_history)))}
+    if ref.gp_group_corr is not None:
+        keep = ref.Z.std(axis=0) > 0.05 * ref.Z.std(axis=0).max()
+        out["Kg"] = float(np.abs(res.gp_group_corr[keep] - ref.gp_group_corr[keep]).max())
+    return out
+
+
+def permuted_features(data, seed=SEED):
+    """``mefisto_data``'s output with each view's features in another
+    (seeded) order: the same model, its sums over the features in another
+    float32 order."""
+    rng = np.random.default_rng(seed)
+    return (*data[:4], [np.ascontiguousarray(Y[:, rng.permutation(Y.shape[1])])
+                        for Y in data[4]])
+
+
+def mefisto_mesh_reference(tm, cuda, work, cases=("mefisto_groups", "mefisto_warp",
+                                                  "mefisto_sparse")) -> None:
+    """What the [mesh*] MEFISTO fits are held to, saved to ``work``: the
+    single-device fit of each case at their depth (MESH_MEF_SWEEPS), its
+    ELBO trace, Z, ℓ, s, and its Kg and warped covariate where it has them;
+    for the dense GP besides, the float32-order floor (``mefisto_floor`` of
+    the same fit on ``permuted_features``)."""
+    for case in cases:
+        data = mefisto_data(**MEF_CASES[case][0])
+        res = mefisto_fit(tm, case, data, MESH_MEF_SWEEPS, device=cuda)
+        extra = {}
+        if not MEF_CASES[case][1].get("sparse_gp"):
+            floor = mefisto_floor(mefisto_fit(tm, case, permuted_features(data),
+                                              MESH_MEF_SWEEPS, device=cuda), res)
+            print(f"[mefisto-refs] {case}, {MESH_MEF_SWEEPS} sweeps: the same fit with each view's "
+                  f"features permuted lies {floor} from it", flush=True)
+            extra.update({f"floor_{k}": v for k, v in floor.items()})
+        if res.gp_group_corr is not None:
+            extra["Kg"] = res.gp_group_corr
+        if res.warped_covariates is not None:
+            extra["warped"] = res.warped_covariates
+        np.savez(f"{work}/{case}_single.npz", elbo=res.elbo_history, Z=res.Z,
+                 ell=res.gp_lengthscales, scale=res.gp_scales, **extra)
+        del data, res
+    torch.cuda.empty_cache()
+
+
 def refreshes(sweeps: int, start: int, every: int) -> int:
     """How many hyperparameter refreshes (or warps) ``sweeps`` sweeps run."""
     return sum(1 for it in range(1, sweeps + 1) if it >= start and it % every == 0)
@@ -3167,6 +3270,16 @@ def gp_launches(sweeps, n_ell, kg_steps=0, warps=0, sparse=False, K=MEF_K) -> di
     else:
         t24 = 1 + r * (n_ell + 1 + kg_steps) + warps
     return {"gp_rbf_kernel": t24, "gp_kg_grad": r * kg_steps, **mofa_launches(sweeps, 2, K)}
+
+
+MESH_PATHS.update({
+    "mesh2_mefisto_sparse": {k: 2 * v for k, v in
+                             gp_launches(MESH_MEF_SWEEPS, 10, sparse=True).items()},
+    "mesh4_mefisto_groups": {k: 4 * v for k, v in
+                             gp_launches(MESH_MEF_SWEEPS, 10, 10).items()},
+    "mesh4_mefisto_warp": {k: 4 * v for k, v in gp_launches(
+        MESH_MEF_SWEEPS, 10, warps=refreshes(MESH_MEF_SWEEPS, MEF_START, MEF_WARP_FREQ)).items()},
+})
 
 
 def phase_lik_kernels(tmo, Zp, Yb, Yp, cuda) -> dict:
@@ -3452,20 +3565,13 @@ def phase_mefisto(tm, tgp, kernels, profiling, cuda):
     anti-correlated groups and one with ``warping`` on a shifted clock."""
     n_ell = 10
     by_path = {}
-    kw = dict(n_iterations=MEF_SWEEPS, min_iterations=MEF_SWEEPS, convergence_mode="slow",
-              elbo_every=MEF_SWEEPS, smooth_opt_every=MEF_OPT, smooth_start_opt=MEF_START,
-              device=cuda)
-    cfg = tm.MOFAConfig(n_factors=MEF_K, likelihoods=("gaussian", "gaussian"))
-    for case, data_kw, fit_kw in (
-        ("mefisto", dict(), dict()),
-        ("mefisto_groups", dict(rho=MEF_RHO), dict(model_groups=True)),
-        ("mefisto_warp", dict(shift=MEF_SHIFT), dict(warping=True, warping_freq=MEF_WARP_FREQ)),
-    ):
-        t, cov, groups, Zp, Ys = mefisto_data(seed=5, **data_kw)
+    for case in ("mefisto", "mefisto_groups", "mefisto_warp"):
+        data_kw, fit_kw = MEF_CASES[case]
+        t, cov, groups, Zp, Ys = data = mefisto_data(**data_kw)
         kernels.reset_launch_counts()
         with profiling.collect() as st:
             t0 = time.perf_counter()
-            res = tm.fit_mofa(Ys, cfg, groups=groups, smooth_covariate=cov, **kw, **fit_kw)
+            res = mefisto_fit(tm, case, data, MEF_SWEEPS, elbo_every=MEF_SWEEPS, device=cuda)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
@@ -3502,7 +3608,7 @@ def phase_mefisto(tm, tgp, kernels, profiling, cuda):
                   f"step {step_t:.5f})", flush=True)
             check(np.median(err) <= step_t + 1e-6, "[mefisto] the warped covariate undoes the "
                                                   "shift within a grid step")
-        del Ys
+        del Ys, data
     torch.cuda.empty_cache()
     return by_path
 
@@ -3513,17 +3619,14 @@ def phase_mefisto_sparse(tm, kernels, profiling, cuda):
     min(1000, N) inducing cells, K = 10, 50 sweeps, under the stage timers
     (T24 against the Cholesky factors and solves)."""
     n_ell = 10
-    t, cov, groups, Zp, Ys = mefisto_data(seed=6, n=SGP_N, n_times=SGP_TIMES)
-    cfg = tm.MOFAConfig(n_factors=MEF_K, likelihoods=("gaussian", "gaussian"))
-    kw = dict(groups=groups, smooth_covariate=cov, sparse_gp=True, n_iterations=SGP_SWEEPS,
-              min_iterations=SGP_SWEEPS, convergence_mode="slow", elbo_every=SGP_SWEEPS,
-              smooth_opt_every=MEF_OPT, smooth_start_opt=MEF_START, device=cuda)
+    t, cov, groups, Zp, Ys = data = mefisto_data(**MEF_CASES["mefisto_sparse"][0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     with profiling.collect() as st:
         t0 = time.perf_counter()
-        res = tm.fit_mofa(Ys, cfg, **kw)
+        res = mefisto_fit(tm, "mefisto_sparse", data, SGP_SWEEPS, elbo_every=SGP_SWEEPS,
+                          device=cuda)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -3542,7 +3645,7 @@ def phase_mefisto_sparse(tm, kernels, profiling, cuda):
     check(np.isfinite(res.elbo_history).all() and np.isfinite(res.Z).all(),
           "[mefisto-sparse] the ELBO and Z finite")
     check(cc.min() > 0.9, "[mefisto-sparse] the planted trajectories' canonical correlations > 0.9")
-    del Ys
+    del Ys, data
     torch.cuda.empty_cache()
     return launches
 
@@ -5396,15 +5499,15 @@ def mesh_mofa_views(work, name):
 def mofa_mesh_reference(tm, Zp, Ys, cuda, work) -> None:
     """What [mesh2]/[mesh4]'s MOFA is held to: the bench's views, the planted
     Z, and the single-device fits from config.seed's draws (phase 17's) of
-    every ``MESH_MOFA`` case: 50 full-batch sweeps, 50 SVI iterations
-    (batch fraction 0.5), 50 sweeps beside [mofa-lik]'s bernoulli view,
+    every ``MESH_MOFA`` case: 25 full-batch sweeps, 25 SVI iterations
+    (batch fraction 0.5), 25 sweeps beside [mofa-lik]'s bernoulli view,
     every ELBO recorded."""
     for m, Y in enumerate(Ys):
         np.save(f"{work}/mofa_Y{m}.npy", Y)
     np.save(f"{work}/mofa_Yb.npy", mofa_lik_views(Zp)[0])
     np.save(f"{work}/mofa_Zp.npy", Zp)
-    kw = dict(n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, convergence_mode="slow",
-              elbo_every=1, device=cuda)
+    kw = dict(n_iterations=MESH_MOFA_SWEEPS, min_iterations=MESH_MOFA_SWEEPS,
+              convergence_mode="slow", elbo_every=1, device=cuda)
     out = {}
     for name, (liks, extra) in MESH_MOFA.items():
         cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=liks)
@@ -5446,8 +5549,8 @@ def mesh_mofa(mesh, work, kernels, profiling, tag, cases):
         del one
     del state, got
     torch.cuda.empty_cache()
-    kw = dict(n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS, convergence_mode="slow",
-              elbo_every=1, mesh=mesh)
+    kw = dict(n_iterations=MESH_MOFA_SWEEPS, min_iterations=MESH_MOFA_SWEEPS,
+              convergence_mode="slow", elbo_every=1, mesh=mesh)
     for name in cases:
         liks, extra = MESH_MOFA[name]
         cfg = tm.MOFAConfig(n_factors=MOFA_K, likelihoods=liks)
@@ -5461,7 +5564,7 @@ def mesh_mofa(mesh, work, kernels, profiling, tag, cases):
         launches.append(kernels.launch_counts())
         stages.update({f"MOFA {name} {k}": v for k, v in t.items()})
         e, e1 = res.elbo_history, ref[f"{name}_elbo"]
-        info[f"{name}_sweeps_per_s"] = MOFA_SWEEPS / wall
+        info[f"{name}_sweeps_per_s"] = MESH_MOFA_SWEEPS / wall
         info[f"{name}_elbo_rel"] = float(np.max(np.abs(e - e1) / np.abs(e1))) \
             if e.shape == e1.shape else None
         checks[f"{tag} MOFA {name}: every ELBO within 1e-4 of the single-device fit's"] = \
@@ -5474,6 +5577,97 @@ def mesh_mofa(mesh, work, kernels, profiling, tag, cases):
         info[f"{name}_r2_diff"] = float(np.abs(r2 - r2_1).max())
         checks[f"{tag} MOFA {name}: planted R² within 0.02 of the single-device fit's"] = \
             info[f"{name}_r2_diff"] <= 0.02
+    return launches, stages, info, checks
+
+
+def mesh_mefisto(mesh, work, kernels, profiling, tag, cases):
+    """``fit_mofa(smooth_covariate=..., mesh=)`` of the ``MEF_CASES`` fits of
+    ``cases`` at [mefisto]'s and [mefisto-sparse]'s full width,
+    MESH_MEF_SWEEPS sweeps, each counted alone; gates against the
+    single-device fits of ``mefisto_mesh_reference``: one sweep from the
+    whole initial state, every leaf within 1e-5 of its largest entry (the
+    dense GP's within 5e-4: its Woodbury solve conditions with N·p, so the
+    last bits of p and b, summed in another order, grow), the ELBO within
+    1e-4; then every ELBO within 1e-4 (the dense GP's within the larger of
+    1e-4 and MEF_FLOOR_TIMES times the float32-order floor measured beside
+    its reference), ℓ and s equal, Kg of the active factors within 1e-4, the
+    warped covariate within 1e-6, the planted trajectories' canonical
+    correlations > 0.9 where [mefisto*] gates them (else within 1e-3 of the
+    single device's)."""
+    from muon_tpu_torch.models import mofa as tm
+
+    cuda = mesh.device
+    info, checks, launches, stages = {}, {}, [], {}
+    for case in cases:
+        data = mefisto_data(**MEF_CASES[case][0])
+        Zp = data[3]
+        ref = np.load(f"{work}/{case}_single.npz")
+        sparse = bool(MEF_CASES[case][1].get("sparse_gp"))
+        # one sweep from the whole initial state as a callback sees it:
+        # sharded (every rank) and on one device (rank 0)
+        seen = {}
+        mefisto_fit(tm, case, data, 1, mesh=mesh,
+                    callback=lambda it, st, e: seen.update(mesh=(st, e)))
+        if mesh.rank == 0:
+            mefisto_fit(tm, case, data, 1, device=cuda,
+                        callback=lambda it, st, e: seen.update(one=(st, e)))
+            worst, leaf = leaf_error(seen["mesh"][0], seen["one"][0])
+            rel = abs(seen["mesh"][1] - seen["one"][1]) / abs(seen["one"][1])
+            tol = 1e-5 if sparse else 5e-4
+            info[f"{case}_sweep_leaf_err"] = [worst, leaf]
+            info[f"{case}_sweep_elbo_rel"] = rel
+            checks[f"{tag} {case}: one sharded sweep, every leaf within {tol} of its largest "
+                   "entry of the single-device sweep, the ELBO within 1e-4"] = \
+                worst <= tol and rel <= 1e-4
+        del seen
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        with profiling.collect() as t:
+            t0 = time.perf_counter()
+            res = mefisto_fit(tm, case, data, MESH_MEF_SWEEPS, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches.append(kernels.launch_counts())
+        stages.update({f"MEFISTO {case} {k}": v for k, v in t.items()})
+        info[f"{case}_wall"] = wall
+        info[f"{case}_sweeps_per_s"] = MESH_MEF_SWEEPS / wall
+        e, e1 = res.elbo_history, ref["elbo"]
+        info[f"{case}_elbo_rel"] = float(np.max(np.abs(e - e1) / np.abs(e1))) \
+            if e.shape == e1.shape else None
+        # the dense GP's fit moves by about 1e-4 under another float32 order
+        # of its feature sums alone: it is held to a few times that floor,
+        # measured in this run, and never tighter than 1e-4
+        etol = 1e-4
+        if "floor_elbo" in ref:
+            info[f"{case}_floor_elbo"] = float(ref["floor_elbo"])
+            etol = max(etol, MEF_FLOOR_TIMES * info[f"{case}_floor_elbo"])
+        checks[f"{tag} {case}: every ELBO within {etol:.3g} of the single-device fit's"] = \
+            e.shape == e1.shape and info[f"{case}_elbo_rel"] <= etol
+        for key, got in (("ell", res.gp_lengthscales), ("scale", res.gp_scales)):
+            apart = np.flatnonzero(got != ref[key]).tolist()
+            info[f"{case}_{key}_apart"] = {f: [float(got[f]), float(ref[key][f])] for f in apart}
+            checks[f"{tag} {case}: the chosen {key} of every factor equal to the "
+                   "single-device fit's"] = not apart
+        if "Kg" in ref:
+            keep = ref["Z"].std(axis=0) > 0.05 * ref["Z"].std(axis=0).max()
+            info[f"{case}_Kg_err"] = float(np.abs(res.gp_group_corr[keep] - ref["Kg"][keep]).max())
+            info[f"{case}_floor_Kg"] = float(ref["floor_Kg"])
+            checks[f"{tag} {case}: Kg of the active factors within 1e-4 of the single-device "
+                   "fit's"] = info[f"{case}_Kg_err"] <= 1e-4
+        if "warped" in ref:
+            info[f"{case}_warped_err"] = float(np.abs(res.warped_covariates - ref["warped"]).max())
+            checks[f"{tag} {case}: the warped covariate within 1e-6 of the single-device "
+                   "fit's"] = info[f"{case}_warped_err"] <= 1e-6
+        cc, cc1 = planted_cc(res.Z, Zp, cuda), planted_cc(ref["Z"], Zp, cuda)
+        info[f"{case}_planted_cc_min"] = [float(cc.min()), float(cc1.min())]
+        if case in ("mefisto", "mefisto_sparse"):
+            checks[f"{tag} {case}: the planted trajectories' canonical correlations > 0.9"] = \
+                float(cc.min()) > 0.9
+        else:
+            checks[f"{tag} {case}: the planted trajectories' canonical correlations within "
+                   "1e-3 of the single-device fit's"] = float(np.abs(cc - cc1).max()) <= 1e-3
+        del data, res
+        torch.cuda.empty_cache()
     return launches, stages, info, checks
 
 
@@ -5700,13 +5894,15 @@ def mesh_job2(mesh, work, kernels, profiling):
     wnn_launches, tw_, winfo, wchecks = mesh_wnn(mesh, work, kernels, profiling, "[mesh2]")
     mofa_launches, mstages, minfo, mchecks = mesh_mofa(mesh, work, kernels, profiling,
                                                        "[mesh2]", ("full", "svi"))
-    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages):
+    mef_launches, gstages, ginfo, gchecks = mesh_mefisto(mesh, work, kernels, profiling,
+                                                         "[mesh2]", ("mefisto_sparse",))
+    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages, gstages):
         t.update(part)
-    for part in (winfo, minfo):
+    for part in (winfo, minfo, ginfo):
         info.update(part)
-    for part in (wchecks, mchecks):
+    for part in (wchecks, mchecks, gchecks):
         checks.update(part)
-    launches = (launches, ivf_launches, wnn_launches, *mofa_launches)
+    launches = (launches, ivf_launches, wnn_launches, *mofa_launches, *mef_launches)
     if mesh.rank != 0:
         return launches, t, info, checks
     single = ti._update_centroids(X, ti.kmeans_assign(X, cent0), cent0)
@@ -5757,13 +5953,15 @@ def mesh_job4(mesh, work, kernels, profiling):
     wnn_launches, tw_, winfo, wchecks = mesh_wnn(grid, work, kernels, profiling, "[mesh4]")
     mofa_launches, mstages, minfo, mchecks = mesh_mofa(grid, work, kernels, profiling,
                                                        "[mesh4]", ("full", "lik"))
-    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages):
+    mef_launches, gstages, ginfo, gchecks = mesh_mefisto(
+        grid, work, kernels, profiling, "[mesh4]", ("mefisto_groups", "mefisto_warp"))
+    for part in ({f"WNN {k_}": v for k_, v in tw_.items()}, mstages, gstages):
         t.update(part)
-    for part in (winfo, minfo):
+    for part in (winfo, minfo, ginfo):
         info.update(part)
-    for part in (wchecks, mchecks):
+    for part in (wchecks, mchecks, gchecks):
         checks.update(part)
-    return (launches, wnn_launches, *mofa_launches), t, info, checks
+    return (launches, wnn_launches, *mofa_launches, *mef_launches), t, info, checks
 
 
 MESH_JOBS = {"mesh1": mesh_job1, "mesh2": mesh_job2, "mesh4": mesh_job4}
@@ -5850,10 +6048,11 @@ def phase_mesh(kernels, cuda, work):
     res = run_mesh("mesh2", 2, "gloo", work)
     if res is not None:
         (by_path["mesh2"], by_path["mesh2_1m"], by_path["mesh2_wnn"], by_path["mesh2_mofa"],
-         by_path["mesh2_svi"]) = res
+         by_path["mesh2_svi"], by_path["mesh2_mefisto_sparse"]) = res
     res = run_mesh("mesh4", 4, "gloo", work)
     if res is not None:
-        by_path["mesh4"], by_path["mesh4_wnn"], by_path["mesh4_mofa"], by_path["mesh4_lik"] = res
+        (by_path["mesh4"], by_path["mesh4_wnn"], by_path["mesh4_mofa"], by_path["mesh4_lik"],
+         by_path["mesh4_mefisto_groups"], by_path["mesh4_mefisto_warp"]) = res
     for path, want in MESH_PATHS.items():
         for name, count in want.items():
             got = by_path.get(path, {}).get(name, 0)
@@ -6069,6 +6268,7 @@ def run_all(work) -> int:
         save_wnn_inputs(tw, work, wnn_mods, wnn_rec, wnn_md)
         del wnn_mods, wnn_rec, wnn_md
         mofa_mesh_reference(tm, *mofa_bench_views(SEED), cuda, work)
+        mefisto_mesh_reference(tm, cuda, work)
         torch.cuda.empty_cache()
         if "mesh1" in phase_mesh(kernels, cuda, work):
             phase_mesh_kernels(cuda, work)
@@ -6183,6 +6383,7 @@ def run_all(work) -> int:
     results.update(phase_gp_kernels(tgp, cuda))
     mefisto_launches = phase_mefisto(tm, tgp, kernels, profiling, cuda)
     sgp_launches = phase_mefisto_sparse(tm, kernels, profiling, cuda)
+    mefisto_mesh_reference(tm, cuda, work)
 
     t0 = time.perf_counter()
     rep, big_labels = make_big_rep(SEED)

@@ -20,7 +20,7 @@ Leiden/Louvain (``tl.leiden``, ``tl.louvain``, on the host through the
 port's own native engine), UMAP (``tl.umap``, and ``ops.umap.umap_embed``
 of an asymmetric graph) and MOFA+ with gaussian, bernoulli and poisson
 views, spike-slab factors and MEFISTO's smooth factors, full-batch and
-stochastic (``tl.mofa``, ``models.mofa.fit_mofa``; not ``mesh``), marker
+stochastic (``tl.mofa``, ``models.mofa.fit_mofa``, over a ``mesh`` too), marker
 ranking (``tl.rank_genes_groups``: t-test, t-test_overestim_var, wilcoxon,
 logreg; ``atac.tl.rank_peaks_groups``), similarity network fusion
 (``tl.snf``), ICA (``tl.ica``), scOpen's imputation (``atac.pp.scopen``), the

@@ -18,8 +18,8 @@ writes the model file.
 ``mesh`` (given or through ``set_options``) trains over a device mesh
 (``fit_mofa(mesh=)``). The reference pads obs to a multiple of the mesh's
 cells axis with NaN rows, a fixed-shape need of the TPU; the port's blocks
-may differ in length, so it pads nothing. MEFISTO's smooth factors over a
-mesh are not ported yet and raise in ``fit_mofa``.
+may differ in length, so it pads nothing, MEFISTO's smooth factors
+included.
 """
 
 from __future__ import annotations

@@ -38,8 +38,13 @@ rank holds its block of the state (``parallel.shard_mofa_state``: Z over
 "cells", W and τ over "feat", E on both) and runs the same kernels on it;
 the sums the reference's XLA made across devices are the all-reduces of a
 :class:`Reducer`: over cells for every sum over the cells, over feat for
-every sum over the features. MEFISTO's smooth factors over a mesh are not
-ported yet, and refused by name.
+every sum over the features. MEFISTO's smooth factors run over a mesh too:
+the GP fields are made whole and cut with the rest (the sparse GP's
+covariates over cells, the dense GP's ``gp_K`` and everything of the
+inducing points replicated); the sparse posterior sums its two inducing-point
+products over cells, the dense one gathers p and b and solves whole on every
+rank; the hyperparameter refresh and the warp run replicated on Z gathered
+over cells.
 """
 
 from __future__ import annotations
@@ -103,6 +108,21 @@ class Reducer:
 
     def all(self, t: torch.Tensor) -> torch.Tensor:
         return self._sum(self._sum(t, "cells"), "feat")
+
+    def gather_cells(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's rows of ``t``, of ``n`` rows cut over cells, stacked
+        with every other rank's into the whole; ``t`` itself without a
+        mesh."""
+        if self.mesh is None:
+            return t
+        from ..parallel.comm import all_gather_rows
+
+        return all_gather_rows(t, self.mesh, self.mesh.lengths(n, "cells"))
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of ``n`` cut over cells (all of them without a
+        mesh)."""
+        return slice(None) if self.mesh is None else slice(*self.mesh.block(n, "cells"))
 
 
 NO_MESH = Reducer()
@@ -268,13 +288,19 @@ def _ssz_posterior(ssz_on, thz_gap, ln_az_cell, Zhat, Zvhat, ZS):
     return posterior
 
 
-def _dense_gp_posterior(gp_K):
+def _dense_gp_posterior(gp_K, red=NO_MESH):
     """MEFISTO's smooth factor: q(z_k) = N(Σb, Σ) with Σ = (K_k⁻¹ + diag p)⁻¹,
     by the Woodbury form Σ = K − KS(I + SKS)⁻¹SK (S = diag √p): one (N, N)
-    Cholesky factor and one triangular solve, no K⁻¹."""
-    eye = torch.eye(gp_K.shape[-1], dtype=gp_K.dtype, device=gp_K.device)
+    Cholesky factor and one triangular solve, no K⁻¹. Over a mesh ``gp_K``
+    is whole on every rank and p, b are this rank's cells: both are gathered
+    over cells, every rank solves the whole system, and keeps its rows."""
+    N = gp_K.shape[-1]
+    eye = torch.eye(N, dtype=gp_K.dtype, device=gp_K.device)
+    rows = red.rows(N)
 
     def posterior(k, p, b):
+        pb = red.gather_cells(torch.stack([p, b], dim=1), N)
+        p, b = pb[:, 0].contiguous(), pb[:, 1].contiguous()
         Kk = gp_K[k]
         sq = torch.sqrt(p)
         with stage("mofa/gp_solve"):
@@ -282,12 +308,12 @@ def _dense_gp_posterior(gp_K):
             V = torch.linalg.solve_triangular(L, sq[:, None] * Kk, upper=False)  # L⁻¹SK
             z_new = Kk @ b - V.T @ (V @ b)
             v_new = torch.clamp(torch.diagonal(Kk) - (V * V).sum(dim=0), min=1e-8)
-        return z_new, v_new
+        return z_new[rows], v_new[rows]
 
     return posterior
 
 
-def _sparse_gp_posterior(state):
+def _sparse_gp_posterior(state, red=NO_MESH):
     """The sparse (inducing-point) GP in its SGPR form: with
     Σ = K_mm + K_mn diag(p) K_nm, E[z] = K_nm Σ⁻¹ K_mn b and
     Var[z] = k_ii − diag(Nyström) + diag(K_nm Σ⁻¹ K_mm Σ⁻¹ K_mn). K_mm and
@@ -300,7 +326,12 @@ def _sparse_gp_posterior(state):
     factored as L_m B L_mᵀ with L_m = chol(K_mm), C = L_m⁻¹ K_mn and
     B = I + C diag(p) Cᵀ, whose eigenvalues are all ≥ 1 (GPflow's SGPR):
     E[z] = Cᵀ B⁻¹ C b, diag(Nyström) = ‖cᵢ‖², and the last term
-    ‖B⁻¹ cᵢ‖². The same algebra, another order of roundings."""
+    ‖B⁻¹ cᵢ‖². The same algebra, another order of roundings.
+
+    Over a mesh ``gp_cov``/``gp_g`` (and p, b) are this rank's cells and the
+    inducing points whole: K_nm and C hold the rank's columns, so
+    C·diag(p)·Cᵀ and C·b are partial sums, added over cells in one
+    all-reduce of the two stacked, before the identity joins B."""
     cn, cu = state["gp_cov"], state["gp_cov_u"]
     gn, gu = state["gp_g"], state["gp_g_u"]
     Kg = state.get("gp_Kg")
@@ -313,10 +344,12 @@ def _sparse_gp_posterior(state):
             Knm = gp.rbf_kernel(cn, cu, ell, sc, gn, gu, Kg_k)[0]
         with stage("mofa/gp_solve"):
             C = torch.linalg.solve_triangular(torch.linalg.cholesky(Kmm), Knm.T, upper=False)
-            B = (C * p[None, :]) @ C.T
+            M = C.shape[0]
+            Bc = red.cells(torch.cat([(C * p[None, :]) @ C.T, (C @ b)[:, None]], dim=1))
+            B, cb = Bc[:, :M], Bc[:, M:]
             B.diagonal().add_(1.0)
             LB = torch.linalg.cholesky(B)
-            z_new = C.T @ torch.cholesky_solve((C @ b)[:, None], LB)[:, 0]
+            z_new = C.T @ torch.cholesky_solve(cb, LB)[:, 0]
             D = torch.cholesky_solve(C, LB)                          # B⁻¹ C
             v_new = torch.clamp(1.0 + gp.JITTER - (C * C).sum(dim=0) + (D * D).sum(dim=0),
                                 min=1e-8)
@@ -464,9 +497,9 @@ def make_step(config: MOFAConfig, Ds: Sequence[int], N: int, masked: Sequence[bo
                     state["ssz_on"], Gh @ (state["theta_z_ln"] - state["theta_z_ln1m"]),
                     Gh @ state["ln_alpha_z"], Zhat, Zvhat, ZS)
             elif smooth and sparse_gp:
-                posterior = _sparse_gp_posterior(state)
+                posterior = _sparse_gp_posterior(state, red)
             elif smooth:
-                posterior = _dense_gp_posterior(state["gp_K"])
+                posterior = _dense_gp_posterior(state["gp_K"], red)
             _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior, red)
 
         with stage("mofa/moments"):
@@ -1182,8 +1215,8 @@ def fit_mofa(
     ranks starts where the single-device fit starts. The SVI batches are
     drawn on every rank from one generator, each rank taking the batch's
     rows in its cells. A callback and a checkpoint see the gathered state
-    (rank 0 writes the file). MEFISTO's smooth factors over a mesh are
-    refused by name."""
+    (rank 0 writes the file). MEFISTO's smooth factors train over a mesh
+    too (every mode but SVI, which is refused with or without one)."""
     from .._core.config import resolve_mesh
 
     mesh, device = resolve_mesh(mesh, device)
@@ -1242,12 +1275,6 @@ def fit_mofa(
             raise NotImplementedError(
                 "warping is only supported for 1-D covariates"
             )
-    # what this port leaves out, by name
-    if smooth and mesh is not None:
-        raise NotImplementedError(
-            "smooth_covariate with a mesh: MEFISTO's smooth factors over a device mesh, the "
-            "GP part of K20's MOFA step, are not ported yet (ROADMAP.md)"
-        )
 
     Ds_all = [Y.shape[1] for Y in Ys]
     if svi_mode:
@@ -1270,17 +1297,9 @@ def fit_mofa(
         else:
             state = _init_state(Ys, masks, onehot, config, liks, keep_data=svi_mode,
                                 Z0=Z0, W0=W0, device=device)
-    if mesh is not None:
-        from ..parallel.mesh import gather_mofa_state, grid_sharding, shard_mofa_state
-
-        with stage("mofa/shard"):
-            state = shard_mofa_state(state, mesh)
-        lo, hi = mesh.block(N, "cells")
-
-    def whole(st):
-        """The state a callback or a checkpoint sees: the whole one."""
-        return st if mesh is None else gather_mofa_state(st, mesh, N, Ds_all)
-
+    # the GP fields are made whole, as every rank holds the whole inputs,
+    # and cut with the rest of the state below; the host keeps the whole
+    # covariate for the warp and the result
     gp_ell = gp_scale = gp_cov = None
     if smooth:
         with stage("mofa/gp_init"):
@@ -1299,6 +1318,7 @@ def fit_mofa(
             gp_scale = torch.full((config.n_factors,), 0.5, dtype=F32, device=device)
             gvec = _leaf_to_tensor(groups.astype(np.float32), device)
             if sparse_gp:
+                # global row ids of the inducing cells
                 idx_u = torch.from_numpy(_inducing_points(
                     gp_cov[:, 0].cpu().numpy(), groups, N, frac_inducing)).to(device)
                 if "gp_cov_u" not in state:
@@ -1321,6 +1341,24 @@ def fit_mofa(
         gp_Kg = gp.normalize_kg(gp_Xg)
         if sparse_gp:
             state["gp_Kg"] = gp_Kg
+    if mesh is not None:
+        from ..parallel.mesh import (cells_sharding, gather_mofa_state, grid_sharding,
+                                     shard_mofa_state)
+
+        with stage("mofa/shard"):
+            state = shard_mofa_state(state, mesh)
+        lo, hi = mesh.block(N, "cells")
+
+    def whole(st):
+        """The state a callback or a checkpoint sees: the whole one."""
+        return st if mesh is None else gather_mofa_state(st, mesh, N, Ds_all)
+
+    def whole_z():
+        """Z_mean and Z_var of every cell (gathered over cells on a mesh):
+        the hyperparameter refresh runs on them replicated (the warp on
+        Z_mean alike), so every rank reaches the same ℓ, s, Kg and
+        covariate."""
+        return red.gather_cells(state["Z_mean"], N), red.gather_cells(state["Z_var"], N)
 
     def save(it):
         from .checkpoint import save_state
@@ -1416,25 +1454,26 @@ def fit_mofa(
         state, elbo = step(state)
         it += 1
         if warping and it >= smooth_start_opt and it % warping_freq == 0:
+            Zm_all = red.gather_cells(state["Z_mean"], N)
             with stage("mofa/warp(host)"):
                 cov_np = _warp_groups(
-                    gp_cov[:, 0].cpu().numpy(), groups,
-                    state["Z_mean"].double().cpu().numpy(), int(warping_ref),
-                    warping_open_begin, warping_open_end,
+                    gp_cov[:, 0].cpu().numpy(), groups, Zm_all.double().cpu().numpy(),
+                    int(warping_ref), warping_open_begin, warping_open_end,
                 )
                 gp_cov = _leaf_to_tensor(cov_np.astype(np.float32)[:, None], device)
                 if sparse_gp:
-                    state["gp_cov"] = gp_cov
+                    state["gp_cov"] = gp_cov if mesh is None else cells_sharding(mesh).take(gp_cov)
                     state["gp_cov_u"] = gp_cov[idx_u]
                 else:
                     state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec, gp_Kg)
         if smooth and it >= smooth_start_opt and it % smooth_opt_every == 0:
+            Zm_all, Zv_all = whole_z()
             with stage("mofa/gp_hyper"):
                 if sparse_gp:
                     # the grid and Kg on the inducing cells (every group is
                     # represented there by construction)
                     cu, gu = state["gp_cov_u"], state["gp_g_u"]
-                    Zu, Zvu = state["Z_mean"][idx_u], state["Z_var"][idx_u]
+                    Zu, Zvu = Zm_all[idx_u], Zv_all[idx_u]
                     gp_ell, gp_scale = gp.gp_hyper(cu, Zu, Zvu, ell_grid, scale_grid, gu)
                     state["gp_ell"] = gp_ell
                     state["gp_scale"] = gp_scale
@@ -1444,11 +1483,11 @@ def fit_mofa(
                 else:
                     # (ℓ, s) by the grid under the independent-groups kernel,
                     # then Kg's steps with (ℓ, s) fixed
-                    gp_ell, gp_scale = gp.gp_hyper(gp_cov, state["Z_mean"], state["Z_var"],
-                                                   ell_grid, scale_grid, gvec)
+                    gp_ell, gp_scale = gp.gp_hyper(gp_cov, Zm_all, Zv_all, ell_grid, scale_grid,
+                                                   gvec)
                     if learn_kg:
-                        gp_Xg, gp_Kg = gp.gp_group(gp_cov, state["Z_mean"], state["Z_var"],
-                                                   gp_ell, gp_scale, gvec, gp_Xg)
+                        gp_Xg, gp_Kg = gp.gp_group(gp_cov, Zm_all, Zv_all, gp_ell, gp_scale,
+                                                   gvec, gp_Xg)
                     state["gp_K"] = gp.kernel_matrices(gp_cov, gp_ell, gp_scale, gvec, gp_Kg)
         if callback is not None and it % elbo_every == 0:
             callback(it, whole(state), float(elbo))

@@ -28,10 +28,8 @@ are; a gloo group stages them through pinned host memory
 (``comm/stage(host)``), so every rank can share one card, as the tests and
 ``chip_smoke.py`` run it. No multi-GPU measurement has been taken.
 
-Not ported yet (ROADMAP.md): MEFISTO's smooth factors over a mesh
-(``fit_mofa(smooth_covariate=..., mesh=...)`` raises). ``dryrun_multichip``
-(``parallel/dryrun.py``) runs the sharded MOFA sweep, the pipeline and the
-public tools with WNN on a mesh.
+``dryrun_multichip`` (``parallel/dryrun.py``) runs the sharded MOFA sweep,
+the pipeline and the public tools with WNN on a mesh.
 """
 
 from .dryrun import dryrun_multichip, dryrun_on_mesh

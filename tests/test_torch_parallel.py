@@ -33,8 +33,14 @@ Tolerances, each with its reason:
   the reference's quality gate and to itself bit for bit.
 * the public tools with ``mesh=`` and under ``set_options(mesh=...)``
   against their single-device results, as TestPublicAPIMesh does.
+* ``tl.umap(mesh=)`` against the reference's: its default a and b equal
+  (one scipy fit in both), the spectral seed (each package draws its own
+  test matrix) by its scale and the planted clusters' separation, as
+  tests/test_torch_umap.py holds it; a caller's a and b by the port's
+  layout equal to ``sharded_umap_embed``'s with them.
 """
 
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +56,7 @@ LSI_K, LSI_ITERS = 6, 10
 KNN_K = 10
 IVF_K, IVF_CLUSTERS, IVF_STEPS = 15, 12, 8
 UMAP_EPOCHS, UMAP_RS, UMAP_NEG = 100, 0, 5
+UMAP_A, UMAP_B = 1.2, 0.7  # a caller's curve, away from find_ab_params' defaults
 
 
 class Holder:
@@ -127,6 +134,45 @@ def _put_csr(d, key, X):
               f"{key}_indptr": X.indptr, f"{key}_shape": np.array(X.shape)})
 
 
+def _tl_umap_cases(umap, make, G, X, mesh, owners):
+    """``tl.umap(mesh=)`` of the graph ``G`` in a container made by ``make``:
+    with its defaults and with a caller's a and b; the layouts, the a and b
+    written to ``uns``, and the spectral seed of the default run (recorded
+    where the modules ``owners`` call ``spectral_init``)."""
+    out = {}
+    with _recording_seeds(owners) as seeds:
+        for tag, ab in (("default", {}), ("given", dict(a=UMAP_A, b=UMAP_B))):
+            h = make(X)
+            h.obsp["connectivities"] = G
+            h.uns["neighbors"] = {"connectivities_key": "connectivities"}
+            umap(h, maxiter=UMAP_EPOCHS, random_state=UMAP_RS, mesh=mesh, **ab)
+            out[f"tlumap_{tag}"] = np.asarray(h.obsm["X_umap"])
+            params = h.uns["umap"]["params"]
+            out[f"tlumap_{tag}_ab"] = np.array([params["a"], params["b"]], np.float64)
+    out["tlumap_seed"] = seeds[0]
+    return out
+
+
+@contextmanager
+def _recording_seeds(owners):
+    """``spectral_init`` wrapped where the modules ``owners`` call it; yields
+    the list of what it returns."""
+    real, seeds = owners[0].spectral_init, []
+
+    def recording(*args, **kw):
+        emb = real(*args, **kw)
+        seeds.append(np.array(emb))
+        return emb
+
+    for m in owners:
+        m.spectral_init = recording
+    try:
+        yield seeds
+    finally:
+        for m in owners:
+            m.spectral_init = real
+
+
 # ---------------------------------------------------------------------------
 # the rank worker (no JAX)
 # ---------------------------------------------------------------------------
@@ -139,6 +185,8 @@ def _rank_main(rank, P, store, workdir):
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch import set_options
     from muon_tpu_torch import tl as ttl
+    from muon_tpu_torch.ops import umap as tu
+    from muon_tpu_torch.parallel import pipeline as tpipe
     from muon_tpu_torch.parallel.pipeline import SHARDED_TAG, row_block, sharded_kmeans
 
     torch.set_num_threads(1)
@@ -207,6 +255,10 @@ def _rank_main(rank, P, store, workdir):
         out["public_umap"] = h.obsm["X_umap"]
         out["public_umap_direct"] = tpar.sharded_umap_embed(
             h.obsp["connectivities"], mesh, n_epochs=UMAP_EPOCHS, random_state=UMAP_RS)
+        out.update(_tl_umap_cases(ttl.umap, Holder, G, f["umap_X"], mesh, [tu, tpipe]))
+        if P > 1:
+            out["tlumap_given_direct"] = tpar.sharded_umap_embed(
+                G, mesh, n_epochs=UMAP_EPOCHS, random_state=UMAP_RS, a=UMAP_A, b=UMAP_B)
         np.savez(Path(workdir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -306,6 +358,12 @@ def run(request, tmp_path_factory):
     G = umap_graph()
     emb0 = np.random.default_rng(3).uniform(-10, 10, (G.shape[0], 2)).astype(np.float32)
     ref["umap_epoch"], negs = _jax_umap_one_epoch(G, mesh, emb0, P)
+    import muon_tpu as mu
+    import muon_tpu.ops.umap as jumap
+
+    with jax.enable_x64(False):
+        ref.update(_tl_umap_cases(mu.tl.umap, lambda X: mu.AnnData(X=X), G, umap_points()[0],
+                                  mesh, [jumap]))
 
     inputs = {"omega": omega, "knn_Z": Zk, "ivf_Z": Zi, "kmeans_cents": ref["kmeans_cents"],
               "ivf_small": small, "umap_emb0": emb0, "umap_negs": negs,
@@ -490,6 +548,36 @@ def test_public_umap_under_set_options(run):
     assert _same_over_other(emb, umap_points()[1]) < 0.6
     if run["P"] > 1:  # a mesh of one rank takes the single-device path
         np.testing.assert_array_equal(emb, port["public_umap_direct"])
+
+
+def test_public_umap_defaults_match_reference(run):
+    # tl.umap(mesh=) with its defaults: the reference's a and b, and a
+    # spectral seed at scale 10 that separates the planted clusters as the
+    # reference's seed does (each draws its own test matrix)
+    port, ref = run["port"], run["ref"]
+    np.testing.assert_array_equal(port["tlumap_default_ab"], ref["tlumap_default_ab"])
+    labels = umap_points()[1]
+    got, want = port["tlumap_seed"], ref["tlumap_seed"]
+    assert got.shape == want.shape == (1200, 2)
+    assert np.abs(got).max() == pytest.approx(10.0, rel=1e-3)
+    r_got, r_ref = _same_over_other(got, labels), _same_over_other(want, labels)
+    assert r_ref < 0.8 and r_got < max(0.8, 1.3 * r_ref), (r_got, r_ref)
+    assert _same_over_other(port["tlumap_default"], labels) < 0.6
+
+
+def test_public_umap_takes_the_callers_a_and_b(run):
+    # the port's epochs run on a caller's a and b, which it writes to uns;
+    # the reference writes them to uns too, but its mesh branch drops them
+    # (muon_tpu/_core/tools_graph.py:399-412): its layout is its defaults'
+    port, ref = run["port"], run["ref"]
+    for got in (port, ref):
+        np.testing.assert_array_equal(got["tlumap_given_ab"], [UMAP_A, UMAP_B])
+    assert not np.array_equal(port["tlumap_given"], port["tlumap_default"])
+    if run["P"] > 1:
+        np.testing.assert_array_equal(port["tlumap_given"], port["tlumap_given_direct"])
+        np.testing.assert_array_equal(ref["tlumap_given"], ref["tlumap_default"])
+    else:  # one device: the reference's single-device path takes them too
+        assert not np.array_equal(ref["tlumap_given"], ref["tlumap_default"])
 
 
 # ---------------------------------------------------------------------------

@@ -225,12 +225,6 @@ def _rank_main(rank, P, store, workdir):
             out[f"fit_{name}:r2"] = res.r2_per_factor[0]
         for tag, m in (("single", None), ("mesh", mesh)):
             out[f"tl_{tag}"] = _tl_mofa(m, Path(workdir) / f"model_{tag}_{rank}.hdf5")
-        try:
-            tm.fit_mofa(fit_cases()["full"][0], tm.MOFAConfig(n_factors=2), n_iterations=2,
-                        smooth_covariate=np.linspace(0, 1, 96), mesh=mesh, device=CPU)
-            out["mefisto_refusal"] = np.array("")
-        except NotImplementedError as e:
-            out["mefisto_refusal"] = np.array(str(e))
         np.savez(Path(workdir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -352,15 +346,6 @@ def test_tl_mofa_under_set_options(run):
     port = run["port"]
     assert port["tl_mesh"].shape == (485, 4)
     np.testing.assert_allclose(port["tl_mesh"], port["tl_single"], rtol=1e-2, atol=1e-3)
-
-
-def test_mefisto_over_a_mesh_is_refused_by_name(run):
-    msg = str(run["port"]["mefisto_refusal"])
-    if run["P"] == 1:  # a mesh of one rank takes the single-device path
-        assert msg == ""
-    else:
-        assert "MEFISTO's smooth factors over a device mesh" in msg
-        assert "GP part of K20's MOFA step" in msg
 
 
 def test_dryrun_multichip_on_the_cpu(capfd):
