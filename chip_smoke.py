@@ -1013,9 +1013,14 @@ def phase_kernels(dsp, dX, cuda) -> dict:
     dT = dX._replace(data=out)  # the TF-IDF matrix the products see on the path
     dA = dT._replace(data=out.abs())
     sT = torch_csr(dT)
-    sTt = torch_csr(dsp.from_scipy(sp.csr_matrix(
-        (out.cpu().numpy(), dX.indices.cpu().numpy(), dX.indptr.cpu().numpy()),
-        shape=dX.shape).T.tocsr(), cuda))
+    # T3 runs over the CSR of Xᵀ, built once per matrix; the library call
+    # over the same CSR, as torch.sparse.mm takes it
+    Xt = dsp.transpose(dT)
+    sTt = torch_csr(Xt.csr)
+    transpose_ms = median_ms(lambda: dsp.transpose(dT))
+    print(f"[kernel] transpose (sparse/transpose, torch: argsort, gathers, the piece table) "
+          f"{dT.n_rows}x{dT.n_cols} nnz={dT.nnz}: ms={transpose_ms:.3f} pieces={Xt.n_pieces}",
+          flush=True)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         V = torch.randn((N_PEAKS, L), generator=gen, device=cuda).to(dtype)
         out = dsp.spmm(dT, V)
@@ -1029,15 +1034,18 @@ def phase_kernels(dsp, dX, cuda) -> dict:
                (lambda: torch.sparse.mm(sT, V)) if tag == "f32" else None)
 
         Y = torch.randn((N_CELLS, L), generator=gen, device=cuda).to(dtype)
-        out = dsp.spmm_t(dT, Y)
+        out = dsp.spmm_t(dT, Y, Xt)
         torch.cuda.synchronize()
+        # the error against the scatter over X's entries, which needs no
+        # transpose; the plain time is the gather over Xt's rows
         diff = (out - dsp.spmm_t_plain(dT, Y)).abs()
         tol_ = 1e-5 * dsp.spmm_t_plain(dA, Y.float().abs())
         record(f"csr_spmm_t_{tag}", diff.max().item(), bool((diff <= tol_).all()),
-               "1e-5 x |X|^T.|B|", lambda: dsp.spmm_t(dT, Y),
-               lambda: dsp.spmm_t_plain(dT, Y),
-               bound(csr_bytes(dT) + nbytes(Y, out), 2 * dT.nnz * L, F32_OPS_PER_S),
+               "1e-5 x |X|^T.|B|", lambda: dsp.spmm_t(dT, Y, Xt),
+               lambda: dsp.spmm_t_plain(dT, Y, Xt),
+               bound(csr_bytes(Xt.csr) + nbytes(Y, out), 2 * dT.nnz * L, F32_OPS_PER_S),
                (lambda: torch.sparse.mm(sTt, Y)) if tag == "f32" else None)
+        check(torch.equal(dsp.spmm_t(dT, Y, Xt), out), f"csr_spmm_t_{tag} gives the same bits twice")
 
     V = torch.randn((N_PEAKS, L), generator=gen, device=cuda)
     out = dsp.gram_matmul(dT, V)
@@ -1091,13 +1099,18 @@ def phase_atac_path(tac, tpp, dsp, tla, kernels, X, cuda):
     launches = kernels.launch_counts()
     # the side run: the gather rSVD, which lsi takes below 2M nonzeros, on
     # the same matrix; its launches are counted apart from the path's
+    from muon_tpu_torch.utils import profiling
+
     kernels.reset_launch_counts()
-    _, s_gather, _ = tla.randomized_svd(h.X, k=K, n_iter=N_ITER, seed=SEED,
-                                        method="gather", device=cuda)
+    with profiling.collect() as t:
+        _, s_gather, _ = tla.randomized_svd(h.X, k=K, n_iter=N_ITER, seed=SEED,
+                                            method="gather", device=cuda)
     torch.cuda.synchronize()
     gather_launches = kernels.launch_counts()
     print(f"[atac] container=Holder launches by tfidf+lsi+neighbors {launches}; "
           f"by the gather rSVD {gather_launches}", flush=True)
+    print("[atac] gather rSVD stages: " + ", ".join(
+        f"{k} {sum(v):.4f}s" for k, v in t.items()), flush=True)
     check(tla._blocks_profitable(N_CELLS, N_PEAKS, X.nnz, L), "XtX path chosen by auto")
     for name in ATAC_PATH:
         check(launches[name] > 0, f"the ATAC path launched {name}")

@@ -29,13 +29,13 @@
 // where masked), T20 reads and writes E once (and reads B), T18 touches a few
 // vectors of D floats. At the bench's 10,000 x 3000 a pass over E is 120 MB,
 // 36 us at 3.35 TB/s; E does not fit the 50 MB L2, so every pass comes from
-// device memory. The simple designs here read with one 4-byte load a thread,
-// neighbouring threads on neighbouring columns; T20, which a sweep launches
-// most, takes 16 bytes a thread where the shapes allow.
+// device memory. T17 and T20 take 16 bytes a thread where the shapes allow;
+// T19 reads with one 4-byte load a thread, neighbouring threads on
+// neighbouring columns.
 //
-// Order of sums: T17 sums each tile of kTileRows rows by 8 row lanes and a
-// tree, then the tiles in index order; T19 gives a row to a warp, each lane
-// summing every 32nd column in order, then a butterfly. No atomics: the same
+// Order of sums: T17 sums each tile of 256 rows by 8 row lanes and a tree,
+// then the tiles in index order; T19 gives a row to a warp, each lane summing
+// every 32nd column in order, then a butterfly. No float atomics: the same
 // inputs give the same bits in every run.
 //
 // Vectors may be strided views (column k of a row-major (N, K) or (D, K)
@@ -47,62 +47,204 @@
 // nothing, and returns cudaGetLastError(). Outputs and scratch are
 // allocated by the caller.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileRows = 256;  // rows per partial sum of T17; ops/mofa.py
-constexpr int kColLanes = 32;   // columns per pass-1 block of T17
-constexpr int kRowLanes = 8;    // row lanes per column in pass 1 of T17
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-// T17 pass 1: partial[tile, c] = sum over the tile's rows of z[r] E[r, c]
-// (z given) or of E[r, c]^2 (z null)
-__global__ void __launch_bounds__(kColLanes * kRowLanes)
-col_dot_partial_kernel(const float* __restrict__ E, const float* __restrict__ z,
-                       int64_t z_stride, int n, int d, float* __restrict__ partial) {
-  __shared__ float acc[kRowLanes][kColLanes];
-  const int c = blockIdx.y * kColLanes + threadIdx.x;
-  const int r0 = blockIdx.x * kTileRows;
-  const int r1 = min(r0 + kTileRows, n);
-  float s = 0.f;
-  if (c < d) {
-    if (z != nullptr) {
-      for (int r = r0 + threadIdx.y; r < r1; r += kRowLanes)
-        s = fmaf(z[(int64_t)r * z_stride], E[(int64_t)r * d + c], s);
-    } else {
-      for (int r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
-        const float e = E[(int64_t)r * d + c];
-        s = fmaf(e, e, s);
-      }
-    }
-  }
-  acc[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-#pragma unroll
-  for (int h = kRowLanes / 2; h > 0; h >>= 1) {
-    if (threadIdx.y < h)
-      acc[threadIdx.y][threadIdx.x] =
-          __fadd_rn(acc[threadIdx.y][threadIdx.x], acc[threadIdx.y + h][threadIdx.x]);
-    __syncthreads();
-  }
-  if (threadIdx.y == 0 && c < d) partial[(int64_t)blockIdx.x * d + c] = acc[0][threadIdx.x];
+// T17: u[c] = sum_r z[r] E[r, c] (z given) or sum_r E[r, c]^2 (z null),
+// summed in one fixed order, which depends on n alone: per tile of 256
+// rows, row lane y (of 8) takes rows y, y + 8, ... of the tile in turn by
+// fmaf, the lanes meet by a fixed tree (lane y + lane y + 4, then + 2, then
+// + 1) into partial[tile, c], and the tiles are added in index order from
+// 0. This is the order of the port's first T17 (two 4-byte launches), kept
+// bit for bit, so the MOFA fits repeat theirs to the last bit.
+// The memory access is new. A (32 x 8) block takes a run of tiles, so that
+// the grid is about one wave of 4 blocks on each of 132 SMs, and a strip of
+// at most 32 groups of V columns (the d / V groups dealt evenly to the
+// strips): thread (x, y) owns columns c .. c + V - 1 (V = 4: one 16-byte
+// load a row, so a warp reads up to 512 contiguous bytes of a row) and has
+// kCdUnroll of its 32 rows in flight before their FMAs. A warp reads the z
+// values of its 32 rows with one load, a lane each, into a register and
+// hands them out by shuffles (z is a strided column of Zm, or a broadcast):
+// no block barrier stalls the stream of E. The 4-byte variant (V = 1: d %
+// 4 != 0 or E's base not 16-byte aligned) takes the same rows in the same
+// order. The finish: the last block of a strip to write its partial, known
+// by an acquire-release add to a per-strip counter, adds the strip's tiles
+// (kCdChunk at a time through shared memory, the next chunk in flight) and
+// resets the counter to 0 for the next call, so the counters must not be
+// shared by two calls in flight (the port runs one stream a device). This
+// one launch beat a second finish kernel of one block a strip, timed in
+// turns beside it: 0.0481-0.0492 ms against 0.0494-0.0501 at 10,000 x 3000,
+// 0.0278-0.0286 against 0.0295-0.0301 at 50,000 x 256 (H100 80GB HBM3,
+// 700 W), so the second kernel was dropped. A faster order of its own (one
+// wave of larger tiles) moved the MOFA fits' float32 paths; this one keeps
+// every fit as it was.
+// Bound: by bytes, E once, z once, u once (10,000 x 3000: 120 MB, 0.0358
+// ms at 3.35 TB/s; 50,000 x 256: 0.0153 ms). The partials (tiles x d) are
+// under 1% of E's bytes.
+constexpr int kCdTile = 256;  // rows a tile; ops/mofa.py
+constexpr int kCdCols = 32;
+constexpr int kCdLanes = 8;
+constexpr int kCdUnroll = 8;
+constexpr int kCdChunk = 32;  // tiles a finish step stages
+constexpr int kCdSlots = 132 * 4;  // blocks resident at once: 4 on each of 132 SMs
+
+// the first column of thread x's group in strip s, or -1 past the strip
+template <int V>
+__device__ __forceinline__ int col_dot_column(int s, int strips, int d, int x) {
+  const int groups = d / V;
+  const int g = (int)((int64_t)s * groups / strips) + x;
+  return g < (int)((int64_t)(s + 1) * groups / strips) ? g * V : -1;
 }
 
-// T17 pass 2: u[c] = the tiles' partials in index order
-__global__ void __launch_bounds__(kThreads)
-col_dot_finish_kernel(const float* __restrict__ partial, int n_tiles, int d,
-                      float* __restrict__ u) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s = __fadd_rn(s, partial[(int64_t)t * d + c]);
-  u[c] = s;
+// u[c .. c + V - 1] = the strip's tiles in index order, by the (x, 0)
+// threads. The tiles pass through buf (kCdChunk x kCdCols * 4, shared)
+// kCdChunk at a time; the block loads chunk k + 1 into registers while the
+// (x, 0) threads add chunk k, so the adds wait on one round trip to L2 only.
+constexpr int kCdStage = kCdChunk / kCdLanes;  // partial entries a thread stages
+
+template <int V>
+__device__ __forceinline__ void col_dot_stage(const float* partial, int t0, int tiles, int d,
+                                              int strip, int strips, float (&st)[kCdStage][V]) {
+  const int tid = threadIdx.y * kCdCols + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kCdStage; ++q) {
+    const int i = tid + q * kCdCols * kCdLanes;
+    const int t = t0 + i / kCdCols;
+    const int col = col_dot_column<V>(strip, strips, d, i % kCdCols);
+    if (t < tiles && col >= 0) {
+      const float* p = partial + (int64_t)t * d + col;
+      if constexpr (V == 4) {
+        const float4 f = __ldcg(reinterpret_cast<const float4*>(p));
+        st[q][0] = f.x; st[q][1] = f.y; st[q][2] = f.z; st[q][3] = f.w;
+      } else {
+        st[q][0] = __ldcg(p);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) st[q][v] = 0.f;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void col_dot_finish(const float* partial, int tiles, int d,
+                                               int strip, int strips,
+                                               float (*buf)[kCdCols * 4],
+                                               float* __restrict__ u) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kCdCols + tx;
+  const int c = col_dot_column<V>(strip, strips, d, tx);
+  float s[V], st[kCdStage][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) s[v] = 0.f;
+  col_dot_stage<V>(partial, 0, tiles, d, strip, strips, st);
+  for (int t0 = 0; t0 < tiles; t0 += kCdChunk) {
+    __syncthreads();  // the previous chunk is added
+#pragma unroll
+    for (int q = 0; q < kCdStage; ++q) {
+      const int i = tid + q * kCdCols * kCdLanes;
+#pragma unroll
+      for (int v = 0; v < V; ++v) buf[i / kCdCols][(i % kCdCols) * V + v] = st[q][v];
+    }
+    __syncthreads();
+    if (t0 + kCdChunk < tiles) col_dot_stage<V>(partial, t0 + kCdChunk, tiles, d, strip, strips, st);
+    if (ty == 0 && c >= 0)
+      for (int t = 0; t < min(kCdChunk, tiles - t0); ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) s[v] = __fadd_rn(s[v], buf[t][tx * V + v]);
+  }
+  if (ty == 0 && c >= 0)
+#pragma unroll
+    for (int v = 0; v < V; ++v) u[c + v] = s[v];
+}
+
+template <int V>
+__global__ void __launch_bounds__(kCdCols * kCdLanes, 4)
+col_dot_kernel(const float* __restrict__ E, const float* __restrict__ z, int64_t z_stride,
+               int n, int d, int tiles_per_block, float* partial, unsigned* __restrict__ done,
+               float* __restrict__ u) {
+  __shared__ float buf[kCdChunk][kCdCols * 4];
+  __shared__ bool last;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = col_dot_column<V>(blockIdx.y, gridDim.y, d, tx);
+  const int tiles = n > 0 ? (n + kCdTile - 1) / kCdTile : 1;
+  const int lane = tx % kWarp;
+  float (*red)[kCdCols * 4] = buf;  // the first kCdLanes rows of buf
+  const int t_end = min(tiles, (blockIdx.x + 1) * tiles_per_block);
+  for (int t = blockIdx.x * tiles_per_block; t < t_end; ++t) {
+    const int r0 = t * kCdTile + ty;  // this lane's rows: r0 + kCdLanes j
+    const int rows = max(0, (min(kCdTile, n - t * kCdTile) - ty + kCdLanes - 1) /
+                                kCdLanes);  // at most 32, uniform across the warp
+    const float* e_lane = E + (int64_t)r0 * d + max(c, 0);
+    const int64_t step = (int64_t)kCdLanes * d;
+    // z of this lane's row j sits in lane j of the warp
+    const float zr =
+        z != nullptr && lane < rows ? z[(int64_t)(r0 + kCdLanes * lane) * z_stride] : 0.f;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int j = 0; j < rows; j += kCdUnroll) {
+      float e[kCdUnroll][V];
+#pragma unroll
+      for (int k = 0; k < kCdUnroll; ++k) {
+        const float* p = e_lane + (j + k) * step;
+        if (j + k < rows && c >= 0) {  // E is read once: evict-first loads
+          if constexpr (V == 4) {
+            const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
+            e[k][0] = f.x; e[k][1] = f.y; e[k][2] = f.z; e[k][3] = f.w;
+          } else {
+            e[k][0] = __ldcs(p);
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) e[k][v] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kCdUnroll; ++k) {
+        const float w = z != nullptr ? __shfl_sync(kFull, zr, (j + k) % kWarp) : 0.f;
+        if (j + k < rows)  // the rows of the tile, in turn, as the first T17 took them
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] = fmaf(z != nullptr ? w : e[k][v], e[k][v], acc[v]);
+      }
+    }
+    __syncthreads();  // the previous tile's partial is read out of red
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[ty][tx * V + v] = acc[v];
+    __syncthreads();
+#pragma unroll
+    for (int h = kCdLanes / 2; h > 0; h >>= 1) {
+      if (ty < h)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          red[ty][tx * V + v] = __fadd_rn(red[ty][tx * V + v], red[ty + h][tx * V + v]);
+      __syncthreads();
+    }
+    if (ty == 0 && c >= 0)
+#pragma unroll
+      for (int v = 0; v < V; ++v) partial[(int64_t)t * d + c + v] = red[0][tx * V + v];
+  }
+  __syncthreads();  // the block's partials are written before thread 0 counts them
+  if (ty == 0 && tx == 0) {
+    // release: this block's partials are visible to the block that reads
+    // the last count; acquire: that block sees every tile's partial
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(done[blockIdx.y]);
+    last = count.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  col_dot_finish<V>(partial, tiles, d, blockIdx.y, gridDim.y, buf, u);
+  if (ty == 0 && tx == 0) done[blockIdx.y] = 0u;  // ready for the next call
 }
 
 // T18: the posterior of column k of one view's weights, a thread per feature
@@ -368,21 +510,27 @@ int mt_mofa_bound_refresh(const float* Zm, const float* z2, const float* SW,
   return (int)cudaGetLastError();
 }
 
-// T17. E (n x d) f32; z (n) f32 with stride z_stride, or null for the column
-// sums of E^2; partial (ceil(n / 256) x d) f32 scratch; u (d) f32 out.
+// T17. E (n x d) f32; z (n) f32 with stride z_stride (0: one value), or
+// null for the column sums of E^2; partial (max(1, ceil(n / 256)) x d) f32
+// scratch; done (ceil(d / 32)) uint32 counters, zero on entry and left
+// zero; u (d) f32 out.
 int mt_mofa_col_dot(const float* E, const float* z, long long z_stride, int n, int d,
-                    float* partial, float* u, void* stream) {
+                    float* partial, unsigned* done, float* u, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 0) return (int)cudaGetLastError();
-  const int n_tiles = (n + kTileRows - 1) / kTileRows;
-  if (n_tiles > 0) {
-    const dim3 grid(n_tiles, (d + kColLanes - 1) / kColLanes);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    col_dot_partial_kernel<<<grid, dim3(kColLanes, kRowLanes), 0, s>>>(E, z, z_stride, n, d,
-                                                                      partial);
-  }
-  col_dot_finish_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(partial, n_tiles,
-                                                                           d, u);
+  const bool vec4 = d % 4 == 0 && (uintptr_t)E % 16 == 0;
+  const int V = vec4 ? 4 : 1;
+  const int tiles = n > 0 ? (n + kCdTile - 1) / kCdTile : 1;
+  const int strips = (d / V + kCdCols - 1) / kCdCols;
+  if (strips > 65535) return (int)cudaErrorInvalidValue;
+  // a run of tiles a block, so that the grid is about one wave of kCdSlots
+  const int64_t tasks = (int64_t)tiles * strips;
+  const int per = (int)((tasks + kCdSlots - 1) / kCdSlots);
+  const dim3 grid((tiles + per - 1) / per, strips), block(kCdCols, kCdLanes);
+  if (vec4)
+    col_dot_kernel<4><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u);
+  else
+    col_dot_kernel<1><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u);
   return (int)cudaGetLastError();
 }
 

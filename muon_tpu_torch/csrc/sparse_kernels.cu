@@ -13,7 +13,9 @@
 //      csr_spmm_split    <- T2 for rows of very different lengths: the
 //                           products W^T X and X H^T of muon_tpu/ops/nmf.py
 //                           _nmf_fn
-//   T3 csr_spmm_t        <- muon_tpu/ops/sparse.py _spmm_fn (transpose=True)
+//   T3 csr_spmm_t        <- muon_tpu/ops/sparse.py _spmm_fn (transpose=True),
+//                           over the CSR of X^T (its entries sorted by column as
+//                           the reference's perm_bycol, with_col_perm)
 //   T4 csr_gram_matmul   <- the XtX.V product of muon_tpu/ops/linalg.py
 //                           _rsvd_blocks_fn
 //   T7 csr_row_sums      <- muon_tpu/ops/sparse.py _row_sums_fn
@@ -26,20 +28,28 @@
 //                           _decode_wire_fn (one block at offset 0)
 //   T39 binarize_values  <- muon_tpu/ops/sparse.py _binarize_fn
 //
-// All of them give one warp to one row of X. The TF-IDF path's dense
-// operands are skinny (l = k + 10 = 60 columns), so every product is bound by
-// memory, not by arithmetic: each stored x_ij touches one row of l values of
-// the dense operand (240 B in f32, 120 B in bf16), gathered by column index.
-// The simple design here reads those rows with the warp's lanes on
-// neighbouring columns, so each gathered row is one coalesced transaction,
-// and keeps all per-row partial sums in registers. The (n_cols x l) f32
-// outputs of T3 and T4 are 6 MB at the main path's shapes and stay in the
-// 50 MB L2, where the atomics resolve.
+// T1, T2, T4, T7 and T8 give one warp to one row of X. The TF-IDF path's
+// dense operands are skinny (l = k + 10 = 60 columns), so every product is
+// bound by memory, not by arithmetic: each stored x_ij touches one row of l
+// values of the dense operand (240 B in f32, 120 B in bf16), gathered by
+// column index. The simple design here reads those rows with the warp's
+// lanes on neighbouring columns, so each gathered row is one coalesced
+// transaction, and keeps all per-row partial sums in registers. The
+// (n_cols x l) f32 output of T4 is 6 MB at the main path's shapes and stays
+// in the 50 MB L2, where its atomics resolve.
 //
-// Not done yet (later work): balancing the work of long rows and hot columns
-// (the benchmark's peak popularity is Pareto-skewed, so a few columns take a
-// large share of the atomics of T3/T4), staging the row's indices through
-// shared memory instead of broadcast loads, and wgmma for the Gram product.
+// T3 (X^T . B) gathers instead of scattering: it runs over the CSR of X^T
+// (ops/sparse.py transpose, built once per matrix), cuts each of its rows
+// into pieces so that the Pareto-popular peaks (tens of thousands of cells)
+// spread over many warps, loads B's rows 16 bytes a lane where their
+// alignment allows, several rows a warp in flight, and adds a row's pieces
+// in index order: no atomics, so it repeats bit for bit. T2's split
+// variant is the same piece scheme on X's rows.
+//
+// Not done yet (later work): T4 still scatters with float atomics (its
+// order changes from run to run; T3's gather design carries over to it),
+// staging a row's indices through shared memory instead of broadcast loads
+// in T2, and wgmma for the Gram product.
 //
 // Interface: plain C functions (loaded with ctypes). Each launches on the
 // stream it is given, allocates nothing, and returns cudaGetLastError().
@@ -59,6 +69,7 @@ constexpr int kThreads = kWarp * kWarpsPerBlock;
 // path) takes one pass; wider operands loop over column groups.
 constexpr int kChunk = 4;
 constexpr int kCols = kWarp * kChunk;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -221,6 +232,9 @@ __global__ void csr_spmm_pieces_kernel(const float* __restrict__ data,
   }
 }
 
+// out[r, :] = the sum of row r's pieces in index order. kSkipWhole: rows of
+// one piece were written to out by the pieces kernel and are left alone.
+template <bool kSkipWhole>
 __global__ void csr_spmm_add_pieces_kernel(const float* __restrict__ part,
                                            const int* __restrict__ row_first,
                                            int n_rows, int l,
@@ -231,6 +245,7 @@ __global__ void csr_spmm_add_pieces_kernel(const float* __restrict__ part,
     const int r = (int)(e / l);
     const int c = (int)(e - (int64_t)r * l);
     const int a = row_first[r], b = row_first[r + 1];
+    if (kSkipWhole && b - a == 1) continue;
     float acc = part[(int64_t)a * l + c];
     for (int q = a + 1; q < b; ++q) acc += part[(int64_t)q * l + c];
     out[e] = acc;
@@ -238,41 +253,160 @@ __global__ void csr_spmm_add_pieces_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// T3: out += X^T . B, B (n_rows x l) f32 or bf16, out (n_cols x l) f32,
-// zeroed by the caller. One warp per row i holds B[i, :] in registers and
-// adds x_ij * B[i, :] into out[j, :] with atomics, so the order of the sum
-// changes from run to run. Bound by the atomics into out (l per stored
-// entry); hot columns contend.
+// T3: out = X^T . B for B (n x l) f32 or bf16, out (d x l) f32, over the CSR
+// of X^T (d rows, n columns): out[j, :] = sum_e Xt.data[e] B[Xt.indices[e], :]
+// over row j of X^T, summed in f32.
+//
+// Pieces: each row of X^T is cut into pieces of at most `piece` stored
+// entries; row_first[j] is the index of row j's first piece (the exclusive
+// prefix sum of max(1, ceil(len / piece)), built once with the transpose).
+// A warp sums one piece. A row of one piece writes out directly; a longer
+// row's pieces go to part (pieces x l) and a second kernel adds them in
+// index order. No float atomics: the same inputs give the same bits.
+//
+// Gathers: a warp splits into 32 / group lane groups, each taking one
+// stored entry at a time; within a group, lane s loads VW values of B's row
+// at column c0 + s VW as one vector (VW = 4: 16 bytes in f32, 8 in bf16,
+// where l % 4 == 0 and B's base is aligned to four values, as on every path
+// of the port; else VW = 1), so a warp has 32 / group rows of B
+// in flight per step and kT3Unroll steps issued before their FMAs (at l = 60
+// f32: group 16, two rows a step, eight in flight; at l = 20: four a step).
+// The entry ids and values are read 32 at a time, one coalesced load each,
+// and broadcast by shuffles. Wider l loops over column groups of group * VW.
+// The lane groups' sums meet by a fixed butterfly, so the order of every
+// sum depends on the structure of X^T and on l alone.
+//
+// Bound: by bytes, X^T's CSR, B and out each once (at 100,000 x 25,000,
+// 2.19e7 entries and l = 60 f32: 175 MB + 24 MB + 6 MB, 0.061 ms at 3.35
+// TB/s). The gathers themselves read 240 B of B per stored entry (5.3 GB),
+// which B (24 MB f32, 12 MB bf16) serves from the 50 MB L2.
 // ---------------------------------------------------------------------------
 
-template <typename TB>
-__global__ void csr_spmm_t_kernel(const float* __restrict__ data,
-                                  const int* __restrict__ indptr,
-                                  const int* __restrict__ indices,
-                                  const TB* __restrict__ B, int n_rows, int l,
-                                  float* __restrict__ out) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+constexpr int kT3Unroll = 4;
+
+// VW consecutive values of a row of B at p (aligned to VW * sizeof(TB)) as
+// f32, from one vector load into registers (bf16 widened by its bits)
+__device__ __forceinline__ void bf16x2(unsigned w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+template <typename TB, int VW> struct RowLoad;
+template <> struct RowLoad<float, 4> {
+  static __device__ __forceinline__ void run(const float* p, float (&v)[4]) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  }
+};
+template <> struct RowLoad<float, 1> {
+  static __device__ __forceinline__ void run(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
+};
+template <> struct RowLoad<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    bf16x2(w.x, v[0], v[1]); bf16x2(w.y, v[2], v[3]);
+  }
+};
+template <> struct RowLoad<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  }
+};
+
+template <typename TB, int VW>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_t_pieces_kernel(const float* __restrict__ data, const int* __restrict__ indptr,
+                         const int* __restrict__ indices, const int* __restrict__ row_first,
+                         int n_rows, int n_pieces, int piece, const TB* __restrict__ B,
+                         int l, int group, float* __restrict__ part,
+                         float* __restrict__ out) {
+  const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (row >= n_rows) return;
-  const int start = indptr[row], end = indptr[row + 1];
-  const TB* brow = B + (int64_t)row * l;
-  for (int c0 = 0; c0 < l; c0 += kCols) {
-    float b[kChunk];
+  if (p >= n_pieces) return;  // uniform across the warp
+  int lo = 0, hi = n_rows - 1;  // the last row r with row_first[r] <= p
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (row_first[mid] <= p) lo = mid; else hi = mid - 1;
+  }
+  const int first = row_first[lo];
+  const int start = indptr[lo] + (p - first) * piece;
+  const int end = min(start + piece, indptr[lo + 1]);
+  float* dst = row_first[lo + 1] - first == 1 ? out + (int64_t)lo * l
+                                              : part + (int64_t)p * l;
+  const int per = kWarp / group;  // entries a warp step: one a lane group
+  const int g = lane / group;
+  for (int c0 = 0; c0 < l; c0 += group * VW) {
+    const int c = c0 + (lane % group) * VW;
+    const bool col_in = c < l;  // l % VW == 0, so the whole vector is in
+    float acc[VW];
 #pragma unroll
-    for (int q = 0; q < kChunk; ++q) {
-      const int c = c0 + q * kWarp + lane;
-      b[q] = c < l ? to_f32(brow[c]) : 0.f;
-    }
-    for (int j = start; j < end; ++j) {
-      const float x = data[j];
-      float* o = out + (int64_t)indices[j] * l;
+    for (int q = 0; q < VW; ++q) acc[q] = 0.f;
+    for (int base = start; base < end; base += kWarp) {
+      const int cnt = min(kWarp, end - base);
+      const int my_id = lane < cnt ? indices[base + lane] : 0;
+      const float my_x = lane < cnt ? data[base + lane] : 0.f;
+      for (int k = 0; k < cnt; k += per * kT3Unroll) {
+        float x[kT3Unroll], b[kT3Unroll][VW];
 #pragma unroll
-      for (int q = 0; q < kChunk; ++q) {
-        const int c = c0 + q * kWarp + lane;
-        if (c < l) atomicAdd(o + c, x * b[q]);
+        for (int u = 0; u < kT3Unroll; ++u) {
+          const int src = k + u * per;  // uniform across the warp
+          int id = 0;
+          x[u] = 0.f;
+          if (src < kWarp) {  // src + g < 32: per divides src
+            id = __shfl_sync(kFull, my_id, src + g);
+            x[u] = __shfl_sync(kFull, my_x, src + g);
+          }
+          if (src + g < cnt && col_in) {
+            RowLoad<TB, VW>::run(B + (int64_t)id * l + c, b[u]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < VW; ++q) b[u][q] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kT3Unroll; ++u)
+#pragma unroll
+          for (int q = 0; q < VW; ++q) acc[q] = fmaf(x[u], b[u][q], acc[q]);
       }
     }
+    for (int o = group; o < kWarp; o <<= 1)
+#pragma unroll
+      for (int q = 0; q < VW; ++q) acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(kFull, acc[q], o));
+    if (g == 0 && col_in)
+#pragma unroll
+      for (int q = 0; q < VW; ++q) dst[c + q] = acc[q];
   }
+}
+
+template <typename TB, int VW>
+void launch_spmm_t_pieces(const float* data, const int* indptr, const int* indices,
+                          const int* row_first, int n_rows, int n_pieces, int piece,
+                          const TB* B, int l, float* part, float* out, cudaStream_t s) {
+  int group = 1;  // lanes on one row of B: the power of two that covers l, at most 32
+  while (group < kWarp && group * VW < l) group <<= 1;
+  const int blocks = (n_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  csr_spmm_t_pieces_kernel<TB, VW><<<blocks, kThreads, 0, s>>>(
+      data, indptr, indices, row_first, n_rows, n_pieces, piece, B, l, group, part, out);
+}
+
+// T3 on B of element type TB: four values a lane where l and B's base allow
+template <typename TB>
+cudaError_t launch_spmm_t(const float* data, const int* indptr, const int* indices,
+                          const int* row_first, int n_rows, int n_pieces, int piece,
+                          const TB* B, int l, float* part, float* out, cudaStream_t s) {
+  if (l % 4 == 0 && (uintptr_t)B % (4 * sizeof(TB)) == 0)
+    launch_spmm_t_pieces<TB, 4>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
+                                l, part, out, s);
+  else
+    launch_spmm_t_pieces<TB, 1>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
+                                l, part, out, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_pieces <= n_rows) return err;  // every row one piece
+  int64_t blocks = ((int64_t)n_rows * l + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
+  csr_spmm_add_pieces_kernel<true><<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
+                                                                    l, out);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -483,24 +617,27 @@ int mt_csr_spmm_split(const float* data, const int* indptr, const int* indices,
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = ((int64_t)n_rows * l + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
-  csr_spmm_add_pieces_kernel<<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
-                                                              l, out);
+  csr_spmm_add_pieces_kernel<false><<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
+                                                                     l, out);
   return (int)cudaGetLastError();
 }
 
+// T3 over the CSR of X^T (n_rows = X's columns): row_first (n_rows + 1)
+// int32 its piece table, n_pieces = row_first[n_rows]; B (X's rows x l) f32
+// or bf16; part (n_pieces x l) f32 scratch, read only where a row has
+// several pieces; out (n_rows x l) f32.
 int mt_csr_spmm_t(const float* data, const int* indptr, const int* indices,
-                  const void* B, int b_bf16, int n_rows, int l, float* out,
+                  const int* row_first, int n_rows, int n_pieces, int piece,
+                  const void* B, int b_bf16, int l, float* part, float* out,
                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_rows > 0 && l > 0) {
-    if (b_bf16)
-      csr_spmm_t_kernel<__nv_bfloat16><<<row_blocks(n_rows), kThreads, 0, s>>>(
-          data, indptr, indices, (const __nv_bfloat16*)B, n_rows, l, out);
-    else
-      csr_spmm_t_kernel<float><<<row_blocks(n_rows), kThreads, 0, s>>>(
-          data, indptr, indices, (const float*)B, n_rows, l, out);
-  }
-  return (int)cudaGetLastError();
+  if (n_rows <= 0 || l <= 0) return (int)cudaGetLastError();
+  if (n_pieces < n_rows || piece <= 0) return (int)cudaErrorInvalidValue;
+  if (b_bf16)
+    return (int)launch_spmm_t(data, indptr, indices, row_first, n_rows, n_pieces, piece,
+                              (const __nv_bfloat16*)B, l, part, out, s);
+  return (int)launch_spmm_t(data, indptr, indices, row_first, n_rows, n_pieces, piece,
+                            (const float*)B, l, part, out, s);
 }
 
 int mt_csr_gram_matmul(const float* data, const int* indptr,

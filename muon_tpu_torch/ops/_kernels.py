@@ -52,7 +52,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _F, _I, _I, _I, _I, _F, _P, _P),
     "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
     "mt_csr_spmm_split": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
     "mt_csr_row_sums": (_P, _P, _I, _P, _P),
@@ -72,7 +72,7 @@ _SIGNATURES = {
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "mt_mofa_col_dot": (_P, _P, _LL, _I, _I, _P, _P, _P),
+    "mt_mofa_col_dot": (_P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_w_posterior": (_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P),
     "mt_mofa_row_dot": (_P, _P, _LL, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),

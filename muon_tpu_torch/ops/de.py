@@ -8,8 +8,9 @@ muon_tpu/_core/tools_de.py).
 ``wilcoxon_rank_sums`` sorts X's columns in blocks (``torch.sort``, as the
 reference sorts with ``jnp.argsort``) and hands each block to T26.
 ``group_moments`` gives the per-group sums of X and X² that every test
-starts from: a sparse X through T3 (``ops.sparse.spmm_t``), as the
-reference goes through its SpMM, a dense X through ``torch.matmul``.
+starts from: a sparse X through T3 (``ops.sparse.spmm_t``, X and X² over
+one transpose), as the reference goes through its SpMM, a dense X through
+``torch.matmul``.
 ``logreg_fit`` runs the reference's 200 Adam steps of softmax regression:
 per step the two products X·W and Xᵀ·dZ in ``torch.matmul`` (float32, TF32
 refused by ``ops.device``), T27 between them and T28 after.
@@ -98,8 +99,9 @@ def group_moments(X, codes: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.T
     G = _onehot(codes, g)
     with stage("de/moments"):
         if isinstance(X, dsp.DeviceCSR):
-            s1 = dsp.spmm_t(X, G).T
-            s2 = dsp.spmm_t(X._replace(data=X.data * X.data), G).T
+            Xt = dsp.transpose(X)
+            s1 = dsp.spmm_t(X, G, Xt).T
+            s2 = dsp.spmm_t(X, G, Xt.with_data(Xt.csr.data * Xt.csr.data)).T
             return s1.contiguous(), s2.contiguous()
         D = X.shape[1]
         step = max(1, (1 << 28) // max(X.shape[0], 1))

@@ -3,10 +3,11 @@
 Randomized subspace iteration (Halko et al. 2011) with two algorithms,
 as in the reference:
 
-* **gather** (``_rsvd_coo_fn``): alternate X·B (T2) and Xᵀ·B (T3) with
-  CholeskyQR² after every product, then the SVD of the small (l, d) matrix
-  QᵀX. The power iterations hand the kernels bfloat16 operands and sum in
-  float32; the final Xᵀ·Q is full float32.
+* **gather** (``_rsvd_coo_fn``): alternate X·B (T2) and Xᵀ·B (T3, over
+  the CSR of Xᵀ built once a call) with CholeskyQR² after every product,
+  then the SVD of the small (l, d) matrix QᵀX. The power iterations hand
+  the kernels bfloat16 operands and sum in float32; the final Xᵀ·Q is full
+  float32.
 * **XᵀX** (``_rsvd_blocks_fn``): iterate V ← orth(XᵀX·V) through T4, then an
   exact float32 Y = X·V (T2) and Rayleigh–Ritz through ``eigh`` of the l×l
   Gram YᵀY.
@@ -90,16 +91,18 @@ def _rsvd_gather(
 ) -> SVD:
     lo = torch.bfloat16
     mv = lambda B: ops.spmm(X, B.to(lo).contiguous())  # noqa: E731
-    # Xᵀ ≡ X for symmetric inputs (graph Laplacians)
+    # Xᵀ ≡ X for symmetric inputs (graph Laplacians); else T3 gathers over
+    # the CSR of Xᵀ, built once for the N_ITER + 1 products
+    Xt = None if symmetric else dsp.transpose(X)
     rmv = mv if symmetric else (
-        lambda B: ops.spmm_t(X, B.to(lo).contiguous())  # noqa: E731
+        lambda B: ops.spmm_t(X, B.to(lo).contiguous(), Xt)  # noqa: E731
     )
     Q = _cholqr(mv(omega))
     for _ in range(n_iter):
         Z = _cholqr(rmv(Q))
         Q = _cholqr(mv(Z))
     Qc = Q.contiguous()
-    B = (ops.spmm(X, Qc) if symmetric else ops.spmm_t(X, Qc)).T  # (l, d) f32
+    B = (ops.spmm(X, Qc) if symmetric else ops.spmm_t(X, Qc, Xt)).T  # (l, d) f32
     Ub, s, Vt = torch.linalg.svd(B, full_matrices=False)
     U = Q @ Ub
     return U[:, :k], s[:k], Vt[:k]
@@ -249,8 +252,10 @@ def _pca_gather(
         out = ops.spmm(X, B.contiguous())
         return out if mu is None else out - (mu @ B)[None, :]
 
+    Xt = dsp.transpose(X)
+
     def rmv(B):
-        out = ops.spmm_t(X, B.contiguous())
+        out = ops.spmm_t(X, B.contiguous(), Xt)
         return out if mu is None else out - mu[:, None] * B.sum(dim=0)[None, :]
 
     return _qr_iteration(mv, rmv, omega, k, n_iter)

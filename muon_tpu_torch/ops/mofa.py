@@ -37,9 +37,13 @@ __all__ = [
     "bound_refresh", "bound_refresh_plain",
 ]
 
-# rows per partial column sum of T17 (kTileRows in the source)
+# rows per partial column sum of T17 (kCdTile in the source)
 _TILE_ROWS = 256
 _INT_MAX = 2**31 - 1
+# T17's per-strip counters on each device: zero between calls, since the
+# kernel's last block of a strip resets its counter; one T17 runs at a time
+# on a device (the port launches every kernel on the current stream)
+_CD_DONE = {}
 
 
 def _matrix(t: torch.Tensor, name: str, device, shape=None) -> Tuple[int, int]:
@@ -54,15 +58,18 @@ def _matrix(t: torch.Tensor, name: str, device, shape=None) -> Tuple[int, int]:
     return n, d
 
 
-def _vector(t: torch.Tensor, length: int, name: str, device, scalar_ok=False):
+def _vector(t: torch.Tensor, length: int, name: str, device, scalar_ok=False,
+            broadcast_ok=False):
     """(pointer, stride in elements) of a float32 vector of ``length``
-    entries with any positive stride, or of a 0-dim tensor (stride 0)."""
+    entries with any positive stride (or stride 0, one value broadcast, with
+    ``broadcast_ok``), or of a 0-dim tensor (stride 0)."""
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"{name} must be a float32 tensor on {device}, got {t.dtype} "
                          f"on {t.device}")
     if t.dim() == 0 and scalar_ok:
         return t.data_ptr(), 0
-    if t.dim() != 1 or t.shape[0] != length or (length > 1 and t.stride(0) < 1):
+    if t.dim() != 1 or t.shape[0] != length or (
+            length > 1 and t.stride(0) < (0 if broadcast_ok else 1)):
         raise ValueError(f"{name} must have shape ({length},) and a positive stride, got "
                          f"{tuple(t.shape)} with strides {t.stride()}")
     return t.data_ptr(), t.stride(0)
@@ -75,17 +82,29 @@ def _vector(t: torch.Tensor, length: int, name: str, device, scalar_ok=False):
 
 def col_dot(E: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T17: ``u (D,)`` with u[d] = Σ_n z[n]·E[n, d]; without ``z``,
-    Σ_n E[n, d]². Summed in a fixed order (tiles of 256 rows, then the
-    tiles in index order), so the same inputs give the same bits."""
+    Σ_n E[n, d]². ``z`` may be a strided column or a broadcast (stride 0).
+    Summed in a fixed order (tiles of 256 rows, then the tiles in index
+    order), so the same inputs give the same bits.
+
+    One launch: the last block of each column strip adds the strip's tiles,
+    found by a per-strip counter that the kernel leaves at zero. The
+    counters are kept per device (``_CD_DONE``) and shared across calls, so
+    T17 relies on the port's kernels running on a single stream a device:
+    two T17 calls in flight at once on one device would share them."""
     if not on_card(E):
         return col_dot_plain(E, z)
     n, d = _matrix(E, "E", E.device)
-    z_ptr, z_stride = (0, 0) if z is None else _vector(z, n, "z", E.device)
-    n_tiles = -(-n // _TILE_ROWS)
-    partial = torch.empty((max(n_tiles, 1), d), dtype=torch.float32, device=E.device)
+    z_ptr, z_stride = (0, 0) if z is None else _vector(z, n, "z", E.device, broadcast_ok=True)
+    partial = torch.empty((max(1, -(-n // _TILE_ROWS)), d), dtype=torch.float32,
+                          device=E.device)
     u = torch.empty(d, dtype=torch.float32, device=E.device)
+    strips = -(-d // 32)  # the 4-byte variant's
+    done = _CD_DONE.get(E.device)
+    if done is None or done.numel() < strips:
+        done = _CD_DONE[E.device] = torch.zeros(max(strips, 1024), dtype=torch.int32,
+                                                device=E.device)
     _kernels.launch("mofa_col_dot", E.device, E.data_ptr(), z_ptr, z_stride, n, d,
-                    partial.data_ptr(), u.data_ptr())
+                    partial.data_ptr(), done.data_ptr(), u.data_ptr())
     return u
 
 

@@ -107,19 +107,6 @@ def nmf_factors(X: DeviceCSR, XT: DeviceCSR, W: torch.Tensor, Ht: torch.Tensor,
     return W, Ht
 
 
-def transpose_csr(X: DeviceCSR) -> DeviceCSR:
-    """Xᵀ as CSR on X's device: X's entries stably sorted by column, so each
-    row of Xᵀ keeps X's row order."""
-    counts = (X.indptr[1:] - X.indptr[:-1]).long()
-    rows = torch.repeat_interleave(torch.arange(X.n_rows, device=X.device, dtype=torch.int32),
-                                   counts, output_size=X.nnz)
-    order = torch.argsort(X.indices, stable=True)
-    indptr = torch.zeros(X.n_cols + 1, dtype=torch.int64, device=X.device)
-    torch.cumsum(torch.bincount(X.indices, minlength=X.n_cols), 0, out=indptr[1:])
-    return DeviceCSR(X.data[order], indptr.to(torch.int32), rows[order],
-                     X.n_cols, X.n_rows, X.nnz)
-
-
 def _csr_of_dense(T: torch.Tensor) -> DeviceCSR:
     """The nonzero entries of the 2-D float32 ``T`` as CSR on its device."""
     m, n = T.shape
@@ -160,7 +147,7 @@ def nmf(X, n_components: int, alpha: float = 1.0, max_iter: int = 500, seed: int
     Returns ``(W (m, k), H (k, n))`` as float32 numpy arrays."""
     Xc = _csr_of_dense(dense_to_tensor(X, device))
     W, Ht = _starts(Xc, int(n_components), seed, W0, H0)
-    W, Ht = nmf_factors(Xc, transpose_csr(Xc), W, Ht, float(alpha), max_iter)
+    W, Ht = nmf_factors(Xc, dsp.transpose(Xc).csr, W, Ht, float(alpha), max_iter)
     return W.cpu().numpy(), np.ascontiguousarray(Ht.cpu().numpy().T)
 
 
@@ -200,7 +187,7 @@ def scopen_operands(X, min_rho: float = 0.0, max_rho: float = 0.5,
     rho = min_rho + (max_rho - min_rho) * (hi - n_open) / denom
     scale = torch.from_numpy(np.asarray(1.0 / (1.0 - rho), dtype=np.float32)).to(dev)
     XT = XT._replace(data=dsp.scale_rows_data(XT, scale))
-    return transpose_csr(XT), XT
+    return dsp.transpose(XT).csr, XT
 
 
 def scopen_impute(

@@ -19,7 +19,8 @@ the kernel or raises.
                       _colsums_fn
     spmm          T2  <- _spmm_fn, transpose=False
     spmm_split    T2, its rows cut into pieces <- the products of nmf._nmf_fn
-    spmm_t        T3  <- _spmm_fn, transpose=True
+    spmm_t        T3  <- _spmm_fn, transpose=True, as a gather over the CSR
+                      of Xᵀ (``transpose``, built once per matrix)
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
     row_sums      T7  <- _row_sums_fn
     scale_rows_data  T8  <- _scale_rows_fn
@@ -63,6 +64,8 @@ __all__ = [
     "decode_wire",
     "binarize_data",
     "with_col_perm",
+    "TransposedCSR",
+    "transpose",
     "tfidf_data",
     "tfidf_col_sums",
     "spmm",
@@ -87,7 +90,7 @@ __all__ = [
 _INT32_MAX = np.iinfo(np.int32).max
 # entries per step of the plain products: bounds the (chunk, l) gather
 _PLAIN_CHUNK = 1 << 22
-_PIECE = 256  # stored entries a warp of spmm_split sums at most
+_PIECE = 256  # stored entries a warp of spmm_split and of spmm_t sums at most
 
 
 class DeviceCSR(NamedTuple):
@@ -381,6 +384,39 @@ def with_col_perm(X: DeviceCSR) -> torch.Tensor:
     return torch.argsort(X.indices, stable=True).to(torch.int32)
 
 
+class TransposedCSR(NamedTuple):
+    """Xᵀ as CSR with T3's piece table over its rows. The table depends on
+    the structure alone, so ``with_data`` keeps it for new values."""
+
+    csr: DeviceCSR            # Xᵀ (n_cols, n_rows)
+    row_first: torch.Tensor   # (n_cols + 1,) int32: each row's first piece
+    n_pieces: int             # row_first[-1]
+
+    def with_data(self, data: torch.Tensor) -> "TransposedCSR":
+        return self._replace(csr=self.csr._replace(data=data))
+
+
+def transpose(X: DeviceCSR) -> TransposedCSR:
+    """Xᵀ as CSR on X's device: X's entries in the order of
+    ``with_col_perm``, so each row of Xᵀ keeps X's row order; with the
+    exclusive prefix sum of max(1, ⌈len / 256⌉) over its rows, the pieces T3
+    cuts them into."""
+    with stage("sparse/transpose"):
+        counts = (X.indptr[1:] - X.indptr[:-1]).long()
+        rows = torch.repeat_interleave(
+            torch.arange(X.n_rows, device=X.device, dtype=torch.int32), counts,
+            output_size=X.nnz)
+        order = with_col_perm(X)
+        lens = torch.bincount(X.indices, minlength=X.n_cols)
+        indptr = torch.zeros(X.n_cols + 1, dtype=torch.int64, device=X.device)
+        torch.cumsum(lens, 0, out=indptr[1:])
+        row_first = torch.zeros(X.n_cols + 1, dtype=torch.int64, device=X.device)
+        torch.cumsum(torch.clamp((lens + _PIECE - 1) // _PIECE, min=1), 0, out=row_first[1:])
+        Xt = DeviceCSR(X.data[order], indptr.to(torch.int32), rows[order],
+                       X.n_cols, X.n_rows, X.nnz)
+        return TransposedCSR(Xt, row_first.to(torch.int32), int(row_first[-1]))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers: plain version on the CPU, CUDA kernel on a CUDA device
 # ---------------------------------------------------------------------------
@@ -527,20 +563,42 @@ def spmm_split(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmm_t(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
+def _check_transpose(X: DeviceCSR, Xt: TransposedCSR) -> None:
+    if Xt.csr.shape != (X.n_cols, X.n_rows) or Xt.csr.nnz != X.nnz:
+        raise ValueError(f"Xt of shape {Xt.csr.shape} with {Xt.csr.nnz} nonzeros is not "
+                         f"the transpose of X, {X.shape} with {X.nnz}")
+    if tuple(Xt.row_first.shape) != (X.n_cols + 1,):
+        raise ValueError(f"Xt.row_first must have shape ({X.n_cols + 1},), got "
+                         f"{tuple(Xt.row_first.shape)}")
+
+
+def spmm_t(X: DeviceCSR, B: torch.Tensor, Xt: Optional[TransposedCSR] = None) -> torch.Tensor:
     """T3: Xᵀ @ B for B ``(n_rows, l)`` float32 or bfloat16; float32
-    ``(n_cols, l)`` result. The kernel adds with atomics, so the order of
-    each sum changes from run to run."""
-    if _on(X, B) == "cpu":
-        return spmm_t_plain(X, B)
+    ``(n_cols, l)`` result. The kernel gathers over ``Xt``, the CSR of Xᵀ
+    with its piece table (``transpose(X)``; built here when None, so a caller
+    that multiplies one X several times builds it once and passes it). Its
+    sums run in an order fixed by X's structure: the same bits every run."""
+    if _on(X, B, *(() if Xt is None else (Xt.csr.data, Xt.row_first))) == "cpu":
+        return spmm_t_plain(X, B, Xt)
     _check_csr(X)
     _check_dense("B", B, X.n_rows, (torch.float32, torch.bfloat16))
-    out = torch.zeros((X.n_cols, B.shape[1]), dtype=torch.float32, device=X.device)
+    if Xt is None:
+        Xt = transpose(X)
+    _check_transpose(X, Xt)
+    T = Xt.csr
+    _check_csr(T)
+    if Xt.row_first.dtype != torch.int32 or not Xt.row_first.is_contiguous():
+        raise TypeError("Xt.row_first must be contiguous int32")
+    l = B.shape[1]
+    part = torch.empty((Xt.n_pieces if Xt.n_pieces > T.n_rows else 1, l),
+                       dtype=torch.float32, device=X.device)
+    out = torch.empty((T.n_rows, l), dtype=torch.float32, device=X.device)
     bf16 = B.dtype == torch.bfloat16
     _kernels.launch(
         "csr_spmm_t_bf16" if bf16 else "csr_spmm_t_f32", X.device,
-        X.data.data_ptr(), X.indptr.data_ptr(), X.indices.data_ptr(), B.data_ptr(), int(bf16),
-        X.n_rows, B.shape[1], out.data_ptr(),
+        T.data.data_ptr(), T.indptr.data_ptr(), T.indices.data_ptr(), Xt.row_first.data_ptr(),
+        T.n_rows, Xt.n_pieces, _PIECE, B.data_ptr(), int(bf16), l, part.data_ptr(),
+        out.data_ptr(),
     )
     return out
 
@@ -722,7 +780,13 @@ def spmm_split_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
                              B.double()).float()
 
 
-def spmm_t_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
+def spmm_t_plain(X: DeviceCSR, B: torch.Tensor,
+                 Xt: Optional[TransposedCSR] = None) -> torch.Tensor:
+    """Xᵀ @ B: the gather over the rows of ``Xt`` when given, else a scatter
+    over X's entries."""
+    if Xt is not None:
+        _check_transpose(X, Xt)
+        return spmm_plain(Xt.csr, B)
     out = torch.zeros((X.n_cols, B.shape[1]), dtype=torch.float32, device=X.device)
     return _scatter_products(out, X.indices.long(), _row_ids(X), X.data, B.float())
 

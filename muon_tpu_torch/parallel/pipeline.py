@@ -200,8 +200,10 @@ def sharded_rsvd(
     def mv(B):
         return ops.spmm(X, B.contiguous())
 
+    Xt = dsp.transpose(X)  # the CSR of the rank's block transposed, for every Xᵀ·Y
+
     def rmv(Y):
-        return all_reduce_sum(ops.spmm_t(X, Y.contiguous()), mesh)
+        return all_reduce_sum(ops.spmm_t(X, Y.contiguous(), Xt), mesh)
 
     def cholqr_cells(Y):
         def once(Y):

@@ -106,13 +106,15 @@ def _kernel_inputs(seed=0, n=70, d=33, K=4):
                 SW=f(d, K), tau=np.exp(f(d)), hyper=f(4, 2, K), n=n, d=d, K=K)
 
 
-@pytest.mark.parametrize("with_z", [True, False], ids=["z", "squares"])
-def test_col_dot_plain_matches_numpy(with_z):
+@pytest.mark.parametrize("z_kind", ["z", "broadcast", "squares"])
+def test_col_dot_plain_matches_numpy(z_kind):
     a = _kernel_inputs(1)
-    z = _t(a["Z"])[:, 2] if with_z else None  # a strided column
+    Z = _t(a["Z"])
+    # a strided column of Z, one value broadcast (stride 0), or none
+    z = {"z": Z[:, 2], "broadcast": Z[:1, 2].expand(a["n"]), "squares": None}[z_kind]
     got = ops.col_dot(_t(a["E"]), z).numpy()
     E = a["E"].astype(np.float64)
-    ref = a["Z"][:, 2].astype(np.float64) @ E if with_z else (E * E).sum(0)
+    ref = (E * E).sum(0) if z is None else z.numpy().astype(np.float64) @ E
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -616,16 +618,25 @@ def _card_inputs(cuda, n, d, K=5, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n, d", [(1000, 300), (257, 33), (5000, 256)])
-def test_gpu_col_dot_matches_plain(cuda, n, d):
-    # another order of float32 sums: within 1e-5 of Σ|z||E|
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "base_4_bytes_off"])
+@pytest.mark.parametrize("z_kind", ["strided", "broadcast", "squares"])
+@pytest.mark.parametrize("n, d", [(1000, 300), (257, 33), (5000, 256), (10000, 3000)])
+def test_gpu_col_dot_matches_plain(cuda, n, d, z_kind, offset):
+    # another order of float32 sums: within 1e-5 of Σ|z||E| (Σ E² without z);
+    # an order fixed by the shape: the same bits again, and from the 4-byte
+    # path (d % 4 != 0, or E's base off 16 bytes)
     E, _, Z, _ = _card_inputs(cuda, n, d)
-    got = _launched("mofa_col_dot", lambda: ops.col_dot(E, Z[:, 2]))
-    tol = 1e-5 * (Z[:, 2].abs() @ E.abs())
-    assert bool(((got - ops.col_dot_plain(E, Z[:, 2])).abs() <= tol).all())
-    got = _launched("mofa_col_dot", lambda: ops.col_dot(E))
-    torch.testing.assert_close(got, ops.col_dot_plain(E), rtol=1e-5, atol=0)
-    assert torch.equal(got, ops.col_dot(E))  # a fixed order: the same bits again
+    if offset:
+        buf = torch.empty(n * d + offset, device=cuda)
+        buf[offset:] = E.reshape(-1)
+        E = buf[offset:].view(n, d)
+    z = {"strided": Z[:, 2], "broadcast": Z[:1, 2].expand(n), "squares": None}[z_kind]
+    got = _launched("mofa_col_dot", lambda: ops.col_dot(E, z))
+    ref = ops.col_dot_plain(E, z)
+    scale = (E * E).sum(0) if z is None else z.abs() @ E.abs()
+    assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+    assert torch.equal(got, ops.col_dot(E, z))
+    assert torch.equal(got, ops.col_dot(E.clone(), z))  # an aligned copy
 
 
 @pytest.mark.gpu

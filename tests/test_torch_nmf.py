@@ -91,7 +91,7 @@ def test_one_iteration_matches_jax(alpha):
     with jax.enable_x64(False):
         W_ref, H_ref = jnmf._nmf_fn()(jnp.asarray(X), 8, alpha, 1, jax.random.PRNGKey(0))
     Xc = tnmf._csr_of_dense(torch.from_numpy(X))
-    W, Ht = tnmf.nmf_factors(Xc, tnmf.transpose_csr(Xc), torch.from_numpy(W0),
+    W, Ht = tnmf.nmf_factors(Xc, mt.ops.sparse.transpose(Xc).csr, torch.from_numpy(W0),
                              torch.from_numpy(H0.T.copy()), alpha, 1)
     np.testing.assert_allclose(Ht.numpy().T, np.asarray(H_ref), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(W.numpy(), np.asarray(W_ref), rtol=1e-5, atol=1e-7)
@@ -191,7 +191,7 @@ def test_transpose_csr_matches_scipy():
     rng = np.random.default_rng(3)
     X = sp.random(17, 11, density=0.3, random_state=4, format="csr", dtype=np.float32)
     X.data = rng.random(X.nnz).astype(np.float32) + 0.5
-    T = tnmf.transpose_csr(mt.ops.sparse.from_scipy(X, CPU))
+    T = mt.ops.sparse.transpose(mt.ops.sparse.from_scipy(X, CPU)).csr
     want = X.T.tocsr()
     want.sort_indices()
     assert T.shape == (11, 17) and T.nnz == X.nnz

@@ -149,6 +149,82 @@ def test_spmm_duplicate_entries_are_summed():
     Bt = np.arange(4, dtype=np.float32).reshape(2, 2)
     np.testing.assert_array_equal(tsp.spmm_t(dX, torch.from_numpy(Bt)).numpy(),
                                   X.toarray().T @ Bt)
+    np.testing.assert_array_equal(
+        tsp.spmm_t(dX, torch.from_numpy(Bt), tsp.transpose(dX)).numpy(), X.toarray().T @ Bt)
+
+
+def _duplicate_counts():
+    """_edge_counts with one position stored twice."""
+    X = _edge_counts()
+    r = 0
+    j = X.indptr[r]
+    indices = np.insert(X.indices, j + 1, X.indices[j])
+    data = np.insert(X.data, j + 1, np.float32(7.0))
+    indptr = X.indptr.copy()
+    indptr[r + 1:] += 1
+    return sp.csr_matrix((data, indices, indptr), shape=X.shape)
+
+
+@pytest.mark.parametrize("make", [_edge_counts, _duplicate_counts],
+                         ids=["empty_rows_and_columns", "duplicate"])
+def test_transpose_matches_scipy_and_perm_bycol(make):
+    # Xᵀ entry for entry as scipy's, each row in X's row order (a stable
+    # sort: the reference's perm_bycol), and T3's pieces over its rows
+    X = make()
+    dX = tsp.from_scipy(X, CPU)
+    Xt = tsp.transpose(dX)
+    want = X.T.tocsr()
+    assert Xt.csr.shape == (X.shape[1], X.shape[0]) and Xt.csr.nnz == X.nnz
+    np.testing.assert_array_equal(Xt.csr.indptr.numpy(), want.indptr)
+    np.testing.assert_array_equal(Xt.csr.indices.numpy(), want.indices)
+    np.testing.assert_array_equal(Xt.csr.data.numpy(), want.data)
+    perm = np.asarray(jsp.with_col_perm(jsp.from_scipy(X)).perm_bycol)[:X.nnz]
+    rows = np.repeat(np.arange(X.shape[0]), np.diff(X.indptr))
+    np.testing.assert_array_equal(Xt.csr.indices.numpy(), rows[perm])
+    np.testing.assert_array_equal(Xt.csr.data.numpy(), X.data[perm])
+    pieces = np.maximum(1, -(-np.diff(want.indptr) // 256))
+    np.testing.assert_array_equal(Xt.row_first.numpy(), np.concatenate([[0], np.cumsum(pieces)]))
+    assert Xt.row_first.dtype == torch.int32 and Xt.n_pieces == pieces.sum()
+
+
+def _t3_counts():
+    """_skewed_counts beside four columns of 0, 1, 256 and 2,560 stored
+    entries: rows of Xᵀ of no piece's worth, one entry, one whole piece and
+    ten pieces, besides its Pareto-popular columns."""
+    X = _skewed_counts()
+    rng = np.random.default_rng(5)
+    extra = [np.sort(rng.choice(X.shape[0], k, replace=False)) for k in (0, 1, 256, 2560)]
+    cols = sp.csc_matrix(
+        (rng.random(sum(map(len, extra))).astype(np.float32) + 0.5,
+         np.concatenate(extra), np.concatenate([[0], np.cumsum([len(e) for e in extra])])),
+        shape=(X.shape[0], 4))
+    return sp.hstack([X, cols]).tocsr()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_spmm_t_over_transpose_matches_jax(dtype):
+    # the gather over the rows of Xᵀ against the reference's transposed SpMM,
+    # within 1e-5 x |X|ᵀ.|B|: f32 sums in another order
+    X = _t3_counts()
+    assert np.diff(X.tocsc().indptr).max() > 3 * 256  # a row of Xᵀ of over three pieces
+    B, Bj, Bt = _dense_operand(X.shape[0], 13, 6, dtype)
+    ref = np.asarray(jsp.spmm_t(jsp.from_scipy(X), Bj))
+    dX = tsp.from_scipy(X, CPU)
+    out = tsp.spmm_t(dX, Bt, tsp.transpose(dX))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (X.shape[1], 13)
+    bound = 1e-5 * (abs(X).T @ np.abs(B))
+    assert (np.abs(out.numpy() - ref) <= bound).all()
+
+
+def test_spmm_t_refuses_a_transpose_of_another_matrix():
+    dX = tsp.from_scipy(_counts(seed=2), CPU)
+    B = torch.ones((dX.n_rows, 3))
+    for other in (_counts(seed=3, density=0.2), _counts(seed=2)[:, :-1]):  # other nnz, shape
+        Xt = tsp.transpose(tsp.from_scipy(other, CPU))
+        with pytest.raises(ValueError, match="transpose"):
+            tsp.spmm_t(dX, B, Xt)
+        with pytest.raises(ValueError, match="transpose"):
+            tsp.spmm_t_plain(dX, B, Xt)
 
 
 # ---------------------------------------------------------------------------
@@ -482,14 +558,26 @@ def test_gpu_csr_spmm_split(cuda, l):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l", [60, 150])
+@pytest.mark.parametrize("l", [20, 60, 61, 64, 150])
 def test_gpu_csr_spmm_t(cuda, dtype, l):
-    dX = tsp.from_scipy(_skewed_counts(), cuda)
+    # within 1e-5 x |X|ᵀ.|B| of the plain scatter; rows of Xᵀ of 0, 1, 256
+    # and 2,560 entries; the vector widths 16 (l = 20, 60, 64 f32; 64 bf16),
+    # 8 (150 f32; 20, 60 bf16), 4 (150 bf16; 61 f32) and 2 bytes (61 bf16);
+    # no atomics: the same bits twice, with Xt given or built inside
+    X = _t3_counts()
+    dX = tsp.from_scipy(X, cuda)
+    Xt = tsp.transpose(dX)
     B = torch.randn((dX.n_rows, l), device=cuda).to(dtype)
-    out = tsp.spmm_t(dX, B)
+    _kernels.reset_launch_counts()
+    out = tsp.spmm_t(dX, B, Xt)
     torch.cuda.synchronize()
+    name = "csr_spmm_t_bf16" if dtype == torch.bfloat16 else "csr_spmm_t_f32"
+    assert _kernels.launch_counts()[name] == 1
     bound = 1e-5 * tsp.spmm_t_plain(dX._replace(data=dX.data.abs()), B.float().abs())
     assert ((out - tsp.spmm_t_plain(dX, B)).abs() <= bound).all()
+    assert torch.equal(tsp.spmm_t(dX, B, Xt), out)
+    assert torch.equal(tsp.spmm_t(dX, B), out)
+    assert bool((out[X.shape[1] - 4] == 0).all())  # the empty column
 
 
 @pytest.mark.gpu
@@ -541,4 +629,7 @@ def test_gpu_wrappers_count_launches_and_check_inputs(cuda):
         tsp.spmm(dX, torch.ones((4, dX.n_cols), device=cuda).T)
     with pytest.raises(ValueError):
         tsp.spmm_t(dX, torch.ones((dX.n_cols, 4), device=cuda))
+    with pytest.raises(ValueError, match="transpose"):
+        tsp.spmm_t(dX, torch.ones((dX.n_rows, 4), device=cuda),
+                   tsp.transpose(tsp.from_scipy(_skewed_counts(n=100, d=51), cuda)))
     assert _kernels.launch_counts()["csr_spmm_f32"] == 1
