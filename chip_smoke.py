@@ -163,18 +163,22 @@ is printed. An exception stops the run at once, with a code other than 0:
     for the candidates, twice; T9's variant against plain at kk = 256,
     d = 50; then phases 23 (its 100k half) and 24;
 17. ``[mofa-e2e]``, counted from ``fit_mofa`` alone: the launches of T17-T20
-    by the formula (per sweep T17 K·M + M, T18 and T19 K·M, T20 2·K·M), the
+    and the fused passes by the formula (per sweep T17 2·M, T18 K·M, T19 M,
+    T20 2·M, ``mofa_rank1_col_dot`` and ``mofa_rank1_row_dot`` (K − 1)·M), the
     wall and the stage split, and the e2e's gate: the label-probe R² of Z
     above max(0.2, 0.8 × that of the first 15 PCA components);
-18. kernels: T17-T20 against their plain versions at 10,000 × 3000 (unmasked
-    and masked) and 50,000 × 256, each with its bound and, where one PyTorch
-    call computes the same, that call's time;
+18. kernels: T17-T20 and the fused passes (T20 then T17, T20 then T19)
+    against their plain versions at 10,000 × 3000 (unmasked and masked) and
+    50,000 × 256, each with its bound and, where one PyTorch call computes
+    the same, that call's time; each fused pass the bits of T20 then T17 or
+    T19, timed beside that pair and beside ``E.addr_`` with ``torch.mv``;
 19. ``[mofa]``, counted the same way: sweeps per second, the stage split, peak
     memory; the canonical correlations of Z with the planted factors (> 0.9);
     two fits bit for bit; one sweep through the kernels against the plain
     versions from the same state (every leaf within 1e-4 of its largest
-    entry); the ELBO of every sweep (never falling by more than 1e-5); the
-    plain path's time;
+    entry), and against loops of the standalone kernels written here (every
+    leaf the same bits); the ELBO of every sweep (never falling by more than
+    1e-5); the plain path's time;
 20. ``[mofa-1m]``, counted the same way: the wall, the time per
     iteration, peak memory, and the canonical correlations (> 0.9);
 21. ``[dsb]`` at 10,000 + 50,000 and at 100,000 + 500,000 droplets (last),
@@ -489,9 +493,9 @@ SGP_N, SGP_TIMES, SGP_SWEEPS = 100_000, 1000, 50
 # sweeps, so the refresh (after sweep 25) and the warp (after sweep 20) each
 # run once (cut from 100 dense and 50 sparse for the smoke's time limit)
 MESH_MEF_SWEEPS = 30
-# the dense mesh fits' ELBOs may lie this many times as far from one
-# device's as one device's own refit in another float32 order of its
-# feature sums (and always 1e-4)
+# the dense mesh fits' ELBOs, and the learned Kg, may lie this many times as
+# far from one device's as one device's own refit in another float32 order
+# of its feature sums (and always 1e-4)
 MEF_FLOOR_TIMES = 3
 # the width of the neighbour lists that drive T9's global-memory variant: 300
 # through pp.neighbors (and WNN's candidates), 256 for the kernel against plain
@@ -543,6 +547,11 @@ KERNEL_INFO = {
                      "muon_tpu/parallel/mesh.py:121"),
     "mofa_rank1_update": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "  # E + zk (x) delta
                           "muon_tpu/parallel/mesh.py:121"),
+    # w_body's and z_body's correction of factor k with factor k + 1's sum
+    "mofa_rank1_col_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "
+                           "muon_tpu/parallel/mesh.py:121"),
+    "mofa_rank1_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "
+                           "muon_tpu/parallel/mesh.py:121"),
     "knn_topk_global": (KNN_SRC, "muon_tpu/ops/knn.py:58"),         # lists longer than 256
     "ivf_search_global": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),      # lists longer than 256
     "gmm_background_means": (GMM_SRC, "muon_tpu/ops/gmm.py:101"),   # + _em_1d (:32)
@@ -702,12 +711,14 @@ OFF_PATH = {"binarize_values": "_binarize_fn has no caller in muon_tpu either"}
 
 
 def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
-    """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep T17
-    K·M + M (one per factor and view, and Σ E² per view for τ), T18 and T19
-    K·M, T20 2·K·M."""
-    km = K * n_views
-    return {"mofa_col_dot": sweeps * (km + n_views), "mofa_w_posterior": sweeps * km,
-            "mofa_row_dot": sweeps * km, "mofa_rank1_update": sweeps * 2 * km}
+    """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep and
+    view T17 twice (factor 0's sum, and Σ E² for τ), T18 K times, T19 once
+    (factor 0), T20 twice (the last factor in each loop), and each fused
+    pass K − 1 times (a factor's correction with the next one's sum)."""
+    m = sweeps * n_views
+    return {"mofa_col_dot": 2 * m, "mofa_w_posterior": K * m, "mofa_row_dot": m,
+            "mofa_rank1_update": 2 * m, "mofa_rank1_col_dot": (K - 1) * m,
+            "mofa_rank1_row_dot": (K - 1) * m}
 
 
 # [mesh*]: the launches of all ranks together. A rank: T1's two modes once
@@ -2796,21 +2807,24 @@ def canonical_correlations(A: torch.Tensor, B: torch.Tensor) -> np.ndarray:
 
 
 def phase_mofa_kernels(tmo, Ys, cuda) -> dict:
-    """T17-T20 against their plain versions at the bench's 10,000 x 3000
-    (unmasked, which the JSON line records, and masked) and at the SVI
-    batch's 50,000 x 256."""
+    """T17-T20 and the fused passes against their plain versions at the
+    bench's 10,000 x 3000 (unmasked, which the JSON line records, and
+    masked) and at the SVI batch's 50,000 x 256."""
     results = {}
     gen = torch.Generator(device=cuda).manual_seed(17)
 
-    def report(name, shape, err, tol, ok, k_fn, p_fn, bnd, lib_fn=None, record=False):
+    def report(name, shape, err, tol, ok, k_fn, p_fn, bnd, lib_fn=None, record=False,
+               **extra_fns):
         ms, plain_ms = median_ms(k_fn), median_ms(p_fn)
         lib = library_ms(lib_fn) if lib_fn is not None else None
+        extra = {key: median_ms(fn) for key, fn in extra_fns.items()}
         if record:
             results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                             "library_ms": lib}
+                             "library_ms": lib, **extra}
         print(f"[kernel] {name} {shape}: max_abs_err={err:.3e} ({tol}) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
-              f"library_ms={lib if lib is None else round(lib, 4)}", flush=True)
+              f"library_ms={lib if lib is None else round(lib, 4)}"
+              + "".join(f" {key}={v:.4f}" for key, v in extra.items()), flush=True)
         check(ok, f"{name} {shape} within {tol}")
 
     def within(got, ref, scale):
@@ -2912,27 +2926,153 @@ def phase_mofa_kernels(tmo, Ys, cuda) -> dict:
                    (lambda: Ek.addr_(zk, swk)) if Bm is None else None,
                    record=main and Bm is None)
             del Ek, Ep
+
+        # the fused passes: factor k's correction (x, y = zk, swk) with factor
+        # k + 1's sum over the corrected E, as the w sweep (z = Z[:, 4]) and
+        # the z sweep (x = a contiguous delta, t = SW[:, 4], t1, t2) call
+        # them: the bits of T20 then T17 or T19, timed beside that pair and
+        # beside E.addr_ then torch.mv (two PyTorch calls; no one call
+        # computes either, so library_ms stays null)
+        zn, delta, tn = Z[:, 4], Z[:, 5].contiguous(), SW[:, 4]
+        passes = (
+            ("mofa_rank1_col_dot", zk, (zn,), tmo.rank1_col_dot, tmo.rank1_col_dot_plain,
+             lambda Ea, Bm, v: tmo.col_dot(tmo.rank1_update(Ea, zk, swk, Bm), *v),
+             lambda Ea, v: torch.mv(Ea.addr_(zk, swk).T, v[0])),
+            ("mofa_rank1_row_dot", delta, (tn, t1, t2), tmo.rank1_row_dot,
+             tmo.rank1_row_dot_plain,
+             lambda Ea, Bm, v: tmo.row_dot(tmo.rank1_update(Ea, delta, swk, Bm), v[0], Bm,
+                                           *v[1:]),
+             lambda Ea, v: torch.mv(Ea.addr_(delta, swk), v[0])),
+        )
+        for name, x, vecs, fused, plain, pair, torch_pair in passes:
+            for tag, Bm in (("", None), (" masked", B)):
+                v = vecs if Bm is not None or name.endswith("col_dot") else vecs[:1]
+                Ef, Ea, Ep = E.clone(), E.clone(), E.clone()
+                got = as_tuple(fused(Ef, x, swk, Bm, *v))
+                alone = as_tuple(pair(Ea, Bm, v))
+                refs = as_tuple(plain(Ep, x, swk, Bm, *v))
+                torch.cuda.synchronize()
+                same = torch.equal(Ef, Ea) and all(torch.equal(g, a) for g, a in zip(got, alone))
+                corr = (x[:, None] * swk[None, :]).abs()
+                e_ok = bool(((Ef - Ep).abs() <= 1e-6 * (Ep.abs() + corr)).all())
+                if name.endswith("col_dot"):
+                    scales = (v[0].abs() @ Ep.abs(),)
+                else:
+                    scales = (Ep.abs() @ v[0].abs(),) + tuple(Bm @ t.abs() for t in v[1:])
+                sums_ok = all(within(g, r, sc) for g, r, sc in zip(got, refs, scales))
+                err = max([(Ef - Ep).abs().max().item()]
+                          + [(g - r).abs().max().item() for g, r in zip(got, refs)])
+                # E and B read once, E written once, the vectors and the sums
+                bytes_ = (2 * nbytes(E) + (nbytes(B) if Bm is not None else 0)
+                          + 4 * (2 * n + 2 * d) + 4 * (len(v) - 1) * (d + n))
+                ops = n * d * ((3 if Bm is not None else 2) + 2 * len(v))
+                report(name, shape + tag, err,
+                       "the bits of T20 then the sum; 1e-6 x (|E| + |x y|) and 1e-5 x the "
+                       "sums' |terms| of plain", same and e_ok and sums_ok,
+                       lambda: fused(Ef, x, swk, Bm, *v), lambda: plain(Ep, x, swk, Bm, *v),
+                       bound(bytes_, ops, F32_OPS_PER_S), record=main and Bm is None,
+                       pair_ms=lambda: pair(Ea, Bm, v),
+                       **({"torch_two_calls_ms": lambda: torch_pair(Ea, v)}
+                          if Bm is None else {}))
+                check(same, f"{name} {shape}{tag}: the bits of T20 then its sum")
+                del Ef, Ea, Ep
         del E, Z, SW, B
     torch.cuda.empty_cache()
     return results
 
 
 @contextmanager
-def plain_kernels(module, names):
-    """Route ``module``'s kernel wrappers to their plain versions for the
-    block (only this script swaps the module attributes; they are restored
-    after)."""
-    saved = {n: getattr(module, n) for n in names}
+def patched(module, **attrs):
+    """Set ``module``'s attributes for the block (only this script swaps
+    them), and put them back after."""
+    saved = {n: getattr(module, n) for n in attrs}
     try:
-        for n in names:
-            setattr(module, n, getattr(module, f"{n}_plain"))
+        for n, v in attrs.items():
+            setattr(module, n, v)
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(module, n, fn)
+        for n, v in saved.items():
+            setattr(module, n, v)
 
 
-MOFA_WRAPPERS = ("col_dot", "w_posterior", "row_dot", "rank1_update", "bound_refresh")
+def plain_kernels(module, names):
+    """Route ``module``'s kernel wrappers to their plain versions for the
+    block."""
+    return patched(module, **{n: getattr(module, f"{n}_plain") for n in names})
+
+
+def as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def leaves_apart(a: dict, b: dict) -> list:
+    """The leaves of two states that are not the same bits."""
+    out = []
+    for key, val in a.items():
+        for i, x in enumerate(val if isinstance(val, list) else [val]):
+            y = b[key][i] if isinstance(val, list) else b[key]
+            if not ((x is None and y is None) or torch.equal(x, y)):
+                out.append(f"{key}[{i}]")
+    return out
+
+
+def standalone_sweeps(tm, tmo) -> dict:
+    """``_w_sweep`` and ``_z_sweep`` as the sweeps ran them with one kernel a
+    pass over E: per factor T17, T18 and T20 on a view; T19 on every view,
+    the posterior, T20 on every view."""
+
+    def w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_ln1m,
+                W_hat, W_var, S, SW, scale=None, red=tm.NO_MESH):
+        if B is None:
+            z2s, zzs = red.cells(torch.stack([z2.sum(dim=0), zz.sum(dim=0)]))
+        else:
+            z2s, zzs = red.cells(torch.stack([z2.T @ B, zz.T @ B]))
+        if scale is not None:
+            z2s, zzs = z2s * scale, zzs * scale
+        for k in range(config.n_factors):
+            zk = Zm[:, k]
+            u = red.cells(tmo.col_dot(E, zk))
+            delta = tmo.w_posterior(u, tau, z2s[k], zzs[k], alpha, ln_alpha, theta_ln,
+                                    theta_ln1m, m, k, W_hat, W_var, S, SW,
+                                    spikeslab=config.spikeslab_weights, scale=scale)
+            tmo.rank1_update(E, zk, delta, B)
+
+    def z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
+                red=tm.NO_MESH):
+        M = len(Es)
+        tSW = [taus[m][:, None] * SWs[m] for m in range(M)]
+        tSWW = [taus[m][:, None] * SWW[m] for m in range(M)]
+        tSW2 = [taus[m][:, None] * SWs[m] * SWs[m] for m in range(M)]
+        p_all = [None if Bs[m] is not None else tSWW[m].sum(dim=0) for m in range(M)]
+        q_all = [None if Bs[m] is not None else tSW2[m].sum(dim=0) for m in range(M)]
+        for k in range(config.n_factors):
+            zk = Zm[:, k]
+            p = torch.zeros_like(prior_prec[:, k]) if red.feat_split else prior_prec[:, k]
+            b = torch.zeros_like(p)
+            for m in range(M):
+                if Bs[m] is None:
+                    p = p + p_all[m][k]
+                    b = b + tmo.row_dot(Es[m], tSW[m][:, k]) + zk * q_all[m][k]
+                else:
+                    r, pb, qb = tmo.row_dot(Es[m], tSW[m][:, k], Bs[m], tSWW[m][:, k],
+                                            tSW2[m][:, k])
+                    p = p + pb
+                    b = b + r + zk * qb
+            if red.feat_split:
+                p, b = red.feat(torch.stack([p, b]))
+                p = prior_prec[:, k] + p
+            z_new, v_new = (b / p, 1.0 / p) if posterior is None else posterior(k, p, b)
+            delta = zk - z_new
+            for m in range(M):
+                tmo.rank1_update(Es[m], delta, SWs[m][:, k], Bs[m])
+            Zm[:, k] = z_new
+            Zv[:, k] = v_new
+
+    return {"_w_sweep": w_sweep, "_z_sweep": z_sweep}
+
+
+MOFA_WRAPPERS = ("col_dot", "w_posterior", "row_dot", "rank1_update", "rank1_col_dot",
+                 "rank1_row_dot", "bound_refresh")
 
 
 def check_launches(launches, want: dict, what: str) -> None:
@@ -3016,7 +3156,24 @@ def phase_mofa_full(tm, tmo, kernels, profiling, Zp, Ys, cuda):
           f"leaf error {worst:.2e} of the leaf's largest entry ({worst_leaf}), ELBO rel "
           f"{elbo_rel:.2e} (<= 1e-4)", flush=True)
     check(worst <= 1e-4 and elbo_rel <= 1e-4, "one MOFA sweep vs the plain path within 1e-4")
-    del state, got, ref
+
+    # the package's loops run a factor's correction and the next factor's sum
+    # as one pass; the loops of standalone kernels below, written here, must
+    # give every leaf of the same sweep the same bits
+    with patched(tm, **standalone_sweeps(tm, tmo)):
+        kernels.reset_launch_counts()
+        alone, elbo_a = step(state)
+        launched = kernels.launch_counts()
+    apart = leaves_apart(got, alone)
+    print(f"[mofa] one sweep through the package's fused loops against loops of standalone "
+          f"kernels (T17, T18, T20; T19, T20): leaves apart {apart}, ELBO equal "
+          f"{bool(torch.equal(elbo_k, elbo_a))}; the standalone sweep launched "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    check(not apart and torch.equal(elbo_k, elbo_a)
+          and launched["mofa_rank1_col_dot"] == launched["mofa_rank1_row_dot"] == 0
+          and launched["mofa_rank1_update"] == 4 * MOFA_K,
+          "one MOFA sweep through the fused loops equals the standalone kernels' bit for bit")
+    del state, got, ref, alone
 
     # the ELBO of every sweep: coordinate ascent never lets it fall
     e = tm.fit_mofa(Ys, cfg, n_iterations=MOFA_SWEEPS, min_iterations=MOFA_SWEEPS,
@@ -5603,8 +5760,9 @@ def mesh_mefisto(mesh, work, kernels, profiling, tag, cases):
     last bits of p and b, summed in another order, grow), the ELBO within
     1e-4; then every ELBO within 1e-4 (the dense GP's within the larger of
     1e-4 and MEF_FLOOR_TIMES times the float32-order floor measured beside
-    its reference), ℓ and s equal, Kg of the active factors within 1e-4, the
-    warped covariate within 1e-6, the planted trajectories' canonical
+    its reference), ℓ and s equal, Kg of the active factors within the
+    larger of 1e-4 and MEF_FLOOR_TIMES times its own floor, the warped
+    covariate within 1e-6, the planted trajectories' canonical
     correlations > 0.9 where [mefisto*] gates them (else within 1e-3 of the
     single device's)."""
     from muon_tpu_torch.models import mofa as tm
@@ -5664,9 +5822,14 @@ def mesh_mefisto(mesh, work, kernels, profiling, tag, cases):
         if "Kg" in ref:
             keep = ref["Z"].std(axis=0) > 0.05 * ref["Z"].std(axis=0).max()
             info[f"{case}_Kg_err"] = float(np.abs(res.gp_group_corr[keep] - ref["Kg"][keep]).max())
+            # Kg's refit follows float32 noise at its optimum: held, as the
+            # ELBO above, to a few times its own floor, measured in this run
             info[f"{case}_floor_Kg"] = float(ref["floor_Kg"])
-            checks[f"{tag} {case}: Kg of the active factors within 1e-4 of the single-device "
-                   "fit's"] = info[f"{case}_Kg_err"] <= 1e-4
+            ktol = info[f"{case}_Kg_tol"] = max(1e-4, MEF_FLOOR_TIMES * info[f"{case}_floor_Kg"])
+            checks[f"{tag} {case}: Kg of the active factors within {ktol:.3g} of the "
+                   f"single-device fit's (the larger of 1e-4 and {MEF_FLOOR_TIMES} x the "
+                   f"float32-order floor {info[f'{case}_floor_Kg']:.3g})"] = \
+                info[f"{case}_Kg_err"] <= ktol
         if "warped" in ref:
             info[f"{case}_warped_err"] = float(np.abs(res.warped_covariates - ref["warped"]).max())
             checks[f"{tag} {case}: the warped covariate within 1e-6 of the single-device "

@@ -52,35 +52,59 @@ __device__ __forceinline__ int ordered(float x) {
 // kk slots (a pad there measures cell 0, as in the reference).
 //
 // One block per cell. The cell's neighbour set is sorted into shared memory
-// (rank sort), so each Jaccard intersection is kk binary searches; the order
-// of the C candidates is a rank count over (score, position), O(C^2) per
-// cell, which at C = 209 is 44k comparisons spread over the block. The
-// gathers (neighbour rows, bf16 reps) stay in L2 at 100k cells (NI 7.6 MB,
-// reps 10 MB). Bound by the per-candidate gathers and the rank count.
-// Not done yet (later work): a warp per cell with a bitonic top-osz.
+// (rank sort), so each Jaccard intersection is kk binary searches (each the
+// first equal entry, then the run of equal ones). The selection of the
+// first osz candidates by (score, position) is exact and linear in C:
+//   1. the osz-th smallest ordered score s*, by a radix select of its four
+//      8-bit digits, each a 256-bin histogram in shared memory built with
+//      integer atomics (one a warp and digit), so the counts, and s*, do
+//      not depend on the order of the adds;
+//   2. the survivors: every candidate below s*, and of those equal to s*
+//      the lowest positions, by a block-wide prefix count in position
+//      order, compacted into the osz slots of `drop`;
+//   3. their order by (score, position): a rank count over osz^2 (6,400 at
+//      osz = 80).
+// That is O(4 C + osz^2) a cell where a rank count over all C candidates
+// was O(C^2) (1.09e9 comparisons a cell at kk = 256, 44k at kk = 19), and
+// it gives the same top[] as any exact sort of the keys (the plain
+// version's torch.topk of (ordered score, position)). The Jaccard searches
+// then set the time: C kk binary searches a cell (1.4e8 shared-memory steps
+// at kk = 256, stride 2), with the candidates' neighbour rows gathered from
+// L2, and the distances' d-wide bf16 rows. The gathers (neighbour rows,
+// bf16 reps) stay in L2 at 100k cells (NI 7.6 MB, reps 10 MB).
 // ---------------------------------------------------------------------------
 
 constexpr int kBwThreads = 256;
 
-// the number of entries of the sorted sx[0, kk) equal to y
+// the number of entries of the sorted sx[0, kk) equal to y: the first
+// entry not below y, then the run of entries equal to it
 __device__ __forceinline__ int count_equal(const int* sx, int kk, int y) {
   int lo = 0, hi = kk;
   while (lo < hi) {  // first >= y
     const int mid = (lo + hi) >> 1;
     if (sx[mid] < y) lo = mid + 1; else hi = mid;
   }
-  int lo2 = lo, hi2 = kk;
-  while (lo2 < hi2) {  // first > y
-    const int mid = (lo2 + hi2) >> 1;
-    if (sx[mid] <= y) lo2 = mid + 1; else hi2 = mid;
-  }
-  return lo2 - lo;
+  int run = 0;
+  while (lo + run < kk && sx[lo + run] == y) ++run;
+  return run;
 }
+
+// an unsigned key that orders as ordered(x), so as the score does
+__device__ __forceinline__ unsigned score_key(float x) {
+  return (unsigned)ordered(x) ^ 0x80000000u;
+}
+
+// the kernel's static shared memory, in ints: the radix histogram, the
+// per-warp tie counts and four scalars (ops/wnn.py BANDWIDTH_STATIC_SMEM)
+constexpr int kBins = 256;
+constexpr int kBwWarps = kBwThreads / 32;
+constexpr int kBwStatic = kBins + kBwWarps + 4;
 
 // The candidates' tables (ids, scores, distances, the top-osz order) live in
 // the block's shared memory, or, when `scratch` is given, in global memory:
 // 3 C + 2 osz words per block. C grows as kk^2, so from kk of about 195 (at
-// stride 2) the tables pass the 227 KB a block may take; the global variant
+// stride 2) the tables and the selection's 1 KB of static shared memory
+// pass the 227 KB a block may take; the global variant
 // then runs a fixed grid whose blocks walk the cells in turn, each block
 // with its own slice of the scratch. The arithmetic and every order are the
 // same in both variants. The sorted set and the cell's rep stay in shared
@@ -106,7 +130,13 @@ __global__ void __launch_bounds__(kBwThreads)
   int* drop = top + osz;              // osz: bad or duplicate
   float* score = reinterpret_cast<float*>(drop + osz);  // C
   float* eucl = score + C;            // C
-  __shared__ float fallback_sum;
+  __shared__ int sel[kBwStatic];
+  int* hist = sel;                               // kBins
+  int* warp_ties = hist + kBins;                 // kBwWarps
+  int& digit_at = warp_ties[kBwWarps];           // the radix pass's digit
+  int& digit_below = warp_ties[kBwWarps + 1];    // keys of the prefix below it
+  int& taken = warp_ties[kBwWarps + 2];          // survivors compacted
+  int& fallback_bits = warp_ties[kBwWarps + 3];  // the first kk distances' sum
 
   const int t = threadIdx.x;
   for (int w = blockIdx.x; w < rows; w += gridDim.x) {
@@ -159,17 +189,83 @@ __global__ void __launch_bounds__(kBwThreads)
     }
     __syncthreads();
 
-    // the first osz by (score, position): rank count, every rank distinct
-    for (int p = t; p < C; p += blockDim.x) {
-      const int key = ordered(score[p]);
-      int rank = 0;
-      for (int j = 0; j < C; ++j) {
-        const int kj = ordered(score[j]);
-        rank += (kj < key) || (kj == key && j < p);
+    // the first osz by (score, position), in three steps (above). `drop`
+    // holds the survivors' positions until the walk needs it.
+    const int lane = t % 32, warp = t / 32;
+    int* surv = drop;
+    if (osz < C) {
+      unsigned prefix = 0u, known = 0u;  // s*'s digits found so far, and their bits
+      int want = osz;                    // s*'s rank among the keys with that prefix
+      for (int shift = 24; shift >= 0; shift -= 8) {
+        for (int h = t; h < kBins; h += blockDim.x) hist[h] = 0;
+        __syncthreads();
+        for (int p0 = 0; p0 < C; p0 += blockDim.x) {  // whole warps, for the match
+          const int p = p0 + t;
+          const unsigned key = p < C ? score_key(score[p]) : 0u;
+          const bool in = p < C && (key & known) == prefix;
+          const int digit = in ? (int)((key >> shift) & 255u) : kBins;
+          const unsigned peers = __match_any_sync(kFull, digit);
+          if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+        }
+        __syncthreads();
+        if (warp == 0) {  // the digit where the count of keys reaches want
+          int cnt[kBins / 32], sum = 0;
+#pragma unroll
+          for (int i = 0; i < kBins / 32; ++i) sum += cnt[i] = hist[lane * (kBins / 32) + i];
+          int incl = sum;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += v;
+          }
+          int below = incl - sum;
+          const unsigned hit = __ballot_sync(kFull, below < want && want <= incl);
+          if (lane == __ffs(hit) - 1) {
+            int i = 0;
+            while (below + cnt[i] < want) below += cnt[i++];
+            digit_at = lane * (kBins / 32) + i;
+            digit_below = below;
+          }
+        }
+        __syncthreads();
+        prefix |= (unsigned)digit_at << shift;
+        known |= 255u << shift;
+        want -= digit_below;
       }
-      if (rank < osz) top[rank] = p;
+      // prefix is s*: keep every key below it and the `want` lowest
+      // positions of the keys equal to it
+      if (t == 0) taken = 0;
+      int ties_before = 0;  // keys equal to s* at positions of earlier chunks
+      for (int p0 = 0; p0 < C; p0 += blockDim.x) {
+        const int p = p0 + t;
+        const unsigned key = p < C ? score_key(score[p]) : 0u;
+        const bool tie = p < C && key == prefix;
+        const unsigned ties = __ballot_sync(kFull, tie);
+        if (lane == 0) warp_ties[warp] = __popc(ties);
+        __syncthreads();
+        int rank = ties_before + __popc(ties & ((1u << lane) - 1u));
+        for (int v = 0; v < warp; ++v) rank += warp_ties[v];
+        for (int v = 0; v < kBwWarps; ++v) ties_before += warp_ties[v];
+        if ((p < C && key < prefix) || (tie && rank < want)) surv[atomicAdd(&taken, 1)] = p;
+        __syncthreads();  // warp_ties is read before the next chunk writes it
+      }
+    } else {
+      for (int p = t; p < C; p += blockDim.x) surv[p] = p;
     }
     __syncthreads();
+    // the survivors in (score, position) order: a rank count, ranks distinct
+    for (int i = t; i < osz; i += blockDim.x) {
+      const int p = surv[i];
+      const unsigned key = score_key(score[p]);
+      int rank = 0;
+      for (int j = 0; j < osz; ++j) {
+        const int q = surv[j];
+        const unsigned kq = score_key(score[q]);
+        rank += (kq < key) || (kq == key && q < p);
+      }
+      top[rank] = p;
+    }
+    __syncthreads();  // top is whole before `drop` is overwritten
     for (int r = t; r < osz; r += blockDim.x) {
       const int c = cand[top[r]];
       bool bad = score[top[r]] >= bad_score;
@@ -179,7 +275,7 @@ __global__ void __launch_bounds__(kBwThreads)
     if (t == 0) {
       float f = 0.f;
       for (int p = 0; p < kk; ++p) f += eucl[p];
-      fallback_sum = f;
+      fallback_bits = __float_as_int(f);
     }
     __syncthreads();
     if (t == 0) {
@@ -191,7 +287,7 @@ __global__ void __launch_bounds__(kBwThreads)
         ++cnt;
       }
       sigma[w] = cnt > 0 ? __fdiv_rn(sum, (float)cnt)
-                         : __fdiv_rn(fallback_sum, (float)kk);
+                         : __fdiv_rn(__int_as_float(fallback_bits), (float)kk);
     }
     __syncthreads();  // the tables are reused by the block's next cell
   }

@@ -22,12 +22,14 @@ keys with the same meaning, as tensors (``state_from_reference`` and
 ``state_to_reference`` carry one across).
 
 Where the reference loops over the factors inside one compiled program,
-the sweeps here call four kernels per factor and view (ops/mofa.py): T17
+the sweeps here call kernels per factor and view (ops/mofa.py): T17
 (zk @ E, and Σ E² for τ), T18 (the posterior of one factor's weights), T19
 (E @ tsw, with the mask's two sums) and T20 (the rank-1 correction of E, in
-place). A bernoulli or poisson view refreshes its local bound at the start
-of each sweep with T23 and then runs the masked path with B = the bound's
-per-entry precisions. Smooth factors take their prior covariances from T24
+place). Between two factors the correction and the next factor's sum are
+one pass over E (``rank1_col_dot`` in the w sweep, ``rank1_row_dot`` in the
+z sweep), with the bits of the two kernels. A bernoulli or poisson view
+refreshes its local bound at the start of each sweep with T23 and then runs
+the masked path with B = the bound's per-entry precisions. Smooth factors take their prior covariances from T24
 (ops/gp.py) and their posteriors from torch Cholesky factors and triangular
 solves. The products that stand outside the loop are ``torch.matmul``. A
 sweep copies what it updates, so a state handed to a callback or a
@@ -206,7 +208,9 @@ def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_
              W_hat, W_var, S, SW, scale=None, red=NO_MESH):
     """The K coordinate updates of one view's weights (the reference's
     ``w_body`` loop): E and the four weight tensors are updated in place.
-    The sums over the cells go through ``red.cells``."""
+    The sums over the cells go through ``red.cells``. Factor k's correction
+    of E and factor k + 1's ``zk @ E`` are one pass (``rank1_col_dot``);
+    the first factor's sum and the last factor's correction stand alone."""
     K = config.n_factors
     if B is None:
         z2s, zzs = red.cells(torch.stack([z2.sum(dim=0), zz.sum(dim=0)]))  # (K,) each
@@ -214,13 +218,16 @@ def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_
         z2s, zzs = red.cells(torch.stack([z2.T @ B, zz.T @ B]))            # (K, D) each
     if scale is not None:
         z2s, zzs = z2s * scale, zzs * scale
+    u = ops.col_dot(E, Zm[:, 0])
     for k in range(K):
         zk = Zm[:, k]
-        u = red.cells(ops.col_dot(E, zk))
-        delta = ops.w_posterior(u, tau, z2s[k], zzs[k], alpha, ln_alpha, theta_ln,
+        delta = ops.w_posterior(red.cells(u), tau, z2s[k], zzs[k], alpha, ln_alpha, theta_ln,
                                 theta_ln1m, m, k, W_hat, W_var, S, SW,
                                 spikeslab=config.spikeslab_weights, scale=scale)
-        ops.rank1_update(E, zk, delta, B)
+        if k + 1 < K:
+            u = ops.rank1_col_dot(E, zk, delta, B, Zm[:, k + 1])
+        else:
+            ops.rank1_update(E, zk, delta, B)
 
 
 def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
@@ -230,26 +237,34 @@ def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
     gives factor k's new (mean, variance) from its precision p and its
     linear term b; without one, (b/p, 1/p). Where the features are cut
     (``red.feat_split``) the views' partial p and b of a factor are summed
-    first and then over the feat axis, one all-reduce a factor."""
+    first and then over the feat axis, one all-reduce a factor. Factor k's
+    correction of each E and factor k + 1's ``Es[m] @ tsw`` are one pass
+    (``rank1_row_dot``); the first factor's sums and the last factor's
+    corrections stand alone."""
     M = len(Es)
+    K = config.n_factors
     tSW = [taus[m][:, None] * SWs[m] for m in range(M)]            # (D, K)
     tSWW = [taus[m][:, None] * SWW[m] for m in range(M)]
     tSW2 = [taus[m][:, None] * SWs[m] * SWs[m] for m in range(M)]
     # an unmasked view adds the same two numbers to every cell
     p_all = [None if Bs[m] is not None else tSWW[m].sum(dim=0) for m in range(M)]
     q_all = [None if Bs[m] is not None else tSW2[m].sum(dim=0) for m in range(M)]
-    for k in range(config.n_factors):
+
+    def sums(k):  # T19's vectors of factor k: each view's t, and with a mask t1, t2
+        return [(tSW[m][:, k],) if Bs[m] is None else (tSW[m][:, k], tSWW[m][:, k], tSW2[m][:, k])
+                for m in range(M)]
+
+    rs = [ops.row_dot(Es[m], t[0], Bs[m], *t[1:]) for m, t in enumerate(sums(0))]
+    for k in range(K):
         zk = Zm[:, k]
         p = torch.zeros_like(prior_prec[:, k]) if red.feat_split else prior_prec[:, k]
         b = torch.zeros_like(p)
         for m in range(M):
             if Bs[m] is None:
-                r = ops.row_dot(Es[m], tSW[m][:, k])
                 p = p + p_all[m][k]
-                b = b + r + zk * q_all[m][k]
+                b = b + rs[m] + zk * q_all[m][k]
             else:
-                r, pb, qb = ops.row_dot(Es[m], tSW[m][:, k], Bs[m], tSWW[m][:, k],
-                                        tSW2[m][:, k])
+                r, pb, qb = rs[m]
                 p = p + pb
                 b = b + r + zk * qb
         if red.feat_split:
@@ -260,8 +275,12 @@ def _z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
         else:
             z_new, v_new = posterior(k, p, b)
         delta = zk - z_new
-        for m in range(M):
-            ops.rank1_update(Es[m], delta, SWs[m][:, k], Bs[m])
+        if k + 1 < K:
+            rs = [ops.rank1_row_dot(Es[m], delta, SWs[m][:, k], Bs[m], *t)
+                  for m, t in enumerate(sums(k + 1))]
+        else:
+            for m in range(M):
+                ops.rank1_update(Es[m], delta, SWs[m][:, k], Bs[m])
         Zm[:, k] = z_new
         Zv[:, k] = v_new
 

@@ -77,6 +77,9 @@ _SIGNATURES = {
                             _I, _P, _P, _P, _P, _P, _P),
     "mt_mofa_row_dot": (_P, _P, _LL, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_rank1_update": (_P, _P, _LL, _P, _LL, _P, _I, _I, _P),
+    "mt_mofa_rank1_col_dot": (_P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
+    "mt_mofa_rank1_row_dot": (_P, _P, _LL, _P, _LL, _P, _P, _LL, _P, _P, _LL, _I, _I, _P, _P,
+                              _P, _P),
     "mt_gmm_background_means": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     "mt_umap_epoch_asym": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
@@ -152,6 +155,8 @@ KERNELS = {
     "binarize_values": "mt_binarize_values",
     "knn_ring_merge": "mt_knn_ring_merge",
     "umap_epoch_block": "mt_umap_epoch_block",
+    "mofa_rank1_col_dot": "mt_mofa_rank1_col_dot",  # T20 then T17, one pass over E
+    "mofa_rank1_row_dot": "mt_mofa_rank1_row_dot",  # T20 then T19, one pass over E
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

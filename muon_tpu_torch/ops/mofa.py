@@ -6,6 +6,8 @@ and ``_make_svi_step``).
     w_posterior   T18  <- w_body's posterior of one factor's weights
     row_dot       T19  <- Es[m] @ tsw (z_body; masked: B @ tSWW[:, k], B @ tSW2[:, k])
     rank1_update  T20  <- E + zk ⊗ δ and E + δ ⊗ swk (times B where masked)
+    rank1_col_dot      <- T20 then T17 of the next factor, one pass over E
+    rank1_row_dot      <- T20 then T19 of the next factor, one pass over E
     bound_refresh T23  <- the bernoulli / poisson bound refresh at the start of
                           a sweep: precisions T, residual E, SVI target
                           (csrc/mofa_kernels.cu)
@@ -15,8 +17,9 @@ shape. A vector argument may be a strided view (column k of a row-major
 (N, K) or (D, K) tensor) or, where a scalar is meant, a 0-dim tensor: the
 kernels take each with its stride, so the sweeps slice and never copy.
 ``w_posterior`` writes column k of the four weight tensors and
-``rank1_update`` writes E, both in place; the sweeps work on their own
-copies of the state.
+``rank1_update`` (and the two fused passes) write E, all in place; the
+sweeps work on their own copies of the state. The fused passes give the
+bits of T20 then T17 or T19: the sweeps call them between two factors.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
@@ -34,6 +37,7 @@ from .device import on_card
 __all__ = [
     "col_dot", "col_dot_plain", "w_posterior", "w_posterior_plain",
     "row_dot", "row_dot_plain", "rank1_update", "rank1_update_plain",
+    "rank1_col_dot", "rank1_col_dot_plain", "rank1_row_dot", "rank1_row_dot_plain",
     "bound_refresh", "bound_refresh_plain",
 ]
 
@@ -95,17 +99,23 @@ def col_dot(E: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
         return col_dot_plain(E, z)
     n, d = _matrix(E, "E", E.device)
     z_ptr, z_stride = (0, 0) if z is None else _vector(z, n, "z", E.device, broadcast_ok=True)
-    partial = torch.empty((max(1, -(-n // _TILE_ROWS)), d), dtype=torch.float32,
-                          device=E.device)
-    u = torch.empty(d, dtype=torch.float32, device=E.device)
-    strips = -(-d // 32)  # the 4-byte variant's
-    done = _CD_DONE.get(E.device)
-    if done is None or done.numel() < strips:
-        done = _CD_DONE[E.device] = torch.zeros(max(strips, 1024), dtype=torch.int32,
-                                                device=E.device)
+    partial, done, u = _col_dot_scratch(E.device, n, d)
     _kernels.launch("mofa_col_dot", E.device, E.data_ptr(), z_ptr, z_stride, n, d,
                     partial.data_ptr(), done.data_ptr(), u.data_ptr())
     return u
+
+
+def _col_dot_scratch(device, n: int, d: int):
+    """T17's partial sums (one row a tile of 256 rows), its per-strip
+    counters (``_CD_DONE``) and the output u."""
+    partial = torch.empty((max(1, -(-n // _TILE_ROWS)), d), dtype=torch.float32, device=device)
+    u = torch.empty(d, dtype=torch.float32, device=device)
+    strips = -(-d // 32)  # the 4-byte variant's
+    done = _CD_DONE.get(device)
+    if done is None or done.numel() < strips:
+        done = _CD_DONE[device] = torch.zeros(max(strips, 1024), dtype=torch.int32,
+                                              device=device)
+    return partial, done, u
 
 
 def col_dot_plain(E: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -248,14 +258,8 @@ def rank1_update(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     returns E. ``x`` (N,) and ``y`` (D,) may be strided."""
     if not on_card(E):
         return rank1_update_plain(E, x, y, B)
-    dev = E.device
-    n, d = _matrix(E, "E", dev)
-    x_ptr, x_stride = _vector(x, n, "x", dev)
-    y_ptr, y_stride = _vector(y, d, "y", dev)
-    if B is not None:
-        _matrix(B, "B", dev, (n, d))
-    _kernels.launch("mofa_rank1_update", dev, E.data_ptr(), x_ptr, x_stride, y_ptr,
-                    y_stride, 0 if B is None else B.data_ptr(), n, d)
+    (n, d), args = _rank1_args(E, x, y, B)
+    _kernels.launch("mofa_rank1_update", E.device, *args, n, d)
     return E
 
 
@@ -263,6 +267,78 @@ def rank1_update_plain(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                        B: Optional[torch.Tensor] = None) -> torch.Tensor:
     corr = x[:, None] * y[None, :]
     return E.add_(corr if B is None else corr * B)
+
+
+def _rank1_args(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor, B: Optional[torch.Tensor]):
+    """T20's pointers and strides: E, x, x's stride, y, y's stride, B (0
+    unmasked), after the checks of ``rank1_update``."""
+    dev = E.device
+    n, d = _matrix(E, "E", dev)
+    x_ptr, x_stride = _vector(x, n, "x", dev)
+    y_ptr, y_stride = _vector(y, d, "y", dev)
+    if B is not None:
+        _matrix(B, "B", dev, (n, d))
+    return (n, d), (E.data_ptr(), x_ptr, x_stride, y_ptr, y_stride,
+                    0 if B is None else B.data_ptr())
+
+
+def rank1_col_dot(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  B: Optional[torch.Tensor], z: torch.Tensor) -> torch.Tensor:
+    """T20 then T17 in one pass over E: E[n, d] += x[n]·y[d] (times B[n, d]
+    where masked) in place, then ``u (D,)`` with u[d] = Σ_n z[n]·E[n, d]
+    over the corrected E. The same bits as ``rank1_update`` then
+    ``col_dot``: the w sweep's correction of factor k with factor k + 1's
+    reduction. ``z`` may be strided or a broadcast."""
+    if not on_card(E):
+        return rank1_col_dot_plain(E, x, y, B, z)
+    (n, d), args = _rank1_args(E, x, y, B)
+    z_ptr, z_stride = _vector(z, n, "z", E.device, broadcast_ok=True)
+    partial, done, u = _col_dot_scratch(E.device, n, d)
+    _kernels.launch("mofa_rank1_col_dot", E.device, *args, z_ptr, z_stride, n, d,
+                    partial.data_ptr(), done.data_ptr(), u.data_ptr())
+    return u
+
+
+def rank1_col_dot_plain(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        B: Optional[torch.Tensor], z: torch.Tensor) -> torch.Tensor:
+    return col_dot_plain(rank1_update_plain(E, x, y, B), z)
+
+
+def rank1_row_dot(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  B: Optional[torch.Tensor], t: torch.Tensor,
+                  t1: Optional[torch.Tensor] = None, t2: Optional[torch.Tensor] = None):
+    """T20 then T19 in one pass over E: E[n, d] += x[n]·y[d] (times B[n, d]
+    where masked) in place, then ``r (N,)`` with r[n] = Σ_d E[n, d]·t[d]
+    over the corrected E; with the mask ``B`` also Σ_d B·t1 and Σ_d B·t2,
+    returned as ``(r, pb, qb)``. The same bits as ``rank1_update`` then
+    ``row_dot``: the z sweep's correction of factor k with factor k + 1's
+    reduction."""
+    if (B is None) != (t1 is None) or (B is None) != (t2 is None):
+        raise ValueError("B, t1 and t2 come together")
+    if not on_card(E):
+        return rank1_row_dot_plain(E, x, y, B, t, t1, t2)
+    dev = E.device
+    (n, d), args = _rank1_args(E, x, y, B)
+    t_ptr, t_stride = _vector(t, d, "t", dev)
+    r = torch.empty(n, dtype=torch.float32, device=dev)
+    if B is None:
+        _kernels.launch("mofa_rank1_row_dot", dev, *args, t_ptr, t_stride, 0, 0, 0, n, d,
+                        r.data_ptr(), 0, 0)
+        return r
+    t1_ptr, t1_stride = _vector(t1, d, "t1", dev)
+    t2_ptr, t2_stride = _vector(t2, d, "t2", dev)
+    if t1_stride != t2_stride:
+        raise ValueError(f"t1 and t2 must share a stride, got {t1_stride} and {t2_stride}")
+    pb, qb = torch.empty_like(r), torch.empty_like(r)
+    _kernels.launch("mofa_rank1_row_dot", dev, *args, t_ptr, t_stride, t1_ptr, t2_ptr,
+                    t1_stride, n, d, r.data_ptr(), pb.data_ptr(), qb.data_ptr())
+    return r, pb, qb
+
+
+def rank1_row_dot_plain(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        B: Optional[torch.Tensor], t: torch.Tensor,
+                        t1: Optional[torch.Tensor] = None, t2: Optional[torch.Tensor] = None):
+    return row_dot_plain(rank1_update_plain(E, x, y, B), t, B, t1, t2)
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,11 @@ __all__ = [
 
 # above this many rows the reference's neighbors take the approximate kNN
 APPROX_ROWS = 20_000
-# the largest dynamic shared memory a block may opt into on sm_90 (bytes)
+# the largest shared memory a block may opt into on sm_90 (bytes)
 MAX_SMEM = 227 * 1024
+# T9's static shared memory (bytes): its selection's 256-bin histogram, the
+# per-warp tie counts and four scalars (kBwStatic ints in the source)
+BANDWIDTH_STATIC_SMEM = 4 * (256 + 8 + 4)
 # blocks of T9's global-memory variant (4 per SM of an H100), each with its
 # own slice of the scratch
 BANDWIDTH_SCRATCH_BLOCKS = 528
@@ -237,11 +240,18 @@ def _check(t: torch.Tensor, dtype, shape, name: str, device) -> None:
 def _bandwidth_smem(kk: int, d: int, n_bw: int, nn_stride: int) -> int:
     """T9's dynamic shared memory in bytes when one block per cell holds its
     C = kk + kk·⌈kk/stride⌉ candidates (ids, scores, distances), the sorted
-    set, the top-osz order and the cell's rep. C grows as kk², and the rank
-    count over the candidates as kk⁴. Above ``MAX_SMEM`` the wrapper takes
-    the variant that keeps the candidates' tables in global memory."""
+    set, the top-osz order and the cell's rep. C grows as kk². Where these
+    and the kernel's ``BANDWIDTH_STATIC_SMEM`` pass ``MAX_SMEM`` the wrapper
+    takes the variant that keeps the candidates' tables in global memory."""
     C = kk + kk * (-(-kk // nn_stride))
     return 4 * (kk + 3 * C + 2 * min(C, 4 * n_bw) + d)
+
+
+def _bandwidth_in_smem(kk: int, d: int, n_bw: int, nn_stride: int) -> bool:
+    """Whether T9 keeps a cell's candidate tables in shared memory: the
+    dynamic part (``_bandwidth_smem``) and the kernel's static part together
+    within ``MAX_SMEM``; else the variant with the tables in global memory."""
+    return _bandwidth_smem(kk, d, n_bw, nn_stride) + BANDWIDTH_STATIC_SMEM <= MAX_SMEM
 
 
 def _window(n: int, row0: int, rows, what: str) -> int:
@@ -266,8 +276,8 @@ def wnn_bandwidth(
     rank of a mesh passes its rows' window over the whole tables.
 
     Two variants of one kernel, chosen by shape: while a cell's candidate
-    tables fit a block's shared memory (``_bandwidth_smem`` ≤ ``MAX_SMEM``;
-    kk ≤ 194 at stride 2 and d = 50) a block per cell keeps them there
+    tables fit a block's shared memory (``_bandwidth_in_smem``; kk ≤ 194 at
+    stride 2 and d = 50) a block per cell keeps them there
     (counted as ``wnn_bandwidth``); above that they live in a scratch tensor
     in global memory, min(rows, 528) blocks walking the cells (counted as
     ``wnn_bandwidth_global``). Same arithmetic, same orders."""
@@ -290,7 +300,7 @@ def wnn_bandwidth(
     sigma = torch.empty(rows, dtype=torch.float32, device=NI.device)
     args = (NI.data_ptr(), set_sizes.data_ptr(), rep16.data_ptr(), sq.data_ptr(),
             n, int(row0), rows, kk, d, int(nn_stride), int(n_bw), float(n_total), float(bbox))
-    if _bandwidth_smem(kk, d, n_bw, nn_stride) <= MAX_SMEM:
+    if _bandwidth_in_smem(kk, d, n_bw, nn_stride):
         _kernels.launch("wnn_bandwidth", NI.device, *args, 0, 0, sigma.data_ptr())
         return sigma
     if 4 * (kk + d) > MAX_SMEM:

@@ -196,6 +196,160 @@ def test_col_sums_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# the fused passes (T20 then T17 or T19) and the sweeps that call them
+# ---------------------------------------------------------------------------
+
+
+def _fused_inputs(a, masked):
+    """E, the update's x and y (strided columns of Z and SW), B or None, Z
+    and SW."""
+    E, Z, SW = _t(a["E"]), _t(a["Z"]), _t(a["SW"])
+    B = _t(a["B"]) if masked else None
+    return E, Z[:, 0], SW[:, 1], B, Z, SW
+
+
+@pytest.mark.parametrize("d", [33, 36], ids=["d_33", "d_36"])
+@pytest.mark.parametrize("z_kind", ["strided", "broadcast"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_rank1_col_dot_plain_is_rank1_update_then_col_dot(masked, z_kind, d):
+    a = _kernel_inputs(21, d=d)
+    E, x, y, B, Z, _ = _fused_inputs(a, masked)
+    z = Z[:, 2] if z_kind == "strided" else Z[:1, 2].expand(a["n"])
+    fused, alone = E.clone(), E.clone()
+    u = ops.rank1_col_dot(fused, x, y, B, z)
+    ref = ops.col_dot(ops.rank1_update(alone, x, y, B), z)
+    assert torch.equal(fused, alone) and torch.equal(u, ref)
+
+
+@pytest.mark.parametrize("d", [33, 36], ids=["d_33", "d_36"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_rank1_row_dot_plain_is_rank1_update_then_row_dot(masked, d):
+    a = _kernel_inputs(22, d=d)
+    E, x, y, B, _, SW = _fused_inputs(a, masked)
+    ts = (SW[:, 2],) if B is None else (SW[:, 2], SW[:, 0], SW[:, 3])
+    fused, alone = E.clone(), E.clone()
+    got = ops.rank1_row_dot(fused, x, y, B, *ts)
+    ref = ops.row_dot(ops.rank1_update(alone, x, y, B), ts[0], B, *ts[1:])
+    assert torch.equal(fused, alone)
+    for g, r in zip((got,) if B is None else got, (ref,) if B is None else ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="come together"):
+        ops.rank1_row_dot(E, x, y, _t(a["B"]), SW[:, 2])
+
+
+def _standalone_w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln,
+                        theta_ln1m, W_hat, W_var, S, SW, scale=None, red=tm.NO_MESH):
+    """The w sweep as one kernel a pass over E: per factor T17, T18, T20."""
+    if B is None:
+        z2s, zzs = red.cells(torch.stack([z2.sum(dim=0), zz.sum(dim=0)]))
+    else:
+        z2s, zzs = red.cells(torch.stack([z2.T @ B, zz.T @ B]))
+    if scale is not None:
+        z2s, zzs = z2s * scale, zzs * scale
+    for k in range(config.n_factors):
+        zk = Zm[:, k]
+        u = red.cells(ops.col_dot(E, zk))
+        delta = ops.w_posterior(u, tau, z2s[k], zzs[k], alpha, ln_alpha, theta_ln, theta_ln1m,
+                                m, k, W_hat, W_var, S, SW, spikeslab=config.spikeslab_weights,
+                                scale=scale)
+        ops.rank1_update(E, zk, delta, B)
+
+
+def _standalone_z_sweep(config, Zm, Zv, Es, Bs, SWs, SWW, taus, prior_prec, posterior=None,
+                        red=tm.NO_MESH):
+    """The z sweep as one kernel a pass over E: per factor T19 on every
+    view, the posterior, T20 on every view."""
+    M = len(Es)
+    tSW = [taus[m][:, None] * SWs[m] for m in range(M)]
+    tSWW = [taus[m][:, None] * SWW[m] for m in range(M)]
+    tSW2 = [taus[m][:, None] * SWs[m] * SWs[m] for m in range(M)]
+    p_all = [None if Bs[m] is not None else tSWW[m].sum(dim=0) for m in range(M)]
+    q_all = [None if Bs[m] is not None else tSW2[m].sum(dim=0) for m in range(M)]
+    for k in range(config.n_factors):
+        zk = Zm[:, k]
+        p = torch.zeros_like(prior_prec[:, k]) if red.feat_split else prior_prec[:, k]
+        b = torch.zeros_like(p)
+        for m in range(M):
+            if Bs[m] is None:
+                p = p + p_all[m][k]
+                b = b + ops.row_dot(Es[m], tSW[m][:, k]) + zk * q_all[m][k]
+            else:
+                r, pb, qb = ops.row_dot(Es[m], tSW[m][:, k], Bs[m], tSWW[m][:, k],
+                                        tSW2[m][:, k])
+                p = p + pb
+                b = b + r + zk * qb
+        if red.feat_split:
+            p, b = red.feat(torch.stack([p, b]))
+            p = prior_prec[:, k] + p
+        z_new, v_new = (b / p, 1.0 / p) if posterior is None else posterior(k, p, b)
+        delta = zk - z_new
+        for m in range(M):
+            ops.rank1_update(Es[m], delta, SWs[m][:, k], Bs[m])
+        Zm[:, k] = z_new
+        Zv[:, k] = v_new
+
+
+def _assert_same_bits(a, b):
+    for (name, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        assert (x is None and y is None) or torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_sweep_loops_equal_the_standalone_loops(masked):
+    # _w_sweep and _z_sweep called alone (the identity Reducer), on copies of
+    # one state's tensors, against the loops above: every output the same bits
+    _, Ys, masks, _, onehot = _problem(masked=masked, seed=31)
+    cfg = tm.MOFAConfig(n_factors=4, likelihoods=("gaussian",) * 2)
+    st = tm._init_state(Ys, masks, onehot, cfg, device=CPU)
+    Zm, Zv = st["Z_mean"] + 0.1, st["Z_var"]
+    Bs = [st["mask"][m] if masks[m] is not None else None for m in range(2)]
+    W = [torch.randn((D, 4), generator=torch.Generator().manual_seed(D)) for D in (20, 14)]
+    runs = []
+    for w_sweep, z_sweep in ((tm._w_sweep, tm._z_sweep),
+                             (_standalone_w_sweep, _standalone_z_sweep)):
+        Es = [E.clone() for E in st["E"]]
+        Zk, Zvk = Zm.clone(), Zv.clone()
+        Wk = [[w.clone() for _ in range(4)] for w in W]
+        for m in range(2):
+            w_sweep(cfg, m, Es[m], Bs[m], Zk, Zvk + Zk * Zk, Zk * Zk, st["tau"][m],
+                    st["alpha"], st["ln_alpha"], st["theta_ln"], st["theta_ln1m"], *Wk[m])
+        SWW = [Wk[m][2] * (Wk[m][1] + Wk[m][0] * Wk[m][0]) for m in range(2)]
+        z_sweep(cfg, Zk, Zvk, Es, Bs, [Wk[m][3] for m in range(2)], SWW, st["tau"],
+                torch.ones_like(Zk))
+        runs.append({"E": Es, "Z": [Zk, Zvk], "W": [w for ws in Wk for w in ws]})
+    _assert_same_bits(*runs)
+
+
+@pytest.mark.parametrize("case", ["full_batch", "full_batch_masked", "svi_masked",
+                                  "bernoulli", "spikeslab_factors"])
+def test_step_equals_the_standalone_loops(case, monkeypatch):
+    # one whole sweep (and one SVI step) from the same state, through the
+    # fused loops and through the standalone ones: every leaf the same bits
+    _, Ys, masks, _, onehot = _problem(G=2, masked="masked" in case, seed=32)
+    liks = ("gaussian", "bernoulli") if case == "bernoulli" else ("gaussian",) * 2
+    if case == "bernoulli":
+        Ys[1] = (Ys[1] > 0).astype(np.float32)
+    cfg = tm.MOFAConfig(n_factors=3, likelihoods=liks, n_groups=2,
+                        spikeslab_factors=case == "spikeslab_factors")
+    masked = [m is not None for m in masks]
+    svi = case.startswith("svi")
+    state = tm._init_state(Ys, masks, onehot, cfg, liks=list(liks), keep_data=svi, device=CPU)
+    if svi:
+        step = tm.make_svi_step(cfg, [20, 14], 60, 24)
+        batch = torch.from_numpy(np.random.default_rng(3).choice(60, 24, replace=False))
+        run = lambda: step(state, batch, np.float32(0.7))  # noqa: E731
+    else:
+        step = tm.make_step(cfg, [20, 14], 60, masked, liks=list(liks))
+        run = lambda: step(state)  # noqa: E731
+    fused = run()
+    monkeypatch.setattr(tm, "_w_sweep", _standalone_w_sweep)
+    monkeypatch.setattr(tm, "_z_sweep", _standalone_z_sweep)
+    alone = run()
+    _assert_same_bits(fused[0], alone[0])
+    assert torch.equal(fused[1], alone[1])
+
+
+# ---------------------------------------------------------------------------
 # the initial state, one sweep, one SVI step, the R² statistics
 # ---------------------------------------------------------------------------
 
@@ -668,6 +822,107 @@ def test_gpu_rank1_update_matches_plain(cuda, masked, n, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n, d", [(1000, 300), (257, 33), (10000, 3000)])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_gpu_rank1_update_equals_plain_bits(cuda, masked, n, d):
+    # the kernel rounds x·y, then ·B, then the add, as the plain version's
+    # three operations do: the same bits
+    E, B, Z, SW = _card_inputs(cuda, n, d, seed=4)
+    ref = ops.rank1_update_plain(E.clone(), Z[:, 1], SW[:, 2], B if masked else None)
+    got = E.clone()
+    _launched("mofa_rank1_update", lambda: ops.rank1_update(got, Z[:, 1], SW[:, 2],
+                                                            B if masked else None))
+    assert torch.equal(got, ref)
+
+
+def _card_copy(E, offset):
+    """E, or a copy whose base lies ``offset`` floats past a 16-byte boundary."""
+    if not offset:
+        return E.clone()
+    buf = torch.empty(E.numel() + offset, device=E.device)
+    buf[offset:] = E.reshape(-1)
+    return buf[offset:].view(E.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "base_4_bytes_off"])
+@pytest.mark.parametrize("z_kind", ["strided", "broadcast"])
+@pytest.mark.parametrize("n, d", [(10000, 3000), (50000, 256), (257, 33), (1000, 301)])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_gpu_rank1_col_dot_equals_the_two_kernels(cuda, masked, n, d, z_kind, offset):
+    # one pass over E gives the bits of T20 then T17: the corrected E and u
+    E, B, Z, SW = _card_inputs(cuda, n, d, seed=5)
+    Bm = _card_copy(B, offset) if masked else None
+    z = Z[:, 2] if z_kind == "strided" else Z[:1, 2].expand(n)
+    fused, alone = _card_copy(E, offset), _card_copy(E, offset)
+    u = _launched("mofa_rank1_col_dot",
+                  lambda: ops.rank1_col_dot(fused, Z[:, 1], SW[:, 3], Bm, z))
+    ops.rank1_update(alone, Z[:, 1], SW[:, 3], Bm)
+    assert torch.equal(fused, alone)
+    assert torch.equal(u, ops.col_dot(alone, z))
+    ref = ops.col_dot_plain(alone, z)
+    assert bool(((u - ref).abs() <= 1e-5 * (z.abs() @ alone.abs())).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, d", [(10000, 3000), (50000, 256), (257, 33), (300, 13001)])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_gpu_rank1_row_dot_equals_the_two_kernels(cuda, masked, n, d):
+    # one pass over E gives the bits of T20 then T19 (d = 13,001: the vectors
+    # pass the 48 KB a block stages and are read from L2)
+    E, B, Z, SW = _card_inputs(cuda, n, d, seed=6)
+    Bm = B if masked else None
+    ts = (SW[:, 2],) if Bm is None else (SW[:, 2], SW[:, 0], SW[:, 4])
+    delta = Z[:, 1].contiguous()
+    fused, alone = E.clone(), E.clone()
+    got = _launched("mofa_rank1_row_dot",
+                    lambda: ops.rank1_row_dot(fused, delta, SW[:, 3], Bm, *ts))
+    ops.rank1_update(alone, delta, SW[:, 3], Bm)
+    ref = ops.row_dot(alone, ts[0], Bm, *ts[1:])
+    assert torch.equal(fused, alone)
+    for g, r in zip((got,) if Bm is None else got, (ref,) if Bm is None else ref):
+        assert torch.equal(g, r)
+    plain = ops.row_dot_plain(alone, ts[0], Bm, *ts[1:])
+    assert bool(((got if Bm is None else got[0]) - (plain if Bm is None else plain[0])).abs()
+                .le(1e-5 * (alone.abs() @ ts[0].abs())).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["full_batch", "full_batch_masked", "svi_masked",
+                                  "bernoulli", "spikeslab_factors"])
+def test_gpu_step_equals_the_standalone_loops(cuda, case, monkeypatch):
+    # on the card the fused loops launch the fused kernels, and one sweep
+    # gives every leaf the bits of the loops of standalone kernels
+    _, Ys, masks, _, onehot = _problem(N=3000, Ds=(400, 301), G=2, masked="masked" in case,
+                                       seed=33)
+    liks = ("gaussian", "bernoulli") if case == "bernoulli" else ("gaussian",) * 2
+    if case == "bernoulli":
+        Ys[1] = (Ys[1] > 0).astype(np.float32)
+    cfg = tm.MOFAConfig(n_factors=3, likelihoods=liks, n_groups=2,
+                        spikeslab_factors=case == "spikeslab_factors")
+    masked = [m is not None for m in masks]
+    svi = case.startswith("svi")
+    state = tm._init_state(Ys, masks, onehot, cfg, liks=list(liks), keep_data=svi, device=cuda)
+    if svi:
+        step = tm.make_svi_step(cfg, [400, 301], 3000, 1000)
+        batch = torch.from_numpy(np.random.default_rng(3).choice(3000, 1000, replace=False))
+        run = lambda: step(state, batch.to(cuda), np.float32(0.7))  # noqa: E731
+    else:
+        step = tm.make_step(cfg, [400, 301], 3000, masked, liks=list(liks))
+        run = lambda: step(state)  # noqa: E731
+    _kernels.reset_launch_counts()
+    fused = run()
+    counts = _kernels.launch_counts()
+    assert counts["mofa_rank1_col_dot"] == counts["mofa_rank1_row_dot"] == 2 * 2
+    assert counts["mofa_rank1_update"] == 2 * 2 and counts["mofa_row_dot"] == 2
+    monkeypatch.setattr(tm, "_w_sweep", _standalone_w_sweep)
+    monkeypatch.setattr(tm, "_z_sweep", _standalone_z_sweep)
+    alone = run()
+    _assert_same_bits(fused[0], alone[0])
+    assert torch.equal(fused[1], alone[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("spikeslab", [True, False], ids=["spikeslab", "dense"])
 @pytest.mark.parametrize("scale", [None, 20.0], ids=["full", "scaled"])
 def test_gpu_w_posterior_matches_plain(cuda, spikeslab, scale):
@@ -708,7 +963,8 @@ def test_gpu_wrappers_refuse_bad_input(cuda):
 @pytest.mark.parametrize("svi", [False, True], ids=["full_batch", "svi"])
 def test_gpu_fit_matches_cpu(cuda, svi):
     # the same fit through the kernels on the card and through the plain
-    # versions on the CPU; the launches follow K·M + M, K·M, K·M, 2·K·M per sweep
+    # versions on the CPU; per sweep T17 2·M, T18 K·M, T19 M, T20 2·M and
+    # each fused pass (K − 1)·M
     _, Ys, _, groups, _ = _problem(N=600, Ds=(120, 80), K=4, G=2, masked=True, seed=50)
     cfg = tm.MOFAConfig(n_factors=4, seed=1)
     kw = dict(groups=groups, n_iterations=10, min_iterations=10, elbo_every=1,
@@ -718,9 +974,10 @@ def test_gpu_fit_matches_cpu(cuda, svi):
     gpu = tm.fit_mofa(Ys, cfg, device=cuda, Z0=_Z0_600, **kw)
     counts = _kernels.launch_counts()
     K, M, sweeps = 4, 2, 10
-    assert counts["mofa_col_dot"] == sweeps * (K * M + M)
-    assert counts["mofa_w_posterior"] == counts["mofa_row_dot"] == sweeps * K * M
-    assert counts["mofa_rank1_update"] == sweeps * 2 * K * M
+    assert counts["mofa_col_dot"] == counts["mofa_rank1_update"] == sweeps * 2 * M
+    assert counts["mofa_w_posterior"] == sweeps * K * M
+    assert counts["mofa_row_dot"] == sweeps * M
+    assert counts["mofa_rank1_col_dot"] == counts["mofa_rank1_row_dot"] == sweeps * (K - 1) * M
     np.testing.assert_allclose(gpu.elbo_history, cpu.elbo_history, rtol=1e-3)
     assert _canonical_correlations(gpu.Z, cpu.Z).min() > 0.99
 

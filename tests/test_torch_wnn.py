@@ -257,6 +257,16 @@ def test_bandwidth_shared_memory_bound(kk, fits):
     assert (smem <= tw.MAX_SMEM) == fits
 
 
+@pytest.mark.parametrize("kk, fits", [(19, True), (194, True), (195, False), (256, False)])
+def test_bandwidth_variant_takes_the_static_shared_memory(kk, fits):
+    # the selection's histogram and counters (static shared memory) join the
+    # tables in the wrapper's choice, which stays where it was at d = 50:
+    # shared memory up to kk = 194, global memory from 195
+    smem = tw._bandwidth_smem(kk, 50, 20, 2)
+    assert tw._bandwidth_in_smem(kk, 50, 20, 2) == fits
+    assert (smem + tw.BANDWIDTH_STATIC_SMEM <= tw.MAX_SMEM) == fits
+
+
 # ---------------------------------------------------------------------------
 # K11: dedup + compaction, final top-k (torch)
 # ---------------------------------------------------------------------------
@@ -662,6 +672,25 @@ def test_gpu_wnn_bandwidth_above_the_shared_memory_limit(cuda):
             _bbox(rep), 20, 2)
     _launched("wnn_bandwidth", lambda: tw.wnn_bandwidth(*args))
     assert _kernels.launch_counts()["wnn_bandwidth_global"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kk, name", [(19, "wnn_bandwidth"), (256, "wnn_bandwidth_global")])
+def test_gpu_wnn_bandwidth_tied_scores_match_plain_bits(cuda, kk, name):
+    # cells on a 1-D integer line below 256 (exact in bf16), about five to a
+    # point: scores tie in large groups at the osz-th key, and every distance
+    # is an exact integer, so sigma does not depend on the order of its sums.
+    # Both variants must select the plain version's candidates in its
+    # (score, position) order: sigma is the same bits
+    n = 1000 if kk == 19 else 600
+    rep = np.random.default_rng(kk).integers(0, n // 5, size=(n, 1)).astype(np.float32)
+    NI, _ = _neighbor_matrix(rep, kk, seed=kk)
+    NI_t, rep_t = _t(NI).to(cuda), _t(rep).to(cuda)
+    args = (NI_t, *tw._bandwidth_tables(NI_t, rep_t), float(n), _bbox(rep), min(20, kk),
+            tw._auto_nn_stride(kk))
+    got = _launched(name, lambda: tw.wnn_bandwidth(*args))
+    assert torch.equal(got, tw.wnn_bandwidth_plain(*args))
+    assert torch.equal(got, tw.wnn_bandwidth(*args))
 
 
 @pytest.mark.gpu
