@@ -1243,17 +1243,22 @@ def phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X, labels, cuda):
 
     # against the plain path from the same representation: σ rtol 1e-4 and
     # the connectivities atol 1e-5 (values in (0, 1]) on the edges both
-    # graphs hold. At this size T5 and its plain version give the same
+    # graphs hold. T5's approx path screens its candidates on the tensor
+    # cores, whose float32 sums run in their own order, but takes every
+    # distance it keeps from the float32 fma chain over the bfloat16 values;
+    # at this size that chain and the plain version's product give the same
     # indices and distances, so the values differ only by σ's f32 bisection
     # in T6 against torch: an H100 reads σ 1.8e-6 to 2.7e-6 relative and the
-    # connectivities 6.6e-7 to 7.8e-7, so 1e-5 leaves 10x room and still
+    # connectivities 6.0e-7 to 7.8e-7, so 1e-5 leaves 10x room and still
     # catches a graph assembled wrongly (a swapped or dropped edge moves a
-    # shared edge's union value by its partner's membership, ~1e-1)
+    # shared edge's union value by its partner's membership, ~1e-1; a graph
+    # from the tensor cores' own distances, with a few near ties swapped,
+    # reads 4.2e-2 on an H100)
     t0 = time.perf_counter()
     sig_p, conn_p, dmat_p = neighbors_plain(tk, tf, h.obsm["X_pca"], cuda)
     rep = torch.from_numpy(h.obsm["X_pca"]).to(cuda)
     op, sq = tk._operand(rep, "euclidean", approx=N_CELLS > 20_000)
-    _, dists = tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True)
+    _, dists = tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True, approx=N_CELLS > 20_000)
     sig = tf.smooth_knn(dists)[0]
     sig_rel = float(((sig - sig_p).abs() / sig_p).max())
     C, Cp = h.obsp["connectivities"], conn_p
@@ -1280,6 +1285,19 @@ def phase_rna_path(dsp, tla, tpp, tk, tf, kernels, X, labels, cuda):
     # this seed), and within 0.01 of the plain path's share in this run
     check(purity >= 0.55 and abs(purity - purity_p) <= 0.01, "planted-label share")
     return launches, h
+
+
+def t5_library(op, sq, k, block: int = 8192):
+    """T5's yardstick, which the port never calls: the k+1 smallest of
+    ‖c‖² − 2·q·c a row (the row's own ‖q‖² ranks nothing), ``torch.topk`` of
+    a bfloat16 ``torch.addmm`` in blocks of rows."""
+    X16, sq16 = op.to(torch.bfloat16), sq.to(torch.bfloat16)
+
+    def run():
+        for s in range(0, X16.shape[0], block):
+            torch.topk(torch.addmm(sq16[None, :], X16[s:s + block], X16.T, alpha=-2.0), k + 1,
+                       dim=1, largest=False)
+    return run
 
 
 def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
@@ -1329,7 +1347,7 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
         one_minus, take_sqrt = metric == "cosine", metric == "euclidean"
         op, sq = tk._operand(Xr, metric, approx)
         args = (op, sq, k, one_minus, take_sqrt)
-        gi, gd = tk.knn_topk(*args)
+        gi, gd = tk.knn_topk(*args, approx=approx)
         torch.cuda.synchronize()
         ri, rd = tk.knn_topk_plain(*args)
         # |Δd²| <= 1e-5·(|q|² + |c|²): the expanded form's cancellation
@@ -1350,9 +1368,10 @@ def phase_neighbors_kernels(dsp, tk, tf, X, rep, cuda) -> dict:
         n_, d_ = op.shape
         record("knn_topk", (gd - rd).abs().max().item(), ok and equal >= 0.99,
                "|dd2| <= 1e-5(|q|^2+|c|^2), equal indices >= 0.99",
-               lambda: tk.knn_topk(*args), lambda: tk.knn_topk_plain(*args),
+               lambda: tk.knn_topk(*args, approx=approx), lambda: tk.knn_topk_plain(*args),
                bound(nbytes(op, gi, gd) + (0 if sq is None else nbytes(sq)), 2 * n_ * n_ * d_,
-                     BF16_OPS_PER_S if approx else F32_OPS_PER_S), extra + line)
+                     BF16_OPS_PER_S if approx else F32_OPS_PER_S), extra + line,
+               lib_fn=t5_library(op, sq, k) if approx and not one_minus else None)
         if metric == "euclidean" and approx and k == N_NEIGHBORS - 1:
             path_dists = gd
     for metric, recall in exact.items():
@@ -1483,7 +1502,11 @@ def wnn_probe(tw, tk, tf, plain: bool):
             setattr(mod, name, recorder(fn, key))
         tw.knn = knn
         if plain:
-            tk.knn_topk, tf.smooth_knn = tk.knn_topk_plain, tf.smooth_knn_plain
+            # approx picks only the kernel's product: the plain version has one
+            plain_knn = tk.knn_topk_plain
+            tk.knn_topk = lambda X, sq, k, one_minus, take_sqrt, approx=False: plain_knn(
+                X, sq, k, one_minus, take_sqrt)
+            tf.smooth_knn = tf.smooth_knn_plain
         yield rec
     finally:
         for (mod, name), fn in saved.items():
@@ -2448,15 +2471,15 @@ def phase_knn_wide(tpp, tk, kernels, rep, labels, cuda):
 
     op, sq = tk._operand(torch.from_numpy(rep).to(cuda), "euclidean", True)
     args = (op, sq, WIDE_K, False, True)
-    gi, gd = tk.knn_topk(*args)
+    gi, gd = tk.knn_topk(*args, approx=True)
     torch.cuda.synchronize()
     ri, rd = tk.knn_topk_plain(*args)
     scale = sq[:, None] + sq[ri.long()]
     ok = bool(((gd.double() ** 2 - rd.double() ** 2).abs() <= 1e-5 * scale).all())
     equal = (gi == ri).float().mean().item()
-    head = (gi[:, :N_NEIGHBORS] == tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True)[0]
+    head = (gi[:, :N_NEIGHBORS] == tk.knn_topk(op, sq, N_NEIGHBORS - 1, False, True, approx=True)[0]
             ).float().mean().item()
-    ms = median_ms(lambda: tk.knn_topk(*args), reps=3)
+    ms = median_ms(lambda: tk.knn_topk(*args, approx=True), reps=3)
     plain_ms = median_ms(lambda: tk.knn_topk_plain(*args), reps=1)
     n_, d_ = op.shape
     bnd = bound(nbytes(op, sq, gi, gd), 2 * n_ * n_ * d_, BF16_OPS_PER_S)

@@ -13,17 +13,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "topk_heap.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
-constexpr int kQ = 128;  // queries per block, one per thread
-constexpr int kC = 32;   // candidates per shared-memory tile
-constexpr int kD = 64;   // dimensions per chunk
+constexpr int kQ = 128;  // T15: rows per block, one per thread
+constexpr int kC = 32;   // T15: centroids per shared-memory tile
+constexpr int kD = 64;   // T15: dimensions per chunk
 constexpr int kWarp = 32;
-// lists up to this long keep the heap in a per-thread array; ops/knn.py
-// LOCAL_LIST
-constexpr int kLocalList = 256;
 
 // ---------------------------------------------------------------------------
 // T14: for every work item (QB queries of one chunk of the cluster-sorted
@@ -32,53 +29,112 @@ constexpr int kLocalList = 256;
 //
 // The reference gathers the item's P x L padded candidate grid into device
 // memory, forms the (QB, P L) distance tile there and selects from it. Here
-// a block owns kQ queries of one item (one per thread) and walks the item's
-// probe list chunk by chunk: kC candidate rows at a time go through shared
-// memory, centred on the item's mean mu as they are loaded, and no distance
-// leaves the SM. Slots beyond a chunk's length and probe entries of -1 are
-// never loaded (the reference scores them as +inf).
+// a block owns 256 queries of one item (knn_tile.cuh's float32 tile), staged
+// once, centred on the item's mean mu; it walks the item's probe list chunk
+// by chunk, 32 candidate rows at a time through shared memory, centred on mu
+// as they are loaded (the next chunk into registers while this one is
+// multiplied); each warp forms its 32 queries' distances to the tile in 8 x
+// 4 micro-tiles, filters them against the queries' heaps in registers, and
+// writes only those that pass to shared memory, where their queries take
+// them (knn_tile.cuh). No distance leaves the SM, and a staged
+// candidate tile serves 256 of the item's queries (an item of QB = 1024
+// takes four blocks). Slots beyond a chunk's length and probe entries of -1
+// are never offered (the reference scores them as +inf).
 //
 // Distance, at the reference's rounding points, all float32 (no bfloat16,
 // no TF32: the neighbours' gaps lie below bfloat16's resolution of the
 // local scale): with qc = q - mu and cc = c - mu,
 //   d2 = max((|qc|^2 + |cc|^2) - 2 qc.cc, 0), halved when `half` (unit rows:
 //   1 - cos = |q - c|^2 / 2).
-// |cc|^2 of a tile is summed as the tile is loaded: each warp loads half a
-// row per step and reduces its squares by a butterfly, then the two halves
-// add; no atomics, so a run repeats bit for bit.
+// |qc|^2 is the query's fma chain over u in order. |cc|^2 of a tile is
+// summed as the tile is loaded: each warp loads half a row of a 64-wide
+// chunk per step and reduces its squares by a butterfly, then the two halves
+// add, chunk after chunk; no atomics, so a run repeats bit for bit. The
+// cross term of each pair is the fma chain over u in order. This
+// arithmetic fixes the positions and distances bit for bit, which the
+// port's T14 keeps (a ROADMAP invariant; exp_compare_trees.py holds two
+// trees to it).
 //
-// Selection: T5's max-heap of k+1 entries on (distance, slot), where slot =
-// p L + l is the candidate's place in the item's probe list; in a
-// per-thread array up to k+1 = 256, beyond that (KMAX = 0) in the query's
-// own row of the outputs, the slots turned into positions in place. Candidates
-// arrive in slot order, so an equal distance never displaces an entry: ties
-// go to the earlier slot, as lax.top_k over the reference's grid. The query
-// itself (found by position) enters at -inf and so comes out first. A query
-// with fewer than k+1 candidates gets +inf and position 0 in the free
-// places, as do the padded query slots (qid < 0); the caller maps +inf to
-// index -1.
+// Selection: a max-heap of k+1 entries on (distance, slot) (knn_tile.cuh),
+// where slot = p L + l is the candidate's place in the item's probe list,
+// kept in the query's own row of the outputs, the slots turned into
+// positions in place at the end; the counters ivf_search and
+// ivf_search_global (lists longer than 256) name the same kernel.
+// Candidates are scanned in slot order, so an equal distance never displaces
+// an entry: ties go to the earlier slot, as lax.top_k over the reference's
+// grid. The query itself (found by position) enters at -inf and so comes out
+// first. A query with fewer than k+1 candidates gets +inf and position 0 in
+// the free places, as do the padded query slots (qid < 0); the caller maps
+// +inf to index -1.
 //
 // Bound: the cross terms (queries x probed candidates x d multiply-adds;
 // about 1e12 operations at 1M x 50 with 8 probes) at the float32 rate; the
-// bytes (Xs once, the results) are far below that. Not done yet (later
-// work): a register-tiled or tensor-core cross term in split float32, and
-// sharing a tile between the query tiles of one item.
+// bytes (Xs once, the results) are far below that. The micro-tile's
+// shared-memory loads and, for long lists, the heaps' insertions hold it
+// above the bound.
 // ---------------------------------------------------------------------------
 
-template <int KMAX>
-__global__ void __launch_bounds__(kQ)
+// shared memory of T14: a query chunk, a candidate chunk, the distance
+// tile, the queries' norms and ids, the halves of the tile's norms
+__host__ __device__ constexpr size_t ivf_shared_bytes() {
+  return 4 * ((size_t)f32t::kDK * f32t::kLdQ + (size_t)f32t::kDK * f32t::kLdC +
+              (size_t)f32t::kCT * f32t::kLdQ + 2 * f32t::kQT + 2 * f32t::kCT);
+}
+
+// A block's walk over its item's probe list: probe p (at ppos, len rows),
+// candidate tile c0, chunk of d u0. p = P when the walk is over.
+struct Walk {
+  int p, ppos, len, c0, u0;
+
+  // the first tile of the first probe from p on that holds a row
+  __device__ static Walk from(const int* pp, const int* pc, int P, int n, int p) {
+    for (; p < P; ++p) {
+      const int ppos = pp[p];
+      if (ppos < 0) continue;
+      const int len = min(pc[p], n - ppos);
+      if (len > 0) return Walk{p, ppos, len, 0, 0};
+    }
+    return Walk{P, 0, 0, 0, 0};
+  }
+  __device__ Walk next(const int* pp, const int* pc, int P, int n, int d) const {
+    if (p >= P) return *this;
+    if (u0 + f32t::kDK < d) return Walk{p, ppos, len, c0, u0 + f32t::kDK};
+    if (c0 + f32t::kCT < len) return Walk{p, ppos, len, c0 + f32t::kCT, 0};
+    return from(pp, pc, P, n, p + 1);
+  }
+};
+
+// the block's queries, centred: columns [u0, u0 + kDK) of Xs[qid] - mu
+// transposed into sQ[u * kLdQ + r]; padded slots and columns >= d as zeros
+__device__ __forceinline__ void stage_queries(float* sQ, const int* sQid,
+                                              const float* __restrict__ Xs,
+                                              const float* __restrict__ m, int d, int u0) {
+  for (int t = threadIdx.x; t < f32t::kQT * f32t::kDK; t += f32t::kThreads) {
+    const int r = t / f32t::kDK, u = t % f32t::kDK, col = u0 + u, qid = sQid[r];
+    sQ[u * f32t::kLdQ + r] = (qid >= 0 && col < d) ? Xs[(int64_t)qid * d + col] - m[col] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(f32t::kThreads, 2)
     ivf_search_kernel(const float* __restrict__ Xs, const int* __restrict__ qids,
                       const int* __restrict__ probe_pos,
                       const int* __restrict__ probe_cnt,
                       const float* __restrict__ mu, int n, int d, int QB, int P,
                       int L, int k1, int half, int* __restrict__ out_pos,
-                      float* __restrict__ out_dist) {
-  __shared__ __align__(16) float tile[kC][kD];
-  __shared__ float part[kC][2];
-  __shared__ float tile_sq[kC];
-  const int tiles = (QB + kQ - 1) / kQ;  // query tiles per item
+                      float* __restrict__ out_dist, hkey* __restrict__ heaps) {
+  using namespace f32t;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sC = sQ + kDK * kLdQ;
+  float* sD = sC + kDK * kLdC;
+  float* sQsq = sD + kCT * kLdQ;
+  int* sQid = reinterpret_cast<int*>(sQsq + kQT);
+  float(*part)[2] = reinterpret_cast<float(*)[2]>(sQid + kQT);
+
+  const int tid = threadIdx.x;
+  const int tiles = (QB + kQT - 1) / kQT;  // query tiles per item
   const int item = blockIdx.x / tiles;
-  const int slot_q = (blockIdx.x % tiles) * kQ + threadIdx.x;
+  const int slot_q = (blockIdx.x % tiles) * kQT + tid;
   const int qid = slot_q < QB ? qids[(int64_t)item * QB + slot_q] : -1;
   const bool active = qid >= 0;
   // a tile of queries that holds only padding has nothing to do
@@ -94,100 +150,119 @@ __global__ void __launch_bounds__(kQ)
   }
   const float* q = Xs + (int64_t)(active ? qid : 0) * d;
   const float* m = mu + (int64_t)item * d;
-  const bool one_chunk = d <= kD;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int mq = micro_q(tid), mc = micro_c(tid);
+  const bool resident = d <= kDK;
 
-  float qv[kD];
   float qsq = 0.f;
-  for (int u0 = 0; u0 < d; u0 += kD) {
-#pragma unroll
-    for (int u = 0; u < kD; ++u) {
-      qv[u] = (active && u0 + u < d) ? q[u0 + u] - m[u0 + u] : 0.f;
-      qsq = fmaf(qv[u], qv[u], qsq);
-    }
+  for (int u = 0; u < d; ++u) {
+    const float v = active ? q[u] - m[u] : 0.f;
+    qsq = fmaf(v, v, qsq);
   }
-  // qv now holds the last chunk; with one chunk that is the whole query
+  sQsq[tid] = qsq;
+  sQid[tid] = qid;
+  __syncthreads();
+  if (resident) stage_queries(sQ, sQid, Xs, m, d, 0);
 
-  float local_d[KMAX > 0 ? KMAX : 1];
-  int local_i[KMAX > 0 ? KMAX : 1];
   const int64_t o = ((int64_t)item * QB + (slot_q < QB ? slot_q : 0)) * k1;
-  float* heap_d = KMAX > 0 ? local_d : out_dist + o;
-  int* heap_i = KMAX > 0 ? local_i : out_pos + o;
-  int cnt = 0;
+  TopK h = make_topk(heaps + ((int64_t)item * QB + (slot_q < QB ? slot_q : 0)) * knn_heap_row(k1),
+                     active ? k1 : 0);
+  Pending pend;
+  pend.n = 0;
 
-  for (int p = 0; p < P; ++p) {
-    const int ppos = probe_pos[(int64_t)item * P + p];
-    if (ppos < 0) continue;  // the same for the whole block
-    const int len = min(probe_cnt[(int64_t)item * P + p], n - ppos);
-    for (int c0 = 0; c0 < len; c0 += kC) {
-      float acc[kC];
+  // stages: (probe, candidate tile, 64-wide chunk of d) in order, probes of
+  // -1 and empty chunks skipped; a stage's candidate chunk is loaded into
+  // registers while the one before it is multiplied, kPer values a thread
+  constexpr int kPer = kCT * kDK / kThreads;
+  const int u = tid % kDK;  // this thread's column of every chunk it loads
+  const int* pp = probe_pos + (int64_t)item * P;
+  const int* pc = probe_cnt + (int64_t)item * P;
+  Walk cur = Walk::from(pp, pc, P, n, 0), next = cur.next(pp, pc, P, n, d);
+  float pre[kPer];
+  auto fetch = [&](const Walk& w) {
+    const int col = w.u0 + u;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-      for (int u0 = 0; u0 < d; u0 += kD) {
-        __syncthreads();  // the previous tile's readers are done
-        // kQ threads load two rows of kD per step: a warp half a row
-        for (int t = threadIdx.x; t < kC * kD; t += kQ) {
-          const int c = t / kD, u = t % kD, col = u0 + u;
-          const bool ok = c0 + c < len && col < d;
-          const float v = ok ? Xs[(int64_t)(ppos + c0 + c) * d + col] - m[col] : 0.f;
-          tile[c][u] = v;
-          float s = v * v;
-#pragma unroll
-          for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (lane == 0) part[c][warp % 2] = s;
-        }
-        if (!one_chunk) {
-#pragma unroll
-          for (int u = 0; u < kD; ++u)
-            qv[u] = (active && u0 + u < d) ? q[u0 + u] - m[u0 + u] : 0.f;
-        }
-        __syncthreads();
-        if (threadIdx.x < kC)
-          tile_sq[threadIdx.x] = (u0 == 0 ? 0.f : tile_sq[threadIdx.x]) +
-                                 (part[threadIdx.x][0] + part[threadIdx.x][1]);
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-#pragma unroll
-          for (int u = 0; u < kD; u += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(&tile[c][u]);
-            acc[c] = fmaf(qv[u], v.x, acc[c]);
-            acc[c] = fmaf(qv[u + 1], v.y, acc[c]);
-            acc[c] = fmaf(qv[u + 2], v.z, acc[c]);
-            acc[c] = fmaf(qv[u + 3], v.w, acc[c]);
-          }
-        }
-      }
-      __syncthreads();  // tile_sq is whole
-      if (!active) continue;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        if (c0 + c >= len) continue;
-        float dist = fmaxf((qsq + tile_sq[c]) - 2.f * acc[c], 0.f);
-        if (half) dist *= 0.5f;
-        if (ppos + c0 + c == qid) dist = -INFINITY;  // self first
-        const int slot = p * L + c0 + c;
-        if (cnt < k1) {  // filling: append and sift up
-          cnt = heap_push(heap_d, heap_i, cnt, dist, slot);
-        } else if (dist < heap_d[0]) {  // slot is the largest so far
-          heap_d[0] = dist;
-          heap_i[0] = slot;
-          sift_down(heap_d, heap_i, k1, 0);
-        }
-      }
+    for (int e = 0; e < kPer; ++e) {
+      const int c = (tid + e * kThreads) / kDK;
+      pre[e] = (w.c0 + c < w.len && col < d) ? Xs[(int64_t)(w.ppos + w.c0 + c) * d + col] : 0.f;
     }
+  };
+  if (cur.p < P) fetch(cur);
+  float acc[kTM][kTN], tile_sq[kTN];  // tile_sq: |cc|^2 of this thread's candidates
+  for (; cur.p < P; cur = next, next = next.next(pp, pc, P, n, d)) {
+    const int ppos = cur.ppos, len = cur.len, c0 = cur.c0, u0 = cur.u0;
+    // the previous stage's readers are done; the block inserts its pending
+    // candidates together
+    if (__syncthreads_or(pend.n >= kFlushAt)) pend.flush(h);
+    // a warp holds half a row of the chunk: its squares go through a
+    // butterfly, the two halves add below
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int c = (tid + e * kThreads) / kDK, col = u0 + u;
+      const bool ok = c0 + c < len && col < d;
+      const float v = ok ? pre[e] - m[col] : 0.f;
+      sC[u * kLdC + c] = v;
+      float s = v * v;
+#pragma unroll
+      for (int w = kWarp / 2; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+      if (lane == 0) part[c][warp % 2] = s;
+    }
+    if (!resident) stage_queries(sQ, sQid, Xs, m, d, u0);
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < kTN; ++b)
+      tile_sq[b] = (u0 == 0 ? 0.f : tile_sq[b]) + (part[mc + b][0] + part[mc + b][1]);
+    if (next.p < P) fetch(next);
+    if (u0 == 0) {
+#pragma unroll
+      for (int a = 0; a < kTM; ++a)
+#pragma unroll
+        for (int b = 0; b < kTN; ++b) acc[a][b] = 0.f;
+    }
+    fma_microtile<kTM, kTN>(acc, sQ + mq, kLdQ, sC + mc, kLdC, min(kDK, (d - u0 + 3) & ~3));
+    if (u0 + kDK < d) continue;
+    // the tile's distances, filtered in the warp that owns their queries
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int b = 0; b < kTN; ++b) {
+        float dist = fmaxf((sQsq[mq + a] + tile_sq[b]) - 2.f * acc[a][b], 0.f);
+        if (half) dist *= 0.5f;
+        if (ppos + c0 + mc + b == sQid[mq + a]) dist = -INFINITY;  // self first
+        acc[a][b] = dist;
+      }
+    f32_tile_select(h, pend, acc, sD, mq, mc, tid, min(kCT, len - c0), cur.p * L + c0, -1);
   }
+  pend.flush(h);
   if (slot_q >= QB) return;
-  if (active) heap_sort(heap_d, heap_i, cnt);
+  if (active) sort8(h.H, h.cnt);
+  // the heap's slots become positions
   for (int r = 0; r < k1; ++r) {
-    if (active && r < cnt) {
-      const int slot = heap_i[r];
+    if (active && r < h.cnt) {
+      const hkey key = h.node(r);
+      const int slot = key_index(key);
       out_pos[o + r] = probe_pos[(int64_t)item * P + slot / L] + slot % L;
-      if (KMAX > 0) out_dist[o + r] = heap_d[r];
+      out_dist[o + r] = key_dist(key);
     } else {
       out_pos[o + r] = 0;
       out_dist[o + r] = INFINITY;
     }
   }
+}
+
+// T14's launch, its shared memory allowed first (above 48 KB it must be
+// asked for)
+cudaError_t launch_ivf_search(unsigned grid, const float* Xs, const int* qids,
+                              const int* probe_pos, const int* probe_cnt, const float* mu, int n,
+                              int d, int QB, int P, int L, int k1, int half, int* pos,
+                              float* dist, hkey* heaps, cudaStream_t s) {
+  const size_t shm = ivf_shared_bytes();
+  cudaError_t e = cudaFuncSetAttribute(ivf_search_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (e != cudaSuccess) return e;
+  ivf_search_kernel<<<grid, f32t::kThreads, shm, s>>>(Xs, qids, probe_pos, probe_cnt, mu, n, d,
+                                                      QB, P, L, k1, half, pos, dist, heaps);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -282,28 +357,18 @@ extern "C" {
 // T14. Xs (n x d) f32, sorted by cluster; qids (I x QB) int32 positions into
 // Xs, -1 padded; probe_pos, probe_cnt (I x P) int32 chunk starts (-1 padded)
 // and lengths, every length <= L; mu (I x d) f32; k1 = k + 1 >= 1 places per
-// query (from 257 on the heap lives in the outputs); pos (I x QB x k1) int32
-// and dist (I x QB x k1) f32 out.
+// query; pos (I x QB x k1) int32 and dist (I x QB x k1) f32 out; heaps
+// scratch of I x QB x knn_heap_row(k1) 64-bit words (knn_tile.cuh).
 int mt_ivf_search(const float* Xs, const int* qids, const int* probe_pos,
                   const int* probe_cnt, const float* mu, int n, int d, int I,
                   int QB, int P, int L, int k1, int half, int* pos, float* dist,
-                  void* stream) {
+                  void* heaps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (I <= 0 || QB <= 0) return (int)cudaGetLastError();
-  const int64_t blocks = (int64_t)((QB + kQ - 1) / kQ) * I;
+  const int64_t blocks = (int64_t)((QB + f32t::kQT - 1) / f32t::kQT) * I;
   if (k1 < 1 || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)blocks;
-  if (k1 <= 32)
-    ivf_search_kernel<32><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt, mu,
-                                              n, d, QB, P, L, k1, half, pos, dist);
-  else if (k1 <= kLocalList)
-    ivf_search_kernel<kLocalList><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt,
-                                                      mu, n, d, QB, P, L, k1, half,
-                                                      pos, dist);
-  else
-    ivf_search_kernel<0><<<grid, kQ, 0, s>>>(Xs, qids, probe_pos, probe_cnt, mu,
-                                             n, d, QB, P, L, k1, half, pos, dist);
-  return (int)cudaGetLastError();
+  return (int)launch_ivf_search((unsigned)blocks, Xs, qids, probe_pos, probe_cnt, mu, n, d, QB,
+                                P, L, k1, half, pos, dist, (hkey*)heaps, s);
 }
 
 // T15. X (n x d) f32; cent (C x d) f32; csq (C,) f32 squared norms of the

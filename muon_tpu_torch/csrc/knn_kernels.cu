@@ -15,139 +15,433 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "knn_tile.cuh"
 #include "topk_heap.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// T5: exact self-kNN over the rows of X (n x d, f32, row-major).
+// T5: exact self-kNN over the rows of X (n x d, row-major).
 //
 // The reference forms every (query, candidate) distance in a (block, n) tile
 // in device memory and selects with a two-stage top-k. Here no distance ever
-// leaves the SM: a block of kQ threads owns kQ queries (one each) and streams
-// the candidates through shared memory in tiles of kC rows x kD dimensions.
-// A query of d <= kD (the PCA and LSI reps, d = 50) stays in registers for
-// the whole stream; a wider one (use_rep="X") is reloaded chunk by chunk,
-// so any d works. Each thread keeps its kC cross terms in registers, forms
-// the distance exactly as the reference does, and keeps its best k
-// candidates in a max-heap on (distance, index): a candidate enters only if
-// it beats the root, so after the first tiles almost none do, and an
-// insertion costs O(log k). The kernel is bound by the FMAs of the cross
-// terms (n^2 d; 5e11 at n = 1e5, d = 50, padded to 64) and the shared-memory
-// loads feeding them (one 16-byte broadcast load per 4 FMAs). The heap lives
-// in a per-thread array (local memory, cached in L1), touched only on an
-// insertion; it is sorted once at the end. Lists longer than 256 (k >= 256)
-// keep the heap in the query's own row of the outputs instead (KMAX = 0):
-// global memory, read and written only on an insertion, sorted in place, so
-// any k up to n - 1 runs with no array sized at compile time.
+// leaves the SM: a block stages its queries once and streams the candidates
+// through shared memory in tiles. Each warp owns 32 of the block's queries
+// (a lane each, with its heap) and forms their distances to the whole tile
+// in registers; each distance is compared with the bar of its query (the
+// root of its heap; all pass while it fills), and each query takes the
+// candidates that pass in ascending candidate order (knn_tile.cuh). Two
+// products feed the tile:
+//
+//   bf16 (the approx path, n > 20,000 on the main path): the operand rows
+//   are bfloat16 values, handed over as bfloat16 with each row padded with
+//   zeros to a multiple of 16. A block of 4 warps owns 128 queries, staged
+//   once (d <= 64; wider rows go in 64-wide chunks, the query chunk
+//   double-buffered with the candidates'); candidate tiles of 64 rows come
+//   in through cp.async, double-buffered, and each warp forms its 32 x 64
+//   cross terms with mma.sync.m16n8k16 (bf16 products, float32 sums; both
+//   operands by ldmatrix: candidate rows stored along d are B in the "col"
+//   layout). The products are exact and sum in float32, but in the tensor
+//   cores' own order: a distance there may differ from a float32 fma
+//   chain's in its last bits, enough to swap near ties against the plain
+//   version's float32 product. So the tensor cores only screen: a
+//   candidate whose distance lies within an error margin of its query's bar
+//   or below is taken on, and its distance recomputed as the fma chain over
+//   its bfloat16 values in order (from the staged rows); the chain's
+//   distance decides. The results are the float32 mode's bits on the same
+//   rows held as float32 (a ROADMAP invariant). Bound: the
+//   tensor cores' 2 n^2 d (d padded to 16) at the bf16 rate; the time goes
+//   to the screen's epilogue and the selection.
+//
+//   f32 (exact mode, and the non-approx metrics): a block of 256 threads
+//   owns 256 queries; candidate tiles of 32 rows x 64 dimensions are staged
+//   transposed (the next one loaded into registers while this one is
+//   multiplied), and each thread carries an 8 x 4 micro-tile of sums
+//   (knn_tile.cuh fma_microtile). Each pair's sum is the fma chain over u
+//   in order, whose bits the port's T5 keeps (a ROADMAP invariant;
+//   exp_compare_trees.py holds two trees to it). Bound: the n^2 d fmas at
+//   the float32 rate; the micro-tile's shared-memory loads (3 of 16 bytes a
+//   32 fmas) hold it below that.
 //
 // Distance, with the reference's rounding points:
 //   one_minus = 0: d2 = max((|q|^2 + |c|^2) - 2 cross, 0), norms given in f32
 //                  (euclidean, sqeuclidean);
 //   one_minus = 1: 1 - cross, on rows normalised beforehand (cosine,
 //                  correlation).
-// The approx path hands in X rounded to bf16 (held as f32) and the norms of
-// the unrounded rows; the products are exact in f32 and sum in f32. The
-// cross term stays f32, as in the reference as it runs: under jit, XLA folds
-// the f32 convert of the bf16 matmul into the dot, whose result is then f32
-// (its compiled HLO is a dot of two bf16-rounded f32 operands into f32).
+// The approx path's norms are those of the unrounded rows. The cross term
+// stays f32, as in the reference as it runs: under jit, XLA folds the f32
+// convert of the bf16 matmul into the dot, whose result is then f32 (its
+// compiled HLO is a dot of two bf16-rounded f32 operands into f32).
 // Order: self first whatever its distance (the reference's -inf mask), then
 // the k best others by (distance, index) ascending, so ties go to the lower
-// index as lax.top_k does. Candidates arrive in index order, so an equal
-// distance never displaces an entry of the heap.
-// Not done yet (later work): a register-tiled or wgmma cross term, and a
-// split of the candidate stream over several blocks for small n.
+// index as lax.top_k does. Candidates are offered in index order, so an
+// equal distance never displaces an entry of the heap. Every query's heap
+// lives in its own row of the outputs (places 1..k), sorted there at the
+// end, so any k up to n - 1 runs; the counters knn_topk and knn_topk_global
+// (lists longer than 256) name the same kernels.
 // ---------------------------------------------------------------------------
 
-constexpr int kQ = 128;  // queries per block, one per thread
-constexpr int kC = 32;   // candidates per shared-memory tile
-constexpr int kD = 64;   // dimensions per chunk
-// lists (k + 1 places, self included) up to this long keep the heap in a
-// per-thread array; ops/knn.py LOCAL_LIST
-constexpr int kLocalList = 256;
+typedef unsigned short bf16_bits;  // a bfloat16 value, moved but not computed on
 
-template <int KMAX>
-__global__ void __launch_bounds__(kQ)
-    knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ sq,
-                    int n, int d, int k, int one_minus, int take_sqrt,
-                    int* __restrict__ out_idx, float* __restrict__ out_dist) {
-  __shared__ __align__(16) float tile[kC][kD];
-  __shared__ float tile_sq[kC];
-  const int i = blockIdx.x * kQ + threadIdx.x;
-  const bool active = i < n;
-  const float* q = X + (int64_t)(active ? i : 0) * d;
-  const float qsq = (active && !one_minus) ? sq[i] : 0.f;
-  const bool one_chunk = d <= kD;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));  // a source size of 0 writes zeros
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16_bits* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 products, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  float qv[kD];
+// q . c over ld bfloat16 values (ld a multiple of 8, both rows 16-byte
+// aligned, in shared or global memory) as one float32 fma chain in order:
+// the products are exact, and the chain is the float32 kernel's, so its
+// value is the bits of that kernel on the same rows held as float32 (the
+// zeros that pad a row add nothing)
+__device__ __forceinline__ float dot_bf16_chain(const bf16_bits* q, const bf16_bits* c, int ld) {
+  float acc = 0.f;
+  for (int u = 0; u < ld; u += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(q + u);
+    const uint4 b = *reinterpret_cast<const uint4*>(c + u);
+    const unsigned aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int u = 0; u < kD; ++u) qv[u] = (active && u < d) ? q[u] : 0.f;
-
-  float local_d[KMAX > 0 ? KMAX : 1];
-  int local_i[KMAX > 0 ? KMAX : 1];
-  const int64_t o = (int64_t)(active ? i : 0) * (k + 1);
-  float* heap_d = KMAX > 0 ? local_d : out_dist + o + 1;
-  int* heap_i = KMAX > 0 ? local_i : out_idx + o + 1;
-  int cnt = 0;
-
-  for (int c0 = 0; c0 < n; c0 += kC) {
-    float acc[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-    for (int u0 = 0; u0 < d; u0 += kD) {
-      __syncthreads();  // the previous chunk's readers are done
-      for (int t = threadIdx.x; t < kC * kD; t += kQ) {
-        const int c = t / kD, u = t % kD, j = c0 + c, col = u0 + u;
-        tile[c][u] = (j < n && col < d) ? X[(int64_t)j * d + col] : 0.f;
-      }
-      if (u0 == 0 && threadIdx.x < kC) {
-        const int j = c0 + threadIdx.x;
-        tile_sq[threadIdx.x] = (!one_minus && j < n) ? sq[j] : 0.f;
-      }
-      if (!one_chunk) {
-#pragma unroll
-        for (int u = 0; u < kD; ++u)
-          qv[u] = (active && u0 + u < d) ? q[u0 + u] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-#pragma unroll
-        for (int u = 0; u < kD; u += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(&tile[c][u]);
-          acc[c] = fmaf(qv[u], v.x, acc[c]);
-          acc[c] = fmaf(qv[u + 1], v.y, acc[c]);
-          acc[c] = fmaf(qv[u + 2], v.z, acc[c]);
-          acc[c] = fmaf(qv[u + 3], v.w, acc[c]);
-        }
-      }
-    }
-    if (!active || k == 0) continue;  // no __syncthreads below this point
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int j = c0 + c;
-      if (j >= n || j == i) continue;
-      const float dist = one_minus
-                             ? 1.f - acc[c]
-                             : fmaxf((qsq + tile_sq[c]) - 2.f * acc[c], 0.f);
-      if (cnt < k) {  // filling: append and sift up
-        cnt = heap_push(heap_d, heap_i, cnt, dist, j);
-      } else if (dist < heap_d[0]) {  // j is the largest index so far
-        heap_d[0] = dist;
-        heap_i[0] = j;
-        sift_down(heap_d, heap_i, k, 0);
-      }
+    for (int w = 0; w < 4; ++w) {  // a word holds values u (low half) and u + 1
+      acc = fmaf(__uint_as_float(aw[w] << 16), __uint_as_float(bw[w] << 16), acc);
+      acc = fmaf(__uint_as_float(aw[w] & 0xffff0000u), __uint_as_float(bw[w] & 0xffff0000u), acc);
     }
   }
-  if (!active) return;
-  heap_sort(heap_d, heap_i, k);
+  return acc;
+}
+
+// The tensor cores' sums run in their own order and precision, a few ulps of
+// sum |q_u c_u| <= (|q|^2 + |c|^2) / 2 from the chain's. A candidate is taken
+// on to its chain when its tensor-core distance lies below the bar by less
+// than kScreen (|q|^2 + |c|^2), far above that error (d2 = s - 2 cross moves
+// by twice the cross term's), so every candidate whose chain distance
+// beats the bar is among those taken on.
+constexpr float kScreen = 1.f / 16384.f;
+
+// the final list of query i: self, then its heap sorted ascending
+__device__ __forceinline__ void write_list(TopK& h, int i, int64_t o, int k, int take_sqrt,
+                                           int* out_idx, float* out_dist) {
+  sort8(h.H, k);
   out_idx[o] = i;
   out_dist[o] = 0.f;
   for (int r = 0; r < k; ++r) {
-    if (KMAX > 0) out_idx[o + 1 + r] = heap_i[r];
-    out_dist[o + 1 + r] = take_sqrt ? sqrtf(fmaxf(heap_d[r], 0.f)) : heap_d[r];
+    const hkey key = h.node(r);
+    const float d = key_dist(key);
+    out_idx[o + 1 + r] = key_index(key);
+    out_dist[o + 1 + r] = take_sqrt ? sqrtf(fmaxf(d, 0.f)) : d;
   }
 }
+
+namespace mma {
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kQT = 128;       // queries per block: warp w owns 32 w + [0, 32), a lane each
+constexpr int kCT = 64;        // candidates per tile
+constexpr int kDK = 64;        // dimensions per chunk
+constexpr int kLdA = kDK + 8;  // bf16 per staged row: 144 bytes, so the 8 rows of an
+                               // ldmatrix fall in 8 distinct bank groups
+constexpr int kOpBytes = kLdA * 2;
+}  // namespace mma
+
+// shared memory of the bf16 kernel: the query chunk (two when the rows are
+// wider than one chunk), two candidate chunks, two tiles' norms
+__host__ __device__ constexpr size_t mma_shared_bytes(bool resident) {
+  return (size_t)(resident ? 1 : 2) * mma::kQT * mma::kOpBytes +
+         2 * (size_t)mma::kCT * mma::kOpBytes + 2 * mma::kCT * 4;
+}
+
+// rows [r0, r0 + rows) x columns [u0, u0 + cw) of the padded bf16 matrix
+// (row stride ld) into dst (row stride kLdA) by cp.async; rows >= n as zeros
+__device__ __forceinline__ void stage_bf16(bf16_bits* dst, const bf16_bits* X, int ld, int r0,
+                                           int rows, int n, int u0, int cw) {
+  const int segs = cw / 8;  // 16-byte pieces a row
+  for (int t = threadIdx.x; t < rows * segs; t += mma::kThreads) {
+    const int r = t / segs, s = t % segs;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * mma::kLdA + s * 8,
+               ok ? (const void*)(X + (int64_t)(r0 + r) * ld + u0 + s * 8) : (const void*)X, ok);
+  }
+}
+
+__global__ void __launch_bounds__(mma::kThreads, 3)
+    knn_topk_mma_kernel(const bf16_bits* __restrict__ X, const float* __restrict__ sq, int n,
+                        int d, int k, int one_minus, int take_sqrt, int* __restrict__ out_idx,
+                        float* __restrict__ out_dist, hkey* __restrict__ heaps) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = (d + 15) & ~15;
+  const int nchunks = (ld + kDK - 1) / kDK;
+  const bool resident = nchunks == 1;
+  bf16_bits* sQ = reinterpret_cast<bf16_bits*>(smem);
+  bf16_bits* sC = sQ + (resident ? 1 : 2) * kQT * kLdA;
+  float* sCsq = reinterpret_cast<float*>(sC + 2 * kCT * kLdA);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kQT, i = q0 + tid;
+  const bool active = i < n;
+  // the accumulator fragments' rows of this lane: 32 warp + 16 mi + 8 r + lane / 4
+  float qsq[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + warp * 32 + mi * 16 + r * 8 + (lane >> 2);
+      qsq[mi][r] = (!one_minus && qi < n) ? sq[qi] : 0.f;
+    }
+
+  const float my_sq = (active && !one_minus) ? sq[i] : 0.f;
+  const int64_t o = (int64_t)(active ? i : 0) * (k + 1);
+  TopK h = make_topk(heaps + (int64_t)(active ? i : 0) * knn_heap_row(k), active ? k : 0);
+  Pending pend;
+  pend.n = 0;
+
+  const int ntiles = (n + kCT - 1) / kCT;
+  const int stages = ntiles * nchunks;  // (tile, chunk) in order
+  auto issue = [&](int s) {
+    const int t = s / nchunks, ch = s % nchunks, u0 = ch * kDK;
+    const int cw = min(kDK, ld - u0);
+    stage_bf16(sC + (s & 1) * kCT * kLdA, X, ld, t * kCT, kCT, n, u0, cw);
+    if (!resident) stage_bf16(sQ + (s & 1) * kQT * kLdA, X, ld, q0, kQT, n, u0, cw);
+    if (ch == 0 && tid < kCT) {
+      const int j = t * kCT + tid;
+      sCsq[(t & 1) * kCT + tid] = (!one_minus && j < n) ? sq[j] : 0.f;
+    }
+    cp_async_commit();
+  };
+  if (resident) stage_bf16(sQ, X, ld, q0, kQT, n, 0, ld);  // in stage 0's group
+  issue(0);
+
+  float acc[2][8][4];
+  for (int s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // stage s has landed for every thread; the block inserts its pending
+    // candidates together
+    if (__syncthreads_or(pend.n >= kFlushAt)) pend.flush(h);
+    const int t = s / nchunks, ch = s % nchunks;
+    const int cw = min(kDK, ld - ch * kDK);
+    const bf16_bits* A = sQ + (resident ? 0 : (s & 1)) * kQT * kLdA;
+    const bf16_bits* B = sC + (s & 1) * kCT * kLdA;
+    if (ch == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    }
+    for (int kk = 0; kk < cw; kk += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(a[mi], A + (warp * 32 + mi * 16 + (lane & 15)) * kLdA + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned b[4];  // b0, b1 of n-tile 2 np, then of 2 np + 1
+        const int m = lane >> 3;
+        ldmatrix_x4(b, B + (np * 16 + (m >> 1) * 8 + (lane & 7)) * kLdA + kk + (m & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (ch == nchunks - 1) {
+      // The tile's tensor-core distances, in the registers of the warp that
+      // owns their queries, screened against each query's bar (from the lane
+      // that owns it); each query takes the candidates of its row that pass
+      // the screen, in ascending order, at the distance of their float32
+      // chain. Row mi 16 + r 8 + lane / 4 of the warp holds candidates
+      // ni 8 + (lane % 4) 2 + e of this lane.
+      const int c0 = t * kCT, nvalid = min(kCT, n - c0);
+      const float* csq = sCsq + (t & 1) * kCT;
+      float cs[8][2];  // the norms of this lane's candidates
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) cs[ni][e] = csq[ni * 8 + (lane & 3) * 2 + e];
+      const float bar = shared_bar(h);
+      unsigned long long bits[2][2];  // bit c: candidate c passes the row's screen
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float rb = __shfl_sync(0xffffffffu, bar, mi * 16 + r * 8 + (lane >> 2));
+          unsigned m16 = 0;  // bit 2 ni + e
+#pragma unroll
+          for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = acc[mi][ni][r * 2 + e];
+              const float sc = one_minus ? 2.f : qsq[mi][r] + cs[ni][e];
+              const float dv = one_minus ? 1.f - x : fmaxf(sc - 2.f * x, 0.f);
+              if (!(dv - kScreen * sc >= rb) && ni * 8 + (lane & 3) * 2 + e < nvalid)
+                m16 |= 1u << (ni * 2 + e);
+            }
+          unsigned long long m = 0;
+#pragma unroll
+          for (int ni = 0; ni < 8; ++ni) m |= (unsigned long long)((m16 >> (2 * ni)) & 3u) << (ni * 8);
+          bits[mi][r] = m << ((lane & 3) * 2);
+        }
+      if (__any_sync(0xffffffffu, (bits[0][0] | bits[0][1] | bits[1][0] | bits[1][1]) != 0)) {
+        // a row's 64 candidates lie in the 4 lanes of a quad; this lane's
+        // query is row lane of the warp: (mi, r) = (lane / 16, lane / 8 % 2)
+        // in quad lane % 8
+        unsigned long long mine = 0;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            unsigned long long m = bits[mi][r];
+            m |= __shfl_xor_sync(0xffffffffu, m, 1);
+            m |= __shfl_xor_sync(0xffffffffu, m, 2);
+            const unsigned long long v = __shfl_sync(0xffffffffu, m, (lane & 7) * 4);
+            if ((lane >> 3) == mi * 2 + r) mine = v;
+          }
+        if (i >= c0 && i < c0 + kCT) mine &= ~(1ull << (i - c0));  // self
+        // the rows of the chain: the staged ones when a row is one chunk
+        const bf16_bits* qrow = resident ? A + tid * kLdA : X + (int64_t)(active ? i : 0) * ld;
+        const bf16_bits* crow = resident ? B : X + (int64_t)c0 * ld;
+        const int cstride = resident ? kLdA : ld;
+        scan_bits(h, pend, mine, c0, [&](int c) {
+          const float x = dot_bf16_chain(qrow, crow + (int64_t)c * cstride, ld);
+          return one_minus ? 1.f - x : fmaxf((my_sq + csq[c]) - 2.f * x, 0.f);
+        });
+      }
+    }
+    __syncthreads();  // stage s's buffers are free again
+  }
+  pend.flush(h);
+  if (active) write_list(h, i, o, k, take_sqrt, out_idx, out_dist);
+}
+
+// shared memory of the float32 kernel: a query chunk, a candidate chunk,
+// the distance tile, the queries' and the tile's norms
+__host__ __device__ constexpr size_t f32_shared_bytes() {
+  return 4 * ((size_t)f32t::kDK * f32t::kLdQ + (size_t)f32t::kDK * f32t::kLdC +
+              (size_t)f32t::kCT * f32t::kLdQ + f32t::kQT + f32t::kCT);
+}
+
+// rows [r0, r0 + rows) x columns [u0, u0 + kDK) of X (n x d) transposed into
+// dst[u * ld + r]; rows >= n and columns >= d as zeros
+__device__ __forceinline__ void stage_f32_t(float* dst, int ld, const float* X, int n, int d,
+                                            int r0, int rows, int u0) {
+  for (int t = threadIdx.x; t < rows * f32t::kDK; t += f32t::kThreads) {
+    const int r = t / f32t::kDK, u = t % f32t::kDK, col = u0 + u;
+    dst[u * ld + r] = (r0 + r < n && col < d) ? X[(int64_t)(r0 + r) * d + col] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(f32t::kThreads, 2)
+    knn_topk_f32_kernel(const float* __restrict__ X, const float* __restrict__ sq, int n, int d,
+                        int k, int one_minus, int take_sqrt, int* __restrict__ out_idx,
+                        float* __restrict__ out_dist, hkey* __restrict__ heaps) {
+  using namespace f32t;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sQ = fsmem;
+  float* sC = sQ + kDK * kLdQ;
+  float* sD = sC + kDK * kLdC;
+  float* sQsq = sD + kCT * kLdQ;
+  float* sCsq = sQsq + kQT;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kQT, i = q0 + tid;
+  const bool active = i < n;
+  const int mq = micro_q(tid), mc = micro_c(tid);
+  const bool resident = d <= kDK;
+  sQsq[tid] = (active && !one_minus) ? sq[i] : 0.f;
+  if (resident) stage_f32_t(sQ, kLdQ, X, n, d, q0, kQT, 0);
+
+  const int64_t o = (int64_t)(active ? i : 0) * (k + 1);
+  TopK h = make_topk(heaps + (int64_t)(active ? i : 0) * knn_heap_row(k), active ? k : 0);
+  Pending pend;
+  pend.n = 0;
+
+  // stages: (candidate tile, 64-wide chunk of d) in order; a stage's
+  // candidate chunk is loaded into registers while the one before it is
+  // multiplied, kPer values a thread
+  const int nch = (d + kDK - 1) / kDK;
+  const int stages = (n + kCT - 1) / kCT * nch;
+  constexpr int kPer = kCT * kDK / kThreads;
+  const int u = tid % kDK;  // this thread's column of every chunk it loads
+  float pre[kPer];
+  auto fetch = [&](int s) {
+    const int c0 = s / nch * kCT, col = s % nch * kDK + u;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int r = (tid + e * kThreads) / kDK;
+      pre[e] = (c0 + r < n && col < d) ? X[(int64_t)(c0 + r) * d + col] : 0.f;
+    }
+  };
+  fetch(0);
+  float acc[kTM][kTN];
+  for (int s = 0; s < stages; ++s) {
+    const int c0 = s / nch * kCT, ch = s % nch, u0 = ch * kDK;
+    // the previous stage's readers are done; the block inserts its pending
+    // candidates together
+    if (__syncthreads_or(pend.n >= kFlushAt)) pend.flush(h);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) sC[u * kLdC + (tid + e * kThreads) / kDK] = pre[e];
+    if (!resident) stage_f32_t(sQ, kLdQ, X, n, d, q0, kQT, u0);
+    if (ch == 0 && tid < kCT) sCsq[tid] = (!one_minus && c0 + tid < n) ? sq[c0 + tid] : 0.f;
+    __syncthreads();
+    if (s + 1 < stages) fetch(s + 1);
+    if (ch == 0) {
+#pragma unroll
+      for (int a = 0; a < kTM; ++a)
+#pragma unroll
+        for (int b = 0; b < kTN; ++b) acc[a][b] = 0.f;
+    }
+    fma_microtile<kTM, kTN>(acc, sQ + mq, kLdQ, sC + mc, kLdC, min(kDK, (d - u0 + 3) & ~3));
+    if (ch < nch - 1) continue;
+    // the tile's distances, filtered in the warp that owns their queries
+    // (as in the bf16 kernel); sCsq stays until the next stage's barrier
+    float cs[kTN];
+#pragma unroll
+    for (int b = 0; b < kTN; ++b) cs[b] = sCsq[mc + b];
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int b = 0; b < kTN; ++b)
+        acc[a][b] = one_minus ? 1.f - acc[a][b]
+                              : fmaxf((sQsq[mq + a] + cs[b]) - 2.f * acc[a][b], 0.f);
+    f32_tile_select(h, pend, acc, sD, mq, mc, tid, min(kCT, n - c0), c0,
+                    (i >= c0 && i < c0 + kCT) ? i - c0 : -1);
+  }
+  pend.flush(h);
+  if (active) write_list(h, i, o, k, take_sqrt, out_idx, out_dist);
+}
+
+// T40's geometry: a block of kQ threads owns kQ queries, one each
+constexpr int kQ = 128;  // queries per block, one per thread
+constexpr int kC = 32;   // candidates per shared-memory tile
+constexpr int kD = 64;   // dimensions per chunk
+// T40's lists up to this long keep the heap in a per-thread array;
+// ops/knn.py LOCAL_LIST
+constexpr int kLocalList = 256;
 
 // ---------------------------------------------------------------------------
 // T40: one round of the sharded exact kNN's ring. A rank holds its query
@@ -159,7 +453,7 @@ __global__ void __launch_bounds__(kQ)
 //
 // The reference forms the (R, R) distance tile of every round in device
 // memory, takes the block's top-kk with lax.top_k and then the top-(k+1) of
-// concat([carried, block's kk]). Here no distance leaves the SM: as in T5, a
+// concat([carried, block's kk]). Here no distance leaves the SM: a
 // block of kQ threads owns kQ queries and streams B through shared memory in
 // tiles of kC rows x kD dimensions, a query of d <= kD held in registers.
 // The distance is the reference's, (|q|^2 - 2 cross) + |b|^2 in float32,
@@ -173,9 +467,9 @@ __global__ void __launch_bounds__(kQ)
 // reference's two, because the block's top-kk holds every row that can
 // enter. A heap that starts full takes a row only when it beats the root,
 // so padding rows (the reference's +inf) never enter and are skipped.
-// Bound: like T5, by the FMAs of the cross terms, nq * nb * d a round. Lists
-// longer than 256 keep the heap in the query's row of the outputs (KMAX = 0)
-// as T5 and T14 do. The tags become point ids when the list is written.
+// Bound: by the FMAs of the cross terms, nq * nb * d a round. Lists
+// longer than 256 keep the heap in the query's row of the outputs (KMAX = 0).
+// The tags become point ids when the list is written.
 // ---------------------------------------------------------------------------
 
 template <int KMAX>
@@ -365,31 +659,43 @@ __global__ void smooth_knn_kernel(const float* __restrict__ dists, int n,
   for (int j = 0; j < k; ++j) v[j] = expf(-max0_keep_nan(r[j] - rh) / sg);
 }
 
+// T5's launch: the bf16 or the float32 kernel, its shared memory allowed
+// first (above 48 KB it must be asked for)
+cudaError_t launch_knn_topk(const void* X, const float* sq, int n, int d, int k, int one_minus,
+                            int take_sqrt, int bf16, int* idx, float* dist, hkey* heaps,
+                            cudaStream_t s) {
+  if (bf16) {
+    const size_t shm = mma_shared_bytes(((d + 15) & ~15) <= mma::kDK);
+    cudaError_t e = cudaFuncSetAttribute(knn_topk_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (e != cudaSuccess) return e;
+    knn_topk_mma_kernel<<<(n + mma::kQT - 1) / mma::kQT, mma::kThreads, shm, s>>>(
+        (const bf16_bits*)X, sq, n, d, k, one_minus, take_sqrt, idx, dist, heaps);
+  } else {
+    const size_t shm = f32_shared_bytes();
+    cudaError_t e = cudaFuncSetAttribute(knn_topk_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (e != cudaSuccess) return e;
+    knn_topk_f32_kernel<<<(n + f32t::kQT - 1) / f32t::kQT, f32t::kThreads, shm, s>>>(
+        (const float*)X, sq, n, d, k, one_minus, take_sqrt, idx, dist, heaps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// T5. X (n x d) f32; sq (n,) f32 squared row norms (unused when
-// one_minus); 0 <= k <= n - 1 neighbours besides self (from k = 256 on the
-// heap lives in the outputs); idx (n x (k+1)) int32 and dist (n x (k+1)) f32
-// out.
-int mt_knn_topk(const float* X, const float* sq, int n, int d, int k,
-                int one_minus, int take_sqrt, int* idx, float* dist,
-                void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    const int blocks = (n + kQ - 1) / kQ;
-    if (k <= 32)
-      knn_topk_kernel<32><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
-                                                take_sqrt, idx, dist);
-    else if (k < kLocalList)
-      knn_topk_kernel<kLocalList><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
-                                                        take_sqrt, idx, dist);
-    else
-      knn_topk_kernel<0><<<blocks, kQ, 0, s>>>(X, sq, n, d, k, one_minus,
-                                               take_sqrt, idx, dist);
-  }
-  return (int)cudaGetLastError();
+// T5. X (n x d): f32, or with bf16 set bfloat16 with each row padded with
+// zeros to a multiple of 16 (the tensor-core product); sq (n,) f32 squared
+// row norms (unused when one_minus); 0 <= k <= n - 1 neighbours besides
+// self; idx (n x (k+1)) int32 and dist (n x (k+1)) f32 out; heaps scratch
+// of n x knn_heap_row(k) 64-bit words (knn_tile.cuh).
+int mt_knn_topk(const void* X, const float* sq, int n, int d, int k, int one_minus,
+                int take_sqrt, int bf16, int* idx, float* dist, void* heaps, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  return (int)launch_knn_topk(X, sq, n, d, k, one_minus, take_sqrt, bf16, idx, dist,
+                              (hkey*)heaps, (cudaStream_t)stream);
 }
 
 // T6. dists (n x k) f32; mean_all a device pointer to one f32; sigma, rho

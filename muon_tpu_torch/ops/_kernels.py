@@ -57,7 +57,7 @@ _SIGNATURES = {
     "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
     "mt_csr_row_sums": (_P, _P, _I, _P, _P),
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
-    "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
     "mt_knn_ring_merge": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
@@ -70,7 +70,7 @@ _SIGNATURES = {
     "mt_umap_epoch_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                             _F, _P),
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
     "mt_mofa_col_dot": (_P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_w_posterior": (_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _F, _I, _I, _I, _I,

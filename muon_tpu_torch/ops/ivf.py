@@ -38,7 +38,7 @@ import torch
 from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, dense_to_tensor
-from .knn import LOCAL_LIST, _order_keys
+from .knn import LOCAL_LIST, _order_keys, heap_row
 
 __all__ = ["ivf_knn", "build_ivf_layout", "kmeans", "kmeans_assign",
            "kmeans_assign_plain", "item_means", "ivf_search", "ivf_search_plain"]
@@ -292,11 +292,12 @@ def ivf_search(Xs: torch.Tensor, qids: torch.Tensor, probe_pos: torch.Tensor,
     (I, QB), P = qids.shape, probe_pos.shape[1]
     pos = torch.empty((I, QB, k + 1), dtype=torch.int32, device=Xs.device)
     dvals = torch.empty((I, QB, k + 1), dtype=torch.float32, device=Xs.device)
+    heaps = torch.empty(I * QB * heap_row(k + 1), dtype=torch.int64, device=Xs.device)
     _kernels.launch(
         "ivf_search" if k + 1 <= LOCAL_LIST else "ivf_search_global", Xs.device,
         Xs.data_ptr(), qids.data_ptr(), probe_pos.data_ptr(), probe_cnt.data_ptr(),
         mu.data_ptr(), n, d, I, QB, P, int(L), k + 1, int(bool(half)),
-        pos.data_ptr(), dvals.data_ptr(),
+        pos.data_ptr(), dvals.data_ptr(), heaps.data_ptr(),
     )
     return pos, dvals
 

@@ -28,13 +28,14 @@ from . import _kernels
 from .device import DeviceLike, dense_to_tensor
 
 __all__ = ["knn", "knn_topk", "knn_topk_plain", "knn_ring_merge", "knn_ring_merge_plain",
-           "pairwise_sq_dists", "IVF_THRESHOLD", "LOCAL_LIST"]
+           "pairwise_sq_dists", "heap_row", "IVF_THRESHOLD", "LOCAL_LIST"]
 
 # above this row count the reference's approximate path takes the IVF index
 IVF_THRESHOLD = 200_000
-# T5 and T14 keep a query's list (k + 1 places, self included) in a
-# per-thread array up to this length, and in the query's row of the outputs
-# beyond it (counted apart: knn_topk_global, ivf_search_global)
+# T5 and T14 count lists (k + 1 places, self included) longer than this
+# apart (knn_topk_global, ivf_search_global: the same kernels, every heap in
+# a scratch row of heap_row words); T40 keeps a list up to this long in a
+# per-thread array, a longer one in the outputs
 LOCAL_LIST = 256
 _INT32_MAX = 2**31 - 1
 
@@ -75,9 +76,33 @@ def _operand(X: torch.Tensor, metric: str, approx: bool):
     return op.contiguous(), sq
 
 
+def _variant(k: int) -> str:
+    """T5's launch counter for lists of k + 1: ``knn_topk`` up to
+    ``LOCAL_LIST`` places, ``knn_topk_global`` beyond."""
+    return "knn_topk" if k + 1 <= LOCAL_LIST else "knn_topk_global"
+
+
+def heap_row(k: int) -> int:
+    """64-bit words of scratch a query's heap of k places takes on the card
+    (csrc/knn_tile.cuh ``knn_heap_row``): the k nodes after 7 unused words,
+    rounded up to 64 bytes, so that the 8 children of every node share one
+    64-byte group."""
+    return (7 + k + 7) // 8 * 8
+
+
+def _bf16_rows(X: torch.Tensor) -> torch.Tensor:
+    """T5's tensor-core operand: ``X`` as bfloat16, each row padded with
+    zeros to a multiple of 16 columns (mma's depth, and 16-byte rows for
+    cp.async). Exact for the rows ``_operand`` rounded under ``approx``."""
+    n, d = X.shape
+    out = torch.zeros((n, -(-d // 16) * 16), dtype=torch.bfloat16, device=X.device)
+    out[:, :d] = X
+    return out
+
+
 def knn_topk(
     X: torch.Tensor, sq: Optional[torch.Tensor], k: int, one_minus: bool,
-    take_sqrt: bool,
+    take_sqrt: bool, approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """T5: self-kNN over the rows of ``X`` ``(n, d)`` float32. Returns idx
     ``(n, k+1)`` int32 and dists ``(n, k+1)`` float32: self in column 0 at
@@ -85,7 +110,10 @@ def knn_topk(
     lower index. The distance is ``max(sq_i + sq_j − 2·cross, 0)``, or
     ``1 − cross`` when ``one_minus``, with the cross term summed in
     float32; ``take_sqrt`` returns the square roots of columns 1..k. Any
-    k up to n − 1."""
+    k up to n − 1. ``approx``: X holds bfloat16 values (``_operand``'s
+    approx rows); on the card the tensor cores then screen the candidates
+    from X as bfloat16, and the float32 fma chain of the others decides, so
+    the results are those without ``approx``, sooner."""
     if X.device.type == "cpu" and (sq is None or sq.device.type == "cpu"):
         return knn_topk_plain(X, sq, k, one_minus, take_sqrt)
     if X.device.type != "cuda":
@@ -94,7 +122,7 @@ def knn_topk(
         raise ValueError(f"X must be a contiguous 2-D float32 tensor, got "
                          f"{X.dtype} {tuple(X.shape)}")
     n, d = X.shape
-    if not (1 <= d and n <= _INT32_MAX and d <= _INT32_MAX):
+    if not (1 <= d and n <= _INT32_MAX and d <= _INT32_MAX - 15):
         raise ValueError(f"X of shape {(n, d)} is outside what T5 takes")
     if not 0 <= k <= n - 1:
         raise ValueError(f"k={k} must lie in [0, n-1={n - 1}]")
@@ -102,12 +130,14 @@ def knn_topk(
         if sq is None or sq.device != X.device or sq.dtype != torch.float32 \
                 or tuple(sq.shape) != (n,) or not sq.is_contiguous():
             raise ValueError("sq must be a contiguous (n,) float32 tensor on X's device")
+    op = _bf16_rows(X) if approx else X
     idx = torch.empty((n, k + 1), dtype=torch.int32, device=X.device)
     dists = torch.empty((n, k + 1), dtype=torch.float32, device=X.device)
+    heaps = torch.empty(n * heap_row(k), dtype=torch.int64, device=X.device)
     _kernels.launch(
-        "knn_topk" if k + 1 <= LOCAL_LIST else "knn_topk_global", X.device,
-        X.data_ptr(), 0 if one_minus else sq.data_ptr(), n, d, k, int(one_minus),
-        int(take_sqrt), idx.data_ptr(), dists.data_ptr(),
+        _variant(k), X.device, op.data_ptr(), 0 if one_minus else sq.data_ptr(), n, d, k,
+        int(one_minus), int(take_sqrt), int(bool(approx)), idx.data_ptr(), dists.data_ptr(),
+        heaps.data_ptr(),
     )
     return idx, dists
 
@@ -256,7 +286,7 @@ def knn(
     with stage("knn/topk"):
         op, sq = _operand(X, m, approx)
         idx, dists = knn_topk(op, sq, k, one_minus=m in ("cosine", "correlation"),
-                              take_sqrt=m == "euclidean")
+                              take_sqrt=m == "euclidean", approx=approx)
     if include_self:
         return idx, dists
     return idx[:, 1:], dists[:, 1:]

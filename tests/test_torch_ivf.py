@@ -644,3 +644,77 @@ def test_gpu_ivf_wrappers_refuse_bad_input(cuda):
         ti.ivf_search(X, q, pp_, pc, mu_, 5, 64, False)  # a chunk longer than L
     with pytest.raises(ValueError):
         ti.ivf_search(X, q.long(), pp_, pc, mu_, 5, 128, False)
+
+
+def _ragged_layout(rng, Xs, QB, P, L):
+    """Work items by hand over the sorted points Xs: a full item, a ragged
+    one, one whose last query tile holds only padding, one with no query;
+    probe lists of ragged chunks with -1 entries between them, and a query
+    whose own chunk is not probed."""
+    n = len(Xs)
+    qids = np.full((4, QB), -1, np.int32)
+    qids[0] = np.arange(QB)
+    qids[1, :QB - 37] = np.arange(n - (QB - 37), n)
+    qids[2, :QB // 2 - 3] = rng.choice(n, QB // 2 - 3, replace=False)
+    starts = rng.integers(0, n - L, size=(4, P)).astype(np.int32)
+    lens = rng.integers(1, L + 1, size=(4, P)).astype(np.int32)
+    lens[0, 0] = L
+    lens[1, 1] = 31
+    starts[1, 2] = starts[2, 0] = -1
+    starts[2, P - 1] = -1
+    lens[starts < 0] = 0
+    return qids, starts, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("d", [1, 13, 50, 65, 130])
+def test_gpu_ivf_search_ragged_items_match_plain(cuda, d, half):
+    # items of 300 queries: two blocks of 256, the second ragged or all
+    # padding; chunks no multiple of the 32-row tile; -1 probes between
+    # others; k + 1 at the heap variants' edges and past the candidates of
+    # an item (underfilled: +inf at position 0)
+    rng = np.random.default_rng(d)
+    Xs = rng.normal(size=(3000, d)).astype(np.float32)
+    if half:
+        Xs /= np.linalg.norm(Xs, axis=1, keepdims=True)
+    qids, ppos, pcnt = _ragged_layout(rng, Xs, 300, 5, 200)
+    to = lambda v: torch.from_numpy(v).to(cuda)  # noqa: E731
+    Xt, qt = to(Xs), to(qids)
+    mu_ = ti.item_means(Xt, qt)
+    for k in (0, 31, 32, 255, 256, 700):
+        args = (Xt, qt, to(ppos), to(pcnt), mu_, k, 200, half)
+        _kernels.reset_launch_counts()
+        gp, gd = ti.ivf_search(*args)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["ivf_search" if k < 256 else "ivf_search_global"] == 1
+        rp, rd = ti.ivf_search_plain(*args)
+        ok = qt >= 0
+        assert torch.equal(torch.isinf(gd), torch.isinf(rd))
+        assert torch.equal(torch.isneginf(gd), torch.isneginf(rd))
+        assert (gp[~ok] == 0).all() and torch.isposinf(gd[~ok]).all()
+        assert (gp[torch.isposinf(gd)] == 0).all()
+        item = torch.arange(len(qids), device=cuda)[:, None].expand_as(qt)[ok]
+        qc = Xt[qt[ok].long()] - mu_[item]
+        csq = ((Xt[rp[ok].long()] - mu_[item][:, None, :]) ** 2).sum(-1)
+        bound = 1e-5 * ((qc ** 2).sum(-1)[:, None] + csq)
+        fin = torch.isfinite(rd[ok])
+        assert ((gd[ok] - rd[ok]).abs()[fin] <= bound[fin]).all()
+        assert (gp[ok] == rp[ok]).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,k", [(8, 40), (65, 300)])
+def test_gpu_ivf_search_integer_ragged_items_match_plain_exactly(cuda, d, k):
+    # integer points and an integer μ: every term exact, so positions and
+    # distances equal the plain search's, ties (by the place in the probe
+    # list) included, through the -1 probes and the padded tiles
+    rng = np.random.default_rng(d + k)
+    Xs = rng.integers(-4, 5, size=(3000, d)).astype(np.float32)
+    qids, ppos, pcnt = _ragged_layout(rng, Xs, 300, 5, 200)
+    to = lambda v: torch.from_numpy(v).to(cuda)  # noqa: E731
+    mu_ = to(np.round(ti.item_means(to(Xs), to(qids)).cpu().numpy()))
+    args = (to(Xs), to(qids), to(ppos), to(pcnt), mu_, k, 200, False)
+    gp, gd = ti.ivf_search(*args)
+    rp, rd = ti.ivf_search_plain(*args)
+    assert torch.equal(gp, rp) and torch.equal(gd, rd)

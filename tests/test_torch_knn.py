@@ -198,6 +198,41 @@ def test_cpu_knn_counts_no_launch():
     assert _kernels.launch_counts()["knn_topk"] == 0
 
 
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [1, 13, 16, 50, 64, 65, 130])
+def test_bf16_operand_widens_back_to_the_approx_rows(metric, d):
+    # T5's tensor-core operand is _operand's approx rows as bfloat16, padded
+    # with zeros to a multiple of 16 columns: exact, so the kernel multiplies
+    # the values the float32 rows hold
+    X = torch.from_numpy(_gaussian(97, d, seed=d) * 3)
+    op, _ = tk._operand(X, tk._metric(metric), approx=True)
+    b = tk._bf16_rows(op)
+    assert b.dtype == torch.bfloat16 and b.shape == (97, -(-d // 16) * 16)
+    assert torch.equal(b[:, :d].float(), op)
+    assert (b[:, d:] == 0).all()
+
+
+@pytest.mark.parametrize("k,name", [(0, "knn_topk"), (31, "knn_topk"), (32, "knn_topk"),
+                                    (33, "knn_topk"), (254, "knn_topk"), (255, "knn_topk"),
+                                    (256, "knn_topk_global"), (1000, "knn_topk_global")])
+def test_list_length_picks_the_counted_variant(k, name):
+    # lists of k + 1 <= LOCAL_LIST keep the heap in a per-thread array
+    # (knn_topk), longer ones in the outputs (knn_topk_global)
+    assert tk._variant(k) == name
+
+
+@pytest.mark.parametrize("k", [0, 1, 19, 20, 200, 300, 1024])
+def test_heap_row_holds_every_child_group(k):
+    # a heap of k nodes starts at word 7 of its 64-byte-aligned row, so node
+    # p's 8 children 8p + 1 .. 8p + 8 lie in the row's 64-byte group
+    # 8p + 8 .. 8p + 15: every group that holds a node lies inside the row
+    row = tk.heap_row(k)
+    assert row % 8 == 0 and row >= 7 + k
+    for p in range(k):
+        if 8 * p + 1 < k:
+            assert (7 + 8 * p + 1) % 8 == 0 and 7 + 8 * p + 8 <= row
+
+
 # ---------------------------------------------------------------------------
 # on the card: T5 against its plain version (skips without one)
 # ---------------------------------------------------------------------------
@@ -221,7 +256,7 @@ def test_gpu_knn_topk_matches_plain(cuda, metric, approx, k, d):
     op, sq = tk._operand(torch.from_numpy(X).to(cuda), tk._metric(metric), approx)
     args = (k, metric in ("cosine", "correlation"), metric == "euclidean")
     _kernels.reset_launch_counts()
-    got = tk.knn_topk(op, sq, *args)
+    got = tk.knn_topk(op, sq, *args, approx=approx)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()["knn_topk"] == 1
     ref = tk.knn_topk_plain(op, sq, *args)
@@ -257,7 +292,7 @@ def test_gpu_knn_topk_long_lists_match_plain(cuda, k, approx):
     X = _gaussian(3000, 50, seed=k)
     op, sq = tk._operand(torch.from_numpy(X).to(cuda), "euclidean", approx)
     _kernels.reset_launch_counts()
-    got = tk.knn_topk(op, sq, k, False, True)
+    got = tk.knn_topk(op, sq, k, False, True, approx=approx)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     assert counts["knn_topk_global"] == 1 and counts["knn_topk"] == 0
@@ -277,3 +312,54 @@ def test_gpu_knn_topk_refuses_bad_input(cuda):
         tk.knn_topk(X.T, sq, 5, False, False)
     with pytest.raises(ValueError):
         tk.knn_topk(X, None, 5, False, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("d", [1, 13, 50, 64, 65, 130])
+def test_gpu_knn_topk_tile_edges_match_plain(cuda, d, approx):
+    # n = 1037 is no multiple of the tiles (64 and 128 rows in bf16, 32 and
+    # 256 in f32); d = 65 and 130 take the query in chunks; k at the heap
+    # variants' edges (32, 256) and n - 1
+    X = _gaussian(1037, d, seed=100 + d)
+    op, sq = tk._operand(torch.from_numpy(X).to(cuda), "euclidean", approx)
+    for k in (0, 31, 32, 33, 255, 256, 1036):
+        _kernels.reset_launch_counts()
+        got = tk.knn_topk(op, sq, k, False, True, approx=approx)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()[tk._variant(k)] == 1
+        ref = tk.knn_topk_plain(op, sq, k, False, True)
+        assert got[0].shape == (1037, k + 1)
+        _assert_same_knn([t.cpu() for t in got], [t.cpu() for t in ref], X, "euclidean", approx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("d,k", [(13, 33), (65, 20), (130, 300)])
+def test_gpu_knn_integer_points_tile_edges_match_plain_exactly(cuda, d, k, approx):
+    # integer points: every sum exact in both products, so the indices and
+    # distances equal the plain version's on the card (whose square root is
+    # the kernel's), the many exact ties included
+    Xc = torch.from_numpy(_integer_points(1500, d, seed=d)).to(cuda)
+    for metric in ("sqeuclidean", "euclidean"):
+        op, sq = tk._operand(Xc, metric, approx)
+        args = (op, sq, k, False, metric == "euclidean")
+        got = tk.knn_topk(*args, approx=approx)
+        ref = tk.knn_topk_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_gpu_knn_duplicate_rows_keep_self_first(cuda, metric, approx):
+    # each point four times: self in column 0, its three copies next at
+    # distance 0 (or within rounding), in ascending index
+    X = np.repeat(_gaussian(300, 50, seed=14), 4, axis=0)
+    gi, gd = (t.cpu().numpy() for t in tk.knn(X, 7, metric=metric, approx=approx, device=cuda))
+    rows = np.arange(len(X))
+    np.testing.assert_array_equal(gi[:, 0], rows)
+    copies = np.sort((rows[:, None] // 4) * 4 + np.arange(4)[None, :], axis=1)
+    others = np.stack([c[c != r] for c, r in zip(copies, rows)])
+    np.testing.assert_array_equal(np.sort(gi[:, 1:4], axis=1), others)
+    assert (gd[:, 1:4].max(axis=1) < gd[:, 4]).all()
