@@ -402,7 +402,9 @@ is printed. An exception stops the run at once, with a code other than 0:
     These phases show the sharded arithmetic and the collectives' wiring on
     the card; with every rank on one card their times are no scaling.
 43. ``[kernel] knn_ring_merge`` (a [mesh4] round, 25,000 × 25,000, and
-    [mesh1]'s one round at 100,000), ``umap_epoch_block`` (a [mesh2] rank's
+    [mesh1]'s one round at 100,000, a [mesh2] round at 50,000 × 50,000 and
+    a round of WNN's candidates at 50,000 × 50,000, k+1 = 201, timed
+    alone), ``umap_epoch_block`` (a [mesh2] rank's
     window), ``tfidf_col_sums`` and ``tfidf_values_global`` (T1's modes),
     ``wnn_bandwidth`` and ``wnn_fusion_scores`` on [mesh2] rank 1's window
     (rows 50,000-100,000; recorded under the kernel's ``mesh2_window``), each
@@ -4276,7 +4278,7 @@ def phase_scopen(tac, tnmf, dsp, kernels, profiling, X_atac, lsi, labels, cuda):
     # the same fit in chunks; between them ½‖X − WH‖² + ½(‖W‖² + ‖H‖²) =
     # ½‖X‖² − tr(Wᵀ·X·Hᵀ) + ½tr(WᵀW·HHᵀ) + ½(‖W‖² + ‖H‖²), in float64
     X, XT = tnmf.scopen_operands(X_atac, device=cuda)
-    x2 = torch.sum(X.data.double() ** 2).item()
+    x2 = torch.sum(X.csr.data.double() ** 2).item()
 
     def objective(W, Ht):
         W64, H64 = W.double(), Ht.double()
@@ -4329,23 +4331,32 @@ def phase_scopen(tac, tnmf, dsp, kernels, profiling, X_atac, lsi, labels, cuda):
     check(err <= 1e-5, "[scopen] one iteration against plain rtol 1e-5")
     del got, want
 
-    # T2's split variant at the loop's shapes: the record is X·Hᵀ's, whose
-    # rows (peaks) run from a few cells to tens of thousands
+    # T2's split variant at the loop's shapes (T3's gather over X's and Xᵀ's
+    # CSR with their piece tables): the record is X·Hᵀ's, whose rows (peaks)
+    # run from a few cells to tens of thousands
     XtW = dsp.spmm_split(XT, Wt)
     Hn = tnmf.nmf_update(Ht, XtW, Wt, 1.0)
     results = {}
-    for label, A, B in (("csr_spmm_split X^T.W", XT, Wt), ("csr_spmm_split", X, Hn)):
-        out = dsp.spmm_split(A, B)
+    for label, P, B in (("csr_spmm_split X^T.W", XT, Wt), ("csr_spmm_split", X, Hn)):
+        A = P.csr
+        out = dsp.spmm_split(P, B)
         torch.cuda.synchronize()
         diff = (out - dsp.spmm_split_plain(A, B)).abs()
         lens = A.indptr[1:] - A.indptr[:-1]
         ok = bool((diff <= 1e-5 * dsp.spmm_split_plain(A, B.abs())).all())
         kernel_report(results, label, f"{A.n_rows}x{A.n_cols} nnz {A.nnz} (rows of "
                       f"{int(lens.min())}-{int(lens.max())}), k = {SCOPEN_K}",
-                      diff.max().item(), "1e-5 x |X|.|B|", ok, lambda: dsp.spmm_split(A, B),
+                      diff.max().item(), "1e-5 x |X|.|B|", ok, lambda: dsp.spmm_split(P, B),
                       lambda: dsp.spmm_split_plain(A, B),
                       bound(csr_bytes(A) + nbytes(B, out), 2 * A.nnz * SCOPEN_K, F32_OPS_PER_S),
                       lambda: torch.sparse.mm(torch_csr(A), B))
+        # the gathers read a row of B a stored entry, from L2: their bytes
+        # (rows padded to 32 values as the kernel loads them) over the time
+        gathered = A.nnz * 4 * (-(-SCOPEN_K // 4) * 4)
+        print(f"[kernel] {label} gathers {A.nnz} rows of B: {gathered / 1e9:.4f} GB "
+              f"({A.nnz * 4 * SCOPEN_K / 1e9:.4f} GB unpadded) at "
+              f"{gathered / results[label]['ms'] / 1e9:.3f} TB/s, beside the "
+              f"{results[label]['bound_ms']:.4f} ms bound of one read of each input", flush=True)
         del out, diff
     del results["csr_spmm_split X^T.W"]
     XHt = dsp.spmm_split(X, Hn)
@@ -6301,6 +6312,26 @@ def phase_mesh_kernels(cuda, work) -> dict:
           f"bound_ms={bound(nbytes(Qf, sqf) + 2 * nbytes(cdf, cif), 2.0 * n * n * K, F32_OPS_PER_S)['bound_ms']:.3f}",
           flush=True)
     del cdf, cif
+    # a [mesh2] round (rank 0's queries against rank 1's block) and a round
+    # of WNN's candidates over the mesh (the e2e's RNA representation, lists
+    # of n_multineighbors + 1), each from the first round's empty lists
+    rna = torch.from_numpy(np.load(f"{work}/wnn_rna_rep.npy")).to(cuda, torch.float32)
+    h2 = -(-n // 2)
+    for label, rep, kk1 in (("a [mesh2] round", emb, k1), ("a WNN round", rna, N_MULTI + 1)):
+        Qh, Bh = rep[:h2].contiguous(), rep[h2:].contiguous()
+        sqh, sbh = (Qh * Qh).sum(1), (Bh * Bh).sum(1)
+        cdh = torch.full((h2, kk1), float("inf"), device=cuda)
+        cih = torch.full((h2, kk1), -1, dtype=torch.int32, device=cuda)
+        ms_h = median_ms(lambda: tk.knn_ring_merge(Qh, sqh, Bh, sbh, h2, n, cdh, cih))
+        dim = Qh.shape[1]
+        bnd = bound(nbytes(Qh, Bh, sqh, sbh) + 2 * nbytes(cdh, cih),
+                    2.0 * h2 * (n - h2) * dim, F32_OPS_PER_S)
+        print(f"[kernel] knn_ring_merge at {label}, {h2} x {n - h2} x {dim}, k+1 = {kk1}: "
+              f"ms={ms_h:.3f} bound_ms={bnd['bound_ms']:.3f} ({bnd['bound_by']}) parts="
+              f"{tk.ring_parts(h2, n - h2, kk1, torch.cuda.get_device_properties(cuda).multi_processor_count)}",
+              flush=True)
+        del Qh, Bh, cdh, cih
+    del rna
 
     G = sp.csr_matrix((ref["conn_data"], ref["conn_indices"], ref["conn_indptr"]), shape=(n, n))
     heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)

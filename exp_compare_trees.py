@@ -1,5 +1,6 @@
 """Two checkouts of the port on one card: T9's σ, the MOFA bench fit, the
-wide WNN path, T5 and T14, for a change held beside its parent in one call.
+wide WNN path, T5, T14, T40, T2's split variant and T3, for a change held
+beside its parent in one call.
 
 Run on a machine with a CUDA card, from the root of the repo, with the
 other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
@@ -10,14 +11,33 @@ other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
     ...                                                          # in turns
     python3 exp_compare_trees.py compare OUT parent1 change1 ...
 
-SECTIONS is a comma-separated subset of ``t9,mofa,wnn_wide,t5,t14`` (all
-by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
+SECTIONS is a comma-separated subset of
+``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
 approx (the rows ``_operand`` rounds to bfloat16; a tree whose ``knn_topk``
 has no ``approx`` argument takes them as float32), at k+1 = 20, 201 and
 301. ``t14``: T14 over the whole work-item layout of the 1M representation
 (``make_big_rep(0)``, C = 1024 k-means clusters from the rows
 ``default_rng(0)`` picks, 8 Lloyd steps, 8 probes, QB = 1024; the layout
-and μ made once by ``make``), at the same three k. Each writes a SHA-256
+and μ made once by ``make``), at the same three k. ``t40``: T40's rounds
+from the first round's empty lists, rank 0's whole ring at P = 1 ([mesh1]'s
+one round, 100,000 × 100,000), 2 (two rounds of 50,000 × 50,000: [mesh2])
+and 4 (four of 25,000 × 25,000: [mesh4]) over [mesh1]'s representation
+(the z-scored LSI of ``make_counts``, 100,000 × 50, made on one device), at
+k+1 = 21, 201 and 301, and over the e2e's RNA representation (its X_pca,
+100,000 × 50) at P = 2 and k+1 = 201 (a round of WNN's candidates over the
+mesh): the digest of each round's lists and each round's time; a tree that
+cuts a round's rows into parts (``ring_parts``) also times each round at
+1, 2, 4 and 8 parts and holds each to the automatic count's bits. ``t2split``:
+T2's split variant at ``[scopen]``'s two products (Xᵀ·W and X·Hᵀ of the
+e2e's ATAC counts as ``scopen_operands`` builds them, l = 30, W and Hᵀ
+uniform from seed 0) through ``spmm_split``; a tree with the shared
+gather also launches it on the unpadded B (its rows 30 values apart: one
+value a lane over the whole warp, group 32), whose sums run in the order
+of the parent's split kernel, so that digest is held to the parent's
+``spmm_split``; it times that launch and ``spmm_split`` building the
+piece table each call. ``t3``: T3 at the
+gather path's shapes (the TF-IDF of ``make_counts``, Xᵀ prebuilt, l = 60
+float32 and bfloat16). Each writes a SHA-256
 of every output (the bits compared), T5's approx lists at k+1 = 20, and
 CUDA-event times (median of 5, and the spread).
 
@@ -53,8 +73,10 @@ import torch
 import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
-SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14")
+SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3")
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
+RING_K1S = (21, 201, 301)  # T40's lists: the mesh graphs', WNN's pools, the wide lists
+SCOPEN_L = 30  # scOpen's factors (chip_smoke.py SCOPEN_K)
 # the device functions of the MOFA sweeps' passes over E (csrc/mofa_kernels.cu)
 MOFA_KERNELS = ("col_dot_kernel", "w_posterior_kernel", "row_dot_kernel", "rank1_update_kernel",
                 "rank1_col_dot_kernel")
@@ -101,6 +123,34 @@ def make(out: str, sections, cuda) -> None:
         mu = ti.item_means(Xs, torch.from_numpy(qids).to(cuda))
         data.update(r1m=rep, order=order, qids=qids, ppos=ppos, pcnt=pcnt, L=np.int64(L),
                     mu=mu.cpu().numpy())
+    if "t40" in sections or "t3" in sections:
+        from muon_tpu_torch import atac as tac
+
+        h = cs.Holder(cs.make_counts(cs.SEED))
+        if "t3" in sections:
+            data.update(counts_data=h.X.data, counts_indices=h.X.indices,
+                        counts_indptr=h.X.indptr)
+        tac.pp.tfidf(h, device=cuda)
+        if "t3" in sections:
+            data["tfidf_data"] = h.X.data
+        tac.tl.lsi(h, n_comps=cs.K, n_iter=cs.N_ITER, random_state=cs.SEED, device=cuda)
+        data["lsi100k"] = np.ascontiguousarray(h.obsm["X_lsi"], dtype=np.float32)
+    if "t40" in sections or "t2split" in sections:
+        from muon_tpu_torch import pp as tpp
+        from muon_tpu_torch.ops import sparse as dsp
+
+        X_rna, X_atac, *_ = cs.make_e2e_counts(cs.SEED)
+        if "t40" in sections:
+            h = cs.Holder(cs.normalise(dsp, X_rna, cuda))
+            tpp.pca(h, n_comps=cs.K, random_state=cs.SEED, device=cuda)
+            data["rna100k"] = np.ascontiguousarray(h.obsm["X_pca"], dtype=np.float32)
+        if "t2split" in sections:
+            from muon_tpu_torch.ops import nmf as tnmf
+
+            XT = tnmf.scopen_operands(X_atac, device=cuda)[1]
+            XT = getattr(XT, "csr", XT)  # cells x peaks, binarised and scaled
+            data.update(xt_data=XT.data.cpu().numpy(), xt_indices=XT.indices.cpu().numpy(),
+                        xt_indptr=XT.indptr.cpu().numpy(), xt_shape=np.array(XT.shape))
     np.savez(f"{out}/inputs.npz", **data)
 
 
@@ -168,12 +218,125 @@ def run_knn(tk, ti, inp, sections, res, times, cuda) -> None:
                 event_times(fn, 5))
 
 
+def ring_rounds(tk, rep, P: int, k1: int, cuda):
+    """Rank 0's ring at P ranks over ``rep`` (as ``sharded_knn`` runs it):
+    each round's (od, oi), from the first round's empty lists."""
+    n, d = rep.shape
+    R = -(-n // P)
+    Q = rep[:R].contiguous()
+    sq_q = (Q * Q).sum(1)
+    cd = torch.full((R, k1), float("inf"), device=cuda)
+    ci = torch.full((R, k1), -1, dtype=torch.int32, device=cuda)
+    rounds = []
+    for r in range(P):
+        off = ((0 - r) % P) * R
+        B = torch.zeros((R, d), device=cuda)
+        B[:min(R, n - off)] = rep[off:off + R]
+        args = (Q, sq_q, B, (B * B).sum(1), off, n, cd, ci)
+        rounds.append((args, lambda a=args: tk.knn_ring_merge(*a)))
+        cd, ci = rounds[-1][1]()
+    return rounds
+
+
+def run_ring(tk, inp, res, times, cuda) -> None:
+    """T40: rank 0's rounds at P = 1, 2, 4 over [mesh1]'s representation at
+    k+1 = 21, 201, 301, and at P = 2 over the e2e's RNA one at k+1 = 201;
+    every round's digest and time, and where the tree cuts a round into
+    parts (``ring_parts``), the times at 1, 2, 4 and 8 parts, each held to
+    the automatic count's bits."""
+    takes_parts = hasattr(tk, "ring_parts")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = [("lsi", P, k1) for k1 in RING_K1S for P in (1, 2, 4)] + [("rna", 2, 201)]
+    for src, P, k1 in cases:
+        rep = torch.from_numpy(inp[f"{src}100k"]).to(cuda)
+        rounds = ring_rounds(tk, rep, P, k1, cuda)
+        for r, (args, fn) in enumerate(rounds):
+            key = f"t40_{src}_P{P}_k{k1}_round{r}"
+            res[f"{key}_sha256"] = np.array(digest(*fn()))
+            nq, nb = args[0].shape[0], args[2].shape[0]
+            label = f"T40 ms, {src} P={P} round {r} ({nq} x {nb}), k+1={k1}"
+            times[label] = spread(event_times(fn, 5))
+            if not takes_parts:
+                continue
+            auto = tk.ring_parts(nq, min(nb, args[5] - args[4]), k1, sms)
+            times[f"{label}: automatic parts"] = auto
+            chosen = tk.ring_parts
+            for p in sorted({1, 2, 4, tk.RING_MAX_PARTS}):
+                tk.ring_parts = lambda *a, p=p: p
+                same = digest(*fn()) == str(res[f"{key}_sha256"])
+                times[f"{label}, parts={p}"] = {"same_bits": same, **spread(event_times(fn, 5))}
+            tk.ring_parts = chosen
+        del rounds, rep
+
+
+def run_split(tsp, inp, res, times, cuda) -> None:
+    """T2's split variant at [scopen]'s two products, and in a tree with the
+    shared gather one value a lane over the unpadded B (the parent kernel's
+    order)."""
+    from muon_tpu_torch.ops import _kernels
+    from scipy import sparse as sp
+
+    shape = tuple(int(v) for v in inp["xt_shape"])
+    XTs = sp.csr_matrix((inp["xt_data"], inp["xt_indices"], inp["xt_indptr"]), shape=shape)
+    XT = tsp.from_scipy(XTs, cuda)
+    X = tsp.transpose(XT).csr
+    shared = hasattr(tsp, "pieced")
+    ops = {"X^T.W": (tsp.pieced(XT) if shared else XT, shape[1]),
+           "X.H^T": (tsp.pieced(X) if shared else X, shape[0])}
+    rng = np.random.default_rng(0)
+    for name, (A, rows) in ops.items():
+        B = torch.from_numpy(rng.random((rows, SCOPEN_L), dtype=np.float32)).to(cuda)
+        fn = lambda A=A, B=B: tsp.spmm_split(A, B)  # noqa: E731
+        res[f"t2split_{name}_sha256"] = np.array(digest(fn()))
+        res[f"t2split_{name}_repeat_same_bits"] = np.array(digest(fn()) == digest(fn()))
+        times[f"T2 split ms, {name}, l={SCOPEN_L}"] = spread(event_times(fn, 5))
+        if not shared:
+            res[f"t2split_{name}_vw1_sha256"] = res[f"t2split_{name}_sha256"]
+            continue
+        C = A.csr
+
+        def raw(Bx):
+            part = torch.empty((max(A.n_pieces, 1), SCOPEN_L), device=cuda)
+            out = torch.empty((C.n_rows, SCOPEN_L), device=cuda)
+            _kernels.launch("csr_spmm_split", cuda, C.data.data_ptr(), C.indptr.data_ptr(),
+                            C.indices.data_ptr(), A.row_first.data_ptr(), C.n_rows,
+                            A.n_pieces, tsp._PIECE, Bx.data_ptr(), SCOPEN_L, SCOPEN_L,
+                            part.data_ptr(), out.data_ptr())
+            return out
+
+        res[f"t2split_{name}_vw1_sha256"] = np.array(digest(raw(B)))
+        times[f"T2 split ms, {name}, one value a lane (B unpadded)"] = spread(
+            event_times(lambda: raw(B), 5))
+        times[f"T2 split ms, {name}, its piece table built each call"] = spread(
+            event_times(lambda C=C, B=B: tsp.spmm_split(C, B), 5))
+
+
+def run_t3(tsp, inp, res, times, cuda) -> None:
+    """T3 at the gather path's shapes: Xᵀ·B over the prebuilt Xᵀ of the
+    TF-IDF of make_counts, l = 60, float32 and bfloat16."""
+    from scipy import sparse as sp
+
+    Xs = sp.csr_matrix((inp["tfidf_data"], inp["counts_indices"], inp["counts_indptr"]),
+                       shape=(cs.N_CELLS, cs.N_PEAKS))
+    X = tsp.from_scipy(Xs, cuda)
+    Xt = tsp.transpose(X)
+    B = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (cs.N_CELLS, cs.K + 10), dtype=np.float32)).to(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        Bd = B.to(dt)
+        fn = lambda Bd=Bd: tsp.spmm_t(X, Bd, Xt)  # noqa: E731
+        name = str(dt).split(".")[-1]
+        res[f"t3_{name}_sha256"] = np.array(digest(fn()))
+        times[f"T3 ms, {cs.N_CELLS} x {cs.N_PEAKS}, l={cs.K + 10} {name}"] = spread(
+            event_times(fn, 5))
+
+
 def run(root: str, tag: str, out: str, sections, cuda) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import muon_tpu_torch
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch.models import mofa as tm
-    from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, wnn as tw
+    from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, sparse as tsp, wnn as tw
 
     if not muon_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {muon_tpu_torch.__file__}, not the tree at {root}")
@@ -253,6 +416,12 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         times["[wnn-wide] path walls s"] = walls
         res["wnn_wide_connectivities"] = md.obsp["connectivities"].toarray()
     run_knn(tk, ti, inp, sections, res, times, cuda)
+    if "t40" in sections:
+        run_ring(tk, inp, res, times, cuda)
+    if "t2split" in sections:
+        run_split(tsp, inp, res, times, cuda)
+    if "t3" in sections:
+        run_t3(tsp, inp, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)
@@ -260,10 +429,14 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
 
 
 def compare(out: str, tags) -> None:
+    """Which outputs are the same bits in every run that wrote them (a key
+    one tree alone writes is compared across that tree's runs), and every
+    time side by side."""
     runs = {t: np.load(f"{out}/{t}.npz") for t in tags}
-    for key in runs[tags[0]].files:
+    keys = list(dict.fromkeys(k for t in tags for k in runs[t].files))
+    for key in keys:
         groups = []  # runs whose outputs are the same bits
-        for t in tags:
+        for t in (t for t in tags if key in runs[t].files):
             for g in groups:
                 if np.array_equal(runs[g[0]][key], runs[t][key]):
                     g.append(t)
@@ -279,8 +452,9 @@ def compare(out: str, tags) -> None:
                   f"{np.abs(a['t5_approx_k20_dist'] - b['t5_approx_k20_dist']).max():.3e}",
                   flush=True)
     times = {t: json.load(open(f"{out}/{t}.json")) for t in tags}
-    for key in times[tags[0]]:
-        print(f"{key}: " + "; ".join(f"{t} {times[t][key]}" for t in tags), flush=True)
+    for key in dict.fromkeys(k for t in tags for k in times[t]):
+        print(f"{key}: " + "; ".join(f"{t} {times[t][key]}" for t in tags if key in times[t]),
+              flush=True)
 
 
 def parse_sections(arg) -> tuple:

@@ -16,7 +16,6 @@
 #include <stdint.h>
 
 #include "knn_tile.cuh"
-#include "topk_heap.cuh"
 
 namespace {
 
@@ -435,125 +434,182 @@ __global__ void __launch_bounds__(f32t::kThreads, 2)
   if (active) write_list(h, i, o, k, take_sqrt, out_idx, out_dist);
 }
 
-// T40's geometry: a block of kQ threads owns kQ queries, one each
-constexpr int kQ = 128;  // queries per block, one per thread
-constexpr int kC = 32;   // candidates per shared-memory tile
-constexpr int kD = 64;   // dimensions per chunk
-// T40's lists up to this long keep the heap in a per-thread array;
-// ops/knn.py LOCAL_LIST
-constexpr int kLocalList = 256;
-
 // ---------------------------------------------------------------------------
 // T40: one round of the sharded exact kNN's ring. A rank holds its query
 // rows Q (nq x d) and, this round, one database block B (nb x d) that came
 // round the ring from the rank at offset `off`; B's row j is the point
-// off + j, and rows with off + j >= n are padding. Each query merges the
-// block's candidates into its carried (k+1)-list (cd, ci: ascending, from
-// the last round) and writes the new list to (od, oi).
+// off + j, and rows with off + j >= n are padding (valid = min(nb, n - off)
+// rows are points). Each query merges the block's candidates into its
+// carried (k+1)-list (cd, ci: ascending, from the last round) and writes
+// the new list to (od, oi).
 //
 // The reference forms the (R, R) distance tile of every round in device
 // memory, takes the block's top-kk with lax.top_k and then the top-(k+1) of
-// concat([carried, block's kk]). Here no distance leaves the SM: a
-// block of kQ threads owns kQ queries and streams B through shared memory in
-// tiles of kC rows x kD dimensions, a query of d <= kD held in registers.
-// The distance is the reference's, (|q|^2 - 2 cross) + |b|^2 in float32,
-// unclamped, the cross term an fma chain in float32. Each thread keeps a
-// max-heap of k+1 entries on (distance, tag) (topk_heap.cuh), filled from
-// the carried list with tags 0..k in its order, then offered every valid
-// block row j with tag k+1+j. That key is the reference's tie rule: its
-// second top_k ranks equal distances by position in the concatenation,
-// the carried list first, then the block's top-kk, which lax.top_k
-// ordered by (distance, block row); and one merged selection equals the
-// reference's two, because the block's top-kk holds every row that can
-// enter. A heap that starts full takes a row only when it beats the root,
-// so padding rows (the reference's +inf) never enter and are skipped.
-// Bound: by the FMAs of the cross terms, nq * nb * d a round. Lists
-// longer than 256 keep the heap in the query's row of the outputs (KMAX = 0).
-// The tags become point ids when the list is written.
+// concat([carried, block's kk]). Here no distance leaves the SM: the
+// kernel is T5's float32 kernel on knn_tile.cuh's tile (256 queries a
+// block, 8 x 4 micro-tiles, candidate tiles of 32 rows x 64 dimensions
+// staged transposed, the filter against the heap roots, the register
+// buffers, the packed 8-ary heaps), with T40's own epilogue:
+//
+// - The distance is the reference's, (|q|^2 - 2 cross) + |b|^2 in float32,
+//   unclamped, the cross term the tile's fma chain over u in order.
+// - A key is make_key(distance, tag): the tag is the carried position
+//   0..k, then k+1+j for block row j. That is the reference's tie rule:
+//   its second top_k ranks equal distances by position in the
+//   concatenation, the carried list first, then the block's top-kk, which
+//   lax.top_k ordered by (distance, block row); and one merged selection
+//   equals the reference's two, because the block's top-kk holds every row
+//   that can enter.
+// - The heap starts full: the carried list, ascending, written in reverse
+//   into the heap's places is already a max-heap (every parent lies before
+//   its children). A row then enters only when it beats the root (tags
+//   rise, so an equal distance never does), and padding rows are skipped.
+//
+// Filling the card: a block owns 256 queries, so a [mesh4] round's 25,000
+// queries make 98 blocks for 132 SMs (two blocks each). The block's rows
+// are then cut into `parts` contiguous ranges (grid.y): each part selects
+// over its range from the carried list in a heap row of its own, sorted in
+// place, and a second kernel merges a query's part lists in key order,
+// taking a carried entry (in every list that kept it, with the same key)
+// once. Each part's list is the top-(k+1) of the carried list and its
+// range, so the first k+1 distinct keys of the merge are the top-(k+1) of
+// the whole round: one exact selection, the same list as with one part.
+// The wrapper picks `parts` (ops/knn.py ring_parts): lists of up to 32
+// places take enough parts to fill the card's block slots once (4 at
+// 25,000 queries); longer ones one part, since each part fills and sorts a
+// heap of its own, which costs more there than idle SMs (PERF.md §6).
+// With one part the kernel writes the list itself. The tags become point ids when the list
+// is written; a carried entry keeps its carried distance's bits.
+// Bound: by the fmas of the cross terms, nq * valid * d a round.
 // ---------------------------------------------------------------------------
 
-template <int KMAX>
-__global__ void __launch_bounds__(kQ)
-    knn_ring_merge_kernel(const float* __restrict__ Q, const float* __restrict__ sq_q,
-                          int nq, int d, const float* __restrict__ B,
-                          const float* __restrict__ sq_b, int nb, int off, int n,
-                          int k1, const float* __restrict__ cd,
-                          const int* __restrict__ ci, float* __restrict__ od,
-                          int* __restrict__ oi) {
-  __shared__ __align__(16) float tile[kC][kD];
-  __shared__ float tile_sq[kC];
-  const int i = blockIdx.x * kQ + threadIdx.x;
+// the most parts a query's rows are cut into (ops/knn.py RING_MAX_PARTS)
+constexpr int kRingMaxParts = 8;
+
+// entry r of query row o's merged list from its key
+__device__ __forceinline__ void write_ring_entry(hkey key, int64_t o, int r, int k1, int off,
+                                                 const float* cd, const int* ci, float* od,
+                                                 int* oi) {
+  const int tag = key_index(key);
+  od[o + r] = tag < k1 ? cd[o + tag] : key_dist(key);
+  oi[o + r] = tag < k1 ? ci[o + tag] : off + (tag - k1);
+}
+
+__global__ void __launch_bounds__(f32t::kThreads, 2)
+    knn_ring_merge_kernel(const float* __restrict__ Q, const float* __restrict__ sq_q, int nq,
+                          int d, const float* __restrict__ B, const float* __restrict__ sq_b,
+                          int valid, int part_rows, int off, int k1,
+                          const float* __restrict__ cd, const int* __restrict__ ci,
+                          float* __restrict__ od, int* __restrict__ oi,
+                          hkey* __restrict__ heaps) {
+  using namespace f32t;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sQ = fsmem;
+  float* sC = sQ + kDK * kLdQ;
+  float* sD = sC + kDK * kLdC;
+  float* sQsq = sD + kCT * kLdQ;
+  float* sCsq = sQsq + kQT;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kQT, i = q0 + tid;
   const bool active = i < nq;
-  const float* q = Q + (int64_t)(active ? i : 0) * d;
-  const float qsq = active ? sq_q[i] : 0.f;
-  const bool one_chunk = d <= kD;
+  const int mq = micro_q(tid), mc = micro_c(tid);
+  const bool resident = d <= kDK;
+  sQsq[tid] = active ? sq_q[i] : 0.f;
+  if (resident) stage_f32_t(sQ, kLdQ, Q, nq, d, q0, kQT, 0);
 
-  float qv[kD];
-#pragma unroll
-  for (int u = 0; u < kD; ++u) qv[u] = (active && u < d) ? q[u] : 0.f;
-
-  float local_d[KMAX > 0 ? KMAX : 1];
-  int local_i[KMAX > 0 ? KMAX : 1];
+  // this part's rows of B: [r0, r1)
+  const int r0 = (int)min((int64_t)valid, (int64_t)blockIdx.y * part_rows);
+  const int r1 = (int)min((int64_t)valid, (int64_t)r0 + part_rows);
   const int64_t o = (int64_t)(active ? i : 0) * k1;
-  float* heap_d = KMAX > 0 ? local_d : od + o;
-  int* heap_i = KMAX > 0 ? local_i : oi + o;
-  if (active)
-    for (int r = 0; r < k1; ++r) heap_push(heap_d, heap_i, r, cd[o + r], r);
-  const int valid = min(nb, n - off);  // rows of B that are points
-
-  for (int c0 = 0; c0 < valid; c0 += kC) {
-    float acc[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-    for (int u0 = 0; u0 < d; u0 += kD) {
-      __syncthreads();  // the previous chunk's readers are done
-      for (int t = threadIdx.x; t < kC * kD; t += kQ) {
-        const int c = t / kD, u = t % kD, j = c0 + c, col = u0 + u;
-        tile[c][u] = (j < valid && col < d) ? B[(int64_t)j * d + col] : 0.f;
-      }
-      if (u0 == 0 && threadIdx.x < kC) {
-        const int j = c0 + threadIdx.x;
-        tile_sq[threadIdx.x] = j < valid ? sq_b[j] : 0.f;
-      }
-      if (!one_chunk) {
-#pragma unroll
-        for (int u = 0; u < kD; ++u)
-          qv[u] = (active && u0 + u < d) ? q[u0 + u] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-#pragma unroll
-        for (int u = 0; u < kD; u += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(&tile[c][u]);
-          acc[c] = fmaf(qv[u], v.x, acc[c]);
-          acc[c] = fmaf(qv[u + 1], v.y, acc[c]);
-          acc[c] = fmaf(qv[u + 2], v.z, acc[c]);
-          acc[c] = fmaf(qv[u + 3], v.w, acc[c]);
-        }
-      }
-    }
-    if (!active) continue;  // no __syncthreads below this point
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int j = c0 + c;
-      if (j >= valid) continue;
-      const float dist = __fadd_rn(__fsub_rn(qsq, __fmul_rn(2.f, acc[c])), tile_sq[c]);
-      const int tag = k1 + j;
-      if (before(dist, tag, heap_d[0], heap_i[0])) {
-        heap_d[0] = dist;
-        heap_i[0] = tag;
-        sift_down(heap_d, heap_i, k1, 0);
-      }
-    }
+  hkey* H = heaps + ((int64_t)blockIdx.y * nq + (active ? i : 0)) * knn_heap_row(k1);
+  TopK h = make_topk(H, 0);  // an inactive lane's is full and admits nothing
+  if (active) {
+    for (int r = 0; r < k1; ++r) H[kHeapOff + r] = make_key(cd[o + k1 - 1 - r], k1 - 1 - r);
+    h.cnt = h.k = k1;
+    h.thr = cd[o + k1 - 1];
   }
+  Pending pend;
+  pend.n = 0;
+
+  // stages: (candidate tile, 64-wide chunk of d) in order, the next
+  // stage's candidate chunk loaded into registers while this one is
+  // multiplied, kPer values a thread (as in T5's float32 kernel)
+  const int nch = (d + kDK - 1) / kDK;
+  const int stages = (r1 - r0 + kCT - 1) / kCT * nch;
+  constexpr int kPer = kCT * kDK / kThreads;
+  const int u = tid % kDK;
+  float pre[kPer];
+  auto fetch = [&](int s) {
+    const int c0 = r0 + s / nch * kCT, col = s % nch * kDK + u;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int r = (tid + e * kThreads) / kDK;
+      pre[e] = (c0 + r < r1 && col < d) ? B[(int64_t)(c0 + r) * d + col] : 0.f;
+    }
+  };
+  if (stages > 0) fetch(0);
+  float acc[kTM][kTN];
+  for (int s = 0; s < stages; ++s) {
+    const int c0 = r0 + s / nch * kCT, ch = s % nch, u0 = ch * kDK;
+    if (__syncthreads_or(pend.n >= kFlushAt)) pend.flush(h);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) sC[u * kLdC + (tid + e * kThreads) / kDK] = pre[e];
+    if (!resident) stage_f32_t(sQ, kLdQ, Q, nq, d, q0, kQT, u0);
+    if (ch == 0 && tid < kCT) sCsq[tid] = c0 + tid < r1 ? sq_b[c0 + tid] : 0.f;
+    __syncthreads();
+    if (s + 1 < stages) fetch(s + 1);
+    if (ch == 0) {
+#pragma unroll
+      for (int a = 0; a < kTM; ++a)
+#pragma unroll
+        for (int b = 0; b < kTN; ++b) acc[a][b] = 0.f;
+    }
+    fma_microtile<kTM, kTN>(acc, sQ + mq, kLdQ, sC + mc, kLdC, min(kDK, (d - u0 + 3) & ~3));
+    if (ch < nch - 1) continue;
+    float cs[kTN];
+#pragma unroll
+    for (int b = 0; b < kTN; ++b) cs[b] = sCsq[mc + b];
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int b = 0; b < kTN; ++b)
+        acc[a][b] = __fadd_rn(__fsub_rn(sQsq[mq + a], __fmul_rn(2.f, acc[a][b])), cs[b]);
+    f32_tile_select(h, pend, acc, sD, mq, mc, tid, min(kCT, r1 - c0), k1 + c0, -1);
+  }
+  pend.flush(h);
   if (!active) return;
-  heap_sort(heap_d, heap_i, k1);
+  sort8(H, k1);
+  if (gridDim.y == 1)
+    for (int r = 0; r < k1; ++r) write_ring_entry(h.node(r), o, r, k1, off, cd, ci, od, oi);
+}
+
+// the parts' sorted lists of each query merged by key, a carried entry
+// taken once: a thread a query
+__global__ void knn_ring_merge_parts_kernel(const hkey* __restrict__ heaps, int nq, int k1,
+                                            int parts, int off, const float* __restrict__ cd,
+                                            const int* __restrict__ ci, float* __restrict__ od,
+                                            int* __restrict__ oi) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const int64_t row = knn_heap_row(k1), o = (int64_t)i * k1;
+  const hkey* L[kRingMaxParts];
+  int pos[kRingMaxParts];
+  hkey head[kRingMaxParts];
+#pragma unroll
+  for (int s = 0; s < kRingMaxParts; ++s) {
+    L[s] = heaps + ((int64_t)s * nq + i) * row + kHeapOff;
+    pos[s] = 0;
+    head[s] = s < parts ? L[s][0] : ~0ull;  // ~0: no key (a list ends only past k1)
+  }
   for (int r = 0; r < k1; ++r) {
-    const int tag = heap_i[r];
-    const int id = tag < k1 ? ci[o + tag] : off + (tag - k1);
-    if (KMAX > 0) od[o + r] = heap_d[r];
-    oi[o + r] = id;
+    hkey m = head[0];
+#pragma unroll
+    for (int s = 1; s < kRingMaxParts; ++s) m = head[s] < m ? head[s] : m;
+#pragma unroll
+    for (int s = 0; s < kRingMaxParts; ++s)
+      if (head[s] == m) head[s] = ++pos[s] < k1 ? L[s][pos[s]] : ~0ull;
+    write_ring_entry(m, o, r, k1, off, cd, ci, od, oi);
   }
 }
 
@@ -718,24 +774,33 @@ int mt_smooth_knn(const float* dists, int n, int k, float local_connectivity,
 // T40. Q (nq x d) f32 with sq_q (nq,) its squared row norms; B (nb x d) f32
 // with sq_b (nb,), its row j the point off + j, rows with off + j >= n
 // skipped; cd (nq x k1) f32 and ci (nq x k1) int32 the carried lists
-// (ascending); od, oi (nq x k1) the merged lists out, not aliasing cd, ci.
-int mt_knn_ring_merge(const float* Q, const float* sq_q, int nq, int d,
-                      const float* B, const float* sq_b, int nb, int off, int n,
-                      int k1, const float* cd, const int* ci, float* od, int* oi,
+// (ascending); od, oi (nq x k1) the merged lists out, not aliasing cd, ci;
+// 1 <= parts <= 8 ranges of B's rows selected apart and merged; heaps
+// scratch of parts x nq x knn_heap_row(k1) 64-bit words (knn_tile.cuh).
+int mt_knn_ring_merge(const float* Q, const float* sq_q, int nq, int d, const float* B,
+                      const float* sq_b, int nb, int off, int n, int k1, int parts,
+                      const float* cd, const int* ci, float* od, int* oi, void* heaps,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nq > 0 && k1 > 0) {
-    const int blocks = (nq + kQ - 1) / kQ;
-    if (k1 <= 32)
-      knn_ring_merge_kernel<32><<<blocks, kQ, 0, s>>>(Q, sq_q, nq, d, B, sq_b, nb, off,
-                                                      n, k1, cd, ci, od, oi);
-    else if (k1 <= kLocalList)
-      knn_ring_merge_kernel<kLocalList><<<blocks, kQ, 0, s>>>(
-          Q, sq_q, nq, d, B, sq_b, nb, off, n, k1, cd, ci, od, oi);
-    else
-      knn_ring_merge_kernel<0><<<blocks, kQ, 0, s>>>(Q, sq_q, nq, d, B, sq_b, nb, off, n,
-                                                     k1, cd, ci, od, oi);
-  }
+  if (nq <= 0 || k1 <= 0) return (int)cudaGetLastError();
+  if (parts < 1 || parts > kRingMaxParts) return (int)cudaErrorInvalidValue;
+  const int valid = max(0, min(nb, n - off));  // rows of B that are points
+  // each part a whole number of candidate tiles
+  const int part_rows =
+      (int)(((int64_t)valid + parts - 1) / parts + f32t::kCT - 1) / f32t::kCT * f32t::kCT;
+  const size_t shm = f32_shared_bytes();
+  cudaError_t e = cudaFuncSetAttribute(knn_ring_merge_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (e != cudaSuccess) return (int)e;
+  knn_ring_merge_kernel<<<dim3((nq + f32t::kQT - 1) / f32t::kQT, parts), f32t::kThreads, shm,
+                          s>>>(Q, sq_q, nq, d, B, sq_b, valid, part_rows, off, k1, cd, ci, od,
+                               oi, (hkey*)heaps);
+  if (parts == 1) return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  constexpr int threads = 128;
+  knn_ring_merge_parts_kernel<<<(nq + threads - 1) / threads, threads, 0, s>>>(
+      (const hkey*)heaps, nq, k1, parts, off, cd, ci, od, oi);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// The distance tile that T5 (knn_kernels.cu) and T14 (ivf_kernels.cu) share.
+// The distance tile that T5, T40 (knn_kernels.cu) and T14 (ivf_kernels.cu)
+// share.
 // A block stages its queries and streams candidate tiles through shared
 // memory; each warp owns 32 queries (a lane each, with its heap) and forms
 // their distances to the whole tile in registers. Each distance is compared
@@ -12,7 +13,7 @@
 // block inserts together. After the first tiles almost no candidate
 // passes, so most tiles cost the distances and a compare each.
 //
-// The f32 micro-tile: both kernels' float32 cross terms. The block's queries
+// The f32 micro-tile: the float32 cross terms of all three. The block's queries
 // and the tile's candidates lie transposed in shared memory (q[u * ldq + i],
 // c[u * ldc + j]), and each thread owns a TM x TN block of (query,
 // candidate) pairs, whose sums it carries in registers: a step over u loads
@@ -23,7 +24,7 @@
 
 #include <math.h>
 
-// The float32 tile's geometry (T5's f32 mode and T14): a block of kThreads
+// The float32 tile's geometry (T5's f32 mode, T14, T40): a block of kThreads
 // threads owns kQT queries and takes kCT candidates a tile, kDK dimensions a
 // chunk. Warp w owns queries 32 w + [0, 32), one a lane, and forms their
 // distances to the whole tile: lane l carries the kTM x kTN micro-tile of

@@ -12,7 +12,7 @@
 //                           and the final f32 X.V of _rsvd_blocks_fn
 //      csr_spmm_split    <- T2 for rows of very different lengths: the
 //                           products W^T X and X H^T of muon_tpu/ops/nmf.py
-//                           _nmf_fn
+//                           _nmf_fn; T3's gather over X's own CSR
 //   T3 csr_spmm_t        <- muon_tpu/ops/sparse.py _spmm_fn (transpose=True),
 //                           over the CSR of X^T (its entries sorted by column as
 //                           the reference's perm_bycol, with_col_perm)
@@ -44,7 +44,8 @@
 // spread over many warps, loads B's rows 16 bytes a lane where their
 // alignment allows, several rows a warp in flight, and adds a row's pieces
 // in index order: no atomics, so it repeats bit for bit. T2's split
-// variant is the same piece scheme on X's rows.
+// variant is the same gather, one kernel, over X's own CSR and its piece
+// table (ops/sparse.py pieced, built once per matrix).
 //
 // Not done yet (later work): T4 still scatters with float atomics (its
 // order changes from run to run; T3's gather design carries over to it),
@@ -181,105 +182,44 @@ __global__ void csr_spmm_kernel(const float* __restrict__ data,
 }
 
 // ---------------------------------------------------------------------------
-// T2, split: out = X . B, B (n_cols x l) f32, for rows of very different
-// lengths (scOpen's peaks: Pareto-popular, up to tens of thousands of cells
-// a peak, where one warp a row leaves the longest rows to a few warps).
-// Each row's stored entries are cut into pieces of at most `piece`;
-// row_first[r] is the index of row r's first piece (an exclusive prefix sum
-// of max(1, ceil(len / piece)), so an empty row has one empty piece). A warp
-// sums one piece as T2 sums a row, into part (pieces x l); a second kernel
-// adds a row's pieces in order. No atomics: the product repeats bit for
-// bit, and a row of one piece sums as T2 sums it. Bound as T2's, plus part's
-// write and read (l floats a piece).
-// ---------------------------------------------------------------------------
-
-__global__ void csr_spmm_pieces_kernel(const float* __restrict__ data,
-                                       const int* __restrict__ indptr,
-                                       const int* __restrict__ indices,
-                                       const float* __restrict__ B,
-                                       const int* __restrict__ row_first,
-                                       int n_rows, int max_pieces, int l,
-                                       int piece, float* __restrict__ part) {
-  const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (p >= max_pieces || p >= row_first[n_rows]) return;  // uniform across the warp
-  int lo = 0, hi = n_rows - 1;  // the last row r with row_first[r] <= p
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (row_first[mid] <= p) lo = mid; else hi = mid - 1;
-  }
-  const int start = indptr[lo] + (p - row_first[lo]) * piece;
-  const int end = min(start + piece, indptr[lo + 1]);
-  float* o = part + (int64_t)p * l;
-  for (int c0 = 0; c0 < l; c0 += kCols) {
-    float acc[kChunk];
-#pragma unroll
-    for (int q = 0; q < kChunk; ++q) acc[q] = 0.f;
-    for (int j = start; j < end; ++j) {
-      const float x = data[j];
-      const float* b = B + (int64_t)indices[j] * l;
-#pragma unroll
-      for (int q = 0; q < kChunk; ++q) {
-        const int c = c0 + q * kWarp + lane;
-        if (c < l) acc[q] += x * b[c];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kChunk; ++q) {
-      const int c = c0 + q * kWarp + lane;
-      if (c < l) o[c] = acc[q];
-    }
-  }
-}
-
-// out[r, :] = the sum of row r's pieces in index order. kSkipWhole: rows of
-// one piece were written to out by the pieces kernel and are left alone.
-template <bool kSkipWhole>
-__global__ void csr_spmm_add_pieces_kernel(const float* __restrict__ part,
-                                           const int* __restrict__ row_first,
-                                           int n_rows, int l,
-                                           float* __restrict__ out) {
-  const int64_t total = (int64_t)n_rows * l;
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int r = (int)(e / l);
-    const int c = (int)(e - (int64_t)r * l);
-    const int a = row_first[r], b = row_first[r + 1];
-    if (kSkipWhole && b - a == 1) continue;
-    float acc = part[(int64_t)a * l + c];
-    for (int q = a + 1; q < b; ++q) acc += part[(int64_t)q * l + c];
-    out[e] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// T3: out = X^T . B for B (n x l) f32 or bf16, out (d x l) f32, over the CSR
-// of X^T (d rows, n columns): out[j, :] = sum_e Xt.data[e] B[Xt.indices[e], :]
-// over row j of X^T, summed in f32.
+// The piece gather: T3 (out = X^T . B over the CSR of X^T) and T2's split
+// variant (out = X . B over X's own CSR) are one function of a CSR matrix A
+// with its piece table: out[r, :] = sum_e A.data[e] B[A.indices[e], :] over
+// row r of A, summed in f32, B (A's columns x l) f32 or bf16 (T3), f32 (T2
+// split), its rows ldb values apart (ldb >= l), out (A's rows x l) f32.
 //
-// Pieces: each row of X^T is cut into pieces of at most `piece` stored
-// entries; row_first[j] is the index of row j's first piece (the exclusive
-// prefix sum of max(1, ceil(len / piece)), built once with the transpose).
-// A warp sums one piece. A row of one piece writes out directly; a longer
-// row's pieces go to part (pieces x l) and a second kernel adds them in
-// index order. No float atomics: the same inputs give the same bits.
+// Pieces: each row of A is cut into pieces of at most `piece` stored
+// entries; row_first[r] is the index of row r's first piece (the exclusive
+// prefix sum of max(1, ceil(len / piece)), built once per matrix:
+// ops/sparse.py transpose for X^T, pieced for X). A warp sums one piece. A
+// row of one piece writes out directly; a longer row's pieces go to part
+// (pieces x l) and a second kernel adds them in index order. No float
+// atomics: the same inputs give the same bits.
 //
 // Gathers: a warp splits into 32 / group lane groups, each taking one
 // stored entry at a time; within a group, lane s loads VW values of B's row
 // at column c0 + s VW as one vector (VW = 4: 16 bytes in f32, 8 in bf16,
-// where l % 4 == 0 and B's base is aligned to four values, as on every path
-// of the port; else VW = 1), so a warp has 32 / group rows of B
-// in flight per step and kT3Unroll steps issued before their FMAs (at l = 60
+// where ldb % 4 == 0 and B's base is aligned to four values, as on every
+// path of the port; else VW = 1), so a warp has 32 / group rows of B in
+// flight per step and kT3Unroll steps issued before their FMAs (at l = 60
 // f32: group 16, two rows a step, eight in flight; at l = 20: four a step).
-// The entry ids and values are read 32 at a time, one coalesced load each,
-// and broadcast by shuffles. Wider l loops over column groups of group * VW.
+// T2's split at scOpen's l = 30 pads B to ldb = 32 columns of zeros (128
+// bytes a row on a 128-byte boundary: VW = 4, group 8, four rows a step,
+// sixteen in flight); the padding is loaded but never written. (8-byte
+// loads of the unpadded rows, two rows a step, were 10-20% slower with
+// the pad's copy counted: PERF.md §6.) The entry
+// ids and values are read 32 at a time, one coalesced load each, and
+// broadcast by shuffles. Wider l loops over column groups of group * VW.
 // The lane groups' sums meet by a fixed butterfly, so the order of every
-// sum depends on the structure of X^T and on l alone.
+// sum depends on the structure of A and on l (and ldb) alone; with one
+// group a warp (group 32) each column is one fma chain in entry order, T2's.
 //
-// Bound: by bytes, X^T's CSR, B and out each once (at 100,000 x 25,000,
+// Bound: by bytes, A's CSR, B and out each once (T3 at 100,000 x 25,000,
 // 2.19e7 entries and l = 60 f32: 175 MB + 24 MB + 6 MB, 0.061 ms at 3.35
-// TB/s). The gathers themselves read 240 B of B per stored entry (5.3 GB),
-// which B (24 MB f32, 12 MB bf16) serves from the 50 MB L2.
+// TB/s). The gathers themselves read l values of B per stored entry (T3:
+// 240 B, 5.3 GB; T2 split at l = 30: 120 B, 128 padded), which B (24 MB f32,
+// 12 MB bf16; scOpen's H^T 12 MB, W 3 MB) serves from the 50 MB L2, so
+// L2's rate is the real floor.
 // ---------------------------------------------------------------------------
 
 constexpr int kT3Unroll = 4;
@@ -315,15 +255,17 @@ template <> struct RowLoad<__nv_bfloat16, 1> {
 
 template <typename TB, int VW>
 __global__ void __launch_bounds__(kThreads)
-csr_spmm_t_pieces_kernel(const float* __restrict__ data, const int* __restrict__ indptr,
+csr_gather_pieces_kernel(const float* __restrict__ data, const int* __restrict__ indptr,
                          const int* __restrict__ indices, const int* __restrict__ row_first,
                          int n_rows, int n_pieces, int piece, const TB* __restrict__ B,
-                         int l, int group, float* __restrict__ part,
+                         int ldb, int l, int group, float* __restrict__ part,
                          float* __restrict__ out) {
   const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (p >= n_pieces) return;  // uniform across the warp
-  int lo = 0, hi = n_rows - 1;  // the last row r with row_first[r] <= p
+  // the last row r with row_first[r] <= p: every row has a piece, so
+  // p - (n_pieces - n_rows) <= r <= p (no search where each row is one)
+  int lo = max(0, p - (n_pieces - n_rows)), hi = min(p, n_rows - 1);
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
     if (row_first[mid] <= p) lo = mid; else hi = mid - 1;
@@ -337,7 +279,7 @@ csr_spmm_t_pieces_kernel(const float* __restrict__ data, const int* __restrict__
   const int g = lane / group;
   for (int c0 = 0; c0 < l; c0 += group * VW) {
     const int c = c0 + (lane % group) * VW;
-    const bool col_in = c < l;  // l % VW == 0, so the whole vector is in
+    const bool col_in = c < l;  // the vector lies within the row's ldb values
     float acc[VW];
 #pragma unroll
     for (int q = 0; q < VW; ++q) acc[q] = 0.f;
@@ -357,7 +299,7 @@ csr_spmm_t_pieces_kernel(const float* __restrict__ data, const int* __restrict__
             x[u] = __shfl_sync(kFull, my_x, src + g);
           }
           if (src + g < cnt && col_in) {
-            RowLoad<TB, VW>::run(B + (int64_t)id * l + c, b[u]);
+            RowLoad<TB, VW>::run(B + (int64_t)id * ldb + c, b[u]);
           } else {
 #pragma unroll
             for (int q = 0; q < VW; ++q) b[u][q] = 0.f;
@@ -374,38 +316,61 @@ csr_spmm_t_pieces_kernel(const float* __restrict__ data, const int* __restrict__
       for (int q = 0; q < VW; ++q) acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(kFull, acc[q], o));
     if (g == 0 && col_in)
 #pragma unroll
-      for (int q = 0; q < VW; ++q) dst[c + q] = acc[q];
+      for (int q = 0; q < VW; ++q)
+        if (c + q < l) dst[c + q] = acc[q];
+  }
+}
+
+// out[r, :] = the sum of row r's pieces in index order, for the rows of
+// several pieces (a row of one was written to out by the gather)
+__global__ void csr_add_pieces_kernel(const float* __restrict__ part,
+                                      const int* __restrict__ row_first, int n_rows, int l,
+                                      float* __restrict__ out) {
+  const int64_t total = (int64_t)n_rows * l;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / l);
+    const int c = (int)(e - (int64_t)r * l);
+    const int a = row_first[r], b = row_first[r + 1];
+    if (b - a == 1) continue;
+    float acc = part[(int64_t)a * l + c];
+    for (int q = a + 1; q < b; ++q) acc += part[(int64_t)q * l + c];
+    out[e] = acc;
   }
 }
 
 template <typename TB, int VW>
-void launch_spmm_t_pieces(const float* data, const int* indptr, const int* indices,
+void launch_gather_pieces(const float* data, const int* indptr, const int* indices,
                           const int* row_first, int n_rows, int n_pieces, int piece,
-                          const TB* B, int l, float* part, float* out, cudaStream_t s) {
+                          const TB* B, int ldb, int l, float* part, float* out,
+                          cudaStream_t s) {
   int group = 1;  // lanes on one row of B: the power of two that covers l, at most 32
   while (group < kWarp && group * VW < l) group <<= 1;
   const int blocks = (n_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  csr_spmm_t_pieces_kernel<TB, VW><<<blocks, kThreads, 0, s>>>(
-      data, indptr, indices, row_first, n_rows, n_pieces, piece, B, l, group, part, out);
+  csr_gather_pieces_kernel<TB, VW><<<blocks, kThreads, 0, s>>>(
+      data, indptr, indices, row_first, n_rows, n_pieces, piece, B, ldb, l, group, part, out);
 }
 
-// T3 on B of element type TB: four values a lane where l and B's base allow
+// the gather on B of element type TB, VW values a lane as ldb and B's base
+// allow, then the add pass where a row has several pieces
 template <typename TB>
-cudaError_t launch_spmm_t(const float* data, const int* indptr, const int* indices,
+cudaError_t launch_gather(const float* data, const int* indptr, const int* indices,
                           const int* row_first, int n_rows, int n_pieces, int piece,
-                          const TB* B, int l, float* part, float* out, cudaStream_t s) {
-  if (l % 4 == 0 && (uintptr_t)B % (4 * sizeof(TB)) == 0)
-    launch_spmm_t_pieces<TB, 4>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
-                                l, part, out, s);
+                          const TB* B, int ldb, int l, float* part, float* out,
+                          cudaStream_t s) {
+  if (n_rows <= 0 || l <= 0) return cudaGetLastError();
+  if (n_pieces < n_rows || piece <= 0 || ldb < l) return cudaErrorInvalidValue;
+  if (ldb % 4 == 0 && (uintptr_t)B % (4 * sizeof(TB)) == 0)
+    launch_gather_pieces<TB, 4>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
+                                ldb, l, part, out, s);
   else
-    launch_spmm_t_pieces<TB, 1>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
-                                l, part, out, s);
+    launch_gather_pieces<TB, 1>(data, indptr, indices, row_first, n_rows, n_pieces, piece, B,
+                                ldb, l, part, out, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_pieces <= n_rows) return err;  // every row one piece
   int64_t blocks = ((int64_t)n_rows * l + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
-  csr_spmm_add_pieces_kernel<true><<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
-                                                                    l, out);
+  csr_add_pieces_kernel<<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows, l, out);
   return cudaGetLastError();
 }
 
@@ -602,42 +567,30 @@ int mt_csr_spmm(const float* data, const int* indptr, const int* indices,
   return (int)cudaGetLastError();
 }
 
-// T2, split. B (n_cols x l) f32; row_first (n_rows + 1) int32; part
-// (max_pieces x l) f32 scratch, max_pieces >= row_first[n_rows]; out
-// (n_rows x l) f32.
+// T2, split, and T3: the piece gather over a CSR matrix A (n_rows x A's
+// columns) with its piece table row_first (n_rows + 1) int32, n_pieces =
+// row_first[n_rows]; B (A's columns x l) with rows ldb values apart: f32
+// (T2 split), or f32 or bf16 (T3, b_bf16 set for bf16); part (n_pieces x
+// l) f32 scratch, read only where a row has several pieces; out (n_rows x
+// l) f32.
 int mt_csr_spmm_split(const float* data, const int* indptr, const int* indices,
-                      const float* B, const int* row_first, int n_rows,
-                      int max_pieces, int l, int piece, float* part, float* out,
+                      const int* row_first, int n_rows, int n_pieces, int piece,
+                      const float* B, int ldb, int l, float* part, float* out,
                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_rows <= 0 || l <= 0) return (int)cudaGetLastError();
-  csr_spmm_pieces_kernel<<<row_blocks(max_pieces), kThreads, 0, s>>>(
-      data, indptr, indices, B, row_first, n_rows, max_pieces, l, piece, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int64_t blocks = ((int64_t)n_rows * l + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
-  csr_spmm_add_pieces_kernel<false><<<(int)blocks, kThreads, 0, s>>>(part, row_first, n_rows,
-                                                                     l, out);
-  return (int)cudaGetLastError();
+  return (int)launch_gather(data, indptr, indices, row_first, n_rows, n_pieces, piece, B, ldb,
+                            l, part, out, (cudaStream_t)stream);
 }
 
-// T3 over the CSR of X^T (n_rows = X's columns): row_first (n_rows + 1)
-// int32 its piece table, n_pieces = row_first[n_rows]; B (X's rows x l) f32
-// or bf16; part (n_pieces x l) f32 scratch, read only where a row has
-// several pieces; out (n_rows x l) f32.
 int mt_csr_spmm_t(const float* data, const int* indptr, const int* indices,
                   const int* row_first, int n_rows, int n_pieces, int piece,
                   const void* B, int b_bf16, int l, float* part, float* out,
                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_rows <= 0 || l <= 0) return (int)cudaGetLastError();
-  if (n_pieces < n_rows || piece <= 0) return (int)cudaErrorInvalidValue;
   if (b_bf16)
-    return (int)launch_spmm_t(data, indptr, indices, row_first, n_rows, n_pieces, piece,
-                              (const __nv_bfloat16*)B, l, part, out, s);
-  return (int)launch_spmm_t(data, indptr, indices, row_first, n_rows, n_pieces, piece,
-                            (const float*)B, l, part, out, s);
+    return (int)launch_gather(data, indptr, indices, row_first, n_rows, n_pieces, piece,
+                              (const __nv_bfloat16*)B, l, l, part, out, s);
+  return (int)launch_gather(data, indptr, indices, row_first, n_rows, n_pieces, piece,
+                            (const float*)B, l, l, part, out, s);
 }
 
 int mt_csr_gram_matmul(const float* data, const int* indptr,

@@ -1,6 +1,6 @@
-// The per-thread max-heap on (distance, index) that T40 (knn_kernels.cu),
-// T29 and T31 (snf_kernels.cu) keep their best candidates in (T5 and T14
-// keep theirs in knn_tile.cuh's packed 8-ary heap).
+// The per-thread max-heap on (distance, index) that T29 and T31
+// (snf_kernels.cu) keep their best candidates in (T5, T14 and T40 keep
+// theirs in knn_tile.cuh's packed 8-ary heap).
 #pragma once
 
 // (d, i) before (e, j): the order of the result

@@ -53,13 +53,14 @@ _SIGNATURES = {
     "mt_tfidf_values": (_P, _P, _P, _I, _LL, _P, _I, _F, _I, _I, _I, _I, _F, _P, _P),
     "mt_csr_spmm": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_csr_spmm_t": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
-    "mt_csr_spmm_split": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "mt_csr_spmm_split": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
     "mt_csr_gram_matmul": (_P, _P, _P, _P, _I, _I, _P, _P),
     "mt_csr_row_sums": (_P, _P, _I, _P, _P),
     "mt_csr_scale_rows": (_P, _P, _P, _I, _P, _P),
     "mt_knn_topk": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_smooth_knn": (_P, _I, _I, _F, _F, _P, _I, _F, _P, _P, _P, _P),
-    "mt_knn_ring_merge": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "mt_knn_ring_merge": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P),
     "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
                          _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -111,7 +112,7 @@ KERNELS = {
     "tfidf_values_global": "mt_tfidf_values",  # T1's values from given sums and n
     "csr_spmm_f32": "mt_csr_spmm",
     "csr_spmm_bf16": "mt_csr_spmm",
-    "csr_spmm_split": "mt_csr_spmm_split",  # rows cut into pieces, added in order
+    "csr_spmm_split": "mt_csr_spmm_split",  # T3's gather over X's own CSR
     "csr_spmm_t_f32": "mt_csr_spmm_t",
     "csr_spmm_t_bf16": "mt_csr_spmm_t",
     "csr_gram_matmul": "mt_csr_gram_matmul",

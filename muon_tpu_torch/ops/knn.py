@@ -3,7 +3,7 @@
 
     knn_topk        T5   <- _knn_fn + _topk2 (csrc/knn_kernels.cu)
     knn_ring_merge  T40  <- one round of parallel/pipeline.py _knn_ring_fn
-                            (csrc/knn_kernels.cu)
+                            (csrc/knn_kernels.cu, on T5's float32 tile)
 
 The reference forms (block, n) distance tiles and selects with a chunked
 top-k, or the TPU's approximate top-k under ``approx``. The port selects
@@ -28,15 +28,22 @@ from . import _kernels
 from .device import DeviceLike, dense_to_tensor
 
 __all__ = ["knn", "knn_topk", "knn_topk_plain", "knn_ring_merge", "knn_ring_merge_plain",
-           "pairwise_sq_dists", "heap_row", "IVF_THRESHOLD", "LOCAL_LIST"]
+           "ring_parts", "pairwise_sq_dists", "heap_row", "IVF_THRESHOLD", "LOCAL_LIST",
+           "RING_MAX_PARTS"]
 
 # above this row count the reference's approximate path takes the IVF index
 IVF_THRESHOLD = 200_000
 # T5 and T14 count lists (k + 1 places, self included) longer than this
 # apart (knn_topk_global, ivf_search_global: the same kernels, every heap in
-# a scratch row of heap_row words); T40 keeps a list up to this long in a
-# per-thread array, a longer one in the outputs
+# a scratch row of heap_row words)
 LOCAL_LIST = 256
+# T40 cuts a round's rows into at most this many parts, each selected by
+# blocks of its own (csrc/knn_kernels.cu kRingMaxParts)
+RING_MAX_PARTS = 8
+_RING_QUERIES = 256  # queries a block of T40 (knn_tile.cuh f32t::kQT)
+_RING_BLOCKS_PER_SM = 2  # its blocks an SM holds (launch bounds, 110 KB of shared memory)
+_RING_MIN_PART_ROWS = 1024  # fewer rows a part would leave a block little to amortise
+_RING_SHORT_LIST = 32  # longer lists take one part: each part fills and sorts its own heap
 _INT32_MAX = 2**31 - 1
 
 
@@ -199,6 +206,25 @@ def _check_ring_args(Q, sq_q, B, sq_b, carried_d, carried_i) -> None:
                          "what T40 takes")
 
 
+def ring_parts(nq: int, rows: int, k1: int, sms: int) -> int:
+    """T40's parts for ``nq`` queries against ``rows`` rows that are points,
+    lists of ``k1`` places, on a card of ``sms`` SMs: for lists of at most
+    32 places, the fewest parts, a power of two up to ``RING_MAX_PARTS``
+    with at least 1024 rows each, whose blocks (⌈nq / 256⌉ a part) take
+    every block slot of the card (two an SM); one part for longer lists,
+    where each part's own heap (filled, then sorted for the merge) costs
+    more than the idle SMs (PERF.md §6). A [mesh4] round's 25,000
+    queries make 98 blocks: 4 parts; [mesh1]'s 100,000 make 391: one."""
+    if k1 > _RING_SHORT_LIST:
+        return 1
+    blocks = -(-nq // _RING_QUERIES)
+    slots = _RING_BLOCKS_PER_SM * max(1, sms)
+    p = 1
+    while p < RING_MAX_PARTS and blocks * p < slots and rows >= 2 * p * _RING_MIN_PART_ROWS:
+        p *= 2
+    return p
+
+
 def knn_ring_merge(
     Q: torch.Tensor, sq_q: torch.Tensor, B: torch.Tensor, sq_b: torch.Tensor,
     off: int, n: int, carried_d: torch.Tensor, carried_i: torch.Tensor,
@@ -210,7 +236,9 @@ def knn_ring_merge(
     ``carried_d``/``carried_i (nq, k+1)`` the ascending lists so far (+inf
     and −1 before the first round). Returns the merged lists: squared
     distances ``(‖q‖² − 2⟨q, b⟩) + ‖b‖²`` in float32, unclamped, and int32
-    ids, ascending by (distance, carried before new, then block row)."""
+    ids, ascending by (distance, carried before new, then block row). On
+    the card B's rows are cut into ``ring_parts`` ranges, each selected
+    apart and the lists merged: the same lists for any count."""
     if Q.device.type == "cpu":
         return knn_ring_merge_plain(Q, sq_q, B, sq_b, off, n, carried_d, carried_i)
     if Q.device.type != "cuda":
@@ -220,13 +248,16 @@ def knn_ring_merge(
     k1 = carried_d.shape[1]
     if not 0 <= off <= _INT32_MAX - B.shape[0] or n > _INT32_MAX:
         raise ValueError(f"off={off}, n={n} are outside what T40 takes")
+    parts = ring_parts(nq, max(0, min(B.shape[0], n - off)), k1,
+                       torch.cuda.get_device_properties(Q.device).multi_processor_count)
     od = torch.empty_like(carried_d)
     oi = torch.empty_like(carried_i)
+    heaps = torch.empty(parts * nq * heap_row(k1), dtype=torch.int64, device=Q.device)
     _kernels.launch(
         "knn_ring_merge", Q.device,
         Q.data_ptr(), sq_q.data_ptr(), nq, d, B.data_ptr(), sq_b.data_ptr(), B.shape[0],
-        int(off), int(n), k1, carried_d.data_ptr(), carried_i.data_ptr(), od.data_ptr(),
-        oi.data_ptr(),
+        int(off), int(n), k1, int(parts), carried_d.data_ptr(), carried_i.data_ptr(),
+        od.data_ptr(), oi.data_ptr(), heaps.data_ptr(),
     )
     return od, oi
 

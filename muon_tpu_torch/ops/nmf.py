@@ -5,7 +5,9 @@
                         the other factor's Gram included
                         (csrc/decomp_kernels.cu)
     spmm_split  T2's split variant <- the same loop's products WᵀX and
-                        X·Hᵀ (ops/sparse.py, csrc/sparse_kernels.cu)
+                        X·Hᵀ: T3's gather over X's and Xᵀ's CSR, each with
+                        its piece table built once (ops/sparse.py,
+                        csrc/sparse_kernels.cu)
 
 Each iteration updates H, then W, as the reference does:
 
@@ -90,11 +92,13 @@ def nmf_update_plain(F, numer, other, alpha):
     return F * numer / (F @ (other.T @ other) + alpha * F + _EPS)
 
 
-def nmf_factors(X: DeviceCSR, XT: DeviceCSR, W: torch.Tensor, Ht: torch.Tensor,
+def nmf_factors(X, XT, W: torch.Tensor, Ht: torch.Tensor,
                 alpha: float, max_iter: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``max_iter`` updates of ``W (m, k)`` and ``Ht`` = Hᵀ ``(n, k)``
     against X, given as its CSR ``X`` (m, n) and that of its transpose
-    ``XT`` (n, m), all on one device. Returns the new ``(W, Ht)``."""
+    ``XT`` (n, m), all on one device: ``PiecedCSR``s (``dsp.pieced``,
+    ``dsp.transpose``), or ``DeviceCSR``s whose piece tables each product
+    then builds. Returns the new ``(W, Ht)``."""
     for _ in range(int(max_iter)):
         with stage("scopen/products"):
             XtW = dsp.spmm_split(XT, W)
@@ -118,7 +122,7 @@ def _csr_of_dense(T: torch.Tensor) -> DeviceCSR:
                      nz[:, 1].to(torch.int32).contiguous(), m, n, nz.shape[0])
 
 
-def _starts(X: DeviceCSR, k: int, seed: int, W0, H0) -> Tuple[torch.Tensor, torch.Tensor]:
+def _starts(X, k: int, seed: int, W0, H0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's starts W (m, k) and H (k, n), scale·|N(0, 1)| at scale
     √(mean(X)/k), drawn from a torch.Generator, or ``W0``/``H0`` where
     given; returns ``(W, Hᵀ)``."""
@@ -126,7 +130,7 @@ def _starts(X: DeviceCSR, k: int, seed: int, W0, H0) -> Tuple[torch.Tensor, torc
     dev = X.device
     if W0 is None or H0 is None:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        mean = (X.data.double().sum() / (m * n)).float()
+        mean = (dsp._csr(X).data.double().sum() / (m * n)).float()
         scale = torch.sqrt(mean / k)
         W = scale * torch.abs(torch.randn((m, k), generator=gen, device=dev))
         H = scale * torch.abs(torch.randn((k, n), generator=gen, device=dev))
@@ -147,7 +151,7 @@ def nmf(X, n_components: int, alpha: float = 1.0, max_iter: int = 500, seed: int
     Returns ``(W (m, k), H (k, n))`` as float32 numpy arrays."""
     Xc = _csr_of_dense(dense_to_tensor(X, device))
     W, Ht = _starts(Xc, int(n_components), seed, W0, H0)
-    W, Ht = nmf_factors(Xc, dsp.transpose(Xc).csr, W, Ht, float(alpha), max_iter)
+    W, Ht = nmf_factors(dsp.pieced(Xc), dsp.transpose(Xc), W, Ht, float(alpha), max_iter)
     return W.cpu().numpy(), np.ascontiguousarray(Ht.cpu().numpy().T)
 
 
@@ -171,11 +175,12 @@ def _binary_cells_by_peaks(X, dev: torch.device) -> DeviceCSR:
 
 
 def scopen_operands(X, min_rho: float = 0.0, max_rho: float = 0.5,
-                    device: DeviceLike = None) -> Tuple[DeviceCSR, DeviceCSR]:
+                    device: DeviceLike = None) -> Tuple[dsp.PiecedCSR, dsp.PiecedCSR]:
     """scOpen's input to its NMF from the (cells × peaks) counts X: Xᵀ
     binarised, each cell (column) scaled by 1/(1 − ρ), ρ its dropout rate
     between ``min_rho`` and ``max_rho`` from log10 of its open peaks. Returns
-    its CSR (peaks × cells) and that of its transpose (cells × peaks)."""
+    its CSR (peaks × cells) and that of its transpose (cells × peaks), each
+    with the piece table of its products (``dsp.PiecedCSR``), built once."""
     dev = resolve_device(device)
     XT = _binary_cells_by_peaks(X, dev)
     counts = dsp.row_sums(XT).cpu().numpy()
@@ -187,7 +192,7 @@ def scopen_operands(X, min_rho: float = 0.0, max_rho: float = 0.5,
     rho = min_rho + (max_rho - min_rho) * (hi - n_open) / denom
     scale = torch.from_numpy(np.asarray(1.0 / (1.0 - rho), dtype=np.float32)).to(dev)
     XT = XT._replace(data=dsp.scale_rows_data(XT, scale))
-    return dsp.transpose(XT).csr, XT
+    return dsp.transpose(XT), dsp.pieced(XT)
 
 
 def scopen_impute(
@@ -218,7 +223,7 @@ def scopen_impute(
         X, XT = scopen_operands(adata.X, min_rho, max_rho, dev)
         W, Ht = _starts(X, int(n_components), 0, W0, H0)
     if verbose:
-        print(f"Number of peaks: {X.n_rows}\nNumber of cells: {X.n_cols}")
+        print(f"Number of peaks: {X.shape[0]}\nNumber of cells: {X.shape[1]}")
     W, Ht = nmf_factors(X, XT, W, Ht, float(alpha), max_iter)
     del X, XT
     with stage("scopen/impute"):

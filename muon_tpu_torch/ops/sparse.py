@@ -18,7 +18,9 @@ the kernel or raises.
     tfidf_col_sums  T1's sums-only mode <- the body of parallel/pipeline.py
                       _colsums_fn
     spmm          T2  <- _spmm_fn, transpose=False
-    spmm_split    T2, its rows cut into pieces <- the products of nmf._nmf_fn
+    spmm_split    T2, its rows cut into pieces <- the products of nmf._nmf_fn,
+                      T3's gather over X's own CSR (``pieced``, built once
+                      per matrix)
     spmm_t        T3  <- _spmm_fn, transpose=True, as a gather over the CSR
                       of Xᵀ (``transpose``, built once per matrix)
     gram_matmul   T4  <- the XtX.V product of linalg._rsvd_blocks_fn
@@ -64,7 +66,8 @@ __all__ = [
     "decode_wire",
     "binarize_data",
     "with_col_perm",
-    "TransposedCSR",
+    "PiecedCSR",
+    "pieced",
     "transpose",
     "tfidf_data",
     "tfidf_col_sums",
@@ -91,6 +94,7 @@ _INT32_MAX = np.iinfo(np.int32).max
 # entries per step of the plain products: bounds the (chunk, l) gather
 _PLAIN_CHUNK = 1 << 22
 _PIECE = 256  # stored entries a warp of spmm_split and of spmm_t sums at most
+_SPLIT_VEC = 4  # spmm_split pads B's rows to a multiple of this many values (16 bytes)
 
 
 class DeviceCSR(NamedTuple):
@@ -384,23 +388,47 @@ def with_col_perm(X: DeviceCSR) -> torch.Tensor:
     return torch.argsort(X.indices, stable=True).to(torch.int32)
 
 
-class TransposedCSR(NamedTuple):
-    """Xᵀ as CSR with T3's piece table over its rows. The table depends on
-    the structure alone, so ``with_data`` keeps it for new values."""
+class PiecedCSR(NamedTuple):
+    """A CSR matrix with the piece table of the gather that multiplies it
+    (T3 over Xᵀ, T2's split variant over X): its rows cut into pieces of at
+    most 256 stored entries. The table depends on the structure alone, so
+    ``with_data`` keeps it for new values."""
 
-    csr: DeviceCSR            # Xᵀ (n_cols, n_rows)
-    row_first: torch.Tensor   # (n_cols + 1,) int32: each row's first piece
+    csr: DeviceCSR            # (n_rows, n_cols)
+    row_first: torch.Tensor   # (n_rows + 1,) int32: each row's first piece
     n_pieces: int             # row_first[-1]
 
-    def with_data(self, data: torch.Tensor) -> "TransposedCSR":
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.csr.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.device
+
+    def with_data(self, data: torch.Tensor) -> "PiecedCSR":
         return self._replace(csr=self.csr._replace(data=data))
 
 
-def transpose(X: DeviceCSR) -> TransposedCSR:
+def _with_pieces(X: DeviceCSR, lens: torch.Tensor) -> PiecedCSR:
+    """X with the exclusive prefix sum of max(1, ⌈len / 256⌉) over its rows
+    of ``lens`` stored entries."""
+    row_first = torch.zeros(X.n_rows + 1, dtype=torch.int64, device=X.device)
+    torch.cumsum(torch.clamp((lens + _PIECE - 1) // _PIECE, min=1), 0, out=row_first[1:])
+    return PiecedCSR(X, row_first.to(torch.int32), int(row_first[-1]))
+
+
+def pieced(X: DeviceCSR) -> PiecedCSR:
+    """X with its piece table, for the products of X that cut its rows into
+    pieces (``spmm_split``); a caller that multiplies one X several times
+    builds it once."""
+    return _with_pieces(X, (X.indptr[1:] - X.indptr[:-1]).long())
+
+
+def transpose(X: DeviceCSR) -> PiecedCSR:
     """Xᵀ as CSR on X's device: X's entries in the order of
     ``with_col_perm``, so each row of Xᵀ keeps X's row order; with the
-    exclusive prefix sum of max(1, ⌈len / 256⌉) over its rows, the pieces T3
-    cuts them into."""
+    pieces T3 cuts its rows into."""
     with stage("sparse/transpose"):
         counts = (X.indptr[1:] - X.indptr[:-1]).long()
         rows = torch.repeat_interleave(
@@ -410,11 +438,14 @@ def transpose(X: DeviceCSR) -> TransposedCSR:
         lens = torch.bincount(X.indices, minlength=X.n_cols)
         indptr = torch.zeros(X.n_cols + 1, dtype=torch.int64, device=X.device)
         torch.cumsum(lens, 0, out=indptr[1:])
-        row_first = torch.zeros(X.n_cols + 1, dtype=torch.int64, device=X.device)
-        torch.cumsum(torch.clamp((lens + _PIECE - 1) // _PIECE, min=1), 0, out=row_first[1:])
         Xt = DeviceCSR(X.data[order], indptr.to(torch.int32), rows[order],
                        X.n_cols, X.n_rows, X.nnz)
-        return TransposedCSR(Xt, row_first.to(torch.int32), int(row_first[-1]))
+        return _with_pieces(Xt, lens)
+
+
+def _csr(X) -> DeviceCSR:
+    """The CSR of a ``DeviceCSR`` or of a ``PiecedCSR``."""
+    return X.csr if isinstance(X, PiecedCSR) else X
 
 
 # ---------------------------------------------------------------------------
@@ -539,40 +570,50 @@ def spmm(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmm_split(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
+def _check_pieces(P: PiecedCSR) -> None:
+    if P.row_first.dtype != torch.int32 or tuple(P.row_first.shape) != (P.csr.n_rows + 1,) \
+            or not P.row_first.is_contiguous():
+        raise ValueError(f"row_first must be a contiguous int32 ({P.csr.n_rows + 1},) tensor, "
+                         f"got {P.row_first.dtype} {tuple(P.row_first.shape)}")
+
+
+def spmm_split(X, B: torch.Tensor) -> torch.Tensor:
     """T2's split variant: X @ B for a float32 B ``(n_cols, l)``, each row's
     stored entries cut into pieces of at most 256, a warp a piece, and a
     row's pieces added in order, so rows of very different lengths share the
-    card evenly. Float32 ``(n_rows, l)`` result; no atomics."""
-    if _on(X, B) == "cpu":
-        return spmm_split_plain(X, B)
-    _check_csr(X)
-    _check_dense("B", B, X.n_cols, (torch.float32,))
-    pieces = torch.clamp((X.indptr[1:] - X.indptr[:-1] + _PIECE - 1) // _PIECE, min=1)
-    row_first = torch.zeros(X.n_rows + 1, dtype=torch.int32, device=X.device)
-    torch.cumsum(pieces, 0, dtype=torch.int32, out=row_first[1:])
-    max_pieces = X.n_rows + -(-X.nnz // _PIECE)
-    part = torch.empty((max_pieces, B.shape[1]), dtype=torch.float32, device=X.device)
-    out = torch.empty((X.n_rows, B.shape[1]), dtype=torch.float32, device=X.device)
+    card evenly: T3's gather over X's own CSR. ``X`` is a ``PiecedCSR``
+    (``pieced(X)``, built once per matrix) or a ``DeviceCSR``, whose table is
+    then built here. B's rows are padded with zeros to a multiple of 4
+    values, so that each lane loads 16 bytes. Float32 ``(n_rows, l)``
+    result; no atomics, the order fixed by X's structure and l."""
+    A = _csr(X)
+    if _on(A, B, *((X.row_first,) if isinstance(X, PiecedCSR) else ())) == "cpu":
+        return spmm_split_plain(A, B)
+    _check_csr(A)
+    P = X if isinstance(X, PiecedCSR) else pieced(A)
+    _check_pieces(P)
+    _check_dense("B", B, A.n_cols, (torch.float32,))
+    l = B.shape[1]
+    Bp = torch.nn.functional.pad(B, (0, -l % _SPLIT_VEC)) if l % _SPLIT_VEC else B
+    part = torch.empty((P.n_pieces if P.n_pieces > A.n_rows else 1, l),
+                       dtype=torch.float32, device=A.device)
+    out = torch.empty((A.n_rows, l), dtype=torch.float32, device=A.device)
     _kernels.launch(
-        "csr_spmm_split", X.device,
-        X.data.data_ptr(), X.indptr.data_ptr(), X.indices.data_ptr(), B.data_ptr(),
-        row_first.data_ptr(), X.n_rows, max_pieces, B.shape[1], _PIECE, part.data_ptr(),
+        "csr_spmm_split", A.device,
+        A.data.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(), P.row_first.data_ptr(),
+        A.n_rows, P.n_pieces, _PIECE, Bp.data_ptr(), Bp.shape[1], l, part.data_ptr(),
         out.data_ptr(),
     )
     return out
 
 
-def _check_transpose(X: DeviceCSR, Xt: TransposedCSR) -> None:
+def _check_transpose(X: DeviceCSR, Xt: PiecedCSR) -> None:
     if Xt.csr.shape != (X.n_cols, X.n_rows) or Xt.csr.nnz != X.nnz:
         raise ValueError(f"Xt of shape {Xt.csr.shape} with {Xt.csr.nnz} nonzeros is not "
                          f"the transpose of X, {X.shape} with {X.nnz}")
-    if tuple(Xt.row_first.shape) != (X.n_cols + 1,):
-        raise ValueError(f"Xt.row_first must have shape ({X.n_cols + 1},), got "
-                         f"{tuple(Xt.row_first.shape)}")
 
 
-def spmm_t(X: DeviceCSR, B: torch.Tensor, Xt: Optional[TransposedCSR] = None) -> torch.Tensor:
+def spmm_t(X: DeviceCSR, B: torch.Tensor, Xt: Optional[PiecedCSR] = None) -> torch.Tensor:
     """T3: Xᵀ @ B for B ``(n_rows, l)`` float32 or bfloat16; float32
     ``(n_cols, l)`` result. The kernel gathers over ``Xt``, the CSR of Xᵀ
     with its piece table (``transpose(X)``; built here when None, so a caller
@@ -587,8 +628,7 @@ def spmm_t(X: DeviceCSR, B: torch.Tensor, Xt: Optional[TransposedCSR] = None) ->
     _check_transpose(X, Xt)
     T = Xt.csr
     _check_csr(T)
-    if Xt.row_first.dtype != torch.int32 or not Xt.row_first.is_contiguous():
-        raise TypeError("Xt.row_first must be contiguous int32")
+    _check_pieces(Xt)
     l = B.shape[1]
     part = torch.empty((Xt.n_pieces if Xt.n_pieces > T.n_rows else 1, l),
                        dtype=torch.float32, device=X.device)
@@ -773,15 +813,17 @@ def spmm_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
     return _scatter_products(out, _row_ids(X), X.indices.long(), X.data, B.float())
 
 
-def spmm_split_plain(X: DeviceCSR, B: torch.Tensor) -> torch.Tensor:
-    """X @ B summed in float64, then rounded to float32."""
+def spmm_split_plain(X, B: torch.Tensor) -> torch.Tensor:
+    """X @ B summed in float64, then rounded to float32 (X a ``DeviceCSR``
+    or a ``PiecedCSR``)."""
+    X = _csr(X)
     out = torch.zeros((X.n_rows, B.shape[1]), dtype=torch.float64, device=X.device)
     return _scatter_products(out, _row_ids(X), X.indices.long(), X.data.double(),
                              B.double()).float()
 
 
 def spmm_t_plain(X: DeviceCSR, B: torch.Tensor,
-                 Xt: Optional[TransposedCSR] = None) -> torch.Tensor:
+                 Xt: Optional[PiecedCSR] = None) -> torch.Tensor:
     """Xᵀ @ B: the gather over the rows of ``Xt`` when given, else a scatter
     over X's entries."""
     if Xt is not None:

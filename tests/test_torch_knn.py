@@ -363,3 +363,126 @@ def test_gpu_knn_duplicate_rows_keep_self_first(cuda, metric, approx):
     others = np.stack([c[c != r] for c, r in zip(copies, rows)])
     np.testing.assert_array_equal(np.sort(gi[:, 1:4], axis=1), others)
     assert (gd[:, 1:4].max(axis=1) < gd[:, 4]).all()
+
+
+# ---------------------------------------------------------------------------
+# T40, one round of the ring kNN: CPU (its scratch and parts) and on the card
+# against its plain version
+# ---------------------------------------------------------------------------
+
+RING_K1 = [1, 11, 21, 32, 33, 201, 256, 257, 300]
+
+
+@pytest.mark.parametrize("k1", RING_K1 + [301])
+def test_heap_row_holds_ring_lists(k1):
+    # T40's heap of k+1 places (the carried list, then the block's rows)
+    # lies in one scratch row: node r at word 7 + r, the row whole 64-byte
+    # groups
+    row = tk.heap_row(k1)
+    assert row % 8 == 0 and 7 + k1 <= row < 7 + k1 + 8
+
+
+@pytest.mark.parametrize("nq,rows,k1,want", [
+    (25_000, 25_000, 21, 4),     # a [mesh4] round: 98 blocks, 4 parts fill 264 slots
+    (50_000, 50_000, 21, 2),     # a [mesh2] round: 196 blocks
+    (100_000, 100_000, 21, 1),   # [mesh1]'s round: 391 blocks
+    (50_000, 50_000, 201, 1),    # a WNN round: long lists take one part
+    (25_000, 25_000, 33, 1),
+    (25_000, 25_000, 32, 4),
+    (25_000, 2_000, 21, 1),      # parts of at least 1024 rows
+    (25_000, 3_000, 21, 2),
+    (25_000, 4_096, 21, 4),
+    (1000, 100_000, 11, 8),      # 4 blocks: at most 8 parts
+    (1_000_000, 1_000_000, 21, 1),
+])
+def test_ring_parts_fill_the_card(nq, rows, k1, want):
+    assert tk.ring_parts(nq, rows, k1, 132) == want
+
+
+def test_cpu_ring_merge_takes_the_plain_version():
+    # on the CPU the wrapper is the plain version and launches nothing
+    rng = np.random.default_rng(2)
+    Q = torch.from_numpy(rng.normal(size=(40, 5)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(30, 5)).astype(np.float32))
+    sq_q, sq_b = (Q * Q).sum(1), (B * B).sum(1)
+    cd = torch.full((40, 6), float("inf"))
+    ci = torch.full((40, 6), -1, dtype=torch.int32)
+    _kernels.reset_launch_counts()
+    got = tk.knn_ring_merge(Q, sq_q, B, sq_b, 30, 55, cd, ci)
+    want = tk.knn_ring_merge_plain(Q, sq_q, B, sq_b, 30, 55, cd, ci)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not any(_kernels.launch_counts().values())
+
+
+def _ring_blocks(P, nb, off_n):
+    """Blocks of nb rows of P at offsets 0, nb, 2 nb, ... (zero rows past the
+    end, as sharded_knn pads its last block)."""
+    for off in range(0, off_n, nb):
+        B = torch.zeros((nb, P.shape[1]), device=P.device)
+        B[:max(0, min(nb, P.shape[0] - off))] = P[off:off + nb]
+        yield off, B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k1", RING_K1)
+@pytest.mark.parametrize("nq", [1000, 25_000])
+def test_gpu_knn_ring_merge_list_lengths(cuda, monkeypatch, nq, k1):
+    # three rounds over gaussian points (d = 50), the last block half
+    # padding, each merged into the lists the kernel carried: against the
+    # plain twin within test_gpu_knn_ring_merge_matches_plain's tolerances,
+    # and every count of parts (ring_parts replaced) the same bits as one
+    g = torch.Generator(device=cuda).manual_seed(k1)
+    nb = nq * 9 // 10
+    n = nb * 5 // 2
+    Q = torch.randn((nq, 50), generator=g, device=cuda)
+    pts = torch.randn((n, 50), generator=g, device=cuda)
+    sq_q = (Q * Q).sum(1)
+    cd = torch.full((nq, k1), float("inf"), device=cuda)
+    ci = torch.full((nq, k1), -1, dtype=torch.int32, device=cuda)
+    for off, B in _ring_blocks(pts, nb, n):
+        sq_b = (B * B).sum(1)
+        _kernels.reset_launch_counts()
+        got = tk.knn_ring_merge(Q, sq_q, B, sq_b, off, n, cd, ci)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["knn_ring_merge"] == 1
+        want = tk.knn_ring_merge_plain(Q, sq_q, B, sq_b, off, n, cd, ci)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+        assert (got[1] == want[1]).float().mean() > 0.999
+        for parts in range(1, tk.RING_MAX_PARTS + 1):
+            monkeypatch.setattr(tk, "ring_parts", lambda *args, p=parts: p)
+            again = tk.knn_ring_merge(Q, sq_q, B, sq_b, off, n, cd, ci)
+            monkeypatch.undo()
+            assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        cd, ci = got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k1", [21, 201])
+@pytest.mark.parametrize("d", [1, 13, 50, 64, 65, 130])
+def test_gpu_knn_ring_merge_integer_ties_exact(cuda, monkeypatch, d, k1):
+    # integer points in [0, 4): every product, norm and distance is exact in
+    # float32 in both versions, so the lists are the plain version's bit for
+    # bit, ids included, through many exact ties: between block rows, and
+    # between carried entries and new rows that repeat the queries' points
+    # (the carried entry first). Four rounds: the third block half padding,
+    # the fourth past n (all padding: the carried lists come back)
+    rng = np.random.default_rng(d)
+    Q = rng.integers(0, 4, size=(1000, d)).astype(np.float32)
+    pts = rng.integers(0, 4, size=(2250, d)).astype(np.float32)
+    pts[rng.choice(2250, 600, replace=False)] = Q[rng.choice(1000, 600)]
+    Q, pts = torch.from_numpy(Q).to(cuda), torch.from_numpy(pts).to(cuda)
+    sq_q = (Q * Q).sum(1)
+    cd = torch.full((1000, k1), float("inf"), device=cuda)
+    ci = torch.full((1000, k1), -1, dtype=torch.int32, device=cuda)
+    for off, B in _ring_blocks(pts, 900, 3600):
+        sq_b = (B * B).sum(1)
+        want = tk.knn_ring_merge_plain(Q, sq_q, B, sq_b, off, 2250, cd, ci)
+        for parts in (1, 3):
+            monkeypatch.setattr(tk, "ring_parts", lambda *args, p=parts: p)
+            got = tk.knn_ring_merge(Q, sq_q, B, sq_b, off, 2250, cd, ci)
+            monkeypatch.undo()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if off >= 2250:
+            assert torch.equal(got[0], cd) and torch.equal(got[1], ci)
+        cd, ci = got
+    assert (ci >= 0).all()

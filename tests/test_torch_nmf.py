@@ -229,6 +229,25 @@ def test_scopen_objective_never_rises():
     np.testing.assert_array_equal(h.obsm["X_scopen"], Ht.numpy())
 
 
+def test_scopen_operands_carry_their_piece_tables():
+    # scopen_operands builds each CSR's piece table once: X (peaks × cells)
+    # is Xᵀ's transpose with its table, XT has pieced's; the loop over them
+    # gives the bits of the loop over the bare CSRs (whose tables each
+    # product would build)
+    dsp = mt.ops.sparse
+    observed, _ = _openness()
+    X, XT = tnmf.scopen_operands(observed.copy(), device=CPU)
+    assert isinstance(X, dsp.PiecedCSR) and isinstance(XT, dsp.PiecedCSR)
+    for P in (X, XT):
+        assert torch.equal(P.row_first, dsp.pieced(P.csr).row_first)
+    T = dsp.transpose(XT.csr).csr
+    assert torch.equal(T.indptr, X.csr.indptr) and torch.equal(T.data, X.csr.data)
+    W, Ht = tnmf._starts(X, 5, 0, None, None)
+    got = tnmf.nmf_factors(X, XT, W, Ht, 1.0, 20)
+    want = tnmf.nmf_factors(X.csr, XT.csr, W, Ht, 1.0, 20)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_cpu_nmf_counts_no_launch():
     _kernels.reset_launch_counts()
     tnmf.nmf(_low_rank(), 3, max_iter=3, device=CPU)

@@ -514,17 +514,54 @@ def test_gpu_csr_spmm(cuda, dtype, l):
     assert ((out - tsp.spmm_plain(dX, B)).abs() <= bound).all()
 
 
-def _long_rows(seed=0):
-    """Rows of 0, 1, 255, 256, 257, 513, 5,000 and 40,000 stored entries over
-    50,000 columns, and the Pareto-popular columns of _skewed_counts as rows."""
+def _long_rows(seed=0, lens=(0, 1, 255, 256, 257, 513, 5000, 40000)):
+    """Rows of ``lens`` stored entries over 50,000 columns (by default 0, 1,
+    255, 256, 257, 513, 5,000 and 40,000), and the Pareto-popular columns of
+    _skewed_counts as rows."""
     rng = np.random.default_rng(seed)
-    lens = [0, 1, 255, 256, 257, 513, 5000, 40000]
     rows = np.repeat(np.arange(len(lens)), lens)
     cols = np.concatenate([rng.choice(50_000, n, replace=False) for n in lens])
     data = rng.random(rows.size).astype(np.float32) + 0.5
     A = sp.csr_matrix((data, (rows, cols)), shape=(len(lens), 50_000))
     B = _skewed_counts(n=50_000, d=700).T.tocsr()
     return sp.vstack([A, B[:, :50_000]]).tocsr()
+
+
+@pytest.mark.parametrize("make", [_long_rows, _skewed_counts])
+def test_piece_table_built_once_is_the_one_built_per_call(make):
+    # pieced(X): max(1, ⌈len / 256⌉) pieces a row, the table the split
+    # product would build for a bare CSR; transpose's table is pieced of Xᵀ;
+    # with_data keeps it; the product of either form is the same
+    X = make()
+    dX = tsp.from_scipy(X, CPU)
+    P = tsp.pieced(dX)
+    pieces = np.maximum(1, -(-np.diff(X.indptr) // 256))
+    np.testing.assert_array_equal(P.row_first.numpy(), np.concatenate([[0], np.cumsum(pieces)]))
+    assert P.row_first.dtype == torch.int32 and P.n_pieces == pieces.sum()
+    assert P.shape == X.shape and P.device == CPU
+    Xt = tsp.transpose(dX)
+    assert torch.equal(tsp.pieced(Xt.csr).row_first, Xt.row_first)
+    Pn = P.with_data(P.csr.data * 2)
+    assert Pn.row_first is P.row_first and torch.equal(Pn.csr.data, dX.data * 2)
+    B = torch.from_numpy(np.random.default_rng(3).normal(size=(X.shape[1], 30))
+                         .astype(np.float32))
+    assert torch.equal(tsp.spmm_split(P, B), tsp.spmm_split(dX, B))
+    assert torch.equal(tsp.spmm_split_plain(P, B), tsp.spmm_split_plain(dX, B))
+
+
+@pytest.mark.parametrize("l", [1, 2, 29, 30, 31])
+def test_zero_padded_operand_gives_the_same_product(l):
+    # the split product pads B's rows with zeros to a multiple of four
+    # values: the padded columns add nothing to the columns kept
+    X = _long_rows()
+    dX = tsp.from_scipy(X, CPU)
+    B = torch.from_numpy(np.random.default_rng(l).normal(size=(X.shape[1], l))
+                         .astype(np.float32))
+    Bp = torch.nn.functional.pad(B, (0, -l % 4))
+    assert Bp.shape[1] % 4 == 0 and bool((Bp[:, l:] == 0).all())
+    got = tsp.spmm_split_plain(dX, Bp)
+    assert bool((got[:, l:] == 0).all())
+    assert torch.equal(got[:, :l], tsp.spmm_split_plain(dX, B))
 
 
 def test_spmm_split_plain_is_the_float64_product():
@@ -537,10 +574,14 @@ def test_spmm_split_plain_is_the_float64_product():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("l", [1, 30, 150])
+@pytest.mark.parametrize("l", [1, 2, 29, 30, 31, 32, 60, 150])
 def test_gpu_csr_spmm_split(cuda, l):
     # against the float64 product within 1e-5 x |X|.|B|; bit for bit from
-    # run to run, and on rows of at most 256 entries bit for bit T2's sum
+    # run to run and with the piece table given or built; on rows of at
+    # most 256 entries bit for bit T2's sum where one lane group spans the
+    # warp (l above 64: B's rows padded to four values a lane, 32 lanes),
+    # so that each column is one fma chain in entry order as in T2 (at
+    # narrower l the lane groups meet by a butterfly, within the bound)
     X = _long_rows()
     dX = tsp.from_scipy(X, cuda)
     B = torch.randn((dX.n_cols, l), device=cuda)
@@ -551,9 +592,32 @@ def test_gpu_csr_spmm_split(cuda, l):
     bound = 1e-5 * tsp.spmm_split_plain(dX._replace(data=dX.data.abs()), B.abs())
     assert ((out - tsp.spmm_split_plain(dX, B)).abs() <= bound).all()
     assert torch.equal(tsp.spmm_split(dX, B), out)
-    short = torch.from_numpy(np.diff(X.indptr) <= 256).to(cuda)
-    assert torch.equal(out[short], tsp.spmm(dX, B)[short])
+    assert torch.equal(tsp.spmm_split(tsp.pieced(dX), B), out)
+    if l > 64:
+        short = torch.from_numpy(np.diff(X.indptr) <= 256).to(cuda)
+        assert torch.equal(out[short], tsp.spmm(dX, B)[short])
     assert bool((out[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 2, 29, 30, 31, 32, 60])
+def test_gpu_csr_spmm_split_row_lengths(cuda, l):
+    # rows of 0, 1, 255, 256, 257 and 10,000 entries (one piece, one
+    # whole piece, two, forty) through the shared gather from a piece table
+    # built once: within 1e-5 x |X|.|B| of the float64 product, the same
+    # bits in three runs, and an empty row zero
+    X = _long_rows(seed=1, lens=(0, 1, 255, 256, 257, 10_000))
+    P = tsp.pieced(tsp.from_scipy(X, cuda))
+    B = torch.rand((X.shape[1], l), device=cuda) - 0.25
+    _kernels.reset_launch_counts()
+    runs = [tsp.spmm_split(P, B) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["csr_spmm_split"] == 3
+    A = P.csr
+    bound = 1e-5 * tsp.spmm_split_plain(A._replace(data=A.data.abs()), B.abs())
+    assert ((runs[0] - tsp.spmm_split_plain(P, B)).abs() <= bound).all()
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    assert bool((runs[0][0] == 0).all())
 
 
 @pytest.mark.gpu
