@@ -163,15 +163,19 @@ is printed. An exception stops the run at once, with a code other than 0:
     for the candidates, twice; T9's variant against plain at kk = 256,
     d = 50; then phases 23 (its 100k half) and 24;
 17. ``[mofa-e2e]``, counted from ``fit_mofa`` alone: the launches of T17-T20
-    and the fused passes by the formula (per sweep T17 2·M, T18 K·M, T19 M,
-    T20 2·M, ``mofa_rank1_col_dot`` and ``mofa_rank1_row_dot`` (K − 1)·M), the
-    wall and the stage split, and the e2e's gate: the label-probe R² of Z
-    above max(0.2, 0.8 × that of the first 15 PCA components);
-18. kernels: T17-T20 and the fused passes (T20 then T17, T20 then T19)
-    against their plain versions at 10,000 × 3000 (unmasked and masked) and
-    50,000 × 256, each with its bound and, where one PyTorch call computes
-    the same, that call's time; each fused pass the bits of T20 then T17 or
-    T19, timed beside that pair and beside ``E.addr_`` with ``torch.mv``;
+    and the fused passes by the formula (per sweep T17 M, T18 none, T19 M,
+    T20 2·M, ``mofa_col_dot_posterior`` M, ``mofa_rank1_col_dot_posterior``
+    and ``mofa_rank1_row_dot`` (K − 1)·M; on the cells-cut meshes T17 2·M,
+    T18 K·M and ``mofa_rank1_col_dot`` (K − 1)·M), the wall and the stage
+    split, and the e2e's gate: the label-probe R² of Z above max(0.2, 0.8 ×
+    that of the first 15 PCA components);
+18. kernels: T17-T20, the fused passes (T20 then T17, T20 then T19) and the
+    posterior variants (T17 then T18, T20 then T17 then T18) against their
+    plain versions at 10,000 × 3000 (unmasked and masked) and 50,000 × 256,
+    each with its bound and, where one PyTorch call computes the same, that
+    call's time; each fused pass the bits of T20 then T17 or T19, timed
+    beside that pair and beside ``E.addr_`` with ``torch.mv``; each
+    posterior variant the bits of its sum then T18, timed beside that pair;
 19. ``[mofa]``, counted the same way: sweeps per second, the stage split, peak
     memory; the canonical correlations of Z with the planted factors (> 0.9);
     two fits bit for bit; one sweep through the kernels against the plain
@@ -554,6 +558,11 @@ KERNEL_INFO = {
                            "muon_tpu/parallel/mesh.py:121"),
     "mofa_rank1_row_dot": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "
                            "muon_tpu/parallel/mesh.py:121"),
+    # w_body's sum of a factor with its posterior (one device, or cells whole)
+    "mofa_col_dot_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "
+                               "muon_tpu/models/mofa.py:811"),
+    "mofa_rank1_col_dot_posterior": (MOFA_SRC, "muon_tpu/models/mofa.py:94; "
+                                     "muon_tpu/models/mofa.py:811"),
     "knn_topk_global": (KNN_SRC, "muon_tpu/ops/knn.py:58"),         # lists longer than 256
     "ivf_search_global": (IVF_SRC, "muon_tpu/ops/ivf.py:126"),      # lists longer than 256
     "gmm_background_means": (GMM_SRC, "muon_tpu/ops/gmm.py:101"),   # + _em_1d (:32)
@@ -712,15 +721,25 @@ WIRE_PAIRS = ((np.uint8, np.int16), (np.uint8, np.int32), (np.uint16, np.int16),
 OFF_PATH = {"binarize_values": "_binarize_fn has no caller in muon_tpu either"}
 
 
-def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K) -> dict:
+def mofa_launches(sweeps: int, n_views: int = 2, K: int = MOFA_K,
+                  cells_cut: bool = False) -> dict:
     """What ``sweeps`` MOFA sweeps (full-batch or SVI) launch: per sweep and
-    view T17 twice (factor 0's sum, and Σ E² for τ), T18 K times, T19 once
-    (factor 0), T20 twice (the last factor in each loop), and each fused
-    pass K − 1 times (a factor's correction with the next one's sum)."""
+    view T17 once for Σ E² (τ), T19 once (factor 0), T20 twice (the last
+    factor in each loop) and ``mofa_rank1_row_dot`` K − 1 times (a factor's
+    correction with the next one's sum); the w sweep's factor 0 sum and its
+    K − 1 fused passes carry T18 in their finish (``mofa_col_dot_posterior``
+    once, ``mofa_rank1_col_dot_posterior`` K − 1 times), so T18 launches
+    never. Where the cells are cut over a mesh (``cells_cut``) u is
+    all-reduced before its posterior: there T17 runs twice, T18 K times and
+    ``mofa_rank1_col_dot`` K − 1 times instead."""
     m = sweeps * n_views
-    return {"mofa_col_dot": 2 * m, "mofa_w_posterior": K * m, "mofa_row_dot": m,
-            "mofa_rank1_update": 2 * m, "mofa_rank1_col_dot": (K - 1) * m,
-            "mofa_rank1_row_dot": (K - 1) * m}
+    out = {"mofa_row_dot": m, "mofa_rank1_update": 2 * m, "mofa_rank1_row_dot": (K - 1) * m}
+    if cells_cut:
+        return {**out, "mofa_col_dot": 2 * m, "mofa_w_posterior": K * m,
+                "mofa_rank1_col_dot": (K - 1) * m, "mofa_col_dot_posterior": 0,
+                "mofa_rank1_col_dot_posterior": 0}
+    return {**out, "mofa_col_dot": m, "mofa_w_posterior": 0, "mofa_rank1_col_dot": 0,
+            "mofa_col_dot_posterior": m, "mofa_rank1_col_dot_posterior": (K - 1) * m}
 
 
 # [mesh*]: the launches of all ranks together. A rank: T1's two modes once
@@ -756,10 +775,11 @@ MESH_PATHS = {
     # MOFA: every rank the launches of one device's fit (its blocks, the same
     # loops), 25 full-batch sweeps or 25 SVI iterations; with the bernoulli
     # view T23 once a sweep
-    "mesh2_mofa": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
-    "mesh2_svi": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
-    "mesh4_mofa": {k: 4 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
-    "mesh4_lik": {**{k: 4 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS).items()},
+    "mesh2_mofa": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS, cells_cut=True).items()},
+    "mesh2_svi": {k: 2 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS, cells_cut=True).items()},
+    "mesh4_mofa": {k: 4 * v for k, v in mofa_launches(MESH_MOFA_SWEEPS, cells_cut=True).items()},
+    "mesh4_lik": {**{k: 4 * v for k, v in
+                     mofa_launches(MESH_MOFA_SWEEPS, cells_cut=True).items()},
                   "mofa_bound_refresh": 4 * MESH_MOFA_SWEEPS},
     # MEFISTO: every rank the launches of one device's fit (the sparse path's
     # K_mm and K_nm on its rows each sweep; the dense gp_K and the refresh's
@@ -2237,7 +2257,8 @@ def phase_umap_big(ttl, tu, tk, tf, kernels, profiling, h, labels, cuda):
 
 
 def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
-    """T14-T16 against their plain versions at the 1M path's shapes."""
+    """T14-T16, and T13's epoch, against their plain versions at the 1M
+    path's shapes."""
     results = {}
     X = torch.from_numpy(rep).to(cuda)
     n, d = X.shape
@@ -2342,6 +2363,35 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
            # table is the kernel's own choice and no part of the bound
            bound(nbytes(op.idx, op.vals, op.s, Q, Y), 4 * op.vals.numel() * 10,
                  F32_OPS_PER_S), lib)
+    del op, Q, Y, Yp
+
+    # T13: one epoch over the 1M graph's edges ([umap1m]'s epochs), epoch 0
+    # from a random layout, against plain, with the bound counted as at 100k
+    G = h.obsp["connectivities"].tocsr()
+    a, b = tu.find_ab_params()
+    heads, tails, eps, _, dc = tu.edge_schedule(G, N_EPOCHS)
+    edges = tu.umap_edges(heads, tails, eps, tu.bucket_shifts(eps, N_EPOCHS), n, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    emb0 = torch.rand((n, 2), generator=gen, device=cuda) * 20 - 10
+    negs = torch.randint(0, n, (n, 5), generator=gen, dtype=torch.int32, device=cuda)
+    dct = torch.from_numpy(dc).to(cuda)
+    args = (dct, negs, 0, tu.epoch_alpha(1.0, 0, N_EPOCHS), a, b, 1.0)
+    eons_k, eons_p = edges.eps.clone(), edges.eps.clone()
+    out_k = tu.umap_epoch(emb0, torch.empty_like(emb0), edges, eons_k, *args)
+    torch.cuda.synchronize()
+    out_p = tu.umap_epoch_plain(emb0, torch.empty_like(emb0), edges, eons_p, *args)
+    err = (out_k - out_p).abs().max().item()
+    same_eons = bool(torch.equal(eons_k, eons_p))
+    pools = {k: [edges.eps.clone() for _ in range(6)] for k in ("k", "p")}
+    buf = torch.empty_like(emb0)
+    E, due = len(eps), int((eps <= 1.0).sum())
+    report("umap_epoch", f"at 1M (n={n}, E={E}, due at epoch 0 {due}; epoch 0 from a random "
+           f"layout)", err, "<= 1e-3, eons equal", err <= 1e-3 and same_eons,
+           median_ms(lambda: tu.umap_epoch(emb0, buf, edges, pools["k"].pop(), *args)),
+           median_ms(lambda: tu.umap_epoch_plain(emb0, buf, edges, pools["p"].pop(), *args),
+                     reps=3),
+           bound(5 * E + 12 * due + nbytes(edges.indptr, dct, negs, emb0, out_k),
+                 30 * (due + negs.numel()), F32_OPS_PER_S), record=False)
     return results
 
 
@@ -3001,6 +3051,58 @@ def phase_mofa_kernels(tmo, Ys, cuda) -> dict:
                           if Bm is None else {}))
                 check(same, f"{name} {shape}{tag}: the bits of T20 then its sum")
                 del Ef, Ea, Ep
+
+        # the posterior variants: T17 (or the w sweep's fused pass) with T18
+        # of factor 3 in its finish, unmasked full-batch and masked scaled as
+        # above: the bits of the sum then T18, timed beside that pair
+        for tag, Bm, z2s, zzs, scale in (("", None, z2.sum(dim=0), zz.sum(dim=0), None),
+                                         (" masked, scaled", B, (z2.T @ B) * 20.0,
+                                          (zz.T @ B) * 20.0, 20.0)):
+            for name in ("mofa_col_dot_posterior", "mofa_rank1_col_dot_posterior"):
+                fused = name == "mofa_rank1_col_dot_posterior"
+                Ef, Ea, Ep = E.clone(), E.clone(), E.clone()
+                Wf, Wa, Wp = ([w.clone() for w in Ws] for _ in range(3))
+                posts = [tmo.WPost(tau, z2s, zzs, *hyper, 1, *W, scale=scale)
+                         for W in (Wf, Wp)]
+                y = swk  # the previous factor's delta (D,)
+
+                def run(Ex, post):
+                    if fused:
+                        return tmo.rank1_col_dot_posterior(Ex, zk, y, Bm, zn, post, 3)
+                    return tmo.col_dot_posterior(Ex, zn, post, 3)
+
+                def pair(Ex, W):
+                    u_ = tmo.rank1_col_dot(Ex, zk, y, Bm, zn) if fused else tmo.col_dot(Ex, zn)
+                    return tmo.w_posterior(u_, tau, z2s[3], zzs[3], *hyper, 1, 3, *W, scale=scale)
+
+                def plain(Ex, post):
+                    return (tmo.rank1_col_dot_posterior_plain(Ex, zk, y, Bm, zn, post, 3) if fused
+                            else tmo.col_dot_posterior_plain(Ex, zn, post, 3))
+
+                got = run(Ef, posts[0]).clone()
+                alone = pair(Ea, Wa)
+                ref = plain(Ep, posts[1])
+                torch.cuda.synchronize()
+                same = (torch.equal(got, alone) and torch.equal(Ef, Ea)
+                        and all(torch.equal(f, a) for f, a in zip(Wf, Wa)))
+                errs = [(g - r).abs() for g, r in zip([got, Ef, *Wf], [ref, Ep, *Wp])]
+                ok = all(bool((e <= 1e-5 * (1.0 + r.abs())).all())
+                         for e, r in zip(errs, [ref, Ep, *Wp]))
+                # the pass's bytes (E read, and written where fused, B, the
+                # vectors), then the posterior's (u in registers): tau, z2
+                # and zz where masked, SW's column read, the 4 weight
+                # columns written, delta
+                bytes_ = (nbytes(E) * (2 if fused else 1) + (nbytes(B) if Bm is not None else 0)
+                          + 4 * (n + d) * (2 if fused else 1)
+                          + 4 * d * (1 + (2 if Bm is not None else 0) + 1 + 4 + 1))
+                ops = n * d * ((3 if Bm is not None else 2) + 2 if fused else 2) + 40 * d
+                report(name, shape + tag, max(e.max().item() for e in errs),
+                       "the bits of the sum then T18; 1e-5 x (1 + |plain|)", same and ok,
+                       lambda: run(Ef, posts[0]), lambda: plain(Ep, posts[1]),
+                       bound(bytes_, ops, F32_OPS_PER_S), record=main and Bm is None,
+                       pair_ms=lambda: pair(Ea, Wa))
+                check(same, f"{name} {shape}{tag}: the bits of its sum then T18")
+                del Ef, Ea, Ep, Wf, Wa, Wp, posts
         del E, Z, SW, B
     torch.cuda.empty_cache()
     return results
@@ -3097,7 +3199,8 @@ def standalone_sweeps(tm, tmo) -> dict:
 
 
 MOFA_WRAPPERS = ("col_dot", "w_posterior", "row_dot", "rank1_update", "rank1_col_dot",
-                 "rank1_row_dot", "bound_refresh")
+                 "rank1_row_dot", "bound_refresh", "col_dot_posterior",
+                 "rank1_col_dot_posterior")
 
 
 def check_launches(launches, want: dict, what: str) -> None:
@@ -3454,26 +3557,31 @@ def refreshes(sweeps: int, start: int, every: int) -> int:
     return sum(1 for it in range(1, sweeps + 1) if it >= start and it % every == 0)
 
 
-def gp_launches(sweeps, n_ell, kg_steps=0, warps=0, sparse=False, K=MEF_K) -> dict:
+def gp_launches(sweeps, n_ell, kg_steps=0, warps=0, sparse=False, K=MEF_K,
+                cells_cut=False) -> dict:
     """T24 and T25 of a MEFISTO fit: the dense path builds gp_K once, then at
     each refresh one T24 per ℓ of the grid and one for gp_K, one T24 and one
     T25 per step on Kg, and one T24 per warp; the sparse path builds K_mm and
-    K_nm per factor in every sweep and never gp_K."""
+    K_nm per factor in every sweep and never gp_K. With the sweeps'
+    launches (``mofa_launches``)."""
     r = refreshes(sweeps, MEF_START, MEF_OPT)
     if sparse:
         t24 = 2 * K * sweeps + r * (n_ell + kg_steps)
     else:
         t24 = 1 + r * (n_ell + 1 + kg_steps) + warps
-    return {"gp_rbf_kernel": t24, "gp_kg_grad": r * kg_steps, **mofa_launches(sweeps, 2, K)}
+    return {"gp_rbf_kernel": t24, "gp_kg_grad": r * kg_steps,
+            **mofa_launches(sweeps, 2, K, cells_cut)}
 
 
 MESH_PATHS.update({
     "mesh2_mefisto_sparse": {k: 2 * v for k, v in
-                             gp_launches(MESH_MEF_SWEEPS, 10, sparse=True).items()},
+                             gp_launches(MESH_MEF_SWEEPS, 10, sparse=True,
+                                         cells_cut=True).items()},
     "mesh4_mefisto_groups": {k: 4 * v for k, v in
-                             gp_launches(MESH_MEF_SWEEPS, 10, 10).items()},
+                             gp_launches(MESH_MEF_SWEEPS, 10, 10, cells_cut=True).items()},
     "mesh4_mefisto_warp": {k: 4 * v for k, v in gp_launches(
-        MESH_MEF_SWEEPS, 10, warps=refreshes(MESH_MEF_SWEEPS, MEF_START, MEF_WARP_FREQ)).items()},
+        MESH_MEF_SWEEPS, 10, warps=refreshes(MESH_MEF_SWEEPS, MEF_START, MEF_WARP_FREQ),
+        cells_cut=True).items()},
 })
 
 
@@ -3693,8 +3801,8 @@ def phase_mofa_ssz(tm, kernels, profiling, Zp, cuda):
 
 def phase_gp_kernels(tgp, cuda) -> dict:
     """T24 at the dense path's (K, N, N) gp_K and the sparse path's K_nm
-    (100,000 x 1,000, one factor: the JSON line), T25 at the dense
-    model_groups shape, each against its plain version."""
+    (100,000 x 1,000, one factor: the JSON line) and K_mm (1,000²), T25 at
+    the dense model_groups shape, each against its plain version."""
     results = {}
     gen = torch.Generator(device=cuda).manual_seed(24)
     ells = torch.linspace(0.05, 0.8, MEF_K, device=cuda)
@@ -3721,6 +3829,9 @@ def phase_gp_kernels(tgp, cuda) -> dict:
          MEF_K, False),
         (f"K_nm {SGP_N}x{cu.shape[0]}, one factor",
          (cn, cu, ells[:1], scales[:1], gn, gu, None, False), 1, True),
+        # [mefisto-sparse]'s other half of its launches: K_mm of the inducing points
+        (f"K_mm {cu.shape[0]}x{cu.shape[0]}, one factor",
+         (cu, cu, ells[:1], scales[:1], gu, gu, None, True), 1, False),
     ):
         out = tgp.rbf_kernel(*args)
         torch.cuda.synchronize()
@@ -4583,12 +4694,15 @@ def valid_windows(codes: torch.Tensor, w: int) -> int:
     return int(((bad[:, w:] - bad[:, :codes.shape[1] - w + 1]) == 0).sum())
 
 
-def motif_work(codes, width) -> float:
-    """The adds and comparisons of a scan: per motif, each valid window's w
-    adds and its comparison."""
+def motif_work(codes, width) -> tuple:
+    """The work of a scan, summed over motifs and their valid windows: the
+    one-hot products of a window's w columns (4 bases, a multiply and an add
+    each: 8 w flops), its comparison, and its w float32 adds."""
     ws, counts = np.unique(width.cpu().numpy(), return_counts=True)
-    return float(sum(int(c) * valid_windows(codes, int(w)) * (int(w) + 1)
-                     for w, c in zip(ws, counts) if w <= codes.shape[1]))
+    valid = [(int(c) * valid_windows(codes, int(w)), int(w))
+             for w, c in zip(ws, counts) if w <= codes.shape[1]]
+    return (float(sum(v * 8 * w for v, w in valid)), float(sum(v for v, _ in valid)),
+            float(sum(v * w for v, w in valid)))
 
 
 def phase_motifs(tac, tmf, tpw, kernels, profiling, cuda, tmpdir):
@@ -4650,19 +4764,39 @@ def phase_motifs(tac, tmf, tpw, kernels, profiling, cuda, tmpdir):
     return launches, seqs, matrices, thresholds, parsed["motifs"], hits
 
 
-def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) -> dict:
+def phase_motif_kernel(tpw, profiling, seqs, matrices, thresholds, motif_ids, frame,
+                       cuda) -> dict:
     """T36 against its plain version at the path's full size: the path's
-    frame row for row one call of T36 on all peaks, that call's hits the
-    plain version's run on MOTIF_CHUNK peaks at a time, and T36's scores
-    mode against F.conv1d on each piece; its time at full size and, with
-    plain and F.conv1d, on MOTIF_TIMED peaks."""
-    lo, off, width = (torch.from_numpy(a).to(cuda) for a in tpw.pack_motifs(matrices))
-    thr = torch.from_numpy(tpw.threshold_f32(thresholds)).to(cuda)
+    frame row for row one call of T36 on all peaks, that call's hits those
+    of the scores mode's exact chain thresholded at thr (bit for bit) and
+    the plain version's run on MOTIF_CHUNK peaks at a time, and T36's scores
+    mode against F.conv1d on each piece; the screen's candidates and
+    margins; its time at full size (the count and write passes apart) and,
+    with plain and F.conv1d, on MOTIF_TIMED peaks."""
+    packed = tpw.pack_motifs(matrices)
+    lo, off, width = (torch.from_numpy(a).to(cuda) for a in packed)
+    thr_np = tpw.threshold_f32(thresholds)
+    thr = torch.from_numpy(thr_np).to(cuda)
+    t0 = time.perf_counter()
+    screen_host = tpw.pack_screen(*packed, thr_np)
+    pack_s = time.perf_counter() - t0
+    screen = screen_host.to(cuda)
     codes_all = torch.from_numpy(tpw.encode_sequences(seqs)).to(cuda)
     N, L = codes_all.shape
     M = len(matrices)
-    got = tpw.pwm_scan_hits(codes_all, lo, off, width, thr)
+    cand = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = tpw.pwm_scan_hits(codes_all, lo, off, width, thr, screen, candidates=cand)
     torch.cuda.synchronize()
+    windows = int(sum(N * max(L - int(w) + 1, 0) for w in packed[2]))
+    n_cand = int(cand.item())
+    mg = screen_host.margin
+    print(f"[kernel] pwm_scan screen: {len(screen_host.steps)} groups of {tpw._GROUP} motifs, "
+          f"{int(screen_host.steps.sum())} k-steps ({screen_host.frag.nbytes} bytes of fp16 "
+          f"fragments), packed on the host in {pack_s * 1e3:.2f} ms; margins min "
+          f"{mg.min():.6f} median {float(np.median(mg)):.6f} max {mg.max():.6f}; candidates "
+          f"{n_cand} of {windows} windows = {n_cand / windows:.4e} ({n_cand / max(len(got[0]), 1):.4f} "
+          f"x the {len(got[0])} hits)", flush=True)
+    check(n_cand >= len(got[0]), "[kernel] pwm_scan: every hit was a candidate of the screen")
 
     # the path's own frame is this call's result, row for row
     g = [t.cpu().numpy() for t in got]
@@ -4683,7 +4817,7 @@ def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) 
         groups.setdefault(w, []).append(m)
     packs = {w: [torch.from_numpy(a).to(cuda) for a in tpw.pack_motifs([matrices[m] for m in midx])]
              for w, midx in groups.items()}
-    near, want, score_err, inf_same = [], [], 0.0, True
+    near, want, exact, score_err, inf_same = [], [], [], 0.0, True
     for s0 in range(0, N, MOTIF_CHUNK):
         codes = codes_all[s0:s0 + MOTIF_CHUNK].contiguous()
         h = tpw.pwm_scan_hits_plain(codes, lo, off, width, thr)
@@ -4691,19 +4825,31 @@ def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) 
         for w, midx in groups.items():
             S = tpw.pwm_scores(codes, *packs[w])
             torch.cuda.synchronize()
+            # the scores mode's exact chain, thresholded: the hits T36 must give
+            t_w = thr[midx]
+            si, pi, mi = (S >= t_w).nonzero(as_tuple=True)
+            exact.append((si + s0, torch.as_tensor(midx, device=cuda)[mi], pi, S[si, pi, mi]))
             R = tpw.pwm_scores_plain(codes, *packs[w])
             fin = torch.isfinite(R)
             inf_same &= bool(torch.equal(fin, torch.isfinite(S)))
             inf_same &= bool((torch.where(fin, -np.inf, S) == -np.inf).all())
             score_err = max(score_err, torch.where(fin, S - R, 0.0).abs().max().item())
-            t_w = thr[midx]
             close = ((S - t_w).abs() < MOTIF_NEAR) | ((R - t_w).abs() < MOTIF_NEAR)
             si, pi, mi = close.nonzero(as_tuple=True)
             near.append(((si + s0) * M + torch.as_tensor(midx, device=cuda)[mi]) * L + pi)
             del S, R, fin, close
     near = torch.cat(near)
     want = [torch.cat(c) for c in zip(*want)]
-    del packs, codes
+    exact = [torch.cat(c) for c in zip(*exact)]
+    order = torch.argsort((exact[0].long() * M + exact[1]) * L + exact[2])
+    exact = [exact[0][order].int(), exact[1][order].int(), exact[2][order].int(),
+             exact[3][order]]
+    exact_same = all(bool(torch.equal(a, b)) for a, b in zip(got, exact))
+    print(f"[kernel] pwm_scan {N} peaks x {M} motifs: the hits (sequence, motif, position, "
+          f"score) the scores mode's exact chain thresholded at thr, bit for bit: {exact_same} "
+          f"({len(got[0])} hits, {len(exact[0])} from the scores)", flush=True)
+    check(exact_same, "[kernel] pwm_scan: the screen's hits are the scores mode's, bit for bit")
+    del packs, codes, exact, order
 
     def kept(h):
         key = (h[0].long() * M + h[1].long()) * L + h[2].long()
@@ -4728,18 +4874,44 @@ def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) 
           "[kernel] pwm_scan scores within 1e-4 of F.conv1d, -inf in the same places")
     del got, want, gk, wk, near
 
-    def bnd(c, n_hits):
-        # codes, log-odds and thresholds read once, the hits (16 bytes) written
-        return bound(nbytes(c, lo, thr) + 16.0 * n_hits, motif_work(c, width), F32_OPS_PER_S)
+    w_min = int(width.min())
 
-    ms_full = median_ms(lambda: tpw.pwm_scan_hits(codes_all, lo, off, width, thr))
-    b_full = bnd(codes_all, full_hits)
+    def bnd(c, n_hits, n_cand, chain=False):
+        # codes, log-odds and thresholds read once, the hits (16 bytes)
+        # written; the screen's one-hot products on the tensor cores at the
+        # fp16 rate, and at the float32 rate each window's comparison and
+        # each candidate's chain (the narrowest motif's adds at least).
+        # chain: the parent's design, the float32 chain over every window
+        # (its reference)
+        bytes_ = nbytes(c, lo, thr) + 16.0 * n_hits
+        products, compares, adds = motif_work(c, width)
+        if chain:
+            return bound(bytes_, adds + compares, F32_OPS_PER_S)
+        f32 = compares + n_cand * w_min
+        return bound(bytes_, products + f32 * BF16_OPS_PER_S / F32_OPS_PER_S, BF16_OPS_PER_S)
+
+    ms_full = median_ms(lambda: tpw.pwm_scan_hits(codes_all, lo, off, width, thr, screen))
+    b_full, b_chain = bnd(codes_all, full_hits, n_cand), bnd(codes_all, full_hits, 0, True)
+    products, compares, adds = motif_work(codes_all, width)
+    passes = {"motifs/count": [], "motifs/write": []}
+    for _ in range(5):  # host clock, the stream synchronised at each stage's end
+        with profiling.collect() as t:
+            tpw.pwm_scan_hits(codes_all, lo, off, width, thr, screen)
+        for k in passes:
+            passes[k].append(1e3 * t[k][0])
+    count_ms, write_ms = (float(np.median(v)) for v in passes.values())
     print(f"[kernel] pwm_scan {tuple(codes_all.shape)} x {M} motifs (count + write): "
-          f"ms={ms_full:.4f} bound_ms={b_full['bound_ms']:.4f} ({b_full['bound_by']}, "
-          f"{motif_work(codes_all, width):.4e} adds and comparisons), {full_hits} hits",
+          f"ms={ms_full:.4f} bound_ms={b_full['bound_ms']:.4f} ({b_full['bound_by']}: "
+          f"{products:.4e} fp16 flops of the one-hot products, {compares:.4e} comparisons, "
+          f"{n_cand} candidates' float32 chains; the float32 chain over every window, "
+          f"{adds + compares:.4e} adds and comparisons: {b_chain['bound_ms']:.4f}), "
+          f"{full_hits} hits; the "
+          f"stages apart (median of 5, host clock): motifs/count (the screen's count launch, "
+          f"torch.cumsum, the total) {count_ms:.4f} ms, motifs/write {write_ms:.4f} ms",
           flush=True)
     ct = codes_all[:MOTIF_TIMED].contiguous()
-    n_hits = len(tpw.pwm_scan_hits(ct, lo, off, width, thr)[0])
+    cand_ct = torch.zeros(1, dtype=torch.int64, device=cuda)
+    n_hits = len(tpw.pwm_scan_hits(ct, lo, off, width, thr, screen, candidates=cand_ct)[0])
     onehot = torch.zeros((*ct.shape, 4), device=cuda)
     onehot.scatter_(2, ct.clamp(max=3).long().unsqueeze(2), (ct < 4).float().unsqueeze(2))
     onehot = onehot.permute(0, 2, 1).contiguous()
@@ -4755,10 +4927,14 @@ def phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda) 
     results = {}
     kernel_report(results, "pwm_scan", f"{tuple(ct.shape)} x {M} motifs (count + write, "
                   f"{n_hits} hits; library: F.conv1d's scores, TF32 off)", err, "scores 1e-4",
-                  True, lambda: tpw.pwm_scan_hits(ct, lo, off, width, thr),
+                  True, lambda: tpw.pwm_scan_hits(ct, lo, off, width, thr, screen),
                   lambda: tpw.pwm_scan_hits_plain(ct, lo, off, width, thr),
-                  bnd(ct, n_hits), conv_scores)
-    results["pwm_scan"].update(ms_full=ms_full, bound_ms_full=b_full["bound_ms"])
+                  bnd(ct, n_hits, int(cand_ct.item())), conv_scores)
+    results["pwm_scan"].update(ms_full=ms_full, bound_ms_full=b_full["bound_ms"],
+                               bound_ms_full_f32_chain=b_chain["bound_ms"],
+                               count_ms_full=count_ms, write_ms_full=write_ms,
+                               candidates_full=n_cand, windows_full=windows,
+                               margin_min=float(mg.min()), margin_max=float(mg.max()))
     del codes_all, ct, onehot, weights
     torch.cuda.empty_cache()
     return results
@@ -6578,7 +6754,8 @@ def run_all(work) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         motif_launches, seqs, matrices, thresholds, motif_ids, frame = phase_motifs(
             tac, tmf, tpw, kernels, profiling, cuda, tmpdir)
-    results.update(phase_motif_kernel(tpw, seqs, matrices, thresholds, motif_ids, frame, cuda))
+    results.update(phase_motif_kernel(tpw, profiling, seqs, matrices, thresholds, motif_ids,
+                                      frame, cuda))
     del seqs, matrices, thresholds, motif_ids, frame
     with tempfile.TemporaryDirectory() as tmpdir:
         frag_launches, pileup_inputs = phase_fragments(mt, tac, tpl, tfr, kernels, profiling,

@@ -1,6 +1,6 @@
 """Two checkouts of the port on one card: T9's σ, the MOFA bench fit, the
-wide WNN path, T5, T14, T40, T2's split variant and T3, for a change held
-beside its parent in one call.
+wide WNN path, T5, T14, T40, T2's split variant, T3, T36 and the MOFA
+sweeps around T18, for a change held beside its parent in one call.
 
 Run on a machine with a CUDA card, from the root of the repo, with the
 other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
@@ -12,7 +12,7 @@ other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
     python3 exp_compare_trees.py compare OUT parent1 change1 ...
 
 SECTIONS is a comma-separated subset of
-``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
+``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
 approx (the rows ``_operand`` rounds to bfloat16; a tree whose ``knn_topk``
 has no ``approx`` argument takes them as float32), at k+1 = 20, 201 and
 301. ``t14``: T14 over the whole work-item layout of the 1M representation
@@ -37,7 +37,17 @@ of the parent's split kernel, so that digest is held to the parent's
 ``spmm_split``; it times that launch and ``spmm_split`` building the
 piece table each call. ``t3``: T3 at the
 gather path's shapes (the TF-IDF of ``make_counts``, Xᵀ prebuilt, l = 60
-float32 and bfloat16). Each writes a SHA-256
+float32 and bfloat16). ``t36``: T36's ``pwm_scan_hits`` on
+chip_smoke.py's ``[motifs]`` data (100,000 peaks of 500 bp from its seeded
+genome, all 746 JASPAR motifs at p = 1e-4; a tree whose wrapper takes a
+packed ``screen`` is handed one, packed once and timed apart): the hits and
+the per-pair counts, the call at 100,000 and at 10,000 peaks, its
+``motifs/count`` and ``motifs/write`` stages (host clock, synchronised),
+and ``F.conv1d``'s scores at 10,000 peaks (TF32 off). ``t18``: the
+``mofa`` section's fit, sweep and device times, and the e2e's SVI at
+100,000 cells (the 256 most variable columns of the normalised RNA and the
+TF-IDF ATAC of ``make_e2e_counts``, made once by ``make``; 100 iterations,
+three walls) with its outputs. Each writes a SHA-256
 of every output (the bits compared), T5's approx lists at k+1 = 20, and
 CUDA-event times (median of 5, and the spread).
 
@@ -65,6 +75,7 @@ import inspect
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,7 +84,7 @@ import torch
 import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
-SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3")
+SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18")
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
 RING_K1S = (21, 201, 301)  # T40's lists: the mesh graphs', WNN's pools, the wide lists
 SCOPEN_L = 30  # scOpen's factors (chip_smoke.py SCOPEN_K)
@@ -151,6 +162,29 @@ def make(out: str, sections, cuda) -> None:
             XT = getattr(XT, "csr", XT)  # cells x peaks, binarised and scaled
             data.update(xt_data=XT.data.cpu().numpy(), xt_indices=XT.indices.cpu().numpy(),
                         xt_indptr=XT.indptr.cpu().numpy(), xt_shape=np.array(XT.shape))
+    if "t36" in sections:
+        from muon_tpu_torch import atac as tac
+        from muon_tpu_torch.atac import motifs as tmf
+        from muon_tpu_torch.ops import pwm as tpw
+
+        with tempfile.TemporaryDirectory() as tmp:
+            names, _, parsed = cs.make_motif_data(tmf, tpw, f"{tmp}/genome.fa")
+            seqs = tac.tl.get_sequences(cs.PeakHolder(names), None,
+                                        fasta_file=f"{tmp}/genome.fa")
+        lo, off, width = tpw.pack_motifs(parsed["matrices"])
+        thr = tpw.threshold_f32([tpw.threshold_from_p(m, pvalue=cs.MOTIF_P)
+                                 for m in parsed["matrices"]])
+        data.update(motif_codes=tpw.encode_sequences(seqs), motif_lo=lo, motif_off=off,
+                    motif_width=width, motif_thr=thr)
+    if "t18" in sections:
+        from muon_tpu_torch import atac as tac
+        from muon_tpu_torch.ops import sparse as dsp
+
+        X_rna, X_atac, *_ = cs.make_e2e_counts(cs.SEED)
+        h = cs.Holder(X_atac)
+        tac.pp.tfidf(h, device=cuda)
+        for name, X in (("svi_rna", cs.normalise(dsp, X_rna, cuda)), ("svi_atac", h.X)):
+            data[name] = cs.topvar_dense(dsp, X, cuda, cs.MOFA_COLS).cpu().numpy()
     np.savez(f"{out}/inputs.npz", **data)
 
 
@@ -331,12 +365,99 @@ def run_t3(tsp, inp, res, times, cuda) -> None:
             event_times(fn, 5))
 
 
+def run_t36(tpw, profiling, inp, res, times, cuda) -> None:
+    """T36 at the [motifs] path's call: the hits and counts' digests, the
+    call's time at 100,000 and 10,000 peaks, its two stages, and F.conv1d's
+    scores at 10,000 peaks."""
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    codes = to(inp["motif_codes"])
+    lo, off, width, thr = (to(inp[f"motif_{k}"]) for k in ("lo", "off", "width", "thr"))
+    n, M = codes.shape[0], len(off)
+    kw = {}
+    if "screen" in inspect.signature(tpw.pwm_scan_hits).parameters:
+        t0 = time.perf_counter()
+        host = tpw.pack_screen(*(inp[f"motif_{k}"] for k in ("lo", "off", "width", "thr")))
+        times["T36 screen packed on the host, ms"] = 1e3 * (time.perf_counter() - t0)
+        kw["screen"] = host.to(cuda)
+        times["T36 screen margins min/median/max"] = [
+            float(host.margin.min()), float(np.median(host.margin)), float(host.margin.max())]
+        cand = torch.zeros(1, dtype=torch.int64, device=cuda)
+        tpw.pwm_scan_hits(codes, lo, off, width, thr, candidates=cand, **kw)
+        times["T36 candidates of the count pass"] = int(cand.item())
+    fn = lambda c=codes: tpw.pwm_scan_hits(c, lo, off, width, thr, **kw)  # noqa: E731
+    hits = fn()
+    res["t36_hits_sha256"] = np.array(digest(*hits))
+    counts = torch.bincount(hits[0].long() * M + hits[1].long(), minlength=n * M)
+    res["t36_counts_sha256"] = np.array(digest(counts.int()))
+    res["t36_n_hits"] = np.array(len(hits[0]))
+    del hits, counts
+    times["T36 ms, 100,000 x 500 bp x 746 (count + write)"] = spread(event_times(fn, 5))
+    stages = {"motifs/count": [], "motifs/write": []}
+    for _ in range(5):
+        with profiling.collect() as t:
+            fn()
+        for k in stages:
+            stages[k].append(1e3 * t[k][0])
+    for k, v in stages.items():
+        times[f"T36 stage {k} ms (host clock, synchronised), 100,000 peaks"] = spread(v)
+    c10 = codes[:10_000].contiguous()
+    times["T36 ms, 10,000 x 500 bp x 746 (count + write)"] = spread(
+        event_times(lambda: fn(c10), 5))
+    onehot = torch.zeros((*c10.shape, 4), device=cuda)
+    onehot.scatter_(2, c10.clamp(max=3).long().unsqueeze(2), (c10 < 4).float().unsqueeze(2))
+    onehot = onehot.permute(0, 2, 1).contiguous()
+    groups = {}
+    for m, w in enumerate(width.tolist()):
+        groups.setdefault(w, []).append(m)
+    weights = [lo[off[midx].long().unsqueeze(1) + torch.arange(w, device=cuda)]
+               .permute(0, 2, 1).contiguous() for w, midx in groups.items()]
+
+    def conv_scores():
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for W in weights:
+                torch.nn.functional.conv1d(onehot, W)
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+
+    times["F.conv1d scores ms, 10,000 x 500 bp x 746 (18 widths, TF32 off)"] = spread(
+        event_times(conv_scores, 5))
+    del onehot, weights
+    torch.cuda.empty_cache()
+
+
+def run_svi(tm, inp, res, times, cuda) -> None:
+    """The e2e's SVI at 100,000 cells: 100 iterations of 50,000 cells,
+    three walls, and the fit's outputs."""
+    views = [torch.from_numpy(inp[k]).to(cuda) for k in ("svi_rna", "svi_atac")]  # as the smoke
+    cfg = tm.MOFAConfig(n_factors=cs.MOFA_K, likelihoods=("gaussian", "gaussian"))
+    kw = dict(n_iterations=cs.MOFA_ITERS, min_iterations=20, svi_mode=True,
+              svi_batch_fraction=min(cs.MOFA_BATCH / cs.N_CELLS, 1.0), elbo_every=5,
+              device=cuda)
+    tm.fit_mofa(views, cfg, **{**kw, "n_iterations": 2})  # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = tm.fit_mofa(views, cfg, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    times["[mofa-e2e] SVI 100 iterations at 100k, walls s"] = walls
+    times["[mofa-e2e] SVI ms an iteration (median wall)"] = 1e3 * float(np.median(walls)) / \
+        cs.MOFA_ITERS
+    res.update(svi_Z=fit.Z, svi_W0=fit.W[0], svi_W1=fit.W[1], svi_tau0=fit.tau[0],
+               svi_tau1=fit.tau[1], svi_elbo=fit.elbo_history)
+
+
 def run(root: str, tag: str, out: str, sections, cuda) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import muon_tpu_torch
     from muon_tpu_torch import pp as tpp
     from muon_tpu_torch.models import mofa as tm
-    from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, sparse as tsp, wnn as tw
+    from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, pwm as tpw, sparse as tsp
+    from muon_tpu_torch.ops import wnn as tw
+    from muon_tpu_torch.utils import profiling
 
     if not muon_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {muon_tpu_torch.__file__}, not the tree at {root}")
@@ -360,7 +481,7 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
             if key == "2k":
                 times["T9 ms, 2,000 x 256 (global)"] = event_ms(lambda: tw.wnn_bandwidth(*args), 3)
 
-    if "mofa" in sections:
+    if "mofa" in sections or "t18" in sections:
         _, Ys = cs.mofa_bench_views(cs.SEED)
         cfg = tm.MOFAConfig(n_factors=cs.MOFA_K, likelihoods=("gaussian", "gaussian"))
         kw = dict(convergence_mode="slow", elbo_every=1000, device=cuda)
@@ -422,6 +543,10 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         run_split(tsp, inp, res, times, cuda)
     if "t3" in sections:
         run_t3(tsp, inp, res, times, cuda)
+    if "t36" in sections:
+        run_t36(tpw, profiling, inp, res, times, cuda)
+    if "t18" in sections:
+        run_svi(tm, inp, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)

@@ -8,6 +8,9 @@
 //   T20 mofa_rank1_update  <- the rank-1 corrections of E in w_body and z_body
 //   mofa_rank1_col_dot     <- a factor's correction in w_body and the next
 //                             factor's zk @ E (T20 then T17, one pass)
+//   mofa_col_dot_posterior, mofa_rank1_col_dot_posterior
+//                          <- T17 and mofa_rank1_col_dot with T18's posterior
+//                             of the factor just summed in their finish
 //   mofa_rank1_row_dot     <- a factor's correction in z_body and the next
 //                             factor's Es[m] @ tsw (T20 then T19, one pass)
 //   T23 mofa_bound_refresh <- the bernoulli / poisson bound refresh at the start of
@@ -33,8 +36,16 @@
 // since the reduction reads exactly the entries the correction has just
 // written. A sweep's first factor starts with T17 or T19 alone and its last
 // ends with T20 alone: per factor and view 4 passes over E where one kernel
-// a pass took 6. The posterior between them (T18, or the factors' in
-// torch) needs the whole reduction, so it stays a launch of its own.
+// a pass took 6. The posterior between them needs the whole reduction:
+// the factors' runs in torch; T18 is elementwise over the columns of u, so
+// where no sum over cells of other devices stands between (one device, or
+// a mesh whose cells axis is 1) the last block of each strip of T17 or
+// mofa_rank1_col_dot, which holds the strip's finished u, computes it there
+// (the _posterior variants), through the same device function as T18's
+// own kernel, so every value has T18's bits; T18 stays a launch of its own
+// where u is all-reduced over cells first. The variants write delta into a
+// buffer of their own, since the pass still reads the previous factor's
+// (the sweep ping-pongs two).
 //
 // Bound: all are bound by bytes. T17 and T19 read E once (T19 also B where
 // masked), T20 and the fused passes read and write E once (and read B), T18
@@ -116,6 +127,62 @@ constexpr int kCdUnroll = 8;
 constexpr int kCdChunk = 32;  // tiles a finish step stages
 constexpr int kCdSlots = 132 * 4;  // blocks resident at once: 4 on each of 132 SMs
 
+// T18's operands: column k of one view's weights. alpha, ln_alpha,
+// theta_ln and theta_ln1m point at the (view, factor) entry; z2 and zz are
+// strided (0: one value); scaled selects the stochastic form with scale.
+struct WPost {
+  const float* tau;
+  const float* z2;
+  int64_t z2_stride;
+  const float* zz;
+  int64_t zz_stride;
+  const float* alpha;
+  const float* ln_alpha;
+  const float* theta_ln;
+  const float* theta_ln1m;
+  float scale;
+  int scaled;
+  int spikeslab;
+  int K;
+  int k;
+  float* W_hat;
+  float* W_var;
+  float* S;
+  float* SW;
+  float* delta;
+};
+
+// T18 for feature c from its u: the one body of T18's kernel and of the
+// _posterior finishes, so every operation rounds the same way in each
+__device__ __forceinline__ void w_posterior_column(const WPost& p, int c, float uc) {
+  const int64_t at = (int64_t)c * p.K + p.k;
+  const float t = p.tau[c];
+  const float sw_old = p.SW[at];
+  const float a = __fadd_rn(__fmul_rn(t, p.z2[(int64_t)c * p.z2_stride]), p.alpha[0]);
+  const float zzc = p.zz[(int64_t)c * p.zz_stride];
+  // full batch: tau (u + sw zz); stochastic: tau scale u + tau sw zz, with
+  // zz (and z2) already scaled by the caller, as the reference writes them
+  const float b = p.scaled
+      ? __fadd_rn(__fmul_rn(__fmul_rn(t, p.scale), uc), __fmul_rn(__fmul_rn(t, sw_old), zzc))
+      : __fmul_rn(t, __fadd_rn(uc, __fmul_rn(sw_old, zzc)));
+  const float w = __fdiv_rn(b, a);
+  const float v = __fdiv_rn(1.f, a);
+  float s = 1.f;
+  if (p.spikeslab) {
+    float lam = __fsub_rn(p.theta_ln[0], p.theta_ln1m[0]);
+    lam = __fadd_rn(lam, __fmul_rn(0.5f, p.ln_alpha[0]));
+    lam = __fsub_rn(lam, __fmul_rn(0.5f, logf(a)));
+    lam = __fadd_rn(lam, __fdiv_rn(__fmul_rn(__fmul_rn(0.5f, b), b), a));
+    s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-lam)));
+  }
+  const float sw_new = __fmul_rn(s, w);
+  p.W_hat[at] = w;
+  p.W_var[at] = v;
+  p.S[at] = s;
+  p.SW[at] = sw_new;
+  p.delta[c] = __fsub_rn(sw_old, sw_new);
+}
+
 // the first column of thread x's group in strip s, or -1 past the strip
 template <int V>
 __device__ __forceinline__ int col_dot_column(int s, int strips, int d, int x) {
@@ -154,11 +221,11 @@ __device__ __forceinline__ void col_dot_stage(const float* partial, int t0, int 
   }
 }
 
-template <int V>
+template <int V, bool POST>
 __device__ __forceinline__ void col_dot_finish(const float* partial, int tiles, int d,
                                                int strip, int strips,
                                                float (*buf)[kCdCols * 4],
-                                               float* __restrict__ u) {
+                                               float* __restrict__ u, const WPost& post) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kCdCols + tx;
   const int c = col_dot_column<V>(strip, strips, d, tx);
@@ -183,14 +250,17 @@ __device__ __forceinline__ void col_dot_finish(const float* partial, int tiles, 
   }
   if (ty == 0 && c >= 0)
 #pragma unroll
-    for (int v = 0; v < V; ++v) u[c + v] = s[v];
+    for (int v = 0; v < V; ++v) {
+      u[c + v] = s[v];
+      if constexpr (POST) w_posterior_column(post, c + v, s[v]);
+    }
 }
 
-template <int V>
+template <int V, bool POST>
 __global__ void __launch_bounds__(kCdCols * kCdLanes, 4)
 col_dot_kernel(const float* __restrict__ E, const float* __restrict__ z, int64_t z_stride,
                int n, int d, int tiles_per_block, float* partial, unsigned* __restrict__ done,
-               float* __restrict__ u) {
+               float* __restrict__ u, const WPost post) {
   __shared__ float buf[kCdChunk][kCdCols * 4];
   __shared__ bool last;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -262,7 +332,7 @@ col_dot_kernel(const float* __restrict__ E, const float* __restrict__ z, int64_t
   }
   __syncthreads();
   if (!last) return;
-  col_dot_finish<V>(partial, tiles, d, blockIdx.y, gridDim.y, buf, u);
+  col_dot_finish<V, POST>(partial, tiles, d, blockIdx.y, gridDim.y, buf, u, post);
   if (ty == 0 && tx == 0) done[blockIdx.y] = 0u;  // ready for the next call
 }
 
@@ -285,13 +355,13 @@ col_dot_kernel(const float* __restrict__ E, const float* __restrict__ z, int64_t
 constexpr int kCsUnroll = 16;
 constexpr int kCsSlots = 132 * 8;  // one-warp blocks resident at once (registers)
 
-template <int V, bool MASK>
+template <int V, bool MASK, bool POST>
 __global__ void __launch_bounds__(kWarp)
 rank1_col_dot_kernel(float* __restrict__ E, const float* __restrict__ x, int64_t x_stride,
                      const float* __restrict__ y, int64_t y_stride,
                      const float* __restrict__ B, const float* __restrict__ z,
                      int64_t z_stride, int n, int d, int tiles_per_block, float* partial,
-                     unsigned* __restrict__ done, float* __restrict__ u) {
+                     unsigned* __restrict__ done, float* __restrict__ u, const WPost post) {
   constexpr int U = kCsUnroll;
   __shared__ bool last;
   const int lane = threadIdx.x;
@@ -402,50 +472,18 @@ rank1_col_dot_kernel(float* __restrict__ E, const float* __restrict__ x, int64_t
   }
   if (c >= 0)
 #pragma unroll
-    for (int v = 0; v < V; ++v) u[c + v] = s[v];
+    for (int v = 0; v < V; ++v) {
+      u[c + v] = s[v];
+      if constexpr (POST) w_posterior_column(post, c + v, s[v]);
+    }
   if (lane == 0) done[blockIdx.y] = 0u;  // ready for the next call
 }
 
 // T18: the posterior of column k of one view's weights, a thread per feature
 __global__ void __launch_bounds__(kThreads)
-w_posterior_kernel(const float* __restrict__ u, const float* __restrict__ tau,
-                   const float* __restrict__ z2, int64_t z2_stride,
-                   const float* __restrict__ zz, int64_t zz_stride,
-                   const float* __restrict__ alpha, const float* __restrict__ ln_alpha,
-                   const float* __restrict__ theta_ln,
-                   const float* __restrict__ theta_ln1m, float scale, int scaled,
-                   int spikeslab, int d, int K, int k, float* __restrict__ W_hat,
-                   float* __restrict__ W_var, float* __restrict__ S,
-                   float* __restrict__ SW, float* __restrict__ delta) {
+w_posterior_kernel(const float* __restrict__ u, int d, const WPost post) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= d) return;
-  const int64_t at = (int64_t)c * K + k;
-  const float t = tau[c];
-  const float sw_old = SW[at];
-  const float a = __fadd_rn(__fmul_rn(t, z2[(int64_t)c * z2_stride]), alpha[0]);
-  const float zzc = zz[(int64_t)c * zz_stride];
-  // full batch: tau (u + sw zz); stochastic: tau scale u + tau sw zz, with
-  // zz (and z2) already scaled by the caller, as the reference writes them
-  const float b = scaled
-      ? __fadd_rn(__fmul_rn(__fmul_rn(t, scale), u[c]),
-                  __fmul_rn(__fmul_rn(t, sw_old), zzc))
-      : __fmul_rn(t, __fadd_rn(u[c], __fmul_rn(sw_old, zzc)));
-  const float w = __fdiv_rn(b, a);
-  const float v = __fdiv_rn(1.f, a);
-  float s = 1.f;
-  if (spikeslab) {
-    float lam = __fsub_rn(theta_ln[0], theta_ln1m[0]);
-    lam = __fadd_rn(lam, __fmul_rn(0.5f, ln_alpha[0]));
-    lam = __fsub_rn(lam, __fmul_rn(0.5f, logf(a)));
-    lam = __fadd_rn(lam, __fdiv_rn(__fmul_rn(__fmul_rn(0.5f, b), b), a));
-    s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-lam)));
-  }
-  const float sw_new = __fmul_rn(s, w);
-  W_hat[at] = w;
-  W_var[at] = v;
-  S[at] = s;
-  SW[at] = sw_new;
-  delta[c] = __fsub_rn(sw_old, sw_new);
+  if (c < d) w_posterior_column(post, c, u[c]);
 }
 
 // T19, and T20 then T19 in one pass (UPD: mofa_rank1_row_dot). A warp per
@@ -698,11 +736,11 @@ bound_refresh_kernel(const float* __restrict__ Zm, const float* __restrict__ z2,
 
 // mofa_rank1_col_dot: V = 4 where the row length and the pointers allow
 // it; a run of tiles a block, so that the grid is about one wave.
-template <bool MASK>
+template <bool MASK, bool POST>
 cudaError_t launch_rank1_col_dot(float* E, const float* x, int64_t x_stride, const float* y,
                                  int64_t y_stride, const float* B, const float* z,
                                  int64_t z_stride, int n, int d, float* partial,
-                                 unsigned* done, float* u, cudaStream_t s) {
+                                 unsigned* done, float* u, const WPost& post, cudaStream_t s) {
   const bool vec4 = d % 4 == 0 && (uintptr_t)E % 16 == 0 && (!MASK || (uintptr_t)B % 16 == 0);
   const int V = vec4 ? 4 : 1;
   const int tiles = n > 0 ? (n + kCdTile - 1) / kCdTile : 1;
@@ -712,12 +750,63 @@ cudaError_t launch_rank1_col_dot(float* E, const float* x, int64_t x_stride, con
   const int per = (int)((tasks + kCsSlots - 1) / kCsSlots);
   const dim3 grid((tiles + per - 1) / per, strips);
   if (vec4)
-    rank1_col_dot_kernel<4, MASK><<<grid, kWarp, 0, s>>>(E, x, x_stride, y, y_stride, B, z,
-                                                         z_stride, n, d, per, partial, done, u);
+    rank1_col_dot_kernel<4, MASK, POST><<<grid, kWarp, 0, s>>>(
+        E, x, x_stride, y, y_stride, B, z, z_stride, n, d, per, partial, done, u, post);
   else
-    rank1_col_dot_kernel<1, MASK><<<grid, kWarp, 0, s>>>(E, x, x_stride, y, y_stride, B, z,
-                                                         z_stride, n, d, per, partial, done, u);
+    rank1_col_dot_kernel<1, MASK, POST><<<grid, kWarp, 0, s>>>(
+        E, x, x_stride, y, y_stride, B, z, z_stride, n, d, per, partial, done, u, post);
   return cudaGetLastError();
+}
+
+template <bool POST>
+cudaError_t launch_rank1_col_dot_any(float* E, const float* x, int64_t x_stride, const float* y,
+                                     int64_t y_stride, const float* B, const float* z,
+                                     int64_t z_stride, int n, int d, float* partial,
+                                     unsigned* done, float* u, const WPost& post,
+                                     cudaStream_t s) {
+  if (d <= 0) return cudaGetLastError();
+  if (z == nullptr) return cudaErrorInvalidValue;
+  return B == nullptr ? launch_rank1_col_dot<false, POST>(E, x, x_stride, y, y_stride, B, z,
+                                                          z_stride, n, d, partial, done, u,
+                                                          post, s)
+                      : launch_rank1_col_dot<true, POST>(E, x, x_stride, y, y_stride, B, z,
+                                                         z_stride, n, d, partial, done, u,
+                                                         post, s);
+}
+
+// T17 (and with POST its posterior variant): V = 4 where the row length
+// and E's base allow it; a run of tiles a block, so that the grid is about
+// one wave of kCdSlots.
+template <bool POST>
+cudaError_t launch_col_dot(const float* E, const float* z, int64_t z_stride, int n, int d,
+                           float* partial, unsigned* done, float* u, const WPost& post,
+                           cudaStream_t s) {
+  if (d <= 0) return cudaGetLastError();
+  const bool vec4 = d % 4 == 0 && (uintptr_t)E % 16 == 0;
+  const int V = vec4 ? 4 : 1;
+  const int tiles = n > 0 ? (n + kCdTile - 1) / kCdTile : 1;
+  const int strips = (d / V + kCdCols - 1) / kCdCols;
+  if (strips > 65535) return cudaErrorInvalidValue;
+  const int64_t tasks = (int64_t)tiles * strips;
+  const int per = (int)((tasks + kCdSlots - 1) / kCdSlots);
+  const dim3 grid((tiles + per - 1) / per, strips), block(kCdCols, kCdLanes);
+  if (vec4)
+    col_dot_kernel<4, POST><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u,
+                                                   post);
+  else
+    col_dot_kernel<1, POST><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u,
+                                                   post);
+  return cudaGetLastError();
+}
+
+WPost make_post(const float* tau, const float* z2, long long z2_stride, const float* zz,
+                long long zz_stride, const float* alpha, const float* ln_alpha,
+                const float* theta_ln, const float* theta_ln1m, float scale, int scaled,
+                int spikeslab, int K, int k, float* W_hat, float* W_var, float* S, float* SW,
+                float* delta) {
+  return WPost{tau,      z2,         z2_stride, zz,    zz_stride, alpha, ln_alpha,
+               theta_ln, theta_ln1m, scale,     scaled, spikeslab, K,     k,
+               W_hat,    W_var,      S,         SW,    delta};
 }
 
 // T19 and mofa_rank1_row_dot: the vectors staged where they fit
@@ -790,22 +879,26 @@ int mt_mofa_bound_refresh(const float* Zm, const float* z2, const float* SW,
 // zero; u (d) f32 out.
 int mt_mofa_col_dot(const float* E, const float* z, long long z_stride, int n, int d,
                     float* partial, unsigned* done, float* u, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 0) return (int)cudaGetLastError();
-  const bool vec4 = d % 4 == 0 && (uintptr_t)E % 16 == 0;
-  const int V = vec4 ? 4 : 1;
-  const int tiles = n > 0 ? (n + kCdTile - 1) / kCdTile : 1;
-  const int strips = (d / V + kCdCols - 1) / kCdCols;
-  if (strips > 65535) return (int)cudaErrorInvalidValue;
-  // a run of tiles a block, so that the grid is about one wave of kCdSlots
-  const int64_t tasks = (int64_t)tiles * strips;
-  const int per = (int)((tasks + kCdSlots - 1) / kCdSlots);
-  const dim3 grid((tiles + per - 1) / per, strips), block(kCdCols, kCdLanes);
-  if (vec4)
-    col_dot_kernel<4><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u);
-  else
-    col_dot_kernel<1><<<grid, block, 0, s>>>(E, z, z_stride, n, d, per, partial, done, u);
-  return (int)cudaGetLastError();
+  return (int)launch_col_dot<false>(E, z, z_stride, n, d, partial, done, u, WPost{},
+                                    (cudaStream_t)stream);
+}
+
+// T17's sum then T18 in its finish: the arguments of mt_mofa_col_dot (z not
+// null), then those of mt_mofa_w_posterior after u and d; delta must not
+// be an operand of the pass.
+int mt_mofa_col_dot_posterior(const float* E, const float* z, long long z_stride, int n, int d,
+                              float* partial, unsigned* done, float* u, const float* tau,
+                              const float* z2, long long z2_stride, const float* zz,
+                              long long zz_stride, const float* alpha, const float* ln_alpha,
+                              const float* theta_ln, const float* theta_ln1m, float scale,
+                              int scaled, int spikeslab, int K, int k, float* W_hat,
+                              float* W_var, float* S, float* SW, float* delta, void* stream) {
+  if (z == nullptr || k < 0 || k >= K) return (int)cudaErrorInvalidValue;
+  const WPost post = make_post(tau, z2, z2_stride, zz, zz_stride, alpha, ln_alpha, theta_ln,
+                               theta_ln1m, scale, scaled, spikeslab, K, k, W_hat, W_var, S, SW,
+                               delta);
+  return (int)launch_col_dot<true>(E, z, z_stride, n, d, partial, done, u, post,
+                                   (cudaStream_t)stream);
 }
 
 // T20 then T17 in one pass. E (n x d) f32, updated in place; x (n) and y (d)
@@ -815,13 +908,30 @@ int mt_mofa_rank1_col_dot(float* E, const float* x, long long x_stride, const fl
                           long long y_stride, const float* B, const float* z,
                           long long z_stride, int n, int d, float* partial, unsigned* done,
                           float* u, void* stream) {
-  if (d <= 0) return (int)cudaGetLastError();
-  if (z == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return B == nullptr ? (int)launch_rank1_col_dot<false>(E, x, x_stride, y, y_stride, B, z,
-                                                         z_stride, n, d, partial, done, u, s)
-                      : (int)launch_rank1_col_dot<true>(E, x, x_stride, y, y_stride, B, z,
-                                                        z_stride, n, d, partial, done, u, s);
+  return (int)launch_rank1_col_dot_any<false>(E, x, x_stride, y, y_stride, B, z, z_stride, n,
+                                              d, partial, done, u, WPost{},
+                                              (cudaStream_t)stream);
+}
+
+// T20 then T17, then T18 of the factor summed in the finish: the arguments
+// of mt_mofa_rank1_col_dot, then those of mt_mofa_w_posterior after u and
+// d; delta must not be y (the previous factor's, which the pass reads).
+int mt_mofa_rank1_col_dot_posterior(float* E, const float* x, long long x_stride, const float* y,
+                                    long long y_stride, const float* B, const float* z,
+                                    long long z_stride, int n, int d, float* partial,
+                                    unsigned* done, float* u, const float* tau, const float* z2,
+                                    long long z2_stride, const float* zz, long long zz_stride,
+                                    const float* alpha, const float* ln_alpha,
+                                    const float* theta_ln, const float* theta_ln1m, float scale,
+                                    int scaled, int spikeslab, int K, int k, float* W_hat,
+                                    float* W_var, float* S, float* SW, float* delta,
+                                    void* stream) {
+  if (k < 0 || k >= K || delta == y) return (int)cudaErrorInvalidValue;
+  const WPost post = make_post(tau, z2, z2_stride, zz, zz_stride, alpha, ln_alpha, theta_ln,
+                               theta_ln1m, scale, scaled, spikeslab, K, k, W_hat, W_var, S, SW,
+                               delta);
+  return (int)launch_rank1_col_dot_any<true>(E, x, x_stride, y, y_stride, B, z, z_stride, n, d,
+                                             partial, done, u, post, (cudaStream_t)stream);
 }
 
 // T18. u, tau (d) f32; z2 and zz (d) f32 with their strides (0: one value);
@@ -837,9 +947,10 @@ int mt_mofa_w_posterior(const float* u, const float* tau, const float* z2,
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 0) return (int)cudaGetLastError();
   if (k < 0 || k >= K) return (int)cudaErrorInvalidValue;
-  w_posterior_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      u, tau, z2, z2_stride, zz, zz_stride, alpha, ln_alpha, theta_ln, theta_ln1m, scale,
-      scaled, spikeslab, d, K, k, W_hat, W_var, S, SW, delta);
+  const WPost post = make_post(tau, z2, z2_stride, zz, zz_stride, alpha, ln_alpha, theta_ln,
+                               theta_ln1m, scale, scaled, spikeslab, K, k, W_hat, W_var, S, SW,
+                               delta);
+  w_posterior_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(u, d, post);
   return (int)cudaGetLastError();
 }
 

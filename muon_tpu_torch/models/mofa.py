@@ -89,11 +89,13 @@ class Reducer:
     over its features over the feat axis, ``all(t)`` over both. Without a
     mesh (and along an axis of one rank) each gives ``t`` itself, so the
     single-device sweep is the same code. ``feat_split`` says whether the
-    features are cut at all."""
+    features are cut at all, ``cells_whole`` whether the cells are not."""
 
     def __init__(self, mesh=None):
         self.mesh = mesh
         self.feat_split = mesh is not None and int(mesh.shape["feat"]) > 1
+        # a sum over cells is the rank's own: no mesh, or one cells coordinate
+        self.cells_whole = mesh is None or int(mesh.shape["cells"]) == 1
 
     def _sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         if self.mesh is None:
@@ -210,7 +212,11 @@ def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_
     ``w_body`` loop): E and the four weight tensors are updated in place.
     The sums over the cells go through ``red.cells``. Factor k's correction
     of E and factor k + 1's ``zk @ E`` are one pass (``rank1_col_dot``);
-    the first factor's sum and the last factor's correction stand alone."""
+    the first factor's sum and the last factor's correction stand alone.
+    Where the sum over cells is this rank's own (``red.cells_whole``), each
+    factor's posterior runs in the finish of the pass that sums its ``u``
+    (the ``_posterior`` variants); else ``u`` is all-reduced first and the
+    posterior is T18's launch."""
     K = config.n_factors
     if B is None:
         z2s, zzs = red.cells(torch.stack([z2.sum(dim=0), zz.sum(dim=0)]))  # (K,) each
@@ -218,6 +224,14 @@ def _w_sweep(config, m, E, B, Zm, z2, zz, tau, alpha, ln_alpha, theta_ln, theta_
         z2s, zzs = red.cells(torch.stack([z2.T @ B, zz.T @ B]))            # (K, D) each
     if scale is not None:
         z2s, zzs = z2s * scale, zzs * scale
+    if red.cells_whole:
+        post = ops.WPost(tau, z2s, zzs, alpha, ln_alpha, theta_ln, theta_ln1m, m, W_hat, W_var,
+                         S, SW, spikeslab=config.spikeslab_weights, scale=scale)
+        delta = ops.col_dot_posterior(E, Zm[:, 0], post, 0)
+        for k in range(1, K):
+            delta = ops.rank1_col_dot_posterior(E, Zm[:, k - 1], delta, B, Zm[:, k], post, k)
+        ops.rank1_update(E, Zm[:, K - 1], delta, B)
+        return
     u = ops.col_dot(E, Zm[:, 0])
     for k in range(K):
         zk = Zm[:, k]

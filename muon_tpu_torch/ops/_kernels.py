@@ -47,6 +47,8 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# T18's operands after u and d, then the stream, as the _posterior variants take them
+_W_POST = (_P, _P, _LL, _P, _LL, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)
 # C entry point -> argtypes (pointers and the stream as c_void_p, or ctypes
 # would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
@@ -81,6 +83,9 @@ _SIGNATURES = {
     "mt_mofa_rank1_col_dot": (_P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_rank1_row_dot": (_P, _P, _LL, _P, _LL, _P, _P, _LL, _P, _P, _LL, _I, _I, _P, _P,
                               _P, _P),
+    "mt_mofa_col_dot_posterior": (_P, _P, _LL, _I, _I, _P, _P, _P) + _W_POST,
+    "mt_mofa_rank1_col_dot_posterior": (_P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _P, _P,
+                                        _P) + _W_POST,
     "mt_gmm_background_means": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     "mt_umap_epoch_asym": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
@@ -99,7 +104,7 @@ _SIGNATURES = {
     "mt_tfidf_dense": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     "mt_l2norm_dense": (_P, _I, _I, _P, _P),
     "mt_pwm_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                    _P, _P, _I, _P),
+                    _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "mt_interval_pileup": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
     "mt_wire_decode": (_P, _I, _P, _I, _I, _LL, _P, _P, _P),
     "mt_binarize_values": (_P, _I, _P, _P),
@@ -158,6 +163,9 @@ KERNELS = {
     "umap_epoch_block": "mt_umap_epoch_block",
     "mofa_rank1_col_dot": "mt_mofa_rank1_col_dot",  # T20 then T17, one pass over E
     "mofa_rank1_row_dot": "mt_mofa_rank1_row_dot",  # T20 then T19, one pass over E
+    "mofa_col_dot_posterior": "mt_mofa_col_dot_posterior",  # T17, T18 in its finish
+    # T20 then T17, T18 in its finish
+    "mofa_rank1_col_dot_posterior": "mt_mofa_rank1_col_dot_posterior",
 }
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -8,6 +8,9 @@ and ``_make_svi_step``).
     rank1_update  T20  <- E + zk ⊗ δ and E + δ ⊗ swk (times B where masked)
     rank1_col_dot      <- T20 then T17 of the next factor, one pass over E
     rank1_row_dot      <- T20 then T19 of the next factor, one pass over E
+    col_dot_posterior, rank1_col_dot_posterior
+                       <- T17 and rank1_col_dot with T18 of the factor they
+                          sum in their finish (``WPost`` holds its operands)
     bound_refresh T23  <- the bernoulli / poisson bound refresh at the start of
                           a sweep: precisions T, residual E, SVI target
                           (csrc/mofa_kernels.cu)
@@ -19,7 +22,11 @@ kernels take each with its stride, so the sweeps slice and never copy.
 ``w_posterior`` writes column k of the four weight tensors and
 ``rank1_update`` (and the two fused passes) write E, all in place; the
 sweeps work on their own copies of the state. The fused passes give the
-bits of T20 then T17 or T19: the sweeps call them between two factors.
+bits of T20 then T17 or T19: the sweeps call them between two factors. The
+``_posterior`` variants give the bits of T17 or ``rank1_col_dot`` then T18
+(one device function is T18's body in both), and write δ into one of the
+two buffers of their ``WPost``, by the factor's parity, since the pass
+still reads the previous factor's δ.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
@@ -38,6 +45,8 @@ __all__ = [
     "col_dot", "col_dot_plain", "w_posterior", "w_posterior_plain",
     "row_dot", "row_dot_plain", "rank1_update", "rank1_update_plain",
     "rank1_col_dot", "rank1_col_dot_plain", "rank1_row_dot", "rank1_row_dot_plain",
+    "WPost", "col_dot_posterior", "col_dot_posterior_plain", "rank1_col_dot_posterior",
+    "rank1_col_dot_posterior_plain",
     "bound_refresh", "bound_refresh_plain",
 ]
 
@@ -202,6 +211,116 @@ def w_posterior_plain(
     S[:, k] = s
     SW[:, k] = sw_new
     return delta
+
+
+class WPost:
+    """T18's operands for the K factors of one view's weight sweep, checked
+    once: ``tau`` (D,); ``z2s``, ``zzs`` (K,) (an unmasked view: factor k's
+    value is broadcast) or (K, D); the (M, K) hyperparameters and the view
+    ``m``; the four (D, K) weight tensors, column k written in place; as
+    :func:`w_posterior` takes them a factor at a time. On the card it holds
+    the pointers and two δ buffers (D,), factor k's δ written into the one
+    of k's parity."""
+
+    def __init__(self, tau, z2s, zzs, alpha, ln_alpha, theta_ln, theta_ln1m, m: int,
+                 W_hat, W_var, S, SW, spikeslab: bool = True, scale: Optional[float] = None):
+        self.tau, self.z2s, self.zzs, self.m = tau, z2s, zzs, m
+        self.hyper = (alpha, ln_alpha, theta_ln, theta_ln1m)
+        self.W = (W_hat, W_var, S, SW)
+        self.spikeslab, self.scale = bool(spikeslab), scale
+        if not on_card(SW):
+            return
+        dev = SW.device
+        d, K = _matrix(SW, "SW", dev)
+        for name, t in (("W_hat", W_hat), ("W_var", W_var), ("S", S)):
+            _matrix(t, name, dev, (d, K))
+        tau_ptr, tau_stride = _vector(tau, d, "tau", dev)
+        if d > 1 and tau_stride != 1:
+            raise ValueError("tau must be contiguous")
+        per_k = []
+        for name, t in (("z2s", z2s), ("zzs", zzs)):
+            if t.device != dev or t.dtype != torch.float32 or t.dim() not in (1, 2) \
+                    or t.shape[0] != K or (t.dim() == 2 and t.shape[1] != d):
+                raise ValueError(f"{name} must be a float32 ({K},) or ({K}, {d}) tensor on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            per_k.append((t.data_ptr(), t.stride(0), t.stride(1) if t.dim() == 2 else 0))
+        M = alpha.shape[0] if alpha.dim() == 2 else -1
+        if not 0 <= m < M:
+            raise ValueError(f"view {m} outside the hyperparameters' {M} rows")
+        for name, t in zip(("alpha", "ln_alpha", "theta_ln", "theta_ln1m"), self.hyper):
+            _matrix(t, name, dev, (M, K))
+        self.d, self.K, self._per_k = d, K, per_k
+        self._head = tau_ptr
+        self._tail = (float(1.0 if scale is None else scale), int(scale is not None),
+                      int(self.spikeslab), K)
+        self._W = tuple(w.data_ptr() for w in self.W)
+        self.deltas = torch.empty((2, d), dtype=torch.float32, device=dev)
+
+    def args(self, k: int):
+        """The kernel's arguments after u and d for factor ``k``, and the δ
+        buffer they write."""
+        if not 0 <= k < self.K:
+            raise ValueError(f"factor {k} outside 0..{self.K - 1}")
+        (z2p, z2k, z2c), (zzp, zzk, zzc) = self._per_k
+        hyper = (t.data_ptr() + 4 * (self.m * self.K + k) for t in self.hyper)
+        delta = self.deltas[k % 2]
+        return (self._head, z2p + 4 * k * z2k, z2c, zzp + 4 * k * zzk, zzc, *hyper,
+                *self._tail, k, *self._W, delta.data_ptr()), delta
+
+    def plain(self, u: torch.Tensor, k: int) -> torch.Tensor:
+        """``w_posterior_plain`` of factor ``k`` from ``u``."""
+        return w_posterior_plain(u, self.tau, self.z2s[k], self.zzs[k], *self.hyper, self.m, k,
+                                 *self.W, self.spikeslab, self.scale)
+
+
+def col_dot_posterior(E: torch.Tensor, z: torch.Tensor, post: WPost, k: int) -> torch.Tensor:
+    """T17's ``u = z @ E`` with T18 of factor ``k`` in its finish: the bits
+    of ``col_dot`` then ``w_posterior``. Writes column k of the weights and
+    returns δ (on the card one of ``post``'s buffers)."""
+    if not on_card(E):
+        return col_dot_posterior_plain(E, z, post, k)
+    n, d = _matrix(E, "E", E.device)
+    if d != post.d:
+        raise ValueError(f"E has {d} columns where the weights have {post.d} rows")
+    z_ptr, z_stride = _vector(z, n, "z", E.device, broadcast_ok=True)
+    partial, done, u = _col_dot_scratch(E.device, n, d)
+    args, delta = post.args(k)
+    _kernels.launch("mofa_col_dot_posterior", E.device, E.data_ptr(), z_ptr, z_stride, n, d,
+                    partial.data_ptr(), done.data_ptr(), u.data_ptr(), *args)
+    return delta
+
+
+def col_dot_posterior_plain(E: torch.Tensor, z: torch.Tensor, post: WPost,
+                            k: int) -> torch.Tensor:
+    return post.plain(col_dot_plain(E, z), k)
+
+
+def rank1_col_dot_posterior(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                            B: Optional[torch.Tensor], z: torch.Tensor, post: WPost,
+                            k: int) -> torch.Tensor:
+    """``rank1_col_dot`` with T18 of factor ``k`` in its finish: E += x ⊗ y
+    (times B) in place, u = z @ E over the corrected E, then the posterior;
+    the bits of ``rank1_col_dot`` then ``w_posterior``. ``y`` is the previous
+    factor's δ; returns factor k's (on the card ``post``'s other buffer)."""
+    if not on_card(E):
+        return rank1_col_dot_posterior_plain(E, x, y, B, z, post, k)
+    (n, d), head = _rank1_args(E, x, y, B)
+    if d != post.d:
+        raise ValueError(f"E has {d} columns where the weights have {post.d} rows")
+    z_ptr, z_stride = _vector(z, n, "z", E.device, broadcast_ok=True)
+    partial, done, u = _col_dot_scratch(E.device, n, d)
+    args, delta = post.args(k)
+    if delta.data_ptr() == y.data_ptr():
+        raise ValueError(f"factor {k}'s δ buffer is y, which the pass reads")
+    _kernels.launch("mofa_rank1_col_dot_posterior", E.device, *head, z_ptr, z_stride, n, d,
+                    partial.data_ptr(), done.data_ptr(), u.data_ptr(), *args)
+    return delta
+
+
+def rank1_col_dot_posterior_plain(E: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                                  B: Optional[torch.Tensor], z: torch.Tensor, post: WPost,
+                                  k: int) -> torch.Tensor:
+    return post.plain(rank1_col_dot_plain(E, x, y, B, z), k)
 
 
 # ---------------------------------------------------------------------------

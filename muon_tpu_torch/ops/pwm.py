@@ -23,6 +23,16 @@ bit the reference's:
   lo[b,j]   = log((pfm[b,j] + pc·bg[b]) / ((Σ_b pfm[b,j] + pc) · bg[b]))
   threshold = min t with P_bg(score ≥ t) ≤ p   (exact DP distribution)
 
+The count and write passes screen on the tensor cores and decide by the
+float32 chain (csrc/motif_kernels.cu): :func:`pack_screen` rounds every
+motif's log-odds to fp16 in the fragment layout of ``mma.m16n8k16``, motifs
+sorted by width in groups of 16, and lowers each motif's threshold by a
+margin proven on the host (:func:`screen_margins`) to the screen's bar. A
+window whose screened score reaches the bar is rescored by the scores
+mode's chain (column order, from 0, float32 adds over the float32 rows);
+that chain alone decides, so the hits are those of the scores mode's
+scores thresholded at ``thr``.
+
 Each wrapper runs its plain version (``F.conv1d`` of the one-hot per width,
 the invalid mask, the comparison, ``nonzero`` and a sort) for tensors on the
 CPU; for CUDA tensors it launches T36 or raises.
@@ -31,7 +41,8 @@ CPU; for CUDA tensors it launches T36 or raises.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +58,10 @@ __all__ = [
     "threshold_f32",
     "encode_sequences",
     "pack_motifs",
+    "pack_screen",
+    "screen_margins",
+    "screen_scores_plain",
+    "Screen",
     "pwm_scan_hits",
     "pwm_scan_hits_plain",
     "pwm_scores",
@@ -155,11 +170,232 @@ def pack_motifs(log_odds: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray, np.
     return np.ascontiguousarray(lo), off, widths
 
 
+# T36's screen (csrc/motif_kernels.cu, whose header derives the margin): a
+# k-step of mma.m16n8k16 multiplies 16 = 4 motif columns x 4 bases, a group
+# is the 16 motifs of two n8 tiles
+_NT, _STEP_COLS, _LANES = 2, 4, 32
+_GROUP = 8 * _NT
+_TC_ROUND = 2.0 ** -20  # a k-step's result within this of its running magnitude (assumed)
+_CHAIN_ROUND = 2.0 ** -23  # one float32 add's error against a bound on its result, with room
+_SLACK = 2.0 ** -20  # the float64 sums of the margin, relative
+
+
+@dataclass
+class Screen:
+    """T36's screen of one packed motif set (:func:`pack_screen`): numpy
+    arrays on the host, tensors after :meth:`to` (the margins stay numpy).
+
+    frag        (steps, 32, 4) int32 bits: per group and k-step, each lane's
+                B fragments of the group's two n8 tiles (two fp16 pairs
+                each), the groups' steps in order
+    groups      (G, 2) int32: first step, k-steps
+    slot_motif  (16 G,) int32: the motif in each slot, by width; -1 pads
+    slot_thr    (16 G,) float32: the screen's bar, thr - margin rounded
+                down (+inf pads)
+    slot_width  (16 G,) int32: each slot's width (0 pads)
+    margin      (M,) float64: each motif's proven margin
+    steps       (G,) int64: each group's k-steps (host)
+    source      (lo, off, width, thr): the operands it was packed from, which
+                :func:`pwm_scan_hits` holds the operands it is given to
+    """
+
+    frag: object
+    groups: object
+    slot_motif: object
+    slot_thr: object
+    slot_width: object
+    margin: np.ndarray
+    steps: np.ndarray
+    source: tuple
+
+    def to(self, dev) -> "Screen":
+        def move(a):
+            return a if isinstance(a, torch.Tensor) and a.device == dev else \
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        tables = {f: move(getattr(self, f)) for f in _SCREEN_TABLES}
+        return replace(self, **tables, source=tuple(move(a) for a in self.source))
+
+
+_SCREEN_TABLES = ("frag", "groups", "slot_motif", "slot_thr", "slot_width")
+
+
+def _check_packed(off: np.ndarray, width: np.ndarray, rows: int) -> None:
+    packed = np.zeros_like(off)
+    packed[1:] = np.cumsum(width[:-1])
+    if (off != packed).any() or int(width.sum()) != rows or (width < 1).any():
+        raise ValueError("off and width must be the packed layout of lo (pack_motifs)")
+
+
+def screen_margins(lo: np.ndarray, off: np.ndarray, width: np.ndarray,
+                   steps: np.ndarray) -> np.ndarray:
+    """Each motif's margin, float64: how far T36's screened score of any of
+    its windows may lie from the float32 chain's (csrc/motif_kernels.cu
+    derives it). With e_j = max_b |lo_j,b - fp16(lo_j,b)| and the column
+    maxima |lo|_j of the fp16 and the float32 rows, summed over the motif's
+    w columns into E, M16 and M32, and the group's ``steps`` k-steps:
+
+        margin = (E + steps 2^-20 M16 + (w - 1) 2^-23 M32) (1 + 2^-20)
+
+    ``lo`` is the packed float32 table of :func:`pack_motifs`. Raises on a
+    log-odds that is not finite or that fp16 cannot hold."""
+    lo = np.asarray(lo, np.float32)
+    off, width = np.asarray(off, np.int64), np.asarray(width, np.int64)
+    _check_packed(off, width, len(lo))
+    if not np.isfinite(lo).all():
+        raise ValueError("T36's screen needs finite log-odds; a motif holds "
+                         f"{lo[~np.isfinite(lo)][0]}")
+    with np.errstate(over="ignore"):
+        lo16 = lo.astype(np.float16)
+    if not np.isfinite(lo16).all():
+        raise ValueError("T36's screen rounds the log-odds to fp16, whose range ends at "
+                         f"65504; a motif holds {lo[~np.isfinite(lo16)][0]}")
+    if not len(width):
+        return np.zeros(0)
+    l32, l16 = lo.astype(np.float64), lo16.astype(np.float64)
+    E = np.add.reduceat(np.abs(l32 - l16).max(axis=1), off)
+    M16 = np.add.reduceat(np.abs(l16).max(axis=1), off)
+    M32 = np.add.reduceat(np.abs(l32).max(axis=1), off)
+    return (E + np.asarray(steps) * _TC_ROUND * M16 + (width - 1) * _CHAIN_ROUND * M32) \
+        * (1.0 + _SLACK)
+
+
+def _below_f32(x: np.ndarray) -> np.ndarray:
+    """The greatest float32 below x, with room for x's own rounding."""
+    x = x - np.abs(x) * 2.0 ** -50
+    x32 = x.astype(np.float32)
+    low = x32.astype(np.float64) > x
+    x32[low] = np.nextafter(x32[low], np.float32(-np.inf))
+    return x32
+
+
+def pack_screen(lo: np.ndarray, off: np.ndarray, width: np.ndarray, thr: np.ndarray) -> Screen:
+    """T36's screen of the packed motifs ``lo``/``off``/``width`` (as
+    :func:`pack_motifs` makes them) and their float32 thresholds ``thr``:
+    the motifs sorted by width (stably) in groups of 16, each padded with
+    zero columns to its group's widest motif rounded up to 4 columns,
+    rounded to fp16 in the B-fragment layout of mma.m16n8k16 (for n8 tile h
+    of the group, lane l holds columns tig/2 and tig/2 + 2 of its k-step,
+    bases 2 (tig % 2) and the next, of slot 8 h + l / 4; tig = l % 4), and
+    each motif's bar thr - margin."""
+    lo = np.ascontiguousarray(lo, np.float32)
+    off, width = np.asarray(off, np.int64), np.asarray(width, np.int64)
+    thr = np.asarray(thr, np.float32)
+    M = len(width)
+    G = -(-M // _GROUP)
+    order = np.argsort(width, kind="stable")
+    slot_motif = np.full(G * _GROUP, -1, np.int32)
+    slot_motif[:M] = order
+    slot_width = np.zeros(G * _GROUP, np.int32)
+    slot_width[:M] = width[order]
+    wmax = slot_width.reshape(G, _GROUP).max(axis=1)
+    steps = -(-wmax // _STEP_COLS)
+    first = np.zeros(G, np.int64)
+    first[1:] = np.cumsum(steps[:-1])
+    m_steps = np.empty(M, np.int64)
+    m_steps[order] = np.repeat(steps, _GROUP)[:M]
+    margin = screen_margins(lo, off, width, m_steps)
+
+    # the fp16 table [step, column of the step, slot of the group, base]
+    tab = np.zeros((int(steps.sum()), _STEP_COLS, _GROUP, 4), np.float16)
+    w_sorted = width[order]
+    slot = np.repeat(np.arange(M), w_sorted)
+    col = np.arange(len(slot)) - np.repeat(np.cumsum(w_sorted) - w_sorted, w_sorted)
+    tab[first[slot // _GROUP] + col // _STEP_COLS, col % _STEP_COLS, slot % _GROUP] = \
+        lo[off[order][slot] + col]
+    lane = np.arange(_LANES)
+    gid, tig = lane // 4, lane % 4
+    bits = tab.view(np.uint16).astype(np.uint32)
+
+    def pair(cc, slot):  # (steps, 32): bases b0 (low half) and b0 + 1 of column cc
+        b0 = 2 * (tig % 2)
+        return bits[:, cc, slot, b0] | (bits[:, cc, slot, b0 + 1] << 16)
+
+    frag = np.stack([pair(cc, 8 * h + gid) for h in range(_NT)
+                     for cc in (tig // 2, tig // 2 + 2)], axis=-1).view(np.int32)
+    groups = np.stack([first, steps], axis=1).astype(np.int32)
+    slot_thr = np.full(G * _GROUP, np.inf, np.float32)
+    slot_thr[:M] = _below_f32(thr[order].astype(np.float64) - margin[order])
+    return Screen(frag, groups, slot_motif, slot_thr, slot_width, margin, steps,
+                  (lo, off.astype(np.int32), width.astype(np.int32), thr))
+
+
+def screen_scores_plain(codes: torch.Tensor, screen: Screen) -> torch.Tensor:
+    """The screen's scores without the tensor cores: the fp16 log-odds read
+    back out of ``screen.frag`` by the kernel's lane layout, times the
+    one-hot windows (a code of 4 a zero row, the sequence padded with such
+    rows), summed by ``torch.matmul`` in float32: (n, L, 16 G), every
+    position a window, in slot order (``screen.slot_motif``)."""
+    frag = np.asarray(screen.frag.cpu() if isinstance(screen.frag, torch.Tensor)
+                      else screen.frag).view(np.uint32)
+    groups = np.asarray(screen.groups.cpu() if isinstance(screen.groups, torch.Tensor)
+                        else screen.groups)
+    n, L = codes.shape
+    lane = np.arange(_LANES)
+    gid, tig = lane // 4, lane % 4
+    # B[step, k, slot]: k = 4 (column of the step) + base
+    B = np.zeros((len(frag), 16, _GROUP), np.float32)
+    for h in range(_NT):
+        for reg, k0 in ((0, 2 * tig), (1, 2 * tig + 8)):
+            for half in (0, 1):
+                v = ((frag[:, :, 2 * h + reg] >> (16 * half)) & 0xFFFF).astype(np.uint16)
+                B[:, k0 + half, 8 * h + gid] = v.view(np.float16)
+    max_cols = int(groups[:, 1].max()) * _STEP_COLS if len(groups) else 0
+    valid = codes < INVALID
+    onehot = torch.zeros((n, L + max_cols, 4), dtype=torch.float32)
+    onehot[:, :L].scatter_(2, codes.clamp(max=3).long().unsqueeze(2).cpu(),
+                           valid.unsqueeze(2).float().cpu())
+    out = torch.empty((n, L, len(groups) * _GROUP), dtype=torch.float32)
+    for g, (s0, steps) in enumerate(groups.tolist()):
+        cols = steps * _STEP_COLS
+        win = onehot.unfold(1, cols, 1)[:, :L]  # (n, L, 4, cols)
+        win = win.permute(0, 1, 3, 2).reshape(n, L, cols * 4)
+        Bg = torch.from_numpy(B[s0:s0 + steps].reshape(cols * 4, _GROUP))
+        out[:, :, g * _GROUP:(g + 1) * _GROUP] = win @ Bg
+    return out
+
+
 def _max_rows(dev: torch.device) -> int:
     """Log-odds rows (16 bytes a column) that fit the dynamic shared memory a
-    block of T36 may opt into on ``dev`` (227 KB on an H100; T36 has no
-    static shared memory)."""
+    block of T36's scores mode may opt into on ``dev`` (227 KB on an H100;
+    T36 has no static shared memory)."""
     return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin // 16
+
+
+# the screen's shared memory (screen_shm in the source): 512 bytes a k-step,
+# 8 + 16 x 20 a group, and 16 warps' queues of 256 candidates and unit
+# masks of 32 words
+_UNIT_WORDS = 32  # a sequence's bits of (group, strip) units with a hit
+_STEP_BYTES, _GROUP_BYTES = _LANES * 16, 8 + _GROUP * 20
+_WARP_BYTES = 16 * (256 + _UNIT_WORDS) * 4
+_MAX_GROUPS = 256
+
+
+def _max_screen_bytes(dev: torch.device) -> int:
+    """The dynamic shared memory a block of T36's screen may opt into on
+    ``dev``."""
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def _screen_chunks(screen: Screen, dev: torch.device) -> List[Tuple[int, int, int, int]]:
+    """Runs [g0, g1) of the screen's groups, at most 256, whose fragments
+    (k-steps [frag0, frag0 + steps)) and tables fit one block's shared
+    memory on ``dev``: (g0, g1, frag0, steps), one launch each."""
+    budget = _max_screen_bytes(dev) - _WARP_BYTES
+    out, g0, used, first = [], 0, 0, 0
+    for g, st in enumerate(screen.steps.tolist()):
+        need = st * _STEP_BYTES + _GROUP_BYTES
+        if need > budget:
+            raise ValueError(f"group {g} is {st} k-steps; T36's screen takes at most "
+                             f"{(budget - _GROUP_BYTES) // _STEP_BYTES}")
+        if g > g0 and (used + need > budget or g - g0 == _MAX_GROUPS):
+            out.append((g0, g, first, sum(screen.steps[g0:g].tolist())))
+            first += out[-1][3]
+            g0, used = g, 0
+        used += need
+    if len(screen.steps):
+        out.append((g0, len(screen.steps), first, int(screen.steps[g0:].sum())))
+    return out
 
 
 def _chunks(lo: torch.Tensor, off: torch.Tensor,
@@ -170,10 +406,7 @@ def _chunks(lo: torch.Tensor, off: torch.Tensor,
     be the packed layout of :func:`pack_motifs`."""
     max_rows = _max_rows(lo.device)
     w_np, off_np = width.cpu().numpy(), off.cpu().numpy()
-    packed = np.zeros_like(off_np)
-    packed[1:] = np.cumsum(w_np[:-1])
-    if (off_np != packed).any() or int(w_np.sum()) != lo.shape[0] or (w_np < 1).any():
-        raise ValueError("off and width must be the packed layout of lo (pack_motifs)")
+    _check_packed(off_np, w_np, lo.shape[0])
     out, m0, row0, rows = [], 0, 0, 0
     for m, w in enumerate(w_np.tolist()):
         if w > max_rows:
@@ -206,40 +439,81 @@ def _check_operands(codes, lo, off, width, thr=None) -> None:
                          "range of T36's counts")
 
 
-def _launch(mode, codes, lo, off, width, thr, chunk, counts=None, offsets=None,
-            hits=None, scores=None, P=0) -> None:
+def _scan_args(mode, codes, lo, off, width, thr, chunk=(0, 0, 0, 0), counts=None,
+               offsets=None, hits=None, scores=None, P=0, screen=None, groups=(0, 0, 0, 0),
+               candidates=None, units=None) -> tuple:
+    """The arguments of the C entry ``mt_pwm_scan`` but its stream:
+    ``chunk`` (m0, m1, row0, rows) in the scores mode, ``screen`` and
+    ``groups`` (g0, g1, frag0, steps) in the count and write modes."""
     n, L = codes.shape
-    null = 0
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     seq, mot, pos, sc = hits if hits is not None else (None,) * 4
-    _kernels.launch(
-        "pwm_scan", codes.device,
-        codes.data_ptr(), n, L, lo.data_ptr(), off.data_ptr(), width.data_ptr(),
-        null if thr is None else thr.data_ptr(), len(off), *chunk, mode,
-        null if counts is None else counts.data_ptr(),
-        null if offsets is None else offsets.data_ptr(),
-        *(null if t is None else t.data_ptr() for t in (seq, mot, pos, sc)),
-        null if scores is None else scores.data_ptr(), P,
-    )
+    tables = (None,) * 5 if screen is None else (getattr(screen, f) for f in _SCREEN_TABLES)
+    return (codes.data_ptr(), n, L, lo.data_ptr(), off.data_ptr(), width.data_ptr(), ptr(thr),
+            len(off), *chunk, mode, ptr(counts), ptr(offsets), ptr(seq), ptr(mot), ptr(pos),
+            ptr(sc), ptr(scores), P, *(ptr(t) for t in tables), *groups, ptr(candidates),
+            ptr(units))
+
+
+def _launch(mode, codes, *args, **kw) -> None:
+    """One T36 launch (:func:`_scan_args`)."""
+    _kernels.launch("pwm_scan", codes.device, *_scan_args(mode, codes, *args, **kw))
+
+
+def _check_screen(screen: Screen, lo, off, width, thr) -> Screen:
+    """``screen`` on the operands' device, or ValueError when it was packed
+    from other log-odds, layout or thresholds than these (bit for bit): its
+    fp16 rows and its bars are right for those alone."""
+    screen = screen.to(lo.device)
+    ops = (lo, off, width, thr)
+    if any(a.shape != b.shape or a.dtype != b.dtype for a, b in zip(screen.source, ops)):
+        raise ValueError("the screen was packed for operands of other shapes or types")
+    same = torch.ones((), dtype=torch.bool, device=lo.device)
+    for a, b in zip(screen.source, ops):
+        same &= (a.view(torch.int32) == b.view(torch.int32)).all()
+    if not bool(same):
+        raise ValueError("the screen was packed from other log-odds or thresholds than "
+                         "the operands; pack_screen them")
+    return screen
 
 
 def pwm_scan_hits(codes: torch.Tensor, lo: torch.Tensor, off: torch.Tensor,
-                  width: torch.Tensor, thr: torch.Tensor):
+                  width: torch.Tensor, thr: torch.Tensor, screen: Optional[Screen] = None,
+                  candidates: Optional[torch.Tensor] = None):
     """T36: every window of ``codes`` (n, L) uint8 whose score under a motif
     of the packed ``lo``/``off``/``width`` reaches its float32 ``thr``, as
     (seq, motif, position) int32 and score float32 tensors in (sequence,
-    motif, position) order. A window with a code of 4 is no hit. Per chunk of
-    motifs two launches: the counts, then (after one exclusive scan of the
-    counts over all chunks) the hits."""
+    motif, position) order. A window with a code of 4 is no hit. ``screen``
+    is :func:`pack_screen` of the same operands, bit for bit (packed here
+    when not given; ValueError if it was packed from others, on the CPU
+    too). Per chunk of the screen's groups two launches: the counts, then
+    (after one exclusive scan of the counts over all chunks) the hits; both
+    screen on the tensor cores and decide by the scores mode's chain.
+    ``candidates``, a one-entry int64 tensor on the card, if given, gains
+    the number of windows the count pass's screen passed to the chain."""
     if not on_card(codes):
+        if screen is not None:
+            _check_screen(screen, lo, off, width, thr)
         return pwm_scan_hits_plain(codes, lo, off, width, thr)
     _check_operands(codes, lo, off, width, thr)
     n, M = codes.shape[0], len(off)
     dev = codes.device
-    chunks = _chunks(lo, off, width) if n else []  # no sequence: nothing launched
-    counts = torch.empty((n, M), dtype=torch.int32, device=dev)
+    if screen is None:
+        screen = pack_screen(*(t.cpu().numpy() for t in (lo, off, width, thr))).to(dev)
+    else:
+        screen = _check_screen(screen, lo, off, width, thr)
+    chunks = _screen_chunks(screen, dev) if n else []  # no sequence: nothing launched
+    counts = torch.zeros((n, M), dtype=torch.int32, device=dev)
+    # per chunk and sequence, the (group, strip) units with a hit (the write
+    # pass screens only those)
+    units = torch.zeros((len(chunks), n, _UNIT_WORDS), dtype=torch.int32, device=dev)
     with stage("motifs/count"):
-        for chunk in chunks:
-            _launch(_MODE_COUNT, codes, lo, off, width, thr, chunk, counts=counts)
+        for c, groups in enumerate(chunks):
+            _launch(_MODE_COUNT, codes, lo, off, width, thr, counts=counts, screen=screen,
+                    groups=groups, candidates=candidates, units=units[c])
         flat = counts.view(-1)
         ends = torch.cumsum(flat, 0, dtype=torch.int64)
         total = int(ends[-1].item()) if flat.numel() else 0
@@ -247,10 +521,11 @@ def pwm_scan_hits(codes: torch.Tensor, lo: torch.Tensor, off: torch.Tensor,
                  for t in (torch.int32, torch.int32, torch.int32, torch.float32))
     if total:
         with stage("motifs/write"):
-            starts = ends.sub_(flat)
-            for chunk in chunks:
-                _launch(_MODE_WRITE, codes, lo, off, width, thr, chunk, counts=counts,
-                        offsets=starts, hits=hits)
+            cursor = ends.sub_(flat)  # each pair's first place, moved to its end
+            for c, groups in enumerate(chunks):
+                _launch(_MODE_WRITE, codes, lo, off, width, thr, counts=counts,
+                        offsets=cursor, hits=hits, screen=screen, groups=groups,
+                        units=units[c])
     return hits
 
 
@@ -390,11 +665,19 @@ def find_hits(sequences: Sequence[str], log_odds: List[np.ndarray],
     if not any(np.shape(lo)[1] <= L for lo in log_odds):
         return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, np.float64))
+    packed = pack_motifs(log_odds)
+    thr_np = threshold_f32(thresholds)
+    screen = None
+    if dev.type == "cuda":
+        with stage("motifs/screen(host)"):
+            screen = pack_screen(*packed, thr_np)
     with stage("motifs/upload"):
         codes = _upload(codes_np, dev)
-        lo, off, width = _packed(log_odds, dev)
-        thr = torch.from_numpy(threshold_f32(thresholds)).to(dev)
-    seq, mot, pos, score = pwm_scan_hits(codes, lo, off, width, thr)
+        lo, off, width = (torch.from_numpy(a).to(dev) for a in packed)
+        thr = torch.from_numpy(thr_np).to(dev)
+        if screen is not None:
+            screen = screen.to(dev)
+    seq, mot, pos, score = pwm_scan_hits(codes, lo, off, width, thr, screen)
     with stage("motifs/download"):
         seq, mot, pos = (t.cpu().numpy().astype(np.int64) for t in (seq, mot, pos))
         score = score.cpu().numpy()

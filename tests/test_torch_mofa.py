@@ -221,6 +221,50 @@ def test_rank1_col_dot_plain_is_rank1_update_then_col_dot(masked, z_kind, d):
     assert torch.equal(fused, alone) and torch.equal(u, ref)
 
 
+def _post_operands(a, masked, rng, tensor=_t):
+    """T18's operands for the weights of view 1: tau, the factors' z2 and zz
+    sums ((K,) unmasked, (K, D) masked), the hyperparameters and four (D, K)
+    weight tensors."""
+    d, K = a["d"], a["K"]
+    z2 = np.abs(rng.normal(size=(K, d))).astype(np.float32) + 1.0
+    zz = (0.5 * z2).astype(np.float32)
+    if not masked:
+        z2, zz = z2.sum(axis=1), zz.sum(axis=1)
+    hyper = [tensor(h.copy()) for h in a["hyper"]]
+    hyper[0] = hyper[0].abs() + 0.5
+    W = [tensor(rng.normal(size=(d, K)).astype(np.float32)) for _ in range(3)]
+    return tensor(a["tau"]), tensor(z2), tensor(zz), hyper, W + [tensor(a["SW"].copy())]
+
+
+@pytest.mark.parametrize("spikeslab", [True, False], ids=["spikeslab", "dense"])
+@pytest.mark.parametrize("scale", [None, 2.5], ids=["full", "scaled"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("fused", [False, True], ids=["col_dot", "rank1_col_dot"])
+def test_posterior_variants_plain_are_the_sum_then_w_posterior(fused, masked, scale, spikeslab):
+    # each _posterior variant's plain twin: col_dot_plain (or rank1_col_dot_plain)
+    # then w_posterior_plain, the same bits in E, δ and the four weight tensors
+    a = _kernel_inputs(23, d=36)
+    rng = np.random.default_rng(24)
+    E, x, y, B, Z, _ = _fused_inputs(a, masked)
+    tau, z2s, zzs, hyper, W = _post_operands(a, masked, rng)
+    k, m = 2, 1
+    Wv, Wr = [w.clone() for w in W], [w.clone() for w in W]
+    Ev, Er = E.clone(), E.clone()
+    post = ops.WPost(tau, z2s, zzs, *hyper, m, *Wv, spikeslab=spikeslab, scale=scale)
+    if fused:
+        delta = ops.rank1_col_dot_posterior(Ev, x, y, B, Z[:, k], post, k)
+        u = ops.rank1_col_dot_plain(Er, x, y, B, Z[:, k])
+    else:
+        delta = ops.col_dot_posterior(Ev, Z[:, k], post, k)
+        u = ops.col_dot_plain(Er, Z[:, k])
+    ref = ops.w_posterior_plain(u, tau, z2s[k], zzs[k], *hyper, m, k, *Wr,
+                                spikeslab=spikeslab, scale=scale)
+    assert torch.equal(delta, ref) and torch.equal(Ev, Er)
+    for g, r in zip(Wv, Wr):
+        assert torch.equal(g, r)
+    assert not torch.equal(Wv[3], W[3])  # column k was written
+
+
 @pytest.mark.parametrize("d", [33, 36], ids=["d_33", "d_36"])
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 def test_rank1_row_dot_plain_is_rank1_update_then_row_dot(masked, d):
@@ -913,7 +957,10 @@ def test_gpu_step_equals_the_standalone_loops(cuda, case, monkeypatch):
     _kernels.reset_launch_counts()
     fused = run()
     counts = _kernels.launch_counts()
-    assert counts["mofa_rank1_col_dot"] == counts["mofa_rank1_row_dot"] == 2 * 2
+    # one device: each factor's posterior in the finish of the pass that sums it
+    assert counts["mofa_rank1_col_dot_posterior"] == counts["mofa_rank1_row_dot"] == 2 * 2
+    assert counts["mofa_col_dot_posterior"] == 2 and counts["mofa_w_posterior"] == 0
+    assert counts["mofa_rank1_col_dot"] == 0
     assert counts["mofa_rank1_update"] == 2 * 2 and counts["mofa_row_dot"] == 2
     monkeypatch.setattr(tm, "_w_sweep", _standalone_w_sweep)
     monkeypatch.setattr(tm, "_z_sweep", _standalone_z_sweep)
@@ -945,6 +992,66 @@ def test_gpu_w_posterior_matches_plain(cuda, spikeslab, scale):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spikeslab", [True, False], ids=["spikeslab", "dense"])
+@pytest.mark.parametrize("scale", [None, 20.0], ids=["full", "scaled"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("n, d", [(10000, 3000), (257, 33), (5000, 256)])
+def test_gpu_posterior_variants_equal_the_two_kernels(cuda, n, d, masked, scale, spikeslab):
+    # T17 (or mofa_rank1_col_dot) with T18 in its finish: the bits of the
+    # two launches it replaces, in E, u's posterior, δ and the weights
+    a = _kernel_inputs(25, n=n, d=d)
+    rng = np.random.default_rng(26)
+    to = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)  # noqa: E731
+    E, B, Z, SW = (to(a[key]) for key in ("E", "B", "Z", "SW"))
+    Bm = B if masked else None
+    tau, z2s, zzs, hyper, W = _post_operands(a, masked, rng, to)
+    k, m = 2, 1
+    for fused in (False, True):
+        Wv, Wr = [w.clone() for w in W], [w.clone() for w in W]
+        Ev, Er = E.clone(), E.clone()
+        post = ops.WPost(tau, z2s, zzs, *hyper, m, *Wv, spikeslab=spikeslab, scale=scale)
+        y = SW[:, 1].contiguous()  # the previous factor's δ
+        if fused:
+            delta = _launched("mofa_rank1_col_dot_posterior", lambda: ops.rank1_col_dot_posterior(
+                Ev, Z[:, 0], y, Bm, Z[:, k], post, k))
+            u = ops.rank1_col_dot(Er, Z[:, 0], y, Bm, Z[:, k])
+        else:
+            delta = _launched("mofa_col_dot_posterior",
+                              lambda: ops.col_dot_posterior(Ev, Z[:, k], post, k))
+            u = ops.col_dot(Er, Z[:, k])
+        ref = ops.w_posterior(u, tau, z2s[k], zzs[k], *hyper, m, k, *Wr, spikeslab=spikeslab,
+                              scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(delta, ref) and torch.equal(Ev, Er)
+        for g, r in zip(Wv, Wr):
+            assert torch.equal(g, r)
+        assert delta.data_ptr() == post.deltas[k % 2].data_ptr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("svi", [False, True], ids=["full_batch", "svi"])
+def test_gpu_fit_equals_the_standalone_sweeps(cuda, svi, monkeypatch):
+    # a short fit through the sweeps with T18 in the passes' finishes equals
+    # the same fit through one kernel a pass (T17, T18, T20 a factor), bit
+    # for bit in every output
+    _, Ys, _, groups, _ = _problem(N=2000, Ds=(300, 201), K=4, G=2, masked=True, seed=51)
+    cfg = tm.MOFAConfig(n_factors=4, seed=1)
+    kw = dict(groups=groups, n_iterations=5, min_iterations=5, elbo_every=1,
+              convergence_mode="slow", svi_mode=svi, device=cuda,
+              Z0=np.random.default_rng(78).normal(size=(2000, 4)).astype(np.float32))
+    _kernels.reset_launch_counts()
+    fused = tm.fit_mofa(Ys, cfg, **kw)
+    assert _kernels.launch_counts()["mofa_w_posterior"] == 0
+    monkeypatch.setattr(tm, "_w_sweep", _standalone_w_sweep)
+    monkeypatch.setattr(tm, "_z_sweep", _standalone_z_sweep)
+    alone = tm.fit_mofa(Ys, cfg, **kw)
+    for f in ("Z", "alpha", "theta", "elbo_history"):
+        assert np.array_equal(getattr(fused, f), getattr(alone, f)), f
+    for f in ("W", "S", "tau"):
+        assert all(np.array_equal(x, y) for x, y in zip(getattr(fused, f), getattr(alone, f))), f
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_refuse_bad_input(cuda):
     E, B, Z, SW = _card_inputs(cuda, 64, 20)
     with pytest.raises(ValueError):
@@ -963,8 +1070,9 @@ def test_gpu_wrappers_refuse_bad_input(cuda):
 @pytest.mark.parametrize("svi", [False, True], ids=["full_batch", "svi"])
 def test_gpu_fit_matches_cpu(cuda, svi):
     # the same fit through the kernels on the card and through the plain
-    # versions on the CPU; per sweep T17 2·M, T18 K·M, T19 M, T20 2·M and
-    # each fused pass (K − 1)·M
+    # versions on the CPU; per sweep T17 M (Σ E² for τ) and its posterior
+    # variant M, T18 none, T19 M, T20 2·M and each fused pass (K − 1)·M,
+    # mofa_rank1_col_dot as its posterior variant
     _, Ys, _, groups, _ = _problem(N=600, Ds=(120, 80), K=4, G=2, masked=True, seed=50)
     cfg = tm.MOFAConfig(n_factors=4, seed=1)
     kw = dict(groups=groups, n_iterations=10, min_iterations=10, elbo_every=1,
@@ -974,10 +1082,12 @@ def test_gpu_fit_matches_cpu(cuda, svi):
     gpu = tm.fit_mofa(Ys, cfg, device=cuda, Z0=_Z0_600, **kw)
     counts = _kernels.launch_counts()
     K, M, sweeps = 4, 2, 10
-    assert counts["mofa_col_dot"] == counts["mofa_rank1_update"] == sweeps * 2 * M
-    assert counts["mofa_w_posterior"] == sweeps * K * M
+    assert counts["mofa_rank1_update"] == sweeps * 2 * M
+    assert counts["mofa_col_dot"] == counts["mofa_col_dot_posterior"] == sweeps * M
+    assert counts["mofa_w_posterior"] == counts["mofa_rank1_col_dot"] == 0
     assert counts["mofa_row_dot"] == sweeps * M
-    assert counts["mofa_rank1_col_dot"] == counts["mofa_rank1_row_dot"] == sweeps * (K - 1) * M
+    assert (counts["mofa_rank1_col_dot_posterior"] == counts["mofa_rank1_row_dot"]
+            == sweeps * (K - 1) * M)
     np.testing.assert_allclose(gpu.elbo_history, cpu.elbo_history, rtol=1e-3)
     assert _canonical_correlations(gpu.Z, cpu.Z).min() > 0.99
 

@@ -430,6 +430,171 @@ def test_add_genes_peaks_groups_names_the_ports_annotation():
 
 
 # ---------------------------------------------------------------------------
+# T36's screen: the fp16 tables, their margins and the chunks (host)
+# ---------------------------------------------------------------------------
+
+
+def _chain_scores(codes, lo, off, width, slot_motif):
+    """The scores mode's chain on the host: for each slot's motif, every
+    window's float32 sum of its rows in column order from 0 (numpy float32
+    adds round as __fadd_rn), NaN where the window passes the end or holds a
+    code of 4: (n, L, slots)."""
+    codes = np.asarray(codes)
+    n, L = codes.shape
+    out = np.full((n, L, len(slot_motif)), np.nan, np.float32)
+    for w in np.unique(width):
+        slots = [i for i, m in enumerate(slot_motif) if m >= 0 and width[m] == w]
+        if not slots or w > L:
+            continue
+        T = np.stack([lo[off[slot_motif[i]]:off[slot_motif[i]] + w] for i in slots])  # (S, w, 4)
+        V = np.lib.stride_tricks.sliding_window_view(codes, w, axis=1)  # (n, P, w)
+        acc = np.zeros((n, L - w + 1, len(slots)), np.float32)
+        for j in range(w):
+            acc = acc + T[:, j, :].T[np.minimum(V[:, :, j], 3)]
+        acc[(V >= 4).any(axis=2)] = np.nan
+        out[:, :L - w + 1, slots] = acc
+    return out
+
+
+def _jaspar_all():
+    lo = tmotifs._parse_motif_matrices()["matrices"]
+    return lo, tpwm.pack_motifs(lo)
+
+
+@pytest.mark.parametrize("windows", ["random", "adversarial"])
+def test_screen_stays_within_its_margin_of_the_chain(windows):
+    # every one of the 746 JASPAR motifs: the screen's plain emulation (the
+    # fp16 log-odds read back from the fragments, float32 sums by a matmul,
+    # another order) lies within the host's margin of the chain on every
+    # valid window: random ones, and for each motif the window of each
+    # column's largest entry and the window of each column's smallest
+    log_odds, (lo, off, width) = _jaspar_all()
+    screen = tpwm.pack_screen(lo, off, width, np.zeros(len(width), np.float32))
+    rng = np.random.default_rng(11)
+    if windows == "random":
+        codes = rng.integers(0, 4, (24, 80)).astype(np.uint8)
+        codes[rng.random(codes.shape) < 0.02] = 4
+    else:
+        codes = np.zeros((2 * len(log_odds), 24), np.uint8)
+        for m, l in enumerate(log_odds):
+            codes[2 * m, :l.shape[1]] = l.argmax(axis=0)
+            codes[2 * m + 1, :l.shape[1]] = l.argmin(axis=0)
+    emul = tpwm.screen_scores_plain(torch.from_numpy(codes), screen).numpy()
+    chain = _chain_scores(codes, lo, off, width, screen.slot_motif)
+    real = screen.slot_motif >= 0
+    margin = np.zeros(len(real))
+    margin[real] = screen.margin[screen.slot_motif[real]]
+    valid = ~np.isnan(chain)
+    if windows == "adversarial":  # only window 0 of each motif's own two sequences
+        own = np.zeros_like(valid)
+        for i, m in enumerate(screen.slot_motif):
+            if m >= 0:
+                own[2 * m:2 * m + 2, 0, i] = True
+        valid &= own
+        assert valid.sum() == 2 * len(log_odds)
+    gap = np.abs(emul.astype(np.float64) - chain.astype(np.float64))
+    assert valid.sum() > 10_000 or windows == "adversarial"
+    assert (gap[valid] <= np.broadcast_to(margin, gap.shape)[valid]).all()
+    # the margin is no tuned constant: the fp16 term alone is most of it
+    assert 0.0 < screen.margin.min() and screen.margin.max() < 0.1
+
+
+def test_screen_is_exact_where_fp16_is():
+    # log-odds in eighths are fp16 and float32 values whose sums are exact:
+    # the emulated screen, read back through the fragment layout, is the
+    # chain to the bit, every width 1-37 (k-steps past the 8 in registers),
+    # in motifs sorted by width and padded with zero columns
+    rng = np.random.default_rng(12)
+    log_odds = [rng.integers(-40, 12, (4, w)) / 8.0 for w in rng.permutation(np.arange(1, 38))]
+    lo, off, width = tpwm.pack_motifs(log_odds)
+    screen = tpwm.pack_screen(lo, off, width, np.zeros(len(width), np.float32))
+    assert list(screen.slot_width[screen.slot_motif >= 0]) == sorted(width)
+    assert list(screen.steps) == [-(-int(w) // 4) for w in
+                                  screen.slot_width.reshape(-1, tpwm._GROUP).max(axis=1)]
+    codes = rng.integers(0, 4, (6, 90)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    emul = tpwm.screen_scores_plain(torch.from_numpy(codes), screen).numpy()
+    chain = _chain_scores(codes, lo, off, width, screen.slot_motif)
+    valid = ~np.isnan(chain)
+    assert valid.sum() > 5_000 and np.array_equal(emul[valid], chain[valid])
+    # pads score 0 and carry an unreachable bar
+    pads = screen.slot_motif < 0
+    assert (emul[:, :, pads] == 0).all() and np.isinf(screen.slot_thr[pads]).all()
+
+
+def test_screen_bar_lies_below_the_threshold_by_the_margin():
+    rng = np.random.default_rng(13)
+    log_odds = [tpwm.pfm_to_log_odds(rng.integers(0, 30, (4, w))) for w in (6, 9, 15, 24, 7)]
+    lo, off, width = tpwm.pack_motifs(log_odds)
+    thr = rng.normal(size=len(width)).astype(np.float32) * 5
+    screen = tpwm.pack_screen(lo, off, width, thr)
+    m = screen.slot_motif[screen.slot_motif >= 0]
+    bar = screen.slot_thr[screen.slot_motif >= 0]
+    assert screen.slot_thr.dtype == np.float32
+    assert (bar.astype(np.float64) <= thr[m].astype(np.float64) - screen.margin[m]).all()
+    assert (np.nextafter(bar, np.float32(np.inf)).astype(np.float64)
+            > thr[m].astype(np.float64) - screen.margin[m] * (1 + 1e-6)).all()
+
+
+@pytest.mark.parametrize("other", ["none", "thr", "thr_nan", "lo", "layout", "motifs"])
+def test_pwm_scan_hits_refuses_a_screen_of_other_operands(other):
+    # the screen's fp16 rows and bars hold only for the operands it was
+    # packed from: a screen of higher thresholds or other log-odds would
+    # drop hits, so pwm_scan_hits refuses it
+    rng = np.random.default_rng(14)
+    log_odds = [tpwm.pfm_to_log_odds(rng.integers(0, 30, (4, w))) for w in (6, 9, 15)]
+    seqs = _random_seqs(rng, 5, 20, 40)
+    codes, lo, off, width, thr = _operands(CPU, seqs, log_odds, [2.0, 3.0, 4.0])
+    packed = [t.numpy().copy() for t in (lo, off, width, thr)]
+    if other == "thr":
+        packed[3][1] = np.nextafter(packed[3][1], np.float32(np.inf))
+    elif other == "thr_nan":
+        packed[3][0] = np.nan
+    elif other == "lo":
+        packed[0][7, 2] = np.nextafter(packed[0][7, 2], np.float32(-np.inf))
+    elif other == "layout":
+        packed[1:3] = tpwm.pack_motifs([log_odds[0], log_odds[1][:, :8], log_odds[2]])[1:]
+        packed[0] = np.concatenate([packed[0][:14], packed[0][15:]])
+    elif other == "motifs":
+        packed = list(tpwm.pack_motifs(log_odds[:2])) + [packed[3][:2]]
+    screen = tpwm.pack_screen(*packed)
+    if other == "none":
+        got = tpwm.pwm_scan_hits(codes, lo, off, width, thr, screen)
+        _hits_agree(got, tpwm.pwm_scan_hits_plain(codes, lo, off, width, thr))
+        return
+    with pytest.raises(ValueError, match="screen was packed"):
+        tpwm.pwm_scan_hits(codes, lo, off, width, thr, screen)
+
+
+@pytest.mark.parametrize("bad", [np.inf, -np.inf, np.nan, 7.0e4, -6.6e4])
+def test_screen_margins_refuse_what_fp16_cannot_hold(bad):
+    lo, off, width = tpwm.pack_motifs([np.zeros((4, 5)), np.ones((4, 3))])
+    lo[6, 2] = bad
+    with pytest.raises(ValueError, match="finite|fp16"):
+        tpwm.screen_margins(lo, off, width, np.ones(2))
+    with pytest.raises(ValueError, match="finite|fp16"):
+        tpwm.pack_screen(lo, off, width, np.zeros(2, np.float32))
+
+
+@pytest.mark.parametrize("budget_steps", [None, 40, 9])
+def test_screen_chunks_cover_the_groups_within_shared_memory(budget_steps, monkeypatch):
+    _, (lo, off, width) = _jaspar_all()
+    screen = tpwm.pack_screen(lo, off, width, np.zeros(len(width), np.float32))
+    budget = 232_448 if budget_steps is None else \
+        tpwm._WARP_BYTES + budget_steps * (tpwm._STEP_BYTES + tpwm._GROUP_BYTES)
+    monkeypatch.setattr(tpwm, "_max_screen_bytes", lambda dev: budget)
+    chunks = tpwm._screen_chunks(screen, CPU)
+    assert chunks[0][0] == 0 and chunks[-1][1] == len(screen.steps)
+    first = np.concatenate([[0], np.cumsum(screen.steps)])
+    for (g0, g1, f0, st), nxt in zip(chunks, chunks[1:] + [None]):
+        assert 0 < g1 - g0 <= tpwm._MAX_GROUPS and f0 == first[g0]
+        assert st == first[g1] - first[g0]
+        assert tpwm._WARP_BYTES + st * tpwm._STEP_BYTES + (g1 - g0) * tpwm._GROUP_BYTES <= budget
+        assert nxt is None or nxt[0] == g1
+    assert (len(chunks) == 1) == (budget_steps is None)
+
+
+# ---------------------------------------------------------------------------
 # on the card: T36 against its plain version (skips without one)
 # ---------------------------------------------------------------------------
 
@@ -461,26 +626,131 @@ def _hits_agree(got, want):
     torch.testing.assert_close(got[3].cpu(), want[3].cpu(), rtol=1e-6, atol=1e-4)
 
 
+def _screen_budget(steps):
+    """Shared memory for a screen chunk of ``steps`` k-steps and as many
+    groups."""
+    return tpwm._WARP_BYTES + steps * (tpwm._STEP_BYTES + tpwm._GROUP_BYTES)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("max_rows", [None, 40])
-def test_gpu_pwm_scan_hits_match_plain(cuda, max_rows, monkeypatch):
-    if max_rows is not None:  # several chunks of motifs, each its own launches
-        monkeypatch.setattr(tpwm, "_max_rows", lambda dev: max_rows)
+@pytest.mark.parametrize("max_steps", [None, 12])
+def test_gpu_pwm_scan_hits_match_plain(cuda, max_steps, monkeypatch):
+    if max_steps is not None:  # several chunks of groups, each its own launches
+        monkeypatch.setattr(tpwm, "_max_screen_bytes", lambda dev: _screen_budget(max_steps))
     rng = np.random.default_rng(5)
     lo, thr = _jaspar()
     seqs = _plant(rng, _random_seqs(rng, 300, 1, 400), lo, thr, 200) + ["N" * 300]
     ops = _operands(cuda, seqs, lo, thr)
+    screen = tpwm.pack_screen(*(t.cpu().numpy() for t in ops[1:]))
     _kernels.reset_launch_counts()
-    got = tpwm.pwm_scan_hits(*ops)
+    got = tpwm.pwm_scan_hits(*ops, screen)
     torch.cuda.synchronize()
-    n_chunks = len(tpwm._chunks(*ops[1:4]))
-    assert _kernels.launch_counts()["pwm_scan"] == 2 * n_chunks
-    assert (max_rows is None) == (n_chunks == 1)
+    n_chunks = len(tpwm._screen_chunks(screen, cuda))
+    assert _kernels.launch_counts()["pwm_scan"] == 2 * n_chunks  # count and write a chunk
+    assert (max_steps is None) == (n_chunks == 1)
     want = tpwm.pwm_scan_hits_plain(*ops)
     assert len(got[0]) >= 200
     # the float32 sums of both sides hold the same terms; a flip needs a
     # window within an ulp of its threshold, which these data do not hold
     _hits_agree(got, want)
+
+
+def _scores_mode_hits(codes, log_odds, thr32):
+    """The hits of the scores mode's exact chain (mode 2, the parent's loop)
+    thresholded at ``thr32``, in (sequence, motif, position) order."""
+    dev = codes.device
+    M, L = len(log_odds), codes.shape[1]
+    parts = []
+    by_width = {}
+    for m, l in enumerate(log_odds):
+        by_width.setdefault(l.shape[1], []).append(m)
+    for w, midx in by_width.items():
+        if w > L:
+            continue
+        S = tpwm.pwm_scores(codes, *(torch.from_numpy(a).to(dev) for a in
+                                     tpwm.pack_motifs([log_odds[m] for m in midx])))
+        t = torch.from_numpy(thr32[midx]).to(dev)
+        si, pi, mi = ((S >= t) & (S > float("-inf"))).nonzero(as_tuple=True)  # -inf: no window
+        mm = torch.as_tensor(midx, device=dev)[mi]
+        parts.append((si, mm, pi, S[si, pi, mi]))
+    si, mi, pi, sc = (torch.cat(c) for c in zip(*parts))
+    order = torch.argsort((si.long() * M + mi) * L + pi)
+    return si[order].int(), mi[order].int(), pi[order].int(), sc[order]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", ["one_ulp", "p_1e-3"])
+def test_gpu_pwm_scan_hits_equal_the_scores_mode(cuda, edge):
+    # all 746 JASPAR motifs on planted and random sequences, some shorter
+    # than every motif, some with N: the screen's hits are those of the
+    # scores mode's chain thresholded at thr, bit for bit (scores included).
+    # "one_ulp": each motif's threshold set to one of its windows' exact
+    # scores, or one float32 step above or below it, so that window lies an
+    # ulp below, at, or an ulp above its threshold
+    rng = np.random.default_rng(8)
+    log_odds = tmotifs._parse_motif_matrices()["matrices"]
+    if edge == "p_1e-3":
+        thr = tpwm.threshold_f32([tpwm.threshold_from_p(m, pvalue=1e-3) for m in log_odds])
+    else:
+        thr = np.zeros(len(log_odds), np.float32)
+    seqs = _random_seqs(rng, 240, 30, 300, "ACGT") + _random_seqs(rng, 40, 1, 23) \
+        + ["ACGTN" * 40, "N" * 50]
+    seqs = _plant(rng, seqs, log_odds, np.full(len(log_odds), -np.inf), 300)
+    codes = torch.from_numpy(tpwm.encode_sequences(seqs)).to(cuda)
+    if edge == "one_ulp":
+        for w in sorted({l.shape[1] for l in log_odds}):
+            midx = [m for m, l in enumerate(log_odds) if l.shape[1] == w]
+            S = tpwm.pwm_scores(codes, *(torch.from_numpy(a).to(cuda) for a in
+                                         tpwm.pack_motifs([log_odds[m] for m in midx])))
+            top = torch.topk(S.reshape(-1, len(midx)), 6, dim=0).values[5].cpu().numpy()
+            for i, m in enumerate(midx):
+                thr[m] = np.nextafter(top[i], np.float32((m % 3 - 1) * np.inf)) \
+                    if m % 3 != 1 else top[i]
+    lo, off, width = (torch.from_numpy(a).to(cuda) for a in tpwm.pack_motifs(log_odds))
+    got = tpwm.pwm_scan_hits(codes, lo, off, width, torch.from_numpy(thr).to(cuda))
+    want = _scores_mode_hits(codes, log_odds, thr)
+    torch.cuda.synchronize()
+    assert len(want[0]) > 2_000
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wide", "long", "dense"])
+def test_gpu_pwm_scan_hits_screen_paths(cuda, case):
+    # the screen's less common paths, held to the scores mode's hits bit for
+    # bit: "wide" motifs of 30-45 columns (k-steps past the 8 in registers,
+    # built from the codes), "long" one sequence of 1.1M bases with runs of N
+    # (candidates queued past 2^20 positions from the queue's base), "dense"
+    # every window a hit (thresholds -inf: the queue fills and is decided
+    # many times a sequence)
+    rng = np.random.default_rng({"wide": 21, "long": 22, "dense": 23}[case])
+    if case == "wide":
+        log_odds = [tpwm.pfm_to_log_odds(rng.integers(0, 20, (4, w))
+                                         + (rng.random((4, w)) < 0.3) * 60)
+                    for w in rng.integers(30, 46, 20)]
+        thr = tpwm.threshold_f32([tpwm.threshold_from_p(m, pvalue=1e-2) for m in log_odds])
+        seqs = _plant(rng, _random_seqs(rng, 150, 200, 800, "ACGT" * 4 + "N"), log_odds, thr, 200)
+    else:
+        _, pfms = _subset()
+        log_odds = [tpwm.pfm_to_log_odds(p) for p in pfms]
+        if case == "long":
+            thr = tpwm.threshold_f32([tpwm.threshold_from_p(m, pvalue=1e-3) for m in log_odds])
+            bases = np.array(list("ACGT"))[rng.integers(0, 4, 1_100_000)]
+            for at in rng.integers(0, 1_090_000, 20):
+                bases[at:at + int(rng.integers(10, 5000))] = "N"
+            seqs = ["".join(bases), "ACGT" * 10]
+        else:
+            thr = np.full(len(log_odds), -np.inf, np.float32)
+            seqs = _random_seqs(rng, 30, 1, 120, "ACGTacgtN")
+    codes = torch.from_numpy(tpwm.encode_sequences(seqs)).to(cuda)
+    lo, off, width = (torch.from_numpy(a).to(cuda) for a in tpwm.pack_motifs(log_odds))
+    got = tpwm.pwm_scan_hits(codes, lo, off, width, torch.from_numpy(thr).to(cuda))
+    want = _scores_mode_hits(codes, log_odds, thr)
+    torch.cuda.synchronize()
+    assert len(want[0]) > 1_000
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
