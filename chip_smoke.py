@@ -244,15 +244,23 @@ is printed. An exception stops the run at once, with a code other than 0:
     features permuted (the same model, its feature sums in another order);
 32. ``[de]`` (after phase 25): ``tl.rank_genes_groups`` over the 20 planted
     labels on the normalised RNA, 100,000 × 20,000: t-test (T3 on the CSR),
-    wilcoxon (X dense on the card, sorted in blocks of 2684 columns, T26)
-    and logreg (200 Adam steps: T27, T28 and the products), then wilcoxon on
-    the TF-IDF ATAC, 100,000 × 25,000, each counted alone; the walls, the
-    stage split, peak memory, and every group's 50 best-ranked features
-    holding at least 80% of the features planted in it;
-33. ``[kernel] wilcoxon_rank_sums / logreg_softmax_grad / adam_update``: T26
-    on one sorted column block (the sort's time beside it), T27 and T28 on
-    one logreg step, against their plain versions (T28 also against
-    torch's fused Adam);
+    wilcoxon (T26 over the CSR of Xᵀ the moments built, one launch, never
+    densified) and logreg (200 Adam steps: T27, T28 and the products), then
+    wilcoxon on the TF-IDF ATAC, 100,000 × 25,000, then the RNA's wilcoxon
+    once more on X densified beforehand (the dense route: sorted in blocks
+    of 2684 columns, T26 each), each counted alone; the walls, the stage
+    split, peak memory, and every group's 50 best-ranked features holding
+    at least 80% of the features planted in it; the dense route's ``uns``
+    the sparse route's bits (the fold changes, from moments summed by T3
+    against ``torch.matmul``, within 1e-4);
+33. ``[kernel] wilcoxon_rank_sums_csc / wilcoxon_rank_sums / logreg_softmax_grad
+    / adam_update``: T26 over the CSR of Xᵀ on the whole normalised RNA and
+    TF-IDF ATAC (the column lengths, the capacity of shared memory; the
+    kernel's launch timed alone, the whole call with its plan beside it)
+    against its plain version and the dense route, bit for bit; T26 on one sorted
+    column block (the sort's time beside it), T27 and T28 on one logreg
+    step, against their plain versions (T28 also against torch's fused
+    Adam);
 34. ``[snf]``: the first 10,000 cells of the e2e's three modalities through
     their own paths to neighbors(20), then ``tl.snf`` (20 neighbours, 20
     iterations) counted alone: T29 and T31 per modality, T30 per modality
@@ -573,6 +581,7 @@ KERNEL_INFO = {
     "gp_rbf_kernel": (GP_SRC, "muon_tpu/models/mofa.py:604"),       # _rbf_kernel, _gp_kmat_fn
     "gp_kg_grad": (GP_SRC, "muon_tpu/models/mofa.py:636"),          # grad of _gp_group_fn
     "wilcoxon_rank_sums": (DE_SRC, "muon_tpu/_core/tools_de.py:175"),   # ranksum
+    "wilcoxon_rank_sums_csc": (DE_SRC, "muon_tpu/_core/tools_de.py:175"),  # ranksum, CSR of Xᵀ
     "logreg_softmax_grad": (DE_SRC, "muon_tpu/_core/tools_de.py:248"),  # fit: dlogits
     "adam_update": (DE_SRC, "muon_tpu/_core/tools_de.py:248"),          # fit: optax.adam
     "snf_affinity": (SNF_SRC, "muon_tpu/_core/tools_graph.py:78"),      # _affinity_matrix
@@ -630,18 +639,27 @@ UMAP_ASYM_PATH = {"umap_epoch_asym": N_EPOCHS, "umap_epoch": 0}
 # of the droplet split (T7) and the background fit (T21), once each
 DSB_PATH = {"clr_dense": 1, "csr_row_sums": 1, "gmm_background_means": 1}
 # [de]: tl.rank_genes_groups on the e2e's normalised RNA (and its TF-IDF ATAC
-# for wilcoxon): the moments through T3 twice; wilcoxon T26 once per column
-# block of 2684 (RANK_BLOCK_BYTES / 16 bytes a cell at 100,000 cells); logreg
-# T27 and T28 once per Adam step. Each group's 50 best-ranked features must
-# hold at least 80% of the features planted (boosted) in that group
+# for wilcoxon): the moments through T3 twice; wilcoxon on the sparse X T26
+# over the CSR of Xᵀ once, on X densified beforehand (the moments through
+# torch.matmul) T26 once per column block of 2684 (RANK_BLOCK_BYTES / 16
+# bytes a cell at 100,000 cells); logreg T27 and T28 once per Adam step.
+# Each group's 50 best-ranked features must hold at least 80% of the
+# features planted (boosted) in that group
 DE_TOP, DE_PLANTED, LOGREG_STEPS, DE_BLOCK = 50, 0.8, 200, 2684
 DE_MOMENTS = {"csr_spmm_t_f32": 2}
+DE_NO_RANKS = {"wilcoxon_rank_sums": 0, "wilcoxon_rank_sums_csc": 0}
 DE_PATHS = {
-    "t-test": {**DE_MOMENTS, "wilcoxon_rank_sums": 0, "logreg_softmax_grad": 0},
-    "wilcoxon": {**DE_MOMENTS, "wilcoxon_rank_sums": -(-N_GENES // DE_BLOCK)},
-    "logreg": {**DE_MOMENTS, "logreg_softmax_grad": LOGREG_STEPS, "adam_update": LOGREG_STEPS},
-    "wilcoxon ATAC": {**DE_MOMENTS, "wilcoxon_rank_sums": -(-N_PEAKS // DE_BLOCK)},
+    "t-test": {**DE_MOMENTS, **DE_NO_RANKS, "logreg_softmax_grad": 0},
+    "wilcoxon": {**DE_MOMENTS, **DE_NO_RANKS, "wilcoxon_rank_sums_csc": 1},
+    "logreg": {**DE_MOMENTS, **DE_NO_RANKS, "logreg_softmax_grad": LOGREG_STEPS,
+               "adam_update": LOGREG_STEPS},
+    "wilcoxon ATAC": {**DE_MOMENTS, **DE_NO_RANKS, "wilcoxon_rank_sums_csc": 1},
+    "wilcoxon dense": {"csr_spmm_t_f32": 0, **DE_NO_RANKS,
+                       "wilcoxon_rank_sums": -(-N_GENES // DE_BLOCK)},
 }
+# the dense route's fold changes against the sparse route's: the group means
+# come from float32 sums in another order (T3 against torch.matmul)
+DE_LFC_ATOL = 1e-4
 # [snf]: the first 10,000 cells of the e2e's three modalities (the size of the
 # 10x PBMC 10k multiome), tl.snf's defaults: T29 and T31 once per modality,
 # T30 once per modality, then once per modality and iteration, then once
@@ -942,6 +960,39 @@ def median_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def launch_ms(kernels, name: str, fn, reps: int = 5) -> float:
+    """Median device time of the launch of kernel ``name`` that ``fn`` makes
+    (one a call), over ``reps`` calls after one warm-up: CUDA events are
+    recorded around that launch alone, a spin queued before the start, so
+    what the wrapper does before it (host work, other launches) is not
+    timed."""
+    launch, events = kernels.launch, []
+
+    def timed(kernel, device, *args):
+        if kernel != name:
+            return launch(kernel, device, *args)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        launch(kernel, device, *args)
+        b.record()
+        events.append((a, b))
+
+    kernels.launch = timed
+    try:
+        fn()
+        torch.cuda.synchronize()
+        events.clear()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        kernels.launch = launch
+    if len(events) != reps:
+        raise RuntimeError(f"{name}: {len(events)} launches in {reps} calls")
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
 def nbytes(*tensors) -> int:
@@ -2256,6 +2307,18 @@ def phase_umap_big(ttl, tu, tk, tf, kernels, profiling, h, labels, cuda):
     return launches
 
 
+def t15_library(X, cent, block: int = 8192):
+    """T15's function by one PyTorch call a block of rows, timed only: the
+    argmin of ‖c‖² − 2·x·c from ``torch.addmm`` of the bfloat16 operands."""
+    csq = (cent * cent).sum(dim=1).bfloat16()
+    c16 = cent.bfloat16().T
+
+    def run():
+        for s in range(0, X.shape[0], block):
+            torch.argmin(torch.addmm(csq, X[s:s + block].bfloat16(), c16, alpha=-2.0), dim=1)
+    return run
+
+
 def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
     """T14-T16, and T13's epoch, against their plain versions at the 1M
     path's shapes."""
@@ -2274,10 +2337,13 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
               f"library_ms={lib if lib is None else round(lib, 3)}", flush=True)
         check(ok, f"{name} {shape} within {tol}")
 
-    # T15 on all rows with the partition's centroids
+    # T15 on all rows with the partition's centroids: the chain's bits, and
+    # the matmul plain version's on almost every row
     cent = torch.from_numpy(cent_np).to(cuda)
     got = ti.kmeans_assign(X, cent)
     torch.cuda.synchronize()
+    chain = ti.kmeans_assign_chain(X, cent)
+    same = torch.equal(got, chain)
     ref = ti.kmeans_assign_plain(X, cent)
     equal = float((got == ref).float().mean())
     rows = torch.nonzero(got != ref)[:, 0]
@@ -2288,12 +2354,16 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
     scale = csq[got[rows].long()] + csq[ref[rows].long()] + (X[rows].double() ** 2).sum(1)
     near = bool((gap[:, 0].abs() <= 1e-5 * scale).all())
     worst = float((gap[:, 0].abs() / scale).max()) if len(rows) else 0.0
+    print(f"[kernel] kmeans_assign: kmeans_assign_chain's bits on all {n} rows {same}",
+          flush=True)
     report("kmeans_assign", (n, d, C), worst,
-           f"equal on {equal:.6f} >= 0.999 of rows, the {len(rows)} others near-ties within "
-           f"1e-5 of their scale", equal >= 0.999 and near,
+           f"the chain's bits on every row; equal to the matmul plain version on {equal:.6f} "
+           f">= 0.999 of rows, the {len(rows)} others near-ties within 1e-5 of their scale",
+           same and equal >= 0.999 and near,
            median_ms(lambda: ti.kmeans_assign(X, cent)),
            median_ms(lambda: ti.kmeans_assign_plain(X, cent)),
-           bound(nbytes(X, cent, got), 2 * n * C * d, BF16_OPS_PER_S))
+           bound(nbytes(X, cent, got), 2 * n * C * d, BF16_OPS_PER_S),
+           library_ms(t15_library(X, cent)))
 
     # T14 on the first work items of the 1M layout, at the path's k and WNN's
     order, qids, ppos, pcnt, L = ti.build_ivf_layout(assign_np, cent_np, C, 8, 1024)
@@ -3967,10 +4037,11 @@ class DEHolder:
 
 
 def kernel_report(results, name, shape, err, tol, ok, k_fn, p_fn, bnd, lib_fn=None,
-                  plain_reps=3):
-    """Time a kernel and its plain version (and the library call, if any),
-    print the ``[kernel]`` line, record it under ``name`` and check it."""
-    ms, plain_ms = median_ms(k_fn), median_ms(p_fn, reps=plain_reps)
+                  plain_reps=3, timer=median_ms):
+    """Time a kernel (``timer`` of ``k_fn``) and its plain version (and the
+    library call, if any), print the ``[kernel]`` line, record it under
+    ``name`` and check it."""
+    ms, plain_ms = timer(k_fn), median_ms(p_fn, reps=plain_reps)
     lib = library_ms(lib_fn) if lib_fn is not None else None
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
                      "library_ms": lib}
@@ -3987,20 +4058,25 @@ def planted_shares(res, boost) -> np.ndarray:
                      for g in res["names"].dtype.names])
 
 
-def phase_de(ttl, tde, kernels, profiling, X_rna_norm, X_atac, labels, boosts, cuda):
+def phase_de(ttl, tde, dsp, kernels, profiling, X_rna_norm, X_atac, labels, boosts, cuda):
     """``[de]``: tl.rank_genes_groups over the 20 planted labels, each call
     counted alone: t-test (the moments through T3 on the sparse X), wilcoxon
-    and logreg (X densified on the card, 8 GB) on the normalised RNA, then
-    wilcoxon on the TF-IDF ATAC (the ranking ``atac.tl.rank_peaks_groups``
-    runs, 10 GB dense)."""
+    (T26 over the CSR of Xᵀ) and logreg (X densified on the card, 8 GB) on
+    the normalised RNA, then wilcoxon on the TF-IDF ATAC (the ranking
+    ``atac.tl.rank_peaks_groups`` runs), then the RNA's wilcoxon on X
+    densified beforehand: the dense route, whose ``uns`` must be the sparse
+    route's bits."""
     check(tde.RANK_BLOCK_BYTES // (16 * N_CELLS) == DE_BLOCK, "T26's column block is 2684")
-    by_path = {}
+    by_path, uns = {}, {}
     for method, X, boost, tag in (
         ("t-test", X_rna_norm, boosts["rna"], "de_ttest"),
         ("wilcoxon", X_rna_norm, boosts["rna"], "de_wilcoxon"),
         ("logreg", X_rna_norm, boosts["rna"], "de_logreg"),
         ("wilcoxon ATAC", X_atac, boosts["atac"], "de_atac"),
+        ("wilcoxon dense", None, boosts["rna"], "de_wilcoxon_dense"),
     ):
+        if X is None:  # the RNA dense on the card, made before the call and not counted
+            X = tde.dense_from_csr(dsp.from_scipy(X_rna_norm, cuda))
         h = DEHolder(X, labels)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4013,7 +4089,7 @@ def phase_de(ttl, tde, kernels, profiling, X_rna_norm, X_atac, labels, boosts, c
             wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
         by_path[tag] = launches
-        res = h.uns["rank_genes_groups"]
+        res = uns[tag] = h.uns["rank_genes_groups"]
         shares = planted_shares(res, boost)
         finite = all(np.isfinite(res["scores"][g]).all() for g in res["scores"].dtype.names)
         print(f"[de] {method} {X.shape[0]}x{X.shape[1]}: wall {wall:.4f}s; peak device memory "
@@ -4026,19 +4102,82 @@ def phase_de(ttl, tde, kernels, profiling, X_rna_norm, X_atac, labels, boosts, c
               "a field per group, finite scores")
         check(shares.min() >= DE_PLANTED, f"[de] {method}: every group's top {DE_TOP} hold "
               f">= {DE_PLANTED} planted features")
-        del h, res
+        if method.startswith("wilcoxon"):
+            check("de/densify" not in t and ("de/rank_sort" in t) == (method == "wilcoxon dense"),
+                  f"[de] {method}: no densify; torch.sort only on the dense route")
+        del h, res, X
+    sparse, dense = uns["de_wilcoxon"], uns["de_wilcoxon_dense"]
+    same = {f: all(np.array_equal(sparse[f][g], dense[f][g]) for g in sparse[f].dtype.names)
+            for f in ("names", "scores", "pvals", "pvals_adj", "logfoldchanges")}
+    lfc = max(float(np.abs(sparse["logfoldchanges"][g].astype(np.float64)
+                           - dense["logfoldchanges"][g]).max())
+              for g in sparse["names"].dtype.names) if same["names"] else float("inf")
+    print(f"[de] wilcoxon, the sparse route's uns against the dense route's: the same bits "
+          f"{same}; fold changes {lfc:.3e} apart ({DE_LFC_ATOL})", flush=True)
+    check(same["names"] and same["scores"] and same["pvals"] and same["pvals_adj"]
+          and lfc <= DE_LFC_ATOL, "[de] wilcoxon: the sparse and dense routes' uns")
     torch.cuda.empty_cache()
     return by_path
 
 
-def phase_de_kernels(tde, dsp, X_rna_norm, labels, cuda) -> dict:
-    """T26 on the first column block of the dense normalised RNA (sorted
+def phase_de_kernels(tde, dsp, X_rna_norm, X_atac, labels, cuda) -> dict:
+    """T26 over the CSR of Xᵀ on the whole normalised RNA and TF-IDF ATAC,
+    against its plain version and the dense route (torch.sort, T26), bit for
+    bit; T26 on the first column block of the dense normalised RNA (sorted
     once), T27 and T28 on one logreg step at the path's shapes, each against
     its plain version on the same inputs."""
     results = {}
     gen = torch.Generator(device=cuda).manual_seed(26)
-    X = tde.dense_from_csr(dsp.from_scipy(X_rna_norm, cuda))
     codes = torch.from_numpy(labels.astype(np.int32)).to(cuda)
+    cap = tde._kernels.library().mt_wilcoxon_csc_capacity(N_CLUSTERS)
+    for name, Xs in (("RNA", X_rna_norm), ("ATAC", X_atac)):
+        dX = dsp.from_scipy(Xs, cuda)
+        Xt = dsp.transpose(dX)
+        lens = (Xt.csr.indptr[1:] - Xt.csr.indptr[:-1]).cpu().numpy()
+        rs, tie = tde.wilcoxon_rank_sums_csc(Xt, codes, N_CLUSTERS)
+        torch.cuda.synchronize()
+        rs_p, tie_p = tde.wilcoxon_rank_sums_csc_plain(Xt, codes, N_CLUSTERS)
+        Xd = tde.dense_from_csr(dX)
+        rs_d, tie_d = tde.wilcoxon_rank_sums(Xd, codes, N_CLUSTERS)
+        del Xd
+        plain_same = torch.equal(rs, rs_p) and torch.equal(tie, tie_p)
+        dense_same = torch.equal(rs, rs_d) and torch.equal(tie, tie_d)
+        big = lens > cap
+        print(f"[de] T26 over the CSR of Xᵀ, {name} {Xs.shape[0]}x{Xs.shape[1]}, {Xt.csr.nnz} "
+              f"entries: column lengths min {lens.min()} median {int(np.median(lens))} p90 "
+              f"{int(np.percentile(lens, 90))} p99 {int(np.percentile(lens, 99))} max "
+              f"{lens.max()}; {int(big.sum())} columns ({lens[big].sum() / max(lens.sum(), 1):.3f} "
+              f"of the entries) above the {cap} entries shared memory holds; the plain "
+              f"version's bits {plain_same}, the dense route's bits {dense_same}", flush=True)
+        check(dense_same, f"[de] T26 over the CSR of Xᵀ on the {name}: the dense route's bits")
+        # reads Xᵀ's values and cells once (8 bytes an entry), the indptr and
+        # the codes once, writes the rank sums and tie terms; the radix passes
+        # over the staged pairs are the kernel's own traffic, not the function's
+        bnd = bound(8 * Xt.csr.nnz + nbytes(Xt.csr.indptr, codes, rs, tie), 0, F32_OPS_PER_S)
+        # the kernel's launch timed alone; the whole call (its plan: a copy of
+        # the lengths to the host, their order, the scratch) timed beside it
+        call = lambda: tde.wilcoxon_rank_sums_csc(Xt, codes, N_CLUSTERS)  # noqa: E731
+        timer = lambda fn: launch_ms(tde._kernels, "wilcoxon_rank_sums_csc", fn)  # noqa: E731
+        call_ms = median_ms(call)
+        if name == "RNA":
+            kernel_report(results, "wilcoxon_rank_sums_csc",
+                          f"{Xt.csr.nnz} entries of {Xs.shape[1]} columns, g={N_CLUSTERS}",
+                          (rs - rs_p).abs().max().item(), "rank sums and tie terms equal",
+                          plain_same, call,
+                          lambda: tde.wilcoxon_rank_sums_csc_plain(Xt, codes, N_CLUSTERS), bnd,
+                          timer=timer)
+            ms = results["wilcoxon_rank_sums_csc"]["ms"]
+        else:
+            ms = timer(call)
+            print(f"[kernel] wilcoxon_rank_sums_csc {name}: ms={ms:.4f} bound_ms="
+                  f"{bnd['bound_ms']:.4f} ({bnd['bound_by']})", flush=True)
+            check(plain_same, f"wilcoxon_rank_sums_csc {name}: the plain version's bits")
+        print(f"[de] T26 over the {name}'s Xᵀ: the whole call {call_ms:.4f} ms, of it the "
+              f"kernel {ms:.4f} and the plan and its copy to the host the rest; "
+              f"{ms / bnd['bound_ms']:.1f}x the kernel's bound", flush=True)
+        del dX, Xt, rs, tie, rs_p, tie_p, rs_d, tie_d
+        torch.cuda.empty_cache()
+    X = tde.dense_from_csr(dsp.from_scipy(X_rna_norm, cuda))
     t0 = time.perf_counter()
     vals, perm = torch.sort(X[:, :DE_BLOCK].T, dim=1, stable=True)
     vals, perm = vals.contiguous(), perm.contiguous()
@@ -6731,9 +6870,9 @@ def run_all(work) -> int:
                                           rna_h.obsm["X_pca"], labels, cuda)
     del e2e_views
     torch.cuda.empty_cache()
-    de_launches = phase_de(ttl, tde, kernels, profiling, rna_h.X, wnn_mods["atac"].X, labels,
-                           boosts, cuda)
-    results.update(phase_de_kernels(tde, dsp, rna_h.X, labels, cuda))
+    de_launches = phase_de(ttl, tde, dsp, kernels, profiling, rna_h.X, wnn_mods["atac"].X,
+                           labels, boosts, cuda)
+    results.update(phase_de_kernels(tde, dsp, rna_h.X, wnn_mods["atac"].X, labels, cuda))
     snf_launches, snf_results = phase_snf(tac, tpp, tpt, ttl, tsn, tgr, dsp, kernels,
                                           profiling, X_rna, X_atac_e2e, P, labels, cuda)
     results.update(snf_results)

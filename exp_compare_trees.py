@@ -1,6 +1,7 @@
 """Two checkouts of the port on one card: T9's σ, the MOFA bench fit, the
-wide WNN path, T5, T14, T40, T2's split variant, T3, T36 and the MOFA
-sweeps around T18, for a change held beside its parent in one call.
+wide WNN path, T5, T14, T40, T2's split variant, T3, T36, the MOFA
+sweeps around T18, the wilcoxon markers (T26) and the 1M k-means (T15),
+for a change held beside its parent in one call.
 
 Run on a machine with a CUDA card, from the root of the repo, with the
 other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
@@ -12,7 +13,7 @@ other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
     python3 exp_compare_trees.py compare OUT parent1 change1 ...
 
 SECTIONS is a comma-separated subset of
-``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
+``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18,t26,t15`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
 approx (the rows ``_operand`` rounds to bfloat16; a tree whose ``knn_topk``
 has no ``approx`` argument takes them as float32), at k+1 = 20, 201 and
 301. ``t14``: T14 over the whole work-item layout of the 1M representation
@@ -47,7 +48,16 @@ and ``F.conv1d``'s scores at 10,000 peaks (TF32 off). ``t18``: the
 ``mofa`` section's fit, sweep and device times, and the e2e's SVI at
 100,000 cells (the 256 most variable columns of the normalised RNA and the
 TF-IDF ATAC of ``make_e2e_counts``, made once by ``make``; 100 iterations,
-three walls) with its outputs. Each writes a SHA-256
+three walls) with its outputs. ``t26``: ``tl.rank_genes_groups(method=
+"wilcoxon")`` on chip_smoke.py's ``[de]`` data (the normalised RNA, 100,000
+× 20,000, and the TF-IDF ATAC, 100,000 × 25,000, of ``make_e2e_counts``,
+made once by ``make``; the 20 planted labels): every field of ``uns``,
+three walls, the stages of the last and the peak device memory above what
+was held. ``t15``: the 1M k-means as ``ivf_knn`` runs it (``make_big_rep(0)``,
+C = 1024 from the rows ``default_rng(0)`` picks, 8 Lloyd steps, then the
+final assignment): the centroids and the assignment, three walls, T15
+alone at the final centroids (CUDA events), and the rounding of X that its
+wrapper makes (``knn._bf16_rows``) beside four other ways of building it. Each writes a SHA-256
 of every output (the bits compared), T5's approx lists at k+1 = 20, and
 CUDA-event times (median of 5, and the spread).
 
@@ -84,7 +94,9 @@ import torch
 import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
-SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18")
+SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18", "t26",
+            "t15")
+KMEANS_C, KMEANS_ITERS = 1024, 8  # the 1M path's partition (ops/ivf.ivf_knn)
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
 RING_K1S = (21, 201, 301)  # T40's lists: the mesh graphs', WNN's pools, the wide lists
 SCOPEN_L = 30  # scOpen's factors (chip_smoke.py SCOPEN_K)
@@ -120,6 +132,8 @@ def make(out: str, sections, cuda) -> None:
         NI = exact_knn(r, 19, cuda)
         NI[np.random.default_rng(3).random(len(r)) < 0.15, 16:] = -1
         data["rdup"], data["NIdup"] = r, NI
+    if "t15" in sections:
+        data["r1m"] = cs.make_big_rep(0)[0]
     if "t14" in sections:
         from muon_tpu_torch.ops import ivf as ti
 
@@ -176,6 +190,17 @@ def make(out: str, sections, cuda) -> None:
                                  for m in parsed["matrices"]])
         data.update(motif_codes=tpw.encode_sequences(seqs), motif_lo=lo, motif_off=off,
                     motif_width=width, motif_thr=thr)
+    if "t26" in sections:
+        from muon_tpu_torch import atac as tac
+        from muon_tpu_torch.ops import sparse as dsp
+
+        X_rna, X_atac, _, labels, _ = cs.make_e2e_counts(cs.SEED)
+        h = cs.Holder(X_atac)
+        tac.pp.tfidf(h, device=cuda)
+        for name, X in (("de_rna", cs.normalise(dsp, X_rna, cuda)), ("de_atac", h.X)):
+            data.update({f"{name}_data": X.data, f"{name}_indices": X.indices,
+                         f"{name}_indptr": X.indptr, f"{name}_shape": np.array(X.shape)})
+        data["de_labels"] = labels
     if "t18" in sections:
         from muon_tpu_torch import atac as tac
         from muon_tpu_torch.ops import sparse as dsp
@@ -450,10 +475,99 @@ def run_svi(tm, inp, res, times, cuda) -> None:
                svi_tau1=fit.tau[1], svi_elbo=fit.elbo_history)
 
 
+def run_t26(ttl, profiling, inp, res, times, cuda) -> None:
+    """The [de] path's wilcoxon on the RNA and the ATAC: uns, walls, stages,
+    peak memory."""
+    from scipy import sparse as sp
+
+    for name in ("de_rna", "de_atac"):
+        X = sp.csr_matrix((inp[f"{name}_data"], inp[f"{name}_indices"], inp[f"{name}_indptr"]),
+                          shape=tuple(inp[f"{name}_shape"]))
+        walls = []
+        for _ in range(3):
+            h = cs.DEHolder(X, inp["de_labels"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with profiling.collect() as t:
+                t0 = time.perf_counter()
+                ttl.rank_genes_groups(h, "planted", method="wilcoxon", device=cuda)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        times[f"[de] wilcoxon {name} walls s"] = walls
+        times[f"[de] wilcoxon {name} stages s (the last)"] = cs.stage_seconds(t)
+        times[f"[de] wilcoxon {name} peak GiB above the held"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        uns = h.uns["rank_genes_groups"]
+        for field in ("names", "scores", "pvals", "pvals_adj", "logfoldchanges"):
+            res[f"t26_{name}_{field}"] = np.array([uns[field][g] for g in uns[field].dtype.names],
+                                                  dtype=str if field == "names" else None)
+        del h, uns
+
+
+def run_t15(ti, inp, res, times, cuda) -> None:
+    """The 1M k-means (8 Lloyd steps and the final assignment) and T15 alone
+    at its final centroids."""
+    X = torch.from_numpy(inp["r1m"]).to(cuda)
+    init = np.random.default_rng(0).choice(len(X), size=KMEANS_C, replace=False).astype(np.int32)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cent, assign = ti.kmeans(X, init, KMEANS_C, KMEANS_ITERS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    times["ivf/kmeans, 1M x 50, C = 1024, 8 steps and the final assignment, walls s"] = walls
+    res.update(t15_cent=cent.cpu().numpy(), t15_assign=assign.cpu().numpy())
+    times["T15 ms, 1M x 50, C = 1024 (the final centroids)"] = spread(
+        event_times(lambda: ti.kmeans_assign(X, cent), 5))
+    from muon_tpu_torch.ops import knn as tk
+
+    times["of it, X as padded bfloat16 rows (knn._bf16_rows) ms"] = spread(
+        event_times(lambda: tk._bf16_rows(X), 5))
+    times.update(rounding_variants(X))
+
+
+def rounding_variants(X) -> dict:
+    """``knn._bf16_rows``'s operand (X as bfloat16, rows padded with zeros to
+    a multiple of 16) built in other ways, each timed (CUDA events) and held
+    to the tree's bits."""
+    from muon_tpu_torch.ops import knn as tk
+
+    n, d = X.shape
+    ld = -(-d // 16) * 16
+
+    def empty_then_pad():
+        out = torch.empty((n, ld), dtype=torch.bfloat16, device=X.device)
+        out[:, :d] = X
+        out[:, d:] = 0
+        return out
+
+    def cast_then_copy():
+        out = torch.empty((n, ld), dtype=torch.bfloat16, device=X.device)
+        out[:, :d] = X.to(torch.bfloat16)
+        out[:, d:] = 0
+        return out
+
+    variants = {
+        "empty, X copied in, the padding zeroed": empty_then_pad,
+        "X.to(bfloat16), then F.pad": lambda: torch.nn.functional.pad(
+            X.to(torch.bfloat16), (0, ld - d)),
+        "torch.cat of X.to(bfloat16) and zeros": lambda: torch.cat(
+            [X.to(torch.bfloat16), X.new_zeros((n, ld - d), dtype=torch.bfloat16)], 1),
+        "X.to(bfloat16), copied into empty rows, the padding zeroed": cast_then_copy,
+    }
+    want = tk._bf16_rows(X)
+    return {f"of it, the rounding as {name} ms (the same bits: "
+            f"{torch.equal(fn(), want)})": spread(event_times(fn, 5))
+            for name, fn in variants.items()}
+
+
 def run(root: str, tag: str, out: str, sections, cuda) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import muon_tpu_torch
     from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch import tl as ttl
     from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, pwm as tpw, sparse as tsp
     from muon_tpu_torch.ops import wnn as tw
@@ -547,6 +661,10 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         run_t36(tpw, profiling, inp, res, times, cuda)
     if "t18" in sections:
         run_svi(tm, inp, res, times, cuda)
+    if "t26" in sections:
+        run_t26(ttl, profiling, inp, res, times, cuda)
+    if "t15" in sections:
+        run_t15(ti, inp, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)

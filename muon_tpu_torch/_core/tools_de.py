@@ -3,8 +3,10 @@
 
 The device computes what the reference's jitted programs compute
 (``ops/de.py``): the per-group moments (T3 for a sparse X), the wilcoxon
-rank sums and tie terms (T26, after a sort of each column block) and the
-logreg fit (T27, T28 and the two products). The test statistics, p-values
+rank sums and tie terms (a sparse X: T26 over the CSR of Xᵀ that the
+moments built, never densified; a dense X: T26 after a sort of each column
+block; the same bits) and the logreg fit (T27, T28 and the two products).
+The test statistics, p-values
 (scipy's ``t.sf`` and ``norm.sf``), the Benjamini-Hochberg adjustment and
 the ordering run on the host, as in the reference, and the results land in
 ``uns[key_added]`` with the reference's fields and dtypes: record arrays of
@@ -82,6 +84,18 @@ def _upload(X, device: torch.device):
     return dense_to_tensor(X, device)
 
 
+def _canonical(X):
+    """A scipy sparse X whose cells hold one entry each (duplicates summed,
+    as the reference's ``todense`` sums them): the CSR of Xᵀ T26 ranks
+    takes no cell twice."""
+    X = X.tocsr()
+    if X.has_canonical_format:
+        return X
+    X = X.copy()
+    X.sum_duplicates()
+    return X
+
+
 def _dense(Xd):
     """The dense float32 X that wilcoxon and logreg take, on Xd's device."""
     with stage("de/densify"):
@@ -127,10 +141,16 @@ def rank_genes_groups(
     if n_genes is None or n_genes > D:
         n_genes = D
 
+    if method == "wilcoxon" and sp.issparse(X):
+        X = _canonical(X)
     with stage("de/upload"):
         Xd = _upload(X, device)
         codes_t = torch.from_numpy(codes.astype(np.int32)).to(device)
-    s1, s2 = de.group_moments(Xd, codes_t, g)
+    # wilcoxon ranks a sparse X over the Xᵀ that the moments multiply by;
+    # the other methods leave it to group_moments, which frees it
+    Xt = (dsp.transpose(Xd) if method == "wilcoxon" and isinstance(Xd, dsp.DeviceCSR)
+          else None)
+    s1, s2 = de.group_moments(Xd, codes_t, g, Xt)
     with stage("de/download"):
         s1, s2 = s1.cpu().numpy(), s2.cpu().numpy()  # (g, D) float32
     tot1 = s1.sum(axis=0)
@@ -188,9 +208,11 @@ def rank_genes_groups(
             lfc_rec[gname] = lfc[order].astype(np.float32)
 
     elif method == "wilcoxon":
-        Xdense = _dense(Xd)
-        rank_sums, tie_term = de.wilcoxon_rank_sums(Xdense, codes_t, g)
-        del Xdense
+        if Xt is not None:
+            rank_sums, tie_term = de.wilcoxon_rank_sums_csc(Xt, codes_t, g)
+        else:
+            rank_sums, tie_term = de.wilcoxon_rank_sums(Xd, codes_t, g)
+        del Xt
         with stage("de/download"):
             rank_sums = rank_sums.cpu().numpy()  # (g, D) float64
             tie_term = tie_term.cpu().numpy().astype(np.float64)  # exact below 2^53

@@ -1,6 +1,9 @@
 // Kernels of the marker-gene tests (rank_genes_groups), for Hopper (sm_90a).
 //
-//   T26 wilcoxon_rank_sums   <- muon_tpu/_core/tools_de.py ranksum (:175)
+//   T26 wilcoxon_rank_sums   <- muon_tpu/_core/tools_de.py ranksum (:175), on a
+//                               dense X whose column blocks torch.sort sorted
+//   T26 wilcoxon_rank_sums_csc <- the same ranksum, from the CSR of X^T: the
+//                               nonzeros sorted in the kernel, the zeros as one run
 //   T27 logreg_softmax_grad  <- muon_tpu/_core/tools_de.py fit (:248): the
 //                               gradient of the weighted cross entropy in the logits
 //   T28 adam_update          <- the same fit: optax.adam's update of W and b,
@@ -115,6 +118,296 @@ wilcoxon_rank_sums_kernel(const float* __restrict__ vals,
   __syncwarp();
   if (lane == 0) tie_term[c] = (long long)tie;
   for (int i = lane; i < g; i += kWarp) rank_sums[(int64_t)i * b + c] = 0.5 * (double)my[i];
+}
+
+// ---------------------------------------------------------------------------
+// T26 over the nonzeros (wilcoxon_rank_sums_csc): the same rank sums and tie
+// terms from the CSR of X^T (a row per column of X: float32 values and int32
+// cells, the cells of a row ascending, no duplicates), never densified.
+//
+// Per column j with L stored entries of n cells: neg of them negative, zs
+// stored zeros (+0 and -0), and n - L implicit zeros. The zeros form one tie
+// run, at positions [neg, neg + z) with z = zs + n - L, so each has twice
+// the rank Z2 = 2 neg + z + 1, and the run adds z^3 - z to the tie term.
+// Every other entry's run lies among the sorted stored entries, shifted by
+// n - L when it lies above zero. So group c's twice-rank sum is
+//   n_c Z2 + sum over its stored entries of (lo + 1 + hi - Z2),
+// with lo and hi of the dense route (0-based first position of the run and
+// one past its last), and a stored zero adds 0. The integers are the dense
+// route's (T26 above), so are the float64 rank sums and the tie terms.
+// NaNs keep the dense route's order: after every number, each a run of its
+// own, in cell order (torch.sort is stable there and T26 compares with !=).
+//
+// A block of 512 threads owns a column; the columns come longest first
+// (the wrapper's order), so the few long ones start at once and the many
+// short ones fill the card behind them. It loads the column's entries as
+// (order-preserving 32-bit key, int16 group code) pairs, the codes
+// gathered once, counting the four bytes' histograms as it goes, then sorts
+// them by an LSD radix sort in four 8-bit passes (a pass whose byte is the
+// same in every entry moves nothing and is skipped). Each pass goes tile by
+// tile (512 entries, one a thread): a warp ranks its 32 entries among equal
+// bytes (__match_any_sync), the per-warp counts are scanned per byte into
+// the tile's offsets, and every entry is written to its place, stably.
+// Why LSD and 8 bits: stability keeps NaNs (and nothing else needs it) in
+// cell order without a second key; 8 bits keep the per-tile scan to 256
+// digits x 16 warps in shared memory (11 bits would need 8 times that).
+// A column of up to `cap` entries (csc_capacity: the two buffers in
+// shared memory, two blocks an SM) sorts in shared memory; a longer one in
+// the global scratch the wrapper allocates (12 bytes an entry, mostly in
+// L2). Then one walk over the sorted keys: each entry finds its run's ends
+// by galloping out from its own place (a run of one costs two loads), the
+// run's first entry adds t^3 - t, and each warp adds lo + 1 + hi - Z2 into
+// its groups' int64 counters in shared memory, equal codes summed first
+// (__match_any_sync, __reduce_add_sync: |lo + 1 + hi - Z2| <= 2n + 1, so
+// 32 of them fit an int). Integer adds only: a run repeats bit for bit.
+// Bound: the column's values and cells read once, the codes gathered once
+// (12 bytes an entry), the outputs written once; the radix passes' own
+// traffic stays in shared memory (or L2) and is not counted.
+// ---------------------------------------------------------------------------
+
+namespace csc {
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kRadix = 256;
+constexpr unsigned kZeroKey = 0x80000000u;  // +0 and -0
+constexpr unsigned kNanKey = 0xffffffffu;   // every NaN, above +inf's key
+constexpr int kEntryBytes = 12;             // two keys and two codes: the passes' buffers
+constexpr int kSharedBytes = 113 * 1024;    // two blocks an SM
+// the fixed part: g counters, four histograms, the tiles' offsets (uint32)
+// and counts (uint16), the scan's warp sums and the column's scalars
+__host__ __device__ constexpr int fixed_bytes(int g) {
+  return g * 8 + 4 * kRadix * 4 + kWarps * kRadix * 4 + kWarps * kRadix * 2 + 64 * 4;
+}
+__host__ __device__ constexpr int capacity(int g) {
+  return fixed_bytes(g) >= kSharedBytes ? 0 : ((kSharedBytes - fixed_bytes(g)) / kEntryBytes) & ~15;
+}
+}  // namespace csc
+
+// float32 -> a 32-bit key that orders as the values do: -0 as +0, NaNs last
+__device__ __forceinline__ unsigned rank_key(float x) {
+  if (isnan(x)) return csc::kNanKey;
+  const unsigned b = __float_as_uint(x + 0.f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// the first place of key k's run around place p of the sorted keys
+__device__ __forceinline__ int run_first(const unsigned* keys, int p, unsigned k) {
+  int lo = p, step = 1;
+  while (lo >= step && keys[lo - step] == k) {
+    lo -= step;
+    step <<= 1;
+  }
+  int a = lo - step < -1 ? -1 : lo - step;  // keys[a] < k, or a = -1
+  while (lo - a > 1) {
+    const int m = (a + lo) >> 1;
+    if (keys[m] == k) lo = m; else a = m;
+  }
+  return lo;
+}
+
+// one past the last place of key k's run around place p
+__device__ __forceinline__ int run_end(const unsigned* keys, int p, unsigned k, int L) {
+  int hi = p, step = 1;
+  while (hi + step < L && keys[hi + step] == k) {
+    hi += step;
+    step <<= 1;
+  }
+  int b = hi + step > L ? L : hi + step;  // keys[b] > k, or b = L
+  while (b - hi > 1) {
+    const int m = (hi + b) >> 1;
+    if (keys[m] == k) hi = m; else b = m;
+  }
+  return b;
+}
+
+struct CscShared {
+  unsigned long long* acc;  // g: twice-rank sums minus Z2 a stored entry
+  unsigned* hist;           // 4 x 256: each byte's counts, then its running offsets
+  unsigned* off;            // kWarps x 256: a tile's offsets
+  unsigned short* cnt;      // kWarps x 256: a tile's counts, zero between tiles
+  unsigned* misc;           // [0] negatives, [1] stored zeros, [2] passes skipped,
+                            // [4, 36) the scan's warp sums, [36] (64-bit) the tie term
+};
+
+// sort the column (n_in entries at vals, cells) by key with its codes, then
+// walk it; leaves the counters in acc, the tie term of the stored runs at
+// misc + 36, the counts at misc[0], misc[1]
+template <bool kInShared>
+__device__ __forceinline__ void rank_column(const CscShared& sh, unsigned* k0, unsigned* k1,
+                                            short* c0, short* c1, const float* __restrict__ vals,
+                                            const int* __restrict__ cells,
+                                            const int* __restrict__ codes, int L, int n) {
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const unsigned below_me = (1u << lane) - 1u;
+
+  // the keys and codes, the four bytes' counts, negatives and stored zeros
+  for (int base = 0; base < L; base += csc::kThreads) {
+    const int i = base + tid;
+    const bool in = i < L;
+    unsigned key = 0u;
+    if (in) {
+      key = rank_key(vals[i]);
+      k0[i] = key;
+      c0[i] = (short)codes[cells[i]];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const unsigned d = in ? (key >> (8 * r)) & 255u : 256u;
+      const unsigned peers = __match_any_sync(kFull, d);
+      if (in && (peers & below_me) == 0u)
+        atomicAdd(&sh.hist[r * csc::kRadix + d], (unsigned)__popc(peers));
+    }
+    const unsigned negs = __ballot_sync(kFull, in && key < csc::kZeroKey);
+    const unsigned zeros = __ballot_sync(kFull, in && key == csc::kZeroKey);
+    if (lane == 0) {
+      if (negs) atomicAdd(&sh.misc[0], (unsigned)__popc(negs));
+      if (zeros) atomicAdd(&sh.misc[1], (unsigned)__popc(zeros));
+    }
+  }
+  __syncthreads();
+
+  // each byte's counts to the exclusive offsets of its buckets; a byte
+  // whose one bucket holds every entry marks its pass as skipped
+  unsigned v[4], own[4];
+  if (tid < csc::kRadix) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      own[r] = v[r] = sh.hist[r * csc::kRadix + tid];
+      if (own[r] == (unsigned)L) atomicOr(&sh.misc[2], 1u << r);
+#pragma unroll
+      for (int o = 1; o < kWarp; o <<= 1) {
+        const unsigned t = __shfl_up_sync(kFull, v[r], o);
+        if (lane >= o) v[r] += t;
+      }
+      if (lane == kWarp - 1) sh.misc[4 + r * 8 + warp] = v[r];
+    }
+  }
+  __syncthreads();
+  if (tid < csc::kRadix) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      unsigned pre = 0u;
+      for (int w = 0; w < warp; ++w) pre += sh.misc[4 + r * 8 + w];
+      sh.hist[r * csc::kRadix + tid] = pre + v[r] - own[r];
+    }
+  }
+  __syncthreads();
+
+  // the passes, stable, tile by tile
+  const unsigned skip = sh.misc[2];
+  unsigned *sk = k0, *dk = k1;
+  short *sc = c0, *dc = c1;
+  for (int r = 0; r < 4; ++r) {
+    if ((skip >> r) & 1u) continue;
+    unsigned* run = sh.hist + r * csc::kRadix;
+    for (int base = 0; base < L; base += csc::kThreads) {
+      const int i = base + tid;
+      const bool in = i < L;
+      const unsigned key = in ? sk[i] : 0u;
+      const short code = in ? sc[i] : (short)0;
+      const unsigned d = in ? (key >> (8 * r)) & 255u : 256u;
+      const unsigned peers = __match_any_sync(kFull, d);
+      const unsigned rank = __popc(peers & below_me);
+      if (in && rank == 0u) sh.cnt[warp * csc::kRadix + d] = (unsigned short)__popc(peers);
+      __syncthreads();
+      if (tid < csc::kRadix) {  // the tile's offsets, warp by warp; the counts back to 0
+        unsigned o = run[tid];
+        for (int w = 0; w < csc::kWarps; ++w) {
+          const unsigned c = sh.cnt[w * csc::kRadix + tid];
+          sh.off[w * csc::kRadix + tid] = o;
+          sh.cnt[w * csc::kRadix + tid] = 0;
+          o += c;
+        }
+        run[tid] = o;
+      }
+      __syncthreads();
+      if (in) {
+        const unsigned p = sh.off[warp * csc::kRadix + d] + rank;
+        dk[p] = key;
+        dc[p] = code;
+      }
+    }
+    __syncthreads();
+    unsigned* tk = sk; sk = dk; dk = tk;
+    short* tc = sc; sc = dc; dc = tc;
+  }
+
+  // the walk: each stored entry's run, its groups' sums, the runs' tie terms
+  const int neg = (int)sh.misc[0];
+  const int zimp = n - L;
+  const int z = (int)sh.misc[1] + zimp;
+  const int Z2 = 2 * neg + z + 1;
+  unsigned long long tie = 0ull;
+  for (int base = 0; base < L; base += csc::kThreads) {
+    const int p = base + tid;
+    int val = 0, code = -1;
+    if (p < L) {
+      const unsigned key = sk[p];
+      if (key != csc::kZeroKey) {
+        int lo = p, hi = p + 1;
+        if (key != csc::kNanKey) {
+          lo = run_first(sk, p, key);
+          hi = run_end(sk, p, key, L);
+          if (p == lo) {
+            const unsigned long long t = (unsigned long long)(hi - lo);
+            tie += t * t * t - t;
+          }
+        }
+        const int shift = key > csc::kZeroKey ? zimp : 0;
+        val = lo + hi + 1 + 2 * shift - Z2;
+        code = sc[p];
+      }
+    }
+    const unsigned peers = __match_any_sync(kFull, code);
+    const int sum = __reduce_add_sync(peers, val);
+    if (code >= 0 && (peers & below_me) == 0u)
+      atomicAdd(&sh.acc[code], (unsigned long long)(long long)sum);
+  }
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) tie += __shfl_xor_sync(kFull, tie, o);
+  if (lane == 0 && tie) atomicAdd(reinterpret_cast<unsigned long long*>(sh.misc + 36), tie);
+}
+
+__global__ void __launch_bounds__(csc::kThreads, 2)
+    wilcoxon_csc_kernel(const int* __restrict__ indptr, const int* __restrict__ cells,
+                        const float* __restrict__ vals, const int* __restrict__ codes,
+                        const long long* __restrict__ group_n, const int* __restrict__ order,
+                        const long long* __restrict__ slot, int n, int D, int g, int cap,
+                        unsigned* __restrict__ skeys, short* __restrict__ scodes,
+                        double* __restrict__ rank_sums, long long* __restrict__ tie_term) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  CscShared sh;
+  sh.acc = reinterpret_cast<unsigned long long*>(smem);
+  sh.hist = reinterpret_cast<unsigned*>(sh.acc + g);
+  sh.off = sh.hist + 4 * csc::kRadix;
+  sh.misc = sh.off + csc::kWarps * csc::kRadix;
+  unsigned* keys = sh.misc + 64;
+  sh.cnt = reinterpret_cast<unsigned short*>(keys + 2 * cap);
+  short* cds = reinterpret_cast<short*>(sh.cnt + csc::kWarps * csc::kRadix);
+
+  const int tid = threadIdx.x;
+  const int j = order[blockIdx.x];
+  const int s = indptr[j], L = indptr[j + 1] - s;
+  for (int i = tid; i < g; i += csc::kThreads) sh.acc[i] = 0ull;
+  for (int i = tid; i < 4 * csc::kRadix; i += csc::kThreads) sh.hist[i] = 0u;
+  for (int i = tid; i < csc::kWarps * csc::kRadix; i += csc::kThreads) sh.cnt[i] = 0;
+  if (tid < 64) sh.misc[tid] = 0u;
+  __syncthreads();
+  if (L <= cap) {
+    rank_column<true>(sh, keys, keys + cap, cds, cds + cap, vals + s, cells + s, codes, L, n);
+  } else {  // the long columns come first: block b's scratch starts at 2 slot[b]
+    const long long o = 2 * slot[blockIdx.x];
+    rank_column<false>(sh, skeys + o, skeys + o + L, scodes + o, scodes + o + L, vals + s,
+                       cells + s, codes, L, n);
+  }
+  __syncthreads();
+  const long long z = (long long)sh.misc[1] + (n - L);
+  const long long Z2 = 2LL * sh.misc[0] + z + 1;
+  for (int c = tid; c < g; c += csc::kThreads)
+    rank_sums[(int64_t)c * D + j] = 0.5 * (double)((long long)sh.acc[c] + group_n[c] * Z2);
+  if (tid == 0)
+    tie_term[j] = (long long)(*reinterpret_cast<unsigned long long*>(sh.misc + 36) +
+                              (unsigned long long)(z * z * z - z));
 }
 
 // T27 pass 1: dZ and one bias partial per warp
@@ -232,6 +525,37 @@ int mt_wilcoxon_rank_sums(const float* vals, const int64_t* perm, const int* cod
   const int blocks = (b + kRankWarps - 1) / kRankWarps;
   wilcoxon_rank_sums_kernel<<<blocks, kWarp * kRankWarps, shm, s>>>(
       vals, perm, codes, n, b, g, rank_sums, tie_term);
+  return (int)cudaGetLastError();
+}
+
+// T26 over the nonzeros: the entries of a column sorted in shared memory,
+// for g groups (longer columns go through the scratch)
+int mt_wilcoxon_csc_capacity(int g) { return csc::capacity(g); }
+
+// T26 over the CSR of X^T (D rows, one a column of X): indptr (D + 1,)
+// int32; cells (nnz,) int32, ascending within a row, no duplicates; vals
+// (nnz,) f32; codes (n,) int32 (-1: no group); group_n (g,) int64, the
+// cells of each group; order (D,) int32, the columns longest first; slot
+// int64, for each of the long columns (more than capacity(g) entries,
+// first in order) the entries of the long columns before it; skeys (twice
+// their entries) uint32 and scodes (the same) int16 scratch. Writes
+// rank_sums (g x D) f64 and tie_term (D,) int64.
+int mt_wilcoxon_rank_sums_csc(const int* indptr, const int* cells, const float* vals,
+                              const int* codes, const long long* group_n, const int* order,
+                              const long long* slot, int n, int D, int g, void* skeys,
+                              void* scodes, double* rank_sums, long long* tie_term,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D <= 0 || g <= 0) return (int)cudaGetLastError();
+  const int cap = csc::capacity(g);
+  if (cap <= 0) return (int)cudaErrorInvalidValue;
+  const int shm = csc::fixed_bytes(g) + cap * csc::kEntryBytes;
+  cudaError_t e = cudaFuncSetAttribute(wilcoxon_csc_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+  if (e != cudaSuccess) return (int)e;
+  wilcoxon_csc_kernel<<<D, csc::kThreads, shm, s>>>(
+      indptr, cells, vals, codes, group_n, order, slot, n, D, g, cap, (unsigned*)skeys,
+      (short*)scodes, rank_sums, tie_term);
   return (int)cudaGetLastError();
 }
 

@@ -74,7 +74,7 @@ _SIGNATURES = {
                             _F, _P),
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "mt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "mt_kmeans_assign": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
     "mt_mofa_col_dot": (_P, _P, _LL, _I, _I, _P, _P, _P, _P),
     "mt_mofa_w_posterior": (_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P),
@@ -93,6 +93,8 @@ _SIGNATURES = {
     "mt_gp_rbf_kernel": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P),
     "mt_gp_kg_grad": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P),
     "mt_wilcoxon_rank_sums": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "mt_wilcoxon_csc_capacity": (_I,),  # no launch: the entries a column sorts in shared memory
+    "mt_wilcoxon_rank_sums_csc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "mt_logreg_softmax_grad": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "mt_adam_update": (_P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F,
                        _F, _F, _F, _P),
@@ -146,6 +148,7 @@ KERNELS = {
     "gp_rbf_kernel": "mt_gp_rbf_kernel",
     "gp_kg_grad": "mt_gp_kg_grad",
     "wilcoxon_rank_sums": "mt_wilcoxon_rank_sums",
+    "wilcoxon_rank_sums_csc": "mt_wilcoxon_rank_sums_csc",  # T26 over Xᵀ's CSR
     "logreg_softmax_grad": "mt_logreg_softmax_grad",
     "adam_update": "mt_adam_update",
     "snf_affinity": "mt_snf_affinity",

@@ -2,11 +2,16 @@
 muon_tpu/_core/tools_de.py).
 
     sorted_rank_sums     T26  <- ranksum (:175)          (csrc/de_kernels.cu)
+    wilcoxon_rank_sums_csc  T26 over Xᵀ's CSR <- the same ranksum
     logreg_softmax_grad  T27  <- fit (:248): the loss's gradient in the logits
     adam_update          T28  <- fit (:248): optax.adam's update, L2 term added
 
-``wilcoxon_rank_sums`` sorts X's columns in blocks (``torch.sort``, as the
-reference sorts with ``jnp.argsort``) and hands each block to T26.
+``wilcoxon_rank_sums`` sorts a dense X's columns in blocks (``torch.sort``,
+as the reference sorts with ``jnp.argsort``) and hands each block to T26.
+``wilcoxon_rank_sums_csc`` gives the same bits from the CSR of Xᵀ (the one
+``group_moments`` multiplies by): its kernel sorts each column's stored
+entries itself and counts the zeros as one tie run, so a sparse X is never
+densified or sorted whole.
 ``group_moments`` gives the per-group sums of X and X² that every test
 starts from: a sparse X through T3 (``ops.sparse.spmm_t``, X and X² over
 one transpose), as the reference goes through its SpMM, a dense X through
@@ -21,7 +26,7 @@ it launches its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,8 @@ __all__ = [
     "sorted_rank_sums",
     "sorted_rank_sums_plain",
     "wilcoxon_rank_sums",
+    "wilcoxon_rank_sums_csc",
+    "wilcoxon_rank_sums_csc_plain",
     "wilcoxon_rank_sums_plain",
 ]
 
@@ -92,14 +99,16 @@ def dense_from_csr(X: dsp.DeviceCSR) -> torch.Tensor:
     return out
 
 
-def group_moments(X, codes: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def group_moments(X, codes: torch.Tensor, g: int,
+                  Xt: Optional[dsp.PiecedCSR] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group sums of X and X², each (g, D) float32 (the reference's
-    ``_group_moments``): a DeviceCSR through T3, a dense X through
-    ``torch.matmul``, in column blocks so that X² is never whole."""
+    ``_group_moments``): a DeviceCSR through T3 over Xᵀ (``Xt``, built here
+    unless given), a dense X through ``torch.matmul``, in column blocks so
+    that X² is never whole."""
     G = _onehot(codes, g)
     with stage("de/moments"):
         if isinstance(X, dsp.DeviceCSR):
-            Xt = dsp.transpose(X)
+            Xt = dsp.transpose(X) if Xt is None else Xt
             s1 = dsp.spmm_t(X, G, Xt).T
             s2 = dsp.spmm_t(X, G, Xt.with_data(Xt.csr.data * Xt.csr.data)).T
             return s1.contiguous(), s2.contiguous()
@@ -146,6 +155,117 @@ def wilcoxon_rank_sums_plain(X: torch.Tensor, codes: torch.Tensor,
                              g: int) -> Tuple[torch.Tensor, torch.Tensor]:
     vals, perm = torch.sort(X.T, dim=1, stable=True)
     return sorted_rank_sums_plain(vals, perm, codes, g)
+
+
+# T26 over Xᵀ's CSR: the order-preserving keys of the values (−0 as +0, every
+# NaN last), the zeros' key
+ZERO_KEY, NAN_KEY = 1 << 31, (1 << 32) - 1
+
+
+def _rank_keys(x: torch.Tensor) -> torch.Tensor:
+    """float32 values as int64 keys in [0, 2³²) that order as the values do
+    (the kernel's ``rank_key``): −0 as +0, every NaN above +inf."""
+    b = (x + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(b >= ZERO_KEY, NAN_KEY - b, b | ZERO_KEY)
+    return torch.where(torch.isnan(x), NAN_KEY, key)
+
+
+def _group_sizes(codes: torch.Tensor, g: int) -> torch.Tensor:
+    """(g,) int64 cells of each group (code −1 counts in none)."""
+    return torch.bincount(codes.long() + 1, minlength=g + 1)[1:]
+
+
+def _rank_plan(X: dsp.DeviceCSR, codes: torch.Tensor, g: int):
+    """What T26 over Xᵀ's CSR ``X`` needs besides its operands (one copy of
+    the column lengths to the host, where they are ordered): the columns
+    longest first (int32), the entries of the long columns before each in
+    the scratch (int64), the scratch's keys (int32) and codes (int16),
+    twice the long columns' entries, and the group sizes (int64)."""
+    with stage("de/rank_plan"):
+        lens = (X.indptr[1:] - X.indptr[:-1]).cpu().numpy()
+        order = np.argsort(-lens, kind="stable").astype(np.int32)
+        cap = _kernels.library().mt_wilcoxon_csc_capacity(g)
+        long_lens = lens[order[: int((lens > cap).sum())]].astype(np.int64)
+        slot = np.zeros(max(len(long_lens), 1), np.int64)
+        np.cumsum(long_lens[:-1], out=slot[1:len(long_lens)])
+        scratch = 2 * max(int(long_lens.sum()), 1)
+        to = lambda a: torch.from_numpy(a).to(X.device)  # noqa: E731
+        return (to(order), to(slot),
+                torch.empty(scratch, dtype=torch.int32, device=X.device),
+                torch.empty(scratch, dtype=torch.int16, device=X.device),
+                _group_sizes(codes, g))
+
+
+def wilcoxon_rank_sums_csc(Xt, codes: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T26 over the nonzeros: ``wilcoxon_rank_sums``'s rank sums ``(g, D)``
+    float64 and tie terms ``(D,)`` int64, the same bits, from the CSR of Xᵀ
+    (``ops.sparse.transpose``; a ``PiecedCSR`` or ``DeviceCSR`` of D rows
+    over the n cells, each row's cells ascending, no cell twice) and the
+    cells' codes ``(n,)`` int32 (−1: no group). One launch: a block sorts
+    each column's stored entries and counts the zeros as one tie run; the
+    columns go longest first (``_rank_plan``), those longer than its shared
+    memory holds through a scratch."""
+    X = dsp._csr(Xt)
+    if not on_card(X.data):
+        return wilcoxon_rank_sums_csc_plain(Xt, codes, g)
+    D, n = X.shape
+    _contiguous("codes", codes, torch.int32, (n,), X.device)
+    if n > MAX_RANK_CELLS:
+        raise ValueError(f"Xᵀ of shape {(D, n)}: T26 takes at most {MAX_RANK_CELLS} cells")
+    if not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"T26 takes 1 to {MAX_GROUPS} groups, got {g}")
+    order, slot, skeys, scodes, group_n = _rank_plan(X, codes, g)
+    rank_sums = torch.empty((g, D), dtype=torch.float64, device=X.device)
+    tie_term = torch.empty(D, dtype=torch.int64, device=X.device)
+    with stage("de/rank_csc"):
+        _kernels.launch(
+            "wilcoxon_rank_sums_csc", X.device,
+            X.indptr.data_ptr(), X.indices.data_ptr(), X.data.data_ptr(), codes.data_ptr(),
+            group_n.data_ptr(), order.data_ptr(), slot.data_ptr(), n, D, g,
+            skeys.data_ptr(), scodes.data_ptr(), rank_sums.data_ptr(),
+            tie_term.data_ptr(),
+        )
+    return rank_sums, tie_term
+
+
+def wilcoxon_rank_sums_csc_plain(Xt, codes, g):
+    X = dsp._csr(Xt)
+    D, n = X.shape
+    dev = X.device
+    lens = (X.indptr[1:] - X.indptr[:-1]).long()
+    first = X.indptr[:-1].long()
+    row = torch.repeat_interleave(torch.arange(D, device=dev), lens, output_size=X.nnz)
+    key = _rank_keys(X.data)
+    # each row's entries by key, stably (cell order among equal keys)
+    order = torch.argsort(row * (1 << 32) + key, stable=True)
+    key, cell = key[order], X.indices.long()[order]
+    idx = torch.arange(X.nnz, device=dev)
+    start = torch.ones(X.nnz, dtype=torch.bool, device=dev)
+    start[1:] = (key[1:] != key[:-1]) | (row[1:] != row[:-1])
+    start |= key == NAN_KEY
+    end = torch.ones_like(start)
+    end[:-1] = start[1:]
+    lo = torch.where(start, idx, 0).cummax(dim=0).values - first[row]
+    hi = torch.where(end, idx + 1, X.nnz).flip(0).cummin(dim=0).values.flip(0) - first[row]
+    per_row = lambda m: torch.zeros(D, dtype=torch.int64, device=dev).index_add_(  # noqa: E731
+        0, row, m.long())
+    neg, zs = per_row(key < ZERO_KEY), per_row(key == ZERO_KEY)
+    zimp = n - lens
+    z = zs + zimp
+    Z2 = 2 * neg + z + 1
+    shift = torch.where(key > ZERO_KEY, zimp[row], 0)
+    stored = key != ZERO_KEY  # a stored zero adds Z2 - Z2
+    val = torch.where(stored, lo + hi + 1 + 2 * shift - Z2[row], 0)
+    code = codes.long()[cell]
+    has = code >= 0
+    acc = torch.zeros(D * g, dtype=torch.int64, device=dev)
+    acc.index_add_(0, (row * g + code)[has], val[has])
+    rank2 = acc.reshape(D, g).T + _group_sizes(codes, g)[:, None] * Z2[None, :]
+    t = hi - lo
+    runs = start & stored
+    tie_term = z * z * z - z
+    tie_term.index_add_(0, row[runs], (t * t * t - t)[runs])
+    return (rank2.double() * 0.5).contiguous(), tie_term
 
 
 def sorted_rank_sums(vals: torch.Tensor, perm: torch.Tensor, codes: torch.Tensor,

@@ -2,7 +2,8 @@
 muon_tpu/ops/ivf.py).
 
     ivf_search     T14  <- _search_fn            (csrc/ivf_kernels.cu)
-    kmeans_assign  T15  <- _kmeans_fn's assign   (csrc/ivf_kernels.cu)
+    kmeans_assign  T15  <- _kmeans_fn's assign   (csrc/ivf_kernels.cu): the
+                           tensor cores screen, the float32 chain decides
 
 Brute force scores every pair of rows; above ``ops/knn.IVF_THRESHOLD`` rows
 the approximate path prunes instead: k-means partitions the points, the
@@ -38,15 +39,21 @@ import torch
 from ..utils.profiling import stage
 from . import _kernels
 from .device import DeviceLike, dense_to_tensor
-from .knn import LOCAL_LIST, _order_keys, heap_row
+from .knn import LOCAL_LIST, _bf16_rows, _order_keys, heap_row
 
-__all__ = ["ivf_knn", "build_ivf_layout", "kmeans", "kmeans_assign",
-           "kmeans_assign_plain", "item_means", "ivf_search", "ivf_search_plain"]
+__all__ = ["ivf_knn", "build_ivf_layout", "centroid_norms", "kmeans", "kmeans_assign",
+           "kmeans_assign_chain", "kmeans_assign_plain", "item_means", "ivf_search",
+           "ivf_search_plain"]
 
 # (centroids, assignment) as numpy, by `_partition_key`; the newest last
 _PARTITION_CACHE: dict = {}
 _PARTITION_CACHE_MAX = 4
 _INT32_MAX = 2**31 - 1
+# T15's screen: a centroid is rescored by the chain when its tensor-core score
+# lies within SCREEN_MARGIN (‖x̃‖² + ‖c̃‖²) of the row's best bound, the
+# proven bound of the two scores' difference for rows of up to 1024 padded
+# values (csrc/ivf_kernels.cu), widened in proportion beyond
+SCREEN_MARGIN = 2.0**-13
 
 
 def _partition_key(X: torch.Tensor, C: int, iters: int, seed: int):
@@ -86,7 +93,10 @@ def kmeans_assign(X: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     (C, d)``, both float32 → ``(n,)`` int32. The score is ‖c‖² − 2·x·c with
     the operands of the product rounded to bfloat16, their products summed
     in float32, and ‖c‖² the float32 norm of the unrounded centroid; ties go
-    to the lower cluster."""
+    to the lower cluster. On the card the operands are rounded once here
+    (rows padded to a multiple of 16), the tensor cores screen the
+    centroids and the float32 fma chain over u in order decides: the
+    assignments are ``kmeans_assign_chain``'s bits."""
     if X.device.type == "cpu" and cent.device.type == "cpu":
         return kmeans_assign_plain(X, cent)
     if X.device.type != "cuda":
@@ -95,15 +105,47 @@ def kmeans_assign(X: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     _check_f32_matrix("cent", cent, X.device, cols=X.shape[1])
     n, d = X.shape
     C = cent.shape[0]
-    if not (1 <= d and 1 <= C and max(n, d, C) <= _INT32_MAX):
+    if not (1 <= d <= _INT32_MAX - 15 and 1 <= C and max(n, C) <= _INT32_MAX):
         raise ValueError(f"X {(n, d)} with {C} centroids is outside what T15 takes")
-    csq = (cent * cent).sum(dim=1).contiguous()
+    csq = centroid_norms(cent)
+    Xb, Cb = _bf16_rows(X), _bf16_rows(cent)
+    ld = Xb.shape[1]
+    ct = (Cb.float() ** 2).sum(dim=1).contiguous()
     assign = torch.empty(n, dtype=torch.int32, device=X.device)
     _kernels.launch(
         "kmeans_assign", X.device,
-        X.data_ptr(), cent.data_ptr(), csq.data_ptr(), n, d, C, assign.data_ptr(),
+        Xb.data_ptr(), Cb.data_ptr(), csq.data_ptr(), ct.data_ptr(), n, ld, C,
+        SCREEN_MARGIN * max(1.0, ld / 1024), assign.data_ptr(),
     )
     return assign
+
+
+def centroid_norms(cent: torch.Tensor) -> torch.Tensor:
+    """‖c‖² of every centroid, float32, as T15 takes them: torch's sum,
+    whose order may differ between the CPU and the card."""
+    return (cent * cent).sum(dim=1).contiguous()
+
+
+def kmeans_assign_chain(X: torch.Tensor, cent: torch.Tensor,
+                        csq: Optional[torch.Tensor] = None,
+                        block: int = 8192) -> torch.Tensor:
+    """T15's exact arithmetic in plain torch: the cross term as the float32
+    chain acc = acc + x̃_u·c̃_u over u in order (each bfloat16 product exact
+    in float32, then one rounded add), the score ‖c‖² − 2·acc, the first
+    smallest score. The bits of the card's kernel given the same ‖c‖²
+    (``csq``; ``centroid_norms(cent)`` here unless given), for the tests
+    and the smoke; ``kmeans_assign_plain`` sums by a matmul in another
+    order."""
+    csq = centroid_norms(cent) if csq is None else csq
+    c16 = cent.to(torch.bfloat16).float()
+    out = torch.empty(X.shape[0], dtype=torch.int32, device=X.device)
+    for s in range(0, X.shape[0], block):
+        x16 = X[s:s + block].to(torch.bfloat16).float()
+        acc = torch.zeros((x16.shape[0], cent.shape[0]), dtype=torch.float32, device=X.device)
+        for u in range(X.shape[1]):
+            acc += x16[:, u:u + 1] * c16[:, u][None, :]
+        out[s:s + block] = torch.argmin(csq[None, :] - 2.0 * acc, dim=1).int()
+    return out
 
 
 def kmeans_assign_plain(X: torch.Tensor, cent: torch.Tensor,

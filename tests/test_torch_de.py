@@ -36,6 +36,8 @@ import muon_tpu_torch as mt
 from muon_tpu_torch._core import tools_de as tde
 from muon_tpu_torch.ops import _kernels
 from muon_tpu_torch.ops import de
+from muon_tpu_torch.ops import sparse as dsp
+from muon_tpu_torch.utils import profiling
 
 FIELDS = ("names", "scores", "pvals", "pvals_adj", "logfoldchanges")
 
@@ -193,17 +195,86 @@ def test_wilcoxon_rank_sums_exact(data, monkeypatch):
 
 @pytest.mark.parametrize("data", ["planted", "ties"])
 @pytest.mark.parametrize("sparse", [False, True])
-def test_wilcoxon_matches_reference(reference, data, sparse):
+def test_wilcoxon_matches_reference(reference, data, sparse, monkeypatch):
     X, labels = _planted() if data == "planted" else _ties()
     if sparse:
         X = np.clip(X, 0, None)
     a_ref, a_got = _pair(sp.csr_matrix(X) if sparse else X, labels)
     mu.tl.rank_genes_groups(a_ref, "cluster", method="wilcoxon")
-    mt.tl.rank_genes_groups(a_got, "cluster", method="wilcoxon", device="cpu")
+    routes = []
+    for name in ("wilcoxon_rank_sums", "wilcoxon_rank_sums_csc"):
+        fn = getattr(de, name)
+        monkeypatch.setattr(de, name, lambda *a, _fn=fn, _name=name: routes.append(_name)
+                            or _fn(*a))
+    with profiling.collect() as t:
+        mt.tl.rank_genes_groups(a_got, "cluster", method="wilcoxon", device="cpu")
+    # a sparse X goes through the CSR of its transpose, never densified
+    assert routes == ["wilcoxon_rank_sums_csc" if sparse else "wilcoxon_rank_sums"]
+    assert "de/densify" not in t
+    assert ("sparse/transpose" in t) == sparse
     ref, got = a_ref.uns["rank_genes_groups"], a_got.uns["rank_genes_groups"]
     _assert_same(ref, got, ("scores",), rtol=1e-6)
     # a p-value's relative error is about |z| times z's (2e-6 at z = 8.8)
     _assert_same(ref, got, ("pvals", "pvals_adj", "logfoldchanges"), rtol=1e-5)
+
+
+# the CSR of Xᵀ route: each case a feature of the data it must rank as the
+# dense route does, "all" every one at once
+CSC_CASES = ("ties", "negatives", "stored_zeros", "nan", "empty_and_full", "no_group",
+             "empty_group", "all")
+
+
+def _csc_case(case, n=300, D=9, seed=0):
+    """A sparse X (float32 CSR, explicit entries kept, zeros included), the
+    cells' codes and the group count: integer values tie among the nonzeros."""
+    rng = np.random.default_rng(seed)
+    every = case == "all"
+    mask = rng.uniform(size=(n, D)) < 0.3
+    X = rng.integers(1, 4, size=(n, D)).astype(np.float32)
+    if case == "negatives" or every:
+        X[:, ::2] = rng.integers(-3, 4, size=(n, (D + 1) // 2))  # a stored 0 among them
+        X[:, 1] = rng.normal(size=n)
+    if case == "nan" or every:
+        rows = rng.choice(n, 7, replace=False)
+        X[rows[:5], 2] = np.nan
+        X[rows[5], 2], X[rows[6], 2] = np.inf, -np.inf
+        mask[rows, 2] = True
+    if case == "stored_zeros" or every:
+        z = rng.uniform(size=(n, D)) < 0.05
+        X[z] = np.where(rng.uniform(size=z.sum()) < 0.5, 0.0, -0.0)
+        mask |= z
+    if case == "empty_and_full" or every:
+        mask[:, 0], mask[:, D - 1] = False, True
+    rows, cols = np.nonzero(mask)
+    Xs = sp.csr_matrix((X[rows, cols], (rows, cols)), shape=(n, D))
+    g = 3
+    codes = rng.integers(0, g, n).astype(np.int32)
+    if case == "no_group" or every:
+        codes[::5] = -1  # cells without a group still take part in the ranks
+    if case == "empty_group" or every:
+        codes[codes == 1] = 2
+        g = 5  # groups 1, 3 and 4 have no cell
+    return Xs, codes, g
+
+
+@pytest.mark.parametrize("case", CSC_CASES)
+def test_wilcoxon_csc_matches_dense_route(case):
+    # T26 from the CSR of Xᵀ (its plain version on the CPU) gives the dense
+    # route's rank sums and tie terms bit for bit
+    Xs, codes, g = _csc_case(case)
+    if case == "stored_zeros":
+        assert (Xs.data == 0).sum() > 0 and np.signbit(Xs.data[Xs.data == 0]).any()
+    codes_t = torch.from_numpy(codes)
+    Xt = dsp.transpose(dsp.from_scipy(Xs, "cpu"))
+    rs, tie = de.wilcoxon_rank_sums_csc(Xt, codes_t, g)
+    want_rs, want_tie = de.wilcoxon_rank_sums_plain(torch.from_numpy(Xs.toarray()), codes_t, g)
+    assert rs.dtype == torch.float64 and tie.dtype == torch.int64
+    assert rs.shape == (g, Xs.shape[1]) and tie.shape == (Xs.shape[1],)
+    assert torch.equal(rs, want_rs) and torch.equal(tie, want_tie)
+    if not np.isnan(Xs.data).any():  # and scipy's tie-averaged ranks
+        want_rs, want_tie = _exact_rank_sums(Xs.toarray(), codes, g)
+        np.testing.assert_array_equal(rs.numpy(), want_rs)
+        np.testing.assert_array_equal(tie.numpy(), want_tie)
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +422,38 @@ def test_gpu_wilcoxon_rank_sums_match_plain(cuda, n, D, g, block, monkeypatch):
     rs_c, tie_c = de.wilcoxon_rank_sums(Xc.cpu(), cc.cpu(), g)
     assert torch.equal(rs.cpu(), rs_c) and torch.equal(tie.cpu(), tie_c)
     assert tie[0].item() == n**3 - n and tie[1].item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["short", "long", "full", "mixed", "edges"])
+def test_gpu_wilcoxon_csc_matches_plain(cuda, case):
+    # short columns in shared memory; columns past its capacity (about 7,000
+    # entries at 20 groups) through the scratch; columns of every cell; one
+    # launch over lengths from 0 to n, longest first; the CPU cases' edges
+    rng = np.random.default_rng(len(case))
+    if case == "edges":
+        Xs, codes, g = _csc_case("all", n=3000, D=12, seed=3)
+    else:
+        n, dens = {"short": (2000, np.full(40, 0.1)), "long": (40000, np.array([0.4, 0.9, 1e-4])),
+                   "full": (12000, np.ones(3)), "mixed": (20000, np.geomspace(1e-4, 1.0, 30))}[case]
+        mask = rng.uniform(size=(n, len(dens))) < dens
+        vals = rng.integers(1, 9, size=mask.sum()).astype(np.float32) / 4  # ties
+        rows, cols = np.nonzero(mask)
+        Xs = sp.csr_matrix((vals, (rows, cols)), shape=(n, len(dens)))
+        g = 20
+        codes = rng.integers(0, g, n).astype(np.int32)
+        codes[rng.uniform(size=n) < 0.1] = -1
+    cc = torch.from_numpy(codes).to(cuda)
+    Xt = dsp.transpose(dsp.from_scipy(Xs, cuda))
+    _kernels.reset_launch_counts()
+    rs, tie = de.wilcoxon_rank_sums_csc(Xt, cc, g)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["wilcoxon_rank_sums_csc"] == 1
+    rs_p, tie_p = de.wilcoxon_rank_sums_csc_plain(Xt, cc, g)
+    assert torch.equal(rs, rs_p) and torch.equal(tie, tie_p)
+    rs_d, tie_d = de.wilcoxon_rank_sums(torch.from_numpy(Xs.toarray()).to(cuda), cc, g)
+    assert torch.equal(rs, rs_d) and torch.equal(tie, tie_d)
+    assert torch.equal(rs, de.wilcoxon_rank_sums_csc(Xt, cc, g)[0])  # repeats
 
 
 @pytest.mark.gpu

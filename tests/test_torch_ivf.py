@@ -5,7 +5,10 @@ Tolerances, each with its reason:
 
 * ``build_ivf_layout`` is host numpy in both packages: array for array.
 * T15 (k-means assignment): both round the operands of the cross term to
-  bfloat16 and sum in float32, in another order. On an integer grid every
+  bfloat16 and sum in float32, in another order. (On the card the port's
+  T15 gives ``kmeans_assign_chain``'s bits, the float32 chain over u in
+  order: held exactly there; its screen's margin is held on the CPU by an
+  emulation of the tensor cores' order.) On an integer grid every
   product and sum is exact, so the assignments are equal; on Gaussian data
   at least 99.9% are, and a row that differs is a near-tie of its two scores
   (within 1e-5 of their scale).
@@ -168,6 +171,80 @@ def test_kmeans_cross_term_stays_float32():
     rounded = torch.argmin((ct * ct).sum(1)[None, :] - 2.0 * cross16, dim=1).numpy()
     assert (got == ref).mean() >= 0.999
     assert (rounded == ref).mean() < 0.9
+
+
+def _near_ties(rng, X, C):
+    """Centroids from the rows, each eighth one a copy of another (an exact
+    tie on every row) and each eighth a copy nudged by 1e-6 of its scale."""
+    cent = X[rng.choice(len(X), C, replace=False)].copy()
+    cent[1::8] = cent[0::8][: len(cent[1::8])]
+    nudge = cent[0::8][: len(cent[2::8])]
+    cent[2::8] = nudge + 1e-6 * np.abs(nudge).max() * rng.normal(size=nudge.shape)
+    return cent.astype(np.float32)
+
+
+def _screen(X, cent, rounding):
+    """A CPU emulation of T15's tensor-core screen: the cross term summed in
+    16-wide k-steps (each step's 16 exact products summed, then added to the
+    float32 sum, rounded to nearest or toward zero), the screened score, its
+    margin K (|x~|^2 + |c~|^2) and the chain's score (kmeans_assign_chain's
+    float32 adds over u in order), all per pair."""
+    x = torch.from_numpy(X).to(torch.bfloat16).double().numpy()
+    c = torch.from_numpy(cent).to(torch.bfloat16).double().numpy()
+    csq = (torch.from_numpy(cent) ** 2).sum(1).numpy()
+    chain = np.zeros((len(x), len(c)), np.float32)
+    for u in range(x.shape[1]):
+        chain = chain + (x[:, u:u + 1] * c[None, :, u]).astype(np.float32)
+    mma = np.zeros_like(chain)
+    for k0 in range(0, x.shape[1], 16):
+        step = mma.astype(np.float64) + x[:, k0:k0 + 16] @ c[:, k0:k0 + 16].T
+        near = step.astype(np.float32)
+        if rounding == "toward_zero":  # one ulp toward zero wherever nearest rounded away
+            away = np.abs(near.astype(np.float64)) > np.abs(step)
+            near = np.where(away, np.nextafter(near, np.float32(0)), near)
+        mma = near
+    score = lambda a: (csq[None, :] - np.float32(2.0) * a).astype(np.float32)  # noqa: E731
+    margin = ti.SCREEN_MARGIN * ((x * x).sum(1)[:, None] + (c * c).sum(1)[None, :])
+    return score(mma), margin, score(chain)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("data", ["gaussian", "near_ties"])
+def test_kmeans_screen_stays_within_its_margin(data, rounding):
+    # T15's screen sums in another order than the chain: every screened score
+    # lies within the margin of its chain score, so the centroids the screen
+    # passes (s - D <= min(s + D)) hold the chain's argmin, which they give
+    rng = np.random.default_rng(11)
+    X, _ = clustered_data(n_per=500, n_clusters=6, d=50, seed=11, noise=1.0)
+    cent = X[rng.choice(len(X), 100, replace=False)] if data == "gaussian" \
+        else _near_ties(rng, X, 100)
+    s, D, chain = _screen(X, cent, rounding)
+    assert (np.abs(s.astype(np.float64) - chain) <= D).all()
+    passed = s - D <= (s + D).min(axis=1, keepdims=True)
+    want = ti.kmeans_assign_chain(torch.from_numpy(X), torch.from_numpy(cent)).numpy()
+    np.testing.assert_array_equal(want, np.argmin(chain, axis=1))
+    assert passed[np.arange(len(X)), want].all()
+    np.testing.assert_array_equal(np.argmin(np.where(passed, chain, np.inf), axis=1), want)
+    if data == "near_ties":  # the copies tie on the chain and both pass
+        assert (want % 8 != 1).all() and passed.sum(1).mean() > 1.0
+    else:
+        assert passed.sum(1).mean() < 1.5
+
+
+def test_kmeans_assign_chain_matches_the_plain_version():
+    # the chain and the matmul plain version: equal on an integer grid,
+    # where every sum is exact, and at >= 99.9% of Gaussian rows
+    rng = np.random.default_rng(12)
+    Xi = torch.from_numpy(rng.integers(-8, 9, size=(3000, 16)).astype(np.float32))
+    assert torch.equal(ti.kmeans_assign_chain(Xi, Xi[:33].contiguous()),
+                       ti.kmeans_assign_plain(Xi, Xi[:33].contiguous()))
+    X, _ = clustered_data(n_per=1000, n_clusters=4, d=50, seed=12)
+    Xt = torch.from_numpy(X)
+    cent = Xt[torch.from_numpy(rng.choice(len(X), 64, replace=False))].contiguous()
+    got = ti.kmeans_assign_chain(Xt, cent, block=777)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ti.kmeans_assign_chain(Xt, cent, ti.centroid_norms(cent)))
+    assert (got == ti.kmeans_assign_plain(Xt, cent)).float().mean().item() >= 0.999
 
 
 def test_kmeans_one_step_matches_jax():
@@ -530,6 +607,31 @@ def test_gpu_kmeans_assign_matches_plain(cuda, n, d, C):
     Xi = torch.from_numpy(rng.integers(-8, 9, size=(n, d)).astype(np.float32)).to(cuda)
     ci = Xi[:C].contiguous()
     assert torch.equal(ti.kmeans_assign(Xi, ci), ti.kmeans_assign_plain(Xi, ci))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,C", [(20000, 50, 1024), (5000, 16, 64), (3000, 80, 100),
+                                   (7000, 50, 2000), (4000, 50, 100), (1000, 1, 7)])
+@pytest.mark.parametrize("data", ["gaussian", "near_ties"])
+def test_gpu_kmeans_assign_matches_chain(cuda, n, d, C, data):
+    # T15's assignments are the chain's bits: the table resident (C = 1024),
+    # streamed (2000), rows in two chunks (d = 80), C off the tile of 64.
+    # The chain on the CPU is handed the card's ‖c‖²: torch sums them in
+    # another order on the CPU, and with the CPU's the chain parted from
+    # the kernel at near_ties-20000-50-1024, where nudged centroids tie
+    rng = np.random.default_rng(n + d + C)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    cent = X[rng.choice(n, C, replace=False)] if data == "gaussian" else _near_ties(rng, X, C)
+    Xc, cc = torch.from_numpy(X).to(cuda), torch.from_numpy(cent).to(cuda)
+    _kernels.reset_launch_counts()
+    got = ti.kmeans_assign(Xc, cc)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["kmeans_assign"] == 1
+    assert torch.equal(got, ti.kmeans_assign_chain(Xc, cc))
+    csq = ti.centroid_norms(cc).cpu()
+    assert torch.equal(got.cpu(), ti.kmeans_assign_chain(torch.from_numpy(X),
+                                                         torch.from_numpy(cent), csq))
+    assert torch.equal(got, ti.kmeans_assign(Xc, cc))  # repeats
 
 
 @pytest.mark.gpu
