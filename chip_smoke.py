@@ -132,13 +132,15 @@ is printed. An exception stops the run at once, with a code other than 0:
 10. Leiden: the ARI of the clusters against the planted labels;
 11. UMAP path, counted from ``tl.umap(mdata)`` alone: T13 every epoch and
     T2 in the spectral init; one T13 epoch against its plain version from
-    the spectral layout with shared negatives; the 200-epoch layouts of the
+    the spectral layout with shared negatives, beside the graph's row
+    lengths (median, p99, max); the 200-epoch layouts of the
     kernel and of the plain version from the same start, held by the
     planted-label share of each cell's 15 nearest 2-D neighbours (T5 at
     d = 2), and that share's spread over 10 seeds on the same graph and
     over 5 starts jittered by 1e-4 at the checked seed;
-12. times: the warm wall of each path with its stage split, each path's
-    device busy share under the profiler, and the plain-PyTorch paths once;
+12. times: the warm wall of each path with its stage split (UMAP's also as
+    the mean of its 200 epochs), each path's device busy share under the
+    profiler, and the plain-PyTorch paths once;
 13. ``[ivf]``, counted from ``pp.neighbors`` at 1M alone: T15 nine times,
     T14, T6, no T5; the table (self first, no −1, ascending), its recall
     over all rows against exact T5 at the same size with both times, and
@@ -151,10 +153,10 @@ is printed. An exception stops the run at once, with a code other than 0:
     per epoch, no T2; the layout's planted-label share against the graph's
     own; the membership seed against the exact seed by their Rayleigh
     quotients under the graph's normalised operator (a seed of noise
-    fails), with both times; the stage split;
+    fails), with both times; the stage split and the mean epoch;
 15. kernels: T14 (k+1 = 20 and 201, the first 64 work items of the 1M
-    layout), T15 (all rows) and T16 (one application) against their plain
-    versions;
+    layout), T15 (all rows), T16 (one application) and T13 (epoch 0, with
+    the 1M graph's row lengths) against their plain versions;
 16. repairs (after phase 12): T13 at 12 components (the kernel that takes
     the number at run time) against plain on the WNN graph; ``[wnn-wide]``,
     ``pp.neighbors(mdata, n_multineighbors=300)`` over neighbour lists 300
@@ -1849,7 +1851,8 @@ def phase_umap_path(ttl, tu, tk, kernels, mods, wnn_md, labels, cuda):
                 30 * (due + negs.numel()), F32_OPS_PER_S)
     strides = sorted(set((1 << shift.astype(np.int64)).tolist()))
     print(f"[kernel] umap_epoch (n={N_CELLS}, E={E}, strides {strides}, due at epoch 0 "
-          f"{due}): max_abs_err={err:.3e} (<= 1e-3; eons equal {same_eons}) ms={ms:.4f} "
+          f"{due}; {row_stats(heads, N_CELLS)}): max_abs_err={err:.3e} (<= 1e-3; eons equal "
+          f"{same_eons}) ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
           f"library_ms=None", flush=True)
     check(err <= 1e-3 and same_eons, "umap_epoch vs plain from the spectral layout, max 1e-3")
@@ -1940,7 +1943,9 @@ def print_profile(label, prof):
           + "; ".join(f"{k[:60]} {v * 1e3:.3f}ms" for k, v in top), flush=True)
 
 
-def timed_reps(label, make, run, profiling, reps=3):
+def timed_reps(label, make, run, profiling, reps=3) -> list:
+    """``reps`` warm runs of ``run(make())``: prints their walls and stage
+    splits and returns the splits."""
     walls, splits = [], []
     for _ in range(reps):
         h = make()
@@ -1953,6 +1958,22 @@ def timed_reps(label, make, run, profiling, reps=3):
         splits.append(stage_seconds(t))
     print(f"[times] {label} warm wall s {[round(w, 4) for w in walls]} "
           f"median {float(np.median(walls)):.4f}; stages {splits}", flush=True)
+    return splits
+
+
+def mean_epoch_line(label, sgd_seconds) -> str:
+    """The mean time of one of the N_EPOCHS epochs of ``umap/sgd_*``'s
+    seconds (host clock, synchronised at the stage's end, each epoch's
+    negatives drawn inside)."""
+    ms = [round(1e3 * v / N_EPOCHS, 4) for v in sgd_seconds]
+    return f"[times] {label}: mean epoch of {N_EPOCHS} {ms} ms"
+
+
+def row_stats(heads, n: int) -> str:
+    """T13's rows: the edges per head vertex after the edge schedule."""
+    L = np.bincount(heads, minlength=n)
+    return (f"rows: median {np.median(L):.0f}, p99 {np.percentile(L, 99):.0f}, max {L.max()}, "
+            f"{int((L == 0).sum())} empty, {int((L > 64).sum())} over 64 edges")
 
 
 def phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, X_rna,
@@ -1984,8 +2005,10 @@ def phase_times(tac, tpp, tpt, ttl, dsp, tla, tk, tf, td, profiling, X, atac_h, 
     timed_reps("prot clr+pca+neighbors", lambda: P,
                lambda P_: prot_path(tpt, tpp, P_, cuda), profiling)
     print_profile("prot clr+pca+neighbors", profiled(lambda: prot_path(tpt, tpp, P, cuda)))
-    timed_reps("UMAP tl.umap(mdata)", lambda: graph_holder(wnn_mods, wnn_md),
-               lambda md: ttl.umap(md, device=cuda), profiling)
+    splits = timed_reps("UMAP tl.umap(mdata)", lambda: graph_holder(wnn_mods, wnn_md),
+                        lambda md: ttl.umap(md, device=cuda), profiling)
+    print(mean_epoch_line("UMAP at 100k", [sp_[f"umap/sgd_{N_EPOCHS}epochs"] for sp_ in splits]),
+          flush=True)
     print_profile("UMAP tl.umap(mdata)",
                   profiled(lambda: ttl.umap(graph_holder(wnn_mods, wnn_md), device=cuda)))
 
@@ -2304,6 +2327,8 @@ def phase_umap_big(ttl, tu, tk, tf, kernels, profiling, h, labels, cuda):
         wall2 = time.perf_counter() - t0
     print(f"[times] tl.umap at 1M, second run: {wall2:.4f}s; stages {stage_seconds(t)}",
           flush=True)
+    print(mean_epoch_line("UMAP at 1M, second run", t[f"umap/sgd_{N_EPOCHS}epochs"]),
+          flush=True)
     return launches
 
 
@@ -2455,8 +2480,8 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
     pools = {k: [edges.eps.clone() for _ in range(6)] for k in ("k", "p")}
     buf = torch.empty_like(emb0)
     E, due = len(eps), int((eps <= 1.0).sum())
-    report("umap_epoch", f"at 1M (n={n}, E={E}, due at epoch 0 {due}; epoch 0 from a random "
-           f"layout)", err, "<= 1e-3, eons equal", err <= 1e-3 and same_eons,
+    report("umap_epoch", f"at 1M (n={n}, E={E}, due at epoch 0 {due}; {row_stats(heads, n)}; "
+           f"epoch 0 from a random layout)", err, "<= 1e-3, eons equal", err <= 1e-3 and same_eons,
            median_ms(lambda: tu.umap_epoch(emb0, buf, edges, pools["k"].pop(), *args)),
            median_ms(lambda: tu.umap_epoch_plain(emb0, buf, edges, pools["p"].pop(), *args),
                      reps=3),

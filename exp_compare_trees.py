@@ -1,7 +1,8 @@
 """Two checkouts of the port on one card: T9's σ, the MOFA bench fit, the
 wide WNN path, T5, T14, T40, T2's split variant, T3, T36, the MOFA
-sweeps around T18, the wilcoxon markers (T26) and the 1M k-means (T15),
-for a change held beside its parent in one call.
+sweeps around T18, the wilcoxon markers (T26), the 1M k-means (T15), the
+UMAP epochs (T13) and MEFISTO's kernel matrices (T24), for a change held
+beside its parent in one call.
 
 Run on a machine with a CUDA card, from the root of the repo, with the
 other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
@@ -13,7 +14,8 @@ other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
     python3 exp_compare_trees.py compare OUT parent1 change1 ...
 
 SECTIONS is a comma-separated subset of
-``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18,t26,t15`` (all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
+``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18,t26,t15,t13,t24`` (all by
+default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
 approx (the rows ``_operand`` rounds to bfloat16; a tree whose ``knn_topk``
 has no ``approx`` argument takes them as float32), at k+1 = 20, 201 and
 301. ``t14``: T14 over the whole work-item layout of the 1M representation
@@ -57,7 +59,22 @@ was held. ``t15``: the 1M k-means as ``ivf_knn`` runs it (``make_big_rep(0)``,
 C = 1024 from the rows ``default_rng(0)`` picks, 8 Lloyd steps, then the
 final assignment): the centroids and the assignment, three walls, T15
 alone at the final centroids (CUDA events), and the rounding of X that its
-wrapper makes (``knn._bf16_rows``) beside four other ways of building it. Each writes a SHA-256
+wrapper makes (``knn._bf16_rows``) beside four other ways of building it.
+``t13``: chip_smoke.py's two UMAP graphs, made once by ``make`` (the
+connectivities of the e2e's WNN of three modalities at 100,000 cells, and
+of ``pp.neighbors(20)`` of ``make_big_rep(0)`` at 1,000,000 with its
+membership table), their row lengths after the edge schedule's pruning
+(``make`` prints them); one epoch (epoch 0, 8 and 13, 5 negatives drawn
+once) from the spectral start at 100k and a random one at 1M: ``emb_out``
+and ``eons``, and T13's time (fresh eons each call, CUDA events with a
+spin queued before the start event, as chip_smoke.py's ``median_ms``);
+then ``tl.umap``'s 200 epochs on each graph: the layout and
+``umap/sgd_200epochs`` of three runs after a warm one. ``t24``: T24 at
+``[kernel] gp_rbf_kernel``'s shapes (gp_K 10 × 3000² with a learned Kg,
+K_nm 100,000 × 1,000 and K_mm 1,000² of one factor, the smoke's draws): the
+matrices and their times (spun as T13's); and the
+smoke's dense ``[mefisto]`` fit (3,000 cells, 100 sweeps): its ELBO trace,
+Z and the chosen lengthscales, and its wall. Each writes a SHA-256
 of every output (the bits compared), T5's approx lists at k+1 = 20, and
 CUDA-event times (median of 5, and the spread).
 
@@ -95,7 +112,8 @@ import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
 SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18", "t26",
-            "t15")
+            "t15", "t13", "t24")
+UMAP_EPOCHS = (0, 8, 13)  # T13 at the epoch of every stride, and two of fewer
 KMEANS_C, KMEANS_ITERS = 1024, 8  # the 1M path's partition (ops/ivf.ivf_knn)
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
 RING_K1S = (21, 201, 301)  # T40's lists: the mesh graphs', WNN's pools, the wide lists
@@ -210,7 +228,65 @@ def make(out: str, sections, cuda) -> None:
         tac.pp.tfidf(h, device=cuda)
         for name, X in (("svi_rna", cs.normalise(dsp, X_rna, cuda)), ("svi_atac", h.X)):
             data[name] = cs.topvar_dense(dsp, X, cuda, cs.MOFA_COLS).cpu().numpy()
+    if "t13" in sections:
+        data.update(make_umap_graphs(cuda))
     np.savez(f"{out}/inputs.npz", **data)
+
+
+def row_lengths(G, n_epochs: int = cs.N_EPOCHS) -> dict:
+    """The lengths of T13's rows: the edges per head after the edge
+    schedule's pruning."""
+    from muon_tpu_torch.ops import umap as tu
+
+    heads = tu.edge_schedule(G, n_epochs)[0]
+    L = np.bincount(heads, minlength=G.shape[0])
+    return {"edges": int(L.sum()), "mean": float(L.mean()), "median": float(np.median(L)),
+            "p99": float(np.percentile(L, 99)), "max": int(L.max()),
+            "empty": int((L == 0).sum()), "over_64": int((L > 64).sum())}
+
+
+def make_umap_graphs(cuda) -> dict:
+    """The smoke's UMAP graphs (100k: the e2e's WNN; 1M: pp.neighbors(20) of
+    make_big_rep(0), with its membership table), each epoch's start and
+    negatives."""
+    from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch import prot as tpt
+    from muon_tpu_torch.ops import fuzzy as tf
+    from muon_tpu_torch.ops import ivf as ti
+    from muon_tpu_torch.ops import sparse as dsp
+    from muon_tpu_torch.ops import umap as tu
+
+    data = {}
+    X_rna, X_atac, P, *_ = cs.make_e2e_counts(cs.SEED)
+    mods = {"rna": cs.rna_path(dsp, tpp, X_rna, cuda),
+            "atac": cs.atac_e2e_path(tac, tpp, X_atac, cuda),
+            "prot": cs.prot_path(tpt, tpp, P, cuda)}
+    md = cs.MuHolder(mods)
+    tpp.neighbors(md, device=cuda)
+    graphs = {"100k": md.obsp["connectivities"].tocsr()}
+    del X_rna, X_atac, P, mods, md
+    h = cs.big_holder(cs.make_big_rep(cs.SEED)[0])
+    ti._PARTITION_CACHE.clear()
+    tpp.neighbors(h, n_neighbors=cs.N_NEIGHBORS, use_rep="X_rep", device=cuda)
+    graphs["1m"] = h.obsp["connectivities"]
+    tag = getattr(graphs["1m"], tf.MEMBERSHIP_TAG)
+    data.update(umap1m_member_idx=tag["idx"], umap1m_member_vals=tag["vals"])
+    del h
+    for key, G in graphs.items():
+        n = G.shape[0]
+        data.update({f"umap{key}_data": G.data, f"umap{key}_indices": G.indices,
+                     f"umap{key}_indptr": G.indptr})
+        print(f"make: T13's rows at {key}: {row_lengths(G)}", flush=True)
+        if key == "100k":
+            start = tu.spectral_init(G, 2, seed=42, device=cuda)
+        else:
+            gen = torch.Generator(device=cuda).manual_seed(13)
+            start = (torch.rand((n, 2), generator=gen, device=cuda) * 20 - 10).cpu().numpy()
+        data[f"umap{key}_start"] = start
+        rng = np.random.default_rng(3)
+        data[f"umap{key}_negs"] = rng.integers(0, n, (n, 5), dtype=np.int32)
+    return data
 
 
 def event_times(fn, reps: int) -> list:
@@ -227,6 +303,31 @@ def event_times(fn, reps: int) -> list:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
+
+
+def spun_times(fn, reps: int) -> list:
+    """As ``event_times``, with a spin of about a millisecond queued before
+    each start event (chip_smoke.median_ms), so the device is still busy
+    while the host enqueues ``fn``: the time of its launches, not of the
+    host's gap before them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def epoch_eons(eps: np.ndarray, epoch: int) -> np.ndarray:
+    """The eons an edge holds at ``epoch`` had it been sampled on its
+    schedule: eps times the samples it has taken, from eps on."""
+    return eps * np.floor((epoch + 1) / eps).clip(min=1).astype(np.float32)
 
 
 def event_ms(fn, reps: int) -> float:
@@ -563,6 +664,96 @@ def rounding_variants(X) -> dict:
             for name, fn in variants.items()}
 
 
+def umap_graph(inp, key: str):
+    """A graph of ``make_umap_graphs`` as the connectivities pp.neighbors
+    left (the 1M graph with its membership tag)."""
+    from scipy import sparse as sp
+
+    from muon_tpu_torch.ops import fuzzy as tf
+
+    indptr = inp[f"umap{key}_indptr"]
+    n = len(indptr) - 1
+    G = sp.csr_matrix((inp[f"umap{key}_data"], inp[f"umap{key}_indices"], indptr),
+                      shape=(n, n))
+    if f"umap{key}_member_idx" in inp.files:
+        idx, vals = inp[f"umap{key}_member_idx"], inp[f"umap{key}_member_vals"]
+        setattr(G, tf.MEMBERSHIP_TAG, {"idx": idx, "vals": vals, "n": n, "nnz": int(G.nnz),
+                                       "set_op_mix_ratio": 1.0})
+    return G
+
+
+def run_t13(ttl, tu, profiling, inp, res, times, cuda) -> None:
+    """One epoch at epochs 0, 8 and 13 from the saved start at 100k and 1M
+    (the outputs' digests, T13's times), then tl.umap's 200 epochs on each
+    graph (the layout, its sgd stage)."""
+    a, b = tu.find_ab_params()
+    for key in ("100k", "1m"):
+        G = umap_graph(inp, key)
+        heads, tails, eps, _, dc = tu.edge_schedule(G, cs.N_EPOCHS)
+        edges = tu.umap_edges(heads, tails, eps, tu.bucket_shifts(eps, cs.N_EPOCHS),
+                              G.shape[0], cuda)
+        emb0 = torch.from_numpy(inp[f"umap{key}_start"]).to(cuda)
+        negs = torch.from_numpy(inp[f"umap{key}_negs"]).to(cuda)
+        dct = torch.from_numpy(dc).to(cuda)
+        buf = torch.empty_like(emb0)
+        for epoch in UMAP_EPOCHS:
+            fresh = torch.from_numpy(epoch_eons(eps, epoch)).to(cuda)
+            args = (dct, negs, epoch, tu.epoch_alpha(1.0, epoch, cs.N_EPOCHS), a, b, 1.0)
+            eons = fresh.clone()
+            out = tu.umap_epoch(emb0, torch.empty_like(emb0), edges, eons, *args)
+            res[f"t13_{key}_epoch{epoch}_sha256"] = np.array(digest(out, eons))
+            due = int((eons != fresh).sum())
+            pool = [fresh.clone() for _ in range(7)]
+            times[f"T13 ms at {key}, epoch {epoch} ({due} of {len(eps)} edges due)"] = spread(
+                spun_times(lambda: tu.umap_epoch(emb0, buf, edges, pool.pop(), *args), 5))
+        walls, sgd = [], []
+        for rep in range(4):
+            h = cs.Holder(None)
+            h.obsp["connectivities"] = G
+            h.uns["neighbors"] = {"connectivities_key": "connectivities"}
+            with profiling.collect() as t:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ttl.umap(h, device=cuda)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if rep:
+                walls.append(wall)
+                sgd.append(t[f"umap/sgd_{cs.N_EPOCHS}epochs"][0])
+        res[f"t13_{key}_layout"] = h.obsm["X_umap"]
+        times[f"tl.umap at {key}, walls s"] = walls
+        times[f"umap/sgd_{cs.N_EPOCHS}epochs at {key}, s"] = sgd
+        del edges, emb0, negs, dct, buf, G
+
+
+def run_t24(tgp, tm, res, times, cuda) -> None:
+    """T24 at the smoke's three shapes (matrices and times) and the dense
+    [mefisto] fit (ELBO trace, Z, lengthscales, wall)."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    ells = torch.linspace(0.05, 0.8, cs.MEF_K, device=cuda)
+    scales = torch.linspace(0.1, 0.9, cs.MEF_K, device=cuda)
+    Kg = tgp.normalize_kg(torch.randn((cs.MEF_K, 2, 2), generator=gen, device=cuda))
+    c = torch.rand((cs.MEF_N, 1), generator=gen, device=cuda)
+    g = (torch.arange(cs.MEF_N, device=cuda) >= cs.MEF_N // 2).float()
+    cn = torch.rand((cs.SGP_N, 1), generator=gen, device=cuda)
+    gn = (torch.arange(cs.SGP_N, device=cuda) % 2).float()
+    cu, gu = cn[::cs.SGP_N // 1000].contiguous(), gn[::cs.SGP_N // 1000].contiguous()
+    for name, args in (("gp_K", (c, c, ells, scales, g, g, Kg, True)),
+                       ("K_nm", (cn, cu, ells[:1], scales[:1], gn, gu, None, False)),
+                       ("K_mm", (cu, cu, ells[:1], scales[:1], gu, gu, None, True))):
+        res[f"t24_{name}_sha256"] = np.array(digest(tgp.rbf_kernel(*args)))
+        shape = "x".join(str(v) for v in (args[2].shape[0], args[0].shape[0], args[1].shape[0]))
+        times[f"T24 ms, {name} {shape}"] = spread(spun_times(lambda: tgp.rbf_kernel(*args), 7))
+    data = cs.mefisto_data(**cs.MEF_CASES["mefisto"][0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = cs.mefisto_fit(tm, "mefisto", data, cs.MEF_SWEEPS, device=cuda)
+    torch.cuda.synchronize()
+    times["[mefisto] dense fit, 100 sweeps, wall s"] = time.perf_counter() - t0
+    res.update(t24_mefisto_elbo=np.asarray(fit.elbo_history), t24_mefisto_Z=fit.Z,
+               t24_mefisto_ell=fit.gp_lengthscales)
+
+
 def run(root: str, tag: str, out: str, sections, cuda) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import muon_tpu_torch
@@ -570,7 +761,7 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
     from muon_tpu_torch import tl as ttl
     from muon_tpu_torch.models import mofa as tm
     from muon_tpu_torch.ops import _kernels, ivf as ti, knn as tk, pwm as tpw, sparse as tsp
-    from muon_tpu_torch.ops import wnn as tw
+    from muon_tpu_torch.ops import gp as tgp, umap as tu, wnn as tw
     from muon_tpu_torch.utils import profiling
 
     if not muon_tpu_torch.__file__.startswith(os.path.abspath(root)):
@@ -665,6 +856,10 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         run_t26(ttl, profiling, inp, res, times, cuda)
     if "t15" in sections:
         run_t15(ti, inp, res, times, cuda)
+    if "t13" in sections:
+        run_t13(ttl, tu, profiling, inp, res, times, cuda)
+    if "t24" in sections:
+        run_t24(tgp, tm, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)

@@ -324,9 +324,12 @@ def umap(
     membership table (T16).
 
     ``mesh`` (or ``set_options(mesh=...)``): a ``parallel.Mesh`` of more than
-    one rank runs ``parallel.sharded_umap_embed`` (``maxiter`` epochs, 200
-    when None, as the reference's), from the exact spectral seed or
-    ``init_pos`` given as an array; every rank writes the same layout."""
+    one rank runs ``parallel.sharded_umap_embed`` as the reference's mesh
+    branch calls it (``maxiter`` epochs, 200 when None): from the exact
+    spectral seed, with a and b fitted to ``spread`` and ``min_dist``, so
+    ``init_pos`` and a caller's ``a`` and ``b`` do not reach the layout there;
+    ``uns`` still records the caller's a and b, as the reference's does.
+    Every rank writes the same layout."""
     from ..ops.umap import find_ab_params, umap_embed
     from .config import resolve_mesh
 
@@ -346,18 +349,13 @@ def umap(
     if mesh is not None:
         from ..parallel.pipeline import sharded_umap_embed
 
-        if init_pos is not None and not isinstance(init_pos, np.ndarray) \
-                and init_pos != "spectral":
-            raise NotImplementedError(
-                f"init_pos={init_pos!r} over a device mesh: the sharded UMAP starts from "
-                "the spectral seed or an array"
-            )
+        # the reference's mesh branch (muon_tpu/_core/tools_graph.py:399-412)
+        # passes neither a, b nor init_pos: the same call here
         emb = sharded_umap_embed(
             conn.tocsr(), mesh, n_components=n_components,
             n_epochs=maxiter if maxiter else 200, min_dist=min_dist, spread=spread,
             alpha=alpha, gamma=gamma, negative_sample_rate=negative_sample_rate,
-            random_state=random_state if isinstance(random_state, int) else 42, a=a, b=b,
-            init=init_pos if isinstance(init_pos, np.ndarray) else None,
+            random_state=random_state if isinstance(random_state, int) else 42,
         )
         data.obsm["X_umap"] = emb
         data.uns["umap"] = {"params": {"a": a, "b": b, "random_state": random_state}}

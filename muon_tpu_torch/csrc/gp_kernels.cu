@@ -12,10 +12,31 @@
 // with fac_f = Kg[f, g_i, g_j] when a learned group correlation is given,
 // else [g_i == g_j] (1 without group labels). It reads a few covariates and
 // writes F na nb floats: bound by its writes (400 MB for the sparse path's
-// 100,000 x 1,000 Knm, 0.12 ms at 3.35 TB/s). A thread writes four rows of
-// four neighbouring columns with one 16-byte store each (one column where the
-// row length is not a multiple of 4), neighbouring threads neighbouring
-// columns, so each warp's stores are 512 contiguous bytes.
+// 100,000 x 1,000 Knm, 0.12 ms at 3.35 TB/s). Each entry costs an exp on the
+// special-function units (1e8 of them, 0.03 ms at their rate), a division
+// and about a dozen other instructions, so the design keeps an entry's
+// arithmetic under its write:
+// - A thread owns four neighbouring columns (one where the row length is not
+//   a multiple of 4 or the output is not 16-byte aligned), neighbouring
+//   threads neighbouring columns, and writes each row's four entries with one
+//   streaming 16-byte store (st.global.cs: the matrix is not read back here),
+//   so a warp's stores are 512 contiguous bytes.
+// - What does not change along a column stays in registers: the columns'
+//   covariates (p = 1, 2, 3 in registers; from 4 on the run-time loop reads
+//   them), their labels and Kg rows' offsets, the factor's l^2, s_f and the
+//   diagonal term. A row's covariates and label are one broadcast load. A
+//   learned Kg of up to 32 groups sits in shared memory.
+// - The division by l^2 stays the IEEE __fdiv_rn: with l^2 fixed in a thread
+//   the compiler hoists div.rn's reciprocal out of the loops, so an entry pays
+//   the product with it, the fma corrections and one range check (FCHK). The
+//   same product and two corrections written out, with their own range check
+//   (exact for |x|, l^2 in [2^-60, 2^60] by Markstein's theorem), ran slower:
+//   0.1750 ms against 0.1481 at the sparse path's Knm (exp_t24_variants.py).
+// - The grid follows the output: a thread walks 16 rows when the output fills
+//   two waves of the card with that, and fewer (down to 1) when it is small,
+//   as the sparse path's 1,000 x 1,000 Kmm.
+// Every entry is the first design's bits: the same operations in the same
+// order.
 //
 // T25 is T24's backward with respect to Kg:
 //   dKg[f, g, h] = s_f sum over i with g_i = g, j with g_j = h of
@@ -36,10 +57,11 @@
 
 namespace {
 
-constexpr int kCols = 64;   // T24: columns per block
+constexpr int kCols = 64;   // T24: column threads per block
 constexpr int kLanes = 4;   // T24: row lanes per block
-constexpr int kRowsPer = 4; // T24: rows a thread writes
+constexpr int kMaxRowsPer = 16;  // T24: the most rows a thread walks
 constexpr int kGridY = 65535;
+constexpr int kSharedKg = 32;  // T24: a learned Kg of up to 32 groups in shared memory
 constexpr int kKgThreads = 256;
 constexpr int kKgChunk = 128;  // T25: rows per pass-1 partial
 constexpr int kMaxGroups = 32;
@@ -59,47 +81,99 @@ __device__ __forceinline__ float rbf(float d2, float ell) {
   return expf(__fdiv_rn(__fmul_rn(-0.5f, d2), __fmul_rn(ell, ell)));
 }
 
-template <int V>
+// T24. P = 1, 2, 3 covariates in registers, P = 0 any p at run time; V
+// columns a thread (4: one 16-byte store a row, or 1)
+template <int P, int V>
 __global__ void __launch_bounds__(kCols * kLanes)
 rbf_kernel(const float* __restrict__ a, const float* __restrict__ b, int na, int nb, int p,
            const float* __restrict__ ell, const float* __restrict__ scale,
            const float* __restrict__ ga, const float* __restrict__ gb,
-           const float* __restrict__ Kg, int G, int same, float* __restrict__ out) {
+           const float* __restrict__ Kg, int G, int same, int rows_per,
+           float* __restrict__ out) {
+  __shared__ float skg[kSharedKg * kSharedKg];
   const int f = blockIdx.z;
+  const float* kg = Kg != nullptr ? Kg + (int64_t)f * G * G : nullptr;
+  if (kg != nullptr && G <= kSharedKg) {
+    for (int t = threadIdx.y * kCols + threadIdx.x; t < G * G; t += kCols * kLanes)
+      skg[t] = kg[t];
+    __syncthreads();
+    kg = skg;
+  }
   const int j0 = (blockIdx.x * kCols + threadIdx.x) * V;
   if (j0 >= nb) return;
   const float l = ell[f];
   const float s = scale[f];
   const float diag = __fadd_rn(__fsub_rn(1.f, s), 1e-4f);
+  const float y = __fmul_rn(l, l);
+  float bj[V][P > 0 ? P : 1];
   float gj[V];
+  int kj[V];  // the columns' rows of Kg
 #pragma unroll
-  for (int u = 0; u < V; ++u) gj[u] = gb != nullptr ? gb[j0 + u] : 0.f;
-  const float* kg = Kg != nullptr ? Kg + (int64_t)f * G * G : nullptr;
+  for (int u = 0; u < V; ++u) {
+    gj[u] = gb != nullptr ? gb[j0 + u] : 0.f;
+    kj[u] = (int)gj[u];
+    if constexpr (P > 0) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) bj[u][q] = b[(int64_t)(j0 + u) * P + q];
+    }
+  }
   float* o = out + (int64_t)f * na * nb;
-  for (int rb = blockIdx.y; (int64_t)rb * kLanes * kRowsPer < na; rb += gridDim.y) {
-#pragma unroll
-    for (int t = 0; t < kRowsPer; ++t) {
-      const int i = (rb * kRowsPer + t) * kLanes + threadIdx.y;
+  const int64_t rows_blk = (int64_t)kLanes * rows_per;
+  for (int64_t rb = blockIdx.y; rb * rows_blk < na; rb += gridDim.y) {
+    for (int t = 0; t < rows_per; ++t) {
+      const int64_t i = (rb * rows_per + t) * kLanes + threadIdx.y;
       if (i >= na) break;
-      const float* ai = a + (int64_t)i * p;
+      float ai[P > 0 ? P : 1];
+      if constexpr (P > 0) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) ai[q] = a[i * P + q];
+      }
       const float gi = ga != nullptr ? ga[i] : 0.f;
+      const int ki = (int)gi * G;
       __align__(16) float v[V];
 #pragma unroll
       for (int u = 0; u < V; ++u) {
-        float x = __fmul_rn(s, rbf(sq_dist(ai, b + (int64_t)(j0 + u) * p, p), l));
+        float d2;
+        if constexpr (P > 0) {
+          // 0 + t^2 is t^2 (t^2 is never -0), so the first term starts the sum
+          const float d0 = __fsub_rn(ai[0], bj[u][0]);
+          d2 = __fmul_rn(d0, d0);
+#pragma unroll
+          for (int q = 1; q < P; ++q) {
+            const float dq = __fsub_rn(ai[q], bj[u][q]);
+            d2 = __fadd_rn(d2, __fmul_rn(dq, dq));
+          }
+        } else {
+          d2 = sq_dist(a + i * p, b + (int64_t)(j0 + u) * p, p);
+        }
+        const float x = __fmul_rn(-0.5f, d2);
+        float e = expf(__fdiv_rn(x, y));
+        e = __fmul_rn(s, e);
         if (ga != nullptr)
-          x = __fmul_rn(x, kg != nullptr ? kg[(int)gi * G + (int)gj[u]]
-                                         : (gi == gj[u] ? 1.f : 0.f));
-        if (same && i == j0 + u) x = __fadd_rn(x, diag);
-        v[u] = x;
+          e = __fmul_rn(e, kg != nullptr ? kg[ki + kj[u]] : (gi == gj[u] ? 1.f : 0.f));
+        if (same && i == j0 + u) e = __fadd_rn(e, diag);
+        v[u] = e;
       }
+      float* dst = o + i * nb + j0;
       if constexpr (V == 4) {
-        *reinterpret_cast<float4*>(o + (int64_t)i * nb + j0) = *reinterpret_cast<const float4*>(v);
+        __stcs(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(v));
       } else {
-        o[(int64_t)i * nb + j0] = v[0];
+        __stcs(dst, v[0]);
       }
     }
   }
+}
+
+template <int P>
+void launch_rbf(bool vec4, dim3 grid, const float* a, const float* b, int na, int nb, int p,
+                const float* ell, const float* scale, const float* ga, const float* gb,
+                const float* Kg, int G, int same, int rows_per, float* out, cudaStream_t s) {
+  if (vec4)
+    rbf_kernel<P, 4><<<grid, dim3(kCols, kLanes), 0, s>>>(a, b, na, nb, p, ell, scale, ga, gb,
+                                                          Kg, G, same, rows_per, out);
+  else
+    rbf_kernel<P, 1><<<grid, dim3(kCols, kLanes), 0, s>>>(a, b, na, nb, p, ell, scale, ga, gb,
+                                                          Kg, G, same, rows_per, out);
 }
 
 // T25 pass 1: partial[f, chunk, j, g] = sum over the chunk's rows i with
@@ -171,18 +245,28 @@ int mt_gp_rbf_kernel(const float* a, const float* b, int na, int nb, int p, cons
   if (na <= 0 || nb <= 0 || F <= 0) return (int)cudaGetLastError();
   if (F > 65535 || p <= 0 || (ga == nullptr) != (gb == nullptr)) return (int)cudaErrorInvalidValue;
   if (Kg != nullptr && (ga == nullptr || G <= 0)) return (int)cudaErrorInvalidValue;
-  const int64_t row_blocks = ((int64_t)na + kLanes * kRowsPer - 1) / (kLanes * kRowsPer);
   // four columns and one 16-byte store a thread where the rows allow it
   const bool vec4 = nb % 4 == 0 && (uintptr_t)out % 16 == 0;
   const int groups = vec4 ? nb / 4 : nb;
-  const dim3 grid((groups + kCols - 1) / kCols,
-                  (unsigned)(row_blocks < kGridY ? row_blocks : kGridY), F);
-  if (vec4)
-    rbf_kernel<4><<<grid, dim3(kCols, kLanes), 0, s>>>(a, b, na, nb, p, ell, scale, ga, gb, Kg,
-                                                       G, same, out);
-  else
-    rbf_kernel<1><<<grid, dim3(kCols, kLanes), 0, s>>>(a, b, na, nb, p, ell, scale, ga, gb, Kg,
-                                                       G, same, out);
+  const int64_t col_blocks = (groups + kCols - 1) / kCols;
+  // the most rows a thread (up to kMaxRowsPer) that still gives two waves
+  // of full blocks: 132 SMs x 8 blocks of 256 threads, twice
+  int rows_per = kMaxRowsPer;
+  while (rows_per > 1 &&
+         F * col_blocks * ((na + (int64_t)kLanes * rows_per - 1) / (kLanes * rows_per)) < 2112)
+    rows_per /= 2;
+  const int64_t row_blocks = (na + (int64_t)kLanes * rows_per - 1) / (kLanes * rows_per);
+  const dim3 grid((unsigned)col_blocks, (unsigned)(row_blocks < kGridY ? row_blocks : kGridY), F);
+#define MT_RBF(PP)                                                                     \
+  launch_rbf<PP>(vec4, grid, a, b, na, nb, p, ell, scale, ga, gb, Kg, G, same, rows_per, \
+                 out, s)
+  switch (p) {
+    case 1: MT_RBF(1); break;
+    case 2: MT_RBF(2); break;
+    case 3: MT_RBF(3); break;
+    default: MT_RBF(0); break;
+  }
+#undef MT_RBF
   return (int)cudaGetLastError();
 }
 

@@ -27,47 +27,96 @@
 // is due when epoch % 2^shift == 0 and eons <= epoch + 1. Each edge belongs
 // to one head, so its eons write has no race.
 //
-// Layout: a warp per vertex. Its lanes walk the vertex's edges, each
-// summing the clipped gradients of its due edges in registers, then a
-// butterfly sums the lanes; lanes 0..neg_rate-1 take one negative each.
-// The per-vertex sum is direct (the reference reduces a whole bucket by a
-// float32 prefix sum and a boundary difference, whose rounding grows with
-// the bucket's size), so the two differ by that rounding.
+// The sums. A vertex's attraction is summed in 32 chains, the edge at place
+// q of its row into chain q mod 32 in increasing q, each chain from +0; the
+// chains are then added by the xor butterfly 16, 8, 4, 2, 1 (the value lane
+// 0 ends with). Its negatives (lane r holds negative r, the other lanes +0)
+// are added by the same butterfly. This is the order of the first design (a
+// warp per vertex, lane q mod 32 walking the row), kept bit for bit. The
+// per-vertex sum is direct (the reference reduces a whole bucket by a float32
+// prefix sum and a boundary difference, whose rounding grows with the
+// bucket's size), so the two differ by that rounding.
 //
-// Bound: per epoch, each edge's tail, eps, eons and shift are read and
-// the eons of due edges written (about 17 bytes an edge); emb (n x dim f32,
-// 0.8 MB at 100k x 2) stays in L2, so at 3M edges an epoch needs about
-// 51 MB, 15 us at 3.35 TB/s. The simple design here idles lanes on short
-// rows of a skewed degree distribution; balancing them is later work.
+// Bound: per epoch each edge's shift is read, its eons where its stride
+// runs, and a due edge's tail and eps read and eons written (5 bytes an edge
+// at epoch 0, 12 more a due edge); the layout (n x dim f32, 8 MB at 1M x 2)
+// stays in L2. At 1M vertices and 25.2M edges that is about 190 MB, 56 us at
+// 3.35 TB/s. Most edges are not due (6% at epoch 0), so an epoch is a
+// stream over shift and eons with sparse work on top.
+//
+// Design (2..8 components, up to 8 negatives a vertex): a block of 256
+// threads takes a run of consecutive vertices from a plan the host builds
+// once a graph and dim (ops/umap.epoch_plan: each run's first vertex and
+// first edge): at most 128 vertices whose rows form one range of at most C
+// edges (C x dim <= 6144 floats of shared memory: C = 3072 at dim 2), or
+// one vertex whose row is longer, which its block walks in chunks of C. So
+// the time follows the edges: every thread scans the same number of edges
+// whatever the rows' lengths, and no warp waits on a vertex's chain of
+// dependent loads. Four blocks share an SM (64 registers, 43 KB of shared
+// memory at dim 2).
+// 1. Scan: the range's eons and shift bytes, its row starts and its rows of
+//    emb are copied into shared memory by cp.async, all in flight together
+//    and held in no register (the eons also of edges whose stride skips the
+//    epoch: 4 bytes an edge for a round trip saved). Thread t decides edges
+//    t, t + 256, ...; a prefix sum of the threads' counts places its due
+//    edges in a list in shared memory (the list's order is free: each entry
+//    writes its own slot), and it zeroes its edges' slots of the block's
+//    attraction buffer.
+// 2. Due edges: the list spread over all threads, two in flight a thread:
+//    tail, eps and eons, then the tail's row; the head is found by a binary
+//    search of the block's row starts in shared memory and its row read from
+//    shared memory; the clipped attraction goes to the edge's slot and eons
+//    advances.
+// 3. Sums: rows longer than 64 edges first, a warp per vertex, lane c
+//    taking chain c and then the butterfly by shuffles (the long-row
+//    block's warp 0 carries its chains over the chunks). Then two
+//    neighbouring threads per vertex (so at most 128 vertices a run), thread
+//    h taking the dims k and the negatives r with k, r = h mod 2: it
+//    computes its negatives, trades their values with its partner by
+//    shuffles, and for each of its dims adds the negatives' tree over 32
+//    lanes (+0 beyond neg_rate) and, for rows of up to 64 edges, the row's
+//    slots (0 where not due; +0 leaves a chain unchanged, which never holds
+//    -0) into 32 chains in registers and their tree, and writes the
+//    coordinate.
+// What sets the time (exp_t13_variants.py's per-block timeline, medians on
+// an H100 at the smoke's 1M graph, epoch 0): a block spends about 4,000
+// cycles on its staged scan, 3,600 on its due list, 4,400 on its due edges,
+// 2,500 on the warps' rows and 9,500 on its vertices, four blocks to an SM
+// sharing its issue slots. The epoch takes 0.24 ms against a bound of 0.056:
+// the negatives' and attractions' powf and IEEE divisions are the most of
+// the arithmetic, and at an epoch where half the edges are due (epoch 8)
+// the due edges' phase takes 20,000 cycles.
+// More than 8 negatives a vertex take the first design's kernel
+// (umap_epoch_kernel, T41's), which gives the same bits.
 // powf of d2 runs only on d2 > 0 (its exponent b - 1 is negative).
 //
-// Components: the kernel is instantiated for 2..8 components, a vertex's
-// coordinates and sums in registers. From 9 components on a second kernel
-// takes the number of components at run time: it walks the coordinates in
-// chunks of 8, and for each chunk walks the vertex's edges again, reading
+// Components: from 9 components on a second kernel takes the number of
+// components at run time: it walks the coordinates in chunks of 8, and for
+// each chunk walks the vertex's edges again (a warp per vertex), reading
 // every coordinate from global memory for the distance. That is dim / 8
-// times the work of the first kernel and is meant to be right, not fast.
-// Every sum is taken in the same order as in the first kernel, and eons
-// advances in the last chunk's walk only, so every walk sees the same due
-// edges.
+// times the work and is meant to be right, not fast. Every sum is taken in
+// the same order as above, and eons advances in the last chunk's walk only,
+// so every walk sees the same due edges.
 //
 // T41:
-// T13's kernels run on a window of the vertices: [v0, v0 + nv), a rank's
-// block of the sharded layout. The window's edges (heads in the window,
-// sorted by head) arrive as a CSR over the window, with their tails, eps and
-// eons; dc_exp and the negatives are the window's; emb is the whole layout
-// (the tails and negatives lie anywhere) and emb_out receives the window's
-// new rows. The sharded reference has no stride buckets: T41 passes no
-// shift, and an edge is due when eons <= epoch + 1. The sums are T13's, in
-// T13's order; T13 itself is the window [0, n). Every update of the epoch is
-// summed from emb before any is applied (the reference's sum-first order),
-// and the caller gathers the windows into the next layout.
+// The first design's kernel (umap_epoch_kernel: a warp per vertex, lane q
+// mod 32 walking the row, the butterfly by shuffles) runs on a window of the
+// vertices: [v0, v0 + nv), a rank's block of the sharded layout. The
+// window's edges (heads in the window, sorted by head) arrive as a CSR over
+// the window, with their tails, eps and eons; dc_exp and the negatives are
+// the window's; emb is the whole layout (the tails and negatives lie
+// anywhere) and emb_out receives the window's new rows. The sharded
+// reference has no stride buckets: T41 passes no shift, and an edge is due
+// when eons <= epoch + 1. The sums are T13's, in T13's order. Every update of
+// the epoch is summed from emb before any is applied (the reference's
+// sum-first order), and the caller gathers the windows into the next layout.
 //
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError(). Outputs are allocated by the
 // caller.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -176,6 +225,328 @@ void launch_epoch(const float* emb, float* emb_out, const int* indptr,
   umap_epoch_kernel<DIM><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
       emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, v0, nv, neg_rate,
       epoch, alpha, a, b, gamma);
+}
+
+// ---------------------------------------------------------------------------
+// T13 over a plan of vertex runs (2..8 components, up to 8 negatives)
+// ---------------------------------------------------------------------------
+
+constexpr int kRunThreads = 256;  // threads of a block
+constexpr int kRunVertices = kRunThreads / 2;  // the most vertices it takes: two threads each
+constexpr int kRunWarps = kRunThreads / kWarp;
+constexpr int kThreadRow = 64;    // rows up to this long: a thread's chains; longer: a warp's
+constexpr int kMaxNegRun = 8;     // negatives a vertex
+constexpr int kDueBatch = 2;      // due edges in flight a thread
+constexpr int kRunBlocksPerSm = 4;  // blocks an SM holds: 64 registers, 43 KB of shared memory
+constexpr int kGFloats = 6144;      // the attraction buffer: C x DIM floats
+
+// The shared memory of a block at DIM components, in 4-byte words: the
+// attraction buffer (C x DIM), the run's rows of emb and the warps' sums
+// (128 x DIM each), a staging area, the run's row starts (129) and the
+// warps' due counts (8). The staging area holds the range's eons and shift
+// bytes for the scan, then the due list (C ushorts).
+template <int DIM>
+struct RunShape {
+  static constexpr int kScan = (kGFloats / DIM) / kRunThreads;  // edges a thread scans
+  static constexpr int kEdges = kScan * kRunThreads;            // C
+  static constexpr int kStage = kEdges + kEdges / 4 + 2;        // eons, then shift words
+  static constexpr int kWords =
+      kEdges * DIM + 2 * kRunVertices * DIM + kStage + kRunVertices + 1 + kRunWarps;
+  static constexpr int kBytes = kWords * 4;
+};
+
+// The butterfly 16, 8, 4, 2, 1 as lane 0 sees it, on 32 values in registers
+// (each level written out, so every index is a constant)
+template <int O>
+__device__ __forceinline__ void tree_level(float (&v)[kWarp]) {
+#pragma unroll
+  for (int l = 0; l < O; ++l) v[l] = __fadd_rn(v[l], v[l + O]);
+}
+
+__device__ __forceinline__ float lane0_tree(float (&v)[kWarp]) {
+  tree_level<16>(v);
+  tree_level<8>(v);
+  tree_level<4>(v);
+  tree_level<2>(v);
+  tree_level<1>(v);
+  return v[0];
+}
+
+// the clipped attraction of one due edge: head row ei, tail row et
+template <int DIM>
+__device__ __forceinline__ void attraction_row(const float* ei, const float* et, float c_att,
+                                               float a, float b, float* g) {
+  float diff[DIM];
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) diff[k] = __fsub_rn(ei[k], et[k]);
+  const float d2 = sq_dist<DIM>(diff);
+  float coeff = 0.f;
+  if (d2 > 0.f)
+    coeff = __fdiv_rn(__fmul_rn(c_att, powf(d2, b - 1.0f)),
+                      __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f));
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) g[k] = clip4(__fmul_rn(coeff, diff[k]));
+}
+
+// 4 bytes from global to shared memory without a register (cp.async)
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+// lane r's value of a negative j of vertex i at row ei: +0 for a self hit,
+// 4 at d2 = 0, else the clipped repulsion
+template <int DIM>
+__device__ __forceinline__ void negative_row(const float* ei, const float* __restrict__ emb,
+                                             int i, int j, float a, float b, float gamma,
+                                             float* un) {
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) un[k] = 0.f;
+  if (j == i) return;
+  float diff[DIM];
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) diff[k] = __fsub_rn(ei[k], emb[(int64_t)j * DIM + k]);
+  const float d2 = sq_dist<DIM>(diff);
+  if (d2 > 0.f) {
+    const float coeff = __fdiv_rn(
+        2.0f * gamma * b,
+        __fmul_rn(__fadd_rn(0.001f, d2), __fadd_rn(__fmul_rn(a, powf(d2, b)), 1.0f)));
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) un[k] = clip4(__fmul_rn(coeff, diff[k]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) un[k] = 4.0f;  // the reference's d2 == 0 branch
+  }
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kRunThreads, kRunBlocksPerSm)
+umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
+                       const int* __restrict__ indptr, const int* __restrict__ tails,
+                       const float* __restrict__ eps, float* __restrict__ eons,
+                       const signed char* __restrict__ shift,
+                       const float* __restrict__ dc_exp, const int* __restrict__ negs,
+                       const int2* __restrict__ plan, int neg_rate, int epoch, float alpha,
+                       float a, float b, float gamma) {
+  using Shape = RunShape<DIM>;
+  constexpr int C = Shape::kEdges;
+  constexpr int kScan = Shape::kScan;
+  extern __shared__ __align__(16) float smem[];
+  float* s_g = smem;                                   // attractions, 0 where not due
+  float* s_ei = s_g + C * DIM;                         // the run's rows of emb
+  float* s_up = s_ei + kRunVertices * DIM;             // the warps' rows' sums
+  float* s_stage = s_up + kRunVertices * DIM;
+  float* s_eo = s_stage;                               // scan: the range's eons
+  signed char* s_sh = reinterpret_cast<signed char*>(s_stage + C);  // scan: shift words
+  unsigned short* s_due = reinterpret_cast<unsigned short*>(s_stage);  // the due list
+  int* s_ptr = reinterpret_cast<int*>(s_stage + Shape::kStage);     // the run's row starts
+  int* s_wdue = s_ptr + kRunVertices + 1;                            // the warps' due counts
+
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int2 p0 = plan[blockIdx.x], p1 = plan[blockIdx.x + 1];  // (first vertex, first edge)
+  const int vb0 = p0.x, nv = p1.x - p0.x, E0 = p0.y, E1 = p1.y;
+  const bool chunked = E1 - E0 > C;  // one vertex's row, walked in chunks of C
+  if (nv < 0 || nv > kRunVertices || (chunked && nv != 1)) __trap();  // not a plan for DIM
+  for (int t = tid; t <= nv; t += kRunThreads) copy4(s_ptr + t, indptr + vb0 + t);
+  for (int t = tid; t < nv * DIM; t += kRunThreads) copy4(s_ei + t, emb + (int64_t)vb0 * DIM + t);
+
+  const float due_by = (float)epoch + 1.0f;
+  const float c_att = -2.0f * a * b;
+  float chain[DIM];  // a chunked row's chains (warp 0)
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) chain[k] = 0.f;
+  for (int c0 = E0; c0 < E1; c0 += C) {
+    const int n = min(C, E1 - c0);
+    // 1. scan: the range's eons and shift bytes staged in shared memory, all
+    // in flight together (the shift as the aligned words around the range,
+    // bytes past its end read one by one)
+    const int w0 = c0 & ~3, nw = (c0 + n - w0 + 3) / 4;
+    for (int off = tid; off < n; off += kRunThreads) copy4(s_eo + off, eons + c0 + off);
+    for (int w = tid; w < nw; w += kRunThreads) {
+      const int at = w0 + 4 * w;
+      if (at + 4 <= c0 + n) {
+        copy4(s_sh + 4 * w, shift + at);
+      } else {
+        for (int q = at; q < c0 + n; ++q) s_sh[4 * w + q - at] = shift[q];
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the staged range, s_ptr, s_ei; a chunked row's previous chains
+    unsigned due = 0u;  // bit j: edge tid + 256 j runs this epoch and is due
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int off = tid + j * kRunThreads;
+      if (off < n) {
+        const int sh = s_sh[c0 - w0 + off];
+        if (!(epoch & ((1 << sh) - 1)) && s_eo[off] <= due_by) due |= 1u << j;
+      }
+    }
+    // the due list by a prefix sum of the threads' counts (its order is free:
+    // each entry writes its own slot)
+    int before = __popc(due);
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, before, o);
+      if (lane >= o) before += x;
+    }
+    if (lane == kWarp - 1) s_wdue[warp] = before;
+    before -= __popc(due);
+    __syncthreads();  // the staging area turns into the due list
+    int nd = 0;
+#pragma unroll
+    for (int w = 0; w < kRunWarps; ++w) {
+      const int c = s_wdue[w];
+      before += w < warp ? c : 0;
+      nd += c;
+    }
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int off = tid + j * kRunThreads;
+      if (off < n) {
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) s_g[off * DIM + k] = 0.f;
+      }
+      if ((due >> j) & 1u) s_due[before++] = (unsigned short)off;
+    }
+    __syncthreads();
+    // 2. the due edges, kDueBatch in flight a thread
+    for (int q0 = tid; q0 < nd; q0 += kDueBatch * kRunThreads) {
+      int off[kDueBatch], t[kDueBatch];
+      float ep[kDueBatch], eq[kDueBatch], et[kDueBatch][DIM];
+#pragma unroll
+      for (int u = 0; u < kDueBatch; ++u) {
+        const int q = q0 + u * kRunThreads;
+        off[u] = q < nd ? (int)s_due[q] : -1;
+        if (off[u] >= 0) {
+          t[u] = tails[c0 + off[u]];
+          ep[u] = eps[c0 + off[u]];
+          eq[u] = eons[c0 + off[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDueBatch; ++u) {
+        if (off[u] >= 0) {
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) et[u][k] = emb[(int64_t)t[u] * DIM + k];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDueBatch; ++u) {
+        if (off[u] < 0) continue;
+        const int e = c0 + off[u];
+        int lo = 0, hi = nv;  // s_ptr[lo] <= e < s_ptr[hi]: the edge's head
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (s_ptr[mid] <= e) lo = mid; else hi = mid;
+        }
+        float g[DIM];
+        attraction_row<DIM>(s_ei + lo * DIM, et[u], c_att, a, b, g);
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) s_g[off[u] * DIM + k] = g[k];
+        eons[e] = __fadd_rn(eq[u], ep[u]);
+      }
+    }
+    __syncthreads();
+    if (chunked && warp == 0) {  // chunks start at multiples of C, a multiple of 32
+      for (int q = lane; q < n; q += kWarp) {
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) chain[k] = __fadd_rn(chain[k], s_g[q * DIM + k]);
+      }
+    }
+  }
+  if (E0 == E1) {  // no edges: s_ptr and s_ei not waited for yet
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+
+  // 3. rows longer than kThreadRow: a warp each, into s_up
+  if (chunked) {
+    if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1)
+          chain[k] = __fadd_rn(chain[k], __shfl_xor_sync(0xffffffffu, chain[k], o));
+        if (lane == 0) s_up[k] = chain[k];
+      }
+    }
+  } else {
+    for (int v = warp; v < nv; v += kRunWarps) {
+      const int r0 = s_ptr[v] - E0, L = s_ptr[v + 1] - s_ptr[v];
+      if (L <= kThreadRow) continue;
+      float c[DIM];
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) c[k] = 0.f;
+      for (int q = lane; q < L; q += kWarp) {
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) c[k] = __fadd_rn(c[k], s_g[(r0 + q) * DIM + k]);
+      }
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1)
+          c[k] = __fadd_rn(c[k], __shfl_xor_sync(0xffffffffu, c[k], o));
+        if (lane == 0) s_up[v * DIM + k] = c[k];
+      }
+    }
+  }
+  __syncthreads();
+
+  // two neighbouring threads per vertex: thread h of the pair takes the
+  // dims k and the negatives r with k, r = h mod 2; the pair trades its
+  // negatives' values by one shuffle each, so every thread of a warp runs
+  // the shuffles (a thread past the run's vertices computes on nothing)
+  const int vt = tid / 2, h = tid % 2;
+  const bool live = vt < nv;
+  const int i = vb0 + vt;
+  float ei[DIM];
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) ei[k] = live ? s_ei[vt * DIM + k] : 0.f;
+  constexpr int kHalf = kMaxNegRun / 2;
+  float un[kHalf][DIM];  // lane 2 s + h's value of negative 2 s + h (+0 from neg_rate on)
+#pragma unroll
+  for (int q = 0; q < kHalf; ++q) {
+    const int r = 2 * q + h;
+    negative_row<DIM>(ei, emb, i, live && r < neg_rate ? negs[(int64_t)i * neg_rate + r] : i, a,
+                      b, gamma, un[q]);
+  }
+  const int r0 = live ? s_ptr[vt] - E0 : 0, L = live ? s_ptr[vt + 1] - s_ptr[vt] : 0;
+  const bool own = !chunked && L <= kThreadRow;
+  const float dc = live ? dc_exp[i] : 0.f;
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) {
+    // this thread's lanes of the negatives' tree, and its partner's
+    float v[kWarp];
+#pragma unroll
+    for (int l = 0; l < kWarp; ++l) v[l] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kHalf; ++q) {
+      const float mine = un[q][k], other = __shfl_xor_sync(0xffffffffu, un[q][k], 1);
+      v[2 * q] = h ? other : mine;
+      v[2 * q + 1] = h ? mine : other;
+    }
+    if (k % 2 != h || !live) continue;
+    const float neg = lane0_tree(v);
+    float up;
+    if (own) {  // chain c: places c and c + 32 of the row, from +0
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c) {
+        v[c] = 0.f;
+        if (c < L) v[c] = __fadd_rn(v[c], s_g[(r0 + c) * DIM + k]);
+      }
+      if (L > kWarp) {
+#pragma unroll
+        for (int c = 0; c < kWarp; ++c)
+          if (c + kWarp < L) v[c] = __fadd_rn(v[c], s_g[(r0 + kWarp + c) * DIM + k]);
+      }
+      up = lane0_tree(v);
+    } else {
+      up = s_up[vt * DIM + k];
+    }
+    emb_out[(int64_t)i * DIM + k] = __fadd_rn(
+        ei[k], __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up), __fmul_rn(neg, dc))));
+  }
 }
 
 // squared distance of rows i and j of emb, coordinates in index order
@@ -482,18 +853,62 @@ int epoch_window(const float* emb, float* emb_out, const int* indptr, const int*
 
 extern "C" {
 
+// The edges a block of T13's run kernel holds at dim components (2..8; 0
+// otherwise): ops/umap.epoch_plan cuts the rows by it.
+int mt_umap_epoch_block_edges(int dim) {
+  switch (dim) {
+    case 2: return RunShape<2>::kEdges;
+    case 3: return RunShape<3>::kEdges;
+    case 4: return RunShape<4>::kEdges;
+    case 5: return RunShape<5>::kEdges;
+    case 6: return RunShape<6>::kEdges;
+    case 7: return RunShape<7>::kEdges;
+    case 8: return RunShape<8>::kEdges;
+    default: return 0;
+  }
+}
+
 // T13. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32
 // over the head-sorted edges; tails (E) int32; eps (E) f32; eons (E) f32,
 // updated in place; shift (E) int8, 0 <= shift < 31; dc_exp (n) f32; negs
-// (n x neg_rate) int32, 0 <= neg_rate <= 32; dim >= 2 (2..8 in registers,
-// from 9 on the kernel that takes dim at run time).
+// (n x neg_rate) int32, 0 <= neg_rate <= 32; dim >= 2. plan (n_blocks + 1)
+// int32, ops/umap.epoch_plan's runs of vertices for this dim, takes the run
+// kernel at 2..8 components and up to 8 negatives; without a plan, with
+// more negatives, the first design's kernel; from 9 components on the
+// kernel that takes dim at run time.
 int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
                   const int* tails, const float* eps, float* eons,
                   const signed char* shift, const float* dc_exp, const int* negs,
-                  int n, int dim, int neg_rate, int epoch, float alpha, float a,
-                  float b, float gamma, void* stream) {
-  return epoch_window(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, 0, n,
-                      dim, neg_rate, epoch, alpha, a, b, gamma, (cudaStream_t)stream);
+                  const int* plan, int n_blocks, int n, int dim, int neg_rate, int epoch,
+                  float alpha, float a, float b, float gamma, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (plan == nullptr || shift == nullptr || dim > kMaxDim || neg_rate > kMaxNegRun)
+    return epoch_window(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, 0, n,
+                        dim, neg_rate, epoch, alpha, a, b, gamma, s);
+  if (dim < 2 || neg_rate < 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+#define MT_UMAP_RUNS(D)                                                                  \
+  case D: {                                                                              \
+    static const cudaError_t ok = cudaFuncSetAttribute(                                  \
+        umap_epoch_runs_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+        RunShape<D>::kBytes);                                                            \
+    if (ok != cudaSuccess) return (int)ok;                                               \
+    umap_epoch_runs_kernel<D><<<n_blocks, kRunThreads, RunShape<D>::kBytes, s>>>(        \
+        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs,                     \
+        reinterpret_cast<const int2*>(plan), neg_rate, epoch, alpha, a, b, gamma);       \
+    break;                                                                               \
+  }
+  switch (dim) {
+    MT_UMAP_RUNS(2)
+    MT_UMAP_RUNS(3)
+    MT_UMAP_RUNS(4)
+    MT_UMAP_RUNS(5)
+    MT_UMAP_RUNS(6)
+    MT_UMAP_RUNS(7)
+    MT_UMAP_RUNS(8)
+  }
+#undef MT_UMAP_RUNS
+  return (int)cudaGetLastError();
 }
 
 // T41. emb (n x dim) f32, the whole layout; the window [v0, v0 + nv) of it:

@@ -68,8 +68,9 @@ _SIGNATURES = {
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                      _F, _P),
+    "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                      _F, _F, _P),
+    "mt_umap_epoch_block_edges": (_I,),  # no launch: the edges a block of T13's runs holds
     "mt_umap_epoch_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                             _F, _P),
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),

@@ -13,7 +13,10 @@ of T13, which sums the attraction of the due edges per vertex, adds the
 vertex-pooled negatives scaled by the vertex's expected due rate, folds the
 symmetric tail update into the head update, and writes the new layout
 beside the old one (the two buffers swap), as the reference's epoch sums
-every update before applying any.
+every update before applying any. At 2-8 components T13's blocks take runs
+of consecutive vertices that ``epoch_plan`` cuts from the CSR once a graph
+and dim (``run_plan``): at most 128 vertices whose rows hold at most the
+block's edge capacity, or one longer row alone.
 
 Kept from the reference because they are results: the pruning and
 ``epochs_per_sample`` of umap-learn, the vertex-pooled negatives, the
@@ -61,12 +64,19 @@ __all__ = ["umap_embed", "find_ab_params", "spectral_init", "edge_schedule",
            "bucket_shifts", "UmapEdges", "umap_edges", "umap_epoch",
            "umap_epoch_plain", "UmapTails", "umap_tails", "umap_epoch_asym",
            "umap_epoch_asym_plain", "umap_epoch_block", "umap_epoch_block_plain",
-           "epoch_alpha", "MembershipOperator", "membership_operator",
+           "epoch_alpha", "epoch_plan", "run_plan", "MembershipOperator", "membership_operator",
            "membership_matvec", "membership_matvec_plain", "spectral_membership"]
 
 # the reference buckets edges by stride only from this many edges on
 BUCKET_MIN_EDGES = 2_000_000
 MAX_NEG_RATE = 32  # one warp lane per negative
+# T13's run kernel (csrc/umap_kernels.cu): 256 threads a block, two per vertex,
+# so 128 vertices a block at most; up to 8 negatives a vertex; 2-8 components
+RUN_VERTICES = 128
+MAX_NEG_RUN = 8
+MAX_RUN_DIM = 8
+# a row longer than this share of a block's edges takes a block of its own
+RUN_LONG_SHARE = 8
 MAX_SEED_COLS = 16  # T16 gives a row 16 lanes, one per column
 # from this many edges on, spectral_init seeds from the membership table
 MEMBERSHIP_MIN_NNZ = 8_000_000
@@ -323,6 +333,7 @@ class UmapEdges(NamedTuple):
     tails: torch.Tensor   # (E,) int32
     eps: torch.Tensor     # (E,) float32 epochs per sample
     shift: torch.Tensor   # (E,) int8, log2 of the stride
+    plans: dict           # dim -> T13's run plan on the device (epoch_plan), built at first use
 
 
 def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None,
@@ -342,7 +353,46 @@ def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None,
     np.cumsum(np.bincount(heads - v0, minlength=n), out=indptr[1:])
     to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)  # noqa: E731
     return UmapEdges(to(indptr, np.int32), to(heads, np.int32), to(tails, np.int32),
-                     to(eps, np.float32), to(shift, np.int8))
+                     to(eps, np.float32), to(shift, np.int8), {})
+
+
+def run_plan(indptr, block_edges: int) -> np.ndarray:
+    """The runs of consecutive vertices that T13's blocks take over the CSR
+    ``indptr``, as (n_blocks + 1, 2) int32 (first vertex, first edge) pairs,
+    the last pair (n, E): a row longer than ``block_edges // RUN_LONG_SHARE``
+    is a run alone (its block walks it in chunks of ``block_edges``); the
+    other vertices are grouped by the chunk of ``block_edges - block_edges //
+    RUN_LONG_SHARE`` edges their row starts in, ``RUN_VERTICES`` at most a
+    run, so a run's rows hold fewer than ``block_edges`` edges."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = len(indptr) - 1
+    longest = block_edges // RUN_LONG_SHARE
+    L = np.diff(indptr)
+    big = L > longest
+    key = indptr[:-1] // (block_edges - longest)
+    start = np.ones(n, bool)
+    start[1:] = (key[1:] != key[:-1]) | big[1:] | big[:-1]
+    first = np.flatnonzero(start)
+    pos = np.arange(n) - first[np.cumsum(start) - 1]
+    start |= pos % RUN_VERTICES == 0
+    first = np.append(np.flatnonzero(start), n)
+    return np.stack([first, indptr[first]], axis=1).astype(np.int32)
+
+
+def epoch_plan(edges: UmapEdges, dim: int):
+    """T13's run plan of ``edges`` at ``dim`` components on their device
+    (``run_plan`` with the kernel's edge capacity for ``dim``), built once and
+    kept in ``edges.plans``; None from 9 components on, where T13 runs
+    without one."""
+    if not 2 <= dim <= MAX_RUN_DIM:
+        return None
+    plan = edges.plans.get(dim)
+    if plan is None:
+        cap = _kernels.library().mt_umap_epoch_block_edges(dim)
+        plan = torch.from_numpy(run_plan(edges.indptr.cpu().numpy(), cap)).to(
+            edges.indptr.device)
+        edges.plans[dim] = plan
+    return plan
 
 
 def _check_epoch_args(emb, out, edges, eons, dc_exp, negs) -> None:
@@ -386,19 +436,23 @@ def umap_epoch(emb: torch.Tensor, out: torch.Tensor, edges: UmapEdges,
     place. ``negs (n, neg_rate)`` int32 are the epoch's negative samples;
     ``alpha`` is the epoch's learning rate. Any ``dim`` ≥ 2: up to 8
     components a vertex stays in registers, from 9 on a second kernel of
-    the same source takes the number at run time (slower, the same sums)."""
+    the same source takes the number at run time (slower, the same sums).
+    Up to 8 components and 8 negatives the blocks take ``epoch_plan``'s runs
+    of vertices (built at the first call for a graph and dim)."""
     if emb.device.type == "cpu":
         return umap_epoch_plain(emb, out, edges, eons, dc_exp, negs, epoch, alpha, a, b, gamma)
     if emb.device.type != "cuda":
         raise ValueError(f"unsupported device {emb.device}")
     _check_epoch_args(emb, out, edges, eons, dc_exp, negs)
     n, dim = emb.shape
+    plan = epoch_plan(edges, dim) if negs.shape[1] <= MAX_NEG_RUN else None
     _kernels.launch(
         "umap_epoch", emb.device,
         emb.data_ptr(), out.data_ptr(), edges.indptr.data_ptr(), edges.tails.data_ptr(),
         edges.eps.data_ptr(), eons.data_ptr(), edges.shift.data_ptr(), dc_exp.data_ptr(),
-        negs.data_ptr(), n, dim, negs.shape[1], int(epoch), float(alpha), float(a),
-        float(b), float(gamma),
+        negs.data_ptr(), 0 if plan is None else plan.data_ptr(),
+        0 if plan is None else plan.shape[0] - 1, n, dim, negs.shape[1], int(epoch),
+        float(alpha), float(a), float(b), float(gamma),
     )
     return out
 
@@ -421,7 +475,7 @@ def _negative_sums(emb: torch.Tensor, negs: torch.Tensor, a: float, b: float,
     row of ``negs (nv, R)`` one's, summed over its negatives: a self hit
     adds 0, a negative at the vertex's own position 4 (nv, dim)."""
     nv, R = negs.shape
-    vneg = emb[negs.reshape(-1).long()].reshape(nv, R, -1)
+    vneg = emb[negs.reshape(-1).long()].reshape(nv, R, emb.shape[1])
     diffn = emb[v0:v0 + nv, None, :] - vneg
     d2n = (diffn * diffn).sum(-1)
     cn = (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n**b + 1.0))
@@ -655,6 +709,8 @@ def umap_embed(
 
     with stage("umap/upload"):
         edges = umap_edges(heads, tails, eps, shift, n, device)
+        if symmetric and device.type == "cuda":
+            epoch_plan(edges, n_components)
         eons = edges.eps.clone()  # first due at t = eps
         dc = torch.from_numpy(dc_exp).to(device)
         cur = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(device)

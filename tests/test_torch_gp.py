@@ -218,6 +218,37 @@ def test_gpu_rbf_kernel_matches_plain(cuda, n, m, p, G, groups):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n, m", [(1000, 1000), (3, 5), (1, 1), (517, 130), (64, 1003)])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("groups", ["none", "independent", "learned", "learned40"])
+def test_gpu_rbf_kernel_shapes_and_repeats(cuda, n, m, p, groups):
+    # the sparse path's K_mm (1,000²), tiny and ragged shapes (nb not a
+    # multiple of 4: one column a thread), p in registers (1, 2) and at run
+    # time (4), Kg of 2 groups in shared memory and of 40 read from global
+    # memory; duplicated covariates (d2 = 0 off the diagonal) and points
+    # 2^-31 apart (a quotient below the fast range); plain's values within
+    # 2 ulps of 1, the same bits twice
+    G = 40 if groups == "learned40" else 2
+    a, ga = _card_points(cuda, n, p, G)
+    same = n == m
+    b, gb = (a, ga) if same else _card_points(cuda, m, p, G, seed=1)
+    if n > 3:
+        a[1] = a[0]
+        a[2] = a[0] + 2.0**-31
+    F = 3
+    ells = torch.tensor([0.05, 0.2, 1.0], device=cuda)
+    scales = torch.tensor([0.95, 0.5, 0.05], device=cuda)
+    Kg = (gp.normalize_kg(torch.randn((F, G, G), device=cuda))
+          if groups.startswith("learned") else None)
+    g_a, g_b = (None, None) if groups == "none" else (ga, gb)
+    args = (a, b, ells, scales, g_a, g_b, Kg, same)
+    got = _launched("gp_rbf_kernel", lambda: gp.rbf_kernel(*args))
+    assert torch.equal(got, gp.rbf_kernel(*args))
+    ref = gp.rbf_kernel_plain(*args)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=2.5e-7)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n, m, G", [(300, 300, 2), (1000, 129, 3), (257, 257, 1)])
 def test_gpu_kg_grad_matches_plain(cuda, n, m, G):
     # another order of float32 sums: within 1e-5 of Σ|dK|·exp(...)

@@ -36,8 +36,10 @@ Tolerances, each with its reason:
 * ``tl.umap(mesh=)`` against the reference's: its default a and b equal
   (one scipy fit in both), the spectral seed (each package draws its own
   test matrix) by its scale and the planted clusters' separation, as
-  tests/test_torch_umap.py holds it; a caller's a and b by the port's
-  layout equal to ``sharded_umap_embed``'s with them.
+  tests/test_torch_umap.py holds it; a caller's a and b, and an
+  ``init_pos`` other than the spectral seed, as the reference's mesh branch
+  takes them: recorded in ``uns`` but not passed to the epochs, so the
+  layout is the defaults' (on one device both packages use them).
 """
 
 from contextlib import contextmanager
@@ -136,12 +138,14 @@ def _put_csr(d, key, X):
 
 def _tl_umap_cases(umap, make, G, X, mesh, owners):
     """``tl.umap(mesh=)`` of the graph ``G`` in a container made by ``make``:
-    with its defaults and with a caller's a and b; the layouts, the a and b
-    written to ``uns``, and the spectral seed of the default run (recorded
-    where the modules ``owners`` call ``spectral_init``)."""
+    with its defaults, with a caller's a and b, and from a random start; the
+    layouts, the a and b written to ``uns``, and the spectral seed of the
+    default run (recorded where the modules ``owners`` call
+    ``spectral_init``)."""
     out = {}
     with _recording_seeds(owners) as seeds:
-        for tag, ab in (("default", {}), ("given", dict(a=UMAP_A, b=UMAP_B))):
+        for tag, ab in (("default", {}), ("given", dict(a=UMAP_A, b=UMAP_B)),
+                        ("random_init", dict(init_pos="random"))):
             h = make(X)
             h.obsp["connectivities"] = G
             h.uns["neighbors"] = {"connectivities_key": "connectivities"}
@@ -256,9 +260,6 @@ def _rank_main(rank, P, store, workdir):
         out["public_umap_direct"] = tpar.sharded_umap_embed(
             h.obsp["connectivities"], mesh, n_epochs=UMAP_EPOCHS, random_state=UMAP_RS)
         out.update(_tl_umap_cases(ttl.umap, Holder, G, f["umap_X"], mesh, [tu, tpipe]))
-        if P > 1:
-            out["tlumap_given_direct"] = tpar.sharded_umap_embed(
-                G, mesh, n_epochs=UMAP_EPOCHS, random_state=UMAP_RS, a=UMAP_A, b=UMAP_B)
         np.savez(Path(workdir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -566,18 +567,16 @@ def test_public_umap_defaults_match_reference(run):
 
 
 def test_public_umap_takes_the_callers_a_and_b(run):
-    # the port's epochs run on a caller's a and b, which it writes to uns;
-    # the reference writes them to uns too, but its mesh branch drops them
-    # (muon_tpu/_core/tools_graph.py:399-412): its layout is its defaults'
+    # both packages write a caller's a and b to uns; over a mesh of more than
+    # one rank both drop them and init_pos, as the reference's mesh branch
+    # does (muon_tpu/_core/tools_graph.py:399-412), so each layout is its
+    # defaults'; on one device both take them
     port, ref = run["port"], run["ref"]
     for got in (port, ref):
         np.testing.assert_array_equal(got["tlumap_given_ab"], [UMAP_A, UMAP_B])
-    assert not np.array_equal(port["tlumap_given"], port["tlumap_default"])
-    if run["P"] > 1:
-        np.testing.assert_array_equal(port["tlumap_given"], port["tlumap_given_direct"])
-        np.testing.assert_array_equal(ref["tlumap_given"], ref["tlumap_default"])
-    else:  # one device: the reference's single-device path takes them too
-        assert not np.array_equal(ref["tlumap_given"], ref["tlumap_default"])
+        for tag in ("given", "random_init"):
+            same = np.array_equal(got[f"tlumap_{tag}"], got["tlumap_default"])
+            assert same == (run["P"] > 1), (tag, run["P"])
 
 
 # ---------------------------------------------------------------------------

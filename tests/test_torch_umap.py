@@ -785,6 +785,72 @@ def test_whole_slice_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# T13's run plan (host): the blocks' runs of vertices
+# ---------------------------------------------------------------------------
+
+
+def _row_lengths(seed):
+    """Skewed rows with the edge cases a block meets: empty rows, rows of 1,
+    31, 32, 33, 64 and 65 edges, rows at a long row's threshold, and hubs of
+    several blocks' edges."""
+    rng = np.random.default_rng(seed)
+    L = rng.geometric(1 / 25, 5000) - 1
+    L[rng.random(5000) < 0.05] = 0
+    special = [0, 1, 31, 32, 33, 64, 65, 95, 96, 97, 255, 256, 257, 383, 384, 385, 767, 768,
+               769, 2047, 2048, 2049, 3071, 3072, 3073, 9000]
+    L[rng.choice(5000, len(special), replace=False)] = special
+    return L
+
+
+def _greedy_runs(indptr, cap):
+    """run_plan's rule, vertex by vertex."""
+    vertices, longest = tu.RUN_VERTICES, cap // tu.RUN_LONG_SHARE
+    chunk = cap - longest
+    starts, n = [], len(indptr) - 1
+    for v in range(n):
+        L = indptr[v + 1] - indptr[v]
+        prev_long = v > 0 and indptr[v] - indptr[v - 1] > longest
+        if (not starts or L > longest or prev_long
+                or indptr[v] // chunk != indptr[v - 1] // chunk or v - starts[-1] >= vertices):
+            starts.append(v)
+    return starts + [n]
+
+
+@pytest.mark.parametrize("cap", [768, 2048, 3072])  # the kernel's C at dims 8, 3 and 2
+@pytest.mark.parametrize("seed", [0, 1])
+def test_run_plan_covers_the_rows_in_blocks_that_fit(cap, seed):
+    L = _row_lengths(seed)
+    indptr = np.concatenate([[0], np.cumsum(L)])
+    pairs = tu.run_plan(indptr, cap)
+    assert pairs.dtype == np.int32 and pairs.shape[1] == 2
+    plan = pairs[:, 0]
+    np.testing.assert_array_equal(pairs[:, 1], indptr[plan])  # each run's first edge
+    assert plan[0] == 0 and plan[-1] == len(L)
+    assert np.all(np.diff(plan) > 0)
+    np.testing.assert_array_equal(plan, _greedy_runs(indptr, cap))
+    for v0, v1 in zip(plan[:-1], plan[1:]):
+        edges = indptr[v1] - indptr[v0]
+        assert v1 - v0 <= tu.RUN_VERTICES
+        if v1 - v0 > 1:  # a run of several rows fits the block's edges
+            assert edges < cap and L[v0:v1].max() <= cap // tu.RUN_LONG_SHARE
+    # every row longer than the threshold is a run alone
+    alone = set(plan[:-1][np.diff(plan) == 1])
+    assert set(np.flatnonzero(L > cap // tu.RUN_LONG_SHARE)) <= alone
+
+
+def test_run_plan_of_no_vertices_and_no_edges():
+    np.testing.assert_array_equal(tu.run_plan(np.zeros(1, np.int64), 3584), [[0, 0]])
+    plan = tu.run_plan(np.zeros(301, np.int64), 3072)  # 300 empty rows: 128 a run
+    np.testing.assert_array_equal(plan, [[0, 0], [128, 0], [256, 0], [300, 0]])
+
+
+def test_umap_edges_start_without_plans():
+    c = _epoch_case(0)
+    edges = tu.umap_edges(c["heads"], c["tails"], c["eps"], c["shift"], c["n"], CPU)
+    assert edges.plans == {} and tu.epoch_plan(edges, 12) is None
+
+
+# ---------------------------------------------------------------------------
 # on the card: T13 against its plain version (skips without one)
 # ---------------------------------------------------------------------------
 
@@ -839,6 +905,101 @@ def test_gpu_umap_epoch_matches_plain(cuda, dim, epoch):
                               alpha, a, b, 1.0)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
     assert torch.equal(eons_k, eons_p)
+
+
+def _run_case(cuda, dim, epoch, neg_rate=NEG_RATE, seed=0):
+    """Edges over _row_lengths' rows (empty rows, 1-65 edges, rows at each
+    dim's long threshold and chunk length, a 9000-edge hub walked in
+    chunks), strides 1-16, eons that leave some edges due at ``epoch`` and a
+    row with none due, and negatives with self hits: the arguments of one
+    epoch. Rows longer than 96 edges keep one due edge in 100, and the
+    repulsion's weight (the expected due rate) is clipped at 10: a float32
+    sum of hundreds or thousands of attractions of up to 4, or a weight of
+    hundreds, moves a vertex by hundreds, where an ulp or two pass plain's
+    atol of 1e-4, so the order of such sums is held by the first design's
+    bits alone."""
+    rng = np.random.default_rng(seed)
+    L = _row_lengths(seed)
+    n = len(L)
+    heads = np.repeat(np.arange(n), L).astype(np.int32)
+    tails = rng.integers(0, n, len(heads)).astype(np.int32)
+    w = np.maximum(rng.random(len(heads)) ** 2, 0.005)
+    eps = (1.0 / w).astype(np.float32)
+    eps[rng.random(len(eps)) < 0.2] = 1.0
+    shift = np.clip(np.floor(np.log2(eps)), 0, 4).astype(np.int8)
+    edges = tu.umap_edges(heads, tails, eps, shift, n, cuda)
+    eons = eps * rng.uniform(0.3, 3.0, len(eps)).astype(np.float32) + np.float32(epoch // 2)
+    hub = int(np.argmax(L))
+    lo = int(np.flatnonzero(L == 33)[0])
+    eons[np.flatnonzero(heads == lo)] = 1e9  # a row with no due edge
+    long_edges = np.flatnonzero(L[heads] > 96)
+    eons[long_edges[long_edges % 100 != 0]] = 1e9
+    gen = torch.Generator(device=cuda).manual_seed(seed + dim)
+    emb = (torch.rand((n, dim), generator=gen, device=cuda) * 20 - 10).contiguous()
+    same = torch.from_numpy(tails[heads == hub][:7]).long().to(cuda)
+    emb[same] = emb[hub].clone()  # d2 = 0 for some of the hub's edges
+    negs = torch.randint(0, n, (n, neg_rate), generator=gen, dtype=torch.int32, device=cuda)
+    if neg_rate:
+        negs[:300, -1] = torch.arange(300, device=cuda, dtype=torch.int32)  # self hits
+    a, b = tu.find_ab_params()
+    args = (torch.from_numpy(np.ascontiguousarray(eons)).to(cuda), negs, epoch,
+            tu.epoch_alpha(1.0, epoch, N_EPOCHS), a, b, 1.0)
+    dc = np.zeros(n, np.float32)
+    np.add.at(dc, heads, 1.0 / eps)
+    return emb, edges, torch.from_numpy(np.minimum(dc, 10)).to(cuda), args
+
+
+def _first_design(emb, edges, eons, dct, negs, epoch, alpha, a, b, gamma):
+    """T13's entry point without a plan: the first design's kernel."""
+    out = torch.empty_like(emb)
+    _kernels.launch("umap_epoch", emb.device, emb.data_ptr(), out.data_ptr(),
+                    edges.indptr.data_ptr(), edges.tails.data_ptr(), edges.eps.data_ptr(),
+                    eons.data_ptr(), edges.shift.data_ptr(), dct.data_ptr(), negs.data_ptr(),
+                    0, 0, emb.shape[0], emb.shape[1], negs.shape[1], int(epoch), float(alpha),
+                    float(a), float(b), float(gamma))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3, 8])
+@pytest.mark.parametrize("epoch", [0, 8, 13])
+def test_gpu_umap_epoch_runs_keep_the_lane_order(cuda, dim, epoch):
+    # the run kernel against plain (atol 1e-4 at scale 10, eons exactly),
+    # against itself (the same bits twice) and against the first design's
+    # kernel, whose chain and butterfly order it keeps: the same bits
+    emb, edges, dct, (eons, negs, *rest) = _run_case(cuda, dim, epoch)
+    outs, eonss = [], []
+    _kernels.reset_launch_counts()
+    for _ in range(2):
+        e = eons.clone()
+        outs.append(tu.umap_epoch(emb, torch.empty_like(emb), edges, e, dct, negs, *rest))
+        eonss.append(e)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["umap_epoch"] == 2 and dim in edges.plans
+    plan = edges.plans[dim].cpu().numpy()  # the runs the blocks took: rows of every kind
+    np.testing.assert_array_equal(plan[:, 1], edges.indptr.cpu().numpy()[plan[:, 0]])
+    e_p = eons.clone()
+    ref = tu.umap_epoch_plain(emb, torch.empty_like(emb), edges, e_p, dct, negs, *rest)
+    torch.testing.assert_close(outs[0], ref, rtol=0, atol=1e-4)
+    assert torch.equal(eonss[0], e_p) and not torch.equal(e_p, eons)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(eonss[0], eonss[1])
+    e_f = eons.clone()
+    first = _first_design(emb, edges, e_f, dct, negs, *rest)
+    assert torch.equal(outs[0], first) and torch.equal(eonss[0], e_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("neg_rate", [0, 1, 8, 12])
+def test_gpu_umap_epoch_negative_counts(cuda, neg_rate):
+    # up to 8 negatives in the run kernel's registers, more in the first
+    # design's kernel: both the first design's bits and plain's values
+    emb, edges, dct, (eons, negs, *rest) = _run_case(cuda, 2, 0, neg_rate=neg_rate, seed=3)
+    e_k, e_p, e_f = eons.clone(), eons.clone(), eons.clone()
+    got = tu.umap_epoch(emb, torch.empty_like(emb), edges, e_k, dct, negs, *rest)
+    ref = tu.umap_epoch_plain(emb, torch.empty_like(emb), edges, e_p, dct, negs, *rest)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    assert torch.equal(e_k, e_p)
+    assert torch.equal(got, _first_design(emb, edges, e_f, dct, negs, *rest))
 
 
 @pytest.mark.gpu
