@@ -935,6 +935,8 @@ def make_e2e_counts(seed: int = 0):
 
 
 FAILED = []
+# the card's name and power limit, as nvidia-smi gives them (phase_device)
+CARD = ""
 
 
 def check(ok, what: str) -> None:
@@ -1037,6 +1039,7 @@ def importable(name: str) -> bool:
 
 
 def phase_device(kernels) -> str:
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1051,7 +1054,17 @@ def phase_device(kernels) -> str:
           + " ".join(f"{m}={importable(m)}" for m in ("triton", "pandas", "h5py"))
           + f" | zlib.h={os.path.exists('/usr/include/zlib.h')} "
           f"libz={ctypes.util.find_library('z')}", flush=True)
+    CARD = smi
     return smi
+
+
+def fusion_gather(name: str, cand, cat16, ms: float) -> None:
+    """T11's candidate-row gather at ``ms``: the bytes of the rows it
+    stages (D bf16 values a valid candidate) and their rate, beside the byte
+    bound of its inputs read once, with the card."""
+    gathered = int((cand >= 0).sum()) * cat16.shape[1] * 2
+    print(f"[kernel] {name}: {gathered} bytes of candidate rows gathered, "
+          f"{gathered / (ms * 1e9):.3f} TB/s | {CARD}", flush=True)
 
 
 def phase_build(kernels, native) -> None:
@@ -1752,6 +1765,8 @@ def phase_wnn_kernels(tw, rec) -> dict:
         print(f"[kernel] {name} {shape}: max_abs_err={diff.max().item():.3e} ({tol}; "
               f"largest {kind} err {err.max().item():.2e}) ms={ms:.3f} plain_ms={plain_ms:.3f} "
               f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})", flush=True)
+        if name == "wnn_fusion_scores":
+            fusion_gather(name, args[0], args[1], ms)
         check(ok, f"{name} within {tol}")
     return results
 
@@ -4214,13 +4229,15 @@ def phase_de_kernels(tde, dsp, X_rna_norm, X_atac, labels, cuda) -> dict:
     print(f"[de] one column block {DE_BLOCK} x {N_CELLS}: torch.sort {sort_ms:.3f} ms "
           f"(first call {1e3 * (time.perf_counter() - t0):.1f} ms with T26 and its check)",
           flush=True)
-    # reads the sorted block (12 bytes a cell) and the codes, writes (g + 1) x b
-    kernel_report(results, "wilcoxon_rank_sums", f"{DE_BLOCK}x{N_CELLS}, g={N_CLUSTERS}",
+    # reads the sorted block (12 bytes a cell) and the codes, writes (g + 1) x b;
+    # the launch timed alone, as T26 over Xᵀ's CSR
+    kernel_report(results, "wilcoxon_rank_sums", f"{DE_BLOCK}x{N_CELLS}, g={N_CLUSTERS} | {CARD}",
                   (rs - rs_p).abs().max().item(), "rank sums and tie terms equal",
                   torch.equal(rs, rs_p) and torch.equal(tie, tie_p),
                   lambda: tde.sorted_rank_sums(vals, perm, codes, N_CLUSTERS),
                   lambda: tde.sorted_rank_sums_plain(vals, perm, codes, N_CLUSTERS),
-                  bound(nbytes(vals, perm, codes, rs, tie), 0, F32_OPS_PER_S))
+                  bound(nbytes(vals, perm, codes, rs, tie), 0, F32_OPS_PER_S),
+                  timer=lambda fn: launch_ms(tde._kernels, "wilcoxon_rank_sums", fn))
     del vals, perm, rs_p, tie_p
 
     W = 0.01 * torch.randn((N_GENES, N_CLUSTERS), generator=gen, device=cuda)
@@ -6762,7 +6779,8 @@ def phase_mesh_kernels(cuda, work) -> dict:
                                     + int(np.ceil(np.log2(C)))), F32_OPS_PER_S))
     single = np.load(f"{work}/wnn_single.npz")
     cand = torch.from_numpy(single["cand"][row0:]).to(cuda).contiguous()
-    cat16 = torch.from_numpy(single["cat16"]).to(cuda).view(torch.bfloat16)
+    # padded once, as wnn_neighbors builds it: the time is the launch's
+    cat16 = tw.padded_table(torch.from_numpy(single["cat16"]).to(cuda).view(torch.bfloat16))
     aux, sigw = (torch.from_numpy(single[k]).to(cuda) for k in ("aux", "sigw"))
     dims, metric = [tuple(int(v) for v in dd) for dd in single["dims"]], str(single["metric"])
     got = tw.wnn_fusion_scores(cand, cat16, aux, sigw, dims, metric, row0=row0)
@@ -6778,6 +6796,7 @@ def phase_mesh_kernels(cuda, work) -> dict:
                                                      row0=row0),
                   bound(nbytes(cand, cat16, aux, sigw, got), 2 * cand.numel() * cat16.shape[1],
                         BF16_OPS_PER_S))
+    fusion_gather("wnn_fusion_scores [mesh2] window", cand, cat16, win["wnn_fusion_scores"]["ms"])
     results.update({f"{k}@mesh2_window": v for k, v in win.items()})
     return results
 

@@ -1,8 +1,9 @@
 """Two checkouts of the port on one card: T9's σ, the MOFA bench fit, the
 wide WNN path, T5, T14, T40, T2's split variant, T3, T36, the MOFA
-sweeps around T18, the wilcoxon markers (T26), the 1M k-means (T15), the
-UMAP epochs (T13) and MEFISTO's kernel matrices (T24), for a change held
-beside its parent in one call.
+sweeps around T18, the wilcoxon markers (T26, and its dense route), the
+1M k-means (T15), the UMAP epochs (T13), MEFISTO's kernel matrices (T24)
+and WNN's fusion scores (T11), for a change held beside its parent in one
+call.
 
 Run on a machine with a CUDA card, from the root of the repo, with the
 other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
@@ -14,8 +15,8 @@ other tree unpacked somewhere (``git archive <commit> | tar -x -C DIR``):
     python3 exp_compare_trees.py compare OUT parent1 change1 ...
 
 SECTIONS is a comma-separated subset of
-``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18,t26,t15,t13,t24`` (all by
-default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
+``t9,mofa,wnn_wide,t5,t14,t40,t2split,t3,t36,t18,t26,t15,t13,t24,t11,t26d``
+(all by default). ``t5``: T5 on ``make_big_rep`` at 100,000 × 50, float32 and
 approx (the rows ``_operand`` rounds to bfloat16; a tree whose ``knn_topk``
 has no ``approx`` argument takes them as float32), at k+1 = 20, 201 and
 301. ``t14``: T14 over the whole work-item layout of the 1M representation
@@ -74,7 +75,21 @@ then ``tl.umap``'s 200 epochs on each graph: the layout and
 K_nm 100,000 × 1,000 and K_mm 1,000² of one factor, the smoke's draws): the
 matrices and their times (spun as T13's); and the
 smoke's dense ``[mefisto]`` fit (3,000 cells, 100 sweeps): its ELBO trace,
-Z and the chosen lengthscales, and its wall. Each writes a SHA-256
+Z and the chosen lengthscales, and its wall. ``t11``: T11 on the three
+calls chip_smoke.py makes, their arguments recorded by ``make`` (the WNN
+of three modalities at 100,000 cells: the e2e's RNA, ATAC and protein
+graphs; the ``[wnn-wide]`` path; and ``[mesh2]`` rank 1's window, rows
+50,000-100,000 of the first): the scores' digests, each launch's time
+(spun as T13's) and the candidate rows it gathers (bytes and their rate);
+a tree with ``ops.wnn.padded_table`` is handed the table padded once, as
+its ``wnn_neighbors`` builds it. Then ``pp.neighbors`` of the MuData
+rebuilt from the three saved graphs (``chip_smoke.wnn_mods``): the digests
+of ``obsp["distances"]`` and ``obsp["connectivities"]`` and its wall.
+``t26d``: ``[de]``'s dense route: the normalised RNA of the ``t26``
+inputs densified on the card, then ``tl.rank_genes_groups(method=
+"wilcoxon")``: every field of ``uns``, the wall, and each T26 launch's
+time (CUDA events around the launch alone, with a spin before its start,
+as chip_smoke.py's ``launch_ms``). Each writes a SHA-256
 of every output (the bits compared), T5's approx lists at k+1 = 20, and
 CUDA-event times (median of 5, and the spread).
 
@@ -112,7 +127,7 @@ import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
 SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18", "t26",
-            "t15", "t13", "t24")
+            "t15", "t13", "t24", "t11", "t26d")
 UMAP_EPOCHS = (0, 8, 13)  # T13 at the epoch of every stride, and two of fewer
 KMEANS_C, KMEANS_ITERS = 1024, 8  # the 1M path's partition (ops/ivf.ivf_knn)
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
@@ -208,7 +223,9 @@ def make(out: str, sections, cuda) -> None:
                                  for m in parsed["matrices"]])
         data.update(motif_codes=tpw.encode_sequences(seqs), motif_lo=lo, motif_off=off,
                     motif_width=width, motif_thr=thr)
-    if "t26" in sections:
+    if "t11" in sections:
+        data.update(make_t11(out, cuda))
+    if "t26" in sections or "t26d" in sections:
         from muon_tpu_torch import atac as tac
         from muon_tpu_torch.ops import sparse as dsp
 
@@ -231,6 +248,44 @@ def make(out: str, sections, cuda) -> None:
     if "t13" in sections:
         data.update(make_umap_graphs(cuda))
     np.savez(f"{out}/inputs.npz", **data)
+
+
+def wide_modalities(tpp, cuda) -> dict:
+    """``[wnn-wide]``'s two planted modalities of 2,000 cells with graphs
+    of 301."""
+    sub = {}
+    for name, key, seed in (("rna", "X_pca", 3), ("atac", "X_lsi", 4)):
+        h = cs.Holder(None)
+        h.obsm[key] = np.ascontiguousarray(cs.make_big_rep(seed, n=cs.WIDE_CELLS)[0])
+        h.n_obs = cs.WIDE_CELLS
+        tpp.neighbors(h, n_neighbors=cs.WIDE_KK + 1, use_rep=key, device=cuda)
+        sub[name] = h
+    return sub
+
+
+def make_t11(out: str, cuda) -> dict:
+    """T11's arguments in the WNN of three at 100,000 cells (with the
+    three graphs, as chip_smoke.save_wnn_inputs writes them into OUT) and
+    in the ``[wnn-wide]`` path."""
+    from muon_tpu_torch import atac as tac
+    from muon_tpu_torch import pp as tpp
+    from muon_tpu_torch import prot as tpt
+    from muon_tpu_torch.ops import fuzzy as tf, knn as tk, sparse as dsp, wnn as tw
+
+    X_rna, X_atac, P, _, _ = cs.make_e2e_counts(cs.SEED)
+    mods = {"rna": cs.rna_path(dsp, tpp, X_rna, cuda),
+            "atac": cs.atac_e2e_path(tac, tpp, X_atac, cuda), "prot": cs.prot_path(tpt, tpp, P, cuda)}
+    md = cs.MuHolder(mods)
+    with cs.wnn_probe(tw, tk, tf, plain=False) as rec:
+        tpp.neighbors(md, device=cuda)
+    cs.save_wnn_inputs(tw, out, mods, rec, md)
+    mdw = cs.MuHolder(wide_modalities(tpp, cuda), cs.WIDE_CELLS)
+    with cs.wnn_probe(tw, tk, tf, plain=False) as rec:
+        tpp.neighbors(mdw, n_multineighbors=cs.WIDE_KK, device=cuda)
+    cand, cat16, aux, sigw, dims, metric = rec["fusion"][0][0]
+    return dict(wide_cand=cand.cpu().numpy(), wide_cat16=cat16.view(torch.int16).cpu().numpy(),
+                wide_aux=aux.cpu().numpy(), wide_sigw=sigw.cpu().numpy(),
+                wide_dims=np.array(dims), wide_metric=np.array(metric), wnn_mods=np.array(list(mods)))
 
 
 def row_lengths(G, n_epochs: int = cs.N_EPOCHS) -> dict:
@@ -754,6 +809,79 @@ def run_t24(tgp, tm, res, times, cuda) -> None:
                t24_mefisto_ell=fit.gp_lengthscales)
 
 
+def run_t11(tpp, tw, inp, out, res, times, cuda) -> None:
+    """T11 on its three recorded calls, then the 100k WNN from the saved
+    graphs."""
+    single = np.load(f"{out}/wnn_single.npz")
+    row0 = cs.N_CELLS // 2
+    pad = getattr(tw, "padded_table", lambda t: t)
+    for name, src, pre, lo in (("100k", single, "", 0), ("window", single, "", row0),
+                               ("wide", inp, "wide_", 0)):
+        cand = torch.from_numpy(src[f"{pre}cand"][lo:]).to(cuda).contiguous()
+        cat16 = pad(torch.from_numpy(src[f"{pre}cat16"]).to(cuda).view(torch.bfloat16))
+        aux, sigw = (torch.from_numpy(src[f"{pre}{k}"]).to(cuda) for k in ("aux", "sigw"))
+        dims = [tuple(int(v) for v in d) for d in src[f"{pre}dims"]]
+        args = (cand, cat16, aux, sigw, dims, str(src[f"{pre}metric"]), lo)
+        res[f"t11_{name}_scores"] = np.array(digest(tw.wnn_fusion_scores(*args)))
+        t = spun_times(lambda: tw.wnn_fusion_scores(*args), 5)
+        gathered = int((cand >= 0).sum()) * cat16.shape[1] * 2
+        times[f"T11 ms, {name} {tuple(cand.shape)} of {tuple(cat16.shape)}"] = spread(t)
+        times[f"T11 {name}: candidate-row bytes gathered, TB/s at the median"] = [
+            gathered, gathered / (np.median(t) * 1e9)]
+    mods = cs.wnn_mods(out, [str(m) for m in inp["wnn_mods"]])
+    md = cs.MuHolder(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tpp.neighbors(md, device=cuda)
+    torch.cuda.synchronize()
+    times["[wnn] pp.neighbors(mdata) wall s"] = time.perf_counter() - t0
+    for key in ("distances", "connectivities"):
+        G = md.obsp[key]
+        res[f"t11_wnn_{key}"] = np.array(digest(*(torch.from_numpy(np.ascontiguousarray(a))
+                                                  for a in (G.data, G.indices, G.indptr))))
+
+
+def run_t26d(ttl, tde, kernels, inp, res, times, cuda) -> None:
+    """[de]'s dense route on the RNA densified beforehand: uns, the wall,
+    each T26 launch's time."""
+    from scipy import sparse as sp
+
+    from muon_tpu_torch.ops import sparse as dsp
+
+    X = sp.csr_matrix((inp["de_rna_data"], inp["de_rna_indices"], inp["de_rna_indptr"]),
+                      shape=tuple(inp["de_rna_shape"]))
+    Xd = tde.dense_from_csr(dsp.from_scipy(X, cuda))
+    launch, events = kernels.launch, []
+
+    def timed(kernel, device, *args):
+        if kernel != "wilcoxon_rank_sums":
+            return launch(kernel, device, *args)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        launch(kernel, device, *args)
+        b.record()
+        events.append((a, b))
+
+    h = cs.DEHolder(Xd, inp["de_labels"])
+    kernels.launch = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttl.rank_genes_groups(h, "planted", method="wilcoxon", device=cuda)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kernels.launch = launch
+    times["[de] wilcoxon dense wall s (T26's launches spun)"] = wall
+    times["T26 dense ms, each launch (blocks of 2684 x 100,000)"] = [
+        a.elapsed_time(b) for a, b in events]
+    uns = h.uns["rank_genes_groups"]
+    for field in ("names", "scores", "pvals", "pvals_adj", "logfoldchanges"):
+        res[f"t26d_{field}"] = np.array([uns[field][g] for g in uns[field].dtype.names],
+                                        dtype=str if field == "names" else None)
+
+
 def run(root: str, tag: str, out: str, sections, cuda) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import muon_tpu_torch
@@ -824,13 +952,7 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         del state, Ys
 
     if "wnn_wide" in sections:
-        sub = {}
-        for name, key, seed in (("rna", "X_pca", 3), ("atac", "X_lsi", 4)):
-            h = cs.Holder(None)
-            h.obsm[key] = np.ascontiguousarray(cs.make_big_rep(seed, n=cs.WIDE_CELLS)[0])
-            h.n_obs = cs.WIDE_CELLS
-            tpp.neighbors(h, n_neighbors=cs.WIDE_KK + 1, use_rep=key, device=cuda)
-            sub[name] = h
+        sub = wide_modalities(tpp, cuda)
         walls = []
         for _ in range(3):
             md = cs.MuHolder(sub, cs.WIDE_CELLS)
@@ -860,6 +982,12 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         run_t13(ttl, tu, profiling, inp, res, times, cuda)
     if "t24" in sections:
         run_t24(tgp, tm, res, times, cuda)
+    if "t11" in sections:
+        run_t11(tpp, tw, inp, out, res, times, cuda)
+    if "t26d" in sections:
+        from muon_tpu_torch.ops import de as tde
+
+        run_t26d(ttl, tde, _kernels, inp, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)

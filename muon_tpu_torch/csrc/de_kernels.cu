@@ -13,18 +13,31 @@
 // stable, by the wrapper: a sort is no product and the reference sorts too),
 // as `vals` (b x n, f32, a row per column) and the permutation `perm` (b x n,
 // int64), and the group code of every cell (-1: no group; such a cell still
-// takes part in the ranks, as in the reference). A warp walks one column in
-// chunks of 32 cells. The reference's searchsorted bounds of an element's tie
-// run are, with 0-based positions, lo = the run's first position and hi = one
-// past its last; its average rank is (lo + 1 + hi) / 2. Forward over the
-// chunks, a ballot of the run starts and the carried last start give lo; in
-// the same pass each run's last element adds t^3 - t (t = hi - lo: the
-// reference's sum over elements of t^2 - 1). Backward, a ballot of the run
-// ends and the carried next end give hi. The warp adds lo + 1 and hi, as
-// integers, into its group's 64-bit counter in shared memory: twice the rank
-// sum, exact in any order, so the atomics repeat bit for bit. The counters
-// become the float64 rank sums (exact: half-integers below 2^53) and the tie
-// term an int64.
+// takes part in the ranks, as in the reference). The reference's
+// searchsorted bounds of an element's tie run are, with 0-based positions,
+// lo = the run's first position and hi = one past its last; its average rank
+// is (lo + 1 + hi) / 2. Each group's counter takes lo + 1 + hi of each of its
+// cells, an integer: twice the rank sum, exact in any order of the adds, and
+// each run adds t^3 - t (t = hi - lo: the reference's sum over elements of
+// t^2 - 1) to its column's tie term. So the outputs are the same bits
+// whatever the kernel's order.
+// A block owns a column and walks it once, in tiles of 2048 cells, 8
+// consecutive cells a thread: each input is read once (16-byte loads of vals
+// and perm where the rows are aligned), each cell's code gathered once, and
+// the two values beside a thread's cells read to mark the run starts and
+// ends. A block-wide scan over the threads gives each cell its lo (the last
+// start at or before it, or the start carried from earlier tiles) and its hi
+// (the first end at or after it) where that end lies in the tile. Only the
+// run still open at a tile's end carries over: its cells add lo + 1 now and
+// count in a per-group table of the open run; when the run ends (in a later
+// tile), each group it touched adds hi times its count, once: a column that
+// is mostly zeros is one long run, settled once. Each cell adds its integer
+// with one native 32-bit shared atomic on the low word of its group's 64-bit
+// counter, the high word taking the carry (add_u64): summing a warp's adds
+// by group first (__match_any_sync, __reduce_add_sync) made the block 3.6x
+// slower, and a 64-bit shared atomic add (a compare-and-swap loop) 2.7x
+// (exp_t26_variants.py). Shared memory: g int64 counters, g int32 open
+// counts and the g groups the open run touched (48 KB at MAX_GROUPS = 3000).
 // Bound: the sorted block is read once (12 bytes a cell) plus the codes, so
 // T26 is bound by bytes; the sort before it moves more than T26 does.
 //
@@ -56,68 +69,179 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRankWarps = 8;      // T26: columns (warps) per block
+constexpr int kRankThreads = 256;  // T26: threads of a column's block
+constexpr int kRankWarps = kRankThreads / kWarp;
+constexpr int kRankPer = 8;        // T26: consecutive cells a thread, a tile 2048
 constexpr int kGradWarps = 8;      // T27: warps per block
 constexpr int kFinishThreads = 256;
 constexpr int kAdamThreads = 256;
 
-// T26: a warp per column of the sorted block
-__global__ void __launch_bounds__(kWarp * kRankWarps)
+// adds v to the 64-bit counter at c with native 32-bit shared atomics: the
+// low word, then the carry into the high word (a 64-bit shared atomic add is
+// a compare-and-swap loop). Exact: each carry is seen by the one add that
+// made it
+__device__ __forceinline__ void add_u64(unsigned long long* c, unsigned v) {
+  unsigned* w = reinterpret_cast<unsigned*>(c);
+  const unsigned old = atomicAdd(w, v);
+  if (old + v < old) atomicAdd(w + 1, 1u);
+}
+
+// T26: a block per column of the sorted block. kVec: the rows are 16-byte
+// aligned (n a multiple of 4), so a thread's 8 cells load as 16-byte pieces
+template <bool kVec>
+__global__ void __launch_bounds__(kRankThreads)
 wilcoxon_rank_sums_kernel(const float* __restrict__ vals,
                           const int64_t* __restrict__ perm,
                           const int* __restrict__ codes, int n, int b, int g,
                           double* __restrict__ rank_sums,
                           long long* __restrict__ tie_term) {
-  extern __shared__ unsigned long long acc[];  // kRankWarps x g
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c = blockIdx.x * kRankWarps + warp;
-  unsigned long long* my = acc + (int64_t)warp * g;
-  for (int i = lane; i < g; i += kWarp) my[i] = 0ull;
-  __syncwarp();
-  if (c >= b) return;  // whole warps leave together
+  extern __shared__ __align__(16) unsigned char rsm[];
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(rsm);  // g: twice-rank sums
+  unsigned* open_n = reinterpret_cast<unsigned*>(acc + g);  // g: the open run's cells a group
+  int* touched = reinterpret_cast<int*>(open_n + g);        // the groups with open_n > 0
+  // a tile's scan totals by warp, and its last cell's end flag, in two
+  // copies by tile parity: a warp may write the next tile's while another
+  // still reads this one's
+  __shared__ int wlast[2][kRankWarps], wfirst[2][kRankWarps], tail_end[2];
+  __shared__ int n_touched;
+  __shared__ unsigned long long wtie[kRankWarps];
+  constexpr int kTile = kRankThreads * kRankPer;
+  constexpr int kNone = 0x7fffffff;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int c = blockIdx.x;
+  for (int k = tid; k < g; k += kRankThreads) {
+    acc[k] = 0ull;
+    open_n[k] = 0u;
+  }
+  if (tid == 0) n_touched = 0;
+  __syncthreads();
   const float* s = vals + (int64_t)c * n;
   const int64_t* p = perm + (int64_t)c * n;
 
-  // forward: lo of every element, and t^3 - t at every run's last element
-  int carry_lo = 0;
+  int lo_carry = 0;         // the first place of the run open at the tile's start
+  bool open_carry = false;  // a run goes on from the last tile
   unsigned long long tie = 0ull;
-  for (int base = 0; base < n; base += kWarp) {
-    const int i = base + lane;
-    const bool in = i < n;
-    const float x = in ? s[i] : 0.f;
-    const bool start = in && (i == 0 || x != s[i - 1]);
-    const unsigned below = __ballot_sync(kFull, start) & ((2u << lane) - 1u);
-    const int lo = below ? base + 31 - __clz(below) : carry_lo;
-    carry_lo = __shfl_sync(kFull, lo, kWarp - 1);
-    if (in) {
-      if (i == n - 1 || s[i + 1] != x) {
-        const unsigned long long t = (unsigned long long)(i + 1 - lo);
+  for (int base = 0, it = 0; base < n; base += kTile, ++it) {
+    const int par = it & 1;
+    const int i0 = base + tid * kRankPer;
+    float x[kRankPer];
+    int code[kRankPer];
+    if (kVec && i0 + kRankPer <= n) {
+      const float4 a = *reinterpret_cast<const float4*>(s + i0);
+      const float4 z = *reinterpret_cast<const float4*>(s + i0 + 4);
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+      x[4] = z.x; x[5] = z.y; x[6] = z.z; x[7] = z.w;
+      int64_t q[kRankPer];
+#pragma unroll
+      for (int h = 0; h < kRankPer; h += 2) {
+        const longlong2 v = *reinterpret_cast<const longlong2*>(p + i0 + h);
+        q[h] = v.x;
+        q[h + 1] = v.y;
+      }
+#pragma unroll
+      for (int e = 0; e < kRankPer; ++e) code[e] = codes[q[e]];
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRankPer; ++e) {
+        const bool in = i0 + e < n;
+        x[e] = in ? s[i0 + e] : 0.f;
+        code[e] = in ? codes[p[i0 + e]] : -1;
+      }
+    }
+    const float before = i0 > 0 && i0 < n ? s[i0 - 1] : 0.f;
+    const float after = i0 + kRankPer < n ? s[i0 + kRankPer] : 0.f;
+    unsigned st = 0u, en = 0u;  // bit e: cell i0 + e starts / ends a run
+#pragma unroll
+    for (int e = 0; e < kRankPer; ++e) {
+      const int i = i0 + e;
+      if (i < n) {
+        const float prev = e > 0 ? x[e - 1] : before;
+        const float next = e + 1 < kRankPer ? x[e + 1] : after;
+        st |= (unsigned)(i == 0 || x[e] != prev) << e;
+        en |= (unsigned)(i == n - 1 || x[e] != next) << e;
+      }
+    }
+    // the last start at or before each thread's cells, the first end (one
+    // past it) at or after them: scans over the warp, then over the warps
+    int smax = st ? i0 + 31 - __clz(st) : -1;
+    int smin = en ? i0 + __ffs(en) : kNone;
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int a = __shfl_up_sync(kFull, smax, o);
+      const int z = __shfl_down_sync(kFull, smin, o);
+      if (lane >= o) smax = max(smax, a);
+      if (lane + o < kWarp) smin = min(smin, z);
+    }
+    if (lane == kWarp - 1) wlast[par][warp] = smax;
+    if (lane == 0) wfirst[par][warp] = smin;
+    const int last = min(base + kTile, n) - 1;  // the tile's last cell
+    if (i0 <= last && last < i0 + kRankPer) tail_end[par] = (en >> (last - i0)) & 1u;
+    const int ex_max = __shfl_up_sync(kFull, smax, 1);
+    const int ex_min = __shfl_down_sync(kFull, smin, 1);
+    __syncthreads();
+    int lo = lane > 0 ? max(lo_carry, ex_max) : lo_carry;
+    int hi = lane < kWarp - 1 ? ex_min : kNone;
+    int tile_max = lo_carry, tile_min = kNone;
+#pragma unroll
+    for (int v = 0; v < kRankWarps; ++v) {
+      const int a = wlast[par][v], z = wfirst[par][v];
+      tile_max = max(tile_max, a);
+      tile_min = min(tile_min, z);
+      if (v < warp) lo = max(lo, a);
+      if (v > warp) hi = min(hi, z);
+    }
+    const bool tail_open = !tail_end[par];
+    if (open_carry && tile_min != kNone) {
+      // the run carried in ends in this tile, one before tile_min: each group
+      // it touched in earlier tiles adds hi = tile_min per cell
+      const int nt = n_touched;
+      for (int j = tid; j < nt; j += kRankThreads) {
+        const int k = touched[j];
+        acc[k] += (unsigned long long)tile_min * open_n[k];
+        open_n[k] = 0u;
+      }
+      __syncthreads();
+      if (tid == 0) n_touched = 0;
+      __syncthreads();
+    }
+    int lov[kRankPer], hiv[kRankPer];
+#pragma unroll
+    for (int e = 0; e < kRankPer; ++e) {
+      if ((st >> e) & 1u) lo = i0 + e;
+      lov[e] = lo;
+    }
+#pragma unroll
+    for (int e = kRankPer - 1; e >= 0; --e) {
+      if ((en >> e) & 1u) hi = i0 + e + 1;
+      hiv[e] = hi;
+    }
+#pragma unroll
+    for (int e = 0; e < kRankPer; ++e) {
+      const bool in = i0 + e < n;
+      const bool open = hiv[e] == kNone;  // its run goes on past the tile
+      if (in && ((en >> e) & 1u)) {
+        const unsigned long long t = (unsigned long long)(hiv[e] - lov[e]);
         tie += t * t * t - t;
       }
-      const int code = codes[p[i]];
-      if (code >= 0) atomicAdd(&my[code], (unsigned long long)(lo + 1));
+      const int cd = in ? code[e] : -1;
+      if (cd >= 0) {
+        add_u64(&acc[cd], (unsigned)(open ? lov[e] + 1 : lov[e] + 1 + hiv[e]));
+        if (open && atomicAdd(&open_n[cd], 1u) == 0u) touched[atomicAdd(&n_touched, 1)] = cd;
+      }
     }
-  }
-  // backward: hi of every element
-  int carry_hi = n;
-  for (int base = ((n - 1) / kWarp) * kWarp; base >= 0; base -= kWarp) {
-    const int i = base + lane;
-    const bool in = i < n;
-    const bool end = in && (i == n - 1 || s[i + 1] != s[i]);
-    const unsigned above = __ballot_sync(kFull, end) & ~((1u << lane) - 1u);
-    const int hi = above ? base + __ffs(above) : carry_hi;  // one past the run's end
-    carry_hi = __shfl_sync(kFull, hi, 0);
-    if (in) {
-      const int code = codes[p[i]];
-      if (code >= 0) atomicAdd(&my[code], (unsigned long long)hi);
-    }
+    lo_carry = tile_max;
+    open_carry = tail_open;
   }
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) tie += __shfl_xor_sync(kFull, tie, o);
-  __syncwarp();
-  if (lane == 0) tie_term[c] = (long long)tie;
-  for (int i = lane; i < g; i += kWarp) rank_sums[(int64_t)i * b + c] = 0.5 * (double)my[i];
+  if (lane == 0) wtie[warp] = tie;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total = 0ull;
+    for (int v = 0; v < kRankWarps; ++v) total += wtie[v];
+    tie_term[c] = (long long)total;
+  }
+  for (int k = tid; k < g; k += kRankThreads) rank_sums[(int64_t)k * b + c] = 0.5 * (double)acc[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -515,16 +639,16 @@ int mt_wilcoxon_rank_sums(const float* vals, const int64_t* perm, const int* cod
                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
-  const size_t shm = (size_t)kRankWarps * (g > 0 ? g : 1) * sizeof(unsigned long long);
+  if (g < 1) return (int)cudaErrorInvalidValue;
+  const size_t shm = (size_t)g * (sizeof(unsigned long long) + sizeof(unsigned) + sizeof(int));
+  const bool vec = n % 4 == 0 && ((uintptr_t)vals & 15u) == 0 && ((uintptr_t)perm & 15u) == 0;
+  auto kernel = vec ? wilcoxon_rank_sums_kernel<true> : wilcoxon_rank_sums_kernel<false>;
   if (shm > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(wilcoxon_rank_sums_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)shm);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (b + kRankWarps - 1) / kRankWarps;
-  wilcoxon_rank_sums_kernel<<<blocks, kWarp * kRankWarps, shm, s>>>(
-      vals, perm, codes, n, b, g, rank_sums, tie_term);
+  kernel<<<b, kRankThreads, shm, s>>>(vals, perm, codes, n, b, g, rank_sums, tie_term);
   return (int)cudaGetLastError();
 }
 

@@ -364,55 +364,303 @@ __global__ void __launch_bounds__(kThetaThreads)
 // table, with dist_m = sqrt(max(|x|^2_i + |x|^2_c - 2 cross, 0)), or
 // 1 - cross for cosine (unit rows, norms 1); out is 0 where c < 0.
 // aux = [|x|^2_m | present_m] and sigw = [sigma_m | w_m], (n, 2M) each.
-// One warp per cell: the cell's row is staged in shared memory as f32, and
-// each lane scores one candidate at a time, walking its bf16 row. Bound by
-// the candidate gathers: 100k x 400 rows of 200 B, 8 GB read mostly from
-// L2 (the table is 20 MB). Not done yet: coalesced row loads (a warp per
-// candidate row) or a tensor-core cross term.
+//
+// One warp per cell, its candidates in tiles of 32, a lane each. The first
+// design had each lane walk its own candidate's row two bytes at a time, so
+// every load instruction of the warp touched 32 rows and each 32-byte sector
+// brought 2 useful bytes (28 ms at 100,000 cells x 600 candidates, D = 130).
+// Here the warp first stages the tile's rows into shared memory with
+// cp.async: a row is cut into 16-byte pieces (the table's row stride `ld` is
+// a multiple of 8 bf16: ops/wnn.py padded_table), consecutive lanes take
+// consecutive pieces of a row, so every load moves whole sectors. A row
+// goes in chunks of at most `chunk` pieces, and a tile's aux rows go with
+// its first chunk. Two buffers: the next chunk's gather is in flight while
+// the lanes run the current one, and the candidate ids are loaded two tiles
+// ahead. Each lane then runs its candidate's chains out of shared memory in
+// the first design's order (per slice an fmaf chain from +0 in column order,
+// then the same __f*_rn operations, sqrtf and expf), so every score is that
+// kernel's bits. A lane reads its row 16 bytes at a time and a staged row
+// takes an odd number of 16-byte units, so the 8 lanes of a quarter warp
+// hit distinct banks; an aux row takes an odd number of words. A tile of -1
+// candidates (cand_dedup puts them last) gathers nothing and writes its
+// zeros. What sets the time (exp_t11_variants.py, an H100): the staging
+// alone takes 4.3-5.2 ms at 100,000 x 600 (2.9-3.5 TB/s of candidate rows
+// from L2) and the chains alone 6.1; together, overlapped, 5.6-5.8, at any
+// of 8-28 warps an SM. Two candidates a lane (their chains interleaved, the
+// cell's row loads shared), a deeper ring of units, and the rows copied by
+// the TMA unit (cp.async.bulk, a row a lane) each ran as fast or slower.
+// Bound: the gather of the candidates' rows from L2 (the table, 26 MB at
+// 100,000 x 130, stays there): 15.6 GB at 100,000 x 600 x 260 bytes, where
+// the inputs read once are 0.5 GB; the cross terms are 2 C D float32
+// operations a cell (0.23 ms at that size).
 // ---------------------------------------------------------------------------
 
-constexpr int kFusionWarps = 8;
+constexpr int kFusionPer = 1;                  // candidates a lane
+constexpr int kFusionTile = 32 * kFusionPer;   // candidates a tile
+constexpr int kFusionMaxWarps = 8;             // warps (cells) a block at most
 
-__global__ void __launch_bounds__(kFusionWarps * 32)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the two bf16 values of a 32-bit word (low half first) as float32
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// a warp's shared memory (ops/wnn.py _fusion_warp_bytes mirrors it): two
+// buffers of a unit's staged rows, the cell's row as float32, two buffers of
+// a tile's aux rows, the cell's aux and sigw rows and the slice bounds
+struct FusionShape {
+  int pieces;  // 16-byte pieces of a row: ceil(D / 8)
+  int kc;      // pieces a chunk
+  int nch;     // chunks a row
+  int srow;    // a staged row's 16-byte units: kc, made odd
+  int arow;    // a staged aux row's words: 2M, made odd
+  __host__ __device__ FusionShape(int D, int M, int chunk) {
+    pieces = (D + 7) / 8;
+    kc = pieces < chunk ? pieces : chunk;
+    if (kc < 1) kc = 1;
+    nch = pieces > 0 ? (pieces + kc - 1) / kc : 1;
+    srow = kc | 1;
+    arow = (2 * M) | 1;
+  }
+  __host__ __device__ int warp_bytes(int M) const {
+    const int b = 2 * kFusionTile * srow * 16 + 4 * 8 * pieces + 2 * kFusionTile * arow * 4 +
+                  4 * (5 * M + 1);
+    return (b + 15) / 16 * 16;
+  }
+};
+
+// slice mm's term of a candidate's score, its cross term whole: the first
+// design's operations in its order
+__device__ __forceinline__ float fusion_term(float cross, int mm, int M, int cosine,
+                                             const float* aq, const float* ac,
+                                             const float* sw) {
+  const float dist =
+      cosine ? __fsub_rn(1.f, cross)
+             : sqrtf(fmaxf(__fsub_rn(__fadd_rn(aq[mm], ac[mm]), __fmul_rn(2.f, cross)), 0.f));
+  const float pres = __fmul_rn(ac[M + mm], aq[M + mm]);
+  const float sig = fmaxf(sw[mm], 1e-12f);
+  const float contrib = __fmul_rn(expf(__fdiv_rn(-dist, sig)), sw[M + mm]);
+  return __fmul_rn(contrib, pres);
+}
+
+// the lane's candidates of tile t (-1 past the row's end)
+__device__ __forceinline__ void fusion_ids(int (&c)[kFusionPer], const int* __restrict__ crow,
+                                           int t, int C, int lane) {
+#pragma unroll
+  for (int h = 0; h < kFusionPer; ++h) {
+    const int p = t * kFusionTile + 32 * h + lane;
+    c[h] = p < C ? crow[p] : -1;
+  }
+}
+
+// unit v = (tile t, chunk j): chunk j of tile t's rows into row buffer v & 1
+// and, with its first chunk, the tile's aux rows into aux buffer t & 1. Row
+// r of the tile holds lane r % 32's candidate c[r / 32]. Piece f of the unit
+// is piece k of row r, f = r kn + k; lane l copies f = l, l + 32, ...
+__device__ __forceinline__ void fusion_stage(const int (&c)[kFusionPer], int v, int lane,
+                                             const FusionShape& sh, int A,
+                                             const __nv_bfloat16* __restrict__ cat16, int ld,
+                                             const float* __restrict__ aux, uint4* rbuf,
+                                             float* abuf) {
+  const int t = v / sh.nch, j = v - t * sh.nch;
+  bool any = false;
+#pragma unroll
+  for (int h = 0; h < kFusionPer; ++h) any |= c[h] >= 0;
+  if (__any_sync(kFull, any)) {
+    uint4* dst = rbuf + (v & 1) * kFusionTile * sh.srow;
+    const int k0 = j * sh.kc;
+    const int kn = min(sh.kc, sh.pieces - k0);
+    if (kn > 0) {
+      const int dr = 32 / kn, dk = 32 % kn;
+      int r = lane / kn, k = lane % kn;
+      for (int f = lane; f < kFusionTile * kn; f += 32) {
+        int cr = -1;
+#pragma unroll
+        for (int h = 0; h < kFusionPer; ++h) {
+          const int x = __shfl_sync(kFull, c[h], r & 31);
+          if ((r >> 5) == h) cr = x;
+        }
+        if (cr >= 0) cp_async16(dst + r * sh.srow + k, cat16 + (int64_t)cr * ld + 8 * (k0 + k));
+        r += dr;
+        k += dk;
+        if (k >= kn) { k -= kn; ++r; }
+      }
+    }
+    if (j == 0 && A > 0) {
+      float* adst = abuf + (t & 1) * kFusionTile * sh.arow;
+      const int dr = 32 / A, dk = 32 % A;
+      int r = lane / A, k = lane % A;
+      for (int f = lane; f < kFusionTile * A; f += 32) {
+        int cr = -1;
+#pragma unroll
+        for (int h = 0; h < kFusionPer; ++h) {
+          const int x = __shfl_sync(kFull, c[h], r & 31);
+          if ((r >> 5) == h) cr = x;
+        }
+        if (cr >= 0) cp_async4(adst + r * sh.arow + k, aux + (int64_t)cr * A + k);
+        r += dr;
+        k += dk;
+        if (k >= A) { k -= A; ++r; }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kFusionMaxWarps * 32)
     wnn_fusion_kernel(const int* __restrict__ cand,
-                      const __nv_bfloat16* __restrict__ cat16,
+                      const __nv_bfloat16* __restrict__ cat16, int ld,
                       const float* __restrict__ aux,
                       const float* __restrict__ sigw,
                       const int* __restrict__ offs, int row0, int rows, int C,
-                      int D, int M, int cosine, float* __restrict__ out) {
-  extern __shared__ float qs[];  // kFusionWarps rows of D
+                      int D, int M, int cosine, int chunk, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char fsm[];
+  const FusionShape sh(D, M, chunk);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kFusionWarps + warp;  // the window's row
+  const int w = blockIdx.x * (blockDim.x >> 5) + warp;  // the window's row
   if (w >= rows) return;  // no block-wide barrier below
   const int i = row0 + w;  // the cell: a row of the whole tables
-  float* q = qs + (int64_t)warp * D;
-  for (int u = lane; u < D; u += 32)
-    q[u] = __bfloat162float(cat16[(int64_t)i * D + u]);
-  __syncwarp();
-  const float* aq = aux + (int64_t)i * 2 * M;
-  const float* sw = sigw + (int64_t)i * 2 * M;
-  for (int p = lane; p < C; p += 32) {
-    const int c = cand[(int64_t)w * C + p];
-    float total = 0.f;
-    if (c >= 0) {
-      const __nv_bfloat16* crow = cat16 + (int64_t)c * D;
-      const float* ac = aux + (int64_t)c * 2 * M;
-      for (int mm = 0; mm < M; ++mm) {
-        float cross = 0.f;
-        for (int u = offs[mm]; u < offs[mm + 1]; ++u)
-          cross = fmaf(q[u], __bfloat162float(crow[u]), cross);
-        const float dist =
-            cosine ? __fsub_rn(1.f, cross)
-                   : sqrtf(fmaxf(__fsub_rn(__fadd_rn(aq[mm], ac[mm]),
-                                           __fmul_rn(2.f, cross)), 0.f));
-        const float pres = __fmul_rn(ac[M + mm], aq[M + mm]);
-        const float sig = fmaxf(sw[mm], 1e-12f);
-        const float contrib = __fmul_rn(expf(__fdiv_rn(-dist, sig)), sw[M + mm]);
-        total = __fadd_rn(total, __fmul_rn(contrib, pres));
+  const int A = 2 * M;
+  unsigned char* base = fsm + (size_t)warp * sh.warp_bytes(M);
+  uint4* rbuf = reinterpret_cast<uint4*>(base);                           // 2 x tile x srow
+  float* q = reinterpret_cast<float*>(rbuf + 2 * kFusionTile * sh.srow);  // 8 pieces
+  float* abuf = q + 8 * sh.pieces;                                        // 2 x tile x arow
+  float* aq = abuf + 2 * kFusionTile * sh.arow;                           // 2M: the cell's aux
+  float* sw = aq + A;                                                     // 2M: its sigw
+  int* bounds = reinterpret_cast<int*>(sw + A);                           // M + 1: offs
+  const int* crow = cand + (int64_t)w * C;
+  const int tiles = (C + kFusionTile - 1) / kFusionTile;
+  const int units = tiles * sh.nch;  // (tile, chunk)
+
+  // the candidate ids run two tiles ahead of the tile computed: cid its ids,
+  // sid the next tile's, pid the one after's (their loads in flight)
+  int cid[kFusionPer], sid[kFusionPer], pid[kFusionPer];
+  fusion_ids(cid, crow, 0, C, lane);
+  fusion_ids(sid, crow, 1, C, lane);
+  fusion_ids(pid, crow, 2, C, lane);
+  for (int u = lane; u < 8 * sh.pieces; u += 32)
+    q[u] = u < D ? __bfloat162float(cat16[(int64_t)i * ld + u]) : 0.f;
+  for (int u = lane; u < A; u += 32) {
+    aq[u] = aux[(int64_t)i * A + u];
+    sw[u] = sigw[(int64_t)i * A + u];
+  }
+  for (int u = lane; u <= M; u += 32) bounds[u] = offs[u];
+  fusion_stage(cid, 0, lane, sh, A, cat16, ld, aux, rbuf, abuf);
+  __syncwarp();  // q and the constants are whole
+  int mm = 0, end = -1;
+  float total[kFusionPer], cross[kFusionPer];
+  for (int v = 0; v < units; ++v) {
+    const int t = v / sh.nch, j = v - t * sh.nch;
+    const bool last = j == sh.nch - 1;  // the tile's last chunk
+    if (v + 1 < units) {
+      int nid[kFusionPer];  // the ids of unit v + 1's tile
+#pragma unroll
+      for (int h = 0; h < kFusionPer; ++h) nid[h] = last ? sid[h] : cid[h];
+      fusion_stage(nid, v + 1, lane, sh, A, cat16, ld, aux, rbuf, abuf);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();  // unit v has landed for every lane
+    if (j == 0) {
+      mm = 0;
+      end = M > 0 ? bounds[1] : -1;
+#pragma unroll
+      for (int h = 0; h < kFusionPer; ++h) total[h] = cross[h] = 0.f;
+    }
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < kFusionPer; ++h) any |= cid[h] >= 0;
+    if (any) {
+      const uint4* row = rbuf + (v & 1) * kFusionTile * sh.srow + lane * sh.srow;
+      const float* ac = abuf + (t & 1) * kFusionTile * sh.arow + lane * sh.arow;
+      const int k0 = j * sh.kc;
+      const int kn = min(sh.kc, sh.pieces - k0);
+      for (int k = 0; k < kn; ++k) {
+        const int u0 = 8 * (k0 + k);
+        if (end >= u0 + 8) {  // no slice ends inside this piece
+          const float4 qa = *reinterpret_cast<const float4*>(q + u0);
+          const float4 qb = *reinterpret_cast<const float4*>(q + u0 + 4);
+#pragma unroll
+          for (int h = 0; h < kFusionPer; ++h) {
+            const uint4 raw = row[h * 32 * sh.srow + k];
+            float x = cross[h];
+            x = fmaf(qa.x, bf16_lo(raw.x), x);
+            x = fmaf(qa.y, bf16_hi(raw.x), x);
+            x = fmaf(qa.z, bf16_lo(raw.y), x);
+            x = fmaf(qa.w, bf16_hi(raw.y), x);
+            x = fmaf(qb.x, bf16_lo(raw.z), x);
+            x = fmaf(qb.y, bf16_hi(raw.z), x);
+            x = fmaf(qb.z, bf16_lo(raw.w), x);
+            x = fmaf(qb.w, bf16_hi(raw.w), x);
+            cross[h] = x;
+          }
+        } else {  // a slice ends before some of these columns
+#pragma unroll 1
+          for (int e = 0; e < 8; ++e) {
+            const int u = u0 + e;
+            while (mm < M && u == end) {
+#pragma unroll
+              for (int h = 0; h < kFusionPer; ++h) {
+                total[h] = __fadd_rn(total[h], fusion_term(cross[h], mm, M, cosine, aq,
+                                                           ac + h * 32 * sh.arow, sw));
+                cross[h] = 0.f;
+              }
+              ++mm;
+              end = mm < M ? bounds[mm + 1] : -1;
+            }
+            if (u < D) {
+#pragma unroll
+              for (int h = 0; h < kFusionPer; ++h) {
+                const unsigned short b =
+                    reinterpret_cast<const unsigned short*>(row + h * 32 * sh.srow + k)[e];
+                cross[h] = fmaf(q[u], __uint_as_float((unsigned)b << 16), cross[h]);
+              }
+            }
+          }
+        }
+      }
+      if (last) {
+        while (mm < M) {
+#pragma unroll
+          for (int h = 0; h < kFusionPer; ++h) {
+            total[h] = __fadd_rn(total[h], fusion_term(cross[h], mm, M, cosine, aq,
+                                                       ac + h * 32 * sh.arow, sw));
+            cross[h] = 0.f;
+          }
+          ++mm;
+        }
       }
     }
-    out[(int64_t)w * C + p] = total;
+    if (last) {
+#pragma unroll
+      for (int h = 0; h < kFusionPer; ++h) {
+        const int p = t * kFusionTile + 32 * h + lane;
+        if (p < C) out[(int64_t)w * C + p] = cid[h] >= 0 ? total[h] : 0.f;
+        cid[h] = sid[h];
+        sid[h] = pid[h];
+      }
+      fusion_ids(pid, crow, t + 3, C, lane);
+    }
+    __syncwarp();  // buffer v & 1 is read before unit v + 2 lands there
   }
 }
 
@@ -473,25 +721,30 @@ int mt_wnn_theta(const float* rep, const int* rows1, const int* rows2,
   return (int)cudaGetLastError();
 }
 
-// T11. cat16 (n x D) bf16; aux, sigw (n x 2M) f32: the whole tables; the
-// cells are the window [row0, row0 + rows) of them, cand (rows x C) int32
-// their candidates (global ids, -1 absent); offs (M+1,) int32 slice bounds;
-// out (rows x C) f32. The single-device path passes 0, n.
-int mt_wnn_fusion_scores(const int* cand, const void* cat16, const float* aux,
-                         const float* sigw, const int* offs, int n, int row0,
-                         int rows, int C, int D, int M, int cosine, float* out,
+// T11. cat16 (n x D) bf16 with row stride ld (a multiple of 8, the
+// pointer 16-byte aligned, and ceil(D / 8) * 8 <= ld: the columns past D are
+// read and never used); aux, sigw (n x 2M) f32: the whole tables; the cells
+// are the window [row0, row0 + rows) of them, cand (rows x C) int32 their
+// candidates (global ids, -1 absent); offs (M+1,) int32 slice bounds; warps
+// cells a block (1 to 8); chunk 16-byte pieces a staged chunk of a row (>=
+// 1); out (rows x C) f32. The single-device path passes 0, n.
+int mt_wnn_fusion_scores(const int* cand, const void* cat16, int ld, const float* aux,
+                         const float* sigw, const int* offs, int n, int row0, int rows,
+                         int C, int D, int M, int cosine, int warps, int chunk, float* out,
                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (row0 < 0 || rows < 0 || row0 > n - rows) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > kFusionMaxWarps || chunk < 1 || M < 1 || D < 0 || ld % 8 != 0 ||
+      ld < (D + 7) / 8 * 8 || ((uintptr_t)cat16 & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
   if (rows > 0 && C > 0) {
-    const size_t bytes = sizeof(float) * kFusionWarps * (size_t)D;
+    const size_t bytes = (size_t)warps * FusionShape(D, M, chunk).warp_bytes(M);
     cudaError_t e = cudaFuncSetAttribute(
         wnn_fusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    wnn_fusion_kernel<<<(rows + kFusionWarps - 1) / kFusionWarps, kFusionWarps * 32,
-                        bytes, st>>>(
-        cand, reinterpret_cast<const __nv_bfloat16*>(cat16), aux, sigw, offs, row0,
-        rows, C, D, M, cosine, out);
+    wnn_fusion_kernel<<<(rows + warps - 1) / warps, warps * 32, bytes, st>>>(
+        cand, reinterpret_cast<const __nv_bfloat16*>(cat16), ld, aux, sigw, offs, row0,
+        rows, C, D, M, cosine, chunk, out);
   }
   return (int)cudaGetLastError();
 }

@@ -66,7 +66,8 @@ _SIGNATURES = {
     "mt_wnn_bandwidth": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
                          _P),
     "mt_wnn_theta": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "mt_wnn_fusion_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "mt_wnn_fusion_scores": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                             _P),
     "mt_clr_dense": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _F, _P),

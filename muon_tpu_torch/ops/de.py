@@ -54,7 +54,8 @@ __all__ = [
 
 # T26: the 64-bit tie term holds t^3 - t summed over runs up to n^3 < 2^63
 MAX_RANK_CELLS = 2_000_000
-# T26 keeps 8 warps' group counters (8 bytes each) in shared memory
+# T26 keeps each group's int64 counter, its open-run count and its place in the
+# open run's list (16 bytes a group) in shared memory
 MAX_GROUPS = 3_000
 # bytes of one column block's sort working set (the transposed copy, the
 # sorted values and the int64 permutation) that T26's wrapper aims for

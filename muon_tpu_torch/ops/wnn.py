@@ -31,7 +31,8 @@ from .knn import IVF_THRESHOLD, _order_keys, knn
 __all__ = [
     "choose_representation", "single_neighbors", "wnn_neighbors",
     "wnn_bandwidth", "wnn_bandwidth_plain", "wnn_theta", "wnn_theta_plain",
-    "wnn_fusion_scores", "wnn_fusion_scores_plain", "cand_dedup", "final_topk",
+    "wnn_fusion_scores", "wnn_fusion_scores_plain", "padded_table", "cand_dedup",
+    "final_topk",
 ]
 
 # above this many rows the reference's neighbors take the approximate kNN
@@ -44,6 +45,10 @@ BANDWIDTH_STATIC_SMEM = 4 * (256 + 8 + 4)
 # blocks of T9's global-memory variant (4 per SM of an H100), each with its
 # own slice of the scratch
 BANDWIDTH_SCRATCH_BLOCKS = 528
+# T11: cells (warps) a block, the 16-byte pieces of a candidate's row that
+# one staged chunk holds, and the candidates of a tile (kFusionTile in the
+# source: a lane each)
+FUSION_WARPS, FUSION_CHUNK, FUSION_TILE = 8, 7, 32
 
 
 def _n_obs(adata) -> int:
@@ -450,6 +455,47 @@ def _dims_offsets(dims: Sequence[Tuple[int, int]], D: int) -> list:
     return offs
 
 
+def _fusion_warp_bytes(D: int, M: int, chunk: int) -> int:
+    """T11's shared memory a warp (``FusionShape::warp_bytes`` in the
+    source): two buffers of a tile's staged rows (a chunk of ⌈D/8⌉ 16-byte
+    pieces, made an odd number of pieces), the cell's row as float32, two
+    buffers of a tile's aux rows (2M words, made odd), and the cell's aux
+    and sigw rows and the M + 1 slice bounds."""
+    pieces = -(-D // 8)
+    kc = max(1, min(pieces, chunk))
+    srow, arow = kc | 1, (2 * M) | 1
+    T = FUSION_TILE
+    b = 2 * T * srow * 16 + 4 * 8 * pieces + 2 * T * arow * 4 + 4 * (5 * M + 1)
+    return -(-b // 16) * 16
+
+
+def padded_table(cat16: torch.Tensor) -> torch.Tensor:
+    """The bf16 table (n, D) as T11 gathers it: its rows a stride of a
+    multiple of 8 values (16 bytes) apart, 16-byte aligned, the storage
+    reaching past the last row's ⌈D/8⌉·8 columns. ``cat16`` itself when it
+    is so (``wnn_neighbors`` builds it so), else a copy: the (n, D) view of
+    a zeroed (n, ⌈D/8⌉·8) table. The columns past D lie outside every
+    modality slice, so they change no score."""
+    n, D = cat16.shape
+    ld = -(-D // 8) * 8
+    st = cat16.stride()
+    if n == 0 or (st[1] == 1 and st[0] % 8 == 0 and st[0] >= ld
+                  and cat16.data_ptr() % 16 == 0
+                  and cat16.untyped_storage().nbytes()
+                  >= 2 * (cat16.storage_offset() + (n - 1) * st[0] + ld)):
+        return cat16
+    out = padded_zeros(n, D, cat16.device)
+    out[:] = cat16
+    return out
+
+
+def padded_zeros(n: int, D: int, device) -> torch.Tensor:
+    """A zeroed (n, D) bf16 table in ``padded_table``'s layout: the (n, D)
+    view of an (n, ⌈D/8⌉·8) table."""
+    ld = max(8, -(-D // 8) * 8)
+    return torch.zeros((n, ld), dtype=torch.bfloat16, device=device)[:, :D]
+
+
 def wnn_fusion_scores(
     cand: torch.Tensor, cat16: torch.Tensor, aux: torch.Tensor, sigw: torch.Tensor,
     dims: Sequence[Tuple[int, int]], metric: str, row0: int = 0,
@@ -460,9 +506,11 @@ def wnn_fusion_scores(
     mesh passes its rows' window over the whole tables):
     Σ_m w_m · exp(−dist_m/max(σ_m, 1e-12)) · present_m(cell) ·
     present_m(cand) over the modality column slices ``dims`` of the bf16
-    table ``cat16`` (n, ΣD). ``aux`` (n, 2M) = [|x|²_m | present_m],
-    ``sigw`` (n, 2M) = [σ_m | w_m]. ``metric``: ``"cosine"`` scores
-    1 − cross on unit rows, anything else the euclidean distance."""
+    table ``cat16`` (n, ΣD; its rows may lie a padded stride apart, as
+    ``padded_table`` makes them, else the kernel gathers from such a copy).
+    ``aux`` (n, 2M) = [|x|²_m | present_m], ``sigw`` (n, 2M) = [σ_m | w_m].
+    ``metric``: ``"cosine"`` scores 1 − cross on unit rows, anything else the
+    euclidean distance."""
     if cand.device.type == "cpu":
         return wnn_fusion_scores_plain(cand, cat16, aux, sigw, dims, metric, row0)
     if cand.device.type != "cuda":
@@ -475,19 +523,26 @@ def wnn_fusion_scores(
     dev = cand.device
     offs = _dims_offsets(dims, D)
     _check(cand, torch.int32, (rows, C), "cand", dev)
-    _check(cat16, torch.bfloat16, (n, D), "cat16", dev)
+    if cat16.device != dev or cat16.dtype != torch.bfloat16 or cat16.stride(1) != 1:
+        raise ValueError(f"cat16 must be a {torch.bfloat16} tensor of shape ({n}, {D}) with "
+                         f"unit column stride on {dev}, got {cat16.dtype} "
+                         f"{tuple(cat16.shape)} strides {cat16.stride()} on {cat16.device}")
     _check(aux, torch.float32, (n, 2 * M), "aux", dev)
     _check(sigw, torch.float32, (n, 2 * M), "sigw", dev)
-    if M < 1 or n * max(C, D) > 2**31 - 1 or D * 4 * 8 > MAX_SMEM:
-        raise ValueError(f"T11 takes M >= 1, n*max(C, D) < 2^31 and D <= 7264; "
-                         f"got n={n} C={C} D={D} M={M}")
+    warp_bytes = _fusion_warp_bytes(D, M, FUSION_CHUNK)
+    if M < 1 or n * max(C, D) > 2**31 - 1 or warp_bytes > MAX_SMEM:
+        raise ValueError(f"T11 takes M >= 1, n*max(C, D) < 2^31 and a warp's shared memory "
+                         f"within {MAX_SMEM} bytes; got n={n} C={C} D={D} M={M} "
+                         f"({warp_bytes} bytes)")
+    table = padded_table(cat16)
+    warps = max(1, min(FUSION_WARPS, MAX_SMEM // warp_bytes))
     offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
     out = torch.empty((rows, C), dtype=torch.float32, device=dev)
     _kernels.launch(
         "wnn_fusion_scores", dev,
-        cand.data_ptr(), cat16.data_ptr(), aux.data_ptr(), sigw.data_ptr(),
-        offs_t.data_ptr(), n, int(row0), rows, C, D, M, int(metric == "cosine"),
-        out.data_ptr(),
+        cand.data_ptr(), table.data_ptr(), table.stride(0), aux.data_ptr(), sigw.data_ptr(),
+        offs_t.data_ptr(), n, int(row0), rows, C, D, M, int(metric == "cosine"), warps,
+        FUSION_CHUNK, out.data_ptr(),
     )
     return out
 
@@ -788,7 +843,8 @@ def wnn_neighbors(
         for mod in modalities:
             dims.append((off, off + reps[mod].shape[1]))
             off += reps[mod].shape[1]
-        cat16 = torch.zeros((n_global, off), dtype=torch.bfloat16, device=device)
+        # rows padded to 16 bytes, so T11 gathers them whole (padded_table)
+        cat16 = padded_zeros(n_global, off, device)
         aux = torch.zeros((n_global, 2 * n_mods), dtype=torch.float32, device=device)
         sigw = torch.zeros((n_global, 2 * n_mods), dtype=torch.float32, device=device)
         for i, mod in enumerate(modalities):

@@ -528,8 +528,10 @@ def sharded_wnn_scores(cand, cat16, aux, sigw, dims, mesh, metric: str = "euclid
     lo, hi = mesh.block(n, "cells")
     with stage("mesh/wnn_scores"):
         c_loc = cand_t[lo:hi].contiguous()
-        scores = _wnn.wnn_fusion_scores(c_loc, _tensor(cat16, torch.bfloat16, dev),
-                                        _tensor(aux, torch.float32, dev),
+        # a table already on the device keeps its padded rows (ops.wnn.padded_table)
+        on_dev = torch.is_tensor(cat16) and cat16.device == dev and cat16.dtype == torch.bfloat16
+        table = cat16 if on_dev else _tensor(cat16, torch.bfloat16, dev)
+        scores = _wnn.wnn_fusion_scores(c_loc, table, _tensor(aux, torch.float32, dev),
                                         _tensor(sigw, torch.float32, dev), tuple(dims),
                                         str(metric), row0=lo)
         idx, dist = _wnn.final_topk(scores, c_loc, int(k))

@@ -193,6 +193,56 @@ def test_wilcoxon_rank_sums_exact(data, monkeypatch):
     np.testing.assert_array_equal(tie.numpy(), want_tie)
 
 
+RANK_EDGES = ["runs31", "runs32", "runs33", "runs4097", "zeros", "nan", "max_groups", "n1",
+              "n2"]
+
+
+def _rank_edge(case):
+    """T26's edge cases (X (n, D) float32, codes (n,) int32, g): tie runs
+    of 31-33 and 4097 cells across the kernel's 2048-cell tiles, a column of
+    mostly ±0, NaNs, g = MAX_GROUPS, one and two cells."""
+    rng = np.random.default_rng(len(case))
+    n, g = {"runs4097": (13000, 5), "zeros": (10000, 20), "max_groups": (12000, de.MAX_GROUPS),
+            "n1": (1, 2), "n2": (2, 3)}.get(case, (6500, 7))
+    i = np.arange(n)
+    if case.startswith("runs"):
+        L = int(case[4:])
+        X = np.stack([i // L, (i + 7) // L, (i + L // 2) // L, rng.integers(0, 4, n)], axis=1)
+        X = rng.permutation(X.astype(np.float32))  # the sort puts the runs back
+    elif case == "zeros":
+        X = np.where(rng.random((n, 4)) < 0.95, 0.0, rng.integers(1, 5, (n, 4)))
+        X = (X * np.where(rng.random((n, 4)) < 0.5, -1.0, 1.0)).astype(np.float32)
+        X[:, 3] = -0.0
+    elif case == "nan":
+        X = rng.integers(0, 4, (n, 3)).astype(np.float32)
+        X[rng.random((n, 3)) < 0.1] = np.nan
+        X[:, 2] = np.nan
+    elif case == "n2":
+        X = np.array([[1.0, 2.0, -0.0], [1.0, 3.0, 0.0]], np.float32)
+    else:
+        X = rng.integers(0, 6, (n, 3)).astype(np.float32)
+    codes = rng.integers(0, g, n).astype(np.int32)
+    codes[rng.random(n) < 0.1] = -1
+    return X, codes, g
+
+
+@pytest.mark.parametrize("case", RANK_EDGES)
+def test_wilcoxon_rank_sums_edges_exact(case):
+    # the dense route's plain version held to scipy's rankdata, and to the
+    # route over Xᵀ's CSR (NaNs: each a run of its own, after every number)
+    X, codes, g = _rank_edge(case)
+    rs, tie = de.wilcoxon_rank_sums(torch.from_numpy(X), torch.from_numpy(codes), g)
+    rows, cols = np.nonzero((X != 0) | np.isnan(X))
+    Xs = sp.csr_matrix((X[rows, cols], (rows, cols)), shape=X.shape)
+    Xt = dsp.transpose(dsp.from_scipy(Xs, "cpu"))
+    rs_c, tie_c = de.wilcoxon_rank_sums_csc(Xt, torch.from_numpy(codes), g)
+    assert torch.equal(rs, rs_c) and torch.equal(tie, tie_c)
+    if case != "nan":
+        want_rs, want_tie = _exact_rank_sums(X, codes, g)
+        np.testing.assert_array_equal(rs.numpy(), want_rs)
+        np.testing.assert_array_equal(tie.numpy(), want_tie)
+
+
 @pytest.mark.parametrize("data", ["planted", "ties"])
 @pytest.mark.parametrize("sparse", [False, True])
 def test_wilcoxon_matches_reference(reference, data, sparse, monkeypatch):
@@ -422,6 +472,30 @@ def test_gpu_wilcoxon_rank_sums_match_plain(cuda, n, D, g, block, monkeypatch):
     rs_c, tie_c = de.wilcoxon_rank_sums(Xc.cpu(), cc.cpu(), g)
     assert torch.equal(rs.cpu(), rs_c) and torch.equal(tie.cpu(), tie_c)
     assert tie[0].item() == n**3 - n and tie[1].item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RANK_EDGES)
+def test_gpu_wilcoxon_rank_sums_edges_match_plain(cuda, case):
+    # tie runs across the 2048-cell tiles (a run of 4097 spans three), a
+    # column of mostly ±0 (one run settled once), NaNs, g = MAX_GROUPS, n = 1
+    # and 2; a block of one column too (n odd: the unaligned loads)
+    X, codes, g = _rank_edge(case)
+    Xc, cc = torch.from_numpy(X).to(cuda), torch.from_numpy(codes).to(cuda)
+    for cols in (slice(None), slice(1, 2)):
+        vals, perm = torch.sort(Xc[:, cols].T, dim=1, stable=True)
+        vals, perm = vals.contiguous(), perm.contiguous()
+        _kernels.reset_launch_counts()
+        rs, tie = de.sorted_rank_sums(vals, perm, cc, g)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["wilcoxon_rank_sums"] == 1
+        rs_p, tie_p = de.sorted_rank_sums_plain(vals, perm, cc, g)
+        assert torch.equal(rs, rs_p) and torch.equal(tie, tie_p)
+    odd = Xc[: max(1, X.shape[0] - 1)]  # n off a multiple of 4
+    vals, perm = torch.sort(odd.T, dim=1, stable=True)
+    rs, tie = de.sorted_rank_sums(vals.contiguous(), perm.contiguous(), cc[:odd.shape[0]], g)
+    rs_p, tie_p = de.sorted_rank_sums_plain(vals, perm, cc[:odd.shape[0]], g)
+    assert torch.equal(rs, rs_p) and torch.equal(tie, tie_p)
 
 
 @pytest.mark.gpu

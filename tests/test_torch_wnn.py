@@ -245,6 +245,58 @@ def test_fusion_refuses_bad_dims():
         tw._dims_offsets(((0, 6),), 10)
 
 
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("dims", [((0, 50), (50, 100), (100, 130)), ((0, 13), (13, 37)),
+                                  ((0, 16),)])
+def test_padded_table_gives_the_unpadded_plain_scores(metric, dims):
+    # T11 gathers rows whose stride is a multiple of 8 bf16; the padded
+    # columns lie outside every slice, so the scores are the same bits
+    cand, X, aux, sigw, dims = _fusion_inputs(seed=14, metric=metric, n=200, C=45, dims=dims)
+    D = dims[-1][1]
+    cat16 = _t(X).to(torch.bfloat16)
+    padded = tw.padded_table(cat16)
+    ld = -(-D // 8) * 8
+    assert padded.shape == (200, D) and padded.stride() == (ld, 1)
+    assert torch.equal(padded, cat16)
+    args = (_t(cand), _t(aux), _t(sigw), dims, metric)
+    want = tw.wnn_fusion_scores_plain(args[0], cat16, *args[1:])
+    assert torch.equal(tw.wnn_fusion_scores_plain(args[0], padded, *args[1:]), want)
+    assert torch.equal(tw.wnn_fusion_scores(args[0], padded, *args[1:]), want)
+    win = tw.wnn_fusion_scores_plain(args[0][50:120].contiguous(), padded, *args[1:], row0=50)
+    assert torch.equal(win, want[50:120])
+
+
+def test_padded_table_copies_only_what_it_must():
+    built = tw.padded_zeros(10, 13, CPU)
+    assert built.stride() == (16, 1) and tw.padded_table(built) is built
+    whole = torch.zeros((10, 16), dtype=torch.bfloat16)
+    assert tw.padded_table(whole) is whole  # already a stride of 16
+    for t in (torch.ones((10, 13), dtype=torch.bfloat16),   # stride 13
+              whole[:, 1:14],                               # not 16-byte aligned
+              whole[3:, :]):                                # aligned rows, offset 48 bytes
+        got = tw.padded_table(t)
+        assert torch.equal(got, t) and got.stride(0) % 8 == 0 and got.data_ptr() % 16 == 0
+    assert tw.padded_table(whole[3:, :]).data_ptr() != whole.data_ptr()
+
+
+@pytest.mark.parametrize("D, M, chunk, want", [(130, 3, 32, 19808), (130, 3, 3, 5472),
+                                               (37, 2, 32, 6608), (8, 1, 32, 1856),
+                                               (0, 1, 32, 1824)])
+def test_fusion_shared_memory_per_warp(D, M, chunk, want):
+    # two buffers of a tile's 32 staged rows (an odd number of 16-byte pieces
+    # each), the cell's row as float32, two buffers of the 32 aux rows (an
+    # odd number of words), the cell's aux, sigw and slice bounds:
+    # ops/wnn.py mirrors FusionShape::warp_bytes
+    pieces = -(-D // 8)
+    kc = max(1, min(pieces, chunk))
+    assert tw.FUSION_TILE == 32
+    assert tw._fusion_warp_bytes(D, M, chunk) == want
+    assert want == -(-(2 * 32 * (kc | 1) * 16 + 32 * pieces + 256 * ((2 * M) | 1)
+                       + 4 * (5 * M + 1)) // 16) * 16
+    # every table the first design took (D up to 7264) still fits a warp
+    assert tw._fusion_warp_bytes(7264, 8, tw.FUSION_CHUNK) <= tw.MAX_SMEM
+
+
 @pytest.mark.parametrize("kk, fits", [(19, True), (99, True), (194, True), (195, False)])
 def test_bandwidth_shared_memory_bound(kk, fits):
     # T9 holds a cell's C = kk + kk·ceil(kk/2) candidates in one block's
@@ -711,6 +763,50 @@ def test_gpu_wnn_fusion_scores_match_plain(cuda, metric):
     got = _launched("wnn_fusion_scores", lambda: tw.wnn_fusion_scores(*args))
     ref = tw.wnn_fusion_scores_plain(*args)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
+def _fusion_edge_case(case):
+    """T11's edge cases: (cand, X, aux, sigw, dims, metric, row0)."""
+    slices = ((0, 50), (50, 100), (100, 130))
+    metric = "cosine" if case == "cosine" else "euclidean"
+    n, C, dims = {"c37": (700, 37, slices), "c1": (300, 1, slices), "m1": (900, 64, ((0, 50),)),
+                  "odd": (800, 70, ((0, 13), (13, 37))), "empty_slice": (600, 40,
+                  ((0, 20), (20, 20), (20, 44)))}.get(case, (3000, 600, slices))
+    cand, X, aux, sigw, dims = _fusion_inputs(seed=len(case) + 20, metric=metric, n=n, C=C,
+                                              dims=dims)
+    if case == "tails":
+        # cand_dedup's layout: -1 slots last, some rows all -1
+        cand[np.random.default_rng(5).random(cand.shape) < 0.3] = -1
+        cand[::17] = -1
+        cand = tw.cand_dedup(_t(cand))[0].numpy()
+    row0 = 1000 if case == "window" else 0
+    if row0:
+        cand = cand[row0:row0 + 1500]
+    return cand, X, aux, sigw, dims, metric, row0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, warps, chunk", [
+    ("c37", 4, 32), ("c1", 4, 32), ("tails", 4, 32), ("d130", 4, 32), ("m1", 4, 32),
+    ("window", 4, 32), ("cosine", 4, 32), ("odd", 4, 32), ("empty_slice", 4, 32),
+    ("d130", 1, 32), ("d130", 8, 3), ("odd", 3, 1), ("tails", 2, 5)])
+def test_gpu_wnn_fusion_scores_edges_match_plain(cuda, case, warps, chunk, monkeypatch):
+    # C off a multiple of 32, rows all -1 and with -1 tails, D = 130 over
+    # (50, 50, 30), M = 1, a window from row 1000, cosine, an odd D (the
+    # wrapper pads a copy), an empty slice; rows staged in several chunks and
+    # every block width
+    monkeypatch.setattr(tw, "FUSION_WARPS", warps)
+    monkeypatch.setattr(tw, "FUSION_CHUNK", chunk)
+    cand, X, aux, sigw, dims, metric, row0 = _fusion_edge_case(case)
+    args = (_t(cand).to(cuda), _t(X).to(cuda).to(torch.bfloat16), _t(aux).to(cuda),
+            _t(sigw).to(cuda), dims, metric, row0)
+    got = _launched("wnn_fusion_scores", lambda: tw.wnn_fusion_scores(*args))
+    ref = tw.wnn_fusion_scores_plain(*args)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    assert (got[args[0] < 0] == 0).all()
+    # a padded table gives the same bits as the copy the wrapper made
+    padded = tw.padded_table(args[1])
+    assert torch.equal(tw.wnn_fusion_scores(args[0], padded, *args[2:]), got)
 
 
 @pytest.mark.gpu
