@@ -156,7 +156,9 @@ is printed. An exception stops the run at once, with a code other than 0:
     fails), with both times; the stage split and the mean epoch;
 15. kernels: T14 (k+1 = 20 and 201, the first 64 work items of the 1M
     layout), T15 (all rows), T16 (one application) and T13 (epoch 0, with
-    the 1M graph's row lengths) against their plain versions;
+    the 1M graph's row lengths) against their plain versions; T41 on
+    [mesh2_1m] rank 0's window of that graph (500,000 vertices, no strides)
+    at epochs 0 and 8, against plain and the first design's kernel;
 16. repairs (after phase 12): T13 at 12 components (the kernel that takes
     the number at run time) against plain on the WNN graph; ``[wnn-wide]``,
     ``pp.neighbors(mdata, n_multineighbors=300)`` over neighbour lists 300
@@ -299,7 +301,9 @@ is printed. An exception stops the run at once, with a code other than 0:
     ``[kernel] ica_contrast / nmf_update / tfidf_dense / l2norm_dense``: each
     against its plain version at those shapes (T34 also at 1,000 × 25,000
     with zero rows and columns under every combination of the three log
-    flags and ``scale_factor`` ∈ {None, 1, 1e4}).
+    flags and ``scale_factor`` ∈ {None, 1, 1e4}); T33's two updates also
+    with each phase's time (its Gram, fold and update, from CUDA events
+    its launch records between them; under ``phases_ms``).
 38. ``[motifs]`` (after phase 37): a 60 Mb genome written from the seed
     (three chromosomes, runs of N, soft-masked stretches) as a FASTA, 100,000
     non-overlapping peaks of 500 bp named ``chrN:start-end`` in a holder's
@@ -418,8 +422,10 @@ is printed. An exception stops the run at once, with a code other than 0:
 43. ``[kernel] knn_ring_merge`` (a [mesh4] round, 25,000 × 25,000, and
     [mesh1]'s one round at 100,000, a [mesh2] round at 50,000 × 50,000 and
     a round of WNN's candidates at 50,000 × 50,000, k+1 = 201, timed
-    alone), ``umap_epoch_block`` (a [mesh2] rank's
-    window), ``tfidf_col_sums`` and ``tfidf_values_global`` (T1's modes),
+    alone), ``umap_epoch_block`` (a [mesh2] rank's window at epoch 0, held to
+    plain and to the first design's kernel bit for bit, that kernel's time
+    beside it; phase 15's [mesh2_1m] window is recorded with it under
+    ``mesh2_1m_window``), ``tfidf_col_sums`` and ``tfidf_values_global`` (T1's modes),
     ``wnn_bandwidth`` and ``wnn_fusion_scores`` on [mesh2] rank 1's window
     (rows 50,000-100,000; recorded under the kernel's ``mesh2_window``), each
     against its plain twin with its bound and library call.
@@ -1984,6 +1990,69 @@ def mean_epoch_line(label, sgd_seconds) -> str:
     return f"[times] {label}: mean epoch of {N_EPOCHS} {ms} ms"
 
 
+def epoch_eons(eps: np.ndarray, epoch: int) -> np.ndarray:
+    """The eons an edge holds at ``epoch`` had it been sampled on its
+    schedule: eps times the samples it has taken, from eps on."""
+    return eps * np.floor((epoch + 1) / eps).clip(min=1).astype(np.float32)
+
+
+def t41_first_design(emb, out, edges, eons, dcb, negs, v0, epoch, alpha, a, b, gamma):
+    """T41's C entry without a plan: the first design's kernel (a warp per
+    vertex), whose bits the run kernel keeps."""
+    from muon_tpu_torch.ops import _kernels
+
+    nv, dim = out.shape
+    _kernels.launch("umap_epoch_block", emb.device, emb.data_ptr(), out.data_ptr(),
+                    edges.indptr.data_ptr(), edges.tails.data_ptr(), edges.eps.data_ptr(),
+                    eons.data_ptr(), dcb.data_ptr(), negs.data_ptr(), 0, 0, int(v0), nv, dim,
+                    negs.shape[1], int(epoch), float(alpha), float(a), float(b), float(gamma))
+    return out
+
+
+def t41_window(tu, emb, edges, eps_w, dcb, negs, v0, epoch, a, b, label, atol):
+    """T41 on a window at ``epoch`` from ``emb`` (fresh eons each call, as
+    the epoch's schedule leaves them): against plain (``atol`` at scale 10,
+    eons exactly) and the first design's kernel (the same bits); the
+    times of the three; the bound of 4 bytes an edge for eons, 12 more a due
+    edge, the window's indptr, dc_exp, negatives and rows and the layout
+    once. Returns the record and whether it held."""
+    nv, dim = edges.indptr.shape[0] - 1, emb.shape[1]
+    fresh = torch.from_numpy(epoch_eons(eps_w, epoch)).to(emb.device)
+    args = (dcb, negs, v0, epoch, tu.epoch_alpha(1.0, epoch, N_EPOCHS), a, b, 1.0)
+    outs = {}
+    for key, fn in (("k", tu.umap_epoch_block), ("p", tu.umap_epoch_block_plain),
+                    ("f", t41_first_design)):
+        eons = fresh.clone()
+        outs[key] = (fn(emb, torch.empty((nv, dim), device=emb.device), edges, eons, *args),
+                     eons)
+    torch.cuda.synchronize()
+    err = (outs["k"][0] - outs["p"][0]).abs().max().item()
+    same = bool(torch.equal(outs["k"][0], outs["f"][0]) and torch.equal(outs["k"][1],
+                                                                       outs["f"][1]))
+    eons_same = bool(torch.equal(outs["k"][1], outs["p"][1]))
+    due = int((outs["k"][1] != fresh).sum())
+    pools = {k: [fresh.clone() for _ in range(6)] for k in "kpf"}
+    buf = torch.empty((nv, dim), device=emb.device)
+    ms = median_ms(lambda: tu.umap_epoch_block(emb, buf, edges, pools["k"].pop(), *args))
+    plain_ms = median_ms(lambda: tu.umap_epoch_block_plain(emb, buf, edges, pools["p"].pop(),
+                                                           *args), reps=3)
+    first_ms = median_ms(lambda: t41_first_design(emb, buf, edges, pools["f"].pop(), *args))
+    E_w = edges.tails.shape[0]
+    # per due edge and per negative about 30 operations (two powf among them)
+    bnd = bound(4 * E_w + 12 * due + nbytes(edges.indptr, dcb, negs, buf) + nbytes(emb),
+                30 * (due + negs.numel()), F32_OPS_PER_S)
+    ok = err <= atol and eons_same and same
+    print(f"[kernel] umap_epoch_block {label}, window {v0}-{v0 + nv} of {emb.shape[0]} "
+          f"vertices, {E_w} edges, {due} due at epoch {epoch}: max_abs_err={err:.3e} (atol "
+          f"{atol:g}, eons equal {eons_same}; the first design's bits {same}) ms={ms:.4f} "
+          f"first_design_ms={first_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) | {CARD}", flush=True)
+    check(ok, f"umap_epoch_block {label} epoch {epoch}: plain's values and the first "
+              "design's bits")
+    return {"max_abs_err": err, "ms": ms, "first_design_ms": first_ms, "plain_ms": plain_ms,
+            **bnd, "library_ms": None}, ok
+
+
 def row_stats(heads, n: int) -> str:
     """T13's rows: the edges per head vertex after the edge schedule."""
     L = np.bincount(heads, minlength=n)
@@ -2502,6 +2571,19 @@ def phase_big_kernels(ti, tu, tf, rep, partition, h, cuda) -> dict:
                      reps=3),
            bound(5 * E + 12 * due + nbytes(edges.indptr, dct, negs, emb0, out_k),
                  30 * (due + negs.numel()), F32_OPS_PER_S), record=False)
+    del edges, pools, buf, out_k, out_p, eons_k, eons_p
+
+    # T41 on [mesh2_1m] rank 0's window of the same graph (vertices 0-500,000,
+    # as sharded_umap_embed cuts it at P = 2, with no strides), epochs 0 and 8
+    v1 = -(-n // 2)
+    s_, e_ = np.searchsorted(heads, [0, v1])
+    wedges = tu.umap_edges(heads[s_:e_], tails[s_:e_], eps[s_:e_], np.zeros(e_ - s_, np.int8),
+                           v1, cuda)
+    dcw, negw = dct[:v1].contiguous(), negs[:v1].contiguous()
+    results["umap_epoch_block@mesh2_1m_window"] = {
+        f"epoch{epoch}": t41_window(tu, emb0, wedges, eps[s_:e_], dcw, negw, 0, epoch, a, b,
+                                    "at [mesh2_1m] rank 0's window", 1e-3)[0]
+        for epoch in (0, 8)}
     return results
 
 
@@ -4690,6 +4772,24 @@ def rel_ok(got, want, rtol, atol=0.0):
     return bool(((got - want).abs() <= rtol * want.abs() + atol).all())
 
 
+def nmf_phase_ms(tnmf, F, N, O, reps: int = 5) -> list:
+    """Median device times (ms) of T33's Gram, fold and update, from the CUDA
+    events its launch records between them, over ``reps`` calls after one
+    warm-up, a spin queued before each call (as ``median_ms``)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for e in events:
+        e.record()  # the event exists once recorded
+    tnmf._nmf_launch(F, N, O, 1.0, events=events)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        tnmf._nmf_launch(F, N, O, 1.0, events=events)
+        events[3].synchronize()
+        times.append([events[p].elapsed_time(events[p + 1]) for p in range(3)])
+    return [float(np.median([t[p] for t in times])) for p in range(3)]
+
+
 def phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd, rna_pca, cuda) -> dict:
     """T32-T35 against their plain versions at the paths' shapes."""
     results = {}
@@ -4720,7 +4820,7 @@ def phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd, rna_pca, cu
         # hold subnormal entries, whose spacing is no relative precision
         kernel_report(results, name, f"{'Ht' if name == 'nmf_update' else 'W'} "
                       f"{tuple(F.shape)}, other {tuple(O.shape)}, "
-                      f"{int((want.abs() < TINY).sum())} subnormal",
+                      f"{int((want.abs() < TINY).sum())} subnormal | {CARD}",
                       (got - want).abs().max().item(), "rtol 1e-5 atol 1.2e-38",
                       rel_ok(got, want, 1e-5, TINY),
                       lambda: tnmf.nmf_update(F, N, O, 1.0),
@@ -4728,6 +4828,10 @@ def phase_decomp_kernels(tica, tnmf, td, ica_inputs, nmf_inputs, Xd, rna_pca, cu
                       bound(nbytes(F, N, O, got),
                             2.0 * kk * kk * O.shape[0] + (2.0 * kk + 5) * kk * rows,
                             F32_OPS_PER_S))
+        phases = dict(zip(("gram", "fold", "update"), nmf_phase_ms(tnmf, F, N, O)))
+        results[name]["phases_ms"] = phases
+        print(f"[kernel] {name} phases (CUDA events between its launches): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in phases.items()) + f" | {CARD}", flush=True)
     del results["nmf_update W"], got, want
 
     # T34 under every flag combination at 1,000 x 25,000, zero rows and columns planted
@@ -6701,32 +6805,11 @@ def phase_mesh_kernels(cuda, work) -> dict:
     dcb = torch.from_numpy(dc[v0:v1]).to(cuda)
     edges = tu.umap_edges(heads[s_:e_], tails[s_:e_], eps[s_:e_], np.zeros(e_ - s_, np.int8),
                           v1 - v0, cuda, v0=v0)
-    outs = []
-    for fn in (tu.umap_epoch_block, tu.umap_epoch_block_plain):
-        eons, out = edges.eps.clone(), torch.empty((v1 - v0, 2), device=cuda)
-        fn(lay, out, edges, eons, dcb, negs, v0, 0, 1.0, 1.58, 0.9, 1.0)
-        outs.append((out, eons))
-    err = (outs[0][0] - outs[1][0]).abs().max().item()
-    eons_same = bool(torch.equal(outs[0][1], outs[1][1]))
-    # timed from the same state: each call (warm-up included) takes fresh
-    # eons, or the warm-up moves every due edge past epoch 0
-    pools = {k: [edges.eps.clone() for _ in range(6)] for k in ("k", "p")}
-    out = torch.empty((v1 - v0, 2), device=cuda)
-    E_w = e_ - s_
-    # no strides in T41: each edge's eons is read, and a due edge's tail and
-    # eps read and its eons written; per due edge and per negative about 30
-    # operations (two powf among them), as T13's
-    due = int((eps[s_:e_] <= 1.0).sum())
-    kernel_report(results, "umap_epoch_block",
-                  f"window {v1 - v0} of {n} vertices, {E_w} edges, {due} due at epoch 0 "
-                  "(a [mesh2] rank)",
-                  err, f"atol 1e-4, eons equal {eons_same}", err <= 1e-4 and eons_same,
-                  lambda: tu.umap_epoch_block(lay, out, edges, pools["k"].pop(), dcb, negs, v0,
-                                              0, 1.0, 1.58, 0.9, 1.0),
-                  lambda: tu.umap_epoch_block_plain(lay, out, edges, pools["p"].pop(), dcb,
-                                                    negs, v0, 0, 1.0, 1.58, 0.9, 1.0),
-                  bound(4 * E_w + 12 * due + nbytes(edges.indptr, dcb, negs, out)
-                        + lay.numel() * 4, 30 * (due + negs.numel()), F32_OPS_PER_S))
+    # epoch 0 from a uniform layout: the record; timed from the same state,
+    # each call (warm-up included) with fresh eons, or the warm-up moves every
+    # due edge past epoch 0
+    results["umap_epoch_block"] = t41_window(tu, lay, edges, eps[s_:e_], dcb, negs, v0, 0,
+                                             1.58, 0.9, "at a [mesh2] rank", 1e-4)[0]
 
     X = load_csr(f"{work}/counts")
     dX = dsp.from_scipy(X, cuda)
@@ -7006,6 +7089,8 @@ def run_all(work) -> int:
         results.update(phase_mesh_kernels(cuda, work))
         for name in ("wnn_bandwidth", "wnn_fusion_scores"):
             results[name]["mesh2_window"] = results.pop(f"{name}@mesh2_window")
+        results["umap_epoch_block"]["mesh2_1m_window"] = results.pop(
+            "umap_epoch_block@mesh2_1m_window")
     by_path = {"atac": atac_launches, "rna": rna_launches, "prot": prot_launches,
                "wnn": wnn_launches, "umap": umap_launches, "ivf": ivf_launches,
                "umap1m": umap_big_launches, "wnn_wide": wide_launches,

@@ -127,7 +127,7 @@ import chip_smoke as cs
 
 T9_INPUTS = ("100k", "2k", "tie19", "tie256", "dup")
 SECTIONS = ("t9", "mofa", "wnn_wide", "t5", "t14", "t40", "t2split", "t3", "t36", "t18", "t26",
-            "t15", "t13", "t24", "t11", "t26d")
+            "t15", "t13", "t24", "t11", "t26d", "t41", "t33")
 UMAP_EPOCHS = (0, 8, 13)  # T13 at the epoch of every stride, and two of fewer
 KMEANS_C, KMEANS_ITERS = 1024, 8  # the 1M path's partition (ops/ivf.ivf_knn)
 KNN_KS = (19, 200, 300)  # lists of 20, 201, 301: the graphs, WNN's pools, the wide lists
@@ -193,7 +193,7 @@ def make(out: str, sections, cuda) -> None:
             data["tfidf_data"] = h.X.data
         tac.tl.lsi(h, n_comps=cs.K, n_iter=cs.N_ITER, random_state=cs.SEED, device=cuda)
         data["lsi100k"] = np.ascontiguousarray(h.obsm["X_lsi"], dtype=np.float32)
-    if "t40" in sections or "t2split" in sections:
+    if "t40" in sections or "t2split" in sections or "t33" in sections:
         from muon_tpu_torch import pp as tpp
         from muon_tpu_torch.ops import sparse as dsp
 
@@ -202,13 +202,19 @@ def make(out: str, sections, cuda) -> None:
             h = cs.Holder(cs.normalise(dsp, X_rna, cuda))
             tpp.pca(h, n_comps=cs.K, random_state=cs.SEED, device=cuda)
             data["rna100k"] = np.ascontiguousarray(h.obsm["X_pca"], dtype=np.float32)
-        if "t2split" in sections:
+        if "t2split" in sections or "t33" in sections:
             from muon_tpu_torch.ops import nmf as tnmf
 
-            XT = tnmf.scopen_operands(X_atac, device=cuda)[1]
-            XT = getattr(XT, "csr", XT)  # cells x peaks, binarised and scaled
-            data.update(xt_data=XT.data.cpu().numpy(), xt_indices=XT.indices.cpu().numpy(),
-                        xt_indptr=XT.indptr.cpu().numpy(), xt_shape=np.array(XT.shape))
+            X, XT = tnmf.scopen_operands(X_atac, device=cuda)
+            C = getattr(XT, "csr", XT)  # cells x peaks, binarised and scaled
+            data.update(xt_data=C.data.cpu().numpy(), xt_indices=C.indices.cpu().numpy(),
+                        xt_indptr=C.indptr.cpu().numpy(), xt_shape=np.array(C.shape))
+        if "t33" in sections:
+            # scOpen's starts from seed 0 and the two updates' numerators
+            W, Ht = tnmf._starts(X, SCOPEN_L, 0, None, None)
+            data.update(t33_W=W.cpu().numpy(), t33_Ht=Ht.cpu().numpy(),
+                        t33_XtW=dsp.spmm_split(XT, W).cpu().numpy(),
+                        t33_XHt=dsp.spmm_split(X, Ht).cpu().numpy())
     if "t36" in sections:
         from muon_tpu_torch import atac as tac
         from muon_tpu_torch.atac import motifs as tmf
@@ -245,7 +251,7 @@ def make(out: str, sections, cuda) -> None:
         tac.pp.tfidf(h, device=cuda)
         for name, X in (("svi_rna", cs.normalise(dsp, X_rna, cuda)), ("svi_atac", h.X)):
             data[name] = cs.topvar_dense(dsp, X, cuda, cs.MOFA_COLS).cpu().numpy()
-    if "t13" in sections:
+    if "t13" in sections or "t41" in sections:
         data.update(make_umap_graphs(cuda))
     np.savez(f"{out}/inputs.npz", **data)
 
@@ -379,10 +385,7 @@ def spun_times(fn, reps: int) -> list:
     return times
 
 
-def epoch_eons(eps: np.ndarray, epoch: int) -> np.ndarray:
-    """The eons an edge holds at ``epoch`` had it been sampled on its
-    schedule: eps times the samples it has taken, from eps on."""
-    return eps * np.floor((epoch + 1) / eps).clip(min=1).astype(np.float32)
+epoch_eons = cs.epoch_eons  # the eons an edge holds at an epoch of its schedule
 
 
 def event_ms(fn, reps: int) -> float:
@@ -781,6 +784,124 @@ def run_t13(ttl, tu, profiling, inp, res, times, cuda) -> None:
         del edges, emb0, negs, dct, buf, G
 
 
+def run_t41(tu, inp, res, times, cuda) -> None:
+    """T41 on the two windows of [mesh2] (P = 2: vertices [0, ⌈n/2⌉) and the
+    rest) of each UMAP graph, no strides: epochs 0, 8 and 13 from the saved
+    start with fresh eons each call (out_blk and eons, the launch's time);
+    on rank 0's window also T13's entry point on the window with its zero
+    shift (the run kernel reading a byte an edge; rank 0's window starts at
+    vertex 0, so T13's indexing is the window's); then 200 epochs of the two
+    windows in turn, each summed from the same layout and their rows
+    concatenated as all_gather_rows would: the final layout and the loop's
+    wall."""
+    from muon_tpu_torch.ops import _kernels
+
+    a, b = tu.find_ab_params()
+    for key in ("100k", "1m"):
+        G = umap_graph(inp, key)
+        n = G.shape[0]
+        heads, tails, eps, _, dc = tu.edge_schedule(G, cs.N_EPOCHS)
+        emb0 = torch.from_numpy(inp[f"umap{key}_start"]).to(cuda)
+        negs = torch.from_numpy(inp[f"umap{key}_negs"]).to(cuda)
+        half = -(-n // 2)
+        wins = []
+        for r, (v0, v1) in enumerate(((0, half), (half, n))):
+            s_, e_ = np.searchsorted(heads, [v0, v1])
+            edges = tu.umap_edges(heads[s_:e_], tails[s_:e_], eps[s_:e_],
+                                  np.zeros(e_ - s_, np.int8), v1 - v0, cuda, v0=v0)
+            dcw = torch.from_numpy(dc[v0:v1]).to(cuda)
+            negw = negs[v0:v1].contiguous()
+            wins.append((v0, v1, edges, dcw, eps[s_:e_]))
+            buf = torch.empty((v1 - v0, 2), device=cuda)
+            for epoch in UMAP_EPOCHS:
+                fresh = torch.from_numpy(epoch_eons(eps[s_:e_], epoch)).to(cuda)
+                args = (dcw, negw, v0, epoch, tu.epoch_alpha(1.0, epoch, cs.N_EPOCHS), a, b, 1.0)
+                eons = fresh.clone()
+                out = tu.umap_epoch_block(emb0, torch.empty_like(buf), edges, eons, *args)
+                tag = f"t41_{key}_rank{r}_epoch{epoch}"
+                res[f"{tag}_sha256"] = np.array(digest(out, eons))
+                due = int((eons != fresh).sum())
+                pool = [fresh.clone() for _ in range(7)]
+                times[f"T41 ms at {key}, rank {r}'s window {v0}-{v1}, epoch {epoch} ({due} of "
+                      f"{len(fresh)} edges due)"] = spread(spun_times(
+                          lambda: tu.umap_epoch_block(emb0, buf, edges, pool.pop(), *args), 5))
+                if r:
+                    continue
+                plan = torch.from_numpy(tu.run_plan(
+                    edges.indptr.cpu().numpy(), _kernels.library().mt_umap_epoch_block_edges(2))
+                ).to(cuda)
+
+                def t13(eons_):
+                    _kernels.launch(
+                        "umap_epoch", cuda, emb0.data_ptr(), buf.data_ptr(),
+                        edges.indptr.data_ptr(), edges.tails.data_ptr(), edges.eps.data_ptr(),
+                        eons_.data_ptr(), edges.shift.data_ptr(), dcw.data_ptr(),
+                        negw.data_ptr(), plan.data_ptr(), plan.shape[0] - 1, v1, 2,
+                        negw.shape[1], epoch, *(float(x) for x in args[4:]))
+                    return buf
+
+                eons = fresh.clone()
+                res[f"{tag}_t13_zero_shift_sha256"] = np.array(digest(t13(eons), eons))
+                pool = [fresh.clone() for _ in range(7)]
+                times[f"T13's entry with the zero shift ms at {key}, rank 0's window, epoch "
+                      f"{epoch}"] = spread(spun_times(lambda: t13(pool.pop()), 5))
+        emb = emb0.clone()
+        eons = [w[2].eps.clone() for w in wins]
+        outs = [torch.empty((w[1] - w[0], 2), device=cuda) for w in wins]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(cs.N_EPOCHS):
+            alpha = tu.epoch_alpha(1.0, epoch, cs.N_EPOCHS)
+            for r, (v0, v1, edges, dcw, _) in enumerate(wins):
+                gen = torch.Generator(device=cuda).manual_seed(1000 * epoch + r)
+                nw = torch.randint(0, n, (v1 - v0, 5), generator=gen, dtype=torch.int32,
+                                   device=cuda)
+                tu.umap_epoch_block(emb, outs[r], edges, eons[r], dcw, nw, v0, epoch, alpha,
+                                    a, b, 1.0)
+            emb = torch.cat(outs)
+        torch.cuda.synchronize()
+        times[f"T41 200 epochs of two windows at {key}, wall s"] = time.perf_counter() - t0
+        res[f"t41_{key}_200epochs_layout"] = emb.cpu().numpy()
+        del wins, edges, emb, emb0, negs, outs, G
+
+
+def run_t33(tnmf, tsp, profiling, inp, res, times, cuda) -> None:
+    """T33 at [scopen]'s two updates (Hᵀ 100,000 × 30 from W 25,000 × 30,
+    and W from Hᵀ) from the starts and numerators ``make`` wrote: the
+    outputs' digests and each launch's time; then 500 iterations of
+    nmf_factors from those starts over the operands scopen_operands builds:
+    W and Hᵀ, and the ``scopen/update`` and ``scopen/products`` stages of the
+    second of two runs."""
+    from scipy import sparse as sp
+
+    W = torch.from_numpy(inp["t33_W"]).to(cuda)
+    Ht = torch.from_numpy(inp["t33_Ht"]).to(cuda)
+    XtW = torch.from_numpy(inp["t33_XtW"]).to(cuda)
+    XHt = torch.from_numpy(inp["t33_XHt"]).to(cuda)
+    for name, F, N, O in (("Ht", Ht, XtW, W), ("W", W, XHt, Ht)):
+        out = tnmf.nmf_update(F, N, O, 1.0)
+        res[f"t33_{name}_update_sha256"] = np.array(digest(out))
+        res[f"t33_{name}_update_repeat_same_bits"] = np.array(
+            digest(tnmf.nmf_update(F, N, O, 1.0)) == digest(out))
+        times[f"T33 ms, {name} update {tuple(F.shape)} from {tuple(O.shape)}"] = spread(
+            spun_times(lambda: tnmf.nmf_update(F, N, O, 1.0), 7))
+    shape = tuple(int(v) for v in inp["xt_shape"])
+    XTc = tsp.from_scipy(sp.csr_matrix((inp["xt_data"], inp["xt_indices"], inp["xt_indptr"]),
+                                       shape=shape), cuda)
+    X, XT = tsp.transpose(XTc), tsp.pieced(XTc)
+    for rep in range(2):
+        with profiling.collect() as t:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Wf, Htf = tnmf.nmf_factors(X, XT, W, Ht, 1.0, 500)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    res["t33_500_W"], res["t33_500_Ht"] = Wf.cpu().numpy(), Htf.cpu().numpy()
+    times["nmf_factors 500 iterations, wall s"] = wall
+    for stage_ in ("scopen/update", "scopen/products"):
+        times[f"{stage_} (1000 calls), s"] = sum(t[stage_])
+
+
 def run_t24(tgp, tm, res, times, cuda) -> None:
     """T24 at the smoke's three shapes (matrices and times) and the dense
     [mefisto] fit (ELBO trace, Z, lengthscales, wall)."""
@@ -988,6 +1109,12 @@ def run(root: str, tag: str, out: str, sections, cuda) -> None:
         from muon_tpu_torch.ops import de as tde
 
         run_t26d(ttl, tde, _kernels, inp, res, times, cuda)
+    if "t41" in sections:
+        run_t41(tu, inp, res, times, cuda)
+    if "t33" in sections:
+        from muon_tpu_torch.ops import nmf as tnmf
+
+        run_t33(tnmf, tsp, profiling, inp, res, times, cuda)
     np.savez(f"{out}/{tag}.npz", **res)
     with open(f"{out}/{tag}.json", "w") as f:
         json.dump(times, f)

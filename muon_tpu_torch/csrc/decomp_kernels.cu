@@ -29,21 +29,41 @@
 // So one form serves both: F (rows x k) the factor, N (rows x k) its
 // numerator (T2's product of the CSR of X or X^T with the other factor), O
 // (other_rows x k) the other factor, whose Gram G = O^T O (k x k) T33 forms
-// first. Launch 1 gives each block a chunk of O's rows and each thread up to
-// 4 entries of G a pass (k^2 / 1024 passes), reading O's rows through L1
-// (a row is 120 B at k = 30); it writes the chunk's partial Gram. Launch 2
-// adds the partials in chunk order (no float atomics: a fit repeats bit for
-// bit). Launch 3 updates F, a thread per entry, the sum over k ascending and
-// the denominator added as the reference writes it ((FG + aF) + eps).
-// Bound: the bytes of F, N, O and the output, 39 MB for H at k = 30, n =
-// 100,000 with W 25,000 x 30 (0.012 ms); the Gram's and the product's
-// 2 k^2 (rows + other_rows) flop take 0.003 ms.
+// first. Three orders fix its bits, kept from the first design (three
+// launches, a thread per entry): chunk c's partial of G[i][j] is the fmaf
+// chain from +0 of O[r, i] O[r, j] over the chunk's rows ascending (the
+// wrapper cuts O's rows into the chunks); G[i][j] is the partials added by
+// __fadd_rn in chunk order from +0 (no float atomics: a fit repeats bit for
+// bit); out[v, i] is the fmaf chain over l ascending from +0 of F[v, l]
+// G[l, i], then ((acc + alpha x) + eps) and x N / den.
+// Bound: the bytes of F, N, O and the output, 39 MB for H^T at k = 30, n =
+// 100,000 with W 25,000 x 30 (0.012 ms at 3.35 TB/s); the Gram's and the
+// product's 2 k^2 (rows + other_rows) flop take 0.003 ms.
+// Design (launch 1, the Gram): a block a chunk stages its rows of O in
+// shared memory by cp.async in four parts, all issued at once, each read as
+// soon as it has landed, and forms only the entries on and above the
+// diagonal, k(k + 1)/2 (465 at k = 30): fmaf(a, b, c) is fmaf(b, a, c)
+// exactly, so G[j][i] takes G[i][j]'s bits, the first design's. A thread
+// takes a 2 x 2 tile of G: per row of O two 8-byte shared loads for its 4
+// fmas. Launch 2, the fold: a block 8 entries, their partials staged in
+// shared memory an entry a row, and a thread an entry runs its chain of
+// n_chunks adds from there (16 loaded, then added), then writes G[i][j] and
+// G[j][i]. Launch 3, the update at k <= 32 (scOpen's 30): four threads a row
+// of F, eight outputs each, 128 rows a block, F, N and G staged in shared
+// memory, the outputs written back over N and out coalesced. Above 32
+// factors a thread an entry, reading F's row and G through L1.
+// What sets the time (exp_t33_variants.py, torch.profiler's kernel spans on
+// an H100 at scOpen's shapes): each launch costs about 5 us of the card's
+// floor; the update's chains add about as much again as its staged loads
+// and stores; the W update's Gram over 100,000 rows of H^T is half staging;
+// the fold is its chain of n_chunks dependent adds.
 //
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError(). Outputs and scratch are
 // allocated by the caller.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -142,48 +162,242 @@ __global__ void ica_finish_kernel(const float* __restrict__ part_a,
   W_new[e] = __fsub_rn(__fdiv_rn(a, nf), __fmul_rn(__fdiv_rn(b, nf), W[e]));
 }
 
-constexpr int kGramAcc = 4;  // entries of G a thread holds in one pass
+// --- T33 ---
+constexpr int kGramThreads = 256;
+constexpr int kGramSub = 2;       // a thread's tile of G: kGramSub x kGramSub entries
+constexpr int kGramRows = 1536;   // floats of a chunk's rows of O a part holds
+constexpr int kGramParts = 4;     // parts of a chunk's rows staged at once
+constexpr int kFoldThreads = 256;
+constexpr int kFoldEntries = 8;   // entries of G a fold block adds up
+constexpr int kFoldTile = 8192;   // floats of their partials staged at a time
+constexpr int kFoldBatch = 16;    // partials a thread loads before adding them
+constexpr int kRowK = 32;         // the update's row path: k <= 32
+constexpr int kRowSplit = 4;      // threads a row of F in the row path
+constexpr int kRowsPerBlock = 128;
+constexpr int kRowThreads = kRowsPerBlock * kRowSplit;
+constexpr int kRowOut = kRowK / kRowSplit;  // outputs a thread, a multiple of 4
 
-// part[c] = sum over the rows r of chunk c of O[r, i] O[r, j], rows ascending
-__global__ void __launch_bounds__(kThreads)
-nmf_gram_partial_kernel(const float* __restrict__ O, int other_rows, int k, int chunk,
-                        float* __restrict__ part) {
-  const int64_t kk = (int64_t)k * k;
-  const int r_begin = blockIdx.x * chunk;
-  const int r_end = min(other_rows, r_begin + chunk);
-  for (int64_t e0 = 0; e0 < kk; e0 += (int64_t)kThreads * kGramAcc) {
-    int ii[kGramAcc], jj[kGramAcc];
-    float acc[kGramAcc];
+// 4 bytes from global to shared memory without a register (cp.async)
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+__device__ __forceinline__ void wait_copies() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// the index of G's entry (i, j), i <= j, among the entries on and above the
+// diagonal, row by row
+__device__ __forceinline__ int upper_index(int i, int j, int k) {
+  return i * k - i * (i - 1) / 2 + (j - i);
+}
+
+// n floats as loaded by one shared-memory load (n = 2 or 4, aligned)
+template <int n>
+__device__ __forceinline__ void load_sub(const float* p, float (&v)[n]) {
+  if constexpr (n == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  }
+}
+
+// Chunk c's partial Gram: the fmaf chain from +0 of O[r, i] O[r, j] over the
+// chunk's rows r ascending, for the entries on and above the diagonal, into
+// part[c][upper_index(i, j)]. A thread takes an S x S tile of G (S = kGramSub,
+// rows S p .., columns S q .., p <= q): per row of O two S-float shared
+// loads for its S^2 fmas. The chunk's rows are staged by cp.async in
+// kGramParts parts of R rows (R kp <= kGramRows, kp = k rounded up to 4),
+// all issued at once, and each part is read as soon as it has landed; a
+// longer chunk takes several such rounds.
+__device__ void gram_partial(const float* __restrict__ O, int other_rows, int k, int chunk,
+                             int c, float* __restrict__ part, float* s_rows) {
+  constexpr int S = kGramSub;
+  const int n_up = k * (k + 1) / 2;
+  const int kp = (k + 3) & ~3, nt = kp / S;
+  const int R = max(1, kGramRows / kp);
+  const int r_begin = c * chunk, r_end = min(other_rows, r_begin + chunk);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tiles = nt * (nt + 1) / 2;
+  for (int t0 = 0; t0 < tiles; t0 += kGramThreads) {
+    int p = 0, q = t0 + threadIdx.x;  // tile row p holds nt - p tiles
+    while (q >= nt - p && p < nt) q -= nt - p++;
+    q += p;
+    const bool live = t0 + threadIdx.x < tiles;
+    float acc[S][S] = {};
+    for (int base = r_begin; base < r_end; base += kGramParts * R) {
+      __syncthreads();  // the previous round's rows are read
+      for (int part_ = 0; part_ < kGramParts; ++part_) {  // one commit group a part
+        const int r0 = base + part_ * R, nr = max(0, min(R, r_end - r0));
+        const float* src = O + (size_t)r0 * k;
+        float* buf = s_rows + part_ * R * kp;
+        for (int r = warp; r < nr; r += kGramThreads / 32)
+          for (int x = lane; x < k; x += 32) copy4(buf + r * kp + x, src + r * k + x);
+        __pipeline_commit();
+      }
 #pragma unroll
-    for (int q = 0; q < kGramAcc; ++q) {
-      const int64_t e = min(e0 + threadIdx.x + (int64_t)q * kThreads, kk - 1);
-      ii[q] = (int)(e / k);
-      jj[q] = (int)(e - (int64_t)ii[q] * k);
-      acc[q] = 0.f;
+      for (int part_ = 0; part_ < kGramParts; ++part_) {
+        __pipeline_wait_prior(kGramParts - 1 - part_);
+        __syncthreads();  // part part_ has landed
+        const float* rows = s_rows + part_ * R * kp;
+        const int nr = max(0, min(R, r_end - (base + part_ * R)));
+        if (live) {
+#pragma unroll 4
+          for (int r = 0; r < nr; ++r) {
+            float av[S], bv[S];
+            load_sub<S>(rows + r * kp + S * p, av);
+            load_sub<S>(rows + r * kp + S * q, bv);
+#pragma unroll
+            for (int u = 0; u < S; ++u)
+#pragma unroll
+              for (int v = 0; v < S; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+          }
+        }
+      }
     }
-    for (int r = r_begin; r < r_end; ++r) {
-      const float* o = O + (int64_t)r * k;
+    if (live) {
 #pragma unroll
-      for (int q = 0; q < kGramAcc; ++q) acc[q] = fmaf(__ldg(o + ii[q]), __ldg(o + jj[q]), acc[q]);
-    }
+      for (int u = 0; u < S; ++u)
 #pragma unroll
-    for (int q = 0; q < kGramAcc; ++q) {
-      const int64_t e = e0 + threadIdx.x + (int64_t)q * kThreads;
-      if (e < kk) part[blockIdx.x * kk + e] = acc[q];
+        for (int v = 0; v < S; ++v) {
+          const int i = S * p + u, j = S * q + v;
+          if (i <= j && j < k) part[(size_t)c * n_up + upper_index(i, j, k)] = acc[u][v];
+        }
     }
   }
 }
 
-__global__ void nmf_gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
-                                       int64_t kk, float* __restrict__ G) {
-  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (e >= kk) return;
+// kFoldEntries entries of G from the partials: G[i][j] = G[j][i] =
+// part[0][e] + ... + part[n_chunks - 1][e], __fadd_rn in chunk order from
+// +0, e = upper_index(i, j). The block stages its entries' partials (a
+// chunk's entries lie together) into shared memory an entry a row, rows an
+// odd number of floats apart, and a thread an entry runs its chain from
+// there, kFoldBatch partials loaded before they are added.
+__device__ void fold_entries(const float* __restrict__ part, int n_chunks, int k, int e0,
+                             float* __restrict__ G, float* s_part) {
+  const int n_up = k * (k + 1) / 2, ne = min(kFoldEntries, n_up - e0);
+  const int C = kFoldTile / kFoldEntries - 1;  // chunks a tile: rows of C | 1 floats
   float g = 0.f;
-  for (int c = 0; c < n_chunks; ++c) g = __fadd_rn(g, part[c * kk + e]);
-  G[e] = g;
+  for (int c0 = 0; c0 < n_chunks; c0 += C) {
+    const int nc = min(C, n_chunks - c0), ncs = nc | 1;
+    __syncthreads();  // the previous tile is read
+    for (int x = threadIdx.x; x < nc * ne; x += kFoldThreads) {
+      const int c = x / ne, e = x - c * ne;
+      copy4(s_part + e * ncs + c, part + (size_t)(c0 + c) * n_up + e0 + e);
+    }
+    wait_copies();
+    if (threadIdx.x < ne) {
+      const float* sp = s_part + threadIdx.x * ncs;
+      int x = 0;
+      for (; x + kFoldBatch <= nc; x += kFoldBatch) {
+        float v[kFoldBatch];
+#pragma unroll
+        for (int u = 0; u < kFoldBatch; ++u) v[u] = sp[x + u];
+#pragma unroll
+        for (int u = 0; u < kFoldBatch; ++u) g = __fadd_rn(g, v[u]);
+      }
+      for (; x < nc; ++x) g = __fadd_rn(g, sp[x]);
+    }
+  }
+  if (threadIdx.x < ne) {
+    int i = 0, j = e0 + threadIdx.x;  // row i of the upper entries holds k - i of them
+    while (j >= k - i) j -= k - i++;
+    j += i;
+    G[(size_t)i * k + j] = g;
+    G[(size_t)j * k + i] = g;
+  }
 }
 
-// out[v, i] = F[v, i] N[v, i] / ((F G)[v, i] + alpha F[v, i] + eps)
+__global__ void __launch_bounds__(kGramThreads)
+nmf_gram_partial_kernel(const float* __restrict__ O, int other_rows, int k, int chunk,
+                        float* __restrict__ part) {
+  extern __shared__ __align__(16) float s_rows[];
+  gram_partial(O, other_rows, k, chunk, blockIdx.x, part, s_rows);
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+nmf_gram_fold_kernel(const float* __restrict__ part, int n_chunks, int k,
+                     float* __restrict__ G) {
+  __shared__ float s_part[kFoldTile];
+  fold_entries(part, n_chunks, k, blockIdx.x * kFoldEntries, G, s_part);
+}
+
+// The update for k <= 32: kRowSplit threads a row v of F, each kRowOut of
+// its outputs. The block's rows of F and N are staged in shared memory (a
+// warp a row, coalesced; rows k | 1 floats apart, so the rows a warp reads
+// meet no bank conflict), G (k x k) too, its rows 32 floats apart. Out[v,
+// i] is the fmaf chain over l ascending from +0 of F[v, l] G[l, i], F[v, l]
+// read from shared memory as a broadcast to the row's threads and G's rows
+// four entries at a time, then ((acc + alpha x) + eps) and x N / den (IEEE
+// division); each output replaces its N in shared memory, and the block's
+// rows go out coalesced.
+__global__ void __launch_bounds__(kRowThreads)
+nmf_update_rows_kernel(const float* __restrict__ F, const float* __restrict__ N,
+                       const float* __restrict__ G, int k, int rows, float alpha,
+                       float* __restrict__ out) {
+  __shared__ __align__(16) float s_g[kRowK * kRowK];
+  __shared__ float s_f[kRowsPerBlock * (kRowK + 1)];
+  __shared__ float s_n[kRowsPerBlock * (kRowK + 1)];
+  const int ks = k | 1;
+  const int64_t v0 = (int64_t)blockIdx.x * kRowsPerBlock;
+  const int nr = (int)min((int64_t)kRowsPerBlock, rows - v0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* Fb = F + v0 * k;
+  const float* Nb = N + v0 * k;
+  for (int r = warp; r < nr; r += kRowThreads / 32) {
+    for (int x = lane; x < k; x += 32) {
+      copy4(s_f + r * ks + x, Fb + r * k + x);
+      copy4(s_n + r * ks + x, Nb + r * k + x);
+    }
+  }
+  for (int x = threadIdx.x; x < kRowK * kRowK; x += kRowThreads) {
+    const int l = x / kRowK, i = x % kRowK;
+    s_g[x] = l < k && i < k ? G[l * k + i] : 0.f;
+  }
+  wait_copies();
+  const int t = threadIdx.x / kRowSplit, i0 = threadIdx.x % kRowSplit * kRowOut;
+  if (t < nr) {
+    const float* fr = s_f + t * ks;
+    float* nt = s_n + t * ks;
+    float acc[kRowOut];
+#pragma unroll
+    for (int u = 0; u < kRowOut; ++u) acc[u] = 0.f;
+#pragma unroll
+    for (int l = 0; l < kRowK; ++l) {
+      if (l < k) {
+        const float f = fr[l];
+#pragma unroll
+        for (int q = 0; q < kRowOut / 4; ++q) {
+          const float4 g = *reinterpret_cast<const float4*>(s_g + l * kRowK + i0 + 4 * q);
+          acc[4 * q] = fmaf(f, g.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(f, g.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(f, g.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(f, g.w, acc[4 * q + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowOut; ++u) {
+      const int i = i0 + u;
+      if (i < k) {
+        const float x = fr[i];
+        const float den = __fadd_rn(__fadd_rn(acc[u], __fmul_rn(alpha, x)), kNmfEps);
+        nt[i] = __fdiv_rn(__fmul_rn(x, nt[i]), den);
+      }
+    }
+  }
+  __syncthreads();
+  float* ob = out + v0 * k;
+  for (int r = warp; r < nr; r += kRowThreads / 32)
+    for (int x = lane; x < k; x += 32) ob[r * k + x] = s_n[r * ks + x];
+}
+
+// The update for k > 32: a thread an entry, the same chain and expression
+// (F's row and G's column read through L1)
 __global__ void nmf_update_kernel(const float* __restrict__ F, const float* __restrict__ N,
                                   const float* __restrict__ G, int k, int rows, float alpha,
                                   float* __restrict__ out) {
@@ -199,6 +413,20 @@ __global__ void nmf_update_kernel(const float* __restrict__ F, const float* __re
     const float den = __fadd_rn(__fadd_rn(acc, __fmul_rn(alpha, x)), kNmfEps);
     out[e] = __fdiv_rn(__fmul_rn(x, N[e]), den);
   }
+}
+
+// the dynamic shared memory of the Gram kernel at k: its parts
+size_t gram_smem_bytes(int k) {
+  const int kp = (k + 3) & ~3;
+  return kGramParts * (size_t)max(1, kGramRows / kp) * kp * sizeof(float);
+}
+
+// the Gram's dynamic shared memory limit, raised above the default 48 KB
+// where k needs it
+cudaError_t allow_smem(size_t gram_bytes) {
+  if (gram_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(nmf_gram_partial_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gram_bytes);
 }
 
 }  // namespace
@@ -224,26 +452,42 @@ int mt_ica_contrast(const float* Xw, const float* W, int k, int n, int chunk, in
 
 // T33. F and N (rows x k) f32; O (other_rows x k) f32; its rows in n_chunks
 // chunks of `chunk` (n_chunks = ceil(other_rows / chunk) <= 65535); part
-// (n_chunks x k x k) f32 scratch; G (k x k) f32, written with O^T O; out
-// (rows x k) f32 (not F itself: every thread reads k entries of F).
+// (n_chunks x k x k) f32 scratch (its first n_chunks k (k + 1) / 2 floats
+// written); G (k x k) f32, written with O^T O; out (rows x k) f32 (not F
+// itself). events: null, or four cudaEvent_t recorded on the stream before
+// the Gram, the fold and the update and after the update (their times).
 int mt_nmf_update(const float* F, const float* N, const float* O, int rows, int other_rows,
                   int k, float alpha, int chunk, int n_chunks, float* part, float* G,
-                  float* out, void* stream) {
+                  float* out, void* const* events, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  auto mark = [&](int p) {
+    if (events != nullptr) cudaEventRecord((cudaEvent_t)events[p], s);
+  };
   if (k <= 0) return (int)cudaGetLastError();
-  const int64_t kk = (int64_t)k * k;
+  mark(0);
   if (n_chunks > 0) {
-    nmf_gram_partial_kernel<<<n_chunks, kThreads, 0, s>>>(O, other_rows, k, chunk, part);
-    nmf_gram_reduce_kernel<<<(unsigned)((kk + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        part, n_chunks, kk, G);
+    const size_t smem = gram_smem_bytes(k);
+    const cudaError_t ok = allow_smem(smem);
+    if (ok != cudaSuccess) return (int)ok;
+    nmf_gram_partial_kernel<<<n_chunks, kGramThreads, smem, s>>>(O, other_rows, k, chunk, part);
+    mark(1);
+    const int64_t n_up = (int64_t)k * (k + 1) / 2;
+    nmf_gram_fold_kernel<<<(int)((n_up + kFoldEntries - 1) / kFoldEntries), kFoldThreads, 0, s>>>(
+        part, n_chunks, k, G);
   } else {
-    cudaMemsetAsync(G, 0, kk * sizeof(float), s);
+    mark(1);
+    cudaMemsetAsync(G, 0, (size_t)k * k * sizeof(float), s);
   }
-  const int64_t total = (int64_t)k * rows;
-  if (total <= 0) return (int)cudaGetLastError();
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
-  nmf_update_kernel<<<(int)blocks, kThreads, 0, s>>>(F, N, G, k, rows, alpha, out);
+  mark(2);
+  if (rows > 0 && k <= kRowK) {
+    const int blocks = (int)(((int64_t)rows + kRowsPerBlock - 1) / kRowsPerBlock);
+    nmf_update_rows_kernel<<<blocks, kRowThreads, 0, s>>>(F, N, G, k, rows, alpha, out);
+  } else if (rows > 0) {
+    int64_t blocks = ((int64_t)k * rows + kThreads - 1) / kThreads;
+    if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
+    nmf_update_kernel<<<(int)blocks, kThreads, 0, s>>>(F, N, G, k, rows, alpha, out);
+  }
+  mark(3);
   return (int)cudaGetLastError();
 }
 

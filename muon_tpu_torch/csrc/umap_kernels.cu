@@ -87,7 +87,7 @@
 // the arithmetic, and at an epoch where half the edges are due (epoch 8)
 // the due edges' phase takes 20,000 cycles.
 // More than 8 negatives a vertex take the first design's kernel
-// (umap_epoch_kernel, T41's), which gives the same bits.
+// (umap_epoch_kernel: a warp per vertex), which gives the same bits.
 // powf of d2 runs only on d2 > 0 (its exponent b - 1 is negative).
 //
 // Components: from 9 components on a second kernel takes the number of
@@ -99,17 +99,23 @@
 // so every walk sees the same due edges.
 //
 // T41:
-// The first design's kernel (umap_epoch_kernel: a warp per vertex, lane q
-// mod 32 walking the row, the butterfly by shuffles) runs on a window of the
-// vertices: [v0, v0 + nv), a rank's block of the sharded layout. The
-// window's edges (heads in the window, sorted by head) arrive as a CSR over
-// the window, with their tails, eps and eons; dc_exp and the negatives are
-// the window's; emb is the whole layout (the tails and negatives lie
-// anywhere) and emb_out receives the window's new rows. The sharded
-// reference has no stride buckets: T41 passes no shift, and an edge is due
-// when eons <= epoch + 1. The sums are T13's, in T13's order. Every update of
-// the epoch is summed from emb before any is applied (the reference's
-// sum-first order), and the caller gathers the windows into the next layout.
+// T13's run kernel on a window of the vertices: [v0, v0 + nv), a rank's
+// block of the sharded layout. The window's edges (heads in the window,
+// sorted by head) arrive as a CSR over the window, with their tails, eps and
+// eons; dc_exp and the negatives are the window's; emb is the whole layout
+// (the tails and negatives lie anywhere) and emb_out receives the window's
+// new rows. The plan is ops/umap.epoch_plan's runs over the window's CSR, so
+// a block's vertices are local: vertex w's row of emb is v0 + w, and a self
+// hit among its negatives is v0 + w. The sharded reference has no stride
+// buckets: the kernel is built without the shift (no byte an edge read), and
+// an edge is due when eons <= epoch + 1. The sums are T13's, in T13's lane
+// order, so the outputs are the first design's bits (umap_epoch_kernel on the
+// window, which still takes more than 8 negatives, and the run-time-dim
+// kernel from 9 components on). Every update of the epoch is summed from emb
+// before any is applied (the reference's sum-first order), and the caller
+// gathers the windows into the next layout. Bound: 4 bytes an edge for eons,
+// 12 more a due edge, the window's indptr, dc_exp, negatives and rows, and
+// the layout once.
 //
 // Interface: plain C functions (loaded with ctypes), as in
 // sparse_kernels.cu. Each launches on the stream it is given, allocates
@@ -318,15 +324,19 @@ __device__ __forceinline__ void negative_row(const float* ei, const float* __res
   }
 }
 
-template <int DIM>
+// The vertex window [v0, v0 + n): the plan, indptr, dc_exp, negs and
+// emb_out are the window's (indexed by w), its vertex w is row v0 + w of emb
+// (T13: v0 = 0, the whole layout). SHIFT: each edge's stride is read from
+// shift; without it every edge has stride 1 (T41) and no shift is read.
+template <int DIM, bool SHIFT = true>
 __global__ void __launch_bounds__(kRunThreads, kRunBlocksPerSm)
 umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_out,
                        const int* __restrict__ indptr, const int* __restrict__ tails,
                        const float* __restrict__ eps, float* __restrict__ eons,
                        const signed char* __restrict__ shift,
                        const float* __restrict__ dc_exp, const int* __restrict__ negs,
-                       const int2* __restrict__ plan, int neg_rate, int epoch, float alpha,
-                       float a, float b, float gamma) {
+                       const int2* __restrict__ plan, int v0, int neg_rate, int epoch,
+                       float alpha, float a, float b, float gamma) {
   using Shape = RunShape<DIM>;
   constexpr int C = Shape::kEdges;
   constexpr int kScan = Shape::kScan;
@@ -347,7 +357,8 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
   const bool chunked = E1 - E0 > C;  // one vertex's row, walked in chunks of C
   if (nv < 0 || nv > kRunVertices || (chunked && nv != 1)) __trap();  // not a plan for DIM
   for (int t = tid; t <= nv; t += kRunThreads) copy4(s_ptr + t, indptr + vb0 + t);
-  for (int t = tid; t < nv * DIM; t += kRunThreads) copy4(s_ei + t, emb + (int64_t)vb0 * DIM + t);
+  for (int t = tid; t < nv * DIM; t += kRunThreads)
+    copy4(s_ei + t, emb + (int64_t)(v0 + vb0) * DIM + t);
 
   const float due_by = (float)epoch + 1.0f;
   const float c_att = -2.0f * a * b;
@@ -361,7 +372,7 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
     // bytes past its end read one by one)
     const int w0 = c0 & ~3, nw = (c0 + n - w0 + 3) / 4;
     for (int off = tid; off < n; off += kRunThreads) copy4(s_eo + off, eons + c0 + off);
-    for (int w = tid; w < nw; w += kRunThreads) {
+    for (int w = tid; SHIFT && w < nw; w += kRunThreads) {
       const int at = w0 + 4 * w;
       if (at + 4 <= c0 + n) {
         copy4(s_sh + 4 * w, shift + at);
@@ -377,8 +388,8 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
     for (int j = 0; j < kScan; ++j) {
       const int off = tid + j * kRunThreads;
       if (off < n) {
-        const int sh = s_sh[c0 - w0 + off];
-        if (!(epoch & ((1 << sh) - 1)) && s_eo[off] <= due_by) due |= 1u << j;
+        const bool runs = !SHIFT || !(epoch & ((1 << s_sh[c0 - w0 + off]) - 1));
+        if (runs && s_eo[off] <= due_by) due |= 1u << j;
       }
     }
     // the due list by a prefix sum of the threads' counts (its order is free:
@@ -499,7 +510,7 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
   // the shuffles (a thread past the run's vertices computes on nothing)
   const int vt = tid / 2, h = tid % 2;
   const bool live = vt < nv;
-  const int i = vb0 + vt;
+  const int w = vb0 + vt, i = v0 + w;  // the vertex in the window and in emb
   float ei[DIM];
 #pragma unroll
   for (int k = 0; k < DIM; ++k) ei[k] = live ? s_ei[vt * DIM + k] : 0.f;
@@ -508,12 +519,12 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
 #pragma unroll
   for (int q = 0; q < kHalf; ++q) {
     const int r = 2 * q + h;
-    negative_row<DIM>(ei, emb, i, live && r < neg_rate ? negs[(int64_t)i * neg_rate + r] : i, a,
+    negative_row<DIM>(ei, emb, i, live && r < neg_rate ? negs[(int64_t)w * neg_rate + r] : i, a,
                       b, gamma, un[q]);
   }
   const int r0 = live ? s_ptr[vt] - E0 : 0, L = live ? s_ptr[vt + 1] - s_ptr[vt] : 0;
   const bool own = !chunked && L <= kThreadRow;
-  const float dc = live ? dc_exp[i] : 0.f;
+  const float dc = live ? dc_exp[w] : 0.f;
 #pragma unroll
   for (int k = 0; k < DIM; ++k) {
     // this thread's lanes of the negatives' tree, and its partner's
@@ -544,7 +555,7 @@ umap_epoch_runs_kernel(const float* __restrict__ emb, float* __restrict__ emb_ou
     } else {
       up = s_up[vt * DIM + k];
     }
-    emb_out[(int64_t)i * DIM + k] = __fadd_rn(
+    emb_out[(int64_t)w * DIM + k] = __fadd_rn(
         ei[k], __fmul_rn(alpha, __fadd_rn(__fmul_rn(2.0f, up), __fmul_rn(neg, dc))));
   }
 }
@@ -849,6 +860,38 @@ int epoch_window(const float* emb, float* emb_out, const int* indptr, const int*
   return (int)cudaGetLastError();
 }
 
+// One epoch of the run kernel over the plan's n_blocks runs of the window
+// [v0, ...) (T13: v0 = 0 with the strides of shift; T41: no shift).
+template <bool SHIFT>
+int epoch_runs(const float* emb, float* emb_out, const int* indptr, const int* tails,
+               const float* eps, float* eons, const signed char* shift, const float* dc_exp,
+               const int* negs, const int* plan, int n_blocks, int v0, int dim, int neg_rate,
+               int epoch, float alpha, float a, float b, float gamma, cudaStream_t s) {
+  if (dim < 2 || neg_rate < 0 || n_blocks <= 0 || v0 < 0) return (int)cudaErrorInvalidValue;
+#define MT_UMAP_RUNS(D)                                                                  \
+  case D: {                                                                              \
+    static const cudaError_t ok = cudaFuncSetAttribute(                                  \
+        umap_epoch_runs_kernel<D, SHIFT>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+        RunShape<D>::kBytes);                                                            \
+    if (ok != cudaSuccess) return (int)ok;                                               \
+    umap_epoch_runs_kernel<D, SHIFT><<<n_blocks, kRunThreads, RunShape<D>::kBytes, s>>>( \
+        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs,                     \
+        reinterpret_cast<const int2*>(plan), v0, neg_rate, epoch, alpha, a, b, gamma);   \
+    break;                                                                               \
+  }
+  switch (dim) {
+    MT_UMAP_RUNS(2)
+    MT_UMAP_RUNS(3)
+    MT_UMAP_RUNS(4)
+    MT_UMAP_RUNS(5)
+    MT_UMAP_RUNS(6)
+    MT_UMAP_RUNS(7)
+    MT_UMAP_RUNS(8)
+  }
+#undef MT_UMAP_RUNS
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -886,42 +929,29 @@ int mt_umap_epoch(const float* emb, float* emb_out, const int* indptr,
   if (plan == nullptr || shift == nullptr || dim > kMaxDim || neg_rate > kMaxNegRun)
     return epoch_window(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, 0, n,
                         dim, neg_rate, epoch, alpha, a, b, gamma, s);
-  if (dim < 2 || neg_rate < 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
-#define MT_UMAP_RUNS(D)                                                                  \
-  case D: {                                                                              \
-    static const cudaError_t ok = cudaFuncSetAttribute(                                  \
-        umap_epoch_runs_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,          \
-        RunShape<D>::kBytes);                                                            \
-    if (ok != cudaSuccess) return (int)ok;                                               \
-    umap_epoch_runs_kernel<D><<<n_blocks, kRunThreads, RunShape<D>::kBytes, s>>>(        \
-        emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs,                     \
-        reinterpret_cast<const int2*>(plan), neg_rate, epoch, alpha, a, b, gamma);       \
-    break;                                                                               \
-  }
-  switch (dim) {
-    MT_UMAP_RUNS(2)
-    MT_UMAP_RUNS(3)
-    MT_UMAP_RUNS(4)
-    MT_UMAP_RUNS(5)
-    MT_UMAP_RUNS(6)
-    MT_UMAP_RUNS(7)
-    MT_UMAP_RUNS(8)
-  }
-#undef MT_UMAP_RUNS
-  return (int)cudaGetLastError();
+  return epoch_runs<true>(emb, emb_out, indptr, tails, eps, eons, shift, dc_exp, negs, plan,
+                          n_blocks, 0, dim, neg_rate, epoch, alpha, a, b, gamma, s);
 }
 
 // T41. emb (n x dim) f32, the whole layout; the window [v0, v0 + nv) of it:
 // indptr (nv+1) int32 over its edges, tails (global ids), eps and eons (E_w,)
 // f32, dc_exp (nv,) f32, negs (nv x neg_rate) int32; out_blk (nv x dim) f32
-// out, not aliasing emb.
+// out, not aliasing emb. plan (n_blocks + 1) int32 pairs, ops/umap.epoch_plan's
+// runs of the window's vertices, takes T13's run kernel at 2..8 components
+// and up to 8 negatives; without a plan, with more negatives or from 9
+// components on, the first design's kernels, as mt_umap_epoch.
 int mt_umap_epoch_block(const float* emb, float* out_blk, const int* indptr,
                         const int* tails, const float* eps, float* eons,
-                        const float* dc_exp, const int* negs, int v0, int nv, int dim,
-                        int neg_rate, int epoch, float alpha, float a, float b,
-                        float gamma, void* stream) {
-  return epoch_window(emb, out_blk, indptr, tails, eps, eons, nullptr, dc_exp, negs, v0,
-                      nv, dim, neg_rate, epoch, alpha, a, b, gamma, (cudaStream_t)stream);
+                        const float* dc_exp, const int* negs, const int* plan, int n_blocks,
+                        int v0, int nv, int dim, int neg_rate, int epoch, float alpha,
+                        float a, float b, float gamma, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nv <= 0) return (int)cudaGetLastError();
+  if (plan == nullptr || dim > kMaxDim || neg_rate > kMaxNegRun)
+    return epoch_window(emb, out_blk, indptr, tails, eps, eons, nullptr, dc_exp, negs, v0,
+                        nv, dim, neg_rate, epoch, alpha, a, b, gamma, s);
+  return epoch_runs<false>(emb, out_blk, indptr, tails, eps, eons, nullptr, dc_exp, negs,
+                           plan, n_blocks, v0, dim, neg_rate, epoch, alpha, a, b, gamma, s);
 }
 
 // T22. emb (n x dim) f32 in, emb_out (n x dim) f32 out; indptr (n+1) int32

@@ -72,8 +72,8 @@ _SIGNATURES = {
     "mt_umap_epoch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _F, _P),
     "mt_umap_epoch_block_edges": (_I,),  # no launch: the edges a block of T13's runs holds
-    "mt_umap_epoch_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                            _F, _P),
+    "mt_umap_epoch_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _F, _F, _F, _P),
     "mt_membership_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "mt_ivf_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "mt_kmeans_assign": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
@@ -104,7 +104,7 @@ _SIGNATURES = {
     "mt_snf_normalize": (_P, _I, _P, _P, _P),
     "mt_snf_dominate_set": (_P, _I, _I, _P, _P),
     "mt_ica_contrast": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "mt_nmf_update": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P),
+    "mt_nmf_update": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P),
     "mt_tfidf_dense": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     "mt_l2norm_dense": (_P, _I, _I, _P, _P),
     "mt_pwm_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

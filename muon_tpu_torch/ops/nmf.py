@@ -36,6 +36,7 @@ tensors it launches T33 or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -64,6 +65,14 @@ def nmf_update(F: torch.Tensor, numer: torch.Tensor, other: torch.Tensor,
     O = Hᵀ its W update."""
     if not on_card(F):
         return nmf_update_plain(F, numer, other, alpha)
+    return _nmf_launch(F, numer, other, alpha)[0]
+
+
+def _nmf_launch(F, numer, other, alpha, events=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T33's launch on the card: returns the update and the Gram OᵀO it
+    formed (its scratch). ``events``: None, or four ``torch.cuda.Event``s
+    (each recorded once already, so that it exists), which T33 records
+    before its Gram, its fold and its update and after the update."""
     if F.dim() != 2 or other.dim() != 2 or other.shape[1] != F.shape[1]:
         raise ValueError(f"F (rows, k) and other (other_rows, k) must share k, got "
                          f"{tuple(F.shape)} and {tuple(other.shape)}")
@@ -82,10 +91,11 @@ def nmf_update(F: torch.Tensor, numer: torch.Tensor, other: torch.Tensor,
     part = torch.empty((n_chunks, k, k), dtype=torch.float32, device=F.device)
     G = torch.empty((k, k), dtype=torch.float32, device=F.device)
     out = torch.empty_like(F)
+    marks = None if events is None else (ctypes.c_void_p * 4)(*(e.cuda_event for e in events))
     _kernels.launch("nmf_update", F.device, F.data_ptr(), numer.data_ptr(), other.data_ptr(),
                     rows, r_o, k, float(alpha), chunk, n_chunks, part.data_ptr(),
-                    G.data_ptr(), out.data_ptr())
-    return out
+                    G.data_ptr(), out.data_ptr(), marks)
+    return out, G
 
 
 def nmf_update_plain(F, numer, other, alpha):

@@ -3,8 +3,9 @@
     umap_epoch         T13  <- _optimize_layout_bucketed_fn + _segsum_sorted
     membership_matvec  T16  <- _spectral_membership_fn's matvec
     umap_epoch_asym    T22  <- _optimize_fn (move_other, asymmetric)
-    umap_epoch_block   T41  <- parallel/pipeline.py _umap_epochs_fn: T13 on a
-                               rank's vertex window, no stride buckets
+    umap_epoch_block   T41  <- parallel/pipeline.py _umap_epochs_fn: T13's run
+                               kernel on a rank's vertex window, no stride
+                               buckets
                                (all four in csrc/umap_kernels.cu)
 
 The fuzzy graph's edges live on the device as one head-sorted edge list
@@ -333,7 +334,7 @@ class UmapEdges(NamedTuple):
     tails: torch.Tensor   # (E,) int32
     eps: torch.Tensor     # (E,) float32 epochs per sample
     shift: torch.Tensor   # (E,) int8, log2 of the stride
-    plans: dict           # dim -> T13's run plan on the device (epoch_plan), built at first use
+    plans: dict           # dim -> the run plan of T13 or T41 on the device (epoch_plan)
 
 
 def umap_edges(heads, tails, eps, shift, n: int, device: DeviceLike = None,
@@ -380,10 +381,10 @@ def run_plan(indptr, block_edges: int) -> np.ndarray:
 
 
 def epoch_plan(edges: UmapEdges, dim: int):
-    """T13's run plan of ``edges`` at ``dim`` components on their device
-    (``run_plan`` with the kernel's edge capacity for ``dim``), built once and
-    kept in ``edges.plans``; None from 9 components on, where T13 runs
-    without one."""
+    """The run plan of ``edges`` at ``dim`` components on their device
+    (``run_plan`` with the run kernel's edge capacity for ``dim``; over a
+    window's CSR for T41), built once and kept in ``edges.plans``; None from
+    9 components on, where T13 and T41 run without one."""
     if not 2 <= dim <= MAX_RUN_DIM:
         return None
     plan = edges.plans.get(dim)
@@ -536,7 +537,9 @@ def umap_epoch_block(emb: torch.Tensor, out_blk: torch.Tensor, edges: UmapEdges,
     in place where due (eons ≤ epoch + 1); ``dc_exp (nv,)`` and ``negs (nv,
     neg_rate)`` the window's. Writes the window's new rows into ``out_blk
     (nv, dim)`` and returns it: emb + α(2·upd_h + dc·upd_neg), every update
-    summed from ``emb``."""
+    summed from ``emb``. Up to 8 components and 8 negatives the blocks take
+    ``epoch_plan``'s runs of the window's vertices, as T13's do (built at
+    the first call for the window's edges and dim)."""
     if emb.device.type == "cpu":
         return umap_epoch_block_plain(emb, out_blk, edges, eons, dc_exp, negs, v0, epoch,
                                       alpha, a, b, gamma)
@@ -544,11 +547,14 @@ def umap_epoch_block(emb: torch.Tensor, out_blk: torch.Tensor, edges: UmapEdges,
         raise ValueError(f"unsupported device {emb.device}")
     _check_block_args(emb, out_blk, edges, eons, dc_exp, negs, v0)
     nv, dim = out_blk.shape
+    plan = epoch_plan(edges, dim) if negs.shape[1] <= MAX_NEG_RUN else None
     _kernels.launch(
         "umap_epoch_block", emb.device,
         emb.data_ptr(), out_blk.data_ptr(), edges.indptr.data_ptr(), edges.tails.data_ptr(),
-        edges.eps.data_ptr(), eons.data_ptr(), dc_exp.data_ptr(), negs.data_ptr(), int(v0),
-        nv, dim, negs.shape[1], int(epoch), float(alpha), float(a), float(b), float(gamma),
+        edges.eps.data_ptr(), eons.data_ptr(), dc_exp.data_ptr(), negs.data_ptr(),
+        0 if plan is None else plan.data_ptr(), 0 if plan is None else plan.shape[0] - 1,
+        int(v0), nv, dim, negs.shape[1], int(epoch), float(alpha), float(a), float(b),
+        float(gamma),
     )
     return out_blk
 

@@ -288,6 +288,48 @@ def test_gpu_nmf_update_matches_plain(cuda, left, k, n_vec):
     torch.testing.assert_close(tnmf.nmf_update(F, N, O, 1.0), got, rtol=0, atol=0)
 
 
+TINY = torch.finfo(torch.float32).tiny  # the smallest normal float32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,rows,other_rows", [
+    (1, 1000, 5000), (32, 3000, 40_000), (33, 3000, 2000), (128, 500, 3000),
+    (30, 1, 64 * 528 * 3),  # one row; 528 chunks of the other factor's rows
+    (30, 700, 64 * 100 + 5),  # ⌈other_rows / 64⌉ = 101 chunks
+    (200, 300, 30_000),  # 2²⁴ / k² = 419 chunks
+    (30, 257, 40),  # other_rows below 64: one chunk
+    (7, 100, 0),  # no other rows: G = 0
+])
+def test_gpu_nmf_update_edges_match_plain(cuda, k, rows, other_rows):
+    # the Gram's chunk limits, k at the row path's edge (32) and past it, one
+    # row, inputs holding subnormal entries: within rtol 1e-5 of plain where
+    # the result is a normal float32 (a subnormal's spacing is no relative
+    # precision, so there atol the smallest normal), the same bits twice, and
+    # the Gram the kernel forms symmetric bit for bit and within rtol 1e-5 of
+    # OᵀO (all terms positive)
+    gen = torch.Generator(device=cuda).manual_seed(k + rows)
+    F = torch.rand((rows, k), generator=gen, device=cuda)
+    N = torch.rand((rows, k), generator=gen, device=cuda)
+    O = torch.rand((other_rows, k), generator=gen, device=cuda)
+    F[::7, 0] = 3e-40
+    N[1::5, k - 1] = 5e-39
+    O[::3, k // 2] = 1e-41
+    n_chunks = min(528, -(-other_rows // 64), max(1, 2**24 // (k * k)))
+    assert n_chunks == {64 * 528 * 3: 528, 64 * 100 + 5: 101, 30_000: 419, 40: 1, 0: 0}.get(
+        other_rows, n_chunks)
+    _kernels.reset_launch_counts()
+    got, G = tnmf._nmf_launch(F, N, O, 1.0)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["nmf_update"] == 1
+    ref = tnmf.nmf_update_plain(F, N, O, 1.0)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=TINY)
+    again, G2 = tnmf._nmf_launch(F, N, O, 1.0)
+    assert torch.equal(got, again) and torch.equal(G, G2)
+    assert torch.equal(G, G.T)
+    torch.testing.assert_close(G, O.T @ O, rtol=1e-5, atol=TINY)
+    assert torch.equal(tnmf.nmf_update(F, N, O, 1.0), got)
+
+
 @pytest.mark.gpu
 def test_gpu_scopen_matches_cpu(cuda):
     observed, _ = _openness()

@@ -635,6 +635,120 @@ def test_gpu_umap_epoch_block_matches_plain(cuda):
     torch.testing.assert_close(outs[0][1], outs[1][1])
 
 
+def _block_case(cuda, dim, epoch, neg_rate, v0, seed=0):
+    """One epoch's arguments of T41 on the window [v0, v0 + 3000) of a layout
+    of v0 + 4000 vertices: skewed rows, a run of 40 empty rows, rows of 0-97
+    edges and at each dim's chunk length (the run kernel's C: 3072 edges at
+    dim 2, 2048 at 3, 768 at 8) and a 9000-edge row walked in chunks; tails
+    anywhere in the layout; no strides; eons that leave some edges due at
+    ``epoch``; negatives with self hits (v0 + w), and d2 = 0 on some of the
+    long row's edges. Rows longer than 96 edges keep one due edge in 100 and
+    the repulsion's weight is clipped at 10, as tests/test_torch_umap.py's
+    run cases: a float32 sum of thousands of attractions moves a vertex so
+    far that an ulp passes plain's atol, so such sums are held by the first
+    design's bits alone."""
+    from muon_tpu_torch.ops import umap as tu
+
+    rng = np.random.default_rng(seed)
+    nv = 3000
+    L = rng.geometric(1 / 25, nv) - 1
+    L[100:140] = 0
+    special = [0, 1, 31, 32, 33, 64, 65, 96, 97, 767, 768, 769, 2047, 2048, 2049, 3071, 3072,
+               3073, 9000]
+    L[rng.choice(np.arange(200, nv), len(special), replace=False)] = special
+    n = v0 + nv + 1000
+    heads = (v0 + np.repeat(np.arange(nv), L)).astype(np.int32)
+    tails = rng.integers(0, n, len(heads)).astype(np.int32)
+    w = np.maximum(rng.random(len(heads)) ** 2, 0.005)
+    eps = (1.0 / w).astype(np.float32)
+    eps[rng.random(len(eps)) < 0.2] = 1.0
+    eons = eps * rng.uniform(0.3, 3.0, len(eps)).astype(np.float32) + np.float32(epoch // 2)
+    long_edges = np.flatnonzero(L[heads - v0] > 96)
+    eons[long_edges[long_edges % 100 != 0]] = 1e9
+    edges = tu.umap_edges(heads, tails, eps, np.zeros(len(heads), np.int8), nv, cuda, v0=v0)
+    gen = torch.Generator(device=cuda).manual_seed(seed + dim)
+    emb = (torch.rand((n, dim), generator=gen, device=cuda) * 20 - 10).contiguous()
+    hub = v0 + int(np.argmax(L))
+    emb[torch.from_numpy(tails[heads == hub][:7]).long().to(cuda)] = emb[hub].clone()
+    negs = torch.randint(0, n, (nv, neg_rate), generator=gen, dtype=torch.int32, device=cuda)
+    if neg_rate:
+        negs[:300, -1] = v0 + torch.arange(300, device=cuda, dtype=torch.int32)
+    dc = np.zeros(nv, np.float32)
+    np.add.at(dc, heads - v0, 1.0 / eps)
+    a, b = tu.find_ab_params()
+    return (emb, edges, torch.from_numpy(eons).to(cuda),
+            torch.from_numpy(np.minimum(dc, 10)).to(cuda), negs,
+            (v0, epoch, tu.epoch_alpha(1.0, epoch, 200), a, b, 1.0))
+
+
+def _t41_first_design(emb, edges, eons, dcb, negs, v0, epoch, alpha, a, b, gamma):
+    """T41's entry point without a plan: the first design's kernel."""
+    from muon_tpu_torch.ops import _kernels
+
+    nv, dim = edges.indptr.shape[0] - 1, emb.shape[1]
+    out = torch.empty((nv, dim), device=emb.device)
+    _kernels.launch("umap_epoch_block", emb.device, emb.data_ptr(), out.data_ptr(),
+                    edges.indptr.data_ptr(), edges.tails.data_ptr(), edges.eps.data_ptr(),
+                    eons.data_ptr(), dcb.data_ptr(), negs.data_ptr(), 0, 0, int(v0), nv, dim,
+                    negs.shape[1], int(epoch), float(alpha), float(a), float(b), float(gamma))
+    return out
+
+
+def test_cpu_umap_epoch_block_builds_no_plan():
+    # on the CPU T41's wrapper takes its plain version: it builds no run plan
+    # (which needs the kernel library) and counts no launch
+    from muon_tpu_torch.ops import _kernels
+    from muon_tpu_torch.ops import umap as tu
+
+    cpu = torch.device("cpu")
+    emb, edges, eons, dcb, negs, args = _block_case(cpu, 2, 8, 5, 1000)
+    nv = edges.indptr.shape[0] - 1
+    e_k, e_p = eons.clone(), eons.clone()
+    _kernels.reset_launch_counts()
+    got = tu.umap_epoch_block(emb, torch.empty((nv, 2)), edges, e_k, dcb, negs, *args)
+    assert not edges.plans and not any(_kernels.launch_counts().values())
+    want = tu.umap_epoch_block_plain(emb, torch.empty((nv, 2)), edges, e_p, dcb, negs, *args)
+    assert torch.equal(got, want) and torch.equal(e_k, e_p)
+    assert bool((e_k != eons).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3, 8])
+@pytest.mark.parametrize("epoch", [0, 8, 13])
+@pytest.mark.parametrize("neg_rate,v0", [(5, 1000), (0, 0), (8, 1000), (12, 1000)])
+def test_gpu_umap_epoch_block_runs_keep_the_first_design(cuda, dim, epoch, neg_rate, v0):
+    # T41 with its plan (T13's run kernel on the window) against the first
+    # design's kernel, reached through the C entry with no plan: the same bits
+    # of out_blk and eons, twice; against plain within atol 1e-4 at scale 10,
+    # eons exactly. With 12 negatives T41 builds no plan and takes the first
+    # design's kernel itself, so there the two are one kernel
+    from muon_tpu_torch.ops import _kernels
+    from muon_tpu_torch.ops import umap as tu
+
+    emb, edges, eons, dcb, negs, args = _block_case(cuda, dim, epoch, neg_rate, v0)
+    nv = edges.indptr.shape[0] - 1
+    outs, eonss = [], []
+    _kernels.reset_launch_counts()
+    for _ in range(2):
+        e = eons.clone()
+        outs.append(tu.umap_epoch_block(emb, torch.empty((nv, dim), device=cuda), edges, e,
+                                        dcb, negs, *args))
+        eonss.append(e)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["umap_epoch_block"] == 2
+    assert (dim in edges.plans) == (neg_rate <= tu.MAX_NEG_RUN)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(eonss[0], eonss[1])
+    assert bool((eonss[0] != eons).any()) and bool((eonss[0] == eons).any())
+    e_f = eons.clone()
+    assert torch.equal(outs[0], _t41_first_design(emb, edges, e_f, dcb, negs, *args))
+    assert torch.equal(eonss[0], e_f)
+    e_p = eons.clone()
+    ref = tu.umap_epoch_block_plain(emb, torch.empty((nv, dim), device=cuda), edges, e_p, dcb,
+                                    negs, *args)
+    torch.testing.assert_close(outs[0], ref, rtol=0, atol=1e-4)
+    assert torch.equal(eonss[0], e_p)
+
+
 @pytest.mark.gpu
 def test_gpu_tfidf_modes_match_plain(cuda):
     from muon_tpu_torch.ops import sparse as dsp
